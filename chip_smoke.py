@@ -7,16 +7,29 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, one line each (any failure exits non-zero):
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compiles csrc/fused_mlp_fwd.cu with nvcc (sm_90a);
-3. kernel: the fused posenc+MLP kernel against its plain PyTorch version at
-   the full 8x256 width, in f32 and bf16;
+2. build: compiles csrc/fused_mlp_fwd.cu (K1) and csrc/fused_mlp_bwd.cu
+   (K4) with nvcc (sm_90a), one process each, at once;
+3. kernel: K1 against its plain PyTorch version at the full 8x256 width,
+   in f32 and bf16;
 4. render: renders the first 3 poses of the 40-pose orbit at the lego
    half-res recipe (400x400, 64+128 samples, bf16, white background)
-   through ``render_path``; checks shapes, finiteness, 30 kernel launches,
+   through ``render_path``; checks shapes, finiteness, 30 K1 launches,
    and 4,096 rays strided over frame 0 against the plain (unfused) path;
-5. times: the kernel at the main path's shapes (a 32,768-ray chunk, both
+5. times: K1 at the serving path's shapes (a 32,768-ray chunk, both
    levels), checked against its plain version there and timed beside its
-   bound, its plain version and a bf16 ``torch.matmul`` chain.
+   bound, its plain version and a bf16 ``torch.matmul`` chain;
+6. grad: K4 against its plain version at 8x256, f32 and bf16, R=1024 and
+   ragged R=1000, S=64 and 192, and (bf16) at the training shapes R=4096;
+   two launches must be bit-identical;
+7. train: ``train()`` at the lego recipe with N_rand=4096 on 8 views of
+   400x400 rendered by a seeded teacher net through ``render_path``: 3
+   warm-up and 30 timed steps with exactly 2 K1 and 2 K4 launches each,
+   finite and falling loss, ms/step, rays/s and MFU; then 3 steps under
+   ``torch.profiler`` for the device time by kernel and the idle share;
+8. grads: one fused step's weight grads against the plain (unfused) path
+   on the same batch and draws;
+9. bwd times: K4 at the training shapes beside its bound, its plain
+   version and the backward's big products as bf16 ``torch.matmul``.
 
 The last two lines are a JSON object of kernel numbers and the
 ``{"ok": true, "device": ...}`` result. Weights are random, from seeds.
@@ -25,6 +38,7 @@ The script imports nothing of JAX or of ``nerf_tpu``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -58,6 +72,21 @@ BF16_TOL = 2e-3
 # other bf16 neighbour; one such 1-ulp flip moves rgb_map by up to ~1e-3.
 RENDER_RGB_TOL = 1e-3
 RENDER_CHECK_RAYS = 4096  # a strided sample over the whole frame
+N_RAND = 4096  # the training batch (the reference's default)
+TRAIN_VIEWS = 8
+WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 3, 30, 3
+K4_F32_TOL = 1e-4  # per-leaf relative L2; sums over points in another order only
+# K4 bf16 against its plain version, per-leaf relative L2: both round the
+# same operands, and a cotangent whose f32 sum lands on the other side of a
+# bf16 rounding edge rounds to the other neighbour. ~7x the largest value
+# measured on an H100 (1.345e-4, W05e at R=1024, S=64; PERF.md), far inside
+# nerf_tpu's 0.05 (tests/test_fused_mlp.py:175-183).
+K4_BF16_TOL = 1e-3
+# one fused training step's grads against the plain (unfused) path, per-leaf
+# relative L2: the paths round to bf16 at other places (the plain path rounds
+# the embedding per input, the kernels merge layer 0 with the skip), and the
+# fine depths follow the coarse weights. nerf_tpu's bf16 grad bound.
+STEP_GRAD_TOL = 5e-2
 
 
 def phase(tag: str, **fields) -> None:
@@ -150,14 +179,14 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     phase("device", name=kind, count=torch.cuda.device_count(), nvidia_smi=repr(smi))
 
-    # 2. build
+    # 2. build (one nvcc per source, all at once)
     t0 = time.perf_counter()
-    _build.load("fused_mlp_fwd")
-    log = _build.build_log.get("fused_mlp_fwd", "")
-    phase("build", seconds=f"{time.perf_counter() - t0:.1f}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    _build.load_all(["fused_mlp_fwd", "fused_mlp_bwd"])
+    phase("build", seconds=f"{time.perf_counter() - t0:.1f}", sources=2)
+    for name in ("fused_mlp_fwd", "fused_mlp_bwd"):
+        for line in _build.build_log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip(), flush=True)
 
     # 3. kernel against its plain version at full width
     cfg = MLPConfig(width=WIDTH)
@@ -199,6 +228,7 @@ def main() -> int:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = fused_mlp.fused_rays_planes.launches
+    render_k4 = fused_mlp.fused_rays_planes_bwd.launches
     n_chunks = -(-H * W // CHUNK)
     if rgbs.shape != (N_FRAMES, H, W, 3) or disps.shape != (N_FRAMES, H, W):
         raise RuntimeError(f"bad output shapes {rgbs.shape} {disps.shape}")
@@ -206,6 +236,8 @@ def main() -> int:
         raise RuntimeError("non-finite frame values")
     if launches != N_FRAMES * 2 * n_chunks:
         raise RuntimeError(f"{launches} kernel launches, expected {N_FRAMES * 2 * n_chunks}")
+    if render_k4 != 0:
+        raise RuntimeError(f"serving launched the backward kernel {render_k4} times")
 
     # rays strided over all of frame 0 through the plain (unfused) path
     plain = NeRFModel(pe_pts, pe_views, cfg, cfg, compute_dtype="bfloat16", fused=False)
@@ -260,12 +292,19 @@ def main() -> int:
                          ("bytes_ms", bytes_ms), ("library_ms", library_ms)):
                 totals[k] += v
 
+    # 6.-9. the training slice
+    k4_errs = check_k4(coarse, pe_pts, pe_views, rng, dev)
+    train_info = train_phase(scene, dev)
+    step_grads_phase(train_info, dev)
+    k4 = k4_times(cfg, pe_pts, pe_views, dev)
+
     kernels = [{
         "name": "fused_mlp_fwd",
         "route": "cuda",
         "source": "nerf_tpu_torch/csrc/fused_mlp_fwd.cu",
         "replaces": "nerf_tpu/ops/fused_mlp.py:464",
-        "launches": launches,
+        # serving's 30 (3 frames) plus training's 60 (30 steps)
+        "launches": launches + train_info["k1_launches"],
         "max_abs_err": max(bf16_errs),  # bf16, R=1024 and the chunk shapes
         # per 32,768-ray chunk: one coarse (S=64) plus one fine (S=192) launch
         "ms": totals["ms"],
@@ -273,11 +312,271 @@ def main() -> int:
         "bound_ms": max(totals["ops_ms"], totals["bytes_ms"]),
         "bound_by": "operations" if totals["ops_ms"] >= totals["bytes_ms"] else "bytes",
         "library_ms": totals["library_ms"],
+    }, {
+        "name": "fused_mlp_bwd",
+        "route": "cuda",
+        "source": "nerf_tpu_torch/csrc/fused_mlp_bwd.cu",
+        "replaces": "nerf_tpu/ops/fused_mlp.py:621",
+        "launches": train_info["k4_launches"],
+        "max_abs_err": max(k4_errs),  # bf16 weight grads, every checked shape
+        # per training step at N_rand=4096: one coarse (S=64) plus one fine (S=192) launch
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": max(k4["ops_ms"], k4["bytes_ms"]),
+        "bound_by": "operations" if k4["ops_ms"] >= k4["bytes_ms"] else "bytes",
+        "library_ms": k4["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def check_k4(mlp, pe_pts, pe_views, rng, dev):
+    """6. K4 against its plain version; returns the bf16 max abs errors."""
+    from nerf_tpu_torch.ops import fused_mlp
+
+    errs = []
+    shapes = [(1024, N_SAMPLES), (1000, N_SAMPLES), (1024, N_SAMPLES + N_IMPORTANCE),
+              (1000, N_SAMPLES + N_IMPORTANCE)]
+    cases = [(torch.float32, K4_F32_TOL, shapes), (torch.bfloat16, K4_BF16_TOL, shapes + [
+        (N_RAND, N_SAMPLES), (N_RAND, N_SAMPLES + N_IMPORTANCE)])]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for dtype, tol, dtype_shapes in cases:
+        with torch.no_grad():
+            kp = fused_mlp.pack_params(mlp, pe_pts, pe_views, dtype)
+        for R, S in dtype_shapes:
+            rays = make_rays(rng, R, S, dev)
+            # the cotangent of an image loss: small and of one sign per channel
+            g = (0.5 + torch.rand(4, R, S, device=dev, generator=gen)) * 1e-4
+            before = fused_mlp.fused_rays_planes_bwd.launches
+            got = fused_mlp.fused_rays_planes_bwd(kp, *rays, g)
+            again = fused_mlp.fused_rays_planes_bwd(kp, *rays, g)
+            torch.cuda.synchronize()
+            if fused_mlp.fused_rays_planes_bwd.launches != before + 2:
+                raise RuntimeError("the K4 launch counter did not move")
+            ref = fused_mlp.fused_rays_planes_bwd_reference(kp, *rays, g)
+            worst, leaf = max((rel_l2(got[n], ref[n]), n) for n in fused_mlp.KP_NAMES)
+            max_abs = max(float((got[n] - ref[n]).abs().max()) for n in fused_mlp.KP_NAMES)
+            scale = max(float(ref[n].abs().max()) for n in fused_mlp.KP_NAMES)
+            same = all(torch.equal(got[n], again[n]) for n in fused_mlp.KP_NAMES)
+            finite = all(bool(torch.isfinite(got[n]).all()) for n in fused_mlp.KP_NAMES)
+            phase("grad", dtype=str(dtype).split(".")[-1], R=R, S=S,
+                  worst_leaf_rel_l2=f"{worst:.3e}", leaf=leaf, tol=tol,
+                  max_abs=f"{max_abs:.3e}", grad_max_abs=f"{scale:.3e}",
+                  bit_identical=same)
+            if not (finite and same and worst <= tol):
+                raise RuntimeError(f"K4 disagrees with its plain version or is not "
+                                   f"deterministic: {leaf} {worst} > {tol}, same={same}")
+            if dtype == torch.bfloat16:
+                errs.append(max_abs)
+            del got, again, ref
+            torch.cuda.empty_cache()
+    return errs
+
+
+def train_phase(scene, dev):
+    """7. train() at the lego recipe, N_rand=4096, on a teacher's views."""
+    from nerf_tpu_torch import config
+    from nerf_tpu_torch.data.scene import Scene
+    from nerf_tpu_torch.models.factory import make_model
+    from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from nerf_tpu_torch.ops import fused_mlp
+    from nerf_tpu_torch.train.loop import render_path, render_settings_from_config, train
+    from nerf_tpu_torch.utils.profiler import StepTimer, device_peak_flops
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = config.load_config([
+        f"--config={os.path.join(here, 'configs', 'lego.txt')}", f"--N_rand={N_RAND}",
+        f"--n_iters={WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS}", "--i_print=10", "--i_img=0",
+        "--i_weights=0", "--i_testset=0", "--i_video=0", "--data_axis=1",
+        f"--basedir={os.path.join(here, 'build', 'chip_smoke')}",
+    ])
+    model = make_model(cfg)
+    rs = render_settings_from_config(cfg)
+    # the targets: 8 views on the orbit rendered by a teacher seeded apart
+    teacher = {"coarse": NeRFMLP(model.coarse, seed=1000, device=dev),
+               "fine": NeRFMLP(model.fine, seed=1001, device=dev)}
+    poses = scene.render_poses[:: len(scene.render_poses) // TRAIN_VIEWS][:TRAIN_VIEWS]
+    images, _ = render_path(teacher, model, rs, scene, poses, chunk=CHUNK, device=dev)
+    views = Scene(images=images, poses=np.asarray(poses)[:, :3, :4].astype(np.float32),
+                  render_poses=scene.render_poses, hwf=scene.hwf, K=scene.K,
+                  i_train=np.arange(TRAIN_VIEWS), i_val=np.zeros(0, int),
+                  i_test=np.zeros(0, int), near=NEAR, far=FAR)
+
+    losses, marks = [], {}
+    end = WARMUP_STEPS + TIMED_STEPS
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+
+    def on_step(i, state, aux):
+        if i <= end:
+            losses.append(aux["loss"])
+        if i in (WARMUP_STEPS, end, end + PROFILED_STEPS):
+            torch.cuda.synchronize()
+            marks[i] = time.perf_counter()
+            marks[f"k1_{i}"] = fused_mlp.fused_rays_planes.launches
+            marks[f"k4_{i}"] = fused_mlp.fused_rays_planes_bwd.launches
+            if i == WARMUP_STEPS:  # the main path's counts start here
+                fused_mlp.fused_rays_planes.launches = 0
+                fused_mlp.fused_rays_planes_bwd.launches = 0
+            elif i == end:  # ... and end here; a short profiled window follows
+                prof.__enter__()
+            else:
+                prof.__exit__(None, None, None)
+
+    result = train(cfg, views, hooks={"on_step": on_step}, device=dev)
+    k1, k4 = marks[f"k1_{end}"], marks[f"k4_{end}"]
+    seconds = marks[end] - marks[WARMUP_STEPS]
+    loss = torch.stack(losses).cpu().numpy()
+    timer = StepTimer(N_RAND, 2 * N_SAMPLES + N_IMPORTANCE,
+                      fused_mlp.flops_per_point(model.coarse, model.pe_pts, model.pe_views),
+                      peak=device_peak_flops(dev))
+    rep = timer.report(steps=TIMED_STEPS, elapsed=seconds)
+    first, last = float(loss[:5].mean()), float(loss[-5:].mean())
+    phase("train", steps=TIMED_STEPS, n_rand=N_RAND, ms_per_step=f"{1e3 * seconds / TIMED_STEPS:.3f}",
+          rays_per_s=f"{rep['rays_per_sec']:.0f}",
+          mfu="unknown card" if rep["mfu"] is None else f"{rep['mfu']:.4f}",
+          k1_launches=k1, k4_launches=k4, loss_first5=f"{first:.6f}", loss_last5=f"{last:.6f}",
+          psnr_last=f"{result.history[-1][2]:.3f}" if result.history else "none")
+    if not np.isfinite(loss).all():
+        raise RuntimeError("non-finite training loss")
+    if k1 != 2 * TIMED_STEPS or k4 != 2 * TIMED_STEPS:
+        raise RuntimeError(f"{k1} K1 and {k4} K4 launches in {TIMED_STEPS} steps, "
+                           f"expected {2 * TIMED_STEPS} each")
+    if not last < first:
+        raise RuntimeError(f"the loss did not fall: {first} -> {last}")
+    profile_report(prof, marks[end + PROFILED_STEPS] - marks[end])
+    return {"cfg": cfg, "model": model, "rs": rs, "views": views, "nets": result.state.nets,
+            "k1_launches": k1, "k4_launches": k4}
+
+
+def profile_report(prof, seconds: float) -> None:
+    """Device time of the profiled training steps, by kernel and by group
+    (K1, K4's kernels, the rest), and the device's idle share of the window."""
+    # K4's own workspace memset is one of the step's few "Memset" entries;
+    # those stay in "other", so K4's share reads ~0.01 ms low
+    groups = {"K1": ("fwd_bf16",), "K4": ("bwd_tile_bf16", "ray_prep", "wgrad_bf16",
+                                          "reduce_splits", "reduce_tiles")}
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us, evt.key, evt.count))
+    busy_us = sum(r[0] for r in rows)
+    share = {g: 0.0 for g in list(groups) + ["other"]}
+    for us, key, _ in rows:
+        g = next((g for g, keys in groups.items() if any(k in key for k in keys)), "other")
+        share[g] += us
+    wall_ms = 1e3 * seconds
+    phase("profile", steps=PROFILED_STEPS, wall_ms_per_step=f"{wall_ms / PROFILED_STEPS:.3f}",
+          device_ms_per_step=f"{busy_us / 1e3 / PROFILED_STEPS:.3f}",
+          idle_share=f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f}" if busy_us else "not measured",
+          **{f"{g}_ms_per_step": f"{v / 1e3 / PROFILED_STEPS:.3f}" for g, v in share.items()})
+    for us, key, count in sorted(rows, reverse=True)[:12]:
+        print(f"  device {us / 1e3 / PROFILED_STEPS:8.3f} ms/step  x{count // PROFILED_STEPS:<4d} {key[:90]}",
+              flush=True)
+
+
+def step_grads_phase(info, dev):
+    """8. one fused step's grads against the plain (unfused) path."""
+    from nerf_tpu_torch.geom.rays import get_rays
+    from nerf_tpu_torch.train.step import draw_overrides, loss_fn
+
+    model, rs, views, nets = info["model"], info["rs"], info["views"], info["nets"]
+    c2w = torch.as_tensor(views.poses[0], device=dev)
+    ro, rd = (t.reshape(-1, 3) for t in get_rays(H, W, views.K, c2w))
+    idx = torch.arange(1024, device=dev) * (H * W // 1024)
+    ro, rd = ro[idx], rd[idx]
+    target = torch.as_tensor(views.images[0], device=dev).reshape(-1, 3)[idx]
+    vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    near = torch.full((1024,), NEAR, device=dev)
+    far = torch.full((1024,), FAR, device=dev)
+    ov = draw_overrides(torch.Generator(device=dev).manual_seed(7), 1024, rs)
+    params = [p for level in ("coarse", "fine") for p in nets[level].parameters()]
+    names = [f"{level}.{n}" for level in ("coarse", "fine") for n, _ in nets[level].named_parameters()]
+    grads = {}
+    for fused in (True, False):
+        m = dataclasses.replace(model, fused=fused)
+        loss, _ = loss_fn(nets, m, rs, ro, rd, vd, near, far, target, overrides=ov)
+        grads[fused] = torch.autograd.grad(loss, params)
+    worst, leaf = max((rel_l2(a, b), n) for n, a, b in zip(names, grads[True], grads[False]))
+    phase("grads", rays=1024, worst_leaf_rel_l2=f"{worst:.3e}", leaf=leaf, tol=STEP_GRAD_TOL)
+    if not worst <= STEP_GRAD_TOL:
+        raise RuntimeError(f"fused step grads disagree with the plain path: {leaf} {worst}")
+
+
+def backward_matmul_chain(kp, n_pts: int):
+    """The backward's big products as bf16 torch.matmul calls at K4's
+    shapes: the forward recompute (W05e, W1..W7, Wf, Wvf), the cotangents
+    d·Wᵀ (Wvf, Wf, W7..W1) and the weight grads aᵀ·d (W05e, W1..W7, Wf,
+    Wvf). A library yardstick, timed here only and used nowhere in the port."""
+    dev, Wd = kp["W1"].device, kp["W1"].shape[0]
+    bf = torch.bfloat16
+    e = torch.randn(n_pts, 64, dtype=bf, device=dev)
+    a = torch.randn(n_pts, Wd, dtype=bf, device=dev)
+    ah = torch.randn(n_pts, Wd // 2, dtype=bf, device=dev)
+    d05 = torch.randn(n_pts, 2 * Wd, dtype=bf, device=dev)
+    w05 = torch.nn.functional.pad(kp["W05e"], (0, 0, 0, 64 - kp["W05e"].shape[0]))
+    trunk = [kp[f"W{i}"] for i in range(1, 8)] + [kp["Wf"]]
+
+    def run():
+        torch.matmul(e, w05)
+        for w in trunk + [kp["Wvf"]]:
+            torch.matmul(a, w)
+        torch.matmul(ah, kp["Wvf"].T)
+        for w in trunk:
+            torch.matmul(a, w.T)
+        torch.matmul(e.T, d05)
+        for _ in trunk:
+            torch.matmul(a.T, a)
+        torch.matmul(a.T, ah)
+
+    return run
+
+
+def k4_times(cfg, pe_pts, pe_views, dev):
+    """9. K4 at the training shapes: one coarse and one fine launch a step."""
+    from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from nerf_tpu_torch.ops import fused_mlp
+
+    mlp = NeRFMLP(cfg, seed=2, device=dev)
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(mlp, pe_pts, pe_views, torch.bfloat16)
+    blobs = fused_mlp.kernel_blobs(kp)
+    wbytes = sum(t.numel() * t.element_size() for t in blobs) + 2 * sum(
+        kp[n].numel() for n in ("W1", "W2", "W3", "W4", "W5", "W6", "W7", "Wf", "Wvf"))
+    gbytes = 4 * sum(v.numel() for v in kp.values())
+    rng = np.random.default_rng(5)
+    out = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
+    for S in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE):
+        rays = make_rays(rng, N_RAND, S, dev)
+        g = torch.rand(4, N_RAND, S, device=dev) * 1e-4
+        n_pts = N_RAND * S
+        ms = cuda_ms(lambda: fused_mlp.fused_rays_planes_bwd(kp, *rays, g, blobs), reps=10, warmup=2)
+        plain_ms = cuda_ms(lambda: fused_mlp.fused_rays_planes_bwd_reference(kp, *rays, g), reps=2)
+        torch.cuda.empty_cache()
+        chain = backward_matmul_chain(kp, n_pts)
+        library_ms = cuda_ms(chain, reps=5)
+        del chain
+        torch.cuda.empty_cache()
+        flops = fused_mlp.bwd_flops(cfg, pe_pts, pe_views, N_RAND, S)
+        io_bytes = N_RAND * 9 * 4 + n_pts * 4 + n_pts * 16 + wbytes + gbytes
+        ops_ms = 1e3 * flops / PEAK_BF16_FLOPS
+        bytes_ms = 1e3 * io_bytes / PEAK_BYTES
+        phase("bwd_times", S=S, points=n_pts, ms=f"{ms:.3f}", bound_ms=f"{max(ops_ms, bytes_ms):.3f}",
+              plain_ms=f"{plain_ms:.3f}", library_ms=f"{library_ms:.3f}",
+              tflops=f"{flops / ms / 1e9:.1f}")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("ops_ms", ops_ms),
+                     ("bytes_ms", bytes_ms), ("library_ms", library_ms)):
+            out[k] += v
+    return out
 
 
 if __name__ == "__main__":

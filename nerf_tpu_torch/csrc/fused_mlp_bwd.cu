@@ -1,0 +1,879 @@
+// Fused NeRF backward for Hopper (sm_90a): the weight gradients of K1's
+// raygen forward (fused_mlp_fwd.cu), from the cotangent of its raw planes.
+//
+// Replaces nerf_tpu/ops/fused_mlp.py::_make_bwd_kernel_rays (the Pallas
+// kernel behind _fused_rays_bwd_rule). Rays and depths are never
+// differentiated on the training path, so only weight grads come out. Per
+// point, with g the cotangent of raw (r, g, b, sigma) and gc = bf16(g):
+//   dWout = [hv | h7]^T gc;  dbout = sum g
+//   d_hv  = (gc Wout[:W/2]^T) * (hv > 0);          dbv = sum d_hv
+//   dWvf  = feat^T bf16(d_hv);  dWve = ev^T bf16(sum over a ray's samples of d_hv)
+//   d_feat = bf16(d_hv) Wvf^T;  dWf = h7^T bf16(d_feat);  dbf = sum d_feat
+//   d_h7  = (bf16(d_feat) Wf^T + gc Wout[W/2:]^T) * (h7 > 0)
+//   layer i = 7..1: dW_i = h_{i-1}^T bf16(d_h_i);  db_i = sum d_h_i;
+//                   d_h_{i-1} = (bf16(d_h_i) W_i^T) * (h_{i-1} > 0)
+//   dW05e = e^T [bf16(d_h_0) | bf16(d_h_5)];  db0 = sum d_h_0
+// (_mlp_backward_math with want_input_grads=False; bias grads sum the
+// unrounded f32 cotangents, as there). Two instantiations, as K1's: bf16
+// operands with f32 accumulation on mma.sync m16n8k16, and true f32 FMA
+// loops (no TF32) that isolate indexing faults from rounding.
+//
+// Bound: the recompute (K1 without the rgb/alpha head), the activation
+// cotangents and the weight grads are 3,484,416 FLOP per point at 8x256 with
+// 10/4 octaves (plus 6,912 per ray for dWve), so the kernel is bound by
+// operations: at 989 TFLOP/s bf16 a training step at N_rand=4096 needs
+// >= 0.92 ms coarse (262,144 points) and >= 2.77 ms fine (786,432 points).
+//
+// Design: three phases, each launch on the caller's stream.
+//  1. One CTA per 128-point tile (64 in f32) recomputes the forward with
+//     K1's code (fused_mlp_common.cuh, so the activations are K1's bit for
+//     bit) and runs the cotangent chain d W^T through the same mma_layer,
+//     with the weights in kp's own [in][out] layout as the B operand. A tile
+//     does not fit every activation in shared memory (h0..h7, feat, hv and
+//     their cotangents are ~1.2 MB at 128 points), so each activation and
+//     each rounded cotangent goes to a workspace in device memory,
+//     feature-major ([feature][point], 9.9 KB per point in bf16); the relu
+//     masks of the chain are read back from it. The bias grads' column sums
+//     per tile are reduced in registers (warp shuffles) and written per tile.
+//  2. A small kernel sums d_hv over each ray's samples (fixed order) and
+//     embeds the view directions per ray for dWve.
+//  3. Every weight grad is a product a^T d over all points: one launch takes
+//     all 14 of them as split-K tiles (128 x 128, or 128 x 32 for dWout's 4
+//     columns) reading the workspace rows with cp.async, each split writing
+//     its own partial. Two reduction kernels then sum the splits and the
+//     tiles' bias sums in a fixed order. No float atomics: two launches on
+//     the same inputs give bit-identical grads.
+// Padded points carry a zero cotangent, so they add nothing to any sum.
+// This is the simple first version; wgmma, TMA and keeping the activations
+// on chip are later work.
+
+#include "fused_mlp_common.cuh"
+
+namespace {
+
+// The forward weights again in kp's own [in][out] layout (element type T):
+// the B operand [N = in][K = out] of the cotangent products d W^T.
+//   W1..W7 [W][W] | Wf [W][W] | Wvf [W][W/2]
+template <int W>
+struct TLayout {
+  __host__ __device__ static size_t wi(int i) { return size_t(i - 1) * W * W; }
+  static constexpr size_t wf = size_t(7) * W * W;
+  static constexpr size_t wvf = size_t(8) * W * W;
+};
+
+// The f32 gradients, in kp's [in][out] layout with the embedding rows padded:
+//   dW05e [64][2W] | dW1..dW7 [W][W] | dWf [W][W] | dWvf [W][W/2] |
+//   dWve [32][W/2] | dWout [3W/2][4], then the bias grads as the bias blob.
+template <int W>
+struct GLayout {
+  static constexpr size_t w05 = 0;
+  __host__ __device__ static size_t wi(int i) {
+    return size_t(KE) * 2 * W + size_t(i - 1) * W * W;
+  }
+  static constexpr size_t wf = size_t(KE) * 2 * W + size_t(7) * W * W;
+  static constexpr size_t wvf = wf + size_t(W) * W;
+  static constexpr size_t wve = wvf + size_t(W) * (W / 2);
+  static constexpr size_t wout = wve + size_t(KV) * (W / 2);
+  static constexpr size_t size = wout + size_t(3 * W / 2) * 4;
+};
+
+// Rows of the point workspace; row r holds one feature for every point.
+template <int W>
+struct WsRows {
+  static constexpr int e = 0;
+  __host__ __device__ static int h(int i) { return KE + i * W; }
+  static constexpr int feat = KE + 8 * W;
+  static constexpr int hv = feat + W;
+  static constexpr int gc = hv + W / 2;  // 4 rows used, 8 kept for alignment
+  __host__ __device__ static int d(int i) { return gc + 8 + i * W; }
+  static constexpr int dfeat = gc + 8 + 8 * W;
+  static constexpr int dhv = dfeat + W;
+  static constexpr int rows = dhv + W / 2;
+};
+
+// dst[c][p0 + i] = src[i][c]: a tile's [tile][rows] shared buffer to
+// feature-major workspace rows (consecutive threads, consecutive points).
+template <typename T>
+__device__ void store_t(const T* src, int lds, int rows, int tile, T* dst, size_t ldp, int p0) {
+  for (int idx = threadIdx.x; idx < rows * tile; idx += THREADS) {
+    const int c = idx / tile, i = idx - c * tile;
+    dst[size_t(c) * ldp + p0 + i] = src[i * lds + c];
+  }
+}
+
+// ---------------------------------------------------------------- bf16 path
+
+template <int W> struct BwdSmem {
+  using F = Bf16Smem<W>;
+  static constexpr int lda = F::lda, lde = F::lde, ldv = F::ldv, ldw = F::ldw;
+  static constexpr size_t act = 0;
+  static constexpr size_t dbuf = act + size_t(TP) * lda * 2;
+  static constexpr size_t emb = dbuf;  // the embeddings live in dbuf until the chain
+  static constexpr size_t embv = emb + size_t(TP) * lde * 2;
+  static constexpr size_t wbuf = dbuf + size_t(TP) * lda * 2;
+  static constexpr size_t red = wbuf + size_t(2) * W * ldw * 2;
+  static constexpr size_t gs = red + size_t(2) * W * 4;
+  static constexpr size_t gcs = gs + size_t(TP) * 4 * 4;
+  static constexpr size_t bytes = gcs + size_t(TP) * 4 * 4;
+  static_assert(embv + size_t(TP) * ldv * 2 <= wbuf, "the embeddings fit in dbuf");
+};
+
+// Cotangent epilogue of a chain layer: d = acc (+ gc . Wout[W/2 + col] when
+// wout_h7 is given), zeroed where the forward activation in `mask`
+// (workspace rows) is not positive; the f32 column sums of d over the tile go
+// to bsum (a bias grad's partial), and d rounded to bf16 to `out`.
+template <int NT>
+__device__ void bwd_epilogue(float (&acc)[4][NT][4], const bf16* mask, size_t ldp, int p0,
+                             const float* gcs, const bf16* __restrict__ wout_h7, float* red,
+                             float* __restrict__ bsum, bf16* out, int ldo) {
+  constexpr int N = NT * 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  float cs[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) cs[nt][0] = cs[nt][1] = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int row = wm * 64 + mt * 16 + g;
+      const int col = wn * NT * 8 + nt * 8 + 2 * t;
+      float v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = row + (q >> 1) * 8, c = col + (q & 1);
+        float x = acc[mt][nt][q];
+        if (wout_h7 != nullptr) {
+          float e = 0.f;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) e = fmaf(gcs[r * 4 + k], to_f(wout_h7[c * 4 + k]), e);
+          x += e;
+        }
+        if (mask != nullptr && !(to_f(mask[size_t(c) * ldp + p0 + r]) > 0.f)) x = 0.f;
+        v[q] = x;
+      }
+      cs[nt][0] += v[0] + v[2];
+      cs[nt][1] += v[1] + v[3];
+      *reinterpret_cast<__nv_bfloat162*>(out + row * ldo + col) = __floats2bfloat162_rn(v[0], v[1]);
+      *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * ldo + col) =
+          __floats2bfloat162_rn(v[2], v[3]);
+    }
+  // sum over the warp's 64 rows: the lanes that share t hold the same columns
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        cs[nt][j] += __shfl_xor_sync(0xffffffffu, cs[nt][j], off);
+  if (g == 0)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = wn * NT * 8 + nt * 8 + 2 * t;
+      red[wm * N + col] = cs[nt][0];
+      red[wm * N + col + 1] = cs[nt][1];
+    }
+  __syncthreads();
+  for (int c = tid; c < N; c += THREADS) bsum[c] = red[c] + red[N + c];
+}
+
+template <int W>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_tile_bf16(const float* __restrict__ ro, const float* __restrict__ rd,
+              const float* __restrict__ vd, const float* __restrict__ z,
+              const float* __restrict__ g, int n_pts, int S, int Fp, int Fv,
+              const bf16* __restrict__ wb, const bf16* __restrict__ wt,
+              const float* __restrict__ bb, bf16* ws, size_t ldp, float* dhv32,
+              float* bpart) {
+  using L = BwdSmem<W>;
+  using O = Layout<W>;
+  using T = TLayout<W>;
+  using R = WsRows<W>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* act = reinterpret_cast<bf16*>(smem + L::act);
+  bf16* dbuf = reinterpret_cast<bf16*>(smem + L::dbuf);
+  bf16* emb = reinterpret_cast<bf16*>(smem + L::emb);
+  bf16* embv = reinterpret_cast<bf16*>(smem + L::embv);
+  bf16* wbuf = reinterpret_cast<bf16*>(smem + L::wbuf);
+  float* red = reinterpret_cast<float*>(smem + L::red);
+  float* gs = reinterpret_cast<float*>(smem + L::gs);
+  float* gcs = reinterpret_cast<float*>(smem + L::gcs);
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * TP;
+  float* bsum = bpart + size_t(blockIdx.x) * O::nbias;
+  auto row = [&](int r) { return ws + size_t(r) * ldp; };
+
+  // forward recompute with K1's code; every activation goes to the workspace
+  embed_tile<bf16>(ro, rd, vd, z, n_pts, S, Fp, Fv, p0, TP, emb, L::lde, embv, L::ldv);
+  __syncthreads();
+  store_t(emb, L::lde, KE, TP, row(R::e), ldp, p0);
+  const Seg none = {nullptr, 0, nullptr, 0};
+  {  // layer 0: rows [0, W) of W05e^T
+    float acc[4][W / 32][4];
+    mma_layer<W, W / 32>({emb, L::lde, wb + O::w05, KE}, none, wbuf, acc);
+    epilogue<W / 32>(acc, bb, act, L::lda, true);
+  }
+  __syncthreads();
+  store_t(act, L::lda, W, TP, row(R::h(0)), ldp, p0);
+  for (int i = 1; i < 8; ++i) {  // trunk; layer 5 adds e W5e (rows [W, 2W))
+    float acc[4][W / 32][4];
+    const Seg skip = i == 5 ? Seg{emb, L::lde, wb + O::w05 + size_t(W) * KE, KE} : none;
+    mma_layer<W, W / 32>({act, L::lda, wb + O::wi(i), W}, skip, wbuf, acc);
+    epilogue<W / 32>(acc, bb + i * W, act, L::lda, true);
+    __syncthreads();
+    store_t(act, L::lda, W, TP, row(R::h(i)), ldp, p0);
+  }
+  {  // feature (no activation)
+    float acc[4][W / 32][4];
+    mma_layer<W, W / 32>({act, L::lda, wb + O::wf, W}, none, wbuf, acc);
+    epilogue<W / 32>(acc, bb + O::bf, act, L::lda, false);
+  }
+  __syncthreads();
+  store_t(act, L::lda, W, TP, row(R::feat), ldp, p0);
+  {  // view layer: [feat | ev] -> W/2, into columns [0, W/2) of act
+    float acc[4][W / 64][4];
+    mma_layer<W, W / 64>({act, L::lda, wb + O::wvf, W}, {embv, L::ldv, wb + O::wve, KV}, wbuf,
+                         acc);
+    epilogue<W / 64>(acc, bb + O::bv, act, L::lda, true);
+  }
+  __syncthreads();
+  store_t(act, L::lda, W / 2, TP, row(R::hv), ldp, p0);
+
+  // the tile's cotangent, zero beyond n_pts
+  if (tid < TP) {
+    const int p = p0 + tid;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float v = p < n_pts ? g[size_t(c) * n_pts + p] : 0.f;
+      const bf16 vc = __float2bfloat16_rn(v);
+      gs[tid * 4 + c] = v;
+      gcs[tid * 4 + c] = __bfloat162float(vc);
+      row(R::gc + c)[p0 + tid] = vc;
+    }
+  }
+  __syncthreads();
+  if (tid < 4) {
+    float s = 0.f;
+    for (int i = 0; i < TP; ++i) s += gs[i * 4 + tid];
+    bsum[O::bout + tid] = s;
+  }
+  {  // d_hv = (gc Wout[:W/2]^T) * (hv > 0): f32 to dhv32, bf16 to dbuf
+    constexpr int H = W / 2, PARTS = THREADS / H, ROWS = TP / PARTS;
+    const int c = tid % H, part = tid / H;
+    float w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = to_f(wb[O::wout + c * 4 + k]);
+    float s = 0.f;
+    for (int i = part * ROWS; i < (part + 1) * ROWS; ++i) {
+      float d = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) d = fmaf(gcs[i * 4 + k], w[k], d);
+      if (!(to_f(act[i * L::lda + c]) > 0.f)) d = 0.f;
+      s += d;
+      dhv32[size_t(p0 + i) * H + c] = d;
+      dbuf[i * L::lda + c] = __float2bfloat16_rn(d);
+    }
+    red[part * H + c] = s;
+  }
+  __syncthreads();
+  if (tid < W / 2) {
+    float s = red[tid];
+    for (int part = 1; part < THREADS / (W / 2); ++part) s += red[part * (W / 2) + tid];
+    bsum[O::bv + tid] = s;
+  }
+  store_t(dbuf, L::lda, W / 2, TP, row(R::dhv), ldp, p0);
+  {  // d_feat = bf16(d_hv) Wvf^T (the feature layer has no activation)
+    float acc[4][W / 32][4];
+    mma_layer<W, W / 32>({dbuf, L::lda, wt + T::wvf, W / 2}, none, wbuf, acc);
+    bwd_epilogue<W / 32>(acc, nullptr, ldp, p0, nullptr, nullptr, red, bsum + O::bf, act,
+                            L::lda);
+  }
+  __syncthreads();
+  store_t(act, L::lda, W, TP, row(R::dfeat), ldp, p0);
+  {  // d_h7 = (bf16(d_feat) Wf^T + gc Wout[W/2:]^T) * (h7 > 0)
+    float acc[4][W / 32][4];
+    mma_layer<W, W / 32>({act, L::lda, wt + T::wf, W}, none, wbuf, acc);
+    bwd_epilogue<W / 32>(acc, row(R::h(7)), ldp, p0, gcs, wb + O::wout + size_t(W / 2) * 4,
+                            red, bsum + 7 * W, dbuf, L::lda);
+  }
+  __syncthreads();
+  store_t(dbuf, L::lda, W, TP, row(R::d(7)), ldp, p0);
+  for (int i = 7; i >= 1; --i) {  // d_h_{i-1} = (bf16(d_h_i) W_i^T) * (h_{i-1} > 0)
+    float acc[4][W / 32][4];
+    mma_layer<W, W / 32>({dbuf, L::lda, wt + T::wi(i), W}, none, wbuf, acc);
+    bwd_epilogue<W / 32>(acc, row(R::h(i - 1)), ldp, p0, nullptr, nullptr, red,
+                            bsum + (i - 1) * W, dbuf, L::lda);
+    __syncthreads();
+    store_t(dbuf, L::lda, W, TP, row(R::d(i - 1)), ldp, p0);
+  }
+}
+
+// ----------------------------------------------------------------- f32 path
+
+template <int W> struct BwdSmem32 {
+  static constexpr int lda = W + 1, lde = KE + 1, ldv = KV + 1;
+  static constexpr size_t a = 0;
+  static constexpr size_t b = a + size_t(TP32) * lda * 4;
+  static constexpr size_t emb = b + size_t(TP32) * lda * 4;
+  static constexpr size_t embv = emb + size_t(TP32) * lde * 4;
+  static constexpr size_t gs = embv + size_t(TP32) * ldv * 4;
+  static constexpr size_t bytes = gs + size_t(TP32) * 4 * 4;
+};
+
+// out[i][n] = X[i] . Bw[n] for the tile's 64 rows (no bias, no activation);
+// Bw is [N][K] rows in global memory.
+__device__ void dense_t_f32(const float* X, int ldx, int K, const float* __restrict__ Bw, int N,
+                            float* out, int ldo) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int n = warp; n < N; n += THREADS / 32) {
+    float a0 = 0.f, a1 = 0.f;
+    const float* w = Bw + size_t(n) * K;
+    for (int k = 0; k < K; ++k) {
+      const float wk = __ldg(w + k);
+      a0 = fmaf(X[lane * ldx + k], wk, a0);
+      a1 = fmaf(X[(lane + 32) * ldx + k], wk, a1);
+    }
+    out[lane * ldo + n] = a0;
+    out[(lane + 32) * ldo + n] = a1;
+  }
+}
+
+// In place: buf[i][c] (+ gs[i] . wout_h7[c] when given), zeroed where the
+// forward activation in `mask` (workspace rows) is not positive.
+__device__ void mask_f32(float* buf, int ld, int N, const float* mask, size_t ldp, int p0,
+                         const float* gs, const float* __restrict__ wout_h7) {
+  for (int idx = threadIdx.x; idx < TP32 * N; idx += THREADS) {
+    const int c = idx / TP32, i = idx - c * TP32;
+    float v = buf[i * ld + c];
+    if (wout_h7 != nullptr) {
+      float e = 0.f;
+      for (int k = 0; k < 4; ++k) e = fmaf(gs[i * 4 + k], wout_h7[c * 4 + k], e);
+      v += e;
+    }
+    if (!(mask[size_t(c) * ldp + p0 + i] > 0.f)) v = 0.f;
+    buf[i * ld + c] = v;
+  }
+}
+
+__device__ void colsum_f32(const float* buf, int ld, int N, float* __restrict__ bsum) {
+  for (int c = threadIdx.x; c < N; c += THREADS) {
+    float s = 0.f;
+    for (int i = 0; i < TP32; ++i) s += buf[i * ld + c];
+    bsum[c] = s;
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(THREADS)
+bwd_tile_f32(const float* __restrict__ ro, const float* __restrict__ rd,
+             const float* __restrict__ vd, const float* __restrict__ z,
+             const float* __restrict__ g, int n_pts, int S, int Fp, int Fv,
+             const float* __restrict__ wb, const float* __restrict__ wt,
+             const float* __restrict__ bb, float* ws, size_t ldp, float* dhv32, float* bpart) {
+  using L = BwdSmem32<W>;
+  using O = Layout<W>;
+  using T = TLayout<W>;
+  using R = WsRows<W>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* A = reinterpret_cast<float*>(smem + L::a);
+  float* B = reinterpret_cast<float*>(smem + L::b);
+  float* emb = reinterpret_cast<float*>(smem + L::emb);
+  float* embv = reinterpret_cast<float*>(smem + L::embv);
+  float* gs = reinterpret_cast<float*>(smem + L::gs);
+  constexpr int lda = L::lda;
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * TP32;
+  float* bsum = bpart + size_t(blockIdx.x) * O::nbias;
+  auto row = [&](int r) { return ws + size_t(r) * ldp; };
+
+  embed_tile<float>(ro, rd, vd, z, n_pts, S, Fp, Fv, p0, TP32, emb, L::lde, embv, L::ldv);
+  __syncthreads();
+  store_t(emb, L::lde, KE, TP32, row(R::e), ldp, p0);
+  dense_f32(emb, L::lde, KE, wb + O::w05, nullptr, 0, 0, nullptr, bb, W, A, lda, true);
+  __syncthreads();
+  store_t(A, lda, W, TP32, row(R::h(0)), ldp, p0);
+  float* src = A;
+  float* dst = B;
+  for (int i = 1; i < 8; ++i) {
+    const bool skip = i == 5;
+    dense_f32(src, lda, W, wb + O::wi(i), skip ? emb : nullptr, L::lde, skip ? KE : 0,
+              wb + O::w05 + size_t(W) * KE, bb + i * W, W, dst, lda, true);
+    __syncthreads();
+    store_t(dst, lda, W, TP32, row(R::h(i)), ldp, p0);
+    float* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  // src = h7
+  dense_f32(src, lda, W, wb + O::wf, nullptr, 0, 0, nullptr, bb + O::bf, W, dst, lda, false);
+  __syncthreads();
+  store_t(dst, lda, W, TP32, row(R::feat), ldp, p0);
+  // dst = feat; the view layer writes hv over h7
+  dense_f32(dst, lda, W, wb + O::wvf, embv, L::ldv, KV, wb + O::wve, bb + O::bv, W / 2, src,
+            lda, true);
+  __syncthreads();
+  store_t(src, lda, W / 2, TP32, row(R::hv), ldp, p0);
+
+  if (tid < TP32) {
+    const int p = p0 + tid;
+    for (int c = 0; c < 4; ++c) {
+      const float v = p < n_pts ? g[size_t(c) * n_pts + p] : 0.f;
+      gs[tid * 4 + c] = v;
+      row(R::gc + c)[p0 + tid] = v;
+    }
+  }
+  __syncthreads();
+  if (tid < 4) {
+    float s = 0.f;
+    for (int i = 0; i < TP32; ++i) s += gs[i * 4 + tid];
+    bsum[O::bout + tid] = s;
+  }
+  // d_hv = (g Wout[:W/2]^T) * (hv > 0) -> dst (feat is in the workspace)
+  for (int idx = tid; idx < TP32 * (W / 2); idx += THREADS) {
+    const int i = idx / (W / 2), c = idx - i * (W / 2);
+    float d = 0.f;
+    for (int k = 0; k < 4; ++k) d = fmaf(gs[i * 4 + k], wb[O::wout + c * 4 + k], d);
+    if (!(src[i * lda + c] > 0.f)) d = 0.f;
+    dst[i * lda + c] = d;
+    dhv32[size_t(p0 + i) * (W / 2) + c] = d;
+  }
+  __syncthreads();
+  colsum_f32(dst, lda, W / 2, bsum + O::bv);
+  store_t(dst, lda, W / 2, TP32, row(R::dhv), ldp, p0);
+  dense_t_f32(dst, lda, W / 2, wt + T::wvf, W, src, lda);  // d_feat -> src
+  __syncthreads();
+  colsum_f32(src, lda, W, bsum + O::bf);
+  store_t(src, lda, W, TP32, row(R::dfeat), ldp, p0);
+  dense_t_f32(src, lda, W, wt + T::wf, W, dst, lda);  // d_h7 -> dst
+  __syncthreads();
+  mask_f32(dst, lda, W, row(R::h(7)), ldp, p0, gs, wb + O::wout + size_t(W / 2) * 4);
+  __syncthreads();
+  colsum_f32(dst, lda, W, bsum + 7 * W);
+  store_t(dst, lda, W, TP32, row(R::d(7)), ldp, p0);
+  float* cur = dst;
+  float* oth = src;
+  for (int i = 7; i >= 1; --i) {
+    dense_t_f32(cur, lda, W, wt + T::wi(i), W, oth, lda);
+    __syncthreads();
+    mask_f32(oth, lda, W, row(R::h(i - 1)), ldp, p0, nullptr, nullptr);
+    __syncthreads();
+    colsum_f32(oth, lda, W, bsum + (i - 1) * W);
+    store_t(oth, lda, W, TP32, row(R::d(i - 1)), ldp, p0);
+    float* tmp = cur;
+    cur = oth;
+    oth = tmp;
+  }
+}
+
+// ------------------------------------------------------- per-ray view terms
+
+// Per ray r: dhv_ray[c][r] = sum over the ray's samples of d_hv (f32, in
+// sample order, then rounded to T) and ev[k][r] = the view embedding; zero
+// for the padded rays. One block per ray, one thread per column.
+template <typename T, int W>
+__global__ void ray_prep(const float* __restrict__ vd, const float* __restrict__ dhv32,
+                         int n_rays, int S, int Fv, T* rws, size_t rpad) {
+  constexpr int H = W / 2;
+  const int r = blockIdx.x, c = threadIdx.x;
+  float s = 0.f;
+  if (r < n_rays)
+    for (int j = 0; j < S; ++j) s += dhv32[(size_t(r) * S + j) * H + c];
+  rws[size_t(KV + c) * rpad + r] = from_f<T>(s);
+  if (c == 0) {
+    T ev[KV];
+    const float x[3] = {r < n_rays ? vd[r * 3] : 0.f, r < n_rays ? vd[r * 3 + 1] : 0.f,
+                        r < n_rays ? vd[r * 3 + 2] : 0.f};
+    embed_row<T>(x, Fv, KV, ev);
+    for (int k = 0; k < KV; ++k) rws[size_t(k) * rpad + r] = r < n_rays ? ev[k] : from_f<T>(0.f);
+  }
+}
+
+// ------------------------------------------------------------- weight grads
+
+// One weight grad C[M][N] = A^T B summed over k: A rows [M][k_len] and B
+// rows [N][k_len] (workspace rows, stride lda), C rows of stride ldc. Split
+// s sums k in [s*split_len, (s+1)*split_len) into its own partial slice.
+struct Prob {
+  const void* A;
+  const void* B;
+  float* C;
+  int M, N, lda, ldc, k_len;
+  int mtiles, ntiles, nsplit, cta0, narrow;
+};
+constexpr int MAXP = 16;
+struct Probs {
+  Prob p[MAXP];
+  int count;
+  int split_len;
+  size_t split_stride;  // floats between two splits' partial slices
+};
+
+__device__ __forceinline__ const Prob& find_prob(const Probs& P, int& local) {
+  int pi = 0;
+  while (pi + 1 < P.count && int(blockIdx.x) >= P.p[pi + 1].cta0) ++pi;
+  local = blockIdx.x - P.p[pi].cta0;
+  return P.p[pi];
+}
+
+constexpr int GM = 128, GK = 64, GLD = GK + 8;  // bf16 tile: 128 rows, K chunks of 64
+constexpr size_t WGRAD_SMEM = size_t(2) * 2 * GM * GLD * 2;
+
+// A 128 x (32*NT) tile of C over one split, on mma.sync: warps 2 (rows, 64
+// each) x 4 (columns, 8*NT each), double-buffered cp.async chunks. Rows of
+// A or B beyond M or N are not loaded; they only touch C entries that are
+// not stored.
+template <int NT>
+__device__ void wgrad_tile(const Prob& P, int split, int mi, int ni, int split_len,
+                           size_t split_stride, bf16* As, bf16* Bs) {
+  constexpr int GN = NT * 32;
+  const bf16* A = static_cast<const bf16*>(P.A);
+  const bf16* B = static_cast<const bf16*>(P.B);
+  const int m0 = mi * GM, n0 = ni * GN;
+  const int k_begin = split * split_len;
+  const int nchunks = (min(P.k_len, k_begin + split_len) - k_begin) / GK;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[4][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+
+  auto load = [&](int c) {
+    const int k0 = k_begin + c * GK;
+    bf16* as = As + (c & 1) * GM * GLD;
+    bf16* bs = Bs + (c & 1) * GM * GLD;
+    for (int idx = tid; idx < GM * 8; idx += THREADS) {
+      const int r = idx >> 3, j = idx & 7;
+      if (m0 + r < P.M) cp_async16(as + r * GLD + j * 8, A + size_t(m0 + r) * P.lda + k0 + j * 8);
+      if (r < GN && n0 + r < P.N)
+        cp_async16(bs + r * GLD + j * 8, B + size_t(n0 + r) * P.lda + k0 + j * 8);
+    }
+    cp_async_commit();
+  };
+
+  if (nchunks > 0) load(0);
+  for (int c = 0; c < nchunks; ++c) {
+    if (c + 1 < nchunks) {
+      load(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* as = As + (c & 1) * GM * GLD;
+    const bf16* bs = Bs + (c & 1) * GM * GLD;
+#pragma unroll
+    for (int kk = 0; kk < GK; kk += 16) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const bf16* ap = as + (wm * 64 + mt * 16 + g) * GLD + kk + 2 * t;
+        a[mt][0] = ld32(ap);
+        a[mt][1] = ld32(ap + 8 * GLD);
+        a[mt][2] = ld32(ap + 8);
+        a[mt][3] = ld32(ap + 8 * GLD + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const bf16* bp = bs + (wn * NT * 8 + nt * 8 + g) * GLD + kk + 2 * t;
+        const uint32_t b0 = ld32(bp), b1 = ld32(bp + 8);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) mma16816(acc[mt][nt], a[mt], b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+  float* C = P.C + size_t(split) * split_stride;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int m = m0 + wm * 64 + mt * 16 + g + (q >> 1) * 8;
+        const int n = n0 + wn * NT * 8 + nt * 8 + 2 * t + (q & 1);
+        if (m < P.M && n < P.N) C[size_t(m) * P.ldc + n] = acc[mt][nt][q];
+      }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) wgrad_bf16(const Probs P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + 2 * GM * GLD;
+  int local;
+  const Prob& pr = find_prob(P, local);
+  const int per = pr.mtiles * pr.ntiles;
+  const int split = local / per, rem = local - split * per;
+  const int mi = rem / pr.ntiles, ni = rem - mi * pr.ntiles;
+  if (pr.narrow)
+    wgrad_tile<1>(pr, split, mi, ni, P.split_len, P.split_stride, As, Bs);
+  else
+    wgrad_tile<4>(pr, split, mi, ni, P.split_len, P.split_stride, As, Bs);
+}
+
+constexpr int FM = 64, FK = 32;  // f32 tile: 64 x 64, K chunks of 32
+
+__global__ void __launch_bounds__(THREADS) wgrad_f32(const Probs P) {
+  __shared__ float As[FM][FK + 1], Bs[FM][FK + 1];
+  int local;
+  const Prob& pr = find_prob(P, local);
+  const int per = pr.mtiles * pr.ntiles;
+  const int split = local / per, rem = local - split * per;
+  const int mi = rem / pr.ntiles, ni = rem - mi * pr.ntiles;
+  const float* A = static_cast<const float*>(pr.A);
+  const float* B = static_cast<const float*>(pr.B);
+  const int m0 = mi * FM, n0 = ni * FM;
+  const int k_begin = split * P.split_len;
+  const int k_end = min(pr.k_len, k_begin + P.split_len);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[4][4] = {};
+  for (int k0 = k_begin; k0 < k_end; k0 += FK) {
+    for (int idx = tid; idx < FM * FK; idx += THREADS) {
+      const int r = idx / FK, k = idx - r * FK;
+      As[r][k] = m0 + r < pr.M ? A[size_t(m0 + r) * pr.lda + k0 + k] : 0.f;
+      Bs[r][k] = n0 + r < pr.N ? B[size_t(n0 + r) * pr.lda + k0 + k] : 0.f;
+    }
+    __syncthreads();
+    for (int kk = 0; kk < FK; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(As[ty * 4 + i][kk], Bs[tx * 4 + j][kk], acc[i][j]);
+    __syncthreads();
+  }
+  float* C = pr.C + size_t(split) * P.split_stride;
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
+      if (m < pr.M && n < pr.N) C[size_t(m) * pr.ldc + n] = acc[i][j];
+    }
+}
+
+// out[j] = sum over the splits in order of part[s][j]
+__global__ void reduce_splits(const float* __restrict__ part, int nsplit, size_t n,
+                              float* __restrict__ out) {
+  const size_t j = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  float s = 0.f;
+  for (int sp = 0; sp < nsplit; ++sp) s += part[size_t(sp) * n + j];
+  out[j] = s;
+}
+
+// out[j] = the tiles' bias sums part[t][j]: 8 groups of strided tiles, each
+// in tile order, then the groups in order. 32 columns per block.
+__global__ void reduce_tiles(const float* __restrict__ part, int ntiles, int n,
+                             float* __restrict__ out) {
+  __shared__ float red[8][32];
+  const int jj = threadIdx.x & 31, grp = threadIdx.x >> 5;
+  const int j = blockIdx.x * 32 + jj;
+  float s = 0.f;
+  if (j < n)
+    for (int t = grp; t < ntiles; t += 8) s += part[size_t(t) * n + j];
+  red[grp][jj] = s;
+  __syncthreads();
+  if (grp == 0 && j < n) {
+    float r = red[0][jj];
+    for (int q = 1; q < 8; ++q) r += red[q][jj];
+    out[j] = r;
+  }
+}
+
+// ---------------------------------------------------------------- host side
+
+size_t align256(size_t b) { return (b + 255) & ~size_t(255); }
+
+struct Plan {
+  int tile, n_pts, n_pad, ntiles, rpad, split_len, nsplit;
+  size_t ws, rws, dhv, bpart, wpart, total;  // byte offsets / sizes
+};
+
+template <typename T, int W>
+Plan make_plan(int n_rays, int S) {
+  Plan p;
+  p.tile = sizeof(T) == 2 ? TP : TP32;
+  p.n_pts = n_rays * S;
+  p.n_pad = (p.n_pts + p.tile - 1) / p.tile * p.tile;
+  p.ntiles = p.n_pad / p.tile;
+  p.rpad = (n_rays + 63) / 64 * 64;
+  const int target = max(1, min(64, p.n_pad / 8192));
+  p.split_len = ((p.n_pad + target - 1) / target + 63) / 64 * 64;
+  p.nsplit = (p.n_pad + p.split_len - 1) / p.split_len;
+  size_t o = 0;
+  p.ws = o;
+  o += align256(size_t(WsRows<W>::rows) * p.n_pad * sizeof(T));
+  p.rws = o;
+  o += align256(size_t(KV + W / 2) * p.rpad * sizeof(T));
+  p.dhv = o;
+  o += align256(size_t(p.n_pad) * (W / 2) * 4);
+  p.bpart = o;
+  o += align256(size_t(p.ntiles) * Layout<W>::nbias * 4);
+  p.wpart = o;
+  o += align256(size_t(p.nsplit) * GLayout<W>::size * 4);
+  p.total = o;
+  return p;
+}
+
+template <typename T, int W>
+Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int mtile, int ntile,
+                 int ntile_narrow) {
+  using R = WsRows<W>;
+  using G = GLayout<W>;
+  Probs P;
+  P.count = 0;
+  P.split_len = pl.split_len;
+  P.split_stride = G::size;
+  int cta = 0;
+  auto add = [&](const T* base, size_t ld, int k_len, int ra, int M, int rb, int N, size_t coff,
+                 int ldc) {
+    Prob& q = P.p[P.count++];
+    q.A = base + size_t(ra) * ld;
+    q.B = base + size_t(rb) * ld;
+    q.C = wpart + coff;
+    q.M = M;
+    q.N = N;
+    q.lda = int(ld);
+    q.ldc = ldc;
+    q.k_len = k_len;
+    q.narrow = N <= ntile_narrow;
+    const int nt = q.narrow ? ntile_narrow : ntile;
+    q.mtiles = (M + mtile - 1) / mtile;
+    q.ntiles = (N + nt - 1) / nt;
+    q.nsplit = (k_len + pl.split_len - 1) / pl.split_len;
+    q.cta0 = cta;
+    cta += q.mtiles * q.ntiles * q.nsplit;
+  };
+  const size_t ldp = pl.n_pad;
+  const int K = pl.n_pad;
+  add(ws, ldp, K, R::e, KE, R::d(0), W, G::w05, 2 * W);      // dW05e[:, :W]
+  add(ws, ldp, K, R::e, KE, R::d(5), W, G::w05 + W, 2 * W);  // dW05e[:, W:]
+  for (int i = 1; i < 8; ++i) add(ws, ldp, K, R::h(i - 1), W, R::d(i), W, G::wi(i), W);
+  add(ws, ldp, K, R::h(7), W, R::dfeat, W, G::wf, W);
+  add(ws, ldp, K, R::feat, W, R::dhv, W / 2, G::wvf, W / 2);
+  add(ws, ldp, K, R::hv, W / 2, R::gc, 4, G::wout, 4);                       // dWout[:W/2]
+  add(ws, ldp, K, R::h(7), W, R::gc, 4, G::wout + size_t(W / 2) * 4, 4);  // dWout[W/2:]
+  add(rws, pl.rpad, pl.rpad, 0, KV, KV, W / 2, G::wve, W / 2);
+  P.p[P.count].cta0 = cta;  // one past the last problem: the grid size
+  return P;
+}
+
+#define NERF_CHECK(x)                        \
+  do {                                       \
+    cudaError_t e_ = (x);                    \
+    if (e_ != cudaSuccess) return e_;        \
+  } while (0)
+
+template <typename T, int W>
+cudaError_t run(const float* ro, const float* rd, const float* vd, const float* z,
+                const float* g, int n_rays, int S, int Fp, int Fv, const void* wblob,
+                const void* wtblob, const float* bblob, void* workspace, long long ws_bytes,
+                float* out, cudaStream_t s) {
+  const Plan pl = make_plan<T, W>(n_rays, S);
+  if (ws_bytes < 0 || size_t(ws_bytes) < pl.total) return cudaErrorInvalidValue;
+  unsigned char* base = static_cast<unsigned char*>(workspace);
+  T* ws = reinterpret_cast<T*>(base + pl.ws);
+  T* rws = reinterpret_cast<T*>(base + pl.rws);
+  float* dhv32 = reinterpret_cast<float*>(base + pl.dhv);
+  float* bpart = reinterpret_cast<float*>(base + pl.bpart);
+  float* wpart = reinterpret_cast<float*>(base + pl.wpart);
+  const T* wb = static_cast<const T*>(wblob);
+  const T* wt = static_cast<const T*>(wtblob);
+  const size_t ldp = pl.n_pad;
+
+  NERF_CHECK(cudaMemsetAsync(wpart, 0, size_t(pl.nsplit) * GLayout<W>::size * 4, s));
+  Probs P;
+  if (sizeof(T) == 2) {
+    const size_t smem = BwdSmem<W>::bytes;
+    NERF_CHECK(cudaFuncSetAttribute(bwd_tile_bf16<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    int(smem)));
+    bwd_tile_bf16<W><<<pl.ntiles, THREADS, smem, s>>>(
+        ro, rd, vd, z, g, pl.n_pts, S, Fp, Fv, reinterpret_cast<const bf16*>(wb),
+        reinterpret_cast<const bf16*>(wt), bblob, reinterpret_cast<bf16*>(ws), ldp, dhv32, bpart);
+    P = make_probs<T, W>(pl, ws, rws, wpart, GM, 128, 32);
+  } else {
+    const size_t smem = BwdSmem32<W>::bytes;
+    NERF_CHECK(cudaFuncSetAttribute(bwd_tile_f32<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    int(smem)));
+    bwd_tile_f32<W><<<pl.ntiles, THREADS, smem, s>>>(
+        ro, rd, vd, z, g, pl.n_pts, S, Fp, Fv, reinterpret_cast<const float*>(wb),
+        reinterpret_cast<const float*>(wt), bblob, reinterpret_cast<float*>(ws), ldp, dhv32,
+        bpart);
+    P = make_probs<T, W>(pl, ws, rws, wpart, FM, FM, FM);
+  }
+  NERF_CHECK(cudaGetLastError());
+  ray_prep<T, W><<<pl.rpad, W / 2, 0, s>>>(vd, dhv32, n_rays, S, Fv, rws, size_t(pl.rpad));
+  NERF_CHECK(cudaGetLastError());
+  const int ctas = P.p[P.count].cta0;
+  if (sizeof(T) == 2) {
+    NERF_CHECK(cudaFuncSetAttribute(wgrad_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    int(WGRAD_SMEM)));
+    wgrad_bf16<<<ctas, THREADS, WGRAD_SMEM, s>>>(P);
+  } else {
+    wgrad_f32<<<ctas, THREADS, 0, s>>>(P);
+  }
+  NERF_CHECK(cudaGetLastError());
+  const size_t gw = GLayout<W>::size;
+  reduce_splits<<<unsigned((gw + 255) / 256), 256, 0, s>>>(wpart, pl.nsplit, gw, out);
+  NERF_CHECK(cudaGetLastError());
+  const int nb = Layout<W>::nbias;
+  reduce_tiles<<<(nb + 31) / 32, 256, 0, s>>>(bpart, pl.ntiles, nb, out + gw);
+  return cudaGetLastError();
+}
+
+bool valid_shape(int n_rays, int n_samples) {
+  const long long n = static_cast<long long>(n_rays) * n_samples;
+  return n_rays >= 1 && n_samples >= 1 && n <= 0x7fffffffLL - 256;
+}
+
+}  // namespace
+
+// Bytes of device workspace that nerf_fused_mlp_bwd needs for this shape.
+extern "C" int nerf_fused_mlp_bwd_workspace(int use_bf16, int width, int n_rays, int n_samples,
+                                            long long* bytes) {
+  if (!valid_shape(n_rays, n_samples)) return cudaErrorInvalidValue;
+  Plan p;
+  if (use_bf16 && width == 256) p = make_plan<bf16, 256>(n_rays, n_samples);
+  else if (use_bf16 && width == 128) p = make_plan<bf16, 128>(n_rays, n_samples);
+  else if (!use_bf16 && width == 256) p = make_plan<float, 256>(n_rays, n_samples);
+  else if (!use_bf16 && width == 128) p = make_plan<float, 128>(n_rays, n_samples);
+  else return cudaErrorInvalidValue;
+  *bytes = static_cast<long long>(p.total);
+  return cudaSuccess;
+}
+
+// Returns a cudaError_t code (0 on success). The launches go on `stream` and
+// do not synchronise; all buffers are device pointers, float32 unless noted:
+// rays_o, rays_d, viewdirs [R,3]; z [R,S]; g, the cotangent of K1's output,
+// [4,R,S]; wblob (bf16 if use_bf16 else f32) and bblob as K1 takes them;
+// wtblob the same dtype in TLayout; workspace of nerf_fused_mlp_bwd_workspace
+// bytes; out the f32 grads in GLayout followed by the bias grads.
+extern "C" int nerf_fused_mlp_bwd(int use_bf16, int width, const float* rays_o,
+                                  const float* rays_d, const float* viewdirs, const float* z,
+                                  const float* g, int n_rays, int n_samples, int n_freq_pts,
+                                  int n_freq_views, const void* wblob, const void* wtblob,
+                                  const float* bblob, void* workspace, long long ws_bytes,
+                                  float* out, void* stream) {
+  if (n_freq_pts < 1 || n_freq_pts > MAX_FP || n_freq_views < 1 || n_freq_views > MAX_FV)
+    return cudaErrorInvalidValue;
+  if (!valid_shape(n_rays, n_samples)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NERF_ARGS rays_o, rays_d, viewdirs, z, g, n_rays, n_samples, n_freq_pts, n_freq_views, \
+                  wblob, wtblob, bblob, workspace, ws_bytes, out, s
+  if (use_bf16) {
+    if (width == 256) return run<bf16, 256>(NERF_ARGS);
+    if (width == 128) return run<bf16, 128>(NERF_ARGS);
+  } else {
+    if (width == 256) return run<float, 256>(NERF_ARGS);
+    if (width == 128) return run<float, 128>(NERF_ARGS);
+  }
+#undef NERF_ARGS
+  return cudaErrorInvalidValue;
+}
+
+extern "C" const char* nerf_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

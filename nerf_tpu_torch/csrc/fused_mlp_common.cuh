@@ -1,0 +1,328 @@
+// Building blocks shared by the fused NeRF MLP kernels (fused_mlp_fwd.cu,
+// K1, and fused_mlp_bwd.cu, K4): the weight-blob layout, the posenc
+// embedding, the bf16 mma.sync layer with its cp.async weight ring, and the
+// f32 FMA layer. Both kernels recompute the same forward activations from
+// this code, so the backward differentiates exactly what K1 computed.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int KE = 64;       // padded point-embedding width (3 + 6*10 = 63)
+constexpr int KV = 32;       // padded view-embedding width (3 + 6*4 = 27)
+constexpr int MAX_FP = 10;
+constexpr int MAX_FV = 4;
+constexpr int THREADS = 256;  // 8 warps
+constexpr int KC = 64;        // K chunk of the weight ring
+
+// K1's weight blob (element type T): row-major [out][in] blocks, in order
+//   W05e^T [2W][64] | W1^T..W7^T [W][W] | Wf^T [W][W] | Wvf^T [W/2][W] |
+//   Wve^T [W/2][32] | Wout [3W/2][4]
+// and bias blob (f32): b0..b7 [W] | bf [W] | bv [W/2] | bout [4].
+template <int W>
+struct Layout {
+  static constexpr size_t w05 = 0;
+  static constexpr size_t w1 = w05 + size_t(2 * W) * KE;
+  __host__ __device__ static size_t wi(int i) { return w1 + size_t(i - 1) * W * W; }
+  static constexpr size_t wf = w1 + size_t(7) * W * W;
+  static constexpr size_t wvf = wf + size_t(W) * W;
+  static constexpr size_t wve = wvf + size_t(W / 2) * W;
+  static constexpr size_t wout = wve + size_t(W / 2) * KV;
+  static constexpr int bf = 8 * W;
+  static constexpr int bv = 9 * W;
+  static constexpr int bout = 9 * W + W / 2;
+  static constexpr int nbias = bout + 4;
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+// One embedding row in kernel order [x | sin(x*2^f) f-major | cos], zero-padded
+// to K entries.
+template <typename T>
+__device__ void embed_row(const float (&x)[3], int F, int K, T* row) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) row[d] = from_f<T>(x[d]);
+  for (int f = 0; f < F; ++f) {
+    const float scale = float(1 << f);  // exact power of two
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      float s, c;
+      // sincosf keeps its range reduction: the phases reach |x*2^9| ~ 3100,
+      // where __sinf/__cosf are wrong. Built without --use_fast_math.
+      sincosf(__fmul_rn(x[d], scale), &s, &c);
+      row[3 + f * 3 + d] = from_f<T>(s);
+      row[3 + 3 * F + f * 3 + d] = from_f<T>(c);
+    }
+  }
+  for (int k = 3 + 6 * F; k < K; ++k) row[k] = from_f<T>(0.f);
+}
+
+// Point (tid < tile) or view (tid >= tile) embedding of one point of the
+// tile, in kernel row order, zero-padded to the buffer's K. Threads beyond
+// 2*tile do nothing; masked points embed zeros.
+template <typename T>
+__device__ void embed_tile(const float* __restrict__ ro, const float* __restrict__ rd,
+                           const float* __restrict__ vd, const float* __restrict__ z,
+                           int n_pts, int S, int Fp, int Fv, int p0, int tile,
+                           T* emb, int lde, T* embv, int ldv) {
+  const int tid = threadIdx.x;
+  const bool pts = tid < tile;
+  const int i = pts ? tid : tid - tile;
+  if (i >= tile) return;
+  const int p = p0 + i;
+  const bool valid = p < n_pts;
+  const int r = valid ? p / S : 0;
+  float x[3];
+  if (pts) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      x[d] = valid ? __fadd_rn(ro[r * 3 + d], __fmul_rn(rd[r * 3 + d], z[p])) : 0.f;
+  } else {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) x[d] = valid ? vd[r * 3 + d] : 0.f;
+  }
+  embed_row<T>(x, pts ? Fp : Fv, pts ? KE : KV, pts ? emb + i * lde : embv + i * ldv);
+}
+
+// out[c][p] for the tile's points: raw = hv Wout[:W/2] + part + bout, where
+// part = h7 Wout[W/2:] was computed before h7 was overwritten.
+template <typename T, int W>
+__device__ void head(const T* hv, int ldh, const T* __restrict__ wout, const float* part,
+                     const float* __restrict__ bout, int n_pts, int p0, int tile,
+                     float* __restrict__ out) {
+  for (int idx = threadIdx.x; idx < tile * 4; idx += THREADS) {
+    const int i = idx % tile, c = idx / tile;
+    float acc = 0.f;
+    for (int k = 0; k < W / 2; ++k) acc = fmaf(to_f(hv[i * ldh + k]), to_f(wout[k * 4 + c]), acc);
+    const float v = (acc + part[i * 4 + c]) + bout[c];
+    const int p = p0 + i;
+    if (p < n_pts) out[size_t(c) * n_pts + p] = v;
+  }
+}
+
+// part[i][c] = h7[i] . Wout[W/2 + k][c]
+template <typename T, int W>
+__device__ void head_part(const T* h7, int ldh, const T* __restrict__ wout, float* part, int tile) {
+  for (int idx = threadIdx.x; idx < tile * 4; idx += THREADS) {
+    const int i = idx % tile, c = idx / tile;
+    float acc = 0.f;
+    for (int k = 0; k < W; ++k)
+      acc = fmaf(to_f(h7[i * ldh + k]), to_f(wout[(W / 2 + k) * 4 + c]), acc);
+    part[i * 4 + c] = acc;
+  }
+}
+
+// ---------------------------------------------------------------- bf16 path
+
+constexpr int TP = 128;  // points per CTA
+template <int W> struct Bf16Smem {
+  static constexpr int lda = W + 8;  // +8 bf16: conflict-free fragment loads
+  static constexpr int lde = KE + 8;
+  static constexpr int ldv = KV + 8;
+  static constexpr int ldw = KC + 8;
+  static constexpr size_t act = 0;
+  static constexpr size_t emb = act + size_t(TP) * lda * 2;
+  static constexpr size_t embv = emb + size_t(TP) * lde * 2;
+  static constexpr size_t wbuf = embv + size_t(TP) * ldv * 2;
+  static constexpr size_t part = wbuf + size_t(2) * W * ldw * 2;
+  static constexpr size_t bytes = part + size_t(TP) * 4 * 4;
+};
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gsrc) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gsrc) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One K segment of a layer: activations A [TP][lda] in shared memory times
+// weights Wg^T [N][K] in global memory.
+struct Seg {
+  const bf16* A;
+  int lda;
+  const bf16* Wg;
+  int K;
+};
+
+// acc[TP x N] = A1 W1 + A2 W2 (f32 accumulators in registers). Warps are
+// laid out 2 (rows, 64 each) x 4 (columns, NT*8 each), N = 32*NT. Ends with
+// a barrier, so the caller may overwrite A1/A2 in place afterwards.
+template <int W, int NT>
+__device__ void mma_layer(Seg s1, Seg s2, bf16* wbuf, float (&acc)[4][NT][4]) {
+  using L = Bf16Smem<W>;
+  constexpr int N = NT * 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+
+  const int c1 = s1.K / KC;
+  const int nchunks = c1 + (s2.K + KC - 1) / KC;
+  auto chunk = [&](int c, Seg& s, int& k0, int& width) {
+    if (c < c1) {
+      s = s1;
+      k0 = c * KC;
+      width = KC;
+    } else {
+      s = s2;
+      k0 = (c - c1) * KC;
+      width = min(KC, s2.K - k0);
+    }
+  };
+  auto load = [&](int c) {
+    Seg s;
+    int k0, width;
+    chunk(c, s, k0, width);
+    bf16* dst = wbuf + (c & 1) * W * L::ldw;
+    const int pieces = width / 8;  // 16-byte pieces per weight row
+    for (int idx = tid; idx < N * pieces; idx += THREADS) {
+      const int n = idx / pieces, j = idx - n * pieces;
+      cp_async16(dst + n * L::ldw + j * 8, s.Wg + size_t(n) * s.K + k0 + j * 8);
+    }
+    cp_async_commit();
+  };
+
+  load(0);
+  for (int c = 0; c < nchunks; ++c) {
+    if (c + 1 < nchunks) {
+      load(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    Seg s;
+    int k0, width;
+    chunk(c, s, k0, width);
+    const bf16* wsm = wbuf + (c & 1) * W * L::ldw;
+    for (int kk = 0; kk < width; kk += 16) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const bf16* ap = s.A + (wm * 64 + mt * 16 + g) * s.lda + k0 + kk + 2 * t;
+        a[mt][0] = ld32(ap);
+        a[mt][1] = ld32(ap + 8 * s.lda);
+        a[mt][2] = ld32(ap + 8);
+        a[mt][3] = ld32(ap + 8 * s.lda + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const bf16* bp = wsm + (wn * NT * 8 + nt * 8 + g) * L::ldw + kk + 2 * t;
+        const uint32_t b0 = ld32(bp), b1 = ld32(bp + 8);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) mma16816(acc[mt][nt], a[mt], b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// out[TP x N] = act(acc + bias), rounded to bf16.
+template <int NT>
+__device__ void epilogue(float (&acc)[4][NT][4], const float* __restrict__ bias, bf16* out,
+                         int ldo, bool relu) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int row = wm * 64 + mt * 16 + g;
+      const int col = wn * NT * 8 + nt * 8 + 2 * t;
+      const float b0 = bias[col], b1 = bias[col + 1];
+      float v[4] = {acc[mt][nt][0] + b0, acc[mt][nt][1] + b1, acc[mt][nt][2] + b0,
+                    acc[mt][nt][3] + b1};
+      if (relu)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = fmaxf(v[q], 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(out + row * ldo + col) = __floats2bfloat162_rn(v[0], v[1]);
+      *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * ldo + col) =
+          __floats2bfloat162_rn(v[2], v[3]);
+    }
+}
+
+// ----------------------------------------------------------------- f32 path
+
+constexpr int TP32 = 64;  // points per CTA
+template <int W> struct F32Smem {
+  static constexpr int lda = W + 1;  // odd strides: conflict-free column reads
+  static constexpr int lde = KE + 1;
+  static constexpr int ldv = KV + 1;
+  static constexpr size_t a = 0;
+  static constexpr size_t b = a + size_t(TP32) * lda * 4;
+  static constexpr size_t emb = b + size_t(TP32) * lda * 4;
+  static constexpr size_t embv = emb + size_t(TP32) * lde * 4;
+  static constexpr size_t part = embv + size_t(TP32) * ldv * 4;
+  static constexpr size_t bytes = part + size_t(TP32) * 4 * 4;
+};
+
+// out[i][n] = act(A1[i] . W1[n] + A2[i] . W2[n] + bias[n]) for the tile's
+// 64 rows; warp w takes columns n = w, w+8, ...; lane takes rows lane and
+// lane+32. Weights W^T are [N][K] rows in global memory (one broadcast load
+// per k for the warp).
+__device__ void dense_f32(const float* A1, int lda1, int K1, const float* __restrict__ W1,
+                          const float* A2, int lda2, int K2, const float* __restrict__ W2,
+                          const float* __restrict__ bias, int N, float* out, int ldo,
+                          bool relu) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int n = warp; n < N; n += THREADS / 32) {
+    float a0 = 0.f, a1 = 0.f;
+    const float* w = W1 + size_t(n) * K1;
+    for (int k = 0; k < K1; ++k) {
+      const float wk = __ldg(w + k);
+      a0 = fmaf(A1[lane * lda1 + k], wk, a0);
+      a1 = fmaf(A1[(lane + 32) * lda1 + k], wk, a1);
+    }
+    if (A2 != nullptr) {
+      const float* w2 = W2 + size_t(n) * K2;
+      for (int k = 0; k < K2; ++k) {
+        const float wk = __ldg(w2 + k);
+        a0 = fmaf(A2[lane * lda2 + k], wk, a0);
+        a1 = fmaf(A2[(lane + 32) * lda2 + k], wk, a1);
+      }
+    }
+    a0 += bias[n];
+    a1 += bias[n];
+    if (relu) {
+      a0 = fmaxf(a0, 0.f);
+      a1 = fmaxf(a1, 0.f);
+    }
+    out[lane * ldo + n] = a0;
+    out[(lane + 32) * ldo + n] = a1;
+  }
+}
+
+}  // namespace

@@ -1,4 +1,4 @@
-"""Weight carry-over between ``nerf_tpu``'s parameter pytree and the port.
+"""Weight and train-state carry-over between ``nerf_tpu`` and the port.
 
 ``nerf_tpu`` keeps each layer as ``{"w": [in, out], "b": [out]}`` under
 ``trunk[i] / alpha / feature / views / rgb / output``; the port's
@@ -7,6 +7,15 @@
 rgb_linear / output_linear`` (the mapping of
 nerf_tpu/models/torch_import.py:49-78). Both directions are plain numpy
 transposes; nothing is rounded.
+
+A train state crosses as plain numpy: ``{"params", "mu", "nu"}`` pytrees
+keyed by level (``{"coarse": ..., "fine": ...}``), the Adam ``count`` and
+the ``step``. On nerf_tpu's side these are ``TrainState.params``, the
+``ScaleByAdamState`` (mu, nu, count) of its optax chain and
+``TrainState.step``; on the port's side the nets, each parameter's Adam
+``exp_avg`` / ``exp_avg_sq`` / ``step`` and ``TrainState.step``. Both
+optimizers count completed updates, so either package can continue the
+other's run.
 """
 
 from __future__ import annotations
@@ -16,7 +25,11 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from nerf_tpu_torch.device import DeviceLike
+from nerf_tpu_torch.models.factory import init_nets
 from nerf_tpu_torch.models.nerf_mlp import MLPConfig
+from nerf_tpu_torch.render.network import NeRFModel
+from nerf_tpu_torch.train.step import TrainState, init_train_state
 
 _HEADS = (
     ("alpha", "alpha_linear"),
@@ -77,3 +90,48 @@ def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: MLPConfig) -
         else:
             params[path[0]] = leaf(prefix)
     return params
+
+
+def train_state_from_jax_arrays(
+    arrays: Mapping, model: NeRFModel, lrate: float, device: DeviceLike = None
+) -> TrainState:
+    """nerf_tpu's train state as numpy (``params``, ``mu``, ``nu`` by level,
+    ``count``, ``step``) -> the port's TrainState on ``device``."""
+    nets = init_nets(model, seed=0, device=device)
+    for level, net in nets.items():
+        cfg = model.mlp_config(level)
+        net.load_state_dict(state_dict_from_jax_params(arrays["params"][level], cfg), strict=True)
+    state = init_train_state(nets, lrate, start_step=int(arrays["step"]))
+    count = torch.tensor(float(arrays["count"]), dtype=torch.float32)
+    for level, net in nets.items():
+        cfg = model.mlp_config(level)
+        mu = state_dict_from_jax_params(arrays["mu"][level], cfg)
+        nu = state_dict_from_jax_params(arrays["nu"][level], cfg)
+        for name, p in net.named_parameters():
+            state.optimizer.state[p] = {
+                "step": count.clone(),
+                "exp_avg": mu[name].to(p.device),
+                "exp_avg_sq": nu[name].to(p.device),
+            }
+    return state
+
+
+def jax_arrays_from_train_state(state: TrainState, model: NeRFModel) -> Dict:
+    """Inverse of :func:`train_state_from_jax_arrays`: numpy ``params``,
+    ``mu``, ``nu`` by level, the Adam ``count`` and the ``step``. A parameter
+    without Adam state (before the first update) gives zero moments."""
+    out: Dict = {"params": {}, "mu": {}, "nu": {}, "count": 0, "step": int(state.step)}
+    for level, net in state.nets.items():
+        cfg = model.mlp_config(level)
+        sd = net.state_dict()
+        mu, nu = {}, {}
+        for name, p in net.named_parameters():
+            st = state.optimizer.state.get(p, {})
+            mu[name] = st.get("exp_avg", torch.zeros_like(p))
+            nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+            if "step" in st:
+                out["count"] = int(st["step"])
+        out["params"][level] = jax_params_from_state_dict(sd, cfg)
+        out["mu"][level] = jax_params_from_state_dict(mu, cfg)
+        out["nu"][level] = jax_params_from_state_dict(nu, cfg)
+    return out

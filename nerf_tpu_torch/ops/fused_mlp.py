@@ -1,26 +1,33 @@
-"""Fused posenc + NeRF MLP forward from rays and sample depths (raygen mode).
+"""Fused posenc + NeRF MLP from rays and sample depths (raygen mode), with its
+backward.
 
 Counterpart of nerf_tpu/ops/fused_mlp.py's ``fused_query_rays_planes``: rays
 ``[R, 3]`` and depths ``z [R, S]`` in, raw (r, g, b, sigma) as four
 ``[R, S]`` planes out. The points ``x = o + d·z``, both embeddings and all
-activations exist only inside the kernel (``csrc/fused_mlp_fwd.cu``).
+activations exist only inside the kernels: K1 (``csrc/fused_mlp_fwd.cu``)
+computes the planes, K4 (``csrc/fused_mlp_bwd.cu``) the weight grads from
+their cotangent; rays and depths get no gradient (ref run_nerf.py:394).
 
-Three pieces:
-- ``pack_params``: the kernel's weight layout, as nerf_tpu's ``pack_params``
+The pieces:
+- ``pack_params``: the kernels' weight layout, as nerf_tpu's ``pack_params``
   builds it (rows of the embedding weights permuted to
   ``[x | sin f-major | cos]``, layer 0 and the skip's embedding half merged
-  into ``W05e``, rgb and alpha merged into ``Wout``, f32 biases), and
-  ``packed_params``, which keeps it and the kernel's flat buffers on the
-  module between launches;
-- ``fused_rays_planes_reference``: the plain PyTorch version of the kernel;
-- ``fused_rays_planes``: the wrapper. A CPU tensor goes to the plain
-  version; a CUDA tensor launches the kernel or raises.
-
-Only the forward is ported; the training backward comes with the trainer.
+  into ``W05e``, rgb and alpha merged into ``Wout``, f32 biases). It is
+  differentiable, so only the kernels need a hand-written backward;
+  ``packed_params`` keeps a detached packing and the kernel's flat buffers
+  on the module for serving;
+- ``fused_rays_planes_reference`` / ``fused_rays_planes_bwd_reference``: the
+  plain PyTorch versions of K1 and K4;
+- ``fused_rays_planes`` / ``fused_rays_planes_bwd``: the wrappers. A CPU
+  tensor goes to the plain version; a CUDA tensor launches the kernel or
+  raises;
+- ``fused_query_rays_planes``: the entry the renderer calls; under autograd
+  it runs ``_FusedRaysPlanes`` (K1 forward, K4 backward).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -33,7 +40,13 @@ from nerf_tpu_torch.ops import _build
 DEPTH = 8
 SKIP = 4  # input re-concatenated after trunk layer 4 -> layer 5 input
 KE, KV = 64, 32  # the kernel's padded embedding widths (csrc/fused_mlp_fwd.cu)
-KERNEL_WIDTHS = (128, 256)  # the widths csrc/fused_mlp_fwd.cu is built for
+KERNEL_WIDTHS = (128, 256)  # the widths the kernels are built for
+# the packed leaves, in the order _FusedRaysPlanes takes them
+KP_NAMES = (
+    ("W05e", "b0")
+    + tuple(n for i in range(1, DEPTH) for n in (f"W{i}", f"b{i}"))
+    + ("Wf", "bf", "Wvf", "Wve", "bv", "Wout", "bout")
+)
 
 
 def supports(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views) -> bool:
@@ -66,6 +79,21 @@ def flops_per_point(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig
     return 2 * macs
 
 
+def bwd_flops(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig,
+              n_rays: int, n_samples: int) -> int:
+    """FLOP of K4 for one call, as ``_mlp_backward_math`` (without input
+    grads) needs them: the forward recompute without the rgb/alpha head, the
+    activation cotangents and the weight grads, per point; dWve per ray.
+    3,484,416 per point at 8x256 with 10/4 octaves, plus 6,912 per ray."""
+    W, ep, ev = cfg.width, pe_pts.out_dim, pe_views.out_dim
+    recompute = 2 * ep * W + DEPTH * W * W + (W + ev) * (W // 2)  # W05e, W1..7 + Wf, view
+    head = (W // 2 + W) * 4 + 4 * (W // 2) + 4 * W  # dWout, d_hv, d_h7 from Wout
+    view = 2 * W * (W // 2)  # dWvf, d_feat
+    trunk = 2 * DEPTH * W * W  # dWf + d_h7 (Wf), dW_i + d_h (W1..W7)
+    macs_pt = recompute + head + view + trunk + ep * 2 * W  # + dW05e
+    return 2 * (n_rays * n_samples * macs_pt + n_rays * ev * (W // 2))
+
+
 def _reorder_emb_rows(w: torch.Tensor, num_freqs: int) -> torch.Tensor:
     """Rows in embedding order (x, sin f0, cos f0, sin f1, ...) -> kernel
     order [x (3) | sin, f-major (3F) | cos (3F)]."""
@@ -75,13 +103,14 @@ def _reorder_emb_rows(w: torch.Tensor, num_freqs: int) -> torch.Tensor:
     return torch.cat([w[:3], ws, wc], 0)
 
 
-@torch.no_grad()
 def pack_params(
     mlp: NeRFMLP, pe_pts: PosEncConfig, pe_views: PosEncConfig, dtype: torch.dtype
 ) -> Dict[str, torch.Tensor]:
     """The module's weights in the kernel's layout, ``[in, out]`` like
     nerf_tpu's pack_params: W05e [ep, 2W], W1..W7 / Wf [W, W], Wvf [W, W/2],
-    Wve [ev, W/2], Wout [3W/2, 4] in ``dtype``; biases [1, out] float32."""
+    Wve [ev, W/2], Wout [3W/2, 4] in ``dtype``; biases [1, out] float32.
+    Differentiable: under autograd the grads of the packed leaves flow back
+    through the casts, reorders and concatenations to the parameters."""
     W = mlp.cfg.width
     ep = 3 + 6 * pe_pts.num_freqs
     trunk = mlp.pts_linears
@@ -108,7 +137,7 @@ def pack_params(
         [F.pad(wr, (0, 1)), F.pad(wa, (3, 0))], 0
     ).to(dtype)  # rows: hv -> rgb, h7 -> alpha
     kp["bout"] = torch.cat([mlp.rgb_linear.bias, mlp.alpha_linear.bias]).float()[None, :]
-    return {k: v.detach().contiguous() for k, v in kp.items()}
+    return {k: v.contiguous() for k, v in kp.items()}
 
 
 def _num_freqs(kp) -> Tuple[int, int]:
@@ -210,13 +239,16 @@ def packed_params(
            tuple((p.data_ptr(), p._version) for p in mlp.parameters()))
     cached = getattr(mlp, "_fused_packed", None)
     if cached is None or cached[0] != key:
-        kp = pack_params(mlp, pe_pts, pe_views, dtype)
+        with torch.no_grad():
+            kp = pack_params(mlp, pe_pts, pe_views, dtype)
         blobs = kernel_blobs(kp) if kp["W1"].is_cuda else None
         cached = mlp._fused_packed = (key, kp, blobs)
     return cached[1], cached[2]
 
 
-def _launch(kp, rays_o, rays_d, viewdirs, z_vals, blobs) -> torch.Tensor:
+def _kernel_config(kp, z_vals):
+    """(dtype, width, point octaves, view octaves) for a launch; raises on
+    what the kernels are not built for."""
     dtype = kp["W1"].dtype
     W = kp["W1"].shape[0]
     Fp, Fv = _num_freqs(kp)
@@ -229,6 +261,17 @@ def _launch(kp, rays_o, rays_d, viewdirs, z_vals, blobs) -> torch.Tensor:
         )
     if any(v.device != z_vals.device for v in kp.values()):
         raise ValueError(f"packed params and rays must be on one device, {z_vals.device}")
+    return dtype, W, Fp, Fv
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err != 0:
+        msg = lib.nerf_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {err})")
+
+
+def _launch(kp, rays_o, rays_d, viewdirs, z_vals, blobs) -> torch.Tensor:
+    dtype, W, Fp, Fv = _kernel_config(kp, z_vals)
     lib = _build.load("fused_mlp_fwd")
     R, S = z_vals.shape
     out = torch.empty(4, R, S, dtype=torch.float32, device=z_vals.device)
@@ -243,9 +286,7 @@ def _launch(kp, rays_o, rays_d, viewdirs, z_vals, blobs) -> torch.Tensor:
             ro.data_ptr(), rd.data_ptr(), vd.data_ptr(), z.data_ptr(),
             R, S, Fp, Fv, wblob.data_ptr(), bblob.data_ptr(), out.data_ptr(), stream,
         )
-    if err != 0:
-        msg = lib.nerf_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_mlp_fwd launch failed: {msg} (cudaError {err})")
+    _raise_on(lib, err, "fused_mlp_fwd")
     fused_rays_planes.launches += 1
     return out
 
@@ -273,6 +314,211 @@ def fused_rays_planes(
 fused_rays_planes.launches = 0
 
 
+# ------------------------------------------------------------------ backward
+
+
+def fused_rays_planes_bwd_reference(
+    kp: Dict[str, torch.Tensor],
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    viewdirs: torch.Tensor,
+    z_vals: torch.Tensor,
+    g_planes: torch.Tensor,
+) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of K4: float32 grads of every packed leaf (kp's
+    shapes) from the cotangent ``g_planes [4, R, S]`` of the raw planes.
+
+    Mirrors nerf_tpu's _mlp_backward_math(want_input_grads=False) step by
+    step, with its rounding points: g rounded once (gc); d_hv rounded after
+    its relu mask; dWve from the per-ray f32 sum of d_hv, rounded after the
+    sum; each trunk cotangent rounded before its products, the layer-5 one
+    kept for dW05e = e^T [d0 | d5]; the relu masks from the bf16 trunk
+    activations but the f32 h7 and hv; bias grads as f32 sums of the
+    unrounded cotangents. Autograd through the plain forward rounds
+    elsewhere and is no reference for K4."""
+    dtype = kp["W1"].dtype
+    c = lambda t: round_to(t, dtype)  # noqa: E731
+    w = lambda name: kp[name].float()  # noqa: E731
+    R, S = z_vals.shape
+    Fp, Fv = _num_freqs(kp)
+    W = kp["W1"].shape[0]
+    hw = W // 2
+    # the forward again, keeping the activations (fused_rays_planes_reference)
+    x = (rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]).reshape(R * S, 3)
+    e = c(_embed(x, Fp))
+    ev = c(_embed(viewdirs, Fv))
+    z05 = e @ w("W05e")
+    h = torch.relu(z05[:, :W] + kp["b0"])
+    acts = []  # bf16-rounded h0..h6
+    for i in range(1, DEPTH):
+        acts.append(c(h))
+        z = acts[-1] @ w(f"W{i}") + kp[f"b{i}"]
+        if i == SKIP + 1:
+            z = z + z05[:, W:]
+        h = torch.relu(z)
+    h7, h7c = h, c(h)
+    feat = h7c @ w("Wf") + kp["bf"]
+    ev_contrib = (ev @ w("Wve")).repeat_interleave(S, dim=0)
+    hv = torch.relu(c(feat) @ w("Wvf") + ev_contrib + kp["bv"])
+
+    g32 = g_planes.reshape(4, R * S).T
+    gc = c(g32)
+    grads = {
+        "Wout": torch.cat([c(hv).T @ gc, h7c.T @ gc], 0),
+        "bout": g32.sum(0, keepdim=True),
+    }
+    d_hv = (gc @ w("Wout")[:hw].T) * (hv > 0)
+    d_h7_out = gc @ w("Wout")[hw:].T
+    d_hv_c = c(d_hv)
+    grads["Wvf"] = c(feat).T @ d_hv_c
+    grads["Wve"] = ev.T @ c(d_hv.reshape(R, S, hw).sum(1))
+    grads["bv"] = d_hv.sum(0, keepdim=True)
+    d_feat = d_hv_c @ w("Wvf").T
+    d_feat_c = c(d_feat)
+    grads["Wf"] = h7c.T @ d_feat_c
+    grads["bf"] = d_feat.sum(0, keepdim=True)
+    d_h = (d_feat_c @ w("Wf").T + d_h7_out) * (h7 > 0)
+    for i in range(DEPTH - 1, 0, -1):
+        d_c = c(d_h)
+        grads[f"W{i}"] = acts[i - 1].T @ d_c
+        grads[f"b{i}"] = d_h.sum(0, keepdim=True)
+        if i == SKIP + 1:
+            d5c = d_c
+        d_h = (d_c @ w(f"W{i}").T) * (acts[i - 1] > 0)
+    grads["W05e"] = e.T @ torch.cat([c(d_h), d5c], -1)
+    grads["b0"] = d_h.sum(0, keepdim=True)
+    return grads
+
+
+def _chain_blob(kp: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """K4's second weight buffer (TLayout in csrc/fused_mlp_bwd.cu): W1..W7,
+    Wf and Wvf in kp's own [in, out] layout, the B operand of d·Wᵀ."""
+    names = [f"W{i}" for i in range(1, DEPTH)] + ["Wf", "Wvf"]
+    return torch.cat([kp[n].reshape(-1) for n in names]).contiguous()
+
+
+def _grad_blocks(W: int):
+    """(name, rows, cols) of K4's f32 output in order (GLayout in
+    csrc/fused_mlp_bwd.cu, embedding rows padded to KE / KV), then the bias
+    grads as (name, width)."""
+    weights = (
+        [("W05e", KE, 2 * W)]
+        + [(f"W{i}", W, W) for i in range(1, DEPTH)]
+        + [("Wf", W, W), ("Wvf", W, W // 2), ("Wve", KV, W // 2), ("Wout", 3 * W // 2, 4)]
+    )
+    biases = [(f"b{i}", W) for i in range(DEPTH)] + [("bf", W), ("bv", W // 2), ("bout", 4)]
+    return weights, biases
+
+
+def _unpack_grads(out: torch.Tensor, W: int, Fp: int, Fv: int) -> Dict[str, torch.Tensor]:
+    weights, biases = _grad_blocks(W)
+    rows_used = {"W05e": 3 + 6 * Fp, "Wve": 3 + 6 * Fv}
+    grads, o = {}, 0
+    for name, rows, cols in weights:
+        grads[name] = out[o : o + rows * cols].view(rows, cols)[: rows_used.get(name, rows)]
+        o += rows * cols
+    for name, n in biases:
+        grads[name] = out[o : o + n].view(1, n)
+        o += n
+    return grads
+
+
+def _grad_size(W: int) -> int:
+    weights, biases = _grad_blocks(W)
+    return sum(r * c for _, r, c in weights) + sum(n for _, n in biases)
+
+
+def _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g, blobs) -> Dict[str, torch.Tensor]:
+    dtype, W, Fp, Fv = _kernel_config(kp, z_vals)
+    dev = z_vals.device
+    R, S = z_vals.shape
+    out = torch.zeros(_grad_size(W), dtype=torch.float32, device=dev)
+    if R * S == 0:
+        return _unpack_grads(out, W, Fp, Fv)
+    lib = _build.load("fused_mlp_bwd")
+    use_bf16 = int(dtype == torch.bfloat16)
+    nbytes = ctypes.c_longlong(0)
+    _raise_on(lib, lib.nerf_fused_mlp_bwd_workspace(use_bf16, W, R, S, ctypes.byref(nbytes)),
+              "fused_mlp_bwd")
+    ws = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+    ro, rd, vd, z, gp = (t.contiguous() for t in (rays_o, rays_d, viewdirs, z_vals, g))
+    wblob, bblob = kernel_blobs(kp) if blobs is None else blobs
+    wtblob = _chain_blob(kp)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nerf_fused_mlp_bwd(
+            use_bf16, W, ro.data_ptr(), rd.data_ptr(), vd.data_ptr(), z.data_ptr(),
+            gp.data_ptr(), R, S, Fp, Fv, wblob.data_ptr(), wtblob.data_ptr(),
+            bblob.data_ptr(), ws.data_ptr(), nbytes.value, out.data_ptr(), stream,
+        )
+    _raise_on(lib, err, "fused_mlp_bwd")
+    fused_rays_planes_bwd.launches += 1
+    return _unpack_grads(out, W, Fp, Fv)
+
+
+def fused_rays_planes_bwd(
+    kp: Dict[str, torch.Tensor],
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    viewdirs: torch.Tensor,
+    z_vals: torch.Tensor,
+    g_planes: torch.Tensor,
+    blobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    """float32 grads of the packed leaves (kp's shapes) from the cotangent
+    ``g_planes [4, R, S]`` of ``fused_rays_planes``'s output. CUDA tensors
+    launch K4 (``launches`` counts them); CPU tensors take the plain
+    version."""
+    _check_rays(rays_o, rays_d, viewdirs, z_vals)
+    R, S = z_vals.shape
+    if g_planes.shape != (4, R, S) or g_planes.dtype != torch.float32:
+        raise ValueError(
+            f"g_planes: expected float32 {(4, R, S)}, got {g_planes.dtype} {tuple(g_planes.shape)}"
+        )
+    if g_planes.device != z_vals.device:
+        raise ValueError(f"g_planes is on {g_planes.device}, z_vals on {z_vals.device}")
+    if z_vals.device.type == "cpu":
+        return fused_rays_planes_bwd_reference(kp, rays_o, rays_d, viewdirs, z_vals, g_planes)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {z_vals.device}")
+    return _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g_planes, blobs)
+
+
+fused_rays_planes_bwd.launches = 0
+
+
+class _FusedRaysPlanes(torch.autograd.Function):
+    """K1 forward, K4 backward over the packed leaves (in KP_NAMES order).
+    Rays, viewdirs and depths get no gradient, as in nerf_tpu's
+    _fused_rays_bwd_rule; each leaf's grad comes back in its own dtype
+    (bf16 weights, f32 biases), as ``dkp = g_.astype(kp[n_].dtype)`` there."""
+
+    @staticmethod
+    def forward(ctx, rays_o, rays_d, viewdirs, z_vals, *leaves):
+        kp = dict(zip(KP_NAMES, leaves))
+        blobs = kernel_blobs(kp) if z_vals.is_cuda else None
+        ctx.save_for_backward(rays_o, rays_d, viewdirs, z_vals, *leaves)
+        ctx.blobs = blobs
+        return fused_rays_planes(kp, rays_o, rays_d, viewdirs, z_vals, blobs)
+
+    @staticmethod
+    def backward(ctx, g):
+        ro, rd, vd, z, *leaves = ctx.saved_tensors
+        kp = dict(zip(KP_NAMES, leaves))
+        grads = fused_rays_planes_bwd(kp, ro, rd, vd, z, g.contiguous(), ctx.blobs)
+        ctx.blobs = None
+        return (None,) * 4 + tuple(grads[n].to(kp[n].dtype) for n in KP_NAMES)
+
+
+def fused_rays_planes_autograd(kp, rays_o, rays_d, viewdirs, z_vals) -> torch.Tensor:
+    """``fused_rays_planes`` that differentiates into the packed leaves."""
+    _check_rays(rays_o, rays_d, viewdirs, z_vals)
+    return _FusedRaysPlanes.apply(
+        rays_o.detach(), rays_d.detach(), viewdirs.detach(), z_vals.detach(),
+        *(kp[n] for n in KP_NAMES),
+    )
+
+
 def fused_query_rays_planes(
     mlp: NeRFMLP,
     cfg: MLPConfig,
@@ -285,13 +531,14 @@ def fused_query_rays_planes(
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Rays + depths in, raw planes [4, R, S] out (nerf_tpu's
-    fused_query_rays_planes). Forward only: call under ``torch.no_grad()``."""
+    fused_query_rays_planes). Under autograd (grad enabled and a parameter
+    that requires grad) the weights are packed anew with their graph and the
+    call differentiates through K4; otherwise the packing kept on the module
+    serves the forward alone."""
     if not supports(cfg, pe_pts, pe_views):
         raise ValueError("fused_query_rays_planes: unsupported MLP / posenc configuration")
     if torch.is_grad_enabled() and any(p.requires_grad for p in mlp.parameters()):
-        raise RuntimeError(
-            "the fused MLP has no backward yet: render under torch.no_grad(), "
-            "or with NeRFModel(fused=False) to differentiate"
-        )
+        kp = pack_params(mlp, pe_pts, pe_views, compute_dtype)
+        return fused_rays_planes_autograd(kp, rays_o, rays_d, viewdirs, z_vals)
     kp, blobs = packed_params(mlp, pe_pts, pe_views, compute_dtype)
     return fused_rays_planes(kp, rays_o, rays_d, viewdirs, z_vals, blobs)

@@ -1,0 +1,157 @@
+"""The training step.
+
+Counterpart of nerf_tpu/train/step.py, the reference's loop body
+(run_nerf.py:759-784): coarse+fine render, ``loss = mse(fine) +
+mse(coarse)`` (run_nerf.py:765-772), the backward, and Adam with the decay
+``lr = lrate * 0.1^(t/(lrate_decay*1000))`` (run_nerf.py:780-784).
+
+The step runs eagerly on the device of its tensors: the random draws, both
+levels' K1 forward and K4 backward, compositing and Adam are queued there
+without a host sync; the loss comes back as a device tensor in ``aux``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import torch
+
+from nerf_tpu_torch.geom.rays import ndc_rays
+from nerf_tpu_torch.render.network import NeRFModel
+from nerf_tpu_torch.render.renderer import RenderSettings, render_rays
+from nerf_tpu_torch.utils.metrics import img2mse, mse2psnr
+
+ADAM_BETAS = (0.9, 0.999)  # ref run_nerf.py:207
+ADAM_EPS = 1e-8
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The networks, their Adam optimizer and the number of updates made."""
+
+    nets: Dict[str, torch.nn.Module]
+    optimizer: torch.optim.Adam
+    step: int = 0
+
+
+def lr_schedule(lrate: float, lrate_decay: int) -> Callable[[int], float]:
+    """lr(t) = lrate * 0.1^(t / (lrate_decay*1000)) for update t (ref
+    run_nerf.py:780-784; optax's exponential_decay as nerf_tpu builds it):
+    the first update, t = 0, uses lrate."""
+
+    def lr(t: int) -> float:
+        return lrate * 0.1 ** (t / (lrate_decay * 1000))
+
+    return lr
+
+
+def init_train_state(
+    nets: Dict[str, torch.nn.Module], lrate: float, start_step: int = 0
+) -> TrainState:
+    """The nets with Adam(betas=(0.9, 0.999), eps=1e-8) over every parameter,
+    coarse first. torch's Adam, like optax's, adds eps after the
+    bias-corrected root."""
+    params = [p for level in ("coarse", "fine") if level in nets for p in nets[level].parameters()]
+    optimizer = torch.optim.Adam(params, lr=lrate, betas=ADAM_BETAS, eps=ADAM_EPS)
+    return TrainState(nets=nets, optimizer=optimizer, step=start_step)
+
+
+def draw_overrides(
+    generator: torch.Generator, n_rays: int, rs: RenderSettings
+) -> Dict[str, torch.Tensor]:
+    """Every random stream ``render_rays`` consumes, drawn on the generator's
+    device in nerf_tpu's order and shapes (jitter, coarse noise, importance
+    u, fine noise; nerf_tpu/train/step.py:75-110)."""
+    dev = generator.device
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=generator, device=dev, dtype=torch.float32)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+
+    ov: Dict[str, torch.Tensor] = {}
+    if rs.perturb:
+        ov["t_rand"] = uniform(n_rays, rs.n_samples)
+    if rs.raw_noise_std > 0.0:
+        ov["noise0"] = normal(n_rays, rs.n_samples) * rs.raw_noise_std
+    if rs.n_importance > 0:
+        if rs.perturb:  # det (perturb == 0) uses linspace: no draw
+            ov["u"] = uniform(n_rays, rs.n_importance)
+        if rs.raw_noise_std > 0.0:
+            ov["noise1"] = normal(n_rays, rs.n_samples + rs.n_importance) * rs.raw_noise_std
+    return ov
+
+
+def loss_fn(
+    nets: Mapping[str, torch.nn.Module],
+    model: NeRFModel,
+    rs: RenderSettings,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    viewdirs: Optional[torch.Tensor],
+    near: torch.Tensor,
+    far: torch.Tensor,
+    target: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    overrides: Optional[Mapping[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    out = render_rays(
+        nets, model, rs, rays_o, rays_d, viewdirs, near, far,
+        generator=generator, overrides=overrides,
+    )
+    img_loss = img2mse(out["rgb_map"], target)
+    loss = img_loss
+    aux = {"psnr": mse2psnr(img_loss), "img_loss": img_loss}
+    if "rgb0" in out:  # coarse term only with a fine level (ref run_nerf.py:770-772)
+        img_loss0 = img2mse(out["rgb0"], target)
+        loss = loss + img_loss0
+        aux["img_loss0"] = img_loss0
+        aux["psnr0"] = mse2psnr(img_loss0)
+    aux["loss"] = loss
+    return loss, aux
+
+
+def make_train_step(
+    model: NeRFModel,
+    rs: RenderSettings,
+    lrate: float,
+    lrate_decay: int,
+    hwf=None,
+):
+    """The train step: ``step(state, rays_o, rays_d, near, far, target,
+    generator=None, overrides=None) -> aux`` updates ``state`` in place
+    (parameters, Adam moments, ``step``) and returns detached device
+    tensors (loss, psnr, ...). The random draws come from ``overrides`` when
+    given, else from ``generator``. Viewdirs come from the raw rays_d, before
+    the NDC transform (ref run_nerf.py:102-114); ``hwf=(H, W, focal)`` is
+    needed when rs.ndc."""
+    if rs.ndc and hwf is None:
+        raise ValueError("rs.ndc=True requires hwf=(H, W, focal)")
+    schedule = lr_schedule(lrate, lrate_decay)
+
+    def step(state: TrainState, rays_o, rays_d, near, far, target, generator=None,
+             overrides=None) -> Dict[str, torch.Tensor]:
+        if overrides is None and generator is not None:
+            overrides = draw_overrides(generator, rays_o.shape[0], rs)
+        viewdirs = None
+        if rs.use_viewdirs:
+            viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        if rs.ndc:
+            H, W, focal = hwf
+            rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
+        lr = schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, aux = loss_fn(
+            state.nets, model, rs, rays_o, rays_d, viewdirs, near, far, target,
+            generator=generator, overrides=overrides,
+        )
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return {k: v.detach() for k, v in aux.items()}
+
+    return step

@@ -57,3 +57,60 @@ def test_fused_mlp_kernel_matches_plain_version(cuda_device, width, dtype, tol):
         assert float((out - ref).abs().max()) <= tol
         spread = (ref - ref.mean(dim=(1, 2), keepdim=True)).abs().mean(dim=(1, 2)).min()
         assert tol < float(spread)  # the bound sees the input-dependent part
+
+
+# K4 against its plain version: per-leaf relative L2 of the weight grads,
+# for a cotangent of one sign per channel, like an image loss's (a random
+# one makes grads that nearly cancel, whose relative error is noise). f32:
+# the sums over points run in another order only. bf16: both sides round
+# the same operands, but a cotangent whose f32 sum lands on the other side
+# of a bf16 rounding edge rounds to the other neighbour. These grads sum
+# only 80 to 12,288 points, so one such flip weighs more than at the main
+# path's shapes (chip_smoke.py holds those to 1e-3): measured up to 2.5e-3
+# here on an H100 (W1, W=256, R=33, S=24; PERF.md), so 1e-2, far inside
+# nerf_tpu's 0.05 (tests/test_fused_mlp.py:175-183).
+K4_F32_TOL = 1e-4
+K4_BF16_TOL = 1e-2
+
+
+def _rel_l2(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, K4_F32_TOL), (torch.bfloat16, K4_BF16_TOL)])
+def test_fused_mlp_bwd_kernel_matches_plain_version(cuda_device, width, dtype, tol):
+    mlp = NeRFMLP(MLPConfig(width=width), seed=width + 1, device=cuda_device)
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(mlp, PE_P, PE_V, dtype)
+    for R, S in ((5, 16), (33, 24), (64, 192)):  # ragged tails and full tiles
+        args = _rays(R * S + 1, R, S, cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(R)
+        g = (0.5 + torch.rand(4, R, S, device=cuda_device, generator=gen)) * 1e-4
+        before = fused_mlp.fused_rays_planes_bwd.launches
+        got = fused_mlp.fused_rays_planes_bwd(kp, *args, g)
+        again = fused_mlp.fused_rays_planes_bwd(kp, *args, g)
+        torch.cuda.synchronize()
+        assert fused_mlp.fused_rays_planes_bwd.launches == before + 2
+        ref = fused_mlp.fused_rays_planes_bwd_reference(kp, *args, g)
+        assert set(got) == set(ref) == set(fused_mlp.KP_NAMES)
+        for name in fused_mlp.KP_NAMES:
+            assert got[name].shape == kp[name].shape, name
+            assert torch.equal(got[name], again[name]), name  # no atomics: bit-identical
+            assert _rel_l2(got[name], ref[name]) <= tol, (name, _rel_l2(got[name], ref[name]))
+
+
+@pytest.mark.cuda
+def test_fused_query_differentiates_through_k4(cuda_device):
+    cfg = MLPConfig(width=256)
+    mlp = NeRFMLP(cfg, seed=5, device=cuda_device)
+    args = _rays(7, 40, 64, cuda_device)
+    k1, k4 = fused_mlp.fused_rays_planes.launches, fused_mlp.fused_rays_planes_bwd.launches
+    out = fused_mlp.fused_query_rays_planes(mlp, cfg, PE_P, PE_V, *args)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_rays_planes.launches == k1 + 1
+    assert fused_mlp.fused_rays_planes_bwd.launches == k4 + 1
+    grads = [p.grad for p in mlp.parameters()]
+    assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
