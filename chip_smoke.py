@@ -7,14 +7,15 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, one line each (any failure exits non-zero):
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compiles csrc/fused_mlp_fwd.cu (K1) and csrc/fused_mlp_bwd.cu
-   (K4) with nvcc (sm_90a), one process each, at once;
+2. build: compiles csrc/fused_mlp_fwd.cu (K1, K2) and csrc/fused_mlp_bwd.cu
+   (K4, K3) with nvcc (sm_90a), one process each, at once;
 3. kernel: K1 against its plain PyTorch version at the full 8x256 width,
    in f32 and bf16;
 4. render: renders the first 3 poses of the 40-pose orbit at the lego
    half-res recipe (400x400, 64+128 samples, bf16, white background)
-   through ``render_path``; checks shapes, finiteness, 30 K1 launches,
-   and 4,096 rays strided over frame 0 against the plain (unfused) path;
+   through ``render_path``; checks shapes, finiteness, 30 K1 launches and
+   no other, and 4,096 rays strided over frame 0 against the plain
+   (unfused) path;
 5. times: K1 at the serving path's shapes (a 32,768-ray chunk, both
    levels), checked against its plain version there and timed beside its
    bound, its plain version and a bf16 ``torch.matmul`` chain;
@@ -23,13 +24,24 @@ Phases, one line each (any failure exits non-zero):
    two launches must be bit-identical;
 7. train: ``train()`` at the lego recipe with N_rand=4096 on 8 views of
    400x400 rendered by a seeded teacher net through ``render_path``: 3
-   warm-up and 30 timed steps with exactly 2 K1 and 2 K4 launches each,
-   finite and falling loss, ms/step, rays/s and MFU; then 3 steps under
-   ``torch.profiler`` for the device time by kernel and the idle share;
+   warm-up and 30 timed steps with exactly 2 K1 and 2 K4 launches each and
+   no K2/K3, finite and falling loss, ms/step, rays/s and MFU; then 3 steps
+   under ``torch.profiler`` for the device time by kernel and the idle share;
 8. grads: one fused step's weight grads against the plain (unfused) path
    on the same batch and draws;
 9. bwd times: K4 at the training shapes beside its bound, its plain
    version and the backward's big products as bf16 ``torch.matmul``.
+The points-in path (K2 forward, K3 backward), at the 63+128 recipe: 63
+coarse samples and 191 fine are not multiples of 8, so both levels query
+points (``query_raw`` -> ``fused_query``) with a view direction per point:
+10. kernel2 / grad3: K2 and K3 against their plain versions at 8x256, f32
+   and bf16, a direction per point (spr=1) and per ray (spr=S), K3 with
+   and without input grads (dx, dv) and twice, bit-identical;
+11. render: phase 4 at 63+128: 10 K2 launches a frame and no other;
+12. train / grads: phases 7 and 8 at 63+128 on the same views: 2 K2 and 2
+   K3 launches a step and no K1/K4;
+13. k2_times / k3_times: K2 at the chunk's and the step's shapes, K3 at the
+   step's, beside their bounds, plain versions and library chains.
 
 The last two lines are a JSON object of kernel numbers and the
 ``{"ok": true, "device": ...}`` result. Weights are random, from seeds.
@@ -53,6 +65,7 @@ FOCAL = 555.555
 NEAR, FAR = 2.0, 6.0
 CHUNK = 32 * 1024
 N_SAMPLES, N_IMPORTANCE = 64, 128
+POINTS_SAMPLES = 63  # the points-in slice: 63 coarse, 191 fine, neither a multiple of 8
 N_FRAMES = 3
 WIDTH = 256
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -72,6 +85,7 @@ BF16_TOL = 2e-3
 # other bf16 neighbour; one such 1-ulp flip moves rgb_map by up to ~1e-3.
 RENDER_RGB_TOL = 1e-3
 RENDER_CHECK_RAYS = 4096  # a strided sample over the whole frame
+CHECK_RAYS, RAGGED_RAYS = 1024, 1000  # kernel checks: full tiles, and a ragged last tile
 N_RAND = 4096  # the training batch (the reference's default)
 TRAIN_VIEWS = 8
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 3, 30, 3
@@ -87,6 +101,39 @@ K4_BF16_TOL = 1e-3
 # the embedding per input, the kernels merge layer 0 with the skip), and the
 # fine depths follow the coarse weights. nerf_tpu's bf16 grad bound.
 STEP_GRAD_TOL = 5e-2
+# K3's dx and dv against its plain version, per-tensor relative L2. Unlike a
+# weight grad, dx and dv are per point: no sum over points averages a
+# point's error away. A relu input that the two forwards put on opposite
+# sides of zero (f32: within ~1e-7; bf16: at a rounding edge) switches that
+# point's whole cotangent chain, and dx multiplies the top octave's d_e by
+# 2^9. Measured on an H100 (PERF.md): f32 up to 5.2e-4 (dx, R=1000, S=191),
+# bf16 up to 3.3e-3 (dx); bounds ~4x and ~3x that.
+K3_INPUT_F32_TOL = 2e-3
+K3_INPUT_BF16_TOL = 1e-2
+
+
+def counters():
+    """The launch counters of K1, K2, K3 and K4, by name."""
+    from nerf_tpu_torch.ops import fused_mlp
+
+    return {"K1": fused_mlp.fused_rays_planes, "K2": fused_mlp.fused_points,
+            "K3": fused_mlp.fused_points_bwd, "K4": fused_mlp.fused_rays_planes_bwd}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def check_counts(got, want, what: str) -> None:
+    """Exactly ``want`` launches of the named kernels and none of the others."""
+    want = {name: want.get(name, 0) for name in got}
+    if got != want:
+        raise RuntimeError(f"{what}: launches {got}, expected {want}")
 
 
 def phase(tag: str, **fields) -> None:
@@ -158,13 +205,10 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from nerf_tpu_torch.data.scene import Scene, default_intrinsics
     from nerf_tpu_torch.geom.poses import spherical_render_poses
-    from nerf_tpu_torch.geom.rays import get_rays
     from nerf_tpu_torch.models.embedding import PosEncConfig
     from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
     from nerf_tpu_torch.ops import _build, fused_mlp
     from nerf_tpu_torch.render.network import NeRFModel
-    from nerf_tpu_torch.render.renderer import RenderSettings, prepare_rays, render_rays
-    from nerf_tpu_torch.train.loop import render_path
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -199,69 +243,33 @@ def main() -> int:
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             kp = fused_mlp.pack_params(coarse, pe_pts, pe_views, dtype)
             for S in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE):
-                rays = make_rays(rng, 1024, S, dev)
+                rays = make_rays(rng, CHECK_RAYS, S, dev)
                 before = fused_mlp.fused_rays_planes.launches
                 out = fused_mlp.fused_rays_planes(kp, *rays)
                 torch.cuda.synchronize()
                 if fused_mlp.fused_rays_planes.launches != before + 1:
                     raise RuntimeError("the launch counter did not move")
                 ref = fused_mlp.fused_rays_planes_reference(kp, *rays)
-                err = check_kernel(out, ref, tol, dtype=str(dtype).split(".")[-1], R=1024, S=S)
+                err = check_kernel(out, ref, tol, dtype=str(dtype).split(".")[-1], R=CHECK_RAYS,
+                                   S=S)
                 if dtype == torch.bfloat16:
                     bf16_errs.append(err)
 
     # 4. render_path over 3 orbit poses
     model = NeRFModel(pe_pts, pe_views, cfg, cfg, compute_dtype="bfloat16", fused=True)
-    rs = RenderSettings(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, perturb=True,
-                        use_viewdirs=True, white_bkgd=True)
     scene = Scene(images=np.zeros((0, H, W, 3), np.float32), poses=np.zeros((0, 3, 4)),
                   render_poses=spherical_render_poses(40), hwf=(H, W, FOCAL),
                   K=default_intrinsics(H, W, FOCAL), i_train=np.zeros(0, int),
                   i_val=np.zeros(0, int), i_test=np.zeros(0, int), near=NEAR, far=FAR)
     nets = {"coarse": coarse, "fine": fine}
-    poses = scene.render_poses[:N_FRAMES]
-    render_path(nets, model, rs, scene, poses[:1], chunk=CHUNK)  # warm-up frame
-    torch.cuda.synchronize()
-    fused_mlp.fused_rays_planes.launches = 0
-    t0 = time.perf_counter()
-    rgbs, disps = render_path(nets, model, rs, scene, poses, chunk=CHUNK)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = fused_mlp.fused_rays_planes.launches
-    render_k4 = fused_mlp.fused_rays_planes_bwd.launches
-    n_chunks = -(-H * W // CHUNK)
-    if rgbs.shape != (N_FRAMES, H, W, 3) or disps.shape != (N_FRAMES, H, W):
-        raise RuntimeError(f"bad output shapes {rgbs.shape} {disps.shape}")
-    if not (np.isfinite(rgbs).all() and np.isfinite(disps).all()):
-        raise RuntimeError("non-finite frame values")
-    if launches != N_FRAMES * 2 * n_chunks:
-        raise RuntimeError(f"{launches} kernel launches, expected {N_FRAMES * 2 * n_chunks}")
-    if render_k4 != 0:
-        raise RuntimeError(f"serving launched the backward kernel {render_k4} times")
-
-    # rays strided over all of frame 0 through the plain (unfused) path
-    plain = NeRFModel(pe_pts, pe_views, cfg, cfg, compute_dtype="bfloat16", fused=False)
-    c2w = torch.as_tensor(poses[0][:3, :4], dtype=torch.float32, device=dev)
-    ro, rd, vd, nv, fv = prepare_rays(*get_rays(H, W, scene.K, c2w), rs, H, W, FOCAL, NEAR, FAR)
-    idx = torch.arange(RENDER_CHECK_RAYS, device=dev) * (H * W // RENDER_CHECK_RAYS)
-    with torch.no_grad():
-        ref = render_rays(nets, plain, rs.eval_mode(), *(t[idx] for t in (ro, rd, vd, nv, fv)))
-    fused_rgb = rgbs[0].reshape(-1, 3)[idx.cpu().numpy()]
-    render_err = float(np.abs(fused_rgb - ref["rgb_map"].cpu().numpy()).max())
-    ms_frame = 1e3 * seconds / N_FRAMES
-    phase("render", frames=N_FRAMES, shape=rgbs.shape, launches=launches,
-          ms_per_frame=f"{ms_frame:.2f}", rays_per_s=f"{N_FRAMES * H * W / seconds:.0f}",
-          rgb_vs_plain_max_abs=f"{render_err:.3e}", tol=RENDER_RGB_TOL,
-          rgb_mean=f"{rgbs.mean():.4f}", rgb_std_checked=f"{fused_rgb.std():.3e}")
-    if not render_err <= RENDER_RGB_TOL:
-        raise RuntimeError(f"fused render disagrees with the plain path: {render_err}")
+    render = render_phase(nets, model, scene, N_SAMPLES, "K1", dev)
 
     # 5. times at the main path's shapes (one 32,768-ray chunk, both levels)
     flops_pt = fused_mlp.flops_per_point(cfg, pe_pts, pe_views)
     kp, blobs = fused_mlp.packed_params(coarse, pe_pts, pe_views, torch.bfloat16)
     wbytes = sum(v.numel() * v.element_size() for v in kp.values())
     totals = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
-    chunk_rays = [t[:CHUNK] for t in (ro, rd, vd)]
+    chunk_rays = [t[:CHUNK] for t in render["rays"]]
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
         for S in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE):
@@ -294,42 +302,94 @@ def main() -> int:
 
     # 6.-9. the training slice
     k4_errs = check_k4(coarse, pe_pts, pe_views, rng, dev)
-    train_info = train_phase(scene, dev)
+    train_info = train_phase(scene, dev, N_SAMPLES, "K1", "K4")
     step_grads_phase(train_info, dev)
     k4 = k4_times(cfg, pe_pts, pe_views, dev)
 
-    kernels = [{
-        "name": "fused_mlp_fwd",
-        "route": "cuda",
-        "source": "nerf_tpu_torch/csrc/fused_mlp_fwd.cu",
-        "replaces": "nerf_tpu/ops/fused_mlp.py:464",
-        # serving's 30 (3 frames) plus training's 60 (30 steps)
-        "launches": launches + train_info["k1_launches"],
-        "max_abs_err": max(bf16_errs),  # bf16, R=1024 and the chunk shapes
-        # per 32,768-ray chunk: one coarse (S=64) plus one fine (S=192) launch
-        "ms": totals["ms"],
-        "plain_ms": totals["plain_ms"],
-        "bound_ms": max(totals["ops_ms"], totals["bytes_ms"]),
-        "bound_by": "operations" if totals["ops_ms"] >= totals["bytes_ms"] else "bytes",
-        "library_ms": totals["library_ms"],
-    }, {
-        "name": "fused_mlp_bwd",
-        "route": "cuda",
-        "source": "nerf_tpu_torch/csrc/fused_mlp_bwd.cu",
-        "replaces": "nerf_tpu/ops/fused_mlp.py:621",
-        "launches": train_info["k4_launches"],
-        "max_abs_err": max(k4_errs),  # bf16 weight grads, every checked shape
-        # per training step at N_rand=4096: one coarse (S=64) plus one fine (S=192) launch
-        "ms": k4["ms"],
-        "plain_ms": k4["plain_ms"],
-        "bound_ms": max(k4["ops_ms"], k4["bytes_ms"]),
-        "bound_by": "operations" if k4["ops_ms"] >= k4["bytes_ms"] else "bytes",
-        "library_ms": k4["library_ms"],
-    }]
+    # 10.-13. the points-in slice at 63+128
+    k2_errs, k3_errs = check_k23(coarse, pe_pts, pe_views, rng, dev)
+    render63 = render_phase(nets, model, scene, POINTS_SAMPLES, "K2", dev)
+    train63 = train_phase(scene, dev, POINTS_SAMPLES, "K2", "K3", views=train_info["views"])
+    step_grads_phase(train63, dev)
+    k2, k3 = k23_times(cfg, pe_pts, pe_views, render63["rays"], k2_errs, dev)
+
+    def row(name, source, replaces, launches, err, t):
+        return {
+            "name": name, "route": "cuda", "source": f"nerf_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(t["ops_ms"], t["bytes_ms"]),
+            "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
+            "library_ms": t["library_ms"],
+        }
+
+    kernels = [
+        # serving's 30 (3 frames) plus training's 60 (30 steps); bf16 max abs
+        # over R=1024 and the chunk shapes; ms per 32,768-ray chunk (S=64 + S=192)
+        row("fused_mlp_fwd", "fused_mlp_fwd.cu", "nerf_tpu/ops/fused_mlp.py:464",
+            render["counts"]["K1"] + train_info["counts"]["K1"], max(bf16_errs), totals),
+        # training's 60; bf16 weight grads; ms per training step (S=64 + S=192)
+        row("fused_mlp_bwd", "fused_mlp_bwd.cu", "nerf_tpu/ops/fused_mlp.py:621",
+            train_info["counts"]["K4"], max(k4_errs), k4),
+        # the 63+128 serving (30) and training (60) launches; bf16 max abs over
+        # phase 10's and the chunk shapes; ms per 32,768-ray chunk (S=63 + S=191,
+        # a direction per point)
+        row("fused_mlp_fwd_points", "fused_mlp_fwd.cu", "nerf_tpu/ops/fused_mlp.py:454",
+            render63["counts"]["K2"] + train63["counts"]["K2"], max(k2_errs), k2),
+        # the 63+128 training's 60; ms per training step (S=63 + S=191)
+        row("fused_mlp_bwd_points", "fused_mlp_bwd.cu", "nerf_tpu/ops/fused_mlp.py:584",
+            train63["counts"]["K3"], max(k3_errs), k3),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def render_phase(nets, model, scene, n_samples: int, kernel: str, dev):
+    """4 / 11. render_path over N_FRAMES orbit poses at n_samples + 128:
+    shapes, finiteness, exactly 2 launches of ``kernel`` per chunk and none
+    of any other, and 4,096 rays strided over frame 0 against the plain
+    (unfused) path. Returns the counts, and frame 0's rays for phase 5."""
+    from nerf_tpu_torch.geom.rays import get_rays
+    from nerf_tpu_torch.render.renderer import RenderSettings, prepare_rays, render_rays
+    from nerf_tpu_torch.train.loop import render_path
+
+    rs = RenderSettings(n_samples=n_samples, n_importance=N_IMPORTANCE, perturb=True,
+                        use_viewdirs=True, white_bkgd=True)
+    poses = scene.render_poses[:N_FRAMES]
+    render_path(nets, model, rs, scene, poses[:1], chunk=CHUNK)  # warm-up frame
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rgbs, disps = render_path(nets, model, rs, scene, poses, chunk=CHUNK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    n_chunks = -(-H * W // CHUNK)
+    if rgbs.shape != (N_FRAMES, H, W, 3) or disps.shape != (N_FRAMES, H, W):
+        raise RuntimeError(f"bad output shapes {rgbs.shape} {disps.shape}")
+    if not (np.isfinite(rgbs).all() and np.isfinite(disps).all()):
+        raise RuntimeError("non-finite frame values")
+    check_counts(counts, {kernel: N_FRAMES * 2 * n_chunks}, f"render at S={n_samples}")
+
+    # rays strided over all of frame 0 through the plain (unfused) path
+    plain = dataclasses.replace(model, fused=False)
+    c2w = torch.as_tensor(poses[0][:3, :4], dtype=torch.float32, device=dev)
+    ro, rd, vd, nv, fv = prepare_rays(*get_rays(H, W, scene.K, c2w), rs, H, W, FOCAL, NEAR, FAR)
+    idx = torch.arange(RENDER_CHECK_RAYS, device=dev) * (H * W // RENDER_CHECK_RAYS)
+    with torch.no_grad():
+        ref = render_rays(nets, plain, rs.eval_mode(), *(t[idx] for t in (ro, rd, vd, nv, fv)))
+    fused_rgb = rgbs[0].reshape(-1, 3)[idx.cpu().numpy()]
+    render_err = float(np.abs(fused_rgb - ref["rgb_map"].cpu().numpy()).max())
+    phase("render", S=n_samples, frames=N_FRAMES, shape=rgbs.shape, launches=counts,
+          ms_per_frame=f"{1e3 * seconds / N_FRAMES:.2f}",
+          rays_per_s=f"{N_FRAMES * H * W / seconds:.0f}",
+          rgb_vs_plain_max_abs=f"{render_err:.3e}", tol=RENDER_RGB_TOL,
+          rgb_mean=f"{rgbs.mean():.4f}", rgb_std_checked=f"{fused_rgb.std():.3e}")
+    if not render_err <= RENDER_RGB_TOL:
+        raise RuntimeError(f"fused render disagrees with the plain path: {render_err}")
+    return {"counts": counts, "rays": (ro, rd, vd)}
 
 
 def rel_l2(a, b) -> float:
@@ -341,8 +401,8 @@ def check_k4(mlp, pe_pts, pe_views, rng, dev):
     from nerf_tpu_torch.ops import fused_mlp
 
     errs = []
-    shapes = [(1024, N_SAMPLES), (1000, N_SAMPLES), (1024, N_SAMPLES + N_IMPORTANCE),
-              (1000, N_SAMPLES + N_IMPORTANCE)]
+    shapes = [(CHECK_RAYS, N_SAMPLES), (RAGGED_RAYS, N_SAMPLES),
+              (CHECK_RAYS, N_SAMPLES + N_IMPORTANCE), (RAGGED_RAYS, N_SAMPLES + N_IMPORTANCE)]
     cases = [(torch.float32, K4_F32_TOL, shapes), (torch.bfloat16, K4_BF16_TOL, shapes + [
         (N_RAND, N_SAMPLES), (N_RAND, N_SAMPLES + N_IMPORTANCE)])]
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -379,8 +439,12 @@ def check_k4(mlp, pe_pts, pe_views, rng, dev):
     return errs
 
 
-def train_phase(scene, dev):
-    """7. train() at the lego recipe, N_rand=4096, on a teacher's views."""
+def train_phase(scene, dev, n_samples: int, fwd: str, bwd: str, views=None):
+    """7 / 12. train() at the lego recipe with n_samples + 128 samples,
+    N_rand=4096, on 8 views rendered by a teacher (rendered here unless
+    ``views`` are given): exactly 2 launches of ``fwd`` and of ``bwd`` a
+    step and none of any other kernel, a finite and falling loss, the rates,
+    and a short profiled window."""
     from nerf_tpu_torch import config
     from nerf_tpu_torch.data.scene import Scene
     from nerf_tpu_torch.models.factory import make_model
@@ -392,21 +456,23 @@ def train_phase(scene, dev):
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = config.load_config([
         f"--config={os.path.join(here, 'configs', 'lego.txt')}", f"--N_rand={N_RAND}",
+        f"--N_samples={n_samples}",
         f"--n_iters={WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS}", "--i_print=10", "--i_img=0",
         "--i_weights=0", "--i_testset=0", "--i_video=0", "--data_axis=1",
         f"--basedir={os.path.join(here, 'build', 'chip_smoke')}",
     ])
     model = make_model(cfg)
     rs = render_settings_from_config(cfg)
-    # the targets: 8 views on the orbit rendered by a teacher seeded apart
-    teacher = {"coarse": NeRFMLP(model.coarse, seed=1000, device=dev),
-               "fine": NeRFMLP(model.fine, seed=1001, device=dev)}
-    poses = scene.render_poses[:: len(scene.render_poses) // TRAIN_VIEWS][:TRAIN_VIEWS]
-    images, _ = render_path(teacher, model, rs, scene, poses, chunk=CHUNK, device=dev)
-    views = Scene(images=images, poses=np.asarray(poses)[:, :3, :4].astype(np.float32),
-                  render_poses=scene.render_poses, hwf=scene.hwf, K=scene.K,
-                  i_train=np.arange(TRAIN_VIEWS), i_val=np.zeros(0, int),
-                  i_test=np.zeros(0, int), near=NEAR, far=FAR)
+    if views is None:
+        # the targets: 8 views on the orbit rendered by a teacher seeded apart
+        teacher = {"coarse": NeRFMLP(model.coarse, seed=1000, device=dev),
+                   "fine": NeRFMLP(model.fine, seed=1001, device=dev)}
+        poses = scene.render_poses[:: len(scene.render_poses) // TRAIN_VIEWS][:TRAIN_VIEWS]
+        images, _ = render_path(teacher, model, rs, scene, poses, chunk=CHUNK, device=dev)
+        views = Scene(images=images, poses=np.asarray(poses)[:, :3, :4].astype(np.float32),
+                      render_poses=scene.render_poses, hwf=scene.hwf, K=scene.K,
+                      i_train=np.arange(TRAIN_VIEWS), i_val=np.zeros(0, int),
+                      i_test=np.zeros(0, int), near=NEAR, far=FAR)
 
     losses, marks = [], {}
     end = WARMUP_STEPS + TIMED_STEPS
@@ -419,49 +485,49 @@ def train_phase(scene, dev):
         if i in (WARMUP_STEPS, end, end + PROFILED_STEPS):
             torch.cuda.synchronize()
             marks[i] = time.perf_counter()
-            marks[f"k1_{i}"] = fused_mlp.fused_rays_planes.launches
-            marks[f"k4_{i}"] = fused_mlp.fused_rays_planes_bwd.launches
             if i == WARMUP_STEPS:  # the main path's counts start here
-                fused_mlp.fused_rays_planes.launches = 0
-                fused_mlp.fused_rays_planes_bwd.launches = 0
+                reset_counts()
             elif i == end:  # ... and end here; a short profiled window follows
+                marks["counts"] = read_counts()
                 prof.__enter__()
             else:
                 prof.__exit__(None, None, None)
 
     result = train(cfg, views, hooks={"on_step": on_step}, device=dev)
-    k1, k4 = marks[f"k1_{end}"], marks[f"k4_{end}"]
+    counts = marks["counts"]
     seconds = marks[end] - marks[WARMUP_STEPS]
     loss = torch.stack(losses).cpu().numpy()
-    timer = StepTimer(N_RAND, 2 * N_SAMPLES + N_IMPORTANCE,
+    timer = StepTimer(N_RAND, 2 * n_samples + N_IMPORTANCE,
                       fused_mlp.flops_per_point(model.coarse, model.pe_pts, model.pe_views),
                       peak=device_peak_flops(dev))
     rep = timer.report(steps=TIMED_STEPS, elapsed=seconds)
     first, last = float(loss[:5].mean()), float(loss[-5:].mean())
-    phase("train", steps=TIMED_STEPS, n_rand=N_RAND, ms_per_step=f"{1e3 * seconds / TIMED_STEPS:.3f}",
+    phase("train", S=n_samples, steps=TIMED_STEPS, n_rand=N_RAND,
+          ms_per_step=f"{1e3 * seconds / TIMED_STEPS:.3f}",
           rays_per_s=f"{rep['rays_per_sec']:.0f}",
           mfu="unknown card" if rep["mfu"] is None else f"{rep['mfu']:.4f}",
-          k1_launches=k1, k4_launches=k4, loss_first5=f"{first:.6f}", loss_last5=f"{last:.6f}",
+          launches=counts, loss_first5=f"{first:.6f}", loss_last5=f"{last:.6f}",
           psnr_last=f"{result.history[-1][2]:.3f}" if result.history else "none")
     if not np.isfinite(loss).all():
         raise RuntimeError("non-finite training loss")
-    if k1 != 2 * TIMED_STEPS or k4 != 2 * TIMED_STEPS:
-        raise RuntimeError(f"{k1} K1 and {k4} K4 launches in {TIMED_STEPS} steps, "
-                           f"expected {2 * TIMED_STEPS} each")
+    check_counts(counts, {fwd: 2 * TIMED_STEPS, bwd: 2 * TIMED_STEPS},
+                 f"{TIMED_STEPS} steps at S={n_samples}")
     if not last < first:
         raise RuntimeError(f"the loss did not fall: {first} -> {last}")
-    profile_report(prof, marks[end + PROFILED_STEPS] - marks[end])
+    profile_report(prof, marks[end + PROFILED_STEPS] - marks[end], fwd, bwd)
     return {"cfg": cfg, "model": model, "rs": rs, "views": views, "nets": result.state.nets,
-            "k1_launches": k1, "k4_launches": k4}
+            "counts": counts}
 
 
-def profile_report(prof, seconds: float) -> None:
+def profile_report(prof, seconds: float, fwd: str, bwd: str) -> None:
     """Device time of the profiled training steps, by kernel and by group
-    (K1, K4's kernels, the rest), and the device's idle share of the window."""
-    # K4's own workspace memset is one of the step's few "Memset" entries;
-    # those stay in "other", so K4's share reads ~0.01 ms low
-    groups = {"K1": ("fwd_bf16",), "K4": ("bwd_tile_bf16", "ray_prep", "wgrad_bf16",
-                                          "reduce_splits", "reduce_tiles")}
+    (the forward kernel ``fwd``, the backward ``bwd``'s kernels, the rest),
+    and the device's idle share of the window. The step's launch counts show
+    which forward and backward ran: the two pairs share their kernels' names."""
+    # the backward's own workspace memset is one of the step's few "Memset"
+    # entries; those stay in "other", so its share reads ~0.01 ms low
+    groups = {fwd: ("fwd_bf16",), bwd: ("bwd_tile_bf16", "ray_prep", "wgrad_bf16",
+                                        "reduce_splits", "reduce_tiles")}
     rows = []
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
@@ -492,13 +558,13 @@ def step_grads_phase(info, dev):
     model, rs, views, nets = info["model"], info["rs"], info["views"], info["nets"]
     c2w = torch.as_tensor(views.poses[0], device=dev)
     ro, rd = (t.reshape(-1, 3) for t in get_rays(H, W, views.K, c2w))
-    idx = torch.arange(1024, device=dev) * (H * W // 1024)
+    idx = torch.arange(CHECK_RAYS, device=dev) * (H * W // CHECK_RAYS)
     ro, rd = ro[idx], rd[idx]
     target = torch.as_tensor(views.images[0], device=dev).reshape(-1, 3)[idx]
     vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
-    near = torch.full((1024,), NEAR, device=dev)
-    far = torch.full((1024,), FAR, device=dev)
-    ov = draw_overrides(torch.Generator(device=dev).manual_seed(7), 1024, rs)
+    near = torch.full((CHECK_RAYS,), NEAR, device=dev)
+    far = torch.full((CHECK_RAYS,), FAR, device=dev)
+    ov = draw_overrides(torch.Generator(device=dev).manual_seed(7), CHECK_RAYS, rs)
     params = [p for level in ("coarse", "fine") for p in nets[level].parameters()]
     names = [f"{level}.{n}" for level in ("coarse", "fine") for n, _ in nets[level].named_parameters()]
     grads = {}
@@ -507,7 +573,7 @@ def step_grads_phase(info, dev):
         loss, _ = loss_fn(nets, m, rs, ro, rd, vd, near, far, target, overrides=ov)
         grads[fused] = torch.autograd.grad(loss, params)
     worst, leaf = max((rel_l2(a, b), n) for n, a, b in zip(names, grads[True], grads[False]))
-    phase("grads", rays=1024, worst_leaf_rel_l2=f"{worst:.3e}", leaf=leaf, tol=STEP_GRAD_TOL)
+    phase("grads", S=rs.n_samples, rays=CHECK_RAYS, worst_leaf_rel_l2=f"{worst:.3e}", leaf=leaf, tol=STEP_GRAD_TOL)
     if not worst <= STEP_GRAD_TOL:
         raise RuntimeError(f"fused step grads disagree with the plain path: {leaf} {worst}")
 
@@ -577,6 +643,169 @@ def k4_times(cfg, pe_pts, pe_views, dev):
                      ("bytes_ms", bytes_ms), ("library_ms", library_ms)):
             out[k] += v
     return out
+
+
+
+def ray_points(rng, R: int, S: int, spr: int, dev):
+    """(x [R*S, 3], v [R*S/spr, 3]): points on make_rays' rays, as the
+    renderer makes them (PyTorch's multiply, then add), and their view
+    directions per ray (spr = S) or per point (spr = 1)."""
+    ro, rd, vd, z = make_rays(rng, R, S, dev)
+    x = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(R * S, 3)
+    return x, (vd if spr > 1 else vd.repeat_interleave(S, 0))
+
+
+def check_k23(mlp, pe_pts, pe_views, rng, dev):
+    """10. K2 and K3 against their plain versions; returns the bf16 max abs
+    errors of K2's raw and of K3's weight grads."""
+    from nerf_tpu_torch.ops import fused_mlp
+
+    fine = POINTS_SAMPLES + N_IMPORTANCE
+    # (R, S, spr): a direction per point (the renderer's mode here) and per
+    # ray (fused_query's at S % 8 == 0), full and ragged tiles
+    shapes = [(CHECK_RAYS, POINTS_SAMPLES, 1), (RAGGED_RAYS, POINTS_SAMPLES, 1),
+              (RAGGED_RAYS, fine, 1), (CHECK_RAYS, N_SAMPLES, N_SAMPLES),
+              (RAGGED_RAYS, N_SAMPLES, N_SAMPLES)]
+    cases = [(torch.float32, F32_TOL, K4_F32_TOL, K3_INPUT_F32_TOL, shapes),
+             (torch.bfloat16, BF16_TOL, K4_BF16_TOL, K3_INPUT_BF16_TOL,
+              shapes + [(N_RAND, POINTS_SAMPLES, 1), (N_RAND, fine, 1)])]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    k2_errs, k3_errs = [], []
+    for dtype, tol, wtol, itol, dtype_shapes in cases:
+        dname = str(dtype).split(".")[-1]
+        with torch.no_grad():
+            kp = fused_mlp.pack_params(mlp, pe_pts, pe_views, dtype)
+        for R, S, spr in dtype_shapes:
+            x, v = ray_points(rng, R, S, spr, dev)
+            before = read_counts()
+            out = fused_mlp.fused_points(kp, x, v, spr)
+            torch.cuda.synchronize()
+            ref = fused_mlp.fused_points_reference(kp, x, v, spr)
+            err = check_kernel(out.T.reshape(4, R, S), ref.T.reshape(4, R, S), tol, kernel="K2",
+                               dtype=dname, R=R, S=S, spr=spr)
+            if dtype == torch.bfloat16:
+                k2_errs.append(err)
+            del out, ref
+            g = (0.5 + torch.rand(R * S, 4, device=dev, generator=gen)) * 1e-4
+            weights = {}
+            for input_grads in (True, False):
+                got = fused_mlp.fused_points_bwd(kp, x, v, g, spr, input_grads)
+                again = fused_mlp.fused_points_bwd(kp, x, v, g, spr, input_grads)
+                torch.cuda.synchronize()
+                ref = fused_mlp.fused_points_bwd_reference(kp, x, v, g, spr, input_grads)
+                worst, leaf = max((rel_l2(got[0][n], ref[0][n]), n) for n in fused_mlp.KP_NAMES)
+                max_abs = max(float((got[0][n] - ref[0][n]).abs().max())
+                              for n in fused_mlp.KP_NAMES)
+                same = all(torch.equal(got[0][n], again[0][n]) for n in fused_mlp.KP_NAMES)
+                finite = all(bool(torch.isfinite(got[0][n]).all()) for n in fused_mlp.KP_NAMES)
+                inputs = {}
+                if input_grads:
+                    for k, name in ((1, "dx"), (2, "dv")):
+                        inputs[name] = rel_l2(got[k], ref[k])
+                        same = same and torch.equal(got[k], again[k])
+                        finite = finite and bool(torch.isfinite(got[k]).all())
+                else:
+                    finite = finite and got[1] is None and got[2] is None
+                weights[input_grads] = got[0]
+                phase("grad3", dtype=dname, R=R, S=S, spr=spr, input_grads=input_grads,
+                      worst_leaf_rel_l2=f"{worst:.3e}", leaf=leaf, tol=wtol,
+                      max_abs=f"{max_abs:.3e}", bit_identical=same,
+                      **{f"{k}_rel_l2": f"{e:.3e}" for k, e in inputs.items()}, input_tol=itol)
+                if not (finite and same and worst <= wtol and all(e <= itol for e in inputs.values())):
+                    raise RuntimeError(f"K3 disagrees with its plain version or is not "
+                                       f"deterministic: {leaf} {worst} {inputs}, same={same}")
+                if dtype == torch.bfloat16:
+                    k3_errs.append(max_abs)
+                del got, again, ref
+            # the input-grad branch changes no weight grad
+            if not all(torch.equal(weights[True][n], weights[False][n]) for n in fused_mlp.KP_NAMES):
+                raise RuntimeError("K3's weight grads depend on input_grads")
+            after = read_counts()
+            if after["K2"] != before["K2"] + 1 or after["K3"] != before["K3"] + 4:
+                raise RuntimeError(f"the K2/K3 launch counters did not move: {before} {after}")
+            del weights
+            torch.cuda.empty_cache()
+    return k2_errs, k3_errs
+
+
+def k23_times(cfg, pe_pts, pe_views, rays, k2_errs, dev):
+    """13. K2 at the serving chunk's shapes (32,768 rays, S=63 and 191, a
+    direction per point; checked against its plain version there, the max
+    abs errors appended to ``k2_errs``) and at the training step's (4,096
+    rays), K3 at the step's without input grads (and once with them), each
+    beside its bound, its plain version and the bf16 torch.matmul chain of
+    the same products. Returns K2's numbers per chunk and K3's per step."""
+    from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from nerf_tpu_torch.ops import fused_mlp
+
+    mlp = NeRFMLP(cfg, seed=3, device=dev)
+    kp, blobs = fused_mlp.packed_params(mlp, pe_pts, pe_views, torch.bfloat16)
+    flops_pt = fused_mlp.flops_per_point(cfg, pe_pts, pe_views)
+    wbytes = sum(t.numel() * t.element_size() for t in kp.values())
+    chain_bytes = 2 * sum(kp[n].numel() for n in ("W1", "W2", "W3", "W4", "W5", "W6", "W7", "Wf",
+                                                   "Wvf", "W05e", "Wve"))
+    gbytes = 4 * sum(v.numel() for v in kp.values())
+    zero = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
+    k2, k2_step, k3 = dict(zero), dict(zero), dict(zero)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ro, rd, vd = (t[:CHUNK] for t in rays)
+    for S in (POINTS_SAMPLES, POINTS_SAMPLES + N_IMPORTANCE):
+        z = torch.sort(torch.rand(CHUNK, S, device=dev, generator=gen) * (FAR - NEAR) + NEAR,
+                       -1).values
+        for R, total in ((CHUNK, k2), (N_RAND, k2_step)):
+            x = (ro[:R, None, :] + rd[:R, None, :] * z[:R, :, None]).reshape(R * S, 3)
+            v = vd[:R].repeat_interleave(S, 0)
+            n_pts = R * S
+            with torch.no_grad():
+                if R == CHUNK:
+                    out = fused_mlp.fused_points(kp, x, v, 1, blobs)
+                    ref = fused_mlp.fused_points_reference(kp, x, v, 1)
+                    k2_errs.append(check_kernel(out.T.reshape(4, R, S), ref.T.reshape(4, R, S),
+                                                BF16_TOL, kernel="K2", dtype="bfloat16", R=R,
+                                                S=S, spr=1))
+                    del out, ref
+                ms = cuda_ms(lambda: fused_mlp.fused_points(kp, x, v, 1, blobs), reps=10, warmup=2)
+                plain_ms = cuda_ms(lambda: fused_mlp.fused_points_reference(kp, x, v, 1), reps=2)
+            torch.cuda.empty_cache()
+            chain = matmul_chain(kp, n_pts)
+            library_ms = cuda_ms(chain, reps=5)
+            del chain
+            torch.cuda.empty_cache()
+            ops_ms = 1e3 * n_pts * flops_pt / PEAK_BF16_FLOPS
+            bytes_ms = 1e3 * (n_pts * (12 + 12 + 16) + wbytes) / PEAK_BYTES
+            phase("k2_times", R=R, S=S, points=n_pts, ms=f"{ms:.3f}",
+                  bound_ms=f"{max(ops_ms, bytes_ms):.3f}", plain_ms=f"{plain_ms:.3f}",
+                  library_ms=f"{library_ms:.3f}", tflops=f"{n_pts * flops_pt / ms / 1e9:.1f}")
+            for k, t in (("ms", ms), ("plain_ms", plain_ms), ("ops_ms", ops_ms),
+                         ("bytes_ms", bytes_ms), ("library_ms", library_ms)):
+                total[k] += t
+            if R == N_RAND:  # K3 at the step's shape
+                g = torch.rand(n_pts, 4, device=dev, generator=gen) * 1e-4
+                ms = cuda_ms(lambda: fused_mlp.fused_points_bwd(kp, x, v, g, 1, False, blobs),
+                             reps=10, warmup=2)
+                ms_in = cuda_ms(lambda: fused_mlp.fused_points_bwd(kp, x, v, g, 1, True, blobs),
+                                reps=5, warmup=1)
+                plain_ms = cuda_ms(
+                    lambda: fused_mlp.fused_points_bwd_reference(kp, x, v, g, 1, False), reps=2)
+                torch.cuda.empty_cache()
+                chain = backward_matmul_chain(kp, n_pts)
+                library_ms = cuda_ms(chain, reps=5)
+                del chain
+                torch.cuda.empty_cache()
+                # a direction per point: dWve sums over points (n_samples=1)
+                flops = fused_mlp.bwd_flops(cfg, pe_pts, pe_views, n_pts, 1)
+                ops_ms = 1e3 * flops / PEAK_BF16_FLOPS
+                bytes_ms = 1e3 * (n_pts * (12 + 12 + 16) + wbytes + chain_bytes + gbytes) / PEAK_BYTES
+                phase("k3_times", R=R, S=S, points=n_pts, ms=f"{ms:.3f}",
+                      ms_with_input_grads=f"{ms_in:.3f}",
+                      bound_ms=f"{max(ops_ms, bytes_ms):.3f}", plain_ms=f"{plain_ms:.3f}",
+                      library_ms=f"{library_ms:.3f}", tflops=f"{flops / ms / 1e9:.1f}")
+                for k, t in (("ms", ms), ("plain_ms", plain_ms), ("ops_ms", ops_ms),
+                             ("bytes_ms", bytes_ms), ("library_ms", library_ms)):
+                    k3[k] += t
+    phase("k2_step", ms=f"{k2_step['ms']:.3f}", bound_ms=f"{max(k2_step['ops_ms'], k2_step['bytes_ms']):.3f}",
+          plain_ms=f"{k2_step['plain_ms']:.3f}", library_ms=f"{k2_step['library_ms']:.3f}")
+    return k2, k3
 
 
 if __name__ == "__main__":

@@ -1,42 +1,57 @@
-// Fused NeRF backward for Hopper (sm_90a): the weight gradients of K1's
-// raygen forward (fused_mlp_fwd.cu), from the cotangent of its raw planes.
+// Fused NeRF backward for Hopper (sm_90a): the gradients of the fused
+// forward (fused_mlp_fwd.cu) from the cotangent of its raw output, in its
+// two input modes (fused_mlp_common.cuh's RaysIn / PointsIn).
 //
-// Replaces nerf_tpu/ops/fused_mlp.py::_make_bwd_kernel_rays (the Pallas
-// kernel behind _fused_rays_bwd_rule). Rays and depths are never
-// differentiated on the training path, so only weight grads come out. Per
-// point, with g the cotangent of raw (r, g, b, sigma) and gc = bf16(g):
+// K4 replaces nerf_tpu/ops/fused_mlp.py::_make_bwd_kernel_rays (the Pallas
+// kernel behind _fused_rays_bwd_rule): raygen mode, the cotangent as planes
+// g[c][p], weight grads only (rays and depths are never differentiated on
+// the training path).
+// K3 replaces nerf_tpu/ops/fused_mlp.py::_make_bwd_kernel (behind
+// _fused_bwd_rule): points x [N][3] from memory, the cotangent as rows
+// g[p][c], and with input grads also dx [N][3] and dv [N/spr][3].
+// Per point, with g the cotangent of raw (r, g, b, sigma) and gc = bf16(g):
 //   dWout = [hv | h7]^T gc;  dbout = sum g
 //   d_hv  = (gc Wout[:W/2]^T) * (hv > 0);          dbv = sum d_hv
-//   dWvf  = feat^T bf16(d_hv);  dWve = ev^T bf16(sum over a ray's samples of d_hv)
+//   dWvf  = feat^T bf16(d_hv);  dWve = ev^T bf16(sum over a view's points of d_hv)
 //   d_feat = bf16(d_hv) Wvf^T;  dWf = h7^T bf16(d_feat);  dbf = sum d_feat
 //   d_h7  = (bf16(d_feat) Wf^T + gc Wout[W/2:]^T) * (h7 > 0)
 //   layer i = 7..1: dW_i = h_{i-1}^T bf16(d_h_i);  db_i = sum d_h_i;
 //                   d_h_{i-1} = (bf16(d_h_i) W_i^T) * (h_{i-1} > 0)
 //   dW05e = e^T [bf16(d_h_0) | bf16(d_h_5)];  db0 = sum d_h_0
-// (_mlp_backward_math with want_input_grads=False; bias grads sum the
-// unrounded f32 cotangents, as there). Two instantiations, as K1's: bf16
-// operands with f32 accumulation on mma.sync m16n8k16, and true f32 FMA
-// loops (no TF32) that isolate indexing faults from rounding.
+// and, with input grads (K3):
+//   d_e = [bf16(d_h_0) | bf16(d_h_5)] W05e^T,   dx = embed_row_backward(x, d_e)
+//   d_ev = bf16(sum over a view's points of d_hv) Wve^T,  dv = embed_row_backward(v, d_ev)
+// (_mlp_backward_math; bias grads sum the unrounded f32 cotangents, as
+// there). Two instantiations, as the forward's: bf16 operands with f32
+// accumulation on mma.sync m16n8k16, and true f32 FMA loops (no TF32) that
+// isolate indexing faults from rounding.
 //
-// Bound: the recompute (K1 without the rgb/alpha head), the activation
-// cotangents and the weight grads are 3,484,416 FLOP per point at 8x256 with
-// 10/4 octaves (plus 6,912 per ray for dWve), so the kernel is bound by
-// operations: at 989 TFLOP/s bf16 a training step at N_rand=4096 needs
-// >= 0.92 ms coarse (262,144 points) and >= 2.77 ms fine (786,432 points).
+// Bound: the recompute (the forward without the rgb/alpha head), the
+// activation cotangents and the weight grads are 3,484,416 FLOP per point at
+// 8x256 with 10/4 octaves (plus 6,912 per view direction for dWve, and
+// 64,512 per point + 6,912 per direction with input grads), so the kernel
+// is bound by operations: at 989 TFLOP/s bf16 a training step at
+// N_rand=4096 needs >= 0.92 ms coarse (262,144 points) and >= 2.77 ms fine
+// (786,432 points).
 //
 // Design: three phases, each launch on the caller's stream.
-//  1. One CTA per 128-point tile (64 in f32) recomputes the forward with
-//     K1's code (fused_mlp_common.cuh, so the activations are K1's bit for
-//     bit) and runs the cotangent chain d W^T through the same mma_layer,
-//     with the weights in kp's own [in][out] layout as the B operand. A tile
-//     does not fit every activation in shared memory (h0..h7, feat, hv and
-//     their cotangents are ~1.2 MB at 128 points), so each activation and
-//     each rounded cotangent goes to a workspace in device memory,
-//     feature-major ([feature][point], 9.9 KB per point in bf16); the relu
-//     masks of the chain are read back from it. The bias grads' column sums
-//     per tile are reduced in registers (warp shuffles) and written per tile.
-//  2. A small kernel sums d_hv over each ray's samples (fixed order) and
-//     embeds the view directions per ray for dWve.
+//  1. One CTA per 128-point tile (64 in f32) recomputes the forward with the
+//     forward's code (fused_mlp_common.cuh, so the activations are the
+//     forward's bit for bit) and runs the cotangent chain d W^T through the
+//     same mma_layer, with the weights in kp's own [in][out] layout as the B
+//     operand. A tile does not fit every activation in shared memory (h0..h7,
+//     feat, hv and their cotangents are ~1.2 MB at 128 points), so each
+//     activation and each rounded cotangent goes to a workspace in device
+//     memory, feature-major ([feature][point], 9.9 KB per point in bf16); the
+//     relu masks of the chain are read back from it. The bias grads' column
+//     sums per tile are reduced in registers (warp shuffles) and written per
+//     tile. With input grads the tile ends with d_e (one more mma_layer over
+//     d0 in shared memory and d5 read back from the workspace) and dx.
+//  2. With a direction per ray (spr > 1), a small kernel sums d_hv over each
+//     ray's samples (fixed order) and embeds the view directions per ray for
+//     dWve, then d_ev and dv. With a direction per point (spr = 1) phase 1
+//     writes the view embedding to the workspace and computes d_ev and dv
+//     itself, and dWve is one more product over points.
 //  3. Every weight grad is a product a^T d over all points: one launch takes
 //     all 14 of them as split-K tiles (128 x 128, or 128 x 32 for dWout's 4
 //     columns) reading the workspace rows with cp.async, each split writing
@@ -53,12 +68,16 @@ namespace {
 
 // The forward weights again in kp's own [in][out] layout (element type T):
 // the B operand [N = in][K = out] of the cotangent products d W^T.
-//   W1..W7 [W][W] | Wf [W][W] | Wvf [W][W/2]
+//   W1..W7 [W][W] | Wf [W][W] | Wvf [W][W/2] |
+//   W0e [64][W] | W5e [64][W] | Wve [32][W/2]  (input grads; embedding rows padded)
 template <int W>
 struct TLayout {
   __host__ __device__ static size_t wi(int i) { return size_t(i - 1) * W * W; }
   static constexpr size_t wf = size_t(7) * W * W;
   static constexpr size_t wvf = size_t(8) * W * W;
+  static constexpr size_t w0e = wvf + size_t(W) * (W / 2);
+  static constexpr size_t w5e = w0e + size_t(KE) * W;
+  static constexpr size_t wve = w5e + size_t(KE) * W;
 };
 
 // The f32 gradients, in kp's [in][out] layout with the embedding rows padded:
@@ -88,7 +107,8 @@ struct WsRows {
   __host__ __device__ static int d(int i) { return gc + 8 + i * W; }
   static constexpr int dfeat = gc + 8 + 8 * W;
   static constexpr int dhv = dfeat + W;
-  static constexpr int rows = dhv + W / 2;
+  static constexpr int ev = dhv + W / 2;  // the view embedding, a direction per point only
+  static constexpr int rows = ev + KV;
 };
 
 // dst[c][p0 + i] = src[i][c]: a tile's [tile][rows] shared buffer to
@@ -99,6 +119,33 @@ __device__ void store_t(const T* src, int lds, int rows, int tile, T* dst, size_
     const int c = idx / tile, i = idx - c * tile;
     dst[size_t(c) * ldp + p0 + i] = src[i * lds + c];
   }
+}
+
+// dst[i][c] = src[c][p0 + i]: store_t's inverse, workspace rows back to a
+// tile's shared buffer.
+template <typename T>
+__device__ void load_t(const T* src, size_t ldp, int p0, int rows, int tile, T* dst, int ldd) {
+  for (int idx = threadIdx.x; idx < rows * tile; idx += THREADS) {
+    const int c = idx / tile, i = idx - c * tile;
+    dst[i * ldd + c] = src[size_t(c) * ldp + p0 + i];
+  }
+}
+
+// One point's input grad: out[p][d] = embed_row_backward(y, d_e row), for the
+// tile's points (one thread each). y is the point (pts) or its view direction.
+template <typename In>
+__device__ void input_grad(const In& in, bool pts, int F, const float* d_e, int ldd, int n_pts,
+                           int p0, int tile, float* __restrict__ out) {
+  const int i = threadIdx.x, p = p0 + i;
+  if (i >= tile || p >= n_pts) return;
+  float y[3], d[3];
+  if (pts)
+    in.point(p, y);
+  else
+    view_of(in, p, y);
+  embed_row_backward(y, F, d_e + i * ldd, d);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[size_t(p) * 3 + k] = d[k];
 }
 
 // ---------------------------------------------------------------- bf16 path
@@ -178,14 +225,13 @@ __device__ void bwd_epilogue(float (&acc)[4][NT][4], const bf16* mask, size_t ld
   for (int c = tid; c < N; c += THREADS) bsum[c] = red[c] + red[N + c];
 }
 
-template <int W>
+// dx (and, with a direction per point, dv) only where the pointer is given.
+template <typename In, int W>
 __global__ void __launch_bounds__(THREADS, 1)
-bwd_tile_bf16(const float* __restrict__ ro, const float* __restrict__ rd,
-              const float* __restrict__ vd, const float* __restrict__ z,
-              const float* __restrict__ g, int n_pts, int S, int Fp, int Fv,
-              const bf16* __restrict__ wb, const bf16* __restrict__ wt,
-              const float* __restrict__ bb, bf16* ws, size_t ldp, float* dhv32,
-              float* bpart) {
+bwd_tile_bf16(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, int n_pts,
+              int Fp, int Fv, const bf16* __restrict__ wb, const bf16* __restrict__ wt,
+              const float* __restrict__ bb, bf16* ws, size_t ldp, float* dhv32, float* bpart,
+              float* dx, float* dv) {
   using L = BwdSmem<W>;
   using O = Layout<W>;
   using T = TLayout<W>;
@@ -201,13 +247,15 @@ bwd_tile_bf16(const float* __restrict__ ro, const float* __restrict__ rd,
   float* gcs = reinterpret_cast<float*>(smem + L::gcs);
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * TP;
+  const bool dense = in.spr == 1;  // a view direction per point
   float* bsum = bpart + size_t(blockIdx.x) * O::nbias;
   auto row = [&](int r) { return ws + size_t(r) * ldp; };
 
-  // forward recompute with K1's code; every activation goes to the workspace
-  embed_tile<bf16>(ro, rd, vd, z, n_pts, S, Fp, Fv, p0, TP, emb, L::lde, embv, L::ldv);
+  // forward recompute with the forward's code; every activation goes to the workspace
+  embed_tile<bf16>(in, n_pts, Fp, Fv, p0, TP, emb, L::lde, embv, L::ldv);
   __syncthreads();
   store_t(emb, L::lde, KE, TP, row(R::e), ldp, p0);
+  if (dense) store_t(embv, L::ldv, KV, TP, row(R::ev), ldp, p0);
   const Seg none = {nullptr, 0, nullptr, 0};
   {  // layer 0: rows [0, W) of W05e^T
     float acc[4][W / 32][4];
@@ -245,7 +293,7 @@ bwd_tile_bf16(const float* __restrict__ ro, const float* __restrict__ rd,
     const int p = p0 + tid;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const float v = p < n_pts ? g[size_t(c) * n_pts + p] : 0.f;
+      const float v = p < n_pts ? g[c * gsc + size_t(p) * gsp] : 0.f;
       const bf16 vc = __float2bfloat16_rn(v);
       gs[tid * 4 + c] = v;
       gcs[tid * 4 + c] = __bfloat162float(vc);
@@ -271,7 +319,7 @@ bwd_tile_bf16(const float* __restrict__ ro, const float* __restrict__ rd,
       for (int k = 0; k < 4; ++k) d = fmaf(gcs[i * 4 + k], w[k], d);
       if (!(to_f(act[i * L::lda + c]) > 0.f)) d = 0.f;
       s += d;
-      dhv32[size_t(p0 + i) * H + c] = d;
+      if (!dense) dhv32[size_t(p0 + i) * H + c] = d;
       dbuf[i * L::lda + c] = __float2bfloat16_rn(d);
     }
     red[part * H + c] = s;
@@ -283,6 +331,14 @@ bwd_tile_bf16(const float* __restrict__ ro, const float* __restrict__ rd,
     bsum[O::bv + tid] = s;
   }
   store_t(dbuf, L::lda, W / 2, TP, row(R::dhv), ldp, p0);
+  if (dense && dv != nullptr) {  // d_ev = bf16(d_hv) Wve^T per point, then the view trig
+    float acc[4][1][4];
+    mma_layer<W, 1>({dbuf, L::lda, wt + T::wve, W / 2}, none, wbuf, acc);
+    float* d_ev = reinterpret_cast<float*>(act);  // hv is spent: act is free until d_feat
+    store_acc<1>(acc, d_ev, KV + 1);
+    __syncthreads();
+    input_grad(in, false, Fv, d_ev, KV + 1, n_pts, p0, TP, dv);
+  }
   {  // d_feat = bf16(d_hv) Wvf^T (the feature layer has no activation)
     float acc[4][W / 32][4];
     mma_layer<W, W / 32>({dbuf, L::lda, wt + T::wvf, W / 2}, none, wbuf, acc);
@@ -307,6 +363,15 @@ bwd_tile_bf16(const float* __restrict__ ro, const float* __restrict__ rd,
     __syncthreads();
     store_t(dbuf, L::lda, W, TP, row(R::d(i - 1)), ldp, p0);
   }
+  if (dx != nullptr) {  // d_e = [d0 | d5] W05e^T (d0 in dbuf, d5 back from the workspace)
+    load_t(row(R::d(5)), ldp, p0, W, TP, act, L::lda);
+    float acc[4][2][4];
+    mma_layer<W, 2>({dbuf, L::lda, wt + T::w0e, W}, {act, L::lda, wt + T::w5e, W}, wbuf, acc);
+    float* d_e = reinterpret_cast<float*>(act);
+    store_acc<2>(acc, d_e, KE + 1);
+    __syncthreads();
+    input_grad(in, true, Fp, d_e, KE + 1, n_pts, p0, TP, dx);
+  }
 }
 
 // ----------------------------------------------------------------- f32 path
@@ -321,10 +386,12 @@ template <int W> struct BwdSmem32 {
   static constexpr size_t bytes = gs + size_t(TP32) * 4 * 4;
 };
 
-// out[i][n] = X[i] . Bw[n] for the tile's 64 rows (no bias, no activation);
-// Bw is [N][K] rows in global memory.
+// out[i][n] = X[i] . Bw[n] (+ X2[i] . Bw2[n] when X2 is given) for the
+// tile's 64 rows (no bias, no activation); Bw, Bw2 are [N][K] rows in global
+// memory.
 __device__ void dense_t_f32(const float* X, int ldx, int K, const float* __restrict__ Bw, int N,
-                            float* out, int ldo) {
+                            float* out, int ldo, const float* X2 = nullptr,
+                            const float* __restrict__ Bw2 = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int n = warp; n < N; n += THREADS / 32) {
     float a0 = 0.f, a1 = 0.f;
@@ -333,6 +400,14 @@ __device__ void dense_t_f32(const float* X, int ldx, int K, const float* __restr
       const float wk = __ldg(w + k);
       a0 = fmaf(X[lane * ldx + k], wk, a0);
       a1 = fmaf(X[(lane + 32) * ldx + k], wk, a1);
+    }
+    if (X2 != nullptr) {
+      const float* w2 = Bw2 + size_t(n) * K;
+      for (int k = 0; k < K; ++k) {
+        const float wk = __ldg(w2 + k);
+        a0 = fmaf(X2[lane * ldx + k], wk, a0);
+        a1 = fmaf(X2[(lane + 32) * ldx + k], wk, a1);
+      }
     }
     out[lane * ldo + n] = a0;
     out[(lane + 32) * ldo + n] = a1;
@@ -364,13 +439,12 @@ __device__ void colsum_f32(const float* buf, int ld, int N, float* __restrict__ 
   }
 }
 
-template <int W>
+template <typename In, int W>
 __global__ void __launch_bounds__(THREADS)
-bwd_tile_f32(const float* __restrict__ ro, const float* __restrict__ rd,
-             const float* __restrict__ vd, const float* __restrict__ z,
-             const float* __restrict__ g, int n_pts, int S, int Fp, int Fv,
-             const float* __restrict__ wb, const float* __restrict__ wt,
-             const float* __restrict__ bb, float* ws, size_t ldp, float* dhv32, float* bpart) {
+bwd_tile_f32(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, int n_pts,
+             int Fp, int Fv, const float* __restrict__ wb, const float* __restrict__ wt,
+             const float* __restrict__ bb, float* ws, size_t ldp, float* dhv32, float* bpart,
+             float* dx, float* dv) {
   using L = BwdSmem32<W>;
   using O = Layout<W>;
   using T = TLayout<W>;
@@ -384,12 +458,14 @@ bwd_tile_f32(const float* __restrict__ ro, const float* __restrict__ rd,
   constexpr int lda = L::lda;
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * TP32;
+  const bool dense = in.spr == 1;
   float* bsum = bpart + size_t(blockIdx.x) * O::nbias;
   auto row = [&](int r) { return ws + size_t(r) * ldp; };
 
-  embed_tile<float>(ro, rd, vd, z, n_pts, S, Fp, Fv, p0, TP32, emb, L::lde, embv, L::ldv);
+  embed_tile<float>(in, n_pts, Fp, Fv, p0, TP32, emb, L::lde, embv, L::ldv);
   __syncthreads();
   store_t(emb, L::lde, KE, TP32, row(R::e), ldp, p0);
+  if (dense) store_t(embv, L::ldv, KV, TP32, row(R::ev), ldp, p0);
   dense_f32(emb, L::lde, KE, wb + O::w05, nullptr, 0, 0, nullptr, bb, W, A, lda, true);
   __syncthreads();
   store_t(A, lda, W, TP32, row(R::h(0)), ldp, p0);
@@ -418,7 +494,7 @@ bwd_tile_f32(const float* __restrict__ ro, const float* __restrict__ rd,
   if (tid < TP32) {
     const int p = p0 + tid;
     for (int c = 0; c < 4; ++c) {
-      const float v = p < n_pts ? g[size_t(c) * n_pts + p] : 0.f;
+      const float v = p < n_pts ? g[c * gsc + size_t(p) * gsp] : 0.f;
       gs[tid * 4 + c] = v;
       row(R::gc + c)[p0 + tid] = v;
     }
@@ -436,11 +512,16 @@ bwd_tile_f32(const float* __restrict__ ro, const float* __restrict__ rd,
     for (int k = 0; k < 4; ++k) d = fmaf(gs[i * 4 + k], wb[O::wout + c * 4 + k], d);
     if (!(src[i * lda + c] > 0.f)) d = 0.f;
     dst[i * lda + c] = d;
-    dhv32[size_t(p0 + i) * (W / 2) + c] = d;
+    if (!dense) dhv32[size_t(p0 + i) * (W / 2) + c] = d;
   }
   __syncthreads();
   colsum_f32(dst, lda, W / 2, bsum + O::bv);
   store_t(dst, lda, W / 2, TP32, row(R::dhv), ldp, p0);
+  if (dense && dv != nullptr) {  // d_ev = d_hv Wve^T per point -> emb (spent), then the trig
+    dense_t_f32(dst, lda, W / 2, wt + T::wve, KV, emb, L::lde);
+    __syncthreads();
+    input_grad(in, false, Fv, emb, L::lde, n_pts, p0, TP32, dv);
+  }
   dense_t_f32(dst, lda, W / 2, wt + T::wvf, W, src, lda);  // d_feat -> src
   __syncthreads();
   colsum_f32(src, lda, W, bsum + O::bf);
@@ -464,28 +545,56 @@ bwd_tile_f32(const float* __restrict__ ro, const float* __restrict__ rd,
     cur = oth;
     oth = tmp;
   }
+  if (dx != nullptr) {  // d_e = [d0 | d5] W05e^T -> emb (d0 in cur, d5 back from the workspace)
+    load_t(row(R::d(5)), ldp, p0, W, TP32, oth, lda);
+    __syncthreads();
+    dense_t_f32(cur, lda, W, wt + T::w0e, KE, emb, L::lde, oth, wt + T::w5e);
+    __syncthreads();
+    input_grad(in, true, Fp, emb, L::lde, n_pts, p0, TP32, dx);
+  }
 }
 
 // ------------------------------------------------------- per-ray view terms
 
 // Per ray r: dhv_ray[c][r] = sum over the ray's samples of d_hv (f32, in
 // sample order, then rounded to T) and ev[k][r] = the view embedding; zero
-// for the padded rays. One block per ray, one thread per column.
+// for the padded rays. With dv given, also d_ev = dhv_ray Wve^T (wve: Wve
+// [KV][W/2], T layout) and dv[r] through the view trig. One block per ray,
+// one thread per column.
 template <typename T, int W>
 __global__ void ray_prep(const float* __restrict__ vd, const float* __restrict__ dhv32,
-                         int n_rays, int S, int Fv, T* rws, size_t rpad) {
+                         int n_rays, int S, int Fv, T* rws, size_t rpad,
+                         const T* __restrict__ wve, float* __restrict__ dv) {
   constexpr int H = W / 2;
+  __shared__ float dsum[H];
+  __shared__ float d_ev[KV];
   const int r = blockIdx.x, c = threadIdx.x;
   float s = 0.f;
   if (r < n_rays)
     for (int j = 0; j < S; ++j) s += dhv32[(size_t(r) * S + j) * H + c];
-  rws[size_t(KV + c) * rpad + r] = from_f<T>(s);
+  const T sc = from_f<T>(s);
+  rws[size_t(KV + c) * rpad + r] = sc;
+  const float x[3] = {r < n_rays ? vd[r * 3] : 0.f, r < n_rays ? vd[r * 3 + 1] : 0.f,
+                      r < n_rays ? vd[r * 3 + 2] : 0.f};
   if (c == 0) {
     T ev[KV];
-    const float x[3] = {r < n_rays ? vd[r * 3] : 0.f, r < n_rays ? vd[r * 3 + 1] : 0.f,
-                        r < n_rays ? vd[r * 3 + 2] : 0.f};
     embed_row<T>(x, Fv, KV, ev);
     for (int k = 0; k < KV; ++k) rws[size_t(k) * rpad + r] = r < n_rays ? ev[k] : from_f<T>(0.f);
+  }
+  if (dv == nullptr) return;  // the same for the whole grid
+  dsum[c] = to_f(sc);
+  __syncthreads();
+  if (c < KV) {
+    float a = 0.f;
+    for (int j = 0; j < H; ++j) a = fmaf(dsum[j], to_f(wve[c * H + j]), a);
+    d_ev[c] = a;
+  }
+  __syncthreads();
+  if (c == 0 && r < n_rays) {
+    float d[3];
+    embed_row_backward(x, Fv, d_ev, d);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) dv[size_t(r) * 3 + k] = d[k];
   }
 }
 
@@ -687,19 +796,24 @@ __global__ void reduce_tiles(const float* __restrict__ part, int ntiles, int n,
 
 size_t align256(size_t b) { return (b + 255) & ~size_t(255); }
 
+// A launch's geometry and workspace: n_pts points, a view direction per
+// spr of them (dense: spr = 1, a direction per point; else one per ray).
 struct Plan {
-  int tile, n_pts, n_pad, ntiles, rpad, split_len, nsplit;
+  int tile, n_pts, n_pad, ntiles, n_rays, rpad, split_len, nsplit;
+  bool dense;
   size_t ws, rws, dhv, bpart, wpart, total;  // byte offsets / sizes
 };
 
 template <typename T, int W>
-Plan make_plan(int n_rays, int S) {
+Plan make_plan(int n_pts, int spr) {
   Plan p;
   p.tile = sizeof(T) == 2 ? TP : TP32;
-  p.n_pts = n_rays * S;
+  p.n_pts = n_pts;
+  p.dense = spr == 1;
   p.n_pad = (p.n_pts + p.tile - 1) / p.tile * p.tile;
   p.ntiles = p.n_pad / p.tile;
-  p.rpad = (n_rays + 63) / 64 * 64;
+  p.n_rays = n_pts / spr;
+  p.rpad = p.dense ? 0 : (p.n_rays + 63) / 64 * 64;  // the per-ray rows of ray_prep
   const int target = max(1, min(64, p.n_pad / 8192));
   p.split_len = ((p.n_pad + target - 1) / target + 63) / 64 * 64;
   p.nsplit = (p.n_pad + p.split_len - 1) / p.split_len;
@@ -709,7 +823,7 @@ Plan make_plan(int n_rays, int S) {
   p.rws = o;
   o += align256(size_t(KV + W / 2) * p.rpad * sizeof(T));
   p.dhv = o;
-  o += align256(size_t(p.n_pad) * (W / 2) * 4);
+  o += p.dense ? 0 : align256(size_t(p.n_pad) * (W / 2) * 4);
   p.bpart = o;
   o += align256(size_t(p.ntiles) * Layout<W>::nbias * 4);
   p.wpart = o;
@@ -756,7 +870,10 @@ Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int mt
   add(ws, ldp, K, R::feat, W, R::dhv, W / 2, G::wvf, W / 2);
   add(ws, ldp, K, R::hv, W / 2, R::gc, 4, G::wout, 4);                       // dWout[:W/2]
   add(ws, ldp, K, R::h(7), W, R::gc, 4, G::wout + size_t(W / 2) * 4, 4);  // dWout[W/2:]
-  add(rws, pl.rpad, pl.rpad, 0, KV, KV, W / 2, G::wve, W / 2);
+  if (pl.dense)  // dWve = ev^T bf16(d_hv) over points
+    add(ws, ldp, K, R::ev, KV, R::dhv, W / 2, G::wve, W / 2);
+  else  // over rays, from ray_prep's rows
+    add(rws, pl.rpad, pl.rpad, 0, KV, KV, W / 2, G::wve, W / 2);
   P.p[P.count].cta0 = cta;  // one past the last problem: the grid size
   return P;
 }
@@ -767,12 +884,11 @@ Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int mt
     if (e_ != cudaSuccess) return e_;        \
   } while (0)
 
-template <typename T, int W>
-cudaError_t run(const float* ro, const float* rd, const float* vd, const float* z,
-                const float* g, int n_rays, int S, int Fp, int Fv, const void* wblob,
-                const void* wtblob, const float* bblob, void* workspace, long long ws_bytes,
-                float* out, cudaStream_t s) {
-  const Plan pl = make_plan<T, W>(n_rays, S);
+template <typename T, int W, typename In>
+cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts, int Fp, int Fv,
+                const void* wblob, const void* wtblob, const float* bblob, void* workspace,
+                long long ws_bytes, float* out, float* dx, float* dv, cudaStream_t s) {
+  const Plan pl = make_plan<T, W>(n_pts, in.spr);
   if (ws_bytes < 0 || size_t(ws_bytes) < pl.total) return cudaErrorInvalidValue;
   unsigned char* base = static_cast<unsigned char*>(workspace);
   T* ws = reinterpret_cast<T*>(base + pl.ws);
@@ -788,25 +904,29 @@ cudaError_t run(const float* ro, const float* rd, const float* vd, const float* 
   Probs P;
   if (sizeof(T) == 2) {
     const size_t smem = BwdSmem<W>::bytes;
-    NERF_CHECK(cudaFuncSetAttribute(bwd_tile_bf16<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    int(smem)));
-    bwd_tile_bf16<W><<<pl.ntiles, THREADS, smem, s>>>(
-        ro, rd, vd, z, g, pl.n_pts, S, Fp, Fv, reinterpret_cast<const bf16*>(wb),
-        reinterpret_cast<const bf16*>(wt), bblob, reinterpret_cast<bf16*>(ws), ldp, dhv32, bpart);
+    NERF_CHECK(cudaFuncSetAttribute(bwd_tile_bf16<In, W>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+    bwd_tile_bf16<In, W><<<pl.ntiles, THREADS, smem, s>>>(
+        in, g, gsc, gsp, pl.n_pts, Fp, Fv, reinterpret_cast<const bf16*>(wb),
+        reinterpret_cast<const bf16*>(wt), bblob, reinterpret_cast<bf16*>(ws), ldp, dhv32, bpart,
+        dx, dv);
     P = make_probs<T, W>(pl, ws, rws, wpart, GM, 128, 32);
   } else {
     const size_t smem = BwdSmem32<W>::bytes;
-    NERF_CHECK(cudaFuncSetAttribute(bwd_tile_f32<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    int(smem)));
-    bwd_tile_f32<W><<<pl.ntiles, THREADS, smem, s>>>(
-        ro, rd, vd, z, g, pl.n_pts, S, Fp, Fv, reinterpret_cast<const float*>(wb),
+    NERF_CHECK(cudaFuncSetAttribute(bwd_tile_f32<In, W>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+    bwd_tile_f32<In, W><<<pl.ntiles, THREADS, smem, s>>>(
+        in, g, gsc, gsp, pl.n_pts, Fp, Fv, reinterpret_cast<const float*>(wb),
         reinterpret_cast<const float*>(wt), bblob, reinterpret_cast<float*>(ws), ldp, dhv32,
-        bpart);
+        bpart, dx, dv);
     P = make_probs<T, W>(pl, ws, rws, wpart, FM, FM, FM);
   }
   NERF_CHECK(cudaGetLastError());
-  ray_prep<T, W><<<pl.rpad, W / 2, 0, s>>>(vd, dhv32, n_rays, S, Fv, rws, size_t(pl.rpad));
-  NERF_CHECK(cudaGetLastError());
+  if (!pl.dense) {
+    ray_prep<T, W><<<pl.rpad, W / 2, 0, s>>>(in.v, dhv32, pl.n_rays, in.spr, Fv, rws,
+                                            size_t(pl.rpad), wt + TLayout<W>::wve, dv);
+    NERF_CHECK(cudaGetLastError());
+  }
   const int ctas = P.p[P.count].cta0;
   if (sizeof(T) == 2) {
     NERF_CHECK(cudaFuncSetAttribute(wgrad_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -824,45 +944,15 @@ cudaError_t run(const float* ro, const float* rd, const float* vd, const float* 
   return cudaGetLastError();
 }
 
-bool valid_shape(int n_rays, int n_samples) {
-  const long long n = static_cast<long long>(n_rays) * n_samples;
-  return n_rays >= 1 && n_samples >= 1 && n <= 0x7fffffffLL - 256;
-}
-
-}  // namespace
-
-// Bytes of device workspace that nerf_fused_mlp_bwd needs for this shape.
-extern "C" int nerf_fused_mlp_bwd_workspace(int use_bf16, int width, int n_rays, int n_samples,
-                                            long long* bytes) {
-  if (!valid_shape(n_rays, n_samples)) return cudaErrorInvalidValue;
-  Plan p;
-  if (use_bf16 && width == 256) p = make_plan<bf16, 256>(n_rays, n_samples);
-  else if (use_bf16 && width == 128) p = make_plan<bf16, 128>(n_rays, n_samples);
-  else if (!use_bf16 && width == 256) p = make_plan<float, 256>(n_rays, n_samples);
-  else if (!use_bf16 && width == 128) p = make_plan<float, 128>(n_rays, n_samples);
-  else return cudaErrorInvalidValue;
-  *bytes = static_cast<long long>(p.total);
-  return cudaSuccess;
-}
-
-// Returns a cudaError_t code (0 on success). The launches go on `stream` and
-// do not synchronise; all buffers are device pointers, float32 unless noted:
-// rays_o, rays_d, viewdirs [R,3]; z [R,S]; g, the cotangent of K1's output,
-// [4,R,S]; wblob (bf16 if use_bf16 else f32) and bblob as K1 takes them;
-// wtblob the same dtype in TLayout; workspace of nerf_fused_mlp_bwd_workspace
-// bytes; out the f32 grads in GLayout followed by the bias grads.
-extern "C" int nerf_fused_mlp_bwd(int use_bf16, int width, const float* rays_o,
-                                  const float* rays_d, const float* viewdirs, const float* z,
-                                  const float* g, int n_rays, int n_samples, int n_freq_pts,
-                                  int n_freq_views, const void* wblob, const void* wtblob,
-                                  const float* bblob, void* workspace, long long ws_bytes,
-                                  float* out, void* stream) {
-  if (n_freq_pts < 1 || n_freq_pts > MAX_FP || n_freq_views < 1 || n_freq_views > MAX_FV)
-    return cudaErrorInvalidValue;
-  if (!valid_shape(n_rays, n_samples)) return cudaErrorInvalidValue;
+template <typename In>
+cudaError_t dispatch(int use_bf16, int width, const In& in, const float* g, size_t gsc,
+                     size_t gsp, int n_pts, int Fp, int Fv, const void* wblob,
+                     const void* wtblob, const float* bblob, void* workspace, long long ws_bytes,
+                     float* out, float* dx, float* dv, void* stream) {
+  if (Fp < 1 || Fp > MAX_FP || Fv < 1 || Fv > MAX_FV) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NERF_ARGS rays_o, rays_d, viewdirs, z, g, n_rays, n_samples, n_freq_pts, n_freq_views, \
-                  wblob, wtblob, bblob, workspace, ws_bytes, out, s
+#define NERF_ARGS in, g, gsc, gsp, n_pts, Fp, Fv, wblob, wtblob, bblob, workspace, ws_bytes, out, \
+                  dx, dv, s
   if (use_bf16) {
     if (width == 256) return run<bf16, 256>(NERF_ARGS);
     if (width == 128) return run<bf16, 128>(NERF_ARGS);
@@ -872,6 +962,75 @@ extern "C" int nerf_fused_mlp_bwd(int use_bf16, int width, const float* rays_o,
   }
 #undef NERF_ARGS
   return cudaErrorInvalidValue;
+}
+
+// n_pts points in views of spr points each
+bool valid_shape(long long n_pts, int spr) {
+  return n_pts >= 1 && spr >= 1 && n_pts % spr == 0 && n_pts <= 0x7fffffffLL - 256;
+}
+
+int workspace_bytes(int use_bf16, int width, int n_pts, int spr, long long* bytes) {
+  Plan p;
+  if (use_bf16 && width == 256) p = make_plan<bf16, 256>(n_pts, spr);
+  else if (use_bf16 && width == 128) p = make_plan<bf16, 128>(n_pts, spr);
+  else if (!use_bf16 && width == 256) p = make_plan<float, 256>(n_pts, spr);
+  else if (!use_bf16 && width == 128) p = make_plan<float, 128>(n_pts, spr);
+  else return cudaErrorInvalidValue;
+  *bytes = static_cast<long long>(p.total);
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Bytes of device workspace that nerf_fused_mlp_bwd (K4) needs for this shape.
+extern "C" int nerf_fused_mlp_bwd_workspace(int use_bf16, int width, int n_rays, int n_samples,
+                                            long long* bytes) {
+  const long long n = static_cast<long long>(n_rays) * n_samples;
+  if (!valid_shape(n, n_samples)) return cudaErrorInvalidValue;
+  return workspace_bytes(use_bf16, width, int(n), n_samples, bytes);
+}
+
+// Bytes of device workspace that nerf_fused_mlp_bwd_points (K3) needs.
+extern "C" int nerf_fused_mlp_bwd_points_workspace(int use_bf16, int width, int n_pts, int spr,
+                                                   long long* bytes) {
+  if (!valid_shape(n_pts, spr)) return cudaErrorInvalidValue;
+  return workspace_bytes(use_bf16, width, n_pts, spr, bytes);
+}
+
+// Both entries return a cudaError_t code (0 on success). The launches go on
+// `stream` and do not synchronise; all buffers are device pointers, float32
+// unless noted: wblob (bf16 if use_bf16 else f32) and bblob as the forward
+// takes them; wtblob the same dtype in TLayout; workspace of the matching
+// *_workspace bytes; out the f32 grads in GLayout followed by the bias grads.
+
+// K4: rays_o, rays_d, viewdirs [R,3]; z [R,S]; g, the cotangent of K1's
+// output, [4,R,S].
+extern "C" int nerf_fused_mlp_bwd(int use_bf16, int width, const float* rays_o,
+                                  const float* rays_d, const float* viewdirs, const float* z,
+                                  const float* g, int n_rays, int n_samples, int n_freq_pts,
+                                  int n_freq_views, const void* wblob, const void* wtblob,
+                                  const float* bblob, void* workspace, long long ws_bytes,
+                                  float* out, void* stream) {
+  const long long n = static_cast<long long>(n_rays) * n_samples;
+  if (!valid_shape(n, n_samples)) return cudaErrorInvalidValue;
+  const RaysIn in{rays_o, rays_d, z, viewdirs, n_samples};
+  return dispatch(use_bf16, width, in, g, size_t(n), 1, int(n), n_freq_pts, n_freq_views, wblob,
+                  wtblob, bblob, workspace, ws_bytes, out, nullptr, nullptr, stream);
+}
+
+// K3: x [N,3]; v [N/spr,3], point p looking along v[p / spr]; g, the
+// cotangent of K2's output, [N,4]; dx [N,3] and dv [N/spr,3] both given
+// (input grads) or both null (their branch is skipped).
+extern "C" int nerf_fused_mlp_bwd_points(int use_bf16, int width, const float* x, const float* v,
+                                         const float* g, int n_pts, int spr, int n_freq_pts,
+                                         int n_freq_views, const void* wblob, const void* wtblob,
+                                         const float* bblob, void* workspace, long long ws_bytes,
+                                         float* out, float* dx, float* dv, void* stream) {
+  if (!valid_shape(n_pts, spr) || (dx == nullptr) != (dv == nullptr))
+    return cudaErrorInvalidValue;
+  const PointsIn in{x, v, spr};
+  return dispatch(use_bf16, width, in, g, 1, 4, n_pts, n_freq_pts, n_freq_views, wblob, wtblob,
+                  bblob, workspace, ws_bytes, out, dx, dv, stream);
 }
 
 extern "C" const char* nerf_cuda_error_string(int err) {

@@ -1,8 +1,9 @@
-// Building blocks shared by the fused NeRF MLP kernels (fused_mlp_fwd.cu,
-// K1, and fused_mlp_bwd.cu, K4): the weight-blob layout, the posenc
-// embedding, the bf16 mma.sync layer with its cp.async weight ring, and the
-// f32 FMA layer. Both kernels recompute the same forward activations from
-// this code, so the backward differentiates exactly what K1 computed.
+// Building blocks shared by the fused NeRF MLP kernels (fused_mlp_fwd.cu:
+// K1 and K2, fused_mlp_bwd.cu: K4 and K3): the two input modes, the
+// weight-blob layout, the posenc embedding and its backward, the bf16
+// mma.sync layer with its cp.async weight ring, and the f32 FMA layer. The
+// backward recomputes the forward activations from this code, so it
+// differentiates exactly what the forward computed.
 
 #pragma once
 
@@ -46,6 +47,40 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
 
+// Where a tile's points come from. Both modes give point p a position x and
+// a view direction v[p / spr] (v holds one direction per spr points).
+// RaysIn (K1, K4): p = r*S + s of a ray batch, x = ro[r] + rd[r]*z[p]
+// (a separate multiply and add: no FMA contraction), spr = S.
+struct RaysIn {
+  const float* ro;
+  const float* rd;
+  const float* z;
+  const float* v;
+  int spr;
+  __device__ void point(int p, float (&x)[3]) const {
+    const int r = p / spr;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) x[d] = __fadd_rn(ro[r * 3 + d], __fmul_rn(rd[r * 3 + d], z[p]));
+  }
+};
+// PointsIn (K2, K3): x [N][3] from memory; spr = 1 (a direction per point)
+// or the samples per ray.
+struct PointsIn {
+  const float* x;
+  const float* v;
+  int spr;
+  __device__ void point(int p, float (&y)[3]) const {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) y[d] = x[size_t(p) * 3 + d];
+  }
+};
+template <typename In>
+__device__ __forceinline__ void view_of(const In& in, int p, float (&v)[3]) {
+  const int r = p / in.spr;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) v[d] = in.v[size_t(r) * 3 + d];
+}
+
 // One embedding row in kernel order [x | sin(x*2^f) f-major | cos], zero-padded
 // to K entries.
 template <typename T>
@@ -70,43 +105,59 @@ __device__ void embed_row(const float (&x)[3], int F, int K, T* row) {
 // Point (tid < tile) or view (tid >= tile) embedding of one point of the
 // tile, in kernel row order, zero-padded to the buffer's K. Threads beyond
 // 2*tile do nothing; masked points embed zeros.
-template <typename T>
-__device__ void embed_tile(const float* __restrict__ ro, const float* __restrict__ rd,
-                           const float* __restrict__ vd, const float* __restrict__ z,
-                           int n_pts, int S, int Fp, int Fv, int p0, int tile,
-                           T* emb, int lde, T* embv, int ldv) {
+template <typename T, typename In>
+__device__ void embed_tile(const In& in, int n_pts, int Fp, int Fv, int p0, int tile, T* emb,
+                           int lde, T* embv, int ldv) {
   const int tid = threadIdx.x;
   const bool pts = tid < tile;
   const int i = pts ? tid : tid - tile;
   if (i >= tile) return;
   const int p = p0 + i;
-  const bool valid = p < n_pts;
-  const int r = valid ? p / S : 0;
-  float x[3];
-  if (pts) {
-#pragma unroll
-    for (int d = 0; d < 3; ++d)
-      x[d] = valid ? __fadd_rn(ro[r * 3 + d], __fmul_rn(rd[r * 3 + d], z[p])) : 0.f;
-  } else {
-#pragma unroll
-    for (int d = 0; d < 3; ++d) x[d] = valid ? vd[r * 3 + d] : 0.f;
+  float x[3] = {0.f, 0.f, 0.f};
+  if (p < n_pts) {
+    if (pts)
+      in.point(p, x);
+    else
+      view_of(in, p, x);
   }
   embed_row<T>(x, pts ? Fp : Fv, pts ? KE : KV, pts ? emb + i * lde : embv + i * ldv);
 }
 
-// out[c][p] for the tile's points: raw = hv Wout[:W/2] + part + bout, where
+// The backward of embed_row for one row: dx[d] = d_e[d] + sum over f of
+// 2^f (d_e[sin f, d] cos(x_d 2^f) - d_e[cos f, d] sin(x_d 2^f)), with the
+// f32 sin/cos of the forward recomputed (d_e is the cotangent of the
+// embedding row, kernel order, f32, at stride 1).
+__device__ __forceinline__ void embed_row_backward(const float (&x)[3], int F, const float* d_e,
+                                                   float (&dx)[3]) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    float acc = 0.f;
+    for (int f = 0; f < F; ++f) {
+      const float scale = float(1 << f);
+      float s, c;
+      sincosf(__fmul_rn(x[d], scale), &s, &c);
+      const float d_xb = __fsub_rn(__fmul_rn(d_e[3 + f * 3 + d], c),
+                                   __fmul_rn(d_e[3 + 3 * F + f * 3 + d], s));
+      acc = __fadd_rn(acc, __fmul_rn(scale, d_xb));  // exact scaling by 2^f
+    }
+    dx[d] = __fadd_rn(d_e[d], acc);
+  }
+}
+
+// out[c*sc + p*sp] for the tile's points (planes [4][N]: sc = N, sp = 1;
+// rows [N][4]: sc = 1, sp = 4): raw = hv Wout[:W/2] + part + bout, where
 // part = h7 Wout[W/2:] was computed before h7 was overwritten.
 template <typename T, int W>
 __device__ void head(const T* hv, int ldh, const T* __restrict__ wout, const float* part,
                      const float* __restrict__ bout, int n_pts, int p0, int tile,
-                     float* __restrict__ out) {
+                     float* __restrict__ out, size_t sc, size_t sp) {
   for (int idx = threadIdx.x; idx < tile * 4; idx += THREADS) {
     const int i = idx % tile, c = idx / tile;
     float acc = 0.f;
     for (int k = 0; k < W / 2; ++k) acc = fmaf(to_f(hv[i * ldh + k]), to_f(wout[k * 4 + c]), acc);
     const float v = (acc + part[i * 4 + c]) + bout[c];
     const int p = p0 + i;
-    if (p < n_pts) out[size_t(c) * n_pts + p] = v;
+    if (p < n_pts) out[c * sc + size_t(p) * sp] = v;
   }
 }
 
@@ -272,6 +323,26 @@ __device__ void epilogue(float (&acc)[4][NT][4], const float* __restrict__ bias,
       *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * ldo + col) =
           __floats2bfloat162_rn(v[2], v[3]);
     }
+}
+
+// out[row][col] = acc (f32, stride ldo): mma_layer's accumulators to shared
+// memory, for the narrow products (d_e, d_ev) whose rows one thread each
+// then reads whole.
+template <int NT>
+__device__ void store_acc(const float (&acc)[4][NT][4], float* out, int ldo) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = wm * 64 + mt * 16 + g + (q >> 1) * 8;
+        const int col = wn * NT * 8 + nt * 8 + 2 * t + (q & 1);
+        out[row * ldo + col] = acc[mt][nt][q];
+      }
 }
 
 // ----------------------------------------------------------------- f32 path

@@ -38,6 +38,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "fused_mlp_fwd": {
         "nerf_fused_mlp_fwd": (_I, [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+        "nerf_fused_mlp_fwd_points": (_I, [_I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
         "nerf_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "fused_mlp_bwd": {
@@ -45,6 +46,11 @@ SIGNATURES = {
         "nerf_fused_mlp_bwd": (
             _I,
             [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P, _P],
+        ),
+        "nerf_fused_mlp_bwd_points_workspace": (_I, [_I, _I, _I, _I, ctypes.POINTER(_L)]),
+        "nerf_fused_mlp_bwd_points": (
+            _I,
+            [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _P],
         ),
         "nerf_cuda_error_string": (ctypes.c_char_p, [_I]),
     },

@@ -1,12 +1,18 @@
-"""Fused posenc + NeRF MLP from rays and sample depths (raygen mode), with its
-backward.
+"""Fused posenc + NeRF MLP, forward and backward, in two input modes.
 
-Counterpart of nerf_tpu/ops/fused_mlp.py's ``fused_query_rays_planes``: rays
-``[R, 3]`` and depths ``z [R, S]`` in, raw (r, g, b, sigma) as four
-``[R, S]`` planes out. The points ``x = o + d·z``, both embeddings and all
-activations exist only inside the kernels: K1 (``csrc/fused_mlp_fwd.cu``)
-computes the planes, K4 (``csrc/fused_mlp_bwd.cu``) the weight grads from
-their cotangent; rays and depths get no gradient (ref run_nerf.py:394).
+Counterpart of nerf_tpu/ops/fused_mlp.py:
+- raygen mode, ``fused_query_rays_planes``: rays ``[R, 3]`` and depths
+  ``z [R, S]`` in, raw (r, g, b, sigma) as four ``[R, S]`` planes out. The
+  points ``x = o + d·z``, both embeddings and all activations exist only
+  inside the kernels: K1 (``csrc/fused_mlp_fwd.cu``) computes the planes, K4
+  (``csrc/fused_mlp_bwd.cu``) the weight grads from their cotangent; rays
+  and depths get no gradient (ref run_nerf.py:394). The renderer takes it
+  when S % 8 == 0;
+- points-in mode, ``fused_query``: points ``[R, S, 3]`` and view directions
+  ``[R, 3]`` in, raw ``[R, S, 4]`` out. K2 (``nerf_fused_mlp_fwd_points`` in
+  the forward library) computes it, K3 (``nerf_fused_mlp_bwd_points``) the
+  weight grads and, with ``input_grads``, the points' and directions' grads
+  through the posenc trig. ``query_raw`` takes it at any other S.
 
 The pieces:
 - ``pack_params``: the kernels' weight layout, as nerf_tpu's ``pack_params``
@@ -16,19 +22,22 @@ The pieces:
   differentiable, so only the kernels need a hand-written backward;
   ``packed_params`` keeps a detached packing and the kernel's flat buffers
   on the module for serving;
-- ``fused_rays_planes_reference`` / ``fused_rays_planes_bwd_reference``: the
-  plain PyTorch versions of K1 and K4;
-- ``fused_rays_planes`` / ``fused_rays_planes_bwd``: the wrappers. A CPU
-  tensor goes to the plain version; a CUDA tensor launches the kernel or
-  raises;
-- ``fused_query_rays_planes``: the entry the renderer calls; under autograd
-  it runs ``_FusedRaysPlanes`` (K1 forward, K4 backward).
+- ``fused_rays_planes_reference`` / ``fused_rays_planes_bwd_reference`` and
+  ``fused_points_reference`` / ``fused_points_bwd_reference``: the plain
+  PyTorch versions of K1, K4, K2 and K3 (one forward and one backward,
+  ``_forward`` / ``_backward``, fed from rays or from points);
+- ``fused_rays_planes`` / ``fused_rays_planes_bwd`` / ``fused_points`` /
+  ``fused_points_bwd``: the wrappers. A CPU tensor goes to the plain
+  version; a CUDA tensor launches the kernel or raises;
+- ``fused_query_rays_planes`` and ``fused_query``: the entries the renderer
+  calls; under autograd they run ``_FusedRaysPlanes`` (K1 forward, K4
+  backward) and ``_FusedPoints`` (K2 forward, K3 backward).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -80,18 +89,24 @@ def flops_per_point(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig
 
 
 def bwd_flops(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig,
-              n_rays: int, n_samples: int) -> int:
-    """FLOP of K4 for one call, as ``_mlp_backward_math`` (without input
-    grads) needs them: the forward recompute without the rgb/alpha head, the
-    activation cotangents and the weight grads, per point; dWve per ray.
-    3,484,416 per point at 8x256 with 10/4 octaves, plus 6,912 per ray."""
+              n_rays: int, n_samples: int, input_grads: bool = False) -> int:
+    """FLOP of K4 or K3 for one call, as ``_mlp_backward_math`` needs them:
+    the forward recompute without the rgb/alpha head, the activation
+    cotangents and the weight grads, per point; dWve per ray (per point in
+    the dense mode: ``n_samples=1``). 3,484,416 per point at 8x256 with 10/4
+    octaves, plus 6,912 per ray. ``input_grads`` adds d_e = [d0 | d5] W05eᵀ
+    per point and d_ev = d_hv Wveᵀ per ray (the trig is not counted)."""
     W, ep, ev = cfg.width, pe_pts.out_dim, pe_views.out_dim
     recompute = 2 * ep * W + DEPTH * W * W + (W + ev) * (W // 2)  # W05e, W1..7 + Wf, view
     head = (W // 2 + W) * 4 + 4 * (W // 2) + 4 * W  # dWout, d_hv, d_h7 from Wout
     view = 2 * W * (W // 2)  # dWvf, d_feat
     trunk = 2 * DEPTH * W * W  # dWf + d_h7 (Wf), dW_i + d_h (W1..W7)
     macs_pt = recompute + head + view + trunk + ep * 2 * W  # + dW05e
-    return 2 * (n_rays * n_samples * macs_pt + n_rays * ev * (W // 2))
+    macs_ray = ev * (W // 2)
+    if input_grads:
+        macs_pt += ep * 2 * W
+        macs_ray *= 2
+    return 2 * (n_rays * n_samples * macs_pt + n_rays * macs_ray)
 
 
 def _reorder_emb_rows(w: torch.Tensor, num_freqs: int) -> torch.Tensor:
@@ -144,11 +159,76 @@ def _num_freqs(kp) -> Tuple[int, int]:
     return (kp["W05e"].shape[0] - 3) // 6, (kp["Wve"].shape[0] - 3) // 6
 
 
+def _phases(x: torch.Tensor, num_freqs: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x·2^f [N, 3F] f-major, the scales 2^f [F]) for x [N, 3]."""
+    scale = 2.0 ** torch.arange(num_freqs, dtype=x.dtype, device=x.device)
+    return (x[:, None, :] * scale[:, None]).reshape(x.shape[0], 3 * num_freqs), scale
+
+
 def _embed(x: torch.Tensor, num_freqs: int) -> torch.Tensor:
     """[N, 3] -> [N, 3 + 6F] in kernel order [x | sin f-major | cos]."""
-    scale = 2.0 ** torch.arange(num_freqs, dtype=x.dtype, device=x.device)
-    xb = (x[:, None, :] * scale[:, None]).reshape(x.shape[0], 3 * num_freqs)
+    xb, _ = _phases(x, num_freqs)
     return torch.cat([x, torch.sin(xb), torch.cos(xb)], -1)
+
+
+def _embed_backward(d_e: torch.Tensor, x: torch.Tensor, num_freqs: int) -> torch.Tensor:
+    """dx [N, 3] from the cotangent d_e [N, >= 3 + 6F] of ``_embed(x)``:
+    the identity columns plus Σ_f 2^f (d_sin·cos − d_cos·sin) at the f32
+    phases x·2^f (nerf_tpu/ops/fused_mlp.py:526-532, :558-564)."""
+    f3 = 3 * num_freqs
+    xb, scale = _phases(x, num_freqs)
+    d_xb = d_e[:, 3 : 3 + f3] * torch.cos(xb) - d_e[:, 3 + f3 : 3 + 2 * f3] * torch.sin(xb)
+    return d_e[:, :3] + (d_xb.reshape(-1, num_freqs, 3) * scale[:, None]).sum(1)
+
+
+def _ray_points(rays_o, rays_d, z_vals) -> torch.Tensor:
+    """x = o + d·z [R*S, 3], a separate multiply and add as in K1."""
+    R, S = z_vals.shape
+    return (rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]).reshape(R * S, 3)
+
+
+class _Fwd(NamedTuple):
+    e: torch.Tensor  # rounded point embedding [N, ep]
+    ev: torch.Tensor  # rounded view embedding [N/spr, ev]
+    acts: List[torch.Tensor]  # rounded h0..h6 (with keep_acts)
+    h7: torch.Tensor
+    feat: torch.Tensor
+    hv: torch.Tensor
+    out: torch.Tensor  # raw [N, 4]
+
+
+def _forward(kp: Dict[str, torch.Tensor], x: torch.Tensor, v: torch.Tensor, spr: int,
+             keep_acts: bool = False) -> _Fwd:
+    """The kernels' forward from points x [N, 3] and view directions
+    v [N/spr, 3] (point p looks along v[p // spr]), keeping the trunk's
+    activations for the backward with ``keep_acts``. Mirrors nerf_tpu's _trunk_forward/_head_forward: operands in the
+    packed dtype (bf16 rounding emulated, see models/nerf_mlp.py), f32 sums,
+    the activations rounded to the compute dtype before each matmul."""
+    dtype = kp["W1"].dtype
+    c = lambda t: round_to(t, dtype)  # noqa: E731
+    w = lambda name: kp[name].float()  # noqa: E731
+    Fp, Fv = _num_freqs(kp)
+    W = kp["W1"].shape[0]
+    e = c(_embed(x, Fp))
+    ev = c(_embed(v, Fv))
+    z05 = e @ w("W05e")  # layer-0 and skip contributions in one product
+    h = torch.relu(z05[:, :W] + kp["b0"])
+    acts = []
+    for i in range(1, DEPTH):
+        hc = c(h)
+        if keep_acts:
+            acts.append(hc)
+        z = hc @ w(f"W{i}") + kp[f"b{i}"]
+        if i == SKIP + 1:
+            z = z + z05[:, W:]
+        h = torch.relu(z)
+    hc = c(h)
+    feat = hc @ w("Wf") + kp["bf"]
+    ev_contrib = (ev @ w("Wve")).repeat_interleave(spr, dim=0)  # per view -> per point
+    hv = torch.relu(c(feat) @ w("Wvf") + ev_contrib + kp["bv"])
+    hw = W // 2
+    out = c(hv) @ w("Wout")[:hw] + hc @ w("Wout")[hw:] + kp["bout"]
+    return _Fwd(e, ev, acts, h, feat, hv, out)
 
 
 def fused_rays_planes_reference(
@@ -158,37 +238,19 @@ def fused_rays_planes_reference(
     viewdirs: torch.Tensor,
     z_vals: torch.Tensor,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: raw planes [4, R, S] float32.
-
-    Mirrors nerf_tpu's _trunk_forward/_head_forward: operands in the packed
-    dtype (bf16 rounding emulated, see models/nerf_mlp.py), f32 sums, the
-    activations rounded to the compute dtype before each matmul. ``x = o +
-    d·z`` is a separate multiply and add, as in the kernel.
-    """
-    dtype = kp["W1"].dtype
-    c = lambda t: round_to(t, dtype)  # noqa: E731
-    w = lambda name: kp[name].float()  # noqa: E731
+    """Plain PyTorch version of K1: raw planes [4, R, S] float32 (see
+    ``_forward``)."""
     R, S = z_vals.shape
-    Fp, Fv = _num_freqs(kp)
-    W = kp["W1"].shape[0]
-    x = (rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]).reshape(R * S, 3)
-    e = c(_embed(x, Fp))
-    ev = c(_embed(viewdirs, Fv))
-
-    z05 = e @ w("W05e")  # layer-0 and skip contributions in one product
-    h = torch.relu(z05[:, :W] + kp["b0"])
-    for i in range(1, DEPTH):
-        z = c(h) @ w(f"W{i}") + kp[f"b{i}"]
-        if i == SKIP + 1:
-            z = z + z05[:, W:]
-        h = torch.relu(z)
-    hc = c(h)
-    feat = hc @ w("Wf") + kp["bf"]
-    ev_contrib = (ev @ w("Wve")).repeat_interleave(S, dim=0)  # per ray -> per point
-    hv = torch.relu(c(feat) @ w("Wvf") + ev_contrib + kp["bv"])
-    hw = W // 2
-    out = c(hv) @ w("Wout")[:hw] + hc @ w("Wout")[hw:] + kp["bout"]  # [R*S, 4]
+    out = _forward(kp, _ray_points(rays_o, rays_d, z_vals), viewdirs, S).out
     return out.T.reshape(4, R, S)
+
+
+def fused_points_reference(
+    kp: Dict[str, torch.Tensor], x: torch.Tensor, v: torch.Tensor, spr: int
+) -> torch.Tensor:
+    """Plain PyTorch version of K2: raw [N, 4] float32 at points x [N, 3],
+    point p looking along v[p // spr] (see ``_forward``)."""
+    return _forward(kp, x, v, spr).out
 
 
 def kernel_blobs(kp: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -246,9 +308,9 @@ def packed_params(
     return cached[1], cached[2]
 
 
-def _kernel_config(kp, z_vals):
-    """(dtype, width, point octaves, view octaves) for a launch; raises on
-    what the kernels are not built for."""
+def _kernel_config(kp, like: torch.Tensor):
+    """(dtype, width, point octaves, view octaves) for a launch on
+    ``like``'s device; raises on what the kernels are not built for."""
     dtype = kp["W1"].dtype
     W = kp["W1"].shape[0]
     Fp, Fv = _num_freqs(kp)
@@ -259,8 +321,8 @@ def _kernel_config(kp, z_vals):
             f"the kernel is built for width in {KERNEL_WIDTHS}, <= 10 point and <= 4 view "
             f"octaves; got width {W}, {Fp} and {Fv}"
         )
-    if any(v.device != z_vals.device for v in kp.values()):
-        raise ValueError(f"packed params and rays must be on one device, {z_vals.device}")
+    if any(v.device != like.device for v in kp.values()):
+        raise ValueError(f"packed params and inputs must be on one device, {like.device}")
     return dtype, W, Fp, Fv
 
 
@@ -314,7 +376,118 @@ def fused_rays_planes(
 fused_rays_planes.launches = 0
 
 
+def _check_points(x: torch.Tensor, v: torch.Tensor, spr: int) -> None:
+    if x.dim() != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
+        raise ValueError(f"x: expected float32 [N, 3], got {x.dtype} {tuple(x.shape)}")
+    N = x.shape[0]
+    if spr < 1 or N % spr:
+        raise ValueError(f"spr={spr} must be >= 1 and divide the {N} points")
+    if v.shape != (N // spr, 3) or v.dtype != torch.float32:
+        raise ValueError(f"v: expected float32 {(N // spr, 3)}, got {v.dtype} {tuple(v.shape)}")
+    if v.device != x.device:
+        raise ValueError(f"v is on {v.device}, x on {x.device}")
+
+
+def fused_points(
+    kp: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    v: torch.Tensor,
+    spr: int,
+    blobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Raw [N, 4] float32 from packed params at points x [N, 3], point p
+    looking along v[p // spr] (spr = 1: a direction per point; spr = S: per
+    ray of S samples). CUDA tensors launch K2 (``launches`` counts them); CPU
+    tensors take the plain version. ``blobs`` as for ``fused_rays_planes``."""
+    _check_points(x, v, spr)
+    if x.device.type == "cpu":
+        return fused_points_reference(kp, x, v, spr)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {x.device}")
+    dtype, W, Fp, Fv = _kernel_config(kp, x)
+    N = x.shape[0]
+    out = torch.empty(N, 4, dtype=torch.float32, device=x.device)
+    if N == 0:
+        return out
+    lib = _build.load("fused_mlp_fwd")
+    xc, vc = x.contiguous(), v.contiguous()
+    wblob, bblob = kernel_blobs(kp) if blobs is None else blobs
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.nerf_fused_mlp_fwd_points(
+            int(dtype == torch.bfloat16), W, xc.data_ptr(), vc.data_ptr(), N, spr, Fp, Fv,
+            wblob.data_ptr(), bblob.data_ptr(), out.data_ptr(), stream,
+        )
+    _raise_on(lib, err, "fused_mlp_fwd_points")
+    fused_points.launches += 1
+    return out
+
+
+fused_points.launches = 0
+
+
 # ------------------------------------------------------------------ backward
+
+
+def _backward(
+    kp: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    v: torch.Tensor,
+    spr: int,
+    g32: torch.Tensor,
+    input_grads: bool,
+):
+    """(f32 grads of every packed leaf, dx [N, 3] | None, dv [N/spr, 3] |
+    None) from the cotangent g32 [N, 4] of ``_forward(kp, x, v, spr)``'s raw.
+
+    Mirrors nerf_tpu's _mlp_backward_math step by step, with its rounding
+    points: g rounded once (gc); d_hv rounded after its relu mask; dWve and
+    d_ev from the per-ray f32 sum of d_hv (the identity at spr = 1), rounded
+    after the sum; each trunk cotangent rounded before its products, the
+    layer-5 one kept for dW05e = eᵀ [d0 | d5] and d_e = [d0 | d5] W05eᵀ; the
+    relu masks from the bf16 trunk activations but the f32 h7 and hv; bias
+    grads as f32 sums of the unrounded cotangents; dx and dv through the f32
+    sin/cos of the embeddings (``_embed_backward``). Autograd through the
+    plain forward rounds elsewhere and is no reference for the kernels."""
+    dtype = kp["W1"].dtype
+    c = lambda t: round_to(t, dtype)  # noqa: E731
+    w = lambda name: kp[name].float()  # noqa: E731
+    Fp, Fv = _num_freqs(kp)
+    hw = kp["W1"].shape[0] // 2
+    fw = _forward(kp, x, v, spr, keep_acts=True)
+    h7c = c(fw.h7)
+    gc = c(g32)
+    grads = {
+        "Wout": torch.cat([c(fw.hv).T @ gc, h7c.T @ gc], 0),
+        "bout": g32.sum(0, keepdim=True),
+    }
+    d_hv = (gc @ w("Wout")[:hw].T) * (fw.hv > 0)
+    d_h7_out = gc @ w("Wout")[hw:].T
+    d_hv_c = c(d_hv)
+    grads["Wvf"] = c(fw.feat).T @ d_hv_c
+    d_hv_ray_c = c(d_hv.reshape(-1, spr, hw).sum(1))
+    grads["Wve"] = fw.ev.T @ d_hv_ray_c
+    grads["bv"] = d_hv.sum(0, keepdim=True)
+    d_feat = d_hv_c @ w("Wvf").T
+    d_feat_c = c(d_feat)
+    grads["Wf"] = h7c.T @ d_feat_c
+    grads["bf"] = d_feat.sum(0, keepdim=True)
+    d_h = (d_feat_c @ w("Wf").T + d_h7_out) * (fw.h7 > 0)
+    for i in range(DEPTH - 1, 0, -1):
+        d_c = c(d_h)
+        grads[f"W{i}"] = fw.acts[i - 1].T @ d_c
+        grads[f"b{i}"] = d_h.sum(0, keepdim=True)
+        if i == SKIP + 1:
+            d5c = d_c
+        d_h = (d_c @ w(f"W{i}").T) * (fw.acts[i - 1] > 0)
+    d05 = torch.cat([c(d_h), d5c], -1)
+    grads["W05e"] = fw.e.T @ d05
+    grads["b0"] = d_h.sum(0, keepdim=True)
+    if not input_grads:
+        return grads, None, None
+    dx = _embed_backward(d05 @ w("W05e").T, x, Fp)
+    dv = _embed_backward(d_hv_ray_c @ w("Wve").T, v, Fv)
+    return grads, dx, dv
 
 
 def fused_rays_planes_bwd_reference(
@@ -326,75 +499,44 @@ def fused_rays_planes_bwd_reference(
     g_planes: torch.Tensor,
 ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of K4: float32 grads of every packed leaf (kp's
-    shapes) from the cotangent ``g_planes [4, R, S]`` of the raw planes.
-
-    Mirrors nerf_tpu's _mlp_backward_math(want_input_grads=False) step by
-    step, with its rounding points: g rounded once (gc); d_hv rounded after
-    its relu mask; dWve from the per-ray f32 sum of d_hv, rounded after the
-    sum; each trunk cotangent rounded before its products, the layer-5 one
-    kept for dW05e = e^T [d0 | d5]; the relu masks from the bf16 trunk
-    activations but the f32 h7 and hv; bias grads as f32 sums of the
-    unrounded cotangents. Autograd through the plain forward rounds
-    elsewhere and is no reference for K4."""
-    dtype = kp["W1"].dtype
-    c = lambda t: round_to(t, dtype)  # noqa: E731
-    w = lambda name: kp[name].float()  # noqa: E731
+    shapes) from the cotangent ``g_planes [4, R, S]`` of the raw planes
+    (``_backward`` without input grads)."""
     R, S = z_vals.shape
-    Fp, Fv = _num_freqs(kp)
-    W = kp["W1"].shape[0]
-    hw = W // 2
-    # the forward again, keeping the activations (fused_rays_planes_reference)
-    x = (rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]).reshape(R * S, 3)
-    e = c(_embed(x, Fp))
-    ev = c(_embed(viewdirs, Fv))
-    z05 = e @ w("W05e")
-    h = torch.relu(z05[:, :W] + kp["b0"])
-    acts = []  # bf16-rounded h0..h6
-    for i in range(1, DEPTH):
-        acts.append(c(h))
-        z = acts[-1] @ w(f"W{i}") + kp[f"b{i}"]
-        if i == SKIP + 1:
-            z = z + z05[:, W:]
-        h = torch.relu(z)
-    h7, h7c = h, c(h)
-    feat = h7c @ w("Wf") + kp["bf"]
-    ev_contrib = (ev @ w("Wve")).repeat_interleave(S, dim=0)
-    hv = torch.relu(c(feat) @ w("Wvf") + ev_contrib + kp["bv"])
-
-    g32 = g_planes.reshape(4, R * S).T
-    gc = c(g32)
-    grads = {
-        "Wout": torch.cat([c(hv).T @ gc, h7c.T @ gc], 0),
-        "bout": g32.sum(0, keepdim=True),
-    }
-    d_hv = (gc @ w("Wout")[:hw].T) * (hv > 0)
-    d_h7_out = gc @ w("Wout")[hw:].T
-    d_hv_c = c(d_hv)
-    grads["Wvf"] = c(feat).T @ d_hv_c
-    grads["Wve"] = ev.T @ c(d_hv.reshape(R, S, hw).sum(1))
-    grads["bv"] = d_hv.sum(0, keepdim=True)
-    d_feat = d_hv_c @ w("Wvf").T
-    d_feat_c = c(d_feat)
-    grads["Wf"] = h7c.T @ d_feat_c
-    grads["bf"] = d_feat.sum(0, keepdim=True)
-    d_h = (d_feat_c @ w("Wf").T + d_h7_out) * (h7 > 0)
-    for i in range(DEPTH - 1, 0, -1):
-        d_c = c(d_h)
-        grads[f"W{i}"] = acts[i - 1].T @ d_c
-        grads[f"b{i}"] = d_h.sum(0, keepdim=True)
-        if i == SKIP + 1:
-            d5c = d_c
-        d_h = (d_c @ w(f"W{i}").T) * (acts[i - 1] > 0)
-    grads["W05e"] = e.T @ torch.cat([c(d_h), d5c], -1)
-    grads["b0"] = d_h.sum(0, keepdim=True)
+    x = _ray_points(rays_o, rays_d, z_vals)
+    grads, _, _ = _backward(kp, x, viewdirs, S, g_planes.reshape(4, R * S).T, False)
     return grads
 
 
+def fused_points_bwd_reference(
+    kp: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    v: torch.Tensor,
+    g: torch.Tensor,
+    spr: int,
+    input_grads: bool = True,
+):
+    """Plain PyTorch version of K3: (float32 grads of every packed leaf,
+    dx [N, 3], dv [N/spr, 3]) from the cotangent ``g [N, 4]`` of
+    ``fused_points``'s raw; dx and dv are None without ``input_grads``
+    (see ``_backward``)."""
+    return _backward(kp, x, v, spr, g, input_grads)
+
+
 def _chain_blob(kp: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """K4's second weight buffer (TLayout in csrc/fused_mlp_bwd.cu): W1..W7,
-    Wf and Wvf in kp's own [in, out] layout, the B operand of d·Wᵀ."""
+    """The backward's second weight buffer (TLayout in
+    csrc/fused_mlp_bwd.cu): W1..W7, Wf and Wvf in kp's own [in, out] layout,
+    the B operand of d·Wᵀ; then, for K3's input grads, W05e's layer-0 and
+    skip halves and Wve, their embedding rows zero-padded to 64 / 32."""
+    W = kp["W1"].shape[0]
     names = [f"W{i}" for i in range(1, DEPTH)] + ["Wf", "Wvf"]
-    return torch.cat([kp[n].reshape(-1) for n in names]).contiguous()
+
+    def rows(t, k_pad):
+        return F.pad(t, (0, 0, 0, k_pad - t.shape[0])).reshape(-1)
+
+    return torch.cat(
+        [kp[n].reshape(-1) for n in names]
+        + [rows(kp["W05e"][:, :W], KE), rows(kp["W05e"][:, W:], KE), rows(kp["Wve"], KV)]
+    ).contiguous()
 
 
 def _grad_blocks(W: int):
@@ -428,6 +570,13 @@ def _grad_size(W: int) -> int:
     return sum(r * c for _, r, c in weights) + sum(n for _, n in biases)
 
 
+def _workspace(lib, query, name: str, *args, dev) -> Tuple[torch.Tensor, int]:
+    """The device workspace a backward launch asks ``query`` for."""
+    nbytes = ctypes.c_longlong(0)
+    _raise_on(lib, query(*args, ctypes.byref(nbytes)), name)
+    return torch.empty(nbytes.value, dtype=torch.uint8, device=dev), nbytes.value
+
+
 def _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g, blobs) -> Dict[str, torch.Tensor]:
     dtype, W, Fp, Fv = _kernel_config(kp, z_vals)
     dev = z_vals.device
@@ -437,10 +586,8 @@ def _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g, blobs) -> Dict[str, tor
         return _unpack_grads(out, W, Fp, Fv)
     lib = _build.load("fused_mlp_bwd")
     use_bf16 = int(dtype == torch.bfloat16)
-    nbytes = ctypes.c_longlong(0)
-    _raise_on(lib, lib.nerf_fused_mlp_bwd_workspace(use_bf16, W, R, S, ctypes.byref(nbytes)),
-              "fused_mlp_bwd")
-    ws = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+    ws, nbytes = _workspace(lib, lib.nerf_fused_mlp_bwd_workspace, "fused_mlp_bwd",
+                            use_bf16, W, R, S, dev=dev)
     ro, rd, vd, z, gp = (t.contiguous() for t in (rays_o, rays_d, viewdirs, z_vals, g))
     wblob, bblob = kernel_blobs(kp) if blobs is None else blobs
     wtblob = _chain_blob(kp)
@@ -449,7 +596,7 @@ def _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g, blobs) -> Dict[str, tor
         err = lib.nerf_fused_mlp_bwd(
             use_bf16, W, ro.data_ptr(), rd.data_ptr(), vd.data_ptr(), z.data_ptr(),
             gp.data_ptr(), R, S, Fp, Fv, wblob.data_ptr(), wtblob.data_ptr(),
-            bblob.data_ptr(), ws.data_ptr(), nbytes.value, out.data_ptr(), stream,
+            bblob.data_ptr(), ws.data_ptr(), nbytes, out.data_ptr(), stream,
         )
     _raise_on(lib, err, "fused_mlp_bwd")
     fused_rays_planes_bwd.launches += 1
@@ -485,6 +632,60 @@ def fused_rays_planes_bwd(
 
 
 fused_rays_planes_bwd.launches = 0
+
+
+def fused_points_bwd(
+    kp: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    v: torch.Tensor,
+    g: torch.Tensor,
+    spr: int,
+    input_grads: bool = True,
+    blobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+):
+    """(float32 grads of the packed leaves, dx [N, 3], dv [N/spr, 3]) from
+    the cotangent ``g [N, 4]`` of ``fused_points``'s output; dx and dv are
+    None without ``input_grads``, and K3 then skips their branch. CUDA
+    tensors launch K3 (``launches`` counts them); CPU tensors take the plain
+    version."""
+    _check_points(x, v, spr)
+    N = x.shape[0]
+    if g.shape != (N, 4) or g.dtype != torch.float32:
+        raise ValueError(f"g: expected float32 {(N, 4)}, got {g.dtype} {tuple(g.shape)}")
+    if g.device != x.device:
+        raise ValueError(f"g is on {g.device}, x on {x.device}")
+    if x.device.type == "cpu":
+        return fused_points_bwd_reference(kp, x, v, g, spr, input_grads)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {x.device}")
+    dtype, W, Fp, Fv = _kernel_config(kp, x)
+    dev = x.device
+    out = torch.zeros(_grad_size(W), dtype=torch.float32, device=dev)
+    dx = torch.empty(N, 3, dtype=torch.float32, device=dev) if input_grads else None
+    dv = torch.empty(N // spr, 3, dtype=torch.float32, device=dev) if input_grads else None
+    if N == 0:
+        return _unpack_grads(out, W, Fp, Fv), dx, dv
+    lib = _build.load("fused_mlp_bwd")
+    use_bf16 = int(dtype == torch.bfloat16)
+    ws, nbytes = _workspace(lib, lib.nerf_fused_mlp_bwd_points_workspace,
+                            "fused_mlp_bwd_points", use_bf16, W, N, spr, dev=dev)
+    xc, vc, gc = (t.contiguous() for t in (x, v, g))
+    wblob, bblob = kernel_blobs(kp) if blobs is None else blobs
+    wtblob = _chain_blob(kp)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nerf_fused_mlp_bwd_points(
+            use_bf16, W, xc.data_ptr(), vc.data_ptr(), gc.data_ptr(), N, spr, Fp, Fv,
+            wblob.data_ptr(), wtblob.data_ptr(), bblob.data_ptr(), ws.data_ptr(), nbytes,
+            out.data_ptr(), 0 if dx is None else dx.data_ptr(),
+            0 if dv is None else dv.data_ptr(), stream,
+        )
+    _raise_on(lib, err, "fused_mlp_bwd_points")
+    fused_points_bwd.launches += 1
+    return _unpack_grads(out, W, Fp, Fv), dx, dv
+
+
+fused_points_bwd.launches = 0
 
 
 class _FusedRaysPlanes(torch.autograd.Function):
@@ -542,3 +743,65 @@ def fused_query_rays_planes(
         return fused_rays_planes_autograd(kp, rays_o, rays_d, viewdirs, z_vals)
     kp, blobs = packed_params(mlp, pe_pts, pe_views, compute_dtype)
     return fused_rays_planes(kp, rays_o, rays_d, viewdirs, z_vals, blobs)
+
+
+class _FusedPoints(torch.autograd.Function):
+    """K2 forward, K3 backward over the packed leaves (in KP_NAMES order),
+    with grads to x and v only when ``input_grads`` (nerf_tpu's
+    _fused_bwd_rule returns zeros there; here they are None)."""
+
+    @staticmethod
+    def forward(ctx, x, v, spr, input_grads, *leaves):
+        kp = dict(zip(KP_NAMES, leaves))
+        blobs = kernel_blobs(kp) if x.is_cuda else None
+        ctx.save_for_backward(x, v, *leaves)
+        ctx.blobs, ctx.spr, ctx.input_grads = blobs, spr, input_grads
+        return fused_points(kp, x, v, spr, blobs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, v, *leaves = ctx.saved_tensors
+        kp = dict(zip(KP_NAMES, leaves))
+        grads, dx, dv = fused_points_bwd(kp, x, v, g.contiguous(), ctx.spr, ctx.input_grads,
+                                         ctx.blobs)
+        ctx.blobs = None
+        return (dx, dv, None, None) + tuple(grads[n].to(kp[n].dtype) for n in KP_NAMES)
+
+
+def fused_query(
+    mlp: NeRFMLP,
+    cfg: MLPConfig,
+    pe_pts: PosEncConfig,
+    pe_views: PosEncConfig,
+    pts: torch.Tensor,
+    viewdirs: torch.Tensor,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    input_grads: bool = True,
+) -> torch.Tensor:
+    """Points [R, S, 3] and view directions [R, 3] in, raw [R, S, 4] out
+    (nerf_tpu's fused_query). With S a multiple of 8 the directions stay per
+    ray (spr = S); otherwise they are broadcast per point (spr = 1), so
+    autograd's expand sums dv over a ray's samples as JAX's broadcast does.
+    ``input_grads=False``: K3 skips the dx/dv branch and pts/viewdirs get no
+    grad (for callers that detach them, as the renderer does). Under
+    autograd the weights are packed anew with their graph; otherwise the
+    packing kept on the module serves the forward alone."""
+    if not supports(cfg, pe_pts, pe_views):
+        raise ValueError("fused_query: unsupported MLP / posenc configuration")
+    R, S, _ = pts.shape
+    x = pts.reshape(R * S, 3)
+    if S % 8 == 0 and S > 1:
+        v, spr = viewdirs, S
+    else:
+        v, spr = viewdirs[:, None, :].expand(R, S, 3).reshape(R * S, 3), 1
+    wants_grad = any(p.requires_grad for p in mlp.parameters()) or (
+        input_grads and (pts.requires_grad or viewdirs.requires_grad))
+    if torch.is_grad_enabled() and wants_grad:
+        kp = pack_params(mlp, pe_pts, pe_views, compute_dtype)
+        if not input_grads:
+            x, v = x.detach(), v.detach()
+        out = _FusedPoints.apply(x, v, spr, input_grads, *(kp[n] for n in KP_NAMES))
+    else:
+        kp, blobs = packed_params(mlp, pe_pts, pe_views, compute_dtype)
+        out = fused_points(kp, x, v, spr, blobs)
+    return out.reshape(R, S, 4)

@@ -1,9 +1,12 @@
 """Network query: embed sampled points (+viewdirs) and evaluate the MLP.
 
 Counterpart of nerf_tpu/render/network.py. ``query_raw`` is the points-in
-path, which the renderer takes when its fused raygen branch does not apply.
-It computes posenc + MLP in plain PyTorch: the points-in fused kernel that
-nerf_tpu uses there (``_fwd_kernel``) is not ported yet.
+path, which the renderer takes when its fused raygen branch does not apply
+(S not a multiple of 8). Two paths with the same semantics:
+- plain: posenc + ``NeRFMLP.apply_mlp`` in PyTorch;
+- fused (``model.fused``, viewdirs, a supported MLP):
+  ``ops/fused_mlp.py::fused_query``, which launches K2 forward and K3
+  backward on a CUDA tensor (their plain versions on a CPU one).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 
 from nerf_tpu_torch.models.embedding import PosEncConfig, posenc
 from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
+from nerf_tpu_torch.ops import fused_mlp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,10 +49,22 @@ def query_raw(
     model: NeRFModel,
     pts: torch.Tensor,
     viewdirs: Optional[torch.Tensor],
+    input_grads: bool = True,
 ) -> torch.Tensor:
     """Raw (r,g,b,sigma) [R, S, 4] float32 at points [R, S, 3], with unit
-    view directions [R, 3] (None without viewdirs)."""
+    view directions [R, 3] (None without viewdirs). ``input_grads=False``
+    when the caller guarantees pts/viewdirs carry no gradient (the renderer
+    detaches them): the fused backward then skips its dx/dv branch."""
     R, S, _ = pts.shape
+    if (
+        model.fused
+        and viewdirs is not None
+        and fused_mlp.supports(mlp.cfg, model.pe_pts, model.pe_views)
+    ):
+        return fused_mlp.fused_query(
+            mlp, mlp.cfg, model.pe_pts, model.pe_views, pts, viewdirs,
+            compute_dtype=model.torch_compute_dtype, input_grads=input_grads,
+        )
     x_emb = posenc(pts.reshape(R * S, 3), model.pe_pts)
     v_emb = None
     if viewdirs is not None:

@@ -111,9 +111,11 @@ def render_rays(
             raw = raw4.movedim(0, -1) if rs.retraw else None
             return raw, out
 
+        # points-in mode (K2/K3 when fused): rays and depths carry no grad
+        # into the network, so the backward skips its input-grad branch
         pts = (rays_o[..., None, :] + rays_d[..., None, :] * z[..., :, None]).detach()
         vd = None if viewdirs is None else viewdirs.detach()
-        raw = query_raw(mlp, model, pts, vd)
+        raw = query_raw(mlp, model, pts, vd, input_grads=False)
         out = raw2outputs(
             raw, z, rays_d,
             raw_noise_std=rs.raw_noise_std, white_bkgd=rs.white_bkgd,

@@ -6,7 +6,8 @@ mse(coarse)`` (run_nerf.py:765-772), the backward, and Adam with the decay
 ``lr = lrate * 0.1^(t/(lrate_decay*1000))`` (run_nerf.py:780-784).
 
 The step runs eagerly on the device of its tensors: the random draws, both
-levels' K1 forward and K4 backward, compositing and Adam are queued there
+levels' fused forward and backward (K1/K4 at sample counts that are
+multiples of 8, K2/K3 otherwise), compositing and Adam are queued there
 without a host sync; the loss comes back as a device tensor in ``aux``.
 """
 
