@@ -7,8 +7,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, one line each (any failure exits non-zero):
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compiles csrc/fused_mlp_fwd.cu (K1, K2) and csrc/fused_mlp_bwd.cu
-   (K4, K3) with nvcc (sm_90a), one process each, at once;
+2. build: compiles csrc/fused_mlp_fwd.cu (K1, K2), csrc/fused_mlp_bwd.cu
+   (K4, K3) and csrc/fused_render.cu (K5, K6's compositing backward) with
+   nvcc (sm_90a), one process each, at once;
 3. kernel: K1 against its plain PyTorch version at the full 8x256 width,
    in f32 and bf16;
 4. render: renders the first 3 poses of the 40-pose orbit at the lego
@@ -42,6 +43,18 @@ points (``query_raw`` -> ``fused_query``) with a view direction per point:
    K3 launches a step and no K1/K4;
 13. k2_times / k3_times: K2 at the chunk's and the step's shapes, K3 at the
    step's, beside their bounds, plain versions and library chains.
+The fused-render path (``--fused_render``: K5 from rays to maps with the
+compositing in the kernel, K6 its backward), at 64+128 on both levels:
+14. kernel5 / grad6: K5 and K6 against their plain versions at 8x256, f32
+   and bf16, R=1024 and ragged R=1000, S=64, 192 and 200 (a one-ray
+   group), white background on and off, sigma noise on; K6 with one-signed
+   cotangents on all four maps, twice, bit-identical;
+15. render: phase 4 with ``fused_render``: 10 K5 launches a frame and no
+   other kernel;
+16. train / grads: phases 7 and 8 with ``fused_render`` on the same views:
+   2 K5 and 2 K6 launches a step and none of K1-K4;
+17. k5_times / k6_times: K5 per chunk (serving) and K6 per step beside
+   their bounds, plain versions and library chains.
 
 The last two lines are a JSON object of kernel numbers and the
 ``{"ok": true, "device": ...}`` result. Weights are random, from seeds.
@@ -113,11 +126,13 @@ K3_INPUT_BF16_TOL = 1e-2
 
 
 def counters():
-    """The launch counters of K1, K2, K3 and K4, by name."""
+    """The launch counters of K1-K6, by name."""
+    from nerf_tpu_torch.experimental import fused_render
     from nerf_tpu_torch.ops import fused_mlp
 
     return {"K1": fused_mlp.fused_rays_planes, "K2": fused_mlp.fused_points,
-            "K3": fused_mlp.fused_points_bwd, "K4": fused_mlp.fused_rays_planes_bwd}
+            "K3": fused_mlp.fused_points_bwd, "K4": fused_mlp.fused_rays_planes_bwd,
+            "K5": fused_render.fused_render_fwd, "K6": fused_render.fused_render_bwd}
 
 
 def reset_counts() -> None:
@@ -225,9 +240,10 @@ def main() -> int:
 
     # 2. build (one nvcc per source, all at once)
     t0 = time.perf_counter()
-    _build.load_all(["fused_mlp_fwd", "fused_mlp_bwd"])
-    phase("build", seconds=f"{time.perf_counter() - t0:.1f}", sources=2)
-    for name in ("fused_mlp_fwd", "fused_mlp_bwd"):
+    sources = ["fused_mlp_fwd", "fused_mlp_bwd", "fused_render"]
+    _build.load_all(sources)
+    phase("build", seconds=f"{time.perf_counter() - t0:.1f}", sources=len(sources))
+    for name in sources:
         for line in _build.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip(), flush=True)
@@ -313,6 +329,15 @@ def main() -> int:
     step_grads_phase(train63, dev)
     k2, k3 = k23_times(cfg, pe_pts, pe_views, render63["rays"], k2_errs, dev)
 
+    # 14.-17. the fused-render path at 64+128
+    k5_errs, k6_errs = check_k56(coarse, pe_pts, pe_views, rng, dev)
+    model_fr = dataclasses.replace(model, fused_render=True)
+    render_fr = render_phase(nets, model_fr, scene, N_SAMPLES, "K5", dev)
+    train_fr = train_phase(scene, dev, N_SAMPLES, "K5", "K6", views=train_info["views"],
+                           fused_render=True)
+    step_grads_phase(train_fr, dev)
+    k5, k6 = k56_times(cfg, pe_pts, pe_views, render["rays"], dev)
+
     def row(name, source, replaces, launches, err, t):
         return {
             "name": name, "route": "cuda", "source": f"nerf_tpu_torch/csrc/{source}",
@@ -339,6 +364,14 @@ def main() -> int:
         # the 63+128 training's 60; ms per training step (S=63 + S=191)
         row("fused_mlp_bwd_points", "fused_mlp_bwd.cu", "nerf_tpu/ops/fused_mlp.py:584",
             train63["counts"]["K3"], max(k3_errs), k3),
+        # the fused-render serving (30) and training (60) launches; bf16 max
+        # abs of the maps over phase 14; ms per 32,768-ray chunk (S=64 + S=192)
+        row("fused_render_fwd", "fused_render.cu", "nerf_tpu/experimental/fused_render.py:162",
+            render_fr["counts"]["K5"] + train_fr["counts"]["K5"], max(k5_errs), k5),
+        # the fused-render training's 60; bf16 weight grads (max abs); ms per
+        # training step (S=64 + S=192)
+        row("fused_render_bwd", "fused_render.cu", "nerf_tpu/experimental/fused_render.py:182",
+            train_fr["counts"]["K6"], max(k6_errs), k6),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -347,7 +380,7 @@ def main() -> int:
 
 
 def render_phase(nets, model, scene, n_samples: int, kernel: str, dev):
-    """4 / 11. render_path over N_FRAMES orbit poses at n_samples + 128:
+    """4 / 11 / 15. render_path over N_FRAMES orbit poses at n_samples + 128:
     shapes, finiteness, exactly 2 launches of ``kernel`` per chunk and none
     of any other, and 4,096 rays strided over frame 0 against the plain
     (unfused) path. Returns the counts, and frame 0's rays for phase 5."""
@@ -374,7 +407,7 @@ def render_phase(nets, model, scene, n_samples: int, kernel: str, dev):
     check_counts(counts, {kernel: N_FRAMES * 2 * n_chunks}, f"render at S={n_samples}")
 
     # rays strided over all of frame 0 through the plain (unfused) path
-    plain = dataclasses.replace(model, fused=False)
+    plain = dataclasses.replace(model, fused=False, fused_render=False)
     c2w = torch.as_tensor(poses[0][:3, :4], dtype=torch.float32, device=dev)
     ro, rd, vd, nv, fv = prepare_rays(*get_rays(H, W, scene.K, c2w), rs, H, W, FOCAL, NEAR, FAR)
     idx = torch.arange(RENDER_CHECK_RAYS, device=dev) * (H * W // RENDER_CHECK_RAYS)
@@ -439,8 +472,9 @@ def check_k4(mlp, pe_pts, pe_views, rng, dev):
     return errs
 
 
-def train_phase(scene, dev, n_samples: int, fwd: str, bwd: str, views=None):
-    """7 / 12. train() at the lego recipe with n_samples + 128 samples,
+def train_phase(scene, dev, n_samples: int, fwd: str, bwd: str, views=None,
+                fused_render: bool = False):
+    """7 / 12 / 16. train() at the lego recipe with n_samples + 128 samples,
     N_rand=4096, on 8 views rendered by a teacher (rendered here unless
     ``views`` are given): exactly 2 launches of ``fwd`` and of ``bwd`` a
     step and none of any other kernel, a finite and falling loss, the rates,
@@ -460,6 +494,7 @@ def train_phase(scene, dev, n_samples: int, fwd: str, bwd: str, views=None):
         f"--n_iters={WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS}", "--i_print=10", "--i_img=0",
         "--i_weights=0", "--i_testset=0", "--i_video=0", "--data_axis=1",
         f"--basedir={os.path.join(here, 'build', 'chip_smoke')}",
+        f"--fused_render={fused_render}",
     ])
     model = make_model(cfg)
     rs = render_settings_from_config(cfg)
@@ -526,8 +561,9 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str) -> None:
     which forward and backward ran: the two pairs share their kernels' names."""
     # the backward's own workspace memset is one of the step's few "Memset"
     # entries; those stay in "other", so its share reads ~0.01 ms low
-    groups = {fwd: ("fwd_bf16",), bwd: ("bwd_tile_bf16", "ray_prep", "wgrad_bf16",
-                                        "reduce_splits", "reduce_tiles")}
+    k4 = ("bwd_tile_bf16", "ray_prep", "wgrad_bf16", "reduce_splits", "reduce_tiles")
+    groups = {fwd: ("render_bf16",) if fwd == "K5" else ("fwd_bf16",),
+              bwd: ("composite_bwd",) + k4 if bwd == "K6" else k4}
     rows = []
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
@@ -551,7 +587,7 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str) -> None:
 
 
 def step_grads_phase(info, dev):
-    """8. one fused step's grads against the plain (unfused) path."""
+    """8 / 12 / 16. one fused step's grads against the plain (unfused) path."""
     from nerf_tpu_torch.geom.rays import get_rays
     from nerf_tpu_torch.train.step import draw_overrides, loss_fn
 
@@ -569,7 +605,7 @@ def step_grads_phase(info, dev):
     names = [f"{level}.{n}" for level in ("coarse", "fine") for n, _ in nets[level].named_parameters()]
     grads = {}
     for fused in (True, False):
-        m = dataclasses.replace(model, fused=fused)
+        m = model if fused else dataclasses.replace(model, fused=False, fused_render=False)
         loss, _ = loss_fn(nets, m, rs, ro, rd, vd, near, far, target, overrides=ov)
         grads[fused] = torch.autograd.grad(loss, params)
     worst, leaf = max((rel_l2(a, b), n) for n, a, b in zip(names, grads[True], grads[False]))
@@ -806,6 +842,162 @@ def k23_times(cfg, pe_pts, pe_views, rays, k2_errs, dev):
     phase("k2_step", ms=f"{k2_step['ms']:.3f}", bound_ms=f"{max(k2_step['ops_ms'], k2_step['bytes_ms']):.3f}",
           plain_ms=f"{k2_step['plain_ms']:.3f}", library_ms=f"{k2_step['library_ms']:.3f}")
     return k2, k3
+
+
+def check_maps(out, ref, tol: float, **fields) -> float:
+    """Hold K5's maps to its plain version's: rgb, disp (where finite in
+    both, the same rays), acc and w; the bound must stay below the rgb
+    map's input-dependent spread. Returns the max abs difference."""
+    errs = {}
+    for name, a, b in zip(("rgb", "disp", "acc", "w"), out, ref):
+        f = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), f):
+            raise RuntimeError(f"K5's {name} is finite where its plain version's is not")
+        errs[name] = float((a[f] - b[f]).abs().max())
+    err = max(errs.values())
+    spread = float((ref.rgb - ref.rgb.mean(0)).abs().mean(0).min())
+    phase("kernel5", **fields, **{f"{k}_max_abs": f"{v:.3e}" for k, v in errs.items()}, tol=tol,
+          rgb_spread=f"{spread:.3e}")
+    if not err <= tol:
+        raise RuntimeError(f"K5 disagrees with its plain version: {errs} > {tol}")
+    if not tol < spread:
+        raise RuntimeError(f"bound {tol} is not below the rgb map's spread {spread}")
+    return err
+
+
+@torch.no_grad()
+def check_k56(mlp, pe_pts, pe_views, rng, dev):
+    """14. K5 and K6 against their plain versions; returns the bf16 max abs
+    errors of K5's maps and of K6's weight grads."""
+    from nerf_tpu_torch.experimental import fused_render
+    from nerf_tpu_torch.ops import fused_mlp
+
+    shapes = [(R, S) for S in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE, 200)
+              for R in (CHECK_RAYS, RAGGED_RAYS)]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    k5_errs, k6_errs = [], []
+    for dtype, tol, wtol in ((torch.float32, F32_TOL, K4_F32_TOL),
+                             (torch.bfloat16, BF16_TOL, K4_BF16_TOL)):
+        dname = str(dtype).split(".")[-1]
+        kp = fused_mlp.pack_params(mlp, pe_pts, pe_views, dtype)
+        for R, S in shapes:
+            rays = make_rays(rng, R, S, dev)
+            noise = torch.randn(R, S, device=dev, generator=gen) * 0.5
+            for white in (True, False):
+                before = read_counts()
+                out = fused_render.fused_render_fwd(kp, *rays, noise, white, keep_raw=True)
+                torch.cuda.synchronize()
+                ref = fused_render.fused_render_reference(kp, *rays, noise, white)
+                err = check_maps(out, ref, tol, dtype=dname, R=R, S=S, white=white)
+                same_raw = torch.equal(out.raw, fused_mlp.fused_rays_planes(kp, *rays))
+                # the cotangents of an image loss and its companions: one-signed
+                g = [(0.5 + torch.rand(*shape, device=dev, generator=gen)) * 1e-4
+                     for shape in ((R, 3), (R,), (R,), (R, S))]
+                got = fused_render.fused_render_bwd(kp, *rays, noise, out.raw, *g, white)
+                again = fused_render.fused_render_bwd(kp, *rays, noise, out.raw, *g, white)
+                torch.cuda.synchronize()
+                gref = fused_render.fused_render_bwd_reference(kp, *rays, noise, out.raw, *g,
+                                                               white)
+                worst, leaf = max((rel_l2(got[n], gref[n]), n) for n in fused_mlp.KP_NAMES)
+                max_abs = max(float((got[n] - gref[n]).abs().max()) for n in fused_mlp.KP_NAMES)
+                same = all(torch.equal(got[n], again[n]) for n in fused_mlp.KP_NAMES)
+                finite = all(bool(torch.isfinite(got[n]).all()) for n in fused_mlp.KP_NAMES)
+                phase("grad6", dtype=dname, R=R, S=S, white=white,
+                      worst_leaf_rel_l2=f"{worst:.3e}", leaf=leaf, tol=wtol,
+                      max_abs=f"{max_abs:.3e}", bit_identical=same, raw_is_k1=same_raw)
+                if not (finite and same and same_raw and worst <= wtol):
+                    raise RuntimeError(f"K6 disagrees with its plain version or is not "
+                                       f"deterministic, or K5's raw is not K1's: {leaf} "
+                                       f"{worst}, same={same}, raw={same_raw}")
+                after = read_counts()
+                moved = {k: after[k] - before[k] for k in after}
+                if moved != {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 1, "K6": 2}:
+                    raise RuntimeError(f"the K5/K6 launch counters moved wrongly: {moved}")
+                if dtype == torch.bfloat16:
+                    k5_errs.append(err)
+                    k6_errs.append(max_abs)
+                del out, ref, got, again, gref
+            torch.cuda.empty_cache()
+    return k5_errs, k6_errs
+
+
+def k56_times(cfg, pe_pts, pe_views, rays, dev):
+    """17. K5 at the serving chunk's shapes (32,768 rays of frame 0, S=64 and
+    192, no noise, no raw kept) and K6 at the training step's (4,096 rays,
+    with noise, from K5's raw), each beside its bound, its plain version and
+    the bf16 torch.matmul chain of the same products. Returns K5's numbers
+    per chunk and K6's per step."""
+    from nerf_tpu_torch.experimental import fused_render
+    from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from nerf_tpu_torch.ops import fused_mlp
+
+    mlp = NeRFMLP(cfg, seed=6, device=dev)
+    kp, blobs = fused_mlp.packed_params(mlp, pe_pts, pe_views, torch.bfloat16)
+    flops_pt = fused_mlp.flops_per_point(cfg, pe_pts, pe_views)
+    wbytes = sum(t.numel() * t.element_size() for t in kp.values())
+    chain_bytes = 2 * sum(kp[n].numel() for n in ("W1", "W2", "W3", "W4", "W5", "W6", "W7", "Wf",
+                                                   "Wvf"))
+    gbytes = 4 * sum(v.numel() for v in kp.values())
+    zero = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
+    k5, k6 = dict(zero), dict(zero)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    ro, rd, vd = (t[:CHUNK] for t in rays)
+    for S in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE):
+        z = torch.sort(torch.rand(CHUNK, S, device=dev, generator=gen) * (FAR - NEAR) + NEAR,
+                       -1).values
+        args = (ro, rd, vd, z, None, True)
+        n_pts = CHUNK * S
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fused_render.fused_render_fwd(kp, *args, blobs), reps=10, warmup=2)
+            plain_ms = cuda_ms(lambda: fused_render.fused_render_reference(kp, *args), reps=2)
+        torch.cuda.empty_cache()
+        chain = matmul_chain(kp, n_pts)
+        library_ms = cuda_ms(chain, reps=5)
+        del chain
+        torch.cuda.empty_cache()
+        # rays and z in; rgb, disp, acc and w out
+        io_bytes = CHUNK * 9 * 4 + n_pts * 4 + CHUNK * 5 * 4 + n_pts * 4 + wbytes
+        ops_ms = 1e3 * n_pts * flops_pt / PEAK_BF16_FLOPS
+        bytes_ms = 1e3 * io_bytes / PEAK_BYTES
+        phase("k5_times", R=CHUNK, S=S, points=n_pts, ms=f"{ms:.3f}",
+              bound_ms=f"{max(ops_ms, bytes_ms):.3f}", plain_ms=f"{plain_ms:.3f}",
+              library_ms=f"{library_ms:.3f}", tflops=f"{n_pts * flops_pt / ms / 1e9:.1f}")
+        for k, t in (("ms", ms), ("plain_ms", plain_ms), ("ops_ms", ops_ms),
+                     ("bytes_ms", bytes_ms), ("library_ms", library_ms)):
+            k5[k] += t
+        # K6 at the step's shape: 4,096 rays with noise, from K5's raw
+        R = N_RAND
+        step = (ro[:R], rd[:R], vd[:R], z[:R])
+        noise = torch.randn(R, S, device=dev, generator=gen)
+        raw = fused_render.fused_render_fwd(kp, *step, noise, True, blobs, keep_raw=True).raw
+        g = [torch.rand(*shape, device=dev, generator=gen) * 1e-4
+             for shape in ((R, 3), (R,), (R,), (R, S))]
+        n_pts = R * S
+        ms = cuda_ms(lambda: fused_render.fused_render_bwd(kp, *step, noise, raw, *g, True, blobs),
+                     reps=10, warmup=2)
+        plain_ms = cuda_ms(
+            lambda: fused_render.fused_render_bwd_reference(kp, *step, noise, raw, *g, True), reps=2)
+        torch.cuda.empty_cache()
+        chain = backward_matmul_chain(kp, n_pts)
+        library_ms = cuda_ms(chain, reps=5)
+        del chain
+        torch.cuda.empty_cache()
+        flops = fused_mlp.bwd_flops(cfg, pe_pts, pe_views, R, S)
+        # rays, z, noise, raw and g_w in per point, g_rgb/disp/acc per ray, the
+        # weights (and their [in, out] copy) in, the grads out
+        io_bytes = (R * 9 * 4 + n_pts * (4 + 4 + 16 + 4) + R * 5 * 4 + wbytes + chain_bytes
+                    + gbytes)
+        ops_ms = 1e3 * flops / PEAK_BF16_FLOPS
+        bytes_ms = 1e3 * io_bytes / PEAK_BYTES
+        phase("k6_times", R=R, S=S, points=n_pts, ms=f"{ms:.3f}",
+              bound_ms=f"{max(ops_ms, bytes_ms):.3f}", plain_ms=f"{plain_ms:.3f}",
+              library_ms=f"{library_ms:.3f}", tflops=f"{flops / ms / 1e9:.1f}")
+        for k, t in (("ms", ms), ("plain_ms", plain_ms), ("ops_ms", ops_ms),
+                     ("bytes_ms", bytes_ms), ("library_ms", library_ms)):
+            k6[k] += t
+        del raw, g
+        torch.cuda.empty_cache()
+    return k5, k6
 
 
 if __name__ == "__main__":

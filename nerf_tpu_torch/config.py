@@ -82,7 +82,7 @@ class NeRFConfig:
     seed: int = 0
     compute_dtype: str = "bfloat16"  # matmul dtype; "float32" for strict parity
     fused_kernels: bool = True  # the fused posenc+MLP kernels (K1 forward, K4 backward)
-    fused_render: bool = False  # single-kernel rays->maps path: not ported, train() raises
+    fused_render: bool = False  # single-kernel rays->maps path (K5/K6, experimental/fused_render.py)
     data_axis: int = 0  # devices on the 'data' mesh axis; 0 = all, 1 = no mesh
     # nerf_tpu's multi-host process group (ignored by the port)
     coordinator_address: Optional[str] = None

@@ -1,9 +1,10 @@
 // Building blocks shared by the fused NeRF MLP kernels (fused_mlp_fwd.cu:
-// K1 and K2, fused_mlp_bwd.cu: K4 and K3): the two input modes, the
-// weight-blob layout, the posenc embedding and its backward, the bf16
-// mma.sync layer with its cp.async weight ring, and the f32 FMA layer. The
-// backward recomputes the forward activations from this code, so it
-// differentiates exactly what the forward computed.
+// K1 and K2, fused_mlp_bwd.cu: K4 and K3, fused_render.cu: K5): the two
+// input modes, the weight-blob layout, the posenc embedding and its
+// backward, the bf16 mma.sync layer with its cp.async weight ring, the f32
+// FMA layer, and the forward's tile body, which hands raw to a caller-given
+// sink. The backward recomputes the forward activations from this code, so
+// it differentiates exactly what the forward computed.
 
 #pragma once
 
@@ -144,20 +145,30 @@ __device__ __forceinline__ void embed_row_backward(const float (&x)[3], int F, c
   }
 }
 
-// out[c*sc + p*sp] for the tile's points (planes [4][N]: sc = N, sp = 1;
-// rows [N][4]: sc = 1, sp = 4): raw = hv Wout[:W/2] + part + bout, where
-// part = h7 Wout[W/2:] was computed before h7 was overwritten.
-template <typename T, int W>
+// Where the forward tile puts raw: sink(p, c, v) receives channel c of
+// point p. GlobalSink writes out[c*sc + p*sp] to device memory (planes
+// [4][N]: sc = N, sp = 1, K1; rows [N][4]: sc = 1, sp = 4, K2).
+struct GlobalSink {
+  float* out;
+  size_t sc;
+  size_t sp;
+  __device__ void operator()(int p, int c, float v) const { out[c * sc + size_t(p) * sp] = v; }
+};
+
+// sink(p, c, v) for the tile's points p = p0 + i < n_pts: raw = hv Wout[:W/2]
+// + part + bout, where part = h7 Wout[W/2:] was computed before h7 was
+// overwritten.
+template <typename T, int W, typename Sink>
 __device__ void head(const T* hv, int ldh, const T* __restrict__ wout, const float* part,
                      const float* __restrict__ bout, int n_pts, int p0, int tile,
-                     float* __restrict__ out, size_t sc, size_t sp) {
+                     const Sink& sink) {
   for (int idx = threadIdx.x; idx < tile * 4; idx += THREADS) {
     const int i = idx % tile, c = idx / tile;
     float acc = 0.f;
     for (int k = 0; k < W / 2; ++k) acc = fmaf(to_f(hv[i * ldh + k]), to_f(wout[k * 4 + c]), acc);
     const float v = (acc + part[i * 4 + c]) + bout[c];
     const int p = p0 + i;
-    if (p < n_pts) out[c * sc + size_t(p) * sp] = v;
+    if (p < n_pts) sink(p, c, v);
   }
 }
 
@@ -345,6 +356,54 @@ __device__ void store_acc(const float (&acc)[4][NT][4], float* out, int ldo) {
       }
 }
 
+// The forward of one tile of TP points p0 .. p0+TP-1 (K1, K2 and K5 run
+// this body): posenc and the MLP, with raw of the points p < n_pts going
+// to sink(p, c, v). smem holds Bf16Smem<W>::bytes. A CTA may run it again
+// on another tile right away: the next tile's first write to a buffer
+// comes after a barrier that every read of this tile precedes.
+template <typename In, int W, typename Sink>
+__device__ void fwd_tile_bf16(const In& in, int n_pts, int Fp, int Fv, const bf16* __restrict__ wb,
+                              const float* __restrict__ bb, int p0, unsigned char* smem,
+                              const Sink& sink) {
+  using L = Bf16Smem<W>;
+  using O = Layout<W>;
+  bf16* act = reinterpret_cast<bf16*>(smem + L::act);
+  bf16* emb = reinterpret_cast<bf16*>(smem + L::emb);
+  bf16* embv = reinterpret_cast<bf16*>(smem + L::embv);
+  bf16* wbuf = reinterpret_cast<bf16*>(smem + L::wbuf);
+  float* part = reinterpret_cast<float*>(smem + L::part);
+
+  embed_tile<bf16>(in, n_pts, Fp, Fv, p0, TP, emb, L::lde, embv, L::ldv);
+  // (mma_layer's first barrier orders these writes before any read)
+  const Seg none = {nullptr, 0, nullptr, 0};
+  {  // layer 0: rows [0, W) of W05e^T
+    float acc[4][W / 32][4];
+    mma_layer<W, W / 32>({emb, L::lde, wb + O::w05, KE}, none, wbuf, acc);
+    epilogue<W / 32>(acc, bb, act, L::lda, true);
+  }
+  for (int i = 1; i < 8; ++i) {  // trunk; layer 5 adds e W5e (rows [W, 2W))
+    float acc[4][W / 32][4];
+    const Seg skip = i == 5 ? Seg{emb, L::lde, wb + O::w05 + size_t(W) * KE, KE} : none;
+    mma_layer<W, W / 32>({act, L::lda, wb + O::wi(i), W}, skip, wbuf, acc);
+    epilogue<W / 32>(acc, bb + i * W, act, L::lda, true);
+  }
+  __syncthreads();
+  head_part<bf16, W>(act, L::lda, wb + O::wout, part, TP);
+  {  // feature (no activation)
+    float acc[4][W / 32][4];
+    mma_layer<W, W / 32>({act, L::lda, wb + O::wf, W}, none, wbuf, acc);
+    epilogue<W / 32>(acc, bb + O::bf, act, L::lda, false);
+  }
+  {  // view layer: [feat | ev] -> W/2, into columns [0, W/2) of act
+    float acc[4][W / 64][4];
+    mma_layer<W, W / 64>({act, L::lda, wb + O::wvf, W}, {embv, L::ldv, wb + O::wve, KV}, wbuf,
+                         acc);
+    epilogue<W / 64>(acc, bb + O::bv, act, L::lda, true);
+  }
+  __syncthreads();
+  head<bf16, W>(act, L::lda, wb + O::wout, part, bb + O::bout, n_pts, p0, TP, sink);
+}
+
 // ----------------------------------------------------------------- f32 path
 
 constexpr int TP32 = 64;  // points per CTA
@@ -394,6 +453,46 @@ __device__ void dense_f32(const float* A1, int lda1, int K1, const float* __rest
     out[lane * ldo + n] = a0;
     out[(lane + 32) * ldo + n] = a1;
   }
+}
+
+// fwd_tile_bf16's f32 counterpart: TP32 points, smem of F32Smem<W>::bytes.
+template <typename In, int W, typename Sink>
+__device__ void fwd_tile_f32(const In& in, int n_pts, int Fp, int Fv, const float* __restrict__ wb,
+                             const float* __restrict__ bb, int p0, unsigned char* smem,
+                             const Sink& sink) {
+  using L = F32Smem<W>;
+  using O = Layout<W>;
+  float* A = reinterpret_cast<float*>(smem + L::a);
+  float* B = reinterpret_cast<float*>(smem + L::b);
+  float* emb = reinterpret_cast<float*>(smem + L::emb);
+  float* embv = reinterpret_cast<float*>(smem + L::embv);
+  float* part = reinterpret_cast<float*>(smem + L::part);
+  constexpr int lda = L::lda;
+
+  embed_tile<float>(in, n_pts, Fp, Fv, p0, TP32, emb, L::lde, embv, L::ldv);
+  __syncthreads();
+  dense_f32(emb, L::lde, KE, wb + O::w05, nullptr, 0, 0, nullptr, bb, W, A, lda, true);
+  __syncthreads();
+  float* src = A;
+  float* dst = B;
+  for (int i = 1; i < 8; ++i) {
+    const bool skip = i == 5;
+    dense_f32(src, lda, W, wb + O::wi(i), skip ? emb : nullptr, L::lde, skip ? KE : 0,
+              wb + O::w05 + size_t(W) * KE, bb + i * W, W, dst, lda, true);
+    __syncthreads();
+    float* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  // src = h7
+  head_part<float, W>(src, lda, wb + O::wout, part, TP32);
+  dense_f32(src, lda, W, wb + O::wf, nullptr, 0, 0, nullptr, bb + O::bf, W, dst, lda, false);
+  __syncthreads();
+  // dst = feat; the view layer writes hv over h7
+  dense_f32(dst, lda, W, wb + O::wvf, embv, L::ldv, KV, wb + O::wve, bb + O::bv, W / 2, src,
+            lda, true);
+  __syncthreads();
+  head<float, W>(src, lda, wb + O::wout, part, bb + O::bout, n_pts, p0, TP32, sink);
 }
 
 }  // namespace

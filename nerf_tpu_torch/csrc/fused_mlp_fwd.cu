@@ -33,8 +33,9 @@
 // 8 warps share one copy of each chunk. Ragged tails are masked per point.
 // This is the simple first version; wgmma, TMA and larger tiles are later work.
 //
-// The weight and bias blobs are laid out as fused_mlp_common.cuh's Layout
-// says; the building blocks shared with the backward (K4, K3) live there.
+// The tile body (fwd_tile_bf16 / fwd_tile_f32), which K5 in fused_render.cu
+// runs too, the weight and bias blobs' Layout and the building blocks shared
+// with the backward (K4, K3) live in fused_mlp_common.cuh.
 
 #include "fused_mlp_common.cuh"
 
@@ -44,88 +45,17 @@ template <typename In, int W>
 __global__ void __launch_bounds__(THREADS, 1)
 fwd_bf16(const In in, int n_pts, int Fp, int Fv, const bf16* __restrict__ wb,
          const float* __restrict__ bb, float* __restrict__ out, size_t sc, size_t sp) {
-  using L = Bf16Smem<W>;
-  using O = Layout<W>;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem + L::act);
-  bf16* emb = reinterpret_cast<bf16*>(smem + L::emb);
-  bf16* embv = reinterpret_cast<bf16*>(smem + L::embv);
-  bf16* wbuf = reinterpret_cast<bf16*>(smem + L::wbuf);
-  float* part = reinterpret_cast<float*>(smem + L::part);
-  const int p0 = blockIdx.x * TP;
-
-  embed_tile<bf16>(in, n_pts, Fp, Fv, p0, TP, emb, L::lde, embv, L::ldv);
-  // (mma_layer's first barrier orders these writes before any read)
-  const Seg none = {nullptr, 0, nullptr, 0};
-  {  // layer 0: rows [0, W) of W05e^T
-    float acc[4][W / 32][4];
-    mma_layer<W, W / 32>({emb, L::lde, wb + O::w05, KE}, none, wbuf, acc);
-    epilogue<W / 32>(acc, bb, act, L::lda, true);
-  }
-  for (int i = 1; i < 8; ++i) {  // trunk; layer 5 adds e W5e (rows [W, 2W))
-    float acc[4][W / 32][4];
-    const Seg skip = i == 5 ? Seg{emb, L::lde, wb + O::w05 + size_t(W) * KE, KE} : none;
-    mma_layer<W, W / 32>({act, L::lda, wb + O::wi(i), W}, skip, wbuf, acc);
-    epilogue<W / 32>(acc, bb + i * W, act, L::lda, true);
-  }
-  __syncthreads();
-  head_part<bf16, W>(act, L::lda, wb + O::wout, part, TP);
-  {  // feature (no activation)
-    float acc[4][W / 32][4];
-    mma_layer<W, W / 32>({act, L::lda, wb + O::wf, W}, none, wbuf, acc);
-    epilogue<W / 32>(acc, bb + O::bf, act, L::lda, false);
-  }
-  {  // view layer: [feat | ev] -> W/2, into columns [0, W/2) of act
-    float acc[4][W / 64][4];
-    mma_layer<W, W / 64>({act, L::lda, wb + O::wvf, W}, {embv, L::ldv, wb + O::wve, KV}, wbuf,
-                         acc);
-    epilogue<W / 64>(acc, bb + O::bv, act, L::lda, true);
-  }
-  __syncthreads();
-  head<bf16, W>(act, L::lda, wb + O::wout, part, bb + O::bout, n_pts, p0, TP, out, sc, sp);
+  fwd_tile_bf16<In, W>(in, n_pts, Fp, Fv, wb, bb, blockIdx.x * TP, smem, GlobalSink{out, sc, sp});
 }
-
-// ----------------------------------------------------------------- f32 path
 
 template <typename In, int W>
 __global__ void __launch_bounds__(THREADS)
 fwd_f32(const In in, int n_pts, int Fp, int Fv, const float* __restrict__ wb,
         const float* __restrict__ bb, float* __restrict__ out, size_t sc, size_t sp) {
-  using L = F32Smem<W>;
-  using O = Layout<W>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* A = reinterpret_cast<float*>(smem + L::a);
-  float* B = reinterpret_cast<float*>(smem + L::b);
-  float* emb = reinterpret_cast<float*>(smem + L::emb);
-  float* embv = reinterpret_cast<float*>(smem + L::embv);
-  float* part = reinterpret_cast<float*>(smem + L::part);
-  const int p0 = blockIdx.x * TP32;
-  constexpr int lda = L::lda;
-
-  embed_tile<float>(in, n_pts, Fp, Fv, p0, TP32, emb, L::lde, embv, L::ldv);
-  __syncthreads();
-  dense_f32(emb, L::lde, KE, wb + O::w05, nullptr, 0, 0, nullptr, bb, W, A, lda, true);
-  __syncthreads();
-  float* src = A;
-  float* dst = B;
-  for (int i = 1; i < 8; ++i) {
-    const bool skip = i == 5;
-    dense_f32(src, lda, W, wb + O::wi(i), skip ? emb : nullptr, L::lde, skip ? KE : 0,
-              wb + O::w05 + size_t(W) * KE, bb + i * W, W, dst, lda, true);
-    __syncthreads();
-    float* tmp = src;
-    src = dst;
-    dst = tmp;
-  }
-  // src = h7
-  head_part<float, W>(src, lda, wb + O::wout, part, TP32);
-  dense_f32(src, lda, W, wb + O::wf, nullptr, 0, 0, nullptr, bb + O::bf, W, dst, lda, false);
-  __syncthreads();
-  // dst = feat; the view layer writes hv over h7
-  dense_f32(dst, lda, W, wb + O::wvf, embv, L::ldv, KV, wb + O::wve, bb + O::bv, W / 2, src,
-            lda, true);
-  __syncthreads();
-  head<float, W>(src, lda, wb + O::wout, part, bb + O::bout, n_pts, p0, TP32, out, sc, sp);
+  fwd_tile_f32<In, W>(in, n_pts, Fp, Fv, wb, bb, blockIdx.x * TP32, smem,
+                      GlobalSink{out, sc, sp});
 }
 
 template <typename T, typename In, typename Kernel>

@@ -1,0 +1,306 @@
+"""One kernel per level from rays to composited maps (``--fused_render``).
+
+Counterpart of nerf_tpu/experimental/fused_render.py:
+
+    (rays_o, rays_d, viewdirs, z_vals, noise)  ->  (rgb_map, disp, acc, weights)
+
+- K5 (``nerf_fused_render_fwd`` in ``csrc/fused_render.cu``) runs K1's tile
+  body over whole rays and composites in the kernel: neither the points nor
+  raw leave the chip when serving;
+- K6 (``fused_render_bwd``) is the compositing backward
+  (``nerf_fused_render_bwd_planes``, from the raw K5 kept under autograd)
+  followed by K4's three phases with a direction per ray: weight grads
+  only. Rays, depths and noise get no gradient (nerf_tpu's module
+  docstring: they are non-differentiated leaves of the training graph).
+
+The pieces, as in ops/fused_mlp.py:
+- ``fused_render_reference`` / ``fused_render_bwd_reference``: the plain
+  PyTorch versions of K5 and K6. The compositing follows nerf_tpu's
+  ``_composite`` (fused_render.py:122-152), not ops/compositing.py:
+  ``c = exp(-relu(σ + noise)·dist) + 1e-10`` and the transmittance
+  ``exp(Σ_{j<k} log c_j)`` in f32; the backward forms the cotangent of raw
+  with ``_bwd_rule``'s hand formulas (:213-252), not autograd, so the
+  ``live`` guard on depth/acc behaves as there;
+- ``fused_render_fwd`` / ``fused_render_bwd``: the wrappers, with launch
+  counters. A CPU tensor takes the plain version; a CUDA tensor launches
+  the kernel or raises;
+- ``fused_render_level``: the entry the renderer calls; under autograd it
+  runs ``_FusedRender`` (K5 forward, K6 backward).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from nerf_tpu_torch.models.embedding import PosEncConfig
+from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
+from nerf_tpu_torch.ops import _build, fused_mlp
+from nerf_tpu_torch.ops.compositing import RayOutputs
+from nerf_tpu_torch.ops.fused_mlp import KP_NAMES
+
+
+def supports(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views, n_samples: int) -> bool:
+    """The fused MLP's architectures, at sample counts that are multiples
+    of 8 (nerf_tpu's guard)."""
+    return fused_mlp.supports(cfg, pe_pts, pe_views) and n_samples % 8 == 0
+
+
+class Maps(NamedTuple):
+    rgb: torch.Tensor  # [R, 3]
+    disp: torch.Tensor  # [R]
+    acc: torch.Tensor  # [R]
+    w: torch.Tensor  # [R, S]
+    raw: Optional[torch.Tensor]  # planes [4, R, S], K6's residual
+
+
+def _composite(raw, rays_d, z_vals, noise, white_bkgd) -> Dict[str, torch.Tensor]:
+    """nerf_tpu's in-kernel raw2outputs on raw planes [4, R, S]: the maps
+    and the intermediates the backward reuses."""
+    sigma = raw[3] if noise is None else raw[3] + noise
+    dn = torch.sqrt(torch.sum(rays_d * rays_d, -1, keepdim=True))
+    dz = z_vals[:, 1:] - z_vals[:, :-1]
+    dists = torch.cat([dz, torch.full_like(z_vals[:, :1], 1e10)], -1) * dn
+    ealpha = torch.exp(-torch.relu(sigma) * dists)  # = 1 - alpha
+    c = ealpha + 1e-10
+    log_c = torch.log(c)
+    trans = torch.exp(torch.cat([torch.zeros_like(log_c[:, :1]), log_c[:, :-1].cumsum(-1)], -1))
+    w = (1.0 - ealpha) * trans
+    rgbs = torch.sigmoid(raw[:3])  # [3, R, S]
+    rgb_map = torch.sum(w * rgbs, -1).T
+    depth = torch.sum(w * z_vals, -1)
+    acc = torch.sum(w, -1)
+    disp = 1.0 / torch.clamp(depth / acc, min=1e-10)  # an empty ray's NaN stays NaN
+    if white_bkgd:
+        rgb_map = rgb_map + (1.0 - acc)[:, None]
+    return {"rgb_map": rgb_map, "disp": disp, "acc": acc, "w": w, "sigma": sigma,
+            "dists": dists, "ealpha": ealpha, "c": c, "trans": trans, "rgbs": rgbs,
+            "depth": depth}
+
+
+def fused_render_reference(kp, rays_o, rays_d, viewdirs, z_vals, noise,
+                           white_bkgd: bool) -> Maps:
+    """Plain PyTorch version of K5: the maps, and raw planes [4, R, S] from
+    ``fused_mlp._forward`` (K1's plain version) beneath them."""
+    raw = fused_mlp.fused_rays_planes_reference(kp, rays_o, rays_d, viewdirs, z_vals)
+    cmp = _composite(raw, rays_d, z_vals, noise, white_bkgd)
+    return Maps(cmp["rgb_map"], cmp["disp"], cmp["acc"], cmp["w"], raw)
+
+
+def composite_bwd_reference(raw, rays_d, z_vals, noise, g_rgb, g_disp, g_acc, g_w,
+                            white_bkgd: bool) -> torch.Tensor:
+    """The cotangent of raw planes [4, R, S] from the maps' cotangents,
+    by nerf_tpu's _bwd_rule formulas (fused_render.py:213-252)."""
+    cmp = _composite(raw, rays_d, z_vals, noise, white_bkgd)
+    w, c, trans, rgbs = cmp["w"], cmp["c"], cmp["trans"], cmp["rgbs"]
+    depth, acc, disp = cmp["depth"], cmp["acc"], cmp["disp"]
+    zero = torch.zeros_like(acc)
+    # where() keeps the clamped and the empty ray's 0/0 branch out
+    live = depth / acc > 1e-10
+    dm = torch.where(live, -g_disp * disp * disp, zero)
+    g_depth = torch.where(live, dm / acc, zero)
+    g_acc_t = g_acc - torch.where(live, dm * depth / (acc * acc), zero)
+    if white_bkgd:
+        g_acc_t = g_acc_t - ((g_rgb[:, 0] + g_rgb[:, 1]) + g_rgb[:, 2])
+    rgb_dot = g_rgb[:, 0:1] * rgbs[0] + g_rgb[:, 1:2] * rgbs[1] + g_rgb[:, 2:3] * rgbs[2]
+    t_w = g_w + rgb_dot + g_depth[:, None] * z_vals + g_acc_t[:, None]
+    # d/d alpha_k = t_k T_k - (sum_{i>k} t_i w_i) / c_k, the suffix summed from the back
+    tw = t_w * w
+    suffix = torch.cat([tw.flip(-1).cumsum(-1).flip(-1)[:, 1:], torch.zeros_like(tw[:, :1])], -1)
+    d_alpha = t_w * trans - suffix / c
+    d_sigma = d_alpha * cmp["ealpha"] * cmp["dists"] * (cmp["sigma"] > 0).float()
+    d_rgb = w * rgbs * (1.0 - rgbs) * g_rgb.T[:, :, None]
+    return torch.cat([d_rgb, d_sigma[None]], 0)
+
+
+def fused_render_bwd_reference(kp, rays_o, rays_d, viewdirs, z_vals, noise, raw, g_rgb,
+                               g_disp, g_acc, g_w, white_bkgd: bool) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of K6: float32 grads of every packed leaf
+    (kp's shapes) from the maps' cotangents, through the compositing
+    backward and K4's plain version (a direction per ray)."""
+    g_planes = composite_bwd_reference(raw, rays_d, z_vals, noise, g_rgb, g_disp, g_acc, g_w,
+                                       white_bkgd)
+    return fused_mlp.fused_rays_planes_bwd_reference(kp, rays_o, rays_d, viewdirs, z_vals,
+                                                     g_planes)
+
+
+def _check(rays_o, rays_d, viewdirs, z_vals, noise, **per_ray) -> None:
+    fused_mlp._check_rays(rays_o, rays_d, viewdirs, z_vals)
+    R, S = z_vals.shape
+    shapes = {"noise": (R, S), "raw": (4, R, S), "g_rgb": (R, 3), "g_disp": (R,),
+              "g_acc": (R,), "g_w": (R, S)}
+    for name, t in dict(per_ray, noise=noise).items():
+        if t is None and name == "noise":
+            continue
+        if t.shape != shapes[name] or t.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32 {shapes[name]}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != z_vals.device:
+            raise ValueError(f"{name} is on {t.device}, z_vals on {z_vals.device}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_fwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, white_bkgd, blobs,
+                keep_raw) -> Maps:
+    lib = _build.load("fused_render")
+    dtype, W, Fp, Fv = fused_mlp._kernel_config(kp, z_vals)
+    dev = z_vals.device
+    R, S = z_vals.shape
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = Maps(torch.empty(R, 3, **f32), torch.empty(R, **f32), torch.empty(R, **f32),
+               torch.empty(R, S, **f32), torch.empty(4, R, S, **f32) if keep_raw else None)
+    if R * S == 0:
+        return out
+    ro, rd, vd, z = (t.contiguous() for t in (rays_o, rays_d, viewdirs, z_vals))
+    nz = None if noise is None else noise.contiguous()
+    wblob, bblob = fused_mlp.kernel_blobs(kp) if blobs is None else blobs
+    with torch.cuda.device(dev):
+        err = lib.nerf_fused_render_fwd(
+            int(dtype == torch.bfloat16), W, ro.data_ptr(), rd.data_ptr(), vd.data_ptr(),
+            z.data_ptr(), _ptr(nz), R, S, Fp, Fv, int(white_bkgd), wblob.data_ptr(),
+            bblob.data_ptr(), *(_ptr(t) for t in out), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    fused_mlp._raise_on(lib, err, "fused_render_fwd")
+    fused_render_fwd.launches += 1
+    return out
+
+
+def fused_render_fwd(kp: Dict[str, torch.Tensor], rays_o, rays_d, viewdirs, z_vals,
+                     noise: Optional[torch.Tensor], white_bkgd: bool,
+                     blobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     keep_raw: bool = False) -> Maps:
+    """The maps of one level from packed params, rays [R, 3], depths and
+    sigma noise [R, S] (None: none); raw planes too with ``keep_raw``. CUDA
+    tensors launch K5 (``launches`` counts them); CPU tensors take the plain
+    version. ``blobs`` is ``fused_mlp.kernel_blobs(kp)`` where the caller
+    keeps it across launches."""
+    _check(rays_o, rays_d, viewdirs, z_vals, noise)
+    if z_vals.device.type == "cpu":
+        out = fused_render_reference(kp, rays_o, rays_d, viewdirs, z_vals, noise, white_bkgd)
+        return out if keep_raw else out._replace(raw=None)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {z_vals.device}")
+    return _launch_fwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, white_bkgd, blobs, keep_raw)
+
+
+fused_render_fwd.launches = 0
+
+
+def _launch_composite_bwd(raw, rays_d, z_vals, noise, g_rgb, g_disp, g_acc, g_w,
+                          white_bkgd) -> torch.Tensor:
+    """K6's first half on the card: ``composite_bwd_reference``'s cotangent
+    planes [4, R, S]."""
+    lib = _build.load("fused_render")
+    dev = z_vals.device
+    R, S = z_vals.shape
+    g_planes = torch.empty(4, R, S, dtype=torch.float32, device=dev)
+    if R * S == 0:
+        return g_planes
+    args = [None if t is None else t.contiguous()
+            for t in (rays_d, z_vals, noise, raw, g_rgb, g_disp, g_acc, g_w)]
+    with torch.cuda.device(dev):
+        err = lib.nerf_fused_render_bwd_planes(
+            *(_ptr(t) for t in args), R, S, int(white_bkgd), g_planes.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    fused_mlp._raise_on(lib, err, "fused_render_bwd_planes")
+    return g_planes
+
+
+def _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, raw, g_rgb, g_disp, g_acc, g_w,
+                white_bkgd, blobs) -> Dict[str, torch.Tensor]:
+    fused_mlp._kernel_config(kp, z_vals)
+    g_planes = _launch_composite_bwd(raw, rays_d, z_vals, noise, g_rgb, g_disp, g_acc, g_w,
+                                     white_bkgd)
+    grads = fused_mlp._launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g_planes, blobs)
+    R, S = z_vals.shape
+    if R * S:
+        fused_render_bwd.launches += 1
+    return grads
+
+
+def fused_render_bwd(kp: Dict[str, torch.Tensor], rays_o, rays_d, viewdirs, z_vals,
+                     noise: Optional[torch.Tensor], raw, g_rgb, g_disp, g_acc, g_w,
+                     white_bkgd: bool,
+                     blobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """float32 grads of the packed leaves (kp's shapes) from the cotangents
+    of ``fused_render_fwd``'s maps (g_rgb [R, 3], g_disp, g_acc [R], g_w
+    [R, S]), given its raw planes. CUDA tensors launch K6, the compositing
+    backward and then K4's phases (``launches`` counts the calls); CPU
+    tensors take the plain version."""
+    _check(rays_o, rays_d, viewdirs, z_vals, noise, raw=raw, g_rgb=g_rgb, g_disp=g_disp,
+           g_acc=g_acc, g_w=g_w)
+    args = (kp, rays_o, rays_d, viewdirs, z_vals, noise, raw, g_rgb, g_disp, g_acc, g_w,
+            white_bkgd)
+    if z_vals.device.type == "cpu":
+        return fused_render_bwd_reference(*args)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {z_vals.device}")
+    return _launch_bwd(*args, blobs)
+
+
+fused_render_bwd.launches = 0
+
+
+class _FusedRender(torch.autograd.Function):
+    """K5 forward, K6 backward over the packed leaves (in KP_NAMES order).
+    Rays, depths and noise get no gradient (fused_render.py:20-24); each
+    leaf's grad comes back in its own dtype, as in ``_FusedRaysPlanes``."""
+
+    @staticmethod
+    def forward(ctx, rays_o, rays_d, viewdirs, z_vals, noise, white_bkgd, *leaves):
+        kp = dict(zip(KP_NAMES, leaves))
+        blobs = fused_mlp.kernel_blobs(kp) if z_vals.is_cuda else None
+        out = fused_render_fwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, white_bkgd, blobs,
+                               keep_raw=True)
+        ctx.save_for_backward(rays_o, rays_d, viewdirs, z_vals, noise, out.raw, *leaves)
+        ctx.blobs, ctx.white_bkgd = blobs, white_bkgd
+        return out.rgb, out.disp, out.acc, out.w
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_disp, g_acc, g_w):
+        ro, rd, vd, z, noise, raw, *leaves = ctx.saved_tensors
+        kp = dict(zip(KP_NAMES, leaves))
+        grads = fused_render_bwd(kp, ro, rd, vd, z, noise, raw, g_rgb, g_disp, g_acc, g_w,
+                                 ctx.white_bkgd, ctx.blobs)
+        ctx.blobs = None
+        return (None,) * 6 + tuple(grads[n].to(kp[n].dtype) for n in KP_NAMES)
+
+
+def fused_render_level(
+    mlp: NeRFMLP,
+    cfg: MLPConfig,
+    pe_pts: PosEncConfig,
+    pe_views: PosEncConfig,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    viewdirs: torch.Tensor,
+    z_vals: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    white_bkgd: bool,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> RayOutputs:
+    """One coarse/fine level, rays -> composited maps (nerf_tpu's
+    fused_render_level). ``depth`` is Σ w·z, taken outside the kernel as
+    there. Under autograd (grad enabled and a parameter that requires grad)
+    the weights are packed anew with their graph and the call
+    differentiates through K6; otherwise the packing kept on the module
+    serves the forward alone."""
+    if not supports(cfg, pe_pts, pe_views, z_vals.shape[-1]):
+        raise ValueError("fused_render_level: unsupported MLP / posenc / sample count")
+    ro, rd, vd, z = (t.detach() for t in (rays_o, rays_d, viewdirs, z_vals))
+    nz = None if noise is None else noise.detach()
+    if torch.is_grad_enabled() and any(p.requires_grad for p in mlp.parameters()):
+        kp = fused_mlp.pack_params(mlp, pe_pts, pe_views, compute_dtype)
+        rgb, disp, acc, w = _FusedRender.apply(ro, rd, vd, z, nz, white_bkgd,
+                                               *(kp[n] for n in KP_NAMES))
+    else:
+        kp, blobs = fused_mlp.packed_params(mlp, pe_pts, pe_views, compute_dtype)
+        rgb, disp, acc, w, _ = fused_render_fwd(kp, ro, rd, vd, z, nz, white_bkgd, blobs)
+    depth = torch.sum(w * z, -1)
+    return RayOutputs(rgb=rgb, disp=disp, acc=acc, weights=w, depth=depth)

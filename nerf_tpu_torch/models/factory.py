@@ -54,6 +54,7 @@ def make_model(cfg: NeRFConfig) -> NeRFModel:
         fine=fine,
         compute_dtype=cfg.compute_dtype,
         fused=cfg.fused_kernels,
+        fused_render=cfg.fused_kernels and cfg.fused_render,
     )
 
 

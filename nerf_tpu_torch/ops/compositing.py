@@ -37,16 +37,22 @@ def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
     return torch.cumprod(torch.cat([ones, x], -1), -1)[..., :-1]
 
 
+def sigma_noise(like: torch.Tensor, raw_noise_std: float,
+                generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+    """The pre-activation density noise of ``like``'s shape (ref
+    run_nerf.py:283-291), one draw from ``generator``; None without noise."""
+    if raw_noise_std <= 0.0:
+        return None
+    if generator is None:
+        raise ValueError("raw_noise_std>0 requires a generator or explicit noise")
+    n = torch.randn(like.shape, generator=generator, dtype=like.dtype, device=like.device)
+    return n * raw_noise_std
+
+
 def _sigma_with_noise(sigma, noise, raw_noise_std, generator):
-    """Optional pre-activation density noise (ref run_nerf.py:283-291)."""
-    if noise is not None:
-        return sigma + noise
-    if raw_noise_std > 0.0:
-        if generator is None:
-            raise ValueError("raw_noise_std>0 requires a generator or explicit noise")
-        n = torch.randn(sigma.shape, generator=generator, dtype=sigma.dtype, device=sigma.device)
-        return sigma + n * raw_noise_std
-    return sigma
+    if noise is None:
+        noise = sigma_noise(sigma, raw_noise_std, generator)
+    return sigma if noise is None else sigma + noise
 
 
 def _one_minus_alpha(alpha):

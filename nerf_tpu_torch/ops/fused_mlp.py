@@ -578,6 +578,9 @@ def _workspace(lib, query, name: str, *args, dev) -> Tuple[torch.Tensor, int]:
 
 
 def _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g, blobs) -> Dict[str, torch.Tensor]:
+    """K4's three phases on the cotangent planes ``g``. The caller counts
+    the launch: K4's wrapper, or K6's (experimental/fused_render.py), whose
+    backward ends with these phases."""
     dtype, W, Fp, Fv = _kernel_config(kp, z_vals)
     dev = z_vals.device
     R, S = z_vals.shape
@@ -599,7 +602,6 @@ def _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g, blobs) -> Dict[str, tor
             bblob.data_ptr(), ws.data_ptr(), nbytes, out.data_ptr(), stream,
         )
     _raise_on(lib, err, "fused_mlp_bwd")
-    fused_rays_planes_bwd.launches += 1
     return _unpack_grads(out, W, Fp, Fv)
 
 
@@ -628,7 +630,10 @@ def fused_rays_planes_bwd(
         return fused_rays_planes_bwd_reference(kp, rays_o, rays_d, viewdirs, z_vals, g_planes)
     if z_vals.device.type != "cuda":
         raise ValueError(f"no fused kernel for device {z_vals.device}")
-    return _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g_planes, blobs)
+    grads = _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g_planes, blobs)
+    if R * S:
+        fused_rays_planes_bwd.launches += 1
+    return grads
 
 
 fused_rays_planes_bwd.launches = 0

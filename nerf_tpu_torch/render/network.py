@@ -33,6 +33,9 @@ class NeRFModel:
     fine: Optional[MLPConfig]
     compute_dtype: str = "float32"
     fused: bool = False
+    # the single-kernel rays->maps path (experimental/fused_render.py): K5
+    # forward with the compositing in the kernel, K6 backward
+    fused_render: bool = False
 
     def mlp_config(self, level: str) -> MLPConfig:
         if level == "fine" and self.fine is not None:

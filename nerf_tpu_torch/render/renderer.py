@@ -7,6 +7,10 @@ run_nerf.py:308-418; render / batchify_rays run_nerf.py:54-134):
 - randomness comes from one ``torch.Generator``, drawn in the order jitter,
   coarse noise, importance u, fine noise; parity tests inject exact arrays
   through ``overrides`` (t_rand / noise0 / u / noise1);
+- each level takes nerf_tpu's first branch that applies: the fused render
+  (``model.fused_render``, viewdirs, no retraw, S % 8 == 0: K5/K6 from rays
+  to maps), the raygen fused MLP (``model.fused``, S % 8 == 0: K1/K4), or the
+  points-in query (K2/K3 when fused, else plain PyTorch);
 - full frames are rendered in chunks by a Python loop;
 - importance samples are detached (ref run_nerf.py:394), and rays and
   sample depths never carry gradients into the network.
@@ -21,9 +25,10 @@ import numpy as np
 import torch
 
 from nerf_tpu_torch.device import DeviceLike, resolve_device
+from nerf_tpu_torch.experimental import fused_render
 from nerf_tpu_torch.geom.rays import get_rays, ndc_rays
 from nerf_tpu_torch.ops import fused_mlp
-from nerf_tpu_torch.ops.compositing import raw2outputs, raw2outputs_planes
+from nerf_tpu_torch.ops.compositing import raw2outputs, raw2outputs_planes, sigma_noise
 from nerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
 from nerf_tpu_torch.render.network import NeRFModel, query_raw
 
@@ -89,6 +94,23 @@ def render_rays(
         mlp = nets[level] if level in nets else nets["coarse"]
         mlp_cfg = model.mlp_config(level)
         S = z.shape[-1]
+        if (
+            model.fused_render
+            and viewdirs is not None
+            and not rs.retraw
+            and fused_render.supports(mlp_cfg, model.pe_pts, model.pe_views, S)
+        ):
+            # rays -> maps in one kernel per level (K5, K6 backward); raw
+            # never exists outside it. The noise is the draw raw2outputs_planes
+            # would make at this point of the generator's stream.
+            noise = noise_override
+            if noise is None:
+                noise = sigma_noise(z, rs.raw_noise_std, generator)
+            out = fused_render.fused_render_level(
+                mlp, mlp_cfg, model.pe_pts, model.pe_views, rays_o, rays_d, viewdirs, z,
+                noise, rs.white_bkgd, compute_dtype=model.torch_compute_dtype,
+            )
+            return None, out
         if (
             model.fused
             and viewdirs is not None

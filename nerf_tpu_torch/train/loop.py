@@ -121,8 +121,6 @@ def _check_supported(cfg: NeRFConfig, dev: torch.device) -> None:
         if 0 < every <= cfg.n_iters:
             missing.append(f"{name}={every} (eval renders and checkpoints, ROADMAP A.3/A.5); "
                            f"set {name}=0 or above n_iters")
-    if cfg.fused_render:
-        missing.append("fused_render (K5/K6, ROADMAP B)")
     if cfg.trace:
         missing.append("trace (profiler capture, ROADMAP A.3)")
     if missing:

@@ -7,8 +7,9 @@ mse(coarse)`` (run_nerf.py:765-772), the backward, and Adam with the decay
 
 The step runs eagerly on the device of its tensors: the random draws, both
 levels' fused forward and backward (K1/K4 at sample counts that are
-multiples of 8, K2/K3 otherwise), compositing and Adam are queued there
-without a host sync; the loss comes back as a device tensor in ``aux``.
+multiples of 8, K2/K3 otherwise; K5/K6, compositing included, with
+``fused_render``), compositing and Adam are queued there without a host
+sync; the loss comes back as a device tensor in ``aux``.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip elsewhere. The file
 imports neither JAX nor nerf_tpu, so the card's machine, which has no JAX,
-runs it without the repository's conftest (``-s`` shows the errors the K2
-and K3 tests measure):
+runs it without the repository's conftest (``-s`` shows the errors the K2,
+K3, K5 and K6 tests measure):
 
     python -m pytest tests/test_torch_port_kernels.py --noconftest -m cuda -q
 """
@@ -232,4 +232,122 @@ def test_fused_query_differentiates_through_k3(cuda_device):
     assert fused_mlp.fused_points.launches == k2 + 1
     assert fused_mlp.fused_points_bwd.launches == k3 + 1
     grads = [p.grad for p in mlp.parameters()] + [pts.grad, vd.grad]
+    assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
+
+
+# K5 and K6, the fused-render pair: rays -> maps with the compositing in
+# K5, and K6's compositing backward feeding K4's phases. (R, S): chip_smoke
+# phase 14's shapes, full and ragged ray groups (two rays a CTA at S = 64
+# and 192) and the one-ray group with a masked tail (S = 200).
+RENDER_CASES = ((1024, 64), (1000, 64), (1024, 192), (1000, 192), (1024, 200), (1000, 200))
+
+
+def _render_inputs(seed, R, S, dev):
+    """_rays plus sigma noise of std 0.5, which leaves some rays partly
+    empty (a negative sigma on the last sample)."""
+    rays = _rays(seed, R, S, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return rays + [torch.randn(R, S, device=dev, generator=gen) * 0.5]
+
+
+def _maps_err(got, ref):
+    """The largest |difference| over rgb, disp (where finite), acc and w."""
+    errs = []
+    for a, b in zip(got[:4], ref[:4]):
+        assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+        f = torch.isfinite(b)
+        errs.append(float((a[f] - b[f]).abs().max()))
+    return max(errs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("white", [False, True])
+def test_fused_render_kernel_matches_plain_version(cuda_device, width, dtype, tol, white):
+    from nerf_tpu_torch.experimental import fused_render
+
+    mlp = NeRFMLP(MLPConfig(width=width), seed=width + 4, device=cuda_device)
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(mlp, PE_P, PE_V, dtype)
+    for R, S in RENDER_CASES:
+        ro, rd, vd, z, noise = _render_inputs(R + S, R, S, cuda_device)
+        before = fused_render.fused_render_fwd.launches
+        out = fused_render.fused_render_fwd(kp, ro, rd, vd, z, noise, white, keep_raw=True)
+        torch.cuda.synchronize()
+        assert fused_render.fused_render_fwd.launches == before + 1
+        with torch.no_grad():
+            ref = fused_render.fused_render_reference(kp, ro, rd, vd, z, noise, white)
+        err = _maps_err(out, ref)
+        # the bound sees the input-dependent part of the colours
+        spread = float((ref.rgb - ref.rgb.mean(0)).abs().mean(0).min())
+        print(f"K5 W={width} {dtype} white={white} R={R} S={S}: max abs {err:.3e}, "
+              f"rgb spread {spread:.3e}")  # with -s
+        assert err <= tol and tol < spread, (R, S, err, spread)
+        # the residual raw is K1's planes bit for bit: one tile body
+        assert torch.equal(out.raw, fused_mlp.fused_rays_planes(kp, ro, rd, vd, z))
+        served = fused_render.fused_render_fwd(kp, ro, rd, vd, z, noise, white)
+        assert served.raw is None and all(torch.equal(a, b) for a, b in zip(served[:4], out[:4]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, K4_F32_TOL), (torch.bfloat16, K4_BF16_TOL)])
+def test_fused_render_bwd_kernel_matches_plain_version(cuda_device, width, dtype, tol):
+    from nerf_tpu_torch.experimental import fused_render
+
+    mlp = NeRFMLP(MLPConfig(width=width), seed=width + 5, device=cuda_device)
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(mlp, PE_P, PE_V, dtype)
+    for i, (R, S) in enumerate(RENDER_CASES):
+        white = i % 2 == 0
+        ro, rd, vd, z, noise = _render_inputs(R + S + 1, R, S, cuda_device)
+        raw = fused_render.fused_render_fwd(kp, ro, rd, vd, z, noise, white, keep_raw=True).raw
+        gen = torch.Generator(device=cuda_device).manual_seed(R + S)
+        # the cotangents of an image loss and of its companions: one-signed
+        g = [(0.5 + torch.rand(*s, device=cuda_device, generator=gen)) * 1e-4
+             for s in ((R, 3), (R,), (R,), (R, S))]
+        before = (fused_render.fused_render_bwd.launches, fused_mlp.fused_rays_planes_bwd.launches)
+        got = fused_render.fused_render_bwd(kp, ro, rd, vd, z, noise, raw, *g, white)
+        again = fused_render.fused_render_bwd(kp, ro, rd, vd, z, noise, raw, *g, white)
+        torch.cuda.synchronize()
+        # two K6 calls, and K4's counter untouched: its phases run inside K6
+        assert (fused_render.fused_render_bwd.launches,
+                fused_mlp.fused_rays_planes_bwd.launches) == (before[0] + 2, before[1])
+        with torch.no_grad():
+            ref = fused_render.fused_render_bwd_reference(kp, ro, rd, vd, z, noise, raw, *g,
+                                                          white)
+            # K6's first half alone: the cotangent of raw, f32 on both sides,
+            # exp/log ulps and the prefix sums' order apart (measured up to
+            # 7.4e-7 on an H100, PERF.md)
+            planes = fused_render._launch_composite_bwd(raw, rd, z, noise, *g, white)
+            want = fused_render.composite_bwd_reference(raw, rd, z, noise, *g, white)
+        planes_err = _rel_l2(planes, want)
+        assert planes_err <= 1e-5, (R, S, planes_err)
+        errs = {name: _rel_l2(got[name], ref[name]) for name in fused_mlp.KP_NAMES}
+        worst = max((e, n) for n, e in errs.items())
+        print(f"K6 W={width} {dtype} white={white} R={R} S={S}: worst leaf {worst[1]} "
+              f"{worst[0]:.3e}, raw cotangent {planes_err:.3e}")  # with -s
+        for name in fused_mlp.KP_NAMES:
+            assert got[name].shape == kp[name].shape, name
+            assert torch.equal(got[name], again[name]), name  # no atomics: bit-identical
+            assert errs[name] <= tol, (R, S, name, errs[name])
+
+
+@pytest.mark.cuda
+def test_fused_render_level_differentiates_through_k6(cuda_device):
+    from nerf_tpu_torch.experimental import fused_render
+
+    cfg = MLPConfig(width=256)
+    mlp = NeRFMLP(cfg, seed=8, device=cuda_device)
+    ro, rd, vd, z, noise = _render_inputs(8, 40, 64, cuda_device)
+    counters = (fused_render.fused_render_fwd, fused_render.fused_render_bwd,
+                fused_mlp.fused_rays_planes, fused_mlp.fused_rays_planes_bwd,
+                fused_mlp.fused_points, fused_mlp.fused_points_bwd)
+    before = [c.launches for c in counters]
+    out = fused_render.fused_render_level(mlp, cfg, PE_P, PE_V, ro, rd, vd, z, noise, True)
+    (out.rgb.square().sum() + out.acc.sum() + out.weights.sum()).backward()
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0, 0, 0]
+    grads = [p.grad for p in mlp.parameters()]
     assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads)

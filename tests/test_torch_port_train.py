@@ -471,9 +471,33 @@ def test_train_runs_on_cpu(tmp_path, no_batching, capsys):
     assert (tmp_path / "tiny" / "args.txt").exists()
 
 
+def test_train_runs_fused_render_on_cpu(tmp_path, monkeypatch):
+    """``--fused_render`` trains: both levels (S = 8 and 16) take the
+    fused-render path, K5/K6's plain versions on the CPU, as nerf_tpu's
+    factory and renderer choose it."""
+    from nerf_tpu_torch.experimental import fused_render
+
+    scene = make_scene(n_train=2, n_test=1, H=12, W=12)
+    cfg = tconfig.NeRFConfig(
+        basedir=str(tmp_path), expname="tiny", netwidth=W, netwidth_fine=W,
+        N_samples=8, N_importance=8, N_rand=32, use_viewdirs=True, white_bkgd=True,
+        raw_noise_std=0.5, fused_render=True, n_iters=3, i_print=1, i_img=0, i_weights=0,
+        i_testset=0, i_video=0, data_axis=1, dataset_type="blender",
+    )
+    assert tfactory.make_model(cfg).fused_render == jfactory.make_model(cfg).fused_render is True
+    calls = []
+    real = fused_render.fused_render_bwd_reference
+    monkeypatch.setattr(fused_render, "fused_render_bwd_reference",
+                        lambda *a: calls.append(a[4].shape[-1]) or real(*a))
+    result = train(cfg, scene, device="cpu")
+    assert [h[0] for h in result.history] == [1, 2, 3]
+    assert all(np.isfinite(h[1]) and np.isfinite(h[2]) for h in result.history)
+    assert calls == [16, 8] * 3  # each step: the fine level's backward, then the coarse's
+
+
 def test_train_raises_on_what_is_not_ported(tmp_path):
     scene = make_scene(n_train=2, n_test=1, H=8, W=8)
-    for kw in (dict(ft_path="x.tar"), dict(i_img=1), dict(fused_render=True), dict(data_axis=2)):
+    for kw in (dict(ft_path="x.tar"), dict(i_img=1), dict(data_axis=2)):
         cfg = tconfig.NeRFConfig(basedir=str(tmp_path), n_iters=2, i_img=0, i_weights=0,
                                  i_testset=0, i_video=0, data_axis=1)
         with pytest.raises(NotImplementedError):
