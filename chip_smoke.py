@@ -8,8 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, one line each (any failure exits non-zero):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles csrc/fused_mlp_fwd.cu (K1, K2), csrc/fused_mlp_bwd.cu
-   (K4, K3) and csrc/fused_render.cu (K5, K6's compositing backward) with
-   nvcc (sm_90a), one process each, at once;
+   (K4, K3), csrc/fused_render.cu (K5, K6's compositing backward) and
+   csrc/probe_overlap.cu (K7) with nvcc (sm_90a), one process each, at once;
 3. kernel: K1 against its plain PyTorch version at the full 8x256 width,
    in f32 and bf16;
 4. render: renders the first 3 poses of the 40-pose orbit at the lego
@@ -55,19 +55,44 @@ compositing in the kernel, K6 its backward), at 64+128 on both levels:
    2 K5 and 2 K6 launches a step and none of K1-K4;
 17. k5_times / k6_times: K5 per chunk (serving) and K6 per step beside
    their bounds, plain versions and library chains.
+The probe path (K7, ``python -m nerf_tpu_torch.tools.probe_overlap``) and
+the user's entry path (``cli.train`` / ``cli.render`` on a blender scene):
+18. probe: each of K7's nine bodies (the script's eight and ``products``)
+   against its plain version at 8x256 on 192 tiles of 128 points (one
+   launch each), then the tool's ``main`` at 786,432 points: 1 + 30
+   launches a body, its time the median of 5 windows of 6, beside its
+   bound and plain version, ``matmul_only`` beside its ``torch.matmul``
+   chain;
+19. cli train: phase 7's teacher views written as an 800x800 RGBA blender
+   scene (6 train, 1 val, 1 test; PNGs through ``write_png``), then
+   ``cli.train.main`` with configs/lego.txt (half_res, 64+128, N_rand
+   4096) for 24 steps with i_print, i_img, i_weights, i_testset, i_video
+   and trace all firing: the [EVAL] lines, a .tar at each i_weights event
+   (named 4 steps ahead after the trace's extra steps, as nerf_tpu does),
+   the test-set PNG, the 40 spiral frames, a trace.json naming K1's and
+   K4's kernels, 2 K1 + 2 K4 launches a step and 10 K1 a frame, nothing
+   else, and a finite, falling loss;
+20. resume / render: the newest .tar holds the trained state; a second
+   ``cli.train.main`` resumes from it (step and learning rate) for 8 more
+   steps, and ``cli.render.main --render_test`` renders the test view from
+   the .tar it saved, with a finite PSNR and the video.
 
-The last two lines are a JSON object of kernel numbers and the
+The last two lines are a JSON object of kernel numbers (K1-K7) and the
 ``{"ok": true, "device": ...}`` result. Weights are random, from seeds.
 The script imports nothing of JAX or of ``nerf_tpu``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -123,16 +148,33 @@ STEP_GRAD_TOL = 5e-2
 # bf16 up to 3.3e-3 (dx); bounds ~4x and ~3x that.
 K3_INPUT_F32_TOL = 2e-3
 K3_INPUT_BF16_TOL = 1e-2
+# K7's bodies against their plain versions, relative to the output's largest
+# magnitude: two bf16 ulps there (an ulp of a value in [2^k, 2^(k+1)) is
+# 2^(k-7)). Both sides round the same operands to bf16 and differ where an
+# f32 sum in another order crosses a rounding edge, which moves one output
+# by an ulp; measured on an H100 up to 6.1e-3 of the largest magnitude
+# (bias_relu, 192 tiles; PERF.md). The bound must stay below the output's
+# input-dependent spread (the mean |out - its column mean|), checked.
+PROBE_TOL_REL = 2.0 ** -6
+PROBE_CHECK_POINTS = 128 * 192  # 192 tiles of 128 points, 128 rays of 192
+# the user's entry path: 24 steps with every cadence firing
+CLI_STEPS, CLI_RESUMED_STEPS = 24, 8
+CLI_CADENCES = {"i_print": 4, "i_img": 8, "i_weights": 12, "i_testset": 24, "i_video": 24}
+TRACE_AT, TRACE_STEPS = 12, 4  # nerf_tpu's trace: 4 more steps at start + 12
+LEGO_CAMERA_ANGLE_X = 0.6911112070083618  # the lego scene's: focal 1111.11 at 800 pixels
+TRACE_KERNELS = ("fwd_bf16", "bwd_tile_bf16", "wgrad_bf16")  # K1's and K4's symbols
 
 
 def counters():
-    """The launch counters of K1-K6, by name."""
+    """The launch counters of K1-K7, by name."""
     from nerf_tpu_torch.experimental import fused_render
     from nerf_tpu_torch.ops import fused_mlp
+    from nerf_tpu_torch.tools import probe_overlap
 
     return {"K1": fused_mlp.fused_rays_planes, "K2": fused_mlp.fused_points,
             "K3": fused_mlp.fused_points_bwd, "K4": fused_mlp.fused_rays_planes_bwd,
-            "K5": fused_render.fused_render_fwd, "K6": fused_render.fused_render_bwd}
+            "K5": fused_render.fused_render_fwd, "K6": fused_render.fused_render_bwd,
+            "K7": probe_overlap.probe}
 
 
 def reset_counts() -> None:
@@ -240,7 +282,7 @@ def main() -> int:
 
     # 2. build (one nvcc per source, all at once)
     t0 = time.perf_counter()
-    sources = ["fused_mlp_fwd", "fused_mlp_bwd", "fused_render"]
+    sources = ["fused_mlp_fwd", "fused_mlp_bwd", "fused_render", "probe_overlap"]
     _build.load_all(sources)
     phase("build", seconds=f"{time.perf_counter() - t0:.1f}", sources=len(sources))
     for name in sources:
@@ -338,6 +380,11 @@ def main() -> int:
     step_grads_phase(train_fr, dev)
     k5, k6 = k56_times(cfg, pe_pts, pe_views, render["rays"], dev)
 
+    # 18.-20. the probe path and the user's entry path
+    k7 = probe_phase(dev)
+    cli = cli_train_phase(train_info["views"])
+    resume_render_phase(cli, dev)
+
     def row(name, source, replaces, launches, err, t):
         return {
             "name": name, "route": "cuda", "source": f"nerf_tpu_torch/csrc/{source}",
@@ -372,6 +419,14 @@ def main() -> int:
         # training step (S=64 + S=192)
         row("fused_render_bwd", "fused_render.cu", "nerf_tpu/experimental/fused_render.py:182",
             train_fr["counts"]["K6"], max(k6_errs), k6),
+        # the probe tool's 9 x (1 + 30) launches; the full body (K1's whole
+        # tile) at 786,432 points: its max abs error, ms, plain ms and bound;
+        # no one PyTorch call computes it (matmul_only's chain: PERF.md)
+        {"name": "probe_overlap", "route": "cuda", "source": "nerf_tpu_torch/csrc/probe_overlap.cu",
+         "replaces": "tools/probe_overlap.py:79,181", "launches": k7["launches"],
+         "max_abs_err": k7["full"]["max_abs_err"], "ms": k7["full"]["ms"],
+         "plain_ms": k7["full"]["plain_ms"], "bound_ms": k7["full"]["bound_ms"],
+         "bound_by": k7["full"]["bound_by"], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -911,7 +966,7 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
                                        f"{worst}, same={same}, raw={same_raw}")
                 after = read_counts()
                 moved = {k: after[k] - before[k] for k in after}
-                if moved != {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 1, "K6": 2}:
+                if moved != {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 1, "K6": 2, "K7": 0}:
                     raise RuntimeError(f"the K5/K6 launch counters moved wrongly: {moved}")
                 if dtype == torch.bfloat16:
                     k5_errs.append(err)
@@ -998,6 +1053,236 @@ def k56_times(cfg, pe_pts, pe_views, rays, dev):
         del raw, g
         torch.cuda.empty_cache()
     return k5, k6
+
+
+def probe_phase(dev):
+    """18. K7's bodies against their plain versions (one launch each), then
+    the probe tool at the script's size. Returns the tool's rows by body and
+    its launch count."""
+    from nerf_tpu_torch.tools import probe_overlap as P
+
+    inp = P.make_inputs(npts=PROBE_CHECK_POINTS, seed=1).to(dev)
+    for body in P.BODIES:
+        before = P.probe.launches
+        out = P.probe(body, inp)
+        torch.cuda.synchronize()
+        if P.probe.launches != before + 1:
+            raise RuntimeError("the K7 launch counter did not move by one")
+        ref = P.probe_reference(body, inp)
+        live = ref[:, :4] if body == "full" else ref  # full's channels 4.. are zeros
+        tol = PROBE_TOL_REL * float(live.abs().max())
+        err = float((out - ref).abs().max())
+        spread = float((live - live.mean(0)).abs().mean())
+        phase("probe", body=body, points=PROBE_CHECK_POINTS, max_abs=f"{err:.3e}",
+              tol=f"{tol:.3e}", rel=f"{err / float(live.abs().max()):.3e}", spread=f"{spread:.3e}")
+        if not bool(torch.isfinite(out).all()) or not err <= tol:
+            raise RuntimeError(f"K7 {body} disagrees with its plain version: {err} > {tol}")
+        if not tol < spread:
+            raise RuntimeError(f"K7 {body}: bound {tol} is not below the spread {spread}")
+        del out, ref
+    torch.cuda.empty_cache()
+    reset_counts()
+    rows = P.main(device=dev)
+    counts = read_counts()
+    check_counts(counts, {"K7": len(P.BODIES) * (1 + P.REPS)}, "the probe tool")
+    by_body = {r["body"]: r for r in rows}
+    for r in rows:
+        tol = PROBE_TOL_REL * r["plain_max_abs"]
+        if not r["max_abs_err"] <= tol:
+            raise RuntimeError(f"K7 {r['body']} at {P.NPTS} points: {r['max_abs_err']} > {tol}")
+    bare = by_body["matmul_only"]["ms"]
+    phase("probe_times", points=P.NPTS, launches=counts["K7"],
+          **{f"{b}_ms": f"{r['ms']:.3f}" for b, r in by_body.items()},
+          **{f"{b}_vs_matmul_only": f"{r['ms'] / bare:.4f}" for b, r in by_body.items()},
+          matmul_chain_ms=f"{by_body['matmul_only']['library_ms']:.3f}")
+    torch.cuda.empty_cache()
+    return {"launches": counts["K7"], **by_body}
+
+
+class Tee:
+    """Copies what is written to it into the real stdout and a buffer."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def run_cli(fn, argv):
+    """fn(argv) on the card (no device argument: the entry point's default),
+    its stdout shown and returned."""
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = fn(argv)
+    torch.cuda.synchronize()
+    return result, tee.text()
+
+
+def write_blender_scene(views, datadir: str) -> None:
+    """Phase 7's 400x400 teacher views as an 800x800 RGBA blender scene:
+    each pixel repeated 2x2 (so half_res's 2x2 mean gives the 8-bit view
+    back), alpha 1, views 0-5 train, 6 val, 7 test, the lego camera angle."""
+    from nerf_tpu_torch.utils.io import write_png
+    from nerf_tpu_torch.utils.metrics import to8b
+
+    splits = {"train": range(0, 6), "val": range(6, 7), "test": range(7, 8)}
+    for split, ids in splits.items():
+        os.makedirs(os.path.join(datadir, split), exist_ok=True)
+        frames = []
+        for k, v in enumerate(ids):
+            rgb = to8b(views.images[v]).repeat(2, 0).repeat(2, 1)
+            rgba = np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], -1)
+            write_png(os.path.join(datadir, split, f"r_{k}.png"), rgba)
+            pose = np.concatenate([views.poses[v], [[0.0, 0.0, 0.0, 1.0]]], 0)
+            frames.append({"file_path": f"./{split}/r_{k}", "transform_matrix": pose.tolist()})
+        with open(os.path.join(datadir, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": LEGO_CAMERA_ANGLE_X, "frames": frames}, f)
+
+
+def cli_argv(root: str, n_iters: int, trace: bool):
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [f"--config={os.path.join(here, 'configs', 'lego.txt')}",
+            f"--datadir={os.path.join(root, 'lego')}", f"--basedir={os.path.join(root, 'logs')}",
+            "--expname=cli", f"--N_rand={N_RAND}", f"--n_iters={n_iters}", "--data_axis=1",
+            f"--trace={trace}"] + [f"--{k}={v}" for k, v in CLI_CADENCES.items()]
+
+
+def cli_train_phase(views):
+    """19. ``cli.train.main`` on a blender scene written from phase 7's
+    teacher views, every cadence and the trace firing."""
+    from nerf_tpu_torch.cli import train as cli_train
+    from nerf_tpu_torch.data.blender import load_blender_scene
+    from nerf_tpu_torch.utils.io import read_png
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    t0 = time.perf_counter()
+    write_blender_scene(views, os.path.join(root, "lego"))
+    scene = load_blender_scene(os.path.join(root, "lego"), half_res=True, testskip=8,
+                               white_bkgd=True)
+    scene_err = float(np.abs(scene.images - views.images).max())
+    if scene.images.shape != (8, H, W, 3) or not scene_err <= 1.0 / 255:
+        raise RuntimeError(f"the written scene does not load back: {scene.images.shape}, {scene_err}")
+    if abs(scene.focal - FOCAL) > 1e-2:
+        raise RuntimeError(f"focal {scene.focal}, the teacher's {FOCAL}")
+    write_s = time.perf_counter() - t0
+
+    reset_counts()
+    t0 = time.perf_counter()
+    result, out = run_cli(cli_train.main, cli_argv(root, CLI_STEPS, trace=True))
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    expdir = os.path.join(root, "logs", "cli")
+    steps = CLI_STEPS + TRACE_STEPS
+    c = CLI_CADENCES
+    frames = (CLI_STEPS // c["i_img"]) + (CLI_STEPS // c["i_testset"]) * 1 + (
+        CLI_STEPS // c["i_video"]) * 40
+    n_chunks = -(-H * W // CHUNK)
+    check_counts(counts, {"K1": 2 * steps + 2 * n_chunks * frames, "K4": 2 * steps},
+                 f"cli.train: {steps} steps and {frames} eval frames")
+    evals = [float(m) for m in re.findall(r"\[EVAL\] Iter: \d+ holdout view 6 PSNR: (\S+)", out)]
+    if len(evals) != CLI_STEPS // c["i_img"] or not np.isfinite(evals).all():
+        raise RuntimeError(f"expected {CLI_STEPS // c['i_img']} holdout evals, got {evals}")
+    # a .tar at each i_weights event, named by state.step: 4 ahead after the trace
+    want_tars = [f"{i + (TRACE_STEPS if i >= TRACE_AT else 0):06d}.tar"
+                 for i in range(c["i_weights"], CLI_STEPS + 1, c["i_weights"])]
+    tars = sorted(f for f in os.listdir(expdir) if f.endswith(".tar"))
+    if tars != want_tars or result.state.step != steps:
+        raise RuntimeError(f"checkpoints {tars} (want {want_tars}), step {result.state.step}")
+    test_png = read_png(os.path.join(expdir, f"testset_{CLI_STEPS:06d}", "000.png"))
+    spiral = [f for f in os.listdir(expdir) if f.startswith(f"cli_spiral_{CLI_STEPS:06d}_rgb")]
+    n_spiral = (40 if spiral and spiral[0].endswith(".mp4") else
+                len(os.listdir(os.path.join(expdir, spiral[0]))) if spiral else 0)
+    if test_png.shape != (H, W, 3) or n_spiral != 40:
+        raise RuntimeError(f"test PNG {test_png.shape}, spiral {spiral} with {n_spiral} frames")
+    with open(os.path.join(expdir, "trace", "trace.json")) as f:
+        trace_text = f.read()
+    trace_kernels = {k: trace_text.count(k) for k in TRACE_KERNELS}
+    if not all(trace_kernels.values()):
+        raise RuntimeError(f"trace.json names no K1/K4 kernel: {trace_kernels}")
+    losses = [h[1] for h in result.history]
+    phase("cli_train", steps=steps, seconds=f"{seconds:.2f}", scene_write_load_s=f"{write_s:.2f}",
+          scene_vs_views_max_abs=f"{scene_err:.2e}", launches=counts, eval_frames=frames,
+          holdout_psnr=[f"{p:.3f}" for p in evals], tars=tars,
+          spiral=f"{spiral[0]} ({n_spiral} frames)", trace_bytes=len(trace_text),
+          trace_kernel_events=trace_kernels, loss_first=f"{losses[0]:.6f}",
+          loss_last=f"{losses[-1]:.6f}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise RuntimeError(f"the loss is not finite and falling: {losses}")
+    return {"root": root, "expdir": expdir, "state": result.state}
+
+
+def resume_render_phase(cli, dev):
+    """20. The newest .tar holds phase 19's final state; ``cli.train.main``
+    resumes from it (step and learning rate); ``cli.render.main
+    --render_test`` renders the test view from the .tar that run saved."""
+    from nerf_tpu_torch.cli import render as cli_render
+    from nerf_tpu_torch.cli import train as cli_train
+    from nerf_tpu_torch.config import load_config
+    from nerf_tpu_torch.models.factory import make_model
+    from nerf_tpu_torch.train.loop import TrainResult
+    from nerf_tpu_torch.train.step import lr_schedule
+    from nerf_tpu_torch.utils import checkpoint
+    from nerf_tpu_torch.utils.io import read_png
+
+    root, expdir, trained = cli["root"], cli["expdir"], cli["state"]
+    start = trained.step
+    argv = cli_argv(root, start + CLI_RESUMED_STEPS, trace=False)
+    cfg = load_config(argv)
+    newest = checkpoint.find_checkpoints(cfg.basedir, cfg.expname)[-1]
+    saved = checkpoint.load_checkpoint(newest, make_model(cfg), cfg.lrate, device=dev)
+    same = saved.step == start and all(
+        torch.equal(a, b) for lvl in ("coarse", "fine")
+        for a, b in zip(saved.nets[lvl].parameters(), trained.nets[lvl].parameters()))
+    same = same and all(
+        torch.equal(saved.optimizer.state[a][k], trained.optimizer.state[b][k])
+        for lvl in ("coarse", "fine")
+        for a, b in zip(saved.nets[lvl].parameters(), trained.nets[lvl].parameters())
+        for k in ("exp_avg", "exp_avg_sq"))
+    if not same:
+        raise RuntimeError(f"{newest} does not hold the trained state")
+    reset_counts()
+    result, _ = run_cli(cli_train.main, argv)
+    resumed_counts = read_counts()
+    # the schedule carried on from the step: the last update used lr(step - 1)
+    last_lr = result.state.optimizer.param_groups[0]["lr"]
+    want_lr = lr_schedule(cfg.lrate, cfg.lrate_decay)(start + CLI_RESUMED_STEPS - 1)
+    first_print = result.history[0][0] if result.history else None
+    every = CLI_CADENCES["i_print"]
+    if result.state.step != start + CLI_RESUMED_STEPS or last_lr != want_lr or \
+            first_print != (start // every + 1) * every:
+        raise RuntimeError(f"the resumed run did not carry on from {newest}: step "
+                           f"{result.state.step}, lr {last_lr} (want {want_lr}), first "
+                           f"print at {first_print}")
+    n_chunks = -(-H * W // CHUNK)
+    evals = sum(1 for i in range(start + 1, start + CLI_RESUMED_STEPS + 1)
+                if i % CLI_CADENCES["i_img"] == 0)
+    check_counts(resumed_counts, {"K1": 2 * CLI_RESUMED_STEPS + 2 * n_chunks * evals,
+                                  "K4": 2 * CLI_RESUMED_STEPS}, "the resumed run")
+
+    reset_counts()
+    rendered, out = run_cli(cli_render.main, argv + ["--render_test"])
+    render_counts = read_counts()
+    check_counts(render_counts, {"K1": 2 * n_chunks}, "cli.render --render_test")
+    psnr = [float(m) for m in re.findall(r"\[EVAL\] mean PSNR over 1 views: (\S+)", out)]
+    savedir = os.path.join(expdir, f"renderonly_test_{rendered.state.step:06d}")
+    png = read_png(os.path.join(savedir, "000.png"))
+    video = sorted(f for f in os.listdir(savedir) if f.startswith("video"))
+    phase("resume_render", newest=os.path.basename(newest), resumed_from=start,
+          first_print=first_print, last_lr=f"{last_lr:.6e}", resumed_launches=resumed_counts,
+          render_step=rendered.state.step, render_launches=render_counts,
+          test_psnr=psnr, png=png.shape, video=video)
+    if not (isinstance(rendered, TrainResult) and rendered.state.step == start + CLI_RESUMED_STEPS
+            and len(psnr) == 1 and np.isfinite(psnr[0]) and png.shape == (H, W, 3) and video):
+        raise RuntimeError("cli.render did not render the test view from the newest .tar")
+    shutil.rmtree(root)
 
 
 if __name__ == "__main__":

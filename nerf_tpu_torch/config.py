@@ -90,7 +90,7 @@ class NeRFConfig:
     process_id: Optional[int] = None
     donate_state: bool = True  # nerf_tpu's jit buffer donation (ignored by the port)
     debug_nan: bool = False  # per-step non-finite loss scan (ref DEBUG, run_nerf.py:24)
-    trace: bool = False  # capture a profiler trace of a few steady steps (not ported)
+    trace: bool = False  # capture a profiler trace of a few steady steps (expdir/trace)
     # nerf_tpu's multi-step lax.scan fusion (ignored by the port; the port's
     # counterpart is a CUDA graph, ROADMAP A.3)
     fuse_steps: int = 50

@@ -233,49 +233,91 @@ struct Seg {
   int K;
 };
 
-// acc[TP x N] = A1 W1 + A2 W2 (f32 accumulators in registers). Warps are
-// laid out 2 (rows, 64 each) x 4 (columns, NT*8 each), N = 32*NT. Ends with
-// a barrier, so the caller may overwrite A1/A2 in place afterwards.
-template <int W, int NT>
-__device__ void mma_layer(Seg s1, Seg s2, bf16* wbuf, float (&acc)[4][NT][4]) {
+// Chunk c (KC wide; the last of s2 may be narrower) of a layer's K range
+// A1 W1 + A2 W2: its segment and first k.
+__device__ __forceinline__ void layer_chunk(const Seg& s1, const Seg& s2, int c, Seg& s, int& k0,
+                                            int& width) {
+  const int c1 = s1.K / KC;
+  if (c < c1) {
+    s = s1;
+    k0 = c * KC;
+    width = KC;
+  } else {
+    s = s2;
+    k0 = (c - c1) * KC;
+    width = min(KC, s2.K - k0);
+  }
+}
+__device__ __forceinline__ int layer_chunks(const Seg& s1, const Seg& s2) {
+  return s1.K / KC + (s2.K + KC - 1) / KC;
+}
+
+// cp.async of a chunk's N weight rows (k0 .. k0+width of Wg^T) into dst
+// (stride ldw), by all THREADS threads, as one commit group.
+template <int W, int N>
+__device__ __forceinline__ void load_chunk(const Seg& s, int k0, int width, bf16* dst) {
   using L = Bf16Smem<W>;
-  constexpr int N = NT * 32;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pieces = width / 8;  // 16-byte pieces per weight row
+  for (int idx = threadIdx.x; idx < N * pieces; idx += THREADS) {
+    const int n = idx / pieces, j = idx - n * pieces;
+    cp_async16(dst + n * L::ldw + j * 8, s.Wg + size_t(n) * s.K + k0 + j * 8);
+  }
+  cp_async_commit();
+}
+
+// acc += one chunk's products: rows wm*64 .. +64 of s.A (k0 .. k0+width)
+// times the chunk's weights wsm in shared memory. Warps are laid out 2
+// (rows, 64 each: wm = warp / 4) x 4 (columns, NT*8 each).
+template <int W, int NT>
+__device__ __forceinline__ void mma_chunk(const Seg& s, int k0, int width, const bf16* wsm,
+                                          float (&acc)[4][NT][4]) {
+  using L = Bf16Smem<W>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int g = lane >> 2, t = lane & 3;
+  for (int kk = 0; kk < width; kk += 16) {
+    uint32_t a[4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      const bf16* ap = s.A + (wm * 64 + mt * 16 + g) * s.lda + k0 + kk + 2 * t;
+      a[mt][0] = ld32(ap);
+      a[mt][1] = ld32(ap + 8 * s.lda);
+      a[mt][2] = ld32(ap + 8);
+      a[mt][3] = ld32(ap + 8 * s.lda + 8);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const bf16* bp = wsm + (wn * NT * 8 + nt * 8 + g) * L::ldw + kk + 2 * t;
+      const uint32_t b0 = ld32(bp), b1 = ld32(bp + 8);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) mma16816(acc[mt][nt], a[mt], b0, b1);
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[4][NT][4]) {
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+}
 
-  const int c1 = s1.K / KC;
-  const int nchunks = c1 + (s2.K + KC - 1) / KC;
-  auto chunk = [&](int c, Seg& s, int& k0, int& width) {
-    if (c < c1) {
-      s = s1;
-      k0 = c * KC;
-      width = KC;
-    } else {
-      s = s2;
-      k0 = (c - c1) * KC;
-      width = min(KC, s2.K - k0);
-    }
-  };
+// acc += the products of chunks 0 .. nchunks-1, chunk(c, s, k0, width)
+// naming each, through a double-buffered cp.async weight ring. Ends with a
+// barrier, so the caller may overwrite the A operands in place afterwards.
+template <int W, int NT, typename Chunk>
+__device__ void mma_chunks(int nchunks, const Chunk& chunk, bf16* wbuf, float (&acc)[4][NT][4]) {
+  using L = Bf16Smem<W>;
+  constexpr int N = NT * 32;
   auto load = [&](int c) {
     Seg s;
     int k0, width;
     chunk(c, s, k0, width);
-    bf16* dst = wbuf + (c & 1) * W * L::ldw;
-    const int pieces = width / 8;  // 16-byte pieces per weight row
-    for (int idx = tid; idx < N * pieces; idx += THREADS) {
-      const int n = idx / pieces, j = idx - n * pieces;
-      cp_async16(dst + n * L::ldw + j * 8, s.Wg + size_t(n) * s.K + k0 + j * 8);
-    }
-    cp_async_commit();
+    load_chunk<W, N>(s, k0, width, wbuf + (c & 1) * W * L::ldw);
   };
-
   load(0);
   for (int c = 0; c < nchunks; ++c) {
     if (c + 1 < nchunks) {
@@ -288,31 +330,25 @@ __device__ void mma_layer(Seg s1, Seg s2, bf16* wbuf, float (&acc)[4][NT][4]) {
     Seg s;
     int k0, width;
     chunk(c, s, k0, width);
-    const bf16* wsm = wbuf + (c & 1) * W * L::ldw;
-    for (int kk = 0; kk < width; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* ap = s.A + (wm * 64 + mt * 16 + g) * s.lda + k0 + kk + 2 * t;
-        a[mt][0] = ld32(ap);
-        a[mt][1] = ld32(ap + 8 * s.lda);
-        a[mt][2] = ld32(ap + 8);
-        a[mt][3] = ld32(ap + 8 * s.lda + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* bp = wsm + (wn * NT * 8 + nt * 8 + g) * L::ldw + kk + 2 * t;
-        const uint32_t b0 = ld32(bp), b1 = ld32(bp + 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma16816(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
+    mma_chunk<W, NT>(s, k0, width, wbuf + (c & 1) * W * L::ldw, acc);
     __syncthreads();
   }
 }
 
-// out[TP x N] = act(acc + bias), rounded to bf16.
-template <int NT>
+// acc[TP x N] = A1 W1 + A2 W2 (f32 accumulators in registers), N = 32*NT,
+// the warps laid out as in mma_chunk. Ends with a barrier.
+template <int W, int NT>
+__device__ void mma_layer(Seg s1, Seg s2, bf16* wbuf, float (&acc)[4][NT][4]) {
+  zero_acc(acc);
+  mma_chunks<W, NT>(
+      layer_chunks(s1, s2),
+      [&](int c, Seg& s, int& k0, int& width) { layer_chunk(s1, s2, c, s, k0, width); }, wbuf,
+      acc);
+}
+
+// out[TP x N] = act(acc + bias), rounded to bf16 (kBias = false: no bias).
+// Each warp writes only its own rows and columns of out.
+template <int NT, bool kBias = true>
 __device__ void epilogue(float (&acc)[4][NT][4], const float* __restrict__ bias, bf16* out,
                          int ldo, bool relu) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -324,9 +360,14 @@ __device__ void epilogue(float (&acc)[4][NT][4], const float* __restrict__ bias,
     for (int nt = 0; nt < NT; ++nt) {
       const int row = wm * 64 + mt * 16 + g;
       const int col = wn * NT * 8 + nt * 8 + 2 * t;
-      const float b0 = bias[col], b1 = bias[col + 1];
-      float v[4] = {acc[mt][nt][0] + b0, acc[mt][nt][1] + b1, acc[mt][nt][2] + b0,
-                    acc[mt][nt][3] + b1};
+      float v[4] = {acc[mt][nt][0], acc[mt][nt][1], acc[mt][nt][2], acc[mt][nt][3]};
+      if (kBias) {
+        const float b0 = bias[col], b1 = bias[col + 1];
+        v[0] += b0;
+        v[1] += b1;
+        v[2] += b0;
+        v[3] += b1;
+      }
       if (relu)
 #pragma unroll
         for (int q = 0; q < 4; ++q) v[q] = fmaxf(v[q], 0.f);

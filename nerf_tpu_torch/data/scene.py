@@ -1,7 +1,7 @@
 """The common Scene structure the dataset loaders emit (host-side numpy).
 
-The loaders themselves are not ported yet; ``render_path`` needs only the
-camera (``hwf``) and the bounds.
+``data/blender.py`` builds one from a blender-format scene on disk; the
+llff, deepvoxels and LINEMOD loaders are not ported yet (ROADMAP A.4).
 """
 
 from __future__ import annotations

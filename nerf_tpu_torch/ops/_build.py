@@ -62,6 +62,10 @@ SIGNATURES = {
         "nerf_fused_render_bwd_planes": (_I, [_P] * 8 + [_I, _I, _I, _P, _P]),
         "nerf_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
+    "probe_overlap": {
+        "nerf_probe_overlap": (_I, [_I, _I, _I] + [_P] * 9),
+        "nerf_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

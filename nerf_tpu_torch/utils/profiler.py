@@ -1,6 +1,9 @@
-"""Train-step throughput and an analytic MFU.
+"""Profiler capture, train-step throughput and an analytic MFU.
 
-Counterpart of nerf_tpu/utils/profiler.py's ``StepTimer``. The FLOP per
+Counterpart of nerf_tpu/utils/profiler.py. ``trace`` captures a block with
+``torch.profiler`` (CPU and CUDA activities: host ops and the card's
+kernels) and writes a Chrome trace, where nerf_tpu writes an XProf one.
+``StepTimer`` is its ``StepTimer``. The FLOP per
 point come from ``ops/fused_mlp.py::flops_per_point`` (nerf_tpu's
 ``mlp_flops_per_point`` counts one trunk layer too few); forward plus
 backward is counted as 3x the forward, nerf_tpu's convention. The peak is
@@ -10,6 +13,8 @@ an unknown card reports no MFU.
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Optional
 
 import torch
@@ -28,6 +33,21 @@ def device_peak_flops(device) -> Optional[float]:
         if key in name:
             return peak
     return None
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Profile the block and write ``logdir/trace.json`` (Chrome trace
+    format; chrome://tracing or Perfetto): ``with trace(d): step(...)``.
+    CUDA activity is recorded where a card is present; the caller
+    synchronises inside the block so the card's work falls in it."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 class StepTimer:

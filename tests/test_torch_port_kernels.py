@@ -351,3 +351,38 @@ def test_fused_render_level_differentiates_through_k6(cuda_device):
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0, 0, 0]
     grads = [p.grad for p in mlp.parameters()]
     assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
+
+
+# K7, the probes of K1's tile (nerf_tpu_torch/tools/probe_overlap.py): each
+# body against its plain version, relative to the output's largest
+# magnitude: two bf16 ulps there (both sides round the same operands; an
+# f32 sum in another order that crosses a rounding edge moves an output by
+# an ulp; measured up to 6.1e-3 of the largest magnitude on an H100,
+# PERF.md), below the output's input-dependent spread; two launches
+# bit-identical.
+PROBE_TOL_REL = 2.0 ** -6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["matmul_only", "bias_relu", "interleaved", "embed_trunk",
+                                  "embed_trunk_il", "embed_notrig", "embed_poly", "full",
+                                  "products"])
+def test_probe_kernel_matches_plain_version(cuda_device, body):
+    from nerf_tpu_torch.tools import probe_overlap as P
+
+    for npts in (3 * 192, 64 * 192):  # a ragged last tile; 96 full tiles
+        inp = P.make_inputs(npts=npts, seed=npts).to(cuda_device)
+        before = P.probe.launches
+        out = P.probe(body, inp)
+        again = P.probe(body, inp)
+        torch.cuda.synchronize()
+        assert P.probe.launches == before + 2
+        ref = P.probe_reference(body, inp)
+        live = ref[:, :4] if body == "full" else ref
+        tol = PROBE_TOL_REL * float(live.abs().max())
+        assert out.shape == ref.shape == (npts, 256)
+        assert torch.equal(out, again)
+        assert float((out - ref).abs().max()) <= tol
+        if body == "full":
+            assert not bool(out[:, 4:].any())
+        assert tol < float((live - live.mean(0)).abs().mean())
