@@ -10,6 +10,8 @@ Phases, one line each (any failure exits non-zero):
 2. build: compiles csrc/fused_mlp_fwd.cu (K1, K2), csrc/fused_mlp_bwd.cu
    (K4, K3), csrc/fused_render.cu (K5, K6's compositing backward) and
    csrc/probe_overlap.cu (K7) with nvcc (sm_90a), one process each, at once;
+   counts the wgmma (HGMMA) and TMA-load (UTMALDG) instructions in the SASS
+   of the backward's weight-grad kernel (cuobjdump) and fails without both;
 3. kernel: K1 against its plain PyTorch version at the full 8x256 width,
    in f32 and bf16;
 4. render: renders the first 3 poses of the 40-pose orbit at the lego
@@ -31,7 +33,10 @@ Phases, one line each (any failure exits non-zero):
 8. grads: one fused step's weight grads against the plain (unfused) path
    on the same batch and draws;
 9. bwd times: K4 at the training shapes beside its bound, its plain
-   version and the backward's big products as bf16 ``torch.matmul``.
+   version and the backward's big products as bf16 ``torch.matmul``; a
+   profiled step of K4 (coarse + fine) split by its launches, and the
+   weight-grad phase (``wgrad_bf16``) beside its own bound and its 10
+   weight-grad products as bf16 ``torch.matmul``.
 The points-in path (K2 forward, K3 backward), at the 63+128 recipe: 63
 coarse samples and 191 fine are not multiples of 8, so both levels query
 points (``query_raw`` -> ``fused_query``) with a view direction per point:
@@ -48,7 +53,10 @@ compositing in the kernel, K6 its backward), at 64+128 on both levels:
 14. kernel5 / grad6: K5 and K6 against their plain versions at 8x256, f32
    and bf16, R=1024 and ragged R=1000, S=64, 192 and 200 (a one-ray
    group), white background on and off, sigma noise on; K6 with one-signed
-   cotangents on all four maps, twice, bit-identical;
+   cotangents on all four maps, twice, bit-identical; and K6's two halves
+   apart: the compositing backward's cotangent of raw against its plain
+   version (f32), and K4's phases on the plain cotangent against the plain
+   weight grads of it;
 15. render: phase 4 with ``fused_render``: 10 K5 launches a frame and no
    other kernel;
 16. train / grads: phases 7 and 8 with ``fused_render`` on the same views:
@@ -134,6 +142,10 @@ K4_F32_TOL = 1e-4  # per-leaf relative L2; sums over points in another order onl
 # measured on an H100 (1.345e-4, W05e at R=1024, S=64; PERF.md), far inside
 # nerf_tpu's 0.05 (tests/test_fused_mlp.py:175-183).
 K4_BF16_TOL = 1e-3
+# K6's compositing half alone, the cotangent of raw, per-tensor relative L2:
+# f32 on both sides, exp/log ulps and the prefix sums' order apart (measured
+# up to 7.4e-7 on an H100; PERF.md)
+COMPOSITE_F32_TOL = 1e-5
 # one fused training step's grads against the plain (unfused) path, per-leaf
 # relative L2: the paths round to bf16 at other places (the plain path rounds
 # the embedding per input, the kernels merge layer 0 with the skip), and the
@@ -163,6 +175,8 @@ CLI_CADENCES = {"i_print": 4, "i_img": 8, "i_weights": 12, "i_testset": 24, "i_v
 TRACE_AT, TRACE_STEPS = 12, 4  # nerf_tpu's trace: 4 more steps at start + 12
 LEGO_CAMERA_ANGLE_X = 0.6911112070083618  # the lego scene's: focal 1111.11 at 800 pixels
 TRACE_KERNELS = ("fwd_bf16", "bwd_tile_bf16", "wgrad_bf16")  # K1's and K4's symbols
+# K4's launches, by kernel name ("Memset": its partials' clear), in order
+K4_LAUNCHES = ("bwd_tile_bf16", "ray_prep", "wgrad_bf16", "reduce_splits", "reduce_tiles", "Memset")
 
 
 def counters():
@@ -209,6 +223,30 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def sass_counts(lib, function: str, opcodes) -> dict:
+    """How often each of ``opcodes`` appears in the SASS of the kernel whose
+    name holds ``function`` in the built library (cuobjdump)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    blocks = [b for b in re.split(r"\n\s*Function : ", text)[1:] if function in b.split("\n", 1)[0]]
+    if len(blocks) != 1:
+        raise RuntimeError(f"{len(blocks)} kernels named {function} in {lib}")
+    return {op: blocks[0].count(op) for op in opcodes}
+
+
+def device_rows(prof):
+    """(device us, kernel name, count) of every device event in a profile."""
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us, evt.key, evt.count))
+    return rows
 
 
 def matmul_chain(kp, n_pts: int):
@@ -289,6 +327,10 @@ def main() -> int:
         for line in _build.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip(), flush=True)
+    sass = sass_counts(_build._lib_path("fused_mlp_bwd"), "wgrad_bf16", ("HGMMA", "UTMALDG"))
+    phase("sass", kernel="wgrad_bf16", **sass)
+    if not all(sass.values()):
+        raise RuntimeError(f"wgrad_bf16 issues no wgmma or no TMA load: {sass}")
 
     # 3. kernel against its plain version at full width
     cfg = MLPConfig(width=WIDTH)
@@ -616,16 +658,10 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str) -> None:
     which forward and backward ran: the two pairs share their kernels' names."""
     # the backward's own workspace memset is one of the step's few "Memset"
     # entries; those stay in "other", so its share reads ~0.01 ms low
-    k4 = ("bwd_tile_bf16", "ray_prep", "wgrad_bf16", "reduce_splits", "reduce_tiles")
+    k4 = K4_LAUNCHES[:-1]
     groups = {fwd: ("render_bf16",) if fwd == "K5" else ("fwd_bf16",),
               bwd: ("composite_bwd",) + k4 if bwd == "K6" else k4}
-    rows = []
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((us, evt.key, evt.count))
+    rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     share = {g: 0.0 for g in list(groups) + ["other"]}
     for us, key, _ in rows:
@@ -669,11 +705,12 @@ def step_grads_phase(info, dev):
         raise RuntimeError(f"fused step grads disagree with the plain path: {leaf} {worst}")
 
 
-def backward_matmul_chain(kp, n_pts: int):
+def backward_matmul_chain(kp, n_pts: int, weight_grads_only: bool = False):
     """The backward's big products as bf16 torch.matmul calls at K4's
     shapes: the forward recompute (W05e, W1..W7, Wf, Wvf), the cotangents
     d·Wᵀ (Wvf, Wf, W7..W1) and the weight grads aᵀ·d (W05e, W1..W7, Wf,
-    Wvf). A library yardstick, timed here only and used nowhere in the port."""
+    Wvf); only the 10 weight grads with ``weight_grads_only``. A library
+    yardstick, timed here only and used nowhere in the port."""
     dev, Wd = kp["W1"].device, kp["W1"].shape[0]
     bf = torch.bfloat16
     e = torch.randn(n_pts, 64, dtype=bf, device=dev)
@@ -684,12 +721,13 @@ def backward_matmul_chain(kp, n_pts: int):
     trunk = [kp[f"W{i}"] for i in range(1, 8)] + [kp["Wf"]]
 
     def run():
-        torch.matmul(e, w05)
-        for w in trunk + [kp["Wvf"]]:
-            torch.matmul(a, w)
-        torch.matmul(ah, kp["Wvf"].T)
-        for w in trunk:
-            torch.matmul(a, w.T)
+        if not weight_grads_only:
+            torch.matmul(e, w05)
+            for w in trunk + [kp["Wvf"]]:
+                torch.matmul(a, w)
+            torch.matmul(ah, kp["Wvf"].T)
+            for w in trunk:
+                torch.matmul(a, w.T)
         torch.matmul(e.T, d05)
         for _ in trunk:
             torch.matmul(a.T, a)
@@ -698,8 +736,29 @@ def backward_matmul_chain(kp, n_pts: int):
     return run
 
 
+def launch_split(fn, names, reps: int = 3):
+    """Device ms per call of ``fn`` by kernel: the kernels whose names hold
+    one of ``names``, and the rest as "other", from a torch.profiler window
+    over ``reps`` calls after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {k: 0.0 for k in list(names) + ["other"]}
+    for us, key, _ in device_rows(prof):
+        split[next((k for k in names if k in key), "other")] += us / 1e3 / reps
+    return split
+
+
 def k4_times(cfg, pe_pts, pe_views, dev):
-    """9. K4 at the training shapes: one coarse and one fine launch a step."""
+    """9. K4 at the training shapes: one coarse and one fine launch a step.
+    Then a profiled step of both launches split by K4's kernels, and the
+    weight-grad phase (``wgrad_bf16``) beside its own bound (each workspace
+    row and per-ray row read once, the grads written once) and its 10
+    weight-grad products as bf16 torch.matmul. Returns K4's numbers per step."""
     from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
     from nerf_tpu_torch.ops import fused_mlp
 
@@ -711,16 +770,22 @@ def k4_times(cfg, pe_pts, pe_views, dev):
         kp[n].numel() for n in ("W1", "W2", "W3", "W4", "W5", "W6", "W7", "Wf", "Wvf"))
     gbytes = 4 * sum(v.numel() for v in kp.values())
     rng = np.random.default_rng(5)
-    out = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
+    zero = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
+    out, wgrad = dict(zero), dict(zero)
+    step = []
     for S in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE):
         rays = make_rays(rng, N_RAND, S, dev)
         g = torch.rand(4, N_RAND, S, device=dev) * 1e-4
+        step.append((rays, g))
         n_pts = N_RAND * S
         ms = cuda_ms(lambda: fused_mlp.fused_rays_planes_bwd(kp, *rays, g, blobs), reps=10, warmup=2)
         plain_ms = cuda_ms(lambda: fused_mlp.fused_rays_planes_bwd_reference(kp, *rays, g), reps=2)
         torch.cuda.empty_cache()
         chain = backward_matmul_chain(kp, n_pts)
         library_ms = cuda_ms(chain, reps=5)
+        del chain
+        chain = backward_matmul_chain(kp, n_pts, weight_grads_only=True)
+        wgrad["library_ms"] += cuda_ms(chain, reps=5)
         del chain
         torch.cuda.empty_cache()
         flops = fused_mlp.bwd_flops(cfg, pe_pts, pe_views, N_RAND, S)
@@ -733,8 +798,26 @@ def k4_times(cfg, pe_pts, pe_views, dev):
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("ops_ms", ops_ms),
                      ("bytes_ms", bytes_ms), ("library_ms", library_ms)):
             out[k] += v
-    return out
+        wgrad["ops_ms"] += 1e3 * fused_mlp.wgrad_flops(cfg, pe_pts, pe_views, N_RAND, S) / PEAK_BF16_FLOPS
+        rows_bytes = n_pts * fused_mlp.wgrad_bytes_per_point(cfg) + \
+            N_RAND * 2 * (fused_mlp.KV + cfg.width // 2)
+        wgrad["bytes_ms"] += 1e3 * (rows_bytes + gbytes) / PEAK_BYTES
 
+    def k4_step():
+        for rays, g in step:
+            fused_mlp.fused_rays_planes_bwd(kp, *rays, g, blobs)
+
+    split = launch_split(k4_step, K4_LAUNCHES)
+    wgrad["ms"] = split["wgrad_bf16"]
+    bound = max(wgrad["ops_ms"], wgrad["bytes_ms"])
+    phase("k4_split", per="step (S=64 + S=192)", **{f"{k}_ms": f"{v:.3f}" for k, v in split.items()},
+          device_ms=f"{sum(split.values()):.3f}")
+    phase("wgrad_times", ms=f"{wgrad['ms']:.3f}", bound_ms=f"{bound:.3f}",
+          bound_by="operations" if wgrad["ops_ms"] >= wgrad["bytes_ms"] else "bytes",
+          ops_ms=f"{wgrad['ops_ms']:.3f}", bytes_ms=f"{wgrad['bytes_ms']:.3f}",
+          library_ms=f"{wgrad['library_ms']:.3f}", x_bound=f"{wgrad['ms'] / bound:.3f}",
+          x_library=f"{wgrad['ms'] / wgrad['library_ms']:.3f}")
+    return out
 
 
 def ray_points(rng, R: int, S: int, spr: int, dev):
@@ -931,6 +1014,7 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
               for R in (CHECK_RAYS, RAGGED_RAYS)]
     gen = torch.Generator(device=dev).manual_seed(5)
     k5_errs, k6_errs = [], []
+    halves = {"float32": [], "bfloat16": []}  # (K6 worst leaf, raw cotangent, K4's phases)
     for dtype, tol, wtol in ((torch.float32, F32_TOL, K4_F32_TOL),
                              (torch.bfloat16, BF16_TOL, K4_BF16_TOL)):
         dname = str(dtype).split(".")[-1]
@@ -954,16 +1038,35 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
                 gref = fused_render.fused_render_bwd_reference(kp, *rays, noise, out.raw, *g,
                                                                white)
                 worst, leaf = max((rel_l2(got[n], gref[n]), n) for n in fused_mlp.KP_NAMES)
+                # K6's halves apart (ROADMAP C.2), no launch counted: the
+                # compositing backward's cotangent of raw against its plain
+                # version, both f32; K4's phases on the plain cotangent
+                # against the plain weight grads of that cotangent
+                planes = fused_render._launch_composite_bwd(out.raw, rays[1], rays[3], noise, *g,
+                                                            white)
+                want = fused_render.composite_bwd_reference(out.raw, rays[1], rays[3], noise, *g,
+                                                            white)
+                half = fused_mlp._launch_bwd(kp, *rays, want, None)
+                half_ref = fused_mlp.fused_rays_planes_bwd_reference(kp, *rays, want)
+                planes_err = rel_l2(planes, want)
+                half_worst, half_leaf = max((rel_l2(half[n], half_ref[n]), n)
+                                            for n in fused_mlp.KP_NAMES)
+                halves[dname].append((worst, planes_err, half_worst))
                 max_abs = max(float((got[n] - gref[n]).abs().max()) for n in fused_mlp.KP_NAMES)
                 same = all(torch.equal(got[n], again[n]) for n in fused_mlp.KP_NAMES)
                 finite = all(bool(torch.isfinite(got[n]).all()) for n in fused_mlp.KP_NAMES)
                 phase("grad6", dtype=dname, R=R, S=S, white=white,
                       worst_leaf_rel_l2=f"{worst:.3e}", leaf=leaf, tol=wtol,
-                      max_abs=f"{max_abs:.3e}", bit_identical=same, raw_is_k1=same_raw)
-                if not (finite and same and same_raw and worst <= wtol):
-                    raise RuntimeError(f"K6 disagrees with its plain version or is not "
-                                       f"deterministic, or K5's raw is not K1's: {leaf} "
-                                       f"{worst}, same={same}, raw={same_raw}")
+                      max_abs=f"{max_abs:.3e}", bit_identical=same, raw_is_k1=same_raw,
+                      raw_cotangent_rel_l2=f"{planes_err:.3e}",
+                      k4_phases_on_plain_cotangent_rel_l2=f"{half_worst:.3e}",
+                      k4_phases_leaf=half_leaf)
+                if not (finite and same and same_raw and worst <= wtol and half_worst <= wtol
+                        and planes_err <= COMPOSITE_F32_TOL):
+                    raise RuntimeError(f"K6 or one of its halves disagrees with its plain "
+                                       f"version, or K6 is not deterministic, or K5's raw is "
+                                       f"not K1's: {leaf} {worst}, raw cotangent {planes_err}, "
+                                       f"K4's phases {half_worst}, same={same}, raw={same_raw}")
                 after = read_counts()
                 moved = {k: after[k] - before[k] for k in after}
                 if moved != {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 1, "K6": 2, "K7": 0}:
@@ -971,8 +1074,12 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
                 if dtype == torch.bfloat16:
                     k5_errs.append(err)
                     k6_errs.append(max_abs)
-                del out, ref, got, again, gref
+                del out, ref, got, again, gref, planes, want, half, half_ref
             torch.cuda.empty_cache()
+    for dname, rows in halves.items():  # the largest of each over the cases
+        k6, planes, k4 = (max(col) for col in zip(*rows))
+        phase("k6_halves", dtype=dname, k6_worst_leaf_rel_l2=f"{k6:.3e}",
+              raw_cotangent_rel_l2=f"{planes:.3e}", k4_phases_on_plain_cotangent_rel_l2=f"{k4:.3e}")
     return k5_errs, k6_errs
 
 

@@ -23,8 +23,8 @@
 //   d_ev = bf16(sum over a view's points of d_hv) Wve^T,  dv = embed_row_backward(v, d_ev)
 // (_mlp_backward_math; bias grads sum the unrounded f32 cotangents, as
 // there). Two instantiations, as the forward's: bf16 operands with f32
-// accumulation on mma.sync m16n8k16, and true f32 FMA loops (no TF32) that
-// isolate indexing faults from rounding.
+// accumulation (mma.sync m16n8k16 in phase 1, wgmma in phase 3), and true
+// f32 FMA loops (no TF32) that isolate indexing faults from rounding.
 //
 // Bound: the recompute (the forward without the rgb/alpha head), the
 // activation cotangents and the weight grads are 3,484,416 FLOP per point at
@@ -52,17 +52,37 @@
 //     dWve, then d_ev and dv. With a direction per point (spr = 1) phase 1
 //     writes the view embedding to the workspace and computes d_ev and dv
 //     itself, and dWve is one more product over points.
-//  3. Every weight grad is a product a^T d over all points: one launch takes
-//     all 14 of them as split-K tiles (128 x 128, or 128 x 32 for dWout's 4
-//     columns) reading the workspace rows with cp.async, each split writing
-//     its own partial. Two reduction kernels then sum the splits and the
-//     tiles' bias sums in a fixed order. No float atomics: two launches on
-//     the same inputs give bit-identical grads.
+//  3. Every weight grad is a product a^T d over all points: one launch
+//     (wgrad_bf16) takes all 14 of them as a Hopper GEMM that reads the
+//     workspace rows once. A CTA owns a 128-row tile of one product's C at
+//     its full width (N <= 256; 8 for dWout's 4 columns, 128 for dWvf and
+//     dWve), so an A row is read once and a B row once per 128 rows of C.
+//     Warp specialised, 384 threads: a producer warpgroup (one thread
+//     issuing, registers given up with setmaxnreg) streams 64-point K chunks
+//     of A and B by TMA (cp.async.bulk.tensor, tensor maps over the
+//     workspace and the per-ray rows, boxes of 64 points x 64 rows with the
+//     128-byte swizzle) into a 4-stage ring of 48 KB stages, each behind an
+//     mbarrier that counts the bytes; two consumer warpgroups (one when C
+//     has <= 64 rows) each run wgmma m64nNk16 from the swizzled tiles into
+//     64 x N f32 accumulators and free a stage on a second mbarrier. The
+//     points are split so that no split sums more than 16,384 points in one
+//     accumulator chain (up to 64 splits) and the grid fills whole waves of
+//     the 132 SMs as nearly as the shapes allow (the shapes alone fix the
+//     count); each split writes its own partial, and two reduction kernels
+//     then sum the splits and the tiles' bias sums in a fixed order. No
+//     float atomics: two launches on the same inputs give bit-identical
+//     grads. The f32 instantiation keeps a plain 64 x 64 FMA tile
+//     (wgrad_f32).
+//     Phase 3 alone is bound by bytes: it must read every workspace row
+//     once, 4,936 bf16 rows = 9,872 B a point at 8x256 in ray mode
+//     (1,181,696 FLOP a point), so >= 0.77 ms coarse and >= 2.32 ms fine at
+//     3.35 TB/s.
 // Padded points carry a zero cotangent, so they add nothing to any sum.
-// This is the simple first version; wgmma, TMA and keeping the activations
-// on chip are later work.
+// Phase 1 is still mma.sync through the workspace; wgmma there and keeping
+// the activations on chip are later work.
 
 #include "fused_mlp_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -601,14 +621,18 @@ __global__ void ray_prep(const float* __restrict__ vd, const float* __restrict__
 // ------------------------------------------------------------- weight grads
 
 // One weight grad C[M][N] = A^T B summed over k: A rows [M][k_len] and B
-// rows [N][k_len] (workspace rows, stride lda), C rows of stride ldc. Split
-// s sums k in [s*split_len, (s+1)*split_len) into its own partial slice.
+// rows [N][k_len] (rows of the workspace or of ray_prep's per-ray rows, of
+// stride lda), C rows of stride ldc. Split s sums k in [s*split_len,
+// (s+1)*split_len) into its own partial slice. The bf16 launch reads A and
+// B through tensor maps (src: 0 the workspace, 1 the per-ray rows) at rows
+// ra and rb; the f32 launch through the pointers.
 struct Prob {
   const void* A;
   const void* B;
   float* C;
   int M, N, lda, ldc, k_len;
-  int mtiles, ntiles, nsplit, cta0, narrow;
+  int ra, rb, src, bn;  // bf16: rows in the map, which map, the tile's width (8, 128, 256)
+  int mtiles, ntiles, nsplit, cta0;
 };
 constexpr int MAXP = 16;
 struct Probs {
@@ -625,104 +649,121 @@ __device__ __forceinline__ const Prob& find_prob(const Probs& P, int& local) {
   return P.p[pi];
 }
 
-constexpr int GM = 128, GK = 64, GLD = GK + 8;  // bf16 tile: 128 rows, K chunks of 64
-constexpr size_t WGRAD_SMEM = size_t(2) * 2 * GM * GLD * 2;
+// The bf16 launch: one CTA a (problem, split, 128-row tile of C), C's full
+// width N <= 256 in one tile, so each A row is read once and each B row
+// once per 128 rows of C (twice for the 256-row products; the two tiles
+// are neighbours in the grid and meet in L2). Warpgroup 0 is the producer:
+// one thread keeps a 4-stage ring of 64-point K chunks filled by TMA (A:
+// 128 rows, or 64 when M <= 64; B: N rows, one 8-row box for dWout's 4
+// columns), each stage behind a `full` mbarrier that counts the bytes. The
+// consumer warpgroups 1 and 2 own 64 rows of C each (only 1 when M <= 64)
+// and run wgmma m64nNk16 x 4 a chunk from the swizzled tiles, then free the
+// stage on its `empty` mbarrier (one arrival a warp). Rows and columns of
+// the accumulator beyond M or N are computed (from zeros past the tensor's
+// edge, or neighbouring rows) and never stored.
+constexpr int WG_THREADS = 384;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 128 x 40 + 256 x 232 = 384 x 168
+constexpr int GM = 128, GK = 64, STAGES = 4;
+constexpr int BOX = 64;                         // rows of a TMA box (64 x 128 bytes)
+constexpr size_t BOX_BYTES = size_t(BOX) * GK * 2;
+constexpr size_t A_STAGE = size_t(GM) * GK * 2;   // 16 KB
+constexpr size_t B_STAGE = size_t(256) * GK * 2;  // 32 KB
+constexpr size_t WGRAD_SMEM = 1024 + STAGES * (A_STAGE + B_STAGE) + 2 * STAGES * sizeof(uint64_t);
+static_assert(A_STAGE % 1024 == 0 && B_STAGE % 1024 == 0, "swizzled tiles on 1024-byte bounds");
+static_assert(WGRAD_SMEM <= 232448, "the ring fits in an SM's shared memory");
 
-// A 128 x (32*NT) tile of C over one split, on mma.sync: warps 2 (rows, 64
-// each) x 4 (columns, 8*NT each), double-buffered cp.async chunks. Rows of
-// A or B beyond M or N are not loaded; they only touch C entries that are
-// not stored.
-template <int NT>
-__device__ void wgrad_tile(const Prob& P, int split, int mi, int ni, int split_len,
-                           size_t split_stride, bf16* As, bf16* Bs) {
-  constexpr int GN = NT * 32;
-  const bf16* A = static_cast<const bf16*>(P.A);
-  const bf16* B = static_cast<const bf16*>(P.B);
-  const int m0 = mi * GM, n0 = ni * GN;
-  const int k_begin = split * split_len;
-  const int nchunks = (min(P.k_len, k_begin + split_len) - k_begin) / GK;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-  float acc[4][NT][4];
+template <int BN>
+__device__ void wgrad_consume(const Prob& P, int split, int mi, int w, int nchunks,
+                              size_t split_stride, const unsigned char* ring, uint64_t* full,
+                              uint64_t* empty) {
+  float acc[BN / 2];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-
-  auto load = [&](int c) {
-    const int k0 = k_begin + c * GK;
-    bf16* as = As + (c & 1) * GM * GLD;
-    bf16* bs = Bs + (c & 1) * GM * GLD;
-    for (int idx = tid; idx < GM * 8; idx += THREADS) {
-      const int r = idx >> 3, j = idx & 7;
-      if (m0 + r < P.M) cp_async16(as + r * GLD + j * 8, A + size_t(m0 + r) * P.lda + k0 + j * 8);
-      if (r < GN && n0 + r < P.N)
-        cp_async16(bs + r * GLD + j * 8, B + size_t(n0 + r) * P.lda + k0 + j * 8);
-    }
-    cp_async_commit();
-  };
-
-  if (nchunks > 0) load(0);
+  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+  const int lane = threadIdx.x & 31;
   for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks) {
-      load(c + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    const int s = c % STAGES;
+    hopper::mbar_wait(&full[s], (c / STAGES) & 1);
+    const unsigned char* a = ring + s * (A_STAGE + B_STAGE) + size_t(w) * BOX_BYTES;
+    const unsigned char* b = ring + s * (A_STAGE + B_STAGE) + A_STAGE;
+    const uint64_t da = hopper::desc_k_sw128(a), db = hopper::desc_k_sw128(b);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < GK / 16; ++k) {
+      if constexpr (BN == 256) hopper::wgmma_m64n256k16(acc, da + 2 * k, db + 2 * k);
+      else if constexpr (BN == 128) hopper::wgmma_m64n128k16(acc, da + 2 * k, db + 2 * k);
+      else hopper::wgmma_m64n8k16(acc, da + 2 * k, db + 2 * k);
     }
-    __syncthreads();
-    const bf16* as = As + (c & 1) * GM * GLD;
-    const bf16* bs = Bs + (c & 1) * GM * GLD;
-#pragma unroll
-    for (int kk = 0; kk < GK; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* ap = as + (wm * 64 + mt * 16 + g) * GLD + kk + 2 * t;
-        a[mt][0] = ld32(ap);
-        a[mt][1] = ld32(ap + 8 * GLD);
-        a[mt][2] = ld32(ap + 8);
-        a[mt][3] = ld32(ap + 8 * GLD + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* bp = bs + (wn * NT * 8 + nt * 8 + g) * GLD + kk + 2 * t;
-        const uint32_t b0 = ld32(bp), b1 = ld32(bp + 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma16816(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-    __syncthreads();
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
+  // the accumulator fragment (hopper.cuh) to this split's partial
+  const int t = threadIdx.x & 127;
+  const int row = mi * GM + w * 64 + 16 * (t >> 5) + ((t & 31) >> 2);
   float* C = P.C + size_t(split) * split_stride;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int m = m0 + wm * 64 + mt * 16 + g + (q >> 1) * 8;
-        const int n = n0 + wn * NT * 8 + nt * 8 + 2 * t + (q & 1);
-        if (m < P.M && n < P.N) C[size_t(m) * P.ldc + n] = acc[mt][nt][q];
-      }
+  for (int j = 0; j < BN / 2; j += 2) {
+    const int m = row + 8 * ((j >> 1) & 1);
+    const int n = 8 * (j >> 2) + 2 * (t & 3);
+    if (m < P.M && n < P.N)  // N is even: the pair is in or out together
+      *reinterpret_cast<float2*>(C + size_t(m) * P.ldc + n) = make_float2(acc[j], acc[j + 1]);
+  }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) wgrad_bf16(const Probs P) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + 2 * GM * GLD;
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgrad_bf16(const __grid_constant__ CUtensorMap ws_map, const __grid_constant__ CUtensorMap ws8_map,
+           const __grid_constant__ CUtensorMap rws_map, const Probs P) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * (A_STAGE + B_STAGE));
+  uint64_t* empty = full + STAGES;
   int local;
   const Prob& pr = find_prob(P, local);
-  const int per = pr.mtiles * pr.ntiles;
-  const int split = local / per, rem = local - split * per;
-  const int mi = rem / pr.ntiles, ni = rem - mi * pr.ntiles;
-  if (pr.narrow)
-    wgrad_tile<1>(pr, split, mi, ni, P.split_len, P.split_stride, As, Bs);
-  else
-    wgrad_tile<4>(pr, split, mi, ni, P.split_len, P.split_stride, As, Bs);
+  const int split = local / pr.mtiles, mi = local - split * pr.mtiles;
+  const int k_begin = split * P.split_len;
+  const int nchunks = (min(pr.k_len, k_begin + P.split_len) - k_begin) / GK;  // k_len % 64 == 0
+  const int nwg = pr.M - mi * GM > 64 ? 2 : 1;  // consumer warpgroups with rows to own
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * nwg);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {  // producer
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      const CUtensorMap* amap = pr.src ? &rws_map : &ws_map;
+      const CUtensorMap* bmap = pr.bn == 8 ? &ws8_map : amap;
+      const int bboxes = pr.bn == 8 ? 1 : pr.bn / BOX;
+      const uint32_t bytes = uint32_t(nwg * BOX_BYTES) + (pr.bn == 8 ? 8u * GK * 2 : uint32_t(bboxes * BOX_BYTES));
+      for (int c = 0; c < nchunks; ++c) {
+        const int s = c % STAGES;
+        if (c >= STAGES) hopper::mbar_wait(&empty[s], ((c / STAGES) - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&full[s], bytes);
+        unsigned char* a = ring + s * (A_STAGE + B_STAGE);
+        const int k = k_begin + c * GK;
+        for (int i = 0; i < nwg; ++i)
+          hopper::tma_load_2d(a + i * BOX_BYTES, amap, &full[s], k, pr.ra + mi * GM + i * BOX);
+        for (int i = 0; i < bboxes; ++i)
+          hopper::tma_load_2d(a + A_STAGE + i * BOX_BYTES, bmap, &full[s], k, pr.rb + i * BOX);
+      }
+    }
+  } else {  // consumers
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int w = wg - 1;
+    if (w < nwg) {
+      if (pr.bn == 256)
+        wgrad_consume<256>(pr, split, mi, w, nchunks, P.split_stride, ring, full, empty);
+      else if (pr.bn == 128)
+        wgrad_consume<128>(pr, split, mi, w, nchunks, P.split_stride, ring, full, empty);
+      else
+        wgrad_consume<8>(pr, split, mi, w, nchunks, P.split_stride, ring, full, empty);
+    }
+  }
 }
 
 constexpr int FM = 64, FK = 32;  // f32 tile: 64 x 64, K chunks of 32
@@ -805,6 +846,39 @@ struct Plan {
 };
 
 template <typename T, int W>
+Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int split_len);
+
+constexpr int SMS = 132;  // the H100 SXM's SMs: the split count fills whole waves of them
+// Points a split sums in one f32 accumulator chain, in 64-point chunks. The
+// chain's rounding grows with its length: 11 splits of 71,552 points at the
+// fine level of a training step put K4's worst bf16 leaf 8x further from
+// its plain version than 64 splits of 12,288 (PERF.md).
+constexpr int MAX_SPLIT_CHUNKS = 256;
+
+// Splits of the bf16 weight-grad launch for `tiles` CTAs a split over
+// nchunks 64-point chunks: at most 64 (the partials' memory), at least
+// enough for MAX_SPLIT_CHUNKS a split where 64 allow it, and at least 8
+// chunks a split; within that the least s whose grid fills its waves over
+// the SMs to 95%, else the fullest. The shapes alone fix it, so two
+// launches sum in the same order.
+int hopper_splits(int tiles, int nchunks) {
+  const int smin = min(64, (nchunks + MAX_SPLIT_CHUNKS - 1) / MAX_SPLIT_CHUNKS);
+  const int smax = max(smin, min(64, nchunks / 8));
+  int best = smin;
+  double best_fill = 0.0;
+  for (int s = smin; s <= smax; ++s) {
+    const int ctas = tiles * s;
+    const double fill = double(ctas) / (double((ctas + SMS - 1) / SMS) * SMS);
+    if (fill >= 0.95) return s;
+    if (fill > best_fill) {
+      best_fill = fill;
+      best = s;
+    }
+  }
+  return best;
+}
+
+template <typename T, int W>
 Plan make_plan(int n_pts, int spr) {
   Plan p;
   p.tile = sizeof(T) == 2 ? TP : TP32;
@@ -814,8 +888,18 @@ Plan make_plan(int n_pts, int spr) {
   p.ntiles = p.n_pad / p.tile;
   p.n_rays = n_pts / spr;
   p.rpad = p.dense ? 0 : (p.n_rays + 63) / 64 * 64;  // the per-ray rows of ray_prep
-  const int target = max(1, min(64, p.n_pad / 8192));
-  p.split_len = ((p.n_pad + target - 1) / target + 63) / 64 * 64;
+  const int nchunks = p.n_pad / 64;
+  int target;
+  if (sizeof(T) == 2) {  // the CTAs a split over the points (the per-ray problem aside)
+    const Probs one = make_probs<T, W>(p, nullptr, nullptr, nullptr, p.n_pad);
+    int tiles = 0;
+    for (int i = 0; i < one.count; ++i)
+      if (one.p[i].src == 0) tiles += one.p[i].mtiles * one.p[i].ntiles;
+    target = hopper_splits(tiles, nchunks);
+  } else {
+    target = max(1, min(64, p.n_pad / 8192));
+  }
+  p.split_len = (nchunks + target - 1) / target * 64;
   p.nsplit = (p.n_pad + p.split_len - 1) / p.split_len;
   size_t o = 0;
   p.ws = o;
@@ -832,48 +916,52 @@ Plan make_plan(int n_pts, int spr) {
   return p;
 }
 
+// The 14 weight-grad products. bf16: 128-row tiles of C at its full width
+// (bn = 8, 128 or 256 columns); f32: 64 x 64 tiles.
 template <typename T, int W>
-Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int mtile, int ntile,
-                 int ntile_narrow) {
+Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int split_len) {
   using R = WsRows<W>;
   using G = GLayout<W>;
+  constexpr bool hop = sizeof(T) == 2;
   Probs P;
   P.count = 0;
-  P.split_len = pl.split_len;
+  P.split_len = split_len;
   P.split_stride = G::size;
   int cta = 0;
-  auto add = [&](const T* base, size_t ld, int k_len, int ra, int M, int rb, int N, size_t coff,
-                 int ldc) {
+  auto add = [&](int src, int k_len, int ra, int M, int rb, int N, size_t coff, int ldc) {
+    const T* base = src ? rws : ws;
+    const size_t ld = src ? pl.rpad : pl.n_pad;
     Prob& q = P.p[P.count++];
-    q.A = base + size_t(ra) * ld;
-    q.B = base + size_t(rb) * ld;
-    q.C = wpart + coff;
+    q.A = base == nullptr ? nullptr : base + size_t(ra) * ld;
+    q.B = base == nullptr ? nullptr : base + size_t(rb) * ld;
+    q.C = wpart == nullptr ? nullptr : wpart + coff;
     q.M = M;
     q.N = N;
     q.lda = int(ld);
     q.ldc = ldc;
     q.k_len = k_len;
-    q.narrow = N <= ntile_narrow;
-    const int nt = q.narrow ? ntile_narrow : ntile;
-    q.mtiles = (M + mtile - 1) / mtile;
-    q.ntiles = (N + nt - 1) / nt;
-    q.nsplit = (k_len + pl.split_len - 1) / pl.split_len;
+    q.ra = ra;
+    q.rb = rb;
+    q.src = src;
+    q.bn = hop ? (N <= 8 ? 8 : N <= 128 ? 128 : 256) : FM;
+    q.mtiles = (M + (hop ? GM : FM) - 1) / (hop ? GM : FM);
+    q.ntiles = hop ? 1 : (N + FM - 1) / FM;
+    q.nsplit = (k_len + split_len - 1) / split_len;
     q.cta0 = cta;
     cta += q.mtiles * q.ntiles * q.nsplit;
   };
-  const size_t ldp = pl.n_pad;
   const int K = pl.n_pad;
-  add(ws, ldp, K, R::e, KE, R::d(0), W, G::w05, 2 * W);      // dW05e[:, :W]
-  add(ws, ldp, K, R::e, KE, R::d(5), W, G::w05 + W, 2 * W);  // dW05e[:, W:]
-  for (int i = 1; i < 8; ++i) add(ws, ldp, K, R::h(i - 1), W, R::d(i), W, G::wi(i), W);
-  add(ws, ldp, K, R::h(7), W, R::dfeat, W, G::wf, W);
-  add(ws, ldp, K, R::feat, W, R::dhv, W / 2, G::wvf, W / 2);
-  add(ws, ldp, K, R::hv, W / 2, R::gc, 4, G::wout, 4);                       // dWout[:W/2]
-  add(ws, ldp, K, R::h(7), W, R::gc, 4, G::wout + size_t(W / 2) * 4, 4);  // dWout[W/2:]
+  add(0, K, R::e, KE, R::d(0), W, G::w05, 2 * W);      // dW05e[:, :W]
+  add(0, K, R::e, KE, R::d(5), W, G::w05 + W, 2 * W);  // dW05e[:, W:]
+  for (int i = 1; i < 8; ++i) add(0, K, R::h(i - 1), W, R::d(i), W, G::wi(i), W);
+  add(0, K, R::h(7), W, R::dfeat, W, G::wf, W);
+  add(0, K, R::feat, W, R::dhv, W / 2, G::wvf, W / 2);
+  add(0, K, R::hv, W / 2, R::gc, 4, G::wout, 4);                       // dWout[:W/2]
+  add(0, K, R::h(7), W, R::gc, 4, G::wout + size_t(W / 2) * 4, 4);  // dWout[W/2:]
   if (pl.dense)  // dWve = ev^T bf16(d_hv) over points
-    add(ws, ldp, K, R::ev, KV, R::dhv, W / 2, G::wve, W / 2);
+    add(0, K, R::ev, KV, R::dhv, W / 2, G::wve, W / 2);
   else  // over rays, from ray_prep's rows
-    add(rws, pl.rpad, pl.rpad, 0, KV, KV, W / 2, G::wve, W / 2);
+    add(1, pl.rpad, 0, KV, KV, W / 2, G::wve, W / 2);
   P.p[P.count].cta0 = cta;  // one past the last problem: the grid size
   return P;
 }
@@ -901,7 +989,6 @@ cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts,
   const size_t ldp = pl.n_pad;
 
   NERF_CHECK(cudaMemsetAsync(wpart, 0, size_t(pl.nsplit) * GLayout<W>::size * 4, s));
-  Probs P;
   if (sizeof(T) == 2) {
     const size_t smem = BwdSmem<W>::bytes;
     NERF_CHECK(cudaFuncSetAttribute(bwd_tile_bf16<In, W>,
@@ -910,7 +997,6 @@ cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts,
         in, g, gsc, gsp, pl.n_pts, Fp, Fv, reinterpret_cast<const bf16*>(wb),
         reinterpret_cast<const bf16*>(wt), bblob, reinterpret_cast<bf16*>(ws), ldp, dhv32, bpart,
         dx, dv);
-    P = make_probs<T, W>(pl, ws, rws, wpart, GM, 128, 32);
   } else {
     const size_t smem = BwdSmem32<W>::bytes;
     NERF_CHECK(cudaFuncSetAttribute(bwd_tile_f32<In, W>,
@@ -919,7 +1005,6 @@ cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts,
         in, g, gsc, gsp, pl.n_pts, Fp, Fv, reinterpret_cast<const float*>(wb),
         reinterpret_cast<const float*>(wt), bblob, reinterpret_cast<float*>(ws), ldp, dhv32,
         bpart, dx, dv);
-    P = make_probs<T, W>(pl, ws, rws, wpart, FM, FM, FM);
   }
   NERF_CHECK(cudaGetLastError());
   if (!pl.dense) {
@@ -927,11 +1012,28 @@ cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts,
                                             size_t(pl.rpad), wt + TLayout<W>::wve, dv);
     NERF_CHECK(cudaGetLastError());
   }
+  const Probs P = make_probs<T, W>(pl, ws, rws, wpart, pl.split_len);
   const int ctas = P.p[P.count].cta0;
   if (sizeof(T) == 2) {
+    // the workspace rows and ray_prep's per-ray rows as TMA tensor maps:
+    // boxes of 64 points x 64 rows (8 rows for dWout's gc), 128-byte swizzle
+    CUtensorMap ws_map, ws8_map, rws_map;
+    static_assert(TP % 64 == 0, "n_pad * 2 bytes is a multiple of 128: a legal TMA row stride");
+    NERF_CHECK(hopper::encode_rows_sw128(&ws_map, ws, WsRows<W>::rows, pl.n_pad, 64));
+    NERF_CHECK(hopper::encode_rows_sw128(&ws8_map, ws, WsRows<W>::rows, pl.n_pad, 8));
+    if (pl.dense)
+      rws_map = ws_map;  // no per-ray rows: no problem reads this map
+    else
+      NERF_CHECK(hopper::encode_rows_sw128(&rws_map, rws, KV + W / 2, pl.rpad, 64));
     NERF_CHECK(cudaFuncSetAttribute(wgrad_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     int(WGRAD_SMEM)));
-    wgrad_bf16<<<ctas, THREADS, WGRAD_SMEM, s>>>(P);
+    // setmaxnreg moves registers within the pool the CTA got at launch: a
+    // smaller pool than the two roles ask for would stall the consumers
+    cudaFuncAttributes fa;
+    NERF_CHECK(cudaFuncGetAttributes(&fa, wgrad_bf16));
+    if (fa.numRegs * WG_THREADS < 128 * PRODUCER_REGS + 256 * CONSUMER_REGS)
+      return cudaErrorInvalidConfiguration;
+    wgrad_bf16<<<ctas, WG_THREADS, WGRAD_SMEM, s>>>(ws_map, ws8_map, rws_map, P);
   } else {
     wgrad_f32<<<ctas, THREADS, 0, s>>>(P);
   }

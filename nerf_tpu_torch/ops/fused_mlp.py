@@ -109,6 +109,27 @@ def bwd_flops(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig,
     return 2 * (n_rays * n_samples * macs_pt + n_rays * macs_ray)
 
 
+def wgrad_flops(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig,
+                n_rays: int, n_samples: int) -> int:
+    """FLOP of the backward's weight-grad phase (``wgrad_bf16`` in
+    csrc/fused_mlp_bwd.cu) for one call, as the architecture needs them:
+    dW05e, dW1..dW7, dWf, dWvf and dWout per point, dWve per ray (per point
+    in the dense mode: ``n_samples=1``). 1,181,696 per point at 8x256 with
+    10/4 octaves, plus 6,912 per ray."""
+    W, ep, ev = cfg.width, pe_pts.out_dim, pe_views.out_dim
+    macs_pt = ep * 2 * W + DEPTH * W * W + W * (W // 2) + (3 * W // 2) * 4
+    return 2 * (n_rays * n_samples * macs_pt + n_rays * ev * (W // 2))
+
+
+def wgrad_bytes_per_point(cfg: MLPConfig) -> int:
+    """Bytes of the bf16 workspace that the weight-grad phase must read per
+    point in ray mode, each row once (WsRows in csrc/fused_mlp_bwd.cu): the
+    padded embedding e, h0..h7, feat, hv, the 8 rows kept for the cotangent
+    gc, d0..d7, d_feat and d_hv. 9,872 at 8x256."""
+    W = cfg.width
+    return 2 * (KE + 2 * (DEPTH * W + W + W // 2) + 8)
+
+
 def _reorder_emb_rows(w: torch.Tensor, num_freqs: int) -> torch.Tensor:
     """Rows in embedding order (x, sin f0, cos f0, sin f1, ...) -> kernel
     order [x (3) | sin, f-major (3F) | cos (3F)]."""

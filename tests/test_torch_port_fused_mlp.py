@@ -120,6 +120,16 @@ def test_flops_per_point():
     assert fused_mlp.flops_per_point(MLPConfig(), PE_P, PE_V) == 1_186_816
 
 
+def test_wgrad_bytes_per_point():
+    # the workspace rows the weight-grad phase reads once: 4,936 bf16 a point
+    assert fused_mlp.wgrad_bytes_per_point(MLPConfig()) == 9_872
+
+
+def test_wgrad_flops():
+    # 1,181,696 a point, 6,912 a ray (dWve)
+    assert fused_mlp.wgrad_flops(MLPConfig(), PE_P, PE_V, 3, 5) == 15 * 1_181_696 + 3 * 6_912
+
+
 def test_wrapper_checks(nets):
     _, mlp = nets
     kp = fused_mlp.pack_params(mlp, PE_P, PE_V, torch.float32)

@@ -203,6 +203,52 @@ def test_fused_points_bwd_kernel_matches_plain_version(cuda_device, width, dtype
             assert errs[name] <= in_tol, (R, S, name, errs[name])
 
 
+# The edges of the backward's bf16 weight-grad phase (TMA + wgmma, 64-point
+# chunks, a 4-stage ring, splits fixed by the shapes): (kernel, R, S, spr).
+# The splits these shapes get (csrc/fused_mlp_bwd.cu, hopper_splits):
+# - K4 301 x 64: 19,264 points, not a multiple of 128; 302 chunks of 64
+#   points in 10 splits of 28 and a last of 22 (W=256), 9 of 31 and a last
+#   of 23 (W=128); the per-ray rows (dWve) 320 rays, 5 chunks;
+# - K3 150 x 63, a direction per point: dWve over points; 148 chunks in 10
+#   splits of 14 and a last of 8 (W=256), 8 of 17 and a last of 12 (W=128);
+# - K3 77 x 48, a direction per ray: 58 chunks in 4 splits of 12 and a last
+#   of 10 (W=256), 6 of 9 and a last of 4 (W=128); 128 per-ray rows, 2 chunks.
+# Held to K4's bound for these sizes: the worst leaf measured up to 5.8e-4
+# on an H100 (this test, with -s).
+WGRAD_EDGE_CASES = (("K4", 301, 64, 64), ("K3", 150, 63, 1), ("K3", 77, 48, 48))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("case", WGRAD_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_bwd_weight_grads_at_phase3_edges(cuda_device, width, case):
+    kernel, R, S, spr = case
+    mlp = NeRFMLP(MLPConfig(width=width), seed=width + 7, device=cuda_device)
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(mlp, PE_P, PE_V, torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(R)
+    if kernel == "K4":
+        args = _rays(R * S + 5, R, S, cuda_device)
+        g = (0.5 + torch.rand(4, R, S, device=cuda_device, generator=gen)) * 1e-4
+        got = fused_mlp.fused_rays_planes_bwd(kp, *args, g)
+        again = fused_mlp.fused_rays_planes_bwd(kp, *args, g)
+        ref = fused_mlp.fused_rays_planes_bwd_reference(kp, *args, g)
+    else:
+        x, v = _points(R * S + 5, R, S, spr, cuda_device)
+        g = (0.5 + torch.rand(R * S, 4, device=cuda_device, generator=gen)) * 1e-4
+        got = fused_mlp.fused_points_bwd(kp, x, v, g, spr, False)[0]
+        again = fused_mlp.fused_points_bwd(kp, x, v, g, spr, False)[0]
+        ref = fused_mlp.fused_points_bwd_reference(kp, x, v, g, spr, False)[0]
+    torch.cuda.synchronize()
+    errs = {name: _rel_l2(got[name], ref[name]) for name in fused_mlp.KP_NAMES}
+    worst = max((e, n) for n, e in errs.items())
+    print(f"{kernel} W={width} R={R} S={S} spr={spr}: worst leaf {worst[1]} {worst[0]:.3e}")
+    for name in fused_mlp.KP_NAMES:
+        assert got[name].shape == kp[name].shape, name
+        assert torch.equal(got[name], again[name]), name  # no atomics: bit-identical
+        assert errs[name] <= K4_BF16_TOL, (name, errs[name])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_points_kernel_on_ray_points_matches_raygen_kernel(cuda_device, dtype):
@@ -322,12 +368,19 @@ def test_fused_render_bwd_kernel_matches_plain_version(cuda_device, width, dtype
             # 7.4e-7 on an H100, PERF.md)
             planes = fused_render._launch_composite_bwd(raw, rd, z, noise, *g, white)
             want = fused_render.composite_bwd_reference(raw, rd, z, noise, *g, white)
+            # K6's second half alone: K4's phases on the plain cotangent of raw
+            # (no K4 launch counted), against the plain weight grads of it
+            half = fused_mlp._launch_bwd(kp, ro, rd, vd, z, want, None)
+            half_ref = fused_mlp.fused_rays_planes_bwd_reference(kp, ro, rd, vd, z, want)
         planes_err = _rel_l2(planes, want)
         assert planes_err <= 1e-5, (R, S, planes_err)
         errs = {name: _rel_l2(got[name], ref[name]) for name in fused_mlp.KP_NAMES}
         worst = max((e, n) for n, e in errs.items())
+        half_worst = max((_rel_l2(half[n], half_ref[n]), n) for n in fused_mlp.KP_NAMES)
         print(f"K6 W={width} {dtype} white={white} R={R} S={S}: worst leaf {worst[1]} "
-              f"{worst[0]:.3e}, raw cotangent {planes_err:.3e}")  # with -s
+              f"{worst[0]:.3e}, raw cotangent {planes_err:.3e}, K4's phases on the plain "
+              f"cotangent {half_worst[1]} {half_worst[0]:.3e}")  # with -s
+        assert half_worst[0] <= tol, (R, S, half_worst)
         for name in fused_mlp.KP_NAMES:
             assert got[name].shape == kp[name].shape, name
             assert torch.equal(got[name], again[name]), name  # no atomics: bit-identical
