@@ -12,6 +12,9 @@ Phases, one line each (any failure exits non-zero):
    csrc/probe_overlap.cu (K7) with nvcc (sm_90a), one process each, at once;
    counts the wgmma (HGMMA) and TMA-load (UTMALDG) instructions in the SASS
    of the backward's weight-grad kernel (cuobjdump) and fails without both;
+   prints each instantiation of the backward's phase 1 (``bwd_tile_bf16``)
+   with its registers, stack and spill bytes (cuobjdump -res-usage, ptxas)
+   and its LDG.E.U16, STG.E.U16 and STG.E.128 counts, and fails on a spill;
 3. kernel: K1 against its plain PyTorch version at the full 8x256 width,
    in f32 and bf16;
 4. render: renders the first 3 poses of the 40-pose orbit at the lego
@@ -33,9 +36,10 @@ Phases, one line each (any failure exits non-zero):
 8. grads: one fused step's weight grads against the plain (unfused) path
    on the same batch and draws;
 9. bwd times: K4 at the training shapes beside its bound, its plain
-   version and the backward's big products as bf16 ``torch.matmul``; a
-   profiled step of K4 (coarse + fine) split by its launches, and the
-   weight-grad phase (``wgrad_bf16``) beside its own bound and its 10
+   version and the backward's big products as bf16 ``torch.matmul``; 10
+   profiled steps of K4 (coarse + fine) split by its launches, the
+   recompute-and-chain phase (``bwd_tile_bf16``) beside its own bound, and
+   the weight-grad phase (``wgrad_bf16``) beside its own bound and its 10
    weight-grad products as bf16 ``torch.matmul``.
 The points-in path (K2 forward, K3 backward), at the 63+128 recipe: 63
 coarse samples and 191 fine are not multiples of 8, so both levels query
@@ -175,8 +179,10 @@ CLI_CADENCES = {"i_print": 4, "i_img": 8, "i_weights": 12, "i_testset": 24, "i_v
 TRACE_AT, TRACE_STEPS = 12, 4  # nerf_tpu's trace: 4 more steps at start + 12
 LEGO_CAMERA_ANGLE_X = 0.6911112070083618  # the lego scene's: focal 1111.11 at 800 pixels
 TRACE_KERNELS = ("fwd_bf16", "bwd_tile_bf16", "wgrad_bf16")  # K1's and K4's symbols
-# K4's launches, by kernel name ("Memset": its partials' clear), in order
-K4_LAUNCHES = ("bwd_tile_bf16", "ray_prep", "wgrad_bf16", "reduce_splits", "reduce_tiles", "Memset")
+# bytes of stack frame that sincosf's slow-path range reduction (embed_row in
+# csrc/fused_mlp_common.cuh) gives every kernel that embeds points; a
+# register spill would grow the frame beyond it
+SINCOS_STACK = 32
 
 
 def counters():
@@ -225,28 +231,40 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def sass_counts(lib, function: str, opcodes) -> dict:
-    """How often each of ``opcodes`` appears in the SASS of the kernel whose
-    name holds ``function`` in the built library (cuobjdump)."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+def cuobjdump(*args) -> str:
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, *map(str, args)], capture_output=True, text=True,
                           check=True).stdout
-    blocks = [b for b in re.split(r"\n\s*Function : ", text)[1:] if function in b.split("\n", 1)[0]]
-    if len(blocks) != 1:
-        raise RuntimeError(f"{len(blocks)} kernels named {function} in {lib}")
-    return {op: blocks[0].count(op) for op in opcodes}
 
 
-def device_rows(prof):
-    """(device us, kernel name, count) of every device event in a profile."""
-    rows = []
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((us, evt.key, evt.count))
-    return rows
+def sass_counts(lib, function: str, opcodes) -> dict:
+    """{kernel name: {opcode: count}}: how often each of ``opcodes`` appears
+    in the SASS of every kernel whose name holds ``function`` in the built
+    library (cuobjdump)."""
+    blocks = re.split(r"\n\s*Function : ", cuobjdump("-sass", lib))[1:]
+    return {b.split("\n", 1)[0].strip(): {op: b.count(op) for op in opcodes}
+            for b in blocks if function in b.split("\n", 1)[0]}
+
+
+def res_usage(lib, function: str) -> dict:
+    """{kernel name: {"REG": n, "STACK": bytes, "LOCAL": bytes}} of every
+    kernel whose name holds ``function`` in the built library
+    (cuobjdump -res-usage)."""
+    found = {}
+    for m in re.finditer(r"Function (\S+):\s*\n\s*(REG:[^\n]*)", cuobjdump("-res-usage", lib)):
+        if function in m.group(1):
+            found[m.group(1)] = {k: int(v) for k, v in re.findall(r"(REG|STACK|LOCAL):(\d+)",
+                                                                   m.group(2))}
+    return found
+
+
+def ptxas_spills(log: str, function: str) -> dict:
+    """{kernel name: (spill store bytes, spill load bytes)} from nvcc's
+    -Xptxas=-v output, for the kernels whose name holds ``function``."""
+    pattern = (r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) bytes spill "
+               r"stores, (\d+) bytes spill loads")
+    return {m.group(1): (int(m.group(2)), int(m.group(3))) for m in re.finditer(pattern, log)
+            if function in m.group(1)}
 
 
 def matmul_chain(kp, n_pts: int):
@@ -324,13 +342,30 @@ def main() -> int:
     _build.load_all(sources)
     phase("build", seconds=f"{time.perf_counter() - t0:.1f}", sources=len(sources))
     for name in sources:
-        for line in _build.build_log.get(name, "").splitlines():
+        for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip(), flush=True)
-    sass = sass_counts(_build._lib_path("fused_mlp_bwd"), "wgrad_bf16", ("HGMMA", "UTMALDG"))
+    bwd_lib = _build._lib_path("fused_mlp_bwd")
+    (sass,) = sass_counts(bwd_lib, "wgrad_bf16", ("HGMMA", "UTMALDG")).values()
     phase("sass", kernel="wgrad_bf16", **sass)
     if not all(sass.values()):
         raise RuntimeError(f"wgrad_bf16 issues no wgmma or no TMA load: {sass}")
+    # phase 1 of the backward, each instantiation: registers, stack and
+    # spills (none allowed beyond the trig's frame), and its global 2-byte
+    # loads and stores against its 16-byte stores
+    usage = res_usage(bwd_lib, "bwd_tile_bf16")
+    ops = sass_counts(bwd_lib, "bwd_tile_bf16", ("LDG.E.U16", "STG.E.U16", "STG.E.128"))
+    spills = ptxas_spills(_build.build_log("fused_mlp_bwd"), "bwd_tile_bf16")
+    if len(usage) != 4 or set(usage) != set(ops) or set(spills) != set(usage):
+        raise RuntimeError(f"expected 4 bwd_tile_bf16 kernels in the SASS and the ptxas log, "
+                           f"found {sorted(usage)} and {sorted(spills)}")
+    for name, u in sorted(usage.items()):
+        spill = spills[name]  # (store, load) bytes
+        inst = f"{'RaysIn' if 'RaysIn' in name else 'PointsIn'},W={256 if 'Li256E' in name else 128}"
+        phase("sass", kernel=f"bwd_tile_bf16<{inst}>", regs=u["REG"], stack_bytes=u["STACK"],
+              local_bytes=u["LOCAL"], spill_store_load_bytes=spill, **ops[name])
+        if u["STACK"] > SINCOS_STACK or u["LOCAL"] or any(spill):
+            raise RuntimeError(f"bwd_tile_bf16<{inst}> spills: {u}, {spill}")
 
     # 3. kernel against its plain version at full width
     cfg = MLPConfig(width=WIDTH)
@@ -656,6 +691,9 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str) -> None:
     (the forward kernel ``fwd``, the backward ``bwd``'s kernels, the rest),
     and the device's idle share of the window. The step's launch counts show
     which forward and backward ran: the two pairs share their kernels' names."""
+    from nerf_tpu_torch.tools.bwd_phase1 import K4_LAUNCHES
+    from nerf_tpu_torch.utils.profiler import device_rows
+
     # the backward's own workspace memset is one of the step's few "Memset"
     # entries; those stay in "other", so its share reads ~0.01 ms low
     k4 = K4_LAUNCHES[:-1]
@@ -736,31 +774,16 @@ def backward_matmul_chain(kp, n_pts: int, weight_grads_only: bool = False):
     return run
 
 
-def launch_split(fn, names, reps: int = 3):
-    """Device ms per call of ``fn`` by kernel: the kernels whose names hold
-    one of ``names``, and the rest as "other", from a torch.profiler window
-    over ``reps`` calls after a warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    split = {k: 0.0 for k in list(names) + ["other"]}
-    for us, key, _ in device_rows(prof):
-        split[next((k for k in names if k in key), "other")] += us / 1e3 / reps
-    return split
-
-
 def k4_times(cfg, pe_pts, pe_views, dev):
     """9. K4 at the training shapes: one coarse and one fine launch a step.
-    Then a profiled step of both launches split by K4's kernels, and the
+    Then 10 profiled steps of both launches split by K4's kernels, phase 1
+    (``bwd_tile_bf16``) beside its own bound, and the
     weight-grad phase (``wgrad_bf16``) beside its own bound (each workspace
     row and per-ray row read once, the grads written once) and its 10
     weight-grad products as bf16 torch.matmul. Returns K4's numbers per step."""
     from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
     from nerf_tpu_torch.ops import fused_mlp
+    from nerf_tpu_torch.tools.bwd_phase1 import k4_split
 
     mlp = NeRFMLP(cfg, seed=2, device=dev)
     with torch.no_grad():
@@ -771,12 +794,12 @@ def k4_times(cfg, pe_pts, pe_views, dev):
     gbytes = 4 * sum(v.numel() for v in kp.values())
     rng = np.random.default_rng(5)
     zero = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
-    out, wgrad = dict(zero), dict(zero)
+    out, wgrad, tile = dict(zero), dict(zero), dict(zero)
     step = []
     for S in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE):
         rays = make_rays(rng, N_RAND, S, dev)
         g = torch.rand(4, N_RAND, S, device=dev) * 1e-4
-        step.append((rays, g))
+        step.append((*rays, g))
         n_pts = N_RAND * S
         ms = cuda_ms(lambda: fused_mlp.fused_rays_planes_bwd(kp, *rays, g, blobs), reps=10, warmup=2)
         plain_ms = cuda_ms(lambda: fused_mlp.fused_rays_planes_bwd_reference(kp, *rays, g), reps=2)
@@ -802,14 +825,18 @@ def k4_times(cfg, pe_pts, pe_views, dev):
         rows_bytes = n_pts * fused_mlp.wgrad_bytes_per_point(cfg) + \
             N_RAND * 2 * (fused_mlp.KV + cfg.width // 2)
         wgrad["bytes_ms"] += 1e3 * (rows_bytes + gbytes) / PEAK_BYTES
+        # phase 1: its own work and bytes (the workspace rows, d_hv, g and z
+        # a point; the rays, the weights and the tiles' bias sums)
+        tile["ops_ms"] += 1e3 * fused_mlp.bwd_tile_flops(cfg, pe_pts, pe_views, N_RAND, S) / \
+            PEAK_BF16_FLOPS
+        tile_bytes = n_pts * fused_mlp.bwd_tile_bytes_per_point(cfg) + N_RAND * 9 * 4 + wbytes + \
+            -(-n_pts // 128) * blobs[1].numel() * 4
+        tile["bytes_ms"] += 1e3 * tile_bytes / PEAK_BYTES
 
-    def k4_step():
-        for rays, g in step:
-            fused_mlp.fused_rays_planes_bwd(kp, *rays, g, blobs)
-
-    split = launch_split(k4_step, K4_LAUNCHES)
-    wgrad["ms"] = split["wgrad_bf16"]
+    split = k4_split(kp, blobs, step, reps=10)
+    wgrad["ms"], tile["ms"] = split["wgrad_bf16"], split["bwd_tile_bf16"]
     bound = max(wgrad["ops_ms"], wgrad["bytes_ms"])
+    tile_bound = max(tile["ops_ms"], tile["bytes_ms"])
     phase("k4_split", per="step (S=64 + S=192)", **{f"{k}_ms": f"{v:.3f}" for k, v in split.items()},
           device_ms=f"{sum(split.values()):.3f}")
     phase("wgrad_times", ms=f"{wgrad['ms']:.3f}", bound_ms=f"{bound:.3f}",
@@ -817,6 +844,10 @@ def k4_times(cfg, pe_pts, pe_views, dev):
           ops_ms=f"{wgrad['ops_ms']:.3f}", bytes_ms=f"{wgrad['bytes_ms']:.3f}",
           library_ms=f"{wgrad['library_ms']:.3f}", x_bound=f"{wgrad['ms'] / bound:.3f}",
           x_library=f"{wgrad['ms'] / wgrad['library_ms']:.3f}")
+    phase("bwd_tile_times", ms=f"{tile['ms']:.3f}", bound_ms=f"{tile_bound:.3f}",
+          bound_by="operations" if tile["ops_ms"] >= tile["bytes_ms"] else "bytes",
+          ops_ms=f"{tile['ops_ms']:.3f}", bytes_ms=f"{tile['bytes_ms']:.3f}",
+          x_bound=f"{tile['ms'] / tile_bound:.3f}")
     return out
 
 

@@ -42,11 +42,26 @@
 //     operand. A tile does not fit every activation in shared memory (h0..h7,
 //     feat, hv and their cotangents are ~1.2 MB at 128 points), so each
 //     activation and each rounded cotangent goes to a workspace in device
-//     memory, feature-major ([feature][point], 9.9 KB per point in bf16); the
-//     relu masks of the chain are read back from it. The bias grads' column
-//     sums per tile are reduced in registers (warp shuffles) and written per
-//     tile. With input grads the tile ends with d_e (one more mma_layer over
-//     d0 in shared memory and d5 read back from the workspace) and dx.
+//     memory, feature-major ([feature][point], 9.9 KB per point in bf16), for
+//     phase 3. What the chain needs stays on chip: the relu masks of h0..h7
+//     as bits (relu_bits, 4 words a layer and thread at W = 256, 2 at
+//     W = 128), which each thread reads back from the activations that its
+//     own recompute epilogue wrote, the elements whose cotangents its chain
+//     epilogue masks; in registers, except h0..h3 at W = 256, which wait in
+//     shared memory (kSmemMasks); hv's mask is read from act. The bf16
+//     tile writes the workspace by ws_transpose: 8 points of one feature a
+//     16-byte store, from conflict-free 32-bit shared reads (the f32
+//     instantiation keeps store_t, an element a thread). The bias grads'
+//     column sums per tile are reduced in registers (warp shuffles) and
+//     written per tile. With input grads the tile ends with d_e (one more
+//     mma_layer over d0 in shared memory and d5 read back from the workspace
+//     by the same transpose) and dx.
+//     Phase 1 alone is bound by bytes: the workspace rows that it writes,
+//     once (9,864 B a point at 8x256 in ray mode: 4 of gc's 8 rows), the
+//     f32 d_hv rows (512 B at spr > 1), g and z (20 B), 10,396 B a point,
+//     so >= 3.25 ms a training step (1,048,576 points) at 3.35 TB/s; its
+//     2,302,720 FLOP a point (the recompute and the cotangent chain) need
+//     >= 2.44 ms at 989 TFLOP/s.
 //  2. With a direction per ray (spr > 1), a small kernel sums d_hv over each
 //     ray's samples (fixed order) and embeds the view directions per ray for
 //     dWve, then d_ev and dv. With a direction per point (spr = 1) phase 1
@@ -78,8 +93,9 @@
 //     (1,181,696 FLOP a point), so >= 0.77 ms coarse and >= 2.32 ms fine at
 //     3.35 TB/s.
 // Padded points carry a zero cotangent, so they add nothing to any sum.
-// Phase 1 is still mma.sync through the workspace; wgmma there and keeping
-// the activations on chip are later work.
+// Phase 1's products are still mma.sync through mma_layer, which the
+// forwards share and which the recompute must match bit for bit: wgmma there
+// is later work, for the forwards and the recompute together.
 
 #include "fused_mlp_common.cuh"
 #include "hopper.cuh"
@@ -133,6 +149,7 @@ struct WsRows {
 
 // dst[c][p0 + i] = src[i][c]: a tile's [tile][rows] shared buffer to
 // feature-major workspace rows (consecutive threads, consecutive points).
+// The f32 path's.
 template <typename T>
 __device__ void store_t(const T* src, int lds, int rows, int tile, T* dst, size_t ldp, int p0) {
   for (int idx = threadIdx.x; idx < rows * tile; idx += THREADS) {
@@ -148,6 +165,64 @@ __device__ void load_t(const T* src, size_t ldp, int p0, int rows, int tile, T* 
   for (int idx = threadIdx.x; idx < rows * tile; idx += THREADS) {
     const int c = idx / tile, i = idx - c * tile;
     dst[i * ldd + c] = src[size_t(c) * ldp + p0 + i];
+  }
+}
+
+// The bf16 path's transposes, 16 bytes a thread: a TP-point tile's shared
+// buffer sm [TP][lds] to its feature-major workspace rows, ws[c][p0 + i] =
+// sm[i][c] (kStore), or back, sm[i][c] = ws[c][p0 + i]. A warp moves 32
+// features x 16 points at a time; lane (q, h) = (lane / 2, lane % 2) owns
+// features c and c + 1 (c = c0 + 2q) at points i .. i + 7 (i = i0 + 8h):
+// one 32-bit shared word a point, holding both features, and one 16-byte
+// global access a feature, so lanes 2q and 2q + 1 fill one 32-byte sector.
+// Half h visits its 8 shared rows in the order j ^ 4h: at the row strides
+// used (264, 72 and 40 bf16: 4, 4 and 20 words mod 32 banks) the two
+// halves' 64-byte pieces of a row then lie on disjoint banks, one wavefront
+// a load. rows is a multiple of 32, and the workspace is padded to whole
+// tiles, so no access is masked.
+template <bool kStore>
+__device__ void ws_transpose(bf16* sm, int lds, int rows, bf16* ws, size_t ldp, int p0) {
+  constexpr int PB = TP / 16;  // 16-point blocks a tile
+  const int lane = threadIdx.x & 31, q = lane >> 1, h = lane & 1;
+  for (int u = threadIdx.x >> 5; u < rows / 32 * PB; u += THREADS / 32) {
+    const int c = (u / PB) * 32 + 2 * q, i = (u % PB) * 16 + 8 * h;
+    uint4* g0 = reinterpret_cast<uint4*>(ws + size_t(c) * ldp + p0 + i);
+    uint4* g1 = reinterpret_cast<uint4*>(ws + size_t(c + 1) * ldp + p0 + i);
+    uint32_t w[8];  // w[k]: features c, c + 1 at point i + k (in row order j ^ 4h when swapped)
+    auto swap_halves = [&] {  // w[j] <-> w[j ^ 4] for half 1
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t lo = h ? w[k + 4] : w[k], hi = h ? w[k] : w[k + 4];
+        w[k] = lo;
+        w[k + 4] = hi;
+      }
+    };
+    if (kStore) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        w[j] = *reinterpret_cast<const uint32_t*>(sm + (i + (j ^ (4 * h))) * lds + c);
+      swap_halves();
+      uint32_t a[4], b[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        a[m] = __byte_perm(w[2 * m], w[2 * m + 1], 0x5410);  // feature c, points 2m, 2m + 1
+        b[m] = __byte_perm(w[2 * m], w[2 * m + 1], 0x7632);  // feature c + 1
+      }
+      *g0 = make_uint4(a[0], a[1], a[2], a[3]);
+      *g1 = make_uint4(b[0], b[1], b[2], b[3]);
+    } else {
+      const uint4 av = *g0, bv = *g1;
+      const uint32_t a[4] = {av.x, av.y, av.z, av.w}, b[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        w[2 * m] = __byte_perm(a[m], b[m], 0x5410);
+        w[2 * m + 1] = __byte_perm(a[m], b[m], 0x7632);
+      }
+      swap_halves();
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(sm + (i + (j ^ (4 * h))) * lds + c) = w[j];
+    }
   }
 }
 
@@ -170,6 +245,13 @@ __device__ void input_grad(const In& in, bool pts, int F, const float* d_e, int 
 
 // ---------------------------------------------------------------- bf16 path
 
+// The relu masks of h0 .. h(kSmemMasks - 1) wait for the chain in shared
+// memory (a thread's words at stride THREADS: conflict-free), the others in
+// registers. At W = 256 the bits of all eight layers in registers spill
+// (ptxas: 324 bytes), so h0..h3 take 16 KB of the 17 KB that BwdSmem leaves
+// free; at W = 128 all eight fit in registers.
+template <int W> constexpr int kSmemMasks = W == 256 ? 4 : 0;
+
 template <int W> struct BwdSmem {
   using F = Bf16Smem<W>;
   static constexpr int lda = F::lda, lde = F::lde, ldv = F::ldv, ldw = F::ldw;
@@ -181,18 +263,50 @@ template <int W> struct BwdSmem {
   static constexpr size_t red = wbuf + size_t(2) * W * ldw * 2;
   static constexpr size_t gs = red + size_t(2) * W * 4;
   static constexpr size_t gcs = gs + size_t(TP) * 4 * 4;
-  static constexpr size_t bytes = gcs + size_t(TP) * 4 * 4;
+  static constexpr size_t masks = gcs + size_t(TP) * 4 * 4;  // kSmemMasks<W> layers' relu bits
+  static constexpr size_t bytes = masks + size_t(kSmemMasks<W>) * (W / 64) * THREADS * 4;
   static_assert(embv + size_t(TP) * ldv * 2 <= wbuf, "the embeddings fit in dbuf");
+  static_assert(bytes <= 232448, "fits in an SM's shared memory");
 };
 
-// Cotangent epilogue of a chain layer: d = acc (+ gc . Wout[W/2 + col] when
-// wout_h7 is given), zeroed where the forward activation in `mask`
-// (workspace rows) is not positive; the f32 column sums of d over the tile go
-// to bsum (a bias grad's partial), and d rounded to bf16 to `out`.
+// The relu mask of a recompute layer as bits in registers, read back from
+// the bf16 activations that this thread's epilogue has just written to act
+// (its own elements: no barrier): bit (mt * NT + nt) * 4 + q is element q of
+// acc[mt][nt] in mma_layer's accumulator layout, which the recompute's
+// epilogue and bwd_epilogue share, so the chain finds each bit in the
+// thread that masks that element.
 template <int NT>
-__device__ void bwd_epilogue(float (&acc)[4][NT][4], const bf16* mask, size_t ldp, int p0,
-                             const float* gcs, const bf16* __restrict__ wout_h7, float* red,
-                             float* __restrict__ bsum, bf16* out, int ldo) {
+__device__ __forceinline__ void relu_bits(const bf16* act, int lda, uint32_t (&bits)[NT / 2]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int k = 0; k < NT / 2; ++k) bits[k] = 0u;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wm * 64 + mt * 16 + g + r * 8;
+        const int col = wn * NT * 8 + nt * 8 + 2 * t;
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(act + row * lda + col);
+        const int b = (mt * NT + nt) * 4 + 2 * r;
+        if (__low2float(v) > 0.f) bits[b >> 5] |= 1u << (b & 31);
+        if (__high2float(v) > 0.f) bits[b >> 5] |= 2u << (b & 31);
+      }
+}
+
+// Cotangent epilogue of a chain layer: d = acc (+ gc . Wout[W/2 + col] when
+// wout_h7 is given), zeroed where the forward activation is not positive
+// (relu_bits' mask; none where mask is null); the f32 column sums of d over
+// the tile go to bsum (a bias grad's partial), and d rounded to bf16 to
+// `out`. Inlined, so the mask stays in registers.
+template <int NT>
+__device__ __forceinline__ void bwd_epilogue(float (&acc)[4][NT][4], const uint32_t* mask,
+                                             const float* gcs, const bf16* __restrict__ wout_h7,
+                                             float* red, float* __restrict__ bsum, bf16* out,
+                                             int ldo) {
   constexpr int N = NT * 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
@@ -217,7 +331,8 @@ __device__ void bwd_epilogue(float (&acc)[4][NT][4], const bf16* mask, size_t ld
           for (int k = 0; k < 4; ++k) e = fmaf(gcs[r * 4 + k], to_f(wout_h7[c * 4 + k]), e);
           x += e;
         }
-        if (mask != nullptr && !(to_f(mask[size_t(c) * ldp + p0 + r]) > 0.f)) x = 0.f;
+        const int b = (mt * NT + nt) * 4 + q;
+        if (mask != nullptr && !((mask[b >> 5] >> (b & 31)) & 1u)) x = 0.f;
         v[q] = x;
       }
       cs[nt][0] += v[0] + v[2];
@@ -265,32 +380,69 @@ bwd_tile_bf16(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, 
   float* red = reinterpret_cast<float*>(smem + L::red);
   float* gs = reinterpret_cast<float*>(smem + L::gs);
   float* gcs = reinterpret_cast<float*>(smem + L::gcs);
+  uint32_t* masks = reinterpret_cast<uint32_t*>(smem + L::masks);
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * TP;
   const bool dense = in.spr == 1;  // a view direction per point
+  // the relu masks of h0..h7 as bits: layers below kSmemMasks in shared
+  // memory, the others in registers, written and read through selects over
+  // compile-time indices, so that the layer loops stay rolled (unrolled,
+  // they made the kernel slower: PERF.md)
+  constexpr int SM = kSmemMasks<W>;
+  uint32_t hbits[8][W / 64] = {};
+  auto keep = [&](int i, const uint32_t(&b)[W / 64]) {
+    if (SM > 0 && i < SM) {
+#pragma unroll
+      for (int k = 0; k < W / 64; ++k) masks[(i * (W / 64) + k) * THREADS + tid] = b[k];
+    } else {
+#pragma unroll
+      for (int l = SM; l < 8; ++l)
+#pragma unroll
+        for (int k = 0; k < W / 64; ++k) hbits[l][k] = l == i ? b[k] : hbits[l][k];
+    }
+  };
+  auto fetch = [&](int i, uint32_t(&b)[W / 64]) {
+    if (SM > 0 && i < SM) {
+#pragma unroll
+      for (int k = 0; k < W / 64; ++k) b[k] = masks[(i * (W / 64) + k) * THREADS + tid];
+    } else {
+#pragma unroll
+      for (int k = 0; k < W / 64; ++k) b[k] = 0u;
+#pragma unroll
+      for (int l = SM; l < 8; ++l)
+#pragma unroll
+        for (int k = 0; k < W / 64; ++k) b[k] = l == i ? hbits[l][k] : b[k];
+    }
+  };
   float* bsum = bpart + size_t(blockIdx.x) * O::nbias;
   auto row = [&](int r) { return ws + size_t(r) * ldp; };
 
-  // forward recompute with the forward's code; every activation goes to the workspace
+  // forward recompute with the forward's code; every activation goes to the
+  // workspace, and the relu masks of h0..h7 stay on chip
+  uint32_t bits[W / 64];
   embed_tile<bf16>(in, n_pts, Fp, Fv, p0, TP, emb, L::lde, embv, L::ldv);
   __syncthreads();
-  store_t(emb, L::lde, KE, TP, row(R::e), ldp, p0);
-  if (dense) store_t(embv, L::ldv, KV, TP, row(R::ev), ldp, p0);
+  ws_transpose<true>(emb, L::lde, KE, row(R::e), ldp, p0);
+  if (dense) ws_transpose<true>(embv, L::ldv, KV, row(R::ev), ldp, p0);
   const Seg none = {nullptr, 0, nullptr, 0};
   {  // layer 0: rows [0, W) of W05e^T
     float acc[4][W / 32][4];
     mma_layer<W, W / 32>({emb, L::lde, wb + O::w05, KE}, none, wbuf, acc);
     epilogue<W / 32>(acc, bb, act, L::lda, true);
+    relu_bits<W / 32>(act, L::lda, bits);
+    keep(0, bits);
   }
   __syncthreads();
-  store_t(act, L::lda, W, TP, row(R::h(0)), ldp, p0);
+  ws_transpose<true>(act, L::lda, W, row(R::h(0)), ldp, p0);
   for (int i = 1; i < 8; ++i) {  // trunk; layer 5 adds e W5e (rows [W, 2W))
     float acc[4][W / 32][4];
     const Seg skip = i == 5 ? Seg{emb, L::lde, wb + O::w05 + size_t(W) * KE, KE} : none;
     mma_layer<W, W / 32>({act, L::lda, wb + O::wi(i), W}, skip, wbuf, acc);
     epilogue<W / 32>(acc, bb + i * W, act, L::lda, true);
+    relu_bits<W / 32>(act, L::lda, bits);
+    keep(i, bits);
     __syncthreads();
-    store_t(act, L::lda, W, TP, row(R::h(i)), ldp, p0);
+    ws_transpose<true>(act, L::lda, W, row(R::h(i)), ldp, p0);
   }
   {  // feature (no activation)
     float acc[4][W / 32][4];
@@ -298,7 +450,7 @@ bwd_tile_bf16(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, 
     epilogue<W / 32>(acc, bb + O::bf, act, L::lda, false);
   }
   __syncthreads();
-  store_t(act, L::lda, W, TP, row(R::feat), ldp, p0);
+  ws_transpose<true>(act, L::lda, W, row(R::feat), ldp, p0);
   {  // view layer: [feat | ev] -> W/2, into columns [0, W/2) of act
     float acc[4][W / 64][4];
     mma_layer<W, W / 64>({act, L::lda, wb + O::wvf, W}, {embv, L::ldv, wb + O::wve, KV}, wbuf,
@@ -306,7 +458,7 @@ bwd_tile_bf16(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, 
     epilogue<W / 64>(acc, bb + O::bv, act, L::lda, true);
   }
   __syncthreads();
-  store_t(act, L::lda, W / 2, TP, row(R::hv), ldp, p0);
+  ws_transpose<true>(act, L::lda, W / 2, row(R::hv), ldp, p0);
 
   // the tile's cotangent, zero beyond n_pts
   if (tid < TP) {
@@ -350,7 +502,7 @@ bwd_tile_bf16(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, 
     for (int part = 1; part < THREADS / (W / 2); ++part) s += red[part * (W / 2) + tid];
     bsum[O::bv + tid] = s;
   }
-  store_t(dbuf, L::lda, W / 2, TP, row(R::dhv), ldp, p0);
+  ws_transpose<true>(dbuf, L::lda, W / 2, row(R::dhv), ldp, p0);
   if (dense && dv != nullptr) {  // d_ev = bf16(d_hv) Wve^T per point, then the view trig
     float acc[4][1][4];
     mma_layer<W, 1>({dbuf, L::lda, wt + T::wve, W / 2}, none, wbuf, acc);
@@ -362,29 +514,30 @@ bwd_tile_bf16(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, 
   {  // d_feat = bf16(d_hv) Wvf^T (the feature layer has no activation)
     float acc[4][W / 32][4];
     mma_layer<W, W / 32>({dbuf, L::lda, wt + T::wvf, W / 2}, none, wbuf, acc);
-    bwd_epilogue<W / 32>(acc, nullptr, ldp, p0, nullptr, nullptr, red, bsum + O::bf, act,
-                            L::lda);
+    bwd_epilogue<W / 32>(acc, nullptr, nullptr, nullptr, red, bsum + O::bf, act, L::lda);
   }
   __syncthreads();
-  store_t(act, L::lda, W, TP, row(R::dfeat), ldp, p0);
+  ws_transpose<true>(act, L::lda, W, row(R::dfeat), ldp, p0);
   {  // d_h7 = (bf16(d_feat) Wf^T + gc Wout[W/2:]^T) * (h7 > 0)
     float acc[4][W / 32][4];
     mma_layer<W, W / 32>({act, L::lda, wt + T::wf, W}, none, wbuf, acc);
-    bwd_epilogue<W / 32>(acc, row(R::h(7)), ldp, p0, gcs, wb + O::wout + size_t(W / 2) * 4,
-                            red, bsum + 7 * W, dbuf, L::lda);
+    fetch(7, bits);
+    bwd_epilogue<W / 32>(acc, bits, gcs, wb + O::wout + size_t(W / 2) * 4, red,
+                         bsum + 7 * W, dbuf, L::lda);
   }
   __syncthreads();
-  store_t(dbuf, L::lda, W, TP, row(R::d(7)), ldp, p0);
+  ws_transpose<true>(dbuf, L::lda, W, row(R::d(7)), ldp, p0);
   for (int i = 7; i >= 1; --i) {  // d_h_{i-1} = (bf16(d_h_i) W_i^T) * (h_{i-1} > 0)
     float acc[4][W / 32][4];
     mma_layer<W, W / 32>({dbuf, L::lda, wt + T::wi(i), W}, none, wbuf, acc);
-    bwd_epilogue<W / 32>(acc, row(R::h(i - 1)), ldp, p0, nullptr, nullptr, red,
-                            bsum + (i - 1) * W, dbuf, L::lda);
+    fetch(i - 1, bits);
+    bwd_epilogue<W / 32>(acc, bits, nullptr, nullptr, red, bsum + (i - 1) * W, dbuf,
+                         L::lda);
     __syncthreads();
-    store_t(dbuf, L::lda, W, TP, row(R::d(i - 1)), ldp, p0);
+    ws_transpose<true>(dbuf, L::lda, W, row(R::d(i - 1)), ldp, p0);
   }
   if (dx != nullptr) {  // d_e = [d0 | d5] W05e^T (d0 in dbuf, d5 back from the workspace)
-    load_t(row(R::d(5)), ldp, p0, W, TP, act, L::lda);
+    ws_transpose<false>(act, L::lda, W, row(R::d(5)), ldp, p0);
     float acc[4][2][4];
     mma_layer<W, 2>({dbuf, L::lda, wt + T::w0e, W}, {act, L::lda, wt + T::w5e, W}, wbuf, acc);
     float* d_e = reinterpret_cast<float*>(act);

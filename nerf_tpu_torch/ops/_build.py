@@ -4,7 +4,9 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds) and loaded with ctypes. Libraries go to
 ``build/nerf_tpu_torch/`` at the repository root, named by a hash of the
-source and the shared headers (``csrc/*.cuh``), so an edit rebuilds.
+source and the shared headers (``csrc/*.cuh``), so an edit rebuilds; each
+keeps nvcc's output (ptxas's ``-v`` report of registers and spills) beside
+it as ``.log``, and a library without its log is built again.
 Nothing is built when a module is imported: the first launch on a CUDA
 tensor builds; ``load_all`` builds several sources at once.
 """
@@ -69,7 +71,6 @@ SIGNATURES = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-build_log: Dict[str, str] = {}  # source name -> nvcc/ptxas output of this process's build
 
 
 def _nvcc() -> str:
@@ -88,13 +89,20 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{digest}.so"
 
 
+def build_log(name: str) -> str:
+    """nvcc's output for the built library of ``csrc/<name>.cu``, ptxas's
+    register and spill report included (empty before the first build)."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def _build(names: Iterable[str]) -> None:
     """Compile the sources of ``names`` that are not built yet, one nvcc
     process per source, all running at once."""
     procs = {}
     for name in names:
         lib = _lib_path(name)
-        if name in procs or lib.exists():
+        if name in procs or (lib.exists() and lib.with_suffix(".log").exists()):
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -104,10 +112,12 @@ def _build(names: Iterable[str]) -> None:
                                         text=True), tmp, lib, src)
     failed = []
     for name, (proc, tmp, lib, src) in procs.items():
-        build_log[name] = proc.communicate()[0]
+        log = proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on {src} (exit {proc.returncode}):\n{build_log[name]}")
+            failed.append(f"nvcc failed on {src} (exit {proc.returncode}):\n{log}")
         else:
+            tmp.with_suffix(".log").write_text(log)
+            os.replace(tmp.with_suffix(".log"), lib.with_suffix(".log"))
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("\n".join(failed))

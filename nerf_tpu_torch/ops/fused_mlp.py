@@ -130,6 +130,28 @@ def wgrad_bytes_per_point(cfg: MLPConfig) -> int:
     return 2 * (KE + 2 * (DEPTH * W + W + W // 2) + 8)
 
 
+def bwd_tile_flops(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig,
+                   n_rays: int, n_samples: int, input_grads: bool = False) -> int:
+    """FLOP of the backward's phase 1 (``bwd_tile_bf16`` in
+    csrc/fused_mlp_bwd.cu) for one call: ``bwd_flops`` less the weight
+    grads (``wgrad_flops``), i.e. the forward recompute without the
+    rgb/alpha head and the activation cotangents, per point. 2,302,720 per
+    point at 8x256 with 10/4 octaves. ``input_grads`` adds d_e per point and
+    d_ev per ray (which phase 2 computes where a ray has its own direction)."""
+    return (bwd_flops(cfg, pe_pts, pe_views, n_rays, n_samples, input_grads)
+            - wgrad_flops(cfg, pe_pts, pe_views, n_rays, n_samples))
+
+
+def bwd_tile_bytes_per_point(cfg: MLPConfig) -> int:
+    """Bytes that the backward's phase 1 must move per point in ray mode
+    with a view direction per ray (K4's training call), each once: the bf16
+    workspace rows written (``wgrad_bytes_per_point`` less the 4 of gc's 8
+    rows that phase 1 leaves unwritten), the f32 d_hv rows for phase 2, the
+    cotangent g (4 f32) and the depth z read. 10,396 at 8x256. The per-ray
+    inputs, the weights and the tiles' bias sums are counted apart."""
+    return wgrad_bytes_per_point(cfg) - 2 * 4 + 4 * (cfg.width // 2) + 4 * 4 + 4
+
+
 def _reorder_emb_rows(w: torch.Tensor, num_freqs: int) -> torch.Tensor:
     """Rows in embedding order (x, sin f0, cos f0, sin f1, ...) -> kernel
     order [x (3) | sin, f-major (3F) | cos (3F)]."""

@@ -1,0 +1,177 @@
+"""Phase 1 of the fused MLP backward (``bwd_tile_bf16`` in
+``csrc/fused_mlp_bwd.cu``, which K4, K3 and K6 all launch) on the card: its
+outputs, to show that two builds give bit-identical grads, and its time by
+launch at the training shapes.
+
+    python -m nerf_tpu_torch.tools.bwd_phase1 save OUT.pt
+    python -m nerf_tpu_torch.tools.bwd_phase1 compare A.pt B.pt
+    python -m nerf_tpu_torch.tools.bwd_phase1 time
+
+``save`` runs K4, K3 (with and without input grads) and K6 in bf16 on fixed
+seeded inputs (``CASES``: the training shapes, a point count that is not a
+multiple of 128, a direction per point, W=128) and writes every output to
+OUT.pt. ``compare`` holds two such files to each other with ``torch.equal``
+and exits 1 on the first difference. ``time`` profiles ``REPS`` K4 training
+steps (a coarse launch at S=64 and a fine one at S=192, N_rand=4096) after
+``WARMUP`` with ``k4_split``, the split that chip_smoke.py's phase 9 prints,
+and prints the device ms a step of each of K4's launches as one JSON line.
+
+The tool imports only ``nerf_tpu_torch``. Run as a file with another
+checkout's root on ``PYTHONPATH`` it drives that checkout's kernels:
+
+    PYTHONPATH=/path/to/other python nerf_tpu_torch/tools/bwd_phase1.py save other.pt
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from nerf_tpu_torch.experimental import fused_render
+from nerf_tpu_torch.models.embedding import PosEncConfig
+from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
+from nerf_tpu_torch.ops import fused_mlp
+from nerf_tpu_torch.utils.profiler import launch_split
+
+PE_P, PE_V = PosEncConfig(10), PosEncConfig(4)
+N_RAND = 4096
+TRAIN_S = (64, 192)  # the training step's two levels at 64+128
+# (kernel, width, R, S, spr, input_grads); spr is S for K4 and K6
+CASES = (
+    ("K4", 256, N_RAND, 64, 64, False),
+    ("K4", 256, N_RAND, 192, 192, False),
+    ("K4", 256, 301, 64, 64, False),  # 19,264 points: a part tile
+    ("K4", 128, 301, 64, 64, False),
+    ("K3", 256, N_RAND, 63, 63, False),  # the 63+128 training step
+    ("K3", 256, N_RAND, 191, 191, False),
+    ("K3", 256, 150, 63, 1, False),  # a direction per point
+    ("K3", 256, 150, 63, 1, True),
+    ("K3", 256, 77, 48, 48, True),
+    ("K3", 128, 150, 63, 1, True),
+    ("K3", 128, 77, 48, 48, False),
+    ("K6", 256, N_RAND, 64, 64, False),
+    ("K6", 256, N_RAND, 192, 192, False),
+    ("K6", 256, 1000, 200, 200, False),
+    ("K6", 128, 1000, 64, 64, False),
+)
+# K4's launches by kernel name, in order ("Memset": its partials' clear)
+K4_LAUNCHES = ("bwd_tile_bf16", "ray_prep", "wgrad_bf16", "reduce_splits", "reduce_tiles", "Memset")
+WARMUP, REPS = 3, 10
+
+
+def _rays(seed: int, R: int, S: int, dev):
+    """Rays from a radius-4 sphere towards the origin, depths in [2, 6]."""
+    rng = np.random.default_rng(seed)
+    ro = rng.standard_normal((R, 3)).astype(np.float32)
+    ro = 4.0 * ro / np.linalg.norm(ro, axis=-1, keepdims=True)
+    rd = (-ro / 4.0 + 0.3 * rng.standard_normal((R, 3))).astype(np.float32)
+    vd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
+    z = np.sort(rng.uniform(2.0, 6.0, (R, S)).astype(np.float32), -1)
+    g = (0.5 + rng.random((4, R, S), dtype=np.float32)) * 1e-4  # one-signed, as a loss's
+    return [torch.from_numpy(a).to(dev) for a in (ro, rd, vd, z, g)]
+
+
+def _packed(width: int, dev):
+    mlp = NeRFMLP(MLPConfig(width=width), seed=width, device=dev)
+    with torch.no_grad():
+        return fused_mlp.pack_params(mlp, PE_P, PE_V, torch.bfloat16)
+
+
+def run_case(case, dev) -> Dict[str, torch.Tensor]:
+    """The case's outputs (grads by leaf name, dx, dv), on the CPU."""
+    kernel, width, R, S, spr, input_grads = case
+    kp = _packed(width, dev)
+    ro, rd, vd, z, g = _rays(R * S + width, R, S, dev)
+    if kernel == "K4":
+        out = fused_mlp.fused_rays_planes_bwd(kp, ro, rd, vd, z, g)
+    elif kernel == "K3":
+        x = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(R * S, 3)
+        v = vd if spr > 1 else vd.repeat_interleave(S, 0)
+        grads, dx, dv = fused_mlp.fused_points_bwd(kp, x, v, g.reshape(4, -1).T.contiguous(), spr,
+                                                   input_grads)
+        out = dict(grads, **({"dx": dx, "dv": dv} if input_grads else {}))
+    else:
+        noise = torch.from_numpy(
+            np.random.default_rng(R + S).standard_normal((R, S)).astype(np.float32) * 0.5).to(dev)
+        white = S >= 192
+        raw = fused_render.fused_render_fwd(kp, ro, rd, vd, z, noise, white, keep_raw=True).raw
+        maps = (g[:3, :, 0].T.contiguous(), g[3, :, 0].contiguous(), g[3, :, 1].contiguous(),
+                g[0].contiguous())
+        out = fused_render.fused_render_bwd(kp, ro, rd, vd, z, noise, raw, *maps, white)
+    torch.cuda.synchronize()
+    return {k: t.cpu() for k, t in out.items()}
+
+
+def save(path: str) -> None:
+    dev = torch.device("cuda")
+    results = {"-".join(map(str, case)): run_case(case, dev) for case in CASES}
+    torch.save(results, path)
+    print(json.dumps({"saved": path, "cases": len(results),
+                      "tensors": sum(len(v) for v in results.values())}))
+
+
+def compare(a: str, b: str) -> int:
+    A, B = torch.load(a), torch.load(b)
+    if sorted(A) != sorted(B):
+        print(f"case lists differ: {sorted(set(A) ^ set(B))}")
+        return 1
+    n = 0
+    for case in A:
+        if sorted(A[case]) != sorted(B[case]):
+            print(f"{case}: outputs differ: {sorted(set(A[case]) ^ set(B[case]))}")
+            return 1
+        for name, t in A[case].items():
+            if not torch.equal(t, B[case][name]):
+                d = float((t - B[case][name]).abs().max())
+                print(f"{case} {name}: not bit-identical (max abs {d:.3e})")
+                return 1
+            n += 1
+    print(json.dumps({"bit_identical": True, "cases": len(A), "tensors": n}))
+    return 0
+
+
+def k4_split(kp, blobs, step: Sequence, reps: int, warmup: int = 1) -> Dict[str, float]:
+    """Device ms of a K4 training step by launch (``K4_LAUNCHES``, the rest
+    as "other"): ``step`` holds each level's (ro, rd, vd, z, g)."""
+    def k4_step():
+        for ro, rd, vd, z, g in step:
+            fused_mlp.fused_rays_planes_bwd(kp, ro, rd, vd, z, g, blobs)
+
+    return launch_split(k4_step, K4_LAUNCHES, reps=reps, warmup=warmup)
+
+
+def time_step() -> None:
+    """Device ms a K4 training step (S=64 + S=192) by launch."""
+    dev = torch.device("cuda")
+    kp = _packed(256, dev)
+    step = [_rays(S, N_RAND, S, dev) for S in TRAIN_S]
+    split = k4_split(kp, fused_mlp.kernel_blobs(kp), step, REPS, WARMUP)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"card": smi, "steps": REPS, **{f"{k}_ms": round(v, 3) for k, v in split.items()},
+                      "device_ms": round(sum(split.values()), 3)}))
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("bwd_phase1: no CUDA device", file=sys.stderr)
+        return 1
+    if argv[:1] == ["save"] and len(argv) == 2:
+        save(argv[1])
+        return 0
+    if argv[:1] == ["compare"] and len(argv) == 3:
+        return compare(argv[1], argv[2])
+    if argv == ["time"]:
+        time_step()
+        return 0
+    print(__doc__, file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -3,7 +3,8 @@
 Counterpart of nerf_tpu/utils/profiler.py. ``trace`` captures a block with
 ``torch.profiler`` (CPU and CUDA activities: host ops and the card's
 kernels) and writes a Chrome trace, where nerf_tpu writes an XProf one.
-``StepTimer`` is its ``StepTimer``. The FLOP per
+``StepTimer`` is its ``StepTimer``. ``device_rows`` and ``launch_split``
+read a profile's card time by kernel. The FLOP per
 point come from ``ops/fused_mlp.py::flops_per_point`` (nerf_tpu's
 ``mlp_flops_per_point`` counts one trunk layer too few); forward plus
 backward is counted as 3x the forward, nerf_tpu's convention. The peak is
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -48,6 +49,38 @@ def trace(logdir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def device_rows(prof) -> List[Tuple[float, str, int]]:
+    """(device us, kernel name, count) of every device event in a profile."""
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us, evt.key, evt.count))
+    return rows
+
+
+def launch_split(fn: Callable[[], None], names: Iterable[str], reps: int = 3,
+                 warmup: int = 1) -> Dict[str, float]:
+    """Device ms per call of ``fn`` by kernel: the kernels whose names hold
+    one of ``names``, and the rest as "other", from a torch.profiler window
+    over ``reps`` calls after ``warmup`` calls."""
+    names = list(names)
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {k: 0.0 for k in names + ["other"]}
+    for us, key, _ in device_rows(prof):
+        split[next((k for k in names if k in key), "other")] += us / 1e3 / reps
+    return split
 
 
 class StepTimer:

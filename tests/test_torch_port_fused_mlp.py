@@ -130,6 +130,16 @@ def test_wgrad_flops():
     assert fused_mlp.wgrad_flops(MLPConfig(), PE_P, PE_V, 3, 5) == 15 * 1_181_696 + 3 * 6_912
 
 
+def test_bwd_tile_flops_and_bytes():
+    # phase 1: the recompute and the cotangent chain, 3,484,416 - 1,181,696
+    # a point and nothing a ray; with input grads d_e a point, d_ev a ray
+    assert fused_mlp.bwd_tile_flops(MLPConfig(), PE_P, PE_V, 3, 5) == 15 * 2_302_720
+    assert fused_mlp.bwd_tile_flops(MLPConfig(), PE_P, PE_V, 3, 5, input_grads=True) == \
+        15 * (2_302_720 + 64_512) + 3 * 6_912
+    # the workspace rows written once (4 of gc's 8), the f32 d_hv rows, g and z
+    assert fused_mlp.bwd_tile_bytes_per_point(MLPConfig()) == 9_872 - 8 + 512 + 16 + 4
+
+
 def test_wrapper_checks(nets):
     _, mlp = nets
     kp = fused_mlp.pack_params(mlp, PE_P, PE_V, torch.float32)

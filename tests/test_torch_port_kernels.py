@@ -203,9 +203,9 @@ def test_fused_points_bwd_kernel_matches_plain_version(cuda_device, width, dtype
             assert errs[name] <= in_tol, (R, S, name, errs[name])
 
 
-# The edges of the backward's bf16 weight-grad phase (TMA + wgmma, 64-point
-# chunks, a 4-stage ring, splits fixed by the shapes): (kernel, R, S, spr).
-# The splits these shapes get (csrc/fused_mlp_bwd.cu, hopper_splits):
+# The edges of the backward's bf16 phases: (kernel, R, S, spr), "K3+dx"
+# with input grads. Phase 3 (TMA + wgmma, 64-point chunks, a 4-stage ring,
+# splits fixed by the shapes; csrc/fused_mlp_bwd.cu, hopper_splits):
 # - K4 301 x 64: 19,264 points, not a multiple of 128; 302 chunks of 64
 #   points in 10 splits of 28 and a last of 22 (W=256), 9 of 31 and a last
 #   of 23 (W=128); the per-ray rows (dWve) 320 rays, 5 chunks;
@@ -213,9 +213,14 @@ def test_fused_points_bwd_kernel_matches_plain_version(cuda_device, width, dtype
 #   splits of 14 and a last of 8 (W=256), 8 of 17 and a last of 12 (W=128);
 # - K3 77 x 48, a direction per ray: 58 chunks in 4 splits of 12 and a last
 #   of 10 (W=256), 6 of 9 and a last of 4 (W=128); 128 per-ray rows, 2 chunks.
+# Phase 1 (relu masks in registers, 16-byte workspace transposes) at the
+# training step's shapes (K4 4096 x 64 and 4096 x 192), a part tile (301 x
+# 64), the view embedding's rows (spr = 1) and K3's d5 read back for dx.
 # Held to K4's bound for these sizes: the worst leaf measured up to 5.8e-4
 # on an H100 (this test, with -s).
-WGRAD_EDGE_CASES = (("K4", 301, 64, 64), ("K3", 150, 63, 1), ("K3", 77, 48, 48))
+WGRAD_EDGE_CASES = (("K4", 301, 64, 64), ("K3", 150, 63, 1), ("K3", 77, 48, 48),
+                    ("K4", 4096, 64, 64), ("K4", 4096, 192, 192), ("K3+dx", 150, 63, 1),
+                    ("K3+dx", 77, 48, 48))
 
 
 @pytest.mark.cuda
@@ -227,6 +232,7 @@ def test_bwd_weight_grads_at_phase3_edges(cuda_device, width, case):
     with torch.no_grad():
         kp = fused_mlp.pack_params(mlp, PE_P, PE_V, torch.bfloat16)
     gen = torch.Generator(device=cuda_device).manual_seed(R)
+    inputs = {}
     if kernel == "K4":
         args = _rays(R * S + 5, R, S, cuda_device)
         g = (0.5 + torch.rand(4, R, S, device=cuda_device, generator=gen)) * 1e-4
@@ -234,19 +240,29 @@ def test_bwd_weight_grads_at_phase3_edges(cuda_device, width, case):
         again = fused_mlp.fused_rays_planes_bwd(kp, *args, g)
         ref = fused_mlp.fused_rays_planes_bwd_reference(kp, *args, g)
     else:
+        dx = kernel == "K3+dx"
         x, v = _points(R * S + 5, R, S, spr, cuda_device)
         g = (0.5 + torch.rand(R * S, 4, device=cuda_device, generator=gen)) * 1e-4
-        got = fused_mlp.fused_points_bwd(kp, x, v, g, spr, False)[0]
-        again = fused_mlp.fused_points_bwd(kp, x, v, g, spr, False)[0]
-        ref = fused_mlp.fused_points_bwd_reference(kp, x, v, g, spr, False)[0]
+        got, *got_in = fused_mlp.fused_points_bwd(kp, x, v, g, spr, dx)
+        again, *again_in = fused_mlp.fused_points_bwd(kp, x, v, g, spr, dx)
+        ref, *ref_in = fused_mlp.fused_points_bwd_reference(kp, x, v, g, spr, dx)
+        if dx:
+            inputs = {name: (a, b, r) for name, a, b, r in zip(("dx", "dv"), got_in, again_in,
+                                                                ref_in)}
     torch.cuda.synchronize()
     errs = {name: _rel_l2(got[name], ref[name]) for name in fused_mlp.KP_NAMES}
     worst = max((e, n) for n, e in errs.items())
-    print(f"{kernel} W={width} R={R} S={S} spr={spr}: worst leaf {worst[1]} {worst[0]:.3e}")
+    in_errs = {name: _rel_l2(a, r) for name, (a, _, r) in inputs.items()}
+    print(f"{kernel} W={width} R={R} S={S} spr={spr}: worst leaf {worst[1]} {worst[0]:.3e}"
+          + "".join(f", {n} {e:.3e}" for n, e in in_errs.items()))  # with -s
     for name in fused_mlp.KP_NAMES:
         assert got[name].shape == kp[name].shape, name
         assert torch.equal(got[name], again[name]), name  # no atomics: bit-identical
         assert errs[name] <= K4_BF16_TOL, (name, errs[name])
+    for name, (a, b, r) in inputs.items():
+        assert a.shape == r.shape, name
+        assert torch.equal(a, b), name
+        assert in_errs[name] <= INPUT_GRAD_BF16_TOL, (name, in_errs[name])
 
 
 @pytest.mark.cuda
