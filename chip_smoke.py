@@ -14,7 +14,10 @@ Phases, one line each (any failure exits non-zero):
    of the backward's weight-grad kernel (cuobjdump) and fails without both;
    prints each instantiation of the backward's phase 1 (``bwd_tile_bf16``)
    with its registers, stack and spill bytes (cuobjdump -res-usage, ptxas)
-   and its LDG.E.U16, STG.E.U16 and STG.E.128 counts, and fails on a spill;
+   and its LDG.E.U16, STG.E.U16 and STG.E.128 counts, and each of K1's and
+   K2's bf16 forward (``fwd_bf16_sm90``) with the same and its HGMMA,
+   UTMALDG and HMMA counts; fails on a spill, and unless the forward issues
+   wgmma and TMA loads and no mma.sync;
 3. kernel: K1 against its plain PyTorch version at the full 8x256 width,
    in f32 and bf16;
 4. render: renders the first 3 poses of the 40-pose orbit at the lego
@@ -24,7 +27,8 @@ Phases, one line each (any failure exits non-zero):
    (unfused) path;
 5. times: K1 at the serving path's shapes (a 32,768-ray chunk, both
    levels), checked against its plain version there and timed beside its
-   bound, its plain version and a bf16 ``torch.matmul`` chain;
+   bound, its plain version and a bf16 ``torch.matmul`` chain, with the
+   bytes of weights its tiles stream from L2 and their rate;
 6. grad: K4 against its plain version at 8x256, f32 and bf16, R=1024 and
    ragged R=1000, S=64 and 192, and (bf16) at the training shapes R=4096;
    two launches must be bit-identical;
@@ -38,9 +42,10 @@ Phases, one line each (any failure exits non-zero):
 9. bwd times: K4 at the training shapes beside its bound, its plain
    version and the backward's big products as bf16 ``torch.matmul``; 10
    profiled steps of K4 (coarse + fine) split by its launches, the
-   recompute-and-chain phase (``bwd_tile_bf16``) beside its own bound, and
-   the weight-grad phase (``wgrad_bf16``) beside its own bound and its 10
-   weight-grad products as bf16 ``torch.matmul``.
+   recompute-and-chain phase (``bwd_tile_bf16``) beside its own bound and
+   its 19 products as bf16 ``torch.matmul``, and the weight-grad phase
+   (``wgrad_bf16``) beside its own bound and its 10 weight-grad products as
+   bf16 ``torch.matmul``.
 The points-in path (K2 forward, K3 backward), at the 63+128 recipe: 63
 coarse samples and 191 fine are not multiples of 8, so both levels query
 points (``query_raw`` -> ``fused_query``) with a view direction per point:
@@ -60,7 +65,10 @@ compositing in the kernel, K6 its backward), at 64+128 on both levels:
    cotangents on all four maps, twice, bit-identical; and K6's two halves
    apart: the compositing backward's cotangent of raw against its plain
    version (f32), and K4's phases on the plain cotangent against the plain
-   weight grads of it;
+   weight grads of it; K5's raw against K1's on the same inputs: equal in
+   f32 (one tile body), and in bf16 (K1's wgmma tile, K5's mma.sync one)
+   reported: equal or not, the max abs difference and the share of
+   elements that differ;
 15. render: phase 4 with ``fused_render``: 10 K5 launches a frame and no
    other kernel;
 16. train / grads: phases 7 and 8 with ``fused_render`` on the same views:
@@ -178,7 +186,7 @@ CLI_STEPS, CLI_RESUMED_STEPS = 24, 8
 CLI_CADENCES = {"i_print": 4, "i_img": 8, "i_weights": 12, "i_testset": 24, "i_video": 24}
 TRACE_AT, TRACE_STEPS = 12, 4  # nerf_tpu's trace: 4 more steps at start + 12
 LEGO_CAMERA_ANGLE_X = 0.6911112070083618  # the lego scene's: focal 1111.11 at 800 pixels
-TRACE_KERNELS = ("fwd_bf16", "bwd_tile_bf16", "wgrad_bf16")  # K1's and K4's symbols
+TRACE_KERNELS = ("fwd_bf16_sm90", "bwd_tile_bf16", "wgrad_bf16")  # K1's and K4's symbols
 # bytes of stack frame that sincosf's slow-path range reduction (embed_row in
 # csrc/fused_mlp_common.cuh) gives every kernel that embeds points; a
 # register spill would grow the frame beyond it
@@ -267,6 +275,33 @@ def ptxas_spills(log: str, function: str) -> dict:
             if function in m.group(1)}
 
 
+def instantiations(source: str, function: str, opcodes) -> dict:
+    """Each of the 4 instantiations (RaysIn / PointsIn x W = 128 / 256) of
+    ``function`` in csrc/<source>.cu's built library, one line each: its
+    registers, stack and spill bytes (cuobjdump -res-usage, ptxas) and how
+    often each of ``opcodes`` appears in its SASS. Fails on a spill or a
+    frame beyond the trig's. Returns the opcode counts by instantiation."""
+    from nerf_tpu_torch.ops import _build
+
+    lib = _build._lib_path(source)
+    usage = res_usage(lib, function)
+    ops = sass_counts(lib, function, opcodes)
+    spills = ptxas_spills(_build.build_log(source), function)
+    if len(usage) != 4 or set(usage) != set(ops) or set(spills) != set(usage):
+        raise RuntimeError(f"expected 4 {function} kernels in the SASS and the ptxas log, "
+                           f"found {sorted(usage)} and {sorted(spills)}")
+    found = {}
+    for name, u in sorted(usage.items()):
+        spill = spills[name]  # (store, load) bytes
+        inst = f"{'RaysIn' if 'RaysIn' in name else 'PointsIn'},W={256 if 'Li256E' in name else 128}"
+        phase("sass", kernel=f"{function}<{inst}>", regs=u["REG"], stack_bytes=u["STACK"],
+              local_bytes=u["LOCAL"], spill_store_load_bytes=spill, **ops[name])
+        if u["STACK"] > SINCOS_STACK or u["LOCAL"] or any(spill):
+            raise RuntimeError(f"{function}<{inst}> spills: {u}, {spill}")
+        found[inst] = ops[name]
+    return found
+
+
 def matmul_chain(kp, n_pts: int):
     """The forward's 10 large matmuls (W05e, W1..W7, Wf, Wvf) as bf16
     torch.matmul calls at the kernel's shapes: a library yardstick, timed
@@ -343,29 +378,21 @@ def main() -> int:
     phase("build", seconds=f"{time.perf_counter() - t0:.1f}", sources=len(sources))
     for name in sources:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"  ptxas {name}:", line.strip(), flush=True)
     bwd_lib = _build._lib_path("fused_mlp_bwd")
     (sass,) = sass_counts(bwd_lib, "wgrad_bf16", ("HGMMA", "UTMALDG")).values()
     phase("sass", kernel="wgrad_bf16", **sass)
     if not all(sass.values()):
         raise RuntimeError(f"wgrad_bf16 issues no wgmma or no TMA load: {sass}")
-    # phase 1 of the backward, each instantiation: registers, stack and
-    # spills (none allowed beyond the trig's frame), and its global 2-byte
-    # loads and stores against its 16-byte stores
-    usage = res_usage(bwd_lib, "bwd_tile_bf16")
-    ops = sass_counts(bwd_lib, "bwd_tile_bf16", ("LDG.E.U16", "STG.E.U16", "STG.E.128"))
-    spills = ptxas_spills(_build.build_log("fused_mlp_bwd"), "bwd_tile_bf16")
-    if len(usage) != 4 or set(usage) != set(ops) or set(spills) != set(usage):
-        raise RuntimeError(f"expected 4 bwd_tile_bf16 kernels in the SASS and the ptxas log, "
-                           f"found {sorted(usage)} and {sorted(spills)}")
-    for name, u in sorted(usage.items()):
-        spill = spills[name]  # (store, load) bytes
-        inst = f"{'RaysIn' if 'RaysIn' in name else 'PointsIn'},W={256 if 'Li256E' in name else 128}"
-        phase("sass", kernel=f"bwd_tile_bf16<{inst}>", regs=u["REG"], stack_bytes=u["STACK"],
-              local_bytes=u["LOCAL"], spill_store_load_bytes=spill, **ops[name])
-        if u["STACK"] > SINCOS_STACK or u["LOCAL"] or any(spill):
-            raise RuntimeError(f"bwd_tile_bf16<{inst}> spills: {u}, {spill}")
+    # phase 1 of the backward: its global 2-byte loads and stores against its
+    # 16-byte stores
+    instantiations("fused_mlp_bwd", "bwd_tile_bf16", ("LDG.E.U16", "STG.E.U16", "STG.E.128"))
+    # the bf16 forward of K1 and K2: wgmma and TMA loads, and no mma.sync
+    for inst, ops in instantiations("fused_mlp_fwd", "fwd_bf16_sm90",
+                                    ("HGMMA", "UTMALDG", "HMMA")).items():
+        if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"]:
+            raise RuntimeError(f"fwd_bf16_sm90<{inst}> is not the wgmma + TMA tile: {ops}")
 
     # 3. kernel against its plain version at full width
     cfg = MLPConfig(width=WIDTH)
@@ -428,9 +455,13 @@ def main() -> int:
             ops_ms = 1e3 * n_pts * flops_pt / PEAK_BF16_FLOPS
             bytes_ms = 1e3 * io_bytes / PEAK_BYTES
             bound_ms = max(ops_ms, bytes_ms)
+            # the weights the tiles stream from L2, once a tile
+            stream = -(-n_pts // fused_mlp.FWD_TILE) * fused_mlp.fwd_weight_bytes_per_tile(cfg)
             phase("times", S=S, points=n_pts, ms=f"{ms:.3f}", bound_ms=f"{bound_ms:.3f}",
                   plain_ms=f"{plain_ms:.3f}", library_ms=f"{library_ms:.3f}",
-                  tflops=f"{n_pts * flops_pt / ms / 1e9:.1f}")
+                  tflops=f"{n_pts * flops_pt / ms / 1e9:.1f}",
+                  weight_stream_gb=f"{stream / 1e9:.3f}",
+                  weight_stream_tb_per_s=f"{stream / ms / 1e9:.3f}")
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("ops_ms", ops_ms),
                          ("bytes_ms", bytes_ms), ("library_ms", library_ms)):
                 totals[k] += v
@@ -697,7 +728,7 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str) -> None:
     # the backward's own workspace memset is one of the step's few "Memset"
     # entries; those stay in "other", so its share reads ~0.01 ms low
     k4 = K4_LAUNCHES[:-1]
-    groups = {fwd: ("render_bf16",) if fwd == "K5" else ("fwd_bf16",),
+    groups = {fwd: ("render_bf16",) if fwd == "K5" else ("fwd_bf16_sm90",),
               bwd: ("composite_bwd",) + k4 if bwd == "K6" else k4}
     rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
@@ -743,12 +774,15 @@ def step_grads_phase(info, dev):
         raise RuntimeError(f"fused step grads disagree with the plain path: {leaf} {worst}")
 
 
-def backward_matmul_chain(kp, n_pts: int, weight_grads_only: bool = False):
+def backward_matmul_chain(kp, n_pts: int, weight_grads_only: bool = False,
+                          phase1_only: bool = False):
     """The backward's big products as bf16 torch.matmul calls at K4's
     shapes: the forward recompute (W05e, W1..W7, Wf, Wvf), the cotangents
     d·Wᵀ (Wvf, Wf, W7..W1) and the weight grads aᵀ·d (W05e, W1..W7, Wf,
-    Wvf); only the 10 weight grads with ``weight_grads_only``. A library
-    yardstick, timed here only and used nowhere in the port."""
+    Wvf); only the 10 weight grads with ``weight_grads_only``, only the 19
+    others (phase 1's: the recompute and the cotangents) with
+    ``phase1_only``. A library yardstick, timed here only and used nowhere
+    in the port."""
     dev, Wd = kp["W1"].device, kp["W1"].shape[0]
     bf = torch.bfloat16
     e = torch.randn(n_pts, 64, dtype=bf, device=dev)
@@ -766,6 +800,8 @@ def backward_matmul_chain(kp, n_pts: int, weight_grads_only: bool = False):
             torch.matmul(ah, kp["Wvf"].T)
             for w in trunk:
                 torch.matmul(a, w.T)
+        if phase1_only:
+            return
         torch.matmul(e.T, d05)
         for _ in trunk:
             torch.matmul(a.T, a)
@@ -777,7 +813,8 @@ def backward_matmul_chain(kp, n_pts: int, weight_grads_only: bool = False):
 def k4_times(cfg, pe_pts, pe_views, dev):
     """9. K4 at the training shapes: one coarse and one fine launch a step.
     Then 10 profiled steps of both launches split by K4's kernels, phase 1
-    (``bwd_tile_bf16``) beside its own bound, and the
+    (``bwd_tile_bf16``) beside its own bound and its 19 products (the
+    recompute and the cotangents) as bf16 torch.matmul, and the
     weight-grad phase (``wgrad_bf16``) beside its own bound (each workspace
     row and per-ray row read once, the grads written once) and its 10
     weight-grad products as bf16 torch.matmul. Returns K4's numbers per step."""
@@ -809,6 +846,9 @@ def k4_times(cfg, pe_pts, pe_views, dev):
         del chain
         chain = backward_matmul_chain(kp, n_pts, weight_grads_only=True)
         wgrad["library_ms"] += cuda_ms(chain, reps=5)
+        del chain
+        chain = backward_matmul_chain(kp, n_pts, phase1_only=True)
+        tile["library_ms"] += cuda_ms(chain, reps=5)
         del chain
         torch.cuda.empty_cache()
         flops = fused_mlp.bwd_flops(cfg, pe_pts, pe_views, N_RAND, S)
@@ -847,7 +887,8 @@ def k4_times(cfg, pe_pts, pe_views, dev):
     phase("bwd_tile_times", ms=f"{tile['ms']:.3f}", bound_ms=f"{tile_bound:.3f}",
           bound_by="operations" if tile["ops_ms"] >= tile["bytes_ms"] else "bytes",
           ops_ms=f"{tile['ops_ms']:.3f}", bytes_ms=f"{tile['bytes_ms']:.3f}",
-          x_bound=f"{tile['ms'] / tile_bound:.3f}")
+          library_ms=f"{tile['library_ms']:.3f}", x_bound=f"{tile['ms'] / tile_bound:.3f}",
+          x_library=f"{tile['ms'] / tile['library_ms']:.3f}")
     return out
 
 
@@ -1046,6 +1087,7 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
     gen = torch.Generator(device=dev).manual_seed(5)
     k5_errs, k6_errs = [], []
     halves = {"float32": [], "bfloat16": []}  # (K6 worst leaf, raw cotangent, K4's phases)
+    k1_vs_k5 = {"float32": [], "bfloat16": []}  # (equal, max abs, share of elements differing)
     for dtype, tol, wtol in ((torch.float32, F32_TOL, K4_F32_TOL),
                              (torch.bfloat16, BF16_TOL, K4_BF16_TOL)):
         dname = str(dtype).split(".")[-1]
@@ -1059,7 +1101,14 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
                 torch.cuda.synchronize()
                 ref = fused_render.fused_render_reference(kp, *rays, noise, white)
                 err = check_maps(out, ref, tol, dtype=dname, R=R, S=S, white=white)
-                same_raw = torch.equal(out.raw, fused_mlp.fused_rays_planes(kp, *rays))
+                # K1's raw against K5's: one tile body in f32 (a gate); in bf16
+                # K1's wgmma tile against K5's mma.sync one (a report)
+                k1_raw = fused_mlp.fused_rays_planes(kp, *rays)
+                same_raw = torch.equal(out.raw, k1_raw)
+                raw_diff = (out.raw - k1_raw).abs()
+                k1_vs_k5[dname].append((same_raw, float(raw_diff.max()),
+                                        float((raw_diff > 0).float().mean())))
+                del k1_raw, raw_diff
                 # the cotangents of an image loss and its companions: one-signed
                 g = [(0.5 + torch.rand(*shape, device=dev, generator=gen)) * 1e-4
                      for shape in ((R, 3), (R,), (R,), (R, S))]
@@ -1089,15 +1138,19 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
                 phase("grad6", dtype=dname, R=R, S=S, white=white,
                       worst_leaf_rel_l2=f"{worst:.3e}", leaf=leaf, tol=wtol,
                       max_abs=f"{max_abs:.3e}", bit_identical=same, raw_is_k1=same_raw,
+                      k1_vs_k5_raw_max_abs=f"{k1_vs_k5[dname][-1][1]:.3e}",
+                      k1_vs_k5_raw_share_differing=f"{k1_vs_k5[dname][-1][2]:.4f}",
                       raw_cotangent_rel_l2=f"{planes_err:.3e}",
                       k4_phases_on_plain_cotangent_rel_l2=f"{half_worst:.3e}",
                       k4_phases_leaf=half_leaf)
-                if not (finite and same and same_raw and worst <= wtol and half_worst <= wtol
+                if not (finite and same and (same_raw or dtype == torch.bfloat16)
+                        and worst <= wtol and half_worst <= wtol
                         and planes_err <= COMPOSITE_F32_TOL):
                     raise RuntimeError(f"K6 or one of its halves disagrees with its plain "
-                                       f"version, or K6 is not deterministic, or K5's raw is "
-                                       f"not K1's: {leaf} {worst}, raw cotangent {planes_err}, "
-                                       f"K4's phases {half_worst}, same={same}, raw={same_raw}")
+                                       f"version, or K6 is not deterministic, or K5's f32 raw "
+                                       f"is not K1's: {leaf} {worst}, raw cotangent "
+                                       f"{planes_err}, K4's phases {half_worst}, same={same}, "
+                                       f"raw={same_raw}")
                 after = read_counts()
                 moved = {k: after[k] - before[k] for k in after}
                 if moved != {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 1, "K6": 2, "K7": 0}:
@@ -1111,6 +1164,10 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
         k6, planes, k4 = (max(col) for col in zip(*rows))
         phase("k6_halves", dtype=dname, k6_worst_leaf_rel_l2=f"{k6:.3e}",
               raw_cotangent_rel_l2=f"{planes:.3e}", k4_phases_on_plain_cotangent_rel_l2=f"{k4:.3e}")
+        equal, diff, share = zip(*k1_vs_k5[dname])
+        phase("k1_vs_k5_raw", dtype=dname, cases=len(equal), all_equal=all(equal),
+              max_abs=f"{max(diff):.3e}", largest_share_differing=f"{max(share):.4f}",
+              mean_share_differing=f"{sum(share) / len(share):.4f}")
     return k5_errs, k6_errs
 
 

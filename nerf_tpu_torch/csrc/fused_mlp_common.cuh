@@ -3,8 +3,11 @@
 // input modes, the weight-blob layout, the posenc embedding and its
 // backward, the bf16 mma.sync layer with its cp.async weight ring, the f32
 // FMA layer, and the forward's tile body, which hands raw to a caller-given
-// sink. The backward recomputes the forward activations from this code, so
-// it differentiates exactly what the forward computed.
+// sink. The backward recomputes the forward activations from this code,
+// which is K5's forward. K1 and K2 run fwd_tile_sm90.cuh's wgmma tile,
+// which sums each layer's products in the same K order; on an H100 its bf16
+// raw differed from this tile's only in the head's last f32 bits (PERF.md),
+// where one activation rounded to the other bf16 neighbour would show ~1e-4.
 
 #pragma once
 

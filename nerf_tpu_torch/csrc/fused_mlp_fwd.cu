@@ -16,37 +16,60 @@
 //        at layer 5 (the reference's skip after layer 4)
 //   feat = h7 Wf + bf;  hv = relu(feat Wvf + ev Wve + bv)
 //   raw  = [hv | h7] Wout + bout
-// Two instantiations: bf16 operands with f32 accumulation (mma.sync
-// m16n8k16 on the tensor cores; activations rounded to bf16 between layers,
-// as _trunk_forward/_head_forward do), and true f32 with FMA loops (no TF32),
+// Two instantiations: bf16 operands with f32 accumulation (wgmma on the
+// tensor cores; activations rounded to bf16 between layers, as
+// _trunk_forward/_head_forward do), and true f32 with FMA loops (no TF32),
 // which computes the f32 mode and isolates indexing faults from rounding.
 //
 // Bound: 1,186,816 FLOP per point at 8x256 with views, so the kernel is
-// compute-bound: at the H100's 989 TFLOP/s bf16 dense rate a 32,768-ray chunk
-// takes at least 2.5 ms coarse (S=64) and 7.5 ms fine (S=192); it reads 28 B
-// (K1) or 24 B (K2, plus 12 B a point at spr = 1) and writes 16 B per point.
-// Design: one CTA owns a tile of 128 points. Its activations live in shared
-// memory as bf16 (one [128][W] buffer, updated in place: each layer keeps
-// its outputs in registers until every warp has read the inputs). The
-// ~0.6 MB of packed weights stays in global memory / L2 and streams through
-// a double-buffered shared-memory ring of 64-wide K chunks (cp.async), so all
-// 8 warps share one copy of each chunk. Ragged tails are masked per point.
-// This is the simple first version; wgmma, TMA and larger tiles are later work.
+// bound by operations: at the H100's 989 TFLOP/s bf16 dense rate a
+// 32,768-ray chunk (64 + 192 samples) takes at least 10.07 ms (2.52 coarse,
+// 7.55 fine); it reads 28 B (K1) or 24 B (K2, plus 12 B a point at spr = 1)
+// and writes 16 B per point. The weights come from L2: the bf16 blob,
+// 1,190,912 bytes at 8x256 (fused_mlp.py::fwd_weight_bytes_per_tile), is
+// streamed once per 128-point tile, ~78 GB per chunk at 64 + 192.
 //
-// The tile body (fwd_tile_bf16 / fwd_tile_f32), which K5 in fused_render.cu
-// runs too, the weight and bias blobs' Layout and the building blocks shared
-// with the backward (K4, K3) live in fused_mlp_common.cuh.
+// Design of the bf16 kernel (fwd_bf16_sm90, whose tile body is
+// fwd_tile_sm90.cuh's fwd_tiles_sm90): a persistent grid of min(tiles, SMs)
+// CTAs of 384 threads, each walking 128-point tiles. A producer warpgroup
+// (one thread issuing) streams the weights by TMA, as 64-wide K chunks of
+// the blob's K-major W^T blocks through four tensor maps with the 128-byte
+// swizzle, into a 4-stage mbarrier ring, running ahead into the next tile;
+// two consumer warpgroups own 64 points each and run wgmma m64nNk16 (N = W,
+// W/2 for the view layer) with A, their activations, from shared memory in
+// the swizzled layout and B from the ring. What that does about the earlier
+// mma.sync tile (fused_mlp_common.cuh's fwd_tile_bf16, which K5 and the
+// backward's recompute still run):
+//  - products: wgmma reads both operands from shared memory, where the
+//    mma.sync tile loaded every fragment with scalar 32-bit shared loads;
+//  - the weight ring: one thread and the TMA engine move the weights, four
+//    stages deep, against a two-stage cp.async ring that all 256 threads
+//    filled and fenced with two __syncthreads a chunk;
+//  - the epilogue: each warpgroup syncs only itself (a named barrier), the
+//    two take turns issuing a layer's products (ping-pong), so one's
+//    epilogue runs under the other's products, and the head runs from
+//    registers (hv is never stored);
+//  - the weight stream: a CTA keeps the ring busy across tiles; the blob is
+//    still read from L2 once per 128-point tile.
+// Ragged tails are masked per point. The f32 kernel (fwd_f32) keeps the
+// simple one-tile-per-CTA FMA body.
+//
+// The f32 tile body (fwd_tile_f32), which K5 in fused_render.cu runs too,
+// the weight and bias blobs' Layout and the building blocks shared with the
+// backward (K4, K3) live in fused_mlp_common.cuh.
 
 #include "fused_mlp_common.cuh"
+#include "fwd_tile_sm90.cuh"
 
 namespace {
 
 template <typename In, int W>
-__global__ void __launch_bounds__(THREADS, 1)
-fwd_bf16(const In in, int n_pts, int Fp, int Fv, const bf16* __restrict__ wb,
-         const float* __restrict__ bb, float* __restrict__ out, size_t sc, size_t sp) {
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+fwd_bf16_sm90(const __grid_constant__ FwdMaps maps, const In in, int n_pts, int Fp, int Fv,
+              const bf16* __restrict__ wb, const float* __restrict__ bb, float* __restrict__ out,
+              size_t sc, size_t sp) {
   extern __shared__ __align__(16) unsigned char smem[];
-  fwd_tile_bf16<In, W>(in, n_pts, Fp, Fv, wb, bb, blockIdx.x * TP, smem, GlobalSink{out, sc, sp});
+  fwd_tiles_sm90<In, W>(maps, in, n_pts, Fp, Fv, wb, bb, smem, GlobalSink{out, sc, sp});
 }
 
 template <typename In, int W>
@@ -58,16 +81,44 @@ fwd_f32(const In in, int n_pts, int Fp, int Fv, const float* __restrict__ wb,
                       GlobalSink{out, sc, sp});
 }
 
-template <typename T, typename In, typename Kernel>
-cudaError_t launch_kernel(Kernel kernel, size_t smem, int tile, const In& in, int n_pts, int Fp,
-                          int Fv, const void* wb, const float* bb, float* out, size_t sc,
-                          size_t sp, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const int grid = (n_pts + tile - 1) / tile;
-  kernel<<<grid, THREADS, smem, stream>>>(in, n_pts, Fp, Fv, static_cast<const T*>(wb), bb, out,
-                                          sc, sp);
+#define NERF_CHECK(x)                 \
+  do {                                \
+    cudaError_t e_ = (x);             \
+    if (e_ != cudaSuccess) return e_; \
+  } while (0)
+
+// The bf16 launch: the blob's four tensor maps, encoded per launch, and a
+// persistent grid of min(tiles, the device's SM count) CTAs.
+template <typename In, int W>
+cudaError_t launch_bf16(const In& in, int n_pts, int Fp, int Fv, const void* wblob,
+                        const float* bb, float* out, size_t sc, size_t sp, cudaStream_t stream) {
+  using O = Layout<W>;
+  const bf16* wb = static_cast<const bf16*>(wblob);
+  FwdMaps maps;
+  NERF_CHECK(hopper::encode_rows_sw128(&maps.w05, wb + O::w05, 2 * W, KE, W));
+  NERF_CHECK(hopper::encode_rows_sw128(&maps.trunk, wb + O::w1, 8 * W, W, W));
+  NERF_CHECK(hopper::encode_rows_sw128(&maps.wvf, wb + O::wvf, W / 2, W, W / 2));
+  NERF_CHECK(hopper::encode_rows_sw128(&maps.wve, wb + O::wve, W / 2, KV, W / 2));
+  constexpr size_t smem = FwdSmem<W>::launch_bytes;
+  NERF_CHECK(cudaFuncSetAttribute(fwd_bf16_sm90<In, W>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+  int dev = 0, sms = 0;
+  NERF_CHECK(cudaGetDevice(&dev));
+  NERF_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  const int tiles = (n_pts + TP - 1) / TP;
+  fwd_bf16_sm90<In, W><<<tiles < sms ? tiles : sms, FWD_THREADS, smem, stream>>>(
+      maps, in, n_pts, Fp, Fv, wb, bb, out, sc, sp);
+  return cudaGetLastError();
+}
+
+template <typename In, int W>
+cudaError_t launch_f32(const In& in, int n_pts, int Fp, int Fv, const void* wb, const float* bb,
+                       float* out, size_t sc, size_t sp, cudaStream_t stream) {
+  constexpr size_t smem = F32Smem<W>::bytes;
+  NERF_CHECK(cudaFuncSetAttribute(fwd_f32<In, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  int(smem)));
+  fwd_f32<In, W><<<(n_pts + TP32 - 1) / TP32, THREADS, smem, stream>>>(
+      in, n_pts, Fp, Fv, static_cast<const float*>(wb), bb, out, sc, sp);
   return cudaGetLastError();
 }
 
@@ -77,11 +128,11 @@ cudaError_t launch(const In& in, int use_bf16, int width, int n_pts, int Fp, int
                    cudaStream_t stream) {
 #define NERF_ARGS in, n_pts, Fp, Fv, wb, bb, out, sc, sp, stream
   if (use_bf16) {
-    if (width == 256) return launch_kernel<bf16>(fwd_bf16<In, 256>, Bf16Smem<256>::bytes, TP, NERF_ARGS);
-    if (width == 128) return launch_kernel<bf16>(fwd_bf16<In, 128>, Bf16Smem<128>::bytes, TP, NERF_ARGS);
+    if (width == 256) return launch_bf16<In, 256>(NERF_ARGS);
+    if (width == 128) return launch_bf16<In, 128>(NERF_ARGS);
   } else {
-    if (width == 256) return launch_kernel<float>(fwd_f32<In, 256>, F32Smem<256>::bytes, TP32, NERF_ARGS);
-    if (width == 128) return launch_kernel<float>(fwd_f32<In, 128>, F32Smem<128>::bytes, TP32, NERF_ARGS);
+    if (width == 256) return launch_f32<In, 256>(NERF_ARGS);
+    if (width == 128) return launch_f32<In, 128>(NERF_ARGS);
   }
 #undef NERF_ARGS
   return cudaErrorInvalidValue;

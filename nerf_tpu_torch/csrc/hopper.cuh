@@ -2,7 +2,8 @@
 // with phase parity, TMA tile loads (cp.async.bulk.tensor.2d) and their
 // tensor maps, the wgmma shared-memory descriptor of a 128-byte-swizzled
 // K-major tile, the wgmma fence / commit / wait, wgmma.mma_async m64nNk16
-// (bf16 in, f32 accumulators) for N = 8, 128 and 256, and setmaxnreg.
+// (bf16 in, f32 accumulators) for N = 8, 64, 128 and 256, setmaxnreg, the
+// generic-to-async proxy fence and named barriers.
 //
 // The tile layout they share: TMA writes a box of 64 bf16 (128 bytes) x R
 // rows with CU_TENSOR_MAP_SWIZZLE_128B, row r at byte r*128 of the box with
@@ -147,6 +148,26 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Orders this thread's generic writes to shared memory (st.shared) before
+// the async proxy's later reads of them (wgmma operands): write, fence, then
+// a barrier, then the wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads') over `count` threads, a
+// multiple of 32: e.g. one warpgroup syncing itself alone.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Arrives at named barrier `id` without waiting: the other `count` minus
+// these threads wait there with bar_sync (a signal from one warpgroup to
+// another).
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // Registers between warpgroups: all four warps of a warpgroup run these.
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
@@ -171,6 +192,23 @@ __device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], uint64_t da, uint6
       "%0, %1, %2, %3"
       "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "n"(1));
+}
+
+// D[64][64] += A[64][16] B[64][16]^T (both K-major in shared memory, 128-byte
+// swizzle), bf16 operands, f32 accumulators: 32 a thread.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "n"(1));
 }
 

@@ -50,6 +50,7 @@ DEPTH = 8
 SKIP = 4  # input re-concatenated after trunk layer 4 -> layer 5 input
 KE, KV = 64, 32  # the kernel's padded embedding widths (csrc/fused_mlp_fwd.cu)
 KERNEL_WIDTHS = (128, 256)  # the widths the kernels are built for
+FWD_TILE = 128  # points of a bf16 forward tile (csrc/fwd_tile_sm90.cuh)
 # the packed leaves, in the order _FusedRaysPlanes takes them
 KP_NAMES = (
     ("W05e", "b0")
@@ -150,6 +151,16 @@ def bwd_tile_bytes_per_point(cfg: MLPConfig) -> int:
     cotangent g (4 f32) and the depth z read. 10,396 at 8x256. The per-ray
     inputs, the weights and the tiles' bias sums are counted apart."""
     return wgrad_bytes_per_point(cfg) - 2 * 4 + 4 * (cfg.width // 2) + 4 * 4 + 4
+
+
+def fwd_weight_bytes_per_tile(cfg: MLPConfig) -> int:
+    """Bytes of the bf16 weight blob (``kernel_blobs(kp)[0]``, Layout<W> in
+    csrc/fused_mlp_common.cuh) that the bf16 forward of K1 and K2
+    (csrc/fwd_tile_sm90.cuh) reads from L2 once per tile of ``FWD_TILE``
+    points: W05eᵀ, W1ᵀ..W7ᵀ, Wfᵀ, Wvfᵀ, Wveᵀ (embedding K padded to 64 / 32)
+    and Wout [3W/2, 4]. 1,190,912 at 8x256, 316,928 at 8x128."""
+    W = cfg.width
+    return 2 * (2 * W * KE + DEPTH * W * W + (W // 2) * W + (W // 2) * KV + (3 * W // 2) * 4)
 
 
 def _reorder_emb_rows(w: torch.Tensor, num_freqs: int) -> torch.Tensor:

@@ -10,7 +10,7 @@ launch at the training shapes.
 ``save`` runs K4, K3 (with and without input grads) and K6 in bf16 on fixed
 seeded inputs (``CASES``: the training shapes, a point count that is not a
 multiple of 128, a direction per point, W=128) and writes every output to
-OUT.pt. ``compare`` holds two such files to each other with ``torch.equal``
+OUT.pt, with the K6 cases' forward: K5's maps and raw. ``compare`` holds two such files to each other with ``torch.equal``
 and exits 1 on the first difference. ``time`` profiles ``REPS`` K4 training
 steps (a coarse launch at S=64 and a fine one at S=192, N_rand=4096) after
 ``WARMUP`` with ``k4_split``, the split that chip_smoke.py's phase 9 prints,
@@ -99,10 +99,11 @@ def run_case(case, dev) -> Dict[str, torch.Tensor]:
         noise = torch.from_numpy(
             np.random.default_rng(R + S).standard_normal((R, S)).astype(np.float32) * 0.5).to(dev)
         white = S >= 192
-        raw = fused_render.fused_render_fwd(kp, ro, rd, vd, z, noise, white, keep_raw=True).raw
+        fwd = fused_render.fused_render_fwd(kp, ro, rd, vd, z, noise, white, keep_raw=True)
         maps = (g[:3, :, 0].T.contiguous(), g[3, :, 0].contiguous(), g[3, :, 1].contiguous(),
                 g[0].contiguous())
-        out = fused_render.fused_render_bwd(kp, ro, rd, vd, z, noise, raw, *maps, white)
+        out = fused_render.fused_render_bwd(kp, ro, rd, vd, z, noise, fwd.raw, *maps, white)
+        out.update({f"K5.{k}": t for k, t in zip(("rgb", "disp", "acc", "w", "raw"), fwd)})
     torch.cuda.synchronize()
     return {k: t.cpu() for k, t in out.items()}
 

@@ -140,6 +140,17 @@ def test_bwd_tile_flops_and_bytes():
     assert fused_mlp.bwd_tile_bytes_per_point(MLPConfig()) == 9_872 - 8 + 512 + 16 + 4
 
 
+@pytest.mark.parametrize("width,want", [(256, 1_190_912), (128, 316_928)])
+def test_fwd_weight_bytes_per_tile(width, want):
+    # the bf16 blob that the forward streams once per 128-point tile:
+    # Layout<W> up to Wout, then Wout's 3W/2 x 4, in bf16
+    cfg = MLPConfig(width=width)
+    assert fused_mlp.fwd_weight_bytes_per_tile(cfg) == want
+    kp = fused_mlp.pack_params(NeRFMLP(cfg, seed=width, device="cpu"), PE_P, PE_V, torch.bfloat16)
+    wb, _ = fused_mlp.kernel_blobs(kp)
+    assert wb.dtype == torch.bfloat16 and wb.numel() * wb.element_size() == want
+
+
 def test_wrapper_checks(nets):
     _, mlp = nets
     kp = fused_mlp.pack_params(mlp, PE_P, PE_V, torch.float32)

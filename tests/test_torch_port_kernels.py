@@ -41,21 +41,35 @@ def _rays(seed, R, S, dev):
     return [torch.from_numpy(a).to(dev) for a in (ro, rd, vd, z)]
 
 
+# (R, S) of K1: ragged tails and full tiles; and the bf16 tile's edges: 1,
+# 127 and 129 points, and 33,984 points, more than 132 SMs x 2 tiles of 128
+# and not a multiple of 128, so the persistent loop wraps and ends ragged
+K1_CASES = {"tiles": ((5, 16), (33, 24), (64, 192)),
+            "edges": ((1, 1), (127, 1), (3, 43), (531, 64))}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [128, 256])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
-def test_fused_mlp_kernel_matches_plain_version(cuda_device, width, dtype, tol):
+@pytest.mark.parametrize("shapes", list(K1_CASES))
+def test_fused_mlp_kernel_matches_plain_version(cuda_device, width, dtype, tol, shapes):
     mlp = NeRFMLP(MLPConfig(width=width), seed=width, device=cuda_device)
     kp = fused_mlp.pack_params(mlp, PE_P, PE_V, dtype)
-    for R, S in ((5, 16), (33, 24), (64, 192)):  # ragged tails and full tiles
+    for R, S in K1_CASES[shapes]:
         args = _rays(R * S, R, S, cuda_device)
         before = fused_mlp.fused_rays_planes.launches
         out = fused_mlp.fused_rays_planes(kp, *args)
+        again = fused_mlp.fused_rays_planes(kp, *args)
         torch.cuda.synchronize()
-        assert fused_mlp.fused_rays_planes.launches == before + 1
+        assert fused_mlp.fused_rays_planes.launches == before + 2
+        assert torch.equal(out, again)  # two launches bit-identical
         ref = fused_mlp.fused_rays_planes_reference(kp, *args)
         assert out.shape == (4, R, S)
-        assert float((out - ref).abs().max()) <= tol
+        err = float((out - ref).abs().max())
+        print(f"K1 W={width} {dtype} R={R} S={S}: max abs {err:.3e}")  # with -s
+        assert err <= tol, (R, S, err)
+        if R * S < 2:
+            continue  # one point has no spread
         spread = (ref - ref.mean(dim=(1, 2), keepdim=True)).abs().mean(dim=(1, 2)).min()
         assert tol < float(spread)  # the bound sees the input-dependent part
 
@@ -119,8 +133,11 @@ def test_fused_query_differentiates_through_k4(cuda_device):
 
 # K2 and K3, the points-in pair: x [N, 3] from memory, a view direction per
 # point (spr = 1, the renderer's mode at S % 8 != 0) or per ray (spr = S).
-# (R, S, spr): ragged tails and full tiles in both modes.
-POINTS_CASES = ((5, 13, 1), (33, 24, 24), (64, 191, 1), (16, 64, 64))
+# (R, S, spr): ragged tails and full tiles in both modes; and the bf16
+# tile's edges (K1_CASES) in both modes.
+POINTS_CASES = {"tiles": ((5, 13, 1), (33, 24, 24), (64, 191, 1), (16, 64, 64)),
+                "edges": ((1, 1, 1), (127, 1, 1), (1, 127, 127), (3, 43, 1), (3, 43, 43),
+                          (531, 64, 1), (531, 64, 64))}
 # K3's f32 weight grads: as K4's, plus one effect K4's cases here do not
 # meet: a relu input within ~1e-7 of zero, which the kernel's and the plain
 # f32 forward put on opposite sides, switches one point's cotangent chain,
@@ -145,20 +162,25 @@ def _points(seed, R, S, spr, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [128, 256])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
-def test_fused_points_kernel_matches_plain_version(cuda_device, width, dtype, tol):
+@pytest.mark.parametrize("shapes", list(POINTS_CASES))
+def test_fused_points_kernel_matches_plain_version(cuda_device, width, dtype, tol, shapes):
     mlp = NeRFMLP(MLPConfig(width=width), seed=width + 2, device=cuda_device)
     kp = fused_mlp.pack_params(mlp, PE_P, PE_V, dtype)
-    for R, S, spr in POINTS_CASES:
+    for R, S, spr in POINTS_CASES[shapes]:
         x, v = _points(R * S + 2, R, S, spr, cuda_device)
         before = fused_mlp.fused_points.launches
         out = fused_mlp.fused_points(kp, x, v, spr)
+        again = fused_mlp.fused_points(kp, x, v, spr)
         torch.cuda.synchronize()
-        assert fused_mlp.fused_points.launches == before + 1
+        assert fused_mlp.fused_points.launches == before + 2
+        assert torch.equal(out, again)  # two launches bit-identical
         ref = fused_mlp.fused_points_reference(kp, x, v, spr)
         assert out.shape == (R * S, 4)
         err = float((out - ref).abs().max())
         print(f"K2 W={width} {dtype} R={R} S={S} spr={spr}: max abs {err:.3e}")  # with -s
         assert err <= tol, (R, S, err)
+        if R < 2:
+            continue  # one ray: one view direction, too little spread to bound
         spread = (ref - ref.mean(dim=0, keepdim=True)).abs().mean(dim=0).min()
         assert tol < float(spread)
 
@@ -173,7 +195,7 @@ def test_fused_points_bwd_kernel_matches_plain_version(cuda_device, width, dtype
     mlp = NeRFMLP(MLPConfig(width=width), seed=width + 3, device=cuda_device)
     with torch.no_grad():
         kp = fused_mlp.pack_params(mlp, PE_P, PE_V, dtype)
-    for R, S, spr in POINTS_CASES:
+    for R, S, spr in POINTS_CASES["tiles"]:
         x, v = _points(R * S + 3, R, S, spr, cuda_device)
         gen = torch.Generator(device=cuda_device).manual_seed(R)
         g = (0.5 + torch.rand(R * S, 4, device=cuda_device, generator=gen)) * 1e-4
@@ -346,8 +368,15 @@ def test_fused_render_kernel_matches_plain_version(cuda_device, width, dtype, to
         print(f"K5 W={width} {dtype} white={white} R={R} S={S}: max abs {err:.3e}, "
               f"rgb spread {spread:.3e}")  # with -s
         assert err <= tol and tol < spread, (R, S, err, spread)
-        # the residual raw is K1's planes bit for bit: one tile body
-        assert torch.equal(out.raw, fused_mlp.fused_rays_planes(kp, ro, rd, vd, z))
+        # the residual raw: in f32 K1's planes bit for bit (one tile body);
+        # in bf16 K5 keeps the mma.sync tile while K1 runs the wgmma one,
+        # whose sums run in another order, so raw is held to its plain version
+        if dtype == torch.float32:
+            assert torch.equal(out.raw, fused_mlp.fused_rays_planes(kp, ro, rd, vd, z))
+        else:
+            with torch.no_grad():
+                raw_ref = fused_mlp.fused_rays_planes_reference(kp, ro, rd, vd, z)
+            assert float((out.raw - raw_ref).abs().max()) <= tol
         served = fused_render.fused_render_fwd(kp, ro, rd, vd, z, noise, white)
         assert served.raw is None and all(torch.equal(a, b) for a, b in zip(served[:4], out[:4]))
 
