@@ -15,9 +15,10 @@ Phases, one line each (any failure exits non-zero):
    prints each instantiation of the backward's phase 1 (``bwd_tile_bf16``)
    with its registers, stack and spill bytes (cuobjdump -res-usage, ptxas)
    and its LDG.E.U16, STG.E.U16 and STG.E.128 counts, and each of K1's and
-   K2's bf16 forward (``fwd_bf16_sm90``) with the same and its HGMMA,
-   UTMALDG and HMMA counts; fails on a spill, and unless the forward issues
-   wgmma and TMA loads and no mma.sync;
+   K2's bf16 forward (``fwd_bf16_sm90``) and of K5's (``render_bf16_sm90``,
+   on the same tile) with the same and its HGMMA, UTMALDG and HMMA counts;
+   fails on a spill, and unless the forward issues wgmma and TMA loads and
+   no mma.sync;
 3. kernel: K1 against its plain PyTorch version at the full 8x256 width,
    in f32 and bf16;
 4. render: renders the first 3 poses of the 40-pose orbit at the lego
@@ -60,21 +61,22 @@ points (``query_raw`` -> ``fused_query``) with a view direction per point:
 The fused-render path (``--fused_render``: K5 from rays to maps with the
 compositing in the kernel, K6 its backward), at 64+128 on both levels:
 14. kernel5 / grad6: K5 and K6 against their plain versions at 8x256, f32
-   and bf16, R=1024 and ragged R=1000, S=64, 192 and 200 (a one-ray
-   group), white background on and off, sigma noise on; K6 with one-signed
-   cotangents on all four maps, twice, bit-identical; and K6's two halves
-   apart: the compositing backward's cotangent of raw against its plain
-   version (f32), and K4's phases on the plain cotangent against the plain
-   weight grads of it; K5's raw against K1's on the same inputs: equal in
-   f32 (one tile body), and in bf16 (K1's wgmma tile, K5's mma.sync one)
-   reported: equal or not, the max abs difference and the share of
-   elements that differ;
+   and bf16, R=1024 and ragged R=1000, S=64, 192 and 200 (bf16: ray
+   groups of 2, 2 and 16 rays; f32: a one-ray group at 200), white
+   background on and off, sigma noise on; K5 twice and once serving (no
+   raw planes), bit-identical; K6 with one-signed cotangents on all four
+   maps, twice, bit-identical; and K6's two halves apart: the compositing
+   backward's cotangent of raw against its plain version (f32), and K4's
+   phases on the plain cotangent against the plain weight grads of it;
+   K5's raw equal to K1's on the same inputs in both dtypes (one tile
+   body);
 15. render: phase 4 with ``fused_render``: 10 K5 launches a frame and no
    other kernel;
 16. train / grads: phases 7 and 8 with ``fused_render`` on the same views:
    2 K5 and 2 K6 launches a step and none of K1-K4;
-17. k5_times / k6_times: K5 per chunk (serving) and K6 per step beside
-   their bounds, plain versions and library chains.
+17. k5_times / k6_times: K5 per chunk (serving) beside K1 on the same
+   inputs, and K6 per step, beside their bounds, plain versions and library
+   chains.
 The probe path (K7, ``python -m nerf_tpu_torch.tools.probe_overlap``) and
 the user's entry path (``cli.train`` / ``cli.render`` on a blender scene):
 18. probe: each of K7's nine bodies (the script's eight and ``products``)
@@ -275,8 +277,9 @@ def ptxas_spills(log: str, function: str) -> dict:
             if function in m.group(1)}
 
 
-def instantiations(source: str, function: str, opcodes) -> dict:
-    """Each of the 4 instantiations (RaysIn / PointsIn x W = 128 / 256) of
+def instantiations(source: str, function: str, opcodes, expected: int = 4) -> dict:
+    """Each of the ``expected`` instantiations (RaysIn / PointsIn x W = 128 /
+    256; a kernel without an input-mode parameter reads rays) of
     ``function`` in csrc/<source>.cu's built library, one line each: its
     registers, stack and spill bytes (cuobjdump -res-usage, ptxas) and how
     often each of ``opcodes`` appears in its SASS. Fails on a spill or a
@@ -287,13 +290,13 @@ def instantiations(source: str, function: str, opcodes) -> dict:
     usage = res_usage(lib, function)
     ops = sass_counts(lib, function, opcodes)
     spills = ptxas_spills(_build.build_log(source), function)
-    if len(usage) != 4 or set(usage) != set(ops) or set(spills) != set(usage):
-        raise RuntimeError(f"expected 4 {function} kernels in the SASS and the ptxas log, "
-                           f"found {sorted(usage)} and {sorted(spills)}")
+    if len(usage) != expected or set(usage) != set(ops) or set(spills) != set(usage):
+        raise RuntimeError(f"expected {expected} {function} kernels in the SASS and the ptxas "
+                           f"log, found {sorted(usage)} and {sorted(spills)}")
     found = {}
     for name, u in sorted(usage.items()):
         spill = spills[name]  # (store, load) bytes
-        inst = f"{'RaysIn' if 'RaysIn' in name else 'PointsIn'},W={256 if 'Li256E' in name else 128}"
+        inst = f"{'PointsIn' if 'PointsIn' in name else 'RaysIn'},W={256 if 'Li256E' in name else 128}"
         phase("sass", kernel=f"{function}<{inst}>", regs=u["REG"], stack_bytes=u["STACK"],
               local_bytes=u["LOCAL"], spill_store_load_bytes=spill, **ops[name])
         if u["STACK"] > SINCOS_STACK or u["LOCAL"] or any(spill):
@@ -388,11 +391,14 @@ def main() -> int:
     # phase 1 of the backward: its global 2-byte loads and stores against its
     # 16-byte stores
     instantiations("fused_mlp_bwd", "bwd_tile_bf16", ("LDG.E.U16", "STG.E.U16", "STG.E.128"))
-    # the bf16 forward of K1 and K2: wgmma and TMA loads, and no mma.sync
-    for inst, ops in instantiations("fused_mlp_fwd", "fwd_bf16_sm90",
-                                    ("HGMMA", "UTMALDG", "HMMA")).items():
-        if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"]:
-            raise RuntimeError(f"fwd_bf16_sm90<{inst}> is not the wgmma + TMA tile: {ops}")
+    # the bf16 forward of K1 and K2, and K5's on the same tile: wgmma and TMA
+    # loads, and no mma.sync
+    for source, function, expected in (("fused_mlp_fwd", "fwd_bf16_sm90", 4),
+                                       ("fused_render", "render_bf16_sm90", 2)):
+        for inst, ops in instantiations(source, function, ("HGMMA", "UTMALDG", "HMMA"),
+                                        expected).items():
+            if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"]:
+                raise RuntimeError(f"{function}<{inst}> is not the wgmma + TMA tile: {ops}")
 
     # 3. kernel against its plain version at full width
     cfg = MLPConfig(width=WIDTH)
@@ -728,7 +734,7 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str) -> None:
     # the backward's own workspace memset is one of the step's few "Memset"
     # entries; those stay in "other", so its share reads ~0.01 ms low
     k4 = K4_LAUNCHES[:-1]
-    groups = {fwd: ("render_bf16",) if fwd == "K5" else ("fwd_bf16_sm90",),
+    groups = {fwd: ("render_bf16_sm90",) if fwd == "K5" else ("fwd_bf16_sm90",),
               bwd: ("composite_bwd",) + k4 if bwd == "K6" else k4}
     rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
@@ -1054,6 +1060,11 @@ def k23_times(cfg, pe_pts, pe_views, rays, k2_errs, dev):
     return k2, k3
 
 
+def same_bits(a, b) -> bool:
+    """a and b hold the same f32 bits (an empty ray's NaN disp included)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def check_maps(out, ref, tol: float, **fields) -> float:
     """Hold K5's maps to its plain version's: rgb, disp (where finite in
     both, the same rays), acc and w; the bound must stay below the rgb
@@ -1101,8 +1112,14 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
                 torch.cuda.synchronize()
                 ref = fused_render.fused_render_reference(kp, *rays, noise, white)
                 err = check_maps(out, ref, tol, dtype=dname, R=R, S=S, white=white)
-                # K1's raw against K5's: one tile body in f32 (a gate); in bf16
-                # K1's wgmma tile against K5's mma.sync one (a report)
+                # a second launch, and a serving one (no raw planes: the bf16
+                # kernel's slab): the same outputs bit for bit
+                again = fused_render.fused_render_fwd(kp, *rays, noise, white, keep_raw=True)
+                served = fused_render.fused_render_fwd(kp, *rays, noise, white)
+                k5_same = (all(same_bits(a, b) for a, b in zip(again, out))
+                           and all(same_bits(a, b) for a, b in zip(served[:4], out[:4])))
+                del again, served
+                # K1's raw against K5's: one tile body in both dtypes (a gate)
                 k1_raw = fused_mlp.fused_rays_planes(kp, *rays)
                 same_raw = torch.equal(out.raw, k1_raw)
                 raw_diff = (out.raw - k1_raw).abs()
@@ -1138,22 +1155,22 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
                 phase("grad6", dtype=dname, R=R, S=S, white=white,
                       worst_leaf_rel_l2=f"{worst:.3e}", leaf=leaf, tol=wtol,
                       max_abs=f"{max_abs:.3e}", bit_identical=same, raw_is_k1=same_raw,
+                      k5_bit_identical=k5_same,
                       k1_vs_k5_raw_max_abs=f"{k1_vs_k5[dname][-1][1]:.3e}",
                       k1_vs_k5_raw_share_differing=f"{k1_vs_k5[dname][-1][2]:.4f}",
                       raw_cotangent_rel_l2=f"{planes_err:.3e}",
                       k4_phases_on_plain_cotangent_rel_l2=f"{half_worst:.3e}",
                       k4_phases_leaf=half_leaf)
-                if not (finite and same and (same_raw or dtype == torch.bfloat16)
-                        and worst <= wtol and half_worst <= wtol
-                        and planes_err <= COMPOSITE_F32_TOL):
+                if not (finite and same and same_raw and k5_same and worst <= wtol
+                        and half_worst <= wtol and planes_err <= COMPOSITE_F32_TOL):
                     raise RuntimeError(f"K6 or one of its halves disagrees with its plain "
-                                       f"version, or K6 is not deterministic, or K5's f32 raw "
+                                       f"version, or K5 or K6 is not deterministic, or K5's raw "
                                        f"is not K1's: {leaf} {worst}, raw cotangent "
                                        f"{planes_err}, K4's phases {half_worst}, same={same}, "
-                                       f"raw={same_raw}")
+                                       f"k5_same={k5_same}, raw={same_raw}")
                 after = read_counts()
                 moved = {k: after[k] - before[k] for k in after}
-                if moved != {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 1, "K6": 2, "K7": 0}:
+                if moved != {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 3, "K6": 2, "K7": 0}:
                     raise RuntimeError(f"the K5/K6 launch counters moved wrongly: {moved}")
                 if dtype == torch.bfloat16:
                     k5_errs.append(err)
@@ -1168,6 +1185,8 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
         phase("k1_vs_k5_raw", dtype=dname, cases=len(equal), all_equal=all(equal),
               max_abs=f"{max(diff):.3e}", largest_share_differing=f"{max(share):.4f}",
               mean_share_differing=f"{sum(share) / len(share):.4f}")
+        if not all(equal):
+            raise RuntimeError(f"K5's {dname} raw is not K1's")
     return k5_errs, k6_errs
 
 
@@ -1190,6 +1209,7 @@ def k56_times(cfg, pe_pts, pe_views, rays, dev):
     gbytes = 4 * sum(v.numel() for v in kp.values())
     zero = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
     k5, k6 = dict(zero), dict(zero)
+    k1_ms = 0.0  # K1 on K5's inputs, beside it: what the compositing costs
     gen = torch.Generator(device=dev).manual_seed(6)
     ro, rd, vd = (t[:CHUNK] for t in rays)
     for S in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE):
@@ -1199,6 +1219,8 @@ def k56_times(cfg, pe_pts, pe_views, rays, dev):
         n_pts = CHUNK * S
         with torch.no_grad():
             ms = cuda_ms(lambda: fused_render.fused_render_fwd(kp, *args, blobs), reps=10, warmup=2)
+            k1 = cuda_ms(lambda: fused_mlp.fused_rays_planes(kp, ro, rd, vd, z, blobs), reps=10,
+                         warmup=2)
             plain_ms = cuda_ms(lambda: fused_render.fused_render_reference(kp, *args), reps=2)
         torch.cuda.empty_cache()
         chain = matmul_chain(kp, n_pts)
@@ -1209,9 +1231,10 @@ def k56_times(cfg, pe_pts, pe_views, rays, dev):
         io_bytes = CHUNK * 9 * 4 + n_pts * 4 + CHUNK * 5 * 4 + n_pts * 4 + wbytes
         ops_ms = 1e3 * n_pts * flops_pt / PEAK_BF16_FLOPS
         bytes_ms = 1e3 * io_bytes / PEAK_BYTES
-        phase("k5_times", R=CHUNK, S=S, points=n_pts, ms=f"{ms:.3f}",
+        phase("k5_times", R=CHUNK, S=S, points=n_pts, ms=f"{ms:.3f}", k1_ms=f"{k1:.3f}",
               bound_ms=f"{max(ops_ms, bytes_ms):.3f}", plain_ms=f"{plain_ms:.3f}",
               library_ms=f"{library_ms:.3f}", tflops=f"{n_pts * flops_pt / ms / 1e9:.1f}")
+        k1_ms += k1
         for k, t in (("ms", ms), ("plain_ms", plain_ms), ("ops_ms", ops_ms),
                      ("bytes_ms", bytes_ms), ("library_ms", library_ms)):
             k5[k] += t
@@ -1247,6 +1270,9 @@ def k56_times(cfg, pe_pts, pe_views, rays, dev):
             k6[k] += t
         del raw, g
         torch.cuda.empty_cache()
+    phase("k5_vs_k1", per="32,768-ray chunk (S=64 + S=192)", k5_ms=f"{k5['ms']:.3f}",
+          k1_ms=f"{k1_ms:.3f}", k5_minus_k1_ms=f"{k5['ms'] - k1_ms:.3f}",
+          k5_over_k1=f"{k5['ms'] / k1_ms:.4f}", library_ms=f"{k5['library_ms']:.3f}")
     return k5, k6
 
 

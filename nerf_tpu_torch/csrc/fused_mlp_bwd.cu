@@ -36,9 +36,9 @@
 //
 // Design: three phases, each launch on the caller's stream.
 //  1. One CTA per 128-point tile (64 in f32) recomputes the forward with the
-//     mma.sync tile code of fused_mlp_common.cuh (K5's forward itself; K1's
-//     and K2's wgmma tile sums the same products in the same K order, and
-//     on an H100 its raw matched this code's to the head's last f32 bits:
+//     mma.sync tile code of fused_mlp_common.cuh (K1's, K2's and K5's
+//     wgmma tile sums the same products in the same K order, and on an
+//     H100 its raw matched this code's to the head's last f32 bits:
 //     PERF.md) and runs the cotangent chain d W^T through the
 //     same mma_layer, with the weights in kp's own [in][out] layout as the B
 //     operand. A tile does not fit every activation in shared memory (h0..h7,
@@ -95,9 +95,9 @@
 //     (1,181,696 FLOP a point), so >= 0.77 ms coarse and >= 2.32 ms fine at
 //     3.35 TB/s.
 // Padded points carry a zero cotangent, so they add nothing to any sum.
-// Phase 1's products are still mma.sync through mma_layer, which K5 shares;
-// K1 and K2 moved to wgmma (fwd_tile_sm90.cuh), whose engine the recompute
-// and the chain can take over next.
+// Phase 1's products are still mma.sync through mma_layer; K1, K2 and K5
+// moved to wgmma (fwd_tile_sm90.cuh), whose engine the recompute and the
+// chain can take over next.
 
 #include "fused_mlp_common.cuh"
 #include "hopper.cuh"

@@ -2,9 +2,10 @@
 // K1 and K2, fused_mlp_bwd.cu: K4 and K3, fused_render.cu: K5): the two
 // input modes, the weight-blob layout, the posenc embedding and its
 // backward, the bf16 mma.sync layer with its cp.async weight ring, the f32
-// FMA layer, and the forward's tile body, which hands raw to a caller-given
-// sink. The backward recomputes the forward activations from this code,
-// which is K5's forward. K1 and K2 run fwd_tile_sm90.cuh's wgmma tile,
+// FMA layer, and the forward's tile bodies, which hand raw to a
+// caller-given sink. The backward recomputes the forward activations from
+// this code (fwd_tile_bf16), and the f32 forwards run fwd_tile_f32. K1, K2
+// and K5 run fwd_tile_sm90.cuh's wgmma tile in bf16,
 // which sums each layer's products in the same K order; on an H100 its bf16
 // raw differed from this tile's only in the head's last f32 bits (PERF.md),
 // where one activation rounded to the other bf16 neighbour would show ~1e-4.

@@ -38,8 +38,8 @@
 // two consumer warpgroups own 64 points each and run wgmma m64nNk16 (N = W,
 // W/2 for the view layer) with A, their activations, from shared memory in
 // the swizzled layout and B from the ring. What that does about the earlier
-// mma.sync tile (fused_mlp_common.cuh's fwd_tile_bf16, which K5 and the
-// backward's recompute still run):
+// mma.sync tile (fused_mlp_common.cuh's fwd_tile_bf16, which the
+// backward's recompute still runs; K5 runs this tile too, fused_render.cu):
 //  - products: wgmma reads both operands from shared memory, where the
 //    mma.sync tile loaded every fragment with scalar 32-bit shared loads;
 //  - the weight ring: one thread and the TMA engine move the weights, four
@@ -92,13 +92,9 @@ fwd_f32(const In in, int n_pts, int Fp, int Fv, const float* __restrict__ wb,
 template <typename In, int W>
 cudaError_t launch_bf16(const In& in, int n_pts, int Fp, int Fv, const void* wblob,
                         const float* bb, float* out, size_t sc, size_t sp, cudaStream_t stream) {
-  using O = Layout<W>;
   const bf16* wb = static_cast<const bf16*>(wblob);
   FwdMaps maps;
-  NERF_CHECK(hopper::encode_rows_sw128(&maps.w05, wb + O::w05, 2 * W, KE, W));
-  NERF_CHECK(hopper::encode_rows_sw128(&maps.trunk, wb + O::w1, 8 * W, W, W));
-  NERF_CHECK(hopper::encode_rows_sw128(&maps.wvf, wb + O::wvf, W / 2, W, W / 2));
-  NERF_CHECK(hopper::encode_rows_sw128(&maps.wve, wb + O::wve, W / 2, KV, W / 2));
+  NERF_CHECK(encode_fwd_maps<W>(&maps, wb));
   constexpr size_t smem = FwdSmem<W>::launch_bytes;
   NERF_CHECK(cudaFuncSetAttribute(fwd_bf16_sm90<In, W>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));

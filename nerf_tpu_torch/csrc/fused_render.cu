@@ -30,27 +30,62 @@
 // so it is bound by operations: >= 10.07 ms for a 32,768-ray chunk at
 // 64+192 samples at 989 TFLOP/s bf16. K6 is K4's operations plus a per-ray
 // pass that moves ~44 B a point.
-// Design: K1's CTA owns 128 points, which at S = 192 is 1.5 rays, but
-// compositing needs whole rays in one CTA. So a K5 CTA owns a group of G
-// whole rays, G = lcm(S, tile) / S (2 at S = 64 and at S = 192), and runs
-// the shared tile body (fused_mlp_common.cuh) over the group's G*S/tile
-// sub-tiles with a sink that keeps raw in shared memory (20 B a point with
-// the compositing scratch). Where that group would hold more than
-// GROUP_BYTES of it (S = 200: lcm = 3200 points), the CTA takes one ray and
-// masks the tail of its last sub-tile. The compositing then runs in the
-// CTA: the per-point transcendentals (exp, log, sigmoid) on every thread,
-// the two sums in sample order on one thread per ray. The f32 instantiation
-// does the same with 64-point sub-tiles. composite_bwd is one thread per
-// ray, three passes over its samples; every sum runs in a fixed order, so
-// launches are bit-identical. This is the simple first version.
+// Design of the bf16 kernel (render_bf16_sm90): K1's tile
+// (fwd_tile_sm90.cuh: a TMA weight ring, two ping-pong wgmma consumer
+// warpgroups, a persistent grid), so K5's raw is K1's bit for bit, with a
+// schedule and a hook of its own:
+//  - ray groups: compositing needs whole rays in one CTA, and a 128-point
+//    tile is 1.5 rays at S = 192. A group is G = lcm(S, 128) / S whole rays,
+//    n_sub = lcm(S, 128) / 128 consecutive full tiles (S = 64: 2 rays, 1
+//    tile; 192: 2, 3; 200: 16, 25; 8: 16, 1). GroupWalk takes the CTA's
+//    groups blockIdx.x, + gridDim.x, ..., each group's tiles in order; only
+//    the last group is ragged, which the tile's p < n_pts mask covers;
+//  - raw off the chip, near it: at W = 256 the tile leaves 1,984 bytes of
+//    an SM's shared memory, and a group needs 16 B a point (6 KB at S =
+//    192). The sink writes raw to the raw planes where they are kept
+//    (autograd: K6's residual), else to the CTA's slab in device memory,
+//    [grid][2][4][G*S] floats, double-buffered by the CTA's group count
+//    (1.6 MB at S = 192, 13.5 MB at S = 200 for 132 CTAs: it stays in the
+//    50 MB L2); the wrapper allocates it (fused_render.py::slab_floats);
+//  - compositing beside the MLP (GroupHook, the hook): the producer
+//    warpgroup's three idle warps composite each group once the consumers
+//    have written its raw, while the consumers go on with the next groups
+//    and keep their ping-pong. Per slab buffer two mbarriers: `full` (the
+//    256 consumer threads arrive after their last head of the group) and
+//    `empty` (the 96 compositing threads arrive after reading it); a
+//    consumer waits on `empty` before the first head of the CTA's group
+//    k >= 2, for group k-2. Each warp composites a ray: lane l takes
+//    ceil(S/32) consecutive samples, sums their log c in sample order, a
+//    shuffle scan in a fixed lane order gives each lane its exclusive
+//    prefix, a second pass forms T, w and the lane's rgb, depth and acc
+//    sums, and an xor butterfly sums those; in 40 registers a thread
+//    (setmaxnreg). Every sum runs in a fixed order, so launches are
+//    bit-identical; against the plain version's cumsum the prefix differs
+//    by f32 ulps. (Compositing on the consumers, behind a barrier of both
+//    at each group's end, stalled their ping-pong: K5 - K1 was 15-16% of
+//    K1 against 0.5-3% so; PERF.md.)
+// The f32 kernel (render_f32) keeps the simple first version: a CTA of 256
+// threads owns one group, whose raw fwd_tile_f32 (fused_mlp_common.cuh)
+// keeps in shared memory (20 B a point with the compositing scratch) over
+// 64-point sub-tiles; where the group would hold more than GROUP_BYTES of
+// it (S = 200: lcm = 1600 points), the CTA takes one ray and masks the
+// tail of its last sub-tile; the two sums run in sample order on one thread
+// per ray. composite_bwd is one thread per ray, three passes over its
+// samples; every sum runs in a fixed order, so launches are bit-identical.
 
 #include "fused_mlp_common.cuh"
+#include "fwd_tile_sm90.cuh"
 
 namespace {
 
-constexpr int COMP_PLANES = 5;        // r, g, b, sigma (-> ea), log c (-> prefix -> w)
-constexpr size_t GROUP_BYTES = 16384;  // shared memory for a multi-ray group's points
+constexpr int COMP_PLANES = 5;        // f32: r, g, b, sigma (-> ea), log c (-> prefix -> w)
+constexpr size_t GROUP_BYTES = 16384;  // f32: shared memory for a multi-ray group's points
 constexpr int MAX_SMEM = 232448;       // a block's dynamic shared memory on sm_90
+constexpr int RAW_PLANES = 4;          // bf16: r, g, b, sigma of a group in the slab
+constexpr int SLAB_BUFFERS = 2;        // bf16: a CTA's slab, double-buffered
+constexpr int COMPOSITE_WARPS = 3;     // bf16: the producer warpgroup's idle warps
+// bf16: the slab's mbarriers (full and empty of each buffer) after FwdSmem's
+constexpr size_t HOOK_BYTES = 2 * SLAB_BUFFERS * sizeof(uint64_t);
 
 // |d| as sqrt((d0 d0 + d1 d1) + d2 d2), no FMA contraction
 __device__ __forceinline__ float ray_norm(const float* d) {
@@ -92,8 +127,9 @@ struct RenderArgs {
   int S;
   int Fp;
   int Fv;
-  int G;      // rays per CTA
-  int n_sub;  // sub-tiles per CTA
+  int G;         // rays per group
+  int n_sub;     // (sub-)tiles per group
+  int n_groups;  // bf16: ceil(n_rays / G)
   int white;
   const void* wb;
   const float* bb;
@@ -102,20 +138,7 @@ struct RenderArgs {
   float* acc;   // [R]
   float* w;     // [R][S]
   float* raw;   // planes [4][R*S], or null
-};
-
-// Raw of the CTA's points into the compositing planes comp[c][p - pbase]
-// (stride nq), and to raw planes in device memory where given.
-struct GroupSink {
-  float* comp;
-  int nq;
-  int pbase;
-  float* raw;
-  size_t n_pts;
-  __device__ void operator()(int p, int c, float v) const {
-    comp[c * nq + (p - pbase)] = v;
-    if (raw != nullptr) raw[c * n_pts + p] = v;
-  }
+  float* slab;  // bf16 without raw: [grid][SLAB_BUFFERS][RAW_PLANES][G*S]
 };
 
 // The compositing of the CTA's rays r0 .. r0+g_rays-1 from raw in comp.
@@ -168,22 +191,187 @@ __device__ void composite(const RenderArgs& a, float* comp, int nq, int r0, int 
   }
 }
 
-template <int W>
-__global__ void __launch_bounds__(THREADS, 1) render_bf16(const RenderArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nq = a.n_sub * TP;
-  float* comp = reinterpret_cast<float*>(smem + Bf16Smem<W>::bytes);
-  const int r0 = blockIdx.x * a.G;
-  const int g_rays = min(a.G, a.n_rays - r0);
-  const int pbase = r0 * a.S, p_end = pbase + g_rays * a.S;
-  const RaysIn in{a.ro, a.rd, a.z, a.vd, a.S};
-  const GroupSink sink{comp, nq, pbase, a.raw, size_t(a.n_rays) * a.S};
-  for (int j = 0; j < a.n_sub && pbase + j * TP < p_end; ++j)
-    fwd_tile_bf16<RaysIn, W>(in, p_end, a.Fp, a.Fv, static_cast<const bf16*>(a.wb), a.bb,
-                             pbase + j * TP, smem, sink);
-  __syncthreads();
-  composite(a, comp, nq, r0, g_rays);
+// ------------------------------------------------------------- bf16 (sm_90a)
+
+// K5's schedule: the CTA's groups blockIdx.x, + gridDim.x, ..., each group's
+// n_sub tiles in order.
+struct GroupWalk {
+  int n_sub;
+  __device__ __forceinline__ int first() const { return blockIdx.x * n_sub; }
+  __device__ __forceinline__ int next(int tile) const {
+    return (tile + 1) % n_sub != 0 ? tile + 1 : tile + 1 + int(gridDim.x - 1) * n_sub;
+  }
+};
+
+// Raw plane 0 of group g (the CTA's buffer b of the slab, b = the CTA's
+// group count % 2), indexed by the group's sample q = p - g*G*S: the raw
+// planes where they are kept, else the slab; plane c is plane_stride(a)
+// floats further.
+__device__ __forceinline__ float* group_plane(const RenderArgs& a, int g, int b) {
+  const int GS = a.G * a.S;
+  if (a.raw != nullptr) return a.raw + size_t(g) * GS;
+  return a.slab + size_t(blockIdx.x * SLAB_BUFFERS + b) * RAW_PLANES * GS;
 }
+__device__ __forceinline__ size_t plane_stride(const RenderArgs& a) {
+  return a.raw != nullptr ? size_t(a.n_rays) * a.S : size_t(a.G) * a.S;
+}
+
+// The tile's sink: raw of point p into its group's planes.
+struct GroupSink {
+  const RenderArgs& a;
+  __device__ __forceinline__ void operator()(int p, int c, float v) const {
+    const int GS = a.G * a.S, g = p / GS;
+    group_plane(a, g, (g / int(gridDim.x)) % SLAB_BUFFERS)[c * plane_stride(a) + (p - g * GS)] = v;
+  }
+};
+
+// ea of the ray's sample k (point p0 + k) from its raw sigma plane.
+__device__ __forceinline__ float sample_ea(const RenderArgs& a, const float* sigma, int p0, int k,
+                                           float dn) {
+  const float raw_sigma = __ldcg(sigma + k);
+  const float dz = k + 1 < a.S ? __fsub_rn(a.z[p0 + k + 1], a.z[p0 + k]) : 1e10f;
+  return ealpha(noisy(raw_sigma, a.noise, p0 + k), __fmul_rn(dz, dn));
+}
+
+// One warp composites ray r from its raw planes (sample k of plane c at
+// pl[c * plane_stride(a) + k]): lane l owns ceil(S/32) consecutive samples
+// [k0, k1). Lean on registers, for the 40 of a compositing thread: points
+// by 32-bit index off the arguments' pointers, depth and acc summed over
+// the lanes before rgb's pass over the w just written.
+__device__ __forceinline__ void composite_ray(const RenderArgs& a, int r, const float* pl) {
+  const int S = a.S, lane = threadIdx.x & 31;
+  const int n = (S + 31) / 32;
+  const int k0 = min(lane * n, S), k1 = min(k0 + n, S);
+  const int p0 = r * S;
+  const float* sigma = pl + 3 * plane_stride(a);
+  const float dn = ray_norm(a.rd + 3 * r);
+  // the lane's sum of log c in sample order
+  float s = 0.f;
+#pragma unroll 1
+  for (int k = k0; k < k1; ++k) s = __fadd_rn(s, log_c(sample_ea(a, sigma, p0, k, dn)));
+  // the lanes' exclusive prefix: an inclusive scan in a fixed order, shifted
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, s, o);
+    if (lane >= o) s = __fadd_rn(t, s);
+  }
+  float pre = __shfl_up_sync(0xffffffffu, s, 1);
+  if (lane == 0) pre = 0.f;
+  // T_k = exp(pre), w_k = (1 - ea_k) T_k; depth and acc
+  float depth = 0.f, acc = 0.f;
+#pragma unroll 1
+  for (int k = k0; k < k1; ++k) {
+    const float ea = sample_ea(a, sigma, p0, k, dn);
+    const float w = __fmul_rn(__fsub_rn(1.f, ea), expf(pre));
+    pre = __fadd_rn(pre, log_c(ea));
+    a.w[p0 + k] = w;
+    depth = fmaf(w, a.z[p0 + k], depth);
+    acc = __fadd_rn(acc, w);
+  }
+  // the sums over the lanes (xor butterflies: every lane gets the same)
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    depth = __fadd_rn(depth, __shfl_xor_sync(0xffffffffu, depth, o));
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
+  }
+  if (lane == 0) {
+    a.disp[r] = disp_of(depth / acc);
+    a.acc[r] = acc;
+  }
+  // rgb over the lane's w
+  float rgb[3] = {0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int k = k0; k < k1; ++k) {
+    const float w = a.w[p0 + k];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      rgb[c] = fmaf(w, sigmoid(__ldcg(pl + c * plane_stride(a) + k)), rgb[c]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rgb[c] = __fadd_rn(rgb[c], __shfl_xor_sync(0xffffffffu, rgb[c], o));
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) a.rgb[r * 3 + c] = a.white ? rgb[c] + (1.f - acc) : rgb[c];
+  }
+}
+
+// The tile's hook: the producer warpgroup's warps 1-3 composite each ray
+// group once the consumers have written its raw, while the consumers go on
+// to the next groups. The CTA's k-th group uses slab buffer b = k % 2,
+// behind two mbarriers in shared memory (bars, after FwdSmem's):
+// full[b] (the 256 consumer threads arrive after their last head of the
+// group) and empty[b] (the 96 compositing threads arrive once they have
+// read it); the consumers wait on empty[b] before the first head of group
+// k >= 2, for group k-2's compositing.
+struct GroupHook {
+  const RenderArgs& a;
+  uint64_t* bars;  // full[SLAB_BUFFERS], empty[SLAB_BUFFERS]
+  __device__ __forceinline__ int local_group(int tile) const {
+    return tile / a.n_sub / int(gridDim.x);
+  }
+  __device__ __forceinline__ void before_head(int tile) const {
+    const int k = local_group(tile);
+    if (tile % a.n_sub == 0 && k >= SLAB_BUFFERS)
+      hopper::mbar_wait(&bars[SLAB_BUFFERS + k % SLAB_BUFFERS], (k / SLAB_BUFFERS - 1) & 1);
+  }
+  __device__ __forceinline__ void after_tile(int tile, int ntiles) const {
+    if ((tile + 1) % a.n_sub == 0 || tile + 1 == ntiles)
+      hopper::mbar_arrive(&bars[local_group(tile) % SLAB_BUFFERS]);
+  }
+  // The grid's size read anew where it is used (asm volatile): held in a
+  // register across the compositing, it was the one value that spilled.
+  __device__ __forceinline__ static int grid_ctas() {
+    int n;
+    asm volatile("mov.u32 %0, %%nctaid.x;\n" : "=r"(n));
+    return n;
+  }
+  __device__ __forceinline__ void side() const {
+    const int warp = int(threadIdx.x >> 5) - 1;  // 0-2
+    int k = 0;  // the CTA's group count
+    for (int g = blockIdx.x; g < a.n_groups; g += grid_ctas(), ++k) {
+      const int b = k % SLAB_BUFFERS;
+      hopper::mbar_wait(&bars[b], (k / SLAB_BUFFERS) & 1);
+      const int r_end = min((g + 1) * a.G, a.n_rays);
+      for (int r = g * a.G + warp; r < r_end; r += COMPOSITE_WARPS)
+        composite_ray(a, r, group_plane(a, g, b) + (r - g * a.G) * a.S);
+      hopper::mbar_arrive(&bars[SLAB_BUFFERS + b]);
+    }
+  }
+};
+
+template <int W>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+render_bf16_sm90(const __grid_constant__ FwdMaps maps, const __grid_constant__ RenderArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(fwd_smem_base(smem) + FwdSmem<W>::bytes);
+  if (threadIdx.x == 0) {  // made visible with the ring's barriers (fwd_tiles_sm90)
+    for (int b = 0; b < SLAB_BUFFERS; ++b) {
+      hopper::mbar_init(&bars[b], 2 * 128);
+      hopper::mbar_init(&bars[SLAB_BUFFERS + b], 32 * COMPOSITE_WARPS);
+    }
+  }
+  const RaysIn in{a.ro, a.rd, a.z, a.vd, a.S};
+  fwd_tiles_sm90<RaysIn, W>(maps, in, a.n_rays * a.S, a.Fp, a.Fv, static_cast<const bf16*>(a.wb),
+                            a.bb, smem, GroupSink{a}, GroupWalk{a.n_sub}, GroupHook{a, bars});
+}
+
+// ------------------------------------------------------------------ f32
+
+// Raw of the CTA's points into the compositing planes comp[c][p - pbase]
+// (stride nq), and to raw planes in device memory where given.
+struct SharedSink {
+  float* comp;
+  int nq;
+  int pbase;
+  float* raw;
+  size_t n_pts;
+  __device__ void operator()(int p, int c, float v) const {
+    comp[c * nq + (p - pbase)] = v;
+    if (raw != nullptr) raw[c * n_pts + p] = v;
+  }
+};
 
 template <int W>
 __global__ void __launch_bounds__(THREADS) render_f32(const RenderArgs a) {
@@ -194,7 +382,7 @@ __global__ void __launch_bounds__(THREADS) render_f32(const RenderArgs a) {
   const int g_rays = min(a.G, a.n_rays - r0);
   const int pbase = r0 * a.S, p_end = pbase + g_rays * a.S;
   const RaysIn in{a.ro, a.rd, a.z, a.vd, a.S};
-  const GroupSink sink{comp, nq, pbase, a.raw, size_t(a.n_rays) * a.S};
+  const SharedSink sink{comp, nq, pbase, a.raw, size_t(a.n_rays) * a.S};
   for (int j = 0; j < a.n_sub && pbase + j * TP32 < p_end; ++j)
     fwd_tile_f32<RaysIn, W>(in, p_end, a.Fp, a.Fv, static_cast<const float*>(a.wb), a.bb,
                             pbase + j * TP32, smem, sink);
@@ -265,16 +453,21 @@ __global__ void composite_bwd(const float* __restrict__ rd, const float* __restr
   }
 }
 
-int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+long long gcd(long long a, long long b) { return b == 0 ? a : gcd(b, a % b); }
 
-// A CTA's rays and sub-tiles: a whole number of tiles of whole rays where
-// that fits GROUP_BYTES, else one ray and its masked tail.
+// A group of whole rays that fills whole tiles: G = lcm(S, tile) / S rays,
+// n_sub = lcm(S, tile) / tile tiles.
+void ray_groups(int S, int tile, int& G, int& n_sub) {
+  const long long lcm = S / gcd(S, tile) * tile;
+  G = static_cast<int>(lcm / S);
+  n_sub = static_cast<int>(lcm / tile);
+}
+
+// f32: a CTA's rays and sub-tiles: a group where its raw fits GROUP_BYTES,
+// else one ray and its masked tail.
 void group_geometry(int S, int tile, int& G, int& n_sub) {
-  const long long lcm = static_cast<long long>(S) / gcd(S, tile) * tile;
-  if (lcm * COMP_PLANES * 4 <= static_cast<long long>(GROUP_BYTES)) {
-    G = static_cast<int>(lcm / S);
-    n_sub = static_cast<int>(lcm / tile);
-  } else {
+  ray_groups(S, tile, G, n_sub);
+  if (static_cast<long long>(n_sub) * tile * COMP_PLANES * 4 > static_cast<long long>(GROUP_BYTES)) {
     G = 1;
     n_sub = (S + tile - 1) / tile;
   }
@@ -294,6 +487,35 @@ cudaError_t launch_render(Kernel kernel, size_t base_smem, int tile, RenderArgs 
   return cudaGetLastError();
 }
 
+// bf16: the weights' tensor maps and a persistent grid of min(groups, the
+// device's SM count) CTAs; without raw planes the slab must hold
+// grid x SLAB_BUFFERS x RAW_PLANES x G*S floats.
+template <int W>
+cudaError_t launch_render_sm90(RenderArgs a, long long slab_floats, cudaStream_t stream) {
+  ray_groups(a.S, TP, a.G, a.n_sub);
+  if (static_cast<long long>(a.n_sub) * TP > 0x7fffffffLL) return cudaErrorInvalidValue;
+  FwdMaps maps;
+  cudaError_t err = encode_fwd_maps<W>(&maps, static_cast<const bf16*>(a.wb));
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = FwdSmem<W>::launch_bytes + HOOK_BYTES;
+  static_assert(smem <= size_t(MAX_SMEM), "the slab's barriers fit beside the tile's");
+  err = cudaFuncSetAttribute(render_bf16_sm90<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(smem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  a.n_groups = (a.n_rays + a.G - 1) / a.G;
+  const int grid = a.n_groups < sms ? a.n_groups : sms;
+  if (a.raw == nullptr &&
+      (a.slab == nullptr ||
+       slab_floats < static_cast<long long>(grid) * SLAB_BUFFERS * RAW_PLANES * a.n_sub * TP))
+    return cudaErrorInvalidValue;
+  render_bf16_sm90<W><<<grid, FWD_THREADS, smem, stream>>>(maps, a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Every entry returns a cudaError_t code (0 on success). The launches go on
@@ -303,24 +525,26 @@ cudaError_t launch_render(Kernel kernel, size_t base_smem, int tile, RenderArgs 
 
 // K5: rays_o, rays_d, viewdirs [R,3]; z [R,S]; noise [R,S] or null (none);
 // out rgb [R,3], disp [R], acc [R], w [R,S], and raw [4,R,S] unless null.
+// bf16 without raw takes a scratch slab of slab_floats floats (at least
+// fused_render.py::slab_floats), else null.
 extern "C" int nerf_fused_render_fwd(int use_bf16, int width, const float* rays_o,
                                      const float* rays_d, const float* viewdirs, const float* z,
                                      const float* noise, int n_rays, int n_samples,
                                      int n_freq_pts, int n_freq_views, int white_bkgd,
                                      const void* wblob, const float* bblob, float* rgb,
-                                     float* disp, float* acc, float* w, float* raw,
-                                     void* stream) {
+                                     float* disp, float* acc, float* w, float* raw, float* slab,
+                                     long long slab_floats, void* stream) {
   if (n_freq_pts < 1 || n_freq_pts > MAX_FP || n_freq_views < 1 || n_freq_views > MAX_FV)
     return cudaErrorInvalidValue;
   const long long n = static_cast<long long>(n_rays) * n_samples;
   if (n_rays < 0 || n_samples < 1 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   RenderArgs a{rays_o, rays_d, viewdirs, z, noise, n_rays, n_samples, n_freq_pts, n_freq_views,
-               0, 0, white_bkgd != 0, wblob, bblob, rgb, disp, acc, w, raw};
+               0, 0, 0, white_bkgd != 0, wblob, bblob, rgb, disp, acc, w, raw, slab};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_bf16) {
-    if (width == 256) return launch_render(render_bf16<256>, Bf16Smem<256>::bytes, TP, a, s);
-    if (width == 128) return launch_render(render_bf16<128>, Bf16Smem<128>::bytes, TP, a, s);
+    if (width == 256) return launch_render_sm90<256>(a, slab_floats, s);
+    if (width == 128) return launch_render_sm90<128>(a, slab_floats, s);
   } else {
     if (width == 256) return launch_render(render_f32<256>, F32Smem<256>::bytes, TP32, a, s);
     if (width == 128) return launch_render(render_f32<128>, F32Smem<128>::bytes, TP32, a, s);

@@ -8,8 +8,15 @@
 // its activations matched that tile's in every case measured; the head's
 // f32 sums run in another order, so raw differs in its last bits (PERF.md).
 //
-// One CTA of 384 threads (fwd_tiles_sm90 is the whole CTA's body) walks the
-// tiles blockIdx.x, + gridDim.x, ... of a persistent grid:
+// One CTA of 384 threads (fwd_tiles_sm90 is the whole CTA's body) walks its
+// tiles of a persistent grid in the order a schedule gives (a template
+// parameter: TileWalk, K1's and K2's default, takes tiles blockIdx.x,
+// + gridDim.x, ...; K5's GroupWalk in fused_render.cu takes groups of
+// consecutive tiles); the producer and both consumers walk the same order.
+// A hook (a template parameter too; NoHook, the default, compiles to
+// nothing) is called by the consumers before each tile's head writes raw
+// and after it, and runs on the producer warpgroup's three idle warps (K5
+// composites its ray groups there):
 // - warpgroup 0, the producer: one thread streams the weight chunks of
 //   every tile, in the order the layers consume them, by TMA into a ring of
 //   FWD_STAGES stages (a chunk is 64 K columns x N rows of a W^T block,
@@ -85,6 +92,31 @@ struct FwdSmem {
   static_assert(launch_bytes <= 232448, "fits in an SM's shared memory");
   static_assert(NB <= FWD_STAGES, "a layer's act chunks fit in the ring (take_turn)");
 };
+
+// The schedules: the first tile of the CTA and the one after `tile`; the
+// CTA stops at the first tile >= ntiles. TileWalk (K1, K2): every
+// gridDim.x-th tile.
+struct TileWalk {
+  __device__ __forceinline__ int first() const { return blockIdx.x; }
+  __device__ __forceinline__ int next(int tile) const { return tile + gridDim.x; }
+};
+
+// The hook: before_head(tile) is called by every consumer thread before
+// the tile's head hands raw to the sink, after_tile(tile, ntiles) after it,
+// and side() by the threads of the producer warpgroup's warps 1-3 (40
+// registers each) once. NoHook: none.
+struct NoHook {
+  __device__ __forceinline__ void before_head(int) const {}
+  __device__ __forceinline__ void after_tile(int, int) const {}
+  __device__ __forceinline__ void side() const {}
+};
+
+// The 1 KB-aligned base of the dynamic shared memory (FwdSmem's offsets;
+// a caller's extra bytes start at FwdSmem<W>::bytes).
+__device__ __forceinline__ unsigned char* fwd_smem_base(unsigned char* smem_raw) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                          ~uintptr_t(1023));
+}
 
 // The consumers' view of the ring: g counts the chunks consumed so far.
 struct FwdRing {
@@ -298,12 +330,13 @@ __device__ __forceinline__ void take_turn(int w) { hopper::bar_sync(3 + w, 256);
 __device__ __forceinline__ void pass_turn(int w) { hopper::bar_arrive(4 - w, 256); }
 
 // One consumer warpgroup (w = 0 or 1) over the CTA's tiles.
-template <typename In, int W, typename Sink>
+template <typename In, int W, typename Sink, typename Walk, typename Hook>
 __device__ __forceinline__ void fwd_consumer(const In& in, int n_pts, int Fp, int Fv,
                                              const bf16* __restrict__ wb,
                                              const float* __restrict__ bb, int ntiles,
                                              unsigned char* smem, uint64_t* full, uint64_t* empty,
-                                             int w, const Sink& sink) {
+                                             int w, const Sink& sink, const Walk& walk,
+                                             const Hook& hook) {
   using L = FwdSmem<W>;
   using O = Layout<W>;
   constexpr int NB = L::NB;
@@ -314,7 +347,7 @@ __device__ __forceinline__ void fwd_consumer(const In& in, int n_pts, int Fp, in
   const int bar = 1 + w;
   FwdRing r{smem + L::ring, L::STAGE, full, empty, 0};
   if (w == 1) pass_turn(w);  // warpgroup 0 goes first
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+  for (int tile = walk.first(); tile < ntiles; tile = walk.next(tile)) {
     const int p0 = tile * TP + w * FWD_ROWS;
     embed_sw(in, n_pts, Fp, Fv, p0, act, emb, embv);
     hopper::fence_proxy_async();
@@ -369,16 +402,18 @@ __device__ __forceinline__ void fwd_consumer(const In& in, int n_pts, int Fp, in
       pass_turn(w);  // before the embv chunk: see take_turn
       consume_chunk<W / 2>(r, acc, embv, false);
       finish_layer(r, bar);  // act and embv are free for the next tile
+      hook.before_head(tile);
       view_head<W>(acc, bb + O::bv, wout, bb + O::bout, part, n_pts, p0, sink);
     }
+    hook.after_tile(tile, ntiles);
   }
   if (w == 0) take_turn(w);  // warpgroup 1's last pass_turn
 }
 
 // The producer thread: every tile's chunks, in the consumers' order.
-template <int W>
+template <int W, typename Walk>
 __device__ __forceinline__ void fwd_producer(const FwdMaps& maps, int ntiles, unsigned char* ring,
-                                             uint64_t* full, uint64_t* empty) {
+                                             uint64_t* full, uint64_t* empty, const Walk& walk) {
   using L = FwdSmem<W>;
   constexpr int NB = L::NB;
   uint32_t g = 0;
@@ -389,7 +424,7 @@ __device__ __forceinline__ void fwd_producer(const FwdMaps& maps, int ntiles, un
     hopper::tma_load_2d(ring + s * L::STAGE, map, &full[s], x, y);
     ++g;
   };
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+  for (int tile = walk.first(); tile < ntiles; tile = walk.next(tile)) {
     load(&maps.w05, 0, 0, W);
     for (int i = 1; i < 8; ++i) {
       for (int j = 0; j < NB; ++j) load(&maps.trunk, KC * j, (i - 1) * W, W);
@@ -402,16 +437,17 @@ __device__ __forceinline__ void fwd_producer(const FwdMaps& maps, int ntiles, un
 }
 
 // The whole CTA (FWD_THREADS threads, FwdSmem<W>::launch_bytes of dynamic
-// shared memory at smem_raw) over tiles blockIdx.x, + gridDim.x, ... of the
-// ntiles = ceil(n_pts / TP) tiles.
-template <typename In, int W, typename Sink>
+// shared memory at smem_raw) over its tiles of the ntiles = ceil(n_pts / TP)
+// tiles, in walk's order, with hook's calls.
+template <typename In, int W, typename Sink, typename Walk = TileWalk, typename Hook = NoHook>
 __device__ __forceinline__ void fwd_tiles_sm90(const FwdMaps& maps, const In& in, int n_pts,
                                                int Fp, int Fv, const bf16* __restrict__ wb,
                                                const float* __restrict__ bb,
-                                               unsigned char* smem_raw, const Sink& sink) {
+                                               unsigned char* smem_raw, const Sink& sink,
+                                               const Walk& walk = Walk(),
+                                               const Hook& hook = Hook()) {
   using L = FwdSmem<W>;
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* smem = fwd_smem_base(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
   uint64_t* empty = full + FWD_STAGES;
   const int ntiles = (n_pts + TP - 1) / TP;
@@ -426,11 +462,28 @@ __device__ __forceinline__ void fwd_tiles_sm90(const FwdMaps& maps, const In& in
   const int wg = threadIdx.x >> 7;
   if (wg == 0) {
     hopper::setmaxnreg_dec<FWD_PRODUCER_REGS>();
-    if (threadIdx.x == 0) fwd_producer<W>(maps, ntiles, smem + L::ring, full, empty);
+    if (threadIdx.x == 0)
+      fwd_producer<W>(maps, ntiles, smem + L::ring, full, empty, walk);
+    else if (threadIdx.x >= 32)
+      hook.side();
   } else {
     hopper::setmaxnreg_inc<FWD_CONSUMER_REGS>();
-    fwd_consumer<In, W>(in, n_pts, Fp, Fv, wb, bb, ntiles, smem, full, empty, wg - 1, sink);
+    fwd_consumer<In, W>(in, n_pts, Fp, Fv, wb, bb, ntiles, smem, full, empty, wg - 1, sink, walk,
+                        hook);
   }
+}
+
+// The launch's four tensor maps over the bf16 weight blob wb (Layout<W>).
+template <int W>
+cudaError_t encode_fwd_maps(FwdMaps* maps, const bf16* wb) {
+  using O = Layout<W>;
+  cudaError_t err = hopper::encode_rows_sw128(&maps->w05, wb + O::w05, 2 * W, KE, W);
+  if (err == cudaSuccess) err = hopper::encode_rows_sw128(&maps->trunk, wb + O::w1, 8 * W, W, W);
+  if (err == cudaSuccess)
+    err = hopper::encode_rows_sw128(&maps->wvf, wb + O::wvf, W / 2, W, W / 2);
+  if (err == cudaSuccess)
+    err = hopper::encode_rows_sw128(&maps->wve, wb + O::wve, W / 2, KV, W / 2);
+  return err;
 }
 
 }  // namespace

@@ -4,9 +4,11 @@ Counterpart of nerf_tpu/experimental/fused_render.py:
 
     (rays_o, rays_d, viewdirs, z_vals, noise)  ->  (rgb_map, disp, acc, weights)
 
-- K5 (``nerf_fused_render_fwd`` in ``csrc/fused_render.cu``) runs K1's tile
-  body over whole rays and composites in the kernel: neither the points nor
-  raw leave the chip when serving;
+- K5 (``nerf_fused_render_fwd`` in ``csrc/fused_render.cu``) runs K1's
+  tile (``csrc/fwd_tile_sm90.cuh`` in bf16) over groups of whole rays and
+  composites each group in the kernel: when serving, raw goes only to a
+  per-CTA scratch slab in device memory, which stays in L2
+  (``ray_groups`` and ``slab_floats`` size it);
 - K6 (``fused_render_bwd``) is the compositing backward
   (``nerf_fused_render_bwd_planes``, from the raw K5 kept under autograd)
   followed by K4's three phases with a direction per ray: weight grads
@@ -30,6 +32,7 @@ The pieces, as in ops/fused_mlp.py:
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -45,6 +48,28 @@ def supports(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views, n_samples: int) -> 
     """The fused MLP's architectures, at sample counts that are multiples
     of 8 (nerf_tpu's guard)."""
     return fused_mlp.supports(cfg, pe_pts, pe_views) and n_samples % 8 == 0
+
+
+# K5's bf16 slab: a CTA's raw planes (r, g, b, sigma) of a ray group, in
+# two buffers (csrc/fused_render.cu: RAW_PLANES, SLAB_BUFFERS)
+SLAB_PLANES, SLAB_BUFFERS = 4, 2
+
+
+def ray_groups(n_samples: int, tile: int = fused_mlp.FWD_TILE) -> Tuple[int, int]:
+    """(G, n_sub) of K5's bf16 kernel: a group is G whole rays of
+    ``n_samples``, which fill n_sub tiles of ``tile`` points, G·S = n_sub·tile
+    = lcm(S, tile) (csrc/fused_render.cu ``ray_groups``)."""
+    lcm = n_samples * tile // math.gcd(n_samples, tile)
+    return lcm // n_samples, lcm // tile
+
+
+def slab_floats(n_rays: int, n_samples: int, sms: int) -> int:
+    """Floats of K5's bf16 scratch slab for a launch without raw planes: a
+    persistent grid of min(groups, sms) CTAs, each with SLAB_BUFFERS buffers
+    of a group's SLAB_PLANES raw planes."""
+    G, n_sub = ray_groups(n_samples)
+    grid = min(-(-n_rays // G), sms)
+    return grid * SLAB_BUFFERS * SLAB_PLANES * n_sub * fused_mlp.FWD_TILE
 
 
 class Maps(NamedTuple):
@@ -158,11 +183,16 @@ def _launch_fwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, white_bkgd, blobs,
     ro, rd, vd, z = (t.contiguous() for t in (rays_o, rays_d, viewdirs, z_vals))
     nz = None if noise is None else noise.contiguous()
     wblob, bblob = fused_mlp.kernel_blobs(kp) if blobs is None else blobs
+    slab = None  # the bf16 kernel's scratch where raw planes are not kept
+    if dtype == torch.bfloat16 and not keep_raw:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        slab = torch.empty(slab_floats(R, S, sms), **f32)
     with torch.cuda.device(dev):
         err = lib.nerf_fused_render_fwd(
             int(dtype == torch.bfloat16), W, ro.data_ptr(), rd.data_ptr(), vd.data_ptr(),
             z.data_ptr(), _ptr(nz), R, S, Fp, Fv, int(white_bkgd), wblob.data_ptr(),
-            bblob.data_ptr(), *(_ptr(t) for t in out), torch.cuda.current_stream(dev).cuda_stream,
+            bblob.data_ptr(), *(_ptr(t) for t in out), _ptr(slab),
+            0 if slab is None else slab.numel(), torch.cuda.current_stream(dev).cuda_stream,
         )
     fused_mlp._raise_on(lib, err, "fused_render_fwd")
     fused_render_fwd.launches += 1

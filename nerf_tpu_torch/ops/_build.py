@@ -59,7 +59,8 @@ SIGNATURES = {
     "fused_render": {
         "nerf_fused_render_fwd": (
             _I,
-            [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+            [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+             _P],
         ),
         "nerf_fused_render_bwd_planes": (_I, [_P] * 8 + [_I, _I, _I, _P, _P]),
         "nerf_cuda_error_string": (ctypes.c_char_p, [_I]),

@@ -10,8 +10,14 @@ launch at the training shapes.
 ``save`` runs K4, K3 (with and without input grads) and K6 in bf16 on fixed
 seeded inputs (``CASES``: the training shapes, a point count that is not a
 multiple of 128, a direction per point, W=128) and writes every output to
-OUT.pt, with the K6 cases' forward: K5's maps and raw. ``compare`` holds two such files to each other with ``torch.equal``
-and exits 1 on the first difference. ``time`` profiles ``REPS`` K4 training
+OUT.pt, with the K6 cases' forward: K5's maps and raw; and the raw of the
+bf16 forwards K1 and K2 on such inputs. ``compare`` holds two such files to
+each other with ``torch.equal``, prints every tensor that differs and exits
+1 if any does. A K6 case holds K5's outputs and runs K6 on K5's raw, so
+where K5's bf16 kernel differs between the two builds (its sums' order, as
+between the mma.sync tile and the wgmma one) the K6 cases differ too,
+with no fault in the backward; the summary lists them apart from the other
+cases. ``time`` profiles ``REPS`` K4 training
 steps (a coarse launch at S=64 and a fine one at S=192, N_rand=4096) after
 ``WARMUP`` with ``k4_split``, the split that chip_smoke.py's phase 9 prints,
 and prints the device ms a step of each of K4's launches as one JSON line.
@@ -58,6 +64,10 @@ CASES = (
     ("K6", 256, N_RAND, 192, 192, False),
     ("K6", 256, 1000, 200, 200, False),
     ("K6", 128, 1000, 64, 64, False),
+    ("K1", 256, N_RAND, 64, 64, False),  # the forwards (the tile K5 shares)
+    ("K1", 256, N_RAND, 192, 192, False),
+    ("K1", 128, 301, 64, 64, False),
+    ("K2", 256, N_RAND, 63, 1, False),
 )
 # K4's launches by kernel name, in order ("Memset": its partials' clear)
 K4_LAUNCHES = ("bwd_tile_bf16", "ray_prep", "wgrad_bf16", "reduce_splits", "reduce_tiles", "Memset")
@@ -87,7 +97,12 @@ def run_case(case, dev) -> Dict[str, torch.Tensor]:
     kernel, width, R, S, spr, input_grads = case
     kp = _packed(width, dev)
     ro, rd, vd, z, g = _rays(R * S + width, R, S, dev)
-    if kernel == "K4":
+    if kernel == "K1":
+        out = {"raw": fused_mlp.fused_rays_planes(kp, ro, rd, vd, z)}
+    elif kernel == "K2":
+        x = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(R * S, 3)
+        out = {"raw": fused_mlp.fused_points(kp, x, vd.repeat_interleave(S, 0), spr)}
+    elif kernel == "K4":
         out = fused_mlp.fused_rays_planes_bwd(kp, ro, rd, vd, z, g)
     elif kernel == "K3":
         x = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(R * S, 3)
@@ -121,19 +136,24 @@ def compare(a: str, b: str) -> int:
     if sorted(A) != sorted(B):
         print(f"case lists differ: {sorted(set(A) ^ set(B))}")
         return 1
-    n = 0
+    n, differ = 0, {}  # case -> names of the tensors that differ
     for case in A:
         if sorted(A[case]) != sorted(B[case]):
             print(f"{case}: outputs differ: {sorted(set(A[case]) ^ set(B[case]))}")
             return 1
         for name, t in A[case].items():
+            n += 1
             if not torch.equal(t, B[case][name]):
                 d = float((t - B[case][name]).abs().max())
                 print(f"{case} {name}: not bit-identical (max abs {d:.3e})")
-                return 1
-            n += 1
-    print(json.dumps({"bit_identical": True, "cases": len(A), "tensors": n}))
-    return 0
+                differ.setdefault(case, []).append(name)
+    # K6's cases hold K5's outputs and run K6 on K5's raw: they differ
+    # wherever the two builds' K5 differ
+    k6 = sorted(c for c in differ if c.startswith("K6"))
+    print(json.dumps({"bit_identical": not differ, "cases": len(A), "tensors": n,
+                      "k6_cases_differing": k6,
+                      "other_cases_differing": sorted(c for c in differ if c not in k6)}))
+    return 1 if differ else 0
 
 
 def k4_split(kp, blobs, step: Sequence, reps: int, warmup: int = 1) -> Dict[str, float]:

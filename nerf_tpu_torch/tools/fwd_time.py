@@ -1,7 +1,10 @@
-"""K1 and K2's bf16 forward (``fwd_bf16_sm90`` in ``csrc/fwd_tile_sm90.cuh``)
-timed on the card at the serving chunk's shapes: 32,768 rays at S=64 and
-S=192 (K1, rays from a radius-4 sphere), then at S=63 and S=191 with a
-view direction per point (K2), W=256 with 10/4 octaves, seed-0 weights.
+"""The bf16 forwards on ``csrc/fwd_tile_sm90.cuh``'s tile, timed on the card
+at the serving chunk's shapes: K1 (``fwd_bf16_sm90``) on 32,768 rays at
+S=64 and S=192 (rays from a radius-4 sphere), K2 at S=63 and S=191 with a
+view direction per point, and K5 (``render_bf16_sm90``: K1's tile over ray
+groups, then the compositing) at S=64 and S=192 with sigma noise and a
+white background, serving (no raw planes kept); W=256 with 10/4 octaves,
+seed-0 weights.
 
     python -m nerf_tpu_torch.tools.fwd_time
 
@@ -21,12 +24,13 @@ import sys
 import numpy as np
 import torch
 
+from nerf_tpu_torch.experimental import fused_render
 from nerf_tpu_torch.models.embedding import PosEncConfig
 from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
 from nerf_tpu_torch.ops import fused_mlp
 
 CHUNK = 32 * 1024
-LEVELS = {"K1": (64, 192), "K2": (63, 191)}
+LEVELS = {"K1": (64, 192), "K2": (63, 191), "K5": (64, 192)}
 WARMUP, REPS = 2, 10
 
 
@@ -69,6 +73,10 @@ def main() -> int:
             ro, rd, vd, z = _rays(rng, S, dev)
             if kernel == "K1":
                 ms = cuda_ms(lambda: fused_mlp.fused_rays_planes(kp, ro, rd, vd, z, blobs))
+            elif kernel == "K5":
+                noise = torch.from_numpy(rng.standard_normal((CHUNK, S)).astype(np.float32)).to(dev)
+                ms = cuda_ms(lambda: fused_render.fused_render_fwd(kp, ro, rd, vd, z, noise, True,
+                                                                   blobs))
             else:
                 x = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(-1, 3)
                 v = vd.repeat_interleave(S, 0)

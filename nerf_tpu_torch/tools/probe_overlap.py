@@ -6,8 +6,8 @@ tile apart: the bare chain of 8 [T,256]@[256,256] bf16 products, then with
 bias+relu, then as two interleaved half-tiles; the posenc front end with
 real, no (·0.5, ·0.25) or polynomial trig, plain or interleaved; and the
 full head. Here each body is a branch of one CUDA kernel built from the
-``mma.sync`` tile code that K1 ran before its ``wgmma`` tile and that K5 and
-the backward's recompute still run (``csrc/probe_overlap.cu``), so the gaps
+``mma.sync`` tile code that K1 and K5 ran before their ``wgmma`` tile and that
+the backward's recompute still runs (``csrc/probe_overlap.cu``), so the gaps
 between the bodies' times say what that tile's epilogue and trig cost beside
 its ``mma.sync`` stream. A ninth
 body, ``products``, has no counterpart in the script: the same 8 products,

@@ -363,10 +363,29 @@ def test_wrappers_on_cpu():
 
 def _fake_cuda(monkeypatch):
     """Let the CUDA launch path run on CPU tensors up to its C call: the
-    device context and stream of torch.cuda become stand-ins."""
+    device context, stream and properties (an H100's 132 SMs, which size
+    K5's slab) of torch.cuda become stand-ins."""
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev=None: types.SimpleNamespace(multi_processor_count=132))
+
+
+@pytest.mark.parametrize("n_samples,groups", [(8, (16, 1)), (64, (2, 1)), (192, (2, 3)),
+                                              (200, (16, 25))])
+def test_ray_groups_and_slab(n_samples, groups):
+    """K5's bf16 geometry (csrc/fused_render.cu ray_groups): G whole rays
+    fill n_sub 128-point tiles; the slab holds, for each CTA of the
+    persistent grid of min(groups, SMs), two buffers of a group's 4 raw
+    planes."""
+    assert tfr.ray_groups(n_samples) == groups
+    G, n_sub = groups
+    assert G * n_samples == n_sub * fused_mlp.FWD_TILE
+    group = 2 * 4 * G * n_samples
+    assert tfr.slab_floats(32768, n_samples, 132) == 132 * group  # a serving chunk
+    assert tfr.slab_floats(1, n_samples, 132) == group
+    assert tfr.slab_floats(5 * G + 1, n_samples, 132) == 6 * group  # a ragged last group
 
 
 @pytest.mark.parametrize("failure", ["build", "error_code"])
