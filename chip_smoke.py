@@ -12,13 +12,14 @@ Phases, one line each (any failure exits non-zero):
    csrc/probe_overlap.cu (K7) with nvcc (sm_90a), one process each, at once;
    counts the wgmma (HGMMA) and TMA-load (UTMALDG) instructions in the SASS
    of the backward's weight-grad kernel (cuobjdump) and fails without both;
-   prints each instantiation of the backward's phase 1 (``bwd_tile_bf16``)
-   with its registers, stack and spill bytes (cuobjdump -res-usage, ptxas)
-   and its LDG.E.U16, STG.E.U16 and STG.E.128 counts, and each of K1's and
-   K2's bf16 forward (``fwd_bf16_sm90``) and of K5's (``render_bf16_sm90``,
-   on the same tile) with the same and its HGMMA, UTMALDG and HMMA counts;
-   fails on a spill, and unless the forward issues wgmma and TMA loads and
-   no mma.sync;
+   prints each instantiation of the backward's cotangent chain
+   (``bwd_tile_bf16``) with its registers, stack and spill bytes (cuobjdump
+   -res-usage, ptxas) and its LDG.E.U16, STG.E.U16 and STG.E.128 counts,
+   and each of K1's and K2's bf16 forward (``fwd_bf16_sm90``), of K5's
+   (``render_bf16_sm90``) and of the backward's recompute
+   (``bwd_recompute_sm90``, with and without raw), all on one tile, with
+   the same and its HGMMA, UTMALDG and HMMA counts; fails on a spill, and
+   unless these issue wgmma and TMA loads and no mma.sync;
 3. kernel: K1 against its plain PyTorch version at the full 8x256 width,
    in f32 and bf16;
 4. render: renders the first 3 poses of the 40-pose orbit at the lego
@@ -32,7 +33,15 @@ Phases, one line each (any failure exits non-zero):
    bytes of weights its tiles stream from L2 and their rate;
 6. grad: K4 against its plain version at 8x256, f32 and bf16, R=1024 and
    ragged R=1000, S=64 and 192, and (bf16) at the training shapes R=4096;
-   two launches must be bit-identical;
+   two launches must be bit-identical; then recompute, the gate of ROADMAP
+   C.4: the bf16 backward's recompute launch alone, with raw, at phase 14's
+   shapes and K4's training shapes in ray mode and at K3's in points mode:
+   its raw bit for bit K1's (K2's), its mask words those of its own
+   workspace rows' signs, each layer's rows within a bf16 ulp of that
+   layer's plain version on the kernel's own inputs, small shares of rows
+   and of mask bits differing from the whole plain chain, all written to
+   the last padded point, and the launch without raw writing the same rows
+   and words;
 7. train: ``train()`` at the lego recipe with N_rand=4096 on 8 views of
    400x400 rendered by a seeded teacher net through ``render_path``: 3
    warm-up and 30 timed steps with exactly 2 K1 and 2 K4 launches each and
@@ -42,11 +51,11 @@ Phases, one line each (any failure exits non-zero):
    on the same batch and draws;
 9. bwd times: K4 at the training shapes beside its bound, its plain
    version and the backward's big products as bf16 ``torch.matmul``; 10
-   profiled steps of K4 (coarse + fine) split by its launches, the
-   recompute-and-chain phase (``bwd_tile_bf16``) beside its own bound and
-   its 19 products as bf16 ``torch.matmul``, and the weight-grad phase
-   (``wgrad_bf16``) beside its own bound and its 10 weight-grad products as
-   bf16 ``torch.matmul``.
+   profiled steps of K4 (coarse + fine) split by its launches, phase 1's
+   recompute (``bwd_recompute_sm90``) and chain (``bwd_tile_bf16``) each
+   beside its own bound and its own products as bf16 ``torch.matmul`` (10
+   and 9), and the weight-grad phase (``wgrad_bf16``) beside its own bound
+   and its 10 weight-grad products as bf16 ``torch.matmul``.
 The points-in path (K2 forward, K3 backward), at the 63+128 recipe: 63
 coarse samples and 191 fine are not multiples of 8, so both levels query
 points (``query_raw`` -> ``fused_query``) with a view direction per point:
@@ -99,7 +108,8 @@ the user's entry path (``cli.train`` / ``cli.render`` on a blender scene):
    steps, and ``cli.render.main --render_test`` renders the test view from
    the .tar it saved, with a finite PSNR and the video.
 
-The last two lines are a JSON object of kernel numbers (K1-K7) and the
+The last two lines are a JSON object of kernel numbers (K1-K7 and the
+backward's recompute launch) and the
 ``{"ok": true, "device": ...}`` result. Weights are random, from seeds.
 The script imports nothing of JAX or of ``nerf_tpu``.
 """
@@ -165,6 +175,24 @@ COMPOSITE_F32_TOL = 1e-5
 # the embedding per input, the kernels merge layer 0 with the skip), and the
 # fine depths follow the coarse weights. nerf_tpu's bf16 grad bound.
 STEP_GRAD_TOL = 5e-2
+# the recompute's workspace rows against their plain version, each layer on
+# the kernel's own inputs (fused_mlp.recompute_layers_reference): both round
+# the same operands and differ only where an f32 sum in another order lands
+# on the other side of a bf16 rounding edge, which moves the value by one
+# ulp (2^-7 of its magnitude or less), plus the sums' own difference where
+# a relu output is near zero, RECOMPUTE_ULP_ATOL (measured on an H100 up to
+# 8.5e-8 beyond the ulp; bound ~11x). At most RECOMPUTE_LAYER_SHARE of a
+# block's elements may differ (measured up to 7.5e-5 here and 1.0e-4 in the
+# card test; bound ~5x). Against the whole plain chain, ulps move on from
+# layer to layer and no per-element bound is tight, so the share of a
+# block's elements that differ is capped (measured up to 4.2e-3; bound ~5x)
+# and the share of mask bits, the relu signs, that differ (measured up to
+# 1.2e-6 here and 6.1e-6 in the card test; bound ~5x the latter). PERF.md.
+RECOMPUTE_ULP = 2.0 ** -7
+RECOMPUTE_ULP_ATOL = 2.0 ** -20
+RECOMPUTE_LAYER_SHARE = 5e-4
+RECOMPUTE_CHAIN_SHARE = 2e-2
+RECOMPUTE_MASK_SHARE = 3e-5
 # K3's dx and dv against its plain version, per-tensor relative L2. Unlike a
 # weight grad, dx and dv are per point: no sum over points averages a
 # point's error away. A relu input that the two forwards put on opposite
@@ -188,7 +216,8 @@ CLI_STEPS, CLI_RESUMED_STEPS = 24, 8
 CLI_CADENCES = {"i_print": 4, "i_img": 8, "i_weights": 12, "i_testset": 24, "i_video": 24}
 TRACE_AT, TRACE_STEPS = 12, 4  # nerf_tpu's trace: 4 more steps at start + 12
 LEGO_CAMERA_ANGLE_X = 0.6911112070083618  # the lego scene's: focal 1111.11 at 800 pixels
-TRACE_KERNELS = ("fwd_bf16_sm90", "bwd_tile_bf16", "wgrad_bf16")  # K1's and K4's symbols
+# K1's and K4's symbols
+TRACE_KERNELS = ("fwd_bf16_sm90", "bwd_recompute_sm90", "bwd_tile_bf16", "wgrad_bf16")
 # bytes of stack frame that sincosf's slow-path range reduction (embed_row in
 # csrc/fused_mlp_common.cuh) gives every kernel that embeds points; a
 # register spill would grow the frame beyond it
@@ -196,7 +225,8 @@ SINCOS_STACK = 32
 
 
 def counters():
-    """The launch counters of K1-K7, by name."""
+    """The launch counters of K1-K7 and of the bf16 backward's recompute
+    launch (K4's, K3's and K6's first), by name."""
     from nerf_tpu_torch.experimental import fused_render
     from nerf_tpu_torch.ops import fused_mlp
     from nerf_tpu_torch.tools import probe_overlap
@@ -204,7 +234,7 @@ def counters():
     return {"K1": fused_mlp.fused_rays_planes, "K2": fused_mlp.fused_points,
             "K3": fused_mlp.fused_points_bwd, "K4": fused_mlp.fused_rays_planes_bwd,
             "K5": fused_render.fused_render_fwd, "K6": fused_render.fused_render_bwd,
-            "K7": probe_overlap.probe}
+            "K7": probe_overlap.probe, "recompute": fused_mlp.bwd_recompute}
 
 
 def reset_counts() -> None:
@@ -279,7 +309,8 @@ def ptxas_spills(log: str, function: str) -> dict:
 
 def instantiations(source: str, function: str, opcodes, expected: int = 4) -> dict:
     """Each of the ``expected`` instantiations (RaysIn / PointsIn x W = 128 /
-    256; a kernel without an input-mode parameter reads rays) of
+    256, and a bool template argument, as the recompute's raw; a kernel
+    without an input-mode parameter reads rays) of
     ``function`` in csrc/<source>.cu's built library, one line each: its
     registers, stack and spill bytes (cuobjdump -res-usage, ptxas) and how
     often each of ``opcodes`` appears in its SASS. Fails on a spill or a
@@ -297,6 +328,7 @@ def instantiations(source: str, function: str, opcodes, expected: int = 4) -> di
     for name, u in sorted(usage.items()):
         spill = spills[name]  # (store, load) bytes
         inst = f"{'PointsIn' if 'PointsIn' in name else 'RaysIn'},W={256 if 'Li256E' in name else 128}"
+        inst += ",raw" if "Lb1E" in name else ""
         phase("sass", kernel=f"{function}<{inst}>", regs=u["REG"], stack_bytes=u["STACK"],
               local_bytes=u["LOCAL"], spill_store_load_bytes=spill, **ops[name])
         if u["STACK"] > SINCOS_STACK or u["LOCAL"] or any(spill):
@@ -388,13 +420,14 @@ def main() -> int:
     phase("sass", kernel="wgrad_bf16", **sass)
     if not all(sass.values()):
         raise RuntimeError(f"wgrad_bf16 issues no wgmma or no TMA load: {sass}")
-    # phase 1 of the backward: its global 2-byte loads and stores against its
+    # phase 1's chain: its global 2-byte loads and stores against its
     # 16-byte stores
     instantiations("fused_mlp_bwd", "bwd_tile_bf16", ("LDG.E.U16", "STG.E.U16", "STG.E.128"))
-    # the bf16 forward of K1 and K2, and K5's on the same tile: wgmma and TMA
-    # loads, and no mma.sync
+    # the bf16 forward of K1 and K2, K5's and the backward's recompute, all
+    # on one tile: wgmma and TMA loads, and no mma.sync
     for source, function, expected in (("fused_mlp_fwd", "fwd_bf16_sm90", 4),
-                                       ("fused_render", "render_bf16_sm90", 2)):
+                                       ("fused_render", "render_bf16_sm90", 2),
+                                       ("fused_mlp_bwd", "bwd_recompute_sm90", 8)):
         for inst, ops in instantiations(source, function, ("HGMMA", "UTMALDG", "HMMA"),
                                         expected).items():
             if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"]:
@@ -474,9 +507,10 @@ def main() -> int:
 
     # 6.-9. the training slice
     k4_errs = check_k4(coarse, pe_pts, pe_views, rng, dev)
+    recompute_errs = check_recompute(coarse, pe_pts, pe_views, dev)
     train_info = train_phase(scene, dev, N_SAMPLES, "K1", "K4")
     step_grads_phase(train_info, dev)
-    k4 = k4_times(cfg, pe_pts, pe_views, dev)
+    k4, recompute = k4_times(cfg, pe_pts, pe_views, dev)
 
     # 10.-13. the points-in slice at 63+128
     k2_errs, k3_errs = check_k23(coarse, pe_pts, pe_views, rng, dev)
@@ -517,6 +551,15 @@ def main() -> int:
         # training's 60; bf16 weight grads; ms per training step (S=64 + S=192)
         row("fused_mlp_bwd", "fused_mlp_bwd.cu", "nerf_tpu/ops/fused_mlp.py:621",
             train_info["counts"]["K4"], max(k4_errs), k4),
+        # the first launch of K4's, K3's and K6's bf16 backward: the forward
+        # recompute (nerf_tpu's _trunk_forward and _head_forward inside
+        # _make_bwd_kernel_rays) on K1's tile; training's 60 on K4's path,
+        # where it is timed (the other two paths' are checked by
+        # check_counts); max abs of its workspace rows against the plain
+        # chain over phase 6's gate; ms per K4 training step (S=64 + S=192),
+        # its own products as the library's
+        row("bwd_recompute", "fused_mlp_bwd.cu", "nerf_tpu/ops/fused_mlp.py:621",
+            train_info["counts"]["recompute"], max(recompute_errs), recompute),
         # the 63+128 serving (30) and training (60) launches; bf16 max abs over
         # phase 10's and the chunk shapes; ms per 32,768-ray chunk (S=63 + S=191,
         # a direction per point)
@@ -641,6 +684,124 @@ def check_k4(mlp, pe_pts, pe_views, rng, dev):
     return errs
 
 
+def rows_against(got: dict, ref: dict):
+    """(max abs, largest share of elements that differ in a block, worst
+    excess of |d| over one bf16 ulp of the larger side and
+    RECOMPUTE_ULP_ATOL) of the workspace rows ``got`` (their first columns)
+    against ``ref``, block by block."""
+    worst, share, excess = 0.0, 0.0, -1.0
+    for name, r in ref.items():
+        g = got[name][:, : r.shape[1]].float()
+        d = (g - r).abs()
+        over = d - RECOMPUTE_ULP * torch.maximum(g.abs(), r.abs()) - RECOMPUTE_ULP_ATOL
+        worst, share = max(worst, float(d.max())), max(share, float((d > 0).float().mean()))
+        excess = max(excess, float(over.max()))
+    return worst, share, excess
+
+
+@torch.no_grad()
+def check_recompute(mlp, pe_pts, pe_views, dev):
+    """6. The gate of ROADMAP C.4: the bf16 backward's recompute launch (K4's
+    and K3's first, K1's tile) alone, with raw, in ray mode at phase 14's
+    shapes and K4's training shapes, and in points mode at phase 10's kind
+    of shapes and K3's training shapes (a direction per point or per ray):
+    its raw bit for bit K1's (K2's) on the same inputs; its mask words
+    exactly the signs of its own workspace rows h0..h7 and hv; each block of
+    its rows within a bf16 ulp (RECOMPUTE_ULP, RECOMPUTE_ULP_ATOL) of that
+    layer's plain version on the kernel's own inputs, at most
+    RECOMPUTE_LAYER_SHARE of them differing; against the whole plain chain
+    at most RECOMPUTE_CHAIN_SHARE of the rows and RECOMPUTE_MASK_SHARE of
+    the mask bits differing; all finite up to the last padded point (the
+    buffer is NaN before the launch); and the launch without raw (the
+    backward's) writing the same rows and words. Its inputs come from a
+    generator of its own, so the later phases draw what they drew before
+    it. Returns the max abs errors of the rows against the plain chain."""
+    from nerf_tpu_torch.ops import fused_mlp
+
+    rng = np.random.default_rng(6)
+    W = mlp.cfg.width
+    kp = fused_mlp.pack_params(mlp, pe_pts, pe_views, torch.bfloat16)
+    blobs = fused_mlp.kernel_blobs(kp)
+    fine, fine63 = N_SAMPLES + N_IMPORTANCE, POINTS_SAMPLES + N_IMPORTANCE
+    rays_shapes = [(R, S) for S in (N_SAMPLES, fine, 200) for R in (CHECK_RAYS, RAGGED_RAYS)] + \
+        [(N_RAND, N_SAMPLES), (N_RAND, fine)]
+    point_shapes = [(CHECK_RAYS, POINTS_SAMPLES, 1), (RAGGED_RAYS, fine63, 1),
+                    (CHECK_RAYS, N_SAMPLES, N_SAMPLES), (RAGGED_RAYS, 200, 200),
+                    (N_RAND, POINTS_SAMPLES, 1), (N_RAND, fine63, 1)]
+    layers = [(f"h{i}", i * (W // 32), W) for i in range(8)] + \
+        [("hv", 8 * (W // 32), W // 2)]
+    errs = []
+    for mode, shapes in (("rays", rays_shapes), ("points", point_shapes)):
+        for shape in shapes:
+            R, S = shape[:2]
+            n = R * S
+            if mode == "rays":
+                rays = make_rays(rng, R, S, dev)
+                got = fused_mlp.bwd_recompute_rays(kp, *rays, raw=True, blobs=blobs)
+                bare = fused_mlp.bwd_recompute_rays(kp, *rays, blobs=blobs)
+                fwd = fused_mlp.fused_rays_planes(kp, *rays, blobs).reshape(4, n).T
+                x, v, spr = fused_mlp._ray_points(*rays[:2], rays[3]), rays[2], S
+                del rays
+            else:
+                spr = shape[2]
+                x, v = ray_points(rng, R, S, spr, dev)
+                got = fused_mlp.bwd_recompute(kp, x, v, spr, raw=True, blobs=blobs)
+                bare = fused_mlp.bwd_recompute(kp, x, v, spr, blobs=blobs)
+                fwd = fused_mlp.fused_points(kp, x, v, spr, blobs)
+            torch.cuda.synchronize()
+            raw_same = same_bits(got.raw, fwd)
+            del fwd
+            masks_own = all(
+                torch.equal(fused_mlp.unpack_mask_bits(got.masks[m0 : m0 + k // 32], k),
+                            (got.rows[name] > 0).T)
+                for name, m0, k in layers)
+            bare_same = (sorted(bare.rows) == sorted(got.rows)
+                         and torch.equal(bare.masks, got.masks)
+                         and all(same_bits(bare.rows[k], got.rows[k]) for k in got.rows))
+            del bare
+            padded = all(bool(torch.isfinite(t).all()) for t in got.rows.values())
+            plain, plain_ok = recompute_against_plain(kp, got, x, v, spr)
+            del got, x, v
+            torch.cuda.empty_cache()
+            errs.append(plain["chain_max_abs"])
+            phase("recompute", mode=mode, R=R, S=S, spr=spr, raw_bits_equal_forward=raw_same,
+                  masks_are_rows_signs=masks_own, without_raw_same=bare_same,
+                  padded_rows_finite=padded, **{k: f"{v:.3e}" for k, v in plain.items()},
+                  ulp=RECOMPUTE_ULP, atol=RECOMPUTE_ULP_ATOL, layer_share=RECOMPUTE_LAYER_SHARE,
+                  chain_share=RECOMPUTE_CHAIN_SHARE, mask_share=RECOMPUTE_MASK_SHARE)
+            if not (raw_same and masks_own and bare_same and padded and plain_ok):
+                raise RuntimeError(f"the recompute launch fails the C.4 gate at {mode} {shape}: "
+                                   f"raw={raw_same} masks={masks_own} bare={bare_same} "
+                                   f"padded={padded} against the plain version {plain}")
+    return errs
+
+
+def recompute_against_plain(kp, got, x, v, spr: int):
+    """(the numbers, within the bounds) of a recompute ``got`` on points x
+    and directions v against its plain version: each layer on the kernel's
+    own inputs (the worst excess over a bf16 ulp and RECOMPUTE_ULP_ATOL, at
+    most 0; the share of elements that differ, at most
+    RECOMPUTE_LAYER_SHARE), and the whole plain chain (max abs; the share
+    of elements, at most RECOMPUTE_CHAIN_SHARE, and of mask bits, at most
+    RECOMPUTE_MASK_SHARE, that differ)."""
+    from nerf_tpu_torch.ops import fused_mlp
+
+    n = x.shape[0]
+    lay = fused_mlp.recompute_layers_reference(kp, got.rows, x, v, spr)
+    ref = fused_mlp.bwd_recompute_reference(kp, x, v, spr)
+    if "ev" not in got.rows:  # a direction per ray: the kernel keeps no ev rows
+        del lay["ev"], ref.rows["ev"]
+    _, lay_share, lay_excess = rows_against(got.rows, lay)
+    worst, share, chain_excess = rows_against(got.rows, ref.rows)
+    flips = got.masks[:, :n] ^ ref.masks
+    mask_share = sum(int(((flips >> b) & 1).sum()) for b in range(32)) / (32 * flips.numel())
+    out = {"layer_excess_over_ulp": lay_excess, "layer_share_differing": lay_share,
+           "chain_max_abs": worst, "chain_share_differing": share,
+           "chain_excess_over_ulp": chain_excess, "mask_bits_share_differing": mask_share}
+    return out, (lay_excess <= 0 and lay_share <= RECOMPUTE_LAYER_SHARE
+                 and share <= RECOMPUTE_CHAIN_SHARE and mask_share <= RECOMPUTE_MASK_SHARE)
+
+
 def train_phase(scene, dev, n_samples: int, fwd: str, bwd: str, views=None,
                 fused_render: bool = False):
     """7 / 12 / 16. train() at the lego recipe with n_samples + 128 samples,
@@ -714,8 +875,9 @@ def train_phase(scene, dev, n_samples: int, fwd: str, bwd: str, views=None,
           psnr_last=f"{result.history[-1][2]:.3f}" if result.history else "none")
     if not np.isfinite(loss).all():
         raise RuntimeError("non-finite training loss")
-    check_counts(counts, {fwd: 2 * TIMED_STEPS, bwd: 2 * TIMED_STEPS},
-                 f"{TIMED_STEPS} steps at S={n_samples}")
+    # the bf16 backward's first launch, the recompute, a backward each
+    check_counts(counts, {fwd: 2 * TIMED_STEPS, bwd: 2 * TIMED_STEPS,
+                          "recompute": 2 * TIMED_STEPS}, f"{TIMED_STEPS} steps at S={n_samples}")
     if not last < first:
         raise RuntimeError(f"the loss did not fall: {first} -> {last}")
     profile_report(prof, marks[end + PROFILED_STEPS] - marks[end], fwd, bwd)
@@ -780,15 +942,13 @@ def step_grads_phase(info, dev):
         raise RuntimeError(f"fused step grads disagree with the plain path: {leaf} {worst}")
 
 
-def backward_matmul_chain(kp, n_pts: int, weight_grads_only: bool = False,
-                          phase1_only: bool = False):
+def backward_matmul_chain(kp, n_pts: int, part: str = "all"):
     """The backward's big products as bf16 torch.matmul calls at K4's
     shapes: the forward recompute (W05e, W1..W7, Wf, Wvf), the cotangents
     d·Wᵀ (Wvf, Wf, W7..W1) and the weight grads aᵀ·d (W05e, W1..W7, Wf,
-    Wvf); only the 10 weight grads with ``weight_grads_only``, only the 19
-    others (phase 1's: the recompute and the cotangents) with
-    ``phase1_only``. A library yardstick, timed here only and used nowhere
-    in the port."""
+    Wvf); only one group with ``part`` "recompute" (10), "chain" (9) or
+    "weight_grads" (10). A library yardstick, timed here only and used
+    nowhere in the port."""
     dev, Wd = kp["W1"].device, kp["W1"].shape[0]
     bf = torch.bfloat16
     e = torch.randn(n_pts, 64, dtype=bf, device=dev)
@@ -799,31 +959,33 @@ def backward_matmul_chain(kp, n_pts: int, weight_grads_only: bool = False,
     trunk = [kp[f"W{i}"] for i in range(1, 8)] + [kp["Wf"]]
 
     def run():
-        if not weight_grads_only:
+        if part in ("all", "recompute"):
             torch.matmul(e, w05)
             for w in trunk + [kp["Wvf"]]:
                 torch.matmul(a, w)
+        if part in ("all", "chain"):
             torch.matmul(ah, kp["Wvf"].T)
             for w in trunk:
                 torch.matmul(a, w.T)
-        if phase1_only:
-            return
-        torch.matmul(e.T, d05)
-        for _ in trunk:
-            torch.matmul(a.T, a)
-        torch.matmul(a.T, ah)
+        if part in ("all", "weight_grads"):
+            torch.matmul(e.T, d05)
+            for _ in trunk:
+                torch.matmul(a.T, a)
+            torch.matmul(a.T, ah)
 
     return run
 
 
 def k4_times(cfg, pe_pts, pe_views, dev):
     """9. K4 at the training shapes: one coarse and one fine launch a step.
-    Then 10 profiled steps of both launches split by K4's kernels, phase 1
-    (``bwd_tile_bf16``) beside its own bound and its 19 products (the
-    recompute and the cotangents) as bf16 torch.matmul, and the
-    weight-grad phase (``wgrad_bf16``) beside its own bound (each workspace
-    row and per-ray row read once, the grads written once) and its 10
-    weight-grad products as bf16 torch.matmul. Returns K4's numbers per step."""
+    Then 10 profiled steps of both launches split by K4's kernels: phase 1's
+    recompute (``bwd_recompute_sm90``) and chain (``bwd_tile_bf16``), each
+    beside its own bound and its own products as bf16 torch.matmul (10 and
+    9), and the weight-grad phase (``wgrad_bf16``) beside its own bound
+    (each workspace row and per-ray row read once, the grads written once)
+    and its 10 weight-grad products as bf16 torch.matmul. Returns K4's
+    numbers per step and the recompute's (its plain version's time: the
+    plain recompute at both shapes)."""
     from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
     from nerf_tpu_torch.ops import fused_mlp
     from nerf_tpu_torch.tools.bwd_phase1 import k4_split
@@ -837,7 +999,7 @@ def k4_times(cfg, pe_pts, pe_views, dev):
     gbytes = 4 * sum(v.numel() for v in kp.values())
     rng = np.random.default_rng(5)
     zero = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
-    out, wgrad, tile = dict(zero), dict(zero), dict(zero)
+    out, wgrad, recompute, chain = dict(zero), dict(zero), dict(zero), dict(zero)
     step = []
     for S in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE):
         rays = make_rays(rng, N_RAND, S, dev)
@@ -847,15 +1009,17 @@ def k4_times(cfg, pe_pts, pe_views, dev):
         ms = cuda_ms(lambda: fused_mlp.fused_rays_planes_bwd(kp, *rays, g, blobs), reps=10, warmup=2)
         plain_ms = cuda_ms(lambda: fused_mlp.fused_rays_planes_bwd_reference(kp, *rays, g), reps=2)
         torch.cuda.empty_cache()
-        chain = backward_matmul_chain(kp, n_pts)
-        library_ms = cuda_ms(chain, reps=5)
-        del chain
-        chain = backward_matmul_chain(kp, n_pts, weight_grads_only=True)
-        wgrad["library_ms"] += cuda_ms(chain, reps=5)
-        del chain
-        chain = backward_matmul_chain(kp, n_pts, phase1_only=True)
-        tile["library_ms"] += cuda_ms(chain, reps=5)
-        del chain
+        products = backward_matmul_chain(kp, n_pts)
+        library_ms = cuda_ms(products, reps=5)
+        del products
+        for part, t in (("weight_grads", wgrad), ("recompute", recompute), ("chain", chain)):
+            products = backward_matmul_chain(kp, n_pts, part)
+            t["library_ms"] += cuda_ms(products, reps=5)
+            del products
+        x = fused_mlp._ray_points(rays[0], rays[1], rays[3])
+        recompute["plain_ms"] += cuda_ms(
+            lambda: fused_mlp.bwd_recompute_reference(kp, x, rays[2], S), reps=2)
+        del x
         torch.cuda.empty_cache()
         flops = fused_mlp.bwd_flops(cfg, pe_pts, pe_views, N_RAND, S)
         io_bytes = N_RAND * 9 * 4 + n_pts * 4 + n_pts * 16 + wbytes + gbytes
@@ -871,31 +1035,33 @@ def k4_times(cfg, pe_pts, pe_views, dev):
         rows_bytes = n_pts * fused_mlp.wgrad_bytes_per_point(cfg) + \
             N_RAND * 2 * (fused_mlp.KV + cfg.width // 2)
         wgrad["bytes_ms"] += 1e3 * (rows_bytes + gbytes) / PEAK_BYTES
-        # phase 1: its own work and bytes (the workspace rows, d_hv, g and z
-        # a point; the rays, the weights and the tiles' bias sums)
-        tile["ops_ms"] += 1e3 * fused_mlp.bwd_tile_flops(cfg, pe_pts, pe_views, N_RAND, S) / \
+        # phase 1's two launches, each its own work and bytes: the recompute
+        # its rows and masks and z a point, the rays and the forward blobs;
+        # the chain its rows, d_hv, the masks and g a point, the weights and
+        # the tiles' bias sums
+        recompute["ops_ms"] += 1e3 * fused_mlp.recompute_flops(
+            cfg, pe_pts, pe_views, N_RAND, S) / PEAK_BF16_FLOPS
+        fwd_blobs = sum(t.numel() * t.element_size() for t in blobs)
+        recompute["bytes_ms"] += 1e3 * (n_pts * fused_mlp.recompute_bytes_per_point(cfg)
+                                        + N_RAND * 9 * 4 + fwd_blobs) / PEAK_BYTES
+        chain["ops_ms"] += 1e3 * fused_mlp.chain_flops(cfg, pe_pts, pe_views, N_RAND, S) / \
             PEAK_BF16_FLOPS
-        tile_bytes = n_pts * fused_mlp.bwd_tile_bytes_per_point(cfg) + N_RAND * 9 * 4 + wbytes + \
-            -(-n_pts // 128) * blobs[1].numel() * 4
-        tile["bytes_ms"] += 1e3 * tile_bytes / PEAK_BYTES
+        chain["bytes_ms"] += 1e3 * (n_pts * fused_mlp.chain_bytes_per_point(cfg) + wbytes
+                                    + -(-n_pts // 128) * blobs[1].numel() * 4) / PEAK_BYTES
 
     split = k4_split(kp, blobs, step, reps=10)
-    wgrad["ms"], tile["ms"] = split["wgrad_bf16"], split["bwd_tile_bf16"]
-    bound = max(wgrad["ops_ms"], wgrad["bytes_ms"])
-    tile_bound = max(tile["ops_ms"], tile["bytes_ms"])
+    wgrad["ms"], recompute["ms"] = split["wgrad_bf16"], split["bwd_recompute_sm90"]
+    chain["ms"] = split["bwd_tile_bf16"]
     phase("k4_split", per="step (S=64 + S=192)", **{f"{k}_ms": f"{v:.3f}" for k, v in split.items()},
           device_ms=f"{sum(split.values()):.3f}")
-    phase("wgrad_times", ms=f"{wgrad['ms']:.3f}", bound_ms=f"{bound:.3f}",
-          bound_by="operations" if wgrad["ops_ms"] >= wgrad["bytes_ms"] else "bytes",
-          ops_ms=f"{wgrad['ops_ms']:.3f}", bytes_ms=f"{wgrad['bytes_ms']:.3f}",
-          library_ms=f"{wgrad['library_ms']:.3f}", x_bound=f"{wgrad['ms'] / bound:.3f}",
-          x_library=f"{wgrad['ms'] / wgrad['library_ms']:.3f}")
-    phase("bwd_tile_times", ms=f"{tile['ms']:.3f}", bound_ms=f"{tile_bound:.3f}",
-          bound_by="operations" if tile["ops_ms"] >= tile["bytes_ms"] else "bytes",
-          ops_ms=f"{tile['ops_ms']:.3f}", bytes_ms=f"{tile['bytes_ms']:.3f}",
-          library_ms=f"{tile['library_ms']:.3f}", x_bound=f"{tile['ms'] / tile_bound:.3f}",
-          x_library=f"{tile['ms'] / tile['library_ms']:.3f}")
-    return out
+    for tag, t in (("recompute_times", recompute), ("chain_times", chain), ("wgrad_times", wgrad)):
+        bound = max(t["ops_ms"], t["bytes_ms"])
+        phase(tag, per="step (S=64 + S=192)", ms=f"{t['ms']:.3f}", bound_ms=f"{bound:.3f}",
+              bound_by="operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
+              ops_ms=f"{t['ops_ms']:.3f}", bytes_ms=f"{t['bytes_ms']:.3f}",
+              library_ms=f"{t['library_ms']:.3f}", x_bound=f"{t['ms'] / bound:.3f}",
+              x_library=f"{t['ms'] / t['library_ms']:.3f}")
+    return out, recompute
 
 
 def ray_points(rng, R: int, S: int, spr: int, dev):
@@ -1170,7 +1336,11 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
                                        f"k5_same={k5_same}, raw={same_raw}")
                 after = read_counts()
                 moved = {k: after[k] - before[k] for k in after}
-                if moved != {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 3, "K6": 2, "K7": 0}:
+                # bf16: K6's two backwards and its halves' K4 phases each
+                # launch the recompute
+                recomputes = 3 if dtype == torch.bfloat16 else 0
+                if moved != {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 3, "K6": 2, "K7": 0,
+                             "recompute": recomputes}:
                     raise RuntimeError(f"the K5/K6 launch counters moved wrongly: {moved}")
                 if dtype == torch.bfloat16:
                     k5_errs.append(err)
@@ -1406,7 +1576,8 @@ def cli_train_phase(views):
     frames = (CLI_STEPS // c["i_img"]) + (CLI_STEPS // c["i_testset"]) * 1 + (
         CLI_STEPS // c["i_video"]) * 40
     n_chunks = -(-H * W // CHUNK)
-    check_counts(counts, {"K1": 2 * steps + 2 * n_chunks * frames, "K4": 2 * steps},
+    check_counts(counts, {"K1": 2 * steps + 2 * n_chunks * frames, "K4": 2 * steps,
+                          "recompute": 2 * steps},
                  f"cli.train: {steps} steps and {frames} eval frames")
     evals = [float(m) for m in re.findall(r"\[EVAL\] Iter: \d+ holdout view 6 PSNR: (\S+)", out)]
     if len(evals) != CLI_STEPS // c["i_img"] or not np.isfinite(evals).all():
@@ -1486,7 +1657,8 @@ def resume_render_phase(cli, dev):
     evals = sum(1 for i in range(start + 1, start + CLI_RESUMED_STEPS + 1)
                 if i % CLI_CADENCES["i_img"] == 0)
     check_counts(resumed_counts, {"K1": 2 * CLI_RESUMED_STEPS + 2 * n_chunks * evals,
-                                  "K4": 2 * CLI_RESUMED_STEPS}, "the resumed run")
+                                  "K4": 2 * CLI_RESUMED_STEPS,
+                                  "recompute": 2 * CLI_RESUMED_STEPS}, "the resumed run")
 
     reset_counts()
     rendered, out = run_cli(cli_render.main, argv + ["--render_test"])

@@ -23,8 +23,9 @@
 //   d_ev = bf16(sum over a view's points of d_hv) Wve^T,  dv = embed_row_backward(v, d_ev)
 // (_mlp_backward_math; bias grads sum the unrounded f32 cotangents, as
 // there). Two instantiations, as the forward's: bf16 operands with f32
-// accumulation (mma.sync m16n8k16 in phase 1, wgmma in phase 3), and true
-// f32 FMA loops (no TF32) that isolate indexing faults from rounding.
+// accumulation (wgmma in the recompute and in phase 3, mma.sync in the
+// chain), and true f32 FMA loops (no TF32) that isolate indexing faults
+// from rounding.
 //
 // Bound: the recompute (the forward without the rgb/alpha head), the
 // activation cotangents and the weight grads are 3,484,416 FLOP per point at
@@ -34,36 +35,49 @@
 // N_rand=4096 needs >= 0.92 ms coarse (262,144 points) and >= 2.77 ms fine
 // (786,432 points).
 //
-// Design: three phases, each launch on the caller's stream.
-//  1. One CTA per 128-point tile (64 in f32) recomputes the forward with the
-//     mma.sync tile code of fused_mlp_common.cuh (K1's, K2's and K5's
-//     wgmma tile sums the same products in the same K order, and on an
-//     H100 its raw matched this code's to the head's last f32 bits:
-//     PERF.md) and runs the cotangent chain d W^T through the
-//     same mma_layer, with the weights in kp's own [in][out] layout as the B
-//     operand. A tile does not fit every activation in shared memory (h0..h7,
-//     feat, hv and their cotangents are ~1.2 MB at 128 points), so each
-//     activation and each rounded cotangent goes to a workspace in device
-//     memory, feature-major ([feature][point], 9.9 KB per point in bf16), for
-//     phase 3. What the chain needs stays on chip: the relu masks of h0..h7
-//     as bits (relu_bits, 4 words a layer and thread at W = 256, 2 at
-//     W = 128), which each thread reads back from the activations that its
-//     own recompute epilogue wrote, the elements whose cotangents its chain
-//     epilogue masks; in registers, except h0..h3 at W = 256, which wait in
-//     shared memory (kSmemMasks); hv's mask is read from act. The bf16
-//     tile writes the workspace by ws_transpose: 8 points of one feature a
-//     16-byte store, from conflict-free 32-bit shared reads (the f32
-//     instantiation keeps store_t, an element a thread). The bias grads'
-//     column sums per tile are reduced in registers (warp shuffles) and
-//     written per tile. With input grads the tile ends with d_e (one more
-//     mma_layer over d0 in shared memory and d5 read back from the workspace
-//     by the same transpose) and dx.
-//     Phase 1 alone is bound by bytes: the workspace rows that it writes,
-//     once (9,864 B a point at 8x256 in ray mode: 4 of gc's 8 rows), the
-//     f32 d_hv rows (512 B at spr > 1), g and z (20 B), 10,396 B a point,
-//     so >= 3.25 ms a training step (1,048,576 points) at 3.35 TB/s; its
-//     2,302,720 FLOP a point (the recompute and the cotangent chain) need
-//     >= 2.44 ms at 989 TFLOP/s.
+// Design: three phases, each launch on the caller's stream. A tile does not
+// fit every activation in shared memory (h0..h7, feat, hv and their
+// cotangents are ~1.2 MB at 128 points), so each activation and each
+// rounded cotangent goes to a workspace in device memory, feature-major
+// ([feature][point], WsRows: 9.9 KB per point in bf16), for phase 3, and
+// the relu masks of h0..h7 and hv go there as bits (MaskRows: 272 B a
+// point at W = 256). In bf16 phase 1 is two launches:
+//  1a. The recompute (bwd_recompute_sm90) is K1's tile, fwd_tile_sm90.cuh,
+//     over the same weight blob and tensor maps: a persistent grid of
+//     384-thread CTAs, the producer warpgroup's TMA weight ring, two
+//     ping-pong wgmma consumer warpgroups of 64 points each. Its activations
+//     are K1's (K2's in points mode) bit for bit, so the masks the backward
+//     uses are the ones the forward used. Its hook (RecomputeHook) stores
+//     each layer's output while the next layer's products run: from the
+//     128-byte-swizzled act / emb / embv blocks to the workspace rows, 8
+//     points of one feature a 16-byte store (store_rows_sw), and the masks
+//     as one 32-bit word per point and 32 features, from warp ballots over
+//     the same loads. hv, which K1 keeps in registers, goes to act first
+//     (kHvToAct). Its head does no work unless raw is asked for (a check of
+//     the tile against K1's, the sink then GlobalSink). Bound by bytes: the
+//     rows and masks it writes once (e, h0..h7, feat, hv: 4,992 B a point at
+//     8x256 in ray mode, 272 B of masks) and z read, 5,268 B, so >= 1.65 ms
+//     a training step (1,048,576 points) at 3.35 TB/s; its 1,185,536 FLOP a
+//     point need >= 1.26 ms at 989 TFLOP/s.
+//  1b. The cotangent chain (bwd_tile_bf16): one CTA per 128-point tile runs
+//     d W^T through mma_layer (mma.sync, fused_mlp_common.cuh), with the
+//     weights in kp's own [in][out] layout as the B operand, and reads each
+//     relu mask as the mask words of its own accumulator elements (a
+//     thread's 8 rows x NT / 4 words a layer, loaded before the layer's
+//     products). Its cotangents go to the workspace by ws_transpose: 8
+//     points of one feature a 16-byte store, from conflict-free 32-bit
+//     shared reads (the f32 instantiation keeps store_t, an element a
+//     thread). The bias grads' column sums per tile are reduced in registers
+//     (warp shuffles) and written per tile. With input grads the tile ends
+//     with d_e (one more mma_layer over d0 in shared memory and d5 read back
+//     from the workspace by the same transpose) and dx. Bound by bytes: the
+//     rows it writes once (gc's 4 used rows, d0..d7, d_feat, d_hv: 4,872 B
+//     a point at 8x256), the f32 d_hv rows (512 B at spr > 1), the masks and
+//     g read (288 B), 5,672 B a point, so >= 1.78 ms a training step; its
+//     1,117,184 FLOP a point need >= 1.18 ms.
+//     The f32 instantiation (bwd_tile_f32) is one launch: the recompute by
+//     FMA, its rows to the workspace, and the chain reading its masks back
+//     from them.
 //  2. With a direction per ray (spr > 1), a small kernel sums d_hv over each
 //     ray's samples (fixed order) and embeds the view directions per ray for
 //     dWve, then d_ev and dv. With a direction per point (spr = 1) phase 1
@@ -94,13 +108,13 @@
 //     once, 4,936 bf16 rows = 9,872 B a point at 8x256 in ray mode
 //     (1,181,696 FLOP a point), so >= 0.77 ms coarse and >= 2.32 ms fine at
 //     3.35 TB/s.
-// Padded points carry a zero cotangent, so they add nothing to any sum.
-// Phase 1's products are still mma.sync through mma_layer; K1, K2 and K5
-// moved to wgmma (fwd_tile_sm90.cuh), whose engine the recompute and the
-// chain can take over next.
+// Padded points carry a zero cotangent, so they add nothing to any sum; the
+// recompute writes every row of every tile up to n_pad (posenc of x = 0
+// past n_pts), so no unwritten row meets a zero. The chain's products are
+// still mma.sync: fwd_tile_sm90.cuh's ring and wgmma are next for them.
 
 #include "fused_mlp_common.cuh"
-#include "hopper.cuh"
+#include "fwd_tile_sm90.cuh"
 
 namespace {
 
@@ -149,6 +163,16 @@ struct WsRows {
   static constexpr int rows = ev + KV;
 };
 
+// Rows of the bf16 mask words (u32, one per point a row): word k of layer
+// i's rows holds the bits of (h_i[p][32k + b] > 0) at bit b, for h0..h7,
+// then hv.
+template <int W>
+struct MaskRows {
+  __host__ __device__ static int h(int i) { return i * (W / 32); }
+  static constexpr int hv = 8 * (W / 32);
+  static constexpr int rows = hv + W / 64;
+};
+
 // dst[c][p0 + i] = src[i][c]: a tile's [tile][rows] shared buffer to
 // feature-major workspace rows (consecutive threads, consecutive points).
 // The f32 path's.
@@ -177,10 +201,9 @@ __device__ void load_t(const T* src, size_t ldp, int p0, int rows, int tile, T* 
 // features c and c + 1 (c = c0 + 2q) at points i .. i + 7 (i = i0 + 8h):
 // one 32-bit shared word a point, holding both features, and one 16-byte
 // global access a feature, so lanes 2q and 2q + 1 fill one 32-byte sector.
-// Half h visits its 8 shared rows in the order j ^ 4h: at the row strides
-// used (264, 72 and 40 bf16: 4, 4 and 20 words mod 32 banks) the two
-// halves' 64-byte pieces of a row then lie on disjoint banks, one wavefront
-// a load. rows is a multiple of 32, and the workspace is padded to whole
+// Half h visits its 8 shared rows in the order j ^ 4h: at the chain's row
+// stride (264 bf16: 4 words mod 32 banks) the two halves' 64-byte pieces
+// of a row then lie on disjoint banks, one wavefront a load. rows is a multiple of 32, and the workspace is padded to whole
 // tiles, so no access is masked.
 template <bool kStore>
 __device__ void ws_transpose(bf16* sm, int lds, int rows, bf16* ws, size_t ldp, int p0) {
@@ -228,6 +251,78 @@ __device__ void ws_transpose(bf16* sm, int lds, int rows, bf16* ws, size_t ldp, 
   }
 }
 
+__device__ __forceinline__ uint32_t ld_shared_b32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// The recompute's stores, by one consumer warpgroup of fwd_tile_sm90.cuh:
+// ws[c][p0 + i] = A[i][c] for its 64 points i and the features c < ncols
+// (a multiple of 32) of A, ncols / 64 blocks of 64 x 64 bf16 at a in the
+// 128-byte-swizzled layout (hopper.cuh: element (i, c) of a block at byte
+// i*128 + ((c/8) ^ (i%8))*16 + (c%8)*2), to feature-major rows; with m
+// given also m[c / 32][p0 + i] = the bits of (A[i][c..c+31] > 0) (bit b:
+// feature c + b; bf16 as a signed 16-bit integer is > 0 exactly where the
+// value is, -0 and NaN aside, which relu never gives). Warp w moves points
+// 16w .. 16w + 15, 32 features at a time: lane (q, h) = (lane / 2, lane % 2)
+// reads features c, c + 1 (c = c0 + 2q, one 32-bit word) at rows i .. i + 7
+// (i = 16w + 8h) and writes each feature's 8 points as one 16-byte store,
+// lanes 2q and 2q + 1 one 32-byte sector. Half h reads its rows in the
+// order j ^ 4h: both halves' row % 8 then differ by 4, so the 64-byte
+// pieces the swizzle gives them are the two halves of a 128-byte row, 32
+// banks, one wavefront a load. The masks come from two ballots a row over
+// the same words, before the stores (fewer registers live at once: the
+// hook runs beside a layer's 128 accumulators); lanes 0-15 write their
+// points' words, 64 bytes a warp.
+__device__ __forceinline__ void store_rows_sw(const unsigned char* a, int ncols, bf16* ws,
+                                              size_t ldp, uint32_t* m, int p0) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int q = lane >> 1, h = lane & 1;
+  const int i = 16 * warp + 8 * h;
+  const uint32_t base = hopper::smem_addr(a) + i * 128;
+#pragma unroll 1
+  for (int c0 = 0; c0 < ncols; c0 += 32) {
+    const int c = c0 + 2 * q;
+    const uint32_t col = base + (c >> 6) * (FWD_ROWS * 128) + ((c & 7) << 1);
+    const int chunk = (c & 63) >> 3;
+    uint32_t w[8];  // w[k]: features c, c + 1 at point i + k (in row order j ^ 4h before the swap)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int x = j ^ (4 * h);  // the row's offset from i, and its % 8
+      w[j] = ld_shared_b32(col + x * 128 + ((chunk ^ x) << 4));
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // w[j] <-> w[j ^ 4] for half 1
+      const uint32_t lo = h ? w[k + 4] : w[k], hi = h ? w[k] : w[k + 4];
+      w[k] = lo;
+      w[k + 4] = hi;
+    }
+    if (m != nullptr) {  // the same for the whole warpgroup; first, so w dies in the stores
+      uint32_t word = 0u;  // lane L < 16: point 16w + L
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        // bit 2q' + h' of each ballot: lane (q', h'), feature c0 + 2q' (b0)
+        // or c0 + 2q' + 1 (b1) at point 16w + 8h' + k
+        const uint32_t b0 = __ballot_sync(0xffffffffu, int16_t(w[k] & 0xffffu) > 0);
+        const uint32_t b1 = __ballot_sync(0xffffffffu, int16_t(w[k] >> 16) > 0);
+        if (lane == k) word = (b0 & 0x55555555u) | ((b1 & 0x55555555u) << 1);
+        if (lane == k + 8) word = ((b0 >> 1) & 0x55555555u) | (b1 & 0xaaaaaaaau);
+      }
+      if (lane < 16) m[size_t(c0 >> 5) * ldp + p0 + 16 * warp + lane] = word;
+    }
+    uint32_t f0[4], f1[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      f0[k] = __byte_perm(w[2 * k], w[2 * k + 1], 0x5410);  // feature c, points 2k, 2k + 1
+      f1[k] = __byte_perm(w[2 * k], w[2 * k + 1], 0x7632);  // feature c + 1
+    }
+    bf16* g = ws + size_t(c) * ldp + p0 + i;
+    *reinterpret_cast<uint4*>(g) = make_uint4(f0[0], f0[1], f0[2], f0[3]);
+    *reinterpret_cast<uint4*>(g + ldp) = make_uint4(f1[0], f1[1], f1[2], f1[3]);
+  }
+}
+
 // One point's input grad: out[p][d] = embed_row_backward(y, d_e row), for the
 // tile's points (one thread each). y is the point (pts) or its view direction.
 template <typename In>
@@ -247,62 +342,95 @@ __device__ void input_grad(const In& in, bool pts, int F, const float* d_e, int 
 
 // ---------------------------------------------------------------- bf16 path
 
-// The relu masks of h0 .. h(kSmemMasks - 1) wait for the chain in shared
-// memory (a thread's words at stride THREADS: conflict-free), the others in
-// registers. At W = 256 the bits of all eight layers in registers spill
-// (ptxas: 324 bytes), so h0..h3 take 16 KB of the 17 KB that BwdSmem leaves
-// free; at W = 128 all eight fit in registers.
-template <int W> constexpr int kSmemMasks = W == 256 ? 4 : 0;
-
+// The chain's shared memory: two activation-sized buffers (act, dbuf) that
+// the cotangents alternate between, the weight ring of mma_layer, the bias
+// sums' reduction and the tile's cotangent g (f32 and rounded).
 template <int W> struct BwdSmem {
   using F = Bf16Smem<W>;
-  static constexpr int lda = F::lda, lde = F::lde, ldv = F::ldv, ldw = F::ldw;
+  static constexpr int lda = F::lda, ldw = F::ldw;
   static constexpr size_t act = 0;
   static constexpr size_t dbuf = act + size_t(TP) * lda * 2;
-  static constexpr size_t emb = dbuf;  // the embeddings live in dbuf until the chain
-  static constexpr size_t embv = emb + size_t(TP) * lde * 2;
   static constexpr size_t wbuf = dbuf + size_t(TP) * lda * 2;
   static constexpr size_t red = wbuf + size_t(2) * W * ldw * 2;
   static constexpr size_t gs = red + size_t(2) * W * 4;
   static constexpr size_t gcs = gs + size_t(TP) * 4 * 4;
-  static constexpr size_t masks = gcs + size_t(TP) * 4 * 4;  // kSmemMasks<W> layers' relu bits
-  static constexpr size_t bytes = masks + size_t(kSmemMasks<W>) * (W / 64) * THREADS * 4;
-  static_assert(embv + size_t(TP) * ldv * 2 <= wbuf, "the embeddings fit in dbuf");
+  static constexpr size_t bytes = gcs + size_t(TP) * 4 * 4;
   static_assert(bytes <= 232448, "fits in an SM's shared memory");
 };
 
-// The relu mask of a recompute layer as bits in registers, read back from
-// the bf16 activations that this thread's epilogue has just written to act
-// (its own elements: no barrier): bit (mt * NT + nt) * 4 + q is element q of
-// acc[mt][nt] in mma_layer's accumulator layout, which the recompute's
-// epilogue and bwd_epilogue share, so the chain finds each bit in the
-// thread that masks that element.
+// The recompute's hook (fwd_tile_sm90.cuh): each layer's output, complete in
+// a consumer warpgroup's swizzled blocks, to the workspace rows while the
+// next layer's products run, and the relu masks of h0..h7 and hv to the
+// mask words. ws and masks are the rows' bases, ldp points a row.
+template <int W>
+struct RecomputeHook : NoHook {
+  static constexpr bool kHvToAct = true;
+  bf16* ws;
+  uint32_t* masks;
+  size_t ldp;
+  bool dense;  // a view direction per point: the view embedding's rows too
+  __device__ __forceinline__ void after_embed(const unsigned char* emb, const unsigned char* embv,
+                                              int p0) const {
+    store_rows_sw(emb, KE, ws + size_t(WsRows<W>::e) * ldp, ldp, nullptr, p0);
+    if (dense) store_rows_sw(embv, KV, ws + size_t(WsRows<W>::ev) * ldp, ldp, nullptr, p0);
+  }
+  // l: h0..h7 (0..7), feat (8) or hv (9)
+  __device__ __forceinline__ void after_layer(int l, const unsigned char* act, int p0) const {
+    using R = WsRows<W>;
+    using M = MaskRows<W>;
+    const int r0 = l < 8 ? R::h(l) : l == 8 ? R::feat : R::hv;
+    uint32_t* m = l == 8 ? nullptr : masks + size_t(l < 8 ? M::h(l) : M::hv) * ldp;
+    store_rows_sw(act, l == 9 ? W / 2 : W, ws + size_t(r0) * ldp, ldp, m, p0);
+  }
+};
+
+// The recompute's sink when raw is not asked for: the head's sums are dead
+// code, and the compiler drops them.
+struct NoSink {
+  __device__ __forceinline__ void operator()(int, int, float) const {}
+};
+
+// The bf16 recompute: K1's (K2's) tile over the n_pts points and the
+// padding up to whole tiles, its rows and masks written by RecomputeHook,
+// raw (planes or rows, as GlobalSink) only where raw is given (kRaw).
+template <typename In, int W, bool kRaw>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+bwd_recompute_sm90(const __grid_constant__ FwdMaps maps, const In in, int n_pts, int Fp, int Fv,
+                   const bf16* __restrict__ wb, const float* __restrict__ bb, bf16* ws,
+                   uint32_t* masks, size_t ldp, float* raw, size_t sc, size_t sp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const RecomputeHook<W> hook{{}, ws, masks, ldp, in.spr == 1};
+  if constexpr (kRaw)
+    fwd_tiles_sm90<In, W>(maps, in, n_pts, Fp, Fv, wb, bb, smem, GlobalSink{raw, sc, sp},
+                          TileWalk(), hook);
+  else
+    fwd_tiles_sm90<In, W>(maps, in, n_pts, Fp, Fv, wb, bb, smem, NoSink(), TileWalk(), hook);
+}
+
+// The mask words of one layer (rows m of MaskRows, ldp points a row) that
+// this thread's mma_layer accumulator elements need: rows wm*64 + mt*16 +
+// g (+8), columns wn*NT*8 .. + NT*8 - 1, i.e. NT / 4 words a row; word
+// (mt*2 + r)*(NT/4) + k. Loaded before the layer's products, so their
+// latency hides under them.
 template <int NT>
-__device__ __forceinline__ void relu_bits(const bf16* act, int lda, uint32_t (&bits)[NT / 2]) {
+__device__ __forceinline__ void load_masks(const uint32_t* __restrict__ m, size_t ldp, int p0,
+                                           uint32_t (&mw)[8 * (NT / 4)]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int k = 0; k < NT / 2; ++k) bits[k] = 0u;
+  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2;
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = wm * 64 + mt * 16 + g + r * 8;
-        const int col = wn * NT * 8 + nt * 8 + 2 * t;
-        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(act + row * lda + col);
-        const int b = (mt * NT + nt) * 4 + 2 * r;
-        if (__low2float(v) > 0.f) bits[b >> 5] |= 1u << (b & 31);
-        if (__high2float(v) > 0.f) bits[b >> 5] |= 2u << (b & 31);
-      }
+      for (int k = 0; k < NT / 4; ++k)
+        mw[(mt * 2 + r) * (NT / 4) + k] =
+            __ldg(m + size_t(wn * (NT / 4) + k) * ldp + p0 + wm * 64 + mt * 16 + g + 8 * r);
 }
 
 // Cotangent epilogue of a chain layer: d = acc (+ gc . Wout[W/2 + col] when
 // wout_h7 is given), zeroed where the forward activation is not positive
-// (relu_bits' mask; none where mask is null); the f32 column sums of d over
-// the tile go to bsum (a bias grad's partial), and d rounded to bf16 to
+// (load_masks' words; none where mask is null); the f32 column sums of d
+// over the tile go to bsum (a bias grad's partial), and d rounded to bf16 to
 // `out`. Inlined, so the mask stays in registers.
 template <int NT>
 __device__ __forceinline__ void bwd_epilogue(float (&acc)[4][NT][4], const uint32_t* mask,
@@ -333,8 +461,9 @@ __device__ __forceinline__ void bwd_epilogue(float (&acc)[4][NT][4], const uint3
           for (int k = 0; k < 4; ++k) e = fmaf(gcs[r * 4 + k], to_f(wout_h7[c * 4 + k]), e);
           x += e;
         }
-        const int b = (mt * NT + nt) * 4 + q;
-        if (mask != nullptr && !((mask[b >> 5] >> (b & 31)) & 1u)) x = 0.f;
+        // column c's bit: (nt % 4)*8 + 2t + q % 2 of its row's word nt / 4
+        const uint32_t word = mask == nullptr ? 0u : mask[(mt * 2 + (q >> 1)) * (NT / 4) + nt / 4];
+        if (mask != nullptr && !((word >> ((nt & 3) * 8 + 2 * t + (q & 1))) & 1u)) x = 0.f;
         v[q] = x;
       }
       cs[nt][0] += v[0] + v[2];
@@ -362,105 +491,34 @@ __device__ __forceinline__ void bwd_epilogue(float (&acc)[4][NT][4], const uint3
   for (int c = tid; c < N; c += THREADS) bsum[c] = red[c] + red[N + c];
 }
 
-// dx (and, with a direction per point, dv) only where the pointer is given.
+// The cotangent chain of the bf16 backward over one tile, after the
+// recompute (bwd_recompute_sm90) has written the tile's rows and masks. dx
+// (and, with a direction per point, dv) only where the pointer is given.
 template <typename In, int W>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_tile_bf16(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, int n_pts,
               int Fp, int Fv, const bf16* __restrict__ wb, const bf16* __restrict__ wt,
-              const float* __restrict__ bb, bf16* ws, size_t ldp, float* dhv32, float* bpart,
-              float* dx, float* dv) {
+              bf16* ws, const uint32_t* __restrict__ masks, size_t ldp, float* dhv32,
+              float* bpart, float* dx, float* dv) {
   using L = BwdSmem<W>;
   using O = Layout<W>;
   using T = TLayout<W>;
   using R = WsRows<W>;
+  using M = MaskRows<W>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* act = reinterpret_cast<bf16*>(smem + L::act);
   bf16* dbuf = reinterpret_cast<bf16*>(smem + L::dbuf);
-  bf16* emb = reinterpret_cast<bf16*>(smem + L::emb);
-  bf16* embv = reinterpret_cast<bf16*>(smem + L::embv);
   bf16* wbuf = reinterpret_cast<bf16*>(smem + L::wbuf);
   float* red = reinterpret_cast<float*>(smem + L::red);
   float* gs = reinterpret_cast<float*>(smem + L::gs);
   float* gcs = reinterpret_cast<float*>(smem + L::gcs);
-  uint32_t* masks = reinterpret_cast<uint32_t*>(smem + L::masks);
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * TP;
   const bool dense = in.spr == 1;  // a view direction per point
-  // the relu masks of h0..h7 as bits: layers below kSmemMasks in shared
-  // memory, the others in registers, written and read through selects over
-  // compile-time indices, so that the layer loops stay rolled (unrolled,
-  // they made the kernel slower: PERF.md)
-  constexpr int SM = kSmemMasks<W>;
-  uint32_t hbits[8][W / 64] = {};
-  auto keep = [&](int i, const uint32_t(&b)[W / 64]) {
-    if (SM > 0 && i < SM) {
-#pragma unroll
-      for (int k = 0; k < W / 64; ++k) masks[(i * (W / 64) + k) * THREADS + tid] = b[k];
-    } else {
-#pragma unroll
-      for (int l = SM; l < 8; ++l)
-#pragma unroll
-        for (int k = 0; k < W / 64; ++k) hbits[l][k] = l == i ? b[k] : hbits[l][k];
-    }
-  };
-  auto fetch = [&](int i, uint32_t(&b)[W / 64]) {
-    if (SM > 0 && i < SM) {
-#pragma unroll
-      for (int k = 0; k < W / 64; ++k) b[k] = masks[(i * (W / 64) + k) * THREADS + tid];
-    } else {
-#pragma unroll
-      for (int k = 0; k < W / 64; ++k) b[k] = 0u;
-#pragma unroll
-      for (int l = SM; l < 8; ++l)
-#pragma unroll
-        for (int k = 0; k < W / 64; ++k) b[k] = l == i ? hbits[l][k] : b[k];
-    }
-  };
   float* bsum = bpart + size_t(blockIdx.x) * O::nbias;
   auto row = [&](int r) { return ws + size_t(r) * ldp; };
-
-  // forward recompute with the forward's code; every activation goes to the
-  // workspace, and the relu masks of h0..h7 stay on chip
-  uint32_t bits[W / 64];
-  embed_tile<bf16>(in, n_pts, Fp, Fv, p0, TP, emb, L::lde, embv, L::ldv);
-  __syncthreads();
-  ws_transpose<true>(emb, L::lde, KE, row(R::e), ldp, p0);
-  if (dense) ws_transpose<true>(embv, L::ldv, KV, row(R::ev), ldp, p0);
+  auto mrow = [&](int r) { return masks + size_t(r) * ldp; };
   const Seg none = {nullptr, 0, nullptr, 0};
-  {  // layer 0: rows [0, W) of W05e^T
-    float acc[4][W / 32][4];
-    mma_layer<W, W / 32>({emb, L::lde, wb + O::w05, KE}, none, wbuf, acc);
-    epilogue<W / 32>(acc, bb, act, L::lda, true);
-    relu_bits<W / 32>(act, L::lda, bits);
-    keep(0, bits);
-  }
-  __syncthreads();
-  ws_transpose<true>(act, L::lda, W, row(R::h(0)), ldp, p0);
-  for (int i = 1; i < 8; ++i) {  // trunk; layer 5 adds e W5e (rows [W, 2W))
-    float acc[4][W / 32][4];
-    const Seg skip = i == 5 ? Seg{emb, L::lde, wb + O::w05 + size_t(W) * KE, KE} : none;
-    mma_layer<W, W / 32>({act, L::lda, wb + O::wi(i), W}, skip, wbuf, acc);
-    epilogue<W / 32>(acc, bb + i * W, act, L::lda, true);
-    relu_bits<W / 32>(act, L::lda, bits);
-    keep(i, bits);
-    __syncthreads();
-    ws_transpose<true>(act, L::lda, W, row(R::h(i)), ldp, p0);
-  }
-  {  // feature (no activation)
-    float acc[4][W / 32][4];
-    mma_layer<W, W / 32>({act, L::lda, wb + O::wf, W}, none, wbuf, acc);
-    epilogue<W / 32>(acc, bb + O::bf, act, L::lda, false);
-  }
-  __syncthreads();
-  ws_transpose<true>(act, L::lda, W, row(R::feat), ldp, p0);
-  {  // view layer: [feat | ev] -> W/2, into columns [0, W/2) of act
-    float acc[4][W / 64][4];
-    mma_layer<W, W / 64>({act, L::lda, wb + O::wvf, W}, {embv, L::ldv, wb + O::wve, KV}, wbuf,
-                         acc);
-    epilogue<W / 64>(acc, bb + O::bv, act, L::lda, true);
-  }
-  __syncthreads();
-  ws_transpose<true>(act, L::lda, W / 2, row(R::hv), ldp, p0);
 
   // the tile's cotangent, zero beyond n_pts
   if (tid < TP) {
@@ -482,19 +540,25 @@ bwd_tile_bf16(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, 
   }
   {  // d_hv = (gc Wout[:W/2]^T) * (hv > 0): f32 to dhv32, bf16 to dbuf
     constexpr int H = W / 2, PARTS = THREADS / H, ROWS = TP / PARTS;
-    const int c = tid % H, part = tid / H;
+    const int c = tid % H, part = tid / H, lane = tid & 31;
     float w[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) w[k] = to_f(wb[O::wout + c * 4 + k]);
+    // hv's mask words of the warp's 32 columns, a point a lane
+    const uint32_t* hm = mrow(M::hv + c / 32) + p0;
     float s = 0.f;
-    for (int i = part * ROWS; i < (part + 1) * ROWS; ++i) {
-      float d = 0.f;
+    for (int i0 = part * ROWS; i0 < (part + 1) * ROWS; i0 += 32) {
+      const uint32_t mine = __ldg(hm + i0 + lane);
+      for (int j = 0; j < 32; ++j) {
+        const int i = i0 + j;
+        float d = 0.f;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) d = fmaf(gcs[i * 4 + k], w[k], d);
-      if (!(to_f(act[i * L::lda + c]) > 0.f)) d = 0.f;
-      s += d;
-      if (!dense) dhv32[size_t(p0 + i) * H + c] = d;
-      dbuf[i * L::lda + c] = __float2bfloat16_rn(d);
+        for (int k = 0; k < 4; ++k) d = fmaf(gcs[i * 4 + k], w[k], d);
+        if (!((__shfl_sync(0xffffffffu, mine, j) >> (c & 31)) & 1u)) d = 0.f;
+        s += d;
+        if (!dense) dhv32[size_t(p0 + i) * H + c] = d;
+        dbuf[i * L::lda + c] = __float2bfloat16_rn(d);
+      }
     }
     red[part * H + c] = s;
   }
@@ -508,7 +572,7 @@ bwd_tile_bf16(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, 
   if (dense && dv != nullptr) {  // d_ev = bf16(d_hv) Wve^T per point, then the view trig
     float acc[4][1][4];
     mma_layer<W, 1>({dbuf, L::lda, wt + T::wve, W / 2}, none, wbuf, acc);
-    float* d_ev = reinterpret_cast<float*>(act);  // hv is spent: act is free until d_feat
+    float* d_ev = reinterpret_cast<float*>(act);  // act is free until d_feat
     store_acc<1>(acc, d_ev, KV + 1);
     __syncthreads();
     input_grad(in, false, Fv, d_ev, KV + 1, n_pts, p0, TP, dv);
@@ -520,21 +584,21 @@ bwd_tile_bf16(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, 
   }
   __syncthreads();
   ws_transpose<true>(act, L::lda, W, row(R::dfeat), ldp, p0);
+  uint32_t mw[8 * (W / 128)];  // a layer's mask words (load_masks)
   {  // d_h7 = (bf16(d_feat) Wf^T + gc Wout[W/2:]^T) * (h7 > 0)
     float acc[4][W / 32][4];
+    load_masks<W / 32>(mrow(M::h(7)), ldp, p0, mw);
     mma_layer<W, W / 32>({act, L::lda, wt + T::wf, W}, none, wbuf, acc);
-    fetch(7, bits);
-    bwd_epilogue<W / 32>(acc, bits, gcs, wb + O::wout + size_t(W / 2) * 4, red,
-                         bsum + 7 * W, dbuf, L::lda);
+    bwd_epilogue<W / 32>(acc, mw, gcs, wb + O::wout + size_t(W / 2) * 4, red, bsum + 7 * W,
+                         dbuf, L::lda);
   }
   __syncthreads();
   ws_transpose<true>(dbuf, L::lda, W, row(R::d(7)), ldp, p0);
   for (int i = 7; i >= 1; --i) {  // d_h_{i-1} = (bf16(d_h_i) W_i^T) * (h_{i-1} > 0)
     float acc[4][W / 32][4];
+    load_masks<W / 32>(mrow(M::h(i - 1)), ldp, p0, mw);
     mma_layer<W, W / 32>({dbuf, L::lda, wt + T::wi(i), W}, none, wbuf, acc);
-    fetch(i - 1, bits);
-    bwd_epilogue<W / 32>(acc, bits, nullptr, nullptr, red, bsum + (i - 1) * W, dbuf,
-                         L::lda);
+    bwd_epilogue<W / 32>(acc, mw, nullptr, nullptr, red, bsum + (i - 1) * W, dbuf, L::lda);
     __syncthreads();
     ws_transpose<true>(dbuf, L::lda, W, row(R::d(i - 1)), ldp, p0);
   }
@@ -997,7 +1061,7 @@ size_t align256(size_t b) { return (b + 255) & ~size_t(255); }
 struct Plan {
   int tile, n_pts, n_pad, ntiles, n_rays, rpad, split_len, nsplit;
   bool dense;
-  size_t ws, rws, dhv, bpart, wpart, total;  // byte offsets / sizes
+  size_t ws, masks, rws, dhv, bpart, wpart, total;  // byte offsets / sizes
 };
 
 template <typename T, int W>
@@ -1059,6 +1123,8 @@ Plan make_plan(int n_pts, int spr) {
   size_t o = 0;
   p.ws = o;
   o += align256(size_t(WsRows<W>::rows) * p.n_pad * sizeof(T));
+  p.masks = o;  // the bf16 path's mask words (the f32 chain reads the rows)
+  o += sizeof(T) == 2 ? align256(size_t(MaskRows<W>::rows) * p.n_pad * 4) : 0;
   p.rws = o;
   o += align256(size_t(KV + W / 2) * p.rpad * sizeof(T));
   p.dhv = o;
@@ -1127,6 +1193,28 @@ Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int sp
     if (e_ != cudaSuccess) return e_;        \
   } while (0)
 
+// The bf16 recompute's launch: the forward blob's four tensor maps and a
+// persistent grid of min(tiles, SMs) CTAs, as K1's; raw (sink strides sc,
+// sp) only where raw is given.
+template <typename In, int W>
+cudaError_t launch_recompute(const In& in, int n_pts, int Fp, int Fv, const bf16* wb,
+                             const float* bb, bf16* ws, uint32_t* masks, size_t ldp, float* raw,
+                             size_t sc, size_t sp, cudaStream_t s) {
+  FwdMaps maps;
+  NERF_CHECK(encode_fwd_maps<W>(&maps, wb));
+  constexpr size_t smem = FwdSmem<W>::launch_bytes;
+  const auto kernel = raw != nullptr ? bwd_recompute_sm90<In, W, true>
+                                     : bwd_recompute_sm90<In, W, false>;
+  NERF_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+  int dev = 0, sms = 0;
+  NERF_CHECK(cudaGetDevice(&dev));
+  NERF_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  const int tiles = (n_pts + TP - 1) / TP;
+  kernel<<<tiles < sms ? tiles : sms, FWD_THREADS, smem, s>>>(maps, in, n_pts, Fp, Fv, wb, bb, ws,
+                                                             masks, ldp, raw, sc, sp);
+  return cudaGetLastError();
+}
+
 template <typename T, int W, typename In>
 cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts, int Fp, int Fv,
                 const void* wblob, const void* wtblob, const float* bblob, void* workspace,
@@ -1145,12 +1233,16 @@ cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts,
 
   NERF_CHECK(cudaMemsetAsync(wpart, 0, size_t(pl.nsplit) * GLayout<W>::size * 4, s));
   if (sizeof(T) == 2) {
+    uint32_t* masks = reinterpret_cast<uint32_t*>(base + pl.masks);
+    NERF_CHECK((launch_recompute<In, W>(in, pl.n_pts, Fp, Fv, reinterpret_cast<const bf16*>(wb),
+                                        bblob, reinterpret_cast<bf16*>(ws), masks, ldp, nullptr,
+                                        0, 0, s)));
     const size_t smem = BwdSmem<W>::bytes;
     NERF_CHECK(cudaFuncSetAttribute(bwd_tile_bf16<In, W>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
     bwd_tile_bf16<In, W><<<pl.ntiles, THREADS, smem, s>>>(
         in, g, gsc, gsp, pl.n_pts, Fp, Fv, reinterpret_cast<const bf16*>(wb),
-        reinterpret_cast<const bf16*>(wt), bblob, reinterpret_cast<bf16*>(ws), ldp, dhv32, bpart,
+        reinterpret_cast<const bf16*>(wt), reinterpret_cast<bf16*>(ws), masks, ldp, dhv32, bpart,
         dx, dv);
   } else {
     const size_t smem = BwdSmem32<W>::bytes;
@@ -1226,6 +1318,25 @@ bool valid_shape(long long n_pts, int spr) {
   return n_pts >= 1 && spr >= 1 && n_pts % spr == 0 && n_pts <= 0x7fffffffLL - 256;
 }
 
+// The recompute launch alone into ws and masks at ldp = n_pts rounded up
+// to whole tiles (nerf_fused_mlp_bwd_recompute*).
+template <typename In>
+int recompute_only(int width, const In& in, int n_pts, int Fp, int Fv, const void* wblob,
+                   const float* bblob, void* ws, void* masks, float* raw, size_t sc, size_t sp,
+                   void* stream) {
+  if (Fp < 1 || Fp > MAX_FP || Fv < 1 || Fv > MAX_FV) return cudaErrorInvalidValue;
+  const size_t ldp = (size_t(n_pts) + TP - 1) / TP * TP;
+  const bf16* wb = static_cast<const bf16*>(wblob);
+  bf16* w = static_cast<bf16*>(ws);
+  uint32_t* m = static_cast<uint32_t*>(masks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (width == 256)
+    return launch_recompute<In, 256>(in, n_pts, Fp, Fv, wb, bblob, w, m, ldp, raw, sc, sp, s);
+  if (width == 128)
+    return launch_recompute<In, 128>(in, n_pts, Fp, Fv, wb, bblob, w, m, ldp, raw, sc, sp, s);
+  return cudaErrorInvalidValue;
+}
+
 int workspace_bytes(int use_bf16, int width, int n_pts, int spr, long long* bytes) {
   Plan p;
   if (use_bf16 && width == 256) p = make_plan<bf16, 256>(n_pts, spr);
@@ -1288,6 +1399,34 @@ extern "C" int nerf_fused_mlp_bwd_points(int use_bf16, int width, const float* x
   const PointsIn in{x, v, spr};
   return dispatch(use_bf16, width, in, g, 1, 4, n_pts, n_freq_pts, n_freq_views, wblob, wtblob,
                   bblob, workspace, ws_bytes, out, dx, dv, stream);
+}
+
+// The bf16 recompute alone, K4's and K3's first launch, for a check of what
+// it writes: ws [WsRows<W>::rows][n_pad] bf16 and masks
+// [MaskRows<W>::rows][n_pad] u32 (n_pad: the points rounded up to 128), and
+// raw where raw is not null. Rays mode: raw as planes [4][R*S], as K1's.
+extern "C" int nerf_fused_mlp_bwd_recompute(int width, const float* rays_o, const float* rays_d,
+                                            const float* viewdirs, const float* z, int n_rays,
+                                            int n_samples, int n_freq_pts, int n_freq_views,
+                                            const void* wblob, const float* bblob, void* ws,
+                                            void* masks, float* raw, void* stream) {
+  const long long n = static_cast<long long>(n_rays) * n_samples;
+  if (!valid_shape(n, n_samples)) return cudaErrorInvalidValue;
+  const RaysIn in{rays_o, rays_d, z, viewdirs, n_samples};
+  return recompute_only(width, in, int(n), n_freq_pts, n_freq_views, wblob, bblob, ws, masks, raw,
+                        size_t(n), 1, stream);
+}
+
+// Points mode (K3's): x [N,3], v [N/spr,3]; raw as rows [N][4], as K2's.
+extern "C" int nerf_fused_mlp_bwd_recompute_points(int width, const float* x, const float* v,
+                                                   int n_pts, int spr, int n_freq_pts,
+                                                   int n_freq_views, const void* wblob,
+                                                   const float* bblob, void* ws, void* masks,
+                                                   float* raw, void* stream) {
+  if (!valid_shape(n_pts, spr)) return cudaErrorInvalidValue;
+  const PointsIn in{x, v, spr};
+  return recompute_only(width, in, n_pts, n_freq_pts, n_freq_views, wblob, bblob, ws, masks, raw,
+                        1, 4, stream);
 }
 
 extern "C" const char* nerf_cuda_error_string(int err) {

@@ -3,12 +3,12 @@
 // input modes, the weight-blob layout, the posenc embedding and its
 // backward, the bf16 mma.sync layer with its cp.async weight ring, the f32
 // FMA layer, and the forward's tile bodies, which hand raw to a
-// caller-given sink. The backward recomputes the forward activations from
-// this code (fwd_tile_bf16), and the f32 forwards run fwd_tile_f32. K1, K2
-// and K5 run fwd_tile_sm90.cuh's wgmma tile in bf16,
-// which sums each layer's products in the same K order; on an H100 its bf16
-// raw differed from this tile's only in the head's last f32 bits (PERF.md),
-// where one activation rounded to the other bf16 neighbour would show ~1e-4.
+// caller-given sink. The f32 forwards run fwd_tile_f32; in bf16 K1, K2, K5
+// and the backward's recompute run fwd_tile_sm90.cuh's wgmma tile, which
+// sums each layer's products in the same K order as fwd_tile_bf16 here (on
+// an H100 the two tiles' bf16 raw differed only in the head's last f32
+// bits: PERF.md). Only K7's probes (probe_overlap.cu) still run
+// fwd_tile_bf16; the backward's cotangent chain runs mma_layer.
 
 #pragma once
 
@@ -401,8 +401,8 @@ __device__ void store_acc(const float (&acc)[4][NT][4], float* out, int ldo) {
       }
 }
 
-// The forward of one tile of TP points p0 .. p0+TP-1 (K1, K2 and K5 run
-// this body): posenc and the MLP, with raw of the points p < n_pts going
+// The forward of one tile of TP points p0 .. p0+TP-1 (K7's `full` probe
+// runs this body): posenc and the MLP, with raw of the points p < n_pts going
 // to sink(p, c, v). smem holds Bf16Smem<W>::bytes. A CTA may run it again
 // on another tile right away: the next tile's first write to a buffer
 // comes after a barrier that every read of this tile precedes.

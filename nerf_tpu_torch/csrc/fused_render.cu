@@ -305,7 +305,7 @@ __device__ __forceinline__ void composite_ray(const RenderArgs& a, int r, const 
 // group) and empty[b] (the 96 compositing threads arrive once they have
 // read it); the consumers wait on empty[b] before the first head of group
 // k >= 2, for group k-2's compositing.
-struct GroupHook {
+struct GroupHook : NoHook {
   const RenderArgs& a;
   uint64_t* bars;  // full[SLAB_BUFFERS], empty[SLAB_BUFFERS]
   __device__ __forceinline__ int local_group(int tile) const {
@@ -354,7 +354,7 @@ render_bf16_sm90(const __grid_constant__ FwdMaps maps, const __grid_constant__ R
   }
   const RaysIn in{a.ro, a.rd, a.z, a.vd, a.S};
   fwd_tiles_sm90<RaysIn, W>(maps, in, a.n_rays * a.S, a.Fp, a.Fv, static_cast<const bf16*>(a.wb),
-                            a.bb, smem, GroupSink{a}, GroupWalk{a.n_sub}, GroupHook{a, bars});
+                            a.bb, smem, GroupSink{a}, GroupWalk{a.n_sub}, GroupHook{{}, a, bars});
 }
 
 // ------------------------------------------------------------------ f32

@@ -16,7 +16,9 @@
 // A hook (a template parameter too; NoHook, the default, compiles to
 // nothing) is called by the consumers before each tile's head writes raw
 // and after it, and runs on the producer warpgroup's three idle warps (K5
-// composites its ray groups there):
+// composites its ray groups there); the backward's recompute
+// (fused_mlp_bwd.cu) takes each layer's output from the consumers while
+// the next layer's products run (after_embed, after_layer):
 // - warpgroup 0, the producer: one thread streams the weight chunks of
 //   every tile, in the order the layers consume them, by TMA into a ring of
 //   FWD_STAGES stages (a chunk is 64 K columns x N rows of a W^T block,
@@ -45,7 +47,8 @@
 // - The head: rgb/alpha = [hv | h7] Wout + bout in f32 FMA from registers:
 //   h7's part at layer 7's epilogue, hv's at the view layer's, each
 //   reduced over the 4 lanes that share an accumulator row, so hv is never
-//   stored. The sink gets raw of the points p < n_pts.
+//   stored (unless the hook asks for it: kHvToAct). The sink gets raw of
+//   the points p < n_pts.
 
 #pragma once
 
@@ -104,11 +107,23 @@ struct TileWalk {
 // The hook: before_head(tile) is called by every consumer thread before
 // the tile's head hands raw to the sink, after_tile(tile, ntiles) after it,
 // and side() by the threads of the producer warpgroup's warps 1-3 (40
-// registers each) once. NoHook: none.
+// registers each) once. after_embed(emb, embv, p0) and after_layer(l, act,
+// p0) are called by every thread of a consumer warpgroup (its 64 points
+// from p0) once a buffer holds a layer's complete output and the next
+// layer's products are in flight, and before that layer's epilogue may
+// overwrite it: the embeddings under layer 0's products; h_l (l = 0..7)
+// under layer l + 1's, after layer 5's skip chunk; feat (l = 8) under the
+// view layer's, after its embv chunk; with kHvToAct, hv (l = 9) in act's
+// first W/2 columns between two barriers of the warpgroup after the view
+// layer. A hook waits on no barrier. NoHook: none.
 struct NoHook {
+  static constexpr bool kHvToAct = false;
   __device__ __forceinline__ void before_head(int) const {}
   __device__ __forceinline__ void after_tile(int, int) const {}
   __device__ __forceinline__ void side() const {}
+  __device__ __forceinline__ void after_embed(const unsigned char*, const unsigned char*,
+                                              int) const {}
+  __device__ __forceinline__ void after_layer(int, const unsigned char*, int) const {}
 };
 
 // The 1 KB-aligned base of the dynamic shared memory (FwdSmem's offsets;
@@ -359,6 +374,7 @@ __device__ __forceinline__ void fwd_consumer(const In& in, int n_pts, int Fp, in
       take_turn(w);
       consume_chunk<W>(r, acc, emb, true);  // layer 0: e W0e
       pass_turn(w);
+      hook.after_embed(emb, embv, p0);
       finish_layer(r, bar);
       epilogue_sw<W, true, false>(acc, bb, act, wout, part);
     }
@@ -372,6 +388,7 @@ __device__ __forceinline__ void fwd_consumer(const In& in, int n_pts, int Fp, in
       for (int j = 0; j < NB; ++j) consume_chunk<W>(r, acc, act + j * L::BLOCK, j == 0);
       pass_turn(w);  // before the skip chunk: see take_turn
       if (i == 5) consume_chunk<W>(r, acc, emb, false);
+      hook.after_layer(i - 1, act, p0);
       finish_layer(r, bar);
       if (i == 7)
         epilogue_sw<W, true, true>(acc, bb + i * W, act, wout, part);
@@ -388,6 +405,7 @@ __device__ __forceinline__ void fwd_consumer(const In& in, int n_pts, int Fp, in
 #pragma unroll
       for (int j = 0; j < NB; ++j) consume_chunk<W>(r, acc, act + j * L::BLOCK, j == 0);
       pass_turn(w);
+      hook.after_layer(7, act, p0);
       finish_layer(r, bar);
       epilogue_sw<W, false, false>(acc, bb + O::bf, act, wout, part);
     }
@@ -401,7 +419,14 @@ __device__ __forceinline__ void fwd_consumer(const In& in, int n_pts, int Fp, in
       for (int j = 0; j < NB; ++j) consume_chunk<W / 2>(r, acc, act + j * L::BLOCK, j == 0);
       pass_turn(w);  // before the embv chunk: see take_turn
       consume_chunk<W / 2>(r, acc, embv, false);
+      hook.after_layer(8, act, p0);
       finish_layer(r, bar);  // act and embv are free for the next tile
+      if constexpr (Hook::kHvToAct) {  // hv to act for the hook, then act is free again
+        epilogue_sw<W / 2, true, false>(acc, bb + O::bv, act, wout, part);
+        hopper::bar_sync(bar, 128);
+        hook.after_layer(9, act, p0);
+        hopper::bar_sync(bar, 128);
+      }
       hook.before_head(tile);
       view_head<W>(acc, bb + O::bv, wout, bb + O::bout, part, n_pts, p0, sink);
     }

@@ -54,6 +54,12 @@ SIGNATURES = {
             _I,
             [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _P],
         ),
+        "nerf_fused_mlp_bwd_recompute": (
+            _I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        ),
+        "nerf_fused_mlp_bwd_recompute_points": (
+            _I, [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        ),
         "nerf_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "fused_render": {

@@ -31,7 +31,13 @@ The pieces:
   version; a CUDA tensor launches the kernel or raises;
 - ``fused_query_rays_planes`` and ``fused_query``: the entries the renderer
   calls; under autograd they run ``_FusedRaysPlanes`` (K1 forward, K4
-  backward) and ``_FusedPoints`` (K2 forward, K3 backward).
+  backward) and ``_FusedPoints`` (K2 forward, K3 backward);
+- ``bwd_recompute_reference`` / ``bwd_recompute`` and ``bwd_recompute_rays``:
+  the bf16 backward's first launch, its recompute on K1's tile, alone: the
+  workspace rows and relu mask words it writes (``unpack_mask_bits`` decodes
+  them), for checks, with ``recompute_layers_reference`` to hold each layer
+  to its plain version on the kernel's own inputs; K4 and K3 launch it
+  themselves.
 """
 
 from __future__ import annotations
@@ -133,24 +139,73 @@ def wgrad_bytes_per_point(cfg: MLPConfig) -> int:
 
 def bwd_tile_flops(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig,
                    n_rays: int, n_samples: int, input_grads: bool = False) -> int:
-    """FLOP of the backward's phase 1 (``bwd_tile_bf16`` in
-    csrc/fused_mlp_bwd.cu) for one call: ``bwd_flops`` less the weight
-    grads (``wgrad_flops``), i.e. the forward recompute without the
-    rgb/alpha head and the activation cotangents, per point. 2,302,720 per
-    point at 8x256 with 10/4 octaves. ``input_grads`` adds d_e per point and
-    d_ev per ray (which phase 2 computes where a ray has its own direction)."""
+    """FLOP of the backward's phase 1 (``bwd_recompute_sm90`` and
+    ``bwd_tile_bf16`` in csrc/fused_mlp_bwd.cu) for one call: ``bwd_flops``
+    less the weight grads (``wgrad_flops``), i.e. the forward recompute
+    without the rgb/alpha head and the activation cotangents, per point.
+    2,302,720 per point at 8x256 with 10/4 octaves. ``input_grads`` adds d_e
+    per point and d_ev per ray (which phase 2 computes where a ray has its
+    own direction)."""
     return (bwd_flops(cfg, pe_pts, pe_views, n_rays, n_samples, input_grads)
             - wgrad_flops(cfg, pe_pts, pe_views, n_rays, n_samples))
 
 
+def mask_bytes_per_point(cfg: MLPConfig) -> int:
+    """Bytes of the relu masks of h0..h7 and hv as bits (MaskRows in
+    csrc/fused_mlp_bwd.cu): 272 at 8x256."""
+    return (DEPTH * cfg.width + cfg.width // 2) // 8
+
+
+def recompute_flops(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig,
+                    n_rays: int, n_samples: int) -> int:
+    """FLOP of the backward's recompute launch (``bwd_recompute_sm90`` in
+    csrc/fused_mlp_bwd.cu) for one call: the forward without the rgb/alpha
+    head (W05e's two halves, W1..W7, Wf, and the view layer over
+    [feat | ev]), per point. 1,185,536 at 8x256 with 10/4 octaves."""
+    W, ep, ev = cfg.width, pe_pts.out_dim, pe_views.out_dim
+    return 2 * n_rays * n_samples * (2 * ep * W + DEPTH * W * W + (W + ev) * (W // 2))
+
+
+def recompute_bytes_per_point(cfg: MLPConfig) -> int:
+    """Bytes that the recompute launch must move per point in ray mode with
+    a view direction per ray (K4's training call), each once: the bf16
+    workspace rows it writes (the padded embedding e, h0..h7, feat, hv), the
+    mask words and the depth z read. 5,268 at 8x256. The per-ray inputs
+    and the weights are counted apart."""
+    W = cfg.width
+    return 2 * (KE + DEPTH * W + W + W // 2) + mask_bytes_per_point(cfg) + 4
+
+
+def chain_flops(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig,
+                n_rays: int, n_samples: int, input_grads: bool = False) -> int:
+    """FLOP of the backward's cotangent chain (``bwd_tile_bf16``) for one
+    call: phase 1 less the recompute. 1,117,184 per point at 8x256 with
+    10/4 octaves; ``input_grads`` as in ``bwd_tile_flops``."""
+    return (bwd_tile_flops(cfg, pe_pts, pe_views, n_rays, n_samples, input_grads)
+            - recompute_flops(cfg, pe_pts, pe_views, n_rays, n_samples))
+
+
+def chain_bytes_per_point(cfg: MLPConfig) -> int:
+    """Bytes that the chain must move per point in K4's training call, each
+    once: the bf16 workspace rows it writes (4 of gc's 8 rows, d0..d7,
+    d_feat, d_hv), the f32 d_hv rows for phase 2, the mask words and the
+    cotangent g (4 f32) read. 5,672 at 8x256. The per-ray inputs, the
+    weights and the tiles' bias sums are counted apart."""
+    W = cfg.width
+    rows = 4 + DEPTH * W + W + W // 2
+    return 2 * rows + 4 * (W // 2) + mask_bytes_per_point(cfg) + 4 * 4
+
+
 def bwd_tile_bytes_per_point(cfg: MLPConfig) -> int:
-    """Bytes that the backward's phase 1 must move per point in ray mode
-    with a view direction per ray (K4's training call), each once: the bf16
-    workspace rows written (``wgrad_bytes_per_point`` less the 4 of gc's 8
-    rows that phase 1 leaves unwritten), the f32 d_hv rows for phase 2, the
-    cotangent g (4 f32) and the depth z read. 10,396 at 8x256. The per-ray
-    inputs, the weights and the tiles' bias sums are counted apart."""
-    return wgrad_bytes_per_point(cfg) - 2 * 4 + 4 * (cfg.width // 2) + 4 * 4 + 4
+    """Bytes that the backward's phase 1, the recompute and the chain, must
+    move per point in ray mode with a view direction per ray (K4's training
+    call), each once: every workspace row it writes (``wgrad_bytes_per_point``
+    less the 4 of gc's 8 rows that phase 1 leaves unwritten), the f32 d_hv
+    rows for phase 2, the cotangent g (4 f32) and the depth z read, and the
+    mask words that the recompute writes and the chain reads. 10,940 at
+    8x256. The per-ray inputs, the weights and the tiles' bias sums are
+    counted apart."""
+    return recompute_bytes_per_point(cfg) + chain_bytes_per_point(cfg)
 
 
 def fwd_weight_bytes_per_tile(cfg: MLPConfig) -> int:
@@ -283,6 +338,95 @@ def _forward(kp: Dict[str, torch.Tensor], x: torch.Tensor, v: torch.Tensor, spr:
     hw = W // 2
     out = c(hv) @ w("Wout")[:hw] + hc @ w("Wout")[hw:] + kp["bout"]
     return _Fwd(e, ev, acts, h, feat, hv, out)
+
+
+def ws_rows(W: int) -> Tuple[Dict[str, Tuple[int, int]], int]:
+    """((first row, rows) of each of the recompute's blocks, the row count)
+    of the backward's bf16 workspace (WsRows in csrc/fused_mlp_bwd.cu; the
+    view embedding's block is written only with a direction per point)."""
+    gc = KE + DEPTH * W + W + W // 2
+    ev = gc + 8 + DEPTH * W + W + W // 2
+    blocks = {"e": (0, KE), **{f"h{i}": (KE + i * W, W) for i in range(DEPTH)},
+              "feat": (KE + DEPTH * W, W), "hv": (KE + DEPTH * W + W, W // 2), "ev": (ev, KV)}
+    return blocks, ev + KV
+
+
+def mask_rows(W: int) -> int:
+    """Rows of the mask words (MaskRows in csrc/fused_mlp_bwd.cu): W/32 a
+    layer for h0..h7, then W/64 for hv."""
+    return DEPTH * (W // 32) + W // 64
+
+
+def pack_mask_bits(bits: torch.Tensor) -> torch.Tensor:
+    """bool [N, n] -> int32 words [ceil(n/32), N], the kernel's layout: bit
+    b of word k is feature 32k + b (a u32 read as int32)."""
+    N, n = bits.shape
+    b = F.pad(bits.to(torch.int64), (0, -n % 32)).reshape(N, -1, 32)
+    words = (b << torch.arange(32, dtype=torch.int64, device=bits.device)).sum(-1).T
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32).contiguous()
+
+
+def unpack_mask_bits(words: torch.Tensor, n: int) -> torch.Tensor:
+    """int32 words [k, N] (``pack_mask_bits``' layout) -> bool [N, n], the
+    first n features."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words.T[:, :, None] >> shifts) & 1  # [N, k, 32]
+    return bits.reshape(words.shape[1], -1)[:, :n].bool()
+
+
+class Recompute(NamedTuple):
+    rows: Dict[str, torch.Tensor]  # workspace rows by block (ws_rows): [features, points]
+    masks: torch.Tensor  # int32 [mask_rows(W), points]: h0..h7's words, then hv's
+    raw: Optional[torch.Tensor]  # [points, 4]
+
+
+def bwd_recompute_reference(kp: Dict[str, torch.Tensor], x: torch.Tensor, v: torch.Tensor,
+                            spr: int) -> Recompute:
+    """Plain PyTorch version of the bf16 backward's recompute launch
+    (``bwd_recompute_sm90``) from points x [N, 3] and directions v [N/spr,
+    3]: the workspace rows it writes, rounded as the kernel rounds them (the
+    padded embeddings e and ev, ev per direction; h0..h7, feat and hv), the
+    relu masks of h0..h7 and hv as mask words, and raw. The rows are
+    ``_forward``'s, so the masks are those the forward's activations give."""
+    dtype = kp["W1"].dtype
+    c = lambda t: round_to(t, dtype)  # noqa: E731
+    fw = _forward(kp, x, v, spr, keep_acts=True)
+    hs = fw.acts + [c(fw.h7)]
+    hv = c(fw.hv)
+    rows = {"e": F.pad(fw.e, (0, KE - fw.e.shape[1])).T,
+            "ev": F.pad(fw.ev, (0, KV - fw.ev.shape[1])).T,
+            **{f"h{i}": h.T for i, h in enumerate(hs)}, "feat": c(fw.feat).T, "hv": hv.T}
+    masks = torch.cat([pack_mask_bits(h > 0) for h in hs + [hv]], 0)
+    return Recompute({k: t.contiguous() for k, t in rows.items()}, masks, fw.out)
+
+
+def recompute_layers_reference(kp: Dict[str, torch.Tensor], rows: Dict[str, torch.Tensor],
+                               x: torch.Tensor, v: torch.Tensor, spr: int) -> Dict[str, torch.Tensor]:
+    """Each workspace block of ``bwd_recompute_reference`` computed by its
+    one layer from the blocks it reads in ``rows`` (a recompute's, columns
+    beyond x's N ignored; the view embedding's own where ``rows`` has none),
+    not from the reference's own chain: a kernel's rows then differ from
+    these by that layer's rounding alone. ``rows`` = the reference's gives
+    the reference's rows."""
+    dtype = kp["W1"].dtype
+    c = lambda t: round_to(t, dtype)  # noqa: E731
+    w = lambda name: kp[name].float()  # noqa: E731
+    Fp, Fv = _num_freqs(kp)
+    W, n = kp["W1"].shape[0], x.shape[0]
+    ke, kv = kp["W05e"].shape[0], kp["Wve"].shape[0]
+    inp = lambda name: rows[name][:, :n].T.float().contiguous()  # noqa: E731
+    out = {"e": F.pad(c(_embed(x, Fp)), (0, KE - ke)).T,
+           "ev": F.pad(c(_embed(v, Fv)), (0, KV - kv)).T}
+    z05 = inp("e")[:, :ke] @ w("W05e")
+    out["h0"] = c(torch.relu(z05[:, :W] + kp["b0"])).T
+    for i in range(1, DEPTH):
+        z = inp(f"h{i - 1}") @ w(f"W{i}") + kp[f"b{i}"]
+        out[f"h{i}"] = c(torch.relu(z + z05[:, W:] if i == SKIP + 1 else z)).T
+    out["feat"] = c(inp(f"h{DEPTH - 1}") @ w("Wf") + kp["bf"]).T
+    ev = inp("ev")[: n // spr, :kv] if "ev" in rows else out["ev"][:kv].T
+    ev_contrib = (ev @ w("Wve")).repeat_interleave(spr, dim=0)
+    out["hv"] = c(torch.relu(inp("feat") @ w("Wvf") + ev_contrib + kp["bv"])).T
+    return {k: t.contiguous() for k, t in out.items()}
 
 
 def fused_rays_planes_reference(
@@ -656,7 +800,78 @@ def _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g, blobs) -> Dict[str, tor
             bblob.data_ptr(), ws.data_ptr(), nbytes, out.data_ptr(), stream,
         )
     _raise_on(lib, err, "fused_mlp_bwd")
+    bwd_recompute.launches += use_bf16
     return _unpack_grads(out, W, Fp, Fv)
+
+
+def _launch_recompute(kp, entry: str, args, n: int, spr: int, raw: bool, like: torch.Tensor,
+                      blobs) -> Recompute:
+    dtype, W, Fp, Fv = _kernel_config(kp, like)
+    if dtype != torch.bfloat16:
+        raise ValueError("the recompute is a launch of the bf16 backward only")
+    dev = like.device
+    n_pad = -(-n // FWD_TILE) * FWD_TILE
+    blocks, n_rows = ws_rows(W)
+    # NaN everywhere, so a row that the launch leaves unwritten shows
+    ws = torch.full((n_rows, n_pad), float("nan"), dtype=torch.bfloat16, device=dev)
+    masks = torch.empty(mask_rows(W), n_pad, dtype=torch.int32, device=dev)
+    out = torch.empty(n * 4, dtype=torch.float32, device=dev) if raw else None
+    if n:
+        lib = _build.load("fused_mlp_bwd")
+        wblob, bblob = kernel_blobs(kp) if blobs is None else blobs
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = getattr(lib, entry)(W, *args, Fp, Fv, wblob.data_ptr(), bblob.data_ptr(),
+                                      ws.data_ptr(), masks.data_ptr(),
+                                      0 if out is None else out.data_ptr(), stream)
+        _raise_on(lib, err, entry)
+        bwd_recompute.launches += 1
+    rows = {k: ws[r0 : r0 + n_k] for k, (r0, n_k) in blocks.items() if k != "ev" or spr == 1}
+    if out is not None:
+        out = out.view(4, n).T if entry == "nerf_fused_mlp_bwd_recompute" else out.view(n, 4)
+    return Recompute(rows, masks, out)
+
+
+def bwd_recompute(kp: Dict[str, torch.Tensor], x: torch.Tensor, v: torch.Tensor, spr: int,
+                  raw: bool = False, blobs=None) -> Recompute:
+    """The bf16 backward's recompute launch alone (K3's first launch), on
+    points x [N, 3] and directions v [N/spr, 3], for a check of what it
+    writes: on a CUDA tensor the kernel's workspace rows and mask words over
+    all of its whole tiles (N rounded up to 128 columns; the view
+    embedding's rows only at spr = 1) and, with ``raw``, its raw [N, 4]; on
+    a CPU tensor ``bwd_recompute_reference``. ``launches`` counts the
+    recompute's launches, K4's, K3's and K6's included."""
+    _check_points(x, v, spr)
+    if x.device.type == "cpu":
+        ref = bwd_recompute_reference(kp, x, v, spr)
+        return ref if raw else ref._replace(raw=None)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {x.device}")
+    xc, vc = x.contiguous(), v.contiguous()
+    return _launch_recompute(kp, "nerf_fused_mlp_bwd_recompute_points",
+                             (xc.data_ptr(), vc.data_ptr(), x.shape[0], spr), x.shape[0], spr,
+                             raw, x, blobs)
+
+
+bwd_recompute.launches = 0
+
+
+def bwd_recompute_rays(kp: Dict[str, torch.Tensor], rays_o: torch.Tensor, rays_d: torch.Tensor,
+                       viewdirs: torch.Tensor, z_vals: torch.Tensor, raw: bool = False,
+                       blobs=None) -> Recompute:
+    """``bwd_recompute`` in ray mode (K4's first launch): rays [R, 3] and
+    depths [R, S], the points x = o + d·z; raw [R*S, 4] with ``raw``."""
+    _check_rays(rays_o, rays_d, viewdirs, z_vals)
+    R, S = z_vals.shape
+    if z_vals.device.type == "cpu":
+        ref = bwd_recompute_reference(kp, _ray_points(rays_o, rays_d, z_vals), viewdirs, S)
+        return ref if raw else ref._replace(raw=None)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {z_vals.device}")
+    ro, rd, vd, z = (t.contiguous() for t in (rays_o, rays_d, viewdirs, z_vals))
+    return _launch_recompute(kp, "nerf_fused_mlp_bwd_recompute",
+                             (ro.data_ptr(), rd.data_ptr(), vd.data_ptr(), z.data_ptr(), R, S),
+                             R * S, S, raw, z_vals, blobs)
 
 
 def fused_rays_planes_bwd(
@@ -741,6 +956,7 @@ def fused_points_bwd(
         )
     _raise_on(lib, err, "fused_mlp_bwd_points")
     fused_points_bwd.launches += 1
+    bwd_recompute.launches += use_bf16
     return _unpack_grads(out, W, Fp, Fv), dx, dv
 
 

@@ -1,7 +1,9 @@
-"""Phase 1 of the fused MLP backward (``bwd_tile_bf16`` in
-``csrc/fused_mlp_bwd.cu``, which K4, K3 and K6 all launch) on the card: its
-outputs, to show that two builds give bit-identical grads, and its time by
-launch at the training shapes.
+"""Phase 1 of the fused MLP backward on the card, the two bf16 launches in
+``csrc/fused_mlp_bwd.cu`` that K4, K3 and K6 all make: the recompute
+(``bwd_recompute_sm90``, K1's tile writing the activations' workspace rows
+and relu mask words) and the cotangent chain (``bwd_tile_bf16``, reading the
+mask words). Its outputs, to show that two builds give bit-identical grads,
+and its time by launch at the training shapes.
 
     python -m nerf_tpu_torch.tools.bwd_phase1 save OUT.pt
     python -m nerf_tpu_torch.tools.bwd_phase1 compare A.pt B.pt
@@ -69,8 +71,10 @@ CASES = (
     ("K1", 128, 301, 64, 64, False),
     ("K2", 256, N_RAND, 63, 1, False),
 )
-# K4's launches by kernel name, in order ("Memset": its partials' clear)
-K4_LAUNCHES = ("bwd_tile_bf16", "ray_prep", "wgrad_bf16", "reduce_splits", "reduce_tiles", "Memset")
+# K4's launches by kernel name, in order after its partials' clear
+# ("Memset"): phase 1's recompute and chain, phase 2, phase 3 and its sums
+K4_LAUNCHES = ("bwd_recompute_sm90", "bwd_tile_bf16", "ray_prep", "wgrad_bf16", "reduce_splits",
+               "reduce_tiles", "Memset")
 WARMUP, REPS = 3, 10
 
 

@@ -6,10 +6,10 @@ tile apart: the bare chain of 8 [T,256]@[256,256] bf16 products, then with
 bias+relu, then as two interleaved half-tiles; the posenc front end with
 real, no (·0.5, ·0.25) or polynomial trig, plain or interleaved; and the
 full head. Here each body is a branch of one CUDA kernel built from the
-``mma.sync`` tile code that K1 and K5 ran before their ``wgmma`` tile and that
-the backward's recompute still runs (``csrc/probe_overlap.cu``), so the gaps
-between the bodies' times say what that tile's epilogue and trig cost beside
-its ``mma.sync`` stream. A ninth
+``mma.sync`` tile code that K1, K5 and the backward's recompute ran before
+they moved to the ``wgmma`` tile (``csrc/probe_overlap.cu``; no production
+kernel runs it now), so the gaps between the bodies' times say what that
+tile's epilogue and trig cost beside its ``mma.sync`` stream. A ninth
 body, ``products``, has no counterpart in the script: the same 8 products,
 each of x, summed in the accumulators, with no epilogue between layers, so
 that its time is the product stream's alone.

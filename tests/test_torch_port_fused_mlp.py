@@ -31,6 +31,12 @@ BF16_TOL = 0.25  # tests/test_fused_mlp.py:186-194
 # nerf_tpu's bf16 mode evaluates posenc with a polynomial (max error 1.8e-5)
 # and the sums run in another order; measured max |diff| 1.8e-4 here.
 BF16_MEASURED_TOL = 2e-3
+# bf16 activations against nerf_tpu's from the same rounded embeddings: one
+# bf16 ulp of the larger side (an f32 sum in another order lands on the other
+# side of a rounding edge), plus what such an ulp, carried on through the
+# next layers' sums, adds where a value is small; that excess measured up to
+# 2.0e-4 here (h4, R=5, S=16).
+ROWS_ULP, ROWS_ULP_ATOL = 2.0 ** -7, 2.0 ** -11
 
 
 @pytest.fixture(scope="module")
@@ -136,8 +142,138 @@ def test_bwd_tile_flops_and_bytes():
     assert fused_mlp.bwd_tile_flops(MLPConfig(), PE_P, PE_V, 3, 5) == 15 * 2_302_720
     assert fused_mlp.bwd_tile_flops(MLPConfig(), PE_P, PE_V, 3, 5, input_grads=True) == \
         15 * (2_302_720 + 64_512) + 3 * 6_912
-    # the workspace rows written once (4 of gc's 8), the f32 d_hv rows, g and z
-    assert fused_mlp.bwd_tile_bytes_per_point(MLPConfig()) == 9_872 - 8 + 512 + 16 + 4
+    # the workspace rows written once (4 of gc's 8), the f32 d_hv rows, g and
+    # z; and the relu mask words (272 B), which the recompute writes and the
+    # chain reads
+    assert fused_mlp.bwd_tile_bytes_per_point(MLPConfig()) == 9_872 - 8 + 512 + 16 + 4 + 2 * 272
+
+
+def test_recompute_and_chain_flops_and_bytes():
+    cfg = MLPConfig()
+    # the recompute: W05e's two halves (2 x 63 x 256), W1..W7 and Wf (8 x
+    # 256^2), the view layer ((256 + 27) x 128), a multiply-add each
+    assert fused_mlp.recompute_flops(cfg, PE_P, PE_V, 3, 5) == 15 * 2 * 592_768
+    assert fused_mlp.chain_flops(cfg, PE_P, PE_V, 3, 5) == 15 * (2_302_720 - 1_185_536)
+    # masks: h0..h7 and hv, a bit each: (8 x 256 + 128) / 8
+    assert fused_mlp.mask_bytes_per_point(cfg) == 272
+    # the recompute writes e (64), h0..h7, feat and hv in bf16 and the masks,
+    # and reads z
+    assert fused_mlp.recompute_bytes_per_point(cfg) == 2 * (64 + 8 * 256 + 256 + 128) + 272 + 4
+    assert fused_mlp.recompute_bytes_per_point(cfg) == 5_268
+    # the chain writes gc's 4 used rows, d0..d7, d_feat and d_hv in bf16 and
+    # d_hv in f32, and reads the masks and g
+    assert fused_mlp.chain_bytes_per_point(cfg) == \
+        2 * (4 + 8 * 256 + 256 + 128) + 4 * 128 + 272 + 16
+    assert fused_mlp.chain_bytes_per_point(cfg) == 5_672
+    assert fused_mlp.mask_rows(256) == 68 and fused_mlp.mask_rows(128) == 34
+
+
+def _clear_points(mlp, R, S, spr, margin=2e-6):
+    """(x [R*S, 3], v [R*S/spr, 3]) whose relu inputs all lie further than
+    ``margin`` from zero in the f32 forward: the two packages' forwards
+    differ by ~1e-6, so a relu input closer to zero than that can fall on
+    either side (ROADMAP C.r3)."""
+    kp = fused_mlp.pack_params(mlp, PE_P, PE_V, torch.float32)
+    for seed in range(100):
+        ro, rd, vd, z = _rays(1000 * S + seed, R, S)
+        x = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(-1, 3)
+        v = np.repeat(vd, S, 0) if spr == 1 else vd
+        with torch.no_grad():
+            e = fused_mlp._embed(torch.from_numpy(x), PE_P.num_freqs)
+            z05 = e @ kp["W05e"]
+            pre = [z05[:, :W] + kp["b0"]]
+            for i in range(1, 8):
+                zi = torch.relu(pre[-1]) @ kp[f"W{i}"] + kp[f"b{i}"]
+                pre.append(zi + z05[:, W:] if i == 5 else zi)
+            feat = torch.relu(pre[-1]) @ kp["Wf"] + kp["bf"]
+            ev = fused_mlp._embed(torch.from_numpy(v), PE_V.num_freqs) @ kp["Wve"]
+            pre.append(feat @ kp["Wvf"] + ev.repeat_interleave(spr, 0) + kp["bv"])
+        if min(float(t.abs().min()) for t in pre) > margin:
+            return x, v
+    raise AssertionError("no well-conditioned inputs in 100 seeds")
+
+
+@pytest.mark.parametrize("R,S,spr", [(3, 77, 1), (5, 16, 16)])  # 231 points: ragged
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_recompute_reference_matches_jax(nets, R, S, spr, dtype):
+    """The recompute's plain version (the workspace rows and relu mask words
+    of the bf16 backward's first launch) against nerf_tpu's embeddings and,
+    from the same rounded embeddings, its _trunk_forward(keep_acts=True) and
+    _head_forward. (nerf_tpu's bf16 posenc is a polynomial whose 1.8e-5
+    error rounds a few embedding entries to the other bf16 neighbour, which
+    moves some relu inputs across zero: the embeddings are compared apart.)"""
+    params, mlp = nets
+    x, v = _clear_points(mlp, R, S, spr)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(mlp, PE_P, PE_V, tdt)
+        got = fused_mlp.bwd_recompute(kp, torch.from_numpy(x), torch.from_numpy(v), spr, raw=True)
+    jkp = jfused.pack_params(params, JCFG, JPE_P, JPE_V, jdt)
+    e, _, _ = jfused._embed_pts(jnp.asarray(x), jkp, jdt)
+    ev, _, _ = jfused._embed_views(jnp.asarray(v), jkp, jdt)
+    same = lambda t, n: jnp.asarray(t[:n].T.float().numpy()).astype(jdt)  # noqa: E731
+    h, acts = jfused._trunk_forward(same(got.rows["e"], 63), jkp, jdt, keep_acts=True)
+    raw, feat, hv = jfused._head_forward(h, same(got.rows["ev"], 27), jkp, jdt, W, spr)
+    want = {"e": e, "ev": ev, **{f"h{i}": a for i, a in enumerate(acts)},
+            "feat": feat.astype(jdt), "hv": hv.astype(jdt)}
+    assert len(acts) == 8 and got.masks.shape == (fused_mlp.mask_rows(W), R * S)
+    for name, ref in want.items():
+        ref = np.asarray(ref.astype(jnp.float32))
+        row = got.rows[name].float().numpy()
+        assert row.shape[0] == {"e": fused_mlp.KE, "ev": fused_mlp.KV, "hv": W // 2}.get(name, W)
+        assert not row[ref.shape[1]:].any(), name  # the embeddings' padding rows
+        d = np.abs(row[: ref.shape[1]].T - ref)
+        if dtype == "float32":
+            assert float(d.max()) <= F32_TOL, (name, float(d.max()))
+        elif name in ("e", "ev"):  # nerf_tpu's polynomial posenc
+            assert float(d.max()) <= BF16_TOL, (name, float(d.max()))
+        else:  # the layers, from the port's own rounded embeddings
+            excess = d - ROWS_ULP * np.maximum(np.abs(row[: ref.shape[1]].T), np.abs(ref))
+            assert float(excess.max()) <= ROWS_ULP_ATOL, (name, float(excess.max()))
+    tol = F32_TOL if dtype == "float32" else BF16_MEASURED_TOL
+    np.testing.assert_allclose(got.raw.numpy(), np.asarray(raw), rtol=0, atol=tol)
+    # the mask words decode to nerf_tpu's relu masks, bit for bit
+    for i, a in enumerate(acts):
+        bits = fused_mlp.unpack_mask_bits(got.masks[i * (W // 32) : (i + 1) * (W // 32)], W)
+        np.testing.assert_array_equal(bits.numpy(), np.asarray(a.astype(jnp.float32)) > 0)
+    bits = fused_mlp.unpack_mask_bits(got.masks[8 * (W // 32) :], W // 2)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(hv) > 0)
+
+
+@pytest.mark.parametrize("spr", [1, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_recompute_layers_reference_reads_the_rows_given(nets, spr, dtype):
+    """Fed the plain chain's own rows, each layer gives them back bit for bit
+    (columns past N, as a kernel's padded tile leaves them, are ignored);
+    fed a row that differs, only the layer that reads it follows."""
+    _, mlp = nets
+    rng = np.random.default_rng(spr)
+    x = torch.from_numpy(rng.standard_normal((16 * 13, 3)).astype(np.float32))
+    v = torch.nn.functional.normalize(
+        torch.from_numpy(rng.standard_normal((16 * 13 // spr, 3)).astype(np.float32)), dim=-1)
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(mlp, PE_P, PE_V, dtype)
+        ref = fused_mlp.bwd_recompute_reference(kp, x, v, spr).rows
+        padded = {k: torch.nn.functional.pad(t, (0, 48), value=float("nan"))
+                  for k, t in ref.items() if k != "ev" or spr == 1}
+        lay = fused_mlp.recompute_layers_reference(kp, padded, x, v, spr)
+        assert sorted(lay) == sorted(ref)
+        for name, rows in ref.items():
+            assert torch.equal(lay[name], rows), name
+        padded["h3"] = padded["h3"] * 2
+        moved = fused_mlp.recompute_layers_reference(kp, padded, x, v, spr)
+    assert not torch.equal(moved["h4"], ref["h4"])
+    assert all(torch.equal(moved[k], ref[k]) for k in ref if k != "h4")
+
+
+def test_mask_bits_round_trip():
+    rng = np.random.default_rng(3)
+    bits = torch.from_numpy(rng.random((37, 100)) > 0.5)
+    words = fused_mlp.pack_mask_bits(bits)
+    assert words.shape == (4, 37) and words.dtype == torch.int32
+    assert torch.equal(fused_mlp.unpack_mask_bits(words, 100), bits)
+    # bit 31 of a word is the sign of its int32
+    assert int(fused_mlp.pack_mask_bits(torch.eye(32, dtype=torch.bool)[31:])[0, 0]) == -2**31
 
 
 @pytest.mark.parametrize("width,want", [(256, 1_190_912), (128, 316_928)])

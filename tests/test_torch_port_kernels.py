@@ -116,6 +116,80 @@ def test_fused_mlp_bwd_kernel_matches_plain_version(cuda_device, width, dtype, t
             assert _rel_l2(got[name], ref[name]) <= tol, (name, _rel_l2(got[name], ref[name]))
 
 
+# the recompute's workspace rows against their plain version, with
+# chip_smoke.py's bounds (measured there): each layer on the kernel's own
+# inputs within one bf16 ulp of the larger side plus the sums' own
+# difference near zero, a small share of them differing; against the whole
+# plain chain, whose ulps move on from layer to layer, small shares of rows
+# and of mask bits differing
+RECOMPUTE_ULP, RECOMPUTE_ULP_ATOL = 2.0 ** -7, 2.0 ** -20
+RECOMPUTE_LAYER_SHARE, RECOMPUTE_CHAIN_SHARE, RECOMPUTE_MASK_SHARE = 5e-4, 2e-2, 3e-5
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("mode", ["rays", "points, a direction per point"])
+def test_bwd_recompute_is_the_forward_tile(cuda_device, width, mode):
+    """ROADMAP C.4's gate: the bf16 backward's recompute launch (K4's and
+    K3's first), with raw, gives K1's (K2's) raw bit for bit; its mask words
+    are its own rows' signs; each layer's rows lie within a bf16 ulp of that
+    layer's plain version on the kernel's own inputs, and close to the whole
+    plain chain, mask bits included; they are written to the last padded
+    point; without raw it writes the same."""
+    mlp = NeRFMLP(MLPConfig(width=width), seed=width, device=cuda_device)
+    kp = fused_mlp.pack_params(mlp, PE_P, PE_V, torch.bfloat16)
+    R, S = 7, 43  # 301 points: a ragged third tile
+    ro, rd, vd, z = _rays(width + 1, R, S, cuda_device)
+    x = fused_mlp._ray_points(ro, rd, z)
+    if mode == "rays":
+        v, spr = vd, S
+        got = fused_mlp.bwd_recompute_rays(kp, ro, rd, vd, z, raw=True)
+        bare = fused_mlp.bwd_recompute_rays(kp, ro, rd, vd, z)
+        fwd = fused_mlp.fused_rays_planes(kp, ro, rd, vd, z).reshape(4, -1).T
+    else:
+        v, spr = vd.repeat_interleave(S, 0), 1
+        got = fused_mlp.bwd_recompute(kp, x, v, spr, raw=True)
+        bare = fused_mlp.bwd_recompute(kp, x, v, spr)
+        fwd = fused_mlp.fused_points(kp, x, v, spr)
+    torch.cuda.synchronize()
+    assert _same_bits(got.raw, fwd)
+    assert got.masks.shape == (fused_mlp.mask_rows(width), 384)
+    for i, name in enumerate([f"h{j}" for j in range(8)] + ["hv"]):
+        rows = got.rows[name]
+        bits = fused_mlp.unpack_mask_bits(got.masks[i * (width // 32) :], rows.shape[0])
+        assert torch.equal(bits, (rows > 0).T), name
+    assert sorted(bare.rows) == sorted(got.rows) and torch.equal(bare.masks, got.masks)
+    assert ("ev" in got.rows) == (spr == 1)
+    for name, rows in got.rows.items():
+        assert _same_bits(bare.rows[name], rows), name
+        assert bool(torch.isfinite(rows).all()), name  # the padded points too
+    n = R * S
+    lay = fused_mlp.recompute_layers_reference(kp, got.rows, x, v, spr)
+    ref = fused_mlp.bwd_recompute_reference(kp, x, v, spr)
+    for name, rows in got.rows.items():
+        g = rows[:, : lay[name].shape[1]].float()
+        d = (g - lay[name]).abs()
+        excess = float((d - RECOMPUTE_ULP * torch.maximum(g.abs(), lay[name].abs())).max())
+        share = float((d > 0).float().mean())
+        chain = (g - ref.rows[name]).abs()
+        chain_share = float((chain > 0).float().mean())
+        print(f"recompute W={width} {mode} {name}: layer excess over an ulp {excess:.3e} "
+              f"share {share:.2e}, chain max abs {float(chain.max()):.3e} "
+              f"share {chain_share:.2e}")  # with -s
+        assert excess <= RECOMPUTE_ULP_ATOL, (name, excess)
+        assert share <= RECOMPUTE_LAYER_SHARE, (name, share)
+        assert chain_share <= RECOMPUTE_CHAIN_SHARE, (name, chain_share)
+    flips = got.masks[:, :n] ^ ref.masks
+    mask_share = sum(int(((flips >> b) & 1).sum()) for b in range(32)) / (32 * flips.numel())
+    print(f"recompute W={width} {mode}: mask bits differing from the plain chain {mask_share:.2e}")
+    assert mask_share <= RECOMPUTE_MASK_SHARE, mask_share
+
+
 @pytest.mark.cuda
 def test_fused_query_differentiates_through_k4(cuda_device):
     cfg = MLPConfig(width=256)
