@@ -12,14 +12,14 @@ Phases, one line each (any failure exits non-zero):
    csrc/probe_overlap.cu (K7) with nvcc (sm_90a), one process each, at once;
    counts the wgmma (HGMMA) and TMA-load (UTMALDG) instructions in the SASS
    of the backward's weight-grad kernel (cuobjdump) and fails without both;
-   prints each instantiation of the backward's cotangent chain
-   (``bwd_tile_bf16``) with its registers, stack and spill bytes (cuobjdump
-   -res-usage, ptxas) and its LDG.E.U16, STG.E.U16 and STG.E.128 counts,
-   and each of K1's and K2's bf16 forward (``fwd_bf16_sm90``), of K5's
-   (``render_bf16_sm90``) and of the backward's recompute
-   (``bwd_recompute_sm90``, with and without raw), all on one tile, with
-   the same and its HGMMA, UTMALDG and HMMA counts; fails on a spill, and
-   unless these issue wgmma and TMA loads and no mma.sync;
+   prints each instantiation of K1's and K2's bf16 forward
+   (``fwd_bf16_sm90``), of K5's (``render_bf16_sm90``), of the backward's
+   recompute (``bwd_recompute_sm90``, with and without raw), all on one
+   tile, and of the backward's cotangent chain (``bwd_chain_sm90``, that
+   tile's ring and warpgroups) with its registers, stack and spill bytes
+   (cuobjdump -res-usage, ptxas) and its HGMMA, UTMALDG, HMMA and STG.E.128
+   counts; fails on a spill, and unless these issue wgmma and TMA loads and
+   no mma.sync;
 3. kernel: K1 against its plain PyTorch version at the full 8x256 width,
    in f32 and bf16;
 4. render: renders the first 3 poses of the 40-pose orbit at the lego
@@ -41,7 +41,14 @@ Phases, one line each (any failure exits non-zero):
    layer's plain version on the kernel's own inputs, small shares of rows
    and of mask bits differing from the whole plain chain, all written to
    the last padded point, and the launch without raw writing the same rows
-   and words;
+   and words; then chain, the chain's gate: the recompute and chain launches
+   alone at W=256 and 128, in ray and points mode, a direction per ray and
+   per point, with and without input grads, at 1, 127, 129 and 33,984
+   points and K4's coarse training shape: each of the chain's blocks within
+   a bf16 ulp of its one product on the kernel's own inputs, a small share
+   of them differing, zeros past the points (NaN before), its f32 d_hv,
+   bias partials, dx and dv close to theirs, and two launches
+   bit-identical;
 7. train: ``train()`` at the lego recipe with N_rand=4096 on 8 views of
    400x400 rendered by a seeded teacher net through ``render_path``: 3
    warm-up and 30 timed steps with exactly 2 K1 and 2 K4 launches each and
@@ -52,7 +59,7 @@ Phases, one line each (any failure exits non-zero):
 9. bwd times: K4 at the training shapes beside its bound, its plain
    version and the backward's big products as bf16 ``torch.matmul``; 10
    profiled steps of K4 (coarse + fine) split by its launches, phase 1's
-   recompute (``bwd_recompute_sm90``) and chain (``bwd_tile_bf16``) each
+   recompute (``bwd_recompute_sm90``) and chain (``bwd_chain_sm90``) each
    beside its own bound and its own products as bf16 ``torch.matmul`` (10
    and 9), and the weight-grad phase (``wgrad_bf16``) beside its own bound
    and its 10 weight-grad products as bf16 ``torch.matmul``.
@@ -109,7 +116,7 @@ the user's entry path (``cli.train`` / ``cli.render`` on a blender scene):
    the .tar it saved, with a finite PSNR and the video.
 
 The last two lines are a JSON object of kernel numbers (K1-K7 and the
-backward's recompute launch) and the
+backward's recompute and chain launches) and the
 ``{"ok": true, "device": ...}`` result. Weights are random, from seeds.
 The script imports nothing of JAX or of ``nerf_tpu``.
 """
@@ -193,6 +200,20 @@ RECOMPUTE_ULP_ATOL = 2.0 ** -20
 RECOMPUTE_LAYER_SHARE = 5e-4
 RECOMPUTE_CHAIN_SHARE = 2e-2
 RECOMPUTE_MASK_SHARE = 3e-5
+# the chain's blocks against each block's one product on the kernel's own
+# inputs (fused_mlp.chain_layers_reference): both round the same operands
+# and differ only where an f32 sum in another order lands on the other side
+# of a bf16 rounding edge, one ulp of the larger side (CHAIN_ULP), plus the
+# sums' own difference where a cotangent is small beside its block's
+# largest magnitude, CHAIN_ULP_ATOL of that (measured on an H100 up to
+# 5.7e-8; bound ~17x). At most CHAIN_LAYER_SHARE of a case's elements, all
+# blocks pooled, may differ (per block measured up to 1.2e-4 in the card
+# test; a 1-point case has 2,436 elements at W=256, so one flip is 4.1e-4).
+# The f32 results (d_hv for phase 2, the bias partials, dx, dv) lie within
+# CHAIN_F32_REL (relative L2) of theirs (measured up to 2.2e-7; bound ~9x).
+# PERF.md.
+CHAIN_ULP, CHAIN_ULP_ATOL = 2.0 ** -7, 2.0 ** -20
+CHAIN_LAYER_SHARE, CHAIN_F32_REL = 2e-3, 2e-6
 # K3's dx and dv against its plain version, per-tensor relative L2. Unlike a
 # weight grad, dx and dv are per point: no sum over points averages a
 # point's error away. A relu input that the two forwards put on opposite
@@ -217,7 +238,7 @@ CLI_CADENCES = {"i_print": 4, "i_img": 8, "i_weights": 12, "i_testset": 24, "i_v
 TRACE_AT, TRACE_STEPS = 12, 4  # nerf_tpu's trace: 4 more steps at start + 12
 LEGO_CAMERA_ANGLE_X = 0.6911112070083618  # the lego scene's: focal 1111.11 at 800 pixels
 # K1's and K4's symbols
-TRACE_KERNELS = ("fwd_bf16_sm90", "bwd_recompute_sm90", "bwd_tile_bf16", "wgrad_bf16")
+TRACE_KERNELS = ("fwd_bf16_sm90", "bwd_recompute_sm90", "bwd_chain_sm90", "wgrad_bf16")
 # bytes of stack frame that sincosf's slow-path range reduction (embed_row in
 # csrc/fused_mlp_common.cuh) gives every kernel that embeds points; a
 # register spill would grow the frame beyond it
@@ -225,8 +246,8 @@ SINCOS_STACK = 32
 
 
 def counters():
-    """The launch counters of K1-K7 and of the bf16 backward's recompute
-    launch (K4's, K3's and K6's first), by name."""
+    """The launch counters of K1-K7 and of the bf16 backward's recompute and
+    chain launches (K4's, K3's and K6's first two), by name."""
     from nerf_tpu_torch.experimental import fused_render
     from nerf_tpu_torch.ops import fused_mlp
     from nerf_tpu_torch.tools import probe_overlap
@@ -234,7 +255,8 @@ def counters():
     return {"K1": fused_mlp.fused_rays_planes, "K2": fused_mlp.fused_points,
             "K3": fused_mlp.fused_points_bwd, "K4": fused_mlp.fused_rays_planes_bwd,
             "K5": fused_render.fused_render_fwd, "K6": fused_render.fused_render_bwd,
-            "K7": probe_overlap.probe, "recompute": fused_mlp.bwd_recompute}
+            "K7": probe_overlap.probe, "recompute": fused_mlp.bwd_recompute,
+            "chain": fused_mlp.bwd_chain}
 
 
 def reset_counts() -> None:
@@ -420,15 +442,16 @@ def main() -> int:
     phase("sass", kernel="wgrad_bf16", **sass)
     if not all(sass.values()):
         raise RuntimeError(f"wgrad_bf16 issues no wgmma or no TMA load: {sass}")
-    # phase 1's chain: its global 2-byte loads and stores against its
-    # 16-byte stores
-    instantiations("fused_mlp_bwd", "bwd_tile_bf16", ("LDG.E.U16", "STG.E.U16", "STG.E.128"))
     # the bf16 forward of K1 and K2, K5's and the backward's recompute, all
-    # on one tile: wgmma and TMA loads, and no mma.sync
+    # on one tile, and the backward's chain on that tile's ring and
+    # warpgroups: wgmma and TMA loads, and no mma.sync (and their 16-byte
+    # global stores: the workspace rows)
     for source, function, expected in (("fused_mlp_fwd", "fwd_bf16_sm90", 4),
                                        ("fused_render", "render_bf16_sm90", 2),
-                                       ("fused_mlp_bwd", "bwd_recompute_sm90", 8)):
-        for inst, ops in instantiations(source, function, ("HGMMA", "UTMALDG", "HMMA"),
+                                       ("fused_mlp_bwd", "bwd_recompute_sm90", 8),
+                                       ("fused_mlp_bwd", "bwd_chain_sm90", 4)):
+        for inst, ops in instantiations(source, function,
+                                        ("HGMMA", "UTMALDG", "HMMA", "STG.E.128"),
                                         expected).items():
             if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"]:
                 raise RuntimeError(f"{function}<{inst}> is not the wgmma + TMA tile: {ops}")
@@ -508,9 +531,10 @@ def main() -> int:
     # 6.-9. the training slice
     k4_errs = check_k4(coarse, pe_pts, pe_views, rng, dev)
     recompute_errs = check_recompute(coarse, pe_pts, pe_views, dev)
+    chain_errs = check_chain(coarse, pe_pts, pe_views, dev)
     train_info = train_phase(scene, dev, N_SAMPLES, "K1", "K4")
     step_grads_phase(train_info, dev)
-    k4, recompute = k4_times(cfg, pe_pts, pe_views, dev)
+    k4, recompute, chain = k4_times(cfg, pe_pts, pe_views, dev)
 
     # 10.-13. the points-in slice at 63+128
     k2_errs, k3_errs = check_k23(coarse, pe_pts, pe_views, rng, dev)
@@ -560,6 +584,14 @@ def main() -> int:
         # its own products as the library's
         row("bwd_recompute", "fused_mlp_bwd.cu", "nerf_tpu/ops/fused_mlp.py:621",
             train_info["counts"]["recompute"], max(recompute_errs), recompute),
+        # the second launch of K4's, K3's and K6's bf16 backward: the
+        # cotangent chain (nerf_tpu's _mlp_backward_math from gc down to d0
+        # inside _make_bwd_kernel_rays) on the same tile; training's 60 on
+        # K4's path; max abs of its rows against each block's one product on
+        # its own inputs over phase 6's chain gate; ms per K4 training step,
+        # its plain version's time, its own 9 products as the library's
+        row("bwd_chain", "fused_mlp_bwd.cu", "nerf_tpu/ops/fused_mlp.py:621",
+            train_info["counts"]["chain"], max(chain_errs), chain),
         # the 63+128 serving (30) and training (60) launches; bf16 max abs over
         # phase 10's and the chunk shapes; ms per 32,768-ray chunk (S=63 + S=191,
         # a direction per point)
@@ -802,6 +834,93 @@ def recompute_against_plain(kp, got, x, v, spr: int):
                  and share <= RECOMPUTE_CHAIN_SHARE and mask_share <= RECOMPUTE_MASK_SHARE)
 
 
+@torch.no_grad()
+def check_chain(mlp, pe_pts, pe_views, dev):
+    """6. The chain's gate: the bf16 backward's recompute and chain launches
+    alone (K4's, K3's and K6's first two), at W=256 (``mlp``) and W=128, in
+    ray mode and in points mode with a direction per point and per ray, with
+    and without input grads, at 1, 127, 129 and 33,984 points and at K4's
+    coarse training shape: each of the chain's blocks (gc, d_hv, d_feat,
+    d0..d7) within a bf16 ulp of its one product on the kernel's own inputs
+    (CHAIN_ULP, CHAIN_ULP_ATOL of the block's largest magnitude), at most
+    CHAIN_LAYER_SHARE of the case's elements differing, exact zeros past the
+    points (the workspace is NaN before); the f32 d_hv rows, the bias
+    partials, dx and dv within CHAIN_F32_REL of theirs, zero past the
+    points; two launches bit-identical. Returns the max abs of the blocks
+    against their products."""
+    from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
+    from nerf_tpu_torch.ops import fused_mlp
+
+    rng = np.random.default_rng(8)
+    nets = {256: mlp, 128: NeRFMLP(MLPConfig(width=128), seed=128, device=dev)}
+    # (mode, R, S, spr, input grads)
+    edges = [("rays", 1, 1, 1, False), ("rays", 127, 1, 1, False), ("rays", 3, 43, 43, False),
+             ("rays", 531, 64, 64, False), ("points", 127, 1, 1, True),
+             ("points", 129, 1, 1, False), ("points", 3, 43, 43, True),
+             ("points", 1, 127, 127, False), ("points", 531, 64, 1, True),
+             ("points", 531, 64, 64, False)]
+    cases = [(256, c) for c in edges + [("rays", N_RAND, N_SAMPLES, N_SAMPLES, False)]] + \
+        [(128, c) for c in edges]
+    errs = []
+    for width, (mode, R, S, spr, input_grads) in cases:
+        kp = fused_mlp.pack_params(nets[width], pe_pts, pe_views, torch.bfloat16)
+        n = R * S
+        g = torch.from_numpy(((0.5 + rng.random((n, 4))) * 1e-4).astype(np.float32)).to(dev)
+        if mode == "rays":
+            rays = make_rays(rng, R, S, dev)
+            gp = g.T.reshape(4, R, S).contiguous()
+            runs = [fused_mlp.bwd_chain_rays(kp, *rays, gp) for _ in range(2)]
+            x, v = fused_mlp._ray_points(*rays[:2], rays[3]), rays[2]
+            del rays, gp
+        else:
+            x, v = ray_points(rng, R, S, spr, dev)
+            runs = [fused_mlp.bwd_chain(kp, x, v, spr, g, input_grads) for _ in range(2)]
+        torch.cuda.synchronize()
+        (rec, got), (_, again) = runs
+        lay = fused_mlp.chain_layers_reference(kp, got.rows, rec.masks, g, spr,
+                                               x if input_grads else None, v)
+        same, zeros, worst, excess, differ, total = True, True, 0.0, -1.0, 0, 0
+        for name, rows in got.rows.items():
+            same = same and same_bits(rows, again.rows[name])
+            zeros = zeros and bool((rows[:, n:] == 0).all())
+            ref, r = lay.rows[name], rows[:, :n].float()
+            d = (r - ref).abs()
+            over = d - CHAIN_ULP * torch.maximum(r.abs(), ref.abs())
+            scale = float(ref.abs().max())
+            worst = max(worst, float(d.max()))
+            excess = max(excess, float(over.max()) / scale if scale > 0 else float("inf"))
+            differ, total = differ + int((d > 0).sum()), total + d.numel()
+        share = differ / total
+        f32 = {f"bias.{k}": (t, lay.bias[k], again.bias[k]) for k, t in got.bias.items()}
+        if spr > 1:
+            f32["dhv32"] = (got.dhv32, lay.dhv32, again.dhv32)
+        if input_grads:
+            f32["dx"] = (got.dx, lay.dx, again.dx)
+        if got.dv is not None:
+            f32["dv"] = (got.dv, lay.dv, again.dv)
+        rels = {}
+        for name, (t, ref, t2) in f32.items():
+            same = same and same_bits(t, t2)
+            zeros = zeros and bool((t[ref.shape[0]:] == 0).all())
+            rels[name] = rel_l2(t[: ref.shape[0]], ref)
+        f32_worst = max(rels.values())
+        dv_ok = (got.dv is not None) == (input_grads and spr == 1)
+        errs.append(worst)
+        phase("chain", W=width, mode=mode, R=R, S=S, spr=spr, input_grads=input_grads,
+              bit_identical=same, padded_zero=zeros, max_abs=f"{worst:.3e}",
+              excess_over_ulp_of_max=f"{excess:.3e}", share_differing=f"{share:.3e}",
+              f32_worst=max(rels, key=rels.get), f32_rel_l2=f"{f32_worst:.3e}",
+              atol=CHAIN_ULP_ATOL, layer_share=CHAIN_LAYER_SHARE, f32_rel=CHAIN_F32_REL)
+        if not (same and zeros and dv_ok and excess <= CHAIN_ULP_ATOL
+                and share <= CHAIN_LAYER_SHARE and f32_worst <= CHAIN_F32_REL):
+            raise RuntimeError(f"the chain launch fails its gate at W={width} {mode} "
+                               f"{(R, S, spr, input_grads)}: same={same} zeros={zeros} "
+                               f"dv={dv_ok} excess={excess} share={share} f32={rels}")
+        del runs, rec, got, again, lay, x, v, g
+        torch.cuda.empty_cache()
+    return errs
+
+
 def train_phase(scene, dev, n_samples: int, fwd: str, bwd: str, views=None,
                 fused_render: bool = False):
     """7 / 12 / 16. train() at the lego recipe with n_samples + 128 samples,
@@ -875,9 +994,11 @@ def train_phase(scene, dev, n_samples: int, fwd: str, bwd: str, views=None,
           psnr_last=f"{result.history[-1][2]:.3f}" if result.history else "none")
     if not np.isfinite(loss).all():
         raise RuntimeError("non-finite training loss")
-    # the bf16 backward's first launch, the recompute, a backward each
+    # the bf16 backward's first two launches, the recompute and the chain,
+    # a backward each
     check_counts(counts, {fwd: 2 * TIMED_STEPS, bwd: 2 * TIMED_STEPS,
-                          "recompute": 2 * TIMED_STEPS}, f"{TIMED_STEPS} steps at S={n_samples}")
+                          "recompute": 2 * TIMED_STEPS, "chain": 2 * TIMED_STEPS},
+                 f"{TIMED_STEPS} steps at S={n_samples}")
     if not last < first:
         raise RuntimeError(f"the loss did not fall: {first} -> {last}")
     profile_report(prof, marks[end + PROFILED_STEPS] - marks[end], fwd, bwd)
@@ -979,13 +1100,14 @@ def backward_matmul_chain(kp, n_pts: int, part: str = "all"):
 def k4_times(cfg, pe_pts, pe_views, dev):
     """9. K4 at the training shapes: one coarse and one fine launch a step.
     Then 10 profiled steps of both launches split by K4's kernels: phase 1's
-    recompute (``bwd_recompute_sm90``) and chain (``bwd_tile_bf16``), each
+    recompute (``bwd_recompute_sm90``) and chain (``bwd_chain_sm90``), each
     beside its own bound and its own products as bf16 torch.matmul (10 and
     9), and the weight-grad phase (``wgrad_bf16``) beside its own bound
     (each workspace row and per-ray row read once, the grads written once)
     and its 10 weight-grad products as bf16 torch.matmul. Returns K4's
-    numbers per step and the recompute's (its plain version's time: the
-    plain recompute at both shapes)."""
+    numbers per step, the recompute's and the chain's (their plain
+    versions' times: the plain recompute and the plain chain at both
+    shapes)."""
     from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
     from nerf_tpu_torch.ops import fused_mlp
     from nerf_tpu_torch.tools.bwd_phase1 import k4_split
@@ -1019,7 +1141,10 @@ def k4_times(cfg, pe_pts, pe_views, dev):
         x = fused_mlp._ray_points(rays[0], rays[1], rays[3])
         recompute["plain_ms"] += cuda_ms(
             lambda: fused_mlp.bwd_recompute_reference(kp, x, rays[2], S), reps=2)
-        del x
+        g_rows = g.reshape(4, n_pts).T
+        chain["plain_ms"] += cuda_ms(
+            lambda: fused_mlp.bwd_chain_reference(kp, x, rays[2], S, g_rows), reps=2)
+        del x, g_rows
         torch.cuda.empty_cache()
         flops = fused_mlp.bwd_flops(cfg, pe_pts, pe_views, N_RAND, S)
         io_bytes = N_RAND * 9 * 4 + n_pts * 4 + n_pts * 16 + wbytes + gbytes
@@ -1038,7 +1163,7 @@ def k4_times(cfg, pe_pts, pe_views, dev):
         # phase 1's two launches, each its own work and bytes: the recompute
         # its rows and masks and z a point, the rays and the forward blobs;
         # the chain its rows, d_hv, the masks and g a point, the weights and
-        # the tiles' bias sums
+        # a tile's bias sums (the kernel writes one per 64 points)
         recompute["ops_ms"] += 1e3 * fused_mlp.recompute_flops(
             cfg, pe_pts, pe_views, N_RAND, S) / PEAK_BF16_FLOPS
         fwd_blobs = sum(t.numel() * t.element_size() for t in blobs)
@@ -1051,7 +1176,7 @@ def k4_times(cfg, pe_pts, pe_views, dev):
 
     split = k4_split(kp, blobs, step, reps=10)
     wgrad["ms"], recompute["ms"] = split["wgrad_bf16"], split["bwd_recompute_sm90"]
-    chain["ms"] = split["bwd_tile_bf16"]
+    chain["ms"] = split["bwd_chain_sm90"]
     phase("k4_split", per="step (S=64 + S=192)", **{f"{k}_ms": f"{v:.3f}" for k, v in split.items()},
           device_ms=f"{sum(split.values()):.3f}")
     for tag, t in (("recompute_times", recompute), ("chain_times", chain), ("wgrad_times", wgrad)):
@@ -1061,7 +1186,7 @@ def k4_times(cfg, pe_pts, pe_views, dev):
               ops_ms=f"{t['ops_ms']:.3f}", bytes_ms=f"{t['bytes_ms']:.3f}",
               library_ms=f"{t['library_ms']:.3f}", x_bound=f"{t['ms'] / bound:.3f}",
               x_library=f"{t['ms'] / t['library_ms']:.3f}")
-    return out, recompute
+    return out, recompute, chain
 
 
 def ray_points(rng, R: int, S: int, spr: int, dev):
@@ -1337,10 +1462,10 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
                 after = read_counts()
                 moved = {k: after[k] - before[k] for k in after}
                 # bf16: K6's two backwards and its halves' K4 phases each
-                # launch the recompute
+                # launch the recompute and the chain
                 recomputes = 3 if dtype == torch.bfloat16 else 0
                 if moved != {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 3, "K6": 2, "K7": 0,
-                             "recompute": recomputes}:
+                             "recompute": recomputes, "chain": recomputes}:
                     raise RuntimeError(f"the K5/K6 launch counters moved wrongly: {moved}")
                 if dtype == torch.bfloat16:
                     k5_errs.append(err)
@@ -1577,7 +1702,7 @@ def cli_train_phase(views):
         CLI_STEPS // c["i_video"]) * 40
     n_chunks = -(-H * W // CHUNK)
     check_counts(counts, {"K1": 2 * steps + 2 * n_chunks * frames, "K4": 2 * steps,
-                          "recompute": 2 * steps},
+                          "recompute": 2 * steps, "chain": 2 * steps},
                  f"cli.train: {steps} steps and {frames} eval frames")
     evals = [float(m) for m in re.findall(r"\[EVAL\] Iter: \d+ holdout view 6 PSNR: (\S+)", out)]
     if len(evals) != CLI_STEPS // c["i_img"] or not np.isfinite(evals).all():
@@ -1658,7 +1783,8 @@ def resume_render_phase(cli, dev):
                 if i % CLI_CADENCES["i_img"] == 0)
     check_counts(resumed_counts, {"K1": 2 * CLI_RESUMED_STEPS + 2 * n_chunks * evals,
                                   "K4": 2 * CLI_RESUMED_STEPS,
-                                  "recompute": 2 * CLI_RESUMED_STEPS}, "the resumed run")
+                                  "recompute": 2 * CLI_RESUMED_STEPS,
+                                  "chain": 2 * CLI_RESUMED_STEPS}, "the resumed run")
 
     reset_counts()
     rendered, out = run_cli(cli_render.main, argv + ["--render_test"])

@@ -23,9 +23,8 @@
 //   d_ev = bf16(sum over a view's points of d_hv) Wve^T,  dv = embed_row_backward(v, d_ev)
 // (_mlp_backward_math; bias grads sum the unrounded f32 cotangents, as
 // there). Two instantiations, as the forward's: bf16 operands with f32
-// accumulation (wgmma in the recompute and in phase 3, mma.sync in the
-// chain), and true f32 FMA loops (no TF32) that isolate indexing faults
-// from rounding.
+// accumulation (wgmma and TMA in every launch that multiplies), and true
+// f32 FMA loops (no TF32) that isolate indexing faults from rounding.
 //
 // Bound: the recompute (the forward without the rgb/alpha head), the
 // activation cotangents and the weight grads are 3,484,416 FLOP per point at
@@ -59,22 +58,36 @@
 //     8x256 in ray mode, 272 B of masks) and z read, 5,268 B, so >= 1.65 ms
 //     a training step (1,048,576 points) at 3.35 TB/s; its 1,185,536 FLOP a
 //     point need >= 1.26 ms at 989 TFLOP/s.
-//  1b. The cotangent chain (bwd_tile_bf16): one CTA per 128-point tile runs
-//     d W^T through mma_layer (mma.sync, fused_mlp_common.cuh), with the
-//     weights in kp's own [in][out] layout as the B operand, and reads each
-//     relu mask as the mask words of its own accumulator elements (a
-//     thread's 8 rows x NT / 4 words a layer, loaded before the layer's
-//     products). Its cotangents go to the workspace by ws_transpose: 8
-//     points of one feature a 16-byte store, from conflict-free 32-bit
-//     shared reads (the f32 instantiation keeps store_t, an element a
-//     thread). The bias grads' column sums per tile are reduced in registers
-//     (warp shuffles) and written per tile. With input grads the tile ends
-//     with d_e (one more mma_layer over d0 in shared memory and d5 read back
-//     from the workspace by the same transpose) and dx. Bound by bytes: the
-//     rows it writes once (gc's 4 used rows, d0..d7, d_feat, d_hv: 4,872 B
-//     a point at 8x256), the f32 d_hv rows (512 B at spr > 1), the masks and
-//     g read (288 B), 5,672 B a point, so >= 1.78 ms a training step; its
-//     1,117,184 FLOP a point need >= 1.18 ms.
+//  1b. The cotangent chain (bwd_chain_sm90) runs on the same CTA shape: the
+//     producer warpgroup streams the chain's weights in their order (Wve's
+//     and Wvf's chunks, Wf's, W7's .. W1's, with input grads W0e's and
+//     W5e's) by TMA from the chain blob (TLayout: kp's own [in][out]
+//     layout, the K-major B tile of d W^T) into the ring, and each consumer
+//     warpgroup keeps its 64 points' cotangent in act, K-major and 128-byte
+//     swizzled, as wgmma's A operand; each layer's epilogue rewrites act in
+//     place once the layer's last group has retired (finish_layer). The
+//     warpgroups take turns issuing a layer (ping-pong), and while one
+//     layer's products run, the previous layer's rows go to the workspace
+//     (store_rows_sw, the recompute's 16-byte stores) and its bias sums to
+//     the partials. The rank-4 terms are no products: each consumer thread
+//     computes d_hv = (gc Wout[:W/2]^T) * (hv > 0) for exactly the elements
+//     of its m64n(W/2) fragment, and adds d_h7's gc Wout[W/2:]^T to the
+//     accumulators after the products, in the order the mma.sync chain
+//     added it. The relu masks are the recompute's words (MaskRows), two
+//     rows' W/32 a thread, loaded before the layer's products. The bias
+//     sums are f32 column sums over a warpgroup's 64 points (two rows a
+//     thread, a reduce-scatter over the 8 lanes that share a column, then
+//     the four warps through shared memory), written as one partial a
+//     warpgroup and tile (BIAS_PART). Each product sums chunk by chunk, 16
+//     K values at a time, in the mma.sync chain's K order. With input grads
+//     d_e runs as two more products (d0 from act, then d5 read back from
+//     its workspace rows, load_rows_sw) and dx per point; with a direction
+//     per point d_ev and dv come first, from d_hv. Bound by bytes: the rows
+//     it writes once (gc's 4 used rows, d0..d7, d_feat, d_hv: 4,872 B a
+//     point at 8x256), the f32 d_hv rows (512 B at spr > 1), the masks and
+//     g read (288 B), 5,672 B a point, so with the weights and a tile's bias
+//     sums >= 1.80 ms a training step at 3.35 TB/s; its 1,117,184 FLOP a
+//     point need >= 1.18 ms at 989 TFLOP/s.
 //     The f32 instantiation (bwd_tile_f32) is one launch: the recompute by
 //     FMA, its rows to the workspace, and the chain reading its masks back
 //     from them.
@@ -110,8 +123,7 @@
 //     3.35 TB/s.
 // Padded points carry a zero cotangent, so they add nothing to any sum; the
 // recompute writes every row of every tile up to n_pad (posenc of x = 0
-// past n_pts), so no unwritten row meets a zero. The chain's products are
-// still mma.sync: fwd_tile_sm90.cuh's ring and wgmma are next for them.
+// past n_pts), so no unwritten row meets a zero.
 
 #include "fused_mlp_common.cuh"
 #include "fwd_tile_sm90.cuh"
@@ -194,63 +206,6 @@ __device__ void load_t(const T* src, size_t ldp, int p0, int rows, int tile, T* 
   }
 }
 
-// The bf16 path's transposes, 16 bytes a thread: a TP-point tile's shared
-// buffer sm [TP][lds] to its feature-major workspace rows, ws[c][p0 + i] =
-// sm[i][c] (kStore), or back, sm[i][c] = ws[c][p0 + i]. A warp moves 32
-// features x 16 points at a time; lane (q, h) = (lane / 2, lane % 2) owns
-// features c and c + 1 (c = c0 + 2q) at points i .. i + 7 (i = i0 + 8h):
-// one 32-bit shared word a point, holding both features, and one 16-byte
-// global access a feature, so lanes 2q and 2q + 1 fill one 32-byte sector.
-// Half h visits its 8 shared rows in the order j ^ 4h: at the chain's row
-// stride (264 bf16: 4 words mod 32 banks) the two halves' 64-byte pieces
-// of a row then lie on disjoint banks, one wavefront a load. rows is a multiple of 32, and the workspace is padded to whole
-// tiles, so no access is masked.
-template <bool kStore>
-__device__ void ws_transpose(bf16* sm, int lds, int rows, bf16* ws, size_t ldp, int p0) {
-  constexpr int PB = TP / 16;  // 16-point blocks a tile
-  const int lane = threadIdx.x & 31, q = lane >> 1, h = lane & 1;
-  for (int u = threadIdx.x >> 5; u < rows / 32 * PB; u += THREADS / 32) {
-    const int c = (u / PB) * 32 + 2 * q, i = (u % PB) * 16 + 8 * h;
-    uint4* g0 = reinterpret_cast<uint4*>(ws + size_t(c) * ldp + p0 + i);
-    uint4* g1 = reinterpret_cast<uint4*>(ws + size_t(c + 1) * ldp + p0 + i);
-    uint32_t w[8];  // w[k]: features c, c + 1 at point i + k (in row order j ^ 4h when swapped)
-    auto swap_halves = [&] {  // w[j] <-> w[j ^ 4] for half 1
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const uint32_t lo = h ? w[k + 4] : w[k], hi = h ? w[k] : w[k + 4];
-        w[k] = lo;
-        w[k + 4] = hi;
-      }
-    };
-    if (kStore) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        w[j] = *reinterpret_cast<const uint32_t*>(sm + (i + (j ^ (4 * h))) * lds + c);
-      swap_halves();
-      uint32_t a[4], b[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        a[m] = __byte_perm(w[2 * m], w[2 * m + 1], 0x5410);  // feature c, points 2m, 2m + 1
-        b[m] = __byte_perm(w[2 * m], w[2 * m + 1], 0x7632);  // feature c + 1
-      }
-      *g0 = make_uint4(a[0], a[1], a[2], a[3]);
-      *g1 = make_uint4(b[0], b[1], b[2], b[3]);
-    } else {
-      const uint4 av = *g0, bv = *g1;
-      const uint32_t a[4] = {av.x, av.y, av.z, av.w}, b[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        w[2 * m] = __byte_perm(a[m], b[m], 0x5410);
-        w[2 * m + 1] = __byte_perm(a[m], b[m], 0x7632);
-      }
-      swap_halves();
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<uint32_t*>(sm + (i + (j ^ (4 * h))) * lds + c) = w[j];
-    }
-  }
-}
-
 __device__ __forceinline__ uint32_t ld_shared_b32(uint32_t addr) {
   uint32_t v;
   asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
@@ -323,12 +278,53 @@ __device__ __forceinline__ void store_rows_sw(const unsigned char* a, int ncols,
   }
 }
 
-// One point's input grad: out[p][d] = embed_row_backward(y, d_e row), for the
-// tile's points (one thread each). y is the point (pts) or its view direction.
+// store_rows_sw's inverse, without masks: A[i][c] = ws[c][p0 + i] for the
+// warpgroup's 64 points and the features c < ncols into ncols / 64
+// swizzled blocks at a, by the same lanes (each reads back the rows it
+// stored there, so no fence is needed) with 16-byte loads and the same
+// conflict-free shared addresses. The chain's d5 for d_e.
+__device__ __forceinline__ void load_rows_sw(unsigned char* a, int ncols, const bf16* ws,
+                                             size_t ldp, int p0) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int q = lane >> 1, h = lane & 1;
+  const int i = 16 * warp + 8 * h;
+  const uint32_t base = hopper::smem_addr(a) + i * 128;
+#pragma unroll 1
+  for (int c0 = 0; c0 < ncols; c0 += 32) {
+    const int c = c0 + 2 * q;
+    const uint32_t col = base + (c >> 6) * (FWD_ROWS * 128) + ((c & 7) << 1);
+    const int chunk = (c & 63) >> 3;
+    const bf16* g = ws + size_t(c) * ldp + p0 + i;
+    const uint4 a0 = *reinterpret_cast<const uint4*>(g);
+    const uint4 a1 = *reinterpret_cast<const uint4*>(g + ldp);
+    const uint32_t f0[4] = {a0.x, a0.y, a0.z, a0.w}, f1[4] = {a1.x, a1.y, a1.z, a1.w};
+    uint32_t w[8];  // w[k]: features c, c + 1 at point i + k (i + (k ^ 4h) after the swap)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      w[2 * k] = __byte_perm(f0[k], f1[k], 0x5410);
+      w[2 * k + 1] = __byte_perm(f0[k], f1[k], 0x7632);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // w[j] <-> w[j ^ 4] for half 1
+      const uint32_t lo = h ? w[k + 4] : w[k], hi = h ? w[k] : w[k + 4];
+      w[k] = lo;
+      w[k + 4] = hi;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int x = j ^ (4 * h);
+      st_shared_b32(col + x * 128 + ((chunk ^ x) << 4), w[j]);
+    }
+  }
+}
+
+// One point's input grad: out[p][d] = embed_row_backward(y, d_e row i), for
+// point p = p0 + i of a tile's `tile` points (a thread each, i its index
+// among them). y is the point (pts) or its view direction.
 template <typename In>
 __device__ void input_grad(const In& in, bool pts, int F, const float* d_e, int ldd, int n_pts,
-                           int p0, int tile, float* __restrict__ out) {
-  const int i = threadIdx.x, p = p0 + i;
+                           int p0, int tile, float* __restrict__ out, int i) {
+  const int p = p0 + i;
   if (i >= tile || p >= n_pts) return;
   float y[3], d[3];
   if (pts)
@@ -341,22 +337,6 @@ __device__ void input_grad(const In& in, bool pts, int F, const float* d_e, int 
 }
 
 // ---------------------------------------------------------------- bf16 path
-
-// The chain's shared memory: two activation-sized buffers (act, dbuf) that
-// the cotangents alternate between, the weight ring of mma_layer, the bias
-// sums' reduction and the tile's cotangent g (f32 and rounded).
-template <int W> struct BwdSmem {
-  using F = Bf16Smem<W>;
-  static constexpr int lda = F::lda, ldw = F::ldw;
-  static constexpr size_t act = 0;
-  static constexpr size_t dbuf = act + size_t(TP) * lda * 2;
-  static constexpr size_t wbuf = dbuf + size_t(TP) * lda * 2;
-  static constexpr size_t red = wbuf + size_t(2) * W * ldw * 2;
-  static constexpr size_t gs = red + size_t(2) * W * 4;
-  static constexpr size_t gcs = gs + size_t(TP) * 4 * 4;
-  static constexpr size_t bytes = gcs + size_t(TP) * 4 * 4;
-  static_assert(bytes <= 232448, "fits in an SM's shared memory");
-};
 
 // The recompute's hook (fwd_tile_sm90.cuh): each layer's output, complete in
 // a consumer warpgroup's swizzled blocks, to the workspace rows while the
@@ -407,209 +387,469 @@ bwd_recompute_sm90(const __grid_constant__ FwdMaps maps, const In in, int n_pts,
     fwd_tiles_sm90<In, W>(maps, in, n_pts, Fp, Fv, wb, bb, smem, NoSink(), TileWalk(), hook);
 }
 
-// The mask words of one layer (rows m of MaskRows, ldp points a row) that
-// this thread's mma_layer accumulator elements need: rows wm*64 + mt*16 +
-// g (+8), columns wn*NT*8 .. + NT*8 - 1, i.e. NT / 4 words a row; word
-// (mt*2 + r)*(NT/4) + k. Loaded before the layer's products, so their
-// latency hides under them.
-template <int NT>
-__device__ __forceinline__ void load_masks(const uint32_t* __restrict__ m, size_t ldp, int p0,
-                                           uint32_t (&mw)[8 * (NT / 4)]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int k = 0; k < NT / 4; ++k)
-        mw[(mt * 2 + r) * (NT / 4) + k] =
-            __ldg(m + size_t(wn * (NT / 4) + k) * ldp + p0 + wm * 64 + mt * 16 + g + 8 * r);
-}
+// ------------------------------------------------ the chain on the wgmma tile
 
-// Cotangent epilogue of a chain layer: d = acc (+ gc . Wout[W/2 + col] when
-// wout_h7 is given), zeroed where the forward activation is not positive
-// (load_masks' words; none where mask is null); the f32 column sums of d
-// over the tile go to bsum (a bias grad's partial), and d rounded to bf16 to
-// `out`. Inlined, so the mask stays in registers.
-template <int NT>
-__device__ __forceinline__ void bwd_epilogue(float (&acc)[4][NT][4], const uint32_t* mask,
-                                             const float* gcs, const bf16* __restrict__ wout_h7,
-                                             float* red, float* __restrict__ bsum, bf16* out,
-                                             int ldo) {
-  constexpr int N = NT * 32;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-  float cs[NT][2];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) cs[nt][0] = cs[nt][1] = 0.f;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int row = wm * 64 + mt * 16 + g;
-      const int col = wn * NT * 8 + nt * 8 + 2 * t;
-      float v[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int r = row + (q >> 1) * 8, c = col + (q & 1);
-        float x = acc[mt][nt][q];
-        if (wout_h7 != nullptr) {
-          float e = 0.f;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) e = fmaf(gcs[r * 4 + k], to_f(wout_h7[c * 4 + k]), e);
-          x += e;
-        }
-        // column c's bit: (nt % 4)*8 + 2t + q % 2 of its row's word nt / 4
-        const uint32_t word = mask == nullptr ? 0u : mask[(mt * 2 + (q >> 1)) * (NT / 4) + nt / 4];
-        if (mask != nullptr && !((word >> ((nt & 3) * 8 + 2 * t + (q & 1))) & 1u)) x = 0.f;
-        v[q] = x;
-      }
-      cs[nt][0] += v[0] + v[2];
-      cs[nt][1] += v[1] + v[3];
-      *reinterpret_cast<__nv_bfloat162*>(out + row * ldo + col) = __floats2bfloat162_rn(v[0], v[1]);
-      *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * ldo + col) =
-          __floats2bfloat162_rn(v[2], v[3]);
-    }
-  // sum over the warp's 64 rows: the lanes that share t hold the same columns
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1)
-        cs[nt][j] += __shfl_xor_sync(0xffffffffu, cs[nt][j], off);
-  if (g == 0)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = wn * NT * 8 + nt * 8 + 2 * t;
-      red[wm * N + col] = cs[nt][0];
-      red[wm * N + col + 1] = cs[nt][1];
-    }
-  __syncthreads();
-  for (int c = tid; c < N; c += THREADS) bsum[c] = red[c] + red[N + c];
-}
+// The chain's four weight maps (hopper::encode_rows_sw128 over the bf16
+// blob of TLayout<W>, boxes of 64 K columns). kp's own [in][out] layout is
+// the K-major B tile [N = in][K = out] of a product d W^T:
+//   trunk  W1..W7, Wf, contiguous as [8W][W], boxes of W rows;
+//   wvf    Wvf [W][W/2], boxes of W rows (d_feat, K = W/2);
+//   e05    W0e, W5e, contiguous as [2 x 64][W], boxes of 64 rows (d_e,
+//          N = KE);
+//   wve    Wve [32][W/2], boxes of 64 rows (d_ev): rows 32..63 lie past the
+//          map's edge and TMA fills them with zeros, so d_ev runs as
+//          m64n64k16 with its upper 32 columns zero rather than as a
+//          product of its own width (hopper.cuh has no m64n32).
+struct ChainMaps {
+  CUtensorMap trunk, wvf, e05, wve;
+};
 
-// The cotangent chain of the bf16 backward over one tile, after the
-// recompute (bwd_recompute_sm90) has written the tile's rows and masks. dx
-// (and, with a direction per point, dv) only where the pointer is given.
-template <typename In, int W>
-__global__ void __launch_bounds__(THREADS, 1)
-bwd_tile_bf16(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, int n_pts,
-              int Fp, int Fv, const bf16* __restrict__ wb, const bf16* __restrict__ wt,
-              bf16* ws, const uint32_t* __restrict__ masks, size_t ldp, float* dhv32,
-              float* bpart, float* dx, float* dv) {
-  using L = BwdSmem<W>;
-  using O = Layout<W>;
+template <int W>
+cudaError_t encode_chain_maps(ChainMaps* maps, const bf16* wt) {
   using T = TLayout<W>;
+  cudaError_t err = hopper::encode_rows_sw128(&maps->trunk, wt + T::wi(1), 8 * W, W, W);
+  if (err == cudaSuccess) err = hopper::encode_rows_sw128(&maps->wvf, wt + T::wvf, W, W / 2, W);
+  if (err == cudaSuccess)
+    err = hopper::encode_rows_sw128(&maps->e05, wt + T::w0e, 2 * KE, W, KE);
+  if (err == cudaSuccess) err = hopper::encode_rows_sw128(&maps->wve, wt + T::wve, KV, W / 2, 64);
+  return err;
+}
+
+// The chain's shared memory: fwd_tile_sm90.cuh's weight ring and act blocks
+// (a consumer warpgroup's cotangent, 64 points x W, K-major and 128-byte
+// swizzled: wgmma's A operand, rewritten in place by each layer's
+// epilogue), each warpgroup's g ([64][4] f32, and rounded to bf16), its
+// four warps' bias column sums ([4][W] f32) and its points' mask words of
+// the layer in flight, the ring's barriers. The input
+// grads stage their f32 d_ev / d_e rows in act (LDV, LDE: odd strides, a
+// thread a row without bank conflicts, wide enough for the embeddings'
+// used columns).
+template <int W>
+struct ChainSmem {
+  using F = FwdSmem<W>;
+  static constexpr int NB = F::NB;
+  static constexpr size_t BLOCK = F::BLOCK, STAGE = F::STAGE;
+  static constexpr size_t ring = 0;
+  static constexpr size_t act = ring + FWD_STAGES * STAGE;      // [2 wg][NB][BLOCK]
+  static constexpr size_t gs = act + 2 * NB * BLOCK;             // [2 wg][64][4]
+  static constexpr size_t gcs = gs + 2 * FWD_ROWS * 4 * 4;       // [2 wg][64][4]
+  static constexpr size_t red = gcs + 2 * FWD_ROWS * 4 * 4;      // [2 wg][4][W]
+  static constexpr int MLD = W / 32 + 1;  // a point's mask words, padded: no bank conflicts
+  static constexpr size_t msk = red + 2 * 4 * size_t(W) * 4;     // [2 wg][64][MLD] u32
+  static constexpr size_t bars = msk + 2 * FWD_ROWS * MLD * 4;   // full[STAGES], empty[STAGES]
+  static constexpr size_t bytes = bars + 2 * FWD_STAGES * sizeof(uint64_t);
+  static constexpr size_t launch_bytes = bytes + 1024;  // the base is aligned up to 1 KB
+  static constexpr int LDV = KV - 1, LDE = KE - 1;
+  static_assert(3 + 6 * MAX_FV <= LDV && 3 + 6 * MAX_FP <= LDE, "the used columns are staged");
+  static_assert(size_t(FWD_ROWS) * LDV * 4 <= (NB - NB / 2) * BLOCK, "d_ev's rows fit past d_hv's");
+  static_assert(size_t(FWD_ROWS) * LDE * 4 <= NB * BLOCK, "d_e's rows fit in act");
+  static_assert(launch_bytes <= 232448, "fits in an SM's shared memory");
+};
+
+// A consumer warpgroup's m64nN fragment (hopper.cuh): its thread t holds
+// acc[4*jb + 2*h + e] at row 16*(t/32) + (t%32)/4 + 8*h and column 8*jb +
+// 2*(t%4) + e. The relu mask of column c of a row is bit c % 32 of the row's
+// word c / 32, so the pair at 8*jb + 2*(t%4) is bits 8*(jb%4) + 2*(t%4) and
+// + 1 of word jb / 4.
+
+// The mask words of one layer's output (rows m of MaskRows, ldp points a
+// row) for the warpgroup's 64 points from p0, N/32 words a point, to its
+// msk [64][MLD] by cp.async (4 bytes a copy, consecutive threads on
+// consecutive points), so that their latency hides under the layer's
+// products and no register holds them until the epilogue reads them;
+// mask_wait makes them visible once a barrier follows.
+template <int W, int N>
+__device__ __forceinline__ void copy_mask_words(const uint32_t* __restrict__ m, size_t ldp, int p0,
+                                                uint32_t* msk) {
+  constexpr int MLD = ChainSmem<W>::MLD;
+  for (int idx = threadIdx.x & 127; idx < FWD_ROWS * (N / 32); idx += 128) {
+    const int i = idx & (FWD_ROWS - 1), k = idx / FWD_ROWS;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     hopper::smem_addr(msk + i * MLD + k)),
+                 "l"(m + size_t(k) * ldp + p0 + i)
+                 : "memory");
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ void mask_wait() { cp_async_wait<0>(); }
+
+// This thread's two rows of the warpgroup's rounded g (gcs, [64][4]).
+__device__ __forceinline__ void gc_rows(const float* gcs, float (&gc)[2][4]) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int r = 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 q = *reinterpret_cast<const float4*>(gcs + (r + 8 * h) * 4);
+    gc[h][0] = q.x;
+    gc[h][1] = q.y;
+    gc[h][2] = q.z;
+    gc[h][3] = q.w;
+  }
+}
+
+// d_hv before its mask, gc . Wout[:W/2][c] (fmaf over the 4 channels from
+// zero, the order of nerf_tpu's rank-4 product), for exactly the elements
+// of an m64n(W/2) fragment.
+template <int W>
+__device__ __forceinline__ void dhv_fragment(const float* gcs, const bf16* __restrict__ wout,
+                                             float (&acc)[W / 4]) {
+  const int t = threadIdx.x & 3;
+  float gc[2][4];
+  gc_rows(gcs, gc);
+#pragma unroll
+  for (int jb = 0; jb < W / 16; ++jb) {
+    float w0[4], w1[4];
+    wout_row(wout, 8 * jb + 2 * t, w0);
+    wout_row(wout, 8 * jb + 2 * t + 1, w1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        d0 = fmaf(gc[h][k], w0[k], d0);
+        d1 = fmaf(gc[h][k], w1[k], d1);
+      }
+      acc[4 * jb + 2 * h] = d0;
+      acc[4 * jb + 2 * h + 1] = d1;
+    }
+  }
+}
+
+// One step of a reduce-scatter over the 8 lanes that share a fragment's
+// columns: the lanes 0 and 1 of bit OFF keep halves lo = cs[0, H) and hi =
+// cs[H, 2H) of their sums and add the partner's same half.
+template <int S, int H, int OFF>
+__device__ __forceinline__ void halve_sums(float (&cs)[S]) {
+  const bool up = threadIdx.x & OFF;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float lo = cs[k], hi = cs[k + H];
+    cs[k] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, OFF);
+  }
+}
+
+// A chain layer's epilogue over a consumer warpgroup's m64nN fragment, in
+// place of the layer's A operand: d = acc (+ gc . Wout[W/2 + c] with kH7,
+// as that sum from zero, then added), zeroed where the forward activation
+// was not positive (kMask: the words in msk, copy_mask_words', read a word
+// a row for every 4 jb); d in f32 to f32out [64][N] where given (d_hv for
+// ray_prep); d rounded to bf16 into out (act's blocks, epilogue_sw's 4-byte
+// swizzled stores); and d's f32 column sums over the warpgroup's 64
+// points: the thread's two rows, then the 8 lanes that share its columns
+// by a reduce-scatter (xor 16, 8, 4: 7N/32 shuffles a thread rather than
+// 3N/4), each lane left with N/32 columns, written to its warp's row of red
+// [4][W]. reduce_bias sums the four rows.
+template <int W, int N, bool kMask, bool kH7>
+__device__ __forceinline__ void chain_epilogue(const float (&acc)[N / 2], const uint32_t* msk,
+                                               const float* gcs, const bf16* __restrict__ wout_h7,
+                                               float* f32out, unsigned char* out, float* red) {
+  constexpr int MLD = ChainSmem<W>::MLD;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int sw = lane >> 2, t = lane & 3;  // sw: the rows' % 8, the swizzle's XOR
+  const int r0 = 16 * warp + sw;
+  const uint32_t row0 = hopper::smem_addr(out) + r0 * 128 + (t << 2);
+  const uint32_t mrow = hopper::smem_addr(msk) + r0 * MLD * 4;  // row r0's words; + 8 rows
+  float gc[2][4];
+  if (kH7) gc_rows(gcs, gc);
+  float cs[N / 4];
+#pragma unroll
+  for (int jq = 0; jq < N / 32; ++jq) {
+    uint32_t words[2] = {0u, 0u};
+    if (kMask) {
+      words[0] = ld_shared_b32(mrow + jq * 4);
+      words[1] = ld_shared_b32(mrow + 8 * MLD * 4 + jq * 4);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int jb = 4 * jq + jj, col = 8 * jb + 2 * t;
+      const uint32_t blk = row0 + (jb >> 3) * (FWD_ROWS * 128) + (((jb & 7) ^ sw) << 4);
+      float w0[4], w1[4];
+      if (kH7) {
+        wout_row(wout_h7, col, w0);
+        wout_row(wout_h7, col + 1, w1);
+      }
+      float v[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x0 = acc[4 * jb + 2 * h], x1 = acc[4 * jb + 2 * h + 1];
+        if (kH7) {
+          float e0 = 0.f, e1 = 0.f;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            e0 = fmaf(gc[h][k], w0[k], e0);
+            e1 = fmaf(gc[h][k], w1[k], e1);
+          }
+          x0 += e0;
+          x1 += e1;
+        }
+        if (kMask) {
+          const uint32_t bits = words[h] >> (8 * jj + 2 * t);
+          if (!(bits & 1u)) x0 = 0.f;
+          if (!(bits & 2u)) x1 = 0.f;
+        }
+        if (f32out != nullptr)
+          *reinterpret_cast<float2*>(f32out + size_t(r0 + 8 * h) * N + col) = make_float2(x0, x1);
+        const __nv_bfloat162 q = __floats2bfloat162_rn(x0, x1);
+        st_shared_b32(blk + h * 8 * 128, *reinterpret_cast<const uint32_t*>(&q));
+        v[h][0] = x0;
+        v[h][1] = x1;
+      }
+      cs[2 * jb] = v[0][0] + v[1][0];
+      cs[2 * jb + 1] = v[0][1] + v[1][1];
+    }
+  }
+  halve_sums<N / 4, N / 8, 16>(cs);
+  halve_sums<N / 4, N / 16, 8>(cs);
+  halve_sums<N / 4, N / 32, 4>(cs);
+#pragma unroll
+  for (int k = 0; k < N / 32; ++k) {  // sum slot s = 2 * jb + e of the lane's
+    const int s = k + (N / 32) * sw;
+    red[warp * W + 8 * (s >> 1) + 2 * t + (s & 1)] = cs[k];
+  }
+}
+
+// bsum[c] = the warpgroup's column sums in red [4][W], c < n, in warp order.
+template <int W>
+__device__ __forceinline__ void reduce_bias(const float* red, int n, float* __restrict__ bsum) {
+  for (int c = threadIdx.x & 127; c < n; c += 128)
+    bsum[c] = ((red[c] + red[W + c]) + red[2 * W + c]) + red[3 * W + c];
+}
+
+// out[row][c] = acc (f32, stride ld, the columns c < ld) from an m64n64
+// fragment: the input grads' d_ev / d_e rows, which a thread then reads
+// whole.
+__device__ __forceinline__ void stage_fragment(const float (&acc)[32], float* out, int ld) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int r0 = 16 * warp + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = 8 * jb + 2 * t + (q & 1);
+      if (c < ld) out[(r0 + 8 * (q >> 1)) * ld + c] = acc[4 * jb + q];
+    }
+}
+
+// The chain's producer thread: every tile's weight chunks by TMA, in the
+// consumers' order (fwd_producer's ring and barriers): with a direction
+// per point and dv, Wve's W/128 chunks (d_ev); Wvf's W/128 (d_feat); Wf's
+// and W7's .. W1's W/64 each (d_h7 .. d_h0); with dx, W0e's and W5e's W/64
+// each (d_e).
+template <int W, typename Walk>
+__device__ __forceinline__ void chain_producer(const ChainMaps& maps, int ntiles, bool dense_dv,
+                                               bool with_dx, unsigned char* ring, uint64_t* full,
+                                               uint64_t* empty, const Walk& walk) {
+  using L = ChainSmem<W>;
+  constexpr int NB = L::NB;
+  uint32_t g = 0;
+  auto load = [&](const CUtensorMap* map, int x, int y, int rows) {
+    const uint32_t s = g % FWD_STAGES;
+    if (g >= FWD_STAGES) hopper::mbar_wait(&empty[s], ((g / FWD_STAGES) - 1) & 1);
+    hopper::mbar_arrive_expect_tx(&full[s], uint32_t(rows) * 128);
+    hopper::tma_load_2d(ring + s * L::STAGE, map, &full[s], x, y);
+    ++g;
+  };
+  for (int tile = walk.first(); tile < ntiles; tile = walk.next(tile)) {
+    if (dense_dv)
+      for (int j = 0; j < NB / 2; ++j) load(&maps.wve, KC * j, 0, 64);
+    for (int j = 0; j < NB / 2; ++j) load(&maps.wvf, KC * j, 0, W);
+    for (int l = 8; l >= 1; --l)
+      for (int j = 0; j < NB; ++j) load(&maps.trunk, KC * j, (l - 1) * W, W);
+    if (with_dx)
+      for (int y = 0; y < 2 * KE; y += KE)
+        for (int j = 0; j < NB; ++j) load(&maps.e05, KC * j, y, KE);
+  }
+}
+
+// One consumer warpgroup (w = 0 or 1) of the chain over the CTA's tiles:
+// its 64 points of each, p0 on. A layer is fwd_consumer's: the products
+// over the A operand in act in the warpgroup's turn (take_turn /
+// pass_turn), then, while they run, the previous layer's output rows from
+// act to the workspace (store_rows_sw) and its bias sums from red to the
+// tile's partial (reduce_bias), then finish_layer and the epilogue in
+// place. The bias partials are per warpgroup, bpart row 2 * tile + w: a
+// sum across the two warpgroups would need a barrier between them, which
+// the ping-pong cannot afford; reduce_tiles sums the rows in a fixed order.
+template <typename In, int W, typename Walk>
+__device__ __forceinline__ void chain_consumer(
+    const In& in, const float* __restrict__ g, size_t gsc, size_t gsp, int n_pts, int Fp, int Fv,
+    const bf16* __restrict__ wb, bf16* ws, const uint32_t* __restrict__ masks, size_t ldp,
+    float* dhv32, float* bpart, float* dx, float* dv, int ntiles, unsigned char* smem,
+    uint64_t* full, uint64_t* empty, int w, const Walk& walk) {
+  using L = ChainSmem<W>;
+  using O = Layout<W>;
   using R = WsRows<W>;
   using M = MaskRows<W>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem + L::act);
-  bf16* dbuf = reinterpret_cast<bf16*>(smem + L::dbuf);
-  bf16* wbuf = reinterpret_cast<bf16*>(smem + L::wbuf);
-  float* red = reinterpret_cast<float*>(smem + L::red);
-  float* gs = reinterpret_cast<float*>(smem + L::gs);
-  float* gcs = reinterpret_cast<float*>(smem + L::gcs);
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * TP;
-  const bool dense = in.spr == 1;  // a view direction per point
-  float* bsum = bpart + size_t(blockIdx.x) * O::nbias;
-  auto row = [&](int r) { return ws + size_t(r) * ldp; };
-  auto mrow = [&](int r) { return masks + size_t(r) * ldp; };
-  const Seg none = {nullptr, 0, nullptr, 0};
-
-  // the tile's cotangent, zero beyond n_pts
-  if (tid < TP) {
-    const int p = p0 + tid;
+  constexpr int NB = L::NB, H = W / 2;
+  unsigned char* act = smem + L::act + w * NB * L::BLOCK;
+  float* gs = reinterpret_cast<float*>(smem + L::gs) + w * FWD_ROWS * 4;
+  float* gcs = reinterpret_cast<float*>(smem + L::gcs) + w * FWD_ROWS * 4;
+  float* red = reinterpret_cast<float*>(smem + L::red) + w * 4 * W;
+  const bf16* wout = wb + O::wout;
+  const int bar = 1 + w, t = threadIdx.x & 127;
+  const bool dense_dv = in.spr == 1 && dv != nullptr;
+  FwdRing r{smem + L::ring, L::STAGE, full, empty, 0};
+  auto rows = [&](int r0) { return ws + size_t(r0) * ldp; };
+  auto mrows = [&](int m0) { return masks + size_t(m0) * ldp; };
+  uint32_t* msk = reinterpret_cast<uint32_t*>(smem + L::msk) + w * FWD_ROWS * L::MLD;
+  if (w == 1) pass_turn(w);  // warpgroup 0 goes first
+  for (int tile = walk.first(); tile < ntiles; tile = walk.next(tile)) {
+    const int p0 = tile * TP + w * FWD_ROWS;
+    float* bsum = bpart + size_t(2 * tile + w) * O::nbias;
+    if (t < FWD_ROWS) {  // the points' g, zero past n_pts; gc to its rows
+      const int p = p0 + t;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float v = p < n_pts ? g[c * gsc + size_t(p) * gsp] : 0.f;
-      const bf16 vc = __float2bfloat16_rn(v);
-      gs[tid * 4 + c] = v;
-      gcs[tid * 4 + c] = __bfloat162float(vc);
-      row(R::gc + c)[p0 + tid] = vc;
-    }
-  }
-  __syncthreads();
-  if (tid < 4) {
-    float s = 0.f;
-    for (int i = 0; i < TP; ++i) s += gs[i * 4 + tid];
-    bsum[O::bout + tid] = s;
-  }
-  {  // d_hv = (gc Wout[:W/2]^T) * (hv > 0): f32 to dhv32, bf16 to dbuf
-    constexpr int H = W / 2, PARTS = THREADS / H, ROWS = TP / PARTS;
-    const int c = tid % H, part = tid / H, lane = tid & 31;
-    float w[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) w[k] = to_f(wb[O::wout + c * 4 + k]);
-    // hv's mask words of the warp's 32 columns, a point a lane
-    const uint32_t* hm = mrow(M::hv + c / 32) + p0;
-    float s = 0.f;
-    for (int i0 = part * ROWS; i0 < (part + 1) * ROWS; i0 += 32) {
-      const uint32_t mine = __ldg(hm + i0 + lane);
-      for (int j = 0; j < 32; ++j) {
-        const int i = i0 + j;
-        float d = 0.f;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) d = fmaf(gcs[i * 4 + k], w[k], d);
-        if (!((__shfl_sync(0xffffffffu, mine, j) >> (c & 31)) & 1u)) d = 0.f;
-        s += d;
-        if (!dense) dhv32[size_t(p0 + i) * H + c] = d;
-        dbuf[i * L::lda + c] = __float2bfloat16_rn(d);
+      for (int c = 0; c < 4; ++c) {
+        const float v = p < n_pts ? g[c * gsc + size_t(p) * gsp] : 0.f;
+        const bf16 vc = __float2bfloat16_rn(v);
+        gs[t * 4 + c] = v;
+        gcs[t * 4 + c] = __bfloat162float(vc);
+        rows(R::gc + c)[p] = vc;
       }
     }
-    red[part * H + c] = s;
+    {
+      // (every read of msk and act of the last tile came before a barrier)
+      copy_mask_words<W, H>(mrows(M::hv), ldp, p0, msk);
+      mask_wait();
+      hopper::bar_sync(bar, 128);
+      if (t < 4) {
+        float s = 0.f;
+        for (int i = 0; i < FWD_ROWS; ++i) s += gs[i * 4 + t];
+        bsum[O::bout + t] = s;
+      }
+      // d_hv = (gc Wout[:W/2]^T) * (hv > 0): f32 to dhv32 (a direction per ray)
+      float acc[H / 2];
+      dhv_fragment<W>(gcs, wout, acc);
+      chain_epilogue<W, H, true, false>(acc, msk, gcs, nullptr,
+                                        in.spr == 1 ? nullptr : dhv32 + size_t(p0) * H, act, red);
+    }
+    if (dense_dv) {  // d_ev = bf16(d_hv) Wve^T, then dv through the view trig
+      hopper::fence_proxy_async();
+      hopper::bar_sync(bar, 128);
+      float acc[32];
+      zero_regs(acc);
+      take_turn(w);
+#pragma unroll
+      for (int j = 0; j < NB / 2; ++j) consume_chunk<64>(r, acc, act + j * L::BLOCK, j == 0);
+      pass_turn(w);
+      store_rows_sw(act, H, rows(R::dhv), ldp, nullptr, p0);
+      reduce_bias<W>(red, H, bsum + O::bv);
+      finish_layer(r, bar);
+      float* d_ev = reinterpret_cast<float*>(act + NB / 2 * L::BLOCK);  // past d_hv
+      stage_fragment(acc, d_ev, L::LDV);
+      hopper::bar_sync(bar, 128);
+      input_grad(in, false, Fv, d_ev, L::LDV, n_pts, p0, FWD_ROWS, dv, t);
+    }
+    {  // d_feat = bf16(d_hv) Wvf^T (the feature layer has no activation)
+      hopper::fence_proxy_async();
+      hopper::bar_sync(bar, 128);
+      float acc[W / 2];
+      zero_regs(acc);
+      take_turn(w);
+#pragma unroll
+      for (int j = 0; j < NB / 2; ++j) consume_chunk<W>(r, acc, act + j * L::BLOCK, j == 0);
+      pass_turn(w);
+      if (!dense_dv) {
+        store_rows_sw(act, H, rows(R::dhv), ldp, nullptr, p0);
+        reduce_bias<W>(red, H, bsum + O::bv);
+      }
+      finish_layer(r, bar);
+      chain_epilogue<W, W, false, false>(acc, msk, gcs, nullptr, nullptr, act, red);
+    }
+    // l = 8: d_h7 = (bf16(d_feat) Wf^T + gc Wout[W/2:]^T) * (h7 > 0); then
+    // l = 7..1: d_h_{l-1} = (bf16(d_h_l) W_l^T) * (h_{l-1} > 0). The rows of
+    // act (d_feat = WsRows' d(8), then d_h_l) go to row d(l), their bias
+    // sums to l * W (bf = 8W).
+#pragma unroll 1
+    for (int l = 8; l >= 1; --l) {
+      hopper::fence_proxy_async();
+      hopper::bar_sync(bar, 128);
+      copy_mask_words<W, W>(mrows(M::h(l - 1)), ldp, p0, msk);  // after the last epilogue's reads
+      float acc[W / 2];
+      zero_regs(acc);
+      take_turn(w);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) consume_chunk<W>(r, acc, act + j * L::BLOCK, j == 0);
+      pass_turn(w);
+      store_rows_sw(act, W, rows(R::d(l)), ldp, nullptr, p0);
+      reduce_bias<W>(red, W, bsum + l * W);
+      mask_wait();
+      finish_layer(r, bar);
+      if (l == 8)
+        chain_epilogue<W, W, true, true>(acc, msk, gcs, wout + H * 4, nullptr, act, red);
+      else
+        chain_epilogue<W, W, true, false>(acc, msk, gcs, nullptr, nullptr, act, red);
+    }
+    if (dx != nullptr) {  // d_e = [d0 | d5] [W0e | W5e]^T: d0 in act, d5 back from its rows
+      hopper::fence_proxy_async();
+      hopper::bar_sync(bar, 128);
+      float acc[32];
+      zero_regs(acc);
+      take_turn(w);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) consume_chunk<64>(r, acc, act + j * L::BLOCK, j == 0);
+      pass_turn(w);  // d5's chunks come after the turn: see take_turn
+      store_rows_sw(act, W, rows(R::d(0)), ldp, nullptr, p0);
+      reduce_bias<W>(red, W, bsum);
+      finish_layer(r, bar);
+      load_rows_sw(act, W, rows(R::d(5)), ldp, p0);
+      hopper::fence_proxy_async();
+      hopper::bar_sync(bar, 128);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) consume_chunk<64>(r, acc, act + j * L::BLOCK, j == 0);
+      finish_layer(r, bar);
+      float* d_e = reinterpret_cast<float*>(act);
+      stage_fragment(acc, d_e, L::LDE);
+      hopper::bar_sync(bar, 128);
+      input_grad(in, true, Fp, d_e, L::LDE, n_pts, p0, FWD_ROWS, dx, t);
+    } else {
+      hopper::bar_sync(bar, 128);
+      store_rows_sw(act, W, rows(R::d(0)), ldp, nullptr, p0);
+      reduce_bias<W>(red, W, bsum);
+    }
+    // the next tile's first writes to gs, act and red follow its first barrier
+  }
+  if (w == 0) take_turn(w);  // warpgroup 1's last pass_turn
+}
+
+// The bf16 cotangent chain (phase 1b) over the n_pts points and the padding
+// up to whole tiles, after the recompute (bwd_recompute_sm90) has written
+// the tiles' rows and mask words: fwd_tile_sm90.cuh's CTA of 384 threads
+// (a TMA producer warpgroup, two ping-pong wgmma consumer warpgroups) on
+// a persistent grid in TileWalk's order. dx, and with a direction per
+// point dv, only where the pointer is given.
+template <typename In, int W>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+bwd_chain_sm90(const __grid_constant__ ChainMaps maps, const In in, const float* __restrict__ g,
+               size_t gsc, size_t gsp, int n_pts, int Fp, int Fv, const bf16* __restrict__ wb,
+               bf16* ws, const uint32_t* __restrict__ masks, size_t ldp, float* dhv32,
+               float* bpart, float* dx, float* dv) {
+  using L = ChainSmem<W>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = fwd_smem_base(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + FWD_STAGES;
+  const int ntiles = (n_pts + TP - 1) / TP;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // the consumers' 8 warps
+    }
+    hopper::fence_barrier_init();
   }
   __syncthreads();
-  if (tid < W / 2) {
-    float s = red[tid];
-    for (int part = 1; part < THREADS / (W / 2); ++part) s += red[part * (W / 2) + tid];
-    bsum[O::bv + tid] = s;
-  }
-  ws_transpose<true>(dbuf, L::lda, W / 2, row(R::dhv), ldp, p0);
-  if (dense && dv != nullptr) {  // d_ev = bf16(d_hv) Wve^T per point, then the view trig
-    float acc[4][1][4];
-    mma_layer<W, 1>({dbuf, L::lda, wt + T::wve, W / 2}, none, wbuf, acc);
-    float* d_ev = reinterpret_cast<float*>(act);  // act is free until d_feat
-    store_acc<1>(acc, d_ev, KV + 1);
-    __syncthreads();
-    input_grad(in, false, Fv, d_ev, KV + 1, n_pts, p0, TP, dv);
-  }
-  {  // d_feat = bf16(d_hv) Wvf^T (the feature layer has no activation)
-    float acc[4][W / 32][4];
-    mma_layer<W, W / 32>({dbuf, L::lda, wt + T::wvf, W / 2}, none, wbuf, acc);
-    bwd_epilogue<W / 32>(acc, nullptr, nullptr, nullptr, red, bsum + O::bf, act, L::lda);
-  }
-  __syncthreads();
-  ws_transpose<true>(act, L::lda, W, row(R::dfeat), ldp, p0);
-  uint32_t mw[8 * (W / 128)];  // a layer's mask words (load_masks)
-  {  // d_h7 = (bf16(d_feat) Wf^T + gc Wout[W/2:]^T) * (h7 > 0)
-    float acc[4][W / 32][4];
-    load_masks<W / 32>(mrow(M::h(7)), ldp, p0, mw);
-    mma_layer<W, W / 32>({act, L::lda, wt + T::wf, W}, none, wbuf, acc);
-    bwd_epilogue<W / 32>(acc, mw, gcs, wb + O::wout + size_t(W / 2) * 4, red, bsum + 7 * W,
-                         dbuf, L::lda);
-  }
-  __syncthreads();
-  ws_transpose<true>(dbuf, L::lda, W, row(R::d(7)), ldp, p0);
-  for (int i = 7; i >= 1; --i) {  // d_h_{i-1} = (bf16(d_h_i) W_i^T) * (h_{i-1} > 0)
-    float acc[4][W / 32][4];
-    load_masks<W / 32>(mrow(M::h(i - 1)), ldp, p0, mw);
-    mma_layer<W, W / 32>({dbuf, L::lda, wt + T::wi(i), W}, none, wbuf, acc);
-    bwd_epilogue<W / 32>(acc, mw, nullptr, nullptr, red, bsum + (i - 1) * W, dbuf, L::lda);
-    __syncthreads();
-    ws_transpose<true>(dbuf, L::lda, W, row(R::d(i - 1)), ldp, p0);
-  }
-  if (dx != nullptr) {  // d_e = [d0 | d5] W05e^T (d0 in dbuf, d5 back from the workspace)
-    ws_transpose<false>(act, L::lda, W, row(R::d(5)), ldp, p0);
-    float acc[4][2][4];
-    mma_layer<W, 2>({dbuf, L::lda, wt + T::w0e, W}, {act, L::lda, wt + T::w5e, W}, wbuf, acc);
-    float* d_e = reinterpret_cast<float*>(act);
-    store_acc<2>(acc, d_e, KE + 1);
-    __syncthreads();
-    input_grad(in, true, Fp, d_e, KE + 1, n_pts, p0, TP, dx);
+  const int wg = threadIdx.x >> 7;
+  TileWalk walk;
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<FWD_PRODUCER_REGS>();
+    if (threadIdx.x == 0)
+      chain_producer<W>(maps, ntiles, in.spr == 1 && dv != nullptr, dx != nullptr,
+                        smem + L::ring, full, empty, walk);
+  } else {
+    hopper::setmaxnreg_inc<FWD_CONSUMER_REGS>();
+    chain_consumer<In, W>(in, g, gsc, gsp, n_pts, Fp, Fv, wb, ws, masks, ldp, dhv32, bpart, dx,
+                          dv, ntiles, smem, full, empty, wg - 1, walk);
   }
 }
 
@@ -759,7 +999,7 @@ bwd_tile_f32(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, i
   if (dense && dv != nullptr) {  // d_ev = d_hv Wve^T per point -> emb (spent), then the trig
     dense_t_f32(dst, lda, W / 2, wt + T::wve, KV, emb, L::lde);
     __syncthreads();
-    input_grad(in, false, Fv, emb, L::lde, n_pts, p0, TP32, dv);
+    input_grad(in, false, Fv, emb, L::lde, n_pts, p0, TP32, dv, tid);
   }
   dense_t_f32(dst, lda, W / 2, wt + T::wvf, W, src, lda);  // d_feat -> src
   __syncthreads();
@@ -789,7 +1029,7 @@ bwd_tile_f32(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, i
     __syncthreads();
     dense_t_f32(cur, lda, W, wt + T::w0e, KE, emb, L::lde, oth, wt + T::w5e);
     __syncthreads();
-    input_grad(in, true, Fp, emb, L::lde, n_pts, p0, TP32, dx);
+    input_grad(in, true, Fp, emb, L::lde, n_pts, p0, TP32, dx, tid);
   }
 }
 
@@ -1058,8 +1298,10 @@ size_t align256(size_t b) { return (b + 255) & ~size_t(255); }
 
 // A launch's geometry and workspace: n_pts points, a view direction per
 // spr of them (dense: spr = 1, a direction per point; else one per ray).
+// Phase 1 writes a partial of the bias grads per BIAS_PART points (a tile
+// of the f32 path, a consumer warpgroup's half tile of the bf16 chain).
 struct Plan {
-  int tile, n_pts, n_pad, ntiles, n_rays, rpad, split_len, nsplit;
+  int tile, n_pts, n_pad, ntiles, nbpart, n_rays, rpad, split_len, nsplit;
   bool dense;
   size_t ws, masks, rws, dhv, bpart, wpart, total;  // byte offsets / sizes
 };
@@ -1067,6 +1309,9 @@ struct Plan {
 template <typename T, int W>
 Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int split_len);
 
+constexpr int BIAS_PART = 64;  // points a bias-grad partial sums
+static_assert(TP32 == BIAS_PART && TP == 2 * FWD_ROWS && FWD_ROWS == BIAS_PART,
+              "a partial per f32 tile and per bf16 consumer warpgroup");
 constexpr int SMS = 132;  // the H100 SXM's SMs: the split count fills whole waves of them
 // Points a split sums in one f32 accumulator chain, in 64-point chunks. The
 // chain's rounding grows with its length: 11 splits of 71,552 points at the
@@ -1105,6 +1350,7 @@ Plan make_plan(int n_pts, int spr) {
   p.dense = spr == 1;
   p.n_pad = (p.n_pts + p.tile - 1) / p.tile * p.tile;
   p.ntiles = p.n_pad / p.tile;
+  p.nbpart = p.n_pad / BIAS_PART;
   p.n_rays = n_pts / spr;
   p.rpad = p.dense ? 0 : (p.n_rays + 63) / 64 * 64;  // the per-ray rows of ray_prep
   const int nchunks = p.n_pad / 64;
@@ -1130,7 +1376,7 @@ Plan make_plan(int n_pts, int spr) {
   p.dhv = o;
   o += p.dense ? 0 : align256(size_t(p.n_pad) * (W / 2) * 4);
   p.bpart = o;
-  o += align256(size_t(p.ntiles) * Layout<W>::nbias * 4);
+  o += align256(size_t(p.nbpart) * Layout<W>::nbias * 4);
   p.wpart = o;
   o += align256(size_t(p.nsplit) * GLayout<W>::size * 4);
   p.total = o;
@@ -1215,6 +1461,34 @@ cudaError_t launch_recompute(const In& in, int n_pts, int Fp, int Fv, const bf16
   return cudaGetLastError();
 }
 
+// The chain's launch: its four tensor maps over the chain blob wt and a
+// persistent grid of min(tiles, SMs) CTAs, as the recompute's. setmaxnreg
+// moves registers within the pool the CTA got at launch: a smaller pool
+// than the two roles ask for would stall the consumers, so it is refused.
+template <typename In, int W>
+cudaError_t launch_chain(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts, int Fp,
+                         int Fv, const bf16* wb, const bf16* wt, bf16* ws, const uint32_t* masks,
+                         size_t ldp, float* dhv32, float* bpart, float* dx, float* dv,
+                         cudaStream_t s) {
+  ChainMaps maps;
+  NERF_CHECK(encode_chain_maps<W>(&maps, wt));
+  constexpr size_t smem = ChainSmem<W>::launch_bytes;
+  const auto kernel = bwd_chain_sm90<In, W>;
+  NERF_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+  cudaFuncAttributes fa;
+  NERF_CHECK(cudaFuncGetAttributes(&fa, kernel));
+  if (fa.numRegs * FWD_THREADS < 128 * FWD_PRODUCER_REGS + 256 * FWD_CONSUMER_REGS)
+    return cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  NERF_CHECK(cudaGetDevice(&dev));
+  NERF_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  const int tiles = (n_pts + TP - 1) / TP;
+  kernel<<<tiles < sms ? tiles : sms, FWD_THREADS, smem, s>>>(maps, in, g, gsc, gsp, n_pts, Fp, Fv,
+                                                             wb, ws, masks, ldp, dhv32, bpart, dx,
+                                                             dv);
+  return cudaGetLastError();
+}
+
 template <typename T, int W, typename In>
 cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts, int Fp, int Fv,
                 const void* wblob, const void* wtblob, const float* bblob, void* workspace,
@@ -1237,13 +1511,10 @@ cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts,
     NERF_CHECK((launch_recompute<In, W>(in, pl.n_pts, Fp, Fv, reinterpret_cast<const bf16*>(wb),
                                         bblob, reinterpret_cast<bf16*>(ws), masks, ldp, nullptr,
                                         0, 0, s)));
-    const size_t smem = BwdSmem<W>::bytes;
-    NERF_CHECK(cudaFuncSetAttribute(bwd_tile_bf16<In, W>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
-    bwd_tile_bf16<In, W><<<pl.ntiles, THREADS, smem, s>>>(
-        in, g, gsc, gsp, pl.n_pts, Fp, Fv, reinterpret_cast<const bf16*>(wb),
-        reinterpret_cast<const bf16*>(wt), reinterpret_cast<bf16*>(ws), masks, ldp, dhv32, bpart,
-        dx, dv);
+    NERF_CHECK((launch_chain<In, W>(in, g, gsc, gsp, pl.n_pts, Fp, Fv,
+                                    reinterpret_cast<const bf16*>(wb),
+                                    reinterpret_cast<const bf16*>(wt), reinterpret_cast<bf16*>(ws),
+                                    masks, ldp, dhv32, bpart, dx, dv, s)));
   } else {
     const size_t smem = BwdSmem32<W>::bytes;
     NERF_CHECK(cudaFuncSetAttribute(bwd_tile_f32<In, W>,
@@ -1289,7 +1560,7 @@ cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts,
   reduce_splits<<<unsigned((gw + 255) / 256), 256, 0, s>>>(wpart, pl.nsplit, gw, out);
   NERF_CHECK(cudaGetLastError());
   const int nb = Layout<W>::nbias;
-  reduce_tiles<<<(nb + 31) / 32, 256, 0, s>>>(bpart, pl.ntiles, nb, out + gw);
+  reduce_tiles<<<(nb + 31) / 32, 256, 0, s>>>(bpart, pl.nbpart, nb, out + gw);
   return cudaGetLastError();
 }
 
@@ -1334,6 +1605,32 @@ int recompute_only(int width, const In& in, int n_pts, int Fp, int Fv, const voi
     return launch_recompute<In, 256>(in, n_pts, Fp, Fv, wb, bblob, w, m, ldp, raw, sc, sp, s);
   if (width == 128)
     return launch_recompute<In, 128>(in, n_pts, Fp, Fv, wb, bblob, w, m, ldp, raw, sc, sp, s);
+  return cudaErrorInvalidValue;
+}
+
+// The recompute and the chain alone (nerf_fused_mlp_bwd_chain*), into ws,
+// masks, dhv32 and bpart at ldp = n_pts rounded up to whole tiles.
+template <typename In>
+int chain_only(int width, const In& in, const float* g, size_t gsc, size_t gsp, int n_pts, int Fp,
+               int Fv, const void* wblob, const void* wtblob, const float* bblob, void* ws,
+               void* masks, float* dhv32, float* bpart, float* dx, float* dv, void* stream) {
+  if (Fp < 1 || Fp > MAX_FP || Fv < 1 || Fv > MAX_FV) return cudaErrorInvalidValue;
+  const size_t ldp = (size_t(n_pts) + TP - 1) / TP * TP;
+  const bf16* wb = static_cast<const bf16*>(wblob);
+  const bf16* wt = static_cast<const bf16*>(wtblob);
+  bf16* w = static_cast<bf16*>(ws);
+  uint32_t* m = static_cast<uint32_t*>(masks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (width == 256) {
+    NERF_CHECK((launch_recompute<In, 256>(in, n_pts, Fp, Fv, wb, bblob, w, m, ldp, nullptr, 0, 0, s)));
+    return launch_chain<In, 256>(in, g, gsc, gsp, n_pts, Fp, Fv, wb, wt, w, m, ldp, dhv32, bpart, dx,
+                                 dv, s);
+  }
+  if (width == 128) {
+    NERF_CHECK((launch_recompute<In, 128>(in, n_pts, Fp, Fv, wb, bblob, w, m, ldp, nullptr, 0, 0, s)));
+    return launch_chain<In, 128>(in, g, gsc, gsp, n_pts, Fp, Fv, wb, wt, w, m, ldp, dhv32, bpart, dx,
+                                 dv, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -1427,6 +1724,40 @@ extern "C" int nerf_fused_mlp_bwd_recompute_points(int width, const float* x, co
   const PointsIn in{x, v, spr};
   return recompute_only(width, in, n_pts, n_freq_pts, n_freq_views, wblob, bblob, ws, masks, raw,
                         1, 4, stream);
+}
+
+// The bf16 recompute and cotangent chain alone, K4's and K3's first two
+// launches, for a check of what the chain writes: ws and masks as
+// nerf_fused_mlp_bwd_recompute's (the chain's rows gc, d0..d7, d_feat,
+// d_hv beside the recompute's), dhv32 [n_pad][W/2] f32 (written with a
+// direction per ray), bpart [n_pad / 64][nbias] f32 (each 64 points' bias
+// sums). Rays mode: g planes [4][R*S], as K4's.
+extern "C" int nerf_fused_mlp_bwd_chain(int width, const float* rays_o, const float* rays_d,
+                                        const float* viewdirs, const float* z, const float* g,
+                                        int n_rays, int n_samples, int n_freq_pts,
+                                        int n_freq_views, const void* wblob, const void* wtblob,
+                                        const float* bblob, void* ws, void* masks, float* dhv32,
+                                        float* bpart, void* stream) {
+  const long long n = static_cast<long long>(n_rays) * n_samples;
+  if (!valid_shape(n, n_samples)) return cudaErrorInvalidValue;
+  const RaysIn in{rays_o, rays_d, z, viewdirs, n_samples};
+  return chain_only(width, in, g, size_t(n), 1, int(n), n_freq_pts, n_freq_views, wblob, wtblob,
+                    bblob, ws, masks, dhv32, bpart, nullptr, nullptr, stream);
+}
+
+// Points mode (K3's): g rows [N][4]; dx [N][3] where given, and dv
+// [N][3] where also given at spr = 1 (at spr > 1 phase 2 computes dv).
+extern "C" int nerf_fused_mlp_bwd_chain_points(int width, const float* x, const float* v,
+                                               const float* g, int n_pts, int spr, int n_freq_pts,
+                                               int n_freq_views, const void* wblob,
+                                               const void* wtblob, const float* bblob, void* ws,
+                                               void* masks, float* dhv32, float* bpart, float* dx,
+                                               float* dv, void* stream) {
+  if (!valid_shape(n_pts, spr) || (dv != nullptr && (dx == nullptr || spr != 1)))
+    return cudaErrorInvalidValue;
+  const PointsIn in{x, v, spr};
+  return chain_only(width, in, g, 1, 4, n_pts, n_freq_pts, n_freq_views, wblob, wtblob, bblob, ws,
+                    masks, dhv32, bpart, dx, dv, stream);
 }
 
 extern "C" const char* nerf_cuda_error_string(int err) {

@@ -7,8 +7,10 @@
 // and the backward's recompute run fwd_tile_sm90.cuh's wgmma tile, which
 // sums each layer's products in the same K order as fwd_tile_bf16 here (on
 // an H100 the two tiles' bf16 raw differed only in the head's last f32
-// bits: PERF.md). Only K7's probes (probe_overlap.cu) still run
-// fwd_tile_bf16; the backward's cotangent chain runs mma_layer.
+// bits: PERF.md), and the backward's cotangent chain runs on that tile's
+// ring and wgmma too. The mma.sync code here (mma_layer, epilogue,
+// fwd_tile_bf16) serves K7's probes (probe_overlap.cu) alone: no
+// production kernel runs it.
 
 #pragma once
 
@@ -340,7 +342,8 @@ __device__ void mma_chunks(int nchunks, const Chunk& chunk, bf16* wbuf, float (&
 }
 
 // acc[TP x N] = A1 W1 + A2 W2 (f32 accumulators in registers), N = 32*NT,
-// the warps laid out as in mma_chunk. Ends with a barrier.
+// the warps laid out as in mma_chunk. Ends with a barrier. K7's probes
+// only (ROADMAP B.7): every production bf16 kernel runs wgmma.
 template <int W, int NT>
 __device__ void mma_layer(Seg s1, Seg s2, bf16* wbuf, float (&acc)[4][NT][4]) {
   zero_acc(acc);
@@ -379,26 +382,6 @@ __device__ void epilogue(float (&acc)[4][NT][4], const float* __restrict__ bias,
       *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * ldo + col) =
           __floats2bfloat162_rn(v[2], v[3]);
     }
-}
-
-// out[row][col] = acc (f32, stride ldo): mma_layer's accumulators to shared
-// memory, for the narrow products (d_e, d_ev) whose rows one thread each
-// then reads whole.
-template <int NT>
-__device__ void store_acc(const float (&acc)[4][NT][4], float* out, int ldo) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int row = wm * 64 + mt * 16 + g + (q >> 1) * 8;
-        const int col = wn * NT * 8 + nt * 8 + 2 * t + (q & 1);
-        out[row * ldo + col] = acc[mt][nt][q];
-      }
 }
 
 // The forward of one tile of TP points p0 .. p0+TP-1 (K7's `full` probe

@@ -18,7 +18,11 @@
 // and after it, and runs on the producer warpgroup's three idle warps (K5
 // composites its ray groups there); the backward's recompute
 // (fused_mlp_bwd.cu) takes each layer's output from the consumers while
-// the next layer's products run (after_embed, after_layer):
+// the next layer's products run (after_embed, after_layer). The backward's
+// cotangent chain (bwd_chain_sm90, fused_mlp_bwd.cu) is a CTA of the same
+// shape with its own producer and consumers, built from this file's pieces
+// (FwdSmem's ring and act blocks, FwdRing, consume_chunk, finish_layer,
+// take_turn / pass_turn, st_shared_b32, wout_row). This tile's roles:
 // - warpgroup 0, the producer: one thread streams the weight chunks of
 //   every tile, in the order the layers consume them, by TMA into a ring of
 //   FWD_STAGES stages (a chunk is 64 K columns x N rows of a W^T block,

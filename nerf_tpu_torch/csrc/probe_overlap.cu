@@ -32,9 +32,9 @@
 // The script's embedding order [x | sin(3f+d) | cos(3f+d)] is K1's kernel
 // order, so W0e / W5e go into K1's blob unpermuted. Every body is built from
 // the mma.sync tile code (fused_mlp_common.cuh) that K1, K5 and the
-// backward's recompute ran until their wgmma tile (fwd_tile_sm90.cuh), and
-// that no production kernel runs now: the cp.async weight ring and
-// mma_layer / mma_chunk (which the backward's chain still uses), epilogue,
+// backward's recompute and chain ran until their wgmma tile
+// (fwd_tile_sm90.cuh), and that no production kernel runs now: the
+// cp.async weight ring and mma_layer / mma_chunk, epilogue,
 // embed_row with sincosf's range reduction, and for `full` fwd_tile_bf16
 // itself, so what a probe times is that tile, not today's K1. A CTA
 // holds K1's 128 points (the TPU's 1,536-point tile was a VMEM blocking

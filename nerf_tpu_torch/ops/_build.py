@@ -60,6 +60,8 @@ SIGNATURES = {
         "nerf_fused_mlp_bwd_recompute_points": (
             _I, [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
         ),
+        "nerf_fused_mlp_bwd_chain": (_I, [_I] + [_P] * 5 + [_I] * 4 + [_P] * 8),
+        "nerf_fused_mlp_bwd_chain_points": (_I, [_I] + [_P] * 3 + [_I] * 4 + [_P] * 10),
         "nerf_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "fused_render": {

@@ -37,7 +37,13 @@ The pieces:
   workspace rows and relu mask words it writes (``unpack_mask_bits`` decodes
   them), for checks, with ``recompute_layers_reference`` to hold each layer
   to its plain version on the kernel's own inputs; K4 and K3 launch it
-  themselves.
+  themselves;
+- ``bwd_chain_reference`` / ``bwd_chain`` and ``bwd_chain_rays``: the bf16
+  backward's first two launches, the recompute and the cotangent chain
+  (``bwd_chain_sm90``), alone: the chain's workspace rows, its f32 d_hv rows,
+  its bias partials and the input grads, with ``chain_layers_reference`` to
+  hold each block to its one product on the kernel's own inputs. The plain
+  backward (``_backward``) takes its cotangents from the same code.
 """
 
 from __future__ import annotations
@@ -140,7 +146,7 @@ def wgrad_bytes_per_point(cfg: MLPConfig) -> int:
 def bwd_tile_flops(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig,
                    n_rays: int, n_samples: int, input_grads: bool = False) -> int:
     """FLOP of the backward's phase 1 (``bwd_recompute_sm90`` and
-    ``bwd_tile_bf16`` in csrc/fused_mlp_bwd.cu) for one call: ``bwd_flops``
+    ``bwd_chain_sm90`` in csrc/fused_mlp_bwd.cu) for one call: ``bwd_flops``
     less the weight grads (``wgrad_flops``), i.e. the forward recompute
     without the rgb/alpha head and the activation cotangents, per point.
     2,302,720 per point at 8x256 with 10/4 octaves. ``input_grads`` adds d_e
@@ -178,7 +184,7 @@ def recompute_bytes_per_point(cfg: MLPConfig) -> int:
 
 def chain_flops(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig,
                 n_rays: int, n_samples: int, input_grads: bool = False) -> int:
-    """FLOP of the backward's cotangent chain (``bwd_tile_bf16``) for one
+    """FLOP of the backward's cotangent chain (``bwd_chain_sm90``) for one
     call: phase 1 less the recompute. 1,117,184 per point at 8x256 with
     10/4 octaves; ``input_grads`` as in ``bwd_tile_flops``."""
     return (bwd_tile_flops(cfg, pe_pts, pe_views, n_rays, n_samples, input_grads)
@@ -627,6 +633,145 @@ fused_points.launches = 0
 # ------------------------------------------------------------------ backward
 
 
+# The cotangent chain's blocks in order: (block, the block its product
+# reads, its relu mask), as _mlp_backward_math computes them.
+CHAIN = (("dhv", "gc", "hv"), ("dfeat", "dhv", None), ("d7", "dfeat", "h7")) + tuple(
+    (f"d{i - 1}", f"d{i}", f"h{i - 1}") for i in range(DEPTH - 1, 0, -1))
+BIAS_PART = 64  # points a bias partial of phase 1 sums (csrc/fused_mlp_bwd.cu)
+
+
+def chain_ws_rows(W: int) -> Dict[str, Tuple[int, int]]:
+    """(first row, rows) of each of the chain's blocks in the backward's bf16
+    workspace (WsRows in csrc/fused_mlp_bwd.cu): gc's 4 used rows, d0..d7,
+    d_feat, d_hv."""
+    gc = KE + DEPTH * W + W + W // 2
+    return {"gc": (gc, 4), **{f"d{i}": (gc + 8 + i * W, W) for i in range(DEPTH)},
+            "dfeat": (gc + 8 + DEPTH * W, W), "dhv": (gc + 8 + DEPTH * W + W, W // 2)}
+
+
+class Chain(NamedTuple):
+    rows: Dict[str, torch.Tensor]  # chain_ws_rows' blocks: [features, points]
+    dhv32: Optional[torch.Tensor]  # d_hv in f32 before its rounding, [points, W/2]
+    # each BIAS_PART points' f32 sums of the unrounded cotangents (of g for
+    # bout), [parts, width] by bias name (b0..b7, bf, bv, bout)
+    bias: Dict[str, torch.Tensor]
+    dx: Optional[torch.Tensor]  # [points, 3]
+    dv: Optional[torch.Tensor]  # [points / spr, 3]
+
+
+def _chain_step(kp: Dict[str, torch.Tensor], block: str, prev: torch.Tensor,
+                gc: torch.Tensor) -> torch.Tensor:
+    """The chain's f32 cotangent ``block`` before its relu mask, from the
+    rounded block its product reads, ``prev`` [N, k], and gc [N, 4]."""
+    w = lambda name: kp[name].float()  # noqa: E731
+    hw = kp["W1"].shape[0] // 2
+    if block == "dhv":
+        return gc @ w("Wout")[:hw].T
+    if block == "dfeat":
+        return prev @ w("Wvf").T
+    if block == "d7":
+        return prev @ w("Wf").T + gc @ w("Wout")[hw:].T
+    return prev @ w(f"W{int(block[1:]) + 1}").T
+
+
+def _chain_blocks(kp: Dict[str, torch.Tensor], g32: torch.Tensor, masks: Dict[str, torch.Tensor],
+                  given: Optional[Dict[str, torch.Tensor]] = None):
+    """(rounded, unrounded) blocks [N, n] of the cotangent chain by name from
+    the cotangent g32 [N, 4] of raw: gc = g32 rounded, then each CHAIN block
+    from the rounded block before it (the chain's own, or ``given``'s [N, k]
+    where given), times its relu mask (``masks``: bool [N, n] by activation
+    name), rounded to kp's dtype."""
+    c = lambda t: round_to(t, kp["W1"].dtype)  # noqa: E731
+    gc = c(g32)
+    rounded, raw = {"gc": gc}, {}
+    for name, src, mask in CHAIN:
+        prev = rounded[src] if given is None or src not in given else given[src]
+        d = _chain_step(kp, name, prev, gc)
+        raw[name] = d if mask is None else d * masks[mask]
+        rounded[name] = c(raw[name])
+    return rounded, raw
+
+
+def _relu_masks(fw: _Fwd) -> Dict[str, torch.Tensor]:
+    """The relu masks the chain applies, by activation name: the rounded
+    h0..h6 and the f32 h7 and hv, as nerf_tpu takes them (rounding keeps a
+    value's sign)."""
+    return {**{f"h{i}": a > 0 for i, a in enumerate(fw.acts)}, "h7": fw.h7 > 0, "hv": fw.hv > 0}
+
+
+def _input_grads(kp: Dict[str, torch.Tensor], x: torch.Tensor, v: Optional[torch.Tensor],
+                 d0: torch.Tensor, d5: torch.Tensor, d_hv_view: torch.Tensor):
+    """(dx, dv): dx from d_e = [d0 | d5] W05eᵀ and dv from d_ev = d_hv_view
+    Wveᵀ (d_hv rounded after its sum over a view's points) through the f32
+    trig of the embeddings (``_embed_backward``); dv None without v."""
+    w = lambda name: kp[name].float()  # noqa: E731
+    Fp, Fv = _num_freqs(kp)
+    dx = _embed_backward(torch.cat([d0, d5], -1) @ w("W05e").T, x, Fp)
+    dv = None if v is None else _embed_backward(d_hv_view @ w("Wve").T, v, Fv)
+    return dx, dv
+
+
+def _part_sums(t: torch.Tensor) -> torch.Tensor:
+    """[N, n] -> [ceil(N / BIAS_PART), n]: the sums over each BIAS_PART rows."""
+    t = F.pad(t, (0, 0, 0, -t.shape[0] % BIAS_PART))
+    return t.reshape(-1, BIAS_PART, t.shape[1]).sum(1)
+
+
+def _chain_result(g32: torch.Tensor, rounded, raw) -> Chain:
+    """A Chain of ``_chain_blocks``' output, without input grads."""
+    names = ["gc", "dhv", "dfeat"] + [f"d{i}" for i in range(DEPTH)]
+    bias = {**{f"b{i}": _part_sums(raw[f"d{i}"]) for i in range(DEPTH)},
+            "bf": _part_sums(raw["dfeat"]), "bv": _part_sums(raw["dhv"]),
+            "bout": _part_sums(g32)}
+    return Chain({k: rounded[k].T.contiguous() for k in names}, raw["dhv"], bias, None, None)
+
+
+def bwd_chain_reference(kp: Dict[str, torch.Tensor], x: torch.Tensor, v: torch.Tensor, spr: int,
+                        g: torch.Tensor, input_grads: bool = False) -> Chain:
+    """Plain PyTorch version of the bf16 backward's cotangent chain
+    (``bwd_chain_sm90``, after its recompute) from points x [N, 3],
+    directions v [N/spr, 3] and the cotangent g [N, 4] of raw: the
+    workspace blocks it writes, rounded as the kernel rounds them (gc, d_hv,
+    d_feat, d0..d7: ``chain_ws_rows``), d_hv in f32 (which the kernel writes
+    for phase 2 with a direction per ray), each BIAS_PART points' bias sums
+    and, with ``input_grads``, dx and dv. ``_backward`` takes its cotangents
+    from the same code."""
+    fw = _forward(kp, x, v, spr, keep_acts=True)
+    rounded, raw = _chain_blocks(kp, g, _relu_masks(fw))
+    out = _chain_result(g, rounded, raw)
+    if not input_grads:
+        return out
+    hw = kp["W1"].shape[0] // 2
+    d_hv_view = round_to(raw["dhv"].reshape(-1, spr, hw).sum(1), kp["W1"].dtype)
+    dx, dv = _input_grads(kp, x, v, rounded["d0"], rounded["d5"], d_hv_view)
+    return out._replace(dx=dx, dv=dv)
+
+
+def chain_layers_reference(kp: Dict[str, torch.Tensor], rows: Dict[str, torch.Tensor],
+                           masks: torch.Tensor, g: torch.Tensor, spr: int,
+                           x: Optional[torch.Tensor] = None,
+                           v: Optional[torch.Tensor] = None) -> Chain:
+    """Each block of ``bwd_chain_reference`` computed by its one product from
+    the block the kernel wrote before it in ``rows`` (a chain launch's rows,
+    columns beyond g's N ignored) and from the kernel's own mask words
+    ``masks`` ([mask_rows(W), >= N]), not from the reference's own chain: a
+    kernel's blocks then differ from these by that product's rounding alone.
+    Fed the reference's own rows and masks it gives them back. With x, also
+    dx from the rows' d0 and d5, and at spr = 1 dv from their d_hv (v)."""
+    W, n = kp["W1"].shape[0], g.shape[0]
+    words = {**{f"h{i}": (i * (W // 32), W) for i in range(DEPTH)}, "hv": (DEPTH * (W // 32), W // 2)}
+    bits = {k: unpack_mask_bits(masks[m0 : m0 + -(-k_ // 32), :n], k_)
+            for k, (m0, k_) in words.items()}
+    given = {k: rows[k][:, :n].T.float() for k in ["dhv", "dfeat"] + [f"d{i}" for i in range(1, DEPTH)]}
+    rounded, raw = _chain_blocks(kp, g, bits, given)
+    out = _chain_result(g, rounded, raw)
+    if x is None:
+        return out
+    d = lambda k: rows[k][:, :n].T.float()  # noqa: E731
+    dx, dv = _input_grads(kp, x, v if spr == 1 else None, d("d0"), d("d5"), d("dhv"))
+    return out._replace(dx=dx, dv=dv)
+
+
 def _backward(
     kp: Dict[str, torch.Tensor],
     x: torch.Tensor,
@@ -639,52 +784,39 @@ def _backward(
     None) from the cotangent g32 [N, 4] of ``_forward(kp, x, v, spr)``'s raw.
 
     Mirrors nerf_tpu's _mlp_backward_math step by step, with its rounding
-    points: g rounded once (gc); d_hv rounded after its relu mask; dWve and
-    d_ev from the per-ray f32 sum of d_hv (the identity at spr = 1), rounded
-    after the sum; each trunk cotangent rounded before its products, the
-    layer-5 one kept for dW05e = eᵀ [d0 | d5] and d_e = [d0 | d5] W05eᵀ; the
-    relu masks from the bf16 trunk activations but the f32 h7 and hv; bias
-    grads as f32 sums of the unrounded cotangents; dx and dv through the f32
-    sin/cos of the embeddings (``_embed_backward``). Autograd through the
-    plain forward rounds elsewhere and is no reference for the kernels."""
+    points (the cotangents from ``_chain_blocks``, as ``bwd_chain_reference``
+    takes them): g rounded once (gc); d_hv rounded after its relu mask; dWve
+    and d_ev from the per-ray f32 sum of d_hv (the identity at spr = 1),
+    rounded after the sum; each trunk cotangent rounded before its products,
+    the layer-5 one kept for dW05e = eᵀ [d0 | d5] and d_e = [d0 | d5] W05eᵀ;
+    the relu masks from the bf16 trunk activations but the f32 h7 and hv;
+    bias grads as f32 sums of the unrounded cotangents; dx and dv through
+    the f32 sin/cos of the embeddings (``_embed_backward``). Autograd through
+    the plain forward rounds elsewhere and is no reference for the kernels."""
     dtype = kp["W1"].dtype
     c = lambda t: round_to(t, dtype)  # noqa: E731
-    w = lambda name: kp[name].float()  # noqa: E731
-    Fp, Fv = _num_freqs(kp)
     hw = kp["W1"].shape[0] // 2
     fw = _forward(kp, x, v, spr, keep_acts=True)
-    h7c = c(fw.h7)
-    gc = c(g32)
+    d, raw = _chain_blocks(kp, g32, _relu_masks(fw))
+    h7c, gc = c(fw.h7), d["gc"]
     grads = {
         "Wout": torch.cat([c(fw.hv).T @ gc, h7c.T @ gc], 0),
         "bout": g32.sum(0, keepdim=True),
+        "Wvf": c(fw.feat).T @ d["dhv"],
     }
-    d_hv = (gc @ w("Wout")[:hw].T) * (fw.hv > 0)
-    d_h7_out = gc @ w("Wout")[hw:].T
-    d_hv_c = c(d_hv)
-    grads["Wvf"] = c(fw.feat).T @ d_hv_c
-    d_hv_ray_c = c(d_hv.reshape(-1, spr, hw).sum(1))
+    d_hv_ray_c = c(raw["dhv"].reshape(-1, spr, hw).sum(1))
     grads["Wve"] = fw.ev.T @ d_hv_ray_c
-    grads["bv"] = d_hv.sum(0, keepdim=True)
-    d_feat = d_hv_c @ w("Wvf").T
-    d_feat_c = c(d_feat)
-    grads["Wf"] = h7c.T @ d_feat_c
-    grads["bf"] = d_feat.sum(0, keepdim=True)
-    d_h = (d_feat_c @ w("Wf").T + d_h7_out) * (fw.h7 > 0)
+    grads["bv"] = raw["dhv"].sum(0, keepdim=True)
+    grads["Wf"] = h7c.T @ d["dfeat"]
+    grads["bf"] = raw["dfeat"].sum(0, keepdim=True)
     for i in range(DEPTH - 1, 0, -1):
-        d_c = c(d_h)
-        grads[f"W{i}"] = fw.acts[i - 1].T @ d_c
-        grads[f"b{i}"] = d_h.sum(0, keepdim=True)
-        if i == SKIP + 1:
-            d5c = d_c
-        d_h = (d_c @ w(f"W{i}").T) * (fw.acts[i - 1] > 0)
-    d05 = torch.cat([c(d_h), d5c], -1)
-    grads["W05e"] = fw.e.T @ d05
-    grads["b0"] = d_h.sum(0, keepdim=True)
+        grads[f"W{i}"] = fw.acts[i - 1].T @ d[f"d{i}"]
+        grads[f"b{i}"] = raw[f"d{i}"].sum(0, keepdim=True)
+    grads["W05e"] = fw.e.T @ torch.cat([d["d0"], d["d5"]], -1)
+    grads["b0"] = raw["d0"].sum(0, keepdim=True)
     if not input_grads:
         return grads, None, None
-    dx = _embed_backward(d05 @ w("W05e").T, x, Fp)
-    dv = _embed_backward(d_hv_ray_c @ w("Wve").T, v, Fv)
+    dx, dv = _input_grads(kp, x, v, d["d0"], d["d5"], d_hv_ray_c)
     return grads, dx, dv
 
 
@@ -801,7 +933,22 @@ def _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g, blobs) -> Dict[str, tor
         )
     _raise_on(lib, err, "fused_mlp_bwd")
     bwd_recompute.launches += use_bf16
+    bwd_chain.launches += use_bf16
     return _unpack_grads(out, W, Fp, Fv)
+
+
+def _nan_workspace(W: int, n: int, dev):
+    """(the bf16 workspace rows, NaN everywhere so that a row a launch leaves
+    unwritten shows, and the mask words) of n points in whole tiles."""
+    n_pad = -(-n // FWD_TILE) * FWD_TILE
+    ws = torch.full((ws_rows(W)[1], n_pad), float("nan"), dtype=torch.bfloat16, device=dev)
+    return ws, torch.empty(mask_rows(W), n_pad, dtype=torch.int32, device=dev)
+
+
+def _recompute_rows(ws: torch.Tensor, W: int, spr: int) -> Dict[str, torch.Tensor]:
+    """The recompute's blocks of the workspace ws (the view embedding's only
+    with a direction per point)."""
+    return {k: ws[r0 : r0 + n_k] for k, (r0, n_k) in ws_rows(W)[0].items() if k != "ev" or spr == 1}
 
 
 def _launch_recompute(kp, entry: str, args, n: int, spr: int, raw: bool, like: torch.Tensor,
@@ -810,11 +957,7 @@ def _launch_recompute(kp, entry: str, args, n: int, spr: int, raw: bool, like: t
     if dtype != torch.bfloat16:
         raise ValueError("the recompute is a launch of the bf16 backward only")
     dev = like.device
-    n_pad = -(-n // FWD_TILE) * FWD_TILE
-    blocks, n_rows = ws_rows(W)
-    # NaN everywhere, so a row that the launch leaves unwritten shows
-    ws = torch.full((n_rows, n_pad), float("nan"), dtype=torch.bfloat16, device=dev)
-    masks = torch.empty(mask_rows(W), n_pad, dtype=torch.int32, device=dev)
+    ws, masks = _nan_workspace(W, n, dev)
     out = torch.empty(n * 4, dtype=torch.float32, device=dev) if raw else None
     if n:
         lib = _build.load("fused_mlp_bwd")
@@ -826,10 +969,9 @@ def _launch_recompute(kp, entry: str, args, n: int, spr: int, raw: bool, like: t
                                       0 if out is None else out.data_ptr(), stream)
         _raise_on(lib, err, entry)
         bwd_recompute.launches += 1
-    rows = {k: ws[r0 : r0 + n_k] for k, (r0, n_k) in blocks.items() if k != "ev" or spr == 1}
     if out is not None:
         out = out.view(4, n).T if entry == "nerf_fused_mlp_bwd_recompute" else out.view(n, 4)
-    return Recompute(rows, masks, out)
+    return Recompute(_recompute_rows(ws, W, spr), masks, out)
 
 
 def bwd_recompute(kp: Dict[str, torch.Tensor], x: torch.Tensor, v: torch.Tensor, spr: int,
@@ -872,6 +1014,97 @@ def bwd_recompute_rays(kp: Dict[str, torch.Tensor], rays_o: torch.Tensor, rays_d
     return _launch_recompute(kp, "nerf_fused_mlp_bwd_recompute",
                              (ro.data_ptr(), rd.data_ptr(), vd.data_ptr(), z.data_ptr(), R, S),
                              R * S, S, raw, z_vals, blobs)
+
+
+def _launch_chain(kp, entry: str, args, n: int, spr: int, like: torch.Tensor, input_grads: bool,
+                  blobs) -> Tuple[Recompute, Chain]:
+    dtype, W, Fp, Fv = _kernel_config(kp, like)
+    if dtype != torch.bfloat16:
+        raise ValueError("the chain is a launch of the bf16 backward only")
+    dev = like.device
+    ws, masks = _nan_workspace(W, n, dev)
+    n_pad = ws.shape[1]
+    _, biases = _grad_blocks(W)
+    nan = float("nan")  # as in the workspace: what the launches leave unwritten shows
+    dhv32 = torch.full((n_pad, W // 2), nan, device=dev) if spr > 1 else None
+    bpart = torch.full((n_pad // BIAS_PART, sum(k for _, k in biases)), nan, device=dev)
+    dx = torch.full((n, 3), nan, device=dev) if input_grads else None
+    dv = torch.full((n, 3), nan, device=dev) if input_grads and spr == 1 else None
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    if n:
+        lib = _build.load("fused_mlp_bwd")
+        wblob, bblob = kernel_blobs(kp) if blobs is None else blobs
+        wtblob = _chain_blob(kp)
+        tail = (ptr(dx), ptr(dv)) if entry.endswith("_points") else ()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = getattr(lib, entry)(W, *args, Fp, Fv, wblob.data_ptr(), wtblob.data_ptr(),
+                                      bblob.data_ptr(), ws.data_ptr(), masks.data_ptr(),
+                                      ptr(dhv32), bpart.data_ptr(), *tail, stream)
+        _raise_on(lib, err, entry)
+        bwd_recompute.launches += 1
+        bwd_chain.launches += 1
+    rec = Recompute(_recompute_rows(ws, W, spr), masks, None)
+    bias, o = {}, 0
+    for name, k in biases:
+        bias[name] = bpart[:, o : o + k]
+        o += k
+    rows = {k: ws[r0 : r0 + n_k] for k, (r0, n_k) in chain_ws_rows(W).items()}
+    return rec, Chain(rows, dhv32, bias, dx, dv)
+
+
+def bwd_chain(kp: Dict[str, torch.Tensor], x: torch.Tensor, v: torch.Tensor, spr: int,
+              g: torch.Tensor, input_grads: bool = False, blobs=None) -> Tuple[Recompute, Chain]:
+    """The bf16 backward's recompute and cotangent chain alone (K3's first
+    two launches) on points x [N, 3], directions v [N/spr, 3] and the
+    cotangent g [N, 4] of raw, for a check of what the chain writes: on a
+    CUDA tensor the recompute's rows and mask words (as ``bwd_recompute``'s,
+    without raw) and the chain's (``Chain``: its rows over all of its whole
+    tiles, the f32 d_hv rows at spr > 1 only, a bias partial per BIAS_PART
+    points of the whole tiles, and with ``input_grads`` dx and, at spr = 1,
+    dv, which phase 2 computes otherwise); on a CPU tensor
+    ``bwd_recompute_reference`` and ``bwd_chain_reference``. ``launches``
+    counts the chain's launches, K4's, K3's and K6's included."""
+    _check_points(x, v, spr)
+    N = x.shape[0]
+    if g.shape != (N, 4) or g.dtype != torch.float32 or g.device != x.device:
+        raise ValueError(f"g: expected float32 {(N, 4)} on {x.device}, got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}")
+    if x.device.type == "cpu":
+        return (bwd_recompute_reference(kp, x, v, spr)._replace(raw=None),
+                bwd_chain_reference(kp, x, v, spr, g, input_grads))
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {x.device}")
+    xc, vc, gc = x.contiguous(), v.contiguous(), g.contiguous()
+    return _launch_chain(kp, "nerf_fused_mlp_bwd_chain_points",
+                         (xc.data_ptr(), vc.data_ptr(), gc.data_ptr(), N, spr), N, spr, x,
+                         input_grads, blobs)
+
+
+bwd_chain.launches = 0
+
+
+def bwd_chain_rays(kp: Dict[str, torch.Tensor], rays_o: torch.Tensor, rays_d: torch.Tensor,
+                   viewdirs: torch.Tensor, z_vals: torch.Tensor, g_planes: torch.Tensor,
+                   blobs=None) -> Tuple[Recompute, Chain]:
+    """``bwd_chain`` in ray mode (K4's first two launches): rays [R, 3],
+    depths [R, S] and the cotangent planes g_planes [4, R, S]; no input
+    grads."""
+    _check_rays(rays_o, rays_d, viewdirs, z_vals)
+    R, S = z_vals.shape
+    if g_planes.shape != (4, R, S) or g_planes.dtype != torch.float32 or \
+            g_planes.device != z_vals.device:
+        raise ValueError(f"g_planes: expected float32 {(4, R, S)} on {z_vals.device}")
+    if z_vals.device.type == "cpu":
+        x = _ray_points(rays_o, rays_d, z_vals)
+        return (bwd_recompute_reference(kp, x, viewdirs, S)._replace(raw=None),
+                bwd_chain_reference(kp, x, viewdirs, S, g_planes.reshape(4, R * S).T))
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {z_vals.device}")
+    ro, rd, vd, z, gp = (t.contiguous() for t in (rays_o, rays_d, viewdirs, z_vals, g_planes))
+    return _launch_chain(kp, "nerf_fused_mlp_bwd_chain",
+                         (ro.data_ptr(), rd.data_ptr(), vd.data_ptr(), z.data_ptr(), gp.data_ptr(),
+                          R, S), R * S, S, z_vals, False, blobs)
 
 
 def fused_rays_planes_bwd(
@@ -957,6 +1190,7 @@ def fused_points_bwd(
     _raise_on(lib, err, "fused_mlp_bwd_points")
     fused_points_bwd.launches += 1
     bwd_recompute.launches += use_bf16
+    bwd_chain.launches += use_bf16
     return _unpack_grads(out, W, Fp, Fv), dx, dv
 
 

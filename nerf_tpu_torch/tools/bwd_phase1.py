@@ -1,8 +1,8 @@
 """Phase 1 of the fused MLP backward on the card, the two bf16 launches in
 ``csrc/fused_mlp_bwd.cu`` that K4, K3 and K6 all make: the recompute
 (``bwd_recompute_sm90``, K1's tile writing the activations' workspace rows
-and relu mask words) and the cotangent chain (``bwd_tile_bf16``, reading the
-mask words). Its outputs, to show that two builds give bit-identical grads,
+and relu mask words) and the cotangent chain (``bwd_chain_sm90``, on that
+tile's TMA ring and wgmma warpgroups, reading the mask words). Its outputs, to show that two builds give bit-identical grads,
 and its time by launch at the training shapes.
 
     python -m nerf_tpu_torch.tools.bwd_phase1 save OUT.pt
@@ -73,7 +73,7 @@ CASES = (
 )
 # K4's launches by kernel name, in order after its partials' clear
 # ("Memset"): phase 1's recompute and chain, phase 2, phase 3 and its sums
-K4_LAUNCHES = ("bwd_recompute_sm90", "bwd_tile_bf16", "ray_prep", "wgrad_bf16", "reduce_splits",
+K4_LAUNCHES = ("bwd_recompute_sm90", "bwd_chain_sm90", "ray_prep", "wgrad_bf16", "reduce_splits",
                "reduce_tiles", "Memset")
 WARMUP, REPS = 3, 10
 
@@ -149,13 +149,17 @@ def compare(a: str, b: str) -> int:
             n += 1
             if not torch.equal(t, B[case][name]):
                 d = float((t - B[case][name]).abs().max())
-                print(f"{case} {name}: not bit-identical (max abs {d:.3e})")
+                scale = float(B[case][name].abs().max())
+                print(f"{case} {name}: not bit-identical (max abs {d:.3e}, "
+                      f"{d / max(scale, 1e-30):.3e} of its largest magnitude)")
                 differ.setdefault(case, []).append(name)
     # K6's cases hold K5's outputs and run K6 on K5's raw: they differ
     # wherever the two builds' K5 differ
     k6 = sorted(c for c in differ if c.startswith("K6"))
+    names = sorted({name for names in differ.values() for name in names})
     print(json.dumps({"bit_identical": not differ, "cases": len(A), "tensors": n,
-                      "k6_cases_differing": k6,
+                      "tensors_differing": sum(len(v) for v in differ.values()),
+                      "names_differing": names, "k6_cases_differing": k6,
                       "other_cases_differing": sorted(c for c in differ if c not in k6)}))
     return 1 if differ else 0
 

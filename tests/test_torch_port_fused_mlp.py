@@ -37,6 +37,14 @@ BF16_MEASURED_TOL = 2e-3
 # next layers' sums, adds where a value is small; that excess measured up to
 # 2.0e-4 here (h4, R=5, S=16).
 ROWS_ULP, ROWS_ULP_ATOL = 2.0 ** -7, 2.0 ** -11
+# the chain's grads (phase 3's products over its plain rows), dx and dv
+# against nerf_tpu's _mlp_backward_math on the same recompute rows and g,
+# per-leaf relative L2: f32 sums in another order only (measured up to
+# 2.2e-7, W4); in bf16 also a cotangent whose f32 sum lies at a rounding
+# edge rounds to the other neighbour, and that ulp moves on through the
+# later layers (measured up to 3.9e-6, dx). Bounds ~10x.
+CHAIN_JAX_F32_TOL = 2e-6
+CHAIN_JAX_BF16_TOL = 4e-5
 
 
 @pytest.fixture(scope="module")
@@ -322,3 +330,123 @@ def test_packed_params_kept_until_a_parameter_changes():
     assert kp2 is not kp
     for k, v in ref.items():
         torch.testing.assert_close(kp2[k], v, rtol=0, atol=0)
+
+
+def _chain_case(mlp, spr, dtype, input_grads=False, seed=0):
+    """(kp, x, v, g, the recompute's and the chain's plain rows) on 208
+    points (a ragged last 64-point part), g one-signed as a loss's."""
+    rng = np.random.default_rng(seed + spr)
+    x = torch.from_numpy(rng.standard_normal((16 * 13, 3)).astype(np.float32))
+    v = torch.nn.functional.normalize(
+        torch.from_numpy(rng.standard_normal((16 * 13 // spr, 3)).astype(np.float32)), dim=-1)
+    g = torch.from_numpy(((0.5 + rng.random((16 * 13, 4))) * 1e-2).astype(np.float32))
+    before = fused_mlp.bwd_chain.launches
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(mlp, PE_P, PE_V, dtype)
+        rec, chain = fused_mlp.bwd_chain(kp, x, v, spr, g, input_grads)  # CPU: the plain versions
+    assert fused_mlp.bwd_chain.launches == before and rec.raw is None
+    return kp, x, v, g, rec, chain
+
+
+def _atd(kp, rec, chain, spr):
+    """Every weight grad as the backward's phase 3 takes it, aᵀd over the
+    rows (make_probs in csrc/fused_mlp_bwd.cu), and the bias grads as the
+    sums of the parts (reduce_tiles)."""
+    W = kp["W1"].shape[0]
+    ep, ev = kp["W05e"].shape[0], kp["Wve"].shape[0]
+    r, d = rec.rows, chain.rows
+    dhv_ray = fused_mlp.round_to(chain.dhv32.reshape(-1, spr, W // 2).sum(1), kp["W1"].dtype)
+    grads = {"W05e": r["e"][:ep] @ torch.cat([d["d0"], d["d5"]]).T,
+             **{f"W{i}": r[f"h{i - 1}"] @ d[f"d{i}"].T for i in range(1, 8)},
+             "Wf": r["h7"] @ d["dfeat"].T, "Wvf": r["feat"] @ d["dhv"].T,
+             "Wve": r["ev"][:ev] @ dhv_ray if "ev" in r else None,
+             "Wout": torch.cat([r["hv"] @ d["gc"].T, r["h7"] @ d["gc"].T])}
+    grads.update({k: t.sum(0, keepdim=True) for k, t in chain.bias.items()})
+    return grads
+
+
+@pytest.mark.parametrize("spr", [1, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_layers_reference_reads_the_rows_given(nets, spr, dtype):
+    """Fed the plain chain's own rows and the recompute's mask words (columns
+    past N, as a kernel's padded tile leaves them, ignored), each block's
+    one product gives the rows, the f32 d_hv, the bias parts and the input
+    grads back bit for bit; fed a row that differs, only the block whose
+    product reads it follows."""
+    _, mlp = nets
+    kp, x, v, g, rec, chain = _chain_case(mlp, spr, dtype, input_grads=True)
+    pad = lambda t, value: torch.nn.functional.pad(t, (0, 48), value=value)  # noqa: E731
+    rows = {k: pad(t, float("nan")) for k, t in chain.rows.items()}
+    masks = pad(rec.masks, -1)
+    with torch.no_grad():
+        lay = fused_mlp.chain_layers_reference(kp, rows, masks, g, spr, x, v)
+        assert sorted(lay.rows) == sorted(chain.rows) == sorted(fused_mlp.chain_ws_rows(128))
+        for name, t in chain.rows.items():
+            assert torch.equal(lay.rows[name], t), name
+        assert torch.equal(lay.dhv32, chain.dhv32)
+        for name, t in chain.bias.items():
+            assert t.shape == (4, t.shape[1]) and torch.equal(lay.bias[name], t), name
+        assert torch.equal(lay.dx, chain.dx)
+        assert (lay.dv is None) == (spr > 1) and (spr > 1 or torch.equal(lay.dv, chain.dv))
+        rows["d3"] = rows["d3"] * 2
+        moved = fused_mlp.chain_layers_reference(kp, rows, masks, g, spr)
+    assert not torch.equal(moved.rows["d2"], chain.rows["d2"])
+    assert all(torch.equal(moved.rows[k], chain.rows[k]) for k in chain.rows if k != "d2")
+
+
+@pytest.mark.parametrize("spr", [1, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_rows_give_the_backward_grads(nets, spr, dtype):
+    """Phase 3's products aᵀd over the recompute's and the chain's plain rows,
+    and the sums of the chain's bias parts, are the plain backward's grads
+    (up to the f32 sums' order), and its dx and dv the chain's."""
+    _, mlp = nets
+    kp, x, v, g, rec, chain = _chain_case(mlp, spr, dtype, input_grads=True)
+    with torch.no_grad():
+        want, dx, dv = fused_mlp._backward(kp, x, v, spr, g, True)
+    got = _atd(kp, rec, chain, spr)
+    assert sorted(got) == sorted(want)
+    for name, t in want.items():
+        ref = got[name] if got[name] is not None else None
+        if name == "Wve" and spr > 1:  # per ray: ev's rows are the ray_prep launch's
+            continue
+        torch.testing.assert_close(ref, t, rtol=1e-5, atol=1e-6 * float(t.abs().max()), msg=name)
+    assert torch.equal(dx, chain.dx) and torch.equal(dv, chain.dv)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_chain_reference_matches_jax(nets, dtype):
+    """The chain's plain rows, through phase 3's products, against nerf_tpu's
+    _mlp_backward_math fed the port's own recompute rows (embeddings
+    included: nerf_tpu's bf16 posenc is a polynomial) and the same g: the
+    weight and bias grads, dx and dv. A ragged 231 points, a direction per
+    point."""
+    params, mlp = nets
+    R, S, spr = 3, 77, 1
+    x, v = _clear_points(mlp, R, S, spr)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    g = ((0.5 + np.random.default_rng(7).random((R * S, 4))) * 1e-2).astype(np.float32)
+    xt, vt, gt = torch.from_numpy(x), torch.from_numpy(v), torch.from_numpy(g)
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(mlp, PE_P, PE_V, tdt)
+        rec = fused_mlp.bwd_recompute_reference(kp, xt, vt, spr)
+        chain = fused_mlp.bwd_chain_reference(kp, xt, vt, spr, gt, input_grads=True)
+    got = _atd(kp, rec, chain, spr)
+    jkp = jfused.pack_params(params, JCFG, JPE_P, JPE_V, jdt)
+    _, sp, cp = jfused._embed_pts(jnp.asarray(x), jkp, jdt)
+    _, sv, cv = jfused._embed_views(jnp.asarray(v), jkp, jdt)
+    same = lambda t, n: jnp.asarray(t[:n].T.float().numpy()).astype(jdt)  # noqa: E731
+    e, ev = same(rec.rows["e"], 63), same(rec.rows["ev"], 27)
+    h, acts = jfused._trunk_forward(e, jkp, jdt, keep_acts=True)
+    _, feat, hv = jfused._head_forward(h, ev, jkp, jdt, W, spr)
+    accs, jdx, jdv = jfused._mlp_backward_math(jkp, jdt, W, 10, 4, spr, e, sp, cp, ev, sv, cv,
+                                               acts, h, feat, hv, jnp.asarray(g))
+    tol = CHAIN_JAX_F32_TOL if dtype == "float32" else CHAIN_JAX_BF16_TOL
+    for name, t in got.items():
+        ref = np.asarray(accs[f"d{name}"], np.float32)
+        err = float(np.linalg.norm(t.numpy()[: ref.shape[0]] - ref) / np.linalg.norm(ref))
+        assert err <= tol, (name, err)
+    for t, ref in ((chain.dx, jdx), (chain.dv, jdv)):
+        ref = np.asarray(ref, np.float32)
+        err = float(np.linalg.norm(t.numpy() - ref) / np.linalg.norm(ref))
+        assert err <= tol, err

@@ -190,6 +190,90 @@ def test_bwd_recompute_is_the_forward_tile(cuda_device, width, mode):
     assert mask_share <= RECOMPUTE_MASK_SHARE, mask_share
 
 
+# the chain's blocks against each block's one product on the kernel's own
+# inputs (chain_layers_reference), with chip_smoke.py's bounds (measured
+# there): both round the same operands and differ only where an f32 sum in
+# another order lands on the other side of a bf16 rounding edge (one ulp of
+# the larger side), plus the sums' own difference where a cotangent is
+# small beside its block's largest, CHAIN_ULP_ATOL of that; at most
+# CHAIN_LAYER_SHARE of a case's elements, all blocks pooled, differ. f32
+# results (d_hv, the bias parts, dx, dv) lie within CHAIN_F32_REL (relative
+# L2) of theirs.
+CHAIN_ULP, CHAIN_ULP_ATOL = 2.0 ** -7, 2.0 ** -20
+CHAIN_LAYER_SHARE, CHAIN_F32_REL = 2e-3, 2e-6
+# (mode, R, S, spr, input grads): 1, 127, 129 and 33,984 points (the tile's
+# edges and the persistent wrap), a direction per ray and per point
+CHAIN_CASES = (("rays", 1, 1, 1, False), ("rays", 7, 43, 43, False),
+               ("rays", 531, 64, 64, False), ("points", 127, 1, 1, True),
+               ("points", 129, 1, 1, False), ("points", 3, 43, 43, True),
+               ("points", 531, 64, 1, True), ("points", 531, 64, 64, False))
+
+
+def _chain_launch(kp, case, dev):
+    """(the recompute and chain launch's outputs, x, v, g [N, 4]) of a case."""
+    mode, R, S, spr, input_grads = case
+    if mode == "rays":
+        ro, rd, vd, z = _rays(R * S + 11, R, S, dev)
+        gp = (0.5 + torch.rand(4, R, S, device=dev)) * 1e-4
+        out = fused_mlp.bwd_chain_rays(kp, ro, rd, vd, z, gp)
+        return out, fused_mlp._ray_points(ro, rd, z), vd, gp.reshape(4, -1).T.contiguous()
+    x, v = _points(R * S + 11, R, S, spr, dev)
+    g = (0.5 + torch.rand(R * S, 4, device=dev)) * 1e-4
+    return fused_mlp.bwd_chain(kp, x, v, spr, g, input_grads), x, v, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("case", CHAIN_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_bwd_chain_matches_its_layers(cuda_device, width, case):
+    """The chain's gate: the bf16 backward's recompute and chain launches
+    (K4's and K3's first two) write every block within a bf16 ulp of its one
+    product on the kernel's own inputs, zeros past the points (the workspace
+    is NaN before), the f32 d_hv, bias parts and input grads close to
+    theirs; two launches bit-identical."""
+    mlp = NeRFMLP(MLPConfig(width=width), seed=width + 7, device=cuda_device)
+    kp = fused_mlp.pack_params(mlp, PE_P, PE_V, torch.bfloat16)
+    torch.manual_seed(width)
+    before = fused_mlp.bwd_chain.launches
+    (rec, got), x, v, g = _chain_launch(kp, case, cuda_device)
+    torch.manual_seed(width)
+    (_, again), _, _, _ = _chain_launch(kp, case, cuda_device)
+    torch.cuda.synchronize()
+    assert fused_mlp.bwd_chain.launches == before + 2
+    spr, n = case[3], x.shape[0]
+    lay = fused_mlp.chain_layers_reference(kp, got.rows, rec.masks, g, spr,
+                                           x if case[4] else None, v)
+    differ, total = 0, 0
+    for name, rows in got.rows.items():
+        assert _same_bits(rows, again.rows[name]), name
+        assert bool((rows[:, n:] == 0).all()), name  # the padded points, NaN before
+        ref, r = lay.rows[name], rows[:, :n].float()
+        d = (r - ref).abs()
+        excess = float((d - CHAIN_ULP * torch.maximum(r.abs(), ref.abs())).max())
+        scale = float(ref.abs().max())
+        differ, total = differ + int((d > 0).sum()), total + d.numel()
+        print(f"chain W={width} {case} {name}: excess over an ulp {excess:.3e} "
+              f"({excess / max(scale, 1e-30):.2e} of the block's max {scale:.3e}), "
+              f"share {float((d > 0).float().mean()):.2e}")  # with -s
+        assert scale > 0 and excess <= CHAIN_ULP_ATOL * scale, (name, excess, scale)
+    assert differ <= CHAIN_LAYER_SHARE * total, (differ, total)
+    f32 = {f"bias.{k}": (t, lay.bias[k]) for k, t in got.bias.items()}
+    if spr > 1:
+        f32["dhv32"] = (got.dhv32, lay.dhv32)
+    if case[4]:
+        f32["dx"] = (got.dx, lay.dx)
+    if got.dv is not None:
+        f32["dv"] = (got.dv, lay.dv)
+    assert (got.dv is not None) == (case[4] and spr == 1)
+    for name, (t, ref) in f32.items():
+        other = again.bias[name[5:]] if name.startswith("bias.") else getattr(again, name)
+        assert _same_bits(t, other), name
+        assert bool((t[ref.shape[0]:] == 0).all()), name  # the padded points' parts and rows
+        err = _rel_l2(t[: ref.shape[0]], ref)
+        print(f"chain W={width} {case} {name}: relative L2 {err:.3e}")
+        assert err <= CHAIN_F32_REL, (name, err)
+
+
 @pytest.mark.cuda
 def test_fused_query_differentiates_through_k4(cuda_device):
     cfg = MLPConfig(width=256)
