@@ -15,11 +15,14 @@ Phases, one line each (any failure exits non-zero):
    prints each instantiation of K1's and K2's bf16 forward
    (``fwd_bf16_sm90``), of K5's (``render_bf16_sm90``), of the backward's
    recompute (``bwd_recompute_sm90``, with and without raw), all on one
-   tile, and of the backward's cotangent chain (``bwd_chain_sm90``, that
-   tile's ring and warpgroups) with its registers, stack and spill bytes
+   tile, of the backward's cotangent chain (``bwd_chain_sm90``, that tile's
+   ring and warpgroups) and of K7's nine probe bodies (``probe_sm90``, that
+   tile or its pieces) with its registers, stack and spill bytes
    (cuobjdump -res-usage, ptxas) and its HGMMA, UTMALDG, HMMA and STG.E.128
    counts; fails on a spill, and unless these issue wgmma and TMA loads and
-   no mma.sync;
+   no warp-level MMA (HMMA); K6's compositing pass (``composite_bwd``, a
+   warp per ray, staged and not) with its registers and spills; fails if
+   any kernel of the four libraries holds an HMMA;
 3. kernel: K1 against its plain PyTorch version at the full 8x256 width,
    in f32 and bf16;
 4. render: renders the first 3 poses of the 40-pose orbit at the lego
@@ -82,25 +85,30 @@ compositing in the kernel, K6 its backward), at 64+128 on both levels:
    background on and off, sigma noise on; K5 twice and once serving (no
    raw planes), bit-identical; K6 with one-signed cotangents on all four
    maps, twice, bit-identical; and K6's two halves apart: the compositing
-   backward's cotangent of raw against its plain version (f32), and K4's
-   phases on the plain cotangent against the plain weight grads of it;
-   K5's raw equal to K1's on the same inputs in both dtypes (one tile
-   body);
+   backward's cotangent of raw against its plain version (f32, within
+   ``COMPOSITE_F32_TOL``) and twice, bit-identical, and K4's phases on the
+   plain cotangent against the plain weight grads of it; K5's raw equal to
+   K1's on the same inputs in both dtypes (one tile body); K6's counter
+   moves by 2 and its compositing pass's by 4 (K6's and the halves');
 15. render: phase 4 with ``fused_render``: 10 K5 launches a frame and no
    other kernel;
 16. train / grads: phases 7 and 8 with ``fused_render`` on the same views:
-   2 K5 and 2 K6 launches a step and none of K1-K4;
-17. k5_times / k6_times: K5 per chunk (serving) beside K1 on the same
-   inputs, and K6 per step, beside their bounds, plain versions and library
-   chains.
+   2 K5 and 2 K6 launches a step (each K6 one compositing pass) and none of
+   K1-K4; the profile splits out the compositing pass;
+17. k5_times / k6_times / composite_times: K5 per chunk (serving) beside K1
+   on the same inputs, and K6 per step, beside their bounds, plain versions
+   and library chains; K6's compositing pass alone per step beside its byte
+   bound and plain version.
 The probe path (K7, ``python -m nerf_tpu_torch.tools.probe_overlap``) and
 the user's entry path (``cli.train`` / ``cli.render`` on a blender scene):
 18. probe: each of K7's nine bodies (the script's eight and ``products``)
    against its plain version at 8x256 on 192 tiles of 128 points (one
-   launch each), then the tool's ``main`` at 786,432 points: 1 + 30
-   launches a body, its time the median of 5 windows of 6, beside its
+   launch each), ``full``'s channels 0..3 equal to K2's raw on the same
+   blob (it is K1's tile), then the tool's ``main`` at 786,432 points: 1 +
+   30 launches a body, its time the median of 5 windows of 6, beside its
    bound and plain version, ``matmul_only`` beside its ``torch.matmul``
-   chain;
+   chain, and lockstep over ping-pong (``bias_relu / interleaved``,
+   ``embed_trunk / embed_trunk_il``);
 19. cli train: phase 7's teacher views written as an 800x800 RGBA blender
    scene (6 train, 1 val, 1 test; PNGs through ``write_png``), then
    ``cli.train.main`` with configs/lego.txt (half_res, 64+128, N_rand
@@ -115,8 +123,9 @@ the user's entry path (``cli.train`` / ``cli.render`` on a blender scene):
    steps, and ``cli.render.main --render_test`` renders the test view from
    the .tar it saved, with a finite PSNR and the video.
 
-The last two lines are a JSON object of kernel numbers (K1-K7 and the
-backward's recompute and chain launches) and the
+The last two lines are a JSON object of kernel numbers (K1-K7, the
+backward's recompute and chain launches, K6's compositing pass, and K7's
+``matmul_only`` beside its library chain) and the
 ``{"ok": true, "device": ...}`` result. Weights are random, from seeds.
 The script imports nothing of JAX or of ``nerf_tpu``.
 """
@@ -246,8 +255,9 @@ SINCOS_STACK = 32
 
 
 def counters():
-    """The launch counters of K1-K7 and of the bf16 backward's recompute and
-    chain launches (K4's, K3's and K6's first two), by name."""
+    """The launch counters of K1-K7, of the bf16 backward's recompute and
+    chain launches (K4's, K3's and K6's first two) and of K6's compositing
+    pass, by name."""
     from nerf_tpu_torch.experimental import fused_render
     from nerf_tpu_torch.ops import fused_mlp
     from nerf_tpu_torch.tools import probe_overlap
@@ -256,12 +266,15 @@ def counters():
             "K3": fused_mlp.fused_points_bwd, "K4": fused_mlp.fused_rays_planes_bwd,
             "K5": fused_render.fused_render_fwd, "K6": fused_render.fused_render_bwd,
             "K7": probe_overlap.probe, "recompute": fused_mlp.bwd_recompute,
-            "chain": fused_mlp.bwd_chain}
+            "chain": fused_mlp.bwd_chain, "composite": fused_render.composite_bwd}
 
 
 def reset_counts() -> None:
+    from nerf_tpu_torch.tools import probe_overlap
+
     for fn in counters().values():
         fn.launches = 0
+    probe_overlap.probe.by_body = dict.fromkeys(probe_overlap.BODIES, 0)
 
 
 def read_counts():
@@ -329,11 +342,24 @@ def ptxas_spills(log: str, function: str) -> dict:
             if function in m.group(1)}
 
 
-def instantiations(source: str, function: str, opcodes, expected: int = 4) -> dict:
-    """Each of the ``expected`` instantiations (RaysIn / PointsIn x W = 128 /
-    256, and a bool template argument, as the recompute's raw; a kernel
-    without an input-mode parameter reads rays) of
-    ``function`` in csrc/<source>.cu's built library, one line each: its
+def in_w_label(name: str) -> str:
+    """An instantiation's template arguments from its mangled name: RaysIn /
+    PointsIn x W = 128 / 256, and a bool template argument, as the
+    recompute's raw (a kernel without an input-mode parameter reads rays)."""
+    inst = f"{'PointsIn' if 'PointsIn' in name else 'RaysIn'},W={256 if 'Li256E' in name else 128}"
+    return inst + (",raw" if "Lb1E" in name else "")
+
+
+def first_arg_label(name: str) -> str:
+    """A kernel's one int or bool template argument (K7's body, K6's pass
+    staged or not) from its mangled name."""
+    return re.search(r"IL[ib](\d+)E", name).group(1)
+
+
+def instantiations(source: str, function: str, opcodes, expected: int = 4,
+                   label=in_w_label) -> dict:
+    """Each of the ``expected`` instantiations of ``function`` in
+    csrc/<source>.cu's built library, named by ``label``, one line each: its
     registers, stack and spill bytes (cuobjdump -res-usage, ptxas) and how
     often each of ``opcodes`` appears in its SASS. Fails on a spill or a
     frame beyond the trig's. Returns the opcode counts by instantiation."""
@@ -349,8 +375,7 @@ def instantiations(source: str, function: str, opcodes, expected: int = 4) -> di
     found = {}
     for name, u in sorted(usage.items()):
         spill = spills[name]  # (store, load) bytes
-        inst = f"{'PointsIn' if 'PointsIn' in name else 'RaysIn'},W={256 if 'Li256E' in name else 128}"
-        inst += ",raw" if "Lb1E" in name else ""
+        inst = label(name)
         phase("sass", kernel=f"{function}<{inst}>", regs=u["REG"], stack_bytes=u["STACK"],
               local_bytes=u["LOCAL"], spill_store_load_bytes=spill, **ops[name])
         if u["STACK"] > SINCOS_STACK or u["LOCAL"] or any(spill):
@@ -446,15 +471,27 @@ def main() -> int:
     # on one tile, and the backward's chain on that tile's ring and
     # warpgroups: wgmma and TMA loads, and no mma.sync (and their 16-byte
     # global stores: the workspace rows)
-    for source, function, expected in (("fused_mlp_fwd", "fwd_bf16_sm90", 4),
-                                       ("fused_render", "render_bf16_sm90", 2),
-                                       ("fused_mlp_bwd", "bwd_recompute_sm90", 8),
-                                       ("fused_mlp_bwd", "bwd_chain_sm90", 4)):
+    # (K7's nine bodies, each on that tile or its pieces, by body number)
+    for source, function, expected, label in (
+            ("fused_mlp_fwd", "fwd_bf16_sm90", 4, in_w_label),
+            ("fused_render", "render_bf16_sm90", 2, in_w_label),
+            ("fused_mlp_bwd", "bwd_recompute_sm90", 8, in_w_label),
+            ("fused_mlp_bwd", "bwd_chain_sm90", 4, in_w_label),
+            ("probe_overlap", "probe_sm90", 9, first_arg_label)):
         for inst, ops in instantiations(source, function,
                                         ("HGMMA", "UTMALDG", "HMMA", "STG.E.128"),
-                                        expected).items():
+                                        expected, label).items():
             if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"]:
                 raise RuntimeError(f"{function}<{inst}> is not the wgmma + TMA tile: {ops}")
+    # K6's compositing pass, staged (<1>) and in device memory (<0>)
+    instantiations("fused_render", "composite_bwd", ("HMMA",), 2, first_arg_label)
+    # no warp-level MMA left in any kernel of the port's libraries
+    hmma = {name: ops["HMMA"] for source in sources
+            for name, ops in sass_counts(_build._lib_path(source), "", ("HMMA",)).items()
+            if ops["HMMA"]}
+    phase("sass", kernels_with_hmma=len(hmma))
+    if hmma:
+        raise RuntimeError(f"kernels still issue HMMA: {hmma}")
 
     # 3. kernel against its plain version at full width
     cfg = MLPConfig(width=WIDTH)
@@ -544,13 +581,13 @@ def main() -> int:
     k2, k3 = k23_times(cfg, pe_pts, pe_views, render63["rays"], k2_errs, dev)
 
     # 14.-17. the fused-render path at 64+128
-    k5_errs, k6_errs = check_k56(coarse, pe_pts, pe_views, rng, dev)
+    k5_errs, k6_errs, composite_errs = check_k56(coarse, pe_pts, pe_views, rng, dev)
     model_fr = dataclasses.replace(model, fused_render=True)
     render_fr = render_phase(nets, model_fr, scene, N_SAMPLES, "K5", dev)
     train_fr = train_phase(scene, dev, N_SAMPLES, "K5", "K6", views=train_info["views"],
                            fused_render=True)
     step_grads_phase(train_fr, dev)
-    k5, k6 = k56_times(cfg, pe_pts, pe_views, render["rays"], dev)
+    k5, k6, composite = k56_times(cfg, pe_pts, pe_views, render["rays"], dev)
 
     # 18.-20. the probe path and the user's entry path
     k7 = probe_phase(dev)
@@ -566,6 +603,13 @@ def main() -> int:
             "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
             "library_ms": t["library_ms"],
         }
+
+    def probe_row(name, launches, r):
+        return {"name": name, "route": "cuda", "source": "nerf_tpu_torch/csrc/probe_overlap.cu",
+                "replaces": "tools/probe_overlap.py:79,181", "launches": launches,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]}
 
     kernels = [
         # serving's 30 (3 frames) plus training's 60 (30 steps); bf16 max abs
@@ -608,14 +652,23 @@ def main() -> int:
         # training step (S=64 + S=192)
         row("fused_render_bwd", "fused_render.cu", "nerf_tpu/experimental/fused_render.py:182",
             train_fr["counts"]["K6"], max(k6_errs), k6),
+        # K6's compositing pass (its first launch), both levels: the
+        # fused-render training's 60; max abs of the cotangent of raw over
+        # phase 14 (f32 on both sides); ms per training step (S=64 + S=192);
+        # no one PyTorch call computes it
+        {"name": "composite_bwd", "route": "cuda",
+         "source": "nerf_tpu_torch/csrc/fused_render.cu",
+         "replaces": "nerf_tpu/experimental/fused_render.py:213",
+         "launches": train_fr["counts"]["composite"], "max_abs_err": max(composite_errs),
+         "ms": composite["ms"], "plain_ms": composite["plain_ms"],
+         "bound_ms": composite["bytes_ms"], "bound_by": "bytes", "library_ms": None},
         # the probe tool's 9 x (1 + 30) launches; the full body (K1's whole
         # tile) at 786,432 points: its max abs error, ms, plain ms and bound;
-        # no one PyTorch call computes it (matmul_only's chain: PERF.md)
-        {"name": "probe_overlap", "route": "cuda", "source": "nerf_tpu_torch/csrc/probe_overlap.cu",
-         "replaces": "tools/probe_overlap.py:79,181", "launches": k7["launches"],
-         "max_abs_err": k7["full"]["max_abs_err"], "ms": k7["full"]["ms"],
-         "plain_ms": k7["full"]["plain_ms"], "bound_ms": k7["full"]["bound_ms"],
-         "bound_by": k7["full"]["bound_by"], "library_ms": None},
+        # no one PyTorch call computes it
+        probe_row("probe_overlap", k7["launches"], k7["full"]),
+        # its matmul_only body's 1 + 30, beside the 8 bf16 torch.matmul
+        probe_row("probe_overlap_matmul_only", k7["by_body"]["matmul_only"],
+                  k7["matmul_only"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -996,9 +1049,11 @@ def train_phase(scene, dev, n_samples: int, fwd: str, bwd: str, views=None,
         raise RuntimeError("non-finite training loss")
     # the bf16 backward's first two launches, the recompute and the chain,
     # a backward each
-    check_counts(counts, {fwd: 2 * TIMED_STEPS, bwd: 2 * TIMED_STEPS,
-                          "recompute": 2 * TIMED_STEPS, "chain": 2 * TIMED_STEPS},
-                 f"{TIMED_STEPS} steps at S={n_samples}")
+    want = {fwd: 2 * TIMED_STEPS, bwd: 2 * TIMED_STEPS, "recompute": 2 * TIMED_STEPS,
+            "chain": 2 * TIMED_STEPS}
+    if bwd == "K6":  # and K6's compositing pass, one a backward
+        want["composite"] = 2 * TIMED_STEPS
+    check_counts(counts, want, f"{TIMED_STEPS} steps at S={n_samples}")
     if not last < first:
         raise RuntimeError(f"the loss did not fall: {first} -> {last}")
     profile_report(prof, marks[end + PROFILED_STEPS] - marks[end], fwd, bwd)
@@ -1026,10 +1081,15 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str) -> None:
         g = next((g for g, keys in groups.items() if any(k in key for k in keys)), "other")
         share[g] += us
     wall_ms = 1e3 * seconds
+    # K6's compositing pass apart (within the backward's share)
+    apart = {}
+    if bwd == "K6":
+        apart["composite_bwd"] = sum(us for us, key, _ in rows if "composite_bwd" in key)
     phase("profile", steps=PROFILED_STEPS, wall_ms_per_step=f"{wall_ms / PROFILED_STEPS:.3f}",
           device_ms_per_step=f"{busy_us / 1e3 / PROFILED_STEPS:.3f}",
           idle_share=f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f}" if busy_us else "not measured",
-          **{f"{g}_ms_per_step": f"{v / 1e3 / PROFILED_STEPS:.3f}" for g, v in share.items()})
+          **{f"{g}_ms_per_step": f"{v / 1e3 / PROFILED_STEPS:.3f}"
+             for g, v in {**share, **apart}.items()})
     for us, key, count in sorted(rows, reverse=True)[:12]:
         print(f"  device {us / 1e3 / PROFILED_STEPS:8.3f} ms/step  x{count // PROFILED_STEPS:<4d} {key[:90]}",
               flush=True)
@@ -1380,14 +1440,15 @@ def check_maps(out, ref, tol: float, **fields) -> float:
 @torch.no_grad()
 def check_k56(mlp, pe_pts, pe_views, rng, dev):
     """14. K5 and K6 against their plain versions; returns the bf16 max abs
-    errors of K5's maps and of K6's weight grads."""
+    errors of K5's maps and of K6's weight grads, and the max abs errors of
+    K6's compositing pass (both dtypes)."""
     from nerf_tpu_torch.experimental import fused_render
     from nerf_tpu_torch.ops import fused_mlp
 
     shapes = [(R, S) for S in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE, 200)
               for R in (CHECK_RAYS, RAGGED_RAYS)]
     gen = torch.Generator(device=dev).manual_seed(5)
-    k5_errs, k6_errs = [], []
+    k5_errs, k6_errs, composite_errs = [], [], []
     halves = {"float32": [], "bfloat16": []}  # (K6 worst leaf, raw cotangent, K4's phases)
     k1_vs_k5 = {"float32": [], "bfloat16": []}  # (equal, max abs, share of elements differing)
     for dtype, tol, wtol in ((torch.float32, F32_TOL, K4_F32_TOL),
@@ -1432,11 +1493,14 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
                 # against the plain weight grads of that cotangent
                 planes = fused_render._launch_composite_bwd(out.raw, rays[1], rays[3], noise, *g,
                                                             white)
+                planes_same = same_bits(planes, fused_render._launch_composite_bwd(
+                    out.raw, rays[1], rays[3], noise, *g, white))
                 want = fused_render.composite_bwd_reference(out.raw, rays[1], rays[3], noise, *g,
                                                             white)
                 half = fused_mlp._launch_bwd(kp, *rays, want, None)
                 half_ref = fused_mlp.fused_rays_planes_bwd_reference(kp, *rays, want)
                 planes_err = rel_l2(planes, want)
+                planes_max_abs = float((planes - want).abs().max())
                 half_worst, half_leaf = max((rel_l2(half[n], half_ref[n]), n)
                                             for n in fused_mlp.KP_NAMES)
                 halves[dname].append((worst, planes_err, half_worst))
@@ -1450,26 +1514,32 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
                       k1_vs_k5_raw_max_abs=f"{k1_vs_k5[dname][-1][1]:.3e}",
                       k1_vs_k5_raw_share_differing=f"{k1_vs_k5[dname][-1][2]:.4f}",
                       raw_cotangent_rel_l2=f"{planes_err:.3e}",
+                      raw_cotangent_max_abs=f"{planes_max_abs:.3e}",
+                      raw_cotangent_bit_identical=planes_same,
                       k4_phases_on_plain_cotangent_rel_l2=f"{half_worst:.3e}",
                       k4_phases_leaf=half_leaf)
-                if not (finite and same and same_raw and k5_same and worst <= wtol
-                        and half_worst <= wtol and planes_err <= COMPOSITE_F32_TOL):
+                if not (finite and same and same_raw and k5_same and planes_same
+                        and worst <= wtol and half_worst <= wtol
+                        and planes_err <= COMPOSITE_F32_TOL):
                     raise RuntimeError(f"K6 or one of its halves disagrees with its plain "
                                        f"version, or K5 or K6 is not deterministic, or K5's raw "
                                        f"is not K1's: {leaf} {worst}, raw cotangent "
-                                       f"{planes_err}, K4's phases {half_worst}, same={same}, "
-                                       f"k5_same={k5_same}, raw={same_raw}")
+                                       f"{planes_err} (same={planes_same}), K4's phases "
+                                       f"{half_worst}, same={same}, k5_same={k5_same}, "
+                                       f"raw={same_raw}")
                 after = read_counts()
                 moved = {k: after[k] - before[k] for k in after}
                 # bf16: K6's two backwards and its halves' K4 phases each
-                # launch the recompute and the chain
+                # launch the recompute and the chain; K6's two backwards and
+                # the halves' two launch the compositing pass
                 recomputes = 3 if dtype == torch.bfloat16 else 0
                 if moved != {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 3, "K6": 2, "K7": 0,
-                             "recompute": recomputes, "chain": recomputes}:
+                             "recompute": recomputes, "chain": recomputes, "composite": 4}:
                     raise RuntimeError(f"the K5/K6 launch counters moved wrongly: {moved}")
                 if dtype == torch.bfloat16:
                     k5_errs.append(err)
                     k6_errs.append(max_abs)
+                composite_errs.append(planes_max_abs)
                 del out, ref, got, again, gref, planes, want, half, half_ref
             torch.cuda.empty_cache()
     for dname, rows in halves.items():  # the largest of each over the cases
@@ -1482,18 +1552,20 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
               mean_share_differing=f"{sum(share) / len(share):.4f}")
         if not all(equal):
             raise RuntimeError(f"K5's {dname} raw is not K1's")
-    return k5_errs, k6_errs
+    return k5_errs, k6_errs, composite_errs
 
 
 def k56_times(cfg, pe_pts, pe_views, rays, dev):
     """17. K5 at the serving chunk's shapes (32,768 rays of frame 0, S=64 and
     192, no noise, no raw kept) and K6 at the training step's (4,096 rays,
     with noise, from K5's raw), each beside its bound, its plain version and
-    the bf16 torch.matmul chain of the same products. Returns K5's numbers
-    per chunk and K6's per step."""
+    the bf16 torch.matmul chain of the same products; and K6's compositing
+    pass alone beside its byte bound and plain version. Returns K5's numbers
+    per chunk, K6's and the pass's per step."""
     from nerf_tpu_torch.experimental import fused_render
     from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
     from nerf_tpu_torch.ops import fused_mlp
+    from nerf_tpu_torch.utils.profiler import launch_split
 
     mlp = NeRFMLP(cfg, seed=6, device=dev)
     kp, blobs = fused_mlp.packed_params(mlp, pe_pts, pe_views, torch.bfloat16)
@@ -1503,7 +1575,7 @@ def k56_times(cfg, pe_pts, pe_views, rays, dev):
                                                    "Wvf"))
     gbytes = 4 * sum(v.numel() for v in kp.values())
     zero = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
-    k5, k6 = dict(zero), dict(zero)
+    k5, k6, comp = dict(zero), dict(zero), dict(zero)
     k1_ms = 0.0  # K1 on K5's inputs, beside it: what the compositing costs
     gen = torch.Generator(device=dev).manual_seed(6)
     ro, rd, vd = (t[:CHUNK] for t in rays)
@@ -1563,18 +1635,38 @@ def k56_times(cfg, pe_pts, pe_views, rays, dev):
         for k, t in (("ms", ms), ("plain_ms", plain_ms), ("ops_ms", ops_ms),
                      ("bytes_ms", bytes_ms), ("library_ms", library_ms)):
             k6[k] += t
+        # K6's compositing pass alone: raw, z, noise and g_w in and g out a
+        # point, rays_d and g_rgb/disp/acc a ray; no one PyTorch call
+        # computes it. Its ms is the profiler's device time: a launch takes
+        # ~10-20 us, less than the wrapper's host time, so CUDA events
+        # around back-to-back calls (events_ms) time the host
+        cargs = (raw, step[1], step[3], noise, *g, True)
+        ms = launch_split(lambda: fused_render._launch_composite_bwd(*cargs), ("composite_bwd",),
+                          reps=20, warmup=2)["composite_bwd"]
+        events_ms = cuda_ms(lambda: fused_render._launch_composite_bwd(*cargs), reps=20, warmup=2)
+        plain_ms = cuda_ms(lambda: fused_render.composite_bwd_reference(*cargs), reps=2)
+        bytes_ms = 1e3 * (n_pts * (16 + 4 + 4 + 4 + 16) + R * (12 + 12 + 4 + 4)) / PEAK_BYTES
+        phase("composite_times", R=R, S=S, points=n_pts, ms=f"{ms:.4f}",
+              events_ms=f"{events_ms:.4f}", bound_ms=f"{bytes_ms:.4f}",
+              plain_ms=f"{plain_ms:.3f}")
+        for k, t in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", bytes_ms)):
+            comp[k] += t
         del raw, g
         torch.cuda.empty_cache()
     phase("k5_vs_k1", per="32,768-ray chunk (S=64 + S=192)", k5_ms=f"{k5['ms']:.3f}",
           k1_ms=f"{k1_ms:.3f}", k5_minus_k1_ms=f"{k5['ms'] - k1_ms:.3f}",
           k5_over_k1=f"{k5['ms'] / k1_ms:.4f}", library_ms=f"{k5['library_ms']:.3f}")
-    return k5, k6
+    comp["library_ms"] = None
+    phase("composite_per_step", ms=f"{comp['ms']:.4f}", bound_ms=f"{comp['bytes_ms']:.4f}",
+          plain_ms=f"{comp['plain_ms']:.3f}")
+    return k5, k6, comp
 
 
 def probe_phase(dev):
-    """18. K7's bodies against their plain versions (one launch each), then
-    the probe tool at the script's size. Returns the tool's rows by body and
-    its launch count."""
+    """18. K7's bodies against their plain versions (one launch each), and
+    ``full`` (K1's tile) against K2 on the same blob, bit for bit; then the
+    probe tool at the script's size. Returns the tool's rows by body and its
+    launch counts, in all and by body."""
     from nerf_tpu_torch.tools import probe_overlap as P
 
     inp = P.make_inputs(npts=PROBE_CHECK_POINTS, seed=1).to(dev)
@@ -1595,6 +1687,14 @@ def probe_phase(dev):
             raise RuntimeError(f"K7 {body} disagrees with its plain version: {err} > {tol}")
         if not tol < spread:
             raise RuntimeError(f"K7 {body}: bound {tol} is not below the spread {spread}")
+        if body == "full":  # the gate: K7 times the production tile
+            k2 = P.k2_raw(inp)
+            full_is_k2 = torch.equal(out[:, :4], k2)
+            phase("probe_full_vs_k2", points=PROBE_CHECK_POINTS, equal=full_is_k2,
+                  max_abs=f"{float((out[:, :4] - k2).abs().max()):.3e}",
+                  channels_4_on_zero=not bool(out[:, 4:].any()))
+            if not full_is_k2 or bool(out[:, 4:].any()):
+                raise RuntimeError("K7's full is not K2's raw bit for bit, or not zero past it")
         del out, ref
     torch.cuda.empty_cache()
     reset_counts()
@@ -1611,8 +1711,20 @@ def probe_phase(dev):
           **{f"{b}_ms": f"{r['ms']:.3f}" for b, r in by_body.items()},
           **{f"{b}_vs_matmul_only": f"{r['ms'] / bare:.4f}" for b, r in by_body.items()},
           matmul_chain_ms=f"{by_body['matmul_only']['library_ms']:.3f}")
+    # what ping-pong buys on K1's tile: the same work in lockstep over it
+    phase("probe_lockstep_over_ping_pong",
+          **{f"{a}/{b}": f"{by_body[a]['ms'] / by_body[b]['ms']:.4f}"
+             for a, b in P.LOCKSTEP_OVER_PING_PONG})
+    # full is K2's tile plus the zero rows: K2 on the same inputs beside it
+    # (after the tool's counts) says what writing the rows costs
+    big = P.make_inputs().to(dev)
+    P.k2_raw(big)
+    k2_ms = cuda_ms(lambda: P.k2_raw(big), reps=P.REPS)
+    phase("probe_full_vs_k2_time", points=P.NPTS, full_ms=f"{by_body['full']['ms']:.3f}",
+          k2_ms=f"{k2_ms:.3f}", rows_ms=f"{by_body['full']['ms'] - k2_ms:.3f}")
+    del big
     torch.cuda.empty_cache()
-    return {"launches": counts["K7"], **by_body}
+    return {"launches": counts["K7"], "by_body": dict(P.probe.by_body), **by_body}
 
 
 class Tee:

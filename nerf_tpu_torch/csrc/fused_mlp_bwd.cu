@@ -72,14 +72,14 @@
 //     the partials. The rank-4 terms are no products: each consumer thread
 //     computes d_hv = (gc Wout[:W/2]^T) * (hv > 0) for exactly the elements
 //     of its m64n(W/2) fragment, and adds d_h7's gc Wout[W/2:]^T to the
-//     accumulators after the products, in the order the mma.sync chain
-//     added it. The relu masks are the recompute's words (MaskRows), two
+//     accumulators after the products, in the order the chain's earlier
+//     warp-MMA version added it. The relu masks are the recompute's words (MaskRows), two
 //     rows' W/32 a thread, loaded before the layer's products. The bias
 //     sums are f32 column sums over a warpgroup's 64 points (two rows a
 //     thread, a reduce-scatter over the 8 lanes that share a column, then
 //     the four warps through shared memory), written as one partial a
 //     warpgroup and tile (BIAS_PART). Each product sums chunk by chunk, 16
-//     K values at a time, in the mma.sync chain's K order. With input grads
+//     K values at a time, in that earlier version's K order. With input grads
 //     d_e runs as two more products (d0 from act, then d5 read back from
 //     its workspace rows, load_rows_sw) and dx per point; with a direction
 //     per point d_ev and dv come first, from d_hv. Bound by bytes: the rows

@@ -1,16 +1,11 @@
 // Building blocks shared by the fused NeRF MLP kernels (fused_mlp_fwd.cu:
-// K1 and K2, fused_mlp_bwd.cu: K4 and K3, fused_render.cu: K5): the two
-// input modes, the weight-blob layout, the posenc embedding and its
-// backward, the bf16 mma.sync layer with its cp.async weight ring, the f32
-// FMA layer, and the forward's tile bodies, which hand raw to a
-// caller-given sink. The f32 forwards run fwd_tile_f32; in bf16 K1, K2, K5
-// and the backward's recompute run fwd_tile_sm90.cuh's wgmma tile, which
-// sums each layer's products in the same K order as fwd_tile_bf16 here (on
-// an H100 the two tiles' bf16 raw differed only in the head's last f32
-// bits: PERF.md), and the backward's cotangent chain runs on that tile's
-// ring and wgmma too. The mma.sync code here (mma_layer, epilogue,
-// fwd_tile_bf16) serves K7's probes (probe_overlap.cu) alone: no
-// production kernel runs it.
+// K1 and K2, fused_mlp_bwd.cu: K4 and K3, fused_render.cu: K5, and K7's
+// probes in probe_overlap.cu): the two input modes, the weight-blob layout,
+// the posenc embedding and its backward, and the f32 forward tile
+// (fwd_tile_f32: FMA layers), which hands raw to a caller-given sink. In
+// bf16 every kernel runs fwd_tile_sm90.cuh's TMA + wgmma tile or its
+// pieces; the tile of warp-level MMAs (HMMA in SASS) that K1 ran before
+// it, and K7 last, is gone.
 
 #pragma once
 
@@ -88,10 +83,19 @@ __device__ __forceinline__ void view_of(const In& in, int p, float (&v)[3]) {
   for (int d = 0; d < 3; ++d) v[d] = in.v[size_t(r) * 3 + d];
 }
 
+// The embedding's trig: sincosf keeps its range reduction, since the phases
+// reach |x*2^9| ~ 3100, where __sinf/__cosf are wrong (built without
+// --use_fast_math). K7's probes swap in others (probe_overlap.cu).
+struct SinCos {
+  __device__ __forceinline__ void operator()(float xb, float& s, float& c) const {
+    sincosf(xb, &s, &c);
+  }
+};
+
 // One embedding row in kernel order [x | sin(x*2^f) f-major | cos], zero-padded
-// to K entries.
-template <typename T>
-__device__ void embed_row(const float (&x)[3], int F, int K, T* row) {
+// to K entries (trig(x*2^f, s, c) gives the sine and cosine).
+template <typename T, typename Trig = SinCos>
+__device__ void embed_row(const float (&x)[3], int F, int K, T* row, const Trig& trig = Trig()) {
 #pragma unroll
   for (int d = 0; d < 3; ++d) row[d] = from_f<T>(x[d]);
   for (int f = 0; f < F; ++f) {
@@ -99,9 +103,7 @@ __device__ void embed_row(const float (&x)[3], int F, int K, T* row) {
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       float s, c;
-      // sincosf keeps its range reduction: the phases reach |x*2^9| ~ 3100,
-      // where __sinf/__cosf are wrong. Built without --use_fast_math.
-      sincosf(__fmul_rn(x[d], scale), &s, &c);
+      trig(__fmul_rn(x[d], scale), s, c);
       row[3 + f * 3 + d] = from_f<T>(s);
       row[3 + 3 * F + f * 3 + d] = from_f<T>(c);
     }
@@ -192,244 +194,16 @@ __device__ void head_part(const T* h7, int ldh, const T* __restrict__ wout, floa
 
 // ---------------------------------------------------------------- bf16 path
 
-constexpr int TP = 128;  // points per CTA
-template <int W> struct Bf16Smem {
-  static constexpr int lda = W + 8;  // +8 bf16: conflict-free fragment loads
-  static constexpr int lde = KE + 8;
-  static constexpr int ldv = KV + 8;
-  static constexpr int ldw = KC + 8;
-  static constexpr size_t act = 0;
-  static constexpr size_t emb = act + size_t(TP) * lda * 2;
-  static constexpr size_t embv = emb + size_t(TP) * lde * 2;
-  static constexpr size_t wbuf = embv + size_t(TP) * ldv * 2;
-  static constexpr size_t part = wbuf + size_t(2) * W * ldw * 2;
-  static constexpr size_t bytes = part + size_t(TP) * 4 * 4;
-};
+constexpr int TP = 128;  // points of a bf16 tile (fwd_tile_sm90.cuh: two warpgroups of 64)
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gsrc) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gsrc) : "memory");
-}
+// cp.async commit groups (the cotangent chain copies its mask words with
+// cp.async, fused_mlp_bwd.cu).
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// One K segment of a layer: activations A [TP][lda] in shared memory times
-// weights Wg^T [N][K] in global memory.
-struct Seg {
-  const bf16* A;
-  int lda;
-  const bf16* Wg;
-  int K;
-};
-
-// Chunk c (KC wide; the last of s2 may be narrower) of a layer's K range
-// A1 W1 + A2 W2: its segment and first k.
-__device__ __forceinline__ void layer_chunk(const Seg& s1, const Seg& s2, int c, Seg& s, int& k0,
-                                            int& width) {
-  const int c1 = s1.K / KC;
-  if (c < c1) {
-    s = s1;
-    k0 = c * KC;
-    width = KC;
-  } else {
-    s = s2;
-    k0 = (c - c1) * KC;
-    width = min(KC, s2.K - k0);
-  }
-}
-__device__ __forceinline__ int layer_chunks(const Seg& s1, const Seg& s2) {
-  return s1.K / KC + (s2.K + KC - 1) / KC;
-}
-
-// cp.async of a chunk's N weight rows (k0 .. k0+width of Wg^T) into dst
-// (stride ldw), by all THREADS threads, as one commit group.
-template <int W, int N>
-__device__ __forceinline__ void load_chunk(const Seg& s, int k0, int width, bf16* dst) {
-  using L = Bf16Smem<W>;
-  const int pieces = width / 8;  // 16-byte pieces per weight row
-  for (int idx = threadIdx.x; idx < N * pieces; idx += THREADS) {
-    const int n = idx / pieces, j = idx - n * pieces;
-    cp_async16(dst + n * L::ldw + j * 8, s.Wg + size_t(n) * s.K + k0 + j * 8);
-  }
-  cp_async_commit();
-}
-
-// acc += one chunk's products: rows wm*64 .. +64 of s.A (k0 .. k0+width)
-// times the chunk's weights wsm in shared memory. Warps are laid out 2
-// (rows, 64 each: wm = warp / 4) x 4 (columns, NT*8 each).
-template <int W, int NT>
-__device__ __forceinline__ void mma_chunk(const Seg& s, int k0, int width, const bf16* wsm,
-                                          float (&acc)[4][NT][4]) {
-  using L = Bf16Smem<W>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-  for (int kk = 0; kk < width; kk += 16) {
-    uint32_t a[4][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const bf16* ap = s.A + (wm * 64 + mt * 16 + g) * s.lda + k0 + kk + 2 * t;
-      a[mt][0] = ld32(ap);
-      a[mt][1] = ld32(ap + 8 * s.lda);
-      a[mt][2] = ld32(ap + 8);
-      a[mt][3] = ld32(ap + 8 * s.lda + 8);
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const bf16* bp = wsm + (wn * NT * 8 + nt * 8 + g) * L::ldw + kk + 2 * t;
-      const uint32_t b0 = ld32(bp), b1 = ld32(bp + 8);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) mma16816(acc[mt][nt], a[mt], b0, b1);
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero_acc(float (&acc)[4][NT][4]) {
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-}
-
-// acc += the products of chunks 0 .. nchunks-1, chunk(c, s, k0, width)
-// naming each, through a double-buffered cp.async weight ring. Ends with a
-// barrier, so the caller may overwrite the A operands in place afterwards.
-template <int W, int NT, typename Chunk>
-__device__ void mma_chunks(int nchunks, const Chunk& chunk, bf16* wbuf, float (&acc)[4][NT][4]) {
-  using L = Bf16Smem<W>;
-  constexpr int N = NT * 32;
-  auto load = [&](int c) {
-    Seg s;
-    int k0, width;
-    chunk(c, s, k0, width);
-    load_chunk<W, N>(s, k0, width, wbuf + (c & 1) * W * L::ldw);
-  };
-  load(0);
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks) {
-      load(c + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    Seg s;
-    int k0, width;
-    chunk(c, s, k0, width);
-    mma_chunk<W, NT>(s, k0, width, wbuf + (c & 1) * W * L::ldw, acc);
-    __syncthreads();
-  }
-}
-
-// acc[TP x N] = A1 W1 + A2 W2 (f32 accumulators in registers), N = 32*NT,
-// the warps laid out as in mma_chunk. Ends with a barrier. K7's probes
-// only (ROADMAP B.7): every production bf16 kernel runs wgmma.
-template <int W, int NT>
-__device__ void mma_layer(Seg s1, Seg s2, bf16* wbuf, float (&acc)[4][NT][4]) {
-  zero_acc(acc);
-  mma_chunks<W, NT>(
-      layer_chunks(s1, s2),
-      [&](int c, Seg& s, int& k0, int& width) { layer_chunk(s1, s2, c, s, k0, width); }, wbuf,
-      acc);
-}
-
-// out[TP x N] = act(acc + bias), rounded to bf16 (kBias = false: no bias).
-// Each warp writes only its own rows and columns of out.
-template <int NT, bool kBias = true>
-__device__ void epilogue(float (&acc)[4][NT][4], const float* __restrict__ bias, bf16* out,
-                         int ldo, bool relu) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int row = wm * 64 + mt * 16 + g;
-      const int col = wn * NT * 8 + nt * 8 + 2 * t;
-      float v[4] = {acc[mt][nt][0], acc[mt][nt][1], acc[mt][nt][2], acc[mt][nt][3]};
-      if (kBias) {
-        const float b0 = bias[col], b1 = bias[col + 1];
-        v[0] += b0;
-        v[1] += b1;
-        v[2] += b0;
-        v[3] += b1;
-      }
-      if (relu)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) v[q] = fmaxf(v[q], 0.f);
-      *reinterpret_cast<__nv_bfloat162*>(out + row * ldo + col) = __floats2bfloat162_rn(v[0], v[1]);
-      *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * ldo + col) =
-          __floats2bfloat162_rn(v[2], v[3]);
-    }
-}
-
-// The forward of one tile of TP points p0 .. p0+TP-1 (K7's `full` probe
-// runs this body): posenc and the MLP, with raw of the points p < n_pts going
-// to sink(p, c, v). smem holds Bf16Smem<W>::bytes. A CTA may run it again
-// on another tile right away: the next tile's first write to a buffer
-// comes after a barrier that every read of this tile precedes.
-template <typename In, int W, typename Sink>
-__device__ void fwd_tile_bf16(const In& in, int n_pts, int Fp, int Fv, const bf16* __restrict__ wb,
-                              const float* __restrict__ bb, int p0, unsigned char* smem,
-                              const Sink& sink) {
-  using L = Bf16Smem<W>;
-  using O = Layout<W>;
-  bf16* act = reinterpret_cast<bf16*>(smem + L::act);
-  bf16* emb = reinterpret_cast<bf16*>(smem + L::emb);
-  bf16* embv = reinterpret_cast<bf16*>(smem + L::embv);
-  bf16* wbuf = reinterpret_cast<bf16*>(smem + L::wbuf);
-  float* part = reinterpret_cast<float*>(smem + L::part);
-
-  embed_tile<bf16>(in, n_pts, Fp, Fv, p0, TP, emb, L::lde, embv, L::ldv);
-  // (mma_layer's first barrier orders these writes before any read)
-  const Seg none = {nullptr, 0, nullptr, 0};
-  {  // layer 0: rows [0, W) of W05e^T
-    float acc[4][W / 32][4];
-    mma_layer<W, W / 32>({emb, L::lde, wb + O::w05, KE}, none, wbuf, acc);
-    epilogue<W / 32>(acc, bb, act, L::lda, true);
-  }
-  for (int i = 1; i < 8; ++i) {  // trunk; layer 5 adds e W5e (rows [W, 2W))
-    float acc[4][W / 32][4];
-    const Seg skip = i == 5 ? Seg{emb, L::lde, wb + O::w05 + size_t(W) * KE, KE} : none;
-    mma_layer<W, W / 32>({act, L::lda, wb + O::wi(i), W}, skip, wbuf, acc);
-    epilogue<W / 32>(acc, bb + i * W, act, L::lda, true);
-  }
-  __syncthreads();
-  head_part<bf16, W>(act, L::lda, wb + O::wout, part, TP);
-  {  // feature (no activation)
-    float acc[4][W / 32][4];
-    mma_layer<W, W / 32>({act, L::lda, wb + O::wf, W}, none, wbuf, acc);
-    epilogue<W / 32>(acc, bb + O::bf, act, L::lda, false);
-  }
-  {  // view layer: [feat | ev] -> W/2, into columns [0, W/2) of act
-    float acc[4][W / 64][4];
-    mma_layer<W, W / 64>({act, L::lda, wb + O::wvf, W}, {embv, L::ldv, wb + O::wve, KV}, wbuf,
-                         acc);
-    epilogue<W / 64>(acc, bb + O::bv, act, L::lda, true);
-  }
-  __syncthreads();
-  head<bf16, W>(act, L::lda, wb + O::wout, part, bb + O::bout, n_pts, p0, TP, sink);
 }
 
 // ----------------------------------------------------------------- f32 path
@@ -483,7 +257,9 @@ __device__ void dense_f32(const float* A1, int lda1, int K1, const float* __rest
   }
 }
 
-// fwd_tile_bf16's f32 counterpart: TP32 points, smem of F32Smem<W>::bytes.
+// The f32 forward of one tile of TP32 points p0 .. p0+TP32-1 (K1, K2 and
+// K5 in f32): posenc and the MLP, with raw of the points p < n_pts going to
+// sink(p, c, v). smem holds F32Smem<W>::bytes.
 template <typename In, int W, typename Sink>
 __device__ void fwd_tile_f32(const In& in, int n_pts, int Fp, int Fv, const float* __restrict__ wb,
                              const float* __restrict__ bb, int p0, unsigned char* smem,

@@ -38,11 +38,10 @@
 // two consumer warpgroups own 64 points each and run wgmma m64nNk16 (N = W,
 // W/2 for the view layer) with A, their activations, from shared memory in
 // the swizzled layout and B from the ring. What that does about the earlier
-// mma.sync tile (fused_mlp_common.cuh's fwd_tile_bf16, which only K7's
-// probes still run; K5 and the backward's recompute run this tile too,
-// fused_render.cu and fused_mlp_bwd.cu):
+// warp-MMA tile (since retired; K5, the backward's recompute and K7's probes
+// run this tile too, fused_render.cu, fused_mlp_bwd.cu, probe_overlap.cu):
 //  - products: wgmma reads both operands from shared memory, where the
-//    mma.sync tile loaded every fragment with scalar 32-bit shared loads;
+//    warp-MMA tile loaded every fragment with scalar 32-bit shared loads;
 //  - the weight ring: one thread and the TMA engine move the weights, four
 //    stages deep, against a two-stage cp.async ring that all 256 threads
 //    filled and fenced with two __syncthreads a chunk;

@@ -15,8 +15,9 @@
 // planes [4][R*S], K6's residual (re-running the MLP instead would cost a
 // whole forward).
 // K6 replaces fused_render.py::_make_bwd_kernel (behind _bwd_rule): a
-// per-ray kernel here (composite_bwd) recomputes T, w, c, depth and acc from
-// the residual raw and forms the cotangent of raw as _bwd_rule does
+// kernel here (composite_bwd, a warp per ray) recomputes T, w, c, depth and
+// acc from the residual raw as K5 computes them and forms the cotangent of
+// raw as _bwd_rule does
 // (:213-252): the `live` guard on depth/acc, white_bkgd's -sum g_rgb on
 // g_acc, t = g_w + g_rgb . sigmoid(raw_rgb) + g_depth z + g_acc,
 //   d_alpha_k = t_k T_k - (sum_{i>k} t_i w_i) / c_k   (suffix summed from the back),
@@ -70,8 +71,12 @@
 // 64-point sub-tiles; where the group would hold more than GROUP_BYTES of
 // it (S = 200: lcm = 1600 points), the CTA takes one ray and masks the
 // tail of its last sub-tile; the two sums run in sample order on one thread
-// per ray. composite_bwd is one thread per ray, three passes over its
-// samples; every sum runs in a fixed order, so launches are bit-identical.
+// per ray. composite_bwd (K6's own pass, both precisions) is a warp per ray
+// on K5's compositing scan (composite_scan), the ray's samples staged in
+// shared memory by coalesced loads: 4,096 rays are 4,096 warps.
+// Bound: ~44 B a point (raw 16, z 4, noise 4 and g_w 4 in, g 16 out) and
+// 32 B a ray, 46.4 MB at a training step's 4,096 x (64 + 192) points:
+// 0.014 ms at 3.35 TB/s.
 
 #include "fused_mlp_common.cuh"
 #include "fwd_tile_sm90.cuh"
@@ -225,30 +230,57 @@ struct GroupSink {
   }
 };
 
-// ea of the ray's sample k (point p0 + k) from its raw sigma plane.
-__device__ __forceinline__ float sample_ea(const RenderArgs& a, const float* sigma, int p0, int k,
-                                           float dn) {
-  const float raw_sigma = __ldcg(sigma + k);
-  const float dz = k + 1 < a.S ? __fsub_rn(a.z[p0 + k + 1], a.z[p0 + k]) : 1e10f;
-  return ealpha(noisy(raw_sigma, a.noise, p0 + k), __fmul_rn(dz, dn));
+// How a warp's compositing loads raw sigma: through L2 only where the same
+// kernel wrote it (K5's slab), read-only from device memory, or plainly
+// (shared memory: K6's staged rays).
+enum SigmaLoad { kSigmaL2, kSigmaRO, kSigmaPlain };
+
+// One ray's samples as a warp's compositing reads them: depths z and noise
+// (null: none) by point p0 + k, raw sigma by sample k.
+template <int kLoad>
+struct RaySamples {
+  const float* z;
+  const float* noise;
+  const float* sigma;
+  int S;
+  int p0;
+  float dn;  // |rays_d|
+  __device__ __forceinline__ float raw_sigma(int k) const {
+    if constexpr (kLoad == kSigmaL2) return __ldcg(sigma + k);
+    if constexpr (kLoad == kSigmaRO) return __ldg(sigma + k);
+    return sigma[k];
+  }
+  // ea = 1 - alpha of sample k
+  __device__ __forceinline__ float ea(int k) const {
+    const float dz = k + 1 < S ? __fsub_rn(z[p0 + k + 1], z[p0 + k]) : 1e10f;
+    return ealpha(noisy(raw_sigma(k), noise, p0 + k), __fmul_rn(dz, dn));
+  }
+};
+
+// Lane l's share of a ray's samples in a warp's compositing: ceil(S/32)
+// consecutive samples [k0, k1) (K5 and K6 partition alike).
+__device__ __forceinline__ void lane_samples(int S, int& k0, int& k1) {
+  const int n = (S + 31) / 32;
+  k0 = min(int(threadIdx.x & 31) * n, S);
+  k1 = min(k0 + n, S);
 }
 
-// One warp composites ray r from its raw planes (sample k of plane c at
-// pl[c * plane_stride(a) + k]): lane l owns ceil(S/32) consecutive samples
-// [k0, k1). Lean on registers, for the 40 of a compositing thread: points
-// by 32-bit index off the arguments' pointers, depth and acc summed over
-// the lanes before rgb's pass over the w just written.
-__device__ __forceinline__ void composite_ray(const RenderArgs& a, int r, const float* pl) {
-  const int S = a.S, lane = threadIdx.x & 31;
-  const int n = (S + 31) / 32;
-  const int k0 = min(lane * n, S), k1 = min(k0 + n, S);
-  const int p0 = r * S;
-  const float* sigma = pl + 3 * plane_stride(a);
-  const float dn = ray_norm(a.rd + 3 * r);
-  // the lane's sum of log c in sample order
+// The forward of a ray's compositing by one warp, K5's and K6's, so that
+// K6's T, w, depth and acc are K5's bit for bit: the lane's sum of log c
+// over its samples in sample order, the lanes' exclusive prefix by a
+// shuffle scan in a fixed order (pre0: T of the lane's first sample is
+// exp(pre0)), then T_k = exp(prefix), w_k = (1 - ea_k) T_k, on_w(k, w),
+// and depth and acc summed over the lane and then over the warp by xor
+// butterflies (every lane gets the same). Lean on registers, for the 40 of
+// K5's compositing threads.
+template <int kLoad, typename OnW>
+__device__ __forceinline__ void composite_scan(const RaySamples<kLoad>& rs, int k0, int k1,
+                                               float& pre0, float& depth, float& acc,
+                                               const OnW& on_w) {
+  const int lane = threadIdx.x & 31;
   float s = 0.f;
 #pragma unroll 1
-  for (int k = k0; k < k1; ++k) s = __fadd_rn(s, log_c(sample_ea(a, sigma, p0, k, dn)));
+  for (int k = k0; k < k1; ++k) s = __fadd_rn(s, log_c(rs.ea(k)));
   // the lanes' exclusive prefix: an inclusive scan in a fixed order, shifted
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -257,23 +289,38 @@ __device__ __forceinline__ void composite_ray(const RenderArgs& a, int r, const 
   }
   float pre = __shfl_up_sync(0xffffffffu, s, 1);
   if (lane == 0) pre = 0.f;
-  // T_k = exp(pre), w_k = (1 - ea_k) T_k; depth and acc
-  float depth = 0.f, acc = 0.f;
+  pre0 = pre;
+  depth = 0.f;
+  acc = 0.f;
 #pragma unroll 1
   for (int k = k0; k < k1; ++k) {
-    const float ea = sample_ea(a, sigma, p0, k, dn);
+    const float ea = rs.ea(k);
     const float w = __fmul_rn(__fsub_rn(1.f, ea), expf(pre));
     pre = __fadd_rn(pre, log_c(ea));
-    a.w[p0 + k] = w;
-    depth = fmaf(w, a.z[p0 + k], depth);
+    on_w(k, w);
+    depth = fmaf(w, rs.z[rs.p0 + k], depth);
     acc = __fadd_rn(acc, w);
   }
-  // the sums over the lanes (xor butterflies: every lane gets the same)
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     depth = __fadd_rn(depth, __shfl_xor_sync(0xffffffffu, depth, o));
     acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
   }
+}
+
+// One warp composites ray r from its raw planes (sample k of plane c at
+// pl[c * plane_stride(a) + k]) by composite_scan, which writes w; then rgb
+// over the lane's w just written. Points by 32-bit index off the
+// arguments' pointers.
+__device__ __forceinline__ void composite_ray(const RenderArgs& a, int r, const float* pl) {
+  const int lane = threadIdx.x & 31;
+  int k0, k1;
+  lane_samples(a.S, k0, k1);
+  const int p0 = r * a.S;
+  const RaySamples<kSigmaL2> rs{a.z, a.noise, pl + 3 * plane_stride(a), a.S, p0,
+                                ray_norm(a.rd + 3 * r)};
+  float pre0, depth, acc;
+  composite_scan(rs, k0, k1, pre0, depth, acc, [&](int k, float w) { a.w[p0 + k] = w; });
   if (lane == 0) {
     a.disp[r] = disp_of(depth / acc);
     a.acc[r] = acc;
@@ -390,66 +437,184 @@ __global__ void __launch_bounds__(THREADS) render_f32(const RenderArgs a) {
   composite(a, comp, nq, r0, g_rays);
 }
 
-// K6's compositing backward, one thread per ray: g [4][R*S], the cotangent
+// K6's compositing backward, one warp per ray: g [4][R*S], the cotangent
 // of raw (r, g, b, sigma), from the residual raw [4][R*S] and the maps'
-// cotangents g_rgb [R][3], g_disp, g_acc [R], g_w [R][S]. Plane 3 of g
-// holds T between the passes.
-__global__ void composite_bwd(const float* __restrict__ rd, const float* __restrict__ z_all,
-                              const float* __restrict__ noise, const float* __restrict__ raw,
-                              const float* __restrict__ g_rgb, const float* __restrict__ g_disp,
-                              const float* __restrict__ g_acc, const float* __restrict__ g_w,
-                              int n_rays, int S, int white, float* __restrict__ g) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-  const size_t N = size_t(n_rays) * S, p0 = size_t(r) * S;
-  const float* z = z_all + p0;
-  const float dn = ray_norm(rd + 3 * r);
-  // forward again, as K5 computes it: T_k (kept in plane 3), depth, acc
-  float pre = 0.f, depth = 0.f, acc = 0.f;
-  for (int k = 0; k < S; ++k) {
-    const float e = ealpha(noisy(raw[3 * N + p0 + k], noise, p0 + k), sample_dist(z, k, S, dn));
-    const float T = expf(pre);
-    const float w = __fmul_rn(__fsub_rn(1.f, e), T);
-    depth = fmaf(w, z[k], depth);
-    acc = __fadd_rn(acc, w);
-    g[3 * N + p0 + k] = T;
-    pre = __fadd_rn(pre, log_c(e));
+// cotangents g_rgb [R][3], g_disp, g_acc [R], g_w [R][S]. Lane l owns K5's
+// samples [k0, k1) of the ray (lane_samples). composite_scan recomputes the
+// forward as K5 does (T, w, depth and acc bit for bit); the per-ray terms
+// follow (the `live` guard, white_bkgd's -sum g_rgb on g_acc); then, with
+// t_k = g_w + g_rgb . s_k + g_depth z_k + g_acc_t and s_k = sigmoid(raw_rgb),
+//   d_alpha_k = t_k T_k - (sum_{i>k} t_i w_i) / c_k:
+// each lane sums t w over its samples from the back (writing d_rgb on the
+// way), an exclusive suffix scan over the lanes in a fixed order
+// (shfl_down) gives it the sum past its samples, and a back-to-front pass
+// inside the lane writes d_sigma. T and w are recomputed in blocks of
+// COMP_BLOCK samples from the back, each block's prefix summed anew from the
+// lane's pre0 in K5's order, and held in registers. Two instantiations:
+// - kStaged, S <= 32 COMP_BLOCK = 256 (a lane's samples in one block, so the
+//   second pass reuses the first's registers): the warp first copies its
+//   ray's sigma, z, noise, raw rgb and g_w into shared memory by coalesced
+//   loads (a lane's own samples are strided by the partition), computes
+//   from there, writes d_rgb and d_sigma over the inputs it has read, and
+//   stores the four cotangent rows coalesced;
+// - above it, the same passes on device memory, blocks recomputed.
+// No scratch plane; every sum runs in a fixed order, so launches are
+// bit-identical.
+constexpr int COMP_BLOCK = 8;       // samples a lane holds in registers
+constexpr int COMP_BWD_WARPS = 4;   // rays a CTA
+constexpr int COMP_STAGED_MAX_S = 32 * COMP_BLOCK;
+constexpr int COMP_STAGED_PLANES = 7;  // sigma, z, noise, r, g, b, g_w
+
+struct CompositeBwdArgs {
+  const float* rd;
+  const float* z;
+  const float* noise;
+  const float* raw;
+  const float* g_rgb;
+  const float* g_disp;
+  const float* g_acc;
+  const float* g_w;
+  int n_rays;
+  int S;
+  int white;
+  float* g;
+};
+
+// A block of a lane's samples, b0 .. b0 + COMP_BLOCK - 1 of [k0, k1), for
+// the backward: ea, T, w, t and (sigma > 0) by sample.
+struct CompBlock {
+  float ea[COMP_BLOCK], T[COMP_BLOCK], w[COMP_BLOCK], t[COMP_BLOCK];
+  bool pos[COMP_BLOCK];
+};
+
+template <bool kStaged>
+__global__ void __launch_bounds__(COMP_BWD_WARPS * 32)
+composite_bwd(const __grid_constant__ CompositeBwdArgs a) {
+  extern __shared__ float comp_stage[];  // kStaged: [warps][COMP_STAGED_PLANES][S]
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * COMP_BWD_WARPS + warp;
+  if (r >= a.n_rays) return;  // whole warps
+  const int S = a.S, lane = threadIdx.x & 31;
+  const size_t N = size_t(a.n_rays) * S;
+  const int p0 = r * S;
+  const float* raw = a.raw + p0;  // the ray's plane c at raw[c * N + k]
+  float* gout = a.g + p0;
+  float* st = comp_stage + warp * COMP_STAGED_PLANES * S;
+  if constexpr (kStaged) {
+    for (int k = lane; k < S; k += 32) {
+      st[k] = __ldg(raw + 3 * N + k);
+      st[S + k] = __ldg(a.z + p0 + k);
+      if (a.noise != nullptr) st[2 * S + k] = __ldg(a.noise + p0 + k);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) st[(3 + c) * S + k] = __ldg(raw + c * N + k);
+      st[6 * S + k] = __ldg(a.g_w + p0 + k);
+    }
+    __syncwarp();
   }
+  // the ray's inputs and outputs by sample k: staged, or in device memory
+  const float* z = kStaged ? st + S : a.z + p0;
+  const float* noise = a.noise == nullptr ? nullptr : kStaged ? st + 2 * S : a.noise + p0;
+  auto rgb_in = [&](int c, int k) { return kStaged ? st[(3 + c) * S + k] : __ldg(raw + c * N + k); };
+  auto gw_in = [&](int k) { return kStaged ? st[6 * S + k] : __ldg(a.g_w + p0 + k); };
+  auto d_rgb = [&](int c, int k) -> float& { return kStaged ? st[(3 + c) * S + k] : gout[c * N + k]; };
+  auto d_sigma = [&](int k) -> float& { return kStaged ? st[k] : gout[3 * N + k]; };
+  constexpr int kLoad = kStaged ? kSigmaPlain : kSigmaRO;
+  const RaySamples<kLoad> rs{z, noise, kStaged ? st : raw + 3 * N, S, 0, ray_norm(a.rd + 3 * r)};
+  int k0, k1;
+  lane_samples(S, k0, k1);
+  // the forward again, as K5 computes it
+  float pre0, depth, acc;
+  composite_scan(rs, k0, k1, pre0, depth, acc, [](int, float) {});
   // disp = 1/max(1e-10, depth/acc); `live` keeps the clamped and the empty
   // ray's 0/0 branch out of the cotangent
   const float ratio = depth / acc;
   const bool live = ratio > 1e-10f;
   const float disp = disp_of(ratio);
-  const float gr[3] = {g_rgb[3 * r], g_rgb[3 * r + 1], g_rgb[3 * r + 2]};
-  const float dm = live ? -g_disp[r] * disp * disp : 0.f;
+  const float gr[3] = {__ldg(a.g_rgb + 3 * r), __ldg(a.g_rgb + 3 * r + 1),
+                       __ldg(a.g_rgb + 3 * r + 2)};
+  const float dm = live ? -__ldg(a.g_disp + r) * disp * disp : 0.f;
   const float g_depth = live ? dm / acc : 0.f;
-  float g_acc_t = g_acc[r] - (live ? dm * depth / (acc * acc) : 0.f);
-  if (white) g_acc_t -= (gr[0] + gr[1]) + gr[2];
-  // from the back: d_alpha_k = t_k T_k - (sum_{i>k} t_i w_i) / c_k
-  float suffix = 0.f;
-  for (int k = S - 1; k >= 0; --k) {
-    const size_t p = p0 + k;
-    const float sigma = noisy(raw[3 * N + p], noise, p);
-    const float dist = sample_dist(z, k, S, dn);
-    const float e = ealpha(sigma, dist);
-    const float c = __fadd_rn(e, 1e-10f);
-    const float T = g[3 * N + p];
-    const float w = __fmul_rn(__fsub_rn(1.f, e), T);
-    float s[3], rgb_dot = 0.f;
+  float g_acc_t = __ldg(a.g_acc + r) - (live ? dm * depth / (acc * acc) : 0.f);
+  if (a.white) g_acc_t -= (gr[0] + gr[1]) + gr[2];
+  // block b0's T, w, t: its prefix from pre0 in sample order (K5's sums);
+  // with rgb, its d_rgb (over the raw rgb just read, when staged)
+  CompBlock blk;
+  auto fill = [&](int b0, bool rgb) {
+    float pre = pre0;
+#pragma unroll 1
+    for (int k = k0; k < b0; ++k) pre = __fadd_rn(pre, log_c(rs.ea(k)));
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      s[ch] = sigmoid(raw[ch * N + p]);
-      rgb_dot = __fadd_rn(rgb_dot, __fmul_rn(gr[ch], s[ch]));
+    for (int i = 0; i < COMP_BLOCK; ++i) {
+      const int k = b0 + i;
+      if (k >= k1) break;
+      const float ea = rs.ea(k);
+      const float T = expf(pre);
+      const float w = __fmul_rn(__fsub_rn(1.f, ea), T);
+      pre = __fadd_rn(pre, log_c(ea));
+      float sg[3], rgb_dot = 0.f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        sg[c] = sigmoid(rgb_in(c, k));
+        rgb_dot = __fadd_rn(rgb_dot, __fmul_rn(gr[c], sg[c]));
+      }
+      blk.ea[i] = ea;
+      blk.T[i] = T;
+      blk.w[i] = w;
+      blk.t[i] = __fadd_rn(__fadd_rn(__fadd_rn(gw_in(k), rgb_dot), __fmul_rn(g_depth, z[k])),
+                           g_acc_t);
+      blk.pos[i] = noisy(rs.raw_sigma(k), noise, k) > 0.f;
+      if (rgb)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          d_rgb(c, k) = __fmul_rn(__fmul_rn(__fmul_rn(w, sg[c]), __fsub_rn(1.f, sg[c])), gr[c]);
     }
-    const float t = __fadd_rn(__fadd_rn(__fadd_rn(g_w[p], rgb_dot), __fmul_rn(g_depth, z[k])),
-                              g_acc_t);
-    const float d_alpha = __fsub_rn(__fmul_rn(t, T), __fdiv_rn(suffix, c));
-    suffix = __fadd_rn(suffix, __fmul_rn(t, w));
-    const float d_relu = __fmul_rn(__fmul_rn(d_alpha, e), dist);
-    g[3 * N + p] = __fmul_rn(d_relu, sigma > 0.f ? 1.f : 0.f);
+  };
+  const int last = k1 > k0 ? k0 + (k1 - k0 - 1) / COMP_BLOCK * COMP_BLOCK : k0 - 1;
+  // the lane's sum of t w from the back
+  float tw = 0.f;
+#pragma unroll 1
+  for (int b0 = last; b0 >= k0; b0 -= COMP_BLOCK) {
+    fill(b0, true);  // blk ends up holding the first block, k0
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch)
-      g[ch * N + p] = __fmul_rn(__fmul_rn(__fmul_rn(w, s[ch]), __fsub_rn(1.f, s[ch])), gr[ch]);
+    for (int i = COMP_BLOCK - 1; i >= 0; --i)
+      if (b0 + i < k1) tw = __fadd_rn(tw, __fmul_rn(blk.t[i], blk.w[i]));
+  }
+  // the lanes' exclusive suffix: an inclusive scan from the top lane in a
+  // fixed order, shifted
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_down_sync(0xffffffffu, tw, o);
+    if (lane + o < 32) tw = __fadd_rn(tw, u);
+  }
+  float suffix = __shfl_down_sync(0xffffffffu, tw, 1);
+  if (lane == 31) suffix = 0.f;
+  __syncwarp();  // every lane's reads of sigma came before d_sigma over it
+  // from the back: d_alpha_k = t_k T_k - suffix_k / c_k, d_sigma
+  int held = k0;
+#pragma unroll 1
+  for (int b0 = last; b0 >= k0; b0 -= COMP_BLOCK) {
+    if (b0 != held) {  // one block a lane (always, when staged): no refill
+      fill(b0, false);
+      held = b0;
+    }
+#pragma unroll
+    for (int i = COMP_BLOCK - 1; i >= 0; --i) {
+      const int k = b0 + i;
+      if (k >= k1) continue;
+      const float c = __fadd_rn(blk.ea[i], 1e-10f);
+      const float d_alpha = __fsub_rn(__fmul_rn(blk.t[i], blk.T[i]), __fdiv_rn(suffix, c));
+      suffix = __fadd_rn(suffix, __fmul_rn(blk.t[i], blk.w[i]));
+      const float d_relu = __fmul_rn(__fmul_rn(d_alpha, blk.ea[i]), sample_dist(z, k, S, rs.dn));
+      d_sigma(k) = __fmul_rn(d_relu, blk.pos[i] ? 1.f : 0.f);
+    }
+  }
+  if constexpr (kStaged) {  // the cotangent rows, coalesced
+    __syncwarp();
+    for (int k = lane; k < S; k += 32) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) gout[c * N + k] = st[(3 + c) * S + k];
+      gout[3 * N + k] = st[k];
+    }
   }
 }
 
@@ -564,10 +729,16 @@ extern "C" int nerf_fused_render_bwd_planes(const float* rays_d, const float* z,
   const long long n = static_cast<long long>(n_rays) * n_samples;
   if (n_rays < 0 || n_samples < 1 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  constexpr int block = 128;
-  composite_bwd<<<(n_rays + block - 1) / block, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      rays_d, z, noise, raw, g_rgb, g_disp, g_acc, g_w, n_rays, n_samples, white_bkgd != 0,
-      g_planes);
+  const CompositeBwdArgs a{rays_d, z,       noise,     raw,       g_rgb,           g_disp,
+                           g_acc,  g_w,     n_rays,    n_samples, white_bkgd != 0, g_planes};
+  const int grid = (n_rays + COMP_BWD_WARPS - 1) / COMP_BWD_WARPS;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_samples <= COMP_STAGED_MAX_S) {
+    const size_t smem = size_t(COMP_BWD_WARPS) * COMP_STAGED_PLANES * n_samples * sizeof(float);
+    composite_bwd<true><<<grid, COMP_BWD_WARPS * 32, smem, s>>>(a);
+  } else {
+    composite_bwd<false><<<grid, COMP_BWD_WARPS * 32, 0, s>>>(a);
+  }
   return cudaGetLastError();
 }
 

@@ -1,12 +1,12 @@
 // The bf16 forward tile for Hopper (sm_90a): posenc and the 8xW MLP over
 // tiles of 128 points, the weights streamed by TMA into a shared-memory ring
-// that feeds wgmma. It computes what fwd_tile_bf16 (fused_mlp_common.cuh)
-// computes, with the same bf16 rounding points (operands rounded to bf16,
-// f32 accumulation, activations rounded to bf16 between layers), the same
-// input modes (RaysIn / PointsIn) and sinks (GlobalSink). Its layers sum a
-// layer's products chunk by chunk in fwd_tile_bf16's K order, and on an H100
-// its activations matched that tile's in every case measured; the head's
-// f32 sums run in another order, so raw differs in its last bits (PERF.md).
+// that feeds wgmma. Its rounding points are K1's (operands rounded to bf16,
+// f32 accumulation, activations rounded to bf16 between layers), in two
+// input modes (RaysIn / PointsIn) with a caller-given sink (GlobalSink).
+// Its layers sum a layer's products chunk by chunk in the K order of the
+// warp-MMA tile that K1 ran before it; on an H100 their activations
+// matched in every case measured, and the head's f32 sums, which run in
+// another order, moved raw in its last bits only (PERF.md).
 //
 // One CTA of 384 threads (fwd_tiles_sm90 is the whole CTA's body) walks its
 // tiles of a persistent grid in the order a schedule gives (a template
@@ -22,7 +22,9 @@
 // cotangent chain (bwd_chain_sm90, fused_mlp_bwd.cu) is a CTA of the same
 // shape with its own producer and consumers, built from this file's pieces
 // (FwdSmem's ring and act blocks, FwdRing, consume_chunk, finish_layer,
-// take_turn / pass_turn, st_shared_b32, wout_row). This tile's roles:
+// take_turn / pass_turn, st_shared_b32, wout_row), and so are K7's probes
+// (probe_overlap.cu: its `full` body is this tile itself). This tile's
+// roles:
 // - warpgroup 0, the producer: one thread streams the weight chunks of
 //   every tile, in the order the layers consume them, by TMA into a ring of
 //   FWD_STAGES stages (a chunk is 64 K columns x N rows of a W^T block,
@@ -220,7 +222,8 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
 // bias)), from the m64nN accumulator fragment (hopper.cuh): row
 // 16*warp + lane/4 (+8), columns 8*jb + 2*(lane%4) (+1). With kPart also
 // part[h][c] += the rounded row . Wout[W/2 + col][c] (h7's share of raw).
-template <int W, bool kRelu, bool kPart>
+// Without kBias no bias is read or added (K7's matmul_only).
+template <int W, bool kRelu, bool kPart, bool kBias = true>
 __device__ __forceinline__ void epilogue_sw(const float (&acc)[W / 2],
                                             const float* __restrict__ bias, unsigned char* out,
                                             const bf16* __restrict__ wout, float (&part)[2][4]) {
@@ -230,7 +233,8 @@ __device__ __forceinline__ void epilogue_sw(const float (&acc)[W / 2],
 #pragma unroll
   for (int jb = 0; jb < W / 8; ++jb) {
     const int col = 8 * jb + 2 * (lane & 3);
-    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + col));
+    float2 b = make_float2(0.f, 0.f);
+    if constexpr (kBias) b = __ldg(reinterpret_cast<const float2*>(bias + col));
     const uint32_t blk = row0 + (jb >> 3) * (FWD_ROWS * 128) + (((jb & 7) ^ sw) << 4);
     float w0[4], w1[4];
     if (kPart) {
@@ -239,7 +243,11 @@ __device__ __forceinline__ void epilogue_sw(const float (&acc)[W / 2],
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float v0 = acc[4 * jb + 2 * h] + b.x, v1 = acc[4 * jb + 2 * h + 1] + b.y;
+      float v0 = acc[4 * jb + 2 * h], v1 = acc[4 * jb + 2 * h + 1];
+      if constexpr (kBias) {
+        v0 += b.x;
+        v1 += b.y;
+      }
       if (kRelu) {
         v0 = fmaxf(v0, 0.f);
         v1 = fmaxf(v1, 0.f);
@@ -308,8 +316,8 @@ __device__ __forceinline__ void view_head(const float (&acc)[W / 4], const float
 // Embeds the warpgroup's 64 points (threads 0-63) and view directions
 // (64-127) into emb / embv (swizzled; embv's columns 32..63 zeros): each
 // thread through a staging row of its own in act, so no barrier is needed
-// between the two steps.
-template <typename In>
+// between the two steps. Trig gives the sines and cosines (embed_row).
+template <typename In, typename Trig = SinCos>
 __device__ __forceinline__ void embed_sw(const In& in, int n_pts, int Fp, int Fv, int p0,
                                          unsigned char* act, unsigned char* emb,
                                          unsigned char* embv) {
@@ -326,7 +334,7 @@ __device__ __forceinline__ void embed_sw(const In& in, int n_pts, int Fp, int Fv
   }
   bf16* row = reinterpret_cast<bf16*>(act) +
               (pts ? i * FWD_SPT : FWD_ROWS * FWD_SPT + i * FWD_SVW);
-  embed_row<bf16>(x, pts ? Fp : Fv, pts ? KE : KV, row);
+  embed_row<bf16, Trig>(x, pts ? Fp : Fv, pts ? KE : KV, row);
   const uint32_t* src = reinterpret_cast<const uint32_t*>(row);
   const uint32_t dst = hopper::smem_addr(pts ? emb : embv) + i * 128;
   const int chunks = pts ? KE / 8 : KV / 8;  // 16-byte chunks of the row that hold values

@@ -10,9 +10,9 @@ Counterpart of nerf_tpu/experimental/fused_render.py:
   per-CTA scratch slab in device memory, which stays in L2
   (``ray_groups`` and ``slab_floats`` size it);
 - K6 (``fused_render_bwd``) is the compositing backward
-  (``nerf_fused_render_bwd_planes``, from the raw K5 kept under autograd)
-  followed by K4's three phases with a direction per ray: weight grads
-  only. Rays, depths and noise get no gradient (nerf_tpu's module
+  (``composite_bwd`` → ``nerf_fused_render_bwd_planes``, a warp per ray on
+  K5's compositing scan, from the raw K5 kept under autograd) followed by
+  K4's phases with a direction per ray: weight grads only. Rays, depths and noise get no gradient (nerf_tpu's module
   docstring: they are non-differentiated leaves of the training graph).
 
 The pieces, as in ops/fused_mlp.py:
@@ -223,7 +223,8 @@ fused_render_fwd.launches = 0
 def _launch_composite_bwd(raw, rays_d, z_vals, noise, g_rgb, g_disp, g_acc, g_w,
                           white_bkgd) -> torch.Tensor:
     """K6's first half on the card: ``composite_bwd_reference``'s cotangent
-    planes [4, R, S]."""
+    planes [4, R, S] (``composite_bwd`` in csrc/fused_render.cu, a warp per
+    ray; ``composite_bwd.launches`` counts the launches)."""
     lib = _build.load("fused_render")
     dev = z_vals.device
     R, S = z_vals.shape
@@ -238,7 +239,27 @@ def _launch_composite_bwd(raw, rays_d, z_vals, noise, g_rgb, g_disp, g_acc, g_w,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     fused_mlp._raise_on(lib, err, "fused_render_bwd_planes")
+    composite_bwd.launches += 1
     return g_planes
+
+
+def composite_bwd(raw, rays_d, z_vals, noise: Optional[torch.Tensor], g_rgb, g_disp, g_acc, g_w,
+                  white_bkgd: bool) -> torch.Tensor:
+    """The cotangent of raw planes [4, R, S] from the maps' cotangents (K6's
+    compositing pass, both precisions). CUDA tensors launch the kernel
+    (``launches`` counts them); CPU tensors take ``composite_bwd_reference``."""
+    # (_check's three ray arguments share rays_d's shape: it stands for all)
+    _check(rays_d, rays_d, rays_d, z_vals, noise, raw=raw, g_rgb=g_rgb, g_disp=g_disp,
+           g_acc=g_acc, g_w=g_w)
+    args = (raw, rays_d, z_vals, noise, g_rgb, g_disp, g_acc, g_w, white_bkgd)
+    if z_vals.device.type == "cpu":
+        return composite_bwd_reference(*args)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"no compositing kernel for device {z_vals.device}")
+    return _launch_composite_bwd(*args)
+
+
+composite_bwd.launches = 0
 
 
 def _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, raw, g_rgb, g_disp, g_acc, g_w,

@@ -183,11 +183,17 @@ def prepare_rays(
     focal: float,
     near: float,
     far: float,
+    viewdirs_from: Optional[torch.Tensor] = None,
 ):
-    """Viewdirs + NDC + flattening (ref render(), run_nerf.py:102-123)."""
+    """Viewdirs + NDC + flattening (ref render(), run_nerf.py:102-123).
+
+    ``viewdirs_from`` serves the c2w_staticcam visualization
+    (run_nerf.py:105-107): the directions for shading come from another
+    camera than the rendered rays."""
     viewdirs = None
     if rs.use_viewdirs:
-        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        vd = viewdirs_from if viewdirs_from is not None else rays_d
+        viewdirs = vd / torch.linalg.norm(vd, dim=-1, keepdim=True)
         viewdirs = viewdirs.reshape(-1, 3)
     if rs.ndc:
         rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
@@ -210,13 +216,20 @@ def render_image(
     far: float,
     chunk: int = 1024 * 32,
     generator: Optional[torch.Generator] = None,
+    c2w_staticcam: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render a full H×W frame on ``c2w``'s device, in ray chunks (ref
-    render + batchify_rays). Chunking changes memory, not results."""
+    render + batchify_rays). Chunking changes memory, not results. With
+    ``c2w_staticcam`` the frame shades with c2w's directions and renders
+    c2w_staticcam's rays (ref run_nerf.py:105-107)."""
     rays_o, rays_d = get_rays(H, W, K, c2w)
+    viewdirs_from = None
+    if c2w_staticcam is not None:
+        viewdirs_from = rays_d
+        rays_o, rays_d = get_rays(H, W, K, c2w_staticcam)
     focal = float(np.asarray(K)[0, 0])
     rays_o, rays_d, viewdirs, near_v, far_v = prepare_rays(
-        rays_o, rays_d, rs, H, W, focal, near, far
+        rays_o, rays_d, rs, H, W, focal, near, far, viewdirs_from
     )
     out = render_rays_chunked(
         nets, model, rs, rays_o, rays_d, viewdirs, near_v, far_v,

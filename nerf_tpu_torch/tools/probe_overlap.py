@@ -5,14 +5,16 @@ Counterpart of tools/probe_overlap.py, whose eight Pallas bodies take K1's
 tile apart: the bare chain of 8 [T,256]@[256,256] bf16 products, then with
 bias+relu, then as two interleaved half-tiles; the posenc front end with
 real, no (·0.5, ·0.25) or polynomial trig, plain or interleaved; and the
-full head. Here each body is a branch of one CUDA kernel built from the
-``mma.sync`` tile code that K1, K5 and the backward's recompute ran before
-they moved to the ``wgmma`` tile (``csrc/probe_overlap.cu``; no production
-kernel runs it now), so the gaps between the bodies' times say what that
-tile's epilogue and trig cost beside its ``mma.sync`` stream. A ninth
-body, ``products``, has no counterpart in the script: the same 8 products,
-each of x, summed in the accumulators, with no epilogue between layers, so
-that its time is the product stream's alone.
+full head. Here each body is a launch of K1's own ``wgmma`` tile
+(``csrc/fwd_tile_sm90.cuh``) or of a CTA built from its pieces
+(``csrc/probe_overlap.cu``): ``full`` is that tile with K2's input, equal
+to K2's raw bit for bit (``k2_raw``), and the interleaved bodies run its
+ping-pong, the others the same warpgroups in lockstep, so the gaps between
+the bodies' times say what the production tile's epilogues, trig, head and
+ping-pong cost beside its product stream. A ninth body, ``products``, has
+no counterpart in the script: the same 8 products, each of x, summed in
+the accumulators, with no epilogue between layers, so that its time is the
+product stream's alone.
 
 Run on the card, at the script's size (nothing is computed at import):
 
@@ -29,7 +31,9 @@ The pieces:
   ``spr`` points, and ``poly`` rounds half to even;
 - ``probe(body, inputs)``: the wrapper. A CPU tensor takes the plain
   version; a CUDA tensor launches the kernel (``probe.launches`` counts
-  them) or raises;
+  them, ``probe.by_body`` by body) or raises;
+- ``k2_raw(inputs)``: K2 (``fused_mlp.fused_points``) on ``full``'s blob,
+  points and directions, whose raw ``full``'s channels 0..3 equal;
 - ``probe_flops`` / ``probe_bytes``: each body's own work, for its bound;
 - ``main``: 1 warm-up and ``REPS`` launches of every body timed with CUDA
   events, in ``ROUNDS`` windows spread over the run; a body's time is the
@@ -50,12 +54,14 @@ import torch.nn.functional as F
 
 from nerf_tpu_torch.device import DeviceLike, resolve_device
 from nerf_tpu_torch.ops import _build
-from nerf_tpu_torch.ops.fused_mlp import _raise_on, kernel_blobs
+from nerf_tpu_torch.ops.fused_mlp import _raise_on, fused_points, kernel_blobs
 
 SCRIPT_BODIES = ("matmul_only", "bias_relu", "interleaved", "embed_trunk", "embed_trunk_il",
                  "embed_notrig", "embed_poly", "full")
 BODIES = SCRIPT_BODIES + ("products",)  # the kernel's body enum, in order
 X_IN = ("matmul_only", "bias_relu", "interleaved", "products")  # read x [N, W] bf16
+# the same work in lockstep and on the ping-pong schedule (csrc/probe_overlap.cu)
+LOCKSTEP_OVER_PING_PONG = (("bias_relu", "interleaved"), ("embed_trunk", "embed_trunk_il"))
 NPTS = 4096 * 192  # the script's size: 4,096 rays of 192 points
 # REPS timed launches a body after one warm-up (the script's 30), in ROUNDS
 # windows, every other round in reverse body order, so that a slow stretch
@@ -101,15 +107,12 @@ class ProbeInputs:
                               for f in dataclasses.fields(self)})
 
     @functools.cached_property
-    def kernel_buffers(self):
-        """(wt [DEPTH, W, W] = W_iᵀ, b [DEPTH, W]; K1's weight and bias
-        blobs of the embedding bodies), built once per inputs. The blobs
-        are K1's layout with W05e = [W0e | W5e], W1..W7 = Ws[1:], Wf =
-        Ws[0] and zero biases where the script adds none."""
-        wt = torch.stack([w.T for w in self.Ws]).contiguous()
-        b = torch.cat(self.bs).contiguous()
+    def kernel_params(self) -> Dict[str, torch.Tensor]:
+        """K1's packed params (``fused_mlp.KP_NAMES``) of the embedding
+        bodies and ``full``: W05e = [W0e | W5e], W1..W7 = Ws[1:], Wf =
+        Ws[0], and zero biases where the script adds none."""
         W = self.width
-        zeros = lambda n: torch.zeros(1, n, dtype=torch.float32, device=b.device)  # noqa: E731
+        zeros = lambda n: torch.zeros(1, n, dtype=torch.float32, device=self.x3.device)  # noqa: E731
         kp = {"W05e": torch.cat([self.W0e, self.W5e], 1), "Wf": self.Ws[0], "Wvf": self.Wvf,
               "Wve": self.Wve, "Wout": self.Wout, "bf": zeros(W), "bv": zeros(W // 2),
               "bout": zeros(4)}
@@ -117,7 +120,15 @@ class ProbeInputs:
             kp[f"b{i}"] = self.bs[i]
             if i > 0:
                 kp[f"W{i}"] = self.Ws[i]
-        return (wt, b) + kernel_blobs(kp)
+        return kp
+
+    @functools.cached_property
+    def kernel_buffers(self):
+        """(wt [DEPTH, W, W] = W_iᵀ, b [DEPTH, W]; K1's weight and bias
+        blobs of ``kernel_params``), built once per inputs."""
+        wt = torch.stack([w.T for w in self.Ws]).contiguous()
+        b = torch.cat(self.bs).contiguous()
+        return (wt, b) + kernel_blobs(self.kernel_params)
 
 
 def make_inputs(npts: int = NPTS, width: int = WIDTH, spr: int = SPR, seed: int = SEED,
@@ -247,10 +258,19 @@ def probe(body: str, inp: ProbeInputs) -> torch.Tensor:
         )
     _raise_on(lib, err, f"probe_overlap ({body})")
     probe.launches += 1
+    probe.by_body[body] += 1
     return out
 
 
 probe.launches = 0
+probe.by_body = dict.fromkeys(BODIES, 0)
+
+
+def k2_raw(inp: ProbeInputs) -> torch.Tensor:
+    """K2's raw [N, 4] on ``full``'s packed params, points and directions
+    (a direction per ``spr`` points): on the card ``full``'s channels 0..3
+    equal it bit for bit, since ``full`` runs K2's tile."""
+    return fused_points(inp.kernel_params, inp.x3, inp.v3, inp.spr, inp.kernel_buffers[2:])
 
 
 # ------------------------------------------------------------------ bounds
@@ -335,7 +355,8 @@ def main(device: DeviceLike = None) -> List[Dict]:
     ``ROUNDS`` windows; a body's ms is the median of its windows' means,
     beside its bound, the plain version's time and, for ``matmul_only``,
     the bf16 ``torch.matmul`` chain's (timed in the same windows). Prints a
-    line a body and returns them as dicts."""
+    line a body and the lockstep / ping-pong ratios, and returns the rows as
+    dicts."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError(f"the probes time the card; got device {dev}")
@@ -370,6 +391,9 @@ def main(device: DeviceLike = None) -> List[Dict]:
               f"{max(row['windows']):.3f})  {tflops:6.1f} TFLOP/s  {tflops / 989:6.1%} of 989  "
               f"bound {bound_ms:.3f} ms ({bound_by})  plain {row['plain_ms']:8.3f} ms  "
               f"max|kernel-plain| {row['max_abs_err']:.3e}{lib}", flush=True)
+    print("lockstep / ping-pong: " + "  ".join(
+        f"{a} / {b} {rows[a]['ms'] / rows[b]['ms']:.4f}" for a, b in LOCKSTEP_OVER_PING_PONG),
+        flush=True)
     return list(rows.values())
 
 

@@ -337,25 +337,32 @@ def test_train_steps_match_jax():
 
 
 def test_wrappers_on_cpu():
-    """On a CPU tensor K5's and K6's wrappers run their plain versions (the
-    counters stay), K5's raw is K1's plain version, and inputs are checked."""
+    """On a CPU tensor K5's and K6's wrappers and K6's compositing pass run
+    their plain versions (the counters stay), K5's raw is K1's plain
+    version, and inputs are checked."""
     net = NeRFMLP(CFG, seed=4, device="cpu")
     kp = fused_mlp.pack_params(net, PE_P, PE_V, torch.bfloat16)
     ro, rd, vd, z, noise, _ = (torch.from_numpy(a) if isinstance(a, np.ndarray) else a
                                for a in _inputs(4, n=5))
-    counts = (tfr.fused_render_fwd.launches, tfr.fused_render_bwd.launches)
+    counts = (tfr.fused_render_fwd.launches, tfr.fused_render_bwd.launches,
+              tfr.composite_bwd.launches)
     with torch.no_grad():
         m = tfr.fused_render_fwd(kp, ro, rd, vd, z, noise, True, keep_raw=True)
         assert torch.equal(m.raw, fused_mlp.fused_rays_planes_reference(kp, ro, rd, vd, z))
         assert tfr.fused_render_fwd(kp, ro, rd, vd, z, noise, True).raw is None
         g = (torch.ones(5, 3), torch.ones(5), torch.ones(5), torch.ones(5, S))
         grads = tfr.fused_render_bwd(kp, ro, rd, vd, z, None, m.raw, *g, False)
+        planes = tfr.composite_bwd(m.raw, rd, z, noise, *g, True)
+        assert torch.equal(planes, tfr.composite_bwd_reference(m.raw, rd, z, noise, *g, True))
     assert set(grads) == set(fused_mlp.KP_NAMES)
-    assert (tfr.fused_render_fwd.launches, tfr.fused_render_bwd.launches) == counts
+    assert (tfr.fused_render_fwd.launches, tfr.fused_render_bwd.launches,
+            tfr.composite_bwd.launches) == counts
     with pytest.raises(ValueError, match="noise"):
         tfr.fused_render_fwd(kp, ro, rd, vd, z, noise[:, :8], True)
     with pytest.raises(ValueError, match="g_w"):
         tfr.fused_render_bwd(kp, ro, rd, vd, z, noise, m.raw, *g[:3], g[3][:, :8], True)
+    with pytest.raises(ValueError, match="raw"):
+        tfr.composite_bwd(m.raw[:3], rd, z, noise, *g, True)
     with pytest.raises(ValueError, match="device"):
         tfr.fused_render_fwd(kp, *(t.to("meta") for t in (ro, rd, vd, z)), None, True)
     assert tfr.supports(CFG, PE_P, PE_V, 64) and not tfr.supports(CFG, PE_P, PE_V, 63)
@@ -403,7 +410,8 @@ def test_cuda_path_failure_raises_without_fallback(failure, monkeypatch):
     def no_plain(*a, **k):
         raise AssertionError("fell back to the plain version")
 
-    for name in ("fused_render_reference", "fused_render_bwd_reference"):
+    for name in ("fused_render_reference", "fused_render_bwd_reference",
+                 "composite_bwd_reference"):
         monkeypatch.setattr(tfr, name, no_plain)
     if failure == "build":
         def load(name):
@@ -416,9 +424,13 @@ def test_cuda_path_failure_raises_without_fallback(failure, monkeypatch):
         load = lambda name: lib  # noqa: E731
         match = "out of memory"
     monkeypatch.setattr(_build, "load", load)
-    counts = (tfr.fused_render_fwd.launches, tfr.fused_render_bwd.launches)
+    counts = (tfr.fused_render_fwd.launches, tfr.fused_render_bwd.launches,
+              tfr.composite_bwd.launches)
     with pytest.raises(RuntimeError, match=match):
         tfr._launch_fwd(kp, ro, rd, vd, z, noise, True, None, False)
     with pytest.raises(RuntimeError, match=match):
         tfr._launch_bwd(kp, ro, rd, vd, z, noise, raw, *g, True, None)
-    assert (tfr.fused_render_fwd.launches, tfr.fused_render_bwd.launches) == counts
+    with pytest.raises(RuntimeError, match=match):
+        tfr._launch_composite_bwd(raw, rd, z, noise, *g, True)
+    assert (tfr.fused_render_fwd.launches, tfr.fused_render_bwd.launches,
+            tfr.composite_bwd.launches) == counts

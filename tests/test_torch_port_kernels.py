@@ -619,6 +619,47 @@ def test_fused_render_level_differentiates_through_k6(cuda_device):
     assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
 
 
+# K6's compositing pass alone (composite_bwd, a warp per ray on K5's
+# compositing scan): the cotangent of raw against its plain version, f32 on
+# both sides, exp/log ulps and the sums' order apart (per-tensor relative L2;
+# chip_smoke.py's COMPOSITE_F32_TOL). S: a lane's share of the samples is 1
+# (S = 1, 31), 2 with empty lanes (33), 2, 6 and 7 (64, 192, 200), all with
+# the ray staged in shared memory; 10 (300), in device memory in two blocks.
+COMPOSITE_F32_TOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 31, 33, 64, 192, 200, 300])
+def test_composite_bwd_kernel_matches_plain_version(cuda_device, S):
+    from nerf_tpu_torch.experimental import fused_render
+
+    for R in (1, 37, 1000):  # one ray; ragged warps of a CTA (4 rays)
+        _, rd, _, z = _rays(R + S, R, S, cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(R * S)
+        raw = torch.randn(4, R, S, device=cuda_device, generator=gen)
+        raw[3, 0] = -4.0  # ray 0 empty: every sigma <= 0, acc 0, `live` false
+        g = [(0.5 + torch.rand(*shape, device=cuda_device, generator=gen)) * 1e-4
+             for shape in ((R, 3), (R,), (R,), (R, S))]
+        for noisy in (False, True):
+            noise = torch.randn(R, S, device=cuda_device, generator=gen) * 0.5 if noisy else None
+            for white in (False, True):
+                before = fused_render.composite_bwd.launches
+                got = fused_render.composite_bwd(raw, rd, z, noise, *g, white)
+                again = fused_render.composite_bwd(raw, rd, z, noise, *g, white)
+                torch.cuda.synchronize()
+                assert fused_render.composite_bwd.launches == before + 2
+                want = fused_render.composite_bwd_reference(raw, rd, z, noise, *g, white)
+                err = _rel_l2(got, want)
+                print(f"composite_bwd R={R} S={S} noise={noisy} white={white}: rel L2 "
+                      f"{err:.3e}")  # with -s
+                assert bool(torch.isfinite(got).all())
+                assert err <= COMPOSITE_F32_TOL, (R, S, noisy, white, err)
+                # the empty ray: w = 0 and sigma <= 0, so its cotangent is zero
+                assert not bool(got[:, 0].any()) and not bool(want[:, 0].any())
+                # every sum in a fixed order: two launches bit-identical
+                assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
 # K7, the probes of K1's tile (nerf_tpu_torch/tools/probe_overlap.py): each
 # body against its plain version, relative to the output's largest
 # magnitude: two bf16 ulps there (both sides round the same operands; an
@@ -652,3 +693,20 @@ def test_probe_kernel_matches_plain_version(cuda_device, body):
         if body == "full":
             assert not bool(out[:, 4:].any())
         assert tol < float((live - live.mean(0)).abs().mean())
+
+
+@pytest.mark.cuda
+def test_probe_full_is_k2(cuda_device):
+    """K7's full body is K1's tile with K2's input: its channels 0..3 are
+    K2's raw on the same blob, points and directions, bit for bit (the gate
+    that K7 times the production tile), at a ragged last tile and past the
+    SMs' first round of tiles."""
+    from nerf_tpu_torch.tools import probe_overlap as P
+
+    for npts in (3 * 192, 256 * 192):
+        inp = P.make_inputs(npts=npts, seed=npts + 1).to(cuda_device)
+        out = P.probe("full", inp)
+        k2 = P.k2_raw(inp)
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, :4], k2)
+        assert not bool(out[:, 4:].any())

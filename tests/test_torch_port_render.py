@@ -128,6 +128,27 @@ def test_render_image_matches_jax(nets):
     _close_maps(out, ref)
 
 
+def test_render_image_staticcam_matches_jax(nets):
+    """c2w_staticcam: shading from c2w's directions, rays from the static
+    camera's (run_nerf.py:105-107), on a 4x6 frame."""
+    params, port = nets
+    jrs, trs = _settings(perturb=False)
+    H, Wd, f = 4, 6, 5.0
+    K = default_intrinsics(H, Wd, f)
+    c2w = jpose_spherical(30.0, -30.0, 4.0)[:3, :4]
+    static = jpose_spherical(-60.0, -20.0, 4.0)[:3, :4]
+    ref = jr.render_image(params, JMODEL, jrs, H, Wd, K, jnp.asarray(c2w), 2.0, 6.0, chunk=16,
+                          c2w_staticcam=jnp.asarray(static))
+    with torch.no_grad():
+        out = tr.render_image(port, MODEL, trs, H, Wd, K, torch.from_numpy(c2w), 2.0, 6.0,
+                              chunk=16, c2w_staticcam=torch.from_numpy(static))
+        moving = tr.render_image(port, MODEL, trs, H, Wd, K, torch.from_numpy(static), 2.0, 6.0,
+                                 chunk=16)
+    _close_maps(out, ref)
+    # the static camera's rays with other view directions: another colour
+    assert not torch.allclose(out["rgb_map"], moving["rgb_map"])
+
+
 def test_render_path_on_cpu(nets, capsys, tmp_path):
     _, port = nets
     _, trs = _settings(perturb=True)
