@@ -122,6 +122,32 @@ the user's entry path (``cli.train`` / ``cli.render`` on a blender scene):
    ``cli.train.main`` resumes from it (step and learning rate) for 8 more
    steps, and ``cli.render.main --render_test`` renders the test view from
    the .tar it saved, with a finite PSNR and the video.
+The scene formats, each written by the port's scene writer from the
+procedural field (``data/synth.py``) and trained through ``cli.train``:
+21. synth: ``render_gt_rays`` on the card against the CPU on 256 rays of
+   64 samples, both fields (within ``SYNTH_TOL``), and in chunks of 100
+   bit-equal; then the synthff scene (``tools/make_llff_benchmark_scene.py``)
+   written at the tool's 756x1008 with 12 of its 24 views (time: ~5.4 s a
+   view), seconds a view;
+22. cli llff: ``_minify`` writes images_2/ at 378x504 through the native
+   Lanczos (equal to it, timed); ``cli.train.main`` with configs/synthff.txt
+   for 32 steps with every cadence firing: NDC rays (the step's transform,
+   origins on z = -1), the batching sampler, the sigma noise in every
+   step's draws, 2 K1 + 2 K4 a step and 12 K1 a 378x504 frame (the
+   120-frame spiral, the 2 test views, 2 holdout views) and nothing else,
+   a falling loss, finite holdout PSNRs; 6 spiral frames timed (12 K1
+   each), the first's 4,096 strided rays and an NDC batch's grads against
+   the plain path (phases 4 and 8's bounds); then phase 7's timed and
+   profiled windows on the recipe;
+23. cli dv / cli linemod: the DeepVoxels and LINEMOD scenes at the tools'
+   512x512 and 400x400 with 6 train views and one or two held out (the
+   tools write 40/10/10 and 30/6/6: a smoke run needs a few),
+   ``cli.train.main`` with configs/synth_dv.txt (batching) and
+   configs/synth_linemod.txt (no_batching, precrop) for 24 steps each: 2 K1
+   + 2 K4 a step, a falling loss, finite holdout PSNRs, the loaders'
+   near/far (the hemisphere's 1 and 3; the json's floor and ceil, 2 and 6)
+   and, with the json's principal point moved by ``LINEMOD_PP_SHIFT``, its
+   K in every get_rays call of the sampler; then phase 7's windows on each.
 
 The last two lines are a JSON object of kernel numbers (K1-K7, the
 backward's recompute and chain launches, K6's compositing pass, and K7's
@@ -134,6 +160,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -246,6 +273,33 @@ CLI_STEPS, CLI_RESUMED_STEPS = 24, 8
 CLI_CADENCES = {"i_print": 4, "i_img": 8, "i_weights": 12, "i_testset": 24, "i_video": 24}
 TRACE_AT, TRACE_STEPS = 12, 4  # nerf_tpu's trace: 4 more steps at start + 12
 LEGO_CAMERA_ANGLE_X = 0.6911112070083618  # the lego scene's: focal 1111.11 at 800 pixels
+# the scene formats (phases 21-23). The analytic field on the card against
+# the CPU on 256 rays of 64 samples, max abs: exp/sin/cos ulps and the
+# primitives' sums (tests/test_torch_port_data.py's bound against nerf_tpu,
+# which measured up to 1.7e-6 on the CPU); the same rays in chunks of 100
+# must give the same bits.
+SYNTH_RAYS, SYNTH_SAMPLES, SYNTH_CHUNK = 256, 64, 100
+SYNTH_TOL = 1e-5
+# half of the tool's 24 views: a view takes ~5.4 s on an H100 (PERF.md), and
+# all 24 would add ~65 s to a run kept near five minutes; llffhold 8 still
+# holds out views 0 and 8
+SYNTHFF_VIEWS = 12
+LLFF_MINIFIED = (378, 504)  # round(756 / 2), round(1008 / 2)
+LLFF_SPIRAL = 120  # render_path_spiral's N_views
+LLFF_TIMED_FRAMES = 6  # spiral frames timed after the run (its spiral warmed up)
+LLFF_STEPS = 32  # a few dozen steps, every cadence firing at least once
+LLFF_CADENCES = {"i_print": 4, "i_img": 16, "i_weights": 32, "i_testset": 32, "i_video": 32}
+# DeepVoxels and LINEMOD at the tools' 512x512 and 400x400 with fewer views
+# (the tools write 40/10/10 and 30/6/6): a smoke run needs a few; testskip 8
+# keeps one view of each held-out split
+DV_COUNTS = {"train": 6, "validation": 1, "test": 2}
+LINEMOD_COUNTS = {"train": 6, "val": 1, "test": 1}
+FORMAT_STEPS = 24
+FORMAT_CADENCES = {"i_print": 2, "i_img": 8, "i_weights": 0, "i_testset": 0, "i_video": 0}
+# the LINEMOD tool's K is default_intrinsics' (principal point at 200, 200):
+# phase 23 moves the json's principal point by this many pixels, so that
+# Scene.K differs from it and its use in get_rays shows
+LINEMOD_PP_SHIFT = (3.5, -2.5)
 # K1's and K4's symbols
 TRACE_KERNELS = ("fwd_bf16_sm90", "bwd_recompute_sm90", "bwd_chain_sm90", "wgrad_bf16")
 # bytes of stack frame that sincosf's slow-path range reduction (embed_row in
@@ -594,6 +648,13 @@ def main() -> int:
     cli = cli_train_phase(train_info["views"])
     resume_render_phase(cli, dev)
 
+    # 21.-23. the scene formats: the generator's scenes through cli.train
+    formats_root = tempfile.mkdtemp(prefix="chip_smoke_formats_")
+    synthff = synth_phase(formats_root, dev)
+    cli_llff_phase(formats_root, synthff, dev)
+    cli_formats_phase(formats_root, dev)
+    shutil.rmtree(formats_root)
+
     def row(name, source, replaces, launches, err, t):
         return {
             "name": name, "route": "cuda", "source": f"nerf_tpu_torch/csrc/{source}",
@@ -681,8 +742,7 @@ def render_phase(nets, model, scene, n_samples: int, kernel: str, dev):
     shapes, finiteness, exactly 2 launches of ``kernel`` per chunk and none
     of any other, and 4,096 rays strided over frame 0 against the plain
     (unfused) path. Returns the counts, and frame 0's rays for phase 5."""
-    from nerf_tpu_torch.geom.rays import get_rays
-    from nerf_tpu_torch.render.renderer import RenderSettings, prepare_rays, render_rays
+    from nerf_tpu_torch.render.renderer import RenderSettings
     from nerf_tpu_torch.train.loop import render_path
 
     rs = RenderSettings(n_samples=n_samples, n_importance=N_IMPORTANCE, perturb=True,
@@ -703,15 +763,8 @@ def render_phase(nets, model, scene, n_samples: int, kernel: str, dev):
         raise RuntimeError("non-finite frame values")
     check_counts(counts, {kernel: N_FRAMES * 2 * n_chunks}, f"render at S={n_samples}")
 
-    # rays strided over all of frame 0 through the plain (unfused) path
-    plain = dataclasses.replace(model, fused=False, fused_render=False)
-    c2w = torch.as_tensor(poses[0][:3, :4], dtype=torch.float32, device=dev)
-    ro, rd, vd, nv, fv = prepare_rays(*get_rays(H, W, scene.K, c2w), rs, H, W, FOCAL, NEAR, FAR)
-    idx = torch.arange(RENDER_CHECK_RAYS, device=dev) * (H * W // RENDER_CHECK_RAYS)
-    with torch.no_grad():
-        ref = render_rays(nets, plain, rs.eval_mode(), *(t[idx] for t in (ro, rd, vd, nv, fv)))
-    fused_rgb = rgbs[0].reshape(-1, 3)[idx.cpu().numpy()]
-    render_err = float(np.abs(fused_rgb - ref["rgb_map"].cpu().numpy()).max())
+    render_err, fused_rgb, rays = rgb_against_plain(nets, model, rs, rgbs[0], scene.K, poses[0],
+                                                    (H, W, FOCAL), NEAR, FAR, dev)
     phase("render", S=n_samples, frames=N_FRAMES, shape=rgbs.shape, launches=counts,
           ms_per_frame=f"{1e3 * seconds / N_FRAMES:.2f}",
           rays_per_s=f"{N_FRAMES * H * W / seconds:.0f}",
@@ -719,7 +772,27 @@ def render_phase(nets, model, scene, n_samples: int, kernel: str, dev):
           rgb_mean=f"{rgbs.mean():.4f}", rgb_std_checked=f"{fused_rgb.std():.3e}")
     if not render_err <= RENDER_RGB_TOL:
         raise RuntimeError(f"fused render disagrees with the plain path: {render_err}")
-    return {"counts": counts, "rays": (ro, rd, vd)}
+    return {"counts": counts, "rays": rays}
+
+
+def rgb_against_plain(nets, model, rs, rgb, K, c2w, hwf, near: float, far: float, dev):
+    """RENDER_CHECK_RAYS rays strided over a frame ``rgb`` [H, W, 3] that
+    ``render_path`` rendered for the pose ``c2w``, through the plain
+    (unfused) path: the max abs difference of rgb_map, the checked rays'
+    rgb, and the frame's rays (ro, rd, vd) as ``render_rays`` takes them."""
+    from nerf_tpu_torch.geom.rays import get_rays
+    from nerf_tpu_torch.render.renderer import prepare_rays, render_rays
+
+    h, w, focal = hwf
+    plain = dataclasses.replace(model, fused=False, fused_render=False)
+    c2w = torch.as_tensor(np.asarray(c2w)[:3, :4], dtype=torch.float32, device=dev)
+    ro, rd, vd, nv, fv = prepare_rays(*get_rays(h, w, K, c2w), rs, h, w, focal, near, far)
+    idx = torch.arange(RENDER_CHECK_RAYS, device=dev) * (h * w // RENDER_CHECK_RAYS)
+    with torch.no_grad():
+        ref = render_rays(nets, plain, rs.eval_mode(), *(t[idx] for t in (ro, rd, vd, nv, fv)))
+    fused_rgb = rgb.reshape(-1, 3)[idx.cpu().numpy()]
+    err = float(np.abs(fused_rgb - ref["rgb_map"].cpu().numpy()).max())
+    return err, fused_rgb, (ro, rd, vd)
 
 
 def rel_l2(a, b) -> float:
@@ -985,9 +1058,7 @@ def train_phase(scene, dev, n_samples: int, fwd: str, bwd: str, views=None,
     from nerf_tpu_torch.data.scene import Scene
     from nerf_tpu_torch.models.factory import make_model
     from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
-    from nerf_tpu_torch.ops import fused_mlp
-    from nerf_tpu_torch.train.loop import render_path, render_settings_from_config, train
-    from nerf_tpu_torch.utils.profiler import StepTimer, device_peak_flops
+    from nerf_tpu_torch.train.loop import render_path, render_settings_from_config
 
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = config.load_config([
@@ -1010,7 +1081,23 @@ def train_phase(scene, dev, n_samples: int, fwd: str, bwd: str, views=None,
                       render_poses=scene.render_poses, hwf=scene.hwf, K=scene.K,
                       i_train=np.arange(TRAIN_VIEWS), i_val=np.zeros(0, int),
                       i_test=np.zeros(0, int), near=NEAR, far=FAR)
+    info = timed_train(cfg, views, dev, fwd, bwd)
+    return {**info, "model": model, "rs": rs, "views": views}
 
+
+def timed_train(cfg, views, dev, fwd: str, bwd: str, **fields):
+    """train() on ``views`` with ``cfg`` (its cadences off) for WARMUP_STEPS,
+    TIMED_STEPS and PROFILED_STEPS steps: exactly 2 launches of ``fwd`` and
+    of ``bwd`` a timed step and none of any other kernel, a finite and
+    falling loss, ms/step, rays/s and MFU, then the profiled window's device
+    time. ``fields`` go on the phase's line."""
+    from nerf_tpu_torch.models.factory import make_model
+    from nerf_tpu_torch.ops import fused_mlp
+    from nerf_tpu_torch.train.loop import train
+    from nerf_tpu_torch.utils.profiler import StepTimer, device_peak_flops
+
+    model = make_model(cfg)
+    n_samples, n_rand = cfg.N_samples, cfg.N_rand
     losses, marks = [], {}
     end = WARMUP_STEPS + TIMED_STEPS
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -1034,12 +1121,12 @@ def train_phase(scene, dev, n_samples: int, fwd: str, bwd: str, views=None,
     counts = marks["counts"]
     seconds = marks[end] - marks[WARMUP_STEPS]
     loss = torch.stack(losses).cpu().numpy()
-    timer = StepTimer(N_RAND, 2 * n_samples + N_IMPORTANCE,
+    timer = StepTimer(n_rand, 2 * n_samples + cfg.N_importance,
                       fused_mlp.flops_per_point(model.coarse, model.pe_pts, model.pe_views),
                       peak=device_peak_flops(dev))
     rep = timer.report(steps=TIMED_STEPS, elapsed=seconds)
     first, last = float(loss[:5].mean()), float(loss[-5:].mean())
-    phase("train", S=n_samples, steps=TIMED_STEPS, n_rand=N_RAND,
+    phase("train", **fields, S=n_samples, steps=TIMED_STEPS, n_rand=n_rand,
           ms_per_step=f"{1e3 * seconds / TIMED_STEPS:.3f}",
           rays_per_s=f"{rep['rays_per_sec']:.0f}",
           mfu="unknown card" if rep["mfu"] is None else f"{rep['mfu']:.4f}",
@@ -1056,12 +1143,11 @@ def train_phase(scene, dev, n_samples: int, fwd: str, bwd: str, views=None,
     check_counts(counts, want, f"{TIMED_STEPS} steps at S={n_samples}")
     if not last < first:
         raise RuntimeError(f"the loss did not fall: {first} -> {last}")
-    profile_report(prof, marks[end + PROFILED_STEPS] - marks[end], fwd, bwd)
-    return {"cfg": cfg, "model": model, "rs": rs, "views": views, "nets": result.state.nets,
-            "counts": counts}
+    profile_report(prof, marks[end + PROFILED_STEPS] - marks[end], fwd, bwd, **fields)
+    return {"cfg": cfg, "nets": result.state.nets, "counts": counts}
 
 
-def profile_report(prof, seconds: float, fwd: str, bwd: str) -> None:
+def profile_report(prof, seconds: float, fwd: str, bwd: str, **fields) -> None:
     """Device time of the profiled training steps, by kernel and by group
     (the forward kernel ``fwd``, the backward ``bwd``'s kernels, the rest),
     and the device's idle share of the window. The step's launch counts show
@@ -1085,7 +1171,7 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str) -> None:
     apart = {}
     if bwd == "K6":
         apart["composite_bwd"] = sum(us for us, key, _ in rows if "composite_bwd" in key)
-    phase("profile", steps=PROFILED_STEPS, wall_ms_per_step=f"{wall_ms / PROFILED_STEPS:.3f}",
+    phase("profile", **fields, steps=PROFILED_STEPS, wall_ms_per_step=f"{wall_ms / PROFILED_STEPS:.3f}",
           device_ms_per_step=f"{busy_us / 1e3 / PROFILED_STEPS:.3f}",
           idle_share=f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f}" if busy_us else "not measured",
           **{f"{g}_ms_per_step": f"{v / 1e3 / PROFILED_STEPS:.3f}"
@@ -1098,7 +1184,6 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str) -> None:
 def step_grads_phase(info, dev):
     """8 / 12 / 16. one fused step's grads against the plain (unfused) path."""
     from nerf_tpu_torch.geom.rays import get_rays
-    from nerf_tpu_torch.train.step import draw_overrides, loss_fn
 
     model, rs, views, nets = info["model"], info["rs"], info["views"], info["nets"]
     c2w = torch.as_tensor(views.poses[0], device=dev)
@@ -1107,9 +1192,19 @@ def step_grads_phase(info, dev):
     ro, rd = ro[idx], rd[idx]
     target = torch.as_tensor(views.images[0], device=dev).reshape(-1, 3)[idx]
     vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
-    near = torch.full((CHECK_RAYS,), NEAR, device=dev)
-    far = torch.full((CHECK_RAYS,), FAR, device=dev)
-    ov = draw_overrides(torch.Generator(device=dev).manual_seed(7), CHECK_RAYS, rs)
+    grads_against_plain(nets, model, rs, ro, rd, vd, NEAR, FAR, target, dev)
+
+
+def grads_against_plain(nets, model, rs, ro, rd, vd, near, far, target, dev, **fields):
+    """One fused step's weight grads on the rays (ro, rd, as the step's
+    ``loss_fn`` takes them: after NDC where the scene has it; viewdirs vd)
+    against the plain (unfused) path's, on the same draws."""
+    from nerf_tpu_torch.train.step import draw_overrides, loss_fn
+
+    n_rays = ro.shape[0]
+    near = torch.full((n_rays,), near, device=dev)
+    far = torch.full((n_rays,), far, device=dev)
+    ov = draw_overrides(torch.Generator(device=dev).manual_seed(7), n_rays, rs)
     params = [p for level in ("coarse", "fine") for p in nets[level].parameters()]
     names = [f"{level}.{n}" for level in ("coarse", "fine") for n, _ in nets[level].named_parameters()]
     grads = {}
@@ -1118,7 +1213,8 @@ def step_grads_phase(info, dev):
         loss, _ = loss_fn(nets, m, rs, ro, rd, vd, near, far, target, overrides=ov)
         grads[fused] = torch.autograd.grad(loss, params)
     worst, leaf = max((rel_l2(a, b), n) for n, a, b in zip(names, grads[True], grads[False]))
-    phase("grads", S=rs.n_samples, rays=CHECK_RAYS, worst_leaf_rel_l2=f"{worst:.3e}", leaf=leaf, tol=STEP_GRAD_TOL)
+    phase("grads", **fields, S=rs.n_samples, rays=n_rays, worst_leaf_rel_l2=f"{worst:.3e}", leaf=leaf,
+          tol=STEP_GRAD_TOL)
     if not worst <= STEP_GRAD_TOL:
         raise RuntimeError(f"fused step grads disagree with the plain path: {leaf} {worst}")
 
@@ -1914,6 +2010,281 @@ def resume_render_phase(cli, dev):
             and len(psnr) == 1 and np.isfinite(psnr[0]) and png.shape == (H, W, 3) and video):
         raise RuntimeError("cli.render did not render the test view from the newest .tar")
     shutil.rmtree(root)
+
+
+@contextlib.contextmanager
+def spy(module, name: str, calls: list):
+    """While inside, record (args, kwargs, result) of each call of
+    ``module.name``: what the path passed and got, seen from outside."""
+    fn = getattr(module, name)
+
+    def record(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def quiet(fn, *args, **kwargs):
+    """fn's result, its stdout (a scene writer's line a view) dropped."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def synth_phase(root: str, dev) -> str:
+    """21. The analytic field's render on the card against the CPU's, both
+    fields, and in chunks; then the synthff scene written by the port's
+    writer at the tool's 756x1008, backdrop on. Returns its directory."""
+    from nerf_tpu_torch.data import synth
+    from nerf_tpu_torch.tools import make_llff_benchmark_scene as tool
+
+    rng = np.random.default_rng(21)
+    ro = np.array([0.0, 0.0, 4.0]) + rng.uniform(-0.4, 0.4, (SYNTH_RAYS, 3))
+    rd = np.concatenate([rng.uniform(-0.4, 0.4, (SYNTH_RAYS, 2)), -np.ones((SYNTH_RAYS, 1))], -1)
+    ro, rd = (torch.as_tensor(a, dtype=torch.float32) for a in (ro, rd))
+    errs, spreads, chunks_equal = [], [], True
+    with torch.no_grad():
+        for backdrop in (False, True):
+            fp = synth.make_field(0, backdrop=backdrop)
+            cpu = synth.render_gt_rays(fp, ro, rd, 2.0, 6.0, SYNTH_SAMPLES)
+            ro_d, rd_d = ro.to(dev), rd.to(dev)
+            card = synth.render_gt_rays(fp, ro_d, rd_d, 2.0, 6.0, SYNTH_SAMPLES)
+            parts = torch.cat([synth.render_gt_rays(fp, ro_d[i : i + SYNTH_CHUNK],
+                                                    rd_d[i : i + SYNTH_CHUNK], 2.0, 6.0,
+                                                    SYNTH_SAMPLES)
+                               for i in range(0, SYNTH_RAYS, SYNTH_CHUNK)])
+            chunks_equal = chunks_equal and torch.equal(parts, card)
+            errs.append(float((card.cpu() - cpu).abs().max()))
+            spreads.append(float(cpu.std()))
+    datadir = os.path.join(root, "synthff")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quiet(tool.write_scene, datadir, n_views=SYNTHFF_VIEWS, device=dev)
+    seconds = time.perf_counter() - t0
+    phase("synth", rays=SYNTH_RAYS, samples=SYNTH_SAMPLES,
+          card_vs_cpu_max_abs=[f"{e:.3e}" for e in errs], tol=SYNTH_TOL,
+          std=[f"{v:.3f}" for v in spreads], chunks_bit_equal=chunks_equal,
+          views=f"{SYNTHFF_VIEWS} of the tool's {tool.N_VIEWS} (cut for time)", resolution=f"{tool.H}x{tool.W}",
+          s_per_view=f"{seconds / SYNTHFF_VIEWS:.3f}")
+    if not (max(errs) <= SYNTH_TOL and chunks_equal and min(spreads) > 0.05):
+        raise RuntimeError(f"the field's render on the card: errors {errs}, chunks equal "
+                           f"{chunks_equal}, spreads {spreads}")
+    return datadir
+
+
+def format_argv(root: str, config: str, datadir: str, expname: str, n_iters: int, cadences):
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [f"--config={os.path.join(here, 'configs', config)}", f"--datadir={datadir}",
+            f"--basedir={os.path.join(root, 'logs')}", f"--expname={expname}",
+            f"--n_iters={n_iters}", "--data_axis=1"] + [f"--{k}={v}" for k, v in cadences.items()]
+
+
+def check_loss_falls(history, what: str) -> list:
+    """The printed losses: finite, the mean of the last two below the
+    first two's (one batch's loss is noisy)."""
+    losses = [h[1] for h in history]
+    if not (len(losses) >= 4 and np.isfinite(losses).all() and
+            np.mean(losses[-2:]) < np.mean(losses[:2])):
+        raise RuntimeError(f"{what}: the loss is not finite and falling: {losses}")
+    return losses
+
+
+def timed_format_run(root: str, config: str, datadir: str, scene, dev, path: str):
+    """phase 7's timed and profiled windows on a loaded scene, its config's
+    recipe (cadences off)."""
+    from nerf_tpu_torch.config import load_config
+
+    n_iters = WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
+    off = {"i_print": 10, "i_img": 0, "i_weights": 0, "i_testset": 0, "i_video": 0}
+    cfg = load_config(format_argv(root, config, datadir, f"{path}_timed", n_iters, off))
+    return timed_train(cfg, scene, dev, "K1", "K4", path=path)
+
+
+def cli_llff_phase(root: str, datadir: str, dev) -> None:
+    """22. ``cli.train.main`` with configs/synthff.txt on phase 21's scene:
+    _minify's images_2/ through the native Lanczos, NDC rays, the batching
+    sampler and the sigma noise, 2 K1 + 2 K4 a step and 12 K1 a frame,
+    every cadence (the 120-frame spiral among them), a falling loss and a
+    finite holdout PSNR; an NDC frame and an NDC batch's grads against the
+    plain path; then the recipe's timed and profiled windows."""
+    from nerf_tpu_torch.cli import train as cli_train
+    from nerf_tpu_torch.config import load_config
+    from nerf_tpu_torch.data import llff
+    from nerf_tpu_torch.data.rays_dataset import BatchedRaySampler
+    from nerf_tpu_torch.geom.rays import ndc_rays
+    from nerf_tpu_torch.models.factory import make_model
+    from nerf_tpu_torch.train import loop
+    from nerf_tpu_torch.train import step as step_lib
+    from nerf_tpu_torch.utils.io import read_png
+
+    t0 = time.perf_counter()
+    imgdir = llff._minify(datadir, 2)
+    minify_s = time.perf_counter() - t0
+    names = sorted(os.listdir(imgdir))
+    small = read_png(os.path.join(imgdir, names[0]))
+    want = llff.minify_downsample(read_png(os.path.join(datadir, "images", names[0])), 2)
+    want = np.clip(np.round(want), 0, 255).astype(np.uint8)
+    if len(names) != SYNTHFF_VIEWS or small.shape != LLFF_MINIFIED + (3,) or \
+            not np.array_equal(small, want):
+        raise RuntimeError(f"images_2/: {len(names)} views of {small.shape}, equal to the "
+                           f"native Lanczos: {np.array_equal(small, want)}")
+
+    argv = format_argv(root, "synthff.txt", datadir, "llff", LLFF_STEPS, LLFF_CADENCES)
+    cfg = load_config(argv)
+    t0 = time.perf_counter()
+    scene = loop.load_scene(cfg)
+    load_s = time.perf_counter() - t0
+    samplers, ndc, draws = [], [], []
+    reset_counts()
+    t0 = time.perf_counter()
+    with spy(loop, "make_sampler", samplers), spy(step_lib, "ndc_rays", ndc), \
+            spy(step_lib, "draw_overrides", draws):
+        result, out = run_cli(cli_train.main, argv)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+
+    steps, c = LLFF_STEPS, LLFF_CADENCES
+    n_chunks = -(-scene.H * scene.W // CHUNK)
+    frames = steps // c["i_img"] + steps // c["i_testset"] * len(scene.i_test) + \
+        steps // c["i_video"] * LLFF_SPIRAL
+    check_counts(counts, {"K1": 2 * steps + 2 * n_chunks * frames, "K4": 2 * steps,
+                          "recompute": 2 * steps, "chain": 2 * steps},
+                 f"cli.train llff: {steps} steps and {frames} eval frames")
+    ndc_z = [float(o[0][..., 2].max()) for _, _, o in ndc[:1]] + \
+        [float(o[0][..., 2].min()) for _, _, o in ndc[:1]]
+    noisy = all("noise0" in d and "noise1" in d for _, _, d in draws)
+    sampler = type(samplers[0][2]).__name__ if len(samplers) == 1 else samplers
+    if not (cfg.ndc and len(ndc) == steps and max(abs(z + 1.0) for z in ndc_z) < 1e-4 and
+            sampler == BatchedRaySampler.__name__ and len(draws) == steps and noisy and
+            cfg.raw_noise_std == 1.0):
+        raise RuntimeError(f"not the llff recipe: ndc {cfg.ndc}, {len(ndc)} NDC transforms, "
+                           f"ray origins at z {ndc_z}, sampler {sampler}, sigma noise {noisy}")
+    evals = [float(m) for m in re.findall(r"\[EVAL\] Iter: \d+ holdout view \d+ PSNR: (\S+)", out)]
+    if len(evals) != steps // c["i_img"] or not np.isfinite(evals).all():
+        raise RuntimeError(f"expected {steps // c['i_img']} holdout evals, got {evals}")
+    expdir = os.path.join(root, "logs", "llff")
+    tars = sorted(f for f in os.listdir(expdir) if f.endswith(".tar"))
+    test_png = read_png(os.path.join(expdir, f"testset_{steps:06d}", "000.png"))
+    spiral = [f for f in os.listdir(expdir) if f.startswith(f"llff_spiral_{steps:06d}_rgb")]
+    n_spiral = (LLFF_SPIRAL if spiral and spiral[0].endswith(".mp4") else
+                len(os.listdir(os.path.join(expdir, spiral[0]))) if spiral else 0)
+    if tars != [f"{steps:06d}.tar"] or test_png.shape != LLFF_MINIFIED + (3,) or \
+            n_spiral != LLFF_SPIRAL:
+        raise RuntimeError(f"tars {tars}, test PNG {test_png.shape}, spiral {spiral} "
+                           f"({n_spiral} frames)")
+    losses = check_loss_falls(result.history, "cli.train llff")
+
+    # spiral frames timed (12 K1 each), the first against the plain path;
+    # an NDC batch's grads against the plain path
+    model, rs = make_model(cfg), loop.render_settings_from_config(cfg)
+    nets = result.state.nets
+    poses = scene.render_poses[:LLFF_TIMED_FRAMES]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rgbs, _ = loop.render_path(nets, model, rs, scene, poses, chunk=CHUNK, device=dev)
+    torch.cuda.synchronize()
+    frame_ms = 1e3 * (time.perf_counter() - t0) / len(poses)
+    check_counts(read_counts(), {"K1": 2 * n_chunks * len(poses)}, "llff spiral frames")
+    frame_err, _, _ = rgb_against_plain(nets, model, rs, rgbs[0], scene.K, poses[0], scene.hwf,
+                                        0.0, 1.0, dev)
+    batch = BatchedRaySampler(scene, CHECK_RAYS, torch.Generator(device=dev).manual_seed(5),
+                              device=dev)
+    ro, rd, target = batch.next_batch()
+    vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    ro, rd = ndc_rays(scene.H, scene.W, scene.focal, 1.0, ro, rd)
+    phase("cli_llff", steps=steps, seconds=f"{seconds:.2f}", minify_s=f"{minify_s:.3f}",
+          images_2=f"{len(names)} x {small.shape}", load_s=f"{load_s:.3f}",
+          sampler=sampler, ndc_transforms=len(ndc), ray_origin_z=ndc_z, noisy_draws=len(draws),
+          launches=counts, eval_frames=frames, k1_per_frame=2 * n_chunks,
+          holdout_psnr=[f"{p:.3f}" for p in evals], tars=tars,
+          spiral=f"{spiral[0]} ({n_spiral} frames)", loss_first=f"{losses[0]:.6f}",
+          loss_last=f"{losses[-1]:.6f}", spiral_ms_per_frame=f"{frame_ms:.2f}",
+          ndc_rgb_vs_plain_max_abs=f"{frame_err:.3e}", tol=RENDER_RGB_TOL)
+    if not frame_err <= RENDER_RGB_TOL:
+        raise RuntimeError(f"the NDC frame disagrees with the plain path: {frame_err}")
+    grads_against_plain(nets, model, rs, ro, rd, vd, 0.0, 1.0, target, dev, path="llff (NDC)")
+    timed_format_run(root, "synthff.txt", datadir, scene, dev, "llff")
+
+
+def cli_formats_phase(root: str, dev) -> None:
+    """23. The DeepVoxels and LINEMOD scenes written at the tools' 512x512
+    and 400x400 (fewer views), each through ``cli.train.main`` with its
+    config (batching; no_batching with precrop): 2 K1 + 2 K4 a step, a
+    falling loss, the loader's near/far, for LINEMOD the json's K in
+    get_rays; then each recipe's timed and profiled windows."""
+    from nerf_tpu_torch.cli import train as cli_train
+    from nerf_tpu_torch.config import load_config
+    from nerf_tpu_torch.data import rays_dataset
+    from nerf_tpu_torch.data.scene import default_intrinsics
+    from nerf_tpu_torch.tools import make_deepvoxels_scene, make_linemod_scene
+    from nerf_tpu_torch.train import loop
+
+    for path, tool, config, views, sampler_want in (
+            ("dv", make_deepvoxels_scene, "synth_dv.txt", DV_COUNTS, "BatchedRaySampler"),
+            ("linemod", make_linemod_scene, "synth_linemod.txt", LINEMOD_COUNTS,
+             "ImageRaySampler")):
+        datadir = os.path.join(root, path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quiet(tool.write_scene, datadir, views, device=dev)
+        write_s = (time.perf_counter() - t0) / sum(views.values())
+        if path == "linemod":
+            for split in views:
+                meta_path = os.path.join(datadir, f"transforms_{split}.json")
+                with open(meta_path) as f:
+                    meta = json.load(f)
+                for frame in meta["frames"]:
+                    frame["intrinsic_matrix"][0][2] += LINEMOD_PP_SHIFT[0]
+                    frame["intrinsic_matrix"][1][2] += LINEMOD_PP_SHIFT[1]
+                with open(meta_path, "w") as f:
+                    json.dump(meta, f)
+        argv = format_argv(root, config, datadir, path, FORMAT_STEPS, FORMAT_CADENCES)
+        cfg = load_config(argv)
+        scene = loop.load_scene(cfg)
+        default_k = default_intrinsics(scene.H, scene.W, scene.focal)
+        if path == "dv":
+            bounds_ok = abs(scene.near - 1.0) < 1e-4 and abs(scene.far - 3.0) < 1e-4
+        else:
+            bounds_ok = (scene.near, scene.far) == (2.0, 6.0) and \
+                abs(scene.K[0, 2] - default_k[0, 2] - LINEMOD_PP_SHIFT[0]) < 1e-4 and \
+                abs(scene.K[1, 2] - default_k[1, 2] - LINEMOD_PP_SHIFT[1]) < 1e-4
+        samplers, get_rays_calls = [], []
+        reset_counts()
+        t0 = time.perf_counter()
+        with spy(loop, "make_sampler", samplers), spy(rays_dataset, "get_rays", get_rays_calls):
+            result, out = run_cli(cli_train.main, argv)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        steps = FORMAT_STEPS
+        n_chunks = -(-scene.H * scene.W // CHUNK)
+        evals = steps // FORMAT_CADENCES["i_img"]
+        check_counts(counts, {"K1": 2 * steps + 2 * n_chunks * evals, "K4": 2 * steps,
+                              "recompute": 2 * steps, "chain": 2 * steps},
+                     f"cli.train {path}: {steps} steps and {evals} holdout frames")
+        sampler = type(samplers[0][2]).__name__ if len(samplers) == 1 else samplers
+        rays_k = [np.asarray(args[2]) for args, _, _ in get_rays_calls]
+        k_reached = bool(rays_k) and all(np.array_equal(k, scene.K) for k in rays_k) and \
+            not np.array_equal(scene.K, default_k)
+        psnr = [float(m) for m in re.findall(r"\[EVAL\] Iter: \d+ holdout view \d+ PSNR: (\S+)", out)]
+        losses = check_loss_falls(result.history, f"cli.train {path}")
+        phase(f"cli_{path}", views=views, resolution=f"{scene.H}x{scene.W}",
+              s_per_view=f"{write_s:.3f}", near=f"{scene.near:.6f}", far=f"{scene.far:.6f}",
+              K=scene.K.tolist(), steps=steps, seconds=f"{seconds:.2f}", sampler=sampler,
+              launches=counts, holdout_psnr=[f"{p:.3f}" for p in psnr],
+              get_rays_calls_with_scene_K=f"{len(rays_k)} ({k_reached})",
+              loss_first=f"{losses[0]:.6f}", loss_last=f"{losses[-1]:.6f}")
+        if not (bounds_ok and sampler == sampler_want and len(psnr) == evals and
+                np.isfinite(psnr).all() and (path == "dv" or k_reached)):
+            raise RuntimeError(f"cli.train {path}: bounds {bounds_ok} ({scene.near}, "
+                               f"{scene.far}), sampler {sampler}, holdout {psnr}, K in "
+                               f"get_rays {k_reached}")
+        timed_format_run(root, config, datadir, scene, dev, path)
 
 
 if __name__ == "__main__":

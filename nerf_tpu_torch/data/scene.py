@@ -1,7 +1,7 @@
 """The common Scene structure the dataset loaders emit (host-side numpy).
 
-``data/blender.py`` builds one from a blender-format scene on disk; the
-llff, deepvoxels and LINEMOD loaders are not ported yet (ROADMAP A.4).
+The four loaders each build one from a scene on disk: ``data/blender.py``,
+``data/llff.py``, ``data/deepvoxels.py`` and ``data/linemod.py``.
 """
 
 from __future__ import annotations

@@ -2,12 +2,13 @@
 
 Counterpart of nerf_tpu/train/loop.py (ref ``train()``, run_nerf.py:534-872,
 and ``render_path``, run_nerf.py:137-175), for one device: ``load_scene``
-(blender), the ``args.txt``/``config.txt`` snapshots, resume from the
-reference's ``.tar`` (utils/checkpoint.py), the render-only branch with its
-video, and the step loop with the i_print, i_img (holdout PSNR), i_weights
-(checkpoints), i_video (spiral), i_testset and trace events at nerf_tpu's
-steps. nerf_tpu's ``fuse_steps`` (a lax.scan of steps) is ignored: its
-counterpart is a CUDA graph of the step (ROADMAP A.3).
+(blender, llff, deepvoxels, LINEMOD), the ``args.txt``/``config.txt``
+snapshots, resume from the reference's ``.tar`` (utils/checkpoint.py), the
+render-only branch with its video, and the step loop with the i_print,
+i_img (holdout PSNR), i_weights (checkpoints), i_video (spiral), i_testset
+and trace events at nerf_tpu's steps. nerf_tpu's ``fuse_steps`` (a
+lax.scan of steps) is ignored: its counterpart is a CUDA graph of the step
+(ROADMAP A.3).
 """
 
 from __future__ import annotations
@@ -34,9 +35,6 @@ from nerf_tpu_torch.utils.io import save_png, save_video
 from nerf_tpu_torch.utils.metrics import img2mse, mse2psnr, psnr_np
 from nerf_tpu_torch.utils.profiler import StepTimer, device_peak_flops, trace
 
-# dataset types nerf_tpu loads and the port does not yet
-UNPORTED_DATASETS = ("llff", "deepvoxels", "LINEMOD")
-
 
 def load_scene(cfg: NeRFConfig) -> Scene:
     """Dataset dispatch (ref run_nerf.py:541-608)."""
@@ -44,10 +42,24 @@ def load_scene(cfg: NeRFConfig) -> Scene:
         from nerf_tpu_torch.data.blender import load_blender_scene
 
         return load_blender_scene(cfg.datadir, cfg.half_res, cfg.testskip, cfg.white_bkgd)
-    if cfg.dataset_type in UNPORTED_DATASETS:
-        raise NotImplementedError(
-            f"the {cfg.dataset_type} loader is not ported yet (ROADMAP A.4); "
-            "blender scenes load, or pass a Scene to train()")
+    if cfg.dataset_type == "llff":
+        from nerf_tpu_torch.data.llff import load_llff_scene
+
+        return load_llff_scene(
+            cfg.datadir,
+            factor=cfg.factor,
+            spherify=cfg.spherify,
+            llffhold=cfg.llffhold,
+            no_ndc=cfg.no_ndc,
+        )
+    if cfg.dataset_type == "deepvoxels":
+        from nerf_tpu_torch.data.deepvoxels import load_deepvoxels_scene
+
+        return load_deepvoxels_scene(cfg.datadir, cfg.shape, cfg.testskip)
+    if cfg.dataset_type == "LINEMOD":
+        from nerf_tpu_torch.data.linemod import load_linemod_scene
+
+        return load_linemod_scene(cfg.datadir, cfg.half_res, cfg.testskip, cfg.white_bkgd)
     raise ValueError(f"Unknown dataset type: {cfg.dataset_type}")
 
 
@@ -130,8 +142,7 @@ class TrainResult:
 
 
 def _check_supported(cfg: NeRFConfig, dev: torch.device) -> None:
-    """Raise on what nerf_tpu's train() does and this one does not yet (the
-    loaders other than blender's raise in ``load_scene``)."""
+    """Raise on what nerf_tpu's train() does and this one does not yet."""
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 1
     if cfg.data_axis > 1 or (cfg.data_axis == 0 and n_cards > 1):
         raise NotImplementedError("not ported yet: data parallelism over several devices "

@@ -36,7 +36,7 @@ from nerf_tpu_torch.cli import train as cli_train
 from nerf_tpu_torch.data.blender import load_blender_scene
 from nerf_tpu_torch.models import factory as tfactory
 from nerf_tpu_torch.models.convert import jax_arrays_from_train_state
-from nerf_tpu_torch.train.loop import UNPORTED_DATASETS, load_scene, train
+from nerf_tpu_torch.train.loop import load_scene, train
 from nerf_tpu_torch.train.step import init_train_state
 from nerf_tpu_torch.utils import checkpoint
 from nerf_tpu_torch.utils.io import read_png, write_png
@@ -158,13 +158,20 @@ def test_blender_scene_matches_jax(blender_dir, half_res, testskip, white_bkgd):
     assert ours.images.dtype == np.float32 and ours.images.shape[-1] == 3
 
 
-@pytest.mark.parametrize("dataset_type", UNPORTED_DATASETS)
+@pytest.mark.parametrize("dataset_type", ["llff", "deepvoxels", "LINEMOD"])
 def test_unported_datasets_raise(tmp_path, dataset_type):
-    cfg = tconfig.NeRFConfig(dataset_type=dataset_type, basedir=str(tmp_path), data_axis=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+    """load_scene and train() dispatch llff, deepvoxels and LINEMOD to their
+    loaders: on a directory with no scene the loader raises for the missing
+    files (tests/test_torch_port_data.py loads real scenes); an unknown type
+    raises ValueError."""
+    cfg = tconfig.NeRFConfig(dataset_type=dataset_type, datadir=str(tmp_path / "none"),
+                             basedir=str(tmp_path), data_axis=1)
+    with pytest.raises(FileNotFoundError):
         load_scene(cfg)
-    with pytest.raises(NotImplementedError, match=dataset_type):
+    with pytest.raises(FileNotFoundError):
         train(cfg, device="cpu")
+    with pytest.raises(ValueError, match="Unknown dataset type"):
+        load_scene(dataclasses.replace(cfg, dataset_type=dataset_type.upper() + "_X"))
 
 
 # (c) the .tar both ways

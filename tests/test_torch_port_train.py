@@ -496,12 +496,15 @@ def test_train_runs_fused_render_on_cpu(tmp_path, monkeypatch):
 
 
 def test_train_raises_on_what_is_not_ported(tmp_path):
-    """What is left: data parallelism, and (with no scene given) the
-    loaders other than blender's; the cadences, ft_path and trace run
-    (tests/test_torch_port_cli.py)."""
+    """What is left: data parallelism. With no scene given, train() loads
+    the config's scene with every dataset type, llff's loader among them
+    (on a directory with no scene it raises for the missing file); the
+    cadences, ft_path and trace run (tests/test_torch_port_cli.py), the
+    loaders are tests/test_torch_port_data.py's."""
     scene = make_scene(n_train=2, n_test=1, H=8, W=8)
     cfg = tconfig.NeRFConfig(basedir=str(tmp_path), n_iters=2, data_axis=1)
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         train(dataclasses.replace(cfg, data_axis=2), scene, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        train(dataclasses.replace(cfg, dataset_type="llff"), device="cpu")
+    with pytest.raises(FileNotFoundError, match="poses_bounds.npy"):
+        train(dataclasses.replace(cfg, dataset_type="llff", datadir=str(tmp_path / "none")),
+              device="cpu")
