@@ -148,6 +148,21 @@ procedural field (``data/synth.py``) and trained through ``cli.train``:
    near/far (the hemisphere's 1 and 3; the json's floor and ceil, 2 and 6)
    and, with the json's principal point moved by ``LINEMOD_PP_SHIFT``, its
    K in every get_rays call of the sampler; then phase 7's windows on each.
+Data parallelism (``parallel/mesh.py``, ``parallel/distributed.py``):
+24. dp: phase 19's teacher scene, ``cli.train.main`` at the lego recipe
+   (N_rand 4096) for 16 steps with i_print, i_img, i_weights and i_testset
+   firing, once in this process and once over 2 gloo ranks that
+   ``distributed.launch`` starts on cuda:0 (one card, so no rate is
+   printed): each rank 2 K1 + 2 K4 launches a step at 2,048 rays (the
+   counters and ray counts come back from the ranks), its rows of the
+   holdout frames and its share of the test frame, a finite and falling
+   loss, the two ranks' parameters and Adam moments ``torch.equal``, the
+   loss at each i_print and the final parameters within the CPU test's
+   bounds of the one-process run, one .tar equal to rank 0's state, the
+   test-set PNG; then with two or more cards the same run on NCCL, a card
+   a rank, and the bf16 step's ms/step and all-reduce device ms from rank
+   0's profile (``tools/dp_time.py``'s rank); with one card a one-rank
+   NCCL group's 2 steps and one all-reduce.
 
 The last two lines are a JSON object of kernel numbers (K1-K7, the
 backward's recompute and chain launches, K6's compositing pass, and K7's
@@ -306,6 +321,23 @@ TRACE_KERNELS = ("fwd_bf16_sm90", "bwd_recompute_sm90", "bwd_chain_sm90", "wgrad
 # csrc/fused_mlp_common.cuh) gives every kernel that embeds points; a
 # register spill would grow the frame beyond it
 SINCOS_STACK = 32
+# data parallelism (phase 24): 16 steps of the lego recipe over 2 ranks,
+# i_print, i_img, i_weights and i_testset firing, held to one process's run
+# of the same steps by tests/test_torch_port_parallel.py's bounds: the loss
+# at each i_print within DP_LOSS_RTOL, each weight within 4 lr and each
+# leaf's update within DP_UPDATE_TOL relative L2 (Adam moves a weight by
+# about lr a step whatever the size of its grad, so f32 sums in another
+# order move a weight by up to a few lr). Like that test, in float32 (the
+# config's "strict parity" dtype, K1's and K4's f32 kernels): in bf16 a
+# weight that moved by a sum's last bit rounds some activations to the
+# other bf16 neighbour, and the teacher scene's loss, ~1e-4 (an mse of two
+# near-white images), moved by 1.6e-3 of itself on an H100 (PERF.md)
+DP_PARITY_DTYPE = "float32"
+DP_RANKS, DP_STEPS = 2, 16
+DP_CADENCES = {"i_print": 4, "i_img": 8, "i_weights": 16, "i_testset": 16, "i_video": 0}
+DP_LOSS_RTOL, DP_UPDATE_TOL = 1e-5, 5e-2
+# the steps of the one-rank NCCL group on a machine with one card
+DP_ONE_RANK_STEPS = 2
 
 
 def counters():
@@ -654,6 +686,9 @@ def main() -> int:
     cli_llff_phase(formats_root, synthff, dev)
     cli_formats_phase(formats_root, dev)
     shutil.rmtree(formats_root)
+
+    # 24. data parallelism: cli.train over ranks
+    dp_phase(train_info["views"], dev)
 
     def row(name, source, replaces, launches, err, t):
         return {
@@ -1162,6 +1197,11 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str, **fields) -> None:
               bwd: ("composite_bwd",) + k4 if bwd == "K6" else k4}
     rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
+    # ROADMAP C.7: the device's user annotations (record_function ranges,
+    # Adam's among them) span kernels that are rows of their own; the
+    # trace's own kernel, copy and set events are the check of the sum
+    notes_us = sum(r[0] for r in device_rows(prof, annotations=True))
+    trace_us = trace_device_us(prof)
     share = {g: 0.0 for g in list(groups) + ["other"]}
     for us, key, _ in rows:
         g = next((g for g, keys in groups.items() if any(k in key for k in keys)), "other")
@@ -1174,11 +1214,34 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str, **fields) -> None:
     phase("profile", **fields, steps=PROFILED_STEPS, wall_ms_per_step=f"{wall_ms / PROFILED_STEPS:.3f}",
           device_ms_per_step=f"{busy_us / 1e3 / PROFILED_STEPS:.3f}",
           idle_share=f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f}" if busy_us else "not measured",
+          annotation_ms_per_step=f"{notes_us / 1e3 / PROFILED_STEPS:.3f}",
+          idle_share_with_annotations=f"{max(0.0, 1 - (busy_us + notes_us) / 1e3 / wall_ms):.3f}",
+          **{f"trace_{cat}_ms_per_step": f"{us / 1e3 / PROFILED_STEPS:.3f}"
+             for cat, us in trace_us.items()},
           **{f"{g}_ms_per_step": f"{v / 1e3 / PROFILED_STEPS:.3f}"
              for g, v in {**share, **apart}.items()})
     for us, key, count in sorted(rows, reverse=True)[:12]:
         print(f"  device {us / 1e3 / PROFILED_STEPS:8.3f} ms/step  x{count // PROFILED_STEPS:<4d} {key[:90]}",
               flush=True)
+
+
+def trace_device_us(prof) -> dict:
+    """Device us of a profile by the Chrome trace's own categories: the
+    kernels, copies and sets, and the user annotations apart."""
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_trace_"), "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)
+    shutil.rmtree(os.path.dirname(path))
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    total = {"kernel_copy_set": 0.0, "gpu_user_annotation": 0.0}
+    for e in events:
+        cat = e.get("cat", "")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            total["kernel_copy_set"] += float(e.get("dur", 0))
+        elif cat == "gpu_user_annotation":
+            total["gpu_user_annotation"] += float(e.get("dur", 0))
+    return total
 
 
 def step_grads_phase(info, dev):
@@ -2285,6 +2348,189 @@ def cli_formats_phase(root: str, dev) -> None:
                                f"{scene.far}), sampler {sampler}, holdout {psnr}, K in "
                                f"get_rays {k_reached}")
         timed_format_run(root, config, datadir, scene, dev, path)
+
+
+def dp_state(state) -> dict:
+    """A train state's step, parameters and Adam moments on the CPU, by
+    level and parameter name."""
+    return {
+        "step": state.step,
+        "params": {lvl: {n: p.detach().cpu() for n, p in net.named_parameters()}
+                   for lvl, net in state.nets.items()},
+        "moments": {lvl: {n: [state.optimizer.state[p][k].cpu() for k in ("exp_avg", "exp_avg_sq")]
+                          for n, p in net.named_parameters() if p in state.optimizer.state}
+                    for lvl, net in state.nets.items()},
+    }
+
+
+def dp_rank(device, argv):
+    """24. ``cli.train.main(argv)`` on ``device``, in the rank's group (or
+    alone), with the launch counters and the ray count of each K1 and K4
+    launch; returns them with the history and the final state."""
+    from nerf_tpu_torch.cli import train as cli_train
+    from nerf_tpu_torch.ops import fused_mlp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the wrappers' launch helpers (the wrappers hold the counters)
+    rays = {"K1": [], "K4": []}
+    fwd, bwd = fused_mlp._launch, fused_mlp._launch_bwd
+
+    def k1(kp, rays_o, *args):
+        rays["K1"].append(rays_o.shape[0])
+        return fwd(kp, rays_o, *args)
+
+    def k4(kp, rays_o, *args):
+        rays["K4"].append(rays_o.shape[0])
+        return bwd(kp, rays_o, *args)
+
+    reset_counts()
+    fused_mlp._launch, fused_mlp._launch_bwd = k1, k4
+    try:
+        result = cli_train.main(argv, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    finally:
+        fused_mlp._launch, fused_mlp._launch_bwd = fwd, bwd
+    return {"counts": read_counts(), "rays": rays, "history": result.history,
+            "state": dp_state(result.state)}
+
+
+def dp_argv(root: str, expname: str, data_axis: int, dtype: str = DP_PARITY_DTYPE):
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [f"--config={os.path.join(here, 'configs', 'lego.txt')}",
+            f"--datadir={os.path.join(root, 'lego')}", f"--basedir={os.path.join(root, 'logs')}",
+            f"--expname={expname}", f"--N_rand={N_RAND}", f"--n_iters={DP_STEPS}",
+            f"--data_axis={data_axis}", f"--compute_dtype={dtype}"] + \
+        [f"--{k}={v}" for k, v in DP_CADENCES.items()]
+
+
+def dp_check_run(ranks, one, root: str, expname: str, start, what: str) -> dict:
+    """24. The ranks of one run against each other and against the
+    one-process run ``one``: launches, ray counts, replicas, the loss and
+    the parameters, the .tar and the test-set PNG. Returns the numbers."""
+    from nerf_tpu_torch.config import load_config
+    from nerf_tpu_torch.models.factory import make_model
+    from nerf_tpu_torch.utils import checkpoint
+    from nerf_tpu_torch.utils.io import read_png
+
+    n, steps = len(ranks), DP_STEPS
+    evals = steps // DP_CADENCES["i_img"]
+    frame_chunks = -(-H * W // CHUNK)
+    # a rank renders its rows of each holdout frame, and rank 0 the test view
+    rank_rows = -(-H * W // n)
+    rank_chunks = -(-rank_rows // min(CHUNK, rank_rows))
+    for r, out in enumerate([one] + list(ranks)):
+        tag, rays = ("one process", N_RAND) if r == 0 else (f"rank {r - 1}", N_RAND // n)
+        k1 = 2 * steps + 2 * evals * (frame_chunks if r == 0 else rank_chunks) + \
+            (2 * frame_chunks if r <= 1 else 0)
+        # (the recompute and chain launches are the bf16 backward's)
+        phase1 = 2 * steps if DP_PARITY_DTYPE == "bfloat16" else 0
+        check_counts(out["counts"], {"K1": k1, "K4": 2 * steps, "recompute": phase1,
+                                     "chain": phase1}, f"{what}, {tag}")
+        if out["rays"]["K1"].count(rays) != 2 * steps or \
+                out["rays"]["K4"] != [rays] * (2 * steps):
+            raise RuntimeError(f"{what}, {tag}: K1 launches at {rays} rays "
+                               f"{out['rays']['K1'].count(rays)}, K4's rays {out['rays']['K4']}")
+    losses = check_loss_falls(ranks[0]["history"], what)
+    if any(out["history"] != ranks[0]["history"] for out in ranks):
+        raise RuntimeError(f"{what}: the ranks' histories differ")
+    equal = all(torch.equal(a, out["state"]["params"][lvl][name])
+                for out in ranks[1:] for lvl, ps in ranks[0]["state"]["params"].items()
+                for name, a in ps.items())
+    equal = equal and all(torch.equal(a, b) for out in ranks[1:]
+                          for lvl, ms in ranks[0]["state"]["moments"].items()
+                          for name, pair in ms.items()
+                          for a, b in zip(pair, out["state"]["moments"][lvl][name]))
+    if not equal:
+        raise RuntimeError(f"{what}: the ranks' parameters or moments differ")
+    want_losses = [h[1] for h in one["history"]]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    cfg = load_config(dp_argv(root, expname, n))
+    worst_abs, worst_update = 0.0, (0.0, "")
+    for lvl, ps in ranks[0]["state"]["params"].items():
+        for name, got in ps.items():
+            want, p0 = one["state"]["params"][lvl][name], start[lvl][name]
+            worst_abs = max(worst_abs, float((got - want).abs().max()))
+            moved = float(torch.linalg.norm(want - p0))
+            if moved > 0:
+                worst_update = max(worst_update,
+                                   (float(torch.linalg.norm(got - want)) / moved, f"{lvl}.{name}"))
+    expdir = os.path.join(root, "logs", expname)
+    tars = [os.path.basename(t) for t in checkpoint.find_checkpoints(cfg.basedir, cfg.expname)]
+    saved = checkpoint.load_checkpoint(os.path.join(expdir, f"{steps:06d}.tar"), make_model(cfg),
+                                       cfg.lrate, device="cpu")
+    tar_equal = saved.step == steps and all(
+        torch.equal(p, ranks[0]["state"]["params"][lvl][name])
+        and all(torch.equal(saved.optimizer.state[p][k], m) for k, m in
+                zip(("exp_avg", "exp_avg_sq"), ranks[0]["state"]["moments"][lvl][name]))
+        for lvl, net in saved.nets.items() for name, p in net.named_parameters())
+    png = read_png(os.path.join(expdir, f"testset_{steps:06d}", "000.png"))
+    numbers = {"loss_max_rel_err": loss_rel, "param_max_abs_diff": worst_abs,
+               "worst_update_rel_l2": worst_update, "tars": tars, "tar_equals_rank0": tar_equal,
+               "test_png": png.shape, "losses": [f"{x:.6f}" for x in losses]}
+    if not (loss_rel <= DP_LOSS_RTOL and worst_abs <= 4 * cfg.lrate and
+            worst_update[0] <= DP_UPDATE_TOL and tars == [f"{steps:06d}.tar"] and tar_equal
+            and png.shape == (H, W, 3)):
+        raise RuntimeError(f"{what} against one process: {numbers}")
+    return numbers
+
+
+def dp_phase(views, dev):
+    """24. Data parallelism through ``cli.train.main`` on phase 19's teacher
+    scene: one process, then 2 gloo ranks on this card, then NCCL with a
+    card a rank (or a one-rank NCCL group)."""
+    from nerf_tpu_torch.config import load_config
+    from nerf_tpu_torch.models.factory import init_nets, make_model
+    from nerf_tpu_torch.parallel import distributed
+    from nerf_tpu_torch.tools import dp_time
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    write_blender_scene(views, os.path.join(root, "lego"))
+    cfg = load_config(dp_argv(root, "one", 1))
+    start = {lvl: {n: p.detach().cpu() for n, p in net.named_parameters()}
+             for lvl, net in init_nets(make_model(cfg), cfg.seed, dev).items()}
+    t0 = time.perf_counter()
+    one = dp_rank(dev, dp_argv(root, "one", 1))
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = distributed.launch(dp_rank, DP_RANKS, "cuda:0", backend="gloo",
+                               args=(dp_argv(root, "gloo", DP_RANKS),))
+    gloo_s = time.perf_counter() - t0
+    numbers = dp_check_run(ranks, one, root, "gloo", start, "dp gloo")
+    # two processes time-slice one card here: their speed means nothing
+    phase("dp", backend="gloo", ranks=DP_RANKS, devices="cuda:0 for both ranks (one card)",
+          steps=DP_STEPS, n_rand=N_RAND, rays_per_rank=N_RAND // DP_RANKS, dtype=DP_PARITY_DTYPE,
+          launches=[out["counts"] for out in ranks], one_process_launches=one["counts"],
+          replicas_equal=True, one_process_s=f"{one_s:.2f}", launch_s=f"{gloo_s:.2f}",
+          **numbers)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        ranks = distributed.launch(dp_rank, DP_RANKS, "cuda", args=(dp_argv(root, "nccl", DP_RANKS),))
+        numbers = dp_check_run(ranks, one, root, "nccl", start, "dp nccl")
+        # the bf16 step's time, a card a rank (tools/dp_time.py's windows)
+        timed = distributed.launch(dp_time.time_rank, DP_RANKS, "cuda")
+        devices = sorted({t["device"] for t in timed})
+        if len(devices) != DP_RANKS or any(t["all_reduce_of_ones"] != [DP_RANKS] * 8 for t in timed):
+            raise RuntimeError(f"dp nccl: devices {devices}, all-reduce {timed}")
+        phase("dp", backend="nccl", ranks=DP_RANKS, devices=devices, cards=cards, steps=DP_STEPS,
+              launches=[out["counts"] for out in ranks], replicas_equal=True, **numbers,
+              timed_dtype="bfloat16", ms_per_step=f"{timed[0]['ms_per_step']:.3f}",
+              window_ms_per_step=[f"{t:.3f}" for t in timed[0]["window_ms_per_step"]],
+              device_ms_per_step=f"{timed[0]['device_ms_per_step']:.3f}",
+              allreduce_device_ms_per_step=f"{timed[0]['allreduce_ms_per_step']:.3f}",
+              allreduce_kernels=timed[0]["allreduce_kernels"])
+    else:
+        (out,) = distributed.launch(dp_time.time_rank, 1, "cuda",
+                                    args=(0, 0, 0, DP_ONE_RANK_STEPS))
+        if out["all_reduce_of_ones"] != [1.0] * 8 or not np.isfinite(out["loss"]):
+            raise RuntimeError(f"dp nccl, one rank: {out}")
+        phase("dp", backend="nccl", ranks=1, devices=[out["device"]],
+              note="a second card was not present: a one-rank NCCL group",
+              steps=DP_ONE_RANK_STEPS, loss=f"{out['loss']:.6f}",
+              allreduce_device_ms_per_step=f"{out['allreduce_ms_per_step']:.3f}",
+              allreduce_kernels=out["allreduce_kernels"], all_reduce_of_ones="ok")
+    shutil.rmtree(root)
 
 
 if __name__ == "__main__":

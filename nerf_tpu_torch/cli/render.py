@@ -5,7 +5,9 @@ Counterpart of nerf_tpu/cli/render.py:
     python -m nerf_tpu_torch.cli.render --config configs/lego.txt [--render_test]
 
 loads the experiment's newest ``.tar`` checkpoint and renders the pose path
-(or the test set, with PSNRs) to PNGs and a video.
+(or the test set, with PSNRs) to PNGs and a video; with ``--data_axis``
+over ranks as ``cli.train`` runs them, each rendering a share of the
+frames.
 """
 
 from __future__ import annotations
@@ -13,14 +15,14 @@ from __future__ import annotations
 import dataclasses
 import sys
 
+from nerf_tpu_torch.cli.train import run
 from nerf_tpu_torch.config import load_config
 from nerf_tpu_torch.device import DeviceLike
-from nerf_tpu_torch.train.loop import TrainResult, train
 
 
-def main(argv=None, device: DeviceLike = None) -> TrainResult:
+def main(argv=None, device: DeviceLike = None):
     """Parse ``argv`` and render on ``device`` (the card unless told otherwise)."""
-    return train(dataclasses.replace(load_config(argv), render_only=True), device=device)
+    return run(dataclasses.replace(load_config(argv), render_only=True), device)
 
 
 if __name__ == "__main__":

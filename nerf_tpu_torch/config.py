@@ -8,10 +8,12 @@ config-file format (configs/*.txt), and CLI over file over defaults
 
 The additions beyond the reference sit at the bottom of the dataclass:
 compute dtype, fused-kernel toggle, data-parallel controls and a seed (the
-reference seeds numpy only, run_nerf.py:23). Fields that only nerf_tpu's
-JAX runtime reads (``coordinator_address``, ``num_processes``,
-``process_id``, ``donate_state``, ``fuse_steps``) are kept so a config
-parses the same in both packages; the port ignores them.
+reference seeds numpy only, run_nerf.py:23). ``data_axis`` is the number of
+ranks, a card each (0: every visible card), and ``coordinator_address``,
+``num_processes`` and ``process_id`` name a process group to join
+(parallel/distributed.py). Fields that only nerf_tpu's JAX runtime reads
+(``donate_state``, ``fuse_steps``) are kept so a config parses the same in
+both packages; the port ignores them.
 """
 
 from __future__ import annotations
@@ -83,8 +85,8 @@ class NeRFConfig:
     compute_dtype: str = "bfloat16"  # matmul dtype; "float32" for strict parity
     fused_kernels: bool = True  # the fused posenc+MLP kernels (K1 forward, K4 backward)
     fused_render: bool = False  # single-kernel rays->maps path (K5/K6, experimental/fused_render.py)
-    data_axis: int = 0  # devices on the 'data' mesh axis; 0 = all, 1 = no mesh
-    # nerf_tpu's multi-host process group (ignored by the port)
+    data_axis: int = 0  # ranks (a card each) on the 'data' axis; 0 = all cards, 1 = no mesh
+    # a process group to join, as host:port, world size and rank (nerf_tpu's multi-host group)
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
     process_id: Optional[int] = None

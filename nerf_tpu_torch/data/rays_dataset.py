@@ -11,9 +11,13 @@ Counterpart of nerf_tpu/data/rays_dataset.py:
     replacement, from a center crop for the first ``precrop_iters`` steps.
 
 Randomness comes from one ``torch.Generator`` on the sampler's device, so a
-step's batch never waits for the host. nerf_tpu's scan/fuse helpers
-(``scan_fn``, ``chain_split``) belong to its lax.scan step fusion and wait
-for the CUDA-graph counterpart (ROADMAP A.3).
+step's batch never waits for the host. With a ``mesh`` (data parallelism,
+parallel/mesh.py) every rank seeds the same generator and draws the same
+global window, then keeps its own rows (``mesh.shard_slice``), as
+nerf_tpu's per-host feed does (its ``_host_sl``, rays_dataset.py:74-99,
+279-340): the ranks' rows, put together, are the one-process batch.
+nerf_tpu's scan/fuse helpers (``scan_fn``, ``chain_split``) belong to its
+lax.scan step fusion and wait for the CUDA-graph counterpart (ROADMAP A.3).
 """
 
 from __future__ import annotations
@@ -46,8 +50,9 @@ class BatchedRaySampler:
     """Policy (a): an epoch-shuffled window over the ray buffer."""
 
     def __init__(self, scene: Scene, n_rand: int, generator: torch.Generator,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         self.n_rand = n_rand
+        self.rows = slice(0, n_rand) if mesh is None else mesh.shard_slice(n_rand)
         self.device = resolve_device(device)
         self.buffer = torch.as_tensor(build_ray_buffer(scene), device=self.device)
         self.n_total = self.buffer.shape[0]
@@ -72,7 +77,8 @@ class BatchedRaySampler:
 
     def next_batch(self) -> Batch:
         self.ensure_epoch()
-        batch = self.buffer[self.perm[self.i_batch : self.i_batch + self.n_rand]]
+        window = self.perm[self.i_batch : self.i_batch + self.n_rand]
+        batch = self.buffer[window[self.rows]]
         self.i_batch += self.n_rand
         return batch[:, 0], batch[:, 1], batch[:, 2]
 
@@ -83,9 +89,10 @@ class ImageRaySampler:
 
     def __init__(self, scene: Scene, n_rand: int, generator: torch.Generator,
                  precrop_iters: int = 0, precrop_frac: float = 0.5,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         self.H, self.W = scene.H, scene.W
         self.n_rand = n_rand
+        self.rows = slice(0, n_rand) if mesh is None else mesh.shard_slice(n_rand)
         self.precrop_iters = precrop_iters
         self.device = resolve_device(device)
         self.images = torch.as_tensor(np.asarray(scene.images, np.float32), device=self.device)
@@ -112,15 +119,19 @@ class ImageRaySampler:
             flat = torch.randint(n, (self.n_rand,), generator=gen, device=dev)
         else:
             flat = torch.randperm(n, generator=gen, device=dev)[: self.n_rand]
+        flat = flat[self.rows]
         r = row0 + flat // cols
         c = col0 + flat % cols
         return rays_o[r, c], rays_d[r, c], self.images[img_i][r, c]
 
 
-def make_sampler(scene: Scene, cfg, generator: torch.Generator, device: DeviceLike = None):
-    """The policy the config names (ref use_batching = not no_batching)."""
+def make_sampler(scene: Scene, cfg, generator: torch.Generator, device: DeviceLike = None,
+                 mesh=None):
+    """The policy the config names (ref use_batching = not no_batching); with
+    a ``mesh``, this rank's rows of each batch."""
     if cfg.no_batching:
         return ImageRaySampler(
-            scene, cfg.N_rand, generator, cfg.precrop_iters, cfg.precrop_frac, device=device
+            scene, cfg.N_rand, generator, cfg.precrop_iters, cfg.precrop_frac, device=device,
+            mesh=mesh,
         )
-    return BatchedRaySampler(scene, cfg.N_rand, generator, device=device)
+    return BatchedRaySampler(scene, cfg.N_rand, generator, device=device, mesh=mesh)

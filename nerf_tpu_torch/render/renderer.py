@@ -11,7 +11,9 @@ run_nerf.py:308-418; render / batchify_rays run_nerf.py:54-134):
   (``model.fused_render``, viewdirs, no retraw, S % 8 == 0: K5/K6 from rays
   to maps), the raygen fused MLP (``model.fused``, S % 8 == 0: K1/K4), or the
   points-in query (K2/K3 when fused, else plain PyTorch);
-- full frames are rendered in chunks by a Python loop;
+- full frames are rendered in chunks by a Python loop; with a mesh (data
+  parallelism, parallel/mesh.py) each rank renders its rows of the frame
+  and the ranks gather the maps;
 - importance samples are detached (ref run_nerf.py:394), and rays and
   sample depths never carry gradients into the network.
 """
@@ -23,6 +25,7 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nerf_tpu_torch.device import DeviceLike, resolve_device
 from nerf_tpu_torch.experimental import fused_render
@@ -275,16 +278,58 @@ def make_frame_renderer(
     far: float,
     chunk: int = 1024 * 32,
     device: DeviceLike = None,
+    mesh=None,
 ):
     """A (nets, c2w) -> frame function for eval/video paths, rendering on
-    ``device`` (the card unless told otherwise) without autograd. The
-    mesh-sharded variant of nerf_tpu comes with data parallelism."""
+    ``device`` (the card unless told otherwise) without autograd.
+
+    With a ``mesh`` (parallel/mesh.py; nerf_tpu's ``shard_body``,
+    renderer.py:337-430) every rank of it must call the function: the
+    frame's H*W rays are padded to a multiple of the ranks (the last ray
+    repeated), each rank renders its rows in chunks, and one ``all_gather``
+    gives every rank the whole frame. It is for the deterministic eval
+    settings (``rs.eval_mode()``): with jitter or noise the ranks' draws
+    would not be the one-process frame's, so those raise."""
     dev = resolve_device(device)
     K = np.asarray(K, np.float32)
 
-    @torch.no_grad()
-    def render_frame(nets, c2w):
-        c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=dev)
-        return render_image(nets, model, rs, H, W, K, c2w, near, far, chunk=chunk)
+    if mesh is None:
+        @torch.no_grad()
+        def render_frame(nets, c2w):
+            c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=dev)
+            return render_image(nets, model, rs, H, W, K, c2w, near, far, chunk=chunk)
 
-    return render_frame
+        return render_frame
+
+    if rs.perturb or rs.raw_noise_std > 0.0:
+        raise ValueError("the mesh-sharded frame renderer needs deterministic settings "
+                         "(rs.eval_mode()): got perturb or raw_noise_std > 0")
+    n = H * W
+    per = -(-n // mesh.size)
+    rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    focal = float(K[0, 0])
+
+    @torch.no_grad()
+    def render_sharded(nets, c2w):
+        c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=dev)
+        rays_o, rays_d = get_rays(H, W, K, c2w)
+        rays = prepare_rays(rays_o, rays_d, rs, H, W, focal, near, far)
+        pad = per * mesh.size - n
+        ro, rd, vd, nv, fv = (
+            None if x is None else torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])[rows]
+            for x in rays
+        )
+        out = render_rays_chunked(nets, model, rs, ro, rd, vd, nv, fv, chunk=min(chunk, per))
+        keys = sorted(out)
+        flat = torch.cat([out[k].reshape(per, -1) for k in keys], 1)
+        parts = [torch.empty_like(flat) for _ in range(mesh.size)]
+        dist.all_gather(parts, flat, group=mesh.group)
+        full = torch.cat(parts)[:n]
+        frame, col = {}, 0
+        for k in keys:
+            width = out[k][0].numel()
+            frame[k] = full[:, col : col + width].to(out[k].dtype).reshape(H, W, *out[k].shape[1:])
+            col += width
+        return frame
+
+    return render_sharded

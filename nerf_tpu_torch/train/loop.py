@@ -1,20 +1,25 @@
 """The experiment driver: dataset -> model -> optimization loop -> artifacts.
 
 Counterpart of nerf_tpu/train/loop.py (ref ``train()``, run_nerf.py:534-872,
-and ``render_path``, run_nerf.py:137-175), for one device: ``load_scene``
-(blender, llff, deepvoxels, LINEMOD), the ``args.txt``/``config.txt``
-snapshots, resume from the reference's ``.tar`` (utils/checkpoint.py), the
-render-only branch with its video, and the step loop with the i_print,
-i_img (holdout PSNR), i_weights (checkpoints), i_video (spiral), i_testset
-and trace events at nerf_tpu's steps. nerf_tpu's ``fuse_steps`` (a
-lax.scan of steps) is ignored: its counterpart is a CUDA graph of the step
-(ROADMAP A.3).
+and ``render_path``, run_nerf.py:137-175): ``load_scene`` (blender, llff,
+deepvoxels, LINEMOD), the ``args.txt``/``config.txt`` snapshots, resume
+from the reference's ``.tar`` (utils/checkpoint.py), the render-only branch
+with its video, and the step loop with the i_print, i_img (holdout PSNR),
+i_weights (checkpoints), i_video (spiral), i_testset and trace events at
+nerf_tpu's steps. On one device, or data-parallel over the ranks of a
+process group (parallel/mesh.py; ``cli.train`` launches them): each rank
+trains on its rows of every batch, renders its rows of the holdout frame
+and its share of the spiral and test frames, and rank 0 prints and writes
+the shared files. nerf_tpu's ``fuse_steps`` (a lax.scan of steps) is
+ignored: its counterpart is a CUDA graph of the step (ROADMAP A.3).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import shutil
 import time
 from typing import Callable, Dict, Optional
 
@@ -28,6 +33,8 @@ from nerf_tpu_torch.device import DeviceLike, resolve_device
 from nerf_tpu_torch.models.embedding import PosEncConfig
 from nerf_tpu_torch.models.factory import init_nets, make_model
 from nerf_tpu_torch.ops.fused_mlp import flops_per_point
+from nerf_tpu_torch.parallel import distributed
+from nerf_tpu_torch.parallel.mesh import make_mesh, make_sharded_train_step, place_state
 from nerf_tpu_torch.render.renderer import RenderSettings, make_frame_renderer
 from nerf_tpu_torch.train.step import TrainState, init_train_state, make_train_step
 from nerf_tpu_torch.utils import checkpoint as ckpt_lib
@@ -88,18 +95,23 @@ def render_path(
     gt_imgs: Optional[np.ndarray] = None,
     render_frame=None,
     device: DeviceLike = None,
+    frame_ids=None,
 ):
     """Render a pose path in eval mode; returns (rgbs, disps) as numpy
-    [M, H, W, ...]. ``render_factor`` downsamples for previews;
-    ``render_frame`` (a make_frame_renderer result) may be reused across
-    calls. Writes ``savedir/NNN.png`` per frame when given, and prints the
-    mean PSNR against ``gt_imgs`` when given."""
-    H, W, focal = scene.H, scene.W, scene.focal
+    [M, H, W, ...]. Every frame is rendered with the scene's intrinsics
+    ``scene.K``; ``render_factor`` downsamples for previews, dividing H, W
+    and K's first two rows by it (as nerf-pytorch divides H, W and focal,
+    run_nerf.py:141-145). ``render_frame`` (a make_frame_renderer result)
+    may be reused across calls. Writes ``savedir/NNN.png`` per frame when
+    given, NNN from ``frame_ids`` (the frames' global ids, default 0..M-1),
+    and prints the mean PSNR against ``gt_imgs`` when given."""
+    H, W = scene.H, scene.W
+    K = np.array(scene.K, np.float32)
     if render_factor != 0:
         # a passed-in render_frame was built at full H/W: rebuild instead
         render_frame = None
-        H, W, focal = H // render_factor, W // render_factor, focal / render_factor
-    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]], np.float32)
+        H, W = H // render_factor, W // render_factor
+        K[:2] /= render_factor
 
     rs_eval = rs.eval_mode()
     near, far = (0.0, 1.0) if rs.ndc else (scene.near, scene.far)
@@ -107,6 +119,8 @@ def render_path(
         render_frame = make_frame_renderer(
             model, rs_eval, H, W, K, near, far, chunk=chunk, device=device
         )
+    if frame_ids is None:
+        frame_ids = list(range(len(poses)))
 
     rgbs, disps, psnrs = [], [], []
 
@@ -119,7 +133,7 @@ def render_path(
         if gt_imgs is not None and render_factor == 0:
             psnrs.append(psnr_np(rgb, np.asarray(gt_imgs[i])))
         if savedir is not None:
-            save_png(os.path.join(savedir, f"{i:03d}.png"), rgb)
+            save_png(os.path.join(savedir, f"{frame_ids[i]:03d}.png"), rgb)
 
     # depth-2 pipeline: enqueue frame i+1 before fetching frame i
     pending = None
@@ -132,7 +146,74 @@ def render_path(
         drain(*pending)
     if psnrs:
         print(f"[EVAL] mean PSNR over {len(psnrs)} views: {np.mean(psnrs):.3f}")
+    if not rgbs:  # a rank with no frames of its own (render_path_multiprocess)
+        return np.zeros((0, H, W, 3), np.float32), np.zeros((0, H, W), np.float32)
     return np.stack(rgbs, 0), np.stack(disps, 0)
+
+
+def save_path_videos(base: str, rgbs: np.ndarray, disps: np.ndarray) -> None:
+    """A path's ``base`` rgb.mp4 and disp.mp4, disp scaled to [0, 1]."""
+    save_video(base + "rgb.mp4", rgbs)
+    # an empty ray's disp is 1/max(1e-10, 0/0) = nan (the reference's math,
+    # run_nerf.py:299): guard only the scaling
+    disps = np.nan_to_num(disps, nan=0.0, posinf=0.0)
+    save_video(base + "disp.mp4", disps / max(np.max(disps), 1e-10))
+
+
+def render_path_multiprocess(
+    nets,
+    model,
+    rs: RenderSettings,
+    scene: Scene,
+    poses: np.ndarray,
+    chunk: int,
+    stage_dir: str,
+    mesh,
+    savedir: Optional[str] = None,
+    gt_imgs: Optional[np.ndarray] = None,
+    render_frame=None,
+    video_base: Optional[str] = None,
+    device: DeviceLike = None,
+) -> None:
+    """A pose path shared among the mesh's ranks (nerf_tpu/train/loop.py:148-235):
+    rank r renders frames r, r + n, ... with its own (unsharded) frame
+    renderer, writes their PNGs under their global ids into ``savedir`` and
+    stages their PSNRs against ``gt_imgs`` and, for ``video_base``, their
+    arrays in ``stage_dir``. After a barrier rank 0 prints the mean PSNR
+    over all frames (in frame order, as render_path takes it), writes
+    ``video_base`` rgb.mp4 and disp.mp4 and clears the stage; a second
+    barrier keeps the others until it is done. Every rank must call it,
+    on a filesystem they share."""
+    n = mesh.size
+    ids = list(range(mesh.rank, len(poses), n))
+    os.makedirs(stage_dir, exist_ok=True)
+    rgbs, disps = render_path(nets, model, rs, scene, np.asarray(poses)[ids], chunk,
+                              savedir=savedir, render_frame=render_frame, device=device,
+                              frame_ids=ids)
+    if gt_imgs is not None and ids:
+        psnrs = [(fid, psnr_np(rgb, np.asarray(gt_imgs[fid]))) for rgb, fid in zip(rgbs, ids)]
+        np.save(os.path.join(stage_dir, f"psnr_{mesh.rank}.npy"), np.asarray(psnrs))
+    if video_base is not None:
+        for rgb, disp, fid in zip(rgbs, disps, ids):
+            np.save(os.path.join(stage_dir, f"rgb_{fid:03d}.npy"), rgb)
+            np.save(os.path.join(stage_dir, f"disp_{fid:03d}.npy"), disp)
+    distributed.barrier(mesh.group)
+    if mesh.is_main:
+        if gt_imgs is not None:
+            staged = [os.path.join(stage_dir, f"psnr_{r}.npy") for r in range(n)]
+            rows = [np.load(f) for f in staged if os.path.exists(f)]
+            if rows:
+                rows = np.concatenate(rows)
+                psnrs = rows[np.argsort(rows[:, 0]), 1]
+                print(f"[EVAL] mean PSNR over {len(psnrs)} views ({n} processes): "
+                      f"{np.mean(psnrs):.3f}")
+        if video_base is not None:
+            save_path_videos(video_base, *(
+                np.stack([np.load(os.path.join(stage_dir, f"{kind}_{f:03d}.npy"))
+                          for f in range(len(poses))])
+                for kind in ("rgb", "disp")))
+        shutil.rmtree(stage_dir, ignore_errors=True)
+    distributed.barrier(mesh.group)
 
 
 @dataclasses.dataclass
@@ -141,12 +222,19 @@ class TrainResult:
     history: list  # [(step, loss, psnr)] at each i_print
 
 
-def _check_supported(cfg: NeRFConfig, dev: torch.device) -> None:
-    """Raise on what nerf_tpu's train() does and this one does not yet."""
-    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if cfg.data_axis > 1 or (cfg.data_axis == 0 and n_cards > 1):
-        raise NotImplementedError("not ported yet: data parallelism over several devices "
-                                  "(ROADMAP A.8); set data_axis=1")
+def _data_ranks(cfg: NeRFConfig) -> int:
+    """The ranks to train over: ``data_axis``, or with 0 the process group's
+    (1 without one). Raises unless the group has exactly that many ranks."""
+    world = distributed.world_size()
+    n_data = cfg.data_axis if cfg.data_axis > 0 else world
+    if n_data != world:
+        if world == 1:
+            raise ValueError(
+                f"data_axis={n_data} needs a process group of {n_data} ranks: run "
+                "nerf_tpu_torch.cli.train, which starts them "
+                "(nerf_tpu_torch.parallel.distributed.launch), or torchrun")
+        raise ValueError(f"data_axis={cfg.data_axis} in a process group of {world} ranks")
+    return n_data
 
 
 def train(
@@ -155,38 +243,54 @@ def train(
     hooks: Optional[Dict[str, Callable]] = None,
     device: DeviceLike = None,
 ) -> TrainResult:
-    """Run the optimization loop on one device (ref run_nerf.py:534-872):
-    the card unless ``device`` says otherwise. The scene is loaded from
-    ``cfg`` when not given. The nets start from random weights seeded by
+    """Run the optimization loop (ref run_nerf.py:534-872) on the card unless
+    ``device`` says otherwise; inside a process group of ``data_axis``
+    ranks (all of them with 0), data-parallel, each rank on
+    ``distributed.rank_device(device)``. The scene is loaded from ``cfg``
+    when not given. The nets start from random weights seeded by
     ``cfg.seed``, or from the newest ``.tar`` of the experiment (or
-    ``ft_path``) unless ``no_reload``; the sampler and the per-step draws
-    use their own generators on the device, seeded from it too. Every
-    i_print steps the loss and PSNR are fetched (a host sync) and printed
-    with the StepTimer's throughput since the last sync; the eval renders
-    and checkpoints of the other cadences follow at the same step, and
-    their time stays out of the throughput. ``hooks["on_step"](i, state,
-    aux)`` runs after each step's events."""
+    ``ft_path``) unless ``no_reload``, and then take rank 0's on every rank;
+    the sampler and the per-step draws use their own generators on the
+    device, seeded from it too (the same on every rank). Every i_print steps
+    the loss and PSNR are fetched (a host sync) and printed with the
+    StepTimer's throughput since the last sync; the eval renders and
+    checkpoints of the other cadences follow at the same step, and their
+    time stays out of the throughput. Rank 0 prints and writes the shared
+    files. ``hooks["on_step"](i, state, aux)`` runs after each step's
+    events."""
     hooks = hooks or {}
     dev = resolve_device(device)
-    _check_supported(cfg, dev)
+    n_data = _data_ranks(cfg)
+    mesh = make_mesh(n_data, dev) if n_data > 1 else None
+    if mesh is not None:
+        dev = mesh.device
+    is_main = mesh is None or mesh.is_main
     if scene is None:
         scene = load_scene(cfg)
     expdir = os.path.join(cfg.basedir, cfg.expname)
     os.makedirs(expdir, exist_ok=True)
-    with open(os.path.join(expdir, "args.txt"), "w") as f:
-        f.write(dump_config(cfg))
-    if cfg.config is not None and os.path.exists(cfg.config):
-        with open(cfg.config) as src, open(os.path.join(expdir, "config.txt"), "w") as f:
-            f.write(src.read())
+    if is_main:
+        with open(os.path.join(expdir, "args.txt"), "w") as f:
+            f.write(dump_config(cfg))
+        if cfg.config is not None and os.path.exists(cfg.config):
+            with open(cfg.config) as src, open(os.path.join(expdir, "config.txt"), "w") as f:
+                f.write(src.read())
 
     model = make_model(cfg)
     rs = render_settings_from_config(cfg)
     state = init_train_state(init_nets(model, cfg.seed, dev), cfg.lrate)
     state = ckpt_lib.maybe_resume(cfg.basedir, cfg.expname, state, model, cfg.lrate,
                                   cfg.no_reload, cfg.ft_path, device=dev)
+    if mesh is not None:
+        state = place_state(mesh, state)
     start = state.step
 
     if cfg.render_only:  # ref run_nerf.py:654-672
+        # over ranks the frames are shared out; a preview (render_factor)
+        # is rank 0's alone, as in nerf_tpu
+        shared = mesh is not None and cfg.render_factor == 0
+        if not is_main and not shared:
+            return TrainResult(state=state, history=[])
         poses = scene.poses[scene.i_test] if cfg.render_test else scene.render_poses
         gt = scene.images[scene.i_test] if cfg.render_test else None
         savedir = os.path.join(
@@ -194,43 +298,77 @@ def train(
             "renderonly_{}_{:06d}".format("test" if cfg.render_test else "path", start),
         )
         os.makedirs(savedir, exist_ok=True)
-        rgbs, _ = render_path(state.nets, model, rs, scene, poses, cfg.chunk, cfg.render_factor,
-                              savedir, gt, device=dev)
-        save_video(os.path.join(savedir, "video.mp4"), rgbs)
+        if shared:
+            render_path_multiprocess(state.nets, model, rs, scene, poses, cfg.chunk,
+                                     os.path.join(expdir, ".renderonly_stage"), mesh,
+                                     savedir=savedir, gt_imgs=gt,
+                                     video_base=os.path.join(savedir, "video_"), device=dev)
+        else:
+            rgbs, _ = render_path(state.nets, model, rs, scene, poses, cfg.chunk,
+                                  cfg.render_factor, savedir, gt, device=dev)
+            save_video(os.path.join(savedir, "video.mp4"), rgbs)
         return TrainResult(state=state, history=[])
 
-    step_fn = make_train_step(model, rs, cfg.lrate, cfg.lrate_decay,
-                              hwf=(scene.H, scene.W, scene.focal))
+    if cfg.N_rand % n_data != 0:
+        raise ValueError(f"N_rand={cfg.N_rand} must divide evenly over the {n_data} ranks")
+    hwf = (scene.H, scene.W, scene.focal)
+    if mesh is None:
+        step_fn = make_train_step(model, rs, cfg.lrate, cfg.lrate_decay, hwf=hwf)
+    else:
+        step_fn = make_sharded_train_step(mesh, model, rs, cfg.lrate, cfg.lrate_decay, hwf=hwf)
+        if is_main:
+            print(f"[MESH] data-parallel over {n_data} ranks: {mesh}")
     sampler = make_sampler(
-        scene, cfg, torch.Generator(device=dev).manual_seed(cfg.seed + 1), device=dev
+        scene, cfg, torch.Generator(device=dev).manual_seed(cfg.seed + 1), device=dev, mesh=mesh
     )
     step_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 2)
     near, far = (0.0, 1.0) if rs.ndc else (scene.near, scene.far)
-    near_v = torch.full((cfg.N_rand,), near, dtype=torch.float32, device=dev)
-    far_v = torch.full((cfg.N_rand,), far, dtype=torch.float32, device=dev)
+    near_v = torch.full((cfg.N_rand // n_data,), near, dtype=torch.float32, device=dev)
+    far_v = torch.full((cfg.N_rand // n_data,), far, dtype=torch.float32, device=dev)
 
     pts_per_ray = 2 * cfg.N_samples + cfg.N_importance if cfg.N_importance > 0 else cfg.N_samples
+    peak = device_peak_flops(dev)
     timer = StepTimer(
         cfg.N_rand, pts_per_ray,
         flops_per_point(model.coarse, model.pe_pts, model.pe_views or PosEncConfig.identity()),
-        peak=device_peak_flops(dev),
+        peak=None if peak is None else peak * n_data,
     )
-    frame_renderers = []  # one frame renderer shared by every eval render
+    frame_renderers = {}  # built at first use, shared by every eval render
 
-    def frame_renderer():
-        if not frame_renderers:
-            frame_renderers.append(make_frame_renderer(
+    def frame_renderer(sharded: bool = False):
+        """The eval frame renderer; ``sharded``: every rank renders its rows
+        of one frame (the holdout view), else each rank whole frames."""
+        key = sharded and mesh is not None
+        if key not in frame_renderers:
+            frame_renderers[key] = make_frame_renderer(
                 model, rs.eval_mode(), scene.H, scene.W, scene.K, near, far,
-                chunk=cfg.chunk, device=dev))
-        return frame_renderers[0]
+                chunk=cfg.chunk, device=dev, mesh=mesh if key else None)
+        return frame_renderers[key]
+
+    def render_frames(poses, stage: str, savedir=None, gt_imgs=None, video_base=None):
+        """A pose path, shared among the ranks with a mesh (staged in
+        ``expdir/.<stage>``); ``video_base``: its rgb and disp videos."""
+        if mesh is not None:
+            render_path_multiprocess(state.nets, model, rs, scene, poses, cfg.chunk,
+                                     os.path.join(expdir, "." + stage), mesh, savedir=savedir,
+                                     gt_imgs=gt_imgs, render_frame=frame_renderer(),
+                                     video_base=video_base, device=dev)
+            return
+        rgbs, disps = render_path(state.nets, model, rs, scene, poses, cfg.chunk,
+                                  savedir=savedir, gt_imgs=gt_imgs,
+                                  render_frame=frame_renderer(), device=dev)
+        if video_base is not None:
+            save_path_videos(video_base, rgbs, disps)
 
     holdout_rng = np.random.default_rng(cfg.seed)  # i_img_random's draws
-    try:
-        from tqdm import tqdm
+    pbar = None
+    if is_main:
+        try:
+            from tqdm import tqdm
 
-        pbar = tqdm(total=cfg.n_iters - start, desc=cfg.expname)
-    except ImportError:
-        pbar = None
+            pbar = tqdm(total=cfg.n_iters - start, desc=cfg.expname)
+        except ImportError:
+            pass
     history = []
     anchor = None  # (wall time, step) where the queue was last drained
     try:
@@ -246,15 +384,19 @@ def train(
                 raise FloatingPointError(f"non-finite loss at step {i}")  # ref DEBUG, run_nerf.py:414-416
             if cfg.trace and i == start + 12:
                 # steady state: capture 4 more steps on this step's batch, as
-                # nerf_tpu does (state.step moves by 4 here, i does not)
-                with trace(os.path.join(expdir, "trace")):
+                # nerf_tpu does (state.step moves by 4 here, i does not);
+                # every rank steps, rank 0 writes the trace
+                tracing = (trace(os.path.join(expdir, "trace")) if is_main
+                           else contextlib.nullcontext())
+                with tracing:
                     for _ in range(4):
                         aux = step_fn(state, rays_o, rays_d, near_v, far_v, target,
                                       generator=step_gen)
                     if dev.type == "cuda":
                         torch.cuda.synchronize(dev)
                 anchor = (time.perf_counter(), i)
-                print(f"[TRACE] profile written to {expdir}/trace")
+                if is_main:
+                    print(f"[TRACE] profile written to {expdir}/trace")
             if i % cfg.i_print == 0:
                 loss, psnr = float(aux["loss"]), float(aux["psnr"])  # the fetch waits for step i
                 now = time.perf_counter()
@@ -265,41 +407,38 @@ def train(
                     mfu = "" if rep["mfu"] is None else f", {rep['mfu'] * 100:.1f}% MFU"
                     rate = f"{rep['rays_per_sec']:,.0f} rays/s{mfu}"
                 anchor = (now, i)
-                print(f"[TRAIN] Iter: {i} Loss: {loss:.6f}  PSNR: {psnr:.3f}  ({rate})")
+                if is_main:
+                    print(f"[TRAIN] Iter: {i} Loss: {loss:.6f}  PSNR: {psnr:.3f}  ({rate})")
                 history.append((i, loss, psnr))
             drained = False  # did an eval or a save fetch from the device?
             if cfg.i_img > 0 and i % cfg.i_img == 0 and len(scene.i_val):
                 # the holdout view: cycled, or drawn as the reference does
-                # (np.random.choice, run_nerf.py:836-840) with i_img_random
+                # (np.random.choice, run_nerf.py:836-840) with i_img_random;
+                # over ranks each renders its rows of it (nerf_tpu's sharded eval)
                 if cfg.i_img_random:
                     img_i = int(holdout_rng.choice(np.asarray(scene.i_val)))
                 else:
                     img_i = int(np.asarray(scene.i_val)[i // cfg.i_img % len(scene.i_val)])
-                out = frame_renderer()(state.nets, scene.poses[img_i][:3, :4])
-                gt = torch.as_tensor(scene.images[img_i], device=dev)
-                holdout_psnr = float(mse2psnr(img2mse(out["rgb_map"], gt)))
-                print(f"[EVAL] Iter: {i} holdout view {img_i} PSNR: {holdout_psnr:.3f}")
+                out = frame_renderer(sharded=True)(state.nets, scene.poses[img_i][:3, :4])
+                if is_main:
+                    gt = torch.as_tensor(scene.images[img_i], device=dev)
+                    holdout_psnr = float(mse2psnr(img2mse(out["rgb_map"], gt)))
+                    print(f"[EVAL] Iter: {i} holdout view {img_i} PSNR: {holdout_psnr:.3f}")
                 drained = True
             if cfg.i_weights > 0 and i % cfg.i_weights == 0:
-                path = ckpt_lib.save_checkpoint(cfg.basedir, cfg.expname, state)
-                print("Saved checkpoints at", path)
+                path = ckpt_lib.save_checkpoint(cfg.basedir, cfg.expname, state, mesh)
+                if is_main:
+                    print("Saved checkpoints at", path)
                 drained = True
             if cfg.i_video > 0 and i % cfg.i_video == 0:
-                base = os.path.join(expdir, f"{cfg.expname}_spiral_{i:06d}_")
-                rgbs, disps = render_path(state.nets, model, rs, scene, scene.render_poses,
-                                          cfg.chunk, render_frame=frame_renderer(), device=dev)
-                save_video(base + "rgb.mp4", rgbs)
-                # an empty ray's disp is 1/max(1e-10, 0/0) = nan (the
-                # reference's math, run_nerf.py:299): guard only the scaling
-                disps = np.nan_to_num(disps, nan=0.0, posinf=0.0)
-                save_video(base + "disp.mp4", disps / max(np.max(disps), 1e-10))
+                render_frames(scene.render_poses, f"video_{i:06d}",
+                              video_base=os.path.join(expdir, f"{cfg.expname}_spiral_{i:06d}_"))
                 drained = True
             if cfg.i_testset > 0 and i % cfg.i_testset == 0 and len(scene.i_test):
                 testsavedir = os.path.join(expdir, f"testset_{i:06d}")
                 os.makedirs(testsavedir, exist_ok=True)
-                render_path(state.nets, model, rs, scene, scene.poses[scene.i_test], cfg.chunk,
-                            savedir=testsavedir, gt_imgs=scene.images[scene.i_test],
-                            render_frame=frame_renderer(), device=dev)
+                render_frames(scene.poses[scene.i_test], f"testset_{i:06d}",
+                              savedir=testsavedir, gt_imgs=scene.images[scene.i_test])
                 drained = True
             if drained:
                 anchor = (time.perf_counter(), i)  # keep eval time out of the rate

@@ -9,7 +9,10 @@ The step runs eagerly on the device of its tensors: the random draws, both
 levels' fused forward and backward (K1/K4 at sample counts that are
 multiples of 8, K2/K3 otherwise; K5/K6, compositing included, with
 ``fused_render``), compositing and Adam are queued there without a host
-sync; the loss comes back as a device tensor in ``aux``.
+sync; the loss comes back as a device tensor in ``aux``. With a process
+group (parallel/mesh.py) the step is nerf_tpu's shard_map body
+(``make_train_step_core(axis_name=...)``): the gradients and loss terms are
+averaged over the ranks before Adam.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import dataclasses
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from nerf_tpu_torch.geom.rays import ndc_rays
 from nerf_tpu_torch.render.network import NeRFModel
@@ -115,12 +119,67 @@ def loss_fn(
     return loss, aux
 
 
+class _GradMean:
+    """The gradients' all-reduce (a mean over the group's ranks), a level at
+    a time, fine first, as nerf_tpu's per-level ``pmean`` (step.py:188-212).
+    Each level's gradients go through one flat buffer that lives for the
+    run; a gradient that is None (a parameter the loss does not reach) goes
+    in as zeros, and every parameter's ``.grad`` is then a view of the
+    reduced buffer."""
+
+    def __init__(self, group):
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.buffers: Dict[str, Tuple[list, torch.Tensor, list]] = {}
+
+    def _buffer(self, level: str, params: list):
+        held = self.buffers.get(level)
+        if held is None or len(held[0]) != len(params) or \
+                any(a is not b for a, b in zip(held[0], params)):
+            flat = torch.empty(sum(p.numel() for p in params), dtype=params[0].dtype,
+                               device=params[0].device)
+            views, offset = [], 0
+            for p in params:
+                views.append(flat[offset : offset + p.numel()].view_as(p))
+                offset += p.numel()
+            held = self.buffers[level] = (params, flat, views)
+        return held
+
+    def grads(self, nets: Mapping[str, torch.nn.Module]) -> None:
+        for level in [k for k in ("fine", "coarse") if k in nets]:
+            params, flat, views = self._buffer(level, list(nets[level].parameters()))
+            for p, v in zip(params, views):
+                if p.grad is None:
+                    v.zero_()
+                else:
+                    v.copy_(p.grad)
+            dist.all_reduce(flat, group=self.group)
+            flat.div_(self.size)
+            for p, v in zip(params, views):
+                p.grad = v
+
+    def aux(self, aux: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The loss terms averaged over the group, and the PSNRs recomputed
+        from the averaged mse (a mean of PSNRs is not the batch's PSNR;
+        nerf_tpu step.py:213-218)."""
+        keys = [k for k in ("img_loss", "img_loss0", "loss") if k in aux]
+        mean = torch.stack([aux[k] for k in keys])
+        dist.all_reduce(mean, group=self.group)
+        mean.div_(self.size)
+        aux = {**aux, **dict(zip(keys, mean.unbind()))}
+        aux["psnr"] = mse2psnr(aux["img_loss"])
+        if "img_loss0" in aux:
+            aux["psnr0"] = mse2psnr(aux["img_loss0"])
+        return aux
+
+
 def make_train_step(
     model: NeRFModel,
     rs: RenderSettings,
     lrate: float,
     lrate_decay: int,
     hwf=None,
+    group=None,
 ):
     """The train step: ``step(state, rays_o, rays_d, near, far, target,
     generator=None, overrides=None) -> aux`` updates ``state`` in place
@@ -128,10 +187,14 @@ def make_train_step(
     tensors (loss, psnr, ...). The random draws come from ``overrides`` when
     given, else from ``generator``. Viewdirs come from the raw rays_d, before
     the NDC transform (ref run_nerf.py:102-114); ``hwf=(H, W, focal)`` is
-    needed when rs.ndc."""
+    needed when rs.ndc. With a process ``group`` the rays are this rank's
+    shard: the gradients and the loss terms are averaged over the group
+    before Adam (``_GradMean``), so every rank makes the same update and
+    ``aux`` is the whole batch's (parallel/mesh.py draws and slices)."""
     if rs.ndc and hwf is None:
         raise ValueError("rs.ndc=True requires hwf=(H, W, focal)")
     schedule = lr_schedule(lrate, lrate_decay)
+    mean = None if group is None else _GradMean(group)
 
     def step(state: TrainState, rays_o, rays_d, near, far, target, generator=None,
              overrides=None) -> Dict[str, torch.Tensor]:
@@ -144,16 +207,20 @@ def make_train_step(
             H, W, focal = hwf
             rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
         lr = schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        for param_group in state.optimizer.param_groups:
+            param_group["lr"] = lr
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = loss_fn(
             state.nets, model, rs, rays_o, rays_d, viewdirs, near, far, target,
             generator=generator, overrides=overrides,
         )
         loss.backward()
+        aux = {k: v.detach() for k, v in aux.items()}
+        if mean is not None:
+            mean.grads(state.nets)
+            aux = mean.aux(aux)
         state.optimizer.step()
         state.step += 1
-        return {k: v.detach() for k, v in aux.items()}
+        return aux
 
     return step

@@ -34,6 +34,7 @@ import torch
 
 from nerf_tpu_torch.device import DeviceLike, resolve_device
 from nerf_tpu_torch.models.factory import init_nets
+from nerf_tpu_torch.parallel.distributed import barrier
 from nerf_tpu_torch.render.network import NeRFModel
 from nerf_tpu_torch.train.step import ADAM_BETAS, ADAM_EPS, TrainState, init_train_state
 
@@ -80,11 +81,18 @@ def checkpoint_dict(state: TrainState) -> Dict:
     return out
 
 
-def save_checkpoint(basedir: str, expname: str, state: TrainState) -> str:
-    """Write ``basedir/expname/{step:06d}.tar``; returns its path."""
+def save_checkpoint(basedir: str, expname: str, state: TrainState, mesh=None) -> str:
+    """Write ``basedir/expname/{step:06d}.tar``; returns its path. With a
+    ``mesh`` (parallel/mesh.py) every rank calls it: rank 0 writes its state
+    (every rank holds the same) and the others wait until it has, the
+    port's counterpart of orbax's collective save
+    (nerf_tpu/utils/checkpoint.py:34-45)."""
     path = ckpt_path(basedir, expname, int(state.step))
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save(checkpoint_dict(state), path)
+    if mesh is None or mesh.is_main:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(checkpoint_dict(state), path)
+    if mesh is not None:
+        barrier(mesh.group)
     return path
 
 

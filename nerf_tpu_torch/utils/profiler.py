@@ -51,10 +51,17 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def device_rows(prof) -> List[Tuple[float, str, int]]:
-    """(device us, kernel name, count) of every device event in a profile."""
+def device_rows(prof, annotations: bool = False) -> List[Tuple[float, str, int]]:
+    """(device us, kernel name, count) of every device activity in a profile:
+    kernels, copies and sets. A ``record_function`` range also appears on
+    the device, as a user annotation that spans the kernels it launched
+    (the optimizer's ``Optimizer.step#Adam.step``); those kernels have rows
+    of their own, so annotations are left out unless ``annotations`` asks
+    for them alone."""
     rows = []
     for evt in prof.key_averages():
+        if bool(getattr(evt, "is_user_annotation", False)) != annotations:
+            continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)

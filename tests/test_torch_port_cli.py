@@ -34,8 +34,11 @@ from nerf_tpu_torch import config as tconfig
 from nerf_tpu_torch.cli import render as cli_render
 from nerf_tpu_torch.cli import train as cli_train
 from nerf_tpu_torch.data.blender import load_blender_scene
+from nerf_tpu_torch.data.scene import Scene, default_intrinsics
 from nerf_tpu_torch.models import factory as tfactory
 from nerf_tpu_torch.models.convert import jax_arrays_from_train_state
+from nerf_tpu_torch.render.renderer import make_frame_renderer as tmake_frame_renderer
+from nerf_tpu_torch.train import loop as tloop
 from nerf_tpu_torch.train.loop import load_scene, train
 from nerf_tpu_torch.train.step import init_train_state
 from nerf_tpu_torch.utils import checkpoint
@@ -287,6 +290,36 @@ def test_maybe_resume_policy(tmp_path):
 
 
 # (d) train() and the CLIs end to end
+
+
+@pytest.mark.parametrize("render_factor", [0, 2])
+def test_render_path_uses_the_scene_intrinsics(render_factor):
+    """ROADMAP C.5: render_path renders with scene.K (LINEMOD's comes from
+    its json, off centre), its first two rows divided by render_factor, as
+    the frame renderer of that K does; nerf_tpu's render_path builds a
+    centred K there (nerf_tpu/train/loop.py:102), which the port does not
+    copy."""
+    H, W, focal = 12, 16, 14.0
+    K = np.array([[focal, 0, 0.5 * W + 3.5], [0, focal, 0.5 * H - 2.5], [0, 0, 1]], np.float32)
+    poses = np.stack([np.eye(4, dtype=np.float32)[:3]] * 2)
+    poses[:, 2, 3] = 4.0
+    scene = Scene(images=np.zeros((2, H, W, 3), np.float32), poses=poses, render_poses=poses,
+                  hwf=(H, W, focal), K=K, i_train=np.arange(2), i_val=np.arange(0),
+                  i_test=np.arange(0), near=2.0, far=6.0)
+    cfg = _cfg(True, 8, dataset_type="blender")
+    model = tfactory.make_model(cfg)
+    nets = tfactory.init_nets(model, 0, "cpu")
+    rs = tloop.render_settings_from_config(cfg)
+    rgbs, _ = tloop.render_path(nets, model, rs, scene, poses, 64, render_factor, device="cpu")
+    f = render_factor or 1
+    want_k = K.copy()
+    want_k[:2] /= f
+    for k, centred in ((want_k, False), (default_intrinsics(H // f, W // f, focal / f), True)):
+        frame = tmake_frame_renderer(model, rs.eval_mode(), H // f, W // f, k, 2.0, 6.0,
+                                     chunk=64, device="cpu")
+        same = all(np.array_equal(rgb, frame(nets, pose)["rgb_map"].numpy())
+                   for rgb, pose in zip(rgbs, poses))
+        assert same is not centred
 
 
 def _lego_argv(tmp_path, blender_dir, **over):

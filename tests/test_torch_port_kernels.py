@@ -710,3 +710,62 @@ def test_probe_full_is_k2(cuda_device):
         torch.cuda.synchronize()
         assert torch.equal(out[:, :4], k2)
         assert not bool(out[:, 4:].any())
+
+
+# data parallelism on the card: two gloo ranks on one card (the machine may
+# have one), each running K1 and K4 on its rows, against one process
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_step_as_one_process(cuda_device):
+    import sys
+    from pathlib import Path
+
+    from nerf_tpu_torch.models.factory import init_nets
+    from nerf_tpu_torch.parallel import distributed
+    from nerf_tpu_torch.render.network import NeRFModel
+    from nerf_tpu_torch.render.renderer import RenderSettings
+    from nerf_tpu_torch.train.step import init_train_state, make_train_step
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from torch_port_parallel_worker import sharded_step_rank
+
+    cfg = MLPConfig(width=128)
+    model = NeRFModel(PE_P, PE_V, cfg, cfg, "bfloat16", fused=True)
+    rs = RenderSettings(n_samples=64, n_importance=64, white_bkgd=True)
+    lrate, decay, n, steps = 5e-4, 500, 512, 2
+    nets = init_nets(model, 11, cuda_device)
+    start = {lvl: {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+             for lvl, net in nets.items()}
+    rng = np.random.default_rng(12)
+    batches = []
+    for _ in range(steps):
+        ro, rd, _, _ = (t.cpu().numpy() for t in _rays(int(rng.integers(1 << 30)), n, 1, "cpu"))
+        batches.append(((ro, rd, np.full(n, 2.0, np.float32), np.full(n, 6.0, np.float32),
+                         rng.uniform(0, 1, (n, 3)).astype(np.float32)),
+                        {"t_rand": rng.uniform(size=(n, 64)).astype(np.float32),
+                         "u": rng.uniform(size=(n, 64)).astype(np.float32)}))
+    job = {"model": model, "rs": rs, "params": start, "lrate": lrate, "lrate_decay": decay,
+           "batches": batches}
+    ranks = distributed.launch(sharded_step_rank, 2, "cuda:0", backend="gloo", args=(job,))
+    state = init_train_state(nets, lrate)
+    step = make_train_step(model, rs, lrate, decay)
+    losses = []
+    for batch, overrides in batches:
+        aux = step(state, *(torch.from_numpy(a).to(cuda_device) for a in batch),
+                   overrides={k: torch.from_numpy(v).to(cuda_device) for k, v in overrides.items()})
+        losses.append(float(aux["loss"]))
+    assert all(r["launches"] == (2 * steps, 2 * steps) for r in ranks)
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    np.testing.assert_allclose(ranks[0]["losses"], losses, rtol=1e-5)
+    for lvl, net in state.nets.items():
+        for name, p in net.named_parameters():
+            a, b = (r["state"]["params"][lvl][name] for r in ranks)
+            assert torch.equal(a, b), name
+            # the bounds of tests/test_torch_port_parallel.py: within 4 lr,
+            # the update within 5e-2 relative L2
+            want, p0 = p.detach().cpu(), start[lvl][name]
+            assert float((a - want).abs().max()) <= 4 * lrate, name
+            moved = torch.linalg.norm(want - p0)
+            if moved > 0:
+                assert float(torch.linalg.norm(a - want) / moved) <= 5e-2, name

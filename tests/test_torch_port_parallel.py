@@ -1,0 +1,338 @@
+"""The port's data parallelism against one process and nerf_tpu, on the CPU.
+
+One module-scoped fixture starts two gloo ranks once
+(``parallel.distributed.launch``); each runs
+tests/torch_port_parallel_worker.py: ``cli.train.main`` with
+``--data_axis 2`` for 6 steps with every cadence firing, then nerf_tpu's
+shard_map step as the port runs it, both samplers and the mesh-sharded
+frame renderer, and sends back its state and outputs. The same
+``cli.train.main`` runs once more in this process with ``--data_axis 1``.
+At the smallest shapes that catch a wrong result: a 16x16 blender scene,
+4x64 nets, N_rand 64, 8+8 samples. The card's run of the same path is
+chip_smoke.py's phase 24.
+"""
+
+import contextlib
+import dataclasses
+import os
+import pickle
+import re
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh as JMesh
+from jax.sharding import PartitionSpec as P
+
+from nerf_tpu.models import factory as jfactory
+from nerf_tpu.train import loop as jloop
+from nerf_tpu.train import step as jstep
+from nerf_tpu_torch import config as tconfig
+from nerf_tpu_torch.cli import train as cli_train
+from nerf_tpu_torch.data import rays_dataset
+from nerf_tpu_torch.data.blender import load_blender_scene
+from nerf_tpu_torch.models import factory as tfactory
+from nerf_tpu_torch.models.convert import jax_params_from_state_dict, state_dict_from_jax_params
+from nerf_tpu_torch.parallel import distributed
+from nerf_tpu_torch.parallel.mesh import Mesh
+from nerf_tpu_torch.render.renderer import make_frame_renderer
+from nerf_tpu_torch.train import loop as tloop
+from nerf_tpu_torch.utils import checkpoint
+from nerf_tpu_torch.utils.io import read_png
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from synthetic_scene import write_blender_dataset  # noqa: E402
+from torch_port_parallel_worker import rank_run  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+STEPS = 6
+CADENCES = {"i_print": 2, "i_img": 3, "i_weights": 6, "i_testset": 6, "i_video": 6}
+LRATE = 5e-4
+# Adam moves a weight by about lr per step whatever the size of its grad, so
+# two runs whose grads differ in the last bits (here: f32 sums in another
+# order, or nerf_tpu's ops against the port's) move a weight by up to a few
+# lr: tests/test_torch_port_train.py::test_train_steps_match_jax's bounds
+UPDATE_TOL = 5e-2
+# the samplers' batches: 3 train views of 16x16 are 768 rays, 19.2 batches
+# of 40, so the 20th batch wraps with 8 rays of the old epoch
+SAMPLER_RAND, SAMPLER_BATCHES = 40, 21
+FRAME_HW = (15, 15)  # an odd number of rays: the sharded renderer pads
+FRAME_TOL = 1e-6
+
+
+def _argv(tmp, datadir, expname, data_axis):
+    flags = {"config": str(REPO / "configs" / "lego.txt"), "datadir": datadir,
+             "basedir": str(tmp / "logs"), "expname": expname, "half_res": False,
+             "testskip": 1, "netdepth": 4, "netwidth": 64, "netdepth_fine": 4,
+             "netwidth_fine": 64, "N_samples": 8, "N_importance": 8, "N_rand": 64,
+             "precrop_iters": 2, "compute_dtype": "float32", "n_iters": STEPS,
+             "data_axis": data_axis, **CADENCES}
+    return [f"--{k}={v}" for k, v in flags.items()]
+
+
+def _step_job(cfg):
+    """Two train steps' inputs for (c): initial weights (the port's, seeded,
+    and as nerf_tpu's pytree), rays, targets and the whole batch's draws."""
+    tmodel = tfactory.make_model(cfg)
+    nets = tfactory.init_nets(tmodel, 3, "cpu")
+    sds = {lvl: {n: p.detach().clone() for n, p in net.state_dict().items()}
+           for lvl, net in nets.items()}
+    params = {lvl: jax_params_from_state_dict(sd, getattr(tmodel, lvl)) for lvl, sd in sds.items()}
+    rng = np.random.default_rng(7)
+    n = cfg.N_rand
+    batches = []
+    for _ in range(2):
+        ro = rng.normal(0, 0.3, (n, 3)).astype(np.float32) + np.float32([0, 0, 4])
+        rd = rng.normal(0, 0.2, (n, 3)).astype(np.float32) + np.float32([0, 0, -1])
+        batch = (ro, rd, np.full(n, 2.0, np.float32), np.full(n, 6.0, np.float32),
+                 rng.uniform(0, 1, (n, 3)).astype(np.float32))
+        overrides = {"t_rand": rng.uniform(size=(n, cfg.N_samples)).astype(np.float32),
+                     "u": rng.uniform(size=(n, cfg.N_importance)).astype(np.float32)}
+        batches.append((batch, overrides))
+    return params, {"params": sds, "batches": batches}
+
+
+@contextlib.contextmanager
+def _stdout_to(path):
+    """fd 1 (this process's and the ranks' it starts) into ``path``."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("dp")
+    datadir = str(tmp / "blender")
+    write_blender_dataset(datadir, n_train=3, n_val=2, n_test=3, H=16, W=16)
+    one_argv = _argv(tmp, datadir, "one", 1)
+    cfg = tconfig.load_config(one_argv)
+    jparams, step_job = _step_job(cfg)
+    job = {"argv": _argv(tmp, datadir, "dp", 2), "cfg": cfg, "step": step_job,
+           "scene": (datadir, False, 1, True), "sampler": (SAMPLER_RAND, SAMPLER_BATCHES),
+           "frame_hw": FRAME_HW, "chunk": 50}
+    threads = torch.get_num_threads()
+    omp = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"  # the ranks' torch: one thread, as here
+    torch.set_num_threads(1)
+    try:
+        with _stdout_to(tmp / "dp.log"):
+            ranks = distributed.launch(rank_run, 2, "cpu", args=(job,))
+        with _stdout_to(tmp / "one.log"):
+            one = cli_train.main(one_argv, device="cpu")
+        yield {"tmp": tmp, "cfg": cfg, "ranks": ranks, "one": one, "jparams": jparams,
+               "step_job": step_job, "dp_log": (tmp / "dp.log").read_text(),
+               "one_log": (tmp / "one.log").read_text()}
+    finally:
+        torch.set_num_threads(threads)
+        if omp is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+        else:
+            os.environ["OMP_NUM_THREADS"] = omp
+
+
+def _pairs(a, b):
+    for level in a:
+        for name in a[level]:
+            yield f"{level}.{name}", a[level][name], b[level][name]
+
+
+def _assert_close_to(got, want, start):
+    """Two trainings from ``start``: each weight within 4 lr, and each
+    leaf's update within UPDATE_TOL relative L2."""
+    for level in got:
+        for name, g in got[level].items():
+            w, p0 = want[level][name], start[level][name]
+            assert float((g - w).abs().max()) <= 4 * LRATE, (level, name)
+            moved = torch.linalg.norm(w - p0)
+            if moved > 0:
+                assert float(torch.linalg.norm(g - w) / moved) <= UPDATE_TOL, (level, name)
+
+
+# (a) the replicas stay equal
+
+
+def test_ranks_hold_equal_params_and_moments(runs):
+    r0, r1 = (r["state"] for r in runs["ranks"])
+    assert r0["step"] == r1["step"] == STEPS
+    for key in ("params", "moments"):
+        for name, a, b in _pairs(r0[key], r1[key]):
+            if key == "params":
+                assert torch.equal(a, b), name
+            else:
+                assert all(torch.equal(x, y) for x, y in zip(a, b)), name
+    assert set(r0["moments"]["fine"]) == set(r0["params"]["fine"])
+
+
+# (b) two ranks train as one process does
+
+
+def test_two_ranks_match_one_process(runs):
+    one = runs["one"]
+    hist = [r["history"] for r in runs["ranks"]]
+    assert hist[0] == hist[1]
+    assert [h[0] for h in hist[0]] == [h[0] for h in one.history] == [2, 4, 6]
+    for (_, loss, _), (_, want, _) in zip(hist[0], one.history):
+        np.testing.assert_allclose(loss, want, rtol=1e-5)
+    start = tfactory.init_nets(tfactory.make_model(runs["cfg"]), runs["cfg"].seed, "cpu")
+    start = {lvl: {n: p.detach() for n, p in net.named_parameters()} for lvl, net in start.items()}
+    want = {lvl: {n: p.detach() for n, p in net.named_parameters()}
+            for lvl, net in one.state.nets.items()}
+    _assert_close_to(runs["ranks"][0]["state"]["params"], want, start)
+    assert "[MESH] data-parallel over 2 ranks" in runs["dp_log"]
+    assert runs["dp_log"].count("[TRAIN] Iter: 2 ") == 1  # rank 0 prints
+
+
+# (c) the port's 2-rank step against nerf_tpu's shard_map step
+
+
+def test_two_rank_step_matches_shard_map(runs):
+    cfg = runs["cfg"]
+    jmodel = jfactory.make_model(cfg)
+    rs = jloop.render_settings_from_config(cfg)
+    core = jstep.make_train_step_core(jmodel, rs, cfg.lrate, cfg.lrate_decay, axis_name="data")
+    mesh = JMesh(np.asarray(jax.devices()[:2]), ("data",))
+    mapped = jax.jit(jax.shard_map(core, mesh=mesh, in_specs=(P(),) + (P("data"),) * 6,
+                                   out_specs=(P(), P()), check_vma=False))
+    state = jstep.init_train_state(runs["jparams"], cfg.lrate, cfg.lrate_decay)
+    losses = []
+    for batch, overrides in runs["step_job"]["batches"]:
+        state, aux = mapped(state, *(jnp.asarray(a) for a in batch),
+                            {k: jnp.asarray(v) for k, v in overrides.items()})
+        losses.append(float(aux["loss"]))
+    got = runs["ranks"][0]["step"]
+    assert got["losses"] == runs["ranks"][1]["step"]["losses"]
+    np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
+    tmodel = tfactory.make_model(cfg)
+    want = {lvl: {n: torch.from_numpy(np.asarray(v)) for n, v in state_dict_from_jax_params(
+        jax.tree.map(np.asarray, state.params[lvl]), getattr(tmodel, lvl)).items()}
+        for lvl in ("coarse", "fine")}
+    _assert_close_to(got["state"]["params"], want, runs["step_job"]["params"])
+
+
+# (d) the samplers' rank rows are the one-process batch
+
+
+def test_sampler_rank_rows_make_the_batch(runs):
+    cfg = runs["cfg"]
+    scene = load_blender_scene(*(str(runs["tmp"] / "blender"), False, 1, True))
+    batched = rays_dataset.BatchedRaySampler(scene, SAMPLER_RAND, torch.Generator().manual_seed(5),
+                                             device="cpu")
+    image = rays_dataset.ImageRaySampler(scene, SAMPLER_RAND, torch.Generator().manual_seed(6),
+                                         precrop_iters=2, device="cpu")
+    want = {"batched": [batched.next_batch() for _ in range(SAMPLER_BATCHES)],
+            "image": [image.next_batch(i) for i in range(1, 5)]}
+    assert batched.perm.shape[0] == batched.n_total + 8  # the wrap kept the old tail
+    for kind, batches in want.items():
+        for k, batch in enumerate(batches):
+            for j, whole in enumerate(batch):
+                rows = [r[kind][k][j] for r in runs["ranks"]]
+                assert rows[0].shape[0] == SAMPLER_RAND // 2
+                assert torch.equal(torch.cat(rows), whole), (kind, k, j)
+
+
+# (e) the shared test-set render is render_path's
+
+
+def test_render_path_multiprocess_matches_render_path(runs, tmp_path, capsys):
+    cfg = runs["cfg"]
+    state = runs["ranks"][0]["state"]
+    model = tfactory.make_model(cfg)
+    nets = tfactory.init_nets(model, 0, "cpu")
+    for lvl, net in nets.items():
+        net.load_state_dict(state["params"][lvl])
+    scene = tloop.load_scene(cfg)
+    rs = tloop.render_settings_from_config(cfg)
+    tloop.render_path(nets, model, rs, scene, scene.poses[scene.i_test], cfg.chunk,
+                      savedir=str(tmp_path), gt_imgs=scene.images[scene.i_test], device="cpu")
+    want = re.findall(r"mean PSNR over 3 views: (\S+)", capsys.readouterr().out)
+    got = re.findall(r"mean PSNR over 3 views \(2 processes\): (\S+)", runs["dp_log"])
+    assert got == want and len(want) == 1
+    shared = runs["tmp"] / "logs" / "dp" / f"testset_{STEPS:06d}"
+    assert sorted(os.listdir(shared)) == sorted(os.listdir(tmp_path)) == \
+        ["000.png", "001.png", "002.png"]
+    for f in os.listdir(tmp_path):
+        np.testing.assert_array_equal(read_png(str(shared / f)), read_png(str(tmp_path / f)))
+    expdir = runs["tmp"] / "logs" / "dp"
+    assert not [f for f in os.listdir(expdir) if f.startswith(".")]  # stages cleared
+    spiral = [f for f in os.listdir(expdir) if f.startswith(f"dp_spiral_{STEPS:06d}_rgb")]
+    assert len(spiral) == 1
+
+
+# (f) the mesh-sharded frame renderer is the unsharded one
+
+
+def test_sharded_frame_renderer_matches_unsharded(runs):
+    cfg = runs["cfg"]
+    model = tfactory.make_model(cfg)
+    nets = tfactory.init_nets(model, 0, "cpu")
+    for lvl, net in nets.items():
+        net.load_state_dict(runs["ranks"][0]["state"]["params"][lvl])
+    scene = load_blender_scene(str(runs["tmp"] / "blender"), False, 1, True)
+    rs = tloop.render_settings_from_config(cfg).eval_mode()
+    H, W = FRAME_HW
+    want = make_frame_renderer(model, rs, H, W, scene.K, scene.near, scene.far,
+                               device="cpu")(nets, scene.poses[0])
+    f0, f1 = (r["frame"] for r in runs["ranks"])
+    assert set(f0) == set(want) and "rgb0" in want
+    for k in want:
+        assert f0[k].shape == want[k].shape == (H, W, *want[k].shape[2:]), k
+        assert torch.equal(f0[k], f1[k]), k
+        torch.testing.assert_close(f0[k], want[k], rtol=0, atol=FRAME_TOL, equal_nan=True)
+    mesh = Mesh(group=None, size=2, rank=0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="deterministic"):
+        make_frame_renderer(model, tloop.render_settings_from_config(cfg), H, W, scene.K,
+                            scene.near, scene.far, device="cpu", mesh=mesh)
+
+
+# (g) the .tar written under two ranks resumes in one process
+
+
+def test_two_rank_tar_resumes_in_one_process(runs, tmp_path):
+    cfg = runs["cfg"]
+    expdir = runs["tmp"] / "logs" / "dp"
+    assert sorted(f for f in os.listdir(expdir) if f.endswith(".tar")) == [f"{STEPS:06d}.tar"]
+    model = tfactory.make_model(cfg)
+    loaded = checkpoint.load_checkpoint(str(expdir / f"{STEPS:06d}.tar"), model, cfg.lrate, "cpu")
+    r0 = runs["ranks"][0]["state"]
+    assert loaded.step == STEPS
+    for lvl, net in loaded.nets.items():
+        for name, p in net.named_parameters():
+            assert torch.equal(p, r0["params"][lvl][name]), name
+            st = loaded.optimizer.state[p]
+            assert torch.equal(st["exp_avg"], r0["moments"][lvl][name][0]), name
+            assert torch.equal(st["exp_avg_sq"], r0["moments"][lvl][name][1]), name
+    resumed = tloop.train(dataclasses.replace(
+        cfg, basedir=str(expdir.parent), expname="dp", n_iters=STEPS + 1, i_img=0, i_weights=0,
+        i_testset=0, i_video=0, datadir=str(runs["tmp"] / "blender")), device="cpu")
+    assert resumed.state.step == STEPS + 1
+
+
+# the CLI's launcher, without starting processes
+
+
+def test_cli_launches_the_ranks_data_axis_asks_for(monkeypatch, tmp_path):
+    cfg = tconfig.NeRFConfig(basedir=str(tmp_path), data_axis=2, dataset_type="blender")
+    calls = []
+    monkeypatch.setattr(distributed, "launch",
+                        lambda fn, n, device, args=(): calls.append((fn, n, device, args)))
+    cli_train.run(cfg, device="cpu")
+    (fn, n, device, args), = calls
+    assert (n, device, args) == (2, "cpu", (cfg,)) and fn is cli_train._train_rank
+    pickle.dumps((fn, args))  # spawn sends both to every rank
+    assert cli_train.data_ranks(dataclasses.replace(cfg, data_axis=0), "cpu") == 1
+    assert cli_train.data_ranks(dataclasses.replace(cfg, data_axis=3), "cpu") == 3
+    with pytest.raises(ValueError, match="2 ranks"):
+        distributed.shard_slice(63, 0, 2)
+    assert distributed.host_shard_slice(64) == slice(0, 64)  # no group: all rows

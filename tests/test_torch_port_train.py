@@ -496,14 +496,17 @@ def test_train_runs_fused_render_on_cpu(tmp_path, monkeypatch):
 
 
 def test_train_raises_on_what_is_not_ported(tmp_path):
-    """What is left: data parallelism. With no scene given, train() loads
-    the config's scene with every dataset type, llff's loader among them
-    (on a directory with no scene it raises for the missing file); the
-    cadences, ft_path and trace run (tests/test_torch_port_cli.py), the
-    loaders are tests/test_torch_port_data.py's."""
+    """Nothing of train() is left unported. data_axis=2 without a process
+    group of 2 ranks raises, naming the CLI and the launcher that start
+    them (tests/test_torch_port_parallel.py trains over ranks). With no
+    scene given, train() loads the config's scene with every dataset type,
+    llff's loader among them (on a directory with no scene it raises for
+    the missing file); the cadences, ft_path and trace run
+    (tests/test_torch_port_cli.py), the loaders are
+    tests/test_torch_port_data.py's."""
     scene = make_scene(n_train=2, n_test=1, H=8, W=8)
     cfg = tconfig.NeRFConfig(basedir=str(tmp_path), n_iters=2, data_axis=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+    with pytest.raises(ValueError, match=r"cli\.train.*parallel\.distributed\.launch"):
         train(dataclasses.replace(cfg, data_axis=2), scene, device="cpu")
     with pytest.raises(FileNotFoundError, match="poses_bounds.npy"):
         train(dataclasses.replace(cfg, dataset_type="llff", datadir=str(tmp_path / "none")),

@@ -1,0 +1,103 @@
+"""One rank of tests/test_torch_port_parallel.py's process group.
+
+``rank_run`` runs in each gloo rank that the test starts with
+``nerf_tpu_torch.parallel.distributed.launch``. It imports torch and the
+port only (a spawned rank imports this module afresh) and returns CPU
+tensors and numbers for the test to hold against one process and
+nerf_tpu.
+"""
+
+import torch
+
+from nerf_tpu_torch.cli import train as cli_train
+from nerf_tpu_torch.data import rays_dataset
+from nerf_tpu_torch.data.blender import load_blender_scene
+from nerf_tpu_torch.models.factory import make_model
+from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+from nerf_tpu_torch.parallel.mesh import make_mesh, make_sharded_train_step, shard_batch
+from nerf_tpu_torch.render.renderer import make_frame_renderer
+from nerf_tpu_torch.train.loop import render_settings_from_config
+from nerf_tpu_torch.train.step import init_train_state
+
+
+def state_tensors(state) -> dict:
+    """A train state's parameters and Adam moments, by level and name, and its step."""
+    out = {"step": state.step, "params": {}, "moments": {}}
+    for level, net in state.nets.items():
+        out["params"][level] = {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
+        out["moments"][level] = {
+            n: tuple(state.optimizer.state[p][k].cpu().clone() for k in ("exp_avg", "exp_avg_sq"))
+            for n, p in net.named_parameters() if p in state.optimizer.state}
+    return out
+
+
+def rank_run(device, job: dict) -> dict:
+    out = {}
+    # cli.train inside the group: this rank's share of data-parallel training
+    result = cli_train.main(job["argv"], device=device)
+    out["history"] = result.history
+    out["state"] = state_tensors(result.state)
+    cfg, scene_args = job["cfg"], job["scene"]
+    mesh = make_mesh(2, device)
+    model = make_model(cfg)
+    rs = render_settings_from_config(cfg)
+
+    # nerf_tpu's shard_map step, as the port runs it: given state, rays and
+    # the whole batch's draws
+    nets = {}
+    for level, sd in job["step"]["params"].items():
+        nets[level] = NeRFMLP(getattr(model, level), device=device)
+        nets[level].load_state_dict(sd, strict=True)
+    state = init_train_state(nets, cfg.lrate)
+    step = make_sharded_train_step(mesh, model, rs, cfg.lrate, cfg.lrate_decay)
+    losses = []
+    for batch, overrides in job["step"]["batches"]:
+        rows = shard_batch(mesh, *(torch.from_numpy(a) for a in batch))
+        aux = step(state, *rows, overrides={k: torch.from_numpy(v) for k, v in overrides.items()})
+        losses.append(float(aux["loss"]))
+    out["step"] = {"losses": losses, "state": state_tensors(state)}
+
+    # both samplers: this rank's rows of each batch, across an epoch wrap
+    scene = load_blender_scene(*scene_args)
+    n_rand, n_batches = job["sampler"]
+    batched = rays_dataset.BatchedRaySampler(
+        scene, n_rand, torch.Generator().manual_seed(5), device=device, mesh=mesh)
+    image = rays_dataset.ImageRaySampler(
+        scene, n_rand, torch.Generator().manual_seed(6), precrop_iters=2, device=device,
+        mesh=mesh)
+    out["batched"] = [batched.next_batch() for _ in range(n_batches)]
+    out["image"] = [image.next_batch(i) for i in range(1, 5)]
+
+    # the mesh-sharded frame renderer at an odd H*W, with the trained nets
+    H, W = job["frame_hw"]
+    frame = make_frame_renderer(model, rs.eval_mode(), H, W, scene.K, scene.near, scene.far,
+                                chunk=job["chunk"], device=device, mesh=mesh)
+    out["frame"] = frame(result.state.nets, scene.poses[0])
+    out["rank"] = mesh.rank
+    return out
+
+
+
+def sharded_step_rank(device, job: dict) -> dict:
+    """tests/test_torch_port_kernels.py's card check: the sharded step on
+    this rank's rows of ``job``'s batches, with K1's and K4's launches."""
+    from nerf_tpu_torch.ops import fused_mlp
+
+    mesh = make_mesh(2, device)
+    model = job["model"]
+    nets = {}
+    for level, sd in job["params"].items():
+        nets[level] = NeRFMLP(getattr(model, level), device=device)
+        nets[level].load_state_dict(sd, strict=True)
+    state = init_train_state(nets, job["lrate"])
+    step = make_sharded_train_step(mesh, model, job["rs"], job["lrate"], job["lrate_decay"])
+    before = fused_mlp.fused_rays_planes.launches, fused_mlp.fused_rays_planes_bwd.launches
+    losses = []
+    for batch, overrides in job["batches"]:
+        rows = shard_batch(mesh, *(torch.from_numpy(a).to(device) for a in batch))
+        aux = step(state, *rows,
+                   overrides={k: torch.from_numpy(v).to(device) for k, v in overrides.items()})
+        losses.append(float(aux["loss"]))
+    launches = (fused_mlp.fused_rays_planes.launches - before[0],
+                fused_mlp.fused_rays_planes_bwd.launches - before[1])
+    return {"losses": losses, "launches": launches, "state": state_tensors(state)}
