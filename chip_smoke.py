@@ -163,10 +163,29 @@ Data parallelism (``parallel/mesh.py``, ``parallel/distributed.py``):
    a rank, and the bf16 step's ms/step and all-reduce device ms from rank
    0's profile (``tools/dp_time.py``'s rank); with one card a one-rank
    NCCL group's 2 steps and one all-reduce.
+Multi-scene training (``parallel/multi_scene.py``, ``cli/train_multi.py``):
+25. multi: the port's ``tools/make_multi_scenes.py`` writes the 8 scenes of
+   configs/multi (3 / 1 / 1 views of the tool's 15 / 3 / 3) and
+   ``cli.train_multi.main`` trains configs/multi/scene_0..7.txt for 24
+   steps, i_print and i_weights firing: 2 stacked K1 and 2 stacked K4
+   launches a step for all 8 scenes (K1s, K4s; each K4s one recompute and
+   one chain) and none of K1-K6, a finite loss a scene, 8 .tar files each
+   loading into the one-scene model with its trained weights; the stacked
+   K1 and K4 on the trained nets at 8 x 1024 rays, 64 and 192 samples:
+   against their plain versions (phase 3's and phase 6's bounds), against
+   8 single-scene K1 launches (raw bit for bit) and K4 launches (grads,
+   bit-equal printed), timed per step beside their bounds, plain versions
+   and the same products as bf16 ``torch.bmm``; phase 7's windows on the
+   stacked step (each scene's loss falling) beside scene 0 trained alone
+   through ``train()`` on its config and phase 23's LINEMOD recipe (one
+   scene, N_rand 1024, 64+64); then 8 steps in one process and over 2
+   gloo ranks on this card (4 scenes each), each scene within phase 24's
+   bounds of the one-process run, and with two or more cards the same on
+   NCCL.
 
 The last two lines are a JSON object of kernel numbers (K1-K7, the
-backward's recompute and chain launches, K6's compositing pass, and K7's
-``matmul_only`` beside its library chain) and the
+backward's recompute and chain launches, K6's compositing pass, K7's
+``matmul_only`` beside its library chain, and the stacked K1 and K4) and the
 ``{"ok": true, "device": ...}`` result. Weights are random, from seeds.
 The script imports nothing of JAX or of ``nerf_tpu``.
 """
@@ -338,12 +357,26 @@ DP_CADENCES = {"i_print": 4, "i_img": 8, "i_weights": 16, "i_testset": 16, "i_vi
 DP_LOSS_RTOL, DP_UPDATE_TOL = 1e-5, 5e-2
 # the steps of the one-rank NCCL group on a machine with one card
 DP_ONE_RANK_STEPS = 2
+# multi-scene training (phase 25): the port's tool writes configs/multi's 8
+# scenes at its 200x200 with 3 / 1 / 1 of its 15 / 3 / 3 views (a smoke
+# run samples a few train views; the held-out splits are only written),
+# and cli.train_multi trains them for MULTI_STEPS steps; the stacked
+# kernels are checked at N_rand 1024 (the configs'), 64 + 192 samples; the
+# sharded run is MULTI_DP_STEPS steps over MULTI_RANKS ranks, held to phase
+# 24's bounds
+MULTI_SCENES, MULTI_RAYS, MULTI_STEPS = 8, 1024, 24
+MULTI_COUNTS = {"train": 3, "val": 1, "test": 1}
+MULTI_CADENCES = {"i_print": 8, "i_weights": 24}
+MULTI_DP_STEPS, MULTI_RANKS = 8, 2
+MULTI_DP_CADENCES = {"i_print": 4, "i_weights": 0}
+MULTI_LRATE = 5e-4  # configs/multi's (the default)
 
 
 def counters():
     """The launch counters of K1-K7, of the bf16 backward's recompute and
-    chain launches (K4's, K3's and K6's first two) and of K6's compositing
-    pass, by name."""
+    chain launches (K4's, K3's, K6's and the stacked K4's first two), of
+    K6's compositing pass and of the stacked K1 and K4 of multi-scene
+    training (K1s, K4s), by name."""
     from nerf_tpu_torch.experimental import fused_render
     from nerf_tpu_torch.ops import fused_mlp
     from nerf_tpu_torch.tools import probe_overlap
@@ -352,7 +385,9 @@ def counters():
             "K3": fused_mlp.fused_points_bwd, "K4": fused_mlp.fused_rays_planes_bwd,
             "K5": fused_render.fused_render_fwd, "K6": fused_render.fused_render_bwd,
             "K7": probe_overlap.probe, "recompute": fused_mlp.bwd_recompute,
-            "chain": fused_mlp.bwd_chain, "composite": fused_render.composite_bwd}
+            "chain": fused_mlp.bwd_chain, "composite": fused_render.composite_bwd,
+            "K1s": fused_mlp.fused_rays_planes_stacked,
+            "K4s": fused_mlp.fused_rays_planes_stacked_bwd}
 
 
 def reset_counts() -> None:
@@ -430,10 +465,11 @@ def ptxas_spills(log: str, function: str) -> dict:
 
 def in_w_label(name: str) -> str:
     """An instantiation's template arguments from its mangled name: RaysIn /
-    PointsIn x W = 128 / 256, and a bool template argument, as the
-    recompute's raw (a kernel without an input-mode parameter reads rays)."""
+    PointsIn x W = 128 / 256, a bool template argument, as the recompute's
+    raw (a kernel without an input-mode parameter reads rays), and the
+    stacked launches' walk (SceneWalk: a net per scene)."""
     inst = f"{'PointsIn' if 'PointsIn' in name else 'RaysIn'},W={256 if 'Li256E' in name else 128}"
-    return inst + (",raw" if "Lb1E" in name else "")
+    return inst + (",raw" if "Lb1E" in name else "") + (",stacked" if "SceneWalk" in name else "")
 
 
 def first_arg_label(name: str) -> str:
@@ -555,14 +591,15 @@ def main() -> int:
         raise RuntimeError(f"wgrad_bf16 issues no wgmma or no TMA load: {sass}")
     # the bf16 forward of K1 and K2, K5's and the backward's recompute, all
     # on one tile, and the backward's chain on that tile's ring and
-    # warpgroups: wgmma and TMA loads, and no mma.sync (and their 16-byte
-    # global stores: the workspace rows)
+    # warpgroups, each also as the stacked launch of multi-scene training
+    # (K1's and K4's in ray mode): wgmma and TMA loads, and no mma.sync (and
+    # their 16-byte global stores: the workspace rows)
     # (K7's nine bodies, each on that tile or its pieces, by body number)
     for source, function, expected, label in (
-            ("fused_mlp_fwd", "fwd_bf16_sm90", 4, in_w_label),
+            ("fused_mlp_fwd", "fwd_bf16_sm90", 6, in_w_label),
             ("fused_render", "render_bf16_sm90", 2, in_w_label),
-            ("fused_mlp_bwd", "bwd_recompute_sm90", 8, in_w_label),
-            ("fused_mlp_bwd", "bwd_chain_sm90", 4, in_w_label),
+            ("fused_mlp_bwd", "bwd_recompute_sm90", 10, in_w_label),
+            ("fused_mlp_bwd", "bwd_chain_sm90", 6, in_w_label),
             ("probe_overlap", "probe_sm90", 9, first_arg_label)):
         for inst, ops in instantiations(source, function,
                                         ("HGMMA", "UTMALDG", "HMMA", "STG.E.128"),
@@ -684,11 +721,14 @@ def main() -> int:
     formats_root = tempfile.mkdtemp(prefix="chip_smoke_formats_")
     synthff = synth_phase(formats_root, dev)
     cli_llff_phase(formats_root, synthff, dev)
-    cli_formats_phase(formats_root, dev)
+    one_scene = cli_formats_phase(formats_root, dev)
     shutil.rmtree(formats_root)
 
     # 24. data parallelism: cli.train over ranks
     dp_phase(train_info["views"], dev)
+
+    # 25. multi-scene training: cli.train_multi, the stacked K1 and K4
+    multi = multi_phase(one_scene, dev)
 
     def row(name, source, replaces, launches, err, t):
         return {
@@ -765,6 +805,19 @@ def main() -> int:
         # its matmul_only body's 1 + 30, beside the 8 bf16 torch.matmul
         probe_row("probe_overlap_matmul_only", k7["by_body"]["matmul_only"],
                   k7["matmul_only"]),
+        # the stacked K1 of multi-scene training (K1's tile on a scene's
+        # weights a tile): cli.train_multi's 48 launches (24 steps, 8
+        # scenes each); bf16 max abs over phase 25's both levels; ms per
+        # step (S = 8, N_rand 1024, 64 + 192), the same products as bf16
+        # torch.bmm over the scenes as the library's
+        row("fused_mlp_fwd_stacked", "fused_mlp_fwd.cu",
+            "nerf_tpu/ops/fused_mlp.py:464 (vmapped, nerf_tpu/parallel/multi_scene.py:64)",
+            multi["counts"]["K1s"], multi["k1_err"], multi["k1"]),
+        # the stacked K4 (its three phases, each one launch for 8 scenes):
+        # cli.train_multi's 48; bf16 weight grads (max abs); ms per step
+        row("fused_mlp_bwd_stacked", "fused_mlp_bwd.cu",
+            "nerf_tpu/ops/fused_mlp.py:621 (vmapped, nerf_tpu/parallel/multi_scene.py:64)",
+            multi["counts"]["K4s"], multi["k4_err"], multi["k4"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1178,8 +1231,9 @@ def timed_train(cfg, views, dev, fwd: str, bwd: str, **fields):
     check_counts(counts, want, f"{TIMED_STEPS} steps at S={n_samples}")
     if not last < first:
         raise RuntimeError(f"the loss did not fall: {first} -> {last}")
-    profile_report(prof, marks[end + PROFILED_STEPS] - marks[end], fwd, bwd, **fields)
-    return {"cfg": cfg, "nets": result.state.nets, "counts": counts}
+    profile = profile_report(prof, marks[end + PROFILED_STEPS] - marks[end], fwd, bwd, **fields)
+    return {"cfg": cfg, "nets": result.state.nets, "counts": counts, "profile": profile,
+            "ms_per_step": 1e3 * seconds / TIMED_STEPS}
 
 
 def profile_report(prof, seconds: float, fwd: str, bwd: str, **fields) -> None:
@@ -1223,6 +1277,10 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str, **fields) -> None:
     for us, key, count in sorted(rows, reverse=True)[:12]:
         print(f"  device {us / 1e3 / PROFILED_STEPS:8.3f} ms/step  x{count // PROFILED_STEPS:<4d} {key[:90]}",
               flush=True)
+    return {"wall_ms_per_step": wall_ms / PROFILED_STEPS,
+            "device_ms_per_step": busy_us / 1e3 / PROFILED_STEPS,
+            "idle_share": max(0.0, 1 - busy_us / 1e3 / wall_ms) if busy_us else None,
+            **{f"{g}_ms_per_step": v / 1e3 / PROFILED_STEPS for g, v in share.items()}}
 
 
 def trace_device_us(prof) -> dict:
@@ -1693,7 +1751,8 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
                 # the halves' two launch the compositing pass
                 recomputes = 3 if dtype == torch.bfloat16 else 0
                 if moved != {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 3, "K6": 2, "K7": 0,
-                             "recompute": recomputes, "chain": recomputes, "composite": 4}:
+                             "recompute": recomputes, "chain": recomputes, "composite": 4,
+                             "K1s": 0, "K4s": 0}:
                     raise RuntimeError(f"the K5/K6 launch counters moved wrongly: {moved}")
                 if dtype == torch.bfloat16:
                     k5_errs.append(err)
@@ -2275,12 +2334,13 @@ def cli_llff_phase(root: str, datadir: str, dev) -> None:
     timed_format_run(root, "synthff.txt", datadir, scene, dev, "llff")
 
 
-def cli_formats_phase(root: str, dev) -> None:
+def cli_formats_phase(root: str, dev) -> dict:
     """23. The DeepVoxels and LINEMOD scenes written at the tools' 512x512
     and 400x400 (fewer views), each through ``cli.train.main`` with its
     config (batching; no_batching with precrop): 2 K1 + 2 K4 a step, a
     falling loss, the loader's near/far, for LINEMOD the json's K in
-    get_rays; then each recipe's timed and profiled windows."""
+    get_rays; then each recipe's timed and profiled windows, which it
+    returns by scene ("dv", "linemod")."""
     from nerf_tpu_torch.cli import train as cli_train
     from nerf_tpu_torch.config import load_config
     from nerf_tpu_torch.data import rays_dataset
@@ -2288,6 +2348,7 @@ def cli_formats_phase(root: str, dev) -> None:
     from nerf_tpu_torch.tools import make_deepvoxels_scene, make_linemod_scene
     from nerf_tpu_torch.train import loop
 
+    timed = {}
     for path, tool, config, views, sampler_want in (
             ("dv", make_deepvoxels_scene, "synth_dv.txt", DV_COUNTS, "BatchedRaySampler"),
             ("linemod", make_linemod_scene, "synth_linemod.txt", LINEMOD_COUNTS,
@@ -2347,7 +2408,8 @@ def cli_formats_phase(root: str, dev) -> None:
             raise RuntimeError(f"cli.train {path}: bounds {bounds_ok} ({scene.near}, "
                                f"{scene.far}), sampler {sampler}, holdout {psnr}, K in "
                                f"get_rays {k_reached}")
-        timed_format_run(root, config, datadir, scene, dev, path)
+        timed[path] = timed_format_run(root, config, datadir, scene, dev, path)
+    return timed
 
 
 def dp_state(state) -> dict:
@@ -2531,6 +2593,363 @@ def dp_phase(views, dev):
               allreduce_device_ms_per_step=f"{out['allreduce_ms_per_step']:.3f}",
               allreduce_kernels=out["allreduce_kernels"], all_reduce_of_ones="ok")
     shutil.rmtree(root)
+
+
+def multi_rank(device, argv):
+    """25. ``cli.train_multi.main(argv)`` on ``device`` in the rank's group:
+    its scenes, history, parameters (on the CPU) and the stacked launch
+    counts."""
+    from nerf_tpu_torch.cli import train_multi
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = train_multi.main(argv, device=device)
+    torch.cuda.synchronize()
+    return {"scenes": result.scenes, "history": result.history, "counts": read_counts(),
+            "params": {lvl: {n: p.detach().cpu() for n, p in net.named_parameters()}
+                       for lvl, net in result.state.nets.items()}}
+
+
+def multi_argv(root: str, expname: str, n_iters: int, cadences, data_axis: int = 1):
+    """cli.train_multi on the repository's configs/multi/scene_*.txt (their
+    datadirs are relative: run from ``root``), logs under ``root``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    configs = [os.path.join(here, "configs", "multi", f"scene_{k}.txt")
+               for k in range(MULTI_SCENES)]
+    return (["--configs", *configs, f"--basedir={os.path.join(root, 'logs', expname)}",
+             f"--n_iters={n_iters}", f"--data_axis={data_axis}"]
+            + [f"--{k}={v}" for k, v in cadences.items()])
+
+
+def stacked_matmul_chain(kp, n_pts: int, backward: bool):
+    """The stacked K1's 10 large products (``backward``: the stacked K4's
+    recompute, cotangent and weight-grad products, backward_matmul_chain's)
+    as bf16 torch.bmm over the scene axis at n_pts points a scene: a
+    library yardstick, timed here only and used nowhere in the port."""
+    dev, S, Wd = kp["W1"].device, kp["W1"].shape[0], kp["W1"].shape[-1]
+    bf = torch.bfloat16
+    e = torch.randn(S, n_pts, 64, dtype=bf, device=dev)
+    a = torch.randn(S, n_pts, Wd, dtype=bf, device=dev)
+    ah = torch.randn(S, n_pts, Wd // 2, dtype=bf, device=dev)
+    d05 = torch.randn(S, n_pts, 2 * Wd, dtype=bf, device=dev)
+    w05 = torch.nn.functional.pad(kp["W05e"], (0, 0, 0, 64 - kp["W05e"].shape[-2]))
+    trunk = [kp[f"W{i}"] for i in range(1, 8)] + [kp["Wf"]]
+
+    def run():
+        torch.bmm(e, w05)
+        for w in trunk + [kp["Wvf"]]:
+            torch.bmm(a, w)
+        if backward:
+            torch.bmm(ah, kp["Wvf"].mT)
+            for w in trunk:
+                torch.bmm(a, w.mT)
+            torch.bmm(e.mT, d05)
+            for _ in trunk:
+                torch.bmm(a.mT, a)
+            torch.bmm(a.mT, ah)
+
+    return run
+
+
+def multi_kernels(trained, dev):
+    """25. The stacked K1 and K4 at the main path's shapes (8 scenes of 1024
+    rays, 64 and 192 samples) on stacked nets of random weights from seeds,
+    as phases 3 and 6 take theirs: against their plain versions (those
+    phases' bounds) and against 8 single-scene K1 and K4 launches (raw bit
+    for bit; the grads bit for bit where each scene's points split as K4's
+    alone would: R a multiple of 64), then timed per step beside their
+    bounds, plain versions and the same products as bf16 torch.bmm. On the
+    ``trained`` nets too, K1's raw against 8 single-scene launches (bit for
+    bit) and its distance from the plain version (printed)."""
+    from nerf_tpu_torch.models.embedding import PosEncConfig
+    from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from nerf_tpu_torch.ops import fused_mlp
+    from nerf_tpu_torch.render.network import StackedNeRFMLP
+
+    pe_pts, pe_views = PosEncConfig(10), PosEncConfig(4)
+    cfg = trained["coarse"].cfg
+    nets = {level: StackedNeRFMLP.from_nets([NeRFMLP(cfg, seed=100 + 2 * k + j, device=dev)
+                                             for k in range(MULTI_SCENES)])
+            for j, level in enumerate(("coarse", "fine"))}
+    rng = np.random.default_rng(24)
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(trained["fine"], pe_pts, pe_views, torch.bfloat16)
+        rays = [torch.stack(t) for t in zip(*(make_rays(rng, MULTI_RAYS, N_SAMPLES, dev)
+                                               for _ in range(MULTI_SCENES)))]
+        out = fused_mlp.fused_rays_planes_stacked(kp, *rays)
+        trained_err = float((out - fused_mlp.fused_rays_planes_stacked_reference(kp, *rays))
+                            .abs().max())
+        trained_same = all(torch.equal(out[:, s], fused_mlp.fused_rays_planes(
+            {k: v[s].contiguous() for k, v in kp.items()}, *(t[s] for t in rays)))
+            for s in range(MULTI_SCENES))
+    phase("multi_trained", level="fine (24 steps)", scenes=MULTI_SCENES, R=MULTI_RAYS,
+          S=N_SAMPLES, raw_bit_equal_8_single_k1=trained_same,
+          k1_max_abs_vs_plain=f"{trained_err:.3e}",
+          note="phase 3's bound is taken on random weights")
+    del out, kp, rays
+    if not trained_same:
+        raise RuntimeError("the stacked K1's raw on the trained nets is not 8 K1 launches'")
+    rng = np.random.default_rng(25)
+    zero = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
+    k1, k4 = dict(zero), dict(zero)
+    k1_errs, k4_errs, k4_rel, same_raw, same_grads = [], [], [], True, True
+    for level, S in (("coarse", N_SAMPLES), ("fine", N_SAMPLES + N_IMPORTANCE)):
+        with torch.no_grad():
+            kp = fused_mlp.pack_params(nets[level], pe_pts, pe_views, torch.bfloat16)
+        blobs = fused_mlp.kernel_blobs(kp)
+        rays = [torch.stack(t) for t in zip(*(make_rays(rng, MULTI_RAYS, S, dev)
+                                               for _ in range(MULTI_SCENES)))]
+        g = (0.5 + torch.rand(4, MULTI_SCENES, MULTI_RAYS, S, device=dev)) * 1e-4
+        with torch.no_grad():
+            out = fused_mlp.fused_rays_planes_stacked(kp, *rays, blobs)
+            ref = fused_mlp.fused_rays_planes_stacked_reference(kp, *rays)
+            k1_errs.append(check_kernel(out.reshape(4, -1, S), ref.reshape(4, -1, S), BF16_TOL,
+                                        dtype="bfloat16", stacked=MULTI_SCENES, R=MULTI_RAYS, S=S))
+            del ref
+            grads = fused_mlp.fused_rays_planes_stacked_bwd(kp, *rays, g, blobs)
+            ref_g = fused_mlp.fused_rays_planes_stacked_bwd_reference(kp, *rays, g)
+            for k in ref_g:
+                for s in range(MULTI_SCENES):
+                    k4_rel.append(rel_l2(grads[k][s], ref_g[k][s]))
+                    k4_errs.append(float((grads[k][s] - ref_g[k][s]).abs().max()))
+            del ref_g
+            for s in range(MULTI_SCENES):
+                kp_s = {k: v[s].contiguous() for k, v in kp.items()}
+                one = [t[s] for t in rays]
+                same_raw = same_raw and torch.equal(out[:, s], fused_mlp.fused_rays_planes(kp_s, *one))
+                single = fused_mlp.fused_rays_planes_bwd(kp_s, *one, g[:, s].contiguous())
+                same_grads = same_grads and all(torch.equal(grads[k][s], v) for k, v in single.items())
+            del out, grads
+            torch.cuda.empty_cache()
+            n_pts = MULTI_SCENES * MULTI_RAYS * S
+            k1["ms"] += cuda_ms(lambda: fused_mlp.fused_rays_planes_stacked(kp, *rays, blobs),
+                                reps=10, warmup=2)
+            k4["ms"] += cuda_ms(lambda: fused_mlp.fused_rays_planes_stacked_bwd(kp, *rays, g, blobs),
+                                reps=5, warmup=1)
+            k1["plain_ms"] += cuda_ms(
+                lambda: fused_mlp.fused_rays_planes_stacked_reference(kp, *rays), reps=1)
+            k4["plain_ms"] += cuda_ms(
+                lambda: fused_mlp.fused_rays_planes_stacked_bwd_reference(kp, *rays, g), reps=1)
+            torch.cuda.empty_cache()
+            for t, backward in ((k1, False), (k4, True)):
+                chain = stacked_matmul_chain(kp, MULTI_RAYS * S, backward)
+                t["library_ms"] += cuda_ms(chain, reps=3)
+                del chain
+                torch.cuda.empty_cache()
+        # the bounds: the single-scene kernels' work and bytes, once a scene
+        wbytes = sum(t.numel() * t.element_size() for t in blobs)
+        io_in = MULTI_SCENES * MULTI_RAYS * 9 * 4 + n_pts * 4
+        k1["ops_ms"] += 1e3 * n_pts * fused_mlp.flops_per_point(cfg, pe_pts, pe_views) / PEAK_BF16_FLOPS
+        k1["bytes_ms"] += 1e3 * (io_in + n_pts * 16 + wbytes) / PEAK_BYTES
+        k4["ops_ms"] += 1e3 * MULTI_SCENES * fused_mlp.bwd_flops(
+            cfg, pe_pts, pe_views, MULTI_RAYS, S) / PEAK_BF16_FLOPS
+        gbytes = 4 * sum(v.numel() for v in kp.values())
+        k4["bytes_ms"] += 1e3 * (io_in + n_pts * 16 + 2 * wbytes + gbytes) / PEAK_BYTES
+        ws_gb = fused_mlp.stacked_workspace_bytes(cfg.width, MULTI_SCENES, MULTI_RAYS, S) / 1e9
+        phase("multi_kernels", level=level, scenes=MULTI_SCENES, R=MULTI_RAYS, S=S,
+              k1_max_abs=f"{k1_errs[-1]:.3e}", k4_worst_leaf_rel_l2=f"{max(k4_rel):.3e}",
+              k4_tol=K4_BF16_TOL, raw_bit_equal_8_single_k1=same_raw,
+              grads_bit_equal_8_single_k4=same_grads, k4_workspace_gb=f"{ws_gb:.3f}",
+              weight_stream_gb=f"{-(-n_pts // fused_mlp.FWD_TILE) * fused_mlp.fwd_weight_bytes_per_tile(cfg) / 1e9:.3f}")
+    if not (same_raw and max(k4_rel) <= K4_BF16_TOL):
+        raise RuntimeError(f"stacked kernels: raw equal to single launches {same_raw}, K4 worst "
+                           f"leaf {max(k4_rel)} (bound {K4_BF16_TOL})")
+    for tag, t in (("k1s_times", k1), ("k4s_times", k4)):
+        bound = max(t["ops_ms"], t["bytes_ms"])
+        phase(tag, per=f"step ({MULTI_SCENES} scenes, N_rand {MULTI_RAYS}, S=64 + S=192)",
+              ms=f"{t['ms']:.3f}", bound_ms=f"{bound:.3f}",
+              bound_by="operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
+              plain_ms=f"{t['plain_ms']:.3f}", library_ms=f"{t['library_ms']:.3f}",
+              x_bound=f"{t['ms'] / bound:.3f}", x_library=f"{t['ms'] / t['library_ms']:.3f}")
+    return {"k1": k1, "k4": k4, "k1_err": max(k1_errs), "k4_err": max(k4_errs),
+            "grads_bit_equal": same_grads}
+
+
+def multi_phase(one_scene: dict, dev) -> dict:
+    """25. Multi-scene training: the port's tool writes the 8 scenes (fewer
+    views), then ``cli.train_multi.main`` with configs/multi/scene_0..7.txt
+    for MULTI_STEPS steps with i_print and i_weights firing: exactly 2
+    stacked K1 and 2 stacked K4 launches a step for all 8 scenes and
+    nothing else of K1-K6, a finite loss a scene, 8 .tar files each loading
+    into the one-scene model with the scene's trained weights; the stacked
+    kernels at the main shapes (multi_kernels); phase 7's windows on the
+    stacked step, each scene's loss falling, beside scene 0 trained alone on
+    its config and phase 23's one-scene N_rand 1024 numbers; then 2 gloo
+    ranks on this card (4 scenes each)
+    through ``distributed.launch``, scene by scene the one-process run's
+    (and NCCL, a card a rank, with two or more cards)."""
+    from nerf_tpu_torch.cli import train_multi
+    from nerf_tpu_torch.models.factory import init_nets, make_model
+    from nerf_tpu_torch.parallel import distributed
+    from nerf_tpu_torch.parallel.multi_scene import scene_seed
+    from nerf_tpu_torch.tools import make_multi_scenes
+    from nerf_tpu_torch.utils import checkpoint
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    here = os.getcwd()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quiet(make_multi_scenes.write_scenes, os.path.join(root, "data", "nerf_synthetic"),
+          MULTI_SCENES, MULTI_COUNTS, device=dev)
+    write_s = time.perf_counter() - t0
+    os.chdir(root)  # the configs' datadirs are relative
+    try:
+        argv = multi_argv(root, "cadence", MULTI_STEPS, MULTI_CADENCES)
+        cfgs = train_multi.load_configs(argv)
+        reset_counts()
+        t0 = time.perf_counter()
+        result, out = run_cli(train_multi.main, argv)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        check_counts(counts, {"K1s": 2 * MULTI_STEPS, "K4s": 2 * MULTI_STEPS,
+                              "recompute": 2 * MULTI_STEPS, "chain": 2 * MULTI_STEPS},
+                     f"cli.train_multi: {MULTI_STEPS} steps of {MULTI_SCENES} scenes")
+        losses = np.stack([h[1] for h in result.history])
+        prints = out.count("[TRAIN-MULTI] Iter")
+        model = make_model(cfgs[0])
+        tars_ok = []
+        for k, cfg in enumerate(cfgs):
+            tar = os.path.join(cfg.basedir, cfg.expname, f"{MULTI_STEPS:06d}.tar")
+            loaded = checkpoint.load_checkpoint(tar, model, cfg.lrate, dev)
+            tars_ok.append(all(torch.equal(p, result.state.nets[lvl].scene_state_dict(k)[n])
+                               for lvl, net in loaded.nets.items()
+                               for n, p in net.named_parameters()))
+        phase("multi", scenes=MULTI_SCENES, views=f"{MULTI_COUNTS} of the tool's "
+              f"{make_multi_scenes.COUNTS} (cut for time)", s_per_view=f"{write_s / MULTI_SCENES / sum(MULTI_COUNTS.values()):.3f}",
+              steps=MULTI_STEPS, seconds=f"{seconds:.2f}", launches=counts, prints=prints,
+              loss_first=[f"{v:.5f}" for v in losses[0]], loss_last=[f"{v:.5f}" for v in losses[-1]],
+              tars_load_with_trained_weights=tars_ok)
+        if not (np.isfinite(losses).all() and all(tars_ok) and
+                prints == MULTI_STEPS // MULTI_CADENCES["i_print"]):
+            raise RuntimeError(f"cli.train_multi: losses {losses}, tars {tars_ok}, prints {prints}")
+        kernels = multi_kernels(result.state.nets, dev)
+        del result
+        torch.cuda.empty_cache()
+
+        # phase 7's windows on the stacked step (cadences off)
+        n_iters = WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
+        cfgs = train_multi.load_configs(multi_argv(root, "timed", n_iters, {"i_print": 10,
+                                                                            "i_weights": 0}))
+        step_losses, marks = [], {}
+        end = WARMUP_STEPS + TIMED_STEPS
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+
+        def on_step(i, state, aux):
+            if i <= end:
+                step_losses.append(aux["loss"])
+            if i in (WARMUP_STEPS, end, end + PROFILED_STEPS):
+                torch.cuda.synchronize()
+                marks[i] = time.perf_counter()
+                if i == WARMUP_STEPS:
+                    reset_counts()
+                elif i == end:
+                    marks["counts"] = read_counts()
+                    prof.__enter__()
+                else:
+                    prof.__exit__(None, None, None)
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_multi.train_multi(cfgs, device=dev, hooks={"on_step": on_step})
+        check_counts(marks["counts"], {"K1s": 2 * TIMED_STEPS, "K4s": 2 * TIMED_STEPS,
+                                       "recompute": 2 * TIMED_STEPS, "chain": 2 * TIMED_STEPS},
+                     f"{TIMED_STEPS} timed stacked steps")
+        per_step = torch.stack(step_losses).cpu().numpy()  # [steps, scenes]
+        first, last = per_step[:5].mean(0), per_step[-5:].mean(0)
+        ms_step = 1e3 * (marks[end] - marks[WARMUP_STEPS]) / TIMED_STEPS
+        rays_s = MULTI_SCENES * cfgs[0].N_rand * 1e3 / ms_step
+        phase("multi_train", scenes=MULTI_SCENES, steps=TIMED_STEPS, n_rand=cfgs[0].N_rand,
+              ms_per_step=f"{ms_step:.3f}", rays_per_s=f"{rays_s:.0f}",
+              loss_first5=[f"{v:.5f}" for v in first], loss_last5=[f"{v:.5f}" for v in last])
+        if not (np.isfinite(per_step).all() and (last < first).all()):
+            raise RuntimeError(f"stacked training: each scene's loss must fall: {first} -> {last}")
+        prof_out = profile_report(prof, marks[end + PROFILED_STEPS] - marks[end], "K1s", "K4s",
+                                  path="multi")
+        # one scene alone on the same recipe: scene 0 through train()
+        from nerf_tpu_torch.config import load_config
+        from nerf_tpu_torch.train.loop import load_scene
+
+        cfg0 = load_config(["--config", multi_argv(root, "", 1, {})[1], "--data_axis=1",
+                            f"--basedir={os.path.join(root, 'logs', 'alone')}",
+                            f"--n_iters={n_iters}", "--i_print=10", "--i_img=0", "--i_weights=0",
+                            "--i_testset=0", "--i_video=0"])
+        alone = timed_train(cfg0, load_scene(cfg0), dev, "K1", "K4", path="multi_scene_0_alone")
+        single = one_scene["linemod"]  # configs/synth_linemod.txt: N_rand 1024, no_batching
+        phase("multi_vs_one_scene", scenes=MULTI_SCENES,
+              stacked_wall_ms_per_step=f"{prof_out['wall_ms_per_step']:.3f}",
+              stacked_device_ms_per_step=f"{prof_out['device_ms_per_step']:.3f}",
+              stacked_idle_share=f"{prof_out['idle_share']:.3f}",
+              stacked_k1_ms_per_step=f"{prof_out['K1s_ms_per_step']:.3f}",
+              stacked_k4_ms_per_step=f"{prof_out['K4s_ms_per_step']:.3f}",
+              scene_0_alone_wall_ms_per_step=f"{alone['profile']['wall_ms_per_step']:.3f}",
+              scene_0_alone_device_ms_per_step=f"{alone['profile']['device_ms_per_step']:.3f}",
+              scene_0_alone_idle_share=f"{alone['profile']['idle_share']:.3f}",
+              scene_0_alone_timed_ms_per_step=f"{alone['ms_per_step']:.3f}",
+              one_scene="phase 23 linemod (N_rand 1024, 64+64, no_batching, precrop)",
+              one_scene_wall_ms_per_step=f"{single['profile']['wall_ms_per_step']:.3f}",
+              one_scene_device_ms_per_step=f"{single['profile']['device_ms_per_step']:.3f}",
+              one_scene_idle_share=f"{single['profile']['idle_share']:.3f}",
+              one_scene_timed_ms_per_step=f"{single['ms_per_step']:.3f}",
+              stacked_timed_ms_per_step=f"{ms_step:.3f}")
+
+        # the scene axis over 2 gloo ranks on this card, against one process
+        dp_args = multi_argv(root, "one", MULTI_DP_STEPS, MULTI_DP_CADENCES)
+        one = multi_rank(dev, dp_args)
+        torch.cuda.empty_cache()
+        model = make_model(cfgs[0])
+        start = [{lvl: {n: p.detach().cpu() for n, p in net.named_parameters()}
+                  for lvl, net in init_nets(model, scene_seed(cfgs[0].seed, k), dev).items()}
+                 for k in range(MULTI_SCENES)]
+        backends = [("gloo", "cuda:0")]
+        if torch.cuda.device_count() >= 2:
+            backends.append(("nccl", "cuda"))
+        for backend, where in backends:
+            t0 = time.perf_counter()
+            ranks = distributed.launch(multi_rank, MULTI_RANKS, where, backend=backend,
+                                       args=(multi_argv(root, backend, MULTI_DP_STEPS,
+                                                        MULTI_DP_CADENCES, MULTI_RANKS),))
+            launch_s = time.perf_counter() - t0
+            per = MULTI_SCENES // MULTI_RANKS
+            worst, bit_equal = multi_check_ranks(ranks, one, start, per, backend)
+            phase("multi_dp", backend=backend, ranks=MULTI_RANKS, devices=where,
+                  scenes_per_rank=[r["scenes"] for r in ranks], steps=MULTI_DP_STEPS,
+                  launches=[{k: v for k, v in r["counts"].items() if v} for r in ranks],
+                  worst_weight_vs_one_process=f"{worst:.3e}", bit_equal=bit_equal,
+                  launch_s=f"{launch_s:.2f}")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(root)
+    return {"counts": counts, **kernels}
+
+
+def multi_check_ranks(ranks, one, start, per: int, what: str):
+    """Each rank trained its contiguous scenes with 2 stacked K1 + 2 K4 a
+    step, and each scene as the one-process run did: its loss at each
+    i_print within DP_LOSS_RTOL, its weights within 4 lr and each leaf's
+    update within DP_UPDATE_TOL (phase 24's bounds). Returns the worst
+    weight difference and whether every weight is equal."""
+    worst, equal = 0.0, True
+    for r, rank in enumerate(ranks):
+        mine = list(range(r * per, (r + 1) * per))
+        want = {"K1s": 2 * MULTI_DP_STEPS, "K4s": 2 * MULTI_DP_STEPS,
+                "recompute": 2 * MULTI_DP_STEPS, "chain": 2 * MULTI_DP_STEPS}
+        check_counts(rank["counts"], want, f"multi {what} rank {r}")
+        if rank["scenes"] != mine:
+            raise RuntimeError(f"multi {what}: rank {r} trained scenes {rank['scenes']}")
+        for (_, got, _), (_, ref, _) in zip(rank["history"], one["history"]):
+            np.testing.assert_allclose(got, ref[mine], rtol=DP_LOSS_RTOL)
+        for j, k in enumerate(mine):
+            for lvl, params in rank["params"].items():
+                for name, p in params.items():
+                    w, p0 = one["params"][lvl][name][k], start[k][lvl][name]
+                    d = float((p[j] - w).abs().max())
+                    worst, equal = max(worst, d), equal and d == 0.0
+                    moved = float(torch.linalg.norm(w - p0))
+                    if d > 4 * MULTI_LRATE or (moved > 0 and float(torch.linalg.norm(p[j] - w)) / moved > DP_UPDATE_TOL):
+                        raise RuntimeError(f"multi {what}: scene {k} {lvl}.{name} off the "
+                                           f"one-process run by {d}")
+    return worst, equal
 
 
 if __name__ == "__main__":

@@ -125,6 +125,8 @@
 // recompute writes every row of every tile up to n_pad (posenc of x = 0
 // past n_pts), so no unwritten row meets a zero.
 
+#include <type_traits>
+
 #include "fused_mlp_common.cuh"
 #include "fwd_tile_sm90.cuh"
 
@@ -142,6 +144,7 @@ struct TLayout {
   static constexpr size_t w0e = wvf + size_t(W) * (W / 2);
   static constexpr size_t w5e = w0e + size_t(KE) * W;
   static constexpr size_t wve = w5e + size_t(KE) * W;
+  static constexpr size_t size = wve + size_t(KV) * (W / 2);  // one net's blob
 };
 
 // The f32 gradients, in kp's [in][out] layout with the embedding rows padded:
@@ -372,19 +375,21 @@ struct NoSink {
 
 // The bf16 recompute: K1's (K2's) tile over the n_pts points and the
 // padding up to whole tiles, its rows and masks written by RecomputeHook,
-// raw (planes or rows, as GlobalSink) only where raw is given (kRaw).
-template <typename In, int W, bool kRaw>
+// raw (planes or rows, as GlobalSink) only where raw is given (kRaw). Walk
+// as K1's: TileWalk, or SceneWalk in the stacked K4 (a net per scene).
+template <typename In, int W, bool kRaw, typename Walk>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 bwd_recompute_sm90(const __grid_constant__ FwdMaps maps, const In in, int n_pts, int Fp, int Fv,
                    const bf16* __restrict__ wb, const float* __restrict__ bb, bf16* ws,
-                   uint32_t* masks, size_t ldp, float* raw, size_t sc, size_t sp) {
+                   uint32_t* masks, size_t ldp, float* raw, size_t sc, size_t sp,
+                   const Walk walk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const RecomputeHook<W> hook{{}, ws, masks, ldp, in.spr == 1};
   if constexpr (kRaw)
-    fwd_tiles_sm90<In, W>(maps, in, n_pts, Fp, Fv, wb, bb, smem, GlobalSink{raw, sc, sp},
-                          TileWalk(), hook);
+    fwd_tiles_sm90<In, W>(maps, in, n_pts, Fp, Fv, wb, bb, smem, GlobalSink{raw, sc, sp}, walk,
+                          hook);
   else
-    fwd_tiles_sm90<In, W>(maps, in, n_pts, Fp, Fv, wb, bb, smem, NoSink(), TileWalk(), hook);
+    fwd_tiles_sm90<In, W>(maps, in, n_pts, Fp, Fv, wb, bb, smem, NoSink(), walk, hook);
 }
 
 // ------------------------------------------------ the chain on the wgmma tile
@@ -404,14 +409,23 @@ struct ChainMaps {
   CUtensorMap trunk, wvf, e05, wve;
 };
 
+// Over `scenes` chain blobs one after another (the stacked K4), each map
+// runs on through the later scenes' blobs, as encode_fwd_maps' do.
 template <int W>
-cudaError_t encode_chain_maps(ChainMaps* maps, const bf16* wt) {
+cudaError_t encode_chain_maps(ChainMaps* maps, const bf16* wt, int scenes = 1) {
   using T = TLayout<W>;
-  cudaError_t err = hopper::encode_rows_sw128(&maps->trunk, wt + T::wi(1), 8 * W, W, W);
-  if (err == cudaSuccess) err = hopper::encode_rows_sw128(&maps->wvf, wt + T::wvf, W, W / 2, W);
+  const long long more = scenes - 1;  // blobs past the first
+  cudaError_t err =
+      hopper::encode_rows_sw128(&maps->trunk, wt + T::wi(1), more * (T::size / W) + 8 * W, W, W);
   if (err == cudaSuccess)
-    err = hopper::encode_rows_sw128(&maps->e05, wt + T::w0e, 2 * KE, W, KE);
-  if (err == cudaSuccess) err = hopper::encode_rows_sw128(&maps->wve, wt + T::wve, KV, W / 2, 64);
+    err = hopper::encode_rows_sw128(&maps->wvf, wt + T::wvf, more * (T::size / (W / 2)) + W,
+                                    W / 2, W);
+  if (err == cudaSuccess)
+    err = hopper::encode_rows_sw128(&maps->e05, wt + T::w0e, more * (T::size / W) + 2 * KE, W,
+                                    KE);
+  if (err == cudaSuccess)
+    err = hopper::encode_rows_sw128(&maps->wve, wt + T::wve, more * (T::size / (W / 2)) + KV,
+                                    W / 2, 64);
   return err;
 }
 
@@ -641,7 +655,9 @@ __device__ __forceinline__ void chain_producer(const ChainMaps& maps, int ntiles
                                                bool with_dx, unsigned char* ring, uint64_t* full,
                                                uint64_t* empty, const Walk& walk) {
   using L = ChainSmem<W>;
+  using T = TLayout<W>;
   constexpr int NB = L::NB;
+  static_assert(T::size % W == 0, "a scene's chain blob is whole rows of every map");
   uint32_t g = 0;
   auto load = [&](const CUtensorMap* map, int x, int y, int rows) {
     const uint32_t s = g % FWD_STAGES;
@@ -651,14 +667,16 @@ __device__ __forceinline__ void chain_producer(const ChainMaps& maps, int ntiles
     ++g;
   };
   for (int tile = walk.first(); tile < ntiles; tile = walk.next(tile)) {
+    const int sc = walk.scene();  // the rows of the tile's scene
+    const int yw = sc * int(T::size / W), yh = sc * int(T::size / (W / 2));
     if (dense_dv)
-      for (int j = 0; j < NB / 2; ++j) load(&maps.wve, KC * j, 0, 64);
-    for (int j = 0; j < NB / 2; ++j) load(&maps.wvf, KC * j, 0, W);
+      for (int j = 0; j < NB / 2; ++j) load(&maps.wve, KC * j, yh, 64);
+    for (int j = 0; j < NB / 2; ++j) load(&maps.wvf, KC * j, yh, W);
     for (int l = 8; l >= 1; --l)
-      for (int j = 0; j < NB; ++j) load(&maps.trunk, KC * j, (l - 1) * W, W);
+      for (int j = 0; j < NB; ++j) load(&maps.trunk, KC * j, yw + (l - 1) * W, W);
     if (with_dx)
       for (int y = 0; y < 2 * KE; y += KE)
-        for (int j = 0; j < NB; ++j) load(&maps.e05, KC * j, y, KE);
+        for (int j = 0; j < NB; ++j) load(&maps.e05, KC * j, yw + y, KE);
   }
 }
 
@@ -686,7 +704,8 @@ __device__ __forceinline__ void chain_consumer(
   float* gs = reinterpret_cast<float*>(smem + L::gs) + w * FWD_ROWS * 4;
   float* gcs = reinterpret_cast<float*>(smem + L::gcs) + w * FWD_ROWS * 4;
   float* red = reinterpret_cast<float*>(smem + L::red) + w * 4 * W;
-  const bf16* wout = wb + O::wout;
+  // the tile's Wout (SceneWalk: its scene's, taken afresh where used)
+  auto wout = [&]() { return wb + size_t(walk.scene()) * O::size + O::wout; };
   const int bar = 1 + w, t = threadIdx.x & 127;
   const bool dense_dv = in.spr == 1 && dv != nullptr;
   FwdRing r{smem + L::ring, L::STAGE, full, empty, 0};
@@ -720,7 +739,7 @@ __device__ __forceinline__ void chain_consumer(
       }
       // d_hv = (gc Wout[:W/2]^T) * (hv > 0): f32 to dhv32 (a direction per ray)
       float acc[H / 2];
-      dhv_fragment<W>(gcs, wout, acc);
+      dhv_fragment<W>(gcs, wout(), acc);
       chain_epilogue<W, H, true, false>(acc, msk, gcs, nullptr,
                                         in.spr == 1 ? nullptr : dhv32 + size_t(p0) * H, act, red);
     }
@@ -777,7 +796,7 @@ __device__ __forceinline__ void chain_consumer(
       mask_wait();
       finish_layer(r, bar);
       if (l == 8)
-        chain_epilogue<W, W, true, true>(acc, msk, gcs, wout + H * 4, nullptr, act, red);
+        chain_epilogue<W, W, true, true>(acc, msk, gcs, wout() + H * 4, nullptr, act, red);
       else
         chain_epilogue<W, W, true, false>(acc, msk, gcs, nullptr, nullptr, act, red);
     }
@@ -817,14 +836,15 @@ __device__ __forceinline__ void chain_consumer(
 // up to whole tiles, after the recompute (bwd_recompute_sm90) has written
 // the tiles' rows and mask words: fwd_tile_sm90.cuh's CTA of 384 threads
 // (a TMA producer warpgroup, two ping-pong wgmma consumer warpgroups) on
-// a persistent grid in TileWalk's order. dx, and with a direction per
-// point dv, only where the pointer is given.
-template <typename In, int W>
+// a persistent grid in the walk's order (TileWalk, or SceneWalk in the
+// stacked K4: a net per scene). dx, and with a direction per point dv, only
+// where the pointer is given.
+template <typename In, int W, typename Walk>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 bwd_chain_sm90(const __grid_constant__ ChainMaps maps, const In in, const float* __restrict__ g,
                size_t gsc, size_t gsp, int n_pts, int Fp, int Fv, const bf16* __restrict__ wb,
                bf16* ws, const uint32_t* __restrict__ masks, size_t ldp, float* dhv32,
-               float* bpart, float* dx, float* dv) {
+               float* bpart, float* dx, float* dv, const Walk walk) {
   using L = ChainSmem<W>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = fwd_smem_base(smem_raw);
@@ -840,7 +860,6 @@ bwd_chain_sm90(const __grid_constant__ ChainMaps maps, const In in, const float*
   }
   __syncthreads();
   const int wg = threadIdx.x >> 7;
-  TileWalk walk;
   if (wg == 0) {
     hopper::setmaxnreg_dec<FWD_PRODUCER_REGS>();
     if (threadIdx.x == 0)
@@ -918,16 +937,22 @@ __device__ void colsum_f32(const float* buf, int ld, int N, float* __restrict__ 
   }
 }
 
+// One tile a CTA; tile t reads the nets of scene t / tiles_per_scene (the
+// stacked K4's blobs; one net: a tiles_per_scene beyond the grid).
 template <typename In, int W>
 __global__ void __launch_bounds__(THREADS)
 bwd_tile_f32(const In in, const float* __restrict__ g, size_t gsc, size_t gsp, int n_pts,
-             int Fp, int Fv, const float* __restrict__ wb, const float* __restrict__ wt,
-             const float* __restrict__ bb, float* ws, size_t ldp, float* dhv32, float* bpart,
-             float* dx, float* dv) {
+             int Fp, int Fv, const float* __restrict__ wb_all, const float* __restrict__ wt_all,
+             const float* __restrict__ bb_all, float* ws, size_t ldp, float* dhv32, float* bpart,
+             float* dx, float* dv, int tiles_per_scene) {
   using L = BwdSmem32<W>;
   using O = Layout<W>;
   using T = TLayout<W>;
   using R = WsRows<W>;
+  const int scene = blockIdx.x / tiles_per_scene;
+  const float* __restrict__ wb = wb_all + size_t(scene) * O::size;
+  const float* __restrict__ wt = wt_all + size_t(scene) * T::size;
+  const float* __restrict__ bb = bb_all + size_t(scene) * O::nbias;
   extern __shared__ __align__(16) unsigned char smem[];
   float* A = reinterpret_cast<float*>(smem + L::a);
   float* B = reinterpret_cast<float*>(smem + L::b);
@@ -1094,11 +1119,15 @@ struct Prob {
   int mtiles, ntiles, nsplit, cta0;
 };
 constexpr int MAXP = 16;
+// The stacked K4 launches its scenes' products as one more grid axis
+// (blockIdx.y = the scene): scene s's columns start s * k_len further on in
+// A and B, and its partials scene_stride floats on.
 struct Probs {
   Prob p[MAXP];
   int count;
   int split_len;
   size_t split_stride;  // floats between two splits' partial slices
+  size_t scene_stride;  // floats between two scenes' sets of partials
 };
 
 __device__ __forceinline__ const Prob& find_prob(const Probs& P, int& local) {
@@ -1133,8 +1162,8 @@ static_assert(WGRAD_SMEM <= 232448, "the ring fits in an SM's shared memory");
 
 template <int BN>
 __device__ void wgrad_consume(const Prob& P, int split, int mi, int w, int nchunks,
-                              size_t split_stride, const unsigned char* ring, uint64_t* full,
-                              uint64_t* empty) {
+                              size_t split_stride, size_t scene_stride, const unsigned char* ring,
+                              uint64_t* full, uint64_t* empty) {
   float acc[BN / 2];
 #pragma unroll
   for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
@@ -1159,7 +1188,7 @@ __device__ void wgrad_consume(const Prob& P, int split, int mi, int w, int nchun
   // the accumulator fragment (hopper.cuh) to this split's partial
   const int t = threadIdx.x & 127;
   const int row = mi * GM + w * 64 + 16 * (t >> 5) + ((t & 31) >> 2);
-  float* C = P.C + size_t(split) * split_stride;
+  float* C = P.C + size_t(split) * split_stride + size_t(blockIdx.y) * scene_stride;
 #pragma unroll
   for (int j = 0; j < BN / 2; j += 2) {
     const int m = row + 8 * ((j >> 1) & 1);
@@ -1182,6 +1211,7 @@ wgrad_bf16(const __grid_constant__ CUtensorMap ws_map, const __grid_constant__ C
   const int split = local / pr.mtiles, mi = local - split * pr.mtiles;
   const int k_begin = split * P.split_len;
   const int nchunks = (min(pr.k_len, k_begin + P.split_len) - k_begin) / GK;  // k_len % 64 == 0
+  const int k_scene = int(blockIdx.y) * pr.k_len;  // the scene's first column
   const int nwg = pr.M - mi * GM > 64 ? 2 : 1;  // consumer warpgroups with rows to own
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -1204,7 +1234,7 @@ wgrad_bf16(const __grid_constant__ CUtensorMap ws_map, const __grid_constant__ C
         if (c >= STAGES) hopper::mbar_wait(&empty[s], ((c / STAGES) - 1) & 1);
         hopper::mbar_arrive_expect_tx(&full[s], bytes);
         unsigned char* a = ring + s * (A_STAGE + B_STAGE);
-        const int k = k_begin + c * GK;
+        const int k = k_scene + k_begin + c * GK;
         for (int i = 0; i < nwg; ++i)
           hopper::tma_load_2d(a + i * BOX_BYTES, amap, &full[s], k, pr.ra + mi * GM + i * BOX);
         for (int i = 0; i < bboxes; ++i)
@@ -1216,11 +1246,14 @@ wgrad_bf16(const __grid_constant__ CUtensorMap ws_map, const __grid_constant__ C
     const int w = wg - 1;
     if (w < nwg) {
       if (pr.bn == 256)
-        wgrad_consume<256>(pr, split, mi, w, nchunks, P.split_stride, ring, full, empty);
+        wgrad_consume<256>(pr, split, mi, w, nchunks, P.split_stride, P.scene_stride, ring, full,
+                           empty);
       else if (pr.bn == 128)
-        wgrad_consume<128>(pr, split, mi, w, nchunks, P.split_stride, ring, full, empty);
+        wgrad_consume<128>(pr, split, mi, w, nchunks, P.split_stride, P.scene_stride, ring, full,
+                           empty);
       else
-        wgrad_consume<8>(pr, split, mi, w, nchunks, P.split_stride, ring, full, empty);
+        wgrad_consume<8>(pr, split, mi, w, nchunks, P.split_stride, P.scene_stride, ring, full,
+                         empty);
     }
   }
 }
@@ -1234,8 +1267,9 @@ __global__ void __launch_bounds__(THREADS) wgrad_f32(const Probs P) {
   const int per = pr.mtiles * pr.ntiles;
   const int split = local / per, rem = local - split * per;
   const int mi = rem / pr.ntiles, ni = rem - mi * pr.ntiles;
-  const float* A = static_cast<const float*>(pr.A);
-  const float* B = static_cast<const float*>(pr.B);
+  const size_t k_scene = size_t(blockIdx.y) * pr.k_len;  // the scene's first column
+  const float* A = static_cast<const float*>(pr.A) + k_scene;
+  const float* B = static_cast<const float*>(pr.B) + k_scene;
   const int m0 = mi * FM, n0 = ni * FM;
   const int k_begin = split * P.split_len;
   const int k_end = min(pr.k_len, k_begin + P.split_len);
@@ -1255,7 +1289,7 @@ __global__ void __launch_bounds__(THREADS) wgrad_f32(const Probs P) {
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(As[ty * 4 + i][kk], Bs[tx * 4 + j][kk], acc[i][j]);
     __syncthreads();
   }
-  float* C = pr.C + size_t(split) * P.split_stride;
+  float* C = pr.C + size_t(split) * P.split_stride + size_t(blockIdx.y) * P.scene_stride;
   for (int i = 0; i < 4; ++i)
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
@@ -1263,23 +1297,29 @@ __global__ void __launch_bounds__(THREADS) wgrad_f32(const Probs P) {
     }
 }
 
-// out[j] = sum over the splits in order of part[s][j]
+// out[j] = sum over the splits in order of part[s][j]; blockIdx.y is the
+// scene (the stacked K4: its partials nsplit * n floats on, its grads
+// out_stride floats on)
 __global__ void reduce_splits(const float* __restrict__ part, int nsplit, size_t n,
-                              float* __restrict__ out) {
+                              float* __restrict__ out, size_t out_stride) {
   const size_t j = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (j >= n) return;
+  part += size_t(blockIdx.y) * nsplit * n;
   float s = 0.f;
   for (int sp = 0; sp < nsplit; ++sp) s += part[size_t(sp) * n + j];
-  out[j] = s;
+  out[size_t(blockIdx.y) * out_stride + j] = s;
 }
 
 // out[j] = the tiles' bias sums part[t][j]: 8 groups of strided tiles, each
-// in tile order, then the groups in order. 32 columns per block.
+// in tile order, then the groups in order. 32 columns per block; blockIdx.y
+// is the scene, as in reduce_splits.
 __global__ void reduce_tiles(const float* __restrict__ part, int ntiles, int n,
-                             float* __restrict__ out) {
+                             float* __restrict__ out, size_t out_stride) {
   __shared__ float red[8][32];
   const int jj = threadIdx.x & 31, grp = threadIdx.x >> 5;
   const int j = blockIdx.x * 32 + jj;
+  part += size_t(blockIdx.y) * ntiles * n;
+  out += size_t(blockIdx.y) * out_stride;
   float s = 0.f;
   if (j < n)
     for (int t = grp; t < ntiles; t += 8) s += part[size_t(t) * n + j];
@@ -1299,9 +1339,14 @@ size_t align256(size_t b) { return (b + 255) & ~size_t(255); }
 // A launch's geometry and workspace: n_pts points, a view direction per
 // spr of them (dense: spr = 1, a direction per point; else one per ray).
 // Phase 1 writes a partial of the bias grads per BIAS_PART points (a tile
-// of the f32 path, a consumer warpgroup's half tile of the bf16 chain).
+// of the f32 path, a consumer warpgroup's half tile of the bf16 chain). The
+// stacked K4 takes `scenes` such sets of points one after another, each
+// whole tiles and whole 64-ray columns of the per-ray rows: the counts
+// below are the launch's, n_pad_s and rpad_s a scene's, and every scene's
+// products split as one scene's alone would (split_len, nsplit).
 struct Plan {
   int tile, n_pts, n_pad, ntiles, nbpart, n_rays, rpad, split_len, nsplit;
+  int scenes, n_pad_s, rpad_s;
   bool dense;
   size_t ws, masks, rws, dhv, bpart, wpart, total;  // byte offsets / sizes
 };
@@ -1342,10 +1387,12 @@ int hopper_splits(int tiles, int nchunks) {
   return best;
 }
 
+// n_pts: the points of a scene (of the launch with scenes = 1).
 template <typename T, int W>
-Plan make_plan(int n_pts, int spr) {
-  Plan p;
+Plan make_plan(int n_pts, int spr, int scenes = 1) {
+  Plan p{};
   p.tile = sizeof(T) == 2 ? TP : TP32;
+  p.scenes = scenes;
   p.n_pts = n_pts;
   p.dense = spr == 1;
   p.n_pad = (p.n_pts + p.tile - 1) / p.tile * p.tile;
@@ -1353,6 +1400,8 @@ Plan make_plan(int n_pts, int spr) {
   p.nbpart = p.n_pad / BIAS_PART;
   p.n_rays = n_pts / spr;
   p.rpad = p.dense ? 0 : (p.n_rays + 63) / 64 * 64;  // the per-ray rows of ray_prep
+  p.n_pad_s = p.n_pad;
+  p.rpad_s = p.rpad;
   const int nchunks = p.n_pad / 64;
   int target;
   if (sizeof(T) == 2) {  // the CTAs a split over the points (the per-ray problem aside)
@@ -1366,6 +1415,13 @@ Plan make_plan(int n_pts, int spr) {
   }
   p.split_len = (nchunks + target - 1) / target * 64;
   p.nsplit = (p.n_pad + p.split_len - 1) / p.split_len;
+  // the launch's counts: scenes x a scene's (its points are whole tiles)
+  p.n_pts *= scenes;
+  p.n_pad *= scenes;
+  p.ntiles *= scenes;
+  p.nbpart *= scenes;
+  p.n_rays *= scenes;
+  p.rpad *= scenes;
   size_t o = 0;
   p.ws = o;
   o += align256(size_t(WsRows<W>::rows) * p.n_pad * sizeof(T));
@@ -1378,7 +1434,7 @@ Plan make_plan(int n_pts, int spr) {
   p.bpart = o;
   o += align256(size_t(p.nbpart) * Layout<W>::nbias * 4);
   p.wpart = o;
-  o += align256(size_t(p.nsplit) * GLayout<W>::size * 4);
+  o += align256(size_t(scenes) * p.nsplit * GLayout<W>::size * 4);
   p.total = o;
   return p;
 }
@@ -1394,6 +1450,7 @@ Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int sp
   P.count = 0;
   P.split_len = split_len;
   P.split_stride = G::size;
+  P.scene_stride = size_t(pl.nsplit) * G::size;
   int cta = 0;
   auto add = [&](int src, int k_len, int ra, int M, int rb, int N, size_t coff, int ldc) {
     const T* base = src ? rws : ws;
@@ -1417,7 +1474,7 @@ Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int sp
     q.cta0 = cta;
     cta += q.mtiles * q.ntiles * q.nsplit;
   };
-  const int K = pl.n_pad;
+  const int K = pl.n_pad_s;  // a scene's columns
   add(0, K, R::e, KE, R::d(0), W, G::w05, 2 * W);      // dW05e[:, :W]
   add(0, K, R::e, KE, R::d(5), W, G::w05 + W, 2 * W);  // dW05e[:, W:]
   for (int i = 1; i < 8; ++i) add(0, K, R::h(i - 1), W, R::d(i), W, G::wi(i), W);
@@ -1428,7 +1485,7 @@ Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int sp
   if (pl.dense)  // dWve = ev^T bf16(d_hv) over points
     add(0, K, R::ev, KV, R::dhv, W / 2, G::wve, W / 2);
   else  // over rays, from ray_prep's rows
-    add(1, pl.rpad, 0, KV, KV, W / 2, G::wve, W / 2);
+    add(1, pl.rpad_s, 0, KV, KV, W / 2, G::wve, W / 2);
   P.p[P.count].cta0 = cta;  // one past the last problem: the grid size
   return P;
 }
@@ -1441,23 +1498,38 @@ Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int sp
 
 // The bf16 recompute's launch: the forward blob's four tensor maps and a
 // persistent grid of min(tiles, SMs) CTAs, as K1's; raw (sink strides sc,
-// sp) only where raw is given.
+// sp) only where raw is given. With scenes > 1 (the stacked K4, no raw) a
+// net per scene, as the stacked K1's.
 template <typename In, int W>
 cudaError_t launch_recompute(const In& in, int n_pts, int Fp, int Fv, const bf16* wb,
                              const float* bb, bf16* ws, uint32_t* masks, size_t ldp, float* raw,
-                             size_t sc, size_t sp, cudaStream_t s) {
+                             size_t sc, size_t sp, cudaStream_t s, int scenes = 1) {
   FwdMaps maps;
-  NERF_CHECK(encode_fwd_maps<W>(&maps, wb));
+  NERF_CHECK(encode_fwd_maps<W>(&maps, wb, scenes));
   constexpr size_t smem = FwdSmem<W>::launch_bytes;
-  const auto kernel = raw != nullptr ? bwd_recompute_sm90<In, W, true>
-                                     : bwd_recompute_sm90<In, W, false>;
-  NERF_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
   int dev = 0, sms = 0;
   NERF_CHECK(cudaGetDevice(&dev));
   NERF_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
   const int tiles = (n_pts + TP - 1) / TP;
-  kernel<<<tiles < sms ? tiles : sms, FWD_THREADS, smem, s>>>(maps, in, n_pts, Fp, Fv, wb, bb, ws,
-                                                             masks, ldp, raw, sc, sp);
+  const int grid = tiles < sms ? tiles : sms;
+  if (scenes > 1) {  // the stacked K4's: rays, no raw
+    if constexpr (std::is_same_v<In, RaysIn>) {
+      if (raw != nullptr) return cudaErrorInvalidValue;
+      const auto kernel = bwd_recompute_sm90<In, W, false, SceneWalk>;
+      NERF_CHECK(
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+      kernel<<<scene_grid(tiles / scenes, scenes, sms), FWD_THREADS, smem, s>>>(
+          maps, in, n_pts, Fp, Fv, wb, bb, ws, masks, ldp, raw, sc, sp, SceneWalk{tiles / scenes});
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const auto kernel = raw != nullptr ? bwd_recompute_sm90<In, W, true, TileWalk>
+                                     : bwd_recompute_sm90<In, W, false, TileWalk>;
+  NERF_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+  kernel<<<grid, FWD_THREADS, smem, s>>>(maps, in, n_pts, Fp, Fv, wb, bb, ws, masks, ldp, raw, sc,
+                                         sp, TileWalk());
   return cudaGetLastError();
 }
 
@@ -1465,35 +1537,61 @@ cudaError_t launch_recompute(const In& in, int n_pts, int Fp, int Fv, const bf16
 // persistent grid of min(tiles, SMs) CTAs, as the recompute's. setmaxnreg
 // moves registers within the pool the CTA got at launch: a smaller pool
 // than the two roles ask for would stall the consumers, so it is refused.
-template <typename In, int W>
-cudaError_t launch_chain(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts, int Fp,
-                         int Fv, const bf16* wb, const bf16* wt, bf16* ws, const uint32_t* masks,
-                         size_t ldp, float* dhv32, float* bpart, float* dx, float* dv,
-                         cudaStream_t s) {
-  ChainMaps maps;
-  NERF_CHECK(encode_chain_maps<W>(&maps, wt));
+template <typename In, int W, typename Walk>
+cudaError_t launch_chain_walk(const ChainMaps& maps, const In& in, const float* g, size_t gsc,
+                              size_t gsp, int n_pts, int Fp, int Fv, const bf16* wb, bf16* ws,
+                              const uint32_t* masks, size_t ldp, float* dhv32, float* bpart,
+                              float* dx, float* dv, const Walk& walk, dim3 grid, cudaStream_t s) {
   constexpr size_t smem = ChainSmem<W>::launch_bytes;
-  const auto kernel = bwd_chain_sm90<In, W>;
+  const auto kernel = bwd_chain_sm90<In, W, Walk>;
   NERF_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
   cudaFuncAttributes fa;
   NERF_CHECK(cudaFuncGetAttributes(&fa, kernel));
   if (fa.numRegs * FWD_THREADS < 128 * FWD_PRODUCER_REGS + 256 * FWD_CONSUMER_REGS)
     return cudaErrorInvalidConfiguration;
+  kernel<<<grid, FWD_THREADS, smem, s>>>(maps, in, g, gsc, gsp, n_pts, Fp, Fv, wb, ws, masks, ldp,
+                                         dhv32, bpart, dx, dv, walk);
+  return cudaGetLastError();
+}
+
+// With scenes > 1 (the stacked K4) a net per scene: wb and wt hold a blob
+// per scene, one after another, and the walk is SceneWalk.
+template <typename In, int W>
+cudaError_t launch_chain(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts, int Fp,
+                         int Fv, const bf16* wb, const bf16* wt, bf16* ws, const uint32_t* masks,
+                         size_t ldp, float* dhv32, float* bpart, float* dx, float* dv,
+                         cudaStream_t s, int scenes = 1) {
+  ChainMaps maps;
+  NERF_CHECK(encode_chain_maps<W>(&maps, wt, scenes));
   int dev = 0, sms = 0;
   NERF_CHECK(cudaGetDevice(&dev));
   NERF_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
   const int tiles = (n_pts + TP - 1) / TP;
-  kernel<<<tiles < sms ? tiles : sms, FWD_THREADS, smem, s>>>(maps, in, g, gsc, gsp, n_pts, Fp, Fv,
-                                                             wb, ws, masks, ldp, dhv32, bpart, dx,
-                                                             dv);
-  return cudaGetLastError();
+  const int grid = tiles < sms ? tiles : sms;
+  if (scenes > 1) {  // the stacked K4's: rays
+    if constexpr (std::is_same_v<In, RaysIn>)
+      return launch_chain_walk<In, W>(maps, in, g, gsc, gsp, n_pts, Fp, Fv, wb, ws, masks, ldp,
+                                      dhv32, bpart, dx, dv, SceneWalk{tiles / scenes},
+                                      scene_grid(tiles / scenes, scenes, sms), s);
+    else
+      return cudaErrorInvalidValue;
+  }
+  return launch_chain_walk<In, W>(maps, in, g, gsc, gsp, n_pts, Fp, Fv, wb, ws, masks, ldp, dhv32,
+                                  bpart, dx, dv, TileWalk(), grid, s);
 }
 
+// n_pts: a scene's points (the launch's with scenes = 1). With scenes > 1
+// (the stacked K4: no input grads) the blobs hold a net per scene, one after
+// another, and out a grad set per scene.
 template <typename T, int W, typename In>
 cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts, int Fp, int Fv,
                 const void* wblob, const void* wtblob, const float* bblob, void* workspace,
-                long long ws_bytes, float* out, float* dx, float* dv, cudaStream_t s) {
-  const Plan pl = make_plan<T, W>(n_pts, in.spr);
+                long long ws_bytes, float* out, float* dx, float* dv, cudaStream_t s,
+                int scenes) {
+  const Plan pl = make_plan<T, W>(n_pts, in.spr, scenes);
+  if (scenes > 1 && (pl.n_pad_s != n_pts || pl.rpad_s * in.spr != n_pts || dx != nullptr ||
+                     dv != nullptr))
+    return cudaErrorInvalidValue;  // a scene's points: whole tiles and 64-ray columns
   if (ws_bytes < 0 || size_t(ws_bytes) < pl.total) return cudaErrorInvalidValue;
   unsigned char* base = static_cast<unsigned char*>(workspace);
   T* ws = reinterpret_cast<T*>(base + pl.ws);
@@ -1505,16 +1603,16 @@ cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts,
   const T* wt = static_cast<const T*>(wtblob);
   const size_t ldp = pl.n_pad;
 
-  NERF_CHECK(cudaMemsetAsync(wpart, 0, size_t(pl.nsplit) * GLayout<W>::size * 4, s));
+  NERF_CHECK(cudaMemsetAsync(wpart, 0, size_t(scenes) * pl.nsplit * GLayout<W>::size * 4, s));
   if (sizeof(T) == 2) {
     uint32_t* masks = reinterpret_cast<uint32_t*>(base + pl.masks);
     NERF_CHECK((launch_recompute<In, W>(in, pl.n_pts, Fp, Fv, reinterpret_cast<const bf16*>(wb),
                                         bblob, reinterpret_cast<bf16*>(ws), masks, ldp, nullptr,
-                                        0, 0, s)));
+                                        0, 0, s, scenes)));
     NERF_CHECK((launch_chain<In, W>(in, g, gsc, gsp, pl.n_pts, Fp, Fv,
                                     reinterpret_cast<const bf16*>(wb),
                                     reinterpret_cast<const bf16*>(wt), reinterpret_cast<bf16*>(ws),
-                                    masks, ldp, dhv32, bpart, dx, dv, s)));
+                                    masks, ldp, dhv32, bpart, dx, dv, s, scenes)));
   } else {
     const size_t smem = BwdSmem32<W>::bytes;
     NERF_CHECK(cudaFuncSetAttribute(bwd_tile_f32<In, W>,
@@ -1522,7 +1620,7 @@ cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts,
     bwd_tile_f32<In, W><<<pl.ntiles, THREADS, smem, s>>>(
         in, g, gsc, gsp, pl.n_pts, Fp, Fv, reinterpret_cast<const float*>(wb),
         reinterpret_cast<const float*>(wt), bblob, reinterpret_cast<float*>(ws), ldp, dhv32,
-        bpart, dx, dv);
+        bpart, dx, dv, pl.ntiles / scenes);
   }
   NERF_CHECK(cudaGetLastError());
   if (!pl.dense) {
@@ -1551,16 +1649,18 @@ cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts,
     NERF_CHECK(cudaFuncGetAttributes(&fa, wgrad_bf16));
     if (fa.numRegs * WG_THREADS < 128 * PRODUCER_REGS + 256 * CONSUMER_REGS)
       return cudaErrorInvalidConfiguration;
-    wgrad_bf16<<<ctas, WG_THREADS, WGRAD_SMEM, s>>>(ws_map, ws8_map, rws_map, P);
+    wgrad_bf16<<<dim3(ctas, scenes), WG_THREADS, WGRAD_SMEM, s>>>(ws_map, ws8_map, rws_map, P);
   } else {
-    wgrad_f32<<<ctas, THREADS, 0, s>>>(P);
+    wgrad_f32<<<dim3(ctas, scenes), THREADS, 0, s>>>(P);
   }
   NERF_CHECK(cudaGetLastError());
   const size_t gw = GLayout<W>::size;
-  reduce_splits<<<unsigned((gw + 255) / 256), 256, 0, s>>>(wpart, pl.nsplit, gw, out);
-  NERF_CHECK(cudaGetLastError());
   const int nb = Layout<W>::nbias;
-  reduce_tiles<<<(nb + 31) / 32, 256, 0, s>>>(bpart, pl.nbpart, nb, out + gw);
+  reduce_splits<<<dim3(unsigned((gw + 255) / 256), scenes), 256, 0, s>>>(wpart, pl.nsplit, gw,
+                                                                         out, gw + nb);
+  NERF_CHECK(cudaGetLastError());
+  reduce_tiles<<<dim3((nb + 31) / 32, scenes), 256, 0, s>>>(bpart, pl.nbpart / scenes, nb,
+                                                            out + gw, gw + nb);
   return cudaGetLastError();
 }
 
@@ -1568,11 +1668,11 @@ template <typename In>
 cudaError_t dispatch(int use_bf16, int width, const In& in, const float* g, size_t gsc,
                      size_t gsp, int n_pts, int Fp, int Fv, const void* wblob,
                      const void* wtblob, const float* bblob, void* workspace, long long ws_bytes,
-                     float* out, float* dx, float* dv, void* stream) {
+                     float* out, float* dx, float* dv, void* stream, int scenes = 1) {
   if (Fp < 1 || Fp > MAX_FP || Fv < 1 || Fv > MAX_FV) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NERF_ARGS in, g, gsc, gsp, n_pts, Fp, Fv, wblob, wtblob, bblob, workspace, ws_bytes, out, \
-                  dx, dv, s
+                  dx, dv, s, scenes
   if (use_bf16) {
     if (width == 256) return run<bf16, 256>(NERF_ARGS);
     if (width == 128) return run<bf16, 128>(NERF_ARGS);
@@ -1634,15 +1734,24 @@ int chain_only(int width, const In& in, const float* g, size_t gsc, size_t gsp, 
   return cudaErrorInvalidValue;
 }
 
-int workspace_bytes(int use_bf16, int width, int n_pts, int spr, long long* bytes) {
+int workspace_bytes(int use_bf16, int width, int n_pts, int spr, long long* bytes,
+                    int scenes = 1) {
   Plan p;
-  if (use_bf16 && width == 256) p = make_plan<bf16, 256>(n_pts, spr);
-  else if (use_bf16 && width == 128) p = make_plan<bf16, 128>(n_pts, spr);
-  else if (!use_bf16 && width == 256) p = make_plan<float, 256>(n_pts, spr);
-  else if (!use_bf16 && width == 128) p = make_plan<float, 128>(n_pts, spr);
+  if (use_bf16 && width == 256) p = make_plan<bf16, 256>(n_pts, spr, scenes);
+  else if (use_bf16 && width == 128) p = make_plan<bf16, 128>(n_pts, spr, scenes);
+  else if (!use_bf16 && width == 256) p = make_plan<float, 256>(n_pts, spr, scenes);
+  else if (!use_bf16 && width == 128) p = make_plan<float, 128>(n_pts, spr, scenes);
   else return cudaErrorInvalidValue;
   *bytes = static_cast<long long>(p.total);
   return cudaSuccess;
+}
+
+// The stacked shape: S scenes of R rays and N samples, a scene's R*N points
+// whole tiles and R whole 64-ray columns of the per-ray rows.
+bool valid_stacked(int n_scenes, int rays_per_scene, int n_samples) {
+  const long long per = static_cast<long long>(rays_per_scene) * n_samples;
+  return n_scenes >= 1 && rays_per_scene >= 64 && rays_per_scene % 64 == 0 &&
+         valid_shape(per * n_scenes, n_samples) && per % TP == 0;
 }
 
 }  // namespace
@@ -1681,6 +1790,47 @@ extern "C" int nerf_fused_mlp_bwd(int use_bf16, int width, const float* rays_o,
   const RaysIn in{rays_o, rays_d, z, viewdirs, n_samples};
   return dispatch(use_bf16, width, in, g, size_t(n), 1, int(n), n_freq_pts, n_freq_views, wblob,
                   wtblob, bblob, workspace, ws_bytes, out, nullptr, nullptr, stream);
+}
+
+// Bytes of device workspace that nerf_fused_mlp_bwd_stacked needs for this
+// shape: n_scenes x K4's at R = rays_per_scene, and a set of weight-grad
+// partials per scene.
+extern "C" int nerf_fused_mlp_bwd_stacked_workspace(int use_bf16, int width, int n_scenes,
+                                                    int rays_per_scene, int n_samples,
+                                                    long long* bytes) {
+  if (!valid_stacked(n_scenes, rays_per_scene, n_samples)) return cudaErrorInvalidValue;
+  return workspace_bytes(use_bf16, width, rays_per_scene * n_samples, n_samples, bytes, n_scenes);
+}
+
+// The stacked K4 of multi-scene training, one launch of each of its phases
+// for S scenes (the vmap over scenes of nerf_tpu's make_multi_scene_step
+// gives _make_bwd_kernel_rays a scene axis, nerf_tpu/parallel/multi_scene.py:
+// 44-64): rays and z as nerf_fused_mlp_fwd_stacked takes them, g [4][S*R*N]
+// (the cotangent of its planes); wblob and bblob [S][...] as there, wtblob
+// [S][TLayout size]; out [S][GLayout size + nbias], each scene's grads as
+// K4's. The recompute and the chain walk every scene's tiles in one launch
+// each (SceneWalk: each tile the weights of its scene), phase 2 runs on all
+// S*R rays, and the weight-grad launch takes S times K4's problems (a grid
+// axis), each summing its scene's columns only, split as K4's at R rays
+// would split them: each scene's grads are then K4's on its rays alone, bit
+// for bit. Bound at S = 8, N_rand 1024, 64 + 192 samples: 8 x K4's at
+// N_rand 1024, 7.39 ms at 989 TFLOP/s (3,484,416 FLOP a point, 2,097,152
+// points), by operations; its phases alone are bound by bytes (the
+// recompute 3.30 ms, the chain 3.55, the weight grads 6.18 at 3.35 TB/s).
+extern "C" int nerf_fused_mlp_bwd_stacked(int use_bf16, int width, const float* rays_o,
+                                          const float* rays_d, const float* viewdirs,
+                                          const float* z, const float* g, int n_scenes,
+                                          int rays_per_scene, int n_samples, int n_freq_pts,
+                                          int n_freq_views, const void* wblob,
+                                          const void* wtblob, const float* bblob,
+                                          void* workspace, long long ws_bytes, float* out,
+                                          void* stream) {
+  if (!valid_stacked(n_scenes, rays_per_scene, n_samples)) return cudaErrorInvalidValue;
+  const int per = rays_per_scene * n_samples;
+  const RaysIn in{rays_o, rays_d, z, viewdirs, n_samples};
+  return dispatch(use_bf16, width, in, g, size_t(per) * n_scenes, 1, per, n_freq_pts,
+                  n_freq_views, wblob, wtblob, bblob, workspace, ws_bytes, out, nullptr, nullptr,
+                  stream, n_scenes);
 }
 
 // K3: x [N,3]; v [N/spr,3], point p looking along v[p / spr]; g, the

@@ -37,6 +37,7 @@ struct Layout {
   static constexpr size_t wvf = wf + size_t(W) * W;
   static constexpr size_t wve = wvf + size_t(W / 2) * W;
   static constexpr size_t wout = wve + size_t(W / 2) * KV;
+  static constexpr size_t size = wout + size_t(3 * W / 2) * 4;  // one net's blob
   static constexpr int bf = 8 * W;
   static constexpr int bv = 9 * W;
   static constexpr int bout = 9 * W + W / 2;

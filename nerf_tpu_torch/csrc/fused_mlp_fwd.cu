@@ -58,26 +58,35 @@
 // the weight and bias blobs' Layout and the building blocks shared with the
 // backward (K4, K3) live in fused_mlp_common.cuh.
 
+#include <type_traits>
+
 #include "fused_mlp_common.cuh"
 #include "fwd_tile_sm90.cuh"
 
 namespace {
 
-template <typename In, int W>
+// Walk: TileWalk (one net), or SceneWalk (the stacked launch: a net per
+// scene, stacked blobs).
+template <typename In, int W, typename Walk>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 fwd_bf16_sm90(const __grid_constant__ FwdMaps maps, const In in, int n_pts, int Fp, int Fv,
               const bf16* __restrict__ wb, const float* __restrict__ bb, float* __restrict__ out,
-              size_t sc, size_t sp) {
+              size_t sc, size_t sp, const Walk walk) {
   extern __shared__ __align__(16) unsigned char smem[];
-  fwd_tiles_sm90<In, W>(maps, in, n_pts, Fp, Fv, wb, bb, smem, GlobalSink{out, sc, sp});
+  fwd_tiles_sm90<In, W>(maps, in, n_pts, Fp, Fv, wb, bb, smem, GlobalSink{out, sc, sp}, walk);
 }
 
+// One tile a CTA; tile t reads the blobs of scene t / tiles_per_scene
+// (stacked as SceneWalk's; one net: a tiles_per_scene beyond the grid).
 template <typename In, int W>
 __global__ void __launch_bounds__(THREADS)
 fwd_f32(const In in, int n_pts, int Fp, int Fv, const float* __restrict__ wb,
-        const float* __restrict__ bb, float* __restrict__ out, size_t sc, size_t sp) {
+        const float* __restrict__ bb, float* __restrict__ out, size_t sc, size_t sp,
+        int tiles_per_scene) {
   extern __shared__ __align__(16) unsigned char smem[];
-  fwd_tile_f32<In, W>(in, n_pts, Fp, Fv, wb, bb, blockIdx.x * TP32, smem,
+  const int scene = blockIdx.x / tiles_per_scene;
+  fwd_tile_f32<In, W>(in, n_pts, Fp, Fv, wb + size_t(scene) * Layout<W>::size,
+                      bb + size_t(scene) * Layout<W>::nbias, blockIdx.x * TP32, smem,
                       GlobalSink{out, sc, sp});
 }
 
@@ -88,41 +97,58 @@ fwd_f32(const In in, int n_pts, int Fp, int Fv, const float* __restrict__ wb,
   } while (0)
 
 // The bf16 launch: the blob's four tensor maps, encoded per launch, and a
-// persistent grid of min(tiles, the device's SM count) CTAs.
+// persistent grid of min(tiles, the device's SM count) CTAs. With scenes >
+// 1 the n_pts points are that many scenes' in turn, each a whole number of
+// tiles, and wblob / bb hold a net per scene (SceneWalk: scene_grid's CTAs
+// a scene).
 template <typename In, int W>
 cudaError_t launch_bf16(const In& in, int n_pts, int Fp, int Fv, const void* wblob,
-                        const float* bb, float* out, size_t sc, size_t sp, cudaStream_t stream) {
+                        const float* bb, float* out, size_t sc, size_t sp, int scenes,
+                        cudaStream_t stream) {
   const bf16* wb = static_cast<const bf16*>(wblob);
   FwdMaps maps;
-  NERF_CHECK(encode_fwd_maps<W>(&maps, wb));
+  NERF_CHECK(encode_fwd_maps<W>(&maps, wb, scenes));
   constexpr size_t smem = FwdSmem<W>::launch_bytes;
-  NERF_CHECK(cudaFuncSetAttribute(fwd_bf16_sm90<In, W>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
   int dev = 0, sms = 0;
   NERF_CHECK(cudaGetDevice(&dev));
   NERF_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
   const int tiles = (n_pts + TP - 1) / TP;
-  fwd_bf16_sm90<In, W><<<tiles < sms ? tiles : sms, FWD_THREADS, smem, stream>>>(
-      maps, in, n_pts, Fp, Fv, wb, bb, out, sc, sp);
+  const int grid = tiles < sms ? tiles : sms;
+  if (scenes == 1) {
+    NERF_CHECK(cudaFuncSetAttribute(fwd_bf16_sm90<In, W, TileWalk>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+    fwd_bf16_sm90<In, W, TileWalk><<<grid, FWD_THREADS, smem, stream>>>(
+        maps, in, n_pts, Fp, Fv, wb, bb, out, sc, sp, TileWalk());
+  } else if constexpr (std::is_same_v<In, RaysIn>) {  // the stacked K1 reads rays
+    NERF_CHECK(cudaFuncSetAttribute(fwd_bf16_sm90<In, W, SceneWalk>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+    fwd_bf16_sm90<In, W, SceneWalk><<<scene_grid(tiles / scenes, scenes, sms), FWD_THREADS, smem,
+                                      stream>>>(maps, in, n_pts, Fp, Fv, wb, bb, out, sc, sp,
+                                                SceneWalk{tiles / scenes});
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
 template <typename In, int W>
 cudaError_t launch_f32(const In& in, int n_pts, int Fp, int Fv, const void* wb, const float* bb,
-                       float* out, size_t sc, size_t sp, cudaStream_t stream) {
+                       float* out, size_t sc, size_t sp, int scenes, cudaStream_t stream) {
   constexpr size_t smem = F32Smem<W>::bytes;
   NERF_CHECK(cudaFuncSetAttribute(fwd_f32<In, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   int(smem)));
-  fwd_f32<In, W><<<(n_pts + TP32 - 1) / TP32, THREADS, smem, stream>>>(
-      in, n_pts, Fp, Fv, static_cast<const float*>(wb), bb, out, sc, sp);
+  const int tiles = (n_pts + TP32 - 1) / TP32;
+  fwd_f32<In, W><<<tiles, THREADS, smem, stream>>>(in, n_pts, Fp, Fv,
+                                                   static_cast<const float*>(wb), bb, out, sc,
+                                                   sp, scenes == 1 ? tiles : tiles / scenes);
   return cudaGetLastError();
 }
 
 template <typename In>
 cudaError_t launch(const In& in, int use_bf16, int width, int n_pts, int Fp, int Fv,
                    const void* wb, const float* bb, float* out, size_t sc, size_t sp,
-                   cudaStream_t stream) {
-#define NERF_ARGS in, n_pts, Fp, Fv, wb, bb, out, sc, sp, stream
+                   cudaStream_t stream, int scenes = 1) {
+#define NERF_ARGS in, n_pts, Fp, Fv, wb, bb, out, sc, sp, scenes, stream
   if (use_bf16) {
     if (width == 256) return launch_bf16<In, 256>(NERF_ARGS);
     if (width == 128) return launch_bf16<In, 128>(NERF_ARGS);
@@ -159,6 +185,35 @@ extern "C" int nerf_fused_mlp_fwd(int use_bf16, int width, const float* rays_o,
   const RaysIn in{rays_o, rays_d, z, viewdirs, n_samples};
   return launch(in, use_bf16, width, n_pts, n_freq_pts, n_freq_views, wblob, bblob, out,
                 size_t(n_pts), 1, static_cast<cudaStream_t>(stream));
+}
+
+// The stacked K1 of multi-scene training, one launch for S scenes (the
+// vmap over scenes of nerf_tpu's make_multi_scene_step gives
+// _fwd_kernel_rays a scene axis, nerf_tpu/parallel/multi_scene.py:44-64):
+// rays_o, rays_d, viewdirs [S*R,3] and z [S*R,N], scene s's rays at rows
+// s*R ..; wblob [S][Layout size] and bblob [S][nbias], a net per scene;
+// out [4][S*R*N] (K1's planes over all S*R rays). R must be a multiple of
+// 64 (the stacked backward's per-ray rows; a scene's R*N points are then
+// whole tiles, so no tile spans two scenes); the wrapper pads each scene's
+// rays. Each tile computes what K1 computes for it alone, bit for bit.
+// Bound at S = 8, N_rand 1024, 64 + 192 samples (the configs/multi
+// recipe, 2,097,152 points a step): 2.52 ms at 989 TFLOP/s, by operations.
+extern "C" int nerf_fused_mlp_fwd_stacked(int use_bf16, int width, const float* rays_o,
+                                          const float* rays_d, const float* viewdirs,
+                                          const float* z, int n_scenes, int rays_per_scene,
+                                          int n_samples, int n_freq_pts, int n_freq_views,
+                                          const void* wblob, const float* bblob, float* out,
+                                          void* stream) {
+  if (!valid_freqs(n_freq_pts, n_freq_views)) return cudaErrorInvalidValue;
+  const long long per = static_cast<long long>(rays_per_scene) * n_samples;
+  const long long n = per * n_scenes;
+  if (n_scenes < 1 || rays_per_scene < 64 || rays_per_scene % 64 != 0 || n_samples < 1 ||
+      per % TP != 0 || n > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const int n_pts = static_cast<int>(n);
+  const RaysIn in{rays_o, rays_d, z, viewdirs, n_samples};
+  return launch(in, use_bf16, width, n_pts, n_freq_pts, n_freq_views, wblob, bblob, out,
+                size_t(n_pts), 1, static_cast<cudaStream_t>(stream), n_scenes);
 }
 
 // K2: x [N,3]; v [N/spr,3], point p looking along v[p / spr]; out [N,4].

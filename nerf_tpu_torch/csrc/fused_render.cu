@@ -199,8 +199,8 @@ __device__ void composite(const RenderArgs& a, float* comp, int nq, int r0, int 
 // ------------------------------------------------------------- bf16 (sm_90a)
 
 // K5's schedule: the CTA's groups blockIdx.x, + gridDim.x, ..., each group's
-// n_sub tiles in order.
-struct GroupWalk {
+// n_sub tiles in order; one net (TileWalk's scene 0).
+struct GroupWalk : TileWalk {
   int n_sub;
   __device__ __forceinline__ int first() const { return blockIdx.x * n_sub; }
   __device__ __forceinline__ int next(int tile) const {
@@ -401,7 +401,7 @@ render_bf16_sm90(const __grid_constant__ FwdMaps maps, const __grid_constant__ R
   }
   const RaysIn in{a.ro, a.rd, a.z, a.vd, a.S};
   fwd_tiles_sm90<RaysIn, W>(maps, in, a.n_rays * a.S, a.Fp, a.Fv, static_cast<const bf16*>(a.wb),
-                            a.bb, smem, GroupSink{a}, GroupWalk{a.n_sub}, GroupHook{{}, a, bars});
+                            a.bb, smem, GroupSink{a}, GroupWalk{{}, a.n_sub}, GroupHook{{}, a, bars});
 }
 
 // ------------------------------------------------------------------ f32

@@ -12,7 +12,9 @@
 // tiles of a persistent grid in the order a schedule gives (a template
 // parameter: TileWalk, K1's and K2's default, takes tiles blockIdx.x,
 // + gridDim.x, ...; K5's GroupWalk in fused_render.cu takes groups of
-// consecutive tiles); the producer and both consumers walk the same order.
+// consecutive tiles; SceneWalk, the stacked K1's and K4's, a scene's tiles
+// a row of the grid, each scene on its own weights); the producer and both
+// consumers walk the same order.
 // A hook (a template parameter too; NoHook, the default, compiles to
 // nothing) is called by the consumers before each tile's head writes raw
 // and after it, and runs on the producer warpgroup's three idle warps (K5
@@ -57,6 +59,8 @@
 //   the points p < n_pts.
 
 #pragma once
+
+#include <climits>
 
 #include "fused_mlp_common.cuh"
 #include "hopper.cuh"
@@ -103,11 +107,42 @@ struct FwdSmem {
 };
 
 // The schedules: the first tile of the CTA and the one after `tile`; the
-// CTA stops at the first tile >= ntiles. TileWalk (K1, K2): every
-// gridDim.x-th tile.
+// CTA stops at the first tile >= ntiles; scene() is the weight set its
+// tiles read. TileWalk (K1, K2): every gridDim.x-th tile, one weight set.
 struct TileWalk {
   __device__ __forceinline__ int first() const { return blockIdx.x; }
   __device__ __forceinline__ int next(int tile) const { return tile + gridDim.x; }
+  __device__ __forceinline__ int scene() const { return 0; }
+};
+
+// SceneWalk (the stacked K1 and K4 launches of multi-scene training): S
+// scenes' points one after another, each scene a whole number of tiles, so
+// that no tile spans two scenes; the grid's y is the scene, and CTA (x, y)
+// takes scene y's tiles x, x + gridDim.x, ... (TileWalk's order within the
+// scene). Its tiles read the weights of scene y: its blocks in blobs
+// stacked [S][Layout<W>::size] (biases [S][nbias]). The producer picks each
+// tile's rows of the maps; the ring streams a tile's weights every tile,
+// and no stage assumes one weight set. The consumers read the scene afresh
+// (an opaque read of %ctaid.y, which the compiler neither hoists nor keeps)
+// where an epilogue or the head addresses a bias or a Wout row, and add it
+// to the index into the blobs: kept as pointers, per tile or for the CTA's
+// life, the per-scene bases made ptxas spill 80 to 360 bytes in the W = 256
+// consumers (K1's, the recompute's, the chain's), which run at their 232
+// registers.
+struct SceneWalk {
+  int tiles_per_scene;
+  __device__ __forceinline__ int first() const {
+    return int(blockIdx.y) * tiles_per_scene + int(blockIdx.x);
+  }
+  __device__ __forceinline__ int next(int tile) const {
+    const int t = tile + int(gridDim.x);
+    return t < (int(blockIdx.y) + 1) * tiles_per_scene ? t : INT_MAX;  // INT_MAX: done
+  }
+  __device__ __forceinline__ int scene() const {
+    int y;
+    asm volatile("mov.u32 %0, %%ctaid.y;\n" : "=r"(y));
+    return y;
+  }
 };
 
 // The hook: before_head(tile) is called by every consumer thread before
@@ -222,11 +257,14 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
 // bias)), from the m64nN accumulator fragment (hopper.cuh): row
 // 16*warp + lane/4 (+8), columns 8*jb + 2*(lane%4) (+1). With kPart also
 // part[h][c] += the rounded row . Wout[W/2 + col][c] (h7's share of raw).
-// Without kBias no bias is read or added (K7's matmul_only).
+// Without kBias no bias is read or added (K7's matmul_only). boff and wrow
+// move the bias index and the Wout row to a stacked blob's scene
+// (SceneWalk).
 template <int W, bool kRelu, bool kPart, bool kBias = true>
 __device__ __forceinline__ void epilogue_sw(const float (&acc)[W / 2],
                                             const float* __restrict__ bias, unsigned char* out,
-                                            const bf16* __restrict__ wout, float (&part)[2][4]) {
+                                            const bf16* __restrict__ wout, float (&part)[2][4],
+                                            int boff = 0, int wrow = 0) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int sw = lane >> 2;  // the rows' % 8: the swizzle's XOR
   const uint32_t row0 = hopper::smem_addr(out) + (16 * warp + sw) * 128 + ((lane & 3) << 2);
@@ -234,12 +272,12 @@ __device__ __forceinline__ void epilogue_sw(const float (&acc)[W / 2],
   for (int jb = 0; jb < W / 8; ++jb) {
     const int col = 8 * jb + 2 * (lane & 3);
     float2 b = make_float2(0.f, 0.f);
-    if constexpr (kBias) b = __ldg(reinterpret_cast<const float2*>(bias + col));
+    if constexpr (kBias) b = __ldg(reinterpret_cast<const float2*>(bias + (boff + col)));
     const uint32_t blk = row0 + (jb >> 3) * (FWD_ROWS * 128) + (((jb & 7) ^ sw) << 4);
     float w0[4], w1[4];
     if (kPart) {
-      wout_row(wout, W / 2 + col, w0);
-      wout_row(wout, W / 2 + col + 1, w1);
+      wout_row(wout, wrow + W / 2 + col, w0);
+      wout_row(wout, wrow + W / 2 + col + 1, w1);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -280,21 +318,22 @@ __device__ __forceinline__ float pick(const float (&v)[4], int c) {
 
 // The view layer's epilogue and the head: hv = bf16(relu(acc + bv)) stays
 // in registers; raw = (hv . Wout[:W/2] + part) + bout goes to the sink,
-// channel lane % 4 of the thread's two rows.
+// channel lane % 4 of the thread's two rows (boff, wrow: epilogue_sw's).
 template <int W, typename Sink>
 __device__ __forceinline__ void view_head(const float (&acc)[W / 4], const float* __restrict__ bv,
                                           const bf16* __restrict__ wout,
                                           const float* __restrict__ bout, const float (&part)[2][4],
-                                          int n_pts, int p0, const Sink& sink) {
+                                          int n_pts, int p0, const Sink& sink, int boff = 0,
+                                          int wrow = 0) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   float o[2][4] = {};
 #pragma unroll
   for (int jb = 0; jb < W / 16; ++jb) {
     const int col = 8 * jb + 2 * (lane & 3);
-    const float2 b = __ldg(reinterpret_cast<const float2*>(bv + col));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bv + (boff + col)));
     float w0[4], w1[4];
-    wout_row(wout, col, w0);
-    wout_row(wout, col + 1, w1);
+    wout_row(wout, wrow + col, w0);
+    wout_row(wout, wrow + col + 1, w1);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float2 f = __bfloat1622float2(__floats2bfloat162_rn(
@@ -308,7 +347,7 @@ __device__ __forceinline__ void view_head(const float (&acc)[W / 4], const float
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int p = p0 + 16 * warp + (lane >> 2) + 8 * h;
-    const float v = (pick(o[h], c) + pick(part[h], c)) + __ldg(bout + c);
+    const float v = (pick(o[h], c) + pick(part[h], c)) + __ldg(bout + (boff + c));
     if (p < n_pts) sink(p, c, v);
   }
 }
@@ -371,6 +410,10 @@ __device__ __forceinline__ void fwd_consumer(const In& in, int n_pts, int Fp, in
   unsigned char* emb = smem + L::emb + w * L::BLOCK;
   unsigned char* embv = smem + L::embv + w * L::BLOCK;
   const bf16* wout = wb + O::wout;
+  // the tile's net (SceneWalk: its scene's) as index offsets into the blobs,
+  // taken afresh where used (see SceneWalk): a bias, and a row of Wout
+  auto boff = [&]() { return walk.scene() * O::nbias; };
+  auto wrow = [&]() { return walk.scene() * int(O::size / 4); };
   const int bar = 1 + w;
   FwdRing r{smem + L::ring, L::STAGE, full, empty, 0};
   if (w == 1) pass_turn(w);  // warpgroup 0 goes first
@@ -388,7 +431,7 @@ __device__ __forceinline__ void fwd_consumer(const In& in, int n_pts, int Fp, in
       pass_turn(w);
       hook.after_embed(emb, embv, p0);
       finish_layer(r, bar);
-      epilogue_sw<W, true, false>(acc, bb, act, wout, part);
+      epilogue_sw<W, true, false>(acc, bb, act, wout, part, boff(), 0);
     }
     for (int i = 1; i < 8; ++i) {  // trunk; layer 5 adds e W5e
       hopper::fence_proxy_async();
@@ -403,9 +446,9 @@ __device__ __forceinline__ void fwd_consumer(const In& in, int n_pts, int Fp, in
       hook.after_layer(i - 1, act, p0);
       finish_layer(r, bar);
       if (i == 7)
-        epilogue_sw<W, true, true>(acc, bb + i * W, act, wout, part);
+        epilogue_sw<W, true, true>(acc, bb + i * W, act, wout, part, boff(), wrow());
       else
-        epilogue_sw<W, true, false>(acc, bb + i * W, act, wout, part);
+        epilogue_sw<W, true, false>(acc, bb + i * W, act, wout, part, boff(), 0);
     }
     quad_sum(part);
     {  // feature (no activation), over h7 in place
@@ -419,7 +462,7 @@ __device__ __forceinline__ void fwd_consumer(const In& in, int n_pts, int Fp, in
       pass_turn(w);
       hook.after_layer(7, act, p0);
       finish_layer(r, bar);
-      epilogue_sw<W, false, false>(acc, bb + O::bf, act, wout, part);
+      epilogue_sw<W, false, false>(acc, bb + O::bf, act, wout, part, boff(), 0);
     }
     {  // view layer [feat | ev] -> W/2, then the head
       hopper::fence_proxy_async();
@@ -434,25 +477,28 @@ __device__ __forceinline__ void fwd_consumer(const In& in, int n_pts, int Fp, in
       hook.after_layer(8, act, p0);
       finish_layer(r, bar);  // act and embv are free for the next tile
       if constexpr (Hook::kHvToAct) {  // hv to act for the hook, then act is free again
-        epilogue_sw<W / 2, true, false>(acc, bb + O::bv, act, wout, part);
+        epilogue_sw<W / 2, true, false>(acc, bb + O::bv, act, wout, part, boff(), 0);
         hopper::bar_sync(bar, 128);
         hook.after_layer(9, act, p0);
         hopper::bar_sync(bar, 128);
       }
       hook.before_head(tile);
-      view_head<W>(acc, bb + O::bv, wout, bb + O::bout, part, n_pts, p0, sink);
+      view_head<W>(acc, bb + O::bv, wout, bb + O::bout, part, n_pts, p0, sink, boff(), wrow());
     }
     hook.after_tile(tile, ntiles);
   }
   if (w == 0) take_turn(w);  // warpgroup 1's last pass_turn
 }
 
-// The producer thread: every tile's chunks, in the consumers' order.
+// The producer thread: every tile's chunks, in the consumers' order, from
+// the rows of the tile's scene (the maps span every scene's blob).
 template <int W, typename Walk>
 __device__ __forceinline__ void fwd_producer(const FwdMaps& maps, int ntiles, unsigned char* ring,
                                              uint64_t* full, uint64_t* empty, const Walk& walk) {
   using L = FwdSmem<W>;
+  using O = Layout<W>;
   constexpr int NB = L::NB;
+  static_assert(O::size % W == 0 && W % KE == 0, "a scene's blob is whole rows of every map");
   uint32_t g = 0;
   auto load = [&](const CUtensorMap* map, int x, int y, int rows) {
     const uint32_t s = g % FWD_STAGES;
@@ -462,14 +508,17 @@ __device__ __forceinline__ void fwd_producer(const FwdMaps& maps, int ntiles, un
     ++g;
   };
   for (int tile = walk.first(); tile < ntiles; tile = walk.next(tile)) {
-    load(&maps.w05, 0, 0, W);
+    const int sc = walk.scene();
+    const int y05 = sc * int(O::size / KE), yw = sc * int(O::size / W);
+    const int yve = sc * int(O::size / KV);
+    load(&maps.w05, 0, y05, W);
     for (int i = 1; i < 8; ++i) {
-      for (int j = 0; j < NB; ++j) load(&maps.trunk, KC * j, (i - 1) * W, W);
-      if (i == 5) load(&maps.w05, 0, W, W);
+      for (int j = 0; j < NB; ++j) load(&maps.trunk, KC * j, yw + (i - 1) * W, W);
+      if (i == 5) load(&maps.w05, 0, y05 + W, W);
     }
-    for (int j = 0; j < NB; ++j) load(&maps.trunk, KC * j, 7 * W, W);
-    for (int j = 0; j < NB; ++j) load(&maps.wvf, KC * j, 0, W / 2);
-    load(&maps.wve, 0, 0, W / 2);
+    for (int j = 0; j < NB; ++j) load(&maps.trunk, KC * j, yw + 7 * W, W);
+    for (int j = 0; j < NB; ++j) load(&maps.wvf, KC * j, yw, W / 2);
+    load(&maps.wve, 0, yve, W / 2);
   }
 }
 
@@ -510,17 +559,33 @@ __device__ __forceinline__ void fwd_tiles_sm90(const FwdMaps& maps, const In& in
   }
 }
 
-// The launch's four tensor maps over the bf16 weight blob wb (Layout<W>).
+// The launch's four tensor maps over the bf16 weight blob wb (Layout<W>),
+// or over `scenes` such blobs one after another: each map then runs on
+// through the later scenes' blobs, scene s's block starting s *
+// Layout<W>::size / cols rows further on (fwd_producer).
 template <int W>
-cudaError_t encode_fwd_maps(FwdMaps* maps, const bf16* wb) {
+cudaError_t encode_fwd_maps(FwdMaps* maps, const bf16* wb, int scenes = 1) {
   using O = Layout<W>;
-  cudaError_t err = hopper::encode_rows_sw128(&maps->w05, wb + O::w05, 2 * W, KE, W);
-  if (err == cudaSuccess) err = hopper::encode_rows_sw128(&maps->trunk, wb + O::w1, 8 * W, W, W);
+  const long long more = scenes - 1;  // blobs past the first
+  cudaError_t err = hopper::encode_rows_sw128(&maps->w05, wb + O::w05,
+                                              more * (O::size / KE) + 2 * W, KE, W);
   if (err == cudaSuccess)
-    err = hopper::encode_rows_sw128(&maps->wvf, wb + O::wvf, W / 2, W, W / 2);
+    err = hopper::encode_rows_sw128(&maps->trunk, wb + O::w1, more * (O::size / W) + 8 * W, W, W);
   if (err == cudaSuccess)
-    err = hopper::encode_rows_sw128(&maps->wve, wb + O::wve, W / 2, KV, W / 2);
+    err = hopper::encode_rows_sw128(&maps->wvf, wb + O::wvf, more * (O::size / W) + W / 2, W,
+                                    W / 2);
+  if (err == cudaSuccess)
+    err = hopper::encode_rows_sw128(&maps->wve, wb + O::wve, more * (O::size / KV) + W / 2, KV,
+                                    W / 2);
   return err;
+}
+
+// The stacked launches' grid (SceneWalk): a persistent CTA per SM shared
+// out among the scenes, min(tiles a scene, max(1, SMs / scenes)) CTAs a
+// scene (8 scenes: 16 a scene, 128 of the 132 SMs), the scene as y.
+inline dim3 scene_grid(int tiles_per_scene, int scenes, int sms) {
+  const int per = sms / scenes > 1 ? sms / scenes : 1;
+  return dim3(tiles_per_scene < per ? tiles_per_scene : per, scenes);
 }
 
 }  // namespace

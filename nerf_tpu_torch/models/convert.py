@@ -16,6 +16,12 @@ the ``step``. On nerf_tpu's side these are ``TrainState.params``, the
 ``exp_avg`` / ``exp_avg_sq`` / ``step`` and ``TrainState.step``. Both
 optimizers count completed updates, so either package can continue the
 other's run.
+
+A stacked state of multi-scene training (nerf_tpu's ``stack_states``: every
+leaf with a leading scene axis S) crosses the same way, scene by scene:
+``stacked_train_state_from_jax_arrays`` gives the port's stacked state
+(parallel/multi_scene.py) and ``jax_arrays_from_stacked_train_state`` takes
+it back.
 """
 
 from __future__ import annotations
@@ -134,4 +140,47 @@ def jax_arrays_from_train_state(state: TrainState, model: NeRFModel) -> Dict:
         out["params"][level] = jax_params_from_state_dict(sd, cfg)
         out["mu"][level] = jax_params_from_state_dict(mu, cfg)
         out["nu"][level] = jax_params_from_state_dict(nu, cfg)
+    return out
+
+
+def _tree_map(fn, *trees):
+    """fn over the leaves of nested dicts / lists (nerf_tpu's pytrees)."""
+    t0 = trees[0]
+    if isinstance(t0, Mapping):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return [_tree_map(fn, *parts) for parts in zip(*trees)]
+    return fn(*trees)
+
+
+def stacked_train_state_from_jax_arrays(
+    arrays: Mapping, model: NeRFModel, lrate: float, device: DeviceLike = None
+) -> TrainState:
+    """A stacked nerf_tpu train state as numpy (``params``, ``mu``, ``nu`` by
+    level with a leading scene axis; ``count`` and ``step`` shared, as the
+    vmapped step keeps them per scene and equal) -> the port's stacked
+    TrainState on ``device``."""
+    from nerf_tpu_torch.parallel.multi_scene import stack_states
+
+    n = len(np.asarray(arrays["params"]["coarse"]["trunk"][0]["b"]))
+    scalar = lambda x: np.asarray(x).reshape(-1)[0]  # noqa: E731
+    states = []
+    for s in range(n):
+        one = {k: _tree_map(lambda x: np.asarray(x)[s], arrays[k]) for k in ("params", "mu", "nu")}
+        one.update(count=scalar(arrays["count"]), step=scalar(arrays["step"]))
+        states.append(train_state_from_jax_arrays(one, model, lrate, device))
+    return stack_states(states)
+
+
+def jax_arrays_from_stacked_train_state(state: TrainState, model: NeRFModel) -> Dict:
+    """Inverse of :func:`stacked_train_state_from_jax_arrays`: numpy
+    ``params``, ``mu``, ``nu`` with the leading scene axis, ``count`` and
+    ``step``."""
+    from nerf_tpu_torch.parallel.multi_scene import unstack_states
+
+    n = next(iter(state.nets.values())).n_scenes
+    per = [jax_arrays_from_train_state(st, model) for st in unstack_states(state, n)]
+    out = {k: _tree_map(lambda *xs: np.stack(xs), *(p[k] for p in per))
+           for k in ("params", "mu", "nu")}
+    out.update(count=per[0]["count"], step=per[0]["step"])
     return out

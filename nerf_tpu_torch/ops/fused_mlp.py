@@ -43,7 +43,13 @@ The pieces:
   (``bwd_chain_sm90``), alone: the chain's workspace rows, its f32 d_hv rows,
   its bias partials and the input grads, with ``chain_layers_reference`` to
   hold each block to its one product on the kernel's own inputs. The plain
-  backward (``_backward``) takes its cotangents from the same code.
+  backward (``_backward``) takes its cotangents from the same code;
+- the stacked (multi-scene) pair, ``fused_rays_planes_stacked`` /
+  ``fused_rays_planes_stacked_bwd`` and ``fused_query_rays_planes_stacked``:
+  S nets of one shape as leaves with a leading scene axis, one launch of K1
+  and of K4 for every scene's rays (``nerf_fused_mlp_fwd_stacked``,
+  ``nerf_fused_mlp_bwd_stacked``), each tile on its own scene's weights;
+  their plain versions apply K1's and K4's scene by scene.
 """
 
 from __future__ import annotations
@@ -226,11 +232,13 @@ def fwd_weight_bytes_per_tile(cfg: MLPConfig) -> int:
 
 def _reorder_emb_rows(w: torch.Tensor, num_freqs: int) -> torch.Tensor:
     """Rows in embedding order (x, sin f0, cos f0, sin f1, ...) -> kernel
-    order [x (3) | sin, f-major (3F) | cos (3F)]."""
-    rest = w[3 : 3 + 6 * num_freqs].reshape(num_freqs, 2, 3, w.shape[-1])
-    ws = rest[:, 0].reshape(3 * num_freqs, w.shape[-1])
-    wc = rest[:, 1].reshape(3 * num_freqs, w.shape[-1])
-    return torch.cat([w[:3], ws, wc], 0)
+    order [x (3) | sin, f-major (3F) | cos (3F)], along the second-to-last
+    axis (``w`` [..., rows, out])."""
+    lead, n = w.shape[:-2], w.shape[-1]
+    rest = w[..., 3 : 3 + 6 * num_freqs, :].reshape(*lead, num_freqs, 2, 3, n)
+    ws = rest[..., 0, :, :].reshape(*lead, 3 * num_freqs, n)
+    wc = rest[..., 1, :, :].reshape(*lead, 3 * num_freqs, n)
+    return torch.cat([w[..., :3, :], ws, wc], -2)
 
 
 def pack_params(
@@ -240,38 +248,41 @@ def pack_params(
     nerf_tpu's pack_params: W05e [ep, 2W], W1..W7 / Wf [W, W], Wvf [W, W/2],
     Wve [ev, W/2], Wout [3W/2, 4] in ``dtype``; biases [1, out] float32.
     Differentiable: under autograd the grads of the packed leaves flow back
-    through the casts, reorders and concatenations to the parameters."""
+    through the casts, reorders and concatenations to the parameters. A
+    stacked net (render/network.py's StackedNeRFMLP, parameters [S, ...])
+    packs to leaves with the same leading scene axis, each scene's slice its
+    own net's packing."""
     W = mlp.cfg.width
     ep = 3 + 6 * pe_pts.num_freqs
     trunk = mlp.pts_linears
     kp = {}
-    w0e = _reorder_emb_rows(trunk[0].weight.T, pe_pts.num_freqs)
+    w0e = _reorder_emb_rows(trunk[0].weight.mT, pe_pts.num_freqs)
     for i in range(DEPTH):
-        w = trunk[i].weight.T  # [in, out]
+        w = trunk[i].weight.mT  # [..., in, out]
         if i == SKIP + 1:
-            w5e = _reorder_emb_rows(w[:ep], pe_pts.num_freqs)
-            kp["W05e"] = torch.cat([w0e, w5e], 1).to(dtype)
-            kp[f"W{i}"] = w[ep:].to(dtype)
+            w5e = _reorder_emb_rows(w[..., :ep, :], pe_pts.num_freqs)
+            kp["W05e"] = torch.cat([w0e, w5e], -1).to(dtype)
+            kp[f"W{i}"] = w[..., ep:, :].to(dtype)
         elif i > 0:
             kp[f"W{i}"] = w.to(dtype)
-        kp[f"b{i}"] = trunk[i].bias.float()[None, :]
-    kp["Wf"] = mlp.feature_linear.weight.T.to(dtype)
-    kp["bf"] = mlp.feature_linear.bias.float()[None, :]
-    wv = mlp.views_linears[0].weight.T  # [W + ev, W/2], input order cat([feature, v_emb])
-    kp["Wvf"] = wv[:W].to(dtype)
-    kp["Wve"] = _reorder_emb_rows(wv[W:], pe_views.num_freqs).to(dtype)
-    kp["bv"] = mlp.views_linears[0].bias.float()[None, :]
-    wr = mlp.rgb_linear.weight.T  # [W/2, 3]
-    wa = mlp.alpha_linear.weight.T  # [W, 1]
+        kp[f"b{i}"] = trunk[i].bias.float().unsqueeze(-2)
+    kp["Wf"] = mlp.feature_linear.weight.mT.to(dtype)
+    kp["bf"] = mlp.feature_linear.bias.float().unsqueeze(-2)
+    wv = mlp.views_linears[0].weight.mT  # [..., W + ev, W/2], input order cat([feature, v_emb])
+    kp["Wvf"] = wv[..., :W, :].to(dtype)
+    kp["Wve"] = _reorder_emb_rows(wv[..., W:, :], pe_views.num_freqs).to(dtype)
+    kp["bv"] = mlp.views_linears[0].bias.float().unsqueeze(-2)
+    wr = mlp.rgb_linear.weight.mT  # [..., W/2, 3]
+    wa = mlp.alpha_linear.weight.mT  # [..., W, 1]
     kp["Wout"] = torch.cat(
-        [F.pad(wr, (0, 1)), F.pad(wa, (3, 0))], 0
+        [F.pad(wr, (0, 1)), F.pad(wa, (3, 0))], -2
     ).to(dtype)  # rows: hv -> rgb, h7 -> alpha
-    kp["bout"] = torch.cat([mlp.rgb_linear.bias, mlp.alpha_linear.bias]).float()[None, :]
+    kp["bout"] = torch.cat([mlp.rgb_linear.bias, mlp.alpha_linear.bias], -1).float().unsqueeze(-2)
     return {k: v.contiguous() for k, v in kp.items()}
 
 
 def _num_freqs(kp) -> Tuple[int, int]:
-    return (kp["W05e"].shape[0] - 3) // 6, (kp["Wve"].shape[0] - 3) // 6
+    return (kp["W05e"].shape[-2] - 3) // 6, (kp["Wve"].shape[-2] - 3) // 6
 
 
 def _phases(x: torch.Tensor, num_freqs: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -460,24 +471,27 @@ def fused_points_reference(
 def kernel_blobs(kp: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pack ``kp`` into the kernel's two flat buffers (layout in
     csrc/fused_mlp_fwd.cu): weights as ``[out, in]`` rows with the embedding
-    K padded to 64 / 32, then Wout as is; biases concatenated in f32."""
+    K padded to 64 / 32, then Wout as is; biases concatenated in f32.
+    Stacked leaves ([S, ...]) give each scene's blobs one after another, as
+    the stacked K1 and K4 take them."""
+    lead = kp["W1"].shape[:-2]
 
     def rows(name, k_pad=None):
-        wt = kp[name].T
+        wt = kp[name].mT
         if k_pad is not None:
-            wt = F.pad(wt, (0, k_pad - wt.shape[1]))
-        return wt.reshape(-1)
+            wt = F.pad(wt, (0, k_pad - wt.shape[-1]))
+        return wt.reshape(*lead, -1)
 
     wblob = torch.cat(
         [rows("W05e", KE)]
         + [rows(f"W{i}") for i in range(1, DEPTH)]
-        + [rows("Wf"), rows("Wvf"), rows("Wve", KV), kp["Wout"].reshape(-1)]
+        + [rows("Wf"), rows("Wvf"), rows("Wve", KV), kp["Wout"].reshape(*lead, -1)], -1
     )
     bblob = torch.cat(
-        [kp[f"b{i}"].reshape(-1) for i in range(DEPTH)]
-        + [kp["bf"].reshape(-1), kp["bv"].reshape(-1), kp["bout"].reshape(-1)]
+        [kp[f"b{i}"].reshape(*lead, -1) for i in range(DEPTH)]
+        + [kp[n].reshape(*lead, -1) for n in ("bf", "bv", "bout")], -1
     )
-    return wblob.contiguous(), bblob.contiguous()
+    return wblob.reshape(-1).contiguous(), bblob.reshape(-1).contiguous()
 
 
 def _check_rays(rays_o, rays_d, viewdirs, z_vals):
@@ -516,7 +530,7 @@ def _kernel_config(kp, like: torch.Tensor):
     """(dtype, width, point octaves, view octaves) for a launch on
     ``like``'s device; raises on what the kernels are not built for."""
     dtype = kp["W1"].dtype
-    W = kp["W1"].shape[0]
+    W = kp["W1"].shape[-1]
     Fp, Fv = _num_freqs(kp)
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the kernel computes in bfloat16 or float32, not {dtype}")
@@ -856,17 +870,20 @@ def _chain_blob(kp: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The backward's second weight buffer (TLayout in
     csrc/fused_mlp_bwd.cu): W1..W7, Wf and Wvf in kp's own [in, out] layout,
     the B operand of d·Wᵀ; then, for K3's input grads, W05e's layer-0 and
-    skip halves and Wve, their embedding rows zero-padded to 64 / 32."""
-    W = kp["W1"].shape[0]
+    skip halves and Wve, their embedding rows zero-padded to 64 / 32.
+    Stacked leaves give each scene's buffer one after another."""
+    W = kp["W1"].shape[-1]
+    lead = kp["W1"].shape[:-2]
     names = [f"W{i}" for i in range(1, DEPTH)] + ["Wf", "Wvf"]
 
     def rows(t, k_pad):
-        return F.pad(t, (0, 0, 0, k_pad - t.shape[0])).reshape(-1)
+        return F.pad(t, (0, 0, 0, k_pad - t.shape[-2])).reshape(*lead, -1)
 
+    w05 = kp["W05e"]
     return torch.cat(
-        [kp[n].reshape(-1) for n in names]
-        + [rows(kp["W05e"][:, :W], KE), rows(kp["W05e"][:, W:], KE), rows(kp["Wve"], KV)]
-    ).contiguous()
+        [kp[n].reshape(*lead, -1) for n in names]
+        + [rows(w05[..., :W], KE), rows(w05[..., W:], KE), rows(kp["Wve"], KV)], -1
+    ).reshape(-1).contiguous()
 
 
 def _grad_blocks(W: int):
@@ -883,14 +900,17 @@ def _grad_blocks(W: int):
 
 
 def _unpack_grads(out: torch.Tensor, W: int, Fp: int, Fv: int) -> Dict[str, torch.Tensor]:
+    """K4's f32 output [grad size] (the stacked K4's [S, grad size]) by leaf,
+    in kp's shapes (with the leading scene axis)."""
     weights, biases = _grad_blocks(W)
     rows_used = {"W05e": 3 + 6 * Fp, "Wve": 3 + 6 * Fv}
     grads, o = {}, 0
     for name, rows, cols in weights:
-        grads[name] = out[o : o + rows * cols].view(rows, cols)[: rows_used.get(name, rows)]
+        block = out[..., o : o + rows * cols].unflatten(-1, (rows, cols))
+        grads[name] = block[..., : rows_used.get(name, rows), :]
         o += rows * cols
     for name, n in biases:
-        grads[name] = out[o : o + n].view(1, n)
+        grads[name] = out[..., o : o + n].unsqueeze(-2)
         o += n
     return grads
 
@@ -1314,3 +1334,196 @@ def fused_query(
         kp, blobs = packed_params(mlp, pe_pts, pe_views, compute_dtype)
         out = fused_points(kp, x, v, spr, blobs)
     return out.reshape(R, S, 4)
+
+
+# ------------------------------------------------- stacked (multi-scene) K1/K4
+#
+# Multi-scene training (parallel/multi_scene.py) runs S nets of one shape as
+# one stacked step: the packed leaves carry a leading scene axis [S, ...],
+# the rays of scene s are [s] of [S, R, ...] inputs, and each level runs one
+# K1 launch and one K4 launch (its three phases) over every scene's rays,
+# each tile reading its own scene's weights (nerf_tpu vmaps its step, and
+# with it the Pallas calls, over the scene axis: multi_scene.py:44-64).
+
+
+def _scene(kp: Dict[str, torch.Tensor], s: int) -> Dict[str, torch.Tensor]:
+    """Scene s's leaves of stacked packed params."""
+    return {k: v[s] for k, v in kp.items()}
+
+
+def _check_stacked(kp, rays_o, rays_d, viewdirs, z_vals) -> None:
+    S = z_vals.shape[0]
+    if z_vals.dim() != 3 or kp["W1"].dim() != 3 or kp["W1"].shape[0] != S:
+        raise ValueError(f"stacked inputs: z_vals [S, R, N] and leaves [S, ...]; got z_vals "
+                         f"{tuple(z_vals.shape)} and W1 {tuple(kp['W1'].shape)}")
+    _check_rays(*(t.flatten(0, 1) for t in (rays_o, rays_d, viewdirs, z_vals)))
+    if rays_o.shape[0] != S:
+        raise ValueError(f"rays_o: expected {S} scenes, got {tuple(rays_o.shape)}")
+
+
+def fused_rays_planes_stacked_reference(kp, rays_o, rays_d, viewdirs, z_vals) -> torch.Tensor:
+    """Plain PyTorch version of the stacked K1: K1's plain version applied
+    scene by scene, raw planes [4, S, R, N]."""
+    return torch.stack([fused_rays_planes_reference(_scene(kp, s), rays_o[s], rays_d[s],
+                                                    viewdirs[s], z_vals[s])
+                        for s in range(z_vals.shape[0])], 1)
+
+
+def fused_rays_planes_stacked_bwd_reference(kp, rays_o, rays_d, viewdirs, z_vals,
+                                            g_planes) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of the stacked K4: K4's plain version applied
+    scene by scene, grads with kp's stacked shapes."""
+    per = [fused_rays_planes_bwd_reference(_scene(kp, s), rays_o[s], rays_d[s], viewdirs[s],
+                                           z_vals[s], g_planes[:, s])
+           for s in range(z_vals.shape[0])]
+    return {k: torch.stack([g[k] for g in per]) for k in per[0]}
+
+
+def _pad_rays(R: int, N: int) -> int:
+    """The rays a scene is padded to for the stacked launches: a multiple of
+    64 (whole 64-ray columns of K4's per-ray rows) whose R*N points are
+    whole tiles, so that no tile spans two scenes."""
+    step = 64 if (64 * N) % FWD_TILE == 0 else 128
+    return -(-R // step) * step
+
+
+def _padded(ts, R_pad: int, dim: int = 1):
+    """Each tensor zero-padded along ``dim`` to R_pad, contiguous."""
+    return [F.pad(t, (0, 0) * (t.dim() - dim - 1) + (0, R_pad - t.shape[dim])).contiguous()
+            for t in ts]
+
+
+def fused_rays_planes_stacked(kp, rays_o, rays_d, viewdirs, z_vals, blobs=None) -> torch.Tensor:
+    """Raw planes [4, S, R, N] float32 of S scenes from stacked packed
+    params ([S, ...] leaves), rays [S, R, 3] and depths [S, R, N]: scene s's
+    rays through scene s's net. CUDA tensors launch the stacked K1 once for
+    every scene (``launches`` counts one a launch, whatever S is), each
+    scene's rays zero-padded to ``_pad_rays``; CPU tensors take the plain
+    version. ``blobs`` is ``kernel_blobs(kp)`` where the caller keeps it."""
+    _check_stacked(kp, rays_o, rays_d, viewdirs, z_vals)
+    if z_vals.device.type == "cpu":
+        return fused_rays_planes_stacked_reference(kp, rays_o, rays_d, viewdirs, z_vals)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {z_vals.device}")
+    dtype, W, Fp, Fv = _kernel_config(kp, z_vals)
+    S, R, N = z_vals.shape
+    R_pad = _pad_rays(R, N)
+    ro, rd, vd, z = _padded((rays_o, rays_d, viewdirs, z_vals), R_pad)
+    out = torch.empty(4, S, R_pad, N, dtype=torch.float32, device=z.device)
+    lib = _build.load("fused_mlp_fwd")
+    wblob, bblob = kernel_blobs(kp) if blobs is None else blobs
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        err = lib.nerf_fused_mlp_fwd_stacked(
+            int(dtype == torch.bfloat16), W, ro.data_ptr(), rd.data_ptr(), vd.data_ptr(),
+            z.data_ptr(), S, R_pad, N, Fp, Fv, wblob.data_ptr(), bblob.data_ptr(),
+            out.data_ptr(), stream,
+        )
+    _raise_on(lib, err, "fused_mlp_fwd_stacked")
+    fused_rays_planes_stacked.launches += 1
+    return out[:, :, :R]
+
+
+fused_rays_planes_stacked.launches = 0
+
+
+def stacked_workspace_bytes(W: int, n_scenes: int, rays_per_scene: int, n_samples: int,
+                            bf16: bool = True) -> int:
+    """Bytes of device workspace that one stacked K4 launch takes (after
+    ``_pad_rays``); asks the built library."""
+    lib = _build.load("fused_mlp_bwd")
+    nbytes = ctypes.c_longlong(0)
+    R_pad = _pad_rays(rays_per_scene, n_samples)
+    _raise_on(lib, lib.nerf_fused_mlp_bwd_stacked_workspace(
+        int(bf16), W, n_scenes, R_pad, n_samples, ctypes.byref(nbytes)), "fused_mlp_bwd_stacked")
+    return nbytes.value
+
+
+def fused_rays_planes_stacked_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g_planes,
+                                  blobs=None) -> Dict[str, torch.Tensor]:
+    """float32 grads of the stacked packed leaves (kp's [S, ...] shapes)
+    from the cotangent ``g_planes [4, S, R, N]`` of
+    ``fused_rays_planes_stacked``'s output: each scene's the grads of its own
+    net. CUDA tensors launch the stacked K4 (its recompute, chain and weight
+    grads once each for every scene; ``launches`` counts one); CPU tensors
+    take the plain version."""
+    _check_stacked(kp, rays_o, rays_d, viewdirs, z_vals)
+    S, R, N = z_vals.shape
+    if g_planes.shape != (4, S, R, N) or g_planes.dtype != torch.float32 or \
+            g_planes.device != z_vals.device:
+        raise ValueError(f"g_planes: expected float32 {(4, S, R, N)} on {z_vals.device}, got "
+                         f"{g_planes.dtype} {tuple(g_planes.shape)} on {g_planes.device}")
+    if z_vals.device.type == "cpu":
+        return fused_rays_planes_stacked_bwd_reference(kp, rays_o, rays_d, viewdirs, z_vals,
+                                                       g_planes)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {z_vals.device}")
+    dtype, W, Fp, Fv = _kernel_config(kp, z_vals)
+    dev = z_vals.device
+    R_pad = _pad_rays(R, N)
+    ro, rd, vd, z = _padded((rays_o, rays_d, viewdirs, z_vals), R_pad)
+    (g,) = _padded((g_planes,), R_pad, dim=2)  # padded rays: a zero cotangent
+    lib = _build.load("fused_mlp_bwd")
+    use_bf16 = int(dtype == torch.bfloat16)
+    ws, nbytes = _workspace(lib, lib.nerf_fused_mlp_bwd_stacked_workspace, "fused_mlp_bwd_stacked",
+                            use_bf16, W, S, R_pad, N, dev=dev)
+    out = torch.zeros(S, _grad_size(W), dtype=torch.float32, device=dev)
+    wblob, bblob = kernel_blobs(kp) if blobs is None else blobs
+    wtblob = _chain_blob(kp)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nerf_fused_mlp_bwd_stacked(
+            use_bf16, W, ro.data_ptr(), rd.data_ptr(), vd.data_ptr(), z.data_ptr(), g.data_ptr(),
+            S, R_pad, N, Fp, Fv, wblob.data_ptr(), wtblob.data_ptr(), bblob.data_ptr(),
+            ws.data_ptr(), nbytes, out.data_ptr(), stream,
+        )
+    _raise_on(lib, err, "fused_mlp_bwd_stacked")
+    fused_rays_planes_stacked_bwd.launches += 1
+    bwd_recompute.launches += use_bf16
+    bwd_chain.launches += use_bf16
+    return _unpack_grads(out, W, Fp, Fv)
+
+
+fused_rays_planes_stacked_bwd.launches = 0
+
+
+class _FusedRaysPlanesStacked(torch.autograd.Function):
+    """The stacked K1 forward, the stacked K4 backward over stacked packed
+    leaves (KP_NAMES order), as ``_FusedRaysPlanes`` for one net."""
+
+    @staticmethod
+    def forward(ctx, rays_o, rays_d, viewdirs, z_vals, *leaves):
+        kp = dict(zip(KP_NAMES, leaves))
+        blobs = kernel_blobs(kp) if z_vals.is_cuda else None
+        ctx.save_for_backward(rays_o, rays_d, viewdirs, z_vals, *leaves)
+        ctx.blobs = blobs
+        return fused_rays_planes_stacked(kp, rays_o, rays_d, viewdirs, z_vals, blobs)
+
+    @staticmethod
+    def backward(ctx, g):
+        ro, rd, vd, z, *leaves = ctx.saved_tensors
+        kp = dict(zip(KP_NAMES, leaves))
+        grads = fused_rays_planes_stacked_bwd(kp, ro, rd, vd, z, g.contiguous(), ctx.blobs)
+        ctx.blobs = None
+        return (None,) * 4 + tuple(grads[n].to(kp[n].dtype) for n in KP_NAMES)
+
+
+def fused_query_rays_planes_stacked(mlp, cfg: MLPConfig, pe_pts: PosEncConfig,
+                                    pe_views: PosEncConfig, rays_o: torch.Tensor,
+                                    rays_d: torch.Tensor, viewdirs: torch.Tensor,
+                                    z_vals: torch.Tensor,
+                                    compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``fused_query_rays_planes`` for a stacked net (render/network.py's
+    StackedNeRFMLP): rays [S, R, 3] and depths [S, R, N] in, raw planes
+    [4, S, R, N] out, scene s's through scene s's net; rays and depths get
+    no gradient."""
+    if not supports(cfg, pe_pts, pe_views):
+        raise ValueError("fused_query_rays_planes_stacked: unsupported MLP / posenc configuration")
+    if torch.is_grad_enabled() and any(p.requires_grad for p in mlp.parameters()):
+        kp = pack_params(mlp, pe_pts, pe_views, compute_dtype)
+        _check_stacked(kp, rays_o, rays_d, viewdirs, z_vals)
+        return _FusedRaysPlanesStacked.apply(
+            rays_o.detach(), rays_d.detach(), viewdirs.detach(), z_vals.detach(),
+            *(kp[n] for n in KP_NAMES))
+    kp, blobs = packed_params(mlp, pe_pts, pe_views, compute_dtype)
+    return fused_rays_planes_stacked(kp, rays_o, rays_d, viewdirs, z_vals, blobs)

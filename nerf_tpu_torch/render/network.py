@@ -7,15 +7,22 @@ path, which the renderer takes when its fused raygen branch does not apply
 - fused (``model.fused``, viewdirs, a supported MLP):
   ``ops/fused_mlp.py::fused_query``, which launches K2 forward and K3
   backward on a CUDA tensor (their plain versions on a CPU one).
+
+``StackedNeRFMLP`` holds S nets of one configuration as one module, every
+parameter with a leading scene axis: nerf_tpu's stacked pytree of
+multi-scene training (parallel/multi_scene.py), which the renderer sends
+through the stacked K1/K4 (``ops/fused_mlp.py::fused_query_rays_planes_stacked``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
+from torch import nn
 
+from nerf_tpu_torch.device import DeviceLike, resolve_device
 from nerf_tpu_torch.models.embedding import PosEncConfig, posenc
 from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
 from nerf_tpu_torch.ops import fused_mlp
@@ -75,3 +82,65 @@ def query_raw(
         v_emb = v_emb[:, None, :].expand(R, S, v_emb.shape[-1]).reshape(R * S, -1)
     raw = mlp.apply_mlp(x_emb, v_emb, compute_dtype=model.torch_compute_dtype)
     return raw.reshape(R, S, raw.shape[-1])
+
+
+class StackedLinear(nn.Module):
+    """S ``nn.Linear`` layers of one shape: weight [S, out, in], bias [S, out]."""
+
+    def __init__(self, n_scenes: int, in_features: int, out_features: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n_scenes, out_features, in_features, device=device))
+        self.bias = nn.Parameter(torch.empty(n_scenes, out_features, device=device))
+
+
+class StackedNeRFMLP(nn.Module):
+    """S ``NeRFMLP`` nets of one ``MLPConfig`` as one module, each parameter
+    stacked on a leading scene axis under nerf-pytorch's names
+    (``pts_linears.i.weight`` [S, out, in], ``views_linears.0``, ...): scene
+    s's slice of the state_dict is a NeRFMLP's and loads into one with
+    strict=True. The renderer runs it through the stacked K1/K4 only
+    (render/renderer.py)."""
+
+    def __init__(self, cfg: MLPConfig, n_scenes: int, device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg, self.n_scenes = cfg, n_scenes
+        W = cfg.width
+
+        def lin(fan_in, fan_out):
+            return StackedLinear(n_scenes, fan_in, fan_out, device=dev)
+
+        trunk, fan_in = [], cfg.input_ch
+        for i in range(cfg.depth):
+            trunk.append(lin(fan_in, W))
+            fan_in = W + (cfg.input_ch if i in cfg.skips else 0)
+        self.pts_linears = nn.ModuleList(trunk)
+        self.views_linears = nn.ModuleList([lin(cfg.input_ch_views + W, W // 2)])
+        if cfg.use_viewdirs:
+            self.feature_linear = lin(W, W)
+            self.alpha_linear = lin(W, 1)
+            self.rgb_linear = lin(W // 2, 3)
+        else:
+            self.output_linear = lin(W, cfg.output_ch)
+
+    @classmethod
+    def from_nets(cls, nets: Sequence[NeRFMLP]) -> "StackedNeRFMLP":
+        """The nets (one configuration, one device) stacked in order."""
+        p0 = next(nets[0].parameters())
+        out = cls(nets[0].cfg, len(nets), device=p0.device)
+        sds = [n.state_dict() for n in nets]
+        with torch.no_grad():
+            for name, p in out.named_parameters():
+                p.copy_(torch.stack([sd[name] for sd in sds]))
+        return out
+
+    def scene_state_dict(self, s: int) -> Dict[str, torch.Tensor]:
+        """Scene s's parameters (detached views) as a NeRFMLP state_dict."""
+        return {name: p.detach()[s] for name, p in self.named_parameters()}
+
+    def net(self, s: int) -> NeRFMLP:
+        """Scene s's net, a NeRFMLP holding a copy of its parameters."""
+        p0 = next(self.parameters())
+        mlp = NeRFMLP(self.cfg, device=p0.device)
+        mlp.load_state_dict(self.scene_state_dict(s), strict=True)
+        return mlp

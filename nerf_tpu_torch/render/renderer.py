@@ -11,6 +11,11 @@ run_nerf.py:308-418; render / batchify_rays run_nerf.py:54-134):
   (``model.fused_render``, viewdirs, no retraw, S % 8 == 0: K5/K6 from rays
   to maps), the raygen fused MLP (``model.fused``, S % 8 == 0: K1/K4), or the
   points-in query (K2/K3 when fused, else plain PyTorch);
+- stacked nets (``StackedNeRFMLP``, multi-scene training) take the rays of
+  their S scenes one scene after another, [S*R]: sampling and compositing
+  run once over all of them, and each level's MLP is the stacked K1/K4, one
+  launch for every scene (the K2/K3 and K5/K6 paths are not stacked yet,
+  ROADMAP A.9b);
 - full frames are rendered in chunks by a Python loop; with a mesh (data
   parallelism, parallel/mesh.py) each rank renders its rows of the frame
   and the ranks gather the maps;
@@ -33,7 +38,7 @@ from nerf_tpu_torch.geom.rays import get_rays, ndc_rays
 from nerf_tpu_torch.ops import fused_mlp
 from nerf_tpu_torch.ops.compositing import raw2outputs, raw2outputs_planes, sigma_noise
 from nerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
-from nerf_tpu_torch.render.network import NeRFModel, query_raw
+from nerf_tpu_torch.render.network import NeRFModel, StackedNeRFMLP, query_raw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +102,22 @@ def render_rays(
         mlp = nets[level] if level in nets else nets["coarse"]
         mlp_cfg = model.mlp_config(level)
         S = z.shape[-1]
+        if isinstance(mlp, StackedNeRFMLP):
+            # S scenes' rays, [n * R]: scene s's R rays through scene s's net
+            check_stacked(model, mlp_cfg, rs, S, viewdirs is not None)
+            n = mlp.n_scenes
+            R = z.shape[0] // n
+            raw4 = fused_mlp.fused_query_rays_planes_stacked(
+                mlp, mlp_cfg, model.pe_pts, model.pe_views,
+                *(t.detach().reshape(n, R, t.shape[-1]) for t in (rays_o, rays_d, viewdirs, z)),
+                compute_dtype=model.torch_compute_dtype,
+            ).reshape(4, n * R, S)
+            out = raw2outputs_planes(
+                raw4, z, rays_d,
+                raw_noise_std=rs.raw_noise_std, white_bkgd=rs.white_bkgd,
+                generator=generator, noise=noise_override,
+            )
+            return (raw4.movedim(0, -1) if rs.retraw else None), out
         if (
             model.fused_render
             and viewdirs is not None
@@ -175,6 +196,28 @@ def render_rays(
     if rs.retraw:
         ret["raw"] = raw
     return ret
+
+
+def check_stacked(model: NeRFModel, mlp_cfg, rs: RenderSettings, n_samples: int,
+                  viewdirs: bool = True) -> None:
+    """Raise unless a stacked net's level can take the stacked K1/K4: the
+    fused raygen branch (``model.fused``, viewdirs, an MLP the kernels
+    support, a sample count that is a multiple of 8), without
+    ``fused_render``. The stacked K2/K3 and K5/K6 are ROADMAP A.9b."""
+    if model.fused_render:
+        raise NotImplementedError(
+            "multi-scene training with --fused_render (a stacked K5/K6) is not ported yet "
+            "(ROADMAP A.9b)")
+    if not (model.fused and viewdirs and rs.use_viewdirs
+            and fused_mlp.supports(mlp_cfg, model.pe_pts, model.pe_views)):
+        raise NotImplementedError(
+            "multi-scene training runs the stacked K1/K4 only: it needs fused_kernels, "
+            "use_viewdirs and an MLP the kernels support (ROADMAP A.9b, C.3)")
+    if n_samples % 8 or n_samples < 2:
+        raise NotImplementedError(
+            f"multi-scene training at {n_samples} samples would take the points-in path, "
+            "K2/K3, which is not stacked yet (ROADMAP A.9b): use sample counts that are "
+            "multiples of 8")
 
 
 def prepare_rays(

@@ -12,7 +12,10 @@ multiples of 8, K2/K3 otherwise; K5/K6, compositing included, with
 sync; the loss comes back as a device tensor in ``aux``. With a process
 group (parallel/mesh.py) the step is nerf_tpu's shard_map body
 (``make_train_step_core(axis_name=...)``): the gradients and loss terms are
-averaged over the ranks before Adam.
+averaged over the ranks before Adam. ``make_stacked_train_step`` is the
+step of S scenes at once (multi-scene training, parallel/multi_scene.py):
+nerf_tpu's step vmapped over a scene axis, with each scene's (H, W, focal)
+an operand for NDC scenes (its ``hwf_operand``).
 """
 
 from __future__ import annotations
@@ -222,5 +225,101 @@ def make_train_step(
         state.optimizer.step()
         state.step += 1
         return aux
+
+    return step
+
+
+def stacked_loss_fn(
+    nets: Mapping[str, torch.nn.Module],
+    model: NeRFModel,
+    rs: RenderSettings,
+    n_scenes: int,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    viewdirs: Optional[torch.Tensor],
+    near: torch.Tensor,
+    far: torch.Tensor,
+    target: torch.Tensor,
+    overrides: Optional[Mapping[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``loss_fn`` for S scenes at once: stacked nets (StackedNeRFMLP) and
+    the rays of the scenes one after another, [S*R]. Each aux value is one
+    a scene, [S]: its mean mse (and PSNR) over its own rays, as its own
+    ``loss_fn`` would give it. The returned loss is their sum, so scene s's
+    grads are those of its own loss (no other term reaches its net)."""
+    out = render_rays(nets, model, rs, rays_o, rays_d, viewdirs, near, far,
+                      overrides=overrides)
+
+    def mse(rgb):
+        return ((rgb - target) ** 2).reshape(n_scenes, -1).mean(-1)
+
+    img_loss = mse(out["rgb_map"])
+    loss = img_loss
+    aux = {"psnr": mse2psnr(img_loss), "img_loss": img_loss}
+    if "rgb0" in out:
+        img_loss0 = mse(out["rgb0"])
+        loss = loss + img_loss0
+        aux["img_loss0"] = img_loss0
+        aux["psnr0"] = mse2psnr(img_loss0)
+    aux["loss"] = loss
+    return loss.sum(), aux
+
+
+def make_stacked_train_step(
+    model: NeRFModel,
+    rs: RenderSettings,
+    lrate: float,
+    lrate_decay: int,
+    n_scenes: int,
+):
+    """The train step of S scenes as one stacked step (nerf_tpu's
+    ``jax.vmap(make_train_step_fn(...))``, parallel/multi_scene.py:44-64):
+    ``step(state, rays_o, rays_d, near, far, target, generators=None,
+    overrides=None, hwf=None) -> aux`` with the state's nets stacked
+    (StackedNeRFMLP), every input [S, R, ...] and ``aux`` of [S] values
+    (detached). The draws come from ``overrides`` ([S, R, ...] each) when
+    given, else from ``generators``, one a scene, each drawing its scene's
+    streams as ``make_train_step`` would alone (``draw_overrides``): one
+    small draw a scene, since a scene's generator is its own. The rays of
+    every scene then go through one render (render_rays on [S*R] rays, the
+    stacked K1/K4 on each level), one loss and one backward. With rs.ndc,
+    ``hwf`` [S, 3] holds each scene's (H, W, focal), applied per ray in f32
+    (nerf_tpu's hwf_operand, step.py:149-181).
+
+    One Adam over the stacked leaves: Adam is elementwise, so with the
+    shared step count and this schedule (the first scene's config's) it
+    makes the S updates that S Adams, one a scene, would make."""
+    schedule = lr_schedule(lrate, lrate_decay)
+
+    def step(state: TrainState, rays_o, rays_d, near, far, target, generators=None,
+             overrides=None, hwf=None) -> Dict[str, torch.Tensor]:
+        S, R = rays_o.shape[:2]
+        if S != n_scenes:
+            raise ValueError(f"expected {n_scenes} scenes, got rays of {S}")
+        if overrides is None and generators is not None:
+            draws = [draw_overrides(g, R, rs) for g in generators]
+            overrides = {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
+        overrides = {k: v.flatten(0, 1) for k, v in (overrides or {}).items()}
+        rays_o, rays_d, near, far, target = (
+            t.flatten(0, 1) for t in (rays_o, rays_d, near, far, target))
+        viewdirs = None
+        if rs.use_viewdirs:
+            viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        if rs.ndc:
+            if hwf is None:
+                raise ValueError("rs.ndc=True requires hwf [S, 3], each scene's (H, W, focal)")
+            per_ray = hwf.to(rays_o.dtype).repeat_interleave(R, 0)
+            rays_o, rays_d = ndc_rays(per_ray[:, 0], per_ray[:, 1], per_ray[:, 2], 1.0,
+                                      rays_o, rays_d)
+        lr = schedule(state.step)
+        for param_group in state.optimizer.param_groups:
+            param_group["lr"] = lr
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, aux = stacked_loss_fn(state.nets, model, rs, S, rays_o, rays_d, viewdirs, near,
+                                    far, target, overrides=overrides)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return {k: v.detach() for k, v in aux.items()}
 
     return step

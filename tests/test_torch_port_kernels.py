@@ -769,3 +769,63 @@ def test_two_ranks_on_one_card_step_as_one_process(cuda_device):
             moved = torch.linalg.norm(want - p0)
             if moved > 0:
                 assert float(torch.linalg.norm(a - want) / moved) <= 5e-2, name
+
+
+# The stacked K1 and K4 of multi-scene training (one launch for S scenes'
+# rays, each tile on its own scene's weights): against their plain versions
+# (K1's and K4's scene by scene) at this file's K1 and K4 bounds, and
+# against S single-scene launches. A scene's points are whole tiles, so each
+# tile computes what K1 (K4's recompute and chain) computes for it alone,
+# and each scene's weight grads split as K4's at its R rays would: the raw
+# and, where no scene is padded (R a multiple of 64), the grads equal S
+# single-scene launches bit for bit. A padded scene's (R = 100, padded to
+# 128 rays with zero cotangents) sum in other splits, within the bound.
+STACKED_CASES = ((3, 64, 16), (2, 100, 24), (3, 128, 64))
+
+
+def _stacked_inputs(seed, S, R, N, dev):
+    rays = [_rays(seed + s, R, N, dev) for s in range(S)]
+    return [torch.stack(t) for t in zip(*rays)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, F32_TOL, K4_F32_TOL),
+                                            (torch.bfloat16, BF16_TOL, K4_BF16_TOL)])
+def test_stacked_k1_k4_match_plain_and_single_launches(cuda_device, width, dtype, tol, gtol):
+    from nerf_tpu_torch.render.network import StackedNeRFMLP
+
+    for S, R, N in STACKED_CASES:
+        nets = [NeRFMLP(MLPConfig(width=width), seed=width + s, device=cuda_device)
+                for s in range(S)]
+        with torch.no_grad():
+            kp = fused_mlp.pack_params(StackedNeRFMLP.from_nets(nets), PE_P, PE_V, dtype)
+        args = _stacked_inputs(R * N, S, R, N, cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(R)
+        g = (0.5 + torch.rand(4, S, R, N, device=cuda_device, generator=gen)) * 1e-4
+        before = (fused_mlp.fused_rays_planes_stacked.launches,
+                  fused_mlp.fused_rays_planes_stacked_bwd.launches)
+        out = fused_mlp.fused_rays_planes_stacked(kp, *args)
+        grads = fused_mlp.fused_rays_planes_stacked_bwd(kp, *args, g)
+        torch.cuda.synchronize()
+        assert (fused_mlp.fused_rays_planes_stacked.launches,
+                fused_mlp.fused_rays_planes_stacked_bwd.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+        assert out.shape == (4, S, R, N)
+        ref = fused_mlp.fused_rays_planes_stacked_reference(kp, *args)
+        err = float((out - ref).abs().max())
+        ref_g = fused_mlp.fused_rays_planes_stacked_bwd_reference(kp, *args, g)
+        gerr = max(_rel_l2(grads[k][s], ref_g[k][s]) for k in ref_g for s in range(S))
+        print(f"stacked W={width} {dtype} S={S} R={R} N={N}: K1 max abs {err:.3e}, "
+              f"K4 worst leaf {gerr:.3e}")  # with -s
+        assert err <= tol and gerr <= gtol, (S, R, N, err, gerr)
+        for s in range(S):
+            kp_s = {k: v[s].contiguous() for k, v in kp.items()}
+            one = [t[s] for t in args]
+            assert _same_bits(out[:, s], fused_mlp.fused_rays_planes(kp_s, *one)), s
+            single = fused_mlp.fused_rays_planes_bwd(kp_s, *one, g[:, s].contiguous())
+            for k, v in single.items():
+                if R % 64 == 0:
+                    assert _same_bits(grads[k][s], v), (s, k)
+                else:
+                    assert _rel_l2(grads[k][s], v) <= gtol, (s, k)

@@ -1,0 +1,447 @@
+"""The port's multi-scene training against nerf_tpu and against one scene
+at a time, on the CPU.
+
+nerf_tpu trains S scenes as one ``jax.vmap`` of its step
+(nerf_tpu/parallel/multi_scene.py); the port stacks the S nets
+(``StackedNeRFMLP``) and runs one step whose levels launch the stacked K1
+and K4 once for every scene (on the CPU, their plain versions: K1's and
+K4's scene by scene). JAX's Pallas kernels run in interpret mode, as
+tests/test_torch_port_train.py runs them. At the smallest shapes that
+catch a wrong result: 8x128 nets, S = 2 or 3 scenes, 13 rays, 16 + 8
+samples (both levels multiples of 8: the stacked K1/K4 branch).
+"""
+
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerf_tpu.geom.poses import pose_spherical as jpose_spherical
+from nerf_tpu.ops import fused_mlp as jfused
+from nerf_tpu.parallel import multi_scene as jms
+from nerf_tpu.render import renderer as jr
+from nerf_tpu.render.network import NeRFModel as JNeRFModel
+from nerf_tpu.train import step as jstep
+from nerf_tpu_torch import config as tconfig
+from nerf_tpu_torch.cli import train_multi
+from nerf_tpu_torch.data import synth
+from nerf_tpu_torch.data.rays_dataset import ImageRaySampler
+from nerf_tpu_torch.geom.rays import ndc_rays
+from nerf_tpu_torch.models import factory as tfactory
+from nerf_tpu_torch.models.convert import (
+    jax_arrays_from_stacked_train_state, jax_params_from_state_dict,
+    stacked_train_state_from_jax_arrays, state_dict_from_jax_params,
+)
+from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+from nerf_tpu_torch.ops import fused_mlp
+from nerf_tpu_torch.ops.sampling import stratified_z_vals
+from nerf_tpu_torch.parallel import multi_scene as ms
+from nerf_tpu_torch.render import renderer as tr
+from nerf_tpu_torch.render.network import NeRFModel, StackedNeRFMLP
+from nerf_tpu_torch.tools import make_multi_scenes
+from nerf_tpu_torch.train import step as tstep
+from nerf_tpu_torch.train.loop import load_scene, train
+from nerf_tpu_torch.utils import checkpoint
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from synthetic_scene import make_scene, write_blender_dataset  # noqa: E402
+from test_torch_port_train import (  # noqa: E402
+    CFG, F32_PALLAS_GRAD_TOL, JCFG, JPE_P, JPE_V, LRATE, LRATE_DECAY, PE_P, PE_V, R,
+    UPDATE_TOL, _conditioned_rays, _jparams, _min_preactivation, _port_net,
+)
+
+N_SAMPLES, N_IMPORTANCE = 16, 8
+F32_FWD_TOL = 1e-5  # nerf_tpu's f32 forward bound (tests/test_fused_mlp.py:52-194)
+# The stacked step against S one-scene steps on the same draws: the same
+# ops on the same rays, but a reduction over a batch (the loss's mean, the
+# render's sums over [S*R] rays, not [R]) may add in another order, which
+# moves a grad in its last bits. Measured: the losses within 1.5e-7
+# relative, so 1e-6. Adam moves a weight by about lr a step whatever the
+# size of its grad, so such bits move a weight by up to a few lr: the
+# weights are held to tests/test_torch_port_parallel.py's bounds for two
+# runs whose sums run in other orders (4 lr, each leaf's update within
+# UPDATE_TOL relative L2); measured up to 1e-4 (lr / 5) after 4 steps.
+STEP_LOSS_RTOL = 1e-6
+
+
+def _assert_trained_alike(got, want, start):
+    """Weights by name trained from ``start`` in two runs whose sums run in
+    other orders: each within 4 lr, each leaf's update within UPDATE_TOL."""
+    for name, g in got.items():
+        w, p0 = want[name].detach(), start[name].detach()
+        assert float((g.detach() - w).abs().max()) <= 4 * LRATE, name
+        moved = torch.linalg.norm(w - p0)
+        if moved > 0:
+            assert float(torch.linalg.norm(g.detach() - w) / moved) <= UPDATE_TOL, name
+
+
+def _stacked(arrays):
+    return [torch.stack([torch.as_tensor(a[s]) for a in arrays]) for s in range(len(arrays[0]))]
+
+
+def _scene_rays(nets, S):
+    """Per scene s: rays and depths whose relu inputs under nets[s] lie
+    clear of zero (ROADMAP C.r3), as numpy."""
+    return [_conditioned_rays(nets[s], N_SAMPLES)[:4] for s in range(S)]
+
+
+# (a) the stacked op: S single-scene calls, and jax.vmap of nerf_tpu's
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stacked_op_is_single_scene_calls(dtype):
+    """The stacked op's plain version (the CPU's) and its grads through the
+    stacked net are the single-scene op's, scene by scene, bit for bit."""
+    S = 3
+    nets = [NeRFMLP(CFG, seed=20 + s, device="cpu") for s in range(S)]
+    stacked = StackedNeRFMLP.from_nets(nets)
+    rays = [_conditioned_rays(n, N_SAMPLES)[:4] for n in nets]
+    ro, rd, vd, z = (torch.from_numpy(np.stack(a)) for a in zip(*rays))
+    target = torch.rand(4, S, R, N_SAMPLES, generator=torch.Generator().manual_seed(0))
+    before = fused_mlp.fused_rays_planes_stacked.launches, fused_mlp.fused_rays_planes_stacked_bwd.launches
+    out = fused_mlp.fused_query_rays_planes_stacked(stacked, CFG, PE_P, PE_V, ro, rd, vd, z,
+                                                    compute_dtype=dtype)
+    assert out.shape == (4, S, R, N_SAMPLES)
+    ((out - target) ** 2).mean((0, 2, 3)).sum().backward()
+    assert (fused_mlp.fused_rays_planes_stacked.launches,
+            fused_mlp.fused_rays_planes_stacked_bwd.launches) == before  # CPU: no launch
+    grads = {n: p.grad for n, p in stacked.named_parameters()}
+    for s, net in enumerate(nets):
+        one = fused_mlp.fused_query_rays_planes(net, CFG, PE_P, PE_V, ro[s], rd[s], vd[s], z[s],
+                                                compute_dtype=dtype)
+        assert torch.equal(out[:, s], one), s
+        ((one - target[:, s]) ** 2).mean().backward()
+        for name, p in net.named_parameters():
+            assert torch.equal(grads[name][s], p.grad), (s, name)
+
+
+def test_stacked_op_matches_jax_vmap():
+    """Against jax.vmap of nerf_tpu's fused_query_rays_planes over a scene
+    axis (its Pallas K1/K4 in interpret mode), in f32: the forward within
+    1e-5, each scene's grads within test_torch_port_train.py's
+    F32_PALLAS_GRAD_TOL of each leaf's largest entry."""
+    S = 2
+    params = [_jparams(30 + s) for s in range(S)]
+    nets = [_port_net(p) for p in params]
+    rays = _scene_rays(nets, S)
+    ro, rd, vd, z = (np.stack(a) for a in zip(*rays))
+    target = np.random.default_rng(1).uniform(-1, 1, (S, 4, R, N_SAMPLES)).astype(np.float32)
+    jparams = jax.tree.map(lambda *xs: np.stack(xs), *params)
+
+    def jloss(p):
+        out = jax.vmap(lambda p, *a: jfused.fused_query_rays_planes(
+            p, JCFG, JPE_P, JPE_V, *a, compute_dtype=jnp.float32))(
+            p, *(jnp.asarray(a) for a in (ro, rd, vd, z)))
+        return jnp.sum(jnp.mean((out - target) ** 2, axis=(1, 2, 3))), out
+
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jparams)
+    stacked = StackedNeRFMLP.from_nets(nets)
+    out = fused_mlp.fused_query_rays_planes_stacked(
+        stacked, CFG, PE_P, PE_V, *(torch.from_numpy(a) for a in (ro, rd, vd, z)),
+        compute_dtype=torch.float32)
+    assert float((out.movedim(1, 0) - torch.from_numpy(np.asarray(jout))).abs().max()) <= F32_FWD_TOL
+    ((out.movedim(1, 0) - torch.from_numpy(target)) ** 2).mean((1, 2, 3)).sum().backward()
+    grads = {n: p.grad for n, p in stacked.named_parameters()}
+    for s in range(S):
+        got = jax_params_from_state_dict({n: g[s] for n, g in grads.items()}, CFG)
+        want = jax.tree.map(lambda x: np.asarray(x)[s], jgrads)
+        for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(got), jax.tree.leaves(want)):
+            err = np.abs(g - w).max() / np.abs(w).max()
+            assert err <= F32_PALLAS_GRAD_TOL, (s, jax.tree_util.keystr(path), err)
+
+
+# (b) whole stacked steps: nerf_tpu's make_multi_scene_step, S one-scene steps
+
+
+def _ff_batch(s, n=R):
+    """Forward-facing rays (z towards -1: NDC divides by d_z), nerf_tpu's
+    tests/test_multi_scene.py's."""
+    rng = np.random.default_rng(s)
+    ro = rng.standard_normal((n, 3)).astype(np.float32) * 0.05
+    rd = rng.standard_normal((n, 3)).astype(np.float32) * 0.2
+    rd[:, 2] = -1.0 - np.abs(rd[:, 2])
+    tgt = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    return ro, rd, np.zeros(n, np.float32), np.ones(n, np.float32), tgt
+
+
+def _batch(s, n=R):
+    rng = np.random.default_rng(s)
+    ro = (rng.standard_normal((n, 3)) * 0.3).astype(np.float32)
+    rd = rng.standard_normal((n, 3)).astype(np.float32)
+    return (ro, rd, np.full(n, 2.0, np.float32), np.full(n, 6.0, np.float32),
+            rng.uniform(0, 1, (n, 3)).astype(np.float32))
+
+
+def _conditioned_step(net, make_batch, seed, hwf=None, margin=2e-6):
+    """A batch (make_batch(seed + k)) and its jitter t_rand and importance u
+    whose coarse relu inputs under ``net`` all lie further than ``margin``
+    from zero (ROADMAP C.r3; test_torch_port_train.py's _conditioned_rays for
+    a whole step: the coarse depths are the jittered ones, the marching rays
+    NDC's with ``hwf``). Where one lies closer, the two packages' f32
+    forwards can put it on opposite sides and Adam turns that into an
+    update off by order 1 of the cancelling early trunk grads: on the
+    single-scene step too (one such batch put a leaf's update 0.108 off)."""
+    for k in range(100):
+        batch = make_batch(seed + k)
+        rng = np.random.default_rng(seed + k)
+        ov = {"t_rand": rng.uniform(size=(R, N_SAMPLES)).astype(np.float32),
+              "u": rng.uniform(size=(R, N_IMPORTANCE)).astype(np.float32)}
+        ro, rd, near, far = (torch.from_numpy(a) for a in batch[:4])
+        vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+        if hwf is not None:
+            ro, rd = ndc_rays(*hwf, 1.0, ro, rd)
+        z = stratified_z_vals(near, far, N_SAMPLES, perturb=True,
+                              t_rand=torch.from_numpy(ov["t_rand"]))
+        if _min_preactivation(net, *(t.numpy() for t in (ro, rd, vd, z))) > margin:
+            return batch, ov
+    raise AssertionError("no well-conditioned batch in 100 seeds")
+
+
+@pytest.mark.parametrize("ndc", [False, True], ids=["blender", "ndc"])
+def test_multi_scene_steps_match_jax(ndc):
+    """Two steps of make_multi_scene_step against jax.vmap of nerf_tpu's
+    make_train_step_core over the scene axis (what its
+    make_multi_scene_step vmaps) on the same stacked draws, and with NDC
+    two scenes of different (H, W, focal), each an operand per scene (its
+    hwf_operand): each scene's loss within rtol 1e-5, its weights within
+    test_train_steps_match_jax's bounds (4 lr, each leaf's update within
+    UPDATE_TOL relative L2), on batches whose coarse relu inputs lie clear
+    of zero (_conditioned_step)."""
+    S = 2
+    kw = dict(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, ndc=ndc, white_bkgd=not ndc)
+    jrs, trs = jr.RenderSettings(**kw), tr.RenderSettings(**kw)
+    jmodel = JNeRFModel(JPE_P, JPE_V, JCFG, JCFG, "float32", fused=True)
+    tmodel = NeRFModel(PE_P, PE_V, CFG, CFG, "float32", fused=True)
+    params = [{"coarse": _jparams(40 + 2 * s), "fine": _jparams(41 + 2 * s)} for s in range(S)]
+    jstate = jms.stack_states([jstep.init_train_state(p, LRATE, LRATE_DECAY) for p in params])
+    state = ms.stack_states([tstep.init_train_state({k: _port_net(v) for k, v in p.items()}, LRATE)
+                             for p in params])
+    core = jstep.make_train_step_core(jmodel, jrs, LRATE, LRATE_DECAY, hwf_operand=ndc)
+    mstep = jax.jit(jax.vmap(core))
+    step = ms.make_multi_scene_step(tmodel, trs, LRATE, LRATE_DECAY, S)
+    hwfs = [(40, 50, 35.0), (24, 30, 20.0)]
+    extra = (jnp.asarray(hwfs, jnp.float32),) if ndc else ()
+    for i in range(2):
+        steps = [_conditioned_step(state.nets["coarse"].net(s), _ff_batch if ndc else _batch,
+                                   1000 * i + 100 * s, hwfs[s] if ndc else None)
+                 for s in range(S)]
+        arrays = _stacked([b for b, _ in steps])
+        ov = {k: np.stack([o[k] for _, o in steps]) for k in steps[0][1]}
+        jstate, jaux = mstep(jstate, *(jnp.asarray(a.numpy()) for a in arrays),
+                             {k: jnp.asarray(v) for k, v in ov.items()}, *extra)
+        aux = step(state, *arrays, overrides={k: torch.from_numpy(v) for k, v in ov.items()},
+                   hwf=torch.tensor(hwfs) if ndc else None)
+        assert aux["loss"].shape == (S,)
+        np.testing.assert_allclose(aux["loss"].numpy(), np.asarray(jaux["loss"]), rtol=1e-5)
+    got = jax_arrays_from_stacked_train_state(state, tmodel)["params"]
+    start = jax.tree.map(lambda *xs: np.stack(xs), *params)
+    for (path, g), want, p0 in zip(jax.tree_util.tree_leaves_with_path(got),
+                                   jax.tree.leaves(jstate.params), jax.tree.leaves(start)):
+        want = np.asarray(want)
+        assert np.abs(g - want).max() <= 4 * LRATE, jax.tree_util.keystr(path)
+        for s in range(S):
+            err = np.linalg.norm(g[s] - want[s]) / np.linalg.norm(want[s] - p0[s])
+            assert err <= UPDATE_TOL, (s, jax.tree_util.keystr(path), err)
+
+
+def test_stacked_step_equals_one_scene_steps():
+    """The stacked step equals S one-scene steps (make_train_step) on the
+    same rays and draws, scene by scene: the losses within STEP_LOSS_RTOL,
+    the weights trained alike (_assert_trained_alike), aux one value a
+    scene."""
+    S = 3
+    model = NeRFModel(PE_P, PE_V, CFG, CFG, "float32", fused=True)
+    rs = tr.RenderSettings(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, white_bkgd=True)
+    seeds = [ms.scene_seed(0, k) for k in range(S)]
+    state = ms.init_multi_scene_state(model, seeds, LRATE, "cpu")
+    step = ms.make_multi_scene_step(model, rs, LRATE, LRATE_DECAY, S)
+    singles = [tstep.init_train_state(tfactory.init_nets(model, s, "cpu"), LRATE) for s in seeds]
+    one = tstep.make_train_step(model, rs, LRATE, LRATE_DECAY)
+    for i in range(2):
+        batches = [_batch(100 + 10 * i + s) for s in range(S)]
+        gens = [torch.Generator().manual_seed(s + 2) for s in seeds]
+        draws = [tstep.draw_overrides(torch.Generator().manual_seed(s + 2), R, rs) for s in seeds]
+        aux = step(state, *_stacked(batches), generators=gens)
+        assert set(aux) == {"loss", "psnr", "img_loss", "img_loss0", "psnr0"}
+        assert all(v.shape == (S,) for v in aux.values())
+        for k, st in enumerate(singles):
+            a = one(st, *(torch.from_numpy(x) for x in batches[k]), overrides=draws[k])
+            for key in aux:
+                np.testing.assert_allclose(float(aux[key][k]), float(a[key]), rtol=STEP_LOSS_RTOL)
+    for k, st in enumerate(singles):
+        for level, net in st.nets.items():
+            start = dict(tfactory.init_nets(model, seeds[k], "cpu")[level].named_parameters())
+            _assert_trained_alike(state.nets[level].scene_state_dict(k),
+                                  dict(net.named_parameters()), start)
+
+
+def test_one_adam_is_s_adams():
+    """One Adam over the stacked leaves is S Adams with the shared step
+    count and schedule (Adam is elementwise), bit for bit; the stacked
+    state's moments unstack to theirs."""
+    S = 3
+    model = NeRFModel(PE_P, PE_V, CFG, None, "float32", fused=True)
+    seeds = [ms.scene_seed(7, k) for k in range(S)]
+    state = ms.init_multi_scene_state(model, seeds, LRATE, "cpu")
+    singles = [tstep.init_train_state(tfactory.init_nets(model, s, "cpu"), LRATE) for s in seeds]
+    lr = tstep.lr_schedule(LRATE, LRATE_DECAY)
+    gen = torch.Generator().manual_seed(3)
+    for t in range(3):
+        for name, p in state.nets["coarse"].named_parameters():
+            p.grad = torch.randn(p.shape, generator=gen)
+            for k, st in enumerate(singles):
+                dict(st.nets["coarse"].named_parameters())[name].grad = p.grad[k].clone()
+        for st in [state] + singles:
+            for group in st.optimizer.param_groups:
+                group["lr"] = lr(t)
+            st.optimizer.step()
+    for k, (got, st) in enumerate(zip(ms.unstack_states(state, S), singles)):
+        want = dict(st.nets["coarse"].named_parameters())
+        for name, p in got.nets["coarse"].named_parameters():
+            assert torch.equal(p, want[name]), (k, name)
+            for m in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(got.optimizer.state[p][m], st.optimizer.state[want[name]][m])
+
+
+def test_stacked_state_carries_over_from_jax():
+    """A stacked nerf_tpu state (params, Adam moments, count, step) into the
+    port's stacked state and back, unchanged."""
+    S = 2
+    model = NeRFModel(PE_P, PE_V, CFG, CFG, "float32", fused=True)
+    rng = np.random.default_rng(4)
+    params = [{"coarse": _jparams(50 + 2 * s), "fine": _jparams(51 + 2 * s)} for s in range(S)]
+    stack = jax.tree.map(lambda *xs: np.stack(xs), *params)
+    arrays = {"params": stack, "mu": jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(np.float32), stack),
+              "nu": jax.tree.map(lambda x: rng.uniform(size=x.shape).astype(np.float32), stack),
+              "count": 3, "step": 3}
+    state = stacked_train_state_from_jax_arrays(arrays, model, LRATE, "cpu")
+    assert state.step == 3 and state.nets["fine"].n_scenes == S
+    back = jax_arrays_from_stacked_train_state(state, model)
+    assert back["count"] == back["step"] == 3
+    for key in ("params", "mu", "nu"):
+        for a, b in zip(jax.tree.leaves(arrays[key]), jax.tree.leaves(back[key])):
+            np.testing.assert_array_equal(a, b)
+    sd = state_dict_from_jax_params(params[1]["fine"], CFG)
+    for name, p in state.nets["fine"].named_parameters():
+        assert torch.equal(p[1], sd[name]), name
+
+
+# (c) the stacked sampler
+
+
+def test_stacked_sampler_equals_image_samplers():
+    """One sampling pass for S scenes draws what S ImageRaySamplers with the
+    same generators draw, bit for bit, across the precrop boundary (step 3)."""
+    scenes = [make_scene(n_train=3, n_test=1, H=16, W=16, seed=s) for s in (0, 1, 2)]
+    gens = lambda: [torch.Generator().manual_seed(10 + k) for k in range(3)]  # noqa: E731
+    solo = [ImageRaySampler(s, 24, g, precrop_iters=3, precrop_frac=0.5, device="cpu")
+            for s, g in zip(scenes, gens())]
+    stacked = ms.StackedImageSampler(scenes, 24, gens(), precrop_iters=3, precrop_frac=0.5,
+                                     device="cpu")
+    for step in range(1, 6):
+        batch = stacked.next_batch(step)
+        assert all(t.shape == (3, 24, 3) for t in batch)
+        for k, smp in enumerate(solo):
+            for got, want in zip(batch, smp.next_batch(step)):
+                assert torch.equal(got[k], want), (step, k)
+
+
+def test_stacked_sampler_raises_on_scenes_of_other_shapes():
+    a = make_scene(n_train=3, n_test=1, H=16, W=16)
+    gens = [torch.Generator(), torch.Generator()]
+    with pytest.raises(ValueError, match="homogeneous"):
+        ms.StackedImageSampler([a, make_scene(n_train=3, n_test=1, H=12, W=16)], 8, gens,
+                               device="cpu")
+    with pytest.raises(ValueError, match="homogeneous"):
+        ms.StackedImageSampler([a, make_scene(n_train=2, n_test=1, H=16, W=16)], 8, gens,
+                               device="cpu")
+
+
+# (d) the CLI and the scene writer
+
+
+def _configs(tmp_path, n=2, **over):
+    paths = []
+    for s in range(n):
+        d = write_blender_dataset(str(tmp_path / f"data{s}"), n_train=3, n_val=1, n_test=1,
+                                  H=16, W=16)
+        flags = {"expname": f"ms{s}", "basedir": f"{tmp_path}/logs", "datadir": d,
+                 "dataset_type": "blender", "no_batching": True, "use_viewdirs": True,
+                 "white_bkgd": True, "N_rand": 32, "N_samples": 8, "N_importance": 8,
+                 "netwidth": 128, "netwidth_fine": 128, "half_res": False, "testskip": 1,
+                 "compute_dtype": "float32", "precrop_iters": 2, **over}
+        cfg = tmp_path / f"scene{s}.txt"
+        cfg.write_text("".join(f"{k} = {v}\n" for k, v in flags.items()))
+        paths.append(str(cfg))
+    return paths
+
+
+def test_train_multi_trains_each_scene_as_cli_train(tmp_path, capsys):
+    """train_multi.main on two 16x16 scenes on the CPU: the [TRAIN-MULTI]
+    lines, a .tar a scene at i_weights that loads into the one-scene model,
+    and each scene trained as train() trains it alone with the scene's seed
+    (scene_seed): the loss within STEP_LOSS_RTOL, the weights trained
+    alike."""
+    paths = _configs(tmp_path)
+    common = ["--n_iters", "4", "--i_print", "2", "--i_weights", "4", "--data_axis", "1"]
+    result = train_multi.main(["--configs", *paths, *common], device="cpu")
+    out = capsys.readouterr().out
+    assert out.count("[TRAIN-MULTI] Iter") == 2 and "ms1: loss" in out
+    assert [h[0] for h in result.history] == [2, 4] and result.scenes == [0, 1]
+    cfgs = train_multi.load_configs(["--configs", *paths, *common])
+    model = tfactory.make_model(cfgs[0])
+    for k, cfg in enumerate(cfgs):
+        tar = tmp_path / "logs" / f"ms{k}" / "000004.tar"
+        loaded = checkpoint.load_checkpoint(str(tar), model, cfg.lrate, "cpu")
+        alone = train(tconfig.NeRFConfig(**{**cfg.__dict__, "seed": ms.scene_seed(0, k),
+                                            "expname": f"alone{k}", "i_weights": 0}),
+                      device="cpu")
+        np.testing.assert_allclose(alone.history[-1][1], result.history[-1][1][k],
+                                   rtol=STEP_LOSS_RTOL)
+        start = tfactory.init_nets(model, ms.scene_seed(0, k), "cpu")
+        for level, net in loaded.nets.items():
+            mine = result.state.nets[level].scene_state_dict(k)
+            for name, p in net.named_parameters():
+                assert torch.equal(p, mine[name]), (k, name)
+            _assert_trained_alike(mine, dict(alone.state.nets[level].named_parameters()),
+                                  dict(start[level].named_parameters()))
+
+
+def test_train_multi_refuses_what_one_step_cannot_take(tmp_path):
+    paths = _configs(tmp_path)
+    other = _configs(tmp_path / "b", n=1, N_rand=16)[0]
+    with pytest.raises(SystemExit, match="N_rand"):
+        train_multi.main(["--configs", paths[0], other, "--n_iters", "1"], device="cpu")
+    with pytest.raises(SystemExit, match="--configs"):
+        train_multi.main(["--n_iters", "1"], device="cpu")
+    for flag in (["--N_samples", "7"], ["--fused_render"]):
+        with pytest.raises(NotImplementedError, match="A.9b"):
+            train_multi.main(["--configs", *paths, "--n_iters", "1", "--data_axis", "1", *flag],
+                             device="cpu")
+
+
+def test_multi_scene_writer_reads_back(tmp_path):
+    """tools/make_multi_scenes.py's scenes: scene k's poses are nerf_tpu's
+    tool's (default_rng(1000 + k), radius 4), and a view loads through the
+    blender loader as the port's render_gt_image of field 200 + k, truncated
+    to 8 bits."""
+    counts = {"train": 2, "val": 1, "test": 1}
+    written = make_multi_scenes.write_scenes(str(tmp_path), 2, counts, res=8, device="cpu")
+    focal = 0.5 * 8 / np.tan(0.5 * make_multi_scenes.CAMERA_ANGLE_X)
+    for k, poses in enumerate(written):
+        rng = np.random.default_rng(1000 + k)
+        for split, n in counts.items():
+            for i in range(n):
+                theta, phi = rng.uniform(-180.0, 180.0), rng.uniform(-80.0, -10.0)
+                np.testing.assert_array_equal(poses[split][i],
+                                              np.asarray(jpose_spherical(theta, phi, 4.0)))
+        scene = load_scene(tconfig.NeRFConfig(datadir=str(tmp_path / f"multi_{k}"),
+                                              dataset_type="blender", white_bkgd=True, testskip=1))
+        img = synth.render_gt_image(synth.make_field(seed=200 + k), 8, 8, focal,
+                                    poses["test"][0], device="cpu")
+        want = (np.clip(img, 0, 1) * 255).astype(np.uint8) / 255.0
+        np.testing.assert_array_equal(scene.images[3], want.astype(np.float32))

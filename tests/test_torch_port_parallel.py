@@ -5,8 +5,10 @@ One module-scoped fixture starts two gloo ranks once
 tests/torch_port_parallel_worker.py: ``cli.train.main`` with
 ``--data_axis 2`` for 6 steps with every cadence firing, then nerf_tpu's
 shard_map step as the port runs it, both samplers and the mesh-sharded
-frame renderer, and sends back its state and outputs. The same
-``cli.train.main`` runs once more in this process with ``--data_axis 1``.
+frame renderer, then ``cli.train_multi.main`` on two scenes with
+``--data_axis 2`` (a scene a rank), and sends back its state and outputs.
+The same ``cli.train.main`` and ``cli.train_multi.main`` run once more in
+this process with ``--data_axis 1``.
 At the smallest shapes that catch a wrong result: a 16x16 blender scene,
 4x64 nets, N_rand 64, 8+8 samples. The card's run of the same path is
 chip_smoke.py's phase 24.
@@ -33,12 +35,14 @@ from nerf_tpu.train import loop as jloop
 from nerf_tpu.train import step as jstep
 from nerf_tpu_torch import config as tconfig
 from nerf_tpu_torch.cli import train as cli_train
+from nerf_tpu_torch.cli import train_multi
 from nerf_tpu_torch.data import rays_dataset
 from nerf_tpu_torch.data.blender import load_blender_scene
 from nerf_tpu_torch.models import factory as tfactory
 from nerf_tpu_torch.models.convert import jax_params_from_state_dict, state_dict_from_jax_params
 from nerf_tpu_torch.parallel import distributed
 from nerf_tpu_torch.parallel.mesh import Mesh
+from nerf_tpu_torch.parallel.multi_scene import scene_seed
 from nerf_tpu_torch.render.renderer import make_frame_renderer
 from nerf_tpu_torch.train import loop as tloop
 from nerf_tpu_torch.utils import checkpoint
@@ -72,6 +76,26 @@ def _argv(tmp, datadir, expname, data_axis):
              "precrop_iters": 2, "compute_dtype": "float32", "n_iters": STEPS,
              "data_axis": data_axis, **CADENCES}
     return [f"--{k}={v}" for k, v in flags.items()]
+
+
+MULTI_STEPS = 4
+
+
+def _multi_argv(tmp, datadir, data_axis):
+    """cli.train_multi on two scenes of the one dataset (their own seeds),
+    8x128 nets (the stacked K1/K4's family), i_print 2 and i_weights 4."""
+    paths = []
+    for s in range(2):
+        cfg = tmp / f"multi{s}_{data_axis}.txt"
+        cfg.write_text(f"expname = multi{s}_{data_axis}\nbasedir = {tmp / 'logs'}\n"
+                       f"datadir = {datadir}\ndataset_type = blender\nno_batching = True\n"
+                       "use_viewdirs = True\nwhite_bkgd = True\nN_rand = 32\nN_samples = 8\n"
+                       "N_importance = 8\nnetwidth = 128\nnetwidth_fine = 128\n"
+                       "half_res = False\ntestskip = 1\ncompute_dtype = float32\n"
+                       "precrop_iters = 2\n")
+        paths.append(str(cfg))
+    return ["--configs", *paths, "--n_iters", str(MULTI_STEPS), "--i_print", "2",
+            "--i_weights", str(MULTI_STEPS), "--data_axis", str(data_axis)]
 
 
 def _step_job(cfg):
@@ -121,7 +145,7 @@ def runs(tmp_path_factory):
     jparams, step_job = _step_job(cfg)
     job = {"argv": _argv(tmp, datadir, "dp", 2), "cfg": cfg, "step": step_job,
            "scene": (datadir, False, 1, True), "sampler": (SAMPLER_RAND, SAMPLER_BATCHES),
-           "frame_hw": FRAME_HW, "chunk": 50}
+           "frame_hw": FRAME_HW, "chunk": 50, "multi_argv": _multi_argv(tmp, datadir, 2)}
     threads = torch.get_num_threads()
     omp = os.environ.get("OMP_NUM_THREADS")
     os.environ["OMP_NUM_THREADS"] = "1"  # the ranks' torch: one thread, as here
@@ -131,7 +155,10 @@ def runs(tmp_path_factory):
             ranks = distributed.launch(rank_run, 2, "cpu", args=(job,))
         with _stdout_to(tmp / "one.log"):
             one = cli_train.main(one_argv, device="cpu")
+            multi_argv = _multi_argv(tmp, datadir, 1)
+            multi = train_multi.main(multi_argv, device="cpu")
         yield {"tmp": tmp, "cfg": cfg, "ranks": ranks, "one": one, "jparams": jparams,
+               "multi": multi, "multi_cfg": train_multi.load_configs(multi_argv)[0],
                "step_job": step_job, "dp_log": (tmp / "dp.log").read_text(),
                "one_log": (tmp / "one.log").read_text()}
     finally:
@@ -317,6 +344,34 @@ def test_two_rank_tar_resumes_in_one_process(runs, tmp_path):
         cfg, basedir=str(expdir.parent), expname="dp", n_iters=STEPS + 1, i_img=0, i_weights=0,
         i_testset=0, i_video=0, datadir=str(runs["tmp"] / "blender")), device="cpu")
     assert resumed.state.step == STEPS + 1
+
+
+# (h) multi-scene training with the scene axis over the ranks
+
+
+def test_two_ranks_train_their_scenes_as_one_process(runs):
+    """``cli.train_multi --data_axis 2``: rank r trains scene r alone (no
+    collective), and each scene's losses and weights are the one-process
+    stacked run's, within this file's bounds for sums in another order
+    (tests/test_torch_port_multi.py's stacked-step comparison); a .tar a
+    scene, written by the rank that owns it."""
+    one = runs["multi"]
+    assert one.scenes == [0, 1]
+    model = tfactory.make_model(runs["multi_cfg"])
+    for r, rank in enumerate(runs["ranks"]):
+        got = rank["multi"]
+        assert got["scenes"] == [r]
+        assert [h[0] for h in got["history"]] == [h[0] for h in one.history] == [2, 4]
+        for (_, loss, _), (_, want, _) in zip(got["history"], one.history):
+            np.testing.assert_allclose(loss[0], want[r], rtol=1e-5)
+        start = tfactory.init_nets(model, scene_seed(runs["multi_cfg"].seed, r), "cpu")
+        start = {lvl: {n: p.detach() for n, p in net.named_parameters()}
+                 for lvl, net in start.items()}
+        want = {lvl: net.scene_state_dict(r) for lvl, net in one.state.nets.items()}
+        params = {lvl: {n: p[0] for n, p in ps.items()} for lvl, ps in got["state"]["params"].items()}
+        _assert_close_to(params, want, start)
+        tar = runs["tmp"] / "logs" / f"multi{r}_2" / f"{MULTI_STEPS:06d}.tar"
+        assert tar.exists()
 
 
 # the CLI's launcher, without starting processes

@@ -195,7 +195,9 @@ def test_port_imports_neither_jax_nor_nerf_tpu():
     files = sorted((REPO / "nerf_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     parallel = REPO / "nerf_tpu_torch" / "parallel"
-    assert {parallel / "mesh.py", parallel / "distributed.py"} <= set(files)
+    port = REPO / "nerf_tpu_torch"
+    assert {parallel / "mesh.py", parallel / "distributed.py", parallel / "multi_scene.py",
+            port / "cli" / "train_multi.py", port / "tools" / "make_multi_scenes.py"} <= set(files)
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -1,7 +1,9 @@
 """One rank of tests/test_torch_port_parallel.py's process group.
 
 ``rank_run`` runs in each gloo rank that the test starts with
-``nerf_tpu_torch.parallel.distributed.launch``. It imports torch and the
+``nerf_tpu_torch.parallel.distributed.launch``: data-parallel training,
+the sharded step, the samplers and the frame renderer, then multi-scene
+training with the scene axis over the ranks. It imports torch and the
 port only (a spawned rank imports this module afresh) and returns CPU
 tensors and numbers for the test to hold against one process and
 nerf_tpu.
@@ -10,6 +12,7 @@ nerf_tpu.
 import torch
 
 from nerf_tpu_torch.cli import train as cli_train
+from nerf_tpu_torch.cli import train_multi
 from nerf_tpu_torch.data import rays_dataset
 from nerf_tpu_torch.data.blender import load_blender_scene
 from nerf_tpu_torch.models.factory import make_model
@@ -74,6 +77,12 @@ def rank_run(device, job: dict) -> dict:
                                 chunk=job["chunk"], device=device, mesh=mesh)
     out["frame"] = frame(result.state.nets, scene.poses[0])
     out["rank"] = mesh.rank
+
+    # cli.train_multi inside the group: this rank's scene of the two, with
+    # no collective
+    multi = train_multi.main(job["multi_argv"], device=device)
+    out["multi"] = {"scenes": multi.scenes, "history": multi.history,
+                    "state": state_tensors(multi.state)}
     return out
 
 
