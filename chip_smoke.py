@@ -16,7 +16,9 @@ Phases, one line each (any failure exits non-zero):
    (``fwd_bf16_sm90``), of K5's (``render_bf16_sm90``), of the backward's
    recompute (``bwd_recompute_sm90``, with and without raw), all on one
    tile, of the backward's cotangent chain (``bwd_chain_sm90``, that tile's
-   ring and warpgroups) and of K7's nine probe bodies (``probe_sm90``, that
+   ring and warpgroups), each also as the stacked launch of multi-scene
+   training (K1s, K2s, K5s; K4s's and K3s's recompute and chain), and of
+   K7's nine probe bodies (``probe_sm90``, that
    tile or its pieces) with its registers, stack and spill bytes
    (cuobjdump -res-usage, ptxas) and its HGMMA, UTMALDG, HMMA and STG.E.128
    counts; fails on a spill, and unless these issue wgmma and TMA loads and
@@ -137,8 +139,12 @@ procedural field (``data/synth.py``) and trained through ``cli.train``:
    120-frame spiral, the 2 test views, 2 holdout views) and nothing else,
    a falling loss, finite holdout PSNRs; 6 spiral frames timed (12 K1
    each), the first's 4,096 strided rays and an NDC batch's grads against
-   the plain path (phases 4 and 8's bounds); then phase 7's timed and
-   profiled windows on the recipe;
+   the plain path (phases 4 and 8's bounds); ROADMAP C.6: on 4 NDC batches
+   the kernel path's and the bf16 plain path's grads, each against the
+   plain path in f32, and K4's phases and its bf16 plain version on the
+   cotangent the kernel path hands K4, each against K4's f32 plain version
+   (printed, no bound); then phase 7's timed and profiled windows on the
+   recipe;
 23. cli dv / cli linemod: the DeepVoxels and LINEMOD scenes at the tools'
    512x512 and 400x400 with 6 train views and one or two held out (the
    tools write 40/10/10 and 30/6/6: a smoke run needs a few),
@@ -170,13 +176,21 @@ Multi-scene training (``parallel/multi_scene.py``, ``cli/train_multi.py``):
    steps, i_print and i_weights firing: 2 stacked K1 and 2 stacked K4
    launches a step for all 8 scenes (K1s, K4s; each K4s one recompute and
    one chain) and none of K1-K6, a finite loss a scene, 8 .tar files each
-   loading into the one-scene model with its trained weights; the stacked
-   K1 and K4 on the trained nets at 8 x 1024 rays, 64 and 192 samples:
+   loading into the one-scene model with its trained weights; the same 24
+   steps with ``--N_samples 63`` (63 + 191: 2 stacked K2 and 2 stacked K3
+   a step, K2s / K3s) and with ``--fused_render`` (64 + 192: 2 stacked K5
+   and 2 stacked K6 a step, K5s / K6s, each K6s one compositing pass) and
+   nothing else, no call of the stacked plain MLP, each scene's loss
+   finite and falling, 8 .tar files with the trained weights; on the
+   trained fine nets the stacked K1, K2 and K5 and their bf16 plain
+   versions against the f32 plain version (printed); the stacked K1 and K4
+   at 8 x 1024 rays, 64 and 192 samples, the stacked K2 and K3 at 63 and
+   191 (a direction per point), the stacked K5 and K6 at 64 and 192:
    against their plain versions (phase 3's and phase 6's bounds), against
-   8 single-scene K1 launches (raw bit for bit) and K4 launches (grads,
-   bit-equal printed), timed per step beside their bounds, plain versions
-   and the same products as bf16 ``torch.bmm``; phase 7's windows on the
-   stacked step (each scene's loss falling) beside scene 0 trained alone
+   8 single-scene K1-K6 launches (raw, maps and grads bit for bit; the
+   stacked K4's grads printed), timed per step beside their bounds, plain
+   versions and the same products as bf16 ``torch.bmm``; phase 7's windows on the
+   stacked step of each branch (each scene's loss falling) beside scene 0 trained alone
    through ``train()`` on its config and phase 23's LINEMOD recipe (one
    scene, N_rand 1024, 64+64); then 8 steps in one process and over 2
    gloo ranks on this card (4 scenes each), each scene within phase 24's
@@ -185,7 +199,7 @@ Multi-scene training (``parallel/multi_scene.py``, ``cli/train_multi.py``):
 
 The last two lines are a JSON object of kernel numbers (K1-K7, the
 backward's recompute and chain launches, K6's compositing pass, K7's
-``matmul_only`` beside its library chain, and the stacked K1 and K4) and the
+``matmul_only`` beside its library chain, and the stacked K1-K6) and the
 ``{"ok": true, "device": ...}`` result. Weights are random, from seeds.
 The script imports nothing of JAX or of ``nerf_tpu``.
 """
@@ -367,6 +381,9 @@ DP_ONE_RANK_STEPS = 2
 MULTI_SCENES, MULTI_RAYS, MULTI_STEPS = 8, 1024, 24
 MULTI_COUNTS = {"train": 3, "val": 1, "test": 1}
 MULTI_CADENCES = {"i_print": 8, "i_weights": 24}
+MULTI_PATH_PRINT = 4  # i_print of the points-in and fused-render runs
+# ROADMAP C.6: the NDC batches whose grads phase 22 holds to an f32 plain path
+NDC_BATCHES = 4
 MULTI_DP_STEPS, MULTI_RANKS = 8, 2
 MULTI_DP_CADENCES = {"i_print": 4, "i_weights": 0}
 MULTI_LRATE = 5e-4  # configs/multi's (the default)
@@ -374,9 +391,9 @@ MULTI_LRATE = 5e-4  # configs/multi's (the default)
 
 def counters():
     """The launch counters of K1-K7, of the bf16 backward's recompute and
-    chain launches (K4's, K3's, K6's and the stacked K4's first two), of
-    K6's compositing pass and of the stacked K1 and K4 of multi-scene
-    training (K1s, K4s), by name."""
+    chain launches (K4's, K3's, K6's and the stacked K4's, K3's and K6's
+    first two), of K6's compositing pass (the stacked K6's too) and of the
+    stacked K1-K6 of multi-scene training (K1s-K6s), by name."""
     from nerf_tpu_torch.experimental import fused_render
     from nerf_tpu_torch.ops import fused_mlp
     from nerf_tpu_torch.tools import probe_overlap
@@ -387,7 +404,10 @@ def counters():
             "K7": probe_overlap.probe, "recompute": fused_mlp.bwd_recompute,
             "chain": fused_mlp.bwd_chain, "composite": fused_render.composite_bwd,
             "K1s": fused_mlp.fused_rays_planes_stacked,
-            "K4s": fused_mlp.fused_rays_planes_stacked_bwd}
+            "K4s": fused_mlp.fused_rays_planes_stacked_bwd,
+            "K2s": fused_mlp.fused_points_stacked, "K3s": fused_mlp.fused_points_stacked_bwd,
+            "K5s": fused_render.fused_render_stacked_fwd,
+            "K6s": fused_render.fused_render_stacked_bwd}
 
 
 def reset_counts() -> None:
@@ -467,9 +487,11 @@ def in_w_label(name: str) -> str:
     """An instantiation's template arguments from its mangled name: RaysIn /
     PointsIn x W = 128 / 256, a bool template argument, as the recompute's
     raw (a kernel without an input-mode parameter reads rays), and the
-    stacked launches' walk (SceneWalk: a net per scene)."""
+    stacked launches' walk (SceneWalk, K5's SceneGroupWalk: a net per
+    scene)."""
     inst = f"{'PointsIn' if 'PointsIn' in name else 'RaysIn'},W={256 if 'Li256E' in name else 128}"
-    return inst + (",raw" if "Lb1E" in name else "") + (",stacked" if "SceneWalk" in name else "")
+    stacked = "SceneWalk" in name or "SceneGroupWalk" in name
+    return inst + (",raw" if "Lb1E" in name else "") + (",stacked" if stacked else "")
 
 
 def first_arg_label(name: str) -> str:
@@ -592,14 +614,15 @@ def main() -> int:
     # the bf16 forward of K1 and K2, K5's and the backward's recompute, all
     # on one tile, and the backward's chain on that tile's ring and
     # warpgroups, each also as the stacked launch of multi-scene training
-    # (K1's and K4's in ray mode): wgmma and TMA loads, and no mma.sync (and
-    # their 16-byte global stores: the workspace rows)
-    # (K7's nine bodies, each on that tile or its pieces, by body number)
+    # (K1's, K2's, K5's, and K4's and K3's recompute and chain): wgmma and
+    # TMA loads, and no mma.sync (and their 16-byte global stores: the
+    # workspace rows) (K7's nine bodies, each on that tile or its pieces, by
+    # body number)
     for source, function, expected, label in (
-            ("fused_mlp_fwd", "fwd_bf16_sm90", 6, in_w_label),
-            ("fused_render", "render_bf16_sm90", 2, in_w_label),
-            ("fused_mlp_bwd", "bwd_recompute_sm90", 10, in_w_label),
-            ("fused_mlp_bwd", "bwd_chain_sm90", 6, in_w_label),
+            ("fused_mlp_fwd", "fwd_bf16_sm90", 8, in_w_label),
+            ("fused_render", "render_bf16_sm90", 4, in_w_label),
+            ("fused_mlp_bwd", "bwd_recompute_sm90", 12, in_w_label),
+            ("fused_mlp_bwd", "bwd_chain_sm90", 8, in_w_label),
             ("probe_overlap", "probe_sm90", 9, first_arg_label)):
         for inst, ops in instantiations(source, function,
                                         ("HGMMA", "UTMALDG", "HMMA", "STG.E.128"),
@@ -818,6 +841,29 @@ def main() -> int:
         row("fused_mlp_bwd_stacked", "fused_mlp_bwd.cu",
             "nerf_tpu/ops/fused_mlp.py:621 (vmapped, nerf_tpu/parallel/multi_scene.py:64)",
             multi["counts"]["K4s"], multi["k4_err"], multi["k4"]),
+        # the stacked K2 (K2's tile on a scene's weights a tile, a direction
+        # per point): cli.train_multi --N_samples 63's 48 launches; bf16 max
+        # abs over phase 25's both levels; ms per step (S = 8, N_rand 1024,
+        # 63 + 191), the same products as bf16 torch.bmm as the library's
+        row("fused_mlp_fwd_points_stacked", "fused_mlp_fwd.cu",
+            "nerf_tpu/ops/fused_mlp.py:454 (vmapped, nerf_tpu/parallel/multi_scene.py:64)",
+            multi["path_counts"]["K2s"]["K2s"], multi["k2_err"], multi["k2"]),
+        # the stacked K3 (its three phases, each one launch for 8 scenes, no
+        # input grads): that run's 48; bf16 weight grads (max abs)
+        row("fused_mlp_bwd_points_stacked", "fused_mlp_bwd.cu",
+            "nerf_tpu/ops/fused_mlp.py:584 (vmapped, nerf_tpu/parallel/multi_scene.py:64)",
+            multi["path_counts"]["K2s"]["K3s"], multi["k3_err"], multi["k3"]),
+        # the stacked K5 (K5's ray groups within a scene a row of the grid):
+        # cli.train_multi --fused_render's 48; bf16 max abs of the maps; ms
+        # per step (64 + 192) with raw kept, as training launches it
+        row("fused_render_fwd_stacked", "fused_render.cu",
+            "nerf_tpu/experimental/fused_render.py:162 (vmapped, nerf_tpu/parallel/multi_scene.py:64)",
+            multi["path_counts"]["K5s"]["K5s"], multi["k5_err"], multi["k5"]),
+        # the stacked K6 (one compositing pass over every scene's rays, then
+        # the stacked K4's phases): that run's 48; bf16 weight grads (max abs)
+        row("fused_render_bwd_stacked", "fused_render.cu",
+            "nerf_tpu/experimental/fused_render.py:182 (vmapped, nerf_tpu/parallel/multi_scene.py:64)",
+            multi["path_counts"]["K5s"]["K6s"], multi["k6_err"], multi["k6"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1247,8 +1293,8 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str, **fields) -> None:
     # the backward's own workspace memset is one of the step's few "Memset"
     # entries; those stay in "other", so its share reads ~0.01 ms low
     k4 = K4_LAUNCHES[:-1]
-    groups = {fwd: ("render_bf16_sm90",) if fwd == "K5" else ("fwd_bf16_sm90",),
-              bwd: ("composite_bwd",) + k4 if bwd == "K6" else k4}
+    groups = {fwd: ("render_bf16_sm90",) if fwd.startswith("K5") else ("fwd_bf16_sm90",),
+              bwd: ("composite_bwd",) + k4 if bwd.startswith("K6") else k4}
     rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     # ROADMAP C.7: the device's user annotations (record_function ranges,
@@ -1263,7 +1309,7 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str, **fields) -> None:
     wall_ms = 1e3 * seconds
     # K6's compositing pass apart (within the backward's share)
     apart = {}
-    if bwd == "K6":
+    if bwd.startswith("K6"):
         apart["composite_bwd"] = sum(us for us, key, _ in rows if "composite_bwd" in key)
     phase("profile", **fields, steps=PROFILED_STEPS, wall_ms_per_step=f"{wall_ms / PROFILED_STEPS:.3f}",
           device_ms_per_step=f"{busy_us / 1e3 / PROFILED_STEPS:.3f}",
@@ -1752,7 +1798,7 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
                 recomputes = 3 if dtype == torch.bfloat16 else 0
                 if moved != {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 3, "K6": 2, "K7": 0,
                              "recompute": recomputes, "chain": recomputes, "composite": 4,
-                             "K1s": 0, "K4s": 0}:
+                             "K1s": 0, "K4s": 0, "K2s": 0, "K3s": 0, "K5s": 0, "K6s": 0}:
                     raise RuntimeError(f"the K5/K6 launch counters moved wrongly: {moved}")
                 if dtype == torch.bfloat16:
                     k5_errs.append(err)
@@ -2331,7 +2377,98 @@ def cli_llff_phase(root: str, datadir: str, dev) -> None:
     if not frame_err <= RENDER_RGB_TOL:
         raise RuntimeError(f"the NDC frame disagrees with the plain path: {frame_err}")
     grads_against_plain(nets, model, rs, ro, rd, vd, 0.0, 1.0, target, dev, path="llff (NDC)")
+    ndc_grads_vs_f32(nets, model, rs, scene, batch, (ro, rd, vd, target), dev)
     timed_format_run(root, "synthff.txt", datadir, scene, dev, "llff")
+
+
+def ndc_grads_vs_f32(nets, model, rs, scene, sampler, first, dev):
+    """22. ROADMAP C.6: on NDC_BATCHES of the synthff recipe's NDC batches
+    (``first``, the batch and draws grads_against_plain took, then the
+    sampler's next ones; CHECK_RAYS rays each), the kernel path's (K1/K4,
+    bf16) and the plain path's (bf16) weight grads of one step, each
+    against the plain path's in f32 (the same f32 weights), worst leaf
+    (relative L2), and at the leaf where the two bf16 paths lie furthest
+    apart (phase 8's measure) each one's distance from f32; and split by
+    k6_halves' method: K4's phases and K4's bf16 plain version, each on the
+    cotangent of raw planes that the kernel path's backward hands K4 at
+    each level, against K4's f32 plain version on that cotangent (the f32
+    packing of the same net). A measurement: phase 8's bound
+    (grads_against_plain) stays as it is."""
+    from nerf_tpu_torch.geom.rays import ndc_rays
+    from nerf_tpu_torch.models.embedding import PosEncConfig
+    from nerf_tpu_torch.ops import fused_mlp
+    from nerf_tpu_torch.train.step import draw_overrides, loss_fn
+
+    pe_pts, pe_views = PosEncConfig(10), PosEncConfig(4)
+    levels = ("coarse", "fine")
+    params = [p for level in levels for p in nets[level].parameters()]
+    names = [f"{level}.{n}" for level in levels for n, _ in nets[level].named_parameters()]
+    models = {"kernel": model, "plain": dataclasses.replace(model, fused=False, fused_render=False),
+              "f32": dataclasses.replace(model, fused=False, fused_render=False,
+                                         compute_dtype="float32")}
+    kp32 = {S: fused_mlp.pack_params(nets[level], pe_pts, pe_views, torch.float32)
+            for level, S in (("coarse", rs.n_samples), ("fine", rs.n_samples + rs.n_importance))}
+    kp32 = {S: {k: v.detach() for k, v in kp.items()} for S, kp in kp32.items()}
+    worst = {"kernel": (0.0, ""), "plain": (0.0, ""), "k4_phases": (0.0, ""),
+             "k4_plain": (0.0, "")}
+    apart = (0.0, "")  # phase 8's measure: the kernel path against the bf16 plain path
+    original = fused_mlp._FusedRaysPlanes.backward
+    for b in range(NDC_BATCHES):
+        if b == 0:  # grads_against_plain's batch and draws
+            ro, rd, vd, target = first
+        else:
+            ro, rd, target = sampler.next_batch()
+            vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+            ro, rd = ndc_rays(scene.H, scene.W, scene.focal, 1.0, ro, rd)
+        n = ro.shape[0]
+        near, far = torch.zeros(n, device=dev), torch.ones(n, device=dev)
+        ov = draw_overrides(torch.Generator(device=dev).manual_seed(7 if b == 0 else 100 + b), n,
+                            rs)
+        seen = []  # (packed leaves, rays, depths, cotangent) K4 gets at each level
+
+        def record(ctx, g):
+            seen.append((ctx.saved_tensors, g.detach().clone()))
+            return original(ctx, g)
+
+        grads = {}
+        for key, m in models.items():
+            fused_mlp._FusedRaysPlanes.backward = staticmethod(record)
+            try:
+                loss, _ = loss_fn(nets, m, rs, ro, rd, vd, near, far, target, overrides=ov)
+                grads[key] = torch.autograd.grad(loss, params)
+            finally:
+                fused_mlp._FusedRaysPlanes.backward = original
+        line = {}
+        for key in ("kernel", "plain"):
+            err, leaf = max((rel_l2(a, w), name) for name, a, w in
+                            zip(names, grads[key], grads["f32"]))
+            line[f"{key}_vs_f32"] = f"{err:.3e} ({leaf})"
+            worst[key] = max(worst[key], (err, leaf))
+        # phase 8's measure, and each path's distance from f32 at its leaf
+        err, i = max((rel_l2(a, w), i) for i, (a, w) in enumerate(zip(grads["kernel"],
+                                                                     grads["plain"])))
+        line["kernel_vs_plain"] = f"{err:.3e} ({names[i]})"
+        apart = max(apart, (err, f"batch {b} {names[i]}"))
+        line["there_kernel_plain_vs_f32"] = (f"{rel_l2(grads['kernel'][i], grads['f32'][i]):.3e} "
+                                             f"{rel_l2(grads['plain'][i], grads['f32'][i]):.3e}")
+        if len(seen) != 2:
+            raise RuntimeError(f"the kernel path's backward ran K4 {len(seen)} times, not 2")
+        with torch.no_grad():
+            for saved, g in seen:
+                ro_, rd_, vd_, z_, *leaves = saved
+                kp = dict(zip(fused_mlp.KP_NAMES, leaves))
+                S = z_.shape[1]
+                k4 = fused_mlp.fused_rays_planes_bwd(kp, ro_, rd_, vd_, z_, g)
+                plain = fused_mlp.fused_rays_planes_bwd_reference(kp, ro_, rd_, vd_, z_, g)
+                f32 = fused_mlp.fused_rays_planes_bwd_reference(kp32[S], ro_, rd_, vd_, z_, g)
+                for key, got in (("k4_phases", k4), ("k4_plain", plain)):
+                    err, leaf = max((rel_l2(got[k], f32[k]), k) for k in fused_mlp.KP_NAMES)
+                    line[f"{key}_vs_f32_S{S}"] = f"{err:.3e} ({leaf})"
+                    worst[key] = max(worst[key], (err, f"S={S} {leaf}"))
+        phase("ndc_grads_vs_f32", batch=b, rays=n, **line)
+    phase("ndc_grads_vs_f32_worst", batches=NDC_BATCHES, phase8_tol=STEP_GRAD_TOL,
+          kernel_vs_plain=f"{apart[0]:.3e} ({apart[1]})",
+          **{f"{k}_vs_f32": f"{e:.3e} ({leaf})" for k, (e, leaf) in worst.items()})
 
 
 def cli_formats_phase(root: str, dev) -> dict:
@@ -2690,6 +2827,7 @@ def multi_kernels(trained, dev):
     del out, kp, rays
     if not trained_same:
         raise RuntimeError("the stacked K1's raw on the trained nets is not 8 K1 launches'")
+    trained_vs_f32(trained["fine"], dev)
     rng = np.random.default_rng(25)
     zero = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
     k1, k4 = dict(zero), dict(zero)
@@ -2756,14 +2894,263 @@ def multi_kernels(trained, dev):
         raise RuntimeError(f"stacked kernels: raw equal to single launches {same_raw}, K4 worst "
                            f"leaf {max(k4_rel)} (bound {K4_BF16_TOL})")
     for tag, t in (("k1s_times", k1), ("k4s_times", k4)):
-        bound = max(t["ops_ms"], t["bytes_ms"])
-        phase(tag, per=f"step ({MULTI_SCENES} scenes, N_rand {MULTI_RAYS}, S=64 + S=192)",
-              ms=f"{t['ms']:.3f}", bound_ms=f"{bound:.3f}",
-              bound_by="operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
-              plain_ms=f"{t['plain_ms']:.3f}", library_ms=f"{t['library_ms']:.3f}",
-              x_bound=f"{t['ms'] / bound:.3f}", x_library=f"{t['ms'] / t['library_ms']:.3f}")
+        print_stacked_times(tag, t, "S=64 + S=192")
     return {"k1": k1, "k4": k4, "k1_err": max(k1_errs), "k4_err": max(k4_errs),
-            "grads_bit_equal": same_grads}
+            "grads_bit_equal": same_grads, **multi_kernels_points_render(nets, dev)}
+
+
+def print_stacked_times(tag: str, t: dict, samples: str) -> None:
+    bound = max(t["ops_ms"], t["bytes_ms"])
+    phase(tag, per=f"step ({MULTI_SCENES} scenes, N_rand {MULTI_RAYS}, {samples})",
+          ms=f"{t['ms']:.3f}", bound_ms=f"{bound:.3f}",
+          bound_by="operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
+          plain_ms=f"{t['plain_ms']:.3f}", library_ms=f"{t['library_ms']:.3f}",
+          x_bound=f"{t['ms'] / bound:.3f}", x_library=f"{t['ms'] / t['library_ms']:.3f}")
+
+
+def stacked_points(rays, N: int):
+    """(x [S, R*N, 3], v [S, R*N, 3]) of stacked rays [S, R, ...] and depths
+    [S, R, N]: the renderer's points, a direction per point (spr = 1)."""
+    ro, rd, vd, z = rays
+    S, R = z.shape[:2]
+    x = (ro[:, :, None] + rd[:, :, None] * z[..., None]).reshape(S, R * N, 3)
+    return x, vd[:, :, None].expand(S, R, N, 3).reshape(S, R * N, 3)
+
+
+def trained_vs_f32(fine, dev):
+    """25. On the fine nets that cli.train_multi trained, the stacked K1, K2
+    and K5 and their bf16 plain versions, each against the f32 plain version
+    (the nets packed in f32), at 8 x 1024 rays of 64 samples (K2: 63, a
+    direction per point), max abs of raw (K5: and of rgb): whether the tile
+    or the bf16 plain version moves K1's distance from its plain version on
+    trained weights past phase 3's bound, which random weights set. A
+    measurement: no bound."""
+    from nerf_tpu_torch.experimental import fused_render
+    from nerf_tpu_torch.models.embedding import PosEncConfig
+    from nerf_tpu_torch.ops import fused_mlp
+
+    pe_pts, pe_views = PosEncConfig(10), PosEncConfig(4)
+    rng = np.random.default_rng(26)
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(fine, pe_pts, pe_views, torch.bfloat16)
+        kp32 = fused_mlp.pack_params(fine, pe_pts, pe_views, torch.float32)
+        out = {}
+        for name, n in (("K1s", N_SAMPLES), ("K2s", POINTS_SAMPLES), ("K5s", N_SAMPLES)):
+            rays = [torch.stack(t) for t in zip(*(make_rays(rng, MULTI_RAYS, n, dev)
+                                                   for _ in range(MULTI_SCENES)))]
+            if name == "K1s":
+                got = [fused_mlp.fused_rays_planes_stacked(kp, *rays),
+                       fused_mlp.fused_rays_planes_stacked_reference(kp, *rays),
+                       fused_mlp.fused_rays_planes_stacked_reference(kp32, *rays)]
+            elif name == "K2s":
+                x, v = stacked_points(rays, n)
+                got = [fused_mlp.fused_points_stacked(kp, x, v, 1),
+                       fused_mlp.fused_points_stacked_reference(kp, x, v, 1),
+                       fused_mlp.fused_points_stacked_reference(kp32, x, v, 1)]
+            else:
+                maps = [fused_render.fused_render_stacked_fwd(kp, *rays, None, True, keep_raw=True),
+                        fused_render.fused_render_stacked_reference(kp, *rays, None, True),
+                        fused_render.fused_render_stacked_reference(kp32, *rays, None, True)]
+                got = [m.raw for m in maps]
+                rgb = [m.rgb for m in maps]
+                out["K5s_rgb"] = (float((rgb[0] - rgb[2]).abs().max()),
+                                  float((rgb[1] - rgb[2]).abs().max()),
+                                  float((rgb[0] - rgb[1]).abs().max()))
+            out[name] = (float((got[0] - got[2]).abs().max()), float((got[1] - got[2]).abs().max()),
+                         float((got[0] - got[1]).abs().max()))
+            del got, rays
+            torch.cuda.empty_cache()
+    for name, (k, p, kpl) in out.items():
+        phase("multi_trained_vs_f32", kernel=name, level="fine (24 steps)", scenes=MULTI_SCENES,
+              R=MULTI_RAYS, kernel_vs_f32_max_abs=f"{k:.3e}", bf16_plain_vs_f32_max_abs=f"{p:.3e}",
+              kernel_vs_bf16_plain_max_abs=f"{kpl:.3e}", phase3_tol=BF16_TOL)
+
+
+def multi_kernels_points_render(nets, dev):
+    """25. The stacked K2/K3 (63 and 191 samples, a direction per point) and
+    K5/K6 (64 and 192, sigma noise, a white background) at 8 scenes of 1024
+    rays on the stacked nets of random weights that multi_kernels takes:
+    against their plain versions (K2's raw and K5's maps at phase 3's bf16
+    bound, K1's; K3's and K6's grads at phase 6's per-leaf bound, K4's),
+    and against 8 single-scene K2, K3, K5 and K6 launches, bit for bit (raw,
+    maps, grads: a scene's points are whole tiles and its rays whole ray
+    groups and 64-ray columns at these shapes, so each tile computes what
+    the single launch computes for it, and each scene's weight grads split
+    as the single launch's); then each timed per step beside its bound, its
+    plain version and the same products as bf16 torch.bmm. K5 is timed as
+    training launches it, raw kept for K6."""
+    from nerf_tpu_torch.experimental import fused_render
+    from nerf_tpu_torch.models.embedding import PosEncConfig
+    from nerf_tpu_torch.ops import fused_mlp
+
+    pe_pts, pe_views = PosEncConfig(10), PosEncConfig(4)
+    cfg = nets["coarse"].cfg
+    flops_pt = fused_mlp.flops_per_point(cfg, pe_pts, pe_views)
+    rng = np.random.default_rng(27)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    zero = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
+    k2, k3, k5, k6 = (dict(zero) for _ in range(4))
+    errs = {"k2": [], "k3": [], "k5": [], "k6": []}
+    rels = {"k3": [], "k6": []}
+    halves = {"composite": [], "k4s_vs_plain": [], "k4s_vs_f32": [], "plain_vs_f32": []}
+    same = {"k2": True, "k3": True, "k5": True, "k6": True}
+    Sc, R = MULTI_SCENES, MULTI_RAYS
+    for level, (n2, n5) in (("coarse", (POINTS_SAMPLES, N_SAMPLES)),
+                            ("fine", (POINTS_SAMPLES + N_IMPORTANCE, N_SAMPLES + N_IMPORTANCE))):
+        with torch.no_grad():
+            kp = fused_mlp.pack_params(nets[level], pe_pts, pe_views, torch.bfloat16)
+            kp32 = fused_mlp.pack_params(nets[level], pe_pts, pe_views, torch.float32)
+        blobs = fused_mlp.kernel_blobs(kp)
+        wbytes = sum(t.numel() * t.element_size() for t in blobs)
+        gbytes = 4 * sum(v.numel() for v in kp.values())
+        singles = [{k: v[s].contiguous() for k, v in kp.items()} for s in range(Sc)]
+        # the stacked K2 and K3
+        rays = [torch.stack(t) for t in zip(*(make_rays(rng, R, n2, dev) for _ in range(Sc)))]
+        x, v = stacked_points(rays, n2)
+        del rays
+        g = (0.5 + torch.rand(Sc, R * n2, 4, device=dev, generator=gen)) * 1e-4
+        n_pts = Sc * R * n2
+        with torch.no_grad():
+            out = fused_mlp.fused_points_stacked(kp, x, v, 1, blobs)
+            ref = fused_mlp.fused_points_stacked_reference(kp, x, v, 1)
+            errs["k2"].append(check_kernel(out.permute(2, 0, 1), ref.permute(2, 0, 1), BF16_TOL,
+                                           kernel="K2s", dtype="bfloat16", stacked=Sc, R=R, S=n2,
+                                           spr=1))
+            del ref
+            grads = fused_mlp.fused_points_stacked_bwd(kp, x, v, g, 1, blobs)
+            ref_g = fused_mlp.fused_points_stacked_bwd_reference(kp, x, v, g, 1)
+            for k in ref_g:
+                for s in range(Sc):
+                    rels["k3"].append(rel_l2(grads[k][s], ref_g[k][s]))
+                    errs["k3"].append(float((grads[k][s] - ref_g[k][s]).abs().max()))
+            del ref_g
+            for s in range(Sc):
+                same["k2"] &= torch.equal(out[s], fused_mlp.fused_points(singles[s], x[s], v[s], 1))
+                one, _, _ = fused_mlp.fused_points_bwd(singles[s], x[s], v[s], g[s].contiguous(), 1,
+                                                       False)
+                same["k3"] &= all(torch.equal(grads[k][s], t) for k, t in one.items())
+            del out, grads
+            torch.cuda.empty_cache()
+            k2["ms"] += cuda_ms(lambda: fused_mlp.fused_points_stacked(kp, x, v, 1, blobs),
+                                reps=10, warmup=2)
+            k3["ms"] += cuda_ms(lambda: fused_mlp.fused_points_stacked_bwd(kp, x, v, g, 1, blobs),
+                                reps=5, warmup=1)
+            k2["plain_ms"] += cuda_ms(lambda: fused_mlp.fused_points_stacked_reference(kp, x, v, 1),
+                                      reps=1)
+            k3["plain_ms"] += cuda_ms(
+                lambda: fused_mlp.fused_points_stacked_bwd_reference(kp, x, v, g, 1), reps=1)
+        torch.cuda.empty_cache()
+        for t, backward in ((k2, False), (k3, True)):
+            chain = stacked_matmul_chain(kp, R * n2, backward)
+            t["library_ms"] += cuda_ms(chain, reps=3)
+            del chain
+            torch.cuda.empty_cache()
+        # x, v (a direction per point) in, raw out; K3: g in, the weights'
+        # two layouts in and the grads out
+        k2["ops_ms"] += 1e3 * n_pts * flops_pt / PEAK_BF16_FLOPS
+        k2["bytes_ms"] += 1e3 * (n_pts * (12 + 12 + 16) + wbytes) / PEAK_BYTES
+        k3["ops_ms"] += 1e3 * Sc * fused_mlp.bwd_flops(cfg, pe_pts, pe_views, R * n2, 1) / PEAK_BF16_FLOPS
+        k3["bytes_ms"] += 1e3 * (n_pts * (12 + 12 + 16) + 2 * wbytes + gbytes) / PEAK_BYTES
+        k3_ws = fused_mlp.stacked_points_workspace_bytes(cfg.width, Sc, R * n2, 1) / 1e9
+        del x, v, g
+        torch.cuda.empty_cache()
+        # the stacked K5 and K6
+        ro, rd, vd, z = [torch.stack(t) for t in zip(*(make_rays(rng, R, n5, dev)
+                                                         for _ in range(Sc)))]
+        noise = torch.randn(Sc, R, n5, device=dev, generator=gen) * 0.5
+        gm = [(0.5 + torch.rand(Sc, *sh, device=dev, generator=gen)) * 1e-4
+              for sh in ((R, 3), (R,), (R,), (R, n5))]
+        n_pts = Sc * R * n5
+        with torch.no_grad():
+            out = fused_render.fused_render_stacked_fwd(kp, ro, rd, vd, z, noise, True, blobs,
+                                                        keep_raw=True)
+            ref = fused_render.fused_render_stacked_reference(kp, ro, rd, vd, z, noise, True)
+            flat = lambda m: fused_render.Maps(*(t.flatten(0, 1) for t in m[:4]), None)  # noqa: E731
+            errs["k5"].append(check_maps(flat(out), flat(ref), BF16_TOL, kernel="K5s",
+                                         dtype="bfloat16", stacked=Sc, R=R, S=n5))
+            del ref
+            grads = fused_render.fused_render_stacked_bwd(kp, ro, rd, vd, z, noise, out.raw, *gm,
+                                                          True, blobs)
+            ref_g = fused_render.fused_render_stacked_bwd_reference(kp, ro, rd, vd, z, noise,
+                                                                    out.raw, *gm, True)
+            for k in ref_g:
+                for s in range(Sc):
+                    rels["k6"].append(rel_l2(grads[k][s], ref_g[k][s]))
+                    errs["k6"].append(float((grads[k][s] - ref_g[k][s]).abs().max()))
+            del ref_g
+            # k6_halves' method (ROADMAP C.2): the compositing pass alone
+            # against its plain version (f32 on both sides), and the stacked
+            # K4's phases and their bf16 plain version on the plain
+            # cotangent, each against the f32 plain version on it
+            flat = [t.flatten(0, 1) for t in (rd, z, noise, *gm)]
+            raw_flat = out.raw.flatten(1, 2)
+            planes = fused_render.composite_bwd(raw_flat, *flat[:3], *flat[3:], True)
+            want = fused_render.composite_bwd_reference(raw_flat, *flat[:3], *flat[3:], True)
+            halves["composite"].append(rel_l2(planes, want))
+            want = want.view(4, Sc, R, n5)
+            k4_half = fused_mlp.fused_rays_planes_stacked_bwd(kp, ro, rd, vd, z, want, blobs)
+            plain_half = fused_mlp.fused_rays_planes_stacked_bwd_reference(kp, ro, rd, vd, z, want)
+            f32_half = fused_mlp.fused_rays_planes_stacked_bwd_reference(kp32, ro, rd, vd, z, want)
+            for key, got, ref_ in (("k4s_vs_plain", k4_half, plain_half),
+                                   ("k4s_vs_f32", k4_half, f32_half),
+                                   ("plain_vs_f32", plain_half, f32_half)):
+                halves[key].append(max(rel_l2(got[k][s], ref_[k][s]) for k in got
+                                       for s in range(Sc)))
+            del planes, want, k4_half, plain_half, f32_half
+            for s in range(Sc):
+                one_in = [t[s] for t in (ro, rd, vd, z, noise)]
+                one = fused_render.fused_render_fwd(singles[s], *one_in, True, keep_raw=True)
+                same["k5"] &= all(same_bits(a[s], b) for a, b in zip(out[:4], one[:4]))
+                single = fused_render.fused_render_bwd(singles[s], *one_in, one.raw,
+                                                       *(t[s].contiguous() for t in gm), True)
+                same["k6"] &= all(torch.equal(grads[k][s], t) for k, t in single.items())
+            raw = out.raw
+            del out, grads
+            torch.cuda.empty_cache()
+            fwd = (ro, rd, vd, z, None, True)  # training's: raw kept, no noise (configs/multi)
+            k5["ms"] += cuda_ms(lambda: fused_render.fused_render_stacked_fwd(kp, *fwd, blobs,
+                                                                               keep_raw=True),
+                                reps=10, warmup=2)
+            k6["ms"] += cuda_ms(lambda: fused_render.fused_render_stacked_bwd(
+                kp, ro, rd, vd, z, noise, raw, *gm, True, blobs), reps=5, warmup=1)
+            k5["plain_ms"] += cuda_ms(
+                lambda: fused_render.fused_render_stacked_reference(kp, *fwd), reps=1)
+            k6["plain_ms"] += cuda_ms(lambda: fused_render.fused_render_stacked_bwd_reference(
+                kp, ro, rd, vd, z, noise, raw, *gm, True), reps=1)
+        del raw
+        torch.cuda.empty_cache()
+        for t, backward in ((k5, False), (k6, True)):
+            chain = stacked_matmul_chain(kp, R * n5, backward)
+            t["library_ms"] += cuda_ms(chain, reps=3)
+            del chain
+            torch.cuda.empty_cache()
+        # K5: rays and z in, rgb, disp, acc, w and the kept raw out; K6: rays,
+        # z, noise, raw and g_w in a point, g_rgb/disp/acc a ray, the
+        # weights' two layouts in, the grads out
+        k5["ops_ms"] += 1e3 * n_pts * flops_pt / PEAK_BF16_FLOPS
+        k5["bytes_ms"] += 1e3 * (Sc * R * (9 + 5) * 4 + n_pts * (4 + 4 + 16) + wbytes) / PEAK_BYTES
+        k6["ops_ms"] += 1e3 * Sc * fused_mlp.bwd_flops(cfg, pe_pts, pe_views, R, n5) / PEAK_BF16_FLOPS
+        k6["bytes_ms"] += 1e3 * (Sc * R * (9 + 5) * 4 + n_pts * (4 + 4 + 16 + 4) + 2 * wbytes
+                                 + gbytes) / PEAK_BYTES
+        phase("multi_kernels_points_render", level=level, scenes=Sc, R=R, k2_S=n2, k5_S=n5,
+              k2_max_abs=f"{errs['k2'][-1]:.3e}", k3_worst_leaf_rel_l2=f"{max(rels['k3']):.3e}",
+              k5_maps_max_abs=f"{errs['k5'][-1]:.3e}",
+              k6_worst_leaf_rel_l2=f"{max(rels['k6']):.3e}", k4_tol=K4_BF16_TOL,
+              k6_halves=", ".join(f"{k} {v[-1]:.3e}" for k, v in halves.items()),
+              bit_equal_8_single=same, k3_workspace_gb=f"{k3_ws:.3f}",
+              k6_workspace_gb=f"{fused_mlp.stacked_workspace_bytes(cfg.width, Sc, R, n5) / 1e9:.3f}")
+        del ro, rd, vd, z, noise, gm
+        torch.cuda.empty_cache()
+    if not (all(same.values()) and max(rels["k3"]) <= K4_BF16_TOL
+            and max(rels["k6"]) <= K4_BF16_TOL):
+        raise RuntimeError(f"stacked K2/K3/K5/K6: bit-equal to 8 single launches {same}, K3 "
+                           f"worst leaf {max(rels['k3'])}, K6 {max(rels['k6'])} "
+                           f"(bound {K4_BF16_TOL})")
+    for tag, t, samples in (("k2s_times", k2, "S=63 + S=191"), ("k3s_times", k3, "S=63 + S=191"),
+                            ("k5s_times", k5, "S=64 + S=192"), ("k6s_times", k6, "S=64 + S=192")):
+        print_stacked_times(tag, t, samples)
+    return {"k2": k2, "k3": k3, "k5": k5, "k6": k6, "k2_err": max(errs["k2"]),
+            "k3_err": max(errs["k3"]), "k5_err": max(errs["k5"]), "k6_err": max(errs["k6"])}
 
 
 def multi_phase(one_scene: dict, dev) -> dict:
@@ -2772,10 +3159,13 @@ def multi_phase(one_scene: dict, dev) -> dict:
     for MULTI_STEPS steps with i_print and i_weights firing: exactly 2
     stacked K1 and 2 stacked K4 launches a step for all 8 scenes and
     nothing else of K1-K6, a finite loss a scene, 8 .tar files each loading
-    into the one-scene model with the scene's trained weights; the stacked
-    kernels at the main shapes (multi_kernels); phase 7's windows on the
-    stacked step, each scene's loss falling, beside scene 0 trained alone on
-    its config and phase 23's one-scene N_rand 1024 numbers; then 2 gloo
+    into the one-scene model with the scene's trained weights; the same at
+    63 + 128 samples (the stacked K2/K3) and with --fused_render (the
+    stacked K5/K6: multi_path_run); the stacked kernels at the main shapes
+    (multi_kernels); phase 7's windows on the stacked step of each of the
+    three branches (multi_window), each scene's loss falling, beside scene
+    0 trained alone on its config and phase 23's one-scene N_rand 1024
+    numbers; then 2 gloo
     ranks on this card (4 scenes each)
     through ``distributed.launch``, scene by scene the one-process run's
     (and NCCL, a card a rank, with two or more cards)."""
@@ -2784,7 +3174,6 @@ def multi_phase(one_scene: dict, dev) -> dict:
     from nerf_tpu_torch.parallel import distributed
     from nerf_tpu_torch.parallel.multi_scene import scene_seed
     from nerf_tpu_torch.tools import make_multi_scenes
-    from nerf_tpu_torch.utils import checkpoint
 
     root = tempfile.mkdtemp(prefix="chip_smoke_multi_")
     here = os.getcwd()
@@ -2807,14 +3196,7 @@ def multi_phase(one_scene: dict, dev) -> dict:
                      f"cli.train_multi: {MULTI_STEPS} steps of {MULTI_SCENES} scenes")
         losses = np.stack([h[1] for h in result.history])
         prints = out.count("[TRAIN-MULTI] Iter")
-        model = make_model(cfgs[0])
-        tars_ok = []
-        for k, cfg in enumerate(cfgs):
-            tar = os.path.join(cfg.basedir, cfg.expname, f"{MULTI_STEPS:06d}.tar")
-            loaded = checkpoint.load_checkpoint(tar, model, cfg.lrate, dev)
-            tars_ok.append(all(torch.equal(p, result.state.nets[lvl].scene_state_dict(k)[n])
-                               for lvl, net in loaded.nets.items()
-                               for n, p in net.named_parameters()))
+        tars_ok = multi_tars_ok(cfgs, result, MULTI_STEPS, dev)
         phase("multi", scenes=MULTI_SCENES, views=f"{MULTI_COUNTS} of the tool's "
               f"{make_multi_scenes.COUNTS} (cut for time)", s_per_view=f"{write_s / MULTI_SCENES / sum(MULTI_COUNTS.values()):.3f}",
               steps=MULTI_STEPS, seconds=f"{seconds:.2f}", launches=counts, prints=prints,
@@ -2823,56 +3205,28 @@ def multi_phase(one_scene: dict, dev) -> dict:
         if not (np.isfinite(losses).all() and all(tars_ok) and
                 prints == MULTI_STEPS // MULTI_CADENCES["i_print"]):
             raise RuntimeError(f"cli.train_multi: losses {losses}, tars {tars_ok}, prints {prints}")
+        # the points-in and fused-render branches of the stacked step, at
+        # full width: the stacked K2/K3 (63 + 191 samples) and K5/K6
+        # (--fused_render, 64 + 192)
+        path_counts = {
+            "K2s": multi_path_run(root, "points", ["--N_samples=63"], "K2s", "K3s", dev),
+            "K5s": multi_path_run(root, "fused_render", ["--fused_render"], "K5s", "K6s", dev)}
         kernels = multi_kernels(result.state.nets, dev)
         del result
         torch.cuda.empty_cache()
 
-        # phase 7's windows on the stacked step (cadences off)
-        n_iters = WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
-        cfgs = train_multi.load_configs(multi_argv(root, "timed", n_iters, {"i_print": 10,
-                                                                            "i_weights": 0}))
-        step_losses, marks = [], {}
-        end = WARMUP_STEPS + TIMED_STEPS
-        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                  torch.profiler.ProfilerActivity.CUDA])
-
-        def on_step(i, state, aux):
-            if i <= end:
-                step_losses.append(aux["loss"])
-            if i in (WARMUP_STEPS, end, end + PROFILED_STEPS):
-                torch.cuda.synchronize()
-                marks[i] = time.perf_counter()
-                if i == WARMUP_STEPS:
-                    reset_counts()
-                elif i == end:
-                    marks["counts"] = read_counts()
-                    prof.__enter__()
-                else:
-                    prof.__exit__(None, None, None)
-
-        with contextlib.redirect_stdout(io.StringIO()):
-            train_multi.train_multi(cfgs, device=dev, hooks={"on_step": on_step})
-        check_counts(marks["counts"], {"K1s": 2 * TIMED_STEPS, "K4s": 2 * TIMED_STEPS,
-                                       "recompute": 2 * TIMED_STEPS, "chain": 2 * TIMED_STEPS},
-                     f"{TIMED_STEPS} timed stacked steps")
-        per_step = torch.stack(step_losses).cpu().numpy()  # [steps, scenes]
-        first, last = per_step[:5].mean(0), per_step[-5:].mean(0)
-        ms_step = 1e3 * (marks[end] - marks[WARMUP_STEPS]) / TIMED_STEPS
-        rays_s = MULTI_SCENES * cfgs[0].N_rand * 1e3 / ms_step
-        phase("multi_train", scenes=MULTI_SCENES, steps=TIMED_STEPS, n_rand=cfgs[0].N_rand,
-              ms_per_step=f"{ms_step:.3f}", rays_per_s=f"{rays_s:.0f}",
-              loss_first5=[f"{v:.5f}" for v in first], loss_last5=[f"{v:.5f}" for v in last])
-        if not (np.isfinite(per_step).all() and (last < first).all()):
-            raise RuntimeError(f"stacked training: each scene's loss must fall: {first} -> {last}")
-        prof_out = profile_report(prof, marks[end + PROFILED_STEPS] - marks[end], "K1s", "K4s",
-                                  path="multi")
+        # phase 7's windows on the stacked step (cadences off), on each branch
+        ms_step, prof_out = multi_window(root, "timed", [], "K1s", "K4s", dev)
+        windows = {flags[0]: multi_window(root, name, flags, fwd, bwd, dev)
+                   for name, flags, fwd, bwd in (("timed_points", ["--N_samples=63"], "K2s", "K3s"),
+                                                 ("timed_fr", ["--fused_render"], "K5s", "K6s"))}
         # one scene alone on the same recipe: scene 0 through train()
         from nerf_tpu_torch.config import load_config
         from nerf_tpu_torch.train.loop import load_scene
 
         cfg0 = load_config(["--config", multi_argv(root, "", 1, {})[1], "--data_axis=1",
                             f"--basedir={os.path.join(root, 'logs', 'alone')}",
-                            f"--n_iters={n_iters}", "--i_print=10", "--i_img=0", "--i_weights=0",
+                            f"--n_iters={WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS}", "--i_print=10", "--i_img=0", "--i_weights=0",
                             "--i_testset=0", "--i_video=0"])
         alone = timed_train(cfg0, load_scene(cfg0), dev, "K1", "K4", path="multi_scene_0_alone")
         single = one_scene["linemod"]  # configs/synth_linemod.txt: N_rand 1024, no_batching
@@ -2892,6 +3246,15 @@ def multi_phase(one_scene: dict, dev) -> dict:
               one_scene_idle_share=f"{single['profile']['idle_share']:.3f}",
               one_scene_timed_ms_per_step=f"{single['ms_per_step']:.3f}",
               stacked_timed_ms_per_step=f"{ms_step:.3f}")
+        for flag, (ms, prof_b) in windows.items():
+            fwd, bwd = ("K2s", "K3s") if "N_samples" in flag else ("K5s", "K6s")
+            phase("multi_branch", flags=flag, scenes=MULTI_SCENES, timed_ms_per_step=f"{ms:.3f}",
+                  wall_ms_per_step=f"{prof_b['wall_ms_per_step']:.3f}",
+                  device_ms_per_step=f"{prof_b['device_ms_per_step']:.3f}",
+                  idle_share=f"{prof_b['idle_share']:.3f}",
+                  **{f"{k.lower()}_ms_per_step": f"{prof_b[f'{k}_ms_per_step']:.3f}"
+                     for k in (fwd, bwd)},
+                  raygen_device_ms_per_step=f"{prof_out['device_ms_per_step']:.3f}")
 
         # the scene axis over 2 gloo ranks on this card, against one process
         dp_args = multi_argv(root, "one", MULTI_DP_STEPS, MULTI_DP_CADENCES)
@@ -2920,7 +3283,120 @@ def multi_phase(one_scene: dict, dev) -> dict:
     finally:
         os.chdir(here)
         shutil.rmtree(root)
-    return {"counts": counts, **kernels}
+    return {"counts": counts, "path_counts": path_counts, **kernels}
+
+
+def multi_window(root: str, expname: str, flags, fwd: str, bwd: str, dev):
+    """25. Phase 7's windows on the stacked step of cli.train_multi's
+    train_multi with ``flags`` (cadences off): WARMUP_STEPS, then
+    TIMED_STEPS timed with exactly 2 ``fwd`` and 2 ``bwd`` launches each and
+    nothing else, every scene's loss falling (the mean of the first five
+    steps against the last five), then PROFILED_STEPS under the profiler.
+    Returns (ms/step, profile_report's numbers)."""
+    from nerf_tpu_torch.cli import train_multi
+
+    n_iters = WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
+    cfgs = train_multi.load_configs(multi_argv(root, expname, n_iters, {"i_print": 10,
+                                                                        "i_weights": 0})
+                                    + list(flags))
+    step_losses, marks = [], {}
+    end = WARMUP_STEPS + TIMED_STEPS
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+
+    def on_step(i, state, aux):
+        if i <= end:
+            step_losses.append(aux["loss"])
+        if i in (WARMUP_STEPS, end, end + PROFILED_STEPS):
+            torch.cuda.synchronize()
+            marks[i] = time.perf_counter()
+            if i == WARMUP_STEPS:
+                reset_counts()
+            elif i == end:
+                marks["counts"] = read_counts()
+                prof.__enter__()
+            else:
+                prof.__exit__(None, None, None)
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_multi.train_multi(cfgs, device=dev, hooks={"on_step": on_step})
+    n = 2 * TIMED_STEPS
+    check_counts(marks["counts"], {fwd: n, bwd: n, "recompute": n, "chain": n,
+                                   **({"composite": n} if bwd == "K6s" else {})},
+                 f"{TIMED_STEPS} timed stacked steps {' '.join(flags)}")
+    per_step = torch.stack(step_losses).cpu().numpy()  # [steps, scenes]
+    first, last = per_step[:5].mean(0), per_step[-5:].mean(0)
+    ms_step = 1e3 * (marks[end] - marks[WARMUP_STEPS]) / TIMED_STEPS
+    rays_s = MULTI_SCENES * cfgs[0].N_rand * 1e3 / ms_step
+    phase("multi_train", flags=" ".join(flags) or "-",
+          samples=f"{cfgs[0].N_samples}+{cfgs[0].N_importance}", scenes=MULTI_SCENES,
+          steps=TIMED_STEPS, n_rand=cfgs[0].N_rand, ms_per_step=f"{ms_step:.3f}",
+          rays_per_s=f"{rays_s:.0f}", loss_first5=[f"{v:.5f}" for v in first],
+          loss_last5=[f"{v:.5f}" for v in last])
+    if not (np.isfinite(per_step).all() and (last < first).all()):
+        raise RuntimeError(f"stacked training {flags}: each scene's loss must fall: "
+                           f"{first} -> {last}")
+    prof_out = profile_report(prof, marks[end + PROFILED_STEPS] - marks[end], fwd, bwd,
+                              path="multi " + (" ".join(flags) or "-"))
+    return ms_step, prof_out
+
+
+def multi_tars_ok(cfgs, result, steps: int, dev):
+    """For each scene, whether its .tar at ``steps`` loads into the
+    one-scene model with the scene's trained weights."""
+    from nerf_tpu_torch.models.factory import make_model
+    from nerf_tpu_torch.utils import checkpoint
+
+    model = make_model(cfgs[0])
+    ok = []
+    for k, cfg in enumerate(cfgs):
+        tar = os.path.join(cfg.basedir, cfg.expname, f"{steps:06d}.tar")
+        loaded = checkpoint.load_checkpoint(tar, model, cfg.lrate, dev)
+        ok.append(all(torch.equal(p, result.state.nets[lvl].scene_state_dict(k)[n])
+                      for lvl, net in loaded.nets.items() for n, p in net.named_parameters()))
+    return ok
+
+
+def multi_path_run(root: str, expname: str, flags, fwd: str, bwd: str, dev) -> dict:
+    """25. ``cli.train_multi.main`` on configs/multi's 8 scenes with
+    ``flags`` (another branch of the stacked step) for MULTI_STEPS steps,
+    i_print every MULTI_PATH_PRINT and i_weights firing: exactly 2 ``fwd``
+    and 2 ``bwd`` stacked launches a step for all 8 scenes (each ``bwd``
+    one recompute and one chain; K6s also one compositing pass) and nothing
+    else of K1-K6, no call of the stacked plain MLP, each scene's loss
+    finite and falling (the mean of the first two prints against the last
+    two), 8 .tar files each loading into the one-scene model with the
+    scene's trained weights. Returns the launch counts."""
+    from nerf_tpu_torch.cli import train_multi
+    from nerf_tpu_torch.render.network import StackedNeRFMLP
+
+    argv = multi_argv(root, expname, MULTI_STEPS, {"i_print": MULTI_PATH_PRINT,
+                                                   "i_weights": MULTI_STEPS}) + list(flags)
+    cfgs = train_multi.load_configs(argv)
+    plain = StackedNeRFMLP.plain_calls
+    reset_counts()
+    t0 = time.perf_counter()
+    result, _ = run_cli(train_multi.main, argv)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    plain = StackedNeRFMLP.plain_calls - plain
+    n = 2 * MULTI_STEPS
+    want = {fwd: n, bwd: n, "recompute": n, "chain": n, **({"composite": n} if bwd == "K6s" else {})}
+    check_counts(counts, want, f"cli.train_multi {' '.join(flags)}: {MULTI_STEPS} steps of "
+                               f"{MULTI_SCENES} scenes")
+    losses = np.stack([h[1] for h in result.history])  # [prints, scenes]
+    first, last = losses[:2].mean(0), losses[-2:].mean(0)
+    tars_ok = multi_tars_ok(cfgs, result, MULTI_STEPS, dev)
+    phase("multi_path", flags=" ".join(flags), samples=f"{cfgs[0].N_samples}+{cfgs[0].N_importance}",
+          scenes=MULTI_SCENES, steps=MULTI_STEPS, seconds=f"{seconds:.2f}", launches=counts,
+          stacked_plain_mlp_calls=plain, loss_first2=[f"{v:.5f}" for v in first],
+          loss_last2=[f"{v:.5f}" for v in last], tars_load_with_trained_weights=tars_ok)
+    if plain or not (np.isfinite(losses).all() and (last < first).all() and all(tars_ok)):
+        raise RuntimeError(f"cli.train_multi {flags}: plain MLP calls {plain}, losses {losses}, "
+                           f"tars {tars_ok}")
+    del result
+    torch.cuda.empty_cache()
+    return counts
 
 
 def multi_check_ranks(ranks, one, start, per: int, what: str):

@@ -8,9 +8,11 @@ Counterpart of nerf_tpu/cli/train_multi.py:
 Every scene trains with the hyperparameters of its own config file; the
 model shape, the sample counts, the batch and the background must agree
 across scenes (one stacked step; the CLI exits naming the field that does
-not), and so must NDC. Each level of the step runs the stacked K1 and K4
-once for every scene (parallel/multi_scene.py); the points-in and
-fused-render paths are not stacked yet (ROADMAP A.9b) and raise. Scene k
+not), and so must NDC. Each level of the step takes the branch one scene
+would take, stacked (parallel/multi_scene.py): the stacked K1 and K4, K2
+and K3 (sample counts that are not multiples of 8) or K5 and K6
+(``--fused_render``), each launched once for every scene, or the stacked
+plain MLP (``fused_kernels`` off, no viewdirs). Scene k
 starts from seed ``scene_seed(seed, k)`` of the first config's seed and
 draws from its own generators, so it trains as ``cli.train`` would with
 that seed. Every i_print steps a ``[TRAIN-MULTI]`` line gives each scene's
@@ -45,7 +47,6 @@ from nerf_tpu_torch.parallel.multi_scene import (
     StackedImageSampler, init_multi_scene_state, make_multi_scene_step,
     make_sharded_multi_scene_step, scene_seed, shard_scene_axis, unstack_states,
 )
-from nerf_tpu_torch.render.renderer import check_stacked
 from nerf_tpu_torch.train.loop import load_scene, render_settings_from_config
 from nerf_tpu_torch.train.step import TrainState
 from nerf_tpu_torch.utils import checkpoint as ckpt_lib
@@ -121,9 +122,6 @@ def train_multi(cfgs: Sequence[NeRFConfig], device: DeviceLike = None,
     mine = list(range(S)) if mesh is None else shard_scene_axis(mesh, list(range(S)))
     model = make_model(c0)
     rs = render_settings_from_config(c0)
-    check_stacked(model, model.coarse, rs, c0.N_samples)
-    if c0.N_importance > 0:
-        check_stacked(model, model.fine, rs, c0.N_samples + c0.N_importance)
     my_cfgs = [cfgs[k] for k in mine]
     scenes = [load_scene(c) for c in my_cfgs]
     seeds = [scene_seed(c0.seed, k) for k in mine]

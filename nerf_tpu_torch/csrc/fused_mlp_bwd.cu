@@ -125,8 +125,6 @@
 // recompute writes every row of every tile up to n_pad (posenc of x = 0
 // past n_pts), so no unwritten row meets a zero.
 
-#include <type_traits>
-
 #include "fused_mlp_common.cuh"
 #include "fwd_tile_sm90.cuh"
 
@@ -1498,8 +1496,8 @@ Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int sp
 
 // The bf16 recompute's launch: the forward blob's four tensor maps and a
 // persistent grid of min(tiles, SMs) CTAs, as K1's; raw (sink strides sc,
-// sp) only where raw is given. With scenes > 1 (the stacked K4, no raw) a
-// net per scene, as the stacked K1's.
+// sp) only where raw is given. With scenes > 1 (the stacked K4 and K3, no
+// raw) a net per scene, as the stacked K1's and K2's.
 template <typename In, int W>
 cudaError_t launch_recompute(const In& in, int n_pts, int Fp, int Fv, const bf16* wb,
                              const float* bb, bf16* ws, uint32_t* masks, size_t ldp, float* raw,
@@ -1512,18 +1510,14 @@ cudaError_t launch_recompute(const In& in, int n_pts, int Fp, int Fv, const bf16
   NERF_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
   const int tiles = (n_pts + TP - 1) / TP;
   const int grid = tiles < sms ? tiles : sms;
-  if (scenes > 1) {  // the stacked K4's: rays, no raw
-    if constexpr (std::is_same_v<In, RaysIn>) {
-      if (raw != nullptr) return cudaErrorInvalidValue;
-      const auto kernel = bwd_recompute_sm90<In, W, false, SceneWalk>;
-      NERF_CHECK(
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
-      kernel<<<scene_grid(tiles / scenes, scenes, sms), FWD_THREADS, smem, s>>>(
-          maps, in, n_pts, Fp, Fv, wb, bb, ws, masks, ldp, raw, sc, sp, SceneWalk{tiles / scenes});
-      return cudaGetLastError();
-    } else {
-      return cudaErrorInvalidValue;
-    }
+  if (scenes > 1) {  // the stacked K4's (rays) and K3's (points): no raw
+    if (raw != nullptr) return cudaErrorInvalidValue;
+    const auto kernel = bwd_recompute_sm90<In, W, false, SceneWalk>;
+    NERF_CHECK(
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+    kernel<<<scene_grid(tiles / scenes, scenes, sms), FWD_THREADS, smem, s>>>(
+        maps, in, n_pts, Fp, Fv, wb, bb, ws, masks, ldp, raw, sc, sp, SceneWalk{tiles / scenes});
+    return cudaGetLastError();
   }
   const auto kernel = raw != nullptr ? bwd_recompute_sm90<In, W, true, TileWalk>
                                      : bwd_recompute_sm90<In, W, false, TileWalk>;
@@ -1554,8 +1548,8 @@ cudaError_t launch_chain_walk(const ChainMaps& maps, const In& in, const float* 
   return cudaGetLastError();
 }
 
-// With scenes > 1 (the stacked K4) a net per scene: wb and wt hold a blob
-// per scene, one after another, and the walk is SceneWalk.
+// With scenes > 1 (the stacked K4 and K3) a net per scene: wb and wt hold a
+// blob per scene, one after another, and the walk is SceneWalk.
 template <typename In, int W>
 cudaError_t launch_chain(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts, int Fp,
                          int Fv, const bf16* wb, const bf16* wt, bf16* ws, const uint32_t* masks,
@@ -1568,29 +1562,25 @@ cudaError_t launch_chain(const In& in, const float* g, size_t gsc, size_t gsp, i
   NERF_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
   const int tiles = (n_pts + TP - 1) / TP;
   const int grid = tiles < sms ? tiles : sms;
-  if (scenes > 1) {  // the stacked K4's: rays
-    if constexpr (std::is_same_v<In, RaysIn>)
-      return launch_chain_walk<In, W>(maps, in, g, gsc, gsp, n_pts, Fp, Fv, wb, ws, masks, ldp,
-                                      dhv32, bpart, dx, dv, SceneWalk{tiles / scenes},
-                                      scene_grid(tiles / scenes, scenes, sms), s);
-    else
-      return cudaErrorInvalidValue;
-  }
+  if (scenes > 1)  // the stacked K4's (rays) and K3's (points)
+    return launch_chain_walk<In, W>(maps, in, g, gsc, gsp, n_pts, Fp, Fv, wb, ws, masks, ldp,
+                                    dhv32, bpart, dx, dv, SceneWalk{tiles / scenes},
+                                    scene_grid(tiles / scenes, scenes, sms), s);
   return launch_chain_walk<In, W>(maps, in, g, gsc, gsp, n_pts, Fp, Fv, wb, ws, masks, ldp, dhv32,
                                   bpart, dx, dv, TileWalk(), grid, s);
 }
 
 // n_pts: a scene's points (the launch's with scenes = 1). With scenes > 1
-// (the stacked K4: no input grads) the blobs hold a net per scene, one after
-// another, and out a grad set per scene.
+// (the stacked K4 and K3: no input grads) the blobs hold a net per scene, one
+// after another, and out a grad set per scene.
 template <typename T, int W, typename In>
 cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts, int Fp, int Fv,
                 const void* wblob, const void* wtblob, const float* bblob, void* workspace,
                 long long ws_bytes, float* out, float* dx, float* dv, cudaStream_t s,
                 int scenes) {
   const Plan pl = make_plan<T, W>(n_pts, in.spr, scenes);
-  if (scenes > 1 && (pl.n_pad_s != n_pts || pl.rpad_s * in.spr != n_pts || dx != nullptr ||
-                     dv != nullptr))
+  if (scenes > 1 && (pl.n_pad_s != n_pts || (!pl.dense && pl.rpad_s * in.spr != n_pts) ||
+                     dx != nullptr || dv != nullptr))
     return cudaErrorInvalidValue;  // a scene's points: whole tiles and 64-ray columns
   if (ws_bytes < 0 || size_t(ws_bytes) < pl.total) return cudaErrorInvalidValue;
   unsigned char* base = static_cast<unsigned char*>(workspace);
@@ -1754,6 +1744,15 @@ bool valid_stacked(int n_scenes, int rays_per_scene, int n_samples) {
          valid_shape(per * n_scenes, n_samples) && per % TP == 0;
 }
 
+// The stacked points shape: S scenes of P points in views of spr, a scene's
+// P points whole tiles and, with a direction per ray (spr > 1), its P / spr
+// views whole 64-ray columns of the per-ray rows.
+bool valid_stacked_points(int n_scenes, int pts_per_scene, int spr) {
+  return n_scenes >= 1 && pts_per_scene >= TP && pts_per_scene % TP == 0 &&
+         valid_shape(static_cast<long long>(pts_per_scene) * n_scenes, spr) &&
+         pts_per_scene % spr == 0 && (spr == 1 || (pts_per_scene / spr) % 64 == 0);
+}
+
 }  // namespace
 
 // Bytes of device workspace that nerf_fused_mlp_bwd (K4) needs for this shape.
@@ -1831,6 +1830,43 @@ extern "C" int nerf_fused_mlp_bwd_stacked(int use_bf16, int width, const float* 
   return dispatch(use_bf16, width, in, g, size_t(per) * n_scenes, 1, per, n_freq_pts,
                   n_freq_views, wblob, wtblob, bblob, workspace, ws_bytes, out, nullptr, nullptr,
                   stream, n_scenes);
+}
+
+// Bytes of device workspace that nerf_fused_mlp_bwd_points_stacked needs:
+// n_scenes x K3's at N = pts_per_scene, and a set of weight-grad partials
+// per scene.
+extern "C" int nerf_fused_mlp_bwd_points_stacked_workspace(int use_bf16, int width, int n_scenes,
+                                                           int pts_per_scene, int spr,
+                                                           long long* bytes) {
+  if (!valid_stacked_points(n_scenes, pts_per_scene, spr)) return cudaErrorInvalidValue;
+  return workspace_bytes(use_bf16, width, pts_per_scene, spr, bytes, n_scenes);
+}
+
+// The stacked K3 of multi-scene training, one launch of each of its phases
+// for S scenes (the vmap over scenes of nerf_tpu's make_multi_scene_step
+// gives _make_bwd_kernel a scene axis, nerf_tpu/parallel/multi_scene.py:
+// 44-64), weight grads only (the renderer's points carry no gradient): x, v
+// and the nets as nerf_fused_mlp_fwd_points_stacked takes them, wtblob
+// [S][TLayout size]; g [S*P][4], the cotangent of its rows; out [S][GLayout
+// size + nbias], each scene's grads as K3's. The stacked K4's launches in
+// points mode: the recompute and the chain walk every scene's tiles
+// (SceneWalk), phase 2 (a direction per ray) runs on all S*P/spr views, and
+// the weight-grad launch takes S times K3's problems, each split as K3's at
+// P points would split them: each scene's grads are then K3's on its points
+// alone, bit for bit. Bound at S = 8, N_rand 1024, 63 + 191 samples, a
+// direction per point (2,080,768 points): 7.35 ms at 989 TFLOP/s (3,484,416
+// FLOP a point and 6,912 a view), by operations.
+extern "C" int nerf_fused_mlp_bwd_points_stacked(int use_bf16, int width, const float* x,
+                                                 const float* v, const float* g, int n_scenes,
+                                                 int pts_per_scene, int spr, int n_freq_pts,
+                                                 int n_freq_views, const void* wblob,
+                                                 const void* wtblob, const float* bblob,
+                                                 void* workspace, long long ws_bytes, float* out,
+                                                 void* stream) {
+  if (!valid_stacked_points(n_scenes, pts_per_scene, spr)) return cudaErrorInvalidValue;
+  const PointsIn in{x, v, spr};
+  return dispatch(use_bf16, width, in, g, 1, 4, pts_per_scene, n_freq_pts, n_freq_views, wblob,
+                  wtblob, bblob, workspace, ws_bytes, out, nullptr, nullptr, stream, n_scenes);
 }
 
 // K3: x [N,3]; v [N/spr,3], point p looking along v[p / spr]; g, the

@@ -58,8 +58,6 @@
 // the weight and bias blobs' Layout and the building blocks shared with the
 // backward (K4, K3) live in fused_mlp_common.cuh.
 
-#include <type_traits>
-
 #include "fused_mlp_common.cuh"
 #include "fwd_tile_sm90.cuh"
 
@@ -119,14 +117,12 @@ cudaError_t launch_bf16(const In& in, int n_pts, int Fp, int Fv, const void* wbl
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
     fwd_bf16_sm90<In, W, TileWalk><<<grid, FWD_THREADS, smem, stream>>>(
         maps, in, n_pts, Fp, Fv, wb, bb, out, sc, sp, TileWalk());
-  } else if constexpr (std::is_same_v<In, RaysIn>) {  // the stacked K1 reads rays
+  } else {  // the stacked K1 (rays) and K2 (points)
     NERF_CHECK(cudaFuncSetAttribute(fwd_bf16_sm90<In, W, SceneWalk>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
     fwd_bf16_sm90<In, W, SceneWalk><<<scene_grid(tiles / scenes, scenes, sms), FWD_THREADS, smem,
                                       stream>>>(maps, in, n_pts, Fp, Fv, wb, bb, out, sc, sp,
                                                 SceneWalk{tiles / scenes});
-  } else {
-    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
@@ -214,6 +210,32 @@ extern "C" int nerf_fused_mlp_fwd_stacked(int use_bf16, int width, const float* 
   const RaysIn in{rays_o, rays_d, z, viewdirs, n_samples};
   return launch(in, use_bf16, width, n_pts, n_freq_pts, n_freq_views, wblob, bblob, out,
                 size_t(n_pts), 1, static_cast<cudaStream_t>(stream), n_scenes);
+}
+
+// The stacked K2 of multi-scene training, one launch for S scenes (the
+// vmap over scenes of nerf_tpu's make_multi_scene_step gives _fwd_kernel a
+// scene axis, nerf_tpu/parallel/multi_scene.py:44-64): x [S*P,3], scene s's
+// points at rows s*P ..; v [S*P/spr,3], point p looking along v[p / spr];
+// wblob and bblob a net per scene, as nerf_fused_mlp_fwd_stacked takes
+// them; out [S*P,4] (K2's rows over all S*P points). P must be whole tiles
+// (a multiple of 128) and a multiple of spr, so that no tile and no view
+// spans two scenes; the wrapper pads each scene's points by whole rays. Each
+// tile computes what K2 computes for it alone, bit for bit. Bound at S = 8,
+// N_rand 1024, 63 + 191 samples (2,080,768 points a step): 2.50 ms at 989
+// TFLOP/s, by operations.
+extern "C" int nerf_fused_mlp_fwd_points_stacked(int use_bf16, int width, const float* x,
+                                                 const float* v, int n_scenes, int pts_per_scene,
+                                                 int spr, int n_freq_pts, int n_freq_views,
+                                                 const void* wblob, const float* bblob,
+                                                 float* out, void* stream) {
+  if (!valid_freqs(n_freq_pts, n_freq_views)) return cudaErrorInvalidValue;
+  const long long n = static_cast<long long>(pts_per_scene) * n_scenes;
+  if (n_scenes < 1 || pts_per_scene < TP || pts_per_scene % TP != 0 || spr < 1 ||
+      pts_per_scene % spr != 0 || n > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const PointsIn in{x, v, spr};
+  return launch(in, use_bf16, width, int(n), n_freq_pts, n_freq_views, wblob, bblob, out, 1, 4,
+                static_cast<cudaStream_t>(stream), n_scenes);
 }
 
 // K2: x [N,3]; v [N/spr,3], point p looking along v[p / spr]; out [N,4].

@@ -89,8 +89,9 @@ constexpr int MAX_SMEM = 232448;       // a block's dynamic shared memory on sm_
 constexpr int RAW_PLANES = 4;          // bf16: r, g, b, sigma of a group in the slab
 constexpr int SLAB_BUFFERS = 2;        // bf16: a CTA's slab, double-buffered
 constexpr int COMPOSITE_WARPS = 3;     // bf16: the producer warpgroup's idle warps
-// bf16: the slab's mbarriers (full and empty of each buffer) after FwdSmem's
-constexpr size_t HOOK_BYTES = 2 * SLAB_BUFFERS * sizeof(uint64_t);
+// bf16: the slab's mbarriers (full and empty of each buffer) after FwdSmem's,
+// then the stacked K5's slab index of the CTA (slab_cta, a word)
+constexpr size_t HOOK_BYTES = (2 * SLAB_BUFFERS + 1) * sizeof(uint64_t);
 
 // |d| as sqrt((d0 d0 + d1 d1) + d2 d2), no FMA contraction
 __device__ __forceinline__ float ray_norm(const float* d) {
@@ -144,6 +145,10 @@ struct RenderArgs {
   float* w;     // [R][S]
   float* raw;   // planes [4][R*S], or null
   float* slab;  // bf16 without raw: [grid][SLAB_BUFFERS][RAW_PLANES][G*S]
+  // the stacked K5: the rays of scene_rays a scene (f32: a CTA's scene is
+  // its first ray's), scene_groups bf16 groups a scene (0: one net)
+  int scene_rays;
+  int scene_groups;
 };
 
 // The compositing of the CTA's rays r0 .. r0+g_rays-1 from raw in comp.
@@ -201,6 +206,7 @@ __device__ void composite(const RenderArgs& a, float* comp, int nq, int r0, int 
 // K5's schedule: the CTA's groups blockIdx.x, + gridDim.x, ..., each group's
 // n_sub tiles in order; one net (TileWalk's scene 0).
 struct GroupWalk : TileWalk {
+  static constexpr bool kStacked = false;
   int n_sub;
   __device__ __forceinline__ int first() const { return blockIdx.x * n_sub; }
   __device__ __forceinline__ int next(int tile) const {
@@ -208,25 +214,79 @@ struct GroupWalk : TileWalk {
   }
 };
 
+// The opaque reads of the grid's y and size (asm volatile), taken afresh
+// where they are used: held in registers across the compositing or the
+// head, such values spill (K5's compositing warps run at 40 registers).
+__device__ __forceinline__ int grid_y() {
+  int y;
+  asm volatile("mov.u32 %0, %%ctaid.y;\n" : "=r"(y));
+  return y;
+}
+__device__ __forceinline__ int grid_ctas() {
+  int n;
+  asm volatile("mov.u32 %0, %%nctaid.x;\n" : "=r"(n));
+  return n;
+}
+
+// The stacked K5's schedule (multi-scene training): GroupWalk inside
+// SceneWalk. S scenes' rays one after another, each scene whole groups
+// (scene_groups * n_sub tiles); the grid's y is the scene, and CTA (x, y)
+// takes scene y's groups x, x + gridDim.x, ..., each group's tiles in
+// order, on scene y's weights. It holds no field: the counts are read from
+// the kernel's parameters and y afresh where used, so that the producer
+// warpgroup's 40 registers keep none of them.
+struct SceneGroupWalk {
+  static constexpr bool kStacked = true;
+  const RenderArgs& a;
+  __device__ __forceinline__ int scene_tiles() const { return a.scene_groups * a.n_sub; }
+  __device__ __forceinline__ int first() const {
+    return grid_y() * scene_tiles() + int(blockIdx.x) * a.n_sub;
+  }
+  __device__ __forceinline__ int next(int tile) const {
+    const int t = (tile + 1) % a.n_sub != 0 ? tile + 1 : tile + 1 + int(gridDim.x - 1) * a.n_sub;
+    return t < (grid_y() + 1) * scene_tiles() ? t : INT_MAX;  // INT_MAX: done
+  }
+  __device__ __forceinline__ int scene() const { return grid_y(); }
+};
+
+// The CTA's index among the grid's (x, y): its slab's (one net: x).
+template <bool kStacked>
+__device__ __forceinline__ int slab_cta() {
+  if constexpr (kStacked) return grid_y() * grid_ctas() + int(blockIdx.x);
+  return blockIdx.x;
+}
+
+// The CTA's count of groups before group g (g a global group index): the
+// slab buffer of g is this count % 2. The stacked walk counts within g's
+// scene.
+template <bool kStacked>
+__device__ __forceinline__ int group_count(const RenderArgs& a, int g) {
+  if constexpr (kStacked) return (g % a.scene_groups) / int(gridDim.x);
+  return g / int(gridDim.x);
+}
+
 // Raw plane 0 of group g (the CTA's buffer b of the slab, b = the CTA's
 // group count % 2), indexed by the group's sample q = p - g*G*S: the raw
-// planes where they are kept, else the slab; plane c is plane_stride(a)
-// floats further.
+// planes where they are kept, else the CTA's slab (slab_cta: per (x, y)
+// CTA in the stacked grid); plane c is plane_stride(a) floats further.
+template <bool kStacked>
 __device__ __forceinline__ float* group_plane(const RenderArgs& a, int g, int b) {
   const int GS = a.G * a.S;
   if (a.raw != nullptr) return a.raw + size_t(g) * GS;
-  return a.slab + size_t(blockIdx.x * SLAB_BUFFERS + b) * RAW_PLANES * GS;
+  return a.slab + size_t(slab_cta<kStacked>() * SLAB_BUFFERS + b) * RAW_PLANES * GS;
 }
 __device__ __forceinline__ size_t plane_stride(const RenderArgs& a) {
   return a.raw != nullptr ? size_t(a.n_rays) * a.S : size_t(a.G) * a.S;
 }
 
 // The tile's sink: raw of point p into its group's planes.
+template <bool kStacked>
 struct GroupSink {
   const RenderArgs& a;
   __device__ __forceinline__ void operator()(int p, int c, float v) const {
     const int GS = a.G * a.S, g = p / GS;
-    group_plane(a, g, (g / int(gridDim.x)) % SLAB_BUFFERS)[c * plane_stride(a) + (p - g * GS)] = v;
+    group_plane<kStacked>(a, g, group_count<kStacked>(a, g) % SLAB_BUFFERS)
+        [c * plane_stride(a) + (p - g * GS)] = v;
   }
 };
 
@@ -344,6 +404,18 @@ __device__ __forceinline__ void composite_ray(const RenderArgs& a, int r, const 
   }
 }
 
+// The stacked K5's slab index of the CTA as its thread 0 stored it after the
+// slab's mbarriers (render_bf16_sm90), read afresh where used (a volatile
+// shared load): computed from the grid's y and size in the compositing
+// warps' 40 registers, it made ptxas spill 20-44 bytes there.
+__device__ __forceinline__ int stored_slab_cta(const uint64_t* bars) {
+  int v;
+  asm volatile("ld.volatile.shared.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(hopper::smem_addr(bars + 2 * SLAB_BUFFERS)));
+  return v;
+}
+
 // The tile's hook: the producer warpgroup's warps 1-3 composite each ray
 // group once the consumers have written its raw, while the consumers go on
 // to the next groups. The CTA's k-th group uses slab buffer b = k % 2,
@@ -352,11 +424,13 @@ __device__ __forceinline__ void composite_ray(const RenderArgs& a, int r, const 
 // group) and empty[b] (the 96 compositing threads arrive once they have
 // read it); the consumers wait on empty[b] before the first head of group
 // k >= 2, for group k-2's compositing.
+// kStacked: the stacked K5's (SceneGroupWalk), each CTA on its scene's groups.
+template <bool kStacked>
 struct GroupHook : NoHook {
   const RenderArgs& a;
   uint64_t* bars;  // full[SLAB_BUFFERS], empty[SLAB_BUFFERS]
   __device__ __forceinline__ int local_group(int tile) const {
-    return tile / a.n_sub / int(gridDim.x);
+    return group_count<kStacked>(a, tile / a.n_sub);
   }
   __device__ __forceinline__ void before_head(int tile) const {
     const int k = local_group(tile);
@@ -367,41 +441,65 @@ struct GroupHook : NoHook {
     if ((tile + 1) % a.n_sub == 0 || tile + 1 == ntiles)
       hopper::mbar_arrive(&bars[local_group(tile) % SLAB_BUFFERS]);
   }
-  // The grid's size read anew where it is used (asm volatile): held in a
-  // register across the compositing, it was the one value that spilled.
-  __device__ __forceinline__ static int grid_ctas() {
-    int n;
-    asm volatile("mov.u32 %0, %%nctaid.x;\n" : "=r"(n));
-    return n;
+  // The CTA's groups, in its walk's order: one net's blockIdx.x, +
+  // gridDim.x, ... below n_groups; the stacked walk's the same within scene
+  // y's scene_groups (the grid's size and y read anew where they are used:
+  // held in a register across the compositing, the size was the one value
+  // that spilled).
+  __device__ __forceinline__ int group_end() const {
+    if constexpr (kStacked) return (grid_y() + 1) * a.scene_groups;
+    return a.n_groups;
   }
   __device__ __forceinline__ void side() const {
     const int warp = int(threadIdx.x >> 5) - 1;  // 0-2
     int k = 0;  // the CTA's group count
-    for (int g = blockIdx.x; g < a.n_groups; g += grid_ctas(), ++k) {
+    int g = int(blockIdx.x);
+    if constexpr (kStacked) g += grid_y() * a.scene_groups;
+    for (; g < group_end(); g += grid_ctas(), ++k) {
       const int b = k % SLAB_BUFFERS;
       hopper::mbar_wait(&bars[b], (k / SLAB_BUFFERS) & 1);
       const int r_end = min((g + 1) * a.G, a.n_rays);
-      for (int r = g * a.G + warp; r < r_end; r += COMPOSITE_WARPS)
-        composite_ray(a, r, group_plane(a, g, b) + (r - g * a.G) * a.S);
+      if constexpr (kStacked) {  // group_plane<true>, with the CTA's slab index stored
+        const float* pl =
+            a.raw != nullptr
+                ? a.raw + size_t(g) * (a.G * a.S)
+                : a.slab + size_t(stored_slab_cta(bars) * SLAB_BUFFERS + b) * RAW_PLANES * (a.G * a.S);
+        for (int r = g * a.G + warp; r < r_end; r += COMPOSITE_WARPS)
+          composite_ray(a, r, pl + (r - g * a.G) * a.S);
+      } else {
+        for (int r = g * a.G + warp; r < r_end; r += COMPOSITE_WARPS)
+          composite_ray(a, r, group_plane<false>(a, g, b) + (r - g * a.G) * a.S);
+      }
       hopper::mbar_arrive(&bars[SLAB_BUFFERS + b]);
     }
   }
 };
 
-template <int W>
+// Walk: GroupWalk (one net), or SceneGroupWalk (the stacked K5: a net per
+// scene, stacked blobs, a scene a row of the grid).
+template <int W, typename Walk>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 render_bf16_sm90(const __grid_constant__ FwdMaps maps, const __grid_constant__ RenderArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kStacked = Walk::kStacked;
   uint64_t* bars = reinterpret_cast<uint64_t*>(fwd_smem_base(smem) + FwdSmem<W>::bytes);
   if (threadIdx.x == 0) {  // made visible with the ring's barriers (fwd_tiles_sm90)
     for (int b = 0; b < SLAB_BUFFERS; ++b) {
       hopper::mbar_init(&bars[b], 2 * 128);
       hopper::mbar_init(&bars[SLAB_BUFFERS + b], 32 * COMPOSITE_WARPS);
     }
+    if constexpr (kStacked)  // the CTA's slab index, for the compositing warps
+      reinterpret_cast<int*>(bars + 2 * SLAB_BUFFERS)[0] = int(blockIdx.y * gridDim.x + blockIdx.x);
   }
   const RaysIn in{a.ro, a.rd, a.z, a.vd, a.S};
-  fwd_tiles_sm90<RaysIn, W>(maps, in, a.n_rays * a.S, a.Fp, a.Fv, static_cast<const bf16*>(a.wb),
-                            a.bb, smem, GroupSink{a}, GroupWalk{{}, a.n_sub}, GroupHook{{}, a, bars});
+  if constexpr (kStacked)
+    fwd_tiles_sm90<RaysIn, W>(maps, in, a.n_rays * a.S, a.Fp, a.Fv,
+                              static_cast<const bf16*>(a.wb), a.bb, smem, GroupSink<true>{a},
+                              SceneGroupWalk{a}, GroupHook<true>{{}, a, bars});
+  else
+    fwd_tiles_sm90<RaysIn, W>(maps, in, a.n_rays * a.S, a.Fp, a.Fv,
+                              static_cast<const bf16*>(a.wb), a.bb, smem, GroupSink<false>{a},
+                              GroupWalk{{}, a.n_sub}, GroupHook<false>{{}, a, bars});
 }
 
 // ------------------------------------------------------------------ f32
@@ -428,11 +526,13 @@ __global__ void __launch_bounds__(THREADS) render_f32(const RenderArgs a) {
   const int r0 = blockIdx.x * a.G;
   const int g_rays = min(a.G, a.n_rays - r0);
   const int pbase = r0 * a.S, p_end = pbase + g_rays * a.S;
+  const int scene = r0 / a.scene_rays;  // the stacked K5's: its rays' net
   const RaysIn in{a.ro, a.rd, a.z, a.vd, a.S};
   const SharedSink sink{comp, nq, pbase, a.raw, size_t(a.n_rays) * a.S};
   for (int j = 0; j < a.n_sub && pbase + j * TP32 < p_end; ++j)
-    fwd_tile_f32<RaysIn, W>(in, p_end, a.Fp, a.Fv, static_cast<const float*>(a.wb), a.bb,
-                            pbase + j * TP32, smem, sink);
+    fwd_tile_f32<RaysIn, W>(in, p_end, a.Fp, a.Fv,
+                            static_cast<const float*>(a.wb) + size_t(scene) * Layout<W>::size,
+                            a.bb + size_t(scene) * Layout<W>::nbias, pbase + j * TP32, smem, sink);
   __syncthreads();
   composite(a, comp, nq, r0, g_rays);
 }
@@ -654,31 +754,56 @@ cudaError_t launch_render(Kernel kernel, size_t base_smem, int tile, RenderArgs 
 
 // bf16: the weights' tensor maps and a persistent grid of min(groups, the
 // device's SM count) CTAs; without raw planes the slab must hold
-// grid x SLAB_BUFFERS x RAW_PLANES x G*S floats.
+// CTAs x SLAB_BUFFERS x RAW_PLANES x G*S floats. With scenes > 1 (the
+// stacked K5) each scene's scene_rays rays are whole groups, the blobs hold
+// a net per scene, and the grid is scene_grid's (x, scenes), a slab per CTA.
 template <int W>
-cudaError_t launch_render_sm90(RenderArgs a, long long slab_floats, cudaStream_t stream) {
+cudaError_t launch_render_sm90(RenderArgs a, long long slab_floats, cudaStream_t stream,
+                               int scenes) {
   ray_groups(a.S, TP, a.G, a.n_sub);
   if (static_cast<long long>(a.n_sub) * TP > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (scenes > 1 && a.scene_rays % a.G != 0) return cudaErrorInvalidValue;
   FwdMaps maps;
-  cudaError_t err = encode_fwd_maps<W>(&maps, static_cast<const bf16*>(a.wb));
+  cudaError_t err = encode_fwd_maps<W>(&maps, static_cast<const bf16*>(a.wb), scenes);
   if (err != cudaSuccess) return err;
   constexpr size_t smem = FwdSmem<W>::launch_bytes + HOOK_BYTES;
   static_assert(smem <= size_t(MAX_SMEM), "the slab's barriers fit beside the tile's");
-  err = cudaFuncSetAttribute(render_bf16_sm90<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(smem));
+  const auto kernel = scenes > 1 ? render_bf16_sm90<W, SceneGroupWalk>
+                                 : render_bf16_sm90<W, GroupWalk>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   a.n_groups = (a.n_rays + a.G - 1) / a.G;
-  const int grid = a.n_groups < sms ? a.n_groups : sms;
+  dim3 grid(a.n_groups < sms ? a.n_groups : sms);
+  if (scenes > 1) {
+    a.scene_groups = a.scene_rays / a.G;
+    grid = scene_grid(a.scene_groups, scenes, sms);
+  }
   if (a.raw == nullptr &&
-      (a.slab == nullptr ||
-       slab_floats < static_cast<long long>(grid) * SLAB_BUFFERS * RAW_PLANES * a.n_sub * TP))
+      (a.slab == nullptr || slab_floats < static_cast<long long>(grid.x) * grid.y *
+                                              SLAB_BUFFERS * RAW_PLANES * a.n_sub * TP))
     return cudaErrorInvalidValue;
-  render_bf16_sm90<W><<<grid, FWD_THREADS, smem, stream>>>(maps, a);
+  kernel<<<grid, FWD_THREADS, smem, stream>>>(maps, a);
   return cudaGetLastError();
+}
+
+int render_fwd(int use_bf16, int width, RenderArgs a, long long slab_floats, void* stream,
+               int scenes) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_bf16) {
+    if (width == 256) return launch_render_sm90<256>(a, slab_floats, s, scenes);
+    if (width == 128) return launch_render_sm90<128>(a, slab_floats, s, scenes);
+  } else {
+    int G, n_sub;  // a CTA's rays: no CTA of the stacked K5 may span two scenes
+    group_geometry(a.S, TP32, G, n_sub);
+    if (scenes > 1 && a.scene_rays % G != 0) return cudaErrorInvalidValue;
+    if (width == 256) return launch_render(render_f32<256>, F32Smem<256>::bytes, TP32, a, s);
+    if (width == 128) return launch_render(render_f32<128>, F32Smem<128>::bytes, TP32, a, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -704,17 +829,41 @@ extern "C" int nerf_fused_render_fwd(int use_bf16, int width, const float* rays_
   const long long n = static_cast<long long>(n_rays) * n_samples;
   if (n_rays < 0 || n_samples < 1 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  RenderArgs a{rays_o, rays_d, viewdirs, z, noise, n_rays, n_samples, n_freq_pts, n_freq_views,
-               0, 0, 0, white_bkgd != 0, wblob, bblob, rgb, disp, acc, w, raw, slab};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_bf16) {
-    if (width == 256) return launch_render_sm90<256>(a, slab_floats, s);
-    if (width == 128) return launch_render_sm90<128>(a, slab_floats, s);
-  } else {
-    if (width == 256) return launch_render(render_f32<256>, F32Smem<256>::bytes, TP32, a, s);
-    if (width == 128) return launch_render(render_f32<128>, F32Smem<128>::bytes, TP32, a, s);
-  }
-  return cudaErrorInvalidValue;
+  const RenderArgs a{rays_o, rays_d, viewdirs, z, noise, n_rays, n_samples, n_freq_pts,
+                     n_freq_views, 0, 0, 0, white_bkgd != 0, wblob, bblob, rgb, disp, acc, w, raw,
+                     slab, n_rays, 0};
+  return render_fwd(use_bf16, width, a, slab_floats, stream, 1);
+}
+
+// The stacked K5 of multi-scene training, one launch for S scenes (the vmap
+// over scenes of nerf_tpu's make_multi_scene_step gives _fwd_kernel a scene
+// axis, nerf_tpu/parallel/multi_scene.py:44-64): every ray argument and
+// output as K5's over all S*R rays, scene s's rays at s*R ..; wblob and
+// bblob a net per scene, as nerf_fused_mlp_fwd_stacked takes them. R must
+// be whole ray groups of both kernels (a multiple of 128 / gcd(S, 128));
+// the wrapper pads each scene's rays. bf16 without raw takes a slab of at
+// least fused_render.py::slab_floats(..., scenes) floats: a CTA's buffers
+// for each CTA of the (x, scene) grid. Each tile computes what K5 computes
+// for it alone, and each ray's compositing is K5's, bit for bit. Bound at
+// S = 8, N_rand 1024, 64 + 192 samples: K1's 2.52 ms, by operations.
+extern "C" int nerf_fused_render_fwd_stacked(int use_bf16, int width, const float* rays_o,
+                                             const float* rays_d, const float* viewdirs,
+                                             const float* z, const float* noise, int n_scenes,
+                                             int rays_per_scene, int n_samples, int n_freq_pts,
+                                             int n_freq_views, int white_bkgd,
+                                             const void* wblob, const float* bblob, float* rgb,
+                                             float* disp, float* acc, float* w, float* raw,
+                                             float* slab, long long slab_floats, void* stream) {
+  if (n_freq_pts < 1 || n_freq_pts > MAX_FP || n_freq_views < 1 || n_freq_views > MAX_FV)
+    return cudaErrorInvalidValue;
+  const long long n_rays = static_cast<long long>(rays_per_scene) * n_scenes;
+  if (n_scenes < 1 || rays_per_scene < 1 || n_samples < 1 ||
+      n_rays * n_samples > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const RenderArgs a{rays_o, rays_d, viewdirs, z, noise, int(n_rays), n_samples, n_freq_pts,
+                     n_freq_views, 0, 0, 0, white_bkgd != 0, wblob, bblob, rgb, disp, acc, w, raw,
+                     slab, rays_per_scene, 0};
+  return render_fwd(use_bf16, width, a, slab_floats, stream, n_scenes);
 }
 
 // K6's compositing backward: rays_d [R,3]; z [R,S]; noise [R,S] or null;

@@ -12,9 +12,10 @@
 // tiles of a persistent grid in the order a schedule gives (a template
 // parameter: TileWalk, K1's and K2's default, takes tiles blockIdx.x,
 // + gridDim.x, ...; K5's GroupWalk in fused_render.cu takes groups of
-// consecutive tiles; SceneWalk, the stacked K1's and K4's, a scene's tiles
-// a row of the grid, each scene on its own weights); the producer and both
-// consumers walk the same order.
+// consecutive tiles; SceneWalk, the stacked K1's, K2's, K4's and K3's, a
+// scene's tiles a row of the grid, each scene on its own weights, and the
+// stacked K5's SceneGroupWalk, K5's groups within such a row); the
+// producer and both consumers walk the same order.
 // A hook (a template parameter too; NoHook, the default, compiles to
 // nothing) is called by the consumers before each tile's head writes raw
 // and after it, and runs on the producer warpgroup's three idle warps (K5
@@ -115,7 +116,8 @@ struct TileWalk {
   __device__ __forceinline__ int scene() const { return 0; }
 };
 
-// SceneWalk (the stacked K1 and K4 launches of multi-scene training): S
+// SceneWalk (the stacked K1, K2, K4 and K3 launches of multi-scene
+// training; fused_render.cu's SceneGroupWalk, the stacked K5's, is one): S
 // scenes' points one after another, each scene a whole number of tiles, so
 // that no tile spans two scenes; the grid's y is the scene, and CTA (x, y)
 // takes scene y's tiles x, x + gridDim.x, ... (TileWalk's order within the

@@ -27,7 +27,14 @@ The pieces, as in ops/fused_mlp.py:
   counters. A CPU tensor takes the plain version; a CUDA tensor launches
   the kernel or raises;
 - ``fused_render_level``: the entry the renderer calls; under autograd it
-  runs ``_FusedRender`` (K5 forward, K6 backward).
+  runs ``_FusedRender`` (K5 forward, K6 backward);
+- the stacked (multi-scene) pair, ``fused_render_stacked_fwd`` /
+  ``fused_render_stacked_bwd`` and ``fused_render_level_stacked``: S nets of
+  one shape as leaves with a leading scene axis, one launch of K5
+  (``nerf_fused_render_fwd_stacked``: its ray groups inside a scene a row
+  of the grid) and of K6 (one compositing pass over every scene's rays,
+  then the stacked K4, ``nerf_fused_mlp_bwd_stacked``) for every scene's
+  rays; their plain versions apply K5's and K6's scene by scene.
 """
 
 from __future__ import annotations
@@ -63,12 +70,16 @@ def ray_groups(n_samples: int, tile: int = fused_mlp.FWD_TILE) -> Tuple[int, int
     return lcm // n_samples, lcm // tile
 
 
-def slab_floats(n_rays: int, n_samples: int, sms: int) -> int:
+def slab_floats(n_rays: int, n_samples: int, sms: int, scenes: int = 1) -> int:
     """Floats of K5's bf16 scratch slab for a launch without raw planes: a
     persistent grid of min(groups, sms) CTAs, each with SLAB_BUFFERS buffers
-    of a group's SLAB_PLANES raw planes."""
+    of a group's SLAB_PLANES raw planes. The stacked K5 (``scenes`` > 1,
+    n_rays a scene's, whole groups) has a slab for each CTA of its (x,
+    scene) grid, min(groups a scene, max(1, sms // scenes)) CTAs a scene
+    (csrc/fwd_tile_sm90.cuh ``scene_grid``)."""
     G, n_sub = ray_groups(n_samples)
-    grid = min(-(-n_rays // G), sms)
+    groups = -(-n_rays // G)
+    grid = min(groups, sms) if scenes == 1 else min(groups, max(1, sms // scenes)) * scenes
     return grid * SLAB_BUFFERS * SLAB_PLANES * n_sub * fused_mlp.FWD_TILE
 
 
@@ -107,8 +118,10 @@ def _composite(raw, rays_d, z_vals, noise, white_bkgd) -> Dict[str, torch.Tensor
 def fused_render_reference(kp, rays_o, rays_d, viewdirs, z_vals, noise,
                            white_bkgd: bool) -> Maps:
     """Plain PyTorch version of K5: the maps, and raw planes [4, R, S] from
-    ``fused_mlp._forward`` (K1's plain version) beneath them."""
-    raw = fused_mlp.fused_rays_planes_reference(kp, rays_o, rays_d, viewdirs, z_vals)
+    ``fused_mlp._forward`` (K1's plain version) beneath them, contiguous (the
+    layout the compositing's vectorised exp and log see, and so their last
+    bits, then follow the values alone)."""
+    raw = fused_mlp.fused_rays_planes_reference(kp, rays_o, rays_d, viewdirs, z_vals).contiguous()
     cmp = _composite(raw, rays_d, z_vals, noise, white_bkgd)
     return Maps(cmp["rgb_map"], cmp["disp"], cmp["acc"], cmp["w"], raw)
 
@@ -353,5 +366,209 @@ def fused_render_level(
     else:
         kp, blobs = fused_mlp.packed_params(mlp, pe_pts, pe_views, compute_dtype)
         rgb, disp, acc, w, _ = fused_render_fwd(kp, ro, rd, vd, z, nz, white_bkgd, blobs)
+    depth = torch.sum(w * z, -1)
+    return RayOutputs(rgb=rgb, disp=disp, acc=acc, weights=w, depth=depth)
+
+
+# ------------------------------------------------- stacked (multi-scene) K5/K6
+#
+# Multi-scene training with --fused_render: S nets of one shape stacked
+# ([S, ...] leaves), the rays of scene s at [s] of [S, R, ...] inputs, and
+# each level one K5 launch over every scene's ray groups (each tile on its
+# own scene's weights) and one K6: its compositing pass over all S*R rays
+# (it holds no weights), then the stacked K4's phases (nerf_tpu vmaps its
+# step, and with it the Pallas calls, over the scene axis:
+# parallel/multi_scene.py:44-64). Each scene's rays are padded to
+# fused_mlp._pad_rays, whole ray groups and whole 64-ray columns, so that
+# no group, tile or column spans two scenes; padded rays carry a zero
+# cotangent.
+
+
+def _stack_maps(per) -> Maps:
+    return Maps(*(None if per[0][i] is None else torch.stack([m[i] for m in per],
+                                                             0 if i < 4 else 1)
+                  for i in range(5)))
+
+
+def fused_render_stacked_reference(kp, rays_o, rays_d, viewdirs, z_vals, noise,
+                                   white_bkgd: bool) -> Maps:
+    """Plain PyTorch version of the stacked K5: K5's plain version applied
+    scene by scene, the maps [S, R, ...] and raw planes [4, S, R, N]."""
+    return _stack_maps([fused_render_reference(
+        fused_mlp._scene(kp, s), rays_o[s], rays_d[s], viewdirs[s], z_vals[s],
+        None if noise is None else noise[s], white_bkgd) for s in range(z_vals.shape[0])])
+
+
+def fused_render_stacked_bwd_reference(kp, rays_o, rays_d, viewdirs, z_vals, noise, raw, g_rgb,
+                                       g_disp, g_acc, g_w, white_bkgd: bool
+                                       ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of the stacked K6: K6's plain version applied
+    scene by scene, grads with kp's stacked shapes."""
+    per = [fused_render_bwd_reference(
+        fused_mlp._scene(kp, s), rays_o[s], rays_d[s], viewdirs[s], z_vals[s],
+        None if noise is None else noise[s], raw[:, s].contiguous(), g_rgb[s], g_disp[s],
+        g_acc[s], g_w[s], white_bkgd) for s in range(z_vals.shape[0])]
+    return {k: torch.stack([g[k] for g in per]) for k in per[0]}
+
+
+def _check_stacked(kp, rays_o, rays_d, viewdirs, z_vals, noise, **per_ray) -> None:
+    fused_mlp._check_stacked(kp, rays_o, rays_d, viewdirs, z_vals)
+    S, R, N = z_vals.shape
+    flat = {k: None if t is None else t.flatten(1, 2) if k == "raw" else t.flatten(0, 1)
+            for k, t in per_ray.items()}
+    _check(*(t.flatten(0, 1) for t in (rays_o, rays_d, viewdirs, z_vals)),
+           None if noise is None else noise.flatten(0, 1), **flat)
+    shapes = {"raw": (4, S, R, N), "g_rgb": (S, R, 3), "g_disp": (S, R), "g_acc": (S, R),
+              "g_w": (S, R, N)}
+    for name, t in dict(per_ray, noise=noise).items():
+        want = (S, R, N) if name == "noise" else shapes[name]
+        if t is not None and t.shape != want:
+            raise ValueError(f"{name}: expected {want}, got {tuple(t.shape)}")
+
+
+def fused_render_stacked_fwd(kp: Dict[str, torch.Tensor], rays_o, rays_d, viewdirs, z_vals,
+                             noise: Optional[torch.Tensor], white_bkgd: bool,
+                             blobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                             keep_raw: bool = False) -> Maps:
+    """The maps of one level of S scenes from stacked packed params ([S, ...]
+    leaves), rays [S, R, 3], depths and sigma noise [S, R, N] (None: none):
+    rgb [S, R, 3], disp, acc [S, R], w [S, R, N], and raw planes
+    [4, S, R, N] with ``keep_raw``; scene s's rays through scene s's net.
+    CUDA tensors launch the stacked K5 once for every scene (``launches``
+    counts one a launch, whatever S is), each scene's rays zero-padded to
+    ``fused_mlp._pad_rays``; CPU tensors take the plain version. ``blobs``
+    is ``fused_mlp.kernel_blobs(kp)`` where the caller keeps it."""
+    _check_stacked(kp, rays_o, rays_d, viewdirs, z_vals, noise)
+    if z_vals.device.type == "cpu":
+        out = fused_render_stacked_reference(kp, rays_o, rays_d, viewdirs, z_vals, noise,
+                                             white_bkgd)
+        return out if keep_raw else out._replace(raw=None)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {z_vals.device}")
+    lib = _build.load("fused_render")
+    dtype, W, Fp, Fv = fused_mlp._kernel_config(kp, z_vals)
+    dev = z_vals.device
+    S, R, N = z_vals.shape
+    R_pad = fused_mlp._pad_rays(R, N)
+    ro, rd, vd, z = fused_mlp._padded((rays_o, rays_d, viewdirs, z_vals), R_pad)
+    nz = None if noise is None else fused_mlp._padded((noise,), R_pad)[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = Maps(torch.empty(S, R_pad, 3, **f32), torch.empty(S, R_pad, **f32),
+               torch.empty(S, R_pad, **f32), torch.empty(S, R_pad, N, **f32),
+               torch.empty(4, S, R_pad, N, **f32) if keep_raw else None)
+    wblob, bblob = fused_mlp.kernel_blobs(kp) if blobs is None else blobs
+    slab = None  # the bf16 kernel's scratch where raw planes are not kept
+    if dtype == torch.bfloat16 and not keep_raw:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        slab = torch.empty(slab_floats(R_pad, N, sms, S), **f32)
+    with torch.cuda.device(dev):
+        err = lib.nerf_fused_render_fwd_stacked(
+            int(dtype == torch.bfloat16), W, ro.data_ptr(), rd.data_ptr(), vd.data_ptr(),
+            z.data_ptr(), _ptr(nz), S, R_pad, N, Fp, Fv, int(white_bkgd), wblob.data_ptr(),
+            bblob.data_ptr(), *(_ptr(t) for t in out), _ptr(slab),
+            0 if slab is None else slab.numel(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    fused_mlp._raise_on(lib, err, "fused_render_fwd_stacked")
+    fused_render_stacked_fwd.launches += 1
+    return Maps(*(t[:, :R] for t in out[:4]), None if out.raw is None else out.raw[:, :, :R])
+
+
+fused_render_stacked_fwd.launches = 0
+
+
+def fused_render_stacked_bwd(kp: Dict[str, torch.Tensor], rays_o, rays_d, viewdirs, z_vals,
+                             noise: Optional[torch.Tensor], raw, g_rgb, g_disp, g_acc, g_w,
+                             white_bkgd: bool,
+                             blobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """float32 grads of the stacked packed leaves (kp's [S, ...] shapes) from
+    the cotangents of ``fused_render_stacked_fwd``'s maps (g_rgb [S, R, 3],
+    g_disp, g_acc [S, R], g_w [S, R, N]), given its raw planes [4, S, R, N]:
+    each scene's the grads of its own net. CUDA tensors launch the stacked
+    K6 (``launches`` counts one): K6's compositing pass once over every
+    scene's padded rays (``composite_bwd.launches`` counts it), then the
+    stacked K4's phases; CPU tensors take the plain version."""
+    _check_stacked(kp, rays_o, rays_d, viewdirs, z_vals, noise, raw=raw, g_rgb=g_rgb,
+                   g_disp=g_disp, g_acc=g_acc, g_w=g_w)
+    if z_vals.device.type == "cpu":
+        return fused_render_stacked_bwd_reference(kp, rays_o, rays_d, viewdirs, z_vals, noise,
+                                                  raw, g_rgb, g_disp, g_acc, g_w, white_bkgd)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {z_vals.device}")
+    fused_mlp._kernel_config(kp, z_vals)
+    S, R, N = z_vals.shape
+    R_pad = fused_mlp._pad_rays(R, N)
+    pad = lambda t, dim=1: None if t is None else fused_mlp._padded((t,), R_pad, dim)[0]  # noqa: E731
+    ro, rd, vd, z = (pad(t) for t in (rays_o, rays_d, viewdirs, z_vals))
+    # padded rays: zero cotangents, so a zero cotangent of their raw
+    nz, gr, gd, ga, gw = (pad(t) for t in (noise, g_rgb, g_disp, g_acc, g_w))
+    rawp = pad(raw, 2)
+    flat = lambda t: None if t is None else t.flatten(0, 1)  # noqa: E731
+    g_planes = _launch_composite_bwd(rawp.flatten(1, 2), flat(rd), flat(z), flat(nz), flat(gr),
+                                     flat(gd), flat(ga), flat(gw), white_bkgd)
+    grads = fused_mlp._launch_stacked_bwd(kp, ro, rd, vd, z, g_planes.view(4, S, R_pad, N), blobs)
+    fused_render_stacked_bwd.launches += 1
+    return grads
+
+
+fused_render_stacked_bwd.launches = 0
+
+
+class _FusedRenderStacked(torch.autograd.Function):
+    """The stacked K5 forward, the stacked K6 backward over stacked packed
+    leaves (KP_NAMES order), as ``_FusedRender`` for one net."""
+
+    @staticmethod
+    def forward(ctx, rays_o, rays_d, viewdirs, z_vals, noise, white_bkgd, *leaves):
+        kp = dict(zip(KP_NAMES, leaves))
+        blobs = fused_mlp.kernel_blobs(kp) if z_vals.is_cuda else None
+        out = fused_render_stacked_fwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, white_bkgd,
+                                       blobs, keep_raw=True)
+        ctx.save_for_backward(rays_o, rays_d, viewdirs, z_vals, noise, out.raw, *leaves)
+        ctx.blobs, ctx.white_bkgd = blobs, white_bkgd
+        return out.rgb, out.disp, out.acc, out.w
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_disp, g_acc, g_w):
+        ro, rd, vd, z, noise, raw, *leaves = ctx.saved_tensors
+        kp = dict(zip(KP_NAMES, leaves))
+        grads = fused_render_stacked_bwd(kp, ro, rd, vd, z, noise, raw, g_rgb.contiguous(),
+                                         g_disp.contiguous(), g_acc.contiguous(),
+                                         g_w.contiguous(), ctx.white_bkgd, ctx.blobs)
+        ctx.blobs = None
+        return (None,) * 6 + tuple(grads[n].to(kp[n].dtype) for n in KP_NAMES)
+
+
+def fused_render_level_stacked(
+    mlp,
+    cfg: MLPConfig,
+    pe_pts: PosEncConfig,
+    pe_views: PosEncConfig,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    viewdirs: torch.Tensor,
+    z_vals: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    white_bkgd: bool,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> RayOutputs:
+    """``fused_render_level`` for a stacked net (render/network.py's
+    StackedNeRFMLP): rays [S, R, 3], depths and noise [S, R, N] in, the maps
+    of every scene out ([S, R, ...]), scene s's through scene s's net.
+    Under autograd the weights are packed anew with their graph and the
+    call differentiates through the stacked K6; otherwise the packing kept
+    on the module serves the forward alone."""
+    if not supports(cfg, pe_pts, pe_views, z_vals.shape[-1]):
+        raise ValueError("fused_render_level_stacked: unsupported MLP / posenc / sample count")
+    ro, rd, vd, z = (t.detach() for t in (rays_o, rays_d, viewdirs, z_vals))
+    nz = None if noise is None else noise.detach()
+    if torch.is_grad_enabled() and any(p.requires_grad for p in mlp.parameters()):
+        kp = fused_mlp.pack_params(mlp, pe_pts, pe_views, compute_dtype)
+        _check_stacked(kp, ro, rd, vd, z, nz)
+        rgb, disp, acc, w = _FusedRenderStacked.apply(ro, rd, vd, z, nz, white_bkgd,
+                                                      *(kp[n] for n in KP_NAMES))
+    else:
+        kp, blobs = fused_mlp.packed_params(mlp, pe_pts, pe_views, compute_dtype)
+        rgb, disp, acc, w, _ = fused_render_stacked_fwd(kp, ro, rd, vd, z, nz, white_bkgd, blobs)
     depth = torch.sum(w * z, -1)
     return RayOutputs(rgb=rgb, disp=disp, acc=acc, weights=w, depth=depth)

@@ -42,6 +42,7 @@ SIGNATURES = {
         "nerf_fused_mlp_fwd": (_I, [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
         "nerf_fused_mlp_fwd_points": (_I, [_I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
         "nerf_fused_mlp_fwd_stacked": (_I, [_I, _I] + [_P] * 4 + [_I] * 5 + [_P] * 4),
+        "nerf_fused_mlp_fwd_points_stacked": (_I, [_I, _I, _P, _P] + [_I] * 5 + [_P] * 4),
         "nerf_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "fused_mlp_bwd": {
@@ -67,6 +68,10 @@ SIGNATURES = {
             _I, [_I, _I] + [_P] * 5 + [_I] * 5 + [_P] * 4 + [_L, _P, _P],
         ),
         "nerf_fused_mlp_bwd_chain_points": (_I, [_I] + [_P] * 3 + [_I] * 4 + [_P] * 10),
+        "nerf_fused_mlp_bwd_points_stacked_workspace": (_I, [_I] * 5 + [ctypes.POINTER(_L)]),
+        "nerf_fused_mlp_bwd_points_stacked": (
+            _I, [_I, _I] + [_P] * 3 + [_I] * 5 + [_P] * 4 + [_L, _P, _P],
+        ),
         "nerf_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "fused_render": {
@@ -75,6 +80,7 @@ SIGNATURES = {
             [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L,
              _P],
         ),
+        "nerf_fused_render_fwd_stacked": (_I, [_I, _I] + [_P] * 5 + [_I] * 6 + [_P] * 8 + [_L, _P]),
         "nerf_fused_render_bwd_planes": (_I, [_P] * 8 + [_I, _I, _I, _P, _P]),
         "nerf_cuda_error_string": (ctypes.c_char_p, [_I]),
     },

@@ -44,12 +44,16 @@ The pieces:
   its bias partials and the input grads, with ``chain_layers_reference`` to
   hold each block to its one product on the kernel's own inputs. The plain
   backward (``_backward``) takes its cotangents from the same code;
-- the stacked (multi-scene) pair, ``fused_rays_planes_stacked`` /
-  ``fused_rays_planes_stacked_bwd`` and ``fused_query_rays_planes_stacked``:
-  S nets of one shape as leaves with a leading scene axis, one launch of K1
-  and of K4 for every scene's rays (``nerf_fused_mlp_fwd_stacked``,
-  ``nerf_fused_mlp_bwd_stacked``), each tile on its own scene's weights;
-  their plain versions apply K1's and K4's scene by scene.
+- the stacked (multi-scene) pairs, ``fused_rays_planes_stacked`` /
+  ``fused_rays_planes_stacked_bwd`` and ``fused_query_rays_planes_stacked``,
+  and ``fused_points_stacked`` / ``fused_points_stacked_bwd`` and
+  ``fused_query_stacked``: S nets of one shape as leaves with a leading
+  scene axis, one launch of K1 and of K4 (K2 and K3) for every scene's rays
+  (points) (``nerf_fused_mlp_fwd_stacked``, ``nerf_fused_mlp_bwd_stacked``,
+  ``nerf_fused_mlp_fwd_points_stacked``,
+  ``nerf_fused_mlp_bwd_points_stacked``), each tile on its own scene's
+  weights; their plain versions apply K1's and K4's (K2's and K3's) scene
+  by scene.
 """
 
 from __future__ import annotations
@@ -1382,9 +1386,19 @@ def fused_rays_planes_stacked_bwd_reference(kp, rays_o, rays_d, viewdirs, z_vals
 def _pad_rays(R: int, N: int) -> int:
     """The rays a scene is padded to for the stacked launches: a multiple of
     64 (whole 64-ray columns of K4's per-ray rows) whose R*N points are
-    whole tiles, so that no tile spans two scenes."""
+    whole tiles, so that no tile spans two scenes (at an odd N, a multiple
+    of 128). The points mode takes views of spr points for rays of N
+    samples (``_pad_points``); K5's ray groups, 128 / gcd(N, 128) rays, then
+    fill the scene too."""
     step = 64 if (64 * N) % FWD_TILE == 0 else 128
     return -(-R // step) * step
+
+
+def _pad_points(P: int, spr: int) -> int:
+    """The points a scene is padded to for the stacked points launches
+    (K2s, K3s): ``_pad_rays`` over its P / spr views of spr points, so
+    whole views, whole tiles and, at spr > 1, whole 64-view columns."""
+    return _pad_rays(P // spr, spr) * spr
 
 
 def _padded(ts, R_pad: int, dim: int = 1):
@@ -1458,11 +1472,21 @@ def fused_rays_planes_stacked_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g_planes
                                                        g_planes)
     if z_vals.device.type != "cuda":
         raise ValueError(f"no fused kernel for device {z_vals.device}")
-    dtype, W, Fp, Fv = _kernel_config(kp, z_vals)
-    dev = z_vals.device
     R_pad = _pad_rays(R, N)
-    ro, rd, vd, z = _padded((rays_o, rays_d, viewdirs, z_vals), R_pad)
     (g,) = _padded((g_planes,), R_pad, dim=2)  # padded rays: a zero cotangent
+    grads = _launch_stacked_bwd(kp, *_padded((rays_o, rays_d, viewdirs, z_vals), R_pad), g, blobs)
+    fused_rays_planes_stacked_bwd.launches += 1
+    return grads
+
+
+def _launch_stacked_bwd(kp, ro, rd, vd, z, g, blobs) -> Dict[str, torch.Tensor]:
+    """The stacked K4's launches on padded inputs (rays [S, R_pad, 3], depths
+    [S, R_pad, N], cotangent planes [4, S, R_pad, N], contiguous). The caller
+    counts the launch: the stacked K4's wrapper, or the stacked K6's
+    (experimental/fused_render.py), whose backward ends with these phases."""
+    dtype, W, Fp, Fv = _kernel_config(kp, z)
+    dev = z.device
+    S, R_pad, N = z.shape
     lib = _build.load("fused_mlp_bwd")
     use_bf16 = int(dtype == torch.bfloat16)
     ws, nbytes = _workspace(lib, lib.nerf_fused_mlp_bwd_stacked_workspace, "fused_mlp_bwd_stacked",
@@ -1478,7 +1502,6 @@ def fused_rays_planes_stacked_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g_planes
             ws.data_ptr(), nbytes, out.data_ptr(), stream,
         )
     _raise_on(lib, err, "fused_mlp_bwd_stacked")
-    fused_rays_planes_stacked_bwd.launches += 1
     bwd_recompute.launches += use_bf16
     bwd_chain.launches += use_bf16
     return _unpack_grads(out, W, Fp, Fv)
@@ -1527,3 +1550,181 @@ def fused_query_rays_planes_stacked(mlp, cfg: MLPConfig, pe_pts: PosEncConfig,
             *(kp[n] for n in KP_NAMES))
     kp, blobs = packed_params(mlp, pe_pts, pe_views, compute_dtype)
     return fused_rays_planes_stacked(kp, rays_o, rays_d, viewdirs, z_vals, blobs)
+
+
+# ------------------------------------------------- stacked (multi-scene) K2/K3
+#
+# The points-in pair for S scenes (the renderer's query at sample counts
+# that are not multiples of 8): points [S, P, 3] and directions [S, P/spr, 3],
+# one K2 launch and one K3 launch (its three phases) for every scene's
+# points, each tile on its own scene's weights. Weight grads only: the
+# renderer's points carry no gradient (nerf_tpu's vmapped fused_query with
+# input_grads=False).
+
+
+def _check_stacked_points(kp, x, v, spr) -> None:
+    S = x.shape[0]
+    if x.dim() != 3 or v.dim() != 3 or kp["W1"].dim() != 3 or kp["W1"].shape[0] != S \
+            or v.shape[0] != S:
+        raise ValueError(f"stacked points: x [S, P, 3], v [S, P/spr, 3] and leaves [S, ...]; "
+                         f"got x {tuple(x.shape)}, v {tuple(v.shape)} and W1 "
+                         f"{tuple(kp['W1'].shape)}")
+    _check_points(x.flatten(0, 1), v.flatten(0, 1), spr)
+    if x.shape[1] % spr:
+        raise ValueError(f"spr={spr} must divide a scene's {x.shape[1]} points")
+
+
+def fused_points_stacked_reference(kp, x, v, spr: int) -> torch.Tensor:
+    """Plain PyTorch version of the stacked K2: K2's plain version applied
+    scene by scene, raw [S, P, 4]."""
+    return torch.stack([fused_points_reference(_scene(kp, s), x[s], v[s], spr)
+                        for s in range(x.shape[0])])
+
+
+def fused_points_stacked_bwd_reference(kp, x, v, g, spr: int) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of the stacked K3: K3's plain version applied
+    scene by scene without input grads, grads with kp's stacked shapes."""
+    per = [fused_points_bwd_reference(_scene(kp, s), x[s], v[s], g[s], spr, False)[0]
+           for s in range(x.shape[0])]
+    return {k: torch.stack([gr[k] for gr in per]) for k in per[0]}
+
+
+def fused_points_stacked(kp, x, v, spr: int, blobs=None) -> torch.Tensor:
+    """Raw [S, P, 4] float32 of S scenes from stacked packed params ([S, ...]
+    leaves) at points x [S, P, 3], point p of scene s looking along
+    v[s, p // spr]: scene s's points through scene s's net. CUDA tensors
+    launch the stacked K2 once for every scene (``launches`` counts one a
+    launch, whatever S is), each scene's points zero-padded to
+    ``_pad_points``; CPU tensors take the plain version. ``blobs`` is
+    ``kernel_blobs(kp)`` where the caller keeps it."""
+    _check_stacked_points(kp, x, v, spr)
+    if x.device.type == "cpu":
+        return fused_points_stacked_reference(kp, x, v, spr)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {x.device}")
+    dtype, W, Fp, Fv = _kernel_config(kp, x)
+    S, P, _ = x.shape
+    P_pad = _pad_points(P, spr)
+    xp, vp = _padded((x,), P_pad) + _padded((v,), P_pad // spr)
+    out = torch.empty(S, P_pad, 4, dtype=torch.float32, device=x.device)
+    lib = _build.load("fused_mlp_fwd")
+    wblob, bblob = kernel_blobs(kp) if blobs is None else blobs
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.nerf_fused_mlp_fwd_points_stacked(
+            int(dtype == torch.bfloat16), W, xp.data_ptr(), vp.data_ptr(), S, P_pad, spr, Fp, Fv,
+            wblob.data_ptr(), bblob.data_ptr(), out.data_ptr(), stream,
+        )
+    _raise_on(lib, err, "fused_mlp_fwd_points_stacked")
+    fused_points_stacked.launches += 1
+    return out[:, :P]
+
+
+fused_points_stacked.launches = 0
+
+
+def stacked_points_workspace_bytes(W: int, n_scenes: int, pts_per_scene: int, spr: int,
+                                   bf16: bool = True) -> int:
+    """Bytes of device workspace that one stacked K3 launch takes (after
+    ``_pad_points``); asks the built library."""
+    lib = _build.load("fused_mlp_bwd")
+    nbytes = ctypes.c_longlong(0)
+    _raise_on(lib, lib.nerf_fused_mlp_bwd_points_stacked_workspace(
+        int(bf16), W, n_scenes, _pad_points(pts_per_scene, spr), spr, ctypes.byref(nbytes)),
+        "fused_mlp_bwd_points_stacked")
+    return nbytes.value
+
+
+def fused_points_stacked_bwd(kp, x, v, g, spr: int, blobs=None) -> Dict[str, torch.Tensor]:
+    """float32 grads of the stacked packed leaves (kp's [S, ...] shapes) from
+    the cotangent ``g [S, P, 4]`` of ``fused_points_stacked``'s output: each
+    scene's the grads of its own net (no input grads). CUDA tensors launch
+    the stacked K3 (its recompute, chain and weight grads once each for
+    every scene; ``launches`` counts one); CPU tensors take the plain
+    version."""
+    _check_stacked_points(kp, x, v, spr)
+    S, P, _ = x.shape
+    if g.shape != (S, P, 4) or g.dtype != torch.float32 or g.device != x.device:
+        raise ValueError(f"g: expected float32 {(S, P, 4)} on {x.device}, got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}")
+    if x.device.type == "cpu":
+        return fused_points_stacked_bwd_reference(kp, x, v, g, spr)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {x.device}")
+    dtype, W, Fp, Fv = _kernel_config(kp, x)
+    dev = x.device
+    P_pad = _pad_points(P, spr)
+    xp, gp = _padded((x, g), P_pad)  # padded points: a zero cotangent
+    (vp,) = _padded((v,), P_pad // spr)
+    lib = _build.load("fused_mlp_bwd")
+    use_bf16 = int(dtype == torch.bfloat16)
+    ws, nbytes = _workspace(lib, lib.nerf_fused_mlp_bwd_points_stacked_workspace,
+                            "fused_mlp_bwd_points_stacked", use_bf16, W, S, P_pad, spr, dev=dev)
+    out = torch.zeros(S, _grad_size(W), dtype=torch.float32, device=dev)
+    wblob, bblob = kernel_blobs(kp) if blobs is None else blobs
+    wtblob = _chain_blob(kp)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nerf_fused_mlp_bwd_points_stacked(
+            use_bf16, W, xp.data_ptr(), vp.data_ptr(), gp.data_ptr(), S, P_pad, spr, Fp, Fv,
+            wblob.data_ptr(), wtblob.data_ptr(), bblob.data_ptr(), ws.data_ptr(), nbytes,
+            out.data_ptr(), stream,
+        )
+    _raise_on(lib, err, "fused_mlp_bwd_points_stacked")
+    fused_points_stacked_bwd.launches += 1
+    bwd_recompute.launches += use_bf16
+    bwd_chain.launches += use_bf16
+    return _unpack_grads(out, W, Fp, Fv)
+
+
+fused_points_stacked_bwd.launches = 0
+
+
+class _FusedPointsStacked(torch.autograd.Function):
+    """The stacked K2 forward, the stacked K3 backward over stacked packed
+    leaves (KP_NAMES order); the points and directions get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, v, spr, *leaves):
+        kp = dict(zip(KP_NAMES, leaves))
+        blobs = kernel_blobs(kp) if x.is_cuda else None
+        ctx.save_for_backward(x, v, *leaves)
+        ctx.blobs, ctx.spr = blobs, spr
+        return fused_points_stacked(kp, x, v, spr, blobs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, v, *leaves = ctx.saved_tensors
+        kp = dict(zip(KP_NAMES, leaves))
+        grads = fused_points_stacked_bwd(kp, x, v, g.contiguous(), ctx.spr, ctx.blobs)
+        ctx.blobs = None
+        return (None,) * 3 + tuple(grads[n].to(kp[n].dtype) for n in KP_NAMES)
+
+
+def fused_query_stacked(mlp, cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig,
+                        pts: torch.Tensor, viewdirs: torch.Tensor,
+                        compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``fused_query`` for a stacked net (render/network.py's
+    StackedNeRFMLP) without input grads: points [S, R, N, 3] and view
+    directions [S, R, 3] in, raw [S, R, N, 4] out, scene s's through scene
+    s's net; the directions per ray (spr = N) where N is a multiple of 8,
+    else per point (spr = 1), as fused_query takes them. Points and
+    directions get no gradient (the renderer's: nerf_tpu's fused_query with
+    input_grads=False)."""
+    if not supports(cfg, pe_pts, pe_views):
+        raise ValueError("fused_query_stacked: unsupported MLP / posenc configuration")
+    S, R, N, _ = pts.shape
+    x = pts.detach().reshape(S, R * N, 3)
+    vd = viewdirs.detach()
+    if N % 8 == 0 and N > 1:
+        v, spr = vd, N
+    else:
+        v, spr = vd[:, :, None, :].expand(S, R, N, 3).reshape(S, R * N, 3), 1
+    if torch.is_grad_enabled() and any(p.requires_grad for p in mlp.parameters()):
+        kp = pack_params(mlp, pe_pts, pe_views, compute_dtype)
+        _check_stacked_points(kp, x, v, spr)
+        out = _FusedPointsStacked.apply(x, v, spr, *(kp[n] for n in KP_NAMES))
+    else:
+        kp, blobs = packed_params(mlp, pe_pts, pe_views, compute_dtype)
+        out = fused_points_stacked(kp, x, v, spr, blobs)
+    return out.reshape(S, R, N, 4)

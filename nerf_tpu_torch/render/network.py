@@ -10,8 +10,13 @@ path, which the renderer takes when its fused raygen branch does not apply
 
 ``StackedNeRFMLP`` holds S nets of one configuration as one module, every
 parameter with a leading scene axis: nerf_tpu's stacked pytree of
-multi-scene training (parallel/multi_scene.py), which the renderer sends
-through the stacked K1/K4 (``ops/fused_mlp.py::fused_query_rays_planes_stacked``).
+multi-scene training (parallel/multi_scene.py). The renderer sends it
+through the stacked form of the branch one net would take: the stacked
+K5/K6 (``experimental/fused_render.py::fused_render_level_stacked``), the
+stacked K1/K4 (``ops/fused_mlp.py::fused_query_rays_planes_stacked``), or
+``query_raw_stacked``: the stacked K2/K3 (``fused_mlp.fused_query_stacked``)
+or, where the kernels do not apply, the stacked plain MLP
+(``StackedNeRFMLP.apply_mlp``, batched products over the scene axis).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from torch import nn
 
 from nerf_tpu_torch.device import DeviceLike, resolve_device
 from nerf_tpu_torch.models.embedding import PosEncConfig, posenc
-from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
+from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP, round_to
 from nerf_tpu_torch.ops import fused_mlp
 
 
@@ -84,6 +89,37 @@ def query_raw(
     return raw.reshape(R, S, raw.shape[-1])
 
 
+def query_raw_stacked(
+    mlp: "StackedNeRFMLP",
+    model: NeRFModel,
+    pts: torch.Tensor,
+    viewdirs: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """``query_raw`` for a stacked net: raw [S, R, N, 4] float32 at points
+    [S, R, N, 3], with unit view directions [S, R, 3] (None without
+    viewdirs), scene s's through scene s's net. The points and directions
+    get no gradient (the renderer detaches them). Fused (``model.fused``,
+    viewdirs, a supported MLP): the stacked K2/K3; otherwise the stacked
+    plain MLP."""
+    S, R, N, _ = pts.shape
+    if (
+        model.fused
+        and viewdirs is not None
+        and fused_mlp.supports(mlp.cfg, model.pe_pts, model.pe_views)
+    ):
+        return fused_mlp.fused_query_stacked(
+            mlp, mlp.cfg, model.pe_pts, model.pe_views, pts, viewdirs,
+            compute_dtype=model.torch_compute_dtype,
+        )
+    x_emb = posenc(pts.detach().reshape(S, R * N, 3), model.pe_pts)
+    v_emb = None
+    if viewdirs is not None:
+        v_emb = posenc(viewdirs.detach(), model.pe_views)  # [S, R, Cv]
+        v_emb = v_emb[:, :, None, :].expand(S, R, N, v_emb.shape[-1]).reshape(S, R * N, -1)
+    raw = mlp.apply_mlp(x_emb, v_emb, compute_dtype=model.torch_compute_dtype)
+    return raw.reshape(S, R, N, raw.shape[-1])
+
+
 class StackedLinear(nn.Module):
     """S ``nn.Linear`` layers of one shape: weight [S, out, in], bias [S, out]."""
 
@@ -92,14 +128,27 @@ class StackedLinear(nn.Module):
         self.weight = nn.Parameter(torch.empty(n_scenes, out_features, in_features, device=device))
         self.bias = nn.Parameter(torch.empty(n_scenes, out_features, device=device))
 
+    def dense(self, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+        """Scene s's ``x[s] @ w[s].T + b[s]`` for x [S, P, in], one batched
+        product, operands in ``compute_dtype`` and sums in float32 (models/
+        nerf_mlp.py's ``dense`` over the scene axis)."""
+        w = round_to(self.weight, compute_dtype)
+        return torch.bmm(round_to(x, compute_dtype), w.mT) + self.bias[:, None, :]
+
 
 class StackedNeRFMLP(nn.Module):
     """S ``NeRFMLP`` nets of one ``MLPConfig`` as one module, each parameter
     stacked on a leading scene axis under nerf-pytorch's names
     (``pts_linears.i.weight`` [S, out, in], ``views_linears.0``, ...): scene
     s's slice of the state_dict is a NeRFMLP's and loads into one with
-    strict=True. The renderer runs it through the stacked K1/K4 only
-    (render/renderer.py)."""
+    strict=True. The renderer runs it through the stacked kernels of the
+    branch one net would take (render/renderer.py), and through
+    ``apply_mlp``, the plain forward, where no kernel applies
+    (``fused_kernels`` off, no viewdirs, widths or octaves the kernels are
+    not built for). ``plain_calls`` counts the plain forward's calls: on
+    the card with the kernels on it is never called."""
+
+    plain_calls = 0
 
     def __init__(self, cfg: MLPConfig, n_scenes: int, device: DeviceLike = None):
         super().__init__()
@@ -133,6 +182,37 @@ class StackedNeRFMLP(nn.Module):
             for name, p in out.named_parameters():
                 p.copy_(torch.stack([sd[name] for sd in sds]))
         return out
+
+    def apply_mlp(
+        self,
+        x_emb: torch.Tensor,
+        views_emb: Optional[torch.Tensor] = None,
+        compute_dtype: torch.dtype = torch.float32,
+    ) -> torch.Tensor:
+        """Embedded points [S, P, input_ch] (+ embedded dirs [S, P, Cv]) ->
+        raw [S, P, 4] float32 (or [S, P, output_ch] without viewdirs), scene
+        s's by scene s's net: ``NeRFMLP.apply_mlp`` with each layer a batched
+        product over the scene axis (``StackedLinear.dense``)."""
+        StackedNeRFMLP.plain_calls += 1
+        cfg = self.cfg
+        h = x_emb
+        for i, layer in enumerate(self.pts_linears):
+            h = torch.relu(layer.dense(h, compute_dtype))
+            if i in cfg.skips:
+                h = torch.cat([x_emb, h], dim=-1)
+        if not cfg.use_viewdirs:
+            return self.output_linear.dense(h, compute_dtype)
+        if views_emb is None:
+            raise ValueError("use_viewdirs=True requires views_emb")
+        alpha = self.alpha_linear.dense(h, compute_dtype)
+        feature = self.feature_linear.dense(h, compute_dtype)
+        h = torch.relu(
+            self.views_linears[0].dense(torch.cat([feature, views_emb], -1), compute_dtype)
+        )
+        rgb = self.rgb_linear.dense(h, compute_dtype)
+        return torch.cat([rgb, alpha], dim=-1)
+
+    forward = apply_mlp
 
     def scene_state_dict(self, s: int) -> Dict[str, torch.Tensor]:
         """Scene s's parameters (detached views) as a NeRFMLP state_dict."""

@@ -13,9 +13,9 @@ run_nerf.py:308-418; render / batchify_rays run_nerf.py:54-134):
   points-in query (K2/K3 when fused, else plain PyTorch);
 - stacked nets (``StackedNeRFMLP``, multi-scene training) take the rays of
   their S scenes one scene after another, [S*R]: sampling and compositing
-  run once over all of them, and each level's MLP is the stacked K1/K4, one
-  launch for every scene (the K2/K3 and K5/K6 paths are not stacked yet,
-  ROADMAP A.9b);
+  run once over all of them, and each level takes the branch one net would
+  take, stacked (nerf_tpu vmaps the whole step): the stacked K5/K6, K1/K4
+  or K2/K3, one launch for every scene, or the stacked plain MLP;
 - full frames are rendered in chunks by a Python loop; with a mesh (data
   parallelism, parallel/mesh.py) each rank renders its rows of the frame
   and the ranks gather the maps;
@@ -38,7 +38,9 @@ from nerf_tpu_torch.geom.rays import get_rays, ndc_rays
 from nerf_tpu_torch.ops import fused_mlp
 from nerf_tpu_torch.ops.compositing import raw2outputs, raw2outputs_planes, sigma_noise
 from nerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
-from nerf_tpu_torch.render.network import NeRFModel, StackedNeRFMLP, query_raw
+from nerf_tpu_torch.render.network import (
+    NeRFModel, StackedNeRFMLP, query_raw, query_raw_stacked,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,22 +104,13 @@ def render_rays(
         mlp = nets[level] if level in nets else nets["coarse"]
         mlp_cfg = model.mlp_config(level)
         S = z.shape[-1]
-        if isinstance(mlp, StackedNeRFMLP):
-            # S scenes' rays, [n * R]: scene s's R rays through scene s's net
-            check_stacked(model, mlp_cfg, rs, S, viewdirs is not None)
-            n = mlp.n_scenes
-            R = z.shape[0] // n
-            raw4 = fused_mlp.fused_query_rays_planes_stacked(
-                mlp, mlp_cfg, model.pe_pts, model.pe_views,
-                *(t.detach().reshape(n, R, t.shape[-1]) for t in (rays_o, rays_d, viewdirs, z)),
-                compute_dtype=model.torch_compute_dtype,
-            ).reshape(4, n * R, S)
-            out = raw2outputs_planes(
-                raw4, z, rays_d,
-                raw_noise_std=rs.raw_noise_std, white_bkgd=rs.white_bkgd,
-                generator=generator, noise=noise_override,
-            )
-            return (raw4.movedim(0, -1) if rs.retraw else None), out
+        # stacked nets: the same branches, each op's stacked form on the
+        # rays as [scenes, R, ...] (scene s's R rays through scene s's net)
+        stacked = isinstance(mlp, StackedNeRFMLP)
+
+        def per_scene(t):
+            return t.detach().reshape(mlp.n_scenes, -1, *t.shape[1:])
+
         if (
             model.fused_render
             and viewdirs is not None
@@ -130,6 +123,15 @@ def render_rays(
             noise = noise_override
             if noise is None:
                 noise = sigma_noise(z, rs.raw_noise_std, generator)
+            if stacked:
+                out = fused_render.fused_render_level_stacked(
+                    mlp, mlp_cfg, model.pe_pts, model.pe_views,
+                    *(per_scene(t) for t in (rays_o, rays_d, viewdirs, z)),
+                    None if noise is None else per_scene(noise), rs.white_bkgd,
+                    compute_dtype=model.torch_compute_dtype,
+                )
+                return None, dataclasses.replace(
+                    out, **{k: t.flatten(0, 1) for k, t in vars(out).items()})
             out = fused_render.fused_render_level(
                 mlp, mlp_cfg, model.pe_pts, model.pe_views, rays_o, rays_d, viewdirs, z,
                 noise, rs.white_bkgd, compute_dtype=model.torch_compute_dtype,
@@ -144,11 +146,18 @@ def render_rays(
         ):
             # raygen + planes mode: the points and the per-point raw never
             # exist outside the kernel
-            raw4 = fused_mlp.fused_query_rays_planes(
-                mlp, mlp_cfg, model.pe_pts, model.pe_views,
-                rays_o.detach(), rays_d.detach(), viewdirs.detach(), z.detach(),
-                compute_dtype=model.torch_compute_dtype,
-            )
+            if stacked:
+                raw4 = fused_mlp.fused_query_rays_planes_stacked(
+                    mlp, mlp_cfg, model.pe_pts, model.pe_views,
+                    *(per_scene(t) for t in (rays_o, rays_d, viewdirs, z)),
+                    compute_dtype=model.torch_compute_dtype,
+                ).flatten(1, 2)
+            else:
+                raw4 = fused_mlp.fused_query_rays_planes(
+                    mlp, mlp_cfg, model.pe_pts, model.pe_views,
+                    rays_o.detach(), rays_d.detach(), viewdirs.detach(), z.detach(),
+                    compute_dtype=model.torch_compute_dtype,
+                )
             out = raw2outputs_planes(
                 raw4, z, rays_d,
                 raw_noise_std=rs.raw_noise_std, white_bkgd=rs.white_bkgd,
@@ -161,7 +170,11 @@ def render_rays(
         # into the network, so the backward skips its input-grad branch
         pts = (rays_o[..., None, :] + rays_d[..., None, :] * z[..., :, None]).detach()
         vd = None if viewdirs is None else viewdirs.detach()
-        raw = query_raw(mlp, model, pts, vd, input_grads=False)
+        if stacked:
+            raw = query_raw_stacked(mlp, model, per_scene(pts),
+                                    None if vd is None else per_scene(vd)).flatten(0, 1)
+        else:
+            raw = query_raw(mlp, model, pts, vd, input_grads=False)
         out = raw2outputs(
             raw, z, rays_d,
             raw_noise_std=rs.raw_noise_std, white_bkgd=rs.white_bkgd,
@@ -196,28 +209,6 @@ def render_rays(
     if rs.retraw:
         ret["raw"] = raw
     return ret
-
-
-def check_stacked(model: NeRFModel, mlp_cfg, rs: RenderSettings, n_samples: int,
-                  viewdirs: bool = True) -> None:
-    """Raise unless a stacked net's level can take the stacked K1/K4: the
-    fused raygen branch (``model.fused``, viewdirs, an MLP the kernels
-    support, a sample count that is a multiple of 8), without
-    ``fused_render``. The stacked K2/K3 and K5/K6 are ROADMAP A.9b."""
-    if model.fused_render:
-        raise NotImplementedError(
-            "multi-scene training with --fused_render (a stacked K5/K6) is not ported yet "
-            "(ROADMAP A.9b)")
-    if not (model.fused and viewdirs and rs.use_viewdirs
-            and fused_mlp.supports(mlp_cfg, model.pe_pts, model.pe_views)):
-        raise NotImplementedError(
-            "multi-scene training runs the stacked K1/K4 only: it needs fused_kernels, "
-            "use_viewdirs and an MLP the kernels support (ROADMAP A.9b, C.3)")
-    if n_samples % 8 or n_samples < 2:
-        raise NotImplementedError(
-            f"multi-scene training at {n_samples} samples would take the points-in path, "
-            "K2/K3, which is not stacked yet (ROADMAP A.9b): use sample counts that are "
-            "multiples of 8")
 
 
 def prepare_rays(

@@ -829,3 +829,112 @@ def test_stacked_k1_k4_match_plain_and_single_launches(cuda_device, width, dtype
                     assert _same_bits(grads[k][s], v), (s, k)
                 else:
                     assert _rel_l2(grads[k][s], v) <= gtol, (s, k)
+
+
+# The stacked K2/K3 and K5/K6 of multi-scene training (one launch for S
+# scenes, each tile on its own scene's weights; K6's compositing pass once
+# over every scene's rays), against their plain versions (the single-scene
+# kernels' scene by scene) at this file's bounds, and against S
+# single-scene launches at 1, 127 and 129 rays a scene. A scene's points
+# (rays) are padded to whole tiles, views and 64-view columns (whole ray
+# groups), so each tile computes what the single-scene kernel computes for
+# it alone: raw and the maps equal S single launches bit for bit; the grads
+# too where no scene is padded (none of these shapes: a padded scene's
+# weight grads sum in other splits, within the bound). (R, N, spr) of K2s
+# and K3s: a direction per point at odd N (the renderer's), per ray at 16.
+STACKED_POINTS_CASES = ((1, 63, 1), (127, 15, 1), (129, 16, 16))
+STACKED_RENDER_CASES = ((1, 64), (127, 192), (129, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, F32_TOL, K3_F32_TOL),
+                                            (torch.bfloat16, BF16_TOL, K4_BF16_TOL)])
+def test_stacked_k2_k3_match_plain_and_single_launches(cuda_device, width, dtype, tol, gtol):
+    from nerf_tpu_torch.render.network import StackedNeRFMLP
+
+    S = 3
+    nets = [NeRFMLP(MLPConfig(width=width), seed=width + 10 + s, device=cuda_device)
+            for s in range(S)]
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(StackedNeRFMLP.from_nets(nets), PE_P, PE_V, dtype)
+    for R, N, spr in STACKED_POINTS_CASES:
+        pts = [_points(R * N + s, R, N, spr, cuda_device) for s in range(S)]
+        x, v = (torch.stack(t) for t in zip(*pts))
+        gen = torch.Generator(device=cuda_device).manual_seed(R)
+        g = (0.5 + torch.rand(S, R * N, 4, device=cuda_device, generator=gen)) * 1e-4
+        before = (fused_mlp.fused_points_stacked.launches,
+                  fused_mlp.fused_points_stacked_bwd.launches)
+        out = fused_mlp.fused_points_stacked(kp, x, v, spr)
+        grads = fused_mlp.fused_points_stacked_bwd(kp, x, v, g, spr)
+        torch.cuda.synchronize()
+        assert (fused_mlp.fused_points_stacked.launches,
+                fused_mlp.fused_points_stacked_bwd.launches) == (before[0] + 1, before[1] + 1)
+        assert out.shape == (S, R * N, 4)
+        err = float((out - fused_mlp.fused_points_stacked_reference(kp, x, v, spr)).abs().max())
+        ref_g = fused_mlp.fused_points_stacked_bwd_reference(kp, x, v, g, spr)
+        gerr = max(_rel_l2(grads[k][s], ref_g[k][s]) for k in ref_g for s in range(S))
+        print(f"stacked K2/K3 W={width} {dtype} S={S} R={R} N={N} spr={spr}: K2 max abs "
+              f"{err:.3e}, K3 worst leaf {gerr:.3e}")  # with -s
+        assert err <= tol and gerr <= gtol, (R, N, spr, err, gerr)
+        for s in range(S):
+            kp_s = {k: t[s].contiguous() for k, t in kp.items()}
+            assert _same_bits(out[s], fused_mlp.fused_points(kp_s, x[s], v[s], spr)), s
+            single, _, _ = fused_mlp.fused_points_bwd(kp_s, x[s], v[s], g[s].contiguous(), spr,
+                                                      input_grads=False)
+            for k, t in single.items():
+                assert _rel_l2(grads[k][s], t) <= gtol, (s, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, F32_TOL, K4_F32_TOL),
+                                            (torch.bfloat16, BF16_TOL, K4_BF16_TOL)])
+def test_stacked_k5_k6_match_plain_and_single_launches(cuda_device, width, dtype, tol, gtol):
+    from nerf_tpu_torch.experimental import fused_render
+    from nerf_tpu_torch.render.network import StackedNeRFMLP
+
+    S = 3
+    nets = [NeRFMLP(MLPConfig(width=width), seed=width + 20 + s, device=cuda_device)
+            for s in range(S)]
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(StackedNeRFMLP.from_nets(nets), PE_P, PE_V, dtype)
+    for i, (R, N) in enumerate(STACKED_RENDER_CASES):
+        white = i % 2 == 0
+        ro, rd, vd, z, noise = (torch.stack(t) for t in zip(*(
+            _render_inputs(R + N + s, R, N, cuda_device) for s in range(S))))
+        gen = torch.Generator(device=cuda_device).manual_seed(R + N)
+        g = [(0.5 + torch.rand(S, *sh, device=cuda_device, generator=gen)) * 1e-4
+             for sh in ((R, 3), (R,), (R,), (R, N))]
+        counters = (fused_render.fused_render_stacked_fwd, fused_render.fused_render_stacked_bwd,
+                    fused_render.composite_bwd, fused_mlp.fused_rays_planes_stacked_bwd)
+        before = [c.launches for c in counters]
+        out = fused_render.fused_render_stacked_fwd(kp, ro, rd, vd, z, noise, white,
+                                                    keep_raw=True)
+        grads = fused_render.fused_render_stacked_bwd(kp, ro, rd, vd, z, noise, out.raw, *g, white)
+        torch.cuda.synchronize()
+        # one K5s, one K6s with its one compositing pass, no K4s counted
+        assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0]
+        with torch.no_grad():
+            ref = fused_render.fused_render_stacked_reference(kp, ro, rd, vd, z, noise, white)
+        err = _maps_err(out, ref)
+        # the residual raw: the stacked K1's planes bit for bit
+        assert torch.equal(out.raw, fused_mlp.fused_rays_planes_stacked(kp, ro, rd, vd, z))
+        # serving (no raw planes: a slab per CTA of the (x, scene) grid)
+        served = fused_render.fused_render_stacked_fwd(kp, ro, rd, vd, z, noise, white)
+        assert served.raw is None and all(_same_bits(a, b) for a, b in zip(served[:4], out[:4]))
+        ref_g = fused_render.fused_render_stacked_bwd_reference(kp, ro, rd, vd, z, noise, out.raw,
+                                                                *g, white)
+        gerr = max(_rel_l2(grads[k][s], ref_g[k][s]) for k in ref_g for s in range(S))
+        print(f"stacked K5/K6 W={width} {dtype} white={white} S={S} R={R} N={N}: maps max abs "
+              f"{err:.3e}, K6 worst leaf {gerr:.3e}")  # with -s
+        assert err <= tol and gerr <= gtol, (R, N, err, gerr)
+        for s in range(S):
+            kp_s = {k: t[s].contiguous() for k, t in kp.items()}
+            one_in = [t[s] for t in (ro, rd, vd, z, noise)]
+            one = fused_render.fused_render_fwd(kp_s, *one_in, white, keep_raw=True)
+            assert all(_same_bits(a[s], b) for a, b in zip(out[:4], one[:4])), s
+            single = fused_render.fused_render_bwd(kp_s, *one_in, one.raw,
+                                                   *(t[s].contiguous() for t in g), white)
+            for k, t in single.items():
+                assert _rel_l2(grads[k][s], t) <= gtol, (s, k)

@@ -3,14 +3,18 @@ at a time, on the CPU.
 
 nerf_tpu trains S scenes as one ``jax.vmap`` of its step
 (nerf_tpu/parallel/multi_scene.py); the port stacks the S nets
-(``StackedNeRFMLP``) and runs one step whose levels launch the stacked K1
-and K4 once for every scene (on the CPU, their plain versions: K1's and
-K4's scene by scene). JAX's Pallas kernels run in interpret mode, as
-tests/test_torch_port_train.py runs them. At the smallest shapes that
-catch a wrong result: 8x128 nets, S = 2 or 3 scenes, 13 rays, 16 + 8
-samples (both levels multiples of 8: the stacked K1/K4 branch).
+(``StackedNeRFMLP``) and runs one step whose levels take the branch one
+net would take, stacked: the stacked K1/K4, K2/K3 or K5/K6, each launched
+once for every scene (on the CPU, their plain versions: the single-scene
+kernels' scene by scene), or the stacked plain MLP. JAX's Pallas kernels
+run in interpret mode, as tests/test_torch_port_train.py runs them. At the
+smallest shapes that catch a wrong result: 8x128 nets, S = 2 or 3 scenes,
+13 rays, 16 + 8 samples (both levels multiples of 8: the stacked K1/K4
+branch), 15 + 8 (the points-in branch, K2/K3), 16 + 8 with fused_render
+(K5/K6), 8 + 0 with fused_kernels off (the plain MLP).
 """
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -20,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from nerf_tpu.experimental import fused_render as jfr
 from nerf_tpu.geom.poses import pose_spherical as jpose_spherical
 from nerf_tpu.ops import fused_mlp as jfused
 from nerf_tpu.parallel import multi_scene as jms
@@ -30,6 +35,7 @@ from nerf_tpu_torch import config as tconfig
 from nerf_tpu_torch.cli import train_multi
 from nerf_tpu_torch.data import synth
 from nerf_tpu_torch.data.rays_dataset import ImageRaySampler
+from nerf_tpu_torch.experimental import fused_render as tfr
 from nerf_tpu_torch.geom.rays import ndc_rays
 from nerf_tpu_torch.models import factory as tfactory
 from nerf_tpu_torch.models.convert import (
@@ -41,7 +47,7 @@ from nerf_tpu_torch.ops import fused_mlp
 from nerf_tpu_torch.ops.sampling import stratified_z_vals
 from nerf_tpu_torch.parallel import multi_scene as ms
 from nerf_tpu_torch.render import renderer as tr
-from nerf_tpu_torch.render.network import NeRFModel, StackedNeRFMLP
+from nerf_tpu_torch.render.network import NeRFModel, StackedNeRFMLP, query_raw, query_raw_stacked
 from nerf_tpu_torch.tools import make_multi_scenes
 from nerf_tpu_torch.train import step as tstep
 from nerf_tpu_torch.train.loop import load_scene, train
@@ -83,10 +89,22 @@ def _stacked(arrays):
     return [torch.stack([torch.as_tensor(a[s]) for a in arrays]) for s in range(len(arrays[0]))]
 
 
-def _scene_rays(nets, S):
+def _scene_rays(nets, S, n_samples=N_SAMPLES):
     """Per scene s: rays and depths whose relu inputs under nets[s] lie
     clear of zero (ROADMAP C.r3), as numpy."""
-    return [_conditioned_rays(nets[s], N_SAMPLES)[:4] for s in range(S)]
+    return [_conditioned_rays(nets[s], n_samples)[:4] for s in range(S)]
+
+
+def _assert_grads_match_jax(stacked, jgrads, S):
+    """Each scene's grads of the stacked net within F32_PALLAS_GRAD_TOL of
+    each leaf's largest entry of nerf_tpu's vmapped grads."""
+    grads = {n: p.grad for n, p in stacked.named_parameters()}
+    for s in range(S):
+        got = jax_params_from_state_dict({n: g[s] for n, g in grads.items()}, CFG)
+        want = jax.tree.map(lambda x: np.asarray(x)[s], jgrads)
+        for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(got), jax.tree.leaves(want)):
+            err = np.abs(g - w).max() / np.abs(w).max()
+            assert err <= F32_PALLAS_GRAD_TOL, (s, jax.tree_util.keystr(path), err)
 
 
 # (a) the stacked op: S single-scene calls, and jax.vmap of nerf_tpu's
@@ -145,13 +163,153 @@ def test_stacked_op_matches_jax_vmap():
         compute_dtype=torch.float32)
     assert float((out.movedim(1, 0) - torch.from_numpy(np.asarray(jout))).abs().max()) <= F32_FWD_TOL
     ((out.movedim(1, 0) - torch.from_numpy(target)) ** 2).mean((1, 2, 3)).sum().backward()
+    _assert_grads_match_jax(stacked, jgrads, S)
+
+
+# The stacked K2/K3 and K5/K6 (and the stacked plain MLP): their plain
+# versions (the CPU's) are the single-scene ops' scene by scene, and they
+# hold to jax.vmap of nerf_tpu's fused_query and fused_render_level.
+POINTS_SAMPLES = 15  # not a multiple of 8: a direction per point (spr = 1)
+
+
+def _render_noise(S, n_samples=N_SAMPLES):
+    rng = np.random.default_rng(7)
+    return (rng.standard_normal((S, R, n_samples)) * 0.5).astype(np.float32)
+
+
+def _map_loss(o, xp):
+    """One-signed weights on every map of a stacked level's output (each
+    [S, R, ...]); disp only where finite."""
+    disp = xp.where(xp.isfinite(o.disp), o.disp, 0.0)
+    return (((o.rgb - 0.5) ** 2).mean() + 0.3 * disp.mean() + 0.5 * o.acc.mean()
+            + 0.7 * o.weights.mean()) * o.rgb.shape[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["points", "render", "plain"])
+def test_stacked_points_render_plain_are_single_scene_calls(op, dtype):
+    """The stacked K2/K3 (fused_query_stacked) and K5/K6
+    (fused_render_level_stacked) through the stacked net, their plain
+    versions on the CPU, are the single-scene ops (fused_query without input
+    grads, fused_render_level) scene by scene, forward and grads bit for
+    bit, with no launch counted. The stacked plain MLP (query_raw_stacked
+    with fused_kernels off: StackedNeRFMLP.apply_mlp) against query_raw's
+    NeRFMLP.apply_mlp scene by scene, with viewdirs and without (nets with
+    an output_linear): its batched products sum in another order than one
+    net's, so within 1e-6 (measured 1.5e-8); its calls are counted."""
+    S = 2
+    nets = [NeRFMLP(CFG, seed=60 + s, device="cpu") for s in range(S)]
+    stacked = StackedNeRFMLP.from_nets(nets)
+    n = POINTS_SAMPLES if op != "render" else N_SAMPLES
+    ro, rd, vd, z = (torch.from_numpy(np.stack(a)) for a in zip(*_scene_rays(nets, S, n)))
+    pts = ro[:, :, None] + rd[:, :, None] * z[..., None]
+    noise = torch.from_numpy(_render_noise(S))
+    counters = (fused_mlp.fused_points_stacked, fused_mlp.fused_points_stacked_bwd,
+                tfr.fused_render_stacked_fwd, tfr.fused_render_stacked_bwd)
+    before = [c.launches for c in counters], StackedNeRFMLP.plain_calls
+    if op == "points":
+        out = fused_mlp.fused_query_stacked(stacked, CFG, PE_P, PE_V, pts, vd, compute_dtype=dtype)
+        out.square().mean((1, 2, 3)).sum().backward()
+    elif op == "render":
+        out = tfr.fused_render_level_stacked(stacked, CFG, PE_P, PE_V, ro, rd, vd, z, noise, True,
+                                             compute_dtype=dtype)
+        _map_loss(out, torch).backward()
+    else:
+        model = NeRFModel(PE_P, PE_V, CFG, CFG, "float32" if dtype == torch.float32 else "bfloat16")
+        out = query_raw_stacked(stacked, model, pts, vd)
+    assert [c.launches for c in counters] == before[0]  # CPU: no launch
+    assert StackedNeRFMLP.plain_calls == before[1] + (op == "plain")
     grads = {n: p.grad for n, p in stacked.named_parameters()}
-    for s in range(S):
-        got = jax_params_from_state_dict({n: g[s] for n, g in grads.items()}, CFG)
-        want = jax.tree.map(lambda x: np.asarray(x)[s], jgrads)
-        for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(got), jax.tree.leaves(want)):
-            err = np.abs(g - w).max() / np.abs(w).max()
-            assert err <= F32_PALLAS_GRAD_TOL, (s, jax.tree_util.keystr(path), err)
+    for s, net in enumerate(nets):
+        if op == "points":
+            one = fused_mlp.fused_query(net, CFG, PE_P, PE_V, pts[s], vd[s], compute_dtype=dtype,
+                                        input_grads=False)
+            assert torch.equal(out[s], one), s
+            one.square().mean().backward()
+        elif op == "render":
+            one = tfr.fused_render_level(net, CFG, PE_P, PE_V, ro[s], rd[s], vd[s], z[s],
+                                         noise[s], True, compute_dtype=dtype)
+            for name in ("rgb", "disp", "acc", "weights", "depth"):
+                a, b = getattr(out, name)[s], getattr(one, name)
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32)), (s, name)
+            _map_loss(type(one)(*(t[None] for t in vars(one).values())), torch).backward()
+        else:
+            one = query_raw(net, model, pts[s], vd[s])
+            assert float((out[s] - one).abs().max()) <= 1e-6, s
+            continue
+        for name, p in net.named_parameters():
+            assert torch.equal(grads[name][s], p.grad), (s, name)
+    if op == "plain":  # and without viewdirs: output_linear
+        cfg_nv = dataclasses.replace(CFG, use_viewdirs=False)
+        nets_nv = [NeRFMLP(cfg_nv, seed=64 + s, device="cpu") for s in range(S)]
+        model_nv = NeRFModel(PE_P, None, cfg_nv, cfg_nv, model.compute_dtype)
+        out = query_raw_stacked(StackedNeRFMLP.from_nets(nets_nv), model_nv, pts, None)
+        for s, net in enumerate(nets_nv):
+            one = query_raw(net, model_nv, pts[s], None)
+            assert out[s].shape == one.shape and float((out[s] - one).abs().max()) <= 1e-6, s
+
+
+def test_stacked_points_op_matches_jax_vmap():
+    """The stacked K2/K3 (fused_query_stacked, no input grads) against
+    jax.vmap of nerf_tpu's fused_query with input_grads=False over a scene
+    axis (its Pallas K2/K3 in interpret mode), in f32 at 15 samples (a
+    direction per point): the forward within 1e-5, each scene's grads within
+    F32_PALLAS_GRAD_TOL of each leaf's largest entry."""
+    S = 2
+    params = [_jparams(70 + s) for s in range(S)]
+    nets = [_port_net(p) for p in params]
+    ro, rd, vd, z = (np.stack(a) for a in zip(*_scene_rays(nets, S, POINTS_SAMPLES)))
+    pts = ro[:, :, None] + rd[:, :, None] * z[..., None]
+    target = np.random.default_rng(2).uniform(-1, 1, (S, R, POINTS_SAMPLES, 4)).astype(np.float32)
+    jparams = jax.tree.map(lambda *xs: np.stack(xs), *params)
+
+    def jloss(p):
+        out = jax.vmap(lambda p, x, v: jfused.fused_query(
+            p, JCFG, JPE_P, JPE_V, x, v, compute_dtype=jnp.float32, input_grads=False))(
+            p, jnp.asarray(pts), jnp.asarray(vd))
+        return jnp.sum(jnp.mean((out - target) ** 2, axis=(1, 2, 3))), out
+
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jparams)
+    stacked = StackedNeRFMLP.from_nets(nets)
+    out = fused_mlp.fused_query_stacked(stacked, CFG, PE_P, PE_V, torch.from_numpy(pts),
+                                        torch.from_numpy(vd), compute_dtype=torch.float32)
+    assert float((out - torch.from_numpy(np.asarray(jout))).abs().max()) <= F32_FWD_TOL
+    ((out - torch.from_numpy(target)) ** 2).mean((1, 2, 3)).sum().backward()
+    _assert_grads_match_jax(stacked, jgrads, S)
+
+
+def test_stacked_render_op_matches_jax_vmap():
+    """The stacked K5/K6 (fused_render_level_stacked) against jax.vmap of
+    nerf_tpu's fused_render_level over a scene axis (its Pallas K5/K6 in
+    interpret mode), in f32 with sigma noise and a white background: every
+    map within 1e-5 (disp where finite), each scene's grads of a loss on
+    every map within F32_PALLAS_GRAD_TOL of each leaf's largest entry."""
+    S = 2
+    params = [_jparams(80 + s) for s in range(S)]
+    nets = [_port_net(p) for p in params]
+    ro, rd, vd, z = (np.stack(a) for a in zip(*_scene_rays(nets, S)))
+    noise = _render_noise(S)
+    jparams = jax.tree.map(lambda *xs: np.stack(xs), *params)
+
+    def jlevel(p):
+        return jax.vmap(lambda p, *a: jfr.fused_render_level(
+            p, JCFG, JPE_P, JPE_V, *a, True, compute_dtype=jnp.float32))(
+            p, *(jnp.asarray(a) for a in (ro, rd, vd, z, noise)))
+
+    jout = jax.jit(jlevel)(jparams)
+    jgrads = jax.jit(jax.grad(lambda p: _map_loss(jlevel(p), jnp)))(jparams)
+    stacked = StackedNeRFMLP.from_nets(nets)
+    out = tfr.fused_render_level_stacked(stacked, CFG, PE_P, PE_V,
+                                         *(torch.from_numpy(a) for a in (ro, rd, vd, z, noise)),
+                                         True, compute_dtype=torch.float32)
+    for name in ("rgb", "disp", "acc", "weights", "depth"):
+        got, want = getattr(out, name).detach().numpy(), np.asarray(getattr(jout, name))
+        assert got.shape == want.shape, name
+        finite = np.isfinite(want)
+        assert (np.isfinite(got) == finite).all(), name
+        assert np.abs(got[finite] - want[finite]).max() <= F32_FWD_TOL, name
+    _map_loss(out, torch).backward()
+    _assert_grads_match_jax(stacked, jgrads, S)
 
 
 # (b) whole stacked steps: nerf_tpu's make_multi_scene_step, S one-scene steps
@@ -176,7 +334,8 @@ def _batch(s, n=R):
             rng.uniform(0, 1, (n, 3)).astype(np.float32))
 
 
-def _conditioned_step(net, make_batch, seed, hwf=None, margin=2e-6):
+def _conditioned_step(net, make_batch, seed, hwf=None, margin=2e-6, n_samples=N_SAMPLES,
+                      n_importance=N_IMPORTANCE):
     """A batch (make_batch(seed + k)) and its jitter t_rand and importance u
     whose coarse relu inputs under ``net`` all lie further than ``margin``
     from zero (ROADMAP C.r3; test_torch_port_train.py's _conditioned_rays for
@@ -188,35 +347,55 @@ def _conditioned_step(net, make_batch, seed, hwf=None, margin=2e-6):
     for k in range(100):
         batch = make_batch(seed + k)
         rng = np.random.default_rng(seed + k)
-        ov = {"t_rand": rng.uniform(size=(R, N_SAMPLES)).astype(np.float32),
-              "u": rng.uniform(size=(R, N_IMPORTANCE)).astype(np.float32)}
+        ov = {"t_rand": rng.uniform(size=(R, n_samples)).astype(np.float32)}
+        if n_importance:
+            ov["u"] = rng.uniform(size=(R, n_importance)).astype(np.float32)
         ro, rd, near, far = (torch.from_numpy(a) for a in batch[:4])
         vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
         if hwf is not None:
             ro, rd = ndc_rays(*hwf, 1.0, ro, rd)
-        z = stratified_z_vals(near, far, N_SAMPLES, perturb=True,
+        z = stratified_z_vals(near, far, n_samples, perturb=True,
                               t_rand=torch.from_numpy(ov["t_rand"]))
         if _min_preactivation(net, *(t.numpy() for t in (ro, rd, vd, z))) > margin:
             return batch, ov
     raise AssertionError("no well-conditioned batch in 100 seeds")
 
 
-@pytest.mark.parametrize("ndc", [False, True], ids=["blender", "ndc"])
-def test_multi_scene_steps_match_jax(ndc):
-    """Two steps of make_multi_scene_step against jax.vmap of nerf_tpu's
+# (ndc, n_samples, n_importance, fused, fused_render, steps) of each branch
+# of the stacked step: the raygen K1/K4 (blender and NDC), the points-in
+# K2/K3 (15 + 8), the fused render K5/K6 (16 + 8), and the plain MLP
+# (fused_kernels off at 8 + 0, nerf_tpu's own multi-scene CLI test config,
+# tests/test_multi_scene.py::test_train_multi_cli_on_mesh). The branches
+# added to the raygen pair take one step: the second step's Adam carry is
+# the raygen pair's.
+STEP_PATHS = {"blender": (False, N_SAMPLES, N_IMPORTANCE, True, False, 2),
+              "ndc": (True, N_SAMPLES, N_IMPORTANCE, True, False, 2),
+              "points": (False, POINTS_SAMPLES, N_IMPORTANCE, True, False, 1),
+              "fused_render": (False, N_SAMPLES, N_IMPORTANCE, True, True, 1),
+              "plain": (False, 8, 0, False, False, 1)}
+
+
+@pytest.mark.parametrize("path", list(STEP_PATHS))
+def test_multi_scene_steps_match_jax(path):
+    """Steps of make_multi_scene_step against jax.vmap of nerf_tpu's
     make_train_step_core over the scene axis (what its
-    make_multi_scene_step vmaps) on the same stacked draws, and with NDC
-    two scenes of different (H, W, focal), each an operand per scene (its
-    hwf_operand): each scene's loss within rtol 1e-5, its weights within
-    test_train_steps_match_jax's bounds (4 lr, each leaf's update within
-    UPDATE_TOL relative L2), on batches whose coarse relu inputs lie clear
-    of zero (_conditioned_step)."""
+    make_multi_scene_step vmaps) on the same stacked draws, on every branch
+    of the step (STEP_PATHS), and with NDC two scenes of different (H, W,
+    focal), each an operand per scene (its hwf_operand): each scene's loss
+    within rtol 1e-5, its weights within test_train_steps_match_jax's bounds
+    (4 lr, each leaf's update within UPDATE_TOL relative L2), on batches
+    whose coarse relu inputs lie clear of zero (_conditioned_step)."""
     S = 2
-    kw = dict(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, ndc=ndc, white_bkgd=not ndc)
+    ndc, n_samples, n_importance, fused, fused_render, n_steps = STEP_PATHS[path]
+    kw = dict(n_samples=n_samples, n_importance=n_importance, ndc=ndc, white_bkgd=not ndc)
     jrs, trs = jr.RenderSettings(**kw), tr.RenderSettings(**kw)
-    jmodel = JNeRFModel(JPE_P, JPE_V, JCFG, JCFG, "float32", fused=True)
-    tmodel = NeRFModel(PE_P, PE_V, CFG, CFG, "float32", fused=True)
+    fine_j, fine_t = (JCFG, CFG) if n_importance else (None, None)
+    jmodel = JNeRFModel(JPE_P, JPE_V, JCFG, fine_j, "float32", fused=fused,
+                        fused_render=fused_render)
+    tmodel = NeRFModel(PE_P, PE_V, CFG, fine_t, "float32", fused=fused, fused_render=fused_render)
     params = [{"coarse": _jparams(40 + 2 * s), "fine": _jparams(41 + 2 * s)} for s in range(S)]
+    if not n_importance:
+        params = [{"coarse": p["coarse"]} for p in params]
     jstate = jms.stack_states([jstep.init_train_state(p, LRATE, LRATE_DECAY) for p in params])
     state = ms.stack_states([tstep.init_train_state({k: _port_net(v) for k, v in p.items()}, LRATE)
                              for p in params])
@@ -225,9 +404,11 @@ def test_multi_scene_steps_match_jax(ndc):
     step = ms.make_multi_scene_step(tmodel, trs, LRATE, LRATE_DECAY, S)
     hwfs = [(40, 50, 35.0), (24, 30, 20.0)]
     extra = (jnp.asarray(hwfs, jnp.float32),) if ndc else ()
-    for i in range(2):
+    plain_calls = StackedNeRFMLP.plain_calls
+    for i in range(n_steps):
         steps = [_conditioned_step(state.nets["coarse"].net(s), _ff_batch if ndc else _batch,
-                                   1000 * i + 100 * s, hwfs[s] if ndc else None)
+                                   1000 * i + 100 * s, hwfs[s] if ndc else None,
+                                   n_samples=n_samples, n_importance=n_importance)
                  for s in range(S)]
         arrays = _stacked([b for b, _ in steps])
         ov = {k: np.stack([o[k] for _, o in steps]) for k in steps[0][1]}
@@ -237,6 +418,8 @@ def test_multi_scene_steps_match_jax(ndc):
                    hwf=torch.tensor(hwfs) if ndc else None)
         assert aux["loss"].shape == (S,)
         np.testing.assert_allclose(aux["loss"].numpy(), np.asarray(jaux["loss"]), rtol=1e-5)
+    # the stacked plain MLP runs only where no kernel applies
+    assert StackedNeRFMLP.plain_calls - plain_calls == (0 if fused else n_steps)
     got = jax_arrays_from_stacked_train_state(state, tmodel)["params"]
     start = jax.tree.map(lambda *xs: np.stack(xs), *params)
     for (path, g), want, p0 in zip(jax.tree_util.tree_leaves_with_path(got),
@@ -412,16 +595,25 @@ def test_train_multi_trains_each_scene_as_cli_train(tmp_path, capsys):
 
 
 def test_train_multi_refuses_what_one_step_cannot_take(tmp_path):
+    """Configs that disagree on a shared field, or none, exit; every branch
+    one scene trains on trains stacked: 7 + 8 samples (the stacked K2/K3),
+    --fused_render (K5/K6) and fused_kernels off (the stacked plain MLP,
+    whose calls are counted there only) each train a step of both scenes
+    on the CPU, the loss finite."""
     paths = _configs(tmp_path)
     other = _configs(tmp_path / "b", n=1, N_rand=16)[0]
     with pytest.raises(SystemExit, match="N_rand"):
         train_multi.main(["--configs", paths[0], other, "--n_iters", "1"], device="cpu")
     with pytest.raises(SystemExit, match="--configs"):
         train_multi.main(["--n_iters", "1"], device="cpu")
-    for flag in (["--N_samples", "7"], ["--fused_render"]):
-        with pytest.raises(NotImplementedError, match="A.9b"):
-            train_multi.main(["--configs", *paths, "--n_iters", "1", "--data_axis", "1", *flag],
-                             device="cpu")
+    for flag, plain in ((["--N_samples", "7"], False), (["--fused_render"], False),
+                        (["--fused_kernels", "False"], True)):
+        before = StackedNeRFMLP.plain_calls
+        result = train_multi.main(["--configs", *paths, "--n_iters", "1", "--i_print", "1",
+                                   "--i_weights", "0", "--data_axis", "1", *flag], device="cpu")
+        ((_, losses, _),) = result.history
+        assert losses.shape == (2,) and np.isfinite(losses).all(), flag
+        assert StackedNeRFMLP.plain_calls - before == (2 if plain else 0), flag
 
 
 def test_multi_scene_writer_reads_back(tmp_path):
