@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, one line each (any failure exits non-zero):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles csrc/fused_mlp_fwd.cu (K1, K2), csrc/fused_mlp_bwd.cu
-   (K4, K3), csrc/fused_render.cu (K5, K6's compositing backward) and
-   csrc/probe_overlap.cu (K7) with nvcc (sm_90a), one process each, at once;
+   (K4, K3), csrc/fused_render.cu (K5, K6's compositing backward),
+   csrc/probe_overlap.cu (K7) and csrc/fused_mlp_wide.cu (K1w-K4w) with
+   nvcc (sm_90a), one process each, at once;
    counts the wgmma (HGMMA) and TMA-load (UTMALDG) instructions in the SASS
    of the backward's weight-grad kernel (cuobjdump) and fails without both;
    prints each instantiation of K1's and K2's bf16 forward
@@ -196,10 +197,29 @@ Multi-scene training (``parallel/multi_scene.py``, ``cli/train_multi.py``):
    gloo ranks on this card (4 scenes each), each scene within phase 24's
    bounds of the one-process run, and with two or more cards the same on
    NCCL.
+The wide kernel family (``csrc/fused_mlp_wide.cu``, ``ops/fused_mlp_wide.py``:
+K1-K6 at the widths and octave counts the W <= 256 tile is not built for):
+26. wide: K1w, K2w, K4w, K3w (with dx and dv), K5w and K6w against their
+   plain versions in bf16 at W = 384, 512 and 1024 with 10 / 4 octaves and
+   at W = 256 with 16 / 6, and in f32 at 384, at 1, 127, 129 and 33,984
+   points (K5w / K6w at S = 64), each call counted once and nothing else;
+   then each timed at W = 512 beside its bound, its plain version and the
+   same products as bf16 torch.matmul (phase 2 also checks the wide GEMM,
+   ``gemm_bf16_sm90``, and its ``wgrad_bf16`` for wgmma and TMA loads, no
+   HMMA and no spill);
+27. wide path: the lego recipe at --netwidth 512 --netwidth_fine 512:
+   train() for 24 steps (phase 7's timed window and profile, 2 K1w + 2 K4w
+   a step), one 400x400 frame through render_path (2 K1w a chunk; against
+   the plain path on 4,096 rays), 8 steps at --N_samples 63 (2 K2w + 2 K3w)
+   and with --fused_render (2 K5w + 2 K6w); no call of the single-scene
+   plain MLP (``NeRFMLP.plain_calls``) and a falling loss in each;
+28. the same recipe at W = 256 with --multires 16 --multires_views 6: 8
+   steps, 2 K1w + 2 K4w a step.
 
 The last two lines are a JSON object of kernel numbers (K1-K7, the
 backward's recompute and chain launches, K6's compositing pass, K7's
-``matmul_only`` beside its library chain, and the stacked K1-K6) and the
+``matmul_only`` beside its library chain, the stacked K1-K6 and the wide
+K1w-K6w) and the
 ``{"ok": true, "device": ...}`` result. Weights are random, from seeds.
 The script imports nothing of JAX or of ``nerf_tpu``.
 """
@@ -392,10 +412,12 @@ MULTI_LRATE = 5e-4  # configs/multi's (the default)
 def counters():
     """The launch counters of K1-K7, of the bf16 backward's recompute and
     chain launches (K4's, K3's, K6's and the stacked K4's, K3's and K6's
-    first two), of K6's compositing pass (the stacked K6's too) and of the
-    stacked K1-K6 of multi-scene training (K1s-K6s), by name."""
+    first two), of K6's compositing pass (the stacked K6's and K6w's too),
+    of the stacked K1-K6 of multi-scene training (K1s-K6s) and of the wide
+    family (K1w-K6w: a call each, whatever the launches it makes), by
+    name."""
     from nerf_tpu_torch.experimental import fused_render
-    from nerf_tpu_torch.ops import fused_mlp
+    from nerf_tpu_torch.ops import fused_mlp, fused_mlp_wide
     from nerf_tpu_torch.tools import probe_overlap
 
     return {"K1": fused_mlp.fused_rays_planes, "K2": fused_mlp.fused_points,
@@ -407,7 +429,11 @@ def counters():
             "K4s": fused_mlp.fused_rays_planes_stacked_bwd,
             "K2s": fused_mlp.fused_points_stacked, "K3s": fused_mlp.fused_points_stacked_bwd,
             "K5s": fused_render.fused_render_stacked_fwd,
-            "K6s": fused_render.fused_render_stacked_bwd}
+            "K6s": fused_render.fused_render_stacked_bwd,
+            "K1w": fused_mlp_wide.fused_rays_planes_wide, "K2w": fused_mlp_wide.fused_points_wide,
+            "K3w": fused_mlp_wide.fused_points_wide_bwd,
+            "K4w": fused_mlp_wide.fused_rays_planes_wide_bwd,
+            "K5w": fused_render.fused_render_wide_fwd, "K6w": fused_render.fused_render_wide_bwd}
 
 
 def reset_counts() -> None:
@@ -532,10 +558,13 @@ def matmul_chain(kp, n_pts: int):
     """The forward's 10 large matmuls (W05e, W1..W7, Wf, Wvf) as bf16
     torch.matmul calls at the kernel's shapes: a library yardstick, timed
     here only and used nowhere in the port."""
+    from nerf_tpu_torch.ops import fused_mlp
+
     dev = kp["W1"].device
-    e = torch.randn(n_pts, 64, dtype=torch.bfloat16, device=dev)
+    ke = fused_mlp.embed_pad(*fused_mlp._num_freqs(kp))[0]  # the tile's 64 at 10 octaves
+    e = torch.randn(n_pts, ke, dtype=torch.bfloat16, device=dev)
     h = torch.randn(n_pts, kp["W1"].shape[0], dtype=torch.bfloat16, device=dev)
-    w05 = torch.nn.functional.pad(kp["W05e"], (0, 0, 0, 64 - kp["W05e"].shape[0]))
+    w05 = torch.nn.functional.pad(kp["W05e"], (0, 0, 0, ke - kp["W05e"].shape[0]))
     ws = [kp[f"W{i}"] for i in range(1, 8)] + [kp["Wf"], kp["Wvf"]]
 
     def run():
@@ -599,7 +628,7 @@ def main() -> int:
 
     # 2. build (one nvcc per source, all at once)
     t0 = time.perf_counter()
-    sources = ["fused_mlp_fwd", "fused_mlp_bwd", "fused_render", "probe_overlap"]
+    sources = ["fused_mlp_fwd", "fused_mlp_bwd", "fused_render", "probe_overlap", "fused_mlp_wide"]
     _build.load_all(sources)
     phase("build", seconds=f"{time.perf_counter() - t0:.1f}", sources=len(sources))
     for name in sources:
@@ -631,6 +660,14 @@ def main() -> int:
                 raise RuntimeError(f"{function}<{inst}> is not the wgmma + TMA tile: {ops}")
     # K6's compositing pass, staged (<1>) and in device memory (<0>)
     instantiations("fused_render", "composite_bwd", ("HMMA",), 2, first_arg_label)
+    # the wide family's GEMM (one bf16 instantiation: TMA loads, wgmma with
+    # B transposed, no spill) and its weight grads (wgrad_sm90.cuh's)
+    for function in ("gemm_bf16_sm90", "wgrad_bf16"):
+        for inst, ops in instantiations("fused_mlp_wide", function,
+                                        ("HGMMA", "UTMALDG", "HMMA", "STG.E.128"), 1,
+                                        lambda name: "bf16").items():
+            if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"]:
+                raise RuntimeError(f"{function}<{inst}> issues no wgmma or TMA load: {ops}")
     # no warp-level MMA left in any kernel of the port's libraries
     hmma = {name: ops["HMMA"] for source in sources
             for name, ops in sass_counts(_build._lib_path(source), "", ("HMMA",)).items()
@@ -753,6 +790,11 @@ def main() -> int:
     # 25. multi-scene training: cli.train_multi, the stacked K1 and K4
     multi = multi_phase(one_scene, dev)
 
+    # 26.-28. the wide family: its kernels against their plain versions and
+    # timed, then the W = 512 and 16-octave lego paths
+    wide = wide_kernel_phase(dev)
+    wide_path = wide_path_phase(scene, train_info["views"], dev)
+
     def row(name, source, replaces, launches, err, t):
         return {
             "name": name, "route": "cuda", "source": f"nerf_tpu_torch/csrc/{source}",
@@ -865,6 +907,23 @@ def main() -> int:
             "nerf_tpu/experimental/fused_render.py:182 (vmapped, nerf_tpu/parallel/multi_scene.py:64)",
             multi["path_counts"]["K5s"]["K6s"], multi["k6_err"], multi["k6"]),
     ]
+    # the wide family (csrc/fused_mlp_wide.cu), each a call of its wrapper:
+    # launches on phases 27-28's main paths (W = 512: training, the frame,
+    # 63 + 128 and --fused_render; 16 octaves: training); its largest error
+    # against its plain version over phase 26's cases (the forwards' max
+    # abs of raw or the maps, the backwards' worst per-leaf relative L2);
+    # times at W = 512 with 10 / 4 octaves: per 32,768-ray chunk (64 + 192;
+    # K2w 63 + 191) and per N_rand 4096 step, the same products as bf16
+    # torch.matmul as the library's
+    for name, tpu, key in (
+            ("fused_mlp_wide_fwd", "nerf_tpu/ops/fused_mlp.py:464", "K1w"),
+            ("fused_mlp_wide_bwd", "nerf_tpu/ops/fused_mlp.py:621", "K4w"),
+            ("fused_mlp_wide_fwd_points", "nerf_tpu/ops/fused_mlp.py:454", "K2w"),
+            ("fused_mlp_wide_bwd_points", "nerf_tpu/ops/fused_mlp.py:584", "K3w"),
+            ("fused_render_wide_fwd", "nerf_tpu/experimental/fused_render.py:162", "K5w"),
+            ("fused_render_wide_bwd", "nerf_tpu/experimental/fused_render.py:182", "K6w")):
+        kernels.append(row(name, "fused_mlp_wide.cu", tpu, wide_path["launches"][key],
+                           wide["errs"][key], wide["times"][key]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1219,13 +1278,17 @@ def train_phase(scene, dev, n_samples: int, fwd: str, bwd: str, views=None,
     return {**info, "model": model, "rs": rs, "views": views}
 
 
-def timed_train(cfg, views, dev, fwd: str, bwd: str, **fields):
-    """train() on ``views`` with ``cfg`` (its cadences off) for WARMUP_STEPS,
-    TIMED_STEPS and PROFILED_STEPS steps: exactly 2 launches of ``fwd`` and
-    of ``bwd`` a timed step and none of any other kernel, a finite and
+def timed_train(cfg, views, dev, fwd: str, bwd: str,
+                steps=(WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS), wide: bool = False, **fields):
+    """train() on ``views`` with ``cfg`` (its cadences off) for ``steps``'
+    warm-up, timed and profiled steps (cfg.n_iters their sum): exactly 2
+    launches of ``fwd`` and of ``bwd`` a timed step and none of any other
+    kernel (``wide``: the wide family's, without the tile's recompute and
+    chain launches, and no call of the single-scene plain MLP), a finite and
     falling loss, ms/step, rays/s and MFU, then the profiled window's device
     time. ``fields`` go on the phase's line."""
     from nerf_tpu_torch.models.factory import make_model
+    from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
     from nerf_tpu_torch.ops import fused_mlp
     from nerf_tpu_torch.train.loop import train
     from nerf_tpu_torch.utils.profiler import StepTimer, device_peak_flops
@@ -1233,60 +1296,71 @@ def timed_train(cfg, views, dev, fwd: str, bwd: str, **fields):
     model = make_model(cfg)
     n_samples, n_rand = cfg.N_samples, cfg.N_rand
     losses, marks = [], {}
-    end = WARMUP_STEPS + TIMED_STEPS
+    warmup, timed, profiled = steps
+    end = warmup + timed
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA])
 
     def on_step(i, state, aux):
         if i <= end:
             losses.append(aux["loss"])
-        if i in (WARMUP_STEPS, end, end + PROFILED_STEPS):
+        if i in (warmup, end, end + profiled):
             torch.cuda.synchronize()
             marks[i] = time.perf_counter()
-            if i == WARMUP_STEPS:  # the main path's counts start here
+            if i == warmup:  # the main path's counts start here
                 reset_counts()
+                NeRFMLP.plain_calls = 0
             elif i == end:  # ... and end here; a short profiled window follows
                 marks["counts"] = read_counts()
+                marks["plain"] = NeRFMLP.plain_calls
                 prof.__enter__()
             else:
                 prof.__exit__(None, None, None)
 
     result = train(cfg, views, hooks={"on_step": on_step}, device=dev)
     counts = marks["counts"]
-    seconds = marks[end] - marks[WARMUP_STEPS]
+    seconds = marks[end] - marks[warmup]
     loss = torch.stack(losses).cpu().numpy()
     timer = StepTimer(n_rand, 2 * n_samples + cfg.N_importance,
                       fused_mlp.flops_per_point(model.coarse, model.pe_pts, model.pe_views),
                       peak=device_peak_flops(dev))
-    rep = timer.report(steps=TIMED_STEPS, elapsed=seconds)
+    rep = timer.report(steps=timed, elapsed=seconds)
     first, last = float(loss[:5].mean()), float(loss[-5:].mean())
-    phase("train", **fields, S=n_samples, steps=TIMED_STEPS, n_rand=n_rand,
-          ms_per_step=f"{1e3 * seconds / TIMED_STEPS:.3f}",
+    phase("train", **fields, S=n_samples, steps=timed, n_rand=n_rand,
+          ms_per_step=f"{1e3 * seconds / timed:.3f}",
           rays_per_s=f"{rep['rays_per_sec']:.0f}",
           mfu="unknown card" if rep["mfu"] is None else f"{rep['mfu']:.4f}",
-          launches=counts, loss_first5=f"{first:.6f}", loss_last5=f"{last:.6f}",
+          launches=counts, plain_mlp_calls=marks["plain"], loss_first5=f"{first:.6f}",
+          loss_last5=f"{last:.6f}",
           psnr_last=f"{result.history[-1][2]:.3f}" if result.history else "none")
     if not np.isfinite(loss).all():
         raise RuntimeError("non-finite training loss")
-    # the bf16 backward's first two launches, the recompute and the chain,
-    # a backward each
-    want = {fwd: 2 * TIMED_STEPS, bwd: 2 * TIMED_STEPS, "recompute": 2 * TIMED_STEPS,
-            "chain": 2 * TIMED_STEPS}
-    if bwd == "K6":  # and K6's compositing pass, one a backward
-        want["composite"] = 2 * TIMED_STEPS
-    check_counts(counts, want, f"{TIMED_STEPS} steps at S={n_samples}")
+    # the tile's bf16 backward's first two launches, the recompute and the
+    # chain, a backward each (the wide family counts its calls alone)
+    want = {fwd: 2 * timed, bwd: 2 * timed}
+    if not wide:
+        want.update(recompute=2 * timed, chain=2 * timed)
+    if bwd in ("K6", "K6w"):  # and K6's compositing pass, one a backward
+        want["composite"] = 2 * timed
+    check_counts(counts, want, f"{timed} steps at S={n_samples}")
+    if wide and marks["plain"]:
+        raise RuntimeError(f"the plain MLP ran {marks['plain']} times on the wide path")
     if not last < first:
         raise RuntimeError(f"the loss did not fall: {first} -> {last}")
-    profile = profile_report(prof, marks[end + PROFILED_STEPS] - marks[end], fwd, bwd, **fields)
+    profile = profile_report(prof, marks[end + profiled] - marks[end], fwd, bwd, steps=profiled,
+                             **fields)
     return {"cfg": cfg, "nets": result.state.nets, "counts": counts, "profile": profile,
-            "ms_per_step": 1e3 * seconds / TIMED_STEPS}
+            "ms_per_step": 1e3 * seconds / timed}
 
 
-def profile_report(prof, seconds: float, fwd: str, bwd: str, **fields) -> None:
-    """Device time of the profiled training steps, by kernel and by group
-    (the forward kernel ``fwd``, the backward ``bwd``'s kernels, the rest),
-    and the device's idle share of the window. The step's launch counts show
-    which forward and backward ran: the two pairs share their kernels' names."""
+def profile_report(prof, seconds: float, fwd: str, bwd: str, steps: int = PROFILED_STEPS,
+                   **fields) -> None:
+    """Device time of ``steps`` profiled training steps, by kernel and by
+    group (the forward kernel ``fwd``, the backward ``bwd``'s kernels, the
+    rest; the wide family's kernels, forward and backward alike, as one
+    group ``fwd``+``bwd``), and the device's idle share of the window. The
+    step's launch counts show which forward and backward ran: the two pairs
+    share their kernels' names."""
     from nerf_tpu_torch.tools.bwd_phase1 import K4_LAUNCHES
     from nerf_tpu_torch.utils.profiler import device_rows
 
@@ -1295,6 +1369,8 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str, **fields) -> None:
     k4 = K4_LAUNCHES[:-1]
     groups = {fwd: ("render_bf16_sm90",) if fwd.startswith("K5") else ("fwd_bf16_sm90",),
               bwd: ("composite_bwd",) + k4 if bwd.startswith("K6") else k4}
+    if fwd.endswith("w"):
+        groups = {f"{fwd}+{bwd}": WIDE_KERNELS}
     rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     # ROADMAP C.7: the device's user annotations (record_function ranges,
@@ -1311,22 +1387,22 @@ def profile_report(prof, seconds: float, fwd: str, bwd: str, **fields) -> None:
     apart = {}
     if bwd.startswith("K6"):
         apart["composite_bwd"] = sum(us for us, key, _ in rows if "composite_bwd" in key)
-    phase("profile", **fields, steps=PROFILED_STEPS, wall_ms_per_step=f"{wall_ms / PROFILED_STEPS:.3f}",
-          device_ms_per_step=f"{busy_us / 1e3 / PROFILED_STEPS:.3f}",
+    phase("profile", **fields, steps=steps, wall_ms_per_step=f"{wall_ms / steps:.3f}",
+          device_ms_per_step=f"{busy_us / 1e3 / steps:.3f}",
           idle_share=f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f}" if busy_us else "not measured",
-          annotation_ms_per_step=f"{notes_us / 1e3 / PROFILED_STEPS:.3f}",
+          annotation_ms_per_step=f"{notes_us / 1e3 / steps:.3f}",
           idle_share_with_annotations=f"{max(0.0, 1 - (busy_us + notes_us) / 1e3 / wall_ms):.3f}",
-          **{f"trace_{cat}_ms_per_step": f"{us / 1e3 / PROFILED_STEPS:.3f}"
+          **{f"trace_{cat}_ms_per_step": f"{us / 1e3 / steps:.3f}"
              for cat, us in trace_us.items()},
-          **{f"{g}_ms_per_step": f"{v / 1e3 / PROFILED_STEPS:.3f}"
+          **{f"{g}_ms_per_step": f"{v / 1e3 / steps:.3f}"
              for g, v in {**share, **apart}.items()})
     for us, key, count in sorted(rows, reverse=True)[:12]:
-        print(f"  device {us / 1e3 / PROFILED_STEPS:8.3f} ms/step  x{count // PROFILED_STEPS:<4d} {key[:90]}",
+        print(f"  device {us / 1e3 / steps:8.3f} ms/step  x{count // steps:<4d} {key[:90]}",
               flush=True)
-    return {"wall_ms_per_step": wall_ms / PROFILED_STEPS,
-            "device_ms_per_step": busy_us / 1e3 / PROFILED_STEPS,
+    return {"wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": busy_us / 1e3 / steps,
             "idle_share": max(0.0, 1 - busy_us / 1e3 / wall_ms) if busy_us else None,
-            **{f"{g}_ms_per_step": v / 1e3 / PROFILED_STEPS for g, v in share.items()}}
+            **{f"{g}_ms_per_step": v / 1e3 / steps for g, v in share.items()}}
 
 
 def trace_device_us(prof) -> dict:
@@ -1393,13 +1469,16 @@ def backward_matmul_chain(kp, n_pts: int, part: str = "all"):
     Wvf); only one group with ``part`` "recompute" (10), "chain" (9) or
     "weight_grads" (10). A library yardstick, timed here only and used
     nowhere in the port."""
+    from nerf_tpu_torch.ops import fused_mlp
+
     dev, Wd = kp["W1"].device, kp["W1"].shape[0]
+    ke = fused_mlp.embed_pad(*fused_mlp._num_freqs(kp))[0]  # the tile's 64 at 10 octaves
     bf = torch.bfloat16
-    e = torch.randn(n_pts, 64, dtype=bf, device=dev)
+    e = torch.randn(n_pts, ke, dtype=bf, device=dev)
     a = torch.randn(n_pts, Wd, dtype=bf, device=dev)
     ah = torch.randn(n_pts, Wd // 2, dtype=bf, device=dev)
     d05 = torch.randn(n_pts, 2 * Wd, dtype=bf, device=dev)
-    w05 = torch.nn.functional.pad(kp["W05e"], (0, 0, 0, 64 - kp["W05e"].shape[0]))
+    w05 = torch.nn.functional.pad(kp["W05e"], (0, 0, 0, ke - kp["W05e"].shape[0]))
     trunk = [kp[f"W{i}"] for i in range(1, 8)] + [kp["Wf"]]
 
     def run():
@@ -1796,9 +1875,9 @@ def check_k56(mlp, pe_pts, pe_views, rng, dev):
                 # launch the recompute and the chain; K6's two backwards and
                 # the halves' two launch the compositing pass
                 recomputes = 3 if dtype == torch.bfloat16 else 0
-                if moved != {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 3, "K6": 2, "K7": 0,
-                             "recompute": recomputes, "chain": recomputes, "composite": 4,
-                             "K1s": 0, "K4s": 0, "K2s": 0, "K3s": 0, "K5s": 0, "K6s": 0}:
+                want = {"K1": 1, "K5": 3, "K6": 2, "recompute": recomputes,
+                        "chain": recomputes, "composite": 4}
+                if moved != {k: want.get(k, 0) for k in moved}:
                     raise RuntimeError(f"the K5/K6 launch counters moved wrongly: {moved}")
                 if dtype == torch.bfloat16:
                     k5_errs.append(err)
@@ -3426,6 +3505,433 @@ def multi_check_ranks(ranks, one, start, per: int, what: str):
                         raise RuntimeError(f"multi {what}: scene {k} {lvl}.{name} off the "
                                            f"one-process run by {d}")
     return worst, equal
+
+
+# the wide family (phases 26-28, csrc/fused_mlp_wide.cu): its kernels'
+# names in a profile (forward and backward share the GEMM), the card tests'
+# configurations (width, point and view octaves) and shapes (R, S), the W =
+# 512 path's width (NeRF in the Wild's MLP) and the 16-octave path's
+# octaves (mip-NeRF's 16 point degrees), and the training windows'
+# (warm-up, timed, profiled) steps: 24 at W = 512, 8 on the other branches
+WIDE_KERNELS = ("gemm_bf16_sm90", "gemm_f32", "embed_cols", "head_cols", "gc_rows", "ray_sums",
+                "embed_backward_cols", "wgrad_bf16", "reduce_splits", "reduce_tiles",
+                "composite_planes", "composite_bwd")
+WIDE_CONFIGS = ((384, 10, 4), (512, 10, 4), (1024, 10, 4), (256, 16, 6))
+WIDE_CASES = ((1, 1), (127, 1), (129, 1), (531, 64))
+# the main path's shapes at W = 512 (phases 27-28), bf16: (R, S, kernels,
+# slices of the plain forward): 4,096 rays at 64 and 1,024 at 192 samples
+# (a training step's levels, K5w and K6w with --fused_render), 63 and 191
+# (the points-in levels), and a serving frame's 8,192 rays at 192 and 191
+# samples, 1.5M points: past the forwards' SLICE_POINTS
+WIDE_PATH_CASES = ((4096, 64, ("K1w", "K4w", "K5w", "K6w"), 1),
+                   (1024, 192, ("K1w", "K4w", "K5w", "K6w"), 1),
+                   (4096, 63, ("K2w", "K3w"), 1), (1024, 191, ("K2w", "K3w"), 1),
+                   (8192, 192, ("K1w", "K5w"), 4), (8192, 191, ("K2w",), 4))
+# the bf16 grads' witness (wide_witness): the card tests' worst cases
+# (K4w/K3w at W = 1024 on 127 and 129 points, K6w on 127 rays x 8)
+WIDE_WITNESS_WIDTH = 1024
+WIDE_WITNESS_CASES = ((127, 1), (129, 1), (127, 8), (129, 8))
+WIDE_WIDTH, WIDE_OCTAVES = 512, (16, 6)
+WIDE_STEPS, WIDE_SHORT_STEPS = (3, 18, 3), (2, 4, 2)
+# the card tests' bounds (tests/test_torch_port_kernels.py, measured there):
+# f32 raw 1e-5; grads per-leaf relative L2, bf16 3e-2 and f32 5e-4; dx and
+# dv bf16 5e-2 and f32 2e-3; bf16 raw and maps phase 3's BF16_TOL. The bf16
+# grads' bound is the two roundings' distance: wide_witness holds it so
+WIDE_F32_TOL = 1e-5
+WIDE_GRAD_TOL = {torch.bfloat16: 3e-2, torch.float32: 5e-4}
+WIDE_INPUT_GRAD_TOL = {torch.bfloat16: 5e-2, torch.float32: 2e-3}
+
+
+def wide_net(W: int, fp: int, fv: int, dtype, seed: int, dev):
+    """(MLPConfig, point and view PosEncConfig, packed params) of a random
+    net of a wide configuration."""
+    from nerf_tpu_torch.models.embedding import PosEncConfig
+    from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
+    from nerf_tpu_torch.ops import fused_mlp
+
+    cfg = MLPConfig(width=W, input_ch=3 + 6 * fp, input_ch_views=3 + 6 * fv)
+    pp, pv = PosEncConfig(fp), PosEncConfig(fv)
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(NeRFMLP(cfg, seed=seed, device=dev), pp, pv, dtype)
+    if not (fused_mlp.supports(cfg, pp, pv) and fused_mlp.is_wide(kp)):
+        raise RuntimeError(f"{W} {fp}/{fv} is not a wide configuration")
+    return cfg, pp, pv, kp
+
+
+def maps_err(got, ref) -> float:
+    """The largest |difference| of rgb, disp (where finite), acc and w."""
+    errs = []
+    for a, b in zip(got[:4], ref[:4]):
+        if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+            raise RuntimeError("the maps are finite at other rays than their plain version's")
+        f = torch.isfinite(b)
+        errs.append(float((a[f] - b[f]).abs().max()))
+    return max(errs)
+
+
+def wide_case(kp, R: int, S: int, names, rng, gen, dev, input_grads: bool = True,
+              parts: int = 1) -> dict:
+    """One case of phase 26: each named wide kernel (K1w, K2w, K4w, K3w,
+    K5w, K6w) called once on R rays of S samples (K2w and K3w on their
+    points, a direction per ray; K3w's dx and dv with ``input_grads``),
+    against its plain version on the same inputs (the forwards' over
+    ``parts`` slices of the rays): {name: error}, the forwards' max abs of
+    raw or the maps, the backwards' worst per-leaf relative L2 for a
+    one-signed cotangent. Fails unless each call was counted once, no other
+    kernel's counter moved, the raw is finite and the maps are finite where
+    the plain maps are."""
+    from nerf_tpu_torch.experimental import fused_render
+    from nerf_tpu_torch.ops import fused_mlp
+
+    ro, rd, vd, z = make_rays(rng, R, S, dev)
+    x = fused_mlp._ray_points(ro, rd, z)
+    g = (0.5 + torch.rand(4, R, S, device=dev, generator=gen)) * 1e-4
+    g_rows = g.reshape(4, -1).T.contiguous()
+
+    def in_parts(fn, *ts):  # fn over ``parts`` slices of the rays
+        return [fn(*part) for part in zip(*(t.chunk(parts) for t in ts))]
+
+    e, out = {}, []  # out: the raw planes, to be finite
+    reset_counts()
+    with torch.no_grad():  # the wrappers alone, no autograd
+        if "K1w" in names:
+            out.append(fused_mlp.fused_rays_planes(kp, ro, rd, vd, z))
+            ref = torch.cat(in_parts(lambda *a: fused_mlp.fused_rays_planes_reference(kp, *a),
+                                     ro, rd, vd, z), 1)
+            e["K1w"] = float((out[-1] - ref).abs().max())
+            del ref
+        if "K2w" in names:
+            out.append(fused_mlp.fused_points(kp, x, vd, S))
+            ref = torch.cat(in_parts(lambda *a: fused_mlp.fused_points_reference(kp, *a, S),
+                                     x, vd))
+            e["K2w"] = float((out[-1] - ref).abs().max())
+            del ref
+        if "K4w" in names:
+            got = fused_mlp.fused_rays_planes_bwd(kp, ro, rd, vd, z, g)
+            ref = fused_mlp.fused_rays_planes_bwd_reference(kp, ro, rd, vd, z, g)
+            e["K4w"] = max(rel_l2(got[n], ref[n]) for n in fused_mlp.KP_NAMES)
+            del got, ref
+        if "K3w" in names:
+            got, dx, dv = fused_mlp.fused_points_bwd(kp, x, vd, g_rows, S, input_grads)
+            ref, rdx, rdv = fused_mlp.fused_points_bwd_reference(kp, x, vd, g_rows, S,
+                                                                 input_grads)
+            e["K3w"] = max(rel_l2(got[n], ref[n]) for n in fused_mlp.KP_NAMES)
+            if input_grads:
+                e["dx"], e["dv"] = rel_l2(dx, rdx), rel_l2(dv, rdv)
+            del got, ref
+        if "K5w" in names:
+            noise = torch.randn(R, S, device=dev, generator=gen) * 0.5
+            maps = fused_render.fused_render_fwd(kp, ro, rd, vd, z, noise, True,
+                                                 keep_raw="K6w" in names)
+            ref5 = [torch.cat(m) for m in zip(*(m[:4] for m in in_parts(
+                lambda *a: fused_render.fused_render_reference(kp, *a, True),
+                ro, rd, vd, z, noise)))]
+            e["K5w"] = maps_err(maps, ref5)  # finite where the plain maps are
+            del ref5
+        if "K6w" in names:
+            cot = [(0.5 + torch.rand(t.shape, device=dev, generator=gen)) * 1e-3
+                   for t in maps[:4]]
+            got = fused_render.fused_render_bwd(kp, ro, rd, vd, z, noise, maps.raw, *cot, True)
+            ref = fused_render.fused_render_bwd_reference(kp, ro, rd, vd, z, noise, maps.raw,
+                                                          *cot, True)
+            e["K6w"] = max(rel_l2(got[n], ref[n]) for n in fused_mlp.KP_NAMES)
+            del got, ref
+    torch.cuda.synchronize()
+    want = {k: 1 for k in names}
+    if "K6w" in names:
+        want["composite"] = 1  # K6w's compositing pass
+    check_counts(read_counts(), want, f"wide R={R} S={S} {'+'.join(names)}")
+    if not all(bool(torch.isfinite(t).all()) for t in out):
+        raise RuntimeError(f"wide R={R} S={S}: K1w's or K2w's raw is not finite")
+    return e
+
+
+def wide_witness(kp, kp32, R: int, S: int, rng, gen, dev) -> dict:
+    """26, the bf16 grads' witness: K4w's, K3w's (with dx, dv) and, at S %
+    8 == 0, K6w's bf16 grads and their bf16 plain versions', each leaf's
+    relative L2 from the f32 plain version on the same weights (``kp32``)
+    and inputs: {name: (kernel's worst leaf, plain version's worst leaf,
+    the largest ratio of a leaf's two, the plain one at least 1e-3)}. Fails
+    if the kernel is on any leaf more than twice as far from f32 as
+    the bf16 plain version, plus 1e-3: a kernel-against-plain distance of
+    the bound's size is then the two roundings', not the kernel's."""
+    from nerf_tpu_torch.experimental import fused_render
+    from nerf_tpu_torch.ops import fused_mlp
+
+    ro, rd, vd, z = make_rays(rng, R, S, dev)
+    x = fused_mlp._ray_points(ro, rd, z)
+    g = (0.5 + torch.rand(4, R, S, device=dev, generator=gen)) * 1e-4
+    g_rows = g.reshape(4, -1).T.contiguous()
+    with torch.no_grad():
+        runs = {"K4w": [fused_mlp.fused_rays_planes_bwd(kp, ro, rd, vd, z, g)] + [
+            fused_mlp.fused_rays_planes_bwd_reference(k, ro, rd, vd, z, g) for k in (kp, kp32)]}
+        k3 = [fused_mlp.fused_points_bwd(kp, x, vd, g_rows, S, True)] + [
+            fused_mlp.fused_points_bwd_reference(k, x, vd, g_rows, S, True) for k in (kp, kp32)]
+        runs["K3w"] = [dict(t[0], dx=t[1], dv=t[2]) for t in k3]
+        if S % 8 == 0:
+            noise = torch.randn(R, S, device=dev, generator=gen) * 0.5
+            maps = fused_render.fused_render_fwd(kp, ro, rd, vd, z, noise, True, keep_raw=True)
+            raw32 = fused_mlp.fused_rays_planes_reference(kp32, ro, rd, vd, z).contiguous()
+            cot = [(0.5 + torch.rand(t.shape, device=dev, generator=gen)) * 1e-3
+                   for t in maps[:4]]
+            runs["K6w"] = [fused_render.fused_render_bwd(kp, ro, rd, vd, z, noise, maps.raw,
+                                                         *cot, True)] + [
+                fused_render.fused_render_bwd_reference(k, ro, rd, vd, z, noise, raw, *cot, True)
+                for k, raw in ((kp, maps.raw), (kp32, raw32))]
+    out = {}
+    for name, (got, plain, f32) in runs.items():
+        d = {n: (rel_l2(got[n], f32[n]), rel_l2(plain[n], f32[n])) for n in got}
+        bad = [n for n, (a, b) in d.items() if not a <= 2 * b + 1e-3]
+        out[name] = (max(a for a, _ in d.values()), max(b for _, b in d.values()),
+                     max(a / max(b, 1e-3) for a, b in d.values()))
+        phase("wide_witness", R=R, S=S, kernel=name,
+              kernel_vs_f32=f"{out[name][0]:.3e}", plain_vs_f32=f"{out[name][1]:.3e}",
+              worst_leaf_ratio=f"{out[name][2]:.2f}",
+              **{f"{n}": f"{a:.2e}/{b:.2e}" for n, (a, b) in d.items() if n in ("dx", "dv")})
+        if bad:
+            raise RuntimeError(f"wide {name} R={R} S={S}: farther from f32 than its bf16 plain "
+                               f"version on {bad}: {[d[n] for n in bad]}")
+    return out
+
+
+def wide_kernel_phase(dev) -> dict:
+    """26. The wide family against its plain versions: at the card tests'
+    configurations and shapes (bf16 at W = 384, 512, 1024 with 10 / 4
+    octaves and at W = 256 with 16 / 6; f32 at 384; S = 64 adds K5w and
+    K6w); at W = 512 at the main path's shapes (``WIDE_PATH_CASES``: a
+    training step's levels, the points-in levels with a direction per ray
+    and no input grads, and a forward past ``SLICE_POINTS``); and, at W =
+    1024, the bf16 grads' distance from f32 beside the bf16 plain
+    version's (``wide_witness``); then the times (``wide_times``). Returns
+    the bf16 errors' maxima, the witness and the times."""
+    from nerf_tpu_torch.ops import fused_mlp_wide
+
+    names = ("K1w", "K2w", "K3w", "K4w", "K5w", "K6w")
+    errs = {k: 0.0 for k in names}
+    rng = np.random.default_rng(26)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    cases = [(c, torch.bfloat16) for c in WIDE_CONFIGS] + [((384, 10, 4), torch.float32)]
+    path_cases = [(R, S, kernels, parts, False) for R, S, kernels, parts in WIDE_PATH_CASES]
+    if not any(R * S > fused_mlp_wide.SLICE_POINTS for R, S, *_ in path_cases):
+        raise RuntimeError("no case of phase 26 is past the forwards' slice")
+    witness = {}
+    for (W, fp, fv), dtype in cases:
+        _, _, _, kp = wide_net(W, fp, fv, dtype, W + fp, dev)
+        bf16 = dtype == torch.bfloat16
+        ftol = BF16_TOL if bf16 else WIDE_F32_TOL
+        gtol, itol = WIDE_GRAD_TOL[dtype], WIDE_INPUT_GRAD_TOL[dtype]
+        todo = [(R, S, names if S % 8 == 0 else names[:4], 1, True) for R, S in WIDE_CASES]
+        if bf16 and (W, fp, fv) == (WIDE_WIDTH, 10, 4):
+            todo += path_cases
+        for R, S, kernels, parts, input_grads in todo:
+            e = wide_case(kp, R, S, kernels, rng, gen, dev, input_grads, parts)
+            phase("wide", config=f"W={W},{fp}/{fv}", dtype=str(dtype).split(".")[-1], R=R, S=S,
+                  **{k: f"{v:.3e}" for k, v in e.items()}, raw_tol=ftol, grad_tol=gtol,
+                  input_grad_tol=itol)
+            bad = [k for k, v in e.items()
+                   if not v <= (ftol if k in ("K1w", "K2w", "K5w") else
+                                itol if k in ("dx", "dv") else gtol)]
+            if bad:
+                raise RuntimeError(f"wide kernels disagree with their plain versions: {bad} {e}")
+            if bf16:
+                for k in names:
+                    errs[k] = max(errs[k], e.get(k, 0.0))
+            torch.cuda.empty_cache()
+        if bf16 and W == WIDE_WITNESS_WIDTH:
+            _, _, _, kp32 = wide_net(W, fp, fv, torch.float32, W + fp, dev)
+            for R, S in WIDE_WITNESS_CASES:
+                witness[(R, S)] = wide_witness(kp, kp32, R, S, rng, gen, dev)
+            del kp32
+            torch.cuda.empty_cache()
+    return {"errs": errs, "witness": witness, "times": wide_times(dev)}
+
+
+def sliced(fn, tensors, parts: int, dim: int = 0):
+    """fn over ``parts`` equal slices of the tensors along ``dim`` (the
+    plain versions at the timed shapes, within the card's memory)."""
+    def run():
+        n = tensors[0].shape[dim]
+        for i in range(parts):
+            fn(*(t.narrow(dim, i * n // parts, n // parts) for t in tensors))
+    return run
+
+
+def wide_times(dev) -> dict:
+    """26, times: each wide kernel at W = 512 with 10 / 4 octaves beside its
+    bound, its plain version (over slices of the work) and the same products
+    as bf16 torch.matmul: K1w, K2w (63 + 191, a direction per point) and K5w
+    (serving, no raw kept) per 32,768-ray chunk; K4w, K3w (63 + 191, no
+    input grads) and K6w per N_rand 4096 step."""
+    from nerf_tpu_torch.experimental import fused_render
+    from nerf_tpu_torch.ops import fused_mlp
+
+    cfg, pp, pv, kp = wide_net(WIDE_WIDTH, 10, 4, torch.bfloat16, 7, dev)
+    blobs = fused_mlp.kernel_blobs(kp)
+    wbytes = sum(t.numel() * t.element_size() for t in blobs)
+    gbytes = 4 * sum(v.numel() for v in kp.values())
+    flops_pt = fused_mlp.flops_per_point(cfg, pp, pv)
+    keys = ("ms", "plain_ms", "ops_ms", "bytes_ms", "library_ms")
+    t = {k: dict.fromkeys(keys, 0.0) for k in ("K1w", "K2w", "K3w", "K4w", "K5w", "K6w")}
+    rng = np.random.default_rng(27)
+
+    def add(name, ms, plain_ms, flops, io_bytes, library_ms, **fields):
+        ops_ms, bytes_ms = 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * io_bytes / PEAK_BYTES
+        for k, v in zip(keys, (ms, plain_ms, ops_ms, bytes_ms, library_ms)):
+            t[name][k] += v
+        phase("wide_times", kernel=name, **fields, ms=f"{ms:.3f}",
+              bound_ms=f"{max(ops_ms, bytes_ms):.3f}", plain_ms=f"{plain_ms:.3f}",
+              library_ms=f"{library_ms:.3f}", tflops=f"{flops / ms / 1e9:.1f}")
+
+    with torch.no_grad():
+        for S in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE):  # a serving chunk
+            rays = make_rays(rng, CHUNK, S, dev)
+            n = CHUNK * S
+            chain = matmul_chain(kp, n)
+            library_ms = cuda_ms(chain, reps=3)
+            del chain
+            torch.cuda.empty_cache()
+            add("K1w", cuda_ms(lambda: fused_mlp.fused_rays_planes(kp, *rays, blobs), reps=3),
+                cuda_ms(sliced(lambda *a: fused_mlp.fused_rays_planes_reference(kp, *a), rays, 8),
+                        reps=1),
+                n * flops_pt, CHUNK * 9 * 4 + n * 20 + wbytes, library_ms, per="chunk", S=S)
+            add("K5w", cuda_ms(lambda: fused_render.fused_render_fwd(kp, *rays, None, True, blobs),
+                               reps=3),
+                cuda_ms(sliced(lambda *a: fused_render.fused_render_reference(kp, *a, None, True),
+                               rays, 8), reps=1),
+                n * flops_pt, CHUNK * (9 * 4 + 20) + n * 8 + wbytes, library_ms, per="chunk", S=S)
+            del rays
+            x, v = ray_points(rng, CHUNK, S - 1, 1, dev)
+            n = CHUNK * (S - 1)
+            chain = matmul_chain(kp, n)
+            library_ms = cuda_ms(chain, reps=3)
+            del chain
+            torch.cuda.empty_cache()
+            add("K2w", cuda_ms(lambda: fused_mlp.fused_points(kp, x, v, 1, blobs), reps=3),
+                cuda_ms(sliced(lambda *a: fused_mlp.fused_points_reference(kp, *a, 1), (x, v), 8),
+                        reps=1),
+                n * flops_pt, n * 40 + wbytes, library_ms, per="chunk", S=S - 1)
+            del x, v
+            torch.cuda.empty_cache()
+    for S in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE):  # a training step
+        rays = make_rays(rng, N_RAND, S, dev)
+        n = N_RAND * S
+        g = torch.rand(4, N_RAND, S, device=dev) * 1e-4
+        chain = backward_matmul_chain(kp, n)
+        library_ms = cuda_ms(chain, reps=3)
+        del chain
+        torch.cuda.empty_cache()
+        flops = fused_mlp.bwd_flops(cfg, pp, pv, N_RAND, S)
+        io_bytes = N_RAND * 9 * 4 + n * 20 + wbytes + gbytes
+        add("K4w", cuda_ms(lambda: fused_mlp.fused_rays_planes_bwd(kp, *rays, g, blobs), reps=3),
+            cuda_ms(sliced(lambda *a: fused_mlp.fused_rays_planes_bwd_reference(kp, *a[:4], a[4].permute(2, 0, 1)),
+                           (*rays, g.permute(1, 2, 0)), 4), reps=1),
+            flops, io_bytes, library_ms, per="step", S=S)
+        with torch.no_grad():
+            maps = fused_render.fused_render_fwd(kp, *rays, None, True, blobs, keep_raw=True)
+        cot = [torch.rand(m.shape, device=dev) * 1e-3 for m in maps[:4]]
+        raw_r = maps.raw.permute(1, 2, 0)  # rays first, for the slices
+        add("K6w", cuda_ms(lambda: fused_render.fused_render_bwd(kp, *rays, None, maps.raw, *cot,
+                                                                  True, blobs), reps=3),
+            cuda_ms(sliced(lambda *a: fused_render.fused_render_bwd_reference(
+                kp, *a[:4], None, a[4].permute(2, 0, 1), *a[5:], True), (*rays, raw_r, *cot), 4),
+                reps=1),
+            flops, io_bytes + n * 24 + N_RAND * 32, library_ms, per="step", S=S)
+        del maps, cot, raw_r, rays, g
+        x, v = ray_points(rng, N_RAND, S - 1, 1, dev)
+        n = N_RAND * (S - 1)
+        gp = torch.rand(n, 4, device=dev) * 1e-4
+        chain = backward_matmul_chain(kp, n)
+        library_ms = cuda_ms(chain, reps=3)
+        del chain
+        torch.cuda.empty_cache()
+        add("K3w", cuda_ms(lambda: fused_mlp.fused_points_bwd(kp, x, v, gp, 1, False, blobs),
+                           reps=3),
+            cuda_ms(sliced(lambda *a: fused_mlp.fused_points_bwd_reference(kp, *a[:2], a[2], 1,
+                                                                             False), (x, v, gp), 4),
+                    reps=1),
+            fused_mlp.bwd_flops(cfg, pp, pv, n, 1), n * 40 + wbytes + gbytes, library_ms,
+            per="step", S=S - 1)
+        del x, v, gp
+        torch.cuda.empty_cache()
+    for name, v in t.items():
+        bound = max(v["ops_ms"], v["bytes_ms"])
+        phase("wide_times", kernel=name, per="chunk" if name in ("K1w", "K2w", "K5w") else "step",
+              ms=f"{v['ms']:.3f}", bound_ms=f"{bound:.3f}", x_bound=f"{v['ms'] / bound:.2f}",
+              plain_ms=f"{v['plain_ms']:.3f}", library_ms=f"{v['library_ms']:.3f}",
+              x_library=f"{v['ms'] / v['library_ms']:.2f}")
+    return t
+
+
+def wide_path_phase(scene, views, dev) -> dict:
+    """27. The lego recipe at --netwidth 512 --netwidth_fine 512 (NeRF in
+    the Wild's width; 64 + 128, N_rand 4096, bf16) on phase 7's teacher
+    views: train() for 24 steps with phase 7's timed window and profile, 2
+    K1w and 2 K4w a step; one 400x400 frame through render_path (2 K1w a
+    chunk) against the plain path on 4,096 of its rays; 8 steps at
+    --N_samples 63 (2 K2w + 2 K3w a step) and with --fused_render (2 K5w + 2
+    K6w a step, each K6w one compositing pass). 28. The same recipe at W =
+    256 with --multires 16 --multires_views 6 (mip-NeRF's 16 point degrees):
+    8 steps, 2 K1w + 2 K4w a step. In every window no other kernel and no
+    call of the single-scene plain MLP, and the loss falls. Returns the
+    wide kernels' launches over these runs."""
+    from nerf_tpu_torch import config
+    from nerf_tpu_torch.models.factory import make_model
+    from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from nerf_tpu_torch.train.loop import render_path, render_settings_from_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def lego(steps, *extra):
+        return config.load_config([
+            f"--config={os.path.join(here, 'configs', 'lego.txt')}", f"--N_rand={N_RAND}",
+            f"--n_iters={sum(steps)}", "--i_print=10", "--i_img=0", "--i_weights=0",
+            "--i_testset=0", "--i_video=0", "--data_axis=1",
+            f"--basedir={os.path.join(here, 'build', 'chip_smoke')}", *extra])
+
+    launches = {k: 0 for k in ("K1w", "K2w", "K3w", "K4w", "K5w", "K6w")}
+
+    def tally(counts):
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+
+    w512 = (f"--netwidth={WIDE_WIDTH}", f"--netwidth_fine={WIDE_WIDTH}")
+    cfg = lego(WIDE_STEPS, *w512, f"--N_samples={N_SAMPLES}")
+    info = timed_train(cfg, views, dev, "K1w", "K4w", steps=WIDE_STEPS, wide=True,
+                       path=f"W={WIDE_WIDTH}")
+    tally(info["counts"])
+    model, rs = make_model(cfg), render_settings_from_config(cfg)
+    poses = scene.render_poses[:2]
+    render_path(info["nets"], model, rs, scene, poses[:1], chunk=CHUNK)  # warm-up frame
+    torch.cuda.synchronize()
+    reset_counts()
+    NeRFMLP.plain_calls = 0
+    t0 = time.perf_counter()
+    rgbs, disps = render_path(info["nets"], model, rs, scene, poses[1:], chunk=CHUNK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, plain = read_counts(), NeRFMLP.plain_calls
+    if rgbs.shape != (1, H, W, 3) or not (np.isfinite(rgbs).all() and np.isfinite(disps).all()):
+        raise RuntimeError(f"bad wide frame: {rgbs.shape}, finite {np.isfinite(rgbs).all()}")
+    check_counts(counts, {"K1w": 2 * -(-H * W // CHUNK)}, f"W={WIDE_WIDTH} frame")
+    err, _, _ = rgb_against_plain(info["nets"], model, rs, rgbs[0], scene.K, poses[1],
+                                  (H, W, FOCAL), NEAR, FAR, dev)
+    phase("wide_render", width=WIDE_WIDTH, ms_per_frame=f"{1e3 * seconds:.2f}", launches=counts,
+          plain_mlp_calls=plain, rgb_vs_plain_max_abs=f"{err:.3e}", tol=RENDER_RGB_TOL)
+    if plain or not err <= RENDER_RGB_TOL:
+        raise RuntimeError(f"wide frame: {plain} plain MLP calls, rgb off the plain path by {err}")
+    tally(counts)
+    branches = (((f"--N_samples={POINTS_SAMPLES}",), "K2w", "K3w"),
+                ((f"--N_samples={N_SAMPLES}", "--fused_render=True"), "K5w", "K6w"))
+    for flags, fwd, bwd in branches:
+        cfg = lego(WIDE_SHORT_STEPS, *w512, *flags)
+        tally(timed_train(cfg, views, dev, fwd, bwd, steps=WIDE_SHORT_STEPS, wide=True,
+                          path=f"W={WIDE_WIDTH} {' '.join(flags)}")["counts"])
+    cfg = lego(WIDE_SHORT_STEPS, f"--multires={WIDE_OCTAVES[0]}",
+               f"--multires_views={WIDE_OCTAVES[1]}", f"--N_samples={N_SAMPLES}")
+    tally(timed_train(cfg, views, dev, "K1w", "K4w", steps=WIDE_SHORT_STEPS, wide=True,
+                      path=f"octaves {WIDE_OCTAVES[0]}/{WIDE_OCTAVES[1]}")["counts"])
+    phase("wide_paths", launches=launches, ms_per_frame=f"{1e3 * seconds:.2f}")
+    return {"launches": launches, "ms_per_frame": 1e3 * seconds}
 
 
 if __name__ == "__main__":

@@ -718,6 +718,17 @@ composite_bwd(const __grid_constant__ CompositeBwdArgs a) {
   }
 }
 
+// K5w's compositing launch (the wide family, fused_mlp_wide.cu, computes
+// raw into planes first): a warp per ray composites from the raw planes
+// a.raw [4][R*S] by composite_ray, K5's compositing, so its T, w and maps
+// are what K5 computes from the same raw.
+__global__ void __launch_bounds__(COMP_BWD_WARPS * 32)
+composite_planes(const __grid_constant__ RenderArgs a) {
+  const int r = blockIdx.x * COMP_BWD_WARPS + (threadIdx.x >> 5);
+  if (r >= a.n_rays) return;  // whole warps
+  composite_ray(a, r, a.raw + size_t(r) * a.S);
+}
+
 long long gcd(long long a, long long b) { return b == 0 ? a : gcd(b, a % b); }
 
 // A group of whole rays that fills whole tiles: G = lcm(S, tile) / S rays,
@@ -888,6 +899,34 @@ extern "C" int nerf_fused_render_bwd_planes(const float* rays_d, const float* z,
   } else {
     composite_bwd<false><<<grid, COMP_BWD_WARPS * 32, 0, s>>>(a);
   }
+  return cudaGetLastError();
+}
+
+// K5w's compositing: the maps rgb [R,3], disp, acc [R] and w [R,S] of the
+// raw planes raw [4,R,S] (the wide family's K1w output), rays_d [R,3], z
+// [R,S] and noise [R,S] or null, as K5 composites them.
+extern "C" int nerf_fused_render_composite(const float* rays_d, const float* z,
+                                           const float* noise, const float* raw, int n_rays,
+                                           int n_samples, int white_bkgd, float* rgb, float* disp,
+                                           float* acc, float* w, void* stream) {
+  const long long n = static_cast<long long>(n_rays) * n_samples;
+  if (n_rays < 0 || n_samples < 1 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  RenderArgs a{};
+  a.rd = rays_d;
+  a.z = z;
+  a.noise = noise;
+  a.n_rays = n_rays;
+  a.S = n_samples;
+  a.white = white_bkgd != 0;
+  a.rgb = rgb;
+  a.disp = disp;
+  a.acc = acc;
+  a.w = w;
+  a.raw = const_cast<float*>(raw);
+  a.scene_rays = n_rays;
+  const int grid = (n_rays + COMP_BWD_WARPS - 1) / COMP_BWD_WARPS;
+  composite_planes<<<grid, COMP_BWD_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 

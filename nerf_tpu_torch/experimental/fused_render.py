@@ -25,7 +25,10 @@ The pieces, as in ops/fused_mlp.py:
   ``live`` guard on depth/acc behaves as there;
 - ``fused_render_fwd`` / ``fused_render_bwd``: the wrappers, with launch
   counters. A CPU tensor takes the plain version; a CUDA tensor launches
-  the kernel or raises;
+  the kernel or raises (at the wide family's configurations K5w,
+  ``fused_render_wide_fwd``: K1w's raw planes, then K5's compositing as its
+  own launch; and K6w, ``fused_render_wide_bwd``: K6's compositing pass,
+  then K4w);
 - ``fused_render_level``: the entry the renderer calls; under autograd it
   runs ``_FusedRender`` (K5 forward, K6 backward);
 - the stacked (multi-scene) pair, ``fused_render_stacked_fwd`` /
@@ -46,15 +49,22 @@ import torch
 
 from nerf_tpu_torch.models.embedding import PosEncConfig
 from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
-from nerf_tpu_torch.ops import _build, fused_mlp
+from nerf_tpu_torch.ops import _build, fused_mlp, fused_mlp_wide
 from nerf_tpu_torch.ops.compositing import RayOutputs
 from nerf_tpu_torch.ops.fused_mlp import KP_NAMES
 
 
 def supports(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views, n_samples: int) -> bool:
     """The fused MLP's architectures, at sample counts that are multiples
-    of 8 (nerf_tpu's guard)."""
+    of 8 (nerf_tpu's guard). The W <= 256 tile runs K5 and K6 where
+    ``fused_mlp.tile_supports``, the wide family K5w and K6w elsewhere."""
     return fused_mlp.supports(cfg, pe_pts, pe_views) and n_samples % 8 == 0
+
+
+def supports_stacked(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views, n_samples: int) -> bool:
+    """The stacked K5's and K6's guard: ``supports`` within the tile's
+    widths and embedding sizes (``fused_mlp.supports_stacked``)."""
+    return fused_mlp.supports_stacked(cfg, pe_pts, pe_views) and n_samples % 8 == 0
 
 
 # K5's bf16 slab: a CTA's raw planes (r, g, b, sigma) of a ray group, in
@@ -182,8 +192,40 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def fused_render_wide_fwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, white_bkgd, blobs,
+                          keep_raw) -> Maps:
+    """K5w on CUDA tensors, ``fused_render_fwd``'s arguments: K1w's
+    launches into raw planes (ops/fused_mlp_wide.py), then one compositing
+    launch (``nerf_fused_render_composite``, a warp per ray on K5's
+    compositing, csrc/fused_render.cu); ``launches`` counts the calls."""
+    raw = fused_mlp_wide.rays_planes(fused_mlp_wide._ops(kp, z_vals), kp, rays_o, rays_d,
+                                     viewdirs, z_vals, blobs)
+    lib = _build.load("fused_render")
+    dev = z_vals.device
+    R, S = z_vals.shape
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = Maps(torch.empty(R, 3, **f32), torch.empty(R, **f32), torch.empty(R, **f32),
+               torch.empty(R, S, **f32), raw if keep_raw else None)
+    if R * S:
+        rd, z = rays_d.contiguous(), z_vals.contiguous()
+        nz = None if noise is None else noise.contiguous()
+        with torch.cuda.device(dev):
+            err = lib.nerf_fused_render_composite(
+                rd.data_ptr(), z.data_ptr(), _ptr(nz), raw.data_ptr(), R, S, int(white_bkgd),
+                *(t.data_ptr() for t in out[:4]), torch.cuda.current_stream(dev).cuda_stream)
+        fused_mlp._raise_on(lib, err, "fused_render_composite")
+    fused_render_wide_fwd.launches += 1
+    return out
+
+
+fused_render_wide_fwd.launches = 0
+
+
 def _launch_fwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, white_bkgd, blobs,
                 keep_raw) -> Maps:
+    if fused_mlp.is_wide(kp):
+        return fused_render_wide_fwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, white_bkgd,
+                                     blobs, keep_raw)
     lib = _build.load("fused_render")
     dtype, W, Fp, Fv = fused_mlp._kernel_config(kp, z_vals)
     dev = z_vals.device
@@ -275,8 +317,27 @@ def composite_bwd(raw, rays_d, z_vals, noise: Optional[torch.Tensor], g_rgb, g_d
 composite_bwd.launches = 0
 
 
+def fused_render_wide_bwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, raw, g_rgb, g_disp,
+                          g_acc, g_w, white_bkgd, blobs=None) -> Dict[str, torch.Tensor]:
+    """K6w on CUDA tensors: K6's compositing pass (``composite_bwd``,
+    unchanged), then K4w's launches (``launches`` counts the calls)."""
+    ops = fused_mlp_wide._ops(kp, z_vals)
+    g_planes = _launch_composite_bwd(raw, rays_d, z_vals, noise, g_rgb, g_disp, g_acc, g_w,
+                                     white_bkgd)
+    grads = fused_mlp_wide.rays_planes_bwd(ops, kp, rays_o, rays_d, viewdirs, z_vals, g_planes,
+                                           blobs)
+    fused_render_wide_bwd.launches += 1
+    return grads
+
+
+fused_render_wide_bwd.launches = 0
+
+
 def _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, raw, g_rgb, g_disp, g_acc, g_w,
                 white_bkgd, blobs) -> Dict[str, torch.Tensor]:
+    if fused_mlp.is_wide(kp):
+        return fused_render_wide_bwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, raw, g_rgb,
+                                     g_disp, g_acc, g_w, white_bkgd, blobs)
     fused_mlp._kernel_config(kp, z_vals)
     g_planes = _launch_composite_bwd(raw, rays_d, z_vals, noise, g_rgb, g_disp, g_acc, g_w,
                                      white_bkgd)
@@ -558,7 +619,7 @@ def fused_render_level_stacked(
     Under autograd the weights are packed anew with their graph and the
     call differentiates through the stacked K6; otherwise the packing kept
     on the module serves the forward alone."""
-    if not supports(cfg, pe_pts, pe_views, z_vals.shape[-1]):
+    if not supports_stacked(cfg, pe_pts, pe_views, z_vals.shape[-1]):
         raise ValueError("fused_render_level_stacked: unsupported MLP / posenc / sample count")
     ro, rd, vd, z = (t.detach() for t in (rays_o, rays_d, viewdirs, z_vals))
     nz = None if noise is None else noise.detach()

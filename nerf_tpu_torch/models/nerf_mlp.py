@@ -59,10 +59,15 @@ def dense(lin: nn.Linear, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.
 
 
 class NeRFMLP(nn.Module):
-    """The reference MLP. Weights are initialised from ``seed`` with
+    """The reference MLP. ``plain_calls`` counts the calls of its plain
+    forward (``apply_mlp``): on the card with the fused kernels on, a
+    configuration that nerf_tpu runs in its kernels never calls it
+    (render/network.py). Weights are initialised from ``seed`` with
     torch.nn.Linear's distribution (uniform +-1/sqrt(fan_in) for weight and
     bias) plus ``sigma_bias`` on the density bias (see
     nerf_tpu/models/nerf_mlp.py init_params for why)."""
+
+    plain_calls = 0
 
     def __init__(
         self,
@@ -117,6 +122,7 @@ class NeRFMLP(nn.Module):
     ) -> torch.Tensor:
         """Embedded points [..., input_ch] (+ embedded dirs) -> raw [..., 4]
         float32 (or [..., output_ch] without viewdirs)."""
+        NeRFMLP.plain_calls += 1
         cfg = self.cfg
         h = x_emb
         for i, layer in enumerate(self.pts_linears):

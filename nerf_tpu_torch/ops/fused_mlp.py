@@ -28,7 +28,9 @@ The pieces:
   ``_forward`` / ``_backward``, fed from rays or from points);
 - ``fused_rays_planes`` / ``fused_rays_planes_bwd`` / ``fused_points`` /
   ``fused_points_bwd``: the wrappers. A CPU tensor goes to the plain
-  version; a CUDA tensor launches the kernel or raises;
+  version; a CUDA tensor launches the kernel or raises: the W <= 256 tile's
+  where ``tile_supports``, else (``is_wide``) the wide family's K1w-K4w
+  (ops/fused_mlp_wide.py);
 - ``fused_query_rays_planes`` and ``fused_query``: the entries the renderer
   calls; under autograd they run ``_FusedRaysPlanes`` (K1 forward, K4
   backward) and ``_FusedPoints`` (K2 forward, K3 backward);
@@ -70,8 +72,8 @@ from nerf_tpu_torch.ops import _build
 
 DEPTH = 8
 SKIP = 4  # input re-concatenated after trunk layer 4 -> layer 5 input
-KE, KV = 64, 32  # the kernel's padded embedding widths (csrc/fused_mlp_fwd.cu)
-KERNEL_WIDTHS = (128, 256)  # the widths the kernels are built for
+KE, KV = 64, 32  # the tile's padded embedding widths (csrc/fused_mlp_common.cuh)
+KERNEL_WIDTHS = (128, 256)  # the widths the tile (csrc/fwd_tile_sm90.cuh) is built for
 FWD_TILE = 128  # points of a bf16 forward tile (csrc/fwd_tile_sm90.cuh)
 # the packed leaves, in the order _FusedRaysPlanes takes them
 KP_NAMES = (
@@ -82,21 +84,52 @@ KP_NAMES = (
 
 
 def supports(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views) -> bool:
-    """The architecture family the kernel computes (nerf_tpu's guard,
-    narrowed to the widths and embedding sizes the kernel is built for)."""
+    """The architecture family the single-scene kernels compute: nerf_tpu's
+    guard (nerf_tpu/ops/fused_mlp.py::supports). ``tile_supports`` says
+    whether the W <= 256 tile or the wide family (ops/fused_mlp_wide.py)
+    runs a configuration."""
     return (
         cfg.depth == DEPTH
         and cfg.skips == (SKIP,)
         and cfg.use_viewdirs
-        and cfg.width in KERNEL_WIDTHS
+        and cfg.width % 128 == 0
         and pe_views is not None
         and pe_pts.include_input
         and pe_pts.log_sampling
         and pe_views.include_input
         and pe_views.log_sampling
-        and 0 < pe_pts.num_freqs and pe_pts.out_dim <= KE
-        and 0 < pe_views.num_freqs and pe_views.out_dim <= KV
+        and pe_pts.num_freqs > 0
+        and pe_views.num_freqs > 0
     )
+
+
+def tile_supports(width: int, num_freqs_pts: int, num_freqs_views: int) -> bool:
+    """Whether the W <= 256 tile (csrc/fwd_tile_sm90.cuh and the kernels
+    built on it) is built for a width and octave counts: W in
+    KERNEL_WIDTHS, at most KE point and KV view embedding columns (10 and 4
+    octaves). The rest of ``supports``' family runs the wide kernels."""
+    return (width in KERNEL_WIDTHS and 3 + 6 * num_freqs_pts <= KE
+            and 3 + 6 * num_freqs_views <= KV)
+
+
+def supports_stacked(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views) -> bool:
+    """The stacked (multi-scene) kernels' guard: ``supports`` within the
+    tile's widths and embedding sizes. A stacked net outside it runs the
+    stacked plain MLP (render/network.py's StackedNeRFMLP, ROADMAP C.3b)."""
+    return (supports(cfg, pe_pts, pe_views)
+            and tile_supports(cfg.width, pe_pts.num_freqs, pe_views.num_freqs))
+
+
+def embed_pad(num_freqs_pts: int, num_freqs_views: int) -> Tuple[int, int]:
+    """(KE, KV): the kernels' padded embedding widths at a configuration's
+    octaves, 3 + 6F rounded up to 64 (points) and 32 (views): the tile's
+    64 and 32 wherever the tile runs."""
+    return -(-(3 + 6 * num_freqs_pts) // 64) * 64, -(-(3 + 6 * num_freqs_views) // 32) * 32
+
+
+def is_wide(kp) -> bool:
+    """Whether packed params are of a configuration the wide family runs."""
+    return not tile_supports(kp["W1"].shape[-1], *_num_freqs(kp))
 
 
 def flops_per_point(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig) -> int:
@@ -144,13 +177,20 @@ def wgrad_flops(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig,
     return 2 * (n_rays * n_samples * macs_pt + n_rays * ev * (W // 2))
 
 
+def _ke(cfg: MLPConfig) -> int:
+    """KE of a configuration, from its point embedding's 3 + 6F columns
+    (``cfg.input_ch``)."""
+    return embed_pad((cfg.input_ch - 3) // 6, 1)[0]
+
+
 def wgrad_bytes_per_point(cfg: MLPConfig) -> int:
     """Bytes of the bf16 workspace that the weight-grad phase must read per
     point in ray mode, each row once (WsRows in csrc/fused_mlp_bwd.cu): the
-    padded embedding e, h0..h7, feat, hv, the 8 rows kept for the cotangent
-    gc, d0..d7, d_feat and d_hv. 9,872 at 8x256."""
+    padded embedding e (KE rows, ``_ke``: the tile's 64 at 10 octaves),
+    h0..h7, feat, hv, the 8 rows kept for the cotangent gc, d0..d7, d_feat
+    and d_hv. 9,872 at 8x256."""
     W = cfg.width
-    return 2 * (KE + 2 * (DEPTH * W + W + W // 2) + 8)
+    return 2 * (_ke(cfg) + 2 * (DEPTH * W + W + W // 2) + 8)
 
 
 def bwd_tile_flops(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig,
@@ -185,11 +225,12 @@ def recompute_flops(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig
 def recompute_bytes_per_point(cfg: MLPConfig) -> int:
     """Bytes that the recompute launch must move per point in ray mode with
     a view direction per ray (K4's training call), each once: the bf16
-    workspace rows it writes (the padded embedding e, h0..h7, feat, hv), the
-    mask words and the depth z read. 5,268 at 8x256. The per-ray inputs
-    and the weights are counted apart."""
+    workspace rows it writes (the padded embedding e, KE rows as in
+    ``wgrad_bytes_per_point``, h0..h7, feat, hv), the mask words and the
+    depth z read. 5,268 at 8x256. The per-ray inputs and the weights are
+    counted apart."""
     W = cfg.width
-    return 2 * (KE + DEPTH * W + W + W // 2) + mask_bytes_per_point(cfg) + 4
+    return 2 * (_ke(cfg) + DEPTH * W + W + W // 2) + mask_bytes_per_point(cfg) + 4
 
 
 def chain_flops(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: PosEncConfig,
@@ -361,15 +402,17 @@ def _forward(kp: Dict[str, torch.Tensor], x: torch.Tensor, v: torch.Tensor, spr:
     return _Fwd(e, ev, acts, h, feat, hv, out)
 
 
-def ws_rows(W: int) -> Tuple[Dict[str, Tuple[int, int]], int]:
+def ws_rows(W: int, ke: int = KE, kv: int = KV) -> Tuple[Dict[str, Tuple[int, int]], int]:
     """((first row, rows) of each of the recompute's blocks, the row count)
-    of the backward's bf16 workspace (WsRows in csrc/fused_mlp_bwd.cu; the
-    view embedding's block is written only with a direction per point)."""
-    gc = KE + DEPTH * W + W + W // 2
+    of the backward's bf16 workspace (WsRows in csrc/fused_mlp_bwd.cu, at
+    padded embedding widths ke and kv: the tile's, or ``embed_pad``'s for
+    the wide family; the view embedding's block is written only with a
+    direction per point)."""
+    gc = ke + DEPTH * W + W + W // 2
     ev = gc + 8 + DEPTH * W + W + W // 2
-    blocks = {"e": (0, KE), **{f"h{i}": (KE + i * W, W) for i in range(DEPTH)},
-              "feat": (KE + DEPTH * W, W), "hv": (KE + DEPTH * W + W, W // 2), "ev": (ev, KV)}
-    return blocks, ev + KV
+    blocks = {"e": (0, ke), **{f"h{i}": (ke + i * W, W) for i in range(DEPTH)},
+              "feat": (ke + DEPTH * W, W), "hv": (ke + DEPTH * W + W, W // 2), "ev": (ev, kv)}
+    return blocks, ev + kv
 
 
 def mask_rows(W: int) -> int:
@@ -411,11 +454,12 @@ def bwd_recompute_reference(kp: Dict[str, torch.Tensor], x: torch.Tensor, v: tor
     ``_forward``'s, so the masks are those the forward's activations give."""
     dtype = kp["W1"].dtype
     c = lambda t: round_to(t, dtype)  # noqa: E731
+    ke, kv = embed_pad(*_num_freqs(kp))
     fw = _forward(kp, x, v, spr, keep_acts=True)
     hs = fw.acts + [c(fw.h7)]
     hv = c(fw.hv)
-    rows = {"e": F.pad(fw.e, (0, KE - fw.e.shape[1])).T,
-            "ev": F.pad(fw.ev, (0, KV - fw.ev.shape[1])).T,
+    rows = {"e": F.pad(fw.e, (0, ke - fw.e.shape[1])).T,
+            "ev": F.pad(fw.ev, (0, kv - fw.ev.shape[1])).T,
             **{f"h{i}": h.T for i, h in enumerate(hs)}, "feat": c(fw.feat).T, "hv": hv.T}
     masks = torch.cat([pack_mask_bits(h > 0) for h in hs + [hv]], 0)
     return Recompute({k: t.contiguous() for k, t in rows.items()}, masks, fw.out)
@@ -435,9 +479,10 @@ def recompute_layers_reference(kp: Dict[str, torch.Tensor], rows: Dict[str, torc
     Fp, Fv = _num_freqs(kp)
     W, n = kp["W1"].shape[0], x.shape[0]
     ke, kv = kp["W05e"].shape[0], kp["Wve"].shape[0]
+    ke_pad, kv_pad = embed_pad(Fp, Fv)
     inp = lambda name: rows[name][:, :n].T.float().contiguous()  # noqa: E731
-    out = {"e": F.pad(c(_embed(x, Fp)), (0, KE - ke)).T,
-           "ev": F.pad(c(_embed(v, Fv)), (0, KV - kv)).T}
+    out = {"e": F.pad(c(_embed(x, Fp)), (0, ke_pad - ke)).T,
+           "ev": F.pad(c(_embed(v, Fv)), (0, kv_pad - kv)).T}
     z05 = inp("e")[:, :ke] @ w("W05e")
     out["h0"] = c(torch.relu(z05[:, :W] + kp["b0"])).T
     for i in range(1, DEPTH):
@@ -473,12 +518,14 @@ def fused_points_reference(
 
 
 def kernel_blobs(kp: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pack ``kp`` into the kernel's two flat buffers (layout in
-    csrc/fused_mlp_fwd.cu): weights as ``[out, in]`` rows with the embedding
-    K padded to 64 / 32, then Wout as is; biases concatenated in f32.
-    Stacked leaves ([S, ...]) give each scene's blobs one after another, as
-    the stacked K1 and K4 take them."""
+    """Pack ``kp`` into the kernel's two flat buffers (Layout in
+    csrc/fused_mlp_common.cuh): weights as ``[out, in]`` rows with the
+    embedding K padded to ``embed_pad``'s widths (the tile's 64 / 32), then
+    Wout as is; biases concatenated in f32. Stacked leaves ([S, ...]) give
+    each scene's blobs one after another, as the stacked K1 and K4 take
+    them."""
     lead = kp["W1"].shape[:-2]
+    ke, kv = embed_pad(*_num_freqs(kp))
 
     def rows(name, k_pad=None):
         wt = kp[name].mT
@@ -487,9 +534,9 @@ def kernel_blobs(kp: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tenso
         return wt.reshape(*lead, -1)
 
     wblob = torch.cat(
-        [rows("W05e", KE)]
+        [rows("W05e", ke)]
         + [rows(f"W{i}") for i in range(1, DEPTH)]
-        + [rows("Wf"), rows("Wvf"), rows("Wve", KV), kp["Wout"].reshape(*lead, -1)], -1
+        + [rows("Wf"), rows("Wvf"), rows("Wve", kv), kp["Wout"].reshape(*lead, -1)], -1
     )
     bblob = torch.cat(
         [kp[f"b{i}"].reshape(*lead, -1) for i in range(DEPTH)]
@@ -530,22 +577,34 @@ def packed_params(
     return cached[1], cached[2]
 
 
-def _kernel_config(kp, like: torch.Tensor):
+def _kernel_config(kp, like: torch.Tensor, tile: bool = True):
     """(dtype, width, point octaves, view octaves) for a launch on
-    ``like``'s device; raises on what the kernels are not built for."""
+    ``like``'s device; raises on what the kernels are not built for: any
+    configuration outside ``supports``, and with ``tile`` (the W <= 256
+    tile's launches) one outside ``tile_supports``."""
     dtype = kp["W1"].dtype
     W = kp["W1"].shape[-1]
     Fp, Fv = _num_freqs(kp)
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the kernel computes in bfloat16 or float32, not {dtype}")
-    if W not in KERNEL_WIDTHS or 3 + 6 * Fp > KE or 3 + 6 * Fv > KV:
+    if W % 128 or W < 128 or Fp < 1 or Fv < 1:
+        raise ValueError(f"no fused kernel takes width {W} with {Fp} point and {Fv} view "
+                         f"octaves (nerf_tpu's guard: a width that is a multiple of 128)")
+    if tile and not tile_supports(W, Fp, Fv):
         raise ValueError(
-            f"the kernel is built for width in {KERNEL_WIDTHS}, <= 10 point and <= 4 view "
-            f"octaves; got width {W}, {Fp} and {Fv}"
+            f"the W <= 256 tile is built for width in {KERNEL_WIDTHS}, <= 10 point and <= 4 "
+            f"view octaves; got width {W}, {Fp} and {Fv} (the wide family's configuration)"
         )
     if any(v.device != like.device for v in kp.values()):
         raise ValueError(f"packed params and inputs must be on one device, {like.device}")
     return dtype, W, Fp, Fv
+
+
+def _wide():
+    """ops/fused_mlp_wide.py (imported at first use: it imports this module)."""
+    from nerf_tpu_torch.ops import fused_mlp_wide
+
+    return fused_mlp_wide
 
 
 def _raise_on(lib, err: int, name: str) -> None:
@@ -592,6 +651,8 @@ def fused_rays_planes(
         return fused_rays_planes_reference(kp, rays_o, rays_d, viewdirs, z_vals)
     if z_vals.device.type != "cuda":
         raise ValueError(f"no fused kernel for device {z_vals.device}")
+    if is_wide(kp):
+        return _wide().fused_rays_planes_wide(kp, rays_o, rays_d, viewdirs, z_vals, blobs)
     return _launch(kp, rays_o, rays_d, viewdirs, z_vals, blobs)
 
 
@@ -626,6 +687,8 @@ def fused_points(
         return fused_points_reference(kp, x, v, spr)
     if x.device.type != "cuda":
         raise ValueError(f"no fused kernel for device {x.device}")
+    if is_wide(kp):
+        return _wide().fused_points_wide(kp, x, v, spr, blobs)
     dtype, W, Fp, Fv = _kernel_config(kp, x)
     N = x.shape[0]
     out = torch.empty(N, 4, dtype=torch.float32, device=x.device)
@@ -658,11 +721,11 @@ CHAIN = (("dhv", "gc", "hv"), ("dfeat", "dhv", None), ("d7", "dfeat", "h7")) + t
 BIAS_PART = 64  # points a bias partial of phase 1 sums (csrc/fused_mlp_bwd.cu)
 
 
-def chain_ws_rows(W: int) -> Dict[str, Tuple[int, int]]:
+def chain_ws_rows(W: int, ke: int = KE) -> Dict[str, Tuple[int, int]]:
     """(first row, rows) of each of the chain's blocks in the backward's bf16
-    workspace (WsRows in csrc/fused_mlp_bwd.cu): gc's 4 used rows, d0..d7,
-    d_feat, d_hv."""
-    gc = KE + DEPTH * W + W + W // 2
+    workspace (WsRows in csrc/fused_mlp_bwd.cu, at padded embedding width
+    ke as in ``ws_rows``): gc's 4 used rows, d0..d7, d_feat, d_hv."""
+    gc = ke + DEPTH * W + W + W // 2
     return {"gc": (gc, 4), **{f"d{i}": (gc + 8 + i * W, W) for i in range(DEPTH)},
             "dfeat": (gc + 8 + DEPTH * W, W), "dhv": (gc + 8 + DEPTH * W + W, W // 2)}
 
@@ -874,10 +937,12 @@ def _chain_blob(kp: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The backward's second weight buffer (TLayout in
     csrc/fused_mlp_bwd.cu): W1..W7, Wf and Wvf in kp's own [in, out] layout,
     the B operand of d·Wᵀ; then, for K3's input grads, W05e's layer-0 and
-    skip halves and Wve, their embedding rows zero-padded to 64 / 32.
-    Stacked leaves give each scene's buffer one after another."""
+    skip halves and Wve, their embedding rows zero-padded to ``embed_pad``'s
+    widths (the tile's 64 / 32). Stacked leaves give each scene's buffer one
+    after another."""
     W = kp["W1"].shape[-1]
     lead = kp["W1"].shape[:-2]
+    ke, kv = embed_pad(*_num_freqs(kp))
     names = [f"W{i}" for i in range(1, DEPTH)] + ["Wf", "Wvf"]
 
     def rows(t, k_pad):
@@ -886,18 +951,19 @@ def _chain_blob(kp: Dict[str, torch.Tensor]) -> torch.Tensor:
     w05 = kp["W05e"]
     return torch.cat(
         [kp[n].reshape(*lead, -1) for n in names]
-        + [rows(w05[..., :W], KE), rows(w05[..., W:], KE), rows(kp["Wve"], KV)], -1
+        + [rows(w05[..., :W], ke), rows(w05[..., W:], ke), rows(kp["Wve"], kv)], -1
     ).reshape(-1).contiguous()
 
 
-def _grad_blocks(W: int):
+def _grad_blocks(W: int, ke: int = KE, kv: int = KV):
     """(name, rows, cols) of K4's f32 output in order (GLayout in
-    csrc/fused_mlp_bwd.cu, embedding rows padded to KE / KV), then the bias
-    grads as (name, width)."""
+    csrc/fused_mlp_bwd.cu, embedding rows padded to ke / kv: the tile's KE /
+    KV, or ``embed_pad``'s for the wide family), then the bias grads as
+    (name, width)."""
     weights = (
-        [("W05e", KE, 2 * W)]
+        [("W05e", ke, 2 * W)]
         + [(f"W{i}", W, W) for i in range(1, DEPTH)]
-        + [("Wf", W, W), ("Wvf", W, W // 2), ("Wve", KV, W // 2), ("Wout", 3 * W // 2, 4)]
+        + [("Wf", W, W), ("Wvf", W, W // 2), ("Wve", kv, W // 2), ("Wout", 3 * W // 2, 4)]
     )
     biases = [(f"b{i}", W) for i in range(DEPTH)] + [("bf", W), ("bv", W // 2), ("bout", 4)]
     return weights, biases
@@ -906,7 +972,7 @@ def _grad_blocks(W: int):
 def _unpack_grads(out: torch.Tensor, W: int, Fp: int, Fv: int) -> Dict[str, torch.Tensor]:
     """K4's f32 output [grad size] (the stacked K4's [S, grad size]) by leaf,
     in kp's shapes (with the leading scene axis)."""
-    weights, biases = _grad_blocks(W)
+    weights, biases = _grad_blocks(W, *embed_pad(Fp, Fv))
     rows_used = {"W05e": 3 + 6 * Fp, "Wve": 3 + 6 * Fv}
     grads, o = {}, 0
     for name, rows, cols in weights:
@@ -1156,6 +1222,9 @@ def fused_rays_planes_bwd(
         return fused_rays_planes_bwd_reference(kp, rays_o, rays_d, viewdirs, z_vals, g_planes)
     if z_vals.device.type != "cuda":
         raise ValueError(f"no fused kernel for device {z_vals.device}")
+    if is_wide(kp):
+        return _wide().fused_rays_planes_wide_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g_planes,
+                                                  blobs)
     grads = _launch_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g_planes, blobs)
     if R * S:
         fused_rays_planes_bwd.launches += 1
@@ -1189,6 +1258,8 @@ def fused_points_bwd(
         return fused_points_bwd_reference(kp, x, v, g, spr, input_grads)
     if x.device.type != "cuda":
         raise ValueError(f"no fused kernel for device {x.device}")
+    if is_wide(kp):
+        return _wide().fused_points_wide_bwd(kp, x, v, g, spr, input_grads, blobs)
     dtype, W, Fp, Fv = _kernel_config(kp, x)
     dev = x.device
     out = torch.zeros(_grad_size(W), dtype=torch.float32, device=dev)
@@ -1540,7 +1611,7 @@ def fused_query_rays_planes_stacked(mlp, cfg: MLPConfig, pe_pts: PosEncConfig,
     StackedNeRFMLP): rays [S, R, 3] and depths [S, R, N] in, raw planes
     [4, S, R, N] out, scene s's through scene s's net; rays and depths get
     no gradient."""
-    if not supports(cfg, pe_pts, pe_views):
+    if not supports_stacked(cfg, pe_pts, pe_views):
         raise ValueError("fused_query_rays_planes_stacked: unsupported MLP / posenc configuration")
     if torch.is_grad_enabled() and any(p.requires_grad for p in mlp.parameters()):
         kp = pack_params(mlp, pe_pts, pe_views, compute_dtype)
@@ -1711,7 +1782,7 @@ def fused_query_stacked(mlp, cfg: MLPConfig, pe_pts: PosEncConfig, pe_views: Pos
     else per point (spr = 1), as fused_query takes them. Points and
     directions get no gradient (the renderer's: nerf_tpu's fused_query with
     input_grads=False)."""
-    if not supports(cfg, pe_pts, pe_views):
+    if not supports_stacked(cfg, pe_pts, pe_views):
         raise ValueError("fused_query_stacked: unsupported MLP / posenc configuration")
     S, R, N, _ = pts.shape
     x = pts.detach().reshape(S, R * N, 3)

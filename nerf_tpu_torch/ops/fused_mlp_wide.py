@@ -1,0 +1,512 @@
+"""The wide kernel family: K1-K4 at the widths and octave counts that the
+W <= 256 tile is not built for (csrc/fused_mlp_wide.cu).
+
+nerf_tpu runs its Pallas kernels at any width that is a multiple of 128 and
+at any octave count (nerf_tpu/ops/fused_mlp.py::supports); the port's bf16
+tile (csrc/fwd_tile_sm90.cuh) is built for W in {128, 256} with at most 10
+point and 4 view octaves. ``ops/fused_mlp.py``'s wrappers send every other
+configuration here on a CUDA tensor (``fused_mlp.is_wide``); on a CPU tensor
+they take the same plain versions as the tile's configurations.
+
+Every activation lives feature-major in device memory (a row per feature, a
+column per point: the backward's workspace rows, ``fused_mlp.ws_rows`` at the
+configuration's padded embedding widths ``fused_mlp.embed_pad``), and every
+layer is one launch of the family's GEMM (``Ops.gemm``). The launch plans:
+
+- K1w (``fused_rays_planes_wide``) / K2w (``fused_points_wide``): the
+  embedding rows, the layers with W^T as A (the skip's embedding half and,
+  with a direction per point, the view embedding as a second source; with a
+  direction per ray, Wve's product per ray added in the view layer's
+  epilogue), the head; over slices of at most ``SLICE_POINTS`` points;
+- K4w (``fused_rays_planes_wide_bwd``) / K3w (``fused_points_wide_bwd``):
+  the same forward into the workspace rows, the cotangent chain with W as A
+  (gc's rank-4 terms a k = 4 source), the per-ray sums of d_hv, with input
+  grads d_e and d_ev and the posenc backward, then the weight grads
+  (``wgrad_sm90.cuh``, phase 3 of the tile's backward) over the rows.
+
+``Ops`` launches the primitives of csrc/fused_mlp_wide.cu; ``PlainOps`` is
+the plain PyTorch version of each, on the same tensors, so a launch plan can
+run on the CPU against the kernels' plain versions
+(tests/test_torch_port_fused_mlp.py) and each primitive be held to its plain
+version on the card (tests/test_torch_port_kernels.py). Each wrapper counts
+its calls in ``launches`` (one a call, whatever the launches it makes).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from nerf_tpu_torch.ops import _build, fused_mlp
+
+TILE = 128  # columns of a GEMM tile and of a bias partial (WIDE_TILE in the source)
+SLICE_POINTS = 1 << 20  # the forwards' points a slice: bounds their scratch rows
+BOX_N = 256  # the widest product the weight-grad launch takes in bf16
+SMS, MAX_SPLIT_CHUNKS = 132, 256  # as csrc/fused_mlp_bwd.cu's hopper_splits
+
+
+def cols(n: int) -> int:
+    """n columns rounded up to whole GEMM tiles."""
+    return -(-n // TILE) * TILE
+
+
+class PlainOps:
+    """The plain PyTorch version of each primitive of csrc/fused_mlp_wide.cu,
+    on the same tensors as ``Ops`` (bf16 rows round where a kernel stores
+    them, every sum in f32)."""
+
+    def embed(self, out, F_, n, rays=None, x=None):
+        """out [K, >= ncols] rows of the F_-octave embedding of the columns
+        0 .. out.shape[1]-1: points of rays (ro, rd, z, spr) or of x [n, 3];
+        x = 0 past n."""
+        ncols = out.shape[1]
+        pts = fused_mlp._ray_points(*rays[:3]) if rays is not None else x[:n]
+        pts = F.pad(pts, (0, 0, 0, ncols - n))
+        emb = fused_mlp._embed(pts, F_)
+        out.copy_(F.pad(emb, (0, out.shape[0] - emb.shape[1])).T)
+
+    def gemm(self, M, N, srcs, bias=None, add=None, add_div=1, mask=None, relu=False, out=None,
+             out32=None, bsum=None):
+        acc = sum(a[:, :k].float() @ b[:k, :N].float() for a, k, b in srcs)
+        if add is not None:
+            acc = acc + add[:, torch.arange(N, device=acc.device) // add_div]
+        if bias is not None:
+            acc = acc + bias[:, None]
+        if relu:
+            acc = torch.relu(acc)
+        if mask is not None:
+            acc = torch.where(mask[:, :N].float() > 0, acc, torch.zeros_like(acc))
+        if bsum is not None:
+            bsum[: N // TILE, :M] = acc.reshape(M, N // TILE, TILE).sum(-1).T
+        if out is not None:
+            out[:, :N] = acc
+        if out32 is not None:
+            out32[:, :N] = acc
+
+    def head(self, hv, h7, n, W, wout, bout, out):
+        w = wout.float()
+        raw = hv[:, :n].T.float() @ w[: W // 2] + h7[:, :n].T.float() @ w[W // 2:] + bout
+        out.copy_(raw.T)
+
+    def gc(self, g, n, rows, bsum):
+        ncols = rows.shape[1]
+        gp = F.pad(g[:, :n], (0, ncols - n))
+        rows[:4] = gp
+        rows[4:8] = 0
+        bsum[: ncols // TILE, :4] = gp.reshape(4, -1, TILE).sum(-1).T
+
+    def ray_sums(self, dhv32, n_rays, spr, out):
+        H, rpad = out.shape
+        s = dhv32[:, : n_rays * spr].reshape(H, n_rays, spr).sum(-1)
+        out.copy_(F.pad(s, (0, rpad - n_rays)))
+
+    def embed_bwd(self, y, n, F_, de, out):
+        out[:n] = fused_mlp._embed_backward(de[: 3 + 6 * F_, :n].T, y[:n], F_)
+
+    def wgrad(self, ws, rws, probs, split_len, nsplit, grad_size, out, bpart):
+        for src, ra, M, rb, N, coff, ldc in probs:
+            base = rws if src else ws
+            c = base[ra : ra + M].float() @ base[rb : rb + N].float().T
+            out[coff : coff + (M - 1) * ldc + N].as_strided((M, N), (ldc, 1)).copy_(c)
+        out[grad_size:] = bpart.sum(0)
+
+
+def _p(t: Optional[torch.Tensor]):
+    return 0 if t is None else t.data_ptr()
+
+
+def _ld(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.stride(0)
+
+
+class Ops:
+    """The primitives of csrc/fused_mlp_wide.cu on CUDA tensors of one
+    device, each one launch (the weight grads a few) on its current stream;
+    a launch that fails raises."""
+
+    def __init__(self, dtype: torch.dtype, device: torch.device):
+        self.lib = _build.load("fused_mlp_wide")
+        self.bf16 = int(dtype == torch.bfloat16)
+        self.device = device
+        self.stream = torch.cuda.current_stream(device).cuda_stream
+
+    def _run(self, name: str, *args) -> None:
+        with torch.cuda.device(self.device):
+            err = getattr(self.lib, name)(*args)
+        fused_mlp._raise_on(self.lib, err, name)
+
+    def embed(self, out, F_, n, rays=None, x=None):
+        if rays is not None:
+            ro, rd, z, spr = rays
+            self._run("nerf_wide_embed", self.bf16, 1, ro.data_ptr(), rd.data_ptr(), z.data_ptr(),
+                      0, n, spr, F_, out.shape[0], out.data_ptr(), _ld(out), out.shape[1],
+                      self.stream)
+        else:
+            self._run("nerf_wide_embed", self.bf16, 0, 0, 0, 0, x.data_ptr(), n, 1, F_,
+                      out.shape[0], out.data_ptr(), _ld(out), out.shape[1], self.stream)
+
+    def gemm(self, M, N, srcs, bias=None, add=None, add_div=1, mask=None, relu=False, out=None,
+             out32=None, bsum=None):
+        (a0, k0, b0), (a1, k1, b1) = srcs[0], srcs[1] if len(srcs) > 1 else (None, 0, None)
+        self._run("nerf_wide_gemm", self.bf16, M, N, _p(a0), _ld(a0), k0, _p(b0), _ld(b0),
+                  _p(a1), _ld(a1), k1, _p(b1), _ld(b1), _p(bias), _p(add), _ld(add), add_div,
+                  _p(mask), _ld(mask), int(relu), _p(out), _ld(out), _p(out32), _ld(out32),
+                  _p(bsum), _ld(bsum), self.stream)
+
+    def head(self, hv, h7, n, W, wout, bout, out):
+        self._run("nerf_wide_head", self.bf16, hv.data_ptr(), h7.data_ptr(), _ld(hv), n, W,
+                  wout.data_ptr(), bout.data_ptr(), out.data_ptr(), out.stride(0),
+                  out.stride(1), self.stream)
+
+    def gc(self, g, n, rows, bsum):
+        self._run("nerf_wide_gc", self.bf16, g.data_ptr(), g.stride(0), g.stride(1), n,
+                  rows.shape[1], rows.data_ptr(), _ld(rows), bsum.data_ptr(), _ld(bsum),
+                  self.stream)
+
+    def ray_sums(self, dhv32, n_rays, spr, out):
+        self._run("nerf_wide_ray_sums", self.bf16, dhv32.data_ptr(), _ld(dhv32), n_rays, spr,
+                  out.shape[0], out.data_ptr(), _ld(out), out.shape[1], self.stream)
+
+    def embed_bwd(self, y, n, F_, de, out):
+        self._run("nerf_wide_embed_bwd", y.data_ptr(), n, F_, de.data_ptr(), _ld(de),
+                  out.data_ptr(), self.stream)
+
+    def wgrad(self, ws, rws, probs, split_len, nsplit, grad_size, out, bpart):
+        flat = (ctypes.c_int * (7 * len(probs)))(*[v for q in probs for v in q])
+        wpart = torch.empty(nsplit * grad_size, dtype=torch.float32, device=ws.device)
+        self._run("nerf_wide_wgrad", self.bf16, ws.data_ptr(), ws.shape[0], ws.shape[1],
+                  _p(rws), 0 if rws is None else rws.shape[0], 0 if rws is None else rws.shape[1],
+                  len(probs), ctypes.addressof(flat), split_len, nsplit, grad_size,
+                  wpart.data_ptr(), out.data_ptr(), bpart.data_ptr(), bpart.shape[0],
+                  bpart.shape[1], self.stream)
+
+
+def _config(kp) -> Tuple[torch.dtype, int, int, int, int, int]:
+    """(dtype, W, Fp, Fv, KE, KV) of packed params."""
+    dtype = kp["W1"].dtype
+    W = kp["W1"].shape[-1]
+    Fp, Fv = fused_mlp._num_freqs(kp)
+    return (dtype, W, Fp, Fv) + fused_mlp.embed_pad(Fp, Fv)
+
+
+def _blocks(kp, blobs) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The forward's W^T blocks ([out][in] rows, the A of its products) and
+    biases, as views of ``kernel_blobs(kp)`` (fused_mlp_common.cuh's Layout
+    at the configuration's KE / KV)."""
+    dtype, W, _, _, ke, kv = _config(kp)
+    wblob, bblob = fused_mlp.kernel_blobs(kp) if blobs is None else blobs
+    w, o = {}, 0
+    for name, rows, k in ([("w05", 2 * W, ke)] + [(f"w{i}", W, W) for i in range(1, 8)]
+                          + [("wf", W, W), ("wvf", W // 2, W), ("wve", W // 2, kv)]):
+        w[name] = wblob[o : o + rows * k].view(rows, k)
+        o += rows * k
+    b, o = {}, 0
+    for name, n in [(f"b{i}", W) for i in range(8)] + [("bf", W), ("bv", W // 2), ("bout", 4)]:
+        b[name] = bblob[o : o + n]
+        o += n
+    return w, b
+
+
+def _layers(ops, w, b, rows, W: int, ke: int, kv: int, N: int, view) -> None:
+    """The forward's layers over N columns, from the embedding rows
+    rows["e"] into rows h0..h7, feat and hv (row views; a layer never writes
+    the rows it reads). ``view``: ("src", ev rows) with a direction per
+    column, or ("add", Wve's product per view [W/2, views] f32, spr)."""
+    ops.gemm(W, N, [(w["w05"][:W], ke, rows["e"])], bias=b["b0"], relu=True, out=rows["h0"])
+    for i in range(1, 8):
+        srcs = [(w[f"w{i}"], W, rows[f"h{i - 1}"])]
+        if i == fused_mlp.SKIP + 1:
+            srcs.append((w["w05"][W:], ke, rows["e"]))
+        ops.gemm(W, N, srcs, bias=b[f"b{i}"], relu=True, out=rows[f"h{i}"])
+    ops.gemm(W, N, [(w["wf"], W, rows["h7"])], bias=b["bf"], out=rows["feat"])
+    srcs = [(w["wvf"], W, rows["feat"])]
+    if view[0] == "src":
+        srcs.append((w["wve"], kv, view[1]))
+        ops.gemm(W // 2, N, srcs, bias=b["bv"], relu=True, out=rows["hv"])
+    else:
+        ops.gemm(W // 2, N, srcs, bias=b["bv"], add=view[1], add_div=view[2], relu=True,
+                 out=rows["hv"])
+
+
+def _view_terms(ops, w, v, nv: int, Fv: int, kv: int, W: int, dtype, ev_rows=None):
+    """("add", Wve's product per view [W/2, cols(nv)] f32, spr) for a
+    direction per ray, from the view embedding rows (written to ``ev_rows``,
+    [kv, cols(nv)], where given)."""
+    ev = ev_rows if ev_rows is not None else torch.empty(kv, cols(nv), dtype=dtype,
+                                                         device=v.device)
+    ops.embed(ev, Fv, nv, x=v)
+    evc = torch.empty(W // 2, ev.shape[1], dtype=torch.float32, device=v.device)
+    ops.gemm(W // 2, ev.shape[1], [(w["wve"], kv, ev)], out32=evc)
+    return evc
+
+
+def _forward(ops, kp, blobs, pieces, out4) -> None:
+    """K1w / K2w: raw of every piece into out4 [4, points] (a strided view:
+    planes or rows). ``pieces`` yields (points source: ("rays", ro, rd, z) or
+    ("points", x), directions v, points n, spr, first point) slices."""
+    dtype, W, Fp, Fv, ke, kv = _config(kp)
+    w, b = _blocks(kp, blobs)
+    scratch = None
+    for src, v, n, spr, p0 in pieces:
+        N = cols(n)
+        if scratch is None or scratch[0].shape[1] < N:
+            dev = v.device
+            scratch = [torch.empty(r, N, dtype=dtype, device=dev) for r in (ke, W, W, W // 2)]
+        e, A, B, hv = (t[:, :N] for t in scratch)
+        rays = (src[1], src[2], src[3], spr) if src[0] == "rays" else None
+        ops.embed(e, Fp, n, rays=rays, x=None if rays else src[1])
+        if spr == 1:
+            ev = torch.empty(kv, N, dtype=dtype, device=v.device)
+            ops.embed(ev, Fv, n, x=v)
+            view = ("src", ev)
+        else:
+            view = ("add", _view_terms(ops, w, v, n // spr, Fv, kv, W, dtype), spr)
+        rows = {"e": e, "feat": A, "hv": hv, **{f"h{i}": A if i % 2 == 0 else B for i in range(8)}}
+        _layers(ops, w, b, rows, W, ke, kv, N, view)
+        ops.head(hv, B, n, W, kp["Wout"], b["bout"], out4[:, p0 : p0 + n])
+
+
+def _ray_slices(rays_o, rays_d, viewdirs, z_vals):
+    R, S = z_vals.shape
+    step = max(1, SLICE_POINTS // S)
+    for r0 in range(0, R, step):
+        r1 = min(R, r0 + step)
+        yield (("rays", rays_o[r0:r1], rays_d[r0:r1], z_vals[r0:r1]), viewdirs[r0:r1],
+               (r1 - r0) * S, S, r0 * S)
+
+
+def _point_slices(x, v, spr):
+    nv = v.shape[0]
+    step = max(1, SLICE_POINTS // spr)
+    for v0 in range(0, nv, step):
+        v1 = min(nv, v0 + step)
+        yield ("points", x[v0 * spr : v1 * spr]), v[v0:v1], (v1 - v0) * spr, spr, v0 * spr
+
+
+def rays_planes(ops, kp, rays_o, rays_d, viewdirs, z_vals, blobs=None) -> torch.Tensor:
+    """K1w's launches: raw planes [4, R, S] float32."""
+    R, S = z_vals.shape
+    out = torch.empty(4, R, S, dtype=torch.float32, device=z_vals.device)
+    args = [t.contiguous() for t in (rays_o, rays_d, viewdirs, z_vals)]
+    _forward(ops, kp, blobs, _ray_slices(*args), out.view(4, R * S))
+    return out
+
+
+def points_raw(ops, kp, x, v, spr: int, blobs=None) -> torch.Tensor:
+    """K2w's launches: raw [N, 4] float32."""
+    out = torch.empty(x.shape[0], 4, dtype=torch.float32, device=x.device)
+    _forward(ops, kp, blobs, _point_slices(x.contiguous(), v.contiguous(), spr), out.T)
+    return out
+
+
+def _grad_offsets(W: int, ke: int, kv: int) -> Tuple[Dict[str, int], int]:
+    """(first float of each weight grad in the f32 output, the weights'
+    floats): fused_mlp._grad_blocks' order."""
+    weights, _ = fused_mlp._grad_blocks(W, ke, kv)
+    off, o = {}, 0
+    for name, r, c in weights:
+        off[name] = o
+        o += r * c
+    return off, o
+
+
+def _problems(W: int, ke: int, kv: int, dense: bool) -> List[Tuple[int, ...]]:
+    """The weight grads as (src, ra, M, rb, N, coff, ldc) products over the
+    workspace rows (src 0) or the per-ray rows (src 1: ev at row 0, the
+    rounded d_hv sums at row kv), each N <= BOX_N."""
+    blocks, _ = fused_mlp.ws_rows(W, ke, kv)
+    chain = fused_mlp.chain_ws_rows(W, ke)
+    row = {**{k: r for k, (r, _) in blocks.items()}, **{k: r for k, (r, _) in chain.items()}}
+    off, _ = _grad_offsets(W, ke, kv)
+    probs = []
+
+    def add(src, ra, M, rb, N, coff, ldc):
+        for j in range(0, N, BOX_N):
+            probs.append((src, ra, M, rb + j, min(BOX_N, N - j), coff + j, ldc))
+
+    add(0, row["e"], ke, row["d0"], W, off["W05e"], 2 * W)
+    add(0, row["e"], ke, row["d5"], W, off["W05e"] + W, 2 * W)
+    for i in range(1, 8):
+        add(0, row[f"h{i - 1}"], W, row[f"d{i}"], W, off[f"W{i}"], W)
+    add(0, row["h7"], W, row["dfeat"], W, off["Wf"], W)
+    add(0, row["feat"], W, row["dhv"], W // 2, off["Wvf"], W // 2)
+    add(0, row["hv"], W // 2, row["gc"], 4, off["Wout"], 4)
+    add(0, row["h7"], W, row["gc"], 4, off["Wout"] + (W // 2) * 4, 4)
+    if dense:
+        add(0, row["ev"], kv, row["dhv"], W // 2, off["Wve"], W // 2)
+    else:
+        add(1, 0, kv, kv, W // 2, off["Wve"], W // 2)
+    return probs
+
+
+def hopper_splits(tiles: int, nchunks: int) -> int:
+    """csrc/fused_mlp_bwd.cu's hopper_splits: the bf16 weight-grad launch's
+    split count for ``tiles`` CTAs a split over nchunks 64-point chunks."""
+    smin = min(64, -(-nchunks // MAX_SPLIT_CHUNKS))
+    smax = max(smin, min(64, nchunks // 8))
+    best, best_fill = smin, 0.0
+    for s in range(smin, smax + 1):
+        ctas = tiles * s
+        fill = ctas / (-(-ctas // SMS) * SMS)
+        if fill >= 0.95:
+            return s
+        if fill > best_fill:
+            best, best_fill = s, fill
+    return best
+
+
+def _splits(bf16: bool, probs, n_pad: int) -> Tuple[int, int]:
+    """(split_len, nsplit) of the weight grads over n_pad columns, as the
+    tile's backward picks them (make_plan)."""
+    nchunks = n_pad // 64
+    if bf16:
+        tiles = sum(-(-q[2] // 128) for q in probs if q[0] == 0)
+        target = hopper_splits(tiles, nchunks)
+    else:
+        target = max(1, min(64, n_pad // 8192))
+    split_len = -(-nchunks // target) * 64
+    return split_len, -(-n_pad // split_len)
+
+
+def _backward(ops, kp, blobs, src, x, v, n: int, spr: int, g4, input_grads: bool):
+    """K4w / K3w: (f32 grads of the packed leaves, dx, dv) from the cotangent
+    g4 [4, n] (a strided view) of raw at the points of ``src`` (("rays", ro,
+    rd, z) or ("points", x)); dx and dv (of x [n, 3] and v) with
+    ``input_grads`` only."""
+    dtype, W, Fp, Fv, ke, kv = _config(kp)
+    dev = g4.device
+    w, b = _blocks(kp, blobs)
+    N, dense, nv = cols(n), spr == 1, n // spr
+    blocks, nrows = fused_mlp.ws_rows(W, ke, kv)
+    spans = {**blocks, **fused_mlp.chain_ws_rows(W, ke)}
+    spans["gc"] = (spans["gc"][0], 8)
+    ws = torch.empty(nrows, N, dtype=dtype, device=dev)
+    rows = {k: ws[r0 : r0 + k_] for k, (r0, k_) in spans.items()}
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    # the forward again, into the workspace rows
+    rays = (src[1], src[2], src[3], spr) if src[0] == "rays" else None
+    ops.embed(rows["e"], Fp, n, rays=rays, x=None if rays else src[1])
+    rws = None
+    if dense:
+        ops.embed(rows["ev"], Fv, n, x=v)
+        view = ("src", rows["ev"])
+    else:
+        rws = torch.empty(kv + W // 2, cols(nv), dtype=dtype, device=dev)
+        view = ("add", _view_terms(ops, w, v, nv, Fv, kv, W, dtype, rws[:kv]), spr)
+    _layers(ops, w, b, rows, W, ke, kv, N, view)
+
+    # the cotangent chain (nerf_tpu's _mlp_backward_math), each block's
+    # unrounded f32 sums per 128 columns into the bias partials
+    nbias = 9 * W + W // 2 + 4
+    bpart = torch.empty(N // TILE, nbias, **f32)
+    boff = {**{f"b{i}": i * W for i in range(8)}, "bf": 8 * W, "bv": 9 * W, "bout": 9 * W + W // 2}
+    bs = lambda name, k: bpart[:, boff[name] : boff[name] + k]  # noqa: E731
+    ops.gc(g4, n, rows["gc"], bs("bout", 4))
+    gc4 = rows["gc"][:4]
+    wout = kp["Wout"]
+    wout_hv = F.pad(wout[: W // 2], (0, 4)).contiguous()  # rows of 8: a legal TMA stride
+    wout_h7 = F.pad(wout[W // 2:], (0, 4)).contiguous()
+    dhv32 = None if dense else torch.empty(W // 2, N, **f32)
+    ops.gemm(W // 2, N, [(wout_hv, 4, gc4)], mask=rows["hv"], out=rows["dhv"], out32=dhv32,
+             bsum=bs("bv", W // 2))
+    ops.gemm(W, N, [(kp["Wvf"], W // 2, rows["dhv"])], out=rows["dfeat"], bsum=bs("bf", W))
+    ops.gemm(W, N, [(kp["Wf"], W, rows["dfeat"]), (wout_h7, 4, gc4)], mask=rows["h7"],
+             out=rows["d7"], bsum=bs("b7", W))
+    for i in range(7, 0, -1):
+        ops.gemm(W, N, [(kp[f"W{i}"], W, rows[f"d{i}"])], mask=rows[f"h{i - 1}"],
+                 out=rows[f"d{i - 1}"], bsum=bs(f"b{i - 1}", W))
+    if not dense:
+        ops.ray_sums(dhv32, nv, spr, rws[kv:])
+
+    dx = dv = None
+    if input_grads:
+        ep, evd = 3 + 6 * Fp, 3 + 6 * Fv
+        w05 = kp["W05e"]
+        de = torch.empty(ep, N, **f32)
+        ops.gemm(ep, N, [(w05[:, :W], W, rows["d0"]), (w05[:, W:], W, rows["d5"])], out32=de)
+        dx = torch.empty(n, 3, **f32)
+        ops.embed_bwd(x, n, Fp, de, dx)
+        d_hv = rows["dhv"] if dense else rws[kv:]
+        dev_ = torch.empty(evd, d_hv.shape[1], **f32)
+        ops.gemm(evd, d_hv.shape[1], [(kp["Wve"], W // 2, d_hv)], out32=dev_)
+        dv = torch.empty(nv, 3, **f32)
+        ops.embed_bwd(v, nv, Fv, dev_, dv)
+
+    # the weight grads over the rows (phase 3), then the bias partials' sums
+    probs = _problems(W, ke, kv, dense)
+    split_len, nsplit = _splits(dtype == torch.bfloat16, probs, N)
+    _, grad_size = _grad_offsets(W, ke, kv)
+    out = torch.empty(grad_size + nbias, **f32)
+    ops.wgrad(ws, rws, probs, split_len, nsplit, grad_size, out, bpart)
+    return fused_mlp._unpack_grads(out, W, Fp, Fv), dx, dv
+
+
+def rays_planes_bwd(ops, kp, rays_o, rays_d, viewdirs, z_vals, g_planes,
+                    blobs=None) -> Dict[str, torch.Tensor]:
+    """K4w's launches: f32 grads of the packed leaves from the cotangent
+    planes [4, R, S]."""
+    R, S = z_vals.shape
+    ro, rd, vd, z, g = (t.contiguous() for t in (rays_o, rays_d, viewdirs, z_vals, g_planes))
+    grads, _, _ = _backward(ops, kp, blobs, ("rays", ro, rd, z), None, vd, R * S, S,
+                            g.view(4, R * S), False)
+    return grads
+
+
+def points_bwd(ops, kp, x, v, g, spr: int, input_grads: bool, blobs=None):
+    """K3w's launches: (f32 grads, dx [N, 3], dv [N/spr, 3]) from the
+    cotangent g [N, 4] of raw; dx, dv None without ``input_grads``."""
+    xc, vc, gc = x.contiguous(), v.contiguous(), g.contiguous()
+    return _backward(ops, kp, blobs, ("points", xc), xc, vc, x.shape[0], spr, gc.T, input_grads)
+
+
+def _ops(kp, like: torch.Tensor) -> Ops:
+    fused_mlp._kernel_config(kp, like, tile=False)
+    return Ops(kp["W1"].dtype, like.device)
+
+
+def fused_rays_planes_wide(kp, rays_o, rays_d, viewdirs, z_vals, blobs=None) -> torch.Tensor:
+    """K1w on CUDA tensors: ``rays_planes``' launches (``launches`` counts
+    the calls)."""
+    out = rays_planes(_ops(kp, z_vals), kp, rays_o, rays_d, viewdirs, z_vals, blobs)
+    fused_rays_planes_wide.launches += 1
+    return out
+
+
+fused_rays_planes_wide.launches = 0
+
+
+def fused_points_wide(kp, x, v, spr: int, blobs=None) -> torch.Tensor:
+    """K2w on CUDA tensors (``launches`` counts the calls)."""
+    out = points_raw(_ops(kp, x), kp, x, v, spr, blobs)
+    fused_points_wide.launches += 1
+    return out
+
+
+fused_points_wide.launches = 0
+
+
+def fused_rays_planes_wide_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g_planes,
+                               blobs=None) -> Dict[str, torch.Tensor]:
+    """K4w on CUDA tensors (``launches`` counts the calls)."""
+    grads = rays_planes_bwd(_ops(kp, z_vals), kp, rays_o, rays_d, viewdirs, z_vals, g_planes,
+                            blobs)
+    fused_rays_planes_wide_bwd.launches += 1
+    return grads
+
+
+fused_rays_planes_wide_bwd.launches = 0
+
+
+def fused_points_wide_bwd(kp, x, v, g, spr: int, input_grads: bool = True, blobs=None):
+    """K3w on CUDA tensors (``launches`` counts the calls)."""
+    out = points_bwd(_ops(kp, x), kp, x, v, g, spr, input_grads, blobs)
+    fused_points_wide_bwd.launches += 1
+    return out
+
+
+fused_points_wide_bwd.launches = 0
+

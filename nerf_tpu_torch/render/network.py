@@ -4,9 +4,11 @@ Counterpart of nerf_tpu/render/network.py. ``query_raw`` is the points-in
 path, which the renderer takes when its fused raygen branch does not apply
 (S not a multiple of 8). Two paths with the same semantics:
 - plain: posenc + ``NeRFMLP.apply_mlp`` in PyTorch;
-- fused (``model.fused``, viewdirs, a supported MLP):
-  ``ops/fused_mlp.py::fused_query``, which launches K2 forward and K3
-  backward on a CUDA tensor (their plain versions on a CPU one).
+- fused (``model.fused``, viewdirs, an MLP within nerf_tpu's guard,
+  ``fused_mlp.supports``): ``ops/fused_mlp.py::fused_query``, which
+  launches K2 forward and K3 backward on a CUDA tensor (K2w and K3w of the
+  wide family, ops/fused_mlp_wide.py, at widths and octaves the W <= 256
+  tile is not built for), their plain versions on a CPU one.
 
 ``StackedNeRFMLP`` holds S nets of one configuration as one module, every
 parameter with a leading scene axis: nerf_tpu's stacked pytree of
@@ -99,13 +101,14 @@ def query_raw_stacked(
     [S, R, N, 3], with unit view directions [S, R, 3] (None without
     viewdirs), scene s's through scene s's net. The points and directions
     get no gradient (the renderer detaches them). Fused (``model.fused``,
-    viewdirs, a supported MLP): the stacked K2/K3; otherwise the stacked
+    viewdirs, an MLP within the stacked kernels' guard,
+    ``fused_mlp.supports_stacked``): the stacked K2/K3; otherwise the stacked
     plain MLP."""
     S, R, N, _ = pts.shape
     if (
         model.fused
         and viewdirs is not None
-        and fused_mlp.supports(mlp.cfg, model.pe_pts, model.pe_views)
+        and fused_mlp.supports_stacked(mlp.cfg, model.pe_pts, model.pe_views)
     ):
         return fused_mlp.fused_query_stacked(
             mlp, mlp.cfg, model.pe_pts, model.pe_views, pts, viewdirs,
@@ -144,8 +147,9 @@ class StackedNeRFMLP(nn.Module):
     strict=True. The renderer runs it through the stacked kernels of the
     branch one net would take (render/renderer.py), and through
     ``apply_mlp``, the plain forward, where no kernel applies
-    (``fused_kernels`` off, no viewdirs, widths or octaves the kernels are
-    not built for). ``plain_calls`` counts the plain forward's calls: on
+    (``fused_kernels`` off, no viewdirs, widths or octaves outside the
+    stacked kernels' guard, ``fused_mlp.supports_stacked``: ROADMAP C.3b).
+    ``plain_calls`` counts the plain forward's calls: on
     the card with the kernels on it is never called."""
 
     plain_calls = 0

@@ -6,6 +6,8 @@ runs it. The CUDA kernel itself is checked on the card by
 tests/test_torch_port_kernels.py and chip_smoke.py.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,10 +18,12 @@ from nerf_tpu.models.embedding import PosEncConfig as JPosEnc
 from nerf_tpu.models.nerf_mlp import MLPConfig as JMLPConfig
 from nerf_tpu.models.nerf_mlp import init_params
 from nerf_tpu.ops import fused_mlp as jfused
-from nerf_tpu_torch.models.convert import state_dict_from_jax_params
+from nerf_tpu.experimental import fused_render as jfr
+from nerf_tpu_torch.experimental import fused_render as tfr
+from nerf_tpu_torch.models.convert import jax_params_from_state_dict, state_dict_from_jax_params
 from nerf_tpu_torch.models.embedding import PosEncConfig
 from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
-from nerf_tpu_torch.ops import fused_mlp
+from nerf_tpu_torch.ops import fused_mlp, fused_mlp_wide
 
 W = 128  # the kernels need a multiple of 128
 CFG, JCFG = MLPConfig(width=W), JMLPConfig(width=W)
@@ -45,6 +49,11 @@ ROWS_ULP, ROWS_ULP_ATOL = 2.0 ** -7, 2.0 ** -11
 # later layers (measured up to 3.9e-6, dx). Bounds ~10x.
 CHAIN_JAX_F32_TOL = 2e-6
 CHAIN_JAX_BF16_TOL = 4e-5
+# f32 grads of the wide configurations against nerf_tpu's Pallas backward,
+# relative to each leaf's largest entry: ROADMAP's f32 grad bound (measured
+# up to 7.8e-7, dx at W=384, on inputs whose points both packages compute
+# alike: _wide_rays)
+WIDE_GRAD_TOL = 1e-5
 
 
 @pytest.fixture(scope="module")
@@ -311,10 +320,13 @@ def test_wrapper_checks(nets):
     assert fused_mlp.supports(MLPConfig(width=W), PE_P, PE_V)
     assert not fused_mlp.supports(MLPConfig(width=W, use_viewdirs=False), PE_P, PE_V)
     assert not fused_mlp.supports(MLPConfig(width=96), PE_P, PE_V)
-    # a multiple of 128 that the kernel is not built for, or too many octaves
-    assert not fused_mlp.supports(MLPConfig(width=384), PE_P, PE_V)
-    assert not fused_mlp.supports(CFG, PosEncConfig(11), PE_V)
-    assert not fused_mlp.supports(CFG, PE_P, PosEncConfig(5))
+    # a multiple of 128 that the tile is not built for, or more octaves: the
+    # wide family's (nerf_tpu's guard), outside the stacked kernels' guard
+    for cfg, pe_p, pe_v in ((MLPConfig(width=384), PE_P, PE_V), (CFG, PosEncConfig(11), PE_V),
+                            (CFG, PE_P, PosEncConfig(5))):
+        assert fused_mlp.supports(cfg, pe_p, pe_v)
+        assert not fused_mlp.supports_stacked(cfg, pe_p, pe_v)
+        assert not fused_mlp.tile_supports(cfg.width, pe_p.num_freqs, pe_v.num_freqs)
 
 
 def test_packed_params_kept_until_a_parameter_changes():
@@ -450,3 +462,263 @@ def test_bwd_chain_reference_matches_jax(nets, dtype):
         ref = np.asarray(ref, np.float32)
         err = float(np.linalg.norm(t.numpy() - ref) / np.linalg.norm(ref))
         assert err <= tol, err
+
+
+# ------------------------------------- the wide family (ROADMAP C.3)
+#
+# Configurations nerf_tpu's kernels take and the W <= 256 tile does not: a
+# width whose half is not a multiple of 128, and mip-NeRF's 16 point (and 6
+# view) octaves, 3 + 6·16 = 99 embedding columns, beyond the tile's 64. On
+# the CPU the wrappers take the same plain versions as for the tile's
+# configurations; ops/fused_mlp_wide.py's launch plan is held to them with
+# its primitives' plain versions (PlainOps); the kernels themselves on the
+# card (tests/test_torch_port_kernels.py).
+WIDE = {"W384-10-4": (384, 10, 4), "W128-16-6": (128, 16, 6)}
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_params(jcfg, seed):
+    return jax.tree.map(np.asarray, init_params(jax.random.key(seed), jcfg))
+
+
+def _wide_nets(W_, fp, fv, seed=0):
+    """nerf_tpu's params (made once a process) and a fresh port net of one
+    wide configuration."""
+    jcfg = JMLPConfig(width=W_, input_ch=3 + 6 * fp, input_ch_views=3 + 6 * fv)
+    cfg = MLPConfig(width=W_, input_ch=3 + 6 * fp, input_ch_views=3 + 6 * fv)
+    params = _wide_params(jcfg, seed)
+    mlp = NeRFMLP(cfg, device="cpu")
+    mlp.load_state_dict(state_dict_from_jax_params(params, cfg), strict=True)
+    return params, mlp, (jcfg, JPosEnc(fp), JPosEnc(fv)), (cfg, PosEncConfig(fp), PosEncConfig(fv))
+
+
+def _min_preactivation(kp, x, v, spr):
+    """The smallest |input| of any relu of the f32 forward (ROADMAP C.r3)."""
+    Fp, Fv = fused_mlp._num_freqs(kp)
+    Wn = kp["W1"].shape[0]
+    with torch.no_grad():
+        z05 = fused_mlp._embed(x, Fp) @ kp["W05e"]
+        pre = [z05[:, :Wn] + kp["b0"]]
+        for i in range(1, 8):
+            zi = torch.relu(pre[-1]) @ kp[f"W{i}"] + kp[f"b{i}"]
+            pre.append(zi + z05[:, Wn:] if i == 5 else zi)
+        feat = torch.relu(pre[-1]) @ kp["Wf"] + kp["bf"]
+        ev = fused_mlp._embed(v, Fv) @ kp["Wve"]
+        pre.append(feat @ kp["Wvf"] + ev.repeat_interleave(spr, 0) + kp["bv"])
+    return min(float(t.abs().min()) for t in pre)
+
+
+def _wide_rays(mlp, pe, R, S, margin=2e-6):
+    """Rays whose relu inputs all lie further than ``margin`` from zero:
+    the packages' f32 forwards differ by ~1e-6 (ROADMAP C.r3). Origins,
+    directions and depths lie on grids (2^-10, 2^-10, 2^-8) that make
+    x = o + d·z exact in f32, so both packages see the same points whether
+    or not the multiply and add contract into an FMA: at 16 octaves a 1-ulp
+    move of x turns the top phase x·2^15 by ~2e-3 rad and raw by ~1e-4
+    (ROADMAP C.r2's sensitivity, 2^6 times the tile's)."""
+    kp = fused_mlp.pack_params(mlp, pe[1], pe[2], torch.float32)
+    for seed in range(100):
+        ro, rd, _, z = _rays(100 * S + seed, R, S)
+        ro, rd = (np.round(a * 1024) / 1024 for a in (ro, rd))
+        z = np.round(z * 256) / 256
+        vd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
+        arrays = tuple(a.astype(np.float32) for a in (ro, rd, vd, z))
+        ro, rd, vd, z = (torch.from_numpy(a) for a in arrays)
+        if _min_preactivation(kp, fused_mlp._ray_points(ro, rd, z), vd, S) > margin:
+            return arrays
+    raise AssertionError("no well-conditioned inputs in 100 seeds")
+
+
+def _supports_grid():
+    for width in (64, 128, 192, 256, 384, 512, 1024):
+        for fp in (1, 4, 10, 12, 16, 20):
+            for fv in (1, 4, 6, 10):
+                yield dict(width=width), fp, fv, {}, {}
+    for kw in (dict(depth=6), dict(skips=(3,)), dict(skips=()), dict(use_viewdirs=False)):
+        for width in (256, 512):
+            yield kw, 10, 4, {}, {}
+    for pkw, vkw in ((dict(include_input=False), {}), ({}, dict(log_sampling=False)),
+                     (dict(num_freqs=0), {}), ({}, dict(num_freqs=0))):
+        yield dict(width=384), 10, 4, pkw, vkw
+
+
+def test_supports_equals_nerf_tpu_over_the_grid():
+    """The single-scene guards (K1-K6 and their wide family) are nerf_tpu's:
+    any width % 128 == 0, any octave count > 0, depth 8, skip at 4,
+    viewdirs, included inputs and log sampling; and without view
+    directions none."""
+    n = 0
+    for kw, fp, fv, pkw, vkw in _supports_grid():
+        t = MLPConfig(**kw)
+        j = JMLPConfig(**kw)
+        tp, tv = PosEncConfig(**{"num_freqs": fp, **pkw}), PosEncConfig(**{"num_freqs": fv, **vkw})
+        jp, jv = JPosEnc(**{"num_freqs": fp, **pkw}), JPosEnc(**{"num_freqs": fv, **vkw})
+        want = jfused.supports(j, jp, jv)
+        assert fused_mlp.supports(t, tp, tv) == want, (kw, fp, fv, pkw, vkw)
+        for S in (64, 63):
+            assert tfr.supports(t, tp, tv, S) == jfr.supports(j, jp, jv, S), (kw, fp, fv, S)
+        assert not fused_mlp.supports(t, tp, None) and not jfused.supports(j, jp, None)
+        n += want
+    assert n == 5 * 6 * 4  # the five multiples of 128 at every octave count, no variant
+
+
+def test_stacked_guard_keeps_the_tile_limits():
+    """The stacked (multi-scene) kernels keep the tile's guard: W in {128,
+    256}, at most 64 point and 32 view embedding columns (10 and 4
+    octaves); beyond it the stacked plain MLP (ROADMAP C.3b)."""
+    for width in (128, 256, 384, 512):
+        for fp in (4, 10, 11, 16):
+            for fv in (2, 4, 5, 6):
+                cfg, pp, pv = MLPConfig(width=width), PosEncConfig(fp), PosEncConfig(fv)
+                want = width in (128, 256) and fp <= 10 and fv <= 4
+                assert fused_mlp.supports_stacked(cfg, pp, pv) == want, (width, fp, fv)
+                assert tfr.supports_stacked(cfg, pp, pv, 64) == want, (width, fp, fv)
+                assert fused_mlp.tile_supports(width, fp, fv) == want
+    assert fused_mlp.embed_pad(10, 4) == (fused_mlp.KE, fused_mlp.KV)
+    assert fused_mlp.embed_pad(16, 6) == (128, 64) and fused_mlp.embed_pad(1, 1) == (64, 32)
+
+
+@pytest.mark.parametrize("config", list(WIDE))
+def test_wide_blobs_and_params_round_trip(config):
+    """At the configuration's KE / KV: the kernel blobs hold every packed
+    block ([out, in] rows, embedding K zero-padded), as the wide launches
+    read them; the grads' layout unpacks to kp's shapes; the weights carry
+    across from nerf_tpu's pytree and back (models/convert.py)."""
+    W_, fp, fv = WIDE[config]
+    params, mlp, (jcfg, _, _), (cfg, pe_p, pe_v) = _wide_nets(W_, fp, fv)
+    back = jax_params_from_state_dict(mlp.state_dict(), cfg)
+    for (name, a), b in zip(jax.tree_util.tree_leaves_with_path(params), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=str(name))
+    kp = fused_mlp.pack_params(mlp, pe_p, pe_v, torch.float32)
+    jkp = jfused.pack_params(params, jcfg, JPosEnc(fp), JPosEnc(fv), jnp.float32)
+    for k, v in kp.items():
+        np.testing.assert_array_equal(v.detach().numpy(), np.asarray(jkp[k]), err_msg=k)
+    ke, kv = fused_mlp.embed_pad(fp, fv)
+    ep, ev = 3 + 6 * fp, 3 + 6 * fv
+    wb, bb = fused_mlp.kernel_blobs(kp)
+    w, b = fused_mlp_wide._blocks(kp, (wb, bb))
+    assert wb.numel() == 2 * W_ * ke + 8 * W_ * W_ + W_ // 2 * (W_ + kv) + 6 * W_
+    assert torch.equal(w["w05"][:, :ep], kp["W05e"].T) and not w["w05"][:, ep:].any()
+    for i in range(1, 8):
+        assert torch.equal(w[f"w{i}"], kp[f"W{i}"].T)
+    assert torch.equal(w["wf"], kp["Wf"].T) and torch.equal(w["wvf"], kp["Wvf"].T)
+    assert torch.equal(w["wve"][:, :ev], kp["Wve"].T) and not w["wve"][:, ev:].any()
+    for name in [f"b{i}" for i in range(8)] + ["bf", "bv", "bout"]:
+        assert torch.equal(b[name], kp[name][0]), name
+    assert torch.equal(wb[-6 * W_:].view(-1, 4), kp["Wout"])
+    chain = fused_mlp._chain_blob(kp)
+    assert chain.numel() == 8 * W_ * W_ + W_ * W_ // 2 + 2 * ke * W_ + kv * W_ // 2
+    # the f32 grads' layout: each leaf's block where _grad_blocks puts it
+    weights, biases = fused_mlp._grad_blocks(W_, ke, kv)
+    flat, leaves = [], {}
+    for name, r, c in weights:
+        t = torch.randn(r, c)
+        flat.append(t.reshape(-1))
+        leaves[name] = t[: {"W05e": ep, "Wve": ev}.get(name, r)]
+    for name, n in biases:
+        t = torch.randn(n)
+        flat.append(t)
+        leaves[name] = t[None]
+    got = fused_mlp._unpack_grads(torch.cat(flat), W_, fp, fv)
+    for name, t in got.items():
+        assert t.shape == kp[name].shape and torch.equal(t, leaves[name]), name
+    probs = fused_mlp_wide._problems(W_, ke, kv, dense=False)
+    assert all(q[4] <= fused_mlp_wide.BOX_N for q in probs)
+    rows = fused_mlp.ws_rows(W_, ke, kv)[1]
+    assert all(q[1] + q[2] <= rows for q in probs if q[0] == 0)
+
+
+@pytest.mark.parametrize("config", list(WIDE))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_launch_plan_matches_plain_versions(config, dtype):
+    """ops/fused_mlp_wide.py's launch plans (K1w, K2w, K4w and K3w: the
+    layers as GEMMs over feature-major rows, the chain, the per-ray sums,
+    d_e and d_ev, the weight grads over the workspace rows) run on their
+    primitives' plain versions (PlainOps) give the kernels' plain versions:
+    raw within f32 ulps (bf16: the same roundings, so bit for bit), the
+    grads, dx and dv within the sums' order, in both view modes."""
+    W_, fp, fv = WIDE[config]
+    _, mlp, _, (cfg, pe_p, pe_v) = _wide_nets(W_, fp, fv)
+    ops = fused_mlp_wide.PlainOps()
+    R, S = 4, 8
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(mlp, pe_p, pe_v, dtype)
+        assert fused_mlp.is_wide(kp)
+        ro, rd, vd, z = (torch.from_numpy(a) for a in _rays(9, R, S))
+        x = fused_mlp._ray_points(ro, rd, z)
+        rel = 1e-5 if dtype == torch.float32 else 5e-3
+        out = fused_mlp_wide.rays_planes(ops, kp, ro, rd, vd, z)
+        ref = fused_mlp.fused_rays_planes_reference(kp, ro, rd, vd, z)
+        assert float((out - ref).abs().max()) <= (F32_TOL if dtype == torch.float32 else 0)
+        g = (0.5 + torch.rand(4, R, S, generator=torch.Generator().manual_seed(1))) * 1e-2
+        got = fused_mlp_wide.rays_planes_bwd(ops, kp, ro, rd, vd, z, g)
+        want = fused_mlp.fused_rays_planes_bwd_reference(kp, ro, rd, vd, z, g)
+        for name in fused_mlp.KP_NAMES:
+            err = float((got[name] - want[name]).norm() / want[name].norm())
+            assert got[name].shape == kp[name].shape and err <= rel, (name, err)
+        for spr in (1, S):
+            v = vd if spr > 1 else vd.repeat_interleave(S, 0)
+            out = fused_mlp_wide.points_raw(ops, kp, x, v, spr)
+            ref = fused_mlp.fused_points_reference(kp, x, v, spr)
+            assert float((out - ref).abs().max()) <= (F32_TOL if dtype == torch.float32 else 0)
+            gp = g.reshape(4, -1).T.contiguous()
+            got, dx, dv = fused_mlp_wide.points_bwd(ops, kp, x, v, gp, spr, True)
+            want, dxr, dvr = fused_mlp.fused_points_bwd_reference(kp, x, v, gp, spr, True)
+            errs = {n: float((got[n] - want[n]).norm() / want[n].norm()) for n in want}
+            errs.update(dx=float((dx - dxr).norm() / dxr.norm()),
+                        dv=float((dv - dvr).norm() / dvr.norm()))
+            assert max(errs.values()) <= rel, (spr, errs)
+
+
+@pytest.mark.parametrize("config", list(WIDE))
+def test_wide_plain_versions_match_jax_kernels(config):
+    """K1/K4 (raygen, 4 rays x 8 samples) and K2/K3 (points, 4 x 7, a
+    direction per point, with input grads) at a wide configuration: the
+    port's plain versions, which the CPU wrappers run, against nerf_tpu's
+    Pallas kernels in interpret mode, f32: raw within 1e-5 and each grad
+    within WIDE_GRAD_TOL of its leaf's largest entry (dx, dv: of their
+    largest)."""
+    W_, fp, fv = WIDE[config]
+    params, mlp, (jcfg, jpp, jpv), (cfg, pe_p, pe_v) = _wide_nets(W_, fp, fv, seed=3)
+    R = 4
+    for S in (8, 7):
+        ro, rd, vd, z = _wide_rays(mlp, (cfg, pe_p, pe_v), R, S)
+        g = ((0.5 + np.random.default_rng(S).random((4, R, S))) * 1e-2).astype(np.float32)
+        mlp.zero_grad()
+        if S == 8:  # K1 / K4
+            def jf(p):
+                return jfused.fused_query_rays_planes(p, jcfg, jpp, jpv,
+                                                      *(jnp.asarray(a) for a in (ro, rd, vd, z)),
+                                                      compute_dtype=jnp.float32)
+            ref, vjp = jax.vjp(jf, params)
+            (jg,) = vjp(jnp.asarray(g))
+            before = (fused_mlp.fused_rays_planes.launches, fused_mlp_wide.fused_rays_planes_wide.launches)
+            out = fused_mlp.fused_query_rays_planes(mlp, cfg, pe_p, pe_v,
+                                                    *(torch.from_numpy(a) for a in (ro, rd, vd, z)),
+                                                    compute_dtype=torch.float32)
+            out.backward(torch.from_numpy(g))
+            assert before == (fused_mlp.fused_rays_planes.launches,
+                              fused_mlp_wide.fused_rays_planes_wide.launches)  # CPU: plain
+            ins = []
+        else:  # K2 / K3 with input grads
+            pts = (ro[:, None] + rd[:, None] * z[..., None]).astype(np.float32)
+            gr = np.ascontiguousarray(g.transpose(1, 2, 0))  # [R, S, 4]
+
+            def jf(p, pt, v):
+                return jfused.fused_query(p, jcfg, jpp, jpv, pt, v, compute_dtype=jnp.float32)
+            ref, vjp = jax.vjp(jf, params, jnp.asarray(pts), jnp.asarray(vd))
+            jg, jdx, jdv = vjp(jnp.asarray(gr))
+            ins = [torch.from_numpy(pts).requires_grad_(True),
+                   torch.from_numpy(vd).requires_grad_(True)]
+            out = fused_mlp.fused_query(mlp, cfg, pe_p, pe_v, *ins, compute_dtype=torch.float32)
+            out.backward(torch.from_numpy(gr))
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=0, atol=F32_TOL)
+        grads = jax_params_from_state_dict({n: p.grad for n, p in mlp.named_parameters()}, cfg)
+        pairs = [(str(k), np.asarray(a), np.asarray(b)) for (k, a), b in
+                 zip(jax.tree_util.tree_leaves_with_path(grads), jax.tree.leaves(jg))]
+        pairs += [(n, t.grad.numpy(), np.asarray(r)) for n, t, r in zip(("dx", "dv"), ins, (jdx, jdv))] \
+            if ins else []
+        for name, a, b in pairs:
+            assert a.shape == b.shape, name
+            err = float(np.abs(a - b).max() / np.abs(b).max())
+            assert err <= WIDE_GRAD_TOL, (S, name, err)

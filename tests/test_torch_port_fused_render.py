@@ -434,3 +434,99 @@ def test_cuda_path_failure_raises_without_fallback(failure, monkeypatch):
         tfr._launch_composite_bwd(raw, rd, z, noise, *g, True)
     assert (tfr.fused_render_fwd.launches, tfr.fused_render_bwd.launches,
             tfr.composite_bwd.launches) == counts
+
+
+# (e) the wide family's configurations (ROADMAP C.3): K5w / K6w's plain
+# versions, which the CPU wrappers run, against nerf_tpu's K5 / K6
+
+
+@pytest.mark.parametrize("config", ["W384-10-4", "W128-16-6"])
+def test_wide_level_maps_and_grads_match_jax(config):
+    """One level at a width or octave count the W <= 256 tile is not built
+    for (nerf_tpu's Pallas K5 / K6 in interpret mode): the maps within its
+    own f32 bound and the weight grads of a loss on all four maps within
+    test_level_grads_match_jax's, on rays whose points both packages compute
+    alike (tests/test_torch_port_fused_mlp.py::_wide_rays)."""
+    from test_torch_port_fused_mlp import WIDE, _wide_nets, _wide_rays
+
+    width, fp, fv = WIDE[config]
+    params, net, (jcfg, jpp, jpv), (cfg, pp, pv) = _wide_nets(width, fp, fv, seed=5)
+    n, s = 4, 8
+    ro, rd, vd, z = _wide_rays(net, (cfg, pp, pv), n, s)
+    rng = np.random.default_rng(width + fp)
+    noise = (rng.standard_normal((n, s)) * 0.5).astype(np.float32)
+    target = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    coef = (0.3, 0.5, 0.7, rng.uniform(0.5, 1.5, (n, s)).astype(np.float32))
+
+    def jloss(p):
+        o = jfr.fused_render_level(p, jcfg, jpp, jpv, *(jnp.asarray(a) for a in (ro, rd, vd, z)),
+                                   jnp.asarray(noise), True, compute_dtype=jnp.float32)
+        return _map_loss(o.rgb, o.disp, o.acc, o.weights, coef, target, jnp), o
+
+    (_, ref), jgrads = jax.value_and_grad(jloss, has_aux=True)(params)
+    before = (tfr.fused_render_fwd.launches, tfr.fused_render_wide_fwd.launches,
+              tfr.fused_render_bwd.launches, tfr.fused_render_wide_bwd.launches)
+    o = tfr.fused_render_level(net, cfg, pp, pv, *(torch.from_numpy(a) for a in (ro, rd, vd, z)),
+                               torch.from_numpy(noise), True, compute_dtype=torch.float32)
+    _map_loss(o.rgb, o.disp, o.acc, o.weights, [torch.as_tensor(c) for c in coef],
+              torch.from_numpy(target), torch).backward()
+    assert before == (tfr.fused_render_fwd.launches, tfr.fused_render_wide_fwd.launches,
+                      tfr.fused_render_bwd.launches, tfr.fused_render_wide_bwd.launches)
+    for got, want in ((o.rgb, ref.rgb), (o.disp, ref.disp), (o.acc, ref.acc),
+                      (o.weights, ref.weights)):
+        got, want = got.detach().numpy(), np.asarray(want)
+        finite = np.isfinite(want)
+        assert (np.isfinite(got) == finite).all()
+        np.testing.assert_allclose(got[finite], want[finite], rtol=F32_RTOL, atol=F32_ATOL)
+    grads = jax_params_from_state_dict({k: p.grad for k, p in net.named_parameters()}, cfg)
+    for name, got, want in _leaf_pairs(grads, jgrads):
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("failure", ["build", "error_code"])
+def test_wide_cuda_path_failure_raises_without_fallback(failure, monkeypatch):
+    """At a wide configuration (W = 384) a build that fails or a launch that
+    returns an error raises from K1w, K4w, K5w and K6w; none falls back to
+    a plain version, and no counter moves."""
+    from nerf_tpu_torch.ops import fused_mlp_wide
+
+    net = NeRFMLP(MLPConfig(width=384), seed=6, device="cpu")
+    kp = fused_mlp.pack_params(net, PE_P, PE_V, torch.bfloat16)
+    assert fused_mlp.is_wide(kp)
+    ro, rd, vd, z, noise, _ = (torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                               for a in _inputs(6, n=5))
+    g = (torch.ones(5, 3), torch.ones(5), torch.ones(5), torch.ones(5, S))
+    raw = torch.zeros(4, 5, S)
+    _fake_cuda(monkeypatch)
+
+    def no_plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    for mod, name in ((tfr, "fused_render_reference"), (tfr, "fused_render_bwd_reference"),
+                      (fused_mlp, "fused_rays_planes_reference"),
+                      (fused_mlp, "fused_rays_planes_bwd_reference")):
+        monkeypatch.setattr(mod, name, no_plain)
+    if failure == "build":
+        def load(name):
+            raise RuntimeError(f"nvcc failed on csrc/{name}.cu")
+        match = "nvcc failed"
+    else:
+        lib = types.SimpleNamespace(nerf_wide_embed=lambda *a: 2,
+                                    nerf_fused_render_bwd_planes=lambda *a: 2,
+                                    nerf_cuda_error_string=lambda err: b"out of memory")
+        load = lambda name: lib  # noqa: E731
+        match = "out of memory"
+    monkeypatch.setattr(_build, "load", load)
+    counters = (fused_mlp_wide.fused_rays_planes_wide, fused_mlp_wide.fused_rays_planes_wide_bwd,
+                tfr.fused_render_wide_fwd, tfr.fused_render_wide_bwd)
+    counts = [c.launches for c in counters]
+    with pytest.raises(RuntimeError, match=match):
+        fused_mlp_wide.fused_rays_planes_wide(kp, ro, rd, vd, z)
+    with pytest.raises(RuntimeError, match=match):
+        fused_mlp_wide.fused_rays_planes_wide_bwd(kp, ro, rd, vd, z, raw)
+    with pytest.raises(RuntimeError, match=match):
+        tfr._launch_fwd(kp, ro, rd, vd, z, noise, True, None, False)
+    with pytest.raises(RuntimeError, match=match):
+        tfr._launch_bwd(kp, ro, rd, vd, z, noise, raw, *g, True, None)
+    assert [c.launches for c in counters] == counts

@@ -938,3 +938,256 @@ def test_stacked_k5_k6_match_plain_and_single_launches(cuda_device, width, dtype
                                                    *(t[s].contiguous() for t in g), white)
             for k, t in single.items():
                 assert _rel_l2(grads[k][s], t) <= gtol, (s, k)
+
+
+# The wide kernel family (csrc/fused_mlp_wide.cu, ops/fused_mlp_wide.py):
+# K1w-K6w at the widths and octave counts the W <= 256 tile is not built
+# for. Configurations (width, point octaves, view octaves): NeRF-W's 512,
+# mip-NeRF 360's 1024, a width whose half is not a multiple of 128 (384),
+# and mip-NeRF's 16 point octaves at the tile's width; f32 at 384.
+WIDE_BF16 = ((384, 10, 4), (512, 10, 4), (1024, 10, 4), (256, 16, 6))
+WIDE_F32 = ((384, 10, 4),)
+# (R, S): 1, 127 and 129 points (a GEMM tile's edges; S = 1: a direction per
+# point) and 33,984 points (531 rays of 64: a direction per ray, a ragged
+# last tile)
+WIDE_CASES = ((1, 1), (127, 1), (129, 1), (531, 64))
+
+
+def _wide_net(W, fp, fv, dev, seed, dtype):
+    cfg = MLPConfig(width=W, input_ch=3 + 6 * fp, input_ch_views=3 + 6 * fv)
+    mlp = NeRFMLP(cfg, seed=seed, device=dev)
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(mlp, PosEncConfig(fp), PosEncConfig(fv), dtype)
+    assert fused_mlp.is_wide(kp) and fused_mlp.supports(cfg, PosEncConfig(fp), PosEncConfig(fv))
+    return kp
+
+
+def _poison(dev):
+    """Fill 1 GB of the caching allocator's free memory with NaN, so that
+    outputs a kernel leaves unwritten show."""
+    del dev  # the current device's allocator
+    junk = torch.full((1 << 28,), float("nan"), device="cuda")
+    del junk
+
+
+def _wide_params():
+    return ([pytest.param(c, torch.bfloat16, id=f"bf16-{c[0]}-{c[1]}-{c[2]}") for c in WIDE_BF16]
+            + [pytest.param(c, torch.float32, id=f"f32-{c[0]}-{c[1]}-{c[2]}") for c in WIDE_F32])
+
+
+# bf16 forward: as the tile's bound, both sides round the same operands;
+# measured up to 3.0e-4 on an H100 (W=384, 531 x 64; PERF.md §6). f32:
+# nerf_tpu's 1e-5 (measured up to 6.7e-8).
+WIDE_BF16_TOL, WIDE_F32_TOL = 2e-3, 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,dtype", _wide_params())
+def test_wide_forward_kernels_match_plain_versions(cuda_device, config, dtype):
+    from nerf_tpu_torch.ops import fused_mlp_wide
+
+    kp = _wide_net(*config, cuda_device, sum(config), dtype)
+    tol = WIDE_BF16_TOL if dtype == torch.bfloat16 else WIDE_F32_TOL
+    for R, S in WIDE_CASES:
+        ro, rd, vd, z = _rays(R * S + 5, R, S, cuda_device)
+        x = fused_mlp._ray_points(ro, rd, z)
+        for kernel in ("K1w", "K2w"):
+            counter = (fused_mlp_wide.fused_rays_planes_wide if kernel == "K1w"
+                       else fused_mlp_wide.fused_points_wide)
+            before = counter.launches
+            _poison(cuda_device)
+            if kernel == "K1w":
+                out = fused_mlp.fused_rays_planes(kp, ro, rd, vd, z)
+                again = fused_mlp.fused_rays_planes(kp, ro, rd, vd, z)
+                ref = fused_mlp.fused_rays_planes_reference(kp, ro, rd, vd, z)
+            else:
+                out = fused_mlp.fused_points(kp, x, vd, S)
+                again = fused_mlp.fused_points(kp, x, vd, S)
+                ref = fused_mlp.fused_points_reference(kp, x, vd, S)
+            torch.cuda.synchronize()
+            assert counter.launches == before + 2
+            assert bool(torch.isfinite(out).all()) and torch.equal(out, again)
+            err = float((out - ref).abs().max())
+            print(f"{kernel} {config} {dtype} R={R} S={S}: max abs {err:.3e}")  # with -s
+            assert err <= tol, (kernel, R, S, err)
+
+
+# the wide backward against its plain version, per-leaf relative L2, for a
+# cotangent of one sign per channel. f32: K3's bounds (the sums over points
+# run in another order). bf16: a cotangent whose f32 sum lands on the other
+# side of a bf16 rounding edge rounds to the other neighbour, and at W =
+# 1024 a layer sums 4x the terms of W = 256 over as few as 127 points: the
+# first layers' small, cancelling sums measured up to 1.04e-2 (K6w, R=127,
+# S=8) and dx up to 1.79e-2 (R=129, S=1) on an H100 (PERF.md §6), so
+# ~3x those, inside nerf_tpu's bf16 grad bound of 0.05 for the weight grads.
+# The bf16 plain version is as far off: at W = 1024 on 127 and 129 points,
+# each against the f32 plain version, no leaf of the kernel's is more than
+# 1.4% farther than the plain version's same leaf (chip_smoke.py's
+# wide_witness; PERF.md §6)
+WIDE_GRAD_BF16_TOL, WIDE_INPUT_GRAD_BF16_TOL = 3e-2, 5e-2
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,dtype", _wide_params())
+def test_wide_backward_kernels_match_plain_versions(cuda_device, config, dtype):
+    from nerf_tpu_torch.ops import fused_mlp_wide
+
+    kp = _wide_net(*config, cuda_device, sum(config) + 1, dtype)
+    bf16 = dtype == torch.bfloat16
+    tol, in_tol = ((WIDE_GRAD_BF16_TOL, WIDE_INPUT_GRAD_BF16_TOL) if bf16
+                   else (K3_F32_TOL, INPUT_GRAD_F32_TOL))
+    for R, S in WIDE_CASES:
+        ro, rd, vd, z = _rays(R * S + 6, R, S, cuda_device)
+        x = fused_mlp._ray_points(ro, rd, z)
+        gen = torch.Generator(device=cuda_device).manual_seed(R)
+        g = (0.5 + torch.rand(4, R, S, device=cuda_device, generator=gen)) * 1e-4
+        g_rows = g.reshape(4, -1).T.contiguous()
+        k4, k3 = fused_mlp_wide.fused_rays_planes_wide_bwd, fused_mlp_wide.fused_points_wide_bwd
+        before = (k4.launches, k3.launches)
+        _poison(cuda_device)
+        got4 = fused_mlp.fused_rays_planes_bwd(kp, ro, rd, vd, z, g)
+        again4 = fused_mlp.fused_rays_planes_bwd(kp, ro, rd, vd, z, g)
+        got3 = fused_mlp.fused_points_bwd(kp, x, vd, g_rows, S, True)
+        torch.cuda.synchronize()
+        assert (k4.launches, k3.launches) == (before[0] + 2, before[1] + 1)
+        ref4 = fused_mlp.fused_rays_planes_bwd_reference(kp, ro, rd, vd, z, g)
+        ref3 = fused_mlp.fused_points_bwd_reference(kp, x, vd, g_rows, S, True)
+        errs = {}
+        for name in fused_mlp.KP_NAMES:
+            assert got4[name].shape == kp[name].shape == got3[0][name].shape, name
+            assert torch.equal(got4[name], again4[name]), name  # no atomics: bit-identical
+            errs[name] = max(_rel_l2(got4[name], ref4[name]), _rel_l2(got3[0][name], ref3[0][name]))
+        errs.update(dx=_rel_l2(got3[1], ref3[1]), dv=_rel_l2(got3[2], ref3[2]))
+        worst = max((e, n) for n, e in errs.items() if n not in ("dx", "dv"))
+        print(f"K4w/K3w {config} {dtype} R={R} S={S}: worst leaf {worst[1]} {worst[0]:.3e}, "
+              f"dx {errs['dx']:.3e}, dv {errs['dv']:.3e}")  # with -s
+        assert worst[0] <= tol, (R, S, worst)
+        assert errs["dx"] <= in_tol and errs["dv"] <= in_tol, (R, S, errs["dx"], errs["dv"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,dtype", _wide_params())
+def test_wide_render_kernels_match_plain_versions(cuda_device, config, dtype):
+    from nerf_tpu_torch.experimental import fused_render
+
+    kp = _wide_net(*config, cuda_device, sum(config) + 2, dtype)
+    bf16 = dtype == torch.bfloat16
+    for R, S in ((1, 64), (127, 8), (129, 64), (531, 64)):
+        ro, rd, vd, z, noise = _render_inputs(R + S, R, S, cuda_device)
+        k5, k6 = fused_render.fused_render_wide_fwd, fused_render.fused_render_wide_bwd
+        before = (k5.launches, k6.launches)
+        _poison(cuda_device)
+        out = fused_render.fused_render_fwd(kp, ro, rd, vd, z, noise, True, keep_raw=True)
+        with torch.no_grad():
+            ref = fused_render.fused_render_reference(kp, ro, rd, vd, z, noise, True)
+        err = _maps_err(out, ref)
+        # the raw beneath the maps is K1w's, and the compositing K5's from it
+        assert torch.equal(out.raw, fused_mlp.fused_rays_planes(kp, ro, rd, vd, z))
+        gen = torch.Generator(device=cuda_device).manual_seed(R)
+        cot = [(0.5 + torch.rand(t.shape, device=cuda_device, generator=gen)) * 1e-3
+               for t in (out.rgb, out.disp, out.acc, out.w)]
+        got = fused_render.fused_render_bwd(kp, ro, rd, vd, z, noise, out.raw, *cot, True)
+        ref_g = fused_render.fused_render_bwd_reference(kp, ro, rd, vd, z, noise, out.raw, *cot,
+                                                        True)
+        torch.cuda.synchronize()
+        assert (k5.launches, k6.launches) == (before[0] + 1, before[1] + 1)
+        worst = max(_rel_l2(got[n], ref_g[n]) for n in fused_mlp.KP_NAMES)
+        print(f"K5w/K6w {config} {dtype} R={R} S={S}: maps max abs {err:.3e}, "
+              f"worst leaf {worst:.3e}")  # with -s
+        assert err <= (BF16_TOL if bf16 else F32_TOL), (R, S, err)
+        assert worst <= (WIDE_GRAD_BF16_TOL if bf16 else K3_F32_TOL), (R, S, worst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_primitives_match_plain_versions(cuda_device, dtype):
+    """Each launch of csrc/fused_mlp_wide.cu against ops/fused_mlp_wide.py's
+    PlainOps on the same inputs: the GEMM at its edges (1, 2 sources; M of
+    63, 192, 320; k of 4, 27, 64 and 640; every epilogue step), the
+    embedding, the head, gc, the per-ray sums, the posenc backward and the
+    weight grads."""
+    from nerf_tpu_torch.ops import fused_mlp_wide as wide
+
+    dev = cuda_device
+    ops, plain = wide.Ops(dtype, dev), wide.PlainOps()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    bf16 = dtype == torch.bfloat16
+    # the same operands rounded: both sides multiply exact products, so only
+    # the f32 sums' order differs (and a bf16 output's rounding edge: an ulp)
+    rel = 2.0 ** -7 if bf16 else 1e-5
+    N = 384
+    for M, k0, k1, opts in ((63, 64, 0, {}), (192, 640, 27, {"relu": True}),
+                            (320, 4, 0, {"mask": True}), (128, 256, 4, {"add": 8})):
+        a0 = rnd(M, -(-k0 // 8) * 8 + 8).to(dtype)  # rows a multiple of 16 bytes apart
+        b0 = rnd(k0, N + 128).to(dtype)
+        srcs = [(a0, k0, b0)]
+        if k1:
+            srcs.append((rnd(M, 32).to(dtype), k1, rnd(k1, N).to(dtype)))
+        kw = dict(bias=rnd(M), relu=opts.get("relu", False))
+        if "mask" in opts:
+            kw["mask"] = rnd(M, N).to(dtype)
+        if "add" in opts:
+            kw.update(add=rnd(M, N // opts["add"]), add_div=opts["add"])
+        got = [torch.full((M, N), float("nan"), dtype=dtype, device=dev),
+               torch.full((M, N), float("nan"), device=dev),
+               torch.full((N // wide.TILE, M + 3), float("nan"), device=dev)]
+        want = [torch.empty_like(t) for t in got]
+        ops.gemm(M, N, srcs, out=got[0], out32=got[1], bsum=got[2][:, :M], **kw)
+        plain.gemm(M, N, srcs, out=want[0], out32=want[1], bsum=want[2][:, :M], **kw)
+        torch.cuda.synchronize()
+        scale = float(want[1].abs().max())
+        for g, w in zip(got[:2], want[:2]):
+            d = (g.float() - w.float()).abs()
+            assert float(d.max()) <= rel * scale + 1e-5 * scale, (M, k0, k1, float(d.max()))
+        assert float((got[2][:, :M] - want[2][:, :M]).abs().max()) <= 1e-3 * float(
+            want[2][:, :M].abs().max()) + 1e-4
+        assert bool(torch.isnan(got[2][:, M:]).all())  # nothing past M
+    ro, rd, vd, z = _rays(9, 50, 7, dev)
+    x = fused_mlp._ray_points(ro, rd, z)
+    for F_, K in ((10, 64), (16, 128)):
+        got = torch.full((K, 384), float("nan"), dtype=dtype, device=dev)
+        want = torch.empty_like(got)
+        ops.embed(got, F_, 350, rays=(ro, rd, z, 7))
+        plain.embed(want, F_, 350, rays=(ro, rd, z, 7))
+        torch.cuda.synchronize()
+        assert float((got.float() - want.float()).abs().max()) <= (2.0 ** -8 if bf16 else 2e-6)
+        ops.embed(got, F_, 350, x=x)
+        torch.cuda.synchronize()
+        assert float((got.float() - want.float()).abs().max()) <= (2.0 ** -8 if bf16 else 2e-6)
+        de = rnd(3 + 6 * F_, 384)
+        dx, dx_ref = torch.empty(350, 3, device=dev), torch.empty(350, 3, device=dev)
+        ops.embed_bwd(x, 350, F_, de, dx)
+        plain.embed_bwd(x, 350, F_, de, dx_ref)
+        torch.cuda.synchronize()
+        assert _rel_l2(dx, dx_ref) <= 1e-5
+    hv, h7 = rnd(192, 384).to(dtype), rnd(384, 384).to(dtype)
+    wout, bout = rnd(576, 4).to(dtype), rnd(4)
+    got, want = torch.empty(350, 4, device=dev), torch.empty(350, 4, device=dev)
+    ops.head(hv, h7, 350, 384, wout, bout, got.T)
+    plain.head(hv, h7, 350, 384, wout, bout, want.T)
+    g = rnd(4, 350)
+    rows = [torch.full((8, 384), float("nan"), dtype=dtype, device=dev) for _ in range(2)]
+    bs = [torch.full((3, 4), float("nan"), device=dev) for _ in range(2)]
+    ops.gc(g, 350, rows[0], bs[0])
+    plain.gc(g, 350, rows[1], bs[1])
+    dhv = rnd(96, 384)
+    sums = [torch.full((96, 128), float("nan"), dtype=dtype, device=dev) for _ in range(2)]
+    ops.ray_sums(dhv, 50, 7, sums[0])
+    plain.ray_sums(dhv, 50, 7, sums[1])
+    torch.cuda.synchronize()
+    assert _rel_l2(got, want) <= 1e-5
+    assert torch.equal(rows[0], rows[1]) and _rel_l2(bs[0], bs[1]) <= 1e-5
+    assert float((sums[0].float() - sums[1].float()).abs().max()) <= 2.0 ** -7 * float(
+        sums[1].float().abs().max())
+    # the weight grads over rows of a workspace and of per-ray rows
+    ws, rws = rnd(700, 640).to(dtype), rnd(96, 128).to(dtype)
+    bpart = rnd(5, 40)
+    probs = [(0, 0, 64, 100, 256, 0, 256), (0, 64, 192, 300, 192, 20_000, 192),
+             (0, 400, 300, 696, 4, 60_000, 4), (1, 0, 32, 32, 64, 70_000, 64)]
+    grad_size = 80_000
+    outs = [torch.full((grad_size + 40,), float("nan"), device=dev) for _ in range(2)]
+    for o, impl in zip(outs, (ops, plain)):
+        o[:grad_size] = 0
+        split_len, nsplit = wide._splits(bf16, probs, 640)
+        impl.wgrad(ws, rws, probs, split_len, nsplit, grad_size, o, bpart)
+    torch.cuda.synchronize()
+    assert _rel_l2(outs[0], outs[1]) <= 1e-5

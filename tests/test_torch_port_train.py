@@ -511,3 +511,51 @@ def test_train_raises_on_what_is_not_ported(tmp_path):
     with pytest.raises(FileNotFoundError, match="poses_bounds.npy"):
         train(dataclasses.replace(cfg, dataset_type="llff", datadir=str(tmp_path / "none")),
               device="cpu")
+
+
+# (f) a wide configuration (ROADMAP C.3): W = 384, which the W <= 256 tile
+# is not built for, through render_rays and a train step
+
+
+def test_wide_render_rays_and_train_step_match_jax():
+    """At 8x384 with 10/4 octaves both packages run their fused raygen
+    branch on both levels (nerf_tpu's Pallas K1/K4 in interpret mode; on
+    the CPU the port's plain versions, which the card's K1w/K4w hold to):
+    render_rays' maps in eval and one train step's loss and updates, with
+    test_train_steps_match_jax's bounds."""
+    from test_torch_port_fused_mlp import _wide_nets
+
+    nets_j, nets_t = {}, {}
+    for k, seed in (("coarse", 0), ("fine", 1)):
+        params, net, (jcfg, jpp, jpv), (cfg, pp, pv) = _wide_nets(384, 10, 4, seed)
+        nets_j[k], nets_t[k] = params, net
+    jmodel = JNeRFModel(jpp, jpv, jcfg, jcfg, "float32", fused=True)
+    tmodel = NeRFModel(pp, pv, cfg, cfg, "float32", fused=True)
+    jrs, trs = _settings()
+    (ro, rd, vd, near, far, target), ov = _batch(30)
+    with torch.no_grad():
+        out = tr.render_rays(nets_t, tmodel, trs.eval_mode(),
+                             *(torch.from_numpy(a) for a in (ro, rd, vd, near, far)),
+                             overrides={"u": torch.from_numpy(ov["u"])})
+    ref = jr.render_rays(nets_j, jmodel, jrs.eval_mode(),
+                         *(jnp.asarray(a) for a in (ro, rd, vd, near, far)),
+                         overrides={"u": jnp.asarray(ov["u"])})
+    for k in ("rgb_map", "disp_map", "acc_map"):
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    core = jax.jit(jstep.make_train_step_core(jmodel, jrs, LRATE, LRATE_DECAY))
+    jstate = jstep.init_train_state(nets_j, LRATE, LRATE_DECAY)
+    state = tstep.init_train_state(nets_t, LRATE)
+    step = tstep.make_train_step(tmodel, trs, LRATE, LRATE_DECAY)
+    jstate, jaux = core(jstate, *(jnp.asarray(a) for a in (ro, rd, near, far, target)),
+                        {k: jnp.asarray(v) for k, v in ov.items()})
+    aux = step(state, *(torch.from_numpy(a) for a in (ro, rd, near, far, target)),
+               overrides={k: torch.from_numpy(v) for k, v in ov.items()})
+    np.testing.assert_allclose(float(aux["loss"]), float(jaux["loss"]), rtol=1e-5)
+    got = {k: jax_params_from_state_dict(net.state_dict(), cfg) for k, net in state.nets.items()}
+    for (name, g, want), (_, p0, _) in zip(
+        _leaf_pairs(got, jstate.params), _leaf_pairs(nets_j, jstate.params)
+    ):
+        assert np.abs(g - want).max() <= 4 * LRATE, name
+        err = np.linalg.norm((g - p0) - (want - p0)) / np.linalg.norm(want - p0)
+        assert err <= UPDATE_TOL, (name, err)
