@@ -9,7 +9,7 @@ Phases, one line each (any failure exits non-zero):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles csrc/fused_mlp_fwd.cu (K1, K2), csrc/fused_mlp_bwd.cu
    (K4, K3), csrc/fused_render.cu (K5, K6's compositing backward),
-   csrc/probe_overlap.cu (K7) and csrc/fused_mlp_wide.cu (K1w-K4w) with
+   csrc/probe_overlap.cu (K7) and csrc/fused_mlp_wide.cu (K1w-K6w) with
    nvcc (sm_90a), one process each, at once;
    counts the wgmma (HGMMA) and TMA-load (UTMALDG) instructions in the SASS
    of the backward's weight-grad kernel (cuobjdump) and fails without both;
@@ -203,10 +203,15 @@ K1-K6 at the widths and octave counts the W <= 256 tile is not built for):
    plain versions in bf16 at W = 384, 512 and 1024 with 10 / 4 octaves and
    at W = 256 with 16 / 6, and in f32 at 384, at 1, 127, 129 and 33,984
    points (K5w / K6w at S = 64), each call counted once and nothing else;
+   then the wide GEMM alone (``gemm_bf16_sm90``: persistent, 128 x 256
+   tiles on wgmma with B MN-major, its epilogue's TMA stores) against its
+   plain version at M = 4 .. 1024, one and two sources, each epilogue
+   step, one scene and three, and one tile whose four swizzle atoms differ;
    then each timed at W = 512 beside its bound, its plain version and the
-   same products as bf16 torch.matmul (phase 2 also checks the wide GEMM,
-   ``gemm_bf16_sm90``, and its ``wgrad_bf16`` for wgmma and TMA loads, no
-   HMMA and no spill);
+   same products as bf16 torch.matmul; then K1w's chunk and K4w's step
+   split by kernel (tools/wide_split.py) (phase 2 also checks the wide
+   GEMM for wgmma, TMA loads and TMA stores, and its ``wgrad_bf16`` for
+   wgmma and TMA loads, no HMMA and no spill);
 27. wide path: the lego recipe at --netwidth 512 --netwidth_fine 512:
    train() for 24 steps (phase 7's timed window and profile, 2 K1w + 2 K4w
    a step), one 400x400 frame through render_path (2 K1w a chunk; against
@@ -214,12 +219,24 @@ K1-K6 at the widths and octave counts the W <= 256 tile is not built for):
    and with --fused_render (2 K5w + 2 K6w); no call of the single-scene
    plain MLP (``NeRFMLP.plain_calls``) and a falling loss in each;
 28. the same recipe at W = 256 with --multires 16 --multires_views 6: 8
-   steps, 2 K1w + 2 K4w a step.
+   steps, 2 K1w + 2 K4w a step;
+29. stacked wide: the stacked backward's workspace at 8 x 1024 rays of
+   192 samples, W = 512, reckoned against the card's free memory; then
+   ``cli.train_multi.main`` on configs/multi's 8 scenes at --netwidth 512
+   --netwidth_fine 512 for 24 steps at 64 + 128 (2 K1ws + 2 K4ws a step for
+   all 8 scenes), 63 + 128 (K2ws / K3ws) and --fused_render (K5ws / K6ws,
+   each K6ws one compositing pass), nothing else, no call of the stacked
+   plain MLP, each scene's loss falling, a .tar a scene with its trained
+   weights; one step at W = 256 with 16 / 6 octaves (2 K1ws + 2 K4ws);
+   then K1ws-K6ws at 8 x 1024 rays against their plain versions and
+   against 8 single-scene wide launches (bit for bit), timed per step
+   beside their bounds, plain versions and the same products as bf16
+   ``torch.bmm``.
 
 The last two lines are a JSON object of kernel numbers (K1-K7, the
 backward's recompute and chain launches, K6's compositing pass, K7's
-``matmul_only`` beside its library chain, the stacked K1-K6 and the wide
-K1w-K6w) and the
+``matmul_only`` beside its library chain, the stacked K1-K6, the wide
+K1w-K6w and their stacked plans K1ws-K6ws) and the
 ``{"ok": true, "device": ...}`` result. Weights are random, from seeds.
 The script imports nothing of JAX or of ``nerf_tpu``.
 """
@@ -414,8 +431,8 @@ def counters():
     chain launches (K4's, K3's, K6's and the stacked K4's, K3's and K6's
     first two), of K6's compositing pass (the stacked K6's and K6w's too),
     of the stacked K1-K6 of multi-scene training (K1s-K6s) and of the wide
-    family (K1w-K6w: a call each, whatever the launches it makes), by
-    name."""
+    family (K1w-K6w, and its stacked plans K1ws-K6ws: a call each, whatever
+    the launches it makes), by name."""
     from nerf_tpu_torch.experimental import fused_render
     from nerf_tpu_torch.ops import fused_mlp, fused_mlp_wide
     from nerf_tpu_torch.tools import probe_overlap
@@ -433,7 +450,13 @@ def counters():
             "K1w": fused_mlp_wide.fused_rays_planes_wide, "K2w": fused_mlp_wide.fused_points_wide,
             "K3w": fused_mlp_wide.fused_points_wide_bwd,
             "K4w": fused_mlp_wide.fused_rays_planes_wide_bwd,
-            "K5w": fused_render.fused_render_wide_fwd, "K6w": fused_render.fused_render_wide_bwd}
+            "K5w": fused_render.fused_render_wide_fwd, "K6w": fused_render.fused_render_wide_bwd,
+            "K1ws": fused_mlp_wide.fused_rays_planes_wide_stacked,
+            "K4ws": fused_mlp_wide.fused_rays_planes_wide_stacked_bwd,
+            "K2ws": fused_mlp_wide.fused_points_wide_stacked,
+            "K3ws": fused_mlp_wide.fused_points_wide_stacked_bwd,
+            "K5ws": fused_render.fused_render_wide_stacked_fwd,
+            "K6ws": fused_render.fused_render_wide_stacked_bwd}
 
 
 def reset_counts() -> None:
@@ -661,13 +684,16 @@ def main() -> int:
     # K6's compositing pass, staged (<1>) and in device memory (<0>)
     instantiations("fused_render", "composite_bwd", ("HMMA",), 2, first_arg_label)
     # the wide family's GEMM (one bf16 instantiation: TMA loads, wgmma with
-    # B transposed, no spill) and its weight grads (wgrad_sm90.cuh's)
-    for function in ("gemm_bf16_sm90", "wgrad_bf16"):
+    # B transposed, its epilogue's TMA stores, no spill) and its weight
+    # grads (wgrad_sm90.cuh's)
+    for function, stores in (("gemm_bf16_sm90", True), ("wgrad_bf16", False)):
         for inst, ops in instantiations("fused_mlp_wide", function,
-                                        ("HGMMA", "UTMALDG", "HMMA", "STG.E.128"), 1,
+                                        ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "STG.E.128"), 1,
                                         lambda name: "bf16").items():
-            if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"]:
-                raise RuntimeError(f"{function}<{inst}> issues no wgmma or TMA load: {ops}")
+            if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"] or (
+                    stores and not ops["UTMASTG"]):
+                raise RuntimeError(f"{function}<{inst}> issues no wgmma, TMA load or TMA "
+                                   f"store: {ops}")
     # no warp-level MMA left in any kernel of the port's libraries
     hmma = {name: ops["HMMA"] for source in sources
             for name, ops in sass_counts(_build._lib_path(source), "", ("HMMA",)).items()
@@ -794,6 +820,9 @@ def main() -> int:
     # timed, then the W = 512 and 16-octave lego paths
     wide = wide_kernel_phase(dev)
     wide_path = wide_path_phase(scene, train_info["views"], dev)
+
+    # 29. the stacked wide path: cli.train_multi at W = 512, K1ws-K6ws
+    stacked_wide = stacked_wide_phase(dev)
 
     def row(name, source, replaces, launches, err, t):
         return {
@@ -924,6 +953,25 @@ def main() -> int:
             ("fused_render_wide_bwd", "nerf_tpu/experimental/fused_render.py:182", "K6w")):
         kernels.append(row(name, "fused_mlp_wide.cu", tpu, wide_path["launches"][key],
                            wide["errs"][key], wide["times"][key]))
+    # the wide family's stacked plans (K1ws-K6ws, one set of launches for 8
+    # scenes): launches on phase 29's cli.train_multi runs (W = 512 on each
+    # branch, and the 16 / 6-octave step); the forwards' max abs of raw or
+    # the maps, the backwards' worst per-leaf relative L2, against their
+    # plain versions at 8 x 1024 rays; ms per step (64 + 192; K2ws/K3ws 63 +
+    # 191), the same products as bf16 torch.bmm over the scenes as the
+    # library's
+    vmapped = " (vmapped, nerf_tpu/parallel/multi_scene.py:64)"
+    for name, tpu, key in (
+            ("fused_mlp_wide_fwd_stacked", "nerf_tpu/ops/fused_mlp.py:464", "K1ws"),
+            ("fused_mlp_wide_bwd_stacked", "nerf_tpu/ops/fused_mlp.py:621", "K4ws"),
+            ("fused_mlp_wide_fwd_points_stacked", "nerf_tpu/ops/fused_mlp.py:454", "K2ws"),
+            ("fused_mlp_wide_bwd_points_stacked", "nerf_tpu/ops/fused_mlp.py:584", "K3ws"),
+            ("fused_render_wide_fwd_stacked", "nerf_tpu/experimental/fused_render.py:162", "K5ws"),
+            ("fused_render_wide_bwd_stacked", "nerf_tpu/experimental/fused_render.py:182",
+             "K6ws")):
+        kernels.append(row(name, "fused_mlp_wide.cu", tpu + vmapped,
+                           stacked_wide["launches"][key], stacked_wide["errs"][key],
+                           stacked_wide["times"][key]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -3743,7 +3791,102 @@ def wide_kernel_phase(dev) -> dict:
                 witness[(R, S)] = wide_witness(kp, kp32, R, S, rng, gen, dev)
             del kp32
             torch.cuda.empty_cache()
-    return {"errs": errs, "witness": witness, "times": wide_times(dev)}
+    return {"errs": errs, "witness": witness, "gemm": wide_gemm_phase(dev),
+            "times": wide_times(dev), "split": wide_split_phase()}
+
+
+# the wide GEMM alone (phase 26, gemm_bf16_sm90): M at and around the
+# 64-row warpgroup and 128-row tile edges, one and three scenes
+WIDE_GEMM_MS = (4, 8, 128, 192, 256, 320, 448, 512, 1024)
+
+
+def wide_gemm_phase(dev) -> float:
+    """26, the GEMM alone against PlainOps.gemm (its plain version) on the
+    same operands, bf16: for each M of WIDE_GEMM_MS, one and three scenes
+    (each its own weights, bias and per-view terms), a scene's points one
+    256-point tile or several, one source or two (k = 4 .. 264), and each
+    epilogue step in turn (relu, mask, per-view term, bias partials, bf16
+    and f32 rows); then one tile whose four 64-point swizzle atoms of B
+    hold other constants (a wrong atom stride reads another atom's). Fails
+    where an output is off by more than 2^-7 of its largest |value| (an
+    ulp of bf16: both sides round the same f32 sums of the same products,
+    in another order) or a bias partial past 1e-3 of its largest, or a
+    second launch's rows are not bit-identical. Returns the largest error
+    relative to the largest |value|."""
+    from nerf_tpu_torch.ops import fused_mlp_wide as wide
+
+    ops, plain = wide.Ops(torch.bfloat16, dev), wide.PlainOps()
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)  # noqa: E731
+    opts = ({}, {"relu": True}, {"mask": True}, {"add": 64}, {"relu": True, "add": 8})
+    worst = 0.0
+    for scenes in (1, 3):
+        for i, M in enumerate(WIDE_GEMM_MS):
+            C = wide.TILE * (1 + i % 3)
+            N = scenes * C
+            k0, k1 = (64, 0) if i % 2 else (192 + 8 * i, 4 + 8 * i)
+            opt = opts[(i + scenes) % len(opts)]
+            lda = lambda k: -(-(k + 8) // 8) * 8  # noqa: E731  rows 16-byte aligned
+            a0 = rnd(scenes, M, lda(k0)).to(torch.bfloat16)
+            srcs = [(a0 if scenes > 1 else a0[0], k0, rnd(k0, N).to(torch.bfloat16))]
+            if k1:
+                a1 = rnd(scenes, M, lda(k1)).to(torch.bfloat16)
+                srcs.append((a1 if scenes > 1 else a1[0], k1, rnd(k1, N).to(torch.bfloat16)))
+            bias = rnd(scenes, M)
+            kw = dict(bias=bias if scenes > 1 else bias[0], relu=opt.get("relu", False),
+                      scenes=scenes)
+            if "mask" in opt:
+                kw["mask"] = rnd(M, N).to(torch.bfloat16)
+            if "add" in opt:
+                add = rnd(M, scenes, C // opt["add"]).permute(1, 0, 2)
+                kw.update(add=add if scenes > 1 else add[0], add_div=opt["add"])
+            got = [torch.full((M, N), float("nan"), dtype=torch.bfloat16, device=dev),
+                   torch.full((M, N), float("nan"), device=dev),
+                   torch.full((N // wide.TILE, M), float("nan"), device=dev)]
+            want = [torch.empty_like(t) for t in got]
+            ops.gemm(M, N, srcs, out=got[0], out32=got[1], bsum=got[2], **kw)
+            again = torch.empty_like(got[0])
+            ops.gemm(M, N, srcs, out=again, **kw)
+            plain.gemm(M, N, srcs, out=want[0], out32=want[1], bsum=want[2], **kw)
+            torch.cuda.synchronize()
+            scale = float(want[1].abs().max())
+            err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got[:2], want[:2]))
+            berr = float((got[2] - want[2]).abs().max()) / max(float(want[2].abs().max()), 1e-30)
+            same = torch.equal(got[0], again)
+            worst = max(worst, err / scale)
+            phase("wide_gemm", scenes=scenes, M=M, C=C, k=f"{k0}+{k1}", opts=opt or "bias",
+                  max_abs=f"{err:.3e}", of=f"{scale:.3e}", bsum_rel=f"{berr:.2e}",
+                  second_launch_bit_equal=same)
+            if not (err <= 2.0 ** -7 * scale and berr <= 1e-3 and same):
+                raise RuntimeError(f"wide GEMM S={scenes} M={M}: {err} of {scale}, bsum {berr}, "
+                                   f"bit-equal {same}")
+    a = torch.zeros(128, 64, device=dev, dtype=torch.bfloat16)
+    a[:, 0] = 1  # C[m][n] = B[0][n]
+    b = torch.full((64, wide.TILE), 100.0, device=dev, dtype=torch.bfloat16)
+    b[0] = (torch.arange(wide.TILE, device=dev) // 64 + 1).to(torch.bfloat16)
+    out = torch.full((128, wide.TILE), float("nan"), device=dev)
+    ops.gemm(128, wide.TILE, [(a, 64, b)], out32=out)
+    torch.cuda.synchronize()
+    atoms = [float(v) for v in out[0, ::64]]
+    phase("wide_gemm_swizzle_atoms", atom_values=atoms, want=[1.0, 2.0, 3.0, 4.0])
+    if not torch.equal(out, b[0].float().expand(128, -1)):
+        raise RuntimeError(f"the wide GEMM read B's swizzle atoms out of place: {atoms}")
+    return worst
+
+
+def wide_split_phase() -> dict:
+    """26, the split: K1w on a 32,768-ray chunk and K4w on an N_rand 4096
+    step (64 + 192 samples, W = 512) profiled by kernel name
+    (tools/wide_split.py, which also profiles another checkout)."""
+    from nerf_tpu_torch.tools import wide_split
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        wide_split.main()
+    res = json.loads(out.getvalue().strip().splitlines()[-1])
+    for key in ("K1w_per_chunk", "K4w_per_step"):
+        phase("wide_split", per=key, **{k: f"{v}" for k, v in res[key].items() if v})
+    torch.cuda.empty_cache()
+    return res
 
 
 def sliced(fn, tensors, parts: int, dim: int = 0):
@@ -3932,6 +4075,247 @@ def wide_path_phase(scene, views, dev) -> dict:
                       path=f"octaves {WIDE_OCTAVES[0]}/{WIDE_OCTAVES[1]}")["counts"])
     phase("wide_paths", launches=launches, ms_per_frame=f"{1e3 * seconds:.2f}")
     return {"launches": launches, "ms_per_frame": 1e3 * seconds}
+
+
+# the stacked wide path (phase 29): cli.train_multi on configs/multi's 8
+# scenes at NeRF-W's width (W = 512) for phase 25's MULTI_STEPS steps a
+# branch (i_print every MULTI_PATH_PRINT, a .tar a scene at the end), one
+# step at W = 256 with 16 / 6 octaves; the stacked wide kernels at 8 scenes
+# of MULTI_RAYS rays
+STACKED_WIDE_BRANCHES = (("raygen", [f"--N_samples={N_SAMPLES}"], "K1ws", "K4ws"),
+                         ("points", [f"--N_samples={POINTS_SAMPLES}"], "K2ws", "K3ws"),
+                         ("fused_render", [f"--N_samples={N_SAMPLES}", "--fused_render"],
+                          "K5ws", "K6ws"))
+
+
+def stacked_wide_phase(dev) -> dict:
+    """29. The stacked wide path (ROADMAP C.3b): the port's tool writes
+    configs/multi's 8 scenes, then ``cli.train_multi.main`` at --netwidth
+    512 --netwidth_fine 512 on each branch of the stacked step
+    (STACKED_WIDE_BRANCHES: 64 + 128, 63 + 128, --fused_render) for
+    MULTI_STEPS steps, each with exactly 2 stacked wide forwards and 2
+    backwards a step for all 8 scenes (K6ws: and its compositing pass) and
+    no other kernel, no call of the stacked plain MLP, each scene's loss
+    finite and falling (the mean of the first two prints against the last
+    two, as multi_path_run's), a .tar a scene holding its trained weights;
+    then one step at W = 256 with --multires 16 --multires_views 6 (2 K1ws
+    + 2 K4ws). Before the runs, the stacked backward's workspace at 8 x
+    MULTI_RAYS rays of 192 fine samples is reckoned against the card's free
+    memory. Then the stacked wide kernels (stacked_wide_kernels). Returns
+    the launches of the runs and the kernels' errors and times."""
+    from nerf_tpu_torch.cli import train_multi
+    from nerf_tpu_torch.ops import fused_mlp_wide
+    from nerf_tpu_torch.render.network import StackedNeRFMLP
+    from nerf_tpu_torch.tools import make_multi_scenes
+
+    ws = fused_mlp_wide.stacked_workspace_bytes(WIDE_WIDTH, 10, 4, MULTI_SCENES, MULTI_RAYS,
+                                                N_SAMPLES + N_IMPORTANCE)
+    free, total = torch.cuda.mem_get_info()
+    phase("stacked_wide_workspace", width=WIDE_WIDTH, scenes=MULTI_SCENES, rays=MULTI_RAYS,
+          fine_samples=N_SAMPLES + N_IMPORTANCE, workspace_gb=f"{ws / 1e9:.2f}",
+          per_point_kb=f"{ws / (MULTI_SCENES * MULTI_RAYS * (N_SAMPLES + N_IMPORTANCE)) / 1e3:.2f}",
+          free_gb=f"{free / 1e9:.2f}", total_gb=f"{total / 1e9:.2f}")
+    if ws > 0.8 * free:
+        raise RuntimeError(f"the stacked wide workspace ({ws / 1e9:.1f} GB) does not fit beside "
+                           f"the rest ({free / 1e9:.1f} GB free)")
+    root = tempfile.mkdtemp(prefix="chip_smoke_stacked_wide_")
+    here = os.getcwd()
+    quiet(make_multi_scenes.write_scenes, os.path.join(root, "data", "nerf_synthetic"),
+          MULTI_SCENES, MULTI_COUNTS, device=dev)
+    os.chdir(root)  # the configs' datadirs are relative
+    launches = {k: 0 for k in ("K1ws", "K2ws", "K3ws", "K4ws", "K5ws", "K6ws")}
+    try:
+        w512 = [f"--netwidth={WIDE_WIDTH}", f"--netwidth_fine={WIDE_WIDTH}"]
+        runs = [(name, w512 + flags, fwd, bwd, MULTI_STEPS)
+                for name, flags, fwd, bwd in STACKED_WIDE_BRANCHES]
+        runs.append(("octaves", [f"--multires={WIDE_OCTAVES[0]}",
+                                 f"--multires_views={WIDE_OCTAVES[1]}",
+                                 f"--N_samples={N_SAMPLES}"], "K1ws", "K4ws", 1))
+        for name, flags, fwd, bwd, steps in runs:
+            argv = multi_argv(root, f"wide_{name}", steps,
+                              {"i_print": min(MULTI_PATH_PRINT, steps), "i_weights": steps}) + flags
+            cfgs = train_multi.load_configs(argv)
+            plain = StackedNeRFMLP.plain_calls
+            reset_counts()
+            t0 = time.perf_counter()
+            result, _ = run_cli(train_multi.main, argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts, plain = read_counts(), StackedNeRFMLP.plain_calls - plain
+            n = 2 * steps
+            check_counts(counts, {fwd: n, bwd: n, **({"composite": n} if bwd == "K6ws" else {})},
+                         f"stacked wide {name}: {steps} steps of {MULTI_SCENES} scenes")
+            for k in launches:
+                launches[k] += counts[k]
+            losses = np.stack([h[1] for h in result.history])  # [prints, scenes]
+            tars_ok = multi_tars_ok(cfgs, result, steps, dev)
+            first, last = losses[:2].mean(0), losses[-2:].mean(0)  # as multi_path_run's
+            falls = steps == 1 or bool((last < first).all())
+            phase("stacked_wide_train", branch=name, width=cfgs[0].netwidth,
+                  octaves=f"{cfgs[0].multires}/{cfgs[0].multires_views}",
+                  samples=f"{cfgs[0].N_samples}+{cfgs[0].N_importance}", scenes=MULTI_SCENES,
+                  n_rand=cfgs[0].N_rand, steps=steps, seconds=f"{seconds:.2f}",
+                  launches={k: v for k, v in counts.items() if v}, stacked_plain_mlp_calls=plain,
+                  loss_first2=[f"{v:.5f}" for v in first], loss_last2=[f"{v:.5f}" for v in last],
+                  tars_load_with_trained_weights=tars_ok)
+            if plain or not (np.isfinite(losses).all() and falls and all(tars_ok)):
+                raise RuntimeError(f"stacked wide {name}: plain MLP calls {plain}, losses {losses}, "
+                                   f"tars {tars_ok}")
+            del result
+            torch.cuda.empty_cache()
+    finally:
+        os.chdir(here)
+        shutil.rmtree(root)
+    return {"launches": launches, **stacked_wide_kernels(dev)}
+
+
+def stacked_wide_kernels(dev) -> dict:
+    """29. K1ws-K6ws at 8 scenes of MULTI_RAYS rays on stacked W = 512 nets
+    of random weights from seeds (10 / 4 octaves, bf16), each level of a
+    step (K1ws/K4ws and K5ws/K6ws at 64 and 192 samples, K5ws with sigma
+    noise and a white background; K2ws/K3ws at 63 and 191, a direction a
+    point): against their plain versions (the forwards' raw and maps at
+    phase 3's bf16 bound, the grads' worst per-leaf relative L2 at phase
+    26's WIDE_GRAD_TOL) and against 8 single-scene wide launches, bit for
+    bit (raw, maps, grads: a scene's columns are the single launch's), then
+    timed per step beside the bound (8 scenes of the single-scene work),
+    the plain versions and the same products as bf16 torch.bmm over the
+    scenes (stacked_matmul_chain)."""
+    from nerf_tpu_torch.experimental import fused_render
+    from nerf_tpu_torch.models.embedding import PosEncConfig
+    from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
+    from nerf_tpu_torch.ops import fused_mlp
+    from nerf_tpu_torch.render.network import StackedNeRFMLP
+
+    cfg, pe_pts, pe_views = MLPConfig(width=WIDE_WIDTH), PosEncConfig(10), PosEncConfig(4)
+    flops_pt = fused_mlp.flops_per_point(cfg, pe_pts, pe_views)
+    Sc, R = MULTI_SCENES, MULTI_RAYS
+    rng = np.random.default_rng(29)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    keys = ("ms", "plain_ms", "ops_ms", "bytes_ms", "library_ms")
+    t = {k: dict.fromkeys(keys, 0.0) for k in ("K1ws", "K2ws", "K3ws", "K4ws", "K5ws", "K6ws")}
+    errs = {k: 0.0 for k in t}
+    same = {k: True for k in t}
+    for j, (n1, n2) in enumerate(((N_SAMPLES, POINTS_SAMPLES),
+                                  (N_SAMPLES + N_IMPORTANCE, POINTS_SAMPLES + N_IMPORTANCE))):
+        stacked = StackedNeRFMLP.from_nets([NeRFMLP(cfg, seed=290 + 2 * k + j, device=dev)
+                                            for k in range(Sc)])
+        with torch.no_grad():
+            kp = fused_mlp.pack_params(stacked, pe_pts, pe_views, torch.bfloat16)
+        del stacked
+        blobs = fused_mlp.kernel_blobs(kp)
+        wbytes = sum(b.numel() * b.element_size() for b in blobs)
+        gbytes = 4 * sum(v.numel() for v in kp.values())
+        singles = [{k: v[s].contiguous() for k, v in kp.items()} for s in range(Sc)]
+        ro, rd, vd, z = [torch.stack(a) for a in zip(*(make_rays(rng, R, n1, dev)
+                                                         for _ in range(Sc)))]
+        noise = torch.randn(Sc, R, n1, device=dev, generator=gen) * 0.5
+        g = (0.5 + torch.rand(4, Sc, R, n1, device=dev, generator=gen)) * 1e-4
+        gm = [(0.5 + torch.rand(Sc, *sh, device=dev, generator=gen)) * 1e-4
+              for sh in ((R, 3), (R,), (R,), (R, n1))]
+        x, v = stacked_points([torch.stack(a) for a in zip(*(make_rays(rng, R, n2, dev)
+                                                              for _ in range(Sc)))], n2)
+        gp = (0.5 + torch.rand(Sc, R * n2, 4, device=dev, generator=gen)) * 1e-4
+        rays = (ro, rd, vd, z)
+        calls = {  # name: (kernel, plain version, the single-scene launch of scene s)
+            "K1ws": (lambda: fused_mlp.fused_rays_planes_stacked(kp, *rays, blobs),
+                     lambda: fused_mlp.fused_rays_planes_stacked_reference(kp, *rays),
+                     lambda s: fused_mlp.fused_rays_planes(singles[s], *(a[s] for a in rays))),
+            "K4ws": (lambda: fused_mlp.fused_rays_planes_stacked_bwd(kp, *rays, g, blobs),
+                     lambda: fused_mlp.fused_rays_planes_stacked_bwd_reference(kp, *rays, g),
+                     lambda s: fused_mlp.fused_rays_planes_bwd(
+                         singles[s], *(a[s] for a in rays), g[:, s].contiguous())),
+            "K2ws": (lambda: fused_mlp.fused_points_stacked(kp, x, v, 1, blobs),
+                     lambda: fused_mlp.fused_points_stacked_reference(kp, x, v, 1),
+                     lambda s: fused_mlp.fused_points(singles[s], x[s], v[s], 1)),
+            "K3ws": (lambda: fused_mlp.fused_points_stacked_bwd(kp, x, v, gp, 1, blobs),
+                     lambda: fused_mlp.fused_points_stacked_bwd_reference(kp, x, v, gp, 1),
+                     lambda s: fused_mlp.fused_points_bwd(singles[s], x[s], v[s],
+                                                          gp[s].contiguous(), 1, False)[0]),
+            "K5ws": (lambda: fused_render.fused_render_stacked_fwd(kp, *rays, noise, True, blobs,
+                                                                    keep_raw=True),
+                     lambda: fused_render.fused_render_stacked_reference(kp, *rays, noise, True),
+                     lambda s: fused_render.fused_render_fwd(singles[s], *(a[s] for a in rays),
+                                                             noise[s], True, keep_raw=True))}
+        with torch.no_grad():
+            maps = None
+            for name, (kernel, ref_fn, single) in calls.items():
+                out, ref = kernel(), ref_fn()
+                if name in ("K1ws", "K2ws"):
+                    errs[name] = max(errs[name], float((out - ref).abs().max()))
+                    same[name] &= all(torch.equal(out[:, s] if name == "K1ws" else out[s],
+                                                  single(s)) for s in range(Sc))
+                elif name == "K5ws":
+                    errs[name] = max(errs[name], maps_err(
+                        fused_render.Maps(*(a.flatten(0, 1) for a in out[:4]), None),
+                        [a.flatten(0, 1) for a in ref[:4]]))
+                    same[name] &= all(all(same_bits(a[s], b) for a, b in zip(out[:4],
+                                                                              single(s)[:4]))
+                                      for s in range(Sc))
+                    maps = out
+                else:
+                    errs[name] = max(errs[name], max(rel_l2(out[k][s], ref[k][s]) for k in ref
+                                                     for s in range(Sc)))
+                    same[name] &= all(all(torch.equal(out[k][s], b) for k, b in single(s).items())
+                                      for s in range(Sc))
+                del out, ref
+                torch.cuda.empty_cache()
+            raw = maps.raw
+            del maps
+            k6 = (lambda: fused_render.fused_render_stacked_bwd(kp, *rays, noise, raw, *gm, True,
+                                                                 blobs),
+                  lambda: fused_render.fused_render_stacked_bwd_reference(kp, *rays, noise, raw,
+                                                                          *gm, True))
+            out, ref = k6[0](), k6[1]()
+            errs["K6ws"] = max(errs["K6ws"], max(rel_l2(out[k][s], ref[k][s]) for k in ref
+                                                 for s in range(Sc)))
+            for s in range(Sc):
+                one_in = [a[s] for a in (*rays, noise)]
+                one = fused_render.fused_render_fwd(singles[s], *one_in, True, keep_raw=True)
+                single_g = fused_render.fused_render_bwd(singles[s], *one_in, one.raw,
+                                                         *(a[s].contiguous() for a in gm), True)
+                same["K6ws"] &= all(torch.equal(out[k][s], b) for k, b in single_g.items())
+            del out, ref
+            torch.cuda.empty_cache()
+            calls["K6ws"] = k6
+            for name, fns in calls.items():
+                fwd = name in ("K1ws", "K2ws", "K5ws")
+                t[name]["ms"] += cuda_ms(fns[0], reps=5 if fwd else 3, warmup=1)
+                t[name]["plain_ms"] += cuda_ms(fns[1], reps=1)
+                torch.cuda.empty_cache()
+            del raw
+        for names, n, backward in ((("K1ws", "K5ws"), n1, False), (("K4ws", "K6ws"), n1, True),
+                                   (("K2ws",), n2, False), (("K3ws",), n2, True)):
+            chain = stacked_matmul_chain(kp, R * n, backward)
+            library_ms = cuda_ms(chain, reps=3)
+            del chain
+            torch.cuda.empty_cache()
+            n_pts = Sc * R * n
+            for name in names:
+                t[name]["library_ms"] += library_ms
+                if backward:
+                    flops = Sc * fused_mlp.bwd_flops(cfg, pe_pts, pe_views, R * n, 1)
+                    io = n_pts * (12 + 16) + Sc * R * 9 * 4 + 2 * Sc * wbytes + gbytes
+                else:
+                    flops = n_pts * flops_pt
+                    io = n_pts * (4 + 16) + Sc * R * 9 * 4 + Sc * wbytes
+                t[name]["ops_ms"] += 1e3 * flops / PEAK_BF16_FLOPS
+                t[name]["bytes_ms"] += 1e3 * io / PEAK_BYTES
+        phase("stacked_wide_kernels", level=("coarse", "fine")[j], scenes=Sc, R=R, S=n1,
+              points_S=n2, errs={k: f"{e:.3e}" for k, e in errs.items()},
+              bit_equal_8_single=same, raw_tol=BF16_TOL,
+              grad_tol=WIDE_GRAD_TOL[torch.bfloat16])
+        del kp, blobs, singles, ro, rd, vd, z, noise, g, gm, x, v, gp, rays, calls
+        torch.cuda.empty_cache()
+    bad = [k for k, e in errs.items()
+           if not e <= (BF16_TOL if k in ("K1ws", "K2ws", "K5ws") else WIDE_GRAD_TOL[torch.bfloat16])]
+    if bad or not all(same.values()):
+        raise RuntimeError(f"stacked wide kernels: off their plain versions {bad} {errs}, "
+                           f"bit-equal to 8 single launches {same}")
+    for name, v in t.items():
+        print_stacked_times(name.lower() + "_times", v,
+                            "S=63 + S=191" if name in ("K2ws", "K3ws") else "S=64 + S=192")
+    return {"times": t, "errs": errs}
 
 
 if __name__ == "__main__":

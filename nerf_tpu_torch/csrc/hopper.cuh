@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks, as thin inline-PTX wrappers: mbarriers
-// with phase parity, TMA tile loads (cp.async.bulk.tensor.2d) and their
-// tensor maps, the wgmma shared-memory descriptor of a 128-byte-swizzled
-// K-major tile, the wgmma fence / commit / wait, wgmma.mma_async m64nNk16
-// (bf16 in, f32 accumulators) for N = 8, 64, 128 and 256, setmaxnreg, the
-// generic-to-async proxy fence and named barriers.
+// with phase parity, TMA tile loads (cp.async.bulk.tensor.2d and .3d), TMA
+// stores and their bulk groups, tensor maps, the wgmma shared-memory
+// descriptor of a 128-byte-swizzled K-major tile, the wgmma fence / commit /
+// wait, wgmma.mma_async m64nNk16 (bf16 in, f32 accumulators) for N = 8, 64,
+// 128 and 256 (256 also with B MN-major), setmaxnreg, the generic-to-async
+// proxy fence and named barriers.
 //
 // The tile layout they share: TMA writes a box of 64 bf16 (128 bytes) x R
 // rows with CU_TENSOR_MAP_SWIZZLE_128B, row r at byte r*128 of the box with
@@ -76,6 +77,41 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x), "r"(y)
       : "memory");
+}
+
+// The same for a 3-D map: box (x, y) of its slice z (the wide GEMM's weights
+// [scene][row][K]).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// Box (x, y) of `map` from shared memory at src to global memory, as a bulk
+// async-group (TMA store; rows and columns past the tensor's edge are not
+// written). The threads that wrote src run fence_proxy_async() and a
+// barrier with the issuing thread first.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(x), "r"(y)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until all of this thread's bulk groups are complete.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // A host-side encoder of 2-D bf16 tensor maps: cuTensorMapEncodeTiled from
@@ -236,7 +272,9 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 }
 
 // D[64][256] += A[64][16] B[256][16]^T (both K-major in shared memory, 128-byte
-// swizzle), bf16 operands, f32 accumulators: 128 a thread.
+// swizzle), bf16 operands, f32 accumulators: 128 a thread. TRANS_B = 1: B
+// MN-major (B[16][256], the points contiguous; the wide GEMM's rows).
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -250,7 +288,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -267,7 +305,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "n"(1));
+      : "l"(da), "l"(db), "n"(1), "n"(TRANS_B));
 }
 
 

@@ -62,9 +62,11 @@ def supports(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views, n_samples: int) -> 
 
 
 def supports_stacked(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views, n_samples: int) -> bool:
-    """The stacked K5's and K6's guard: ``supports`` within the tile's
-    widths and embedding sizes (``fused_mlp.supports_stacked``)."""
-    return fused_mlp.supports_stacked(cfg, pe_pts, pe_views) and n_samples % 8 == 0
+    """The stacked K5's and K6's guard: ``supports`` (nerf_tpu runs its
+    kernels under its vmap over the scenes wherever they run for one); the
+    tile's stacked launches where ``fused_mlp.tile_supports``, K5ws and K6ws
+    elsewhere."""
+    return supports(cfg, pe_pts, pe_views, n_samples)
 
 
 # K5's bf16 slab: a CTA's raw planes (r, g, b, sigma) of a ray group, in
@@ -200,22 +202,9 @@ def fused_render_wide_fwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, white_bkg
     compositing, csrc/fused_render.cu); ``launches`` counts the calls."""
     raw = fused_mlp_wide.rays_planes(fused_mlp_wide._ops(kp, z_vals), kp, rays_o, rays_d,
                                      viewdirs, z_vals, blobs)
-    lib = _build.load("fused_render")
-    dev = z_vals.device
-    R, S = z_vals.shape
-    f32 = dict(dtype=torch.float32, device=dev)
-    out = Maps(torch.empty(R, 3, **f32), torch.empty(R, **f32), torch.empty(R, **f32),
-               torch.empty(R, S, **f32), raw if keep_raw else None)
-    if R * S:
-        rd, z = rays_d.contiguous(), z_vals.contiguous()
-        nz = None if noise is None else noise.contiguous()
-        with torch.cuda.device(dev):
-            err = lib.nerf_fused_render_composite(
-                rd.data_ptr(), z.data_ptr(), _ptr(nz), raw.data_ptr(), R, S, int(white_bkgd),
-                *(t.data_ptr() for t in out[:4]), torch.cuda.current_stream(dev).cuda_stream)
-        fused_mlp._raise_on(lib, err, "fused_render_composite")
+    out = launch_composite_maps(raw, rays_d, z_vals, noise, white_bkgd)
     fused_render_wide_fwd.launches += 1
-    return out
+    return out._replace(raw=raw if keep_raw else None)
 
 
 fused_render_wide_fwd.launches = 0
@@ -487,6 +476,104 @@ def _check_stacked(kp, rays_o, rays_d, viewdirs, z_vals, noise, **per_ray) -> No
             raise ValueError(f"{name}: expected {want}, got {tuple(t.shape)}")
 
 
+def _launch_composite(raw_planes, rays_d, z_vals, noise, white_bkgd: bool, out) -> None:
+    """K5w's compositing launch (``nerf_fused_render_composite``, a warp per
+    ray on K5's compositing) of raw planes [4, R, S] into the maps ``out``."""
+    R, S = z_vals.shape
+    if R * S == 0:
+        return
+    lib = _build.load("fused_render")
+    rd, z = rays_d.contiguous(), z_vals.contiguous()
+    nz = None if noise is None else noise.contiguous()
+    with torch.cuda.device(z.device):
+        err = lib.nerf_fused_render_composite(
+            rd.data_ptr(), z.data_ptr(), _ptr(nz), raw_planes.data_ptr(), R, S, int(white_bkgd),
+            *(t.data_ptr() for t in out[:4]), torch.cuda.current_stream(z.device).cuda_stream)
+    fused_mlp._raise_on(lib, err, "fused_render_composite")
+
+
+def composite_maps_reference(raw_planes, rays_d, z_vals, noise, white_bkgd: bool) -> Maps:
+    """The maps of raw planes [4, R, S], K5w's compositing's plain version
+    (raw not kept)."""
+    cmp = _composite(raw_planes, rays_d, z_vals, noise, white_bkgd)
+    return Maps(cmp["rgb_map"], cmp["disp"], cmp["acc"], cmp["w"], None)
+
+
+def launch_composite_maps(raw_planes, rays_d, z_vals, noise, white_bkgd: bool) -> Maps:
+    """The maps of raw planes [4, R, S] on the card: one launch of K5w's
+    compositing (``nerf_fused_render_composite``; raw not kept)."""
+    R, S = z_vals.shape
+    f32 = dict(dtype=torch.float32, device=z_vals.device)
+    out = Maps(torch.empty(R, 3, **f32), torch.empty(R, **f32), torch.empty(R, **f32),
+               torch.empty(R, S, **f32), None)
+    _launch_composite(raw_planes, rays_d, z_vals, noise, white_bkgd, out)
+    return out
+
+
+def render_wide_stacked(ops, kp, rays_o, rays_d, viewdirs, z_vals, noise, white_bkgd: bool,
+                        blobs=None, keep_raw: bool = False) -> Maps:
+    """K5ws's launches on ``ops`` (fused_mlp_wide's Ops, or PlainOps, whose
+    compositing is the plain version): each scene's rays zero-padded to
+    ``fused_mlp_wide.cols`` of them, K1ws's launches into raw planes [4, S,
+    V, N], then one compositing over every scene's S V rays; the maps [S, R,
+    ...] (and raw planes [4, S, R, N] with ``keep_raw``)."""
+    S, R, N = z_vals.shape
+    V = fused_mlp_wide.cols(R)
+    ro, rd, vd, z = fused_mlp._padded((rays_o, rays_d, viewdirs, z_vals), V)
+    nz = None if noise is None else fused_mlp._padded((noise,), V)[0]
+    raw = fused_mlp_wide.rays_planes_stacked_padded(ops, kp, ro, rd, vd, z, blobs)
+    flat = lambda t: None if t is None else t.flatten(0, 1)  # noqa: E731
+    maps = ops.composite(raw.view(4, S * V, N), flat(rd), flat(z), flat(nz), white_bkgd)
+    return Maps(*(t.unflatten(0, (S, V))[:, :R] for t in maps[:4]),
+                raw[:, :, :R] if keep_raw else None)
+
+
+def render_wide_stacked_bwd(ops, kp, rays_o, rays_d, viewdirs, z_vals, noise, raw, g_rgb, g_disp,
+                            g_acc, g_w, white_bkgd: bool, blobs=None) -> Dict[str, torch.Tensor]:
+    """K6ws's launches on ``ops``: each scene's rays zero-padded to
+    ``fused_mlp_wide.cols`` of them (zero cotangents), K6's compositing pass
+    once over every scene's rays, then K4ws's launches; the f32 grads of the
+    stacked packed leaves."""
+    S, R, N = z_vals.shape
+    V = fused_mlp_wide.cols(R)
+    pad = lambda t, dim=1: None if t is None else fused_mlp._padded((t,), V, dim)[0]  # noqa: E731
+    ro, rd, vd, z = (pad(t) for t in (rays_o, rays_d, viewdirs, z_vals))
+    nz, gr, gd, ga, gw = (pad(t) for t in (noise, g_rgb, g_disp, g_acc, g_w))
+    flat = lambda t: None if t is None else t.flatten(0, 1)  # noqa: E731
+    g_planes = ops.composite_bwd(pad(raw, 2).flatten(1, 2), flat(rd), flat(z), flat(nz),
+                                 flat(gr), flat(gd), flat(ga), flat(gw), white_bkgd)
+    return fused_mlp_wide.rays_planes_stacked_bwd_padded(ops, kp, ro, rd, vd, z,
+                                                         g_planes.view(4, S, V, N), blobs)
+
+
+def fused_render_wide_stacked_fwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, white_bkgd, blobs,
+                                  keep_raw) -> Maps:
+    """K5ws on CUDA tensors, ``fused_render_stacked_fwd``'s arguments:
+    ``render_wide_stacked``'s launches (``launches`` counts the calls)."""
+    out = render_wide_stacked(fused_mlp_wide._ops(kp, z_vals), kp, rays_o, rays_d, viewdirs,
+                              z_vals, noise, white_bkgd, blobs, keep_raw)
+    fused_render_wide_stacked_fwd.launches += 1
+    return out
+
+
+fused_render_wide_stacked_fwd.launches = 0
+
+
+def fused_render_wide_stacked_bwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, raw, g_rgb, g_disp,
+                                  g_acc, g_w, white_bkgd, blobs=None) -> Dict[str, torch.Tensor]:
+    """K6ws on CUDA tensors, ``fused_render_stacked_bwd``'s arguments:
+    ``render_wide_stacked_bwd``'s launches, its compositing pass counted by
+    ``composite_bwd.launches`` (``launches`` counts the calls)."""
+    grads = render_wide_stacked_bwd(fused_mlp_wide._ops(kp, z_vals), kp, rays_o, rays_d, viewdirs,
+                                    z_vals, noise, raw, g_rgb, g_disp, g_acc, g_w, white_bkgd,
+                                    blobs)
+    fused_render_wide_stacked_bwd.launches += 1
+    return grads
+
+
+fused_render_wide_stacked_bwd.launches = 0
+
+
 def fused_render_stacked_fwd(kp: Dict[str, torch.Tensor], rays_o, rays_d, viewdirs, z_vals,
                              noise: Optional[torch.Tensor], white_bkgd: bool,
                              blobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -506,6 +593,9 @@ def fused_render_stacked_fwd(kp: Dict[str, torch.Tensor], rays_o, rays_d, viewdi
         return out if keep_raw else out._replace(raw=None)
     if z_vals.device.type != "cuda":
         raise ValueError(f"no fused kernel for device {z_vals.device}")
+    if fused_mlp.is_wide(kp):
+        return fused_render_wide_stacked_fwd(kp, rays_o, rays_d, viewdirs, z_vals, noise,
+                                             white_bkgd, blobs, keep_raw)
     lib = _build.load("fused_render")
     dtype, W, Fp, Fv = fused_mlp._kernel_config(kp, z_vals)
     dev = z_vals.device
@@ -556,6 +646,9 @@ def fused_render_stacked_bwd(kp: Dict[str, torch.Tensor], rays_o, rays_d, viewdi
                                                   raw, g_rgb, g_disp, g_acc, g_w, white_bkgd)
     if z_vals.device.type != "cuda":
         raise ValueError(f"no fused kernel for device {z_vals.device}")
+    if fused_mlp.is_wide(kp):
+        return fused_render_wide_stacked_bwd(kp, rays_o, rays_d, viewdirs, z_vals, noise, raw,
+                                             g_rgb, g_disp, g_acc, g_w, white_bkgd, blobs)
     fused_mlp._kernel_config(kp, z_vals)
     S, R, N = z_vals.shape
     R_pad = fused_mlp._pad_rays(R, N)

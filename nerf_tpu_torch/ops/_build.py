@@ -88,15 +88,15 @@ SIGNATURES = {
     "fused_mlp_wide": {
         "nerf_wide_embed": (_I, [_I, _I] + [_P] * 4 + [_I] * 4 + [_P, _L, _I, _P]),
         "nerf_wide_gemm": (
-            _I, [_I, _I, _I, _P, _L, _I, _P, _L, _P, _L, _I, _P, _L, _P, _P, _L, _I, _P, _L, _I,
-                 _P, _L, _P, _L, _P, _L, _P],
+            _I, [_I, _I, _I, _I, _P, _L, _L, _I, _P, _L, _P, _L, _L, _I, _P, _L, _P, _L, _P, _L,
+                 _L, _I, _P, _L, _I, _P, _L, _P, _L, _P, _L, _P],
         ),
-        "nerf_wide_head": (_I, [_I, _P, _P, _L, _I, _I, _P, _P, _P, _L, _L, _P]),
+        "nerf_wide_head": (_I, [_I, _P, _P, _L, _I, _I, _I, _P, _L, _P, _L, _P, _L, _L, _P]),
         "nerf_wide_gc": (_I, [_I, _P, _L, _L, _I, _I, _P, _L, _P, _L, _P]),
         "nerf_wide_ray_sums": (_I, [_I, _P, _L, _I, _I, _I, _P, _L, _I, _P]),
         "nerf_wide_embed_bwd": (_I, [_P, _I, _I, _P, _L, _P, _P]),
         "nerf_wide_wgrad": (
-            _I, [_I, _P, _I, _L, _P, _I, _L, _I, _P, _I, _I, _L, _P, _P, _P, _I, _I, _P],
+            _I, [_I, _P, _I, _L, _P, _I, _L, _I, _I, _P, _I, _I, _L, _P, _P, _P, _I, _I, _P],
         ),
         "nerf_cuda_error_string": (ctypes.c_char_p, [_I]),
     },

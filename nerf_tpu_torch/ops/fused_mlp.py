@@ -54,8 +54,9 @@ The pieces:
   (points) (``nerf_fused_mlp_fwd_stacked``, ``nerf_fused_mlp_bwd_stacked``,
   ``nerf_fused_mlp_fwd_points_stacked``,
   ``nerf_fused_mlp_bwd_points_stacked``), each tile on its own scene's
-  weights; their plain versions apply K1's and K4's (K2's and K3's) scene
-  by scene.
+  weights, or where ``is_wide`` the wide family's stacked plans (K1ws-K4ws,
+  ops/fused_mlp_wide.py); their plain versions apply K1's and K4's (K2's and
+  K3's) scene by scene.
 """
 
 from __future__ import annotations
@@ -113,11 +114,11 @@ def tile_supports(width: int, num_freqs_pts: int, num_freqs_views: int) -> bool:
 
 
 def supports_stacked(cfg: MLPConfig, pe_pts: PosEncConfig, pe_views) -> bool:
-    """The stacked (multi-scene) kernels' guard: ``supports`` within the
-    tile's widths and embedding sizes. A stacked net outside it runs the
-    stacked plain MLP (render/network.py's StackedNeRFMLP, ROADMAP C.3b)."""
-    return (supports(cfg, pe_pts, pe_views)
-            and tile_supports(cfg.width, pe_pts.num_freqs, pe_views.num_freqs))
+    """The stacked (multi-scene) kernels' guard: ``supports``, as nerf_tpu
+    runs its kernels under its vmap over the scenes wherever they run for
+    one. The tile's stacked launches take ``tile_supports``' part, the wide
+    family's stacked plans (ops/fused_mlp_wide.py) the rest."""
+    return supports(cfg, pe_pts, pe_views)
 
 
 def embed_pad(num_freqs_pts: int, num_freqs_views: int) -> Tuple[int, int]:
@@ -1483,13 +1484,16 @@ def fused_rays_planes_stacked(kp, rays_o, rays_d, viewdirs, z_vals, blobs=None) 
     params ([S, ...] leaves), rays [S, R, 3] and depths [S, R, N]: scene s's
     rays through scene s's net. CUDA tensors launch the stacked K1 once for
     every scene (``launches`` counts one a launch, whatever S is), each
-    scene's rays zero-padded to ``_pad_rays``; CPU tensors take the plain
-    version. ``blobs`` is ``kernel_blobs(kp)`` where the caller keeps it."""
+    scene's rays zero-padded to ``_pad_rays``, or where ``is_wide`` K1ws
+    (ops/fused_mlp_wide.py); CPU tensors take the plain version. ``blobs``
+    is ``kernel_blobs(kp)`` where the caller keeps it."""
     _check_stacked(kp, rays_o, rays_d, viewdirs, z_vals)
     if z_vals.device.type == "cpu":
         return fused_rays_planes_stacked_reference(kp, rays_o, rays_d, viewdirs, z_vals)
     if z_vals.device.type != "cuda":
         raise ValueError(f"no fused kernel for device {z_vals.device}")
+    if is_wide(kp):
+        return _wide().fused_rays_planes_wide_stacked(kp, rays_o, rays_d, viewdirs, z_vals, blobs)
     dtype, W, Fp, Fv = _kernel_config(kp, z_vals)
     S, R, N = z_vals.shape
     R_pad = _pad_rays(R, N)
@@ -1543,6 +1547,9 @@ def fused_rays_planes_stacked_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g_planes
                                                        g_planes)
     if z_vals.device.type != "cuda":
         raise ValueError(f"no fused kernel for device {z_vals.device}")
+    if is_wide(kp):
+        return _wide().fused_rays_planes_wide_stacked_bwd(kp, rays_o, rays_d, viewdirs, z_vals,
+                                                          g_planes, blobs)
     R_pad = _pad_rays(R, N)
     (g,) = _padded((g_planes,), R_pad, dim=2)  # padded rays: a zero cotangent
     grads = _launch_stacked_bwd(kp, *_padded((rays_o, rays_d, viewdirs, z_vals), R_pad), g, blobs)
@@ -1673,6 +1680,8 @@ def fused_points_stacked(kp, x, v, spr: int, blobs=None) -> torch.Tensor:
         return fused_points_stacked_reference(kp, x, v, spr)
     if x.device.type != "cuda":
         raise ValueError(f"no fused kernel for device {x.device}")
+    if is_wide(kp):
+        return _wide().fused_points_wide_stacked(kp, x, v, spr, blobs)
     dtype, W, Fp, Fv = _kernel_config(kp, x)
     S, P, _ = x.shape
     P_pad = _pad_points(P, spr)
@@ -1722,6 +1731,8 @@ def fused_points_stacked_bwd(kp, x, v, g, spr: int, blobs=None) -> Dict[str, tor
         return fused_points_stacked_bwd_reference(kp, x, v, g, spr)
     if x.device.type != "cuda":
         raise ValueError(f"no fused kernel for device {x.device}")
+    if is_wide(kp):
+        return _wide().fused_points_wide_stacked_bwd(kp, x, v, g, spr, blobs)
     dtype, W, Fp, Fv = _kernel_config(kp, x)
     dev = x.device
     P_pad = _pad_points(P, spr)

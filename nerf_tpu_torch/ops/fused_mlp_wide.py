@@ -24,17 +24,30 @@ layer is one launch of the family's GEMM (``Ops.gemm``). The launch plans:
   grads d_e and d_ev and the posenc backward, then the weight grads
   (``wgrad_sm90.cuh``, phase 3 of the tile's backward) over the rows.
 
+The stacked (multi-scene) plans, K1ws / K4ws (``rays_planes_stacked{,_bwd}``)
+and K2ws / K3ws (``points_raw_stacked``, ``points_stacked_bwd``), run the
+same launches once for S nets of one shape (leaves with a leading scene
+axis; nerf_tpu vmaps its kernels over the scenes): each scene's rays (views)
+are zero-padded to ``cols`` of them, so its columns are whole GEMM tiles,
+one after another; every GEMM reads scene s's weights, bias and per-view
+terms for scene s's columns, the head its Wout and bout, and the weight
+grads give each scene its own set. No launch loops over the scenes. The
+single-scene backward lays a scene's columns out the same way (S = 1), so
+the stacked plans' scene s is the single-scene plan's bit for bit.
+
 ``Ops`` launches the primitives of csrc/fused_mlp_wide.cu; ``PlainOps`` is
 the plain PyTorch version of each, on the same tensors, so a launch plan can
 run on the CPU against the kernels' plain versions
-(tests/test_torch_port_fused_mlp.py) and each primitive be held to its plain
-version on the card (tests/test_torch_port_kernels.py). Each wrapper counts
-its calls in ``launches`` (one a call, whatever the launches it makes).
+(tests/test_torch_port_fused_mlp.py, tests/test_torch_port_multi.py) and
+each primitive be held to its plain version on the card
+(tests/test_torch_port_kernels.py). Each wrapper counts its calls in
+``launches`` (one a call, whatever the launches it makes).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -42,21 +55,28 @@ import torch.nn.functional as F
 
 from nerf_tpu_torch.ops import _build, fused_mlp
 
-TILE = 128  # columns of a GEMM tile and of a bias partial (WIDE_TILE in the source)
+TILE = 256  # columns of a GEMM tile and of a bias partial (WIDE_TILE in the source)
 SLICE_POINTS = 1 << 20  # the forwards' points a slice: bounds their scratch rows
 BOX_N = 256  # the widest product the weight-grad launch takes in bf16
 SMS, MAX_SPLIT_CHUNKS = 132, 256  # as csrc/fused_mlp_bwd.cu's hopper_splits
 
 
 def cols(n: int) -> int:
-    """n columns rounded up to whole GEMM tiles."""
+    """n columns rounded up to whole GEMM tiles (also a scene's padded rays
+    or views in the stacked plans)."""
     return -(-n // TILE) * TILE
 
 
+def _in_scene(t: Optional[torch.Tensor], s: int, dims: int) -> Optional[torch.Tensor]:
+    """Scene s's slice of a tensor with a leading scene axis (``dims`` + 1
+    dimensions), or the tensor itself (one scene)."""
+    return t[s] if t is not None and t.dim() == dims + 1 else t
+
+
 class PlainOps:
-    """The plain PyTorch version of each primitive of csrc/fused_mlp_wide.cu,
-    on the same tensors as ``Ops`` (bf16 rows round where a kernel stores
-    them, every sum in f32)."""
+    """The plain PyTorch version of each primitive of csrc/fused_mlp_wide.cu
+    (and of K5w's and K6w's compositing passes), on the same tensors as
+    ``Ops`` (bf16 rows round where a kernel stores them, every sum in f32)."""
 
     def embed(self, out, F_, n, rays=None, x=None):
         """out [K, >= ncols] rows of the F_-octave embedding of the columns
@@ -69,12 +89,19 @@ class PlainOps:
         out.copy_(F.pad(emb, (0, out.shape[0] - emb.shape[1])).T)
 
     def gemm(self, M, N, srcs, bias=None, add=None, add_div=1, mask=None, relu=False, out=None,
-             out32=None, bsum=None):
-        acc = sum(a[:, :k].float() @ b[:k, :N].float() for a, k, b in srcs)
-        if add is not None:
-            acc = acc + add[:, torch.arange(N, device=acc.device) // add_div]
-        if bias is not None:
-            acc = acc + bias[:, None]
+             out32=None, bsum=None, scenes=1):
+        C = N // scenes
+        per = []  # scene s's columns from its own A, bias and per-view terms
+        for s in range(scenes):
+            cs = slice(s * C, (s + 1) * C)
+            acc = sum(_in_scene(a, s, 2)[:, :k].float() @ b[:k, cs].float().contiguous()
+                      for a, k, b in srcs)
+            if add is not None:
+                acc = acc + _in_scene(add, s, 2)[:, torch.arange(C, device=acc.device) // add_div]
+            if bias is not None:
+                acc = acc + _in_scene(bias, s, 1)[:, None]
+            per.append(acc)
+        acc = torch.cat(per, 1)
         if relu:
             acc = torch.relu(acc)
         if mask is not None:
@@ -86,14 +113,18 @@ class PlainOps:
         if out32 is not None:
             out32[:, :N] = acc
 
-    def head(self, hv, h7, n, W, wout, bout, out):
-        w = wout.float()
-        raw = hv[:, :n].T.float() @ w[: W // 2] + h7[:, :n].T.float() @ w[W // 2:] + bout
-        out.copy_(raw.T)
+    def head(self, hv, h7, n, W, wout, bout, out, C=None):
+        C = n if C is None else C
+        for s in range(-(-n // C)):
+            p0, p1 = s * C, min(n, (s + 1) * C)
+            w = _in_scene(wout, s, 2).float()
+            raw = (hv[:, p0:p1].T.float() @ w[: W // 2] + h7[:, p0:p1].T.float() @ w[W // 2:]
+                   + _in_scene(bout, s, 1))
+            out[:, p0:p1] = raw.T
 
     def gc(self, g, n, rows, bsum):
         ncols = rows.shape[1]
-        gp = F.pad(g[:, :n], (0, ncols - n))
+        gp = F.pad(g[:, :n], (0, ncols - n)).contiguous()  # each tile's sum in one order
         rows[:4] = gp
         rows[4:8] = 0
         bsum[: ncols // TILE, :4] = gp.reshape(4, -1, TILE).sum(-1).T
@@ -106,24 +137,51 @@ class PlainOps:
     def embed_bwd(self, y, n, F_, de, out):
         out[:n] = fused_mlp._embed_backward(de[: 3 + 6 * F_, :n].T, y[:n], F_)
 
-    def wgrad(self, ws, rws, probs, split_len, nsplit, grad_size, out, bpart):
-        for src, ra, M, rb, N, coff, ldc in probs:
-            base = rws if src else ws
-            c = base[ra : ra + M].float() @ base[rb : rb + N].float().T
-            out[coff : coff + (M - 1) * ldc + N].as_strided((M, N), (ldc, 1)).copy_(c)
-        out[grad_size:] = bpart.sum(0)
+    def composite(self, raw, rays_d, z_vals, noise, white_bkgd):
+        return _render().composite_maps_reference(raw, rays_d, z_vals, noise, white_bkgd)
+
+    def composite_bwd(self, *args):
+        return _render().composite_bwd_reference(*args)
+
+    def wgrad(self, ws, rws, probs, split_len, nsplit, grad_size, out, bpart, scenes=1):
+        C, T = ws.shape[1] // scenes, bpart.shape[0] // scenes
+        Cr = 0 if rws is None else rws.shape[1] // scenes
+        for s in range(scenes):
+            for src, ra, M, rb, N, coff, ldc in probs:
+                base, k = (rws, Cr) if src else (ws, C)
+                cs = slice(s * k, (s + 1) * k)
+                c = base[ra : ra + M, cs].float() @ base[rb : rb + N, cs].float().T
+                out[s, coff : coff + (M - 1) * ldc + N].as_strided((M, N), (ldc, 1)).copy_(c)
+            out[s, grad_size:] = bpart[s * T : (s + 1) * T].sum(0)
+
+
+def _render():
+    """experimental/fused_render.py (imported at first use: it imports this
+    module), whose compositing launches K5w and K6w take."""
+    from nerf_tpu_torch.experimental import fused_render
+
+    return fused_render
 
 
 def _p(t: Optional[torch.Tensor]):
     return 0 if t is None else t.data_ptr()
 
 
-def _ld(t: Optional[torch.Tensor]) -> int:
-    return 0 if t is None else t.stride(0)
+def _ld(t: Optional[torch.Tensor], dims: int = 2) -> int:
+    """Elements between rows of a [rows][cols] tensor, or of its scenes'
+    ([S][rows][cols], ``dims`` = 2)."""
+    return 0 if t is None else t.stride(-2) if t.dim() == dims + 1 else t.stride(0)
+
+
+def _sc(t: Optional[torch.Tensor], dims: int) -> int:
+    """Elements between two scenes' slices of a tensor with a leading scene
+    axis (``dims`` + 1 dimensions); 0 for one scene."""
+    return t.stride(0) if t is not None and t.dim() == dims + 1 else 0
 
 
 class Ops:
-    """The primitives of csrc/fused_mlp_wide.cu on CUDA tensors of one
+    """The primitives of csrc/fused_mlp_wide.cu (and K5w's and K6w's
+    compositing passes, csrc/fused_render.cu) on CUDA tensors of one
     device, each one launch (the weight grads a few) on its current stream;
     a launch that fails raises."""
 
@@ -149,17 +207,20 @@ class Ops:
                       out.shape[0], out.data_ptr(), _ld(out), out.shape[1], self.stream)
 
     def gemm(self, M, N, srcs, bias=None, add=None, add_div=1, mask=None, relu=False, out=None,
-             out32=None, bsum=None):
+             out32=None, bsum=None, scenes=1):
         (a0, k0, b0), (a1, k1, b1) = srcs[0], srcs[1] if len(srcs) > 1 else (None, 0, None)
-        self._run("nerf_wide_gemm", self.bf16, M, N, _p(a0), _ld(a0), k0, _p(b0), _ld(b0),
-                  _p(a1), _ld(a1), k1, _p(b1), _ld(b1), _p(bias), _p(add), _ld(add), add_div,
+        self._run("nerf_wide_gemm", self.bf16, scenes, M, N // scenes,
+                  _p(a0), _ld(a0, 2), _sc(a0, 2), k0, _p(b0), _ld(b0),
+                  _p(a1), _ld(a1, 2), _sc(a1, 2), k1, _p(b1), _ld(b1),
+                  _p(bias), _sc(bias, 1), _p(add), _ld(add, 2), _sc(add, 2), add_div,
                   _p(mask), _ld(mask), int(relu), _p(out), _ld(out), _p(out32), _ld(out32),
                   _p(bsum), _ld(bsum), self.stream)
 
-    def head(self, hv, h7, n, W, wout, bout, out):
-        self._run("nerf_wide_head", self.bf16, hv.data_ptr(), h7.data_ptr(), _ld(hv), n, W,
-                  wout.data_ptr(), bout.data_ptr(), out.data_ptr(), out.stride(0),
-                  out.stride(1), self.stream)
+    def head(self, hv, h7, n, W, wout, bout, out, C=None):
+        self._run("nerf_wide_head", self.bf16, hv.data_ptr(), h7.data_ptr(), _ld(hv), n,
+                  max(1, n) if C is None else C, W, wout.data_ptr(), _sc(wout, 2),
+                  bout.data_ptr(), _sc(bout, 1), out.data_ptr(), out.stride(0), out.stride(1),
+                  self.stream)
 
     def gc(self, g, n, rows, bsum):
         self._run("nerf_wide_gc", self.bf16, g.data_ptr(), g.stride(0), g.stride(1), n,
@@ -174,12 +235,18 @@ class Ops:
         self._run("nerf_wide_embed_bwd", y.data_ptr(), n, F_, de.data_ptr(), _ld(de),
                   out.data_ptr(), self.stream)
 
-    def wgrad(self, ws, rws, probs, split_len, nsplit, grad_size, out, bpart):
+    def composite(self, raw, rays_d, z_vals, noise, white_bkgd):
+        return _render().launch_composite_maps(raw, rays_d, z_vals, noise, white_bkgd)
+
+    def composite_bwd(self, *args):
+        return _render()._launch_composite_bwd(*args)
+
+    def wgrad(self, ws, rws, probs, split_len, nsplit, grad_size, out, bpart, scenes=1):
         flat = (ctypes.c_int * (7 * len(probs)))(*[v for q in probs for v in q])
-        wpart = torch.empty(nsplit * grad_size, dtype=torch.float32, device=ws.device)
+        wpart = torch.empty(scenes * nsplit * grad_size, dtype=torch.float32, device=ws.device)
         self._run("nerf_wide_wgrad", self.bf16, ws.data_ptr(), ws.shape[0], ws.shape[1],
                   _p(rws), 0 if rws is None else rws.shape[0], 0 if rws is None else rws.shape[1],
-                  len(probs), ctypes.addressof(flat), split_len, nsplit, grad_size,
+                  scenes, len(probs), ctypes.addressof(flat), split_len, nsplit, grad_size,
                   wpart.data_ptr(), out.data_ptr(), bpart.data_ptr(), bpart.shape[0],
                   bpart.shape[1], self.stream)
 
@@ -195,63 +262,74 @@ def _config(kp) -> Tuple[torch.dtype, int, int, int, int, int]:
 def _blocks(kp, blobs) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """The forward's W^T blocks ([out][in] rows, the A of its products) and
     biases, as views of ``kernel_blobs(kp)`` (fused_mlp_common.cuh's Layout
-    at the configuration's KE / KV)."""
+    at the configuration's KE / KV); with stacked leaves, a leading scene
+    axis on each (a scene's blobs after the one before)."""
     dtype, W, _, _, ke, kv = _config(kp)
     wblob, bblob = fused_mlp.kernel_blobs(kp) if blobs is None else blobs
+    lead = tuple(kp["W1"].shape[:-2])
+    wblob, bblob = wblob.view(*lead, -1), bblob.view(*lead, -1)
     w, o = {}, 0
     for name, rows, k in ([("w05", 2 * W, ke)] + [(f"w{i}", W, W) for i in range(1, 8)]
                           + [("wf", W, W), ("wvf", W // 2, W), ("wve", W // 2, kv)]):
-        w[name] = wblob[o : o + rows * k].view(rows, k)
+        w[name] = wblob[..., o : o + rows * k].unflatten(-1, (rows, k))
         o += rows * k
     b, o = {}, 0
     for name, n in [(f"b{i}", W) for i in range(8)] + [("bf", W), ("bv", W // 2), ("bout", 4)]:
-        b[name] = bblob[o : o + n]
+        b[name] = bblob[..., o : o + n]
         o += n
     return w, b
 
 
-def _layers(ops, w, b, rows, W: int, ke: int, kv: int, N: int, view) -> None:
-    """The forward's layers over N columns, from the embedding rows
-    rows["e"] into rows h0..h7, feat and hv (row views; a layer never writes
-    the rows it reads). ``view``: ("src", ev rows) with a direction per
-    column, or ("add", Wve's product per view [W/2, views] f32, spr)."""
-    ops.gemm(W, N, [(w["w05"][:W], ke, rows["e"])], bias=b["b0"], relu=True, out=rows["h0"])
+def _layers(ops, w, b, rows, W: int, ke: int, kv: int, N: int, view, scenes: int = 1) -> None:
+    """The forward's layers over N columns (``scenes`` scenes' in turn, each
+    on its own blocks), from the embedding rows rows["e"] into rows h0..h7,
+    feat and hv (row views; a layer never writes the rows it reads).
+    ``view``: ("src", ev rows) with a direction per column, or ("add",
+    Wve's product per view [S, W/2, views] f32, spr)."""
+    gemm = functools.partial(ops.gemm, scenes=scenes)
+    gemm(W, N, [(w["w05"][..., :W, :], ke, rows["e"])], bias=b["b0"], relu=True, out=rows["h0"])
     for i in range(1, 8):
         srcs = [(w[f"w{i}"], W, rows[f"h{i - 1}"])]
         if i == fused_mlp.SKIP + 1:
-            srcs.append((w["w05"][W:], ke, rows["e"]))
-        ops.gemm(W, N, srcs, bias=b[f"b{i}"], relu=True, out=rows[f"h{i}"])
-    ops.gemm(W, N, [(w["wf"], W, rows["h7"])], bias=b["bf"], out=rows["feat"])
+            srcs.append((w["w05"][..., W:, :], ke, rows["e"]))
+        gemm(W, N, srcs, bias=b[f"b{i}"], relu=True, out=rows[f"h{i}"])
+    gemm(W, N, [(w["wf"], W, rows["h7"])], bias=b["bf"], out=rows["feat"])
     srcs = [(w["wvf"], W, rows["feat"])]
     if view[0] == "src":
         srcs.append((w["wve"], kv, view[1]))
-        ops.gemm(W // 2, N, srcs, bias=b["bv"], relu=True, out=rows["hv"])
+        gemm(W // 2, N, srcs, bias=b["bv"], relu=True, out=rows["hv"])
     else:
-        ops.gemm(W // 2, N, srcs, bias=b["bv"], add=view[1], add_div=view[2], relu=True,
-                 out=rows["hv"])
+        gemm(W // 2, N, srcs, bias=b["bv"], add=view[1], add_div=view[2], relu=True,
+             out=rows["hv"])
 
 
-def _view_terms(ops, w, v, nv: int, Fv: int, kv: int, W: int, dtype, ev_rows=None):
-    """("add", Wve's product per view [W/2, cols(nv)] f32, spr) for a
-    direction per ray, from the view embedding rows (written to ``ev_rows``,
-    [kv, cols(nv)], where given)."""
-    ev = ev_rows if ev_rows is not None else torch.empty(kv, cols(nv), dtype=dtype,
+def _view_terms(ops, w, v, nv: int, Fv: int, kv: int, W: int, dtype, ev_rows=None,
+                scenes: int = 1):
+    """("add", Wve's product per view [S, W/2, V] f32 (a view of [W/2, S V]),
+    spr) for a direction per ray, from the view embedding rows (written to
+    ``ev_rows`` [kv, S V], where given) of the nv views, V = cols(nv / S)
+    a scene."""
+    V = cols(-(-nv // scenes))
+    ev = ev_rows if ev_rows is not None else torch.empty(kv, scenes * V, dtype=dtype,
                                                          device=v.device)
     ops.embed(ev, Fv, nv, x=v)
-    evc = torch.empty(W // 2, ev.shape[1], dtype=torch.float32, device=v.device)
-    ops.gemm(W // 2, ev.shape[1], [(w["wve"], kv, ev)], out32=evc)
-    return evc
+    evc = torch.empty(W // 2, scenes * V, dtype=torch.float32, device=v.device)
+    ops.gemm(W // 2, scenes * V, [(w["wve"], kv, ev)], out32=evc, scenes=scenes)
+    return evc.view(W // 2, scenes, V).permute(1, 0, 2)
 
 
-def _forward(ops, kp, blobs, pieces, out4) -> None:
-    """K1w / K2w: raw of every piece into out4 [4, points] (a strided view:
-    planes or rows). ``pieces`` yields (points source: ("rays", ro, rd, z) or
-    ("points", x), directions v, points n, spr, first point) slices."""
+def _forward(ops, kp, blobs, pieces, out4, scenes: int = 1) -> None:
+    """K1w / K2w (K1ws / K2ws with ``scenes`` > 1: one piece, every scene's
+    padded points): raw of every piece into out4 [4, points] (a strided
+    view: planes or rows). ``pieces`` yields (points source: ("rays", ro,
+    rd, z) or ("points", x), directions v, points n, spr, first point)
+    slices."""
     dtype, W, Fp, Fv, ke, kv = _config(kp)
     w, b = _blocks(kp, blobs)
     scratch = None
     for src, v, n, spr, p0 in pieces:
-        N = cols(n)
+        C = cols(-(-n // scenes))  # a scene's columns
+        N = scenes * C
         if scratch is None or scratch[0].shape[1] < N:
             dev = v.device
             scratch = [torch.empty(r, N, dtype=dtype, device=dev) for r in (ke, W, W, W // 2)]
@@ -263,10 +341,10 @@ def _forward(ops, kp, blobs, pieces, out4) -> None:
             ops.embed(ev, Fv, n, x=v)
             view = ("src", ev)
         else:
-            view = ("add", _view_terms(ops, w, v, n // spr, Fv, kv, W, dtype), spr)
+            view = ("add", _view_terms(ops, w, v, n // spr, Fv, kv, W, dtype, scenes=scenes), spr)
         rows = {"e": e, "feat": A, "hv": hv, **{f"h{i}": A if i % 2 == 0 else B for i in range(8)}}
-        _layers(ops, w, b, rows, W, ke, kv, N, view)
-        ops.head(hv, B, n, W, kp["Wout"], b["bout"], out4[:, p0 : p0 + n])
+        _layers(ops, w, b, rows, W, ke, kv, N, view, scenes)
+        ops.head(hv, B, n, W, kp["Wout"], b["bout"], out4[:, p0 : p0 + n], C)
 
 
 def _ray_slices(rays_o, rays_d, viewdirs, z_vals):
@@ -371,15 +449,23 @@ def _splits(bf16: bool, probs, n_pad: int) -> Tuple[int, int]:
     return split_len, -(-n_pad // split_len)
 
 
-def _backward(ops, kp, blobs, src, x, v, n: int, spr: int, g4, input_grads: bool):
-    """K4w / K3w: (f32 grads of the packed leaves, dx, dv) from the cotangent
-    g4 [4, n] (a strided view) of raw at the points of ``src`` (("rays", ro,
-    rd, z) or ("points", x)); dx and dv (of x [n, 3] and v) with
-    ``input_grads`` only."""
+def _backward(ops, kp, blobs, src, x, v, n: int, spr: int, g4, input_grads: bool,
+              scenes: int = 1):
+    """K4w / K3w (K4ws / K3ws with ``scenes`` > 1: every scene's padded
+    points, no input grads): (f32 grads of the packed leaves, dx, dv) from
+    the cotangent g4 [4, n] (a strided view) of raw at the points of ``src``
+    (("rays", ro, rd, z) or ("points", x)); dx and dv (of x [n, 3] and v)
+    with ``input_grads`` only. A scene's columns: its views rounded up to
+    whole tiles, spr columns each, so each scene's columns are the
+    single-scene plan's."""
     dtype, W, Fp, Fv, ke, kv = _config(kp)
     dev = g4.device
     w, b = _blocks(kp, blobs)
-    N, dense, nv = cols(n), spr == 1, n // spr
+    dense, nv = spr == 1, n // spr
+    V = cols(-(-nv // scenes))  # a scene's views (rays) and columns
+    C = V * spr
+    N = scenes * C
+    gemm = functools.partial(ops.gemm, scenes=scenes)
     blocks, nrows = fused_mlp.ws_rows(W, ke, kv)
     spans = {**blocks, **fused_mlp.chain_ws_rows(W, ke)}
     spans["gc"] = (spans["gc"][0], 8)
@@ -395,12 +481,12 @@ def _backward(ops, kp, blobs, src, x, v, n: int, spr: int, g4, input_grads: bool
         ops.embed(rows["ev"], Fv, n, x=v)
         view = ("src", rows["ev"])
     else:
-        rws = torch.empty(kv + W // 2, cols(nv), dtype=dtype, device=dev)
-        view = ("add", _view_terms(ops, w, v, nv, Fv, kv, W, dtype, rws[:kv]), spr)
-    _layers(ops, w, b, rows, W, ke, kv, N, view)
+        rws = torch.empty(kv + W // 2, scenes * V, dtype=dtype, device=dev)
+        view = ("add", _view_terms(ops, w, v, nv, Fv, kv, W, dtype, rws[:kv], scenes), spr)
+    _layers(ops, w, b, rows, W, ke, kv, N, view, scenes)
 
     # the cotangent chain (nerf_tpu's _mlp_backward_math), each block's
-    # unrounded f32 sums per 128 columns into the bias partials
+    # unrounded f32 sums per tile of columns into the bias partials
     nbias = 9 * W + W // 2 + 4
     bpart = torch.empty(N // TILE, nbias, **f32)
     boff = {**{f"b{i}": i * W for i in range(8)}, "bf": 8 * W, "bv": 9 * W, "bout": 9 * W + W // 2}
@@ -408,22 +494,24 @@ def _backward(ops, kp, blobs, src, x, v, n: int, spr: int, g4, input_grads: bool
     ops.gc(g4, n, rows["gc"], bs("bout", 4))
     gc4 = rows["gc"][:4]
     wout = kp["Wout"]
-    wout_hv = F.pad(wout[: W // 2], (0, 4)).contiguous()  # rows of 8: a legal TMA stride
-    wout_h7 = F.pad(wout[W // 2:], (0, 4)).contiguous()
+    wout_hv = F.pad(wout[..., : W // 2, :], (0, 4)).contiguous()  # rows of 8: a legal TMA stride
+    wout_h7 = F.pad(wout[..., W // 2:, :], (0, 4)).contiguous()
     dhv32 = None if dense else torch.empty(W // 2, N, **f32)
-    ops.gemm(W // 2, N, [(wout_hv, 4, gc4)], mask=rows["hv"], out=rows["dhv"], out32=dhv32,
-             bsum=bs("bv", W // 2))
-    ops.gemm(W, N, [(kp["Wvf"], W // 2, rows["dhv"])], out=rows["dfeat"], bsum=bs("bf", W))
-    ops.gemm(W, N, [(kp["Wf"], W, rows["dfeat"]), (wout_h7, 4, gc4)], mask=rows["h7"],
-             out=rows["d7"], bsum=bs("b7", W))
+    gemm(W // 2, N, [(wout_hv, 4, gc4)], mask=rows["hv"], out=rows["dhv"], out32=dhv32,
+         bsum=bs("bv", W // 2))
+    gemm(W, N, [(kp["Wvf"], W // 2, rows["dhv"])], out=rows["dfeat"], bsum=bs("bf", W))
+    gemm(W, N, [(kp["Wf"], W, rows["dfeat"]), (wout_h7, 4, gc4)], mask=rows["h7"],
+         out=rows["d7"], bsum=bs("b7", W))
     for i in range(7, 0, -1):
-        ops.gemm(W, N, [(kp[f"W{i}"], W, rows[f"d{i}"])], mask=rows[f"h{i - 1}"],
-                 out=rows[f"d{i - 1}"], bsum=bs(f"b{i - 1}", W))
+        gemm(W, N, [(kp[f"W{i}"], W, rows[f"d{i}"])], mask=rows[f"h{i - 1}"],
+             out=rows[f"d{i - 1}"], bsum=bs(f"b{i - 1}", W))
     if not dense:
         ops.ray_sums(dhv32, nv, spr, rws[kv:])
 
     dx = dv = None
     if input_grads:
+        if scenes > 1:
+            raise ValueError("the stacked backward takes no input grads")
         ep, evd = 3 + 6 * Fp, 3 + 6 * Fv
         w05 = kp["W05e"]
         de = torch.empty(ep, N, **f32)
@@ -436,13 +524,14 @@ def _backward(ops, kp, blobs, src, x, v, n: int, spr: int, g4, input_grads: bool
         dv = torch.empty(nv, 3, **f32)
         ops.embed_bwd(v, nv, Fv, dev_, dv)
 
-    # the weight grads over the rows (phase 3), then the bias partials' sums
+    # the weight grads over the rows (phase 3), then the bias partials' sums,
+    # a set a scene, each scene's split as one scene's alone
     probs = _problems(W, ke, kv, dense)
-    split_len, nsplit = _splits(dtype == torch.bfloat16, probs, N)
+    split_len, nsplit = _splits(dtype == torch.bfloat16, probs, C)
     _, grad_size = _grad_offsets(W, ke, kv)
-    out = torch.empty(grad_size + nbias, **f32)
-    ops.wgrad(ws, rws, probs, split_len, nsplit, grad_size, out, bpart)
-    return fused_mlp._unpack_grads(out, W, Fp, Fv), dx, dv
+    out = torch.empty(scenes, grad_size + nbias, **f32)
+    ops.wgrad(ws, rws, probs, split_len, nsplit, grad_size, out, bpart, scenes)
+    return fused_mlp._unpack_grads(out if scenes > 1 else out[0], W, Fp, Fv), dx, dv
 
 
 def rays_planes_bwd(ops, kp, rays_o, rays_d, viewdirs, z_vals, g_planes,
@@ -461,6 +550,111 @@ def points_bwd(ops, kp, x, v, g, spr: int, input_grads: bool, blobs=None):
     cotangent g [N, 4] of raw; dx, dv None without ``input_grads``."""
     xc, vc, gc = x.contiguous(), v.contiguous(), g.contiguous()
     return _backward(ops, kp, blobs, ("points", xc), xc, vc, x.shape[0], spr, gc.T, input_grads)
+
+
+# ------------------------------------------------ the stacked wide plans
+#
+# S nets of one shape (stacked packed leaves [S, ...]) in one set of
+# launches: scene s's rays [s] of [S, R, ...] inputs (views of points: [s]
+# of [S, P, 3] points and [S, P / spr, 3] directions) are zero-padded to
+# cols(R) rays (views), so its columns are whole tiles after the scene
+# before's, and each launch runs every scene on its own weights.
+
+
+def _pad_scenes(ts, V: int, dim: int = 1):
+    """Each [S, n, ...] tensor (``dim`` the n axis) zero-padded to V along
+    ``dim``, contiguous."""
+    return fused_mlp._padded(ts, V, dim)
+
+
+def rays_planes_stacked_padded(ops, kp, ro, rd, vd, z, blobs=None) -> torch.Tensor:
+    """K1ws's launches on padded inputs (rays [S, V, 3], depths [S, V, N],
+    V a multiple of TILE): raw planes [4, S, V, N] float32."""
+    S, V, N = z.shape
+    out = torch.empty(4, S, V, N, dtype=torch.float32, device=z.device)
+    flat = [t.flatten(0, 1) for t in (ro, rd, vd, z)]
+    _forward(ops, kp, blobs, [(("rays", flat[0], flat[1], flat[3]), flat[2], S * V * N, N, 0)],
+             out.view(4, S * V * N), S)
+    return out
+
+
+def rays_planes_stacked(ops, kp, rays_o, rays_d, viewdirs, z_vals, blobs=None) -> torch.Tensor:
+    """K1ws's launches: raw planes [4, S, R, N] float32 of S scenes from
+    stacked packed params, rays [S, R, 3] and depths [S, R, N]."""
+    R = z_vals.shape[1]
+    padded = _pad_scenes((rays_o, rays_d, viewdirs, z_vals), cols(R))
+    return rays_planes_stacked_padded(ops, kp, *padded, blobs)[:, :, :R]
+
+
+def rays_planes_stacked_bwd_padded(ops, kp, ro, rd, vd, z, g, blobs=None) -> Dict[str, torch.Tensor]:
+    """K4ws's launches on padded inputs (as ``rays_planes_stacked_padded``'s,
+    the cotangent planes g [4, S, V, N] contiguous, zero on padded rays)."""
+    S, V, N = z.shape
+    flat = [t.flatten(0, 1) for t in (ro, rd, vd, z)]
+    grads, _, _ = _backward(ops, kp, blobs, ("rays", flat[0], flat[1], flat[3]), None, flat[2],
+                            S * V * N, N, g.view(4, S * V * N), False, S)
+    return grads
+
+
+def rays_planes_stacked_bwd(ops, kp, rays_o, rays_d, viewdirs, z_vals, g_planes,
+                            blobs=None) -> Dict[str, torch.Tensor]:
+    """K4ws's launches: f32 grads of the stacked packed leaves (kp's [S, ...]
+    shapes) from the cotangent planes [4, S, R, N]."""
+    V = cols(z_vals.shape[1])
+    (g,) = _pad_scenes((g_planes,), V, dim=2)  # padded rays: a zero cotangent
+    return rays_planes_stacked_bwd_padded(
+        ops, kp, *_pad_scenes((rays_o, rays_d, viewdirs, z_vals), V), g, blobs)
+
+
+def points_raw_stacked(ops, kp, x, v, spr: int, blobs=None) -> torch.Tensor:
+    """K2ws's launches: raw [S, P, 4] float32 of S scenes from stacked
+    packed params at points x [S, P, 3], point p of scene s looking along
+    v[s, p // spr]."""
+    S, P, _ = x.shape
+    V = cols(P // spr)
+    (xp,), (vp,) = _pad_scenes((x,), V * spr), _pad_scenes((v,), V)
+    out = torch.empty(S, V * spr, 4, dtype=torch.float32, device=x.device)
+    n = S * V * spr
+    _forward(ops, kp, blobs, [(("points", xp.view(n, 3)), vp.flatten(0, 1), n, spr, 0)],
+             out.view(n, 4).T, S)
+    return out[:, :P]
+
+
+def points_stacked_bwd(ops, kp, x, v, g, spr: int, blobs=None) -> Dict[str, torch.Tensor]:
+    """K3ws's launches: f32 grads of the stacked packed leaves from the
+    cotangent g [S, P, 4] of raw (no input grads)."""
+    S, P, _ = x.shape
+    V = cols(P // spr)
+    xp, gp = _pad_scenes((x, g), V * spr)  # padded points: a zero cotangent
+    (vp,) = _pad_scenes((v,), V)
+    n = S * V * spr
+    xf = xp.view(n, 3)
+    grads, _, _ = _backward(ops, kp, blobs, ("points", xf), xf, vp.flatten(0, 1), n, spr,
+                            gp.view(n, 4).T, False, S)
+    return grads
+
+
+def stacked_workspace_bytes(W: int, Fp: int, Fv: int, n_scenes: int, views_per_scene: int,
+                            spr: int, bf16: bool = True) -> int:
+    """Bytes of device memory that one stacked wide backward (K4ws, K3ws,
+    K6ws's second half) allocates for S scenes of ``views_per_scene`` rays
+    (views) of spr points (1: a direction per point): the workspace rows,
+    the per-ray rows and the f32 d_hv rows and view terms, the bias and
+    weight-grad partials and the grads."""
+    ke, kv = fused_mlp.embed_pad(Fp, Fv)
+    esz = 2 if bf16 else 4
+    V = cols(views_per_scene)
+    N = n_scenes * V * spr
+    nrows = fused_mlp.ws_rows(W, ke, kv)[1]
+    nbias = 9 * W + W // 2 + 4
+    _, grad_size = _grad_offsets(W, ke, kv)
+    probs = _problems(W, ke, kv, spr == 1)
+    _, nsplit = _splits(bf16, probs, V * spr)
+    total = nrows * N * esz + (N // TILE) * nbias * 4
+    total += n_scenes * (nsplit + 1) * grad_size * 4 + n_scenes * nbias * 4
+    if spr > 1:
+        total += n_scenes * V * ((kv + W // 2) * esz + (W // 2) * 4) + (W // 2) * N * 4
+    return total
 
 
 def _ops(kp, like: torch.Tensor) -> Ops:
@@ -510,3 +704,46 @@ def fused_points_wide_bwd(kp, x, v, g, spr: int, input_grads: bool = True, blobs
 
 fused_points_wide_bwd.launches = 0
 
+
+def fused_rays_planes_wide_stacked(kp, rays_o, rays_d, viewdirs, z_vals,
+                                   blobs=None) -> torch.Tensor:
+    """K1ws on CUDA tensors: ``rays_planes_stacked``' launches, one set for
+    every scene (``launches`` counts the calls)."""
+    out = rays_planes_stacked(_ops(kp, z_vals), kp, rays_o, rays_d, viewdirs, z_vals, blobs)
+    fused_rays_planes_wide_stacked.launches += 1
+    return out
+
+
+fused_rays_planes_wide_stacked.launches = 0
+
+
+def fused_rays_planes_wide_stacked_bwd(kp, rays_o, rays_d, viewdirs, z_vals, g_planes,
+                                       blobs=None) -> Dict[str, torch.Tensor]:
+    """K4ws on CUDA tensors (``launches`` counts the calls)."""
+    grads = rays_planes_stacked_bwd(_ops(kp, z_vals), kp, rays_o, rays_d, viewdirs, z_vals,
+                                    g_planes, blobs)
+    fused_rays_planes_wide_stacked_bwd.launches += 1
+    return grads
+
+
+fused_rays_planes_wide_stacked_bwd.launches = 0
+
+
+def fused_points_wide_stacked(kp, x, v, spr: int, blobs=None) -> torch.Tensor:
+    """K2ws on CUDA tensors (``launches`` counts the calls)."""
+    out = points_raw_stacked(_ops(kp, x), kp, x, v, spr, blobs)
+    fused_points_wide_stacked.launches += 1
+    return out
+
+
+fused_points_wide_stacked.launches = 0
+
+
+def fused_points_wide_stacked_bwd(kp, x, v, g, spr: int, blobs=None) -> Dict[str, torch.Tensor]:
+    """K3ws on CUDA tensors (``launches`` counts the calls)."""
+    grads = points_stacked_bwd(_ops(kp, x), kp, x, v, g, spr, blobs)
+    fused_points_wide_stacked_bwd.launches += 1
+    return grads
+
+
+fused_points_wide_stacked_bwd.launches = 0

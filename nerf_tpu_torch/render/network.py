@@ -101,14 +101,14 @@ def query_raw_stacked(
     [S, R, N, 3], with unit view directions [S, R, 3] (None without
     viewdirs), scene s's through scene s's net. The points and directions
     get no gradient (the renderer detaches them). Fused (``model.fused``,
-    viewdirs, an MLP within the stacked kernels' guard,
-    ``fused_mlp.supports_stacked``): the stacked K2/K3; otherwise the stacked
-    plain MLP."""
+    viewdirs, an MLP within the kernels' guard, ``fused_mlp.supports``): the
+    stacked K2/K3 (K2ws/K3ws at the wide family's configurations); otherwise
+    the stacked plain MLP."""
     S, R, N, _ = pts.shape
     if (
         model.fused
         and viewdirs is not None
-        and fused_mlp.supports_stacked(mlp.cfg, model.pe_pts, model.pe_views)
+        and fused_mlp.supports(mlp.cfg, model.pe_pts, model.pe_views)
     ):
         return fused_mlp.fused_query_stacked(
             mlp, mlp.cfg, model.pe_pts, model.pe_views, pts, viewdirs,
@@ -146,11 +146,10 @@ class StackedNeRFMLP(nn.Module):
     s's slice of the state_dict is a NeRFMLP's and loads into one with
     strict=True. The renderer runs it through the stacked kernels of the
     branch one net would take (render/renderer.py), and through
-    ``apply_mlp``, the plain forward, where no kernel applies
-    (``fused_kernels`` off, no viewdirs, widths or octaves outside the
-    stacked kernels' guard, ``fused_mlp.supports_stacked``: ROADMAP C.3b).
-    ``plain_calls`` counts the plain forward's calls: on
-    the card with the kernels on it is never called."""
+    ``apply_mlp``, the plain forward, only where nerf_tpu runs no kernel
+    (``fused_kernels`` off, no viewdirs, an MLP outside
+    ``fused_mlp.supports``). ``plain_calls`` counts the plain forward's
+    calls: on the card with the kernels on it is never called."""
 
     plain_calls = 0
 

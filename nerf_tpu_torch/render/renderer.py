@@ -111,15 +111,11 @@ def render_rays(
         def per_scene(t):
             return t.detach().reshape(mlp.n_scenes, -1, *t.shape[1:])
 
-        # the stacked kernels keep the W <= 256 tile's guard (ROADMAP C.3b)
-        guard, render_guard = (
-            (fused_mlp.supports_stacked, fused_render.supports_stacked) if stacked
-            else (fused_mlp.supports, fused_render.supports))
         if (
             model.fused_render
             and viewdirs is not None
             and not rs.retraw
-            and render_guard(mlp_cfg, model.pe_pts, model.pe_views, S)
+            and fused_render.supports(mlp_cfg, model.pe_pts, model.pe_views, S)
         ):
             # rays -> maps in one kernel per level (K5, K6 backward); raw
             # never exists outside it. The noise is the draw raw2outputs_planes
@@ -144,7 +140,7 @@ def render_rays(
         if (
             model.fused
             and viewdirs is not None
-            and guard(mlp_cfg, model.pe_pts, model.pe_views)
+            and fused_mlp.supports(mlp_cfg, model.pe_pts, model.pe_views)
             and S % 8 == 0
             and S > 1
         ):

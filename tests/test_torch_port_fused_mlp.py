@@ -321,11 +321,12 @@ def test_wrapper_checks(nets):
     assert not fused_mlp.supports(MLPConfig(width=W, use_viewdirs=False), PE_P, PE_V)
     assert not fused_mlp.supports(MLPConfig(width=96), PE_P, PE_V)
     # a multiple of 128 that the tile is not built for, or more octaves: the
-    # wide family's (nerf_tpu's guard), outside the stacked kernels' guard
+    # wide family's (nerf_tpu's guard), inside the stacked kernels' guard
+    # too (the stacked wide plans)
     for cfg, pe_p, pe_v in ((MLPConfig(width=384), PE_P, PE_V), (CFG, PosEncConfig(11), PE_V),
                             (CFG, PE_P, PosEncConfig(5))):
         assert fused_mlp.supports(cfg, pe_p, pe_v)
-        assert not fused_mlp.supports_stacked(cfg, pe_p, pe_v)
+        assert fused_mlp.supports_stacked(cfg, pe_p, pe_v)
         assert not fused_mlp.tile_supports(cfg.width, pe_p.num_freqs, pe_v.num_freqs)
 
 
@@ -562,18 +563,21 @@ def test_supports_equals_nerf_tpu_over_the_grid():
     assert n == 5 * 6 * 4  # the five multiples of 128 at every octave count, no variant
 
 
-def test_stacked_guard_keeps_the_tile_limits():
-    """The stacked (multi-scene) kernels keep the tile's guard: W in {128,
-    256}, at most 64 point and 32 view embedding columns (10 and 4
-    octaves); beyond it the stacked plain MLP (ROADMAP C.3b)."""
+def test_stacked_guard_is_nerf_tpus_guard():
+    """The stacked (multi-scene) kernels' guard is the single-scene one,
+    nerf_tpu's (it vmaps its kernels over the scenes): the tile's stacked
+    launches inside the tile's limits (W in {128, 256}, at most 64 point and
+    32 view embedding columns: 10 and 4 octaves), the wide family's stacked
+    plans beyond them (ROADMAP C.3b)."""
     for width in (128, 256, 384, 512):
         for fp in (4, 10, 11, 16):
             for fv in (2, 4, 5, 6):
                 cfg, pp, pv = MLPConfig(width=width), PosEncConfig(fp), PosEncConfig(fv)
-                want = width in (128, 256) and fp <= 10 and fv <= 4
-                assert fused_mlp.supports_stacked(cfg, pp, pv) == want, (width, fp, fv)
-                assert tfr.supports_stacked(cfg, pp, pv, 64) == want, (width, fp, fv)
-                assert fused_mlp.tile_supports(width, fp, fv) == want
+                tile = width in (128, 256) and fp <= 10 and fv <= 4
+                assert fused_mlp.supports_stacked(cfg, pp, pv) == fused_mlp.supports(cfg, pp, pv)
+                assert tfr.supports_stacked(cfg, pp, pv, 64) == tfr.supports(cfg, pp, pv, 64)
+                assert fused_mlp.supports_stacked(cfg, pp, pv), (width, fp, fv)
+                assert fused_mlp.tile_supports(width, fp, fv) == tile
     assert fused_mlp.embed_pad(10, 4) == (fused_mlp.KE, fused_mlp.KV)
     assert fused_mlp.embed_pad(16, 6) == (128, 64) and fused_mlp.embed_pad(1, 1) == (64, 32)
 

@@ -1114,11 +1114,11 @@ def test_wide_primitives_match_plain_versions(cuda_device, dtype):
     # the same operands rounded: both sides multiply exact products, so only
     # the f32 sums' order differs (and a bf16 output's rounding edge: an ulp)
     rel = 2.0 ** -7 if bf16 else 1e-5
-    N = 384
+    N = 2 * wide.TILE
     for M, k0, k1, opts in ((63, 64, 0, {}), (192, 640, 27, {"relu": True}),
                             (320, 4, 0, {"mask": True}), (128, 256, 4, {"add": 8})):
         a0 = rnd(M, -(-k0 // 8) * 8 + 8).to(dtype)  # rows a multiple of 16 bytes apart
-        b0 = rnd(k0, N + 128).to(dtype)
+        b0 = rnd(k0, N + 256).to(dtype)
         srcs = [(a0, k0, b0)]
         if k1:
             srcs.append((rnd(M, 32).to(dtype), k1, rnd(k1, N).to(dtype)))
@@ -1144,7 +1144,7 @@ def test_wide_primitives_match_plain_versions(cuda_device, dtype):
     ro, rd, vd, z = _rays(9, 50, 7, dev)
     x = fused_mlp._ray_points(ro, rd, z)
     for F_, K in ((10, 64), (16, 128)):
-        got = torch.full((K, 384), float("nan"), dtype=dtype, device=dev)
+        got = torch.full((K, 512), float("nan"), dtype=dtype, device=dev)
         want = torch.empty_like(got)
         ops.embed(got, F_, 350, rays=(ro, rd, z, 7))
         plain.embed(want, F_, 350, rays=(ro, rd, z, 7))
@@ -1153,23 +1153,23 @@ def test_wide_primitives_match_plain_versions(cuda_device, dtype):
         ops.embed(got, F_, 350, x=x)
         torch.cuda.synchronize()
         assert float((got.float() - want.float()).abs().max()) <= (2.0 ** -8 if bf16 else 2e-6)
-        de = rnd(3 + 6 * F_, 384)
+        de = rnd(3 + 6 * F_, 512)
         dx, dx_ref = torch.empty(350, 3, device=dev), torch.empty(350, 3, device=dev)
         ops.embed_bwd(x, 350, F_, de, dx)
         plain.embed_bwd(x, 350, F_, de, dx_ref)
         torch.cuda.synchronize()
         assert _rel_l2(dx, dx_ref) <= 1e-5
-    hv, h7 = rnd(192, 384).to(dtype), rnd(384, 384).to(dtype)
+    hv, h7 = rnd(192, 512).to(dtype), rnd(384, 512).to(dtype)
     wout, bout = rnd(576, 4).to(dtype), rnd(4)
     got, want = torch.empty(350, 4, device=dev), torch.empty(350, 4, device=dev)
     ops.head(hv, h7, 350, 384, wout, bout, got.T)
     plain.head(hv, h7, 350, 384, wout, bout, want.T)
     g = rnd(4, 350)
-    rows = [torch.full((8, 384), float("nan"), dtype=dtype, device=dev) for _ in range(2)]
-    bs = [torch.full((3, 4), float("nan"), device=dev) for _ in range(2)]
+    rows = [torch.full((8, 512), float("nan"), dtype=dtype, device=dev) for _ in range(2)]
+    bs = [torch.full((2, 4), float("nan"), device=dev) for _ in range(2)]
     ops.gc(g, 350, rows[0], bs[0])
     plain.gc(g, 350, rows[1], bs[1])
-    dhv = rnd(96, 384)
+    dhv = rnd(96, 512)
     sums = [torch.full((96, 128), float("nan"), dtype=dtype, device=dev) for _ in range(2)]
     ops.ray_sums(dhv, 50, 7, sums[0])
     plain.ray_sums(dhv, 50, 7, sums[1])
@@ -1184,10 +1184,190 @@ def test_wide_primitives_match_plain_versions(cuda_device, dtype):
     probs = [(0, 0, 64, 100, 256, 0, 256), (0, 64, 192, 300, 192, 20_000, 192),
              (0, 400, 300, 696, 4, 60_000, 4), (1, 0, 32, 32, 64, 70_000, 64)]
     grad_size = 80_000
-    outs = [torch.full((grad_size + 40,), float("nan"), device=dev) for _ in range(2)]
+    outs = [torch.full((1, grad_size + 40), float("nan"), device=dev) for _ in range(2)]
     for o, impl in zip(outs, (ops, plain)):
-        o[:grad_size] = 0
+        o[:, :grad_size] = 0
         split_len, nsplit = wide._splits(bf16, probs, 640)
         impl.wgrad(ws, rws, probs, split_len, nsplit, grad_size, o, bpart)
     torch.cuda.synchronize()
     assert _rel_l2(outs[0], outs[1]) <= 1e-5
+    # two scenes' columns side by side, each scene's grads its own set
+    outs = [torch.full((2, grad_size + 40), float("nan"), device=dev) for _ in range(2)]
+    ws2, rws2, bpart2 = rnd(700, 1280).to(dtype), rnd(96, 256).to(dtype), rnd(10, 40)
+    for o, impl in zip(outs, (ops, plain)):
+        o[:, :grad_size] = 0
+        split_len, nsplit = wide._splits(bf16, probs, 640)
+        impl.wgrad(ws2, rws2, probs, split_len, nsplit, grad_size, o, bpart2, 2)
+    torch.cuda.synchronize()
+    assert _rel_l2(outs[0], outs[1]) <= 1e-5
+
+
+# The wide GEMM alone (gemm_bf16_sm90: persistent, 128 x 256 tiles on
+# wgmma m64n256k16 with B MN-major across four 64-point swizzle atoms, an
+# epilogue staged through shared memory) against PlainOps.gemm: M at and
+# around the 64-row warpgroup and 128-row tile edges, one and two sources,
+# each epilogue step, one scene and three (each its own weights, bias and
+# per-view terms), one tile of points and several. Random B rows differ in
+# every column, so each of a tile's four swizzle atoms holds other values:
+# a wrong atom stride reads another atom's points.
+GEMM_MS = (4, 8, 128, 192, 256, 320, 448, 512, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_gemm_matches_plain_version(cuda_device, scenes, dtype):
+    from nerf_tpu_torch.ops import fused_mlp_wide as wide
+
+    dev = cuda_device
+    ops, plain = wide.Ops(dtype, dev), wide.PlainOps()
+    gen = torch.Generator(device=dev).manual_seed(scenes)
+    rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    opts = ({}, {"relu": True}, {"mask": True}, {"add": 64}, {"relu": True, "add": 8})
+    for i, M in enumerate(GEMM_MS):
+        C = wide.TILE * (1 + i % 3)  # a scene's points: one tile, two or three
+        N = scenes * C
+        k0, k1 = (64, 0) if i % 2 else (192 + 8 * i, 4 + 8 * i)
+        opt = opts[i % len(opts)]
+        lda = lambda k: -(-(k + 8) // 8) * 8  # noqa: E731  rows a multiple of 16 bytes apart
+        a0 = rnd(scenes, M, lda(k0)).to(dtype)  # each scene its own weights
+        srcs = [(a0 if scenes > 1 else a0[0], k0, rnd(k0, N).to(dtype))]
+        if k1:
+            a1 = rnd(scenes, M, lda(k1)).to(dtype)
+            srcs.append((a1 if scenes > 1 else a1[0], k1, rnd(k1, N).to(dtype)))
+        bias = rnd(scenes, M)
+        kw = dict(bias=bias if scenes > 1 else bias[0], relu=opt.get("relu", False),
+                  scenes=scenes)
+        if "mask" in opt:
+            kw["mask"] = rnd(M, N).to(dtype)
+        if "add" in opt:
+            add = rnd(M, scenes, C // opt["add"]).permute(1, 0, 2)
+            kw.update(add=add if scenes > 1 else add[0], add_div=opt["add"])
+        got = [torch.full((M, N), float("nan"), dtype=dtype, device=dev),
+               torch.full((M, N), float("nan"), device=dev),
+               torch.full((N // wide.TILE, M + 3), float("nan"), device=dev)]
+        want = [torch.empty_like(t) for t in got]
+        ops.gemm(M, N, srcs, out=got[0], out32=got[1], bsum=got[2][:, :M], **kw)
+        again = torch.empty_like(got[0])
+        ops.gemm(M, N, srcs, out=again, **kw)
+        plain.gemm(M, N, srcs, out=want[0], out32=want[1], bsum=want[2][:, :M], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], again)  # no atomics: bit-identical
+        scale = float(want[1].abs().max())
+        for g, w in zip(got[:2], want[:2]):
+            d = float((g.float() - w.float()).abs().max())
+            print(f"gemm {dtype} S={scenes} M={M} C={C} k={k0}+{k1} {opt}: max abs {d:.3e} "
+                  f"of {scale:.3e}")  # with -s
+            assert d <= rel * scale + 1e-5 * scale, (M, C, k0, k1, opt, d)
+        assert float((got[2][:, :M] - want[2][:, :M]).abs().max()) <= 1e-3 * float(
+            want[2][:, :M].abs().max()) + 1e-4
+        assert bool(torch.isnan(got[2][:, M:]).all())  # nothing past M
+
+
+@pytest.mark.cuda
+def test_wide_gemm_swizzle_atoms(cuda_device):
+    """One 128 x 256 tile whose four 64-point swizzle atoms of B hold
+    different constants (atom j: j + 1): each output column's value names
+    the atom it read."""
+    from nerf_tpu_torch.ops import fused_mlp_wide as wide
+
+    dev = cuda_device
+    ops = wide.Ops(torch.bfloat16, dev)
+    M, K = 128, 64
+    a = torch.zeros(M, K, device=dev, dtype=torch.bfloat16)
+    a[:, 0] = 1  # C[m][n] = B[0][n]
+    b = torch.zeros(K, wide.TILE, device=dev, dtype=torch.bfloat16)
+    b[0] = (torch.arange(wide.TILE, device=dev) // 64 + 1).to(torch.bfloat16)
+    b[1:] = 100  # the rows past K's first read by no column with a = 0 there
+    out = torch.full((M, wide.TILE), float("nan"), device=dev)
+    ops.gemm(M, wide.TILE, [(a, K, b)], out32=out)
+    torch.cuda.synchronize()
+    want = (torch.arange(wide.TILE, device=dev) // 64 + 1).float().expand(M, -1)
+    assert torch.equal(out, want), out[0, ::32]
+
+
+# The stacked wide plans on the card (K1ws-K6ws: S nets a launch, each
+# scene's rays or views padded to whole 256-point tiles): against their
+# plain versions (the single-scene plain versions scene by scene) and, bit
+# for bit, against single-scene wide launches on each scene's own net, at
+# the wide configurations, with 1, 127 and 129 points a scene (a direction
+# a point) and rays of 64 samples (a direction a ray).
+STACKED_WIDE_CASES = ((1, 1), (127, 1), (129, 1), (3, 64))
+
+
+def _stacked_wide_net(W, fp, fv, dev, seed, dtype, S=3):
+    from nerf_tpu_torch.render.network import StackedNeRFMLP
+
+    cfg = MLPConfig(width=W, input_ch=3 + 6 * fp, input_ch_views=3 + 6 * fv)
+    nets = [NeRFMLP(cfg, seed=seed + s, device=dev) for s in range(S)]
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(StackedNeRFMLP.from_nets(nets), PosEncConfig(fp),
+                                   PosEncConfig(fv), dtype)
+    assert fused_mlp.is_wide(kp) and fused_mlp.supports_stacked(cfg, PosEncConfig(fp),
+                                                                PosEncConfig(fv))
+    return kp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", WIDE_BF16)
+def test_stacked_wide_kernels_match_plain_and_single_scene(cuda_device, config):
+    from nerf_tpu_torch.experimental import fused_render
+    from nerf_tpu_torch.ops import fused_mlp_wide as wide
+
+    dev, S = cuda_device, 3
+    kp = _stacked_wide_net(*config, dev, sum(config) + 3, torch.bfloat16, S)
+    one = [{k: t[s].contiguous() for k, t in kp.items()} for s in range(S)]
+    counters = (wide.fused_rays_planes_wide_stacked, wide.fused_rays_planes_wide_stacked_bwd,
+                wide.fused_points_wide_stacked, wide.fused_points_wide_stacked_bwd,
+                fused_render.fused_render_wide_stacked_fwd,
+                fused_render.fused_render_wide_stacked_bwd)
+    for R, N in STACKED_WIDE_CASES:
+        rays = [torch.stack(t) for t in zip(*(_rays(R * N + s, R, N, dev) for s in range(S)))]
+        ro, rd, vd, z = rays
+        gen = torch.Generator(device=dev).manual_seed(R + N)
+        g = (0.5 + torch.rand(4, S, R, N, device=dev, generator=gen)) * 1e-4
+        x = torch.stack([fused_mlp._ray_points(ro[s], rd[s], z[s]) for s in range(S)])
+        gp = g.permute(1, 2, 3, 0).reshape(S, R * N, 4).contiguous()
+        before = [c.launches for c in counters]
+        _poison(dev)
+        raw = fused_mlp.fused_rays_planes_stacked(kp, *rays)
+        grads = fused_mlp.fused_rays_planes_stacked_bwd(kp, *rays, g)
+        raw2 = fused_mlp.fused_points_stacked(kp, x, vd, N)
+        grads2 = fused_mlp.fused_points_stacked_bwd(kp, x, vd, gp, N)
+        want = [1, 1, 1, 1, 0, 0]
+        if N % 8 == 0:
+            noise = torch.randn(S, R, N, device=dev, generator=gen)
+            maps = fused_render.fused_render_stacked_fwd(kp, *rays, noise, True, keep_raw=True)
+            cot = [(0.5 + torch.rand(t.shape, device=dev, generator=gen)) * 1e-3
+                   for t in maps[:4]]
+            grads6 = fused_render.fused_render_stacked_bwd(kp, *rays, noise, maps.raw, *cot, True)
+            want[4:] = [1, 1]
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counters, before)] == want
+        assert bool(torch.isfinite(raw).all())
+        ref = fused_mlp.fused_rays_planes_stacked_reference(kp, *rays)
+        err = float((raw - ref).abs().max())
+        gref = fused_mlp.fused_rays_planes_stacked_bwd_reference(kp, *rays, g)
+        gerr = max(_rel_l2(grads[k][s], gref[k][s]) for k in gref for s in range(S))
+        print(f"K1ws/K4ws {config} S={S} R={R} N={N}: max abs {err:.3e}, worst leaf "
+              f"{gerr:.3e}")  # with -s
+        assert err <= WIDE_BF16_TOL and gerr <= WIDE_GRAD_BF16_TOL, (R, N, err, gerr)
+        assert float((raw2 - fused_mlp.fused_points_stacked_reference(kp, x, vd, N)).abs().max()) \
+            <= WIDE_BF16_TOL
+        for s in range(S):  # bit for bit: scene s of the stacked plans is its single-scene plan
+            assert torch.equal(raw[:, s], fused_mlp.fused_rays_planes(one[s], ro[s], rd[s], vd[s],
+                                                                      z[s])), s
+            single = fused_mlp.fused_rays_planes_bwd(one[s], ro[s], rd[s], vd[s], z[s],
+                                                     g[:, s].contiguous())
+            assert all(torch.equal(grads[k][s], t) for k, t in single.items()), s
+            assert torch.equal(raw2[s], fused_mlp.fused_points(one[s], x[s], vd[s], N)), s
+            single, _, _ = fused_mlp.fused_points_bwd(one[s], x[s], vd[s], gp[s], N, False)
+            assert all(torch.equal(grads2[k][s], t) for k, t in single.items()), s
+            if N % 8 == 0:
+                ins = [t[s] for t in (ro, rd, vd, z, noise)]
+                o = fused_render.fused_render_fwd(one[s], *ins, True, keep_raw=True)
+                assert all(_same_bits(a[s], b) for a, b in zip(maps[:4], o[:4])), s
+                single = fused_render.fused_render_bwd(one[s], *ins, o.raw,
+                                                       *(t[s].contiguous() for t in cot), True)
+                assert all(torch.equal(grads6[k][s], t) for k, t in single.items()), s

@@ -14,8 +14,10 @@ branch), 15 + 8 (the points-in branch, K2/K3), 16 + 8 with fused_render
 (K5/K6), 8 + 0 with fused_kernels off (the plain MLP).
 """
 
+import contextlib
 import dataclasses
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -26,6 +28,9 @@ import torch
 
 from nerf_tpu.experimental import fused_render as jfr
 from nerf_tpu.geom.poses import pose_spherical as jpose_spherical
+from nerf_tpu.models.embedding import PosEncConfig as JPosEnc
+from nerf_tpu.models.nerf_mlp import MLPConfig as JMLPConfig
+from nerf_tpu.models.nerf_mlp import init_params
 from nerf_tpu.ops import fused_mlp as jfused
 from nerf_tpu.parallel import multi_scene as jms
 from nerf_tpu.render import renderer as jr
@@ -42,8 +47,9 @@ from nerf_tpu_torch.models.convert import (
     jax_arrays_from_stacked_train_state, jax_params_from_state_dict,
     stacked_train_state_from_jax_arrays, state_dict_from_jax_params,
 )
-from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
-from nerf_tpu_torch.ops import fused_mlp
+from nerf_tpu_torch.models.embedding import PosEncConfig
+from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
+from nerf_tpu_torch.ops import _build, fused_mlp, fused_mlp_wide
 from nerf_tpu_torch.ops.sampling import stratified_z_vals
 from nerf_tpu_torch.parallel import multi_scene as ms
 from nerf_tpu_torch.render import renderer as tr
@@ -55,6 +61,7 @@ from nerf_tpu_torch.utils import checkpoint
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from synthetic_scene import make_scene, write_blender_dataset  # noqa: E402
+from test_torch_port_fused_mlp import WIDE_GRAD_TOL, _wide_nets, _wide_rays  # noqa: E402
 from test_torch_port_train import (  # noqa: E402
     CFG, F32_PALLAS_GRAD_TOL, JCFG, JPE_P, JPE_V, LRATE, LRATE_DECAY, PE_P, PE_V, R,
     UPDATE_TOL, _conditioned_rays, _jparams, _min_preactivation, _port_net,
@@ -312,6 +319,309 @@ def test_stacked_render_op_matches_jax_vmap():
     _assert_grads_match_jax(stacked, jgrads, S)
 
 
+# The stacked wide plans (ROADMAP C.3b): a stacked net at a configuration
+# the W <= 256 tile is not built for runs ops/fused_mlp_wide.py's stacked
+# plans (K1ws/K4ws, K2ws/K3ws, K5ws/K6ws). On the CPU they run on their
+# primitives' plain versions (PlainOps), at W = 128 with mip-NeRF's 16 point
+# and 6 view octaves (the cheapest wide configuration in interpret mode),
+# S = 2 scenes whose points are not whole 256-point tiles.
+WIDE_CFG = (128, 16, 6)
+
+
+def _min_pre_kp(kp, x, v, spr):
+    """The smallest |input| of any relu of the f32 forward of packed params
+    at points x, a direction per spr points (ROADMAP C.r3)."""
+    Fp, Fv = fused_mlp._num_freqs(kp)
+    W_ = kp["W1"].shape[0]
+    with torch.no_grad():
+        z05 = fused_mlp._embed(x, Fp) @ kp["W05e"]
+        pre = [z05[:, :W_] + kp["b0"]]
+        for i in range(1, 8):
+            zi = torch.relu(pre[-1]) @ kp[f"W{i}"] + kp[f"b{i}"]
+            pre.append(zi + z05[:, W_:] if i == 5 else zi)
+        feat = torch.relu(pre[-1]) @ kp["Wf"] + kp["bf"]
+        ev = fused_mlp._embed(v, Fv) @ kp["Wve"]
+        pre.append(feat @ kp["Wvf"] + ev.repeat_interleave(spr, 0) + kp["bv"])
+    return min(float(t.abs().min()) for t in pre)
+
+
+class _CountingOps(fused_mlp_wide.PlainOps):
+    """PlainOps that records each primitive's calls and their scene counts."""
+
+    def __init__(self):
+        self.calls = []
+
+    def gemm(self, *args, scenes=1, **kw):
+        self.calls.append(("gemm", scenes))
+        super().gemm(*args, scenes=scenes, **kw)
+
+    def wgrad(self, *args):
+        self.calls.append(("wgrad", args[-1] if len(args) > 8 else 1))
+        super().wgrad(*args)
+
+
+def _wide_stacked(S, seed, dtype=torch.float32):
+    """S port nets of WIDE_CFG (random), stacked, and packed leaves of both."""
+    W_, fp, fv = WIDE_CFG
+    cfg = MLPConfig(width=W_, input_ch=3 + 6 * fp, input_ch_views=3 + 6 * fv)
+    nets = [NeRFMLP(cfg, seed=seed + s, device="cpu") for s in range(S)]
+    stacked = StackedNeRFMLP.from_nets(nets)
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(stacked, PosEncConfig(fp), PosEncConfig(fv), dtype)
+        one = [fused_mlp.pack_params(n, PosEncConfig(fp), PosEncConfig(fv), dtype) for n in nets]
+    assert fused_mlp.is_wide(kp)
+    return kp, one
+
+
+def _same(a, b):
+    """The same f32 bits (an empty ray's NaN disp equals itself)."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stacked_wide_plans_are_single_scene_plans(dtype):
+    """Scene s of each stacked wide plan on PlainOps is the single-scene wide
+    plan on scene s's net, bit for bit: K1ws/K4ws (13 rays of 16 samples),
+    K2ws/K3ws (13 x 15 points, a direction a point, and 13 x 8, a direction
+    a ray), K5ws/K6ws (13 rays of 16, noise, white background), each a
+    launch a layer for every scene: the stacked plan makes as many GEMM and
+    weight-grad calls as one scene's, each over both scenes. K6ws: its MLP
+    half bit for bit on its compositing pass's cotangent, and that pass
+    within f32 ulps of one scene's (the plain compositing backward's sums
+    run in an order that depends on the number of rays; on the card the
+    pass is a warp per ray, and tests/test_torch_port_kernels.py holds K6ws
+    to single-scene launches bit for bit). (R N is a multiple of 16: the
+    plain compositing's vectorised exp and log then see each value at the
+    same place in both layouts.)"""
+    S, R = 2, 13
+    kp, one = _wide_stacked(S, 90, dtype)
+    gen = torch.Generator().manual_seed(5)
+    rnd = lambda *shape: torch.rand(*shape, generator=gen)  # noqa: E731
+    ro, rd = rnd(S, R, 3) - 0.5, rnd(S, R, 3) - 0.5
+    vd = rd / rd.norm(dim=-1, keepdim=True)
+    z = torch.sort(2 + 4 * rnd(S, R, 16), -1).values
+    g = (0.5 + rnd(4, S, R, 16)) * 1e-2
+    with torch.no_grad():
+        ops = _CountingOps()
+        raw = fused_mlp_wide.rays_planes_stacked(ops, kp, ro, rd, vd, z)
+        grads = fused_mlp_wide.rays_planes_stacked_bwd(ops, kp, ro, rd, vd, z, g)
+        stacked_calls, ops.calls = ops.calls, []
+        for s in range(S):
+            assert _same(raw[:, s], fused_mlp_wide.rays_planes(ops, one[s], ro[s], rd[s], vd[s],
+                                                               z[s])), s
+            single = fused_mlp_wide.rays_planes_bwd(ops, one[s], ro[s], rd[s], vd[s], z[s],
+                                                    g[:, s].contiguous())
+            assert all(torch.equal(grads[k][s], t) for k, t in single.items()), s
+            if s == 0:
+                assert [c for c, _ in stacked_calls] == [c for c, _ in ops.calls]
+                assert all(n == S for _, n in stacked_calls)
+        for N, spr in ((15, 1), (8, 8)):
+            x = (rnd(S, R * N, 3) - 0.5) * 4
+            v = vd if spr > 1 else vd.repeat_interleave(N, 1)
+            gp = (0.5 + rnd(S, R * N, 4)) * 1e-2
+            out = fused_mlp_wide.points_raw_stacked(ops, kp, x, v, spr)
+            gq = fused_mlp_wide.points_stacked_bwd(ops, kp, x, v, gp, spr)
+            for s in range(S):
+                assert _same(out[s], fused_mlp_wide.points_raw(ops, one[s], x[s], v[s], spr))
+                single, _, _ = fused_mlp_wide.points_bwd(ops, one[s], x[s], v[s], gp[s], spr,
+                                                         False)
+                assert all(torch.equal(gq[k][s], t) for k, t in single.items()), (N, s)
+        noise = rnd(S, R, 16) - 0.5
+        maps = tfr.render_wide_stacked(ops, kp, ro, rd, vd, z, noise, True, keep_raw=True)
+        cot = [(0.5 + rnd(*t.shape)) * 1e-3 for t in maps[:4]]
+        g6 = tfr.render_wide_stacked_bwd(ops, kp, ro, rd, vd, z, noise, maps.raw, *cot, True)
+        # K6ws's compositing pass over every scene's padded rays at once
+        V = fused_mlp_wide.cols(R)
+        pad = lambda t, dim=1: fused_mlp._padded((t,), V, dim)[0]  # noqa: E731
+        g_all = ops.composite_bwd(
+            pad(maps.raw, 2).flatten(1, 2), *(pad(t).flatten(0, 1) for t in (rd, z, noise, *cot)),
+            True).view(4, S, V, 16)
+        for s in range(S):
+            raw1 = fused_mlp_wide.rays_planes(ops, one[s], ro[s], rd[s], vd[s], z[s])
+            m1 = ops.composite(raw1, rd[s], z[s], noise[s], True)
+            assert all(_same(a[s], b) for a, b in zip(maps[:4], m1[:4])), s
+            gpl = ops.composite_bwd(raw1, rd[s], z[s], noise[s], *(c[s] for c in cot), True)
+            # the plain compositing backward sums a ray's terms in an order
+            # that depends on how many rays it takes: within f32 ulps
+            assert float((g_all[:, s, :R] - gpl).abs().max()) <= 1e-6 * float(gpl.abs().max())
+            single = fused_mlp_wide.rays_planes_bwd(ops, one[s], ro[s], rd[s], vd[s], z[s],
+                                                    g_all[:, s, :R].contiguous())
+            assert all(torch.equal(g6[k][s], t) for k, t in single.items()), s
+
+
+class _Plan(torch.autograd.Function):
+    """A stacked wide plan under autograd: ``fwd(kp)`` forward (a tensor or
+    a tuple), ``bwd(kp, out, *cotangents)`` its grads of the packed leaves."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *leaves):
+        ctx.kp, ctx.bwd = dict(zip(fused_mlp.KP_NAMES, leaves)), bwd
+        with torch.no_grad():
+            ctx.out = fwd(ctx.kp)
+        return ctx.out
+
+    @staticmethod
+    def backward(ctx, *g):
+        grads = ctx.bwd(ctx.kp, ctx.out, *(t.contiguous() for t in g))
+        return (None, None) + tuple(grads[n] for n in fused_mlp.KP_NAMES)
+
+
+def _jax_out_and_vjp(f, params, g):
+    """(f(params), the vjp of f at params with cotangent g), one jit."""
+    return jax.jit(lambda p: (f(p), jax.vjp(f, p)[1](jnp.asarray(g))[0]))(params)
+
+
+@pytest.mark.parametrize("branch", ["rays", "points", "render"])
+def test_stacked_wide_plans_match_jax_vmap(branch):
+    """The stacked wide plans on PlainOps against jax.vmap of nerf_tpu's
+    fused_query_rays_planes (K1ws/K4ws, 4 rays of 8), fused_query without
+    input grads (K2ws/K3ws, 4 x 7 points, a direction a point) and
+    fused_render_level (K5ws/K6ws, 4 rays of 8, noise, white background)
+    over a scene axis (Pallas in interpret mode), f32, on inputs whose relu
+    inputs lie clear of zero and whose points are exact
+    (test_torch_port_fused_mlp.py's _wide_rays): the forward within 1e-5,
+    each scene's grads within WIDE_GRAD_TOL (1e-5) of each leaf's largest
+    entry."""
+    S, R = 2, 4
+    W_, fp, fv = WIDE_CFG
+    made = [_wide_nets(W_, fp, fv, seed=95 + s) for s in range(S)]
+    params, nets = [m[0] for m in made], [m[1] for m in made]
+    (jcfg, jpp, jpv), (cfg, pe_p, pe_v) = made[0][2], made[0][3]
+    N = 7 if branch == "points" else 8
+    ro, rd, vd, z = (np.stack(a) for a in zip(*(_wide_rays(n, made[0][3], R, N) for n in nets)))
+    jparams = jax.tree.map(lambda *xs: np.stack(xs), *params)
+    stacked = StackedNeRFMLP.from_nets(nets)
+    kp = fused_mlp.pack_params(stacked, pe_p, pe_v, torch.float32)
+    leaves = [kp[n] for n in fused_mlp.KP_NAMES]
+    ops = fused_mlp_wide.PlainOps()
+    t = [torch.from_numpy(a) for a in (ro, rd, vd, z)]
+    gen = np.random.default_rng(11)
+    if branch == "rays":
+        g = ((0.5 + gen.random((S, 4, R, N))) * 1e-2).astype(np.float32)
+
+        def jf(p):
+            return jax.vmap(lambda p, *a: jfused.fused_query_rays_planes(
+                p, jcfg, jpp, jpv, *a, compute_dtype=jnp.float32))(
+                p, *map(jnp.asarray, (ro, rd, vd, z)))
+
+        ref, jg = _jax_out_and_vjp(jf, jparams, g)
+        out = _Plan.apply(lambda k: fused_mlp_wide.rays_planes_stacked(ops, k, *t),
+                          lambda k, o, gg: fused_mlp_wide.rays_planes_stacked_bwd(ops, k, *t, gg),
+                          *leaves).movedim(1, 0)
+        out.backward(torch.from_numpy(g))
+    elif branch == "points":
+        pts = (ro[:, :, None] + rd[:, :, None] * z[..., None]).astype(np.float32)
+        g = ((0.5 + gen.random((S, R, N, 4))) * 1e-2).astype(np.float32)
+
+        def jf(p):
+            return jax.vmap(lambda p, x, v: jfused.fused_query(
+                p, jcfg, jpp, jpv, x, v, compute_dtype=jnp.float32, input_grads=False))(
+                p, jnp.asarray(pts), jnp.asarray(vd))
+
+        ref, jg = _jax_out_and_vjp(jf, jparams, g)
+        x = torch.from_numpy(pts).reshape(S, R * N, 3)
+        v = t[2].repeat_interleave(N, 1)
+        out = _Plan.apply(lambda k: fused_mlp_wide.points_raw_stacked(ops, k, x, v, 1),
+                          lambda k, o, gg: fused_mlp_wide.points_stacked_bwd(ops, k, x, v, gg, 1),
+                          *leaves).reshape(S, R, N, 4)
+        out.backward(torch.from_numpy(g))
+    else:
+        noise = (gen.standard_normal((S, R, N)) * 0.5).astype(np.float32)
+
+        def jlevel(p):
+            return jax.vmap(lambda p, *a: jfr.fused_render_level(
+                p, jcfg, jpp, jpv, *a, True, compute_dtype=jnp.float32))(
+                p, *map(jnp.asarray, (ro, rd, vd, z, noise)))
+
+        jout, jg = jax.jit(lambda p: (jlevel(p), jax.grad(lambda q: _map_loss(jlevel(q), jnp))(p)))(
+            jparams)
+        nz = torch.from_numpy(noise)
+        maps = _Plan.apply(
+            lambda k: tuple(tfr.render_wide_stacked(ops, k, *t, nz, True, keep_raw=True)),
+            lambda k, o, *c: tfr.render_wide_stacked_bwd(ops, k, *t, nz, o[4], *c[:4], True),
+            *leaves)
+        o = tfr.Maps(*maps)
+        for got, want in zip(o[:4], (jout.rgb, jout.disp, jout.acc, jout.weights)):
+            got, want = got.detach().numpy(), np.asarray(want)
+            finite = np.isfinite(want)
+            assert got.shape == want.shape and (np.isfinite(got) == finite).all()
+            assert np.abs(got[finite] - want[finite]).max() <= F32_FWD_TOL
+        _map_loss(type("L", (), dict(rgb=o.rgb, disp=o.disp, acc=o.acc, weights=o.w)), torch
+                  ).backward()
+        ref = None
+    if ref is not None:
+        assert float((out.detach() - torch.from_numpy(np.asarray(ref))).abs().max()) <= F32_FWD_TOL
+    grads = {n: p.grad for n, p in stacked.named_parameters()}
+    for s in range(S):
+        got = jax_params_from_state_dict({n: gr[s] for n, gr in grads.items()}, cfg)
+        want = jax.tree.map(lambda a: np.asarray(a)[s], jg)
+        for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(got), jax.tree.leaves(want)):
+            err = float(np.abs(np.asarray(a) - b).max() / np.abs(b).max())
+            assert err <= WIDE_GRAD_TOL, (branch, s, jax.tree_util.keystr(path), err)
+
+
+@pytest.mark.parametrize("failure", ["build", "error_code"])
+def test_stacked_wide_cuda_path_failure_raises_without_fallback(failure, monkeypatch):
+    """At a wide configuration a build that fails or a launch that returns
+    an error raises from the stacked wrappers' wide plans (K1ws, K4ws,
+    K2ws, K3ws, K5ws, K6ws); none falls back to a plain version, and no
+    counter moves."""
+    S, R, N = 2, 3, 8
+    kp, _ = _wide_stacked(S, 96, torch.bfloat16)
+    gen = torch.Generator().manual_seed(6)
+    ro, rd = torch.rand(S, R, 3, generator=gen), torch.rand(S, R, 3, generator=gen) + 0.1
+    vd = rd / rd.norm(dim=-1, keepdim=True)
+    z = torch.sort(2 + 4 * torch.rand(S, R, N, generator=gen), -1).values
+    x, g = torch.rand(S, R * N, 3, generator=gen), torch.ones(S, R * N, 4)
+    cot = (torch.ones(S, R, 3), torch.ones(S, R), torch.ones(S, R), torch.ones(S, R, N))
+    raw = torch.zeros(4, S, R, N)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    # the CPU tensors take the CUDA path: the stacked wrappers' wide branch
+
+    def no_plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    for mod, name in ((fused_mlp, "fused_rays_planes_stacked_reference"),
+                      (fused_mlp, "fused_rays_planes_stacked_bwd_reference"),
+                      (fused_mlp, "fused_points_stacked_reference"),
+                      (fused_mlp, "fused_points_stacked_bwd_reference"),
+                      (tfr, "fused_render_stacked_reference"),
+                      (tfr, "fused_render_stacked_bwd_reference"),
+                      (tfr, "composite_maps_reference"), (tfr, "composite_bwd_reference")):
+        monkeypatch.setattr(mod, name, no_plain)
+    if failure == "build":
+        def load(name):
+            raise RuntimeError(f"nvcc failed on csrc/{name}.cu")
+        match = "nvcc failed"
+    else:
+        lib = types.SimpleNamespace(nerf_wide_embed=lambda *a: 2,
+                                    nerf_fused_render_bwd_planes=lambda *a: 2,
+                                    nerf_cuda_error_string=lambda err: b"out of memory")
+        load = lambda name: lib  # noqa: E731
+        match = "out of memory"
+    monkeypatch.setattr(_build, "load", load)
+    counters = (fused_mlp_wide.fused_rays_planes_wide_stacked,
+                fused_mlp_wide.fused_rays_planes_wide_stacked_bwd,
+                fused_mlp_wide.fused_points_wide_stacked,
+                fused_mlp_wide.fused_points_wide_stacked_bwd,
+                tfr.fused_render_wide_stacked_fwd, tfr.fused_render_wide_stacked_bwd)
+    counts = [c.launches for c in counters]
+    calls = (lambda: fused_mlp_wide.fused_rays_planes_wide_stacked(kp, ro, rd, vd, z),
+             lambda: fused_mlp_wide.fused_rays_planes_wide_stacked_bwd(kp, ro, rd, vd, z, raw),
+             lambda: fused_mlp_wide.fused_points_wide_stacked(kp, x, vd, N),
+             lambda: fused_mlp_wide.fused_points_wide_stacked_bwd(kp, x, vd, g, N),
+             lambda: tfr.fused_render_wide_stacked_fwd(kp, ro, rd, vd, z, None, True, None,
+                                                       False),
+             lambda: tfr.fused_render_wide_stacked_bwd(kp, ro, rd, vd, z, None, raw, *cot, True))
+    for call in calls:
+        with pytest.raises(RuntimeError, match=match):
+            call()
+    assert [c.launches for c in counters] == counts
+
+
 # (b) whole stacked steps: nerf_tpu's make_multi_scene_step, S one-scene steps
 
 
@@ -335,7 +645,7 @@ def _batch(s, n=R):
 
 
 def _conditioned_step(net, make_batch, seed, hwf=None, margin=2e-6, n_samples=N_SAMPLES,
-                      n_importance=N_IMPORTANCE):
+                      n_importance=N_IMPORTANCE, min_pre=_min_preactivation, t_grid=None):
     """A batch (make_batch(seed + k)) and its jitter t_rand and importance u
     whose coarse relu inputs under ``net`` all lie further than ``margin``
     from zero (ROADMAP C.r3; test_torch_port_train.py's _conditioned_rays for
@@ -348,6 +658,8 @@ def _conditioned_step(net, make_batch, seed, hwf=None, margin=2e-6, n_samples=N_
         batch = make_batch(seed + k)
         rng = np.random.default_rng(seed + k)
         ov = {"t_rand": rng.uniform(size=(R, n_samples)).astype(np.float32)}
+        if t_grid:  # jitter on a grid: exact depths (_grid_batch)
+            ov["t_rand"] = (np.round(ov["t_rand"] * t_grid) / t_grid).astype(np.float32)
         if n_importance:
             ov["u"] = rng.uniform(size=(R, n_importance)).astype(np.float32)
         ro, rd, near, far = (torch.from_numpy(a) for a in batch[:4])
@@ -356,23 +668,66 @@ def _conditioned_step(net, make_batch, seed, hwf=None, margin=2e-6, n_samples=N_
             ro, rd = ndc_rays(*hwf, 1.0, ro, rd)
         z = stratified_z_vals(near, far, n_samples, perturb=True,
                               t_rand=torch.from_numpy(ov["t_rand"]))
-        if _min_preactivation(net, *(t.numpy() for t in (ro, rd, vd, z))) > margin:
+        if min_pre(net, *(t.numpy() for t in (ro, rd, vd, z))) > margin:
             return batch, ov
     raise AssertionError("no well-conditioned batch in 100 seeds")
 
 
 # (ndc, n_samples, n_importance, fused, fused_render, steps) of each branch
 # of the stacked step: the raygen K1/K4 (blender and NDC), the points-in
-# K2/K3 (15 + 8), the fused render K5/K6 (16 + 8), and the plain MLP
+# K2/K3 (15 + 8), the fused render K5/K6 (16 + 8), the plain MLP
 # (fused_kernels off at 8 + 0, nerf_tpu's own multi-scene CLI test config,
-# tests/test_multi_scene.py::test_train_multi_cli_on_mesh). The branches
-# added to the raygen pair take one step: the second step's Adam carry is
-# the raygen pair's.
+# tests/test_multi_scene.py::test_train_multi_cli_on_mesh), and the
+# points-in pair at WIDE_CFG (17 + 0: the stacked wide plans' guard,
+# K2ws/K3ws on the card; no fine level, whose importance samples at 16
+# octaves are ill-conditioned, ROADMAP C.r2). The branches added to the
+# raygen pair take one step: the second step's Adam carry is the raygen
+# pair's.
+# At 16 octaves a point's top phase x 2^15 turns by 8e-3 rad for one ulp of
+# x, so the wide path's points are exact in both packages: 17 samples
+# (linspace steps of 1/16), jitter on a 1/256 grid and rays on grids
+# (_grid_batch), so that z and x = o + d z need no rounding whether or not a
+# multiply and add contract into an FMA (as _wide_rays does for one level).
 STEP_PATHS = {"blender": (False, N_SAMPLES, N_IMPORTANCE, True, False, 2),
               "ndc": (True, N_SAMPLES, N_IMPORTANCE, True, False, 2),
               "points": (False, POINTS_SAMPLES, N_IMPORTANCE, True, False, 1),
               "fused_render": (False, N_SAMPLES, N_IMPORTANCE, True, True, 1),
-              "plain": (False, 8, 0, False, False, 1)}
+              "plain": (False, 8, 0, False, False, 1),
+              "wide": (False, 17, 0, True, False, 1)}
+STEP_CONFIGS = {"wide": WIDE_CFG}  # (width, point and view octaves); else 128, 10, 4
+
+
+def _grid_batch(s, n=R):
+    """_batch's rays on grids: origins of 2^-8, directions of 2^-4."""
+    ro, rd, near, far, tgt = _batch(s, n)
+    rd = np.round(rd * 16) / 16
+    rd[np.abs(rd).sum(-1) == 0] = 0.5
+    return (np.round(ro * 256) / 256).astype(np.float32), rd.astype(np.float32), near, far, tgt
+
+
+def _step_nets(path):
+    """(JAX and port MLP and posenc configs, nerf_tpu's params of a seed as
+    a port net, nerf_tpu's params of a seed, the min relu input of a net's
+    coarse level) at the path's configuration."""
+    W_, fp, fv = STEP_CONFIGS.get(path, (128, 10, 4))
+    jcfg = JMLPConfig(width=W_, input_ch=3 + 6 * fp, input_ch_views=3 + 6 * fv)
+    cfg = MLPConfig(width=W_, input_ch=3 + 6 * fp, input_ch_views=3 + 6 * fv)
+    pe_p, pe_v = PosEncConfig(fp), PosEncConfig(fv)
+
+    def jparams(seed):
+        return jax.tree.map(np.asarray, init_params(jax.random.key(seed), jcfg))
+
+    def port_net(params):
+        net = NeRFMLP(cfg, device="cpu")
+        net.load_state_dict(state_dict_from_jax_params(params, cfg), strict=True)
+        return net
+
+    def min_pre(net, ro, rd, vd, z):
+        kp = fused_mlp.pack_params(net, pe_p, pe_v, torch.float32)
+        x = fused_mlp._ray_points(*(torch.from_numpy(a) for a in (ro, rd, z)))
+        return _min_pre_kp(kp, x, torch.from_numpy(vd), z.shape[1])
+
+    return (jcfg, JPosEnc(fp), JPosEnc(fv)), (cfg, pe_p, pe_v), jparams, port_net, min_pre
 
 
 @pytest.mark.parametrize("path", list(STEP_PATHS))
@@ -380,24 +735,25 @@ def test_multi_scene_steps_match_jax(path):
     """Steps of make_multi_scene_step against jax.vmap of nerf_tpu's
     make_train_step_core over the scene axis (what its
     make_multi_scene_step vmaps) on the same stacked draws, on every branch
-    of the step (STEP_PATHS), and with NDC two scenes of different (H, W,
+    of the step (STEP_PATHS, the points-in pair also at WIDE_CFG), and with NDC two scenes of different (H, W,
     focal), each an operand per scene (its hwf_operand): each scene's loss
     within rtol 1e-5, its weights within test_train_steps_match_jax's bounds
     (4 lr, each leaf's update within UPDATE_TOL relative L2), on batches
     whose coarse relu inputs lie clear of zero (_conditioned_step)."""
     S = 2
     ndc, n_samples, n_importance, fused, fused_render, n_steps = STEP_PATHS[path]
+    (jcfg, jpp, jpv), (cfg, pe_p, pe_v), jparams, port_net, min_pre = _step_nets(path)
     kw = dict(n_samples=n_samples, n_importance=n_importance, ndc=ndc, white_bkgd=not ndc)
     jrs, trs = jr.RenderSettings(**kw), tr.RenderSettings(**kw)
-    fine_j, fine_t = (JCFG, CFG) if n_importance else (None, None)
-    jmodel = JNeRFModel(JPE_P, JPE_V, JCFG, fine_j, "float32", fused=fused,
+    fine_j, fine_t = (jcfg, cfg) if n_importance else (None, None)
+    jmodel = JNeRFModel(jpp, jpv, jcfg, fine_j, "float32", fused=fused,
                         fused_render=fused_render)
-    tmodel = NeRFModel(PE_P, PE_V, CFG, fine_t, "float32", fused=fused, fused_render=fused_render)
-    params = [{"coarse": _jparams(40 + 2 * s), "fine": _jparams(41 + 2 * s)} for s in range(S)]
+    tmodel = NeRFModel(pe_p, pe_v, cfg, fine_t, "float32", fused=fused, fused_render=fused_render)
+    params = [{"coarse": jparams(40 + 2 * s), "fine": jparams(41 + 2 * s)} for s in range(S)]
     if not n_importance:
         params = [{"coarse": p["coarse"]} for p in params]
     jstate = jms.stack_states([jstep.init_train_state(p, LRATE, LRATE_DECAY) for p in params])
-    state = ms.stack_states([tstep.init_train_state({k: _port_net(v) for k, v in p.items()}, LRATE)
+    state = ms.stack_states([tstep.init_train_state({k: port_net(v) for k, v in p.items()}, LRATE)
                              for p in params])
     core = jstep.make_train_step_core(jmodel, jrs, LRATE, LRATE_DECAY, hwf_operand=ndc)
     mstep = jax.jit(jax.vmap(core))
@@ -406,9 +762,12 @@ def test_multi_scene_steps_match_jax(path):
     extra = (jnp.asarray(hwfs, jnp.float32),) if ndc else ()
     plain_calls = StackedNeRFMLP.plain_calls
     for i in range(n_steps):
-        steps = [_conditioned_step(state.nets["coarse"].net(s), _ff_batch if ndc else _batch,
+        wide = path in STEP_CONFIGS
+        steps = [_conditioned_step(state.nets["coarse"].net(s),
+                                   _ff_batch if ndc else _grid_batch if wide else _batch,
                                    1000 * i + 100 * s, hwfs[s] if ndc else None,
-                                   n_samples=n_samples, n_importance=n_importance)
+                                   n_samples=n_samples, n_importance=n_importance,
+                                   min_pre=min_pre, t_grid=256 if wide else None)
                  for s in range(S)]
         arrays = _stacked([b for b, _ in steps])
         ov = {k: np.stack([o[k] for _, o in steps]) for k in steps[0][1]}
@@ -418,7 +777,9 @@ def test_multi_scene_steps_match_jax(path):
                    hwf=torch.tensor(hwfs) if ndc else None)
         assert aux["loss"].shape == (S,)
         np.testing.assert_allclose(aux["loss"].numpy(), np.asarray(jaux["loss"]), rtol=1e-5)
-    # the stacked plain MLP runs only where no kernel applies
+    # the stacked plain MLP runs only where no kernel applies (at WIDE_CFG
+    # too: the stacked wide plans' guard is nerf_tpu's)
+    assert fused_mlp.supports_stacked(cfg, pe_p, pe_v)
     assert StackedNeRFMLP.plain_calls - plain_calls == (0 if fused else n_steps)
     got = jax_arrays_from_stacked_train_state(state, tmodel)["params"]
     start = jax.tree.map(lambda *xs: np.stack(xs), *params)
