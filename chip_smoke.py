@@ -232,6 +232,24 @@ K1-K6 at the widths and octave counts the W <= 256 tile is not built for):
    against 8 single-scene wide launches (bit for bit), timed per step
    beside their bounds, plain versions and the same products as bf16
    ``torch.bmm``.
+The backward's workspace bound and the fused loop:
+30. c8 (ROADMAP C.8): tools/bwd_memory.py's four shapes, two steps each
+   with their peak device memory (W = 512 at N_rand 16384; 16 stacked
+   scenes of 1024 rays at W = 512; 8 at W = 1024; mip-NeRF 360's NeRF
+   shape, W = 1024 at N_rand 16384, whose fine backward the budget cuts
+   into slices and which must train); then the backward under a budget
+   forced small (slices of 256 rays or views) against the one launch, K4,
+   K3, K6, K4w and the stacked K4 in f32 (per-leaf relative L2 <= 1e-5)
+   and bf16 (< 0.05), a launch a slice;
+31. fuse: ``train()`` with fuse_steps k and with 1 on the same config,
+   seed and views: the lego recipe at N_rand 4096 on the raygen path, at
+   63 + 128, with --fused_render, at W = 512, with a precrop boundary that
+   cuts a would-be chunk (two graphs), and a batching run over one view
+   whose chunks cross an epoch wrap: histories, parameters and Adam's
+   state ``torch.equal``, the same launch counts, one CUDA graph replay a
+   chunk and none step by step; then wall ms/step of both loops through
+   ``train()`` at N_rand 4096 and 1024 and a profiled window of each (the
+   idle share), beside the card's name and power limit.
 
 The last two lines are a JSON object of kernel numbers (K1-K7, the
 backward's recompute and chain launches, K6's compositing pass, K7's
@@ -823,6 +841,12 @@ def main() -> int:
 
     # 29. the stacked wide path: cli.train_multi at W = 512, K1ws-K6ws
     stacked_wide = stacked_wide_phase(dev)
+
+    # 30. ROADMAP C.8: the backward's workspace bounded, sliced over points
+    c8_phase(dev)
+
+    # 31. the fused loop: chunks of k steps, a CUDA graph replay each
+    fuse_phase(train_info["views"], smi, dev)
 
     def row(name, source, replaces, launches, err, t):
         return {
@@ -2272,8 +2296,10 @@ def resume_render_phase(cli, dev):
     result, _ = run_cli(cli_train.main, argv)
     resumed_counts = read_counts()
     # the schedule carried on from the step: the last update used lr(step - 1)
-    last_lr = result.state.optimizer.param_groups[0]["lr"]
-    want_lr = lr_schedule(cfg.lrate, cfg.lrate_decay)(start + CLI_RESUMED_STEPS - 1)
+    # (the optimizer holds it as a float32 tensor, train/step.py::set_lr)
+    last_lr = float(result.state.optimizer.param_groups[0]["lr"])
+    want_lr = float(np.float32(lr_schedule(cfg.lrate, cfg.lrate_decay)(
+        start + CLI_RESUMED_STEPS - 1)))
     first_print = result.history[0][0] if result.history else None
     every = CLI_CADENCES["i_print"]
     if result.state.step != start + CLI_RESUMED_STEPS or last_lr != want_lr or \
@@ -2323,6 +2349,32 @@ def spy(module, name: str, calls: list):
         yield calls
     finally:
         setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def graph_calls():
+    """While inside, count CUDA graph captures and replays (train()'s fused
+    loop, train/graph.py): a chunk's k steps run their Python once, at the
+    graph's capture, after one warm-up step that is undone; each replay runs
+    them again without it."""
+    record = {"captures": 0, "replays": 0}
+    begin, replay = torch.cuda.CUDAGraph.capture_begin, torch.cuda.CUDAGraph.replay
+
+    def counted_begin(graph, *args, **kwargs):
+        record["captures"] += 1
+        return begin(graph, *args, **kwargs)
+
+    def counted_replay(graph):
+        record["replays"] += 1
+        return replay(graph)
+
+    torch.cuda.CUDAGraph.capture_begin = counted_begin
+    torch.cuda.CUDAGraph.replay = counted_replay
+    try:
+        yield record
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = begin
+        torch.cuda.CUDAGraph.replay = replay
 
 
 def quiet(fn, *args, **kwargs):
@@ -2438,12 +2490,16 @@ def cli_llff_phase(root: str, datadir: str, dev) -> None:
     reset_counts()
     t0 = time.perf_counter()
     with spy(loop, "make_sampler", samplers), spy(step_lib, "ndc_rays", ndc), \
-            spy(step_lib, "draw_overrides", draws):
+            spy(step_lib, "draw_overrides", draws), graph_calls() as graphs:
         result, out = run_cli(cli_train.main, argv)
     seconds = time.perf_counter() - t0
     counts = read_counts()
 
     steps, c = LLFF_STEPS, LLFF_CADENCES
+    # the step's Python runs once a step one by one, and at a graph's
+    # warm-up and capture (k + 1) for the k steps each replay runs again
+    k = min(cfg.fuse_steps, *(v for v in c.values() if v > 0))
+    calls = steps - k * graphs["replays"] + (k + 1) * graphs["captures"]
     n_chunks = -(-scene.H * scene.W // CHUNK)
     frames = steps // c["i_img"] + steps // c["i_testset"] * len(scene.i_test) + \
         steps // c["i_video"] * LLFF_SPIRAL
@@ -2454,11 +2510,12 @@ def cli_llff_phase(root: str, datadir: str, dev) -> None:
         [float(o[0][..., 2].min()) for _, _, o in ndc[:1]]
     noisy = all("noise0" in d and "noise1" in d for _, _, d in draws)
     sampler = type(samplers[0][2]).__name__ if len(samplers) == 1 else samplers
-    if not (cfg.ndc and len(ndc) == steps and max(abs(z + 1.0) for z in ndc_z) < 1e-4 and
-            sampler == BatchedRaySampler.__name__ and len(draws) == steps and noisy and
+    if not (cfg.ndc and len(ndc) == calls and max(abs(z + 1.0) for z in ndc_z) < 1e-4 and
+            sampler == BatchedRaySampler.__name__ and len(draws) == calls and noisy and
             cfg.raw_noise_std == 1.0):
-        raise RuntimeError(f"not the llff recipe: ndc {cfg.ndc}, {len(ndc)} NDC transforms, "
-                           f"ray origins at z {ndc_z}, sampler {sampler}, sigma noise {noisy}")
+        raise RuntimeError(f"not the llff recipe: ndc {cfg.ndc}, {len(ndc)} NDC transforms "
+                           f"(want {calls}: {graphs}), ray origins at z {ndc_z}, sampler "
+                           f"{sampler}, sigma noise {noisy}")
     evals = [float(m) for m in re.findall(r"\[EVAL\] Iter: \d+ holdout view \d+ PSNR: (\S+)", out)]
     if len(evals) != steps // c["i_img"] or not np.isfinite(evals).all():
         raise RuntimeError(f"expected {steps // c['i_img']} holdout evals, got {evals}")
@@ -2496,6 +2553,7 @@ def cli_llff_phase(root: str, datadir: str, dev) -> None:
     phase("cli_llff", steps=steps, seconds=f"{seconds:.2f}", minify_s=f"{minify_s:.3f}",
           images_2=f"{len(names)} x {small.shape}", load_s=f"{load_s:.3f}",
           sampler=sampler, ndc_transforms=len(ndc), ray_origin_z=ndc_z, noisy_draws=len(draws),
+          graph_captures=graphs["captures"], graph_replays=graphs["replays"],
           launches=counts, eval_frames=frames, k1_per_frame=2 * n_chunks,
           holdout_psnr=[f"{p:.3f}" for p in evals], tars=tars,
           spiral=f"{spiral[0]} ({n_spiral} frames)", loss_first=f"{losses[0]:.6f}",
@@ -2817,7 +2875,9 @@ def dp_phase(views, dev):
     start = {lvl: {n: p.detach().cpu() for n, p in net.named_parameters()}
              for lvl, net in init_nets(make_model(cfg), cfg.seed, dev).items()}
     t0 = time.perf_counter()
-    one = dp_rank(dev, dp_argv(root, "one", 1))
+    # step by step, as the ranks step (ROADMAP A.3b): dp_rank reads each
+    # launch's rays in Python, which a fused chunk runs only at its capture
+    one = dp_rank(dev, dp_argv(root, "one", 1) + ["--fuse_steps=1"])
     one_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks = distributed.launch(dp_rank, DP_RANKS, "cuda:0", backend="gloo",
@@ -4316,6 +4376,302 @@ def stacked_wide_kernels(dev) -> dict:
         print_stacked_times(name.lower() + "_times", v,
                             "S=63 + S=191" if name in ("K2ws", "K3ws") else "S=64 + S=192")
     return {"times": t, "errs": errs}
+
+
+
+# ROADMAP C.8 (phase 30): the sliced backward against the one launch, the
+# budget forced down to slices of C8_SLICE rays (views) of C8_RAYS; the
+# tolerances are ROADMAP's ("Tolerances"): the slices' grads sum in another
+# order, f32 per-leaf relative L2 within 1e-5, bf16 below nerf_tpu's 0.05
+C8_RAYS, C8_SLICE, C8_SCENES = 1024, 256, 2
+C8_TOLS = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+
+def c8_phase(dev) -> None:
+    """30. tools/bwd_memory.py's four shapes through the port's steps, two
+    steps each: the peak device memory and ms of a step; every shape
+    trains, and mip-NeRF 360's, whose workspace ran out of memory unsliced,
+    runs its fine backward in slices. Then ``c8_sliced``."""
+    import gc
+
+    from nerf_tpu_torch.tools import bwd_memory
+
+    for name, kw in bwd_memory.CONFIGS.items():
+        row = bwd_memory.measure(name, **kw, dev=dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("c8_memory", **{k: (f"{v:.3f}" if isinstance(v, float) else v)
+                              for k, v in row.items()})
+        if not np.isfinite(row["loss"]):
+            raise RuntimeError(f"{name}: non-finite loss {row['loss']}")
+        if name == "mipnerf360" and not row["backward_calls_per_step"] > 2:
+            raise RuntimeError(f"{name}: the backward was not sliced: {row}")
+    c8_sliced(dev)
+
+
+def c8_sliced(dev) -> None:
+    """The sliced backward of each autograd Function against its one
+    launch on the card, the budget (``fused_mlp.WORKSPACE_BUDGET``) forced
+    to C8_SLICE rays (views) of C8_RAYS: K4 (64 samples), K3 (63, a
+    direction per point), K6 (64, with noise), K4w (W = 512) and the stacked
+    K4 (C8_SCENES scenes), each in f32 and bf16: per-leaf relative L2 within
+    C8_TOLS, the wrapper launched once a slice."""
+    from nerf_tpu_torch.experimental import fused_render
+    from nerf_tpu_torch.models.embedding import PosEncConfig
+    from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
+    from nerf_tpu_torch.ops import fused_mlp, fused_mlp_wide
+
+    rng = np.random.default_rng(30)
+    pe = (PosEncConfig(10), PosEncConfig(4))
+    R = C8_RAYS
+
+    def cot(*shape):
+        return torch.from_numpy((0.5 + rng.random(shape)).astype(np.float32) * 1e-2).to(dev)
+
+    def leaves_of(width, dtype, scenes=0):
+        nets = [NeRFMLP(MLPConfig(width=width), seed=30 + s, device=dev)
+                for s in range(max(1, scenes))]
+        with torch.no_grad():
+            kps = [fused_mlp.pack_params(n, *pe, dtype) for n in nets]
+        return [(torch.stack([kp[n] for kp in kps]) if scenes else kps[0][n])
+                .detach().clone().requires_grad_(True) for n in fused_mlp.KP_NAMES]
+
+    def case(name, dtype):
+        """(leaves, run(), wrapper counted, items, item bytes, align)"""
+        S = POINTS_SAMPLES if name == "K3" else N_SAMPLES
+        width = WIDE_WIDTH if name == "K4w" else WIDTH
+        leaves = leaves_of(width, dtype, C8_SCENES if name == "K4s" else 0)
+        kp = dict(zip(fused_mlp.KP_NAMES, leaves))
+        ro, rd, vd, z = make_rays(rng, R, S, dev)
+        pb = fused_mlp.bwd_point_bytes(kp, S)
+        if name in ("K4", "K4w"):
+            g = cot(4, R, S)
+            fn = (fused_mlp_wide.fused_rays_planes_wide_bwd if name == "K4w"
+                  else fused_mlp.fused_rays_planes_bwd)
+            return (leaves, lambda: fused_mlp._FusedRaysPlanes.apply(ro, rd, vd, z, *leaves)
+                    .backward(g), fn, R, S * pb, fused_mlp.SLICE_COLS)
+        if name == "K3":
+            x = fused_mlp._ray_points(ro, rd, z)
+            v = vd.repeat_interleave(S, 0)
+            g = cot(R * S, 4)
+            return (leaves, lambda: fused_mlp._FusedPoints.apply(x, v, 1, False, *leaves)
+                    .backward(g), fused_mlp.fused_points_bwd, R * S,
+                    fused_mlp.bwd_point_bytes(kp, 1), fused_mlp.view_align(1))
+        if name == "K6":
+            noise = torch.from_numpy(rng.standard_normal((R, S)).astype(np.float32)).to(dev)
+            gs = [cot(R, 3), cot(R), cot(R), cot(R, S)]
+            return (leaves, lambda: torch.autograd.backward(
+                fused_render._FusedRender.apply(ro, rd, vd, z, noise, True, *leaves), gs),
+                fused_render.fused_render_bwd, R, S * pb, fused_mlp.SLICE_COLS)
+        sto, std, stv, stz = (torch.stack([t, t.flip(0)]) for t in (ro, rd, vd, z))
+        g = cot(4, C8_SCENES, R, S)
+        return (leaves, lambda: fused_mlp._FusedRaysPlanesStacked.apply(
+            sto, std, stv, stz, *leaves).backward(g), fused_mlp.fused_rays_planes_stacked_bwd,
+            R, C8_SCENES * S * pb, fused_mlp.SLICE_COLS)
+
+    def grads(leaves, run):
+        for t in leaves:
+            t.grad = None
+        run()
+        torch.cuda.synchronize()
+        return [t.grad.float().clone() for t in leaves]
+
+    default = fused_mlp.WORKSPACE_BUDGET
+    worst = {}
+    for name in ("K4", "K3", "K6", "K4w", "K4s"):
+        for dtype in (torch.float32, torch.bfloat16):
+            leaves, run, wrapper, n, item, align = case(name, dtype)
+            unit = (C8_SLICE if name != "K3" else C8_SLICE * POINTS_SAMPLES) // align * align
+            before = wrapper.launches
+            one = grads(leaves, run)
+            ones = wrapper.launches - before
+            try:
+                fused_mlp.WORKSPACE_BUDGET = unit * item
+                slices = fused_mlp.bwd_slices(n, item, align)
+                before = wrapper.launches
+                sliced = grads(leaves, run)
+                launches = wrapper.launches - before
+            finally:
+                fused_mlp.WORKSPACE_BUDGET = default
+            errs = {k: rel_l2(a, b) for k, a, b in zip(fused_mlp.KP_NAMES, sliced, one)}
+            label = f"{name} {str(dtype).split('.')[-1]}"
+            worst[label] = max(errs.values())
+            phase("c8_sliced", case=label, slices=len(slices), launches=launches,
+                  one_launch=ones, worst_leaf=max(errs, key=errs.get),
+                  rel_l2=f"{worst[label]:.3e}", tol=C8_TOLS[dtype])
+            if ones != 1 or launches != len(slices) or len(slices) < 2:
+                raise RuntimeError(f"{label}: {ones} / {launches} launches for {len(slices)} slices")
+            if not worst[label] <= C8_TOLS[dtype]:
+                raise RuntimeError(f"{label}: sliced grads off the one launch's: {errs}")
+            del leaves, run, one, sliced
+            torch.cuda.empty_cache()
+
+
+# the fused loop (phase 31): train() with fuse_steps FUSE_K and with 1 on
+# the lego recipe, FUSE_PRINT apart; (name, flags, forward, backward, steps,
+# chunks): the chunks of FUSE_K that train()'s rule makes (1-4 and 6-9 of
+# 10, steps 5 and 10 alone at i_print 5; with precrop_iters 7, 1-4 cropped,
+# 5 and 6 alone, 7-10 and 11-14 full frame; batching with fuse 8 and
+# i_print 16 on one 400x400 view, 39 steps an epoch: 1-8 .. 33-40, the
+# last across the wrap, then 41-44 alone)
+FUSE_K, FUSE_PRINT = 4, 5
+FUSE_CASES = (
+    ("raygen", [f"--N_samples={N_SAMPLES}"], "K1", "K4", 10, 2),
+    ("points", [f"--N_samples={POINTS_SAMPLES}"], "K2", "K3", 10, 2),
+    ("fused_render", [f"--N_samples={N_SAMPLES}", "--fused_render=True"], "K5", "K6", 10, 2),
+    ("wide", [f"--N_samples={N_SAMPLES}", f"--netwidth={WIDE_WIDTH}",
+              f"--netwidth_fine={WIDE_WIDTH}"], "K1w", "K4w", 10, 2),
+    ("precrop", [f"--N_samples={N_SAMPLES}", "--precrop_iters=7"], "K1", "K4", 14, 3),
+    ("batching", [f"--N_samples={N_SAMPLES}", "--no_batching=False", "--fuse_steps=8",
+                  "--i_print=16"], "K1", "K4", 44, 5),
+)
+# the loops' profiled window: FUSE_PROFILED_CHUNKS chunks of FUSE_TIMED_K
+# steps (tools/loop_time.py's chunk) after one that captures
+FUSE_TIMED_K, FUSE_PROFILED_CHUNKS = 10, 3
+
+
+def fuse_cfg(n_iters: int, *flags):
+    from nerf_tpu_torch import config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    return config.load_config([
+        f"--config={os.path.join(here, 'configs', 'lego.txt')}", f"--N_rand={N_RAND}",
+        f"--n_iters={n_iters}", f"--i_print={FUSE_PRINT}", "--i_img=0", "--i_weights=0",
+        "--i_testset=0", "--i_video=0", "--data_axis=1", f"--fuse_steps={FUSE_K}",
+        f"--basedir={os.path.join(here, 'build', 'chip_smoke')}", *flags])
+
+
+def fused_run(cfg, views, dev):
+    """train() with counts, CUDA graph replays and chunks (samplers'
+    ``advance``) recorded."""
+    from nerf_tpu_torch.data import rays_dataset
+    from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from nerf_tpu_torch.train.loop import train
+
+    chunks = []
+    advances = {cls: cls.advance for cls in (rays_dataset.BatchedRaySampler,
+                                              rays_dataset.ImageRaySampler)}
+    reset_counts()
+    NeRFMLP.plain_calls = 0
+    for cls, real in advances.items():
+        cls.advance = lambda self, k, real=real: chunks.append(k) or real(self, k)
+    try:
+        with graph_calls() as graphs:
+            result = train(cfg, views, device=dev)
+            torch.cuda.synchronize()
+    finally:
+        for cls, real in advances.items():
+            cls.advance = real
+    return result, read_counts(), {**graphs, "chunks": chunks}
+
+
+def fuse_phase(views, smi: str, dev) -> None:
+    """31. Each FUSE_CASES path through train() with fuse_steps FUSE_K and
+    with 1 on the same config, seed and views: history, parameters and
+    Adam's state ``torch.equal``; the same launch counts, 2 of the path's
+    forward and backward a step (the tile's recompute and chain, K6's
+    compositing pass) and nothing else; one replay a chunk, the chunks the
+    rule's. Then ``fuse_times``."""
+    from nerf_tpu_torch.data.scene import Scene
+
+    one_view = Scene(images=views.images[:1], poses=views.poses[:1],
+                     render_poses=views.render_poses, hwf=views.hwf, K=views.K,
+                     i_train=np.arange(1), i_val=np.zeros(0, int), i_test=np.zeros(0, int),
+                     near=views.near, far=views.far)
+    for name, flags, fwd, bwd, n, chunks in FUSE_CASES:
+        scene = one_view if name == "batching" else views
+        t0 = time.perf_counter()
+        fused, counts, rec = fused_run(fuse_cfg(n, *flags), scene, dev)
+        fused_s = time.perf_counter() - t0
+        one, one_counts, one_rec = fused_run(fuse_cfg(n, *flags, "--fuse_steps=1"), scene, dev)
+        same = fused.history == one.history and fused.state.step == one.state.step == n
+        for level in ("coarse", "fine"):
+            for a, b in zip(fused.state.nets[level].parameters(),
+                            one.state.nets[level].parameters()):
+                same = same and torch.equal(a, b)
+                sa, sb = fused.state.optimizer.state[a], one.state.optimizer.state[b]
+                same = same and all(torch.equal(sa[k], sb[k]) for k in sb)
+        k = int(next((f.split("=")[1] for f in flags if f.startswith("--fuse_steps")), FUSE_K))
+        phase("fuse", path=name, steps=n, fuse_steps=k, chunks=rec["chunks"],
+              replays=rec["replays"], per_step_replays=one_rec["replays"], equal=same,
+              launches=counts, history=[(i, f"{loss:.6f}") for i, loss, _ in fused.history],
+              seconds=f"{fused_s:.2f}")
+        if not same:
+            raise RuntimeError(f"{name}: the fused loop's state or history differs from the "
+                               f"per-step loop's: {fused.history} against {one.history}")
+        if rec["chunks"] != [k] * chunks or rec["replays"] != chunks or one_rec["replays"]:
+            raise RuntimeError(f"{name}: chunks {rec['chunks']}, replays {rec['replays']} "
+                               f"(want {chunks} of {k}); per step {one_rec['replays']}")
+        want = {fwd: 2 * n, bwd: 2 * n}
+        if not fwd.endswith("w"):
+            want.update(recompute=2 * n, chain=2 * n)
+        if bwd == "K6":
+            want["composite"] = 2 * n
+        check_counts(one_counts, want, f"{name}: {n} steps one by one")
+        if counts != one_counts:
+            raise RuntimeError(f"{name}: launches {counts} fused, {one_counts} one by one")
+        del fused, one
+        torch.cuda.empty_cache()
+    fuse_times(views, smi, dev)
+
+
+def fuse_times(views, smi: str, dev) -> None:
+    """Both loops' wall ms/step through train() on the lego recipe's
+    raygen path at N_rand 4096 and 1024 (``tools/loop_time.py::measure`` on
+    phase 7's teacher views: the difference of a 210- and a 10-step run,
+    medians of two). Then a profiled window of FUSE_PROFILED_CHUNKS chunks
+    of the loop's own pieces (``ChunkRunner``, its sampler and step) after
+    a chunk that captures, and as many steps one by one: device ms/step
+    and the idle share of each."""
+    from nerf_tpu_torch.data.rays_dataset import make_sampler
+    from nerf_tpu_torch.models.factory import init_nets, make_model
+    from nerf_tpu_torch.tools import loop_time
+    from nerf_tpu_torch.train.graph import ChunkRunner
+    from nerf_tpu_torch.train.loop import render_settings_from_config
+    from nerf_tpu_torch.train.step import init_train_state, lr_schedule, make_train_step
+
+    k = FUSE_TIMED_K
+    for n_rand, ms in loop_time.measure(views, dev, fuse=k).items():
+        phase("fuse_ms", card=repr(smi), n_rand=n_rand, fuse_steps=k,
+              fused_ms_per_step=f"{ms['fused']:.3f}", per_step_ms_per_step=f"{ms['per_step']:.3f}",
+              ratio=f"{ms['per_step'] / ms['fused']:.3f}")
+
+    cfg = fuse_cfg(k * (1 + FUSE_PROFILED_CHUNKS), f"--N_samples={N_SAMPLES}")
+    model, rs = make_model(cfg), render_settings_from_config(cfg)
+    steps = k * FUSE_PROFILED_CHUNKS
+    for fused in (True, False):
+        state = init_train_state(init_nets(model, cfg.seed, dev), cfg.lrate)
+        step_fn = make_train_step(model, rs, cfg.lrate, cfg.lrate_decay)
+        sampler = make_sampler(views, cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        near = torch.full((cfg.N_rand,), NEAR, device=dev)
+        far = torch.full((cfg.N_rand,), FAR, device=dev)
+        schedule = lr_schedule(cfg.lrate, cfg.lrate_decay)
+        table = torch.tensor([schedule(t) for t in range(cfg.n_iters)], dtype=torch.float32,
+                             device=dev)
+        runner = ChunkRunner(step_fn, state, k, near, far, gen, [sampler.generator], table, 0)
+
+        def chunk(i):
+            if fused:
+                runner.run("crop", lambda j, _: sampler.next_batch(i + j))
+            else:
+                for j in range(k):
+                    ro, rd, target = sampler.next_batch(i + j)
+                    step_fn(state, ro, rd, near, far, target, generator=gen)
+
+        chunk(1)  # captures (fused), or a warm-up chunk
+        torch.cuda.synchronize()
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            t0 = time.perf_counter()
+            for c in range(FUSE_PROFILED_CHUNKS):
+                chunk(1 + k * (c + 1))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        profile_report(prof, seconds, "K1", "K4", steps=steps, card=repr(smi),
+                       loop="fused" if fused else "per_step", fuse_steps=k if fused else 1,
+                       replays=runner.replays)
 
 
 if __name__ == "__main__":

@@ -93,8 +93,8 @@ class NeRFConfig:
     donate_state: bool = True  # nerf_tpu's jit buffer donation (ignored by the port)
     debug_nan: bool = False  # per-step non-finite loss scan (ref DEBUG, run_nerf.py:24)
     trace: bool = False  # capture a profiler trace of a few steady steps (expdir/trace)
-    # nerf_tpu's multi-step lax.scan fusion (ignored by the port; the port's
-    # counterpart is a CUDA graph, ROADMAP A.3)
+    # steps a chunk of the fused loop runs (nerf_tpu's lax.scan of steps; the
+    # port's chunk is one CUDA graph replay, train/graph.py); 1: step by step
     fuse_steps: int = 50
     # strict behavioral parity with the reference's i_img holdout pick
     # (np.random.choice over i_val, run_nerf.py:836-840 — dead code there,

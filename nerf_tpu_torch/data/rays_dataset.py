@@ -16,8 +16,15 @@ parallel/mesh.py) every rank seeds the same generator and draws the same
 global window, then keeps its own rows (``mesh.shard_slice``), as
 nerf_tpu's per-host feed does (its ``_host_sl``, rays_dataset.py:74-99,
 279-340): the ranks' rows, put together, are the one-process batch.
-nerf_tpu's scan/fuse helpers (``scan_fn``, ``chain_split``) belong to its
-lax.scan step fusion and wait for the CUDA-graph counterpart (ROADMAP A.3).
+
+The fused loop (train/loop.py, ``fuse_steps``; nerf_tpu's lax.scan of k
+steps, rays_dataset.py:123-222, 342-436) takes k steps' batches as one
+chunk: ``scan_supported``, ``max_chunk`` and ``advance(k)`` on both
+policies; the batching policy's ``window(k)`` (nerf_tpu's ``_window``) gives
+the chunk's [k, n_rand] indices, the input of the chunk's CUDA graph
+(train/graph.py), and ``gather`` a step's batch from its row. The image
+policy draws inside the chunk on its own generator, as k ``next_batch``
+calls would, its crop fixed for the chunk.
 """
 
 from __future__ import annotations
@@ -78,9 +85,52 @@ class BatchedRaySampler:
     def next_batch(self) -> Batch:
         self.ensure_epoch()
         window = self.perm[self.i_batch : self.i_batch + self.n_rand]
-        batch = self.buffer[window[self.rows]]
         self.i_batch += self.n_rand
+        return self.gather(window)
+
+    def gather(self, idx: torch.Tensor) -> Batch:
+        """A step's (rays_o, rays_d, target) from its n_rand indices into the
+        buffer (this rank's rows of them)."""
+        batch = self.buffer[idx[self.rows]]
         return batch[:, 0], batch[:, 1], batch[:, 2]
+
+    # --- the fused loop (train/loop.py fuse_steps) ---
+
+    def scan_supported(self) -> bool:
+        return True
+
+    def max_chunk(self) -> int:
+        """A window spans epoch wraps itself, so chunks need no cap."""
+        return 1 << 30
+
+    def window(self, k: int) -> torch.Tensor:
+        """The next k steps' indices [k, n_rand], crossing epoch wraps
+        exactly as k ``next_batch`` calls would (``ensure_epoch``'s tail,
+        then a new permutation from the generator, in the same order). The
+        state it reaches (the permutation, the offset, the generator's)
+        is staged; ``advance(k)`` commits it."""
+        perm, i_batch = self.perm, self.i_batch
+        before = self.generator.get_state()
+        out, need = [], k
+        while need:
+            take = min(need, (perm.shape[0] - i_batch) // self.n_rand)
+            if take:
+                out.append(perm[i_batch : i_batch + take * self.n_rand])
+                i_batch += take * self.n_rand
+                need -= take
+            if need:
+                tail = perm[i_batch:]
+                perm = torch.cat([tail, torch.randperm(self.n_total, generator=self.generator,
+                                                       device=self.device)])
+                i_batch = 0
+        self._staged = (perm, i_batch, self.generator.get_state())
+        self.generator.set_state(before)
+        return (out[0] if len(out) == 1 else torch.cat(out)).view(k, self.n_rand)
+
+    def advance(self, k: int) -> None:
+        """Commit the state ``window(k)`` staged."""
+        self.perm, self.i_batch, after = self._staged
+        self.generator.set_state(after)
 
 
 class ImageRaySampler:
@@ -109,8 +159,11 @@ class ImageRaySampler:
     def next_batch(self, step: int) -> Batch:
         gen, dev = self.generator, self.device
         pick = torch.randint(self.i_train.shape[0], (1,), generator=gen, device=dev)
-        img_i = self.i_train[pick][0]
-        rays_o, rays_d = get_rays(self.H, self.W, self.K, self.poses[img_i, :3, :4])
+        # index_select, not a 0-dim index: that would read the index on the
+        # host, a sync a step (and no op a CUDA graph may capture)
+        img_i = self.i_train[pick]
+        c2w = self.poses.index_select(0, img_i)[0, :3, :4]
+        rays_o, rays_d = get_rays(self.H, self.W, self.K, c2w)
         row0, col0, rows, cols = self.crop if step < self.precrop_iters else self.full
         n = rows * cols
         if self.n_rand > n:
@@ -122,7 +175,20 @@ class ImageRaySampler:
         flat = flat[self.rows]
         r = row0 + flat // cols
         c = col0 + flat % cols
-        return rays_o[r, c], rays_d[r, c], self.images[img_i][r, c]
+        return rays_o[r, c], rays_d[r, c], self.images.index_select(0, img_i)[0][r, c]
+
+    # --- the fused loop (train/loop.py fuse_steps): a chunk's k steps call
+    # next_batch with the chunk's crop (the loop never lets a chunk cross
+    # the precrop boundary), drawing on the generator as k calls would ---
+
+    def scan_supported(self) -> bool:
+        return True
+
+    def max_chunk(self) -> int:
+        return 1 << 30  # no epoch state; the loop bounds chunks elsewhere
+
+    def advance(self, k: int) -> None:
+        """Nothing to commit: the chunk's draws moved the generator."""
 
 
 def make_sampler(scene: Scene, cfg, generator: torch.Generator, device: DeviceLike = None,

@@ -361,6 +361,12 @@ def fused_render_bwd(kp: Dict[str, torch.Tensor], rays_o, rays_d, viewdirs, z_va
 fused_render_bwd.launches = 0
 
 
+def _rays_slice(ts, a: int, b: int, dim: int = 0):
+    """Rays a..b of each per-ray tensor (None stays None) along ``dim``:
+    a slice of K6's backward (ops/fused_mlp.py::bwd_slices)."""
+    return [None if t is None else t.narrow(dim, a, b - a) for t in ts]
+
+
 class _FusedRender(torch.autograd.Function):
     """K5 forward, K6 backward over the packed leaves (in KP_NAMES order).
     Rays, depths and noise get no gradient (fused_render.py:20-24); each
@@ -380,8 +386,13 @@ class _FusedRender(torch.autograd.Function):
     def backward(ctx, g_rgb, g_disp, g_acc, g_w):
         ro, rd, vd, z, noise, raw, *leaves = ctx.saved_tensors
         kp = dict(zip(KP_NAMES, leaves))
-        grads = fused_render_bwd(kp, ro, rd, vd, z, noise, raw, g_rgb, g_disp, g_acc, g_w,
-                                 ctx.white_bkgd, ctx.blobs)
+        R, S = z.shape
+        grads = fused_mlp.sum_grads(
+            fused_render_bwd(kp, *_rays_slice((ro, rd, vd, z, noise), a, b), raw[:, a:b],
+                             *_rays_slice((g_rgb, g_disp, g_acc, g_w), a, b), ctx.white_bkgd,
+                             ctx.blobs)
+            for a, b in fused_mlp.bwd_slices(R, S * fused_mlp.bwd_point_bytes(kp, S),
+                                             fused_mlp.SLICE_COLS))
         ctx.blobs = None
         return (None,) * 6 + tuple(grads[n].to(kp[n].dtype) for n in KP_NAMES)
 
@@ -686,9 +697,14 @@ class _FusedRenderStacked(torch.autograd.Function):
     def backward(ctx, g_rgb, g_disp, g_acc, g_w):
         ro, rd, vd, z, noise, raw, *leaves = ctx.saved_tensors
         kp = dict(zip(KP_NAMES, leaves))
-        grads = fused_render_stacked_bwd(kp, ro, rd, vd, z, noise, raw, g_rgb.contiguous(),
-                                         g_disp.contiguous(), g_acc.contiguous(),
-                                         g_w.contiguous(), ctx.white_bkgd, ctx.blobs)
+        S, R, N = z.shape
+        grads = fused_mlp.sum_grads(
+            fused_render_stacked_bwd(
+                kp, *_rays_slice((ro, rd, vd, z, noise), a, b, 1), raw[:, :, a:b],
+                *(t.contiguous() for t in _rays_slice((g_rgb, g_disp, g_acc, g_w), a, b, 1)),
+                ctx.white_bkgd, ctx.blobs)
+            for a, b in fused_mlp.bwd_slices(R, S * N * fused_mlp.bwd_point_bytes(kp, N),
+                                             fused_mlp.SLICE_COLS))
         ctx.blobs = None
         return (None,) * 6 + tuple(grads[n].to(kp[n].dtype) for n in KP_NAMES)
 

@@ -35,7 +35,7 @@ from nerf_tpu_torch.device import DeviceLike
 from nerf_tpu_torch.models.factory import init_nets
 from nerf_tpu_torch.models.nerf_mlp import MLPConfig
 from nerf_tpu_torch.render.network import NeRFModel
-from nerf_tpu_torch.train.step import TrainState, init_train_state
+from nerf_tpu_torch.train.step import TrainState, adam_step_count, init_train_state
 
 _HEADS = (
     ("alpha", "alpha_linear"),
@@ -108,14 +108,13 @@ def train_state_from_jax_arrays(
         cfg = model.mlp_config(level)
         net.load_state_dict(state_dict_from_jax_params(arrays["params"][level], cfg), strict=True)
     state = init_train_state(nets, lrate, start_step=int(arrays["step"]))
-    count = torch.tensor(float(arrays["count"]), dtype=torch.float32)
     for level, net in nets.items():
         cfg = model.mlp_config(level)
         mu = state_dict_from_jax_params(arrays["mu"][level], cfg)
         nu = state_dict_from_jax_params(arrays["nu"][level], cfg)
         for name, p in net.named_parameters():
             state.optimizer.state[p] = {
-                "step": count.clone(),
+                "step": adam_step_count(state.optimizer, float(arrays["count"]), p),
                 "exp_avg": mu[name].to(p.device),
                 "exp_avg_sq": nu[name].to(p.device),
             }

@@ -31,10 +31,34 @@ class RayOutputs:
     depth: torch.Tensor  # [N_rays]
 
 
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of an input with no zero. Its
+    backward is torch's own for such an input (cumprod_backward in
+    torch/csrc/autograd/FunctionsManual.cpp: the reversed cumsum of
+    output * grad, over the input), without torch's test for a zero,
+    ``(input == 0).any()`` read on the host: a sync a call, which no CUDA
+    graph may capture (train/graph.py). The compositor's input,
+    (1 - alpha) + 1e-10 after a leading 1, is never 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, -1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        if x.shape[-1] <= 1:
+            return grad
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
-    """cumprod along the last axis, shifted right with a leading 1 (ref run_nerf.py:295)."""
+    """cumprod along the last axis, shifted right with a leading 1 (ref
+    run_nerf.py:295); ``x`` holds no zero (``_Cumprod``)."""
     ones = torch.ones_like(x[..., :1])
-    return torch.cumprod(torch.cat([ones, x], -1), -1)[..., :-1]
+    return _Cumprod.apply(torch.cat([ones, x], -1))[..., :-1]
 
 
 def sigma_noise(like: torch.Tensor, raw_noise_std: float,

@@ -62,6 +62,7 @@ The pieces:
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -991,6 +992,84 @@ def _grad_size(W: int) -> int:
     return sum(r * c for _, r, c in weights) + sum(n for _, n in biases)
 
 
+# ROADMAP C.8: the most device workspace one backward launch may ask for.
+# nerf_tpu's backward keeps its recompute and cotangent chain in VMEM; the
+# port's launches write them to device memory, ~10 KB a point at W = 256
+# and ~39 KB at 1024 (``bwd_point_bytes``), so the autograd Functions cut a
+# larger backward into launches over slices of whole rays (of views of spr
+# points; of a ray of every scene), their grads summed in f32. Every path
+# chip_smoke.py drives stays one launch: the largest, 8 stacked scenes of
+# 1024 rays at W = 512, asks for 33.7 GB.
+WORKSPACE_BUDGET = 40 << 30
+SLICE_COLS = 256  # a slice's rays (points) are whole wide-family tiles (fused_mlp_wide.TILE)
+
+
+def bwd_point_bytes(kp: Dict[str, torch.Tensor], spr: int) -> int:
+    """Bytes of backward workspace a point takes, at least what K4, K3, K6
+    and the wide K4w, K3w, K6w (stacked or not) ask for it: the workspace
+    rows, the relu mask words, the bias partials and, with a direction per
+    ray (spr > 1), the f32 d_hv rows and its share of the per-ray rows."""
+    W = kp["W1"].shape[-1]
+    ke, kv = (max(a, b) for a, b in zip(embed_pad(*_num_freqs(kp)), (KE, KV)))
+    esz = kp["W1"].element_size()
+    nbias = 9 * W + W // 2 + 4
+    n = ws_rows(W, ke, kv)[1] * esz + mask_rows(W) * 4 + -(-nbias * 4 // BIAS_PART)
+    if spr > 1:
+        n += (W // 2) * 4 + -(-(kv + W // 2) * esz // spr)
+    return n
+
+
+def bwd_slices(n: int, item_bytes: int, align: int = 1) -> List[Tuple[int, int]]:
+    """Consecutive ranges [a, b) over n items of ``item_bytes`` of backward
+    workspace each (a ray's points; a view's; a ray of every scene), each
+    range's workspace within WORKSPACE_BUDGET, every cut at a multiple of
+    ``align`` items and the ranges as even as that allows: the one range
+    (0, n) where all of it fits. A range holds at least ``align`` items."""
+    if n * item_bytes <= WORKSPACE_BUDGET:
+        return [(0, n)]
+    most = max(align, WORKSPACE_BUDGET // item_bytes // align * align)
+    count = -(-n // most)
+    size = -(-(-(-n // count)) // align) * align  # n / count rounded up to align
+    return [(a, min(n, a + size)) for a in range(0, n, size)]
+
+
+def view_align(spr: int) -> int:
+    """Views of spr points a points slice is cut at: whole views whose
+    points are whole SLICE_COLS tiles."""
+    return SLICE_COLS // math.gcd(SLICE_COLS, spr)
+
+
+def sum_grads(parts) -> Dict[str, torch.Tensor]:
+    """The slices' f32 grads summed leaf by leaf, in slice order (the one
+    slice's own where there is one)."""
+    total = None
+    for part in parts:
+        total = part if total is None else {k: total[k] + part[k] for k in total}
+    return total
+
+
+def _points_bwd_sliced(bwd, kp, x, v, g, spr: int, input_grads: bool, dim: int = 0):
+    """(grads, dx, dv) of a points backward ``bwd(x, v, g) -> (grads, dx,
+    dv)`` over ``bwd_slices`` of x's views of spr points along ``dim`` (1:
+    every scene's); dx and dv of each slice written in place."""
+    nv = v.shape[dim]
+    scenes = x.shape[0] if dim else 1
+    slices = bwd_slices(nv, scenes * spr * bwd_point_bytes(kp, spr), view_align(spr))
+    if len(slices) == 1:
+        return bwd(x, v, g)
+    dx = torch.empty_like(x) if input_grads else None
+    dv = torch.empty_like(v) if input_grads else None
+    parts = []
+    for a, b in slices:
+        grads, dxs, dvs = bwd(x.narrow(dim, a * spr, (b - a) * spr), v.narrow(dim, a, b - a),
+                              g.narrow(dim, a * spr, (b - a) * spr))
+        parts.append(grads)
+        if input_grads:
+            dx.narrow(dim, a * spr, (b - a) * spr).copy_(dxs)
+            dv.narrow(dim, a, b - a).copy_(dvs)
+    return sum_grads(parts), dx, dv
+
+
 def _workspace(lib, query, name: str, *args, dev) -> Tuple[torch.Tensor, int]:
     """The device workspace a backward launch asks ``query`` for."""
     nbytes = ctypes.c_longlong(0)
@@ -1311,7 +1390,11 @@ class _FusedRaysPlanes(torch.autograd.Function):
     def backward(ctx, g):
         ro, rd, vd, z, *leaves = ctx.saved_tensors
         kp = dict(zip(KP_NAMES, leaves))
-        grads = fused_rays_planes_bwd(kp, ro, rd, vd, z, g.contiguous(), ctx.blobs)
+        g = g.contiguous()
+        R, S = z.shape
+        grads = sum_grads(
+            fused_rays_planes_bwd(kp, ro[a:b], rd[a:b], vd[a:b], z[a:b], g[:, a:b], ctx.blobs)
+            for a, b in bwd_slices(R, S * bwd_point_bytes(kp, S), SLICE_COLS))
         ctx.blobs = None
         return (None,) * 4 + tuple(grads[n].to(kp[n].dtype) for n in KP_NAMES)
 
@@ -1367,8 +1450,10 @@ class _FusedPoints(torch.autograd.Function):
     def backward(ctx, g):
         x, v, *leaves = ctx.saved_tensors
         kp = dict(zip(KP_NAMES, leaves))
-        grads, dx, dv = fused_points_bwd(kp, x, v, g.contiguous(), ctx.spr, ctx.input_grads,
-                                         ctx.blobs)
+        spr, input_grads = ctx.spr, ctx.input_grads
+        grads, dx, dv = _points_bwd_sliced(
+            lambda xs, vs, gs: fused_points_bwd(kp, xs, vs, gs, spr, input_grads, ctx.blobs),
+            kp, x, v, g.contiguous(), spr, input_grads)
         ctx.blobs = None
         return (dx, dv, None, None) + tuple(grads[n].to(kp[n].dtype) for n in KP_NAMES)
 
@@ -1604,7 +1689,12 @@ class _FusedRaysPlanesStacked(torch.autograd.Function):
     def backward(ctx, g):
         ro, rd, vd, z, *leaves = ctx.saved_tensors
         kp = dict(zip(KP_NAMES, leaves))
-        grads = fused_rays_planes_stacked_bwd(kp, ro, rd, vd, z, g.contiguous(), ctx.blobs)
+        g = g.contiguous()
+        S, R, N = z.shape
+        grads = sum_grads(
+            fused_rays_planes_stacked_bwd(kp, ro[:, a:b], rd[:, a:b], vd[:, a:b], z[:, a:b],
+                                          g[:, :, a:b], ctx.blobs)
+            for a, b in bwd_slices(R, S * N * bwd_point_bytes(kp, N), SLICE_COLS))
         ctx.blobs = None
         return (None,) * 4 + tuple(grads[n].to(kp[n].dtype) for n in KP_NAMES)
 
@@ -1778,7 +1868,11 @@ class _FusedPointsStacked(torch.autograd.Function):
     def backward(ctx, g):
         x, v, *leaves = ctx.saved_tensors
         kp = dict(zip(KP_NAMES, leaves))
-        grads = fused_points_stacked_bwd(kp, x, v, g.contiguous(), ctx.spr, ctx.blobs)
+        spr = ctx.spr
+        grads, _, _ = _points_bwd_sliced(
+            lambda xs, vs, gs: (fused_points_stacked_bwd(kp, xs, vs, gs, spr, ctx.blobs), None,
+                                None),
+            kp, x, v, g.contiguous(), spr, False, dim=1)
         ctx.blobs = None
         return (None,) * 3 + tuple(grads[n].to(kp[n].dtype) for n in KP_NAMES)
 

@@ -10,8 +10,11 @@ nerf_tpu's steps. On one device, or data-parallel over the ranks of a
 process group (parallel/mesh.py; ``cli.train`` launches them): each rank
 trains on its rows of every batch, renders its rows of the holdout frame
 and its share of the spiral and test frames, and rank 0 prints and writes
-the shared files. nerf_tpu's ``fuse_steps`` (a lax.scan of steps) is
-ignored: its counterpart is a CUDA graph of the step (ROADMAP A.3).
+the shared files. With ``fuse_steps`` > 1 in one process the loop runs
+chunks of that many steps, each one replay of a CUDA graph of the steps on
+a card (train/graph.py; nerf_tpu's lax.scan of steps, ROADMAP A.3), the
+same draws and updates as step by step; over ranks it stays step by step
+(ROADMAP A.3b).
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from nerf_tpu_torch.ops.fused_mlp import flops_per_point
 from nerf_tpu_torch.parallel import distributed
 from nerf_tpu_torch.parallel.mesh import make_mesh, make_sharded_train_step, place_state
 from nerf_tpu_torch.render.renderer import RenderSettings, make_frame_renderer
-from nerf_tpu_torch.train.step import TrainState, init_train_state, make_train_step
+from nerf_tpu_torch.train.graph import ChunkRunner
+from nerf_tpu_torch.train.step import TrainState, init_train_state, lr_schedule, make_train_step
 from nerf_tpu_torch.utils import checkpoint as ckpt_lib
 from nerf_tpu_torch.utils.io import save_png, save_video
 from nerf_tpu_torch.utils.metrics import img2mse, mse2psnr, psnr_np
@@ -369,19 +373,110 @@ def train(
             pbar = tqdm(total=cfg.n_iters - start, desc=cfg.expname)
         except ImportError:
             pass
+    # --- the fused loop: k steps of sampler and step as one chunk ---
+    # nerf_tpu's fuse_steps (its lax.scan of k steps, nerf_tpu/train/loop.py:
+    # 420-511) as a CUDA graph of k steps (train/graph.py), the same draws as
+    # the per-step loop's. Chunks never cross a cadence event or the precrop
+    # boundary, so every event fires at the same step; a chunk is exactly
+    # ``fuse`` steps, anything shorter runs step by step.
+    fuse = max(1, int(cfg.fuse_steps))
+    can_fuse = (fuse > 1 and not cfg.trace and "on_step" not in hooks
+                and sampler.scan_supported())
+    if can_fuse and mesh is not None:
+        # one graph over ranks would hold NCCL's all-reduce (ROADMAP A.3b)
+        if is_main:
+            print(f"[FUSE] fuse_steps={fuse} not fused over {n_data} ranks: step by step "
+                  "(ROADMAP A.3b)")
+        can_fuse = False
+    cadences = [c for c in (cfg.i_print, cfg.i_img, cfg.i_weights, cfg.i_video, cfg.i_testset)
+                if c > 0]
+    if can_fuse and cadences and fuse > min(cadences):
+        # a chunk never crosses a cadence event, so a larger fuse would never engage
+        if is_main:
+            print(f"[FUSE] fuse_steps={fuse} capped to {min(cadences)} "
+                  f"(smallest cadence interval)")
+        fuse = min(cadences)
+        can_fuse = fuse > 1
+    runner = None
+    if can_fuse:
+        schedule = lr_schedule(cfg.lrate, cfg.lrate_decay)
+        lr_table = torch.tensor([schedule(state.step + t) for t in range(cfg.n_iters - start)],
+                                dtype=torch.float32, device=dev)
+        runner = ChunkRunner(step_fn, state, fuse, near_v, far_v, step_gen,
+                             [sampler.generator] if cfg.no_batching else [], lr_table, state.step)
+
+    def chunk_for(i: int) -> int:
+        """Steps a chunk may take from step i (at least 1): up to the next
+        cadence event, and in the crop phase up to its last step
+        (precrop_iters - 1: the crop is fixed for a chunk)."""
+        j = cfg.n_iters
+        for c in cadences:
+            j = min(j, -(-i // c) * c)  # the first multiple of c at or after i
+        if cfg.no_batching and i < sampler.precrop_iters:
+            j = min(j, sampler.precrop_iters - 1)
+        return max(min(j - i + 1, sampler.max_chunk()), 1)
+
+    def run_chunk(i: int) -> Dict[str, torch.Tensor]:
+        if cfg.no_batching:
+            phase = "crop" if i < sampler.precrop_iters else "full"
+            aux = runner.run(phase, lambda j, _: sampler.next_batch(i + j))
+        else:
+            aux = runner.run("batch", lambda j, window: sampler.gather(window[j]),
+                             sampler.window(fuse))
+        sampler.advance(fuse)
+        return aux
+
+    # --- the i_print fetch, deferred one interval (nerf_tpu/train/loop.py:
+    # 522-573): float() on the step just queued would drain the queue; the
+    # previous interval's value is long resident. Rates run from the last
+    # drain point, a moment when the device had done exactly ``cum`` steps
+    # (an eval's fetch, the trace's sync, or the first print's fresh fetch).
     history = []
-    anchor = None  # (wall time, step) where the queue was last drained
+    pending = []  # [(step, aux, steps queued by then)]
+    cum = 0  # steps queued since the loop began
+    anchor = None  # (wall time, cum) at the last drain point
+
+    def flush_print():
+        nonlocal anchor
+        step_i, p_aux, p_cum = pending.pop()
+        loss, psnr = float(p_aux["loss"]), float(p_aux["psnr"])  # waits for p_cum steps
+        now = time.perf_counter()
+        if anchor is None or p_cum <= anchor[1]:
+            rate = "warmup"
+            if p_cum == cum:  # the freshest step's value: the queue is drained
+                anchor = (now, p_cum)
+        else:
+            rep = timer.report(steps=p_cum - anchor[1], elapsed=now - anchor[0])
+            mfu = "" if rep["mfu"] is None else f", {rep['mfu'] * 100:.1f}% MFU"
+            rate = f"{rep['rays_per_sec']:,.0f} rays/s{mfu}"
+        if is_main:
+            print(f"[TRAIN] Iter: {step_i} Loss: {loss:.6f}  PSNR: {psnr:.3f}  ({rate})")
+        history.append((step_i, loss, psnr))
+
+    i = start + 1
     try:
-        for i in range(start + 1, cfg.n_iters + 1):
-            if cfg.no_batching:
-                rays_o, rays_d, target = sampler.next_batch(i)
+        while i <= cfg.n_iters:
+            k = chunk_for(i) if can_fuse else 1
+            if can_fuse and k >= fuse:
+                k = fuse
+                chunk = run_chunk(i)
+                aux = {name: v[-1] for name, v in chunk.items()}
+                losses = chunk["loss"]
             else:
-                rays_o, rays_d, target = sampler.next_batch()
-            aux = step_fn(state, rays_o, rays_d, near_v, far_v, target, generator=step_gen)
+                k = 1
+                if cfg.no_batching:
+                    rays_o, rays_d, target = sampler.next_batch(i)
+                else:
+                    rays_o, rays_d, target = sampler.next_batch()
+                aux = step_fn(state, rays_o, rays_d, near_v, far_v, target, generator=step_gen)
+                losses = aux["loss"]
+            i += k - 1  # the last step made: its events fire below
+            cum += k
             if pbar is not None:
-                pbar.update(1)
-            if cfg.debug_nan and not bool(torch.isfinite(aux["loss"])):
-                raise FloatingPointError(f"non-finite loss at step {i}")  # ref DEBUG, run_nerf.py:414-416
+                pbar.update(k)
+            if cfg.debug_nan and not bool(torch.isfinite(losses).all()):
+                # ref DEBUG, run_nerf.py:414-416 (here it also stops)
+                raise FloatingPointError(f"non-finite loss by step {i}")
             if cfg.trace and i == start + 12:
                 # steady state: capture 4 more steps on this step's batch, as
                 # nerf_tpu does (state.step moves by 4 here, i does not);
@@ -394,24 +489,25 @@ def train(
                                       generator=step_gen)
                     if dev.type == "cuda":
                         torch.cuda.synchronize(dev)
-                anchor = (time.perf_counter(), i)
+                cum += 4
+                anchor = (time.perf_counter(), cum)
                 if is_main:
                     print(f"[TRACE] profile written to {expdir}/trace")
             if i % cfg.i_print == 0:
-                loss, psnr = float(aux["loss"]), float(aux["psnr"])  # the fetch waits for step i
-                now = time.perf_counter()
-                if anchor is None or anchor[1] == i:
-                    rate = "warmup"
-                else:
-                    rep = timer.report(steps=i - anchor[1], elapsed=now - anchor[0])
-                    mfu = "" if rep["mfu"] is None else f", {rep['mfu'] * 100:.1f}% MFU"
-                    rate = f"{rep['rays_per_sec']:,.0f} rays/s{mfu}"
-                anchor = (now, i)
-                if is_main:
-                    print(f"[TRAIN] Iter: {i} Loss: {loss:.6f}  PSNR: {psnr:.3f}  ({rate})")
-                history.append((i, loss, psnr))
-            drained = False  # did an eval or a save fetch from the device?
-            if cfg.i_img > 0 and i % cfg.i_img == 0 and len(scene.i_val):
+                if pending:
+                    flush_print()
+                pending.append((i, aux, cum))
+                if anchor is None:
+                    # no drain point yet: fetch this value now, once, so that
+                    # later windows start from an exact device state
+                    flush_print()
+            evals = [cfg.i_img > 0 and i % cfg.i_img == 0 and len(scene.i_val),
+                     cfg.i_weights > 0 and i % cfg.i_weights == 0,
+                     cfg.i_video > 0 and i % cfg.i_video == 0,
+                     cfg.i_testset > 0 and i % cfg.i_testset == 0 and len(scene.i_test)]
+            if pending and any(evals):
+                flush_print()  # before the eval's lines, its window train-only
+            if evals[0]:
                 # the holdout view: cycled, or drawn as the reference does
                 # (np.random.choice, run_nerf.py:836-840) with i_img_random;
                 # over ranks each renders its rows of it (nerf_tpu's sharded eval)
@@ -424,26 +520,27 @@ def train(
                     gt = torch.as_tensor(scene.images[img_i], device=dev)
                     holdout_psnr = float(mse2psnr(img2mse(out["rgb_map"], gt)))
                     print(f"[EVAL] Iter: {i} holdout view {img_i} PSNR: {holdout_psnr:.3f}")
-                drained = True
-            if cfg.i_weights > 0 and i % cfg.i_weights == 0:
+            if evals[1]:
                 path = ckpt_lib.save_checkpoint(cfg.basedir, cfg.expname, state, mesh)
                 if is_main:
                     print("Saved checkpoints at", path)
-                drained = True
-            if cfg.i_video > 0 and i % cfg.i_video == 0:
+            if evals[2]:
                 render_frames(scene.render_poses, f"video_{i:06d}",
                               video_base=os.path.join(expdir, f"{cfg.expname}_spiral_{i:06d}_"))
-                drained = True
-            if cfg.i_testset > 0 and i % cfg.i_testset == 0 and len(scene.i_test):
+            if evals[3]:
                 testsavedir = os.path.join(expdir, f"testset_{i:06d}")
                 os.makedirs(testsavedir, exist_ok=True)
                 render_frames(scene.poses[scene.i_test], f"testset_{i:06d}",
                               savedir=testsavedir, gt_imgs=scene.images[scene.i_test])
-                drained = True
-            if drained:
-                anchor = (time.perf_counter(), i)  # keep eval time out of the rate
+            if any(evals):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                anchor = (time.perf_counter(), cum)  # keep eval time out of the rate
             if "on_step" in hooks:
                 hooks["on_step"](i, state, aux)
+            i += 1
+        if pending:
+            flush_print()  # the last interval's
     finally:
         if pbar is not None:
             pbar.close()

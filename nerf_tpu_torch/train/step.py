@@ -56,14 +56,43 @@ def lr_schedule(lrate: float, lrate_decay: int) -> Callable[[int], float]:
 
 
 def init_train_state(
-    nets: Dict[str, torch.nn.Module], lrate: float, start_step: int = 0
+    nets: Dict[str, torch.nn.Module], lrate, start_step: int = 0
 ) -> TrainState:
     """The nets with Adam(betas=(0.9, 0.999), eps=1e-8) over every parameter,
     coarse first. torch's Adam, like optax's, adds eps after the
-    bias-corrected root."""
+    bias-corrected root. Its learning rate is a float32 tensor on the nets'
+    device that each step sets (``set_lr``), and on a card the optimizer is
+    capturable (its step counts device tensors too), so that a CUDA graph
+    holds whole steps (train/graph.py); the per-step loop uses the same
+    optimizer, and the two loops make the same updates bit for bit."""
     params = [p for level in ("coarse", "fine") if level in nets for p in nets[level].parameters()]
-    optimizer = torch.optim.Adam(params, lr=lrate, betas=ADAM_BETAS, eps=ADAM_EPS)
+    dev = params[0].device
+    lr = torch.tensor(float(lrate), dtype=torch.float32, device=dev)
+    optimizer = torch.optim.Adam(params, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS,
+                                 capturable=dev.type == "cuda")
     return TrainState(nets=nets, optimizer=optimizer, step=start_step)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr) -> None:
+    """Write ``lr``, a float or a 0-dim tensor on the device (a graph's
+    input), into every param group's learning-rate tensor
+    (``init_train_state``'s): the float rounds to float32 as the tensor's
+    value did, so both give the optimizer the same bits."""
+    for group in optimizer.param_groups:
+        if isinstance(lr, torch.Tensor):
+            group["lr"].copy_(lr)
+        else:
+            group["lr"].fill_(lr)
+
+
+def adam_step_count(optimizer: torch.optim.Optimizer, count: float,
+                    like: torch.Tensor) -> torch.Tensor:
+    """Adam's ``step`` entry holding ``count`` where torch's Adam keeps it:
+    on the parameter's device when the optimizer is capturable, else a CPU
+    float32 scalar. A ``.tar`` holds it as a CPU scalar whatever the device
+    (utils/checkpoint.py)."""
+    dev = like.device if optimizer.defaults["capturable"] else "cpu"
+    return torch.tensor(float(count), dtype=torch.float32, device=dev)
 
 
 def draw_overrides(
@@ -188,7 +217,9 @@ def make_train_step(
     generator=None, overrides=None) -> aux`` updates ``state`` in place
     (parameters, Adam moments, ``step``) and returns detached device
     tensors (loss, psnr, ...). The random draws come from ``overrides`` when
-    given, else from ``generator``. Viewdirs come from the raw rays_d, before
+    given, else from ``generator``. The learning rate is ``lr`` (a 0-dim
+    device tensor: train/graph.py's input) when given, else the schedule's
+    at ``state.step``. Viewdirs come from the raw rays_d, before
     the NDC transform (ref run_nerf.py:102-114); ``hwf=(H, W, focal)`` is
     needed when rs.ndc. With a process ``group`` the rays are this rank's
     shard: the gradients and the loss terms are averaged over the group
@@ -200,7 +231,7 @@ def make_train_step(
     mean = None if group is None else _GradMean(group)
 
     def step(state: TrainState, rays_o, rays_d, near, far, target, generator=None,
-             overrides=None) -> Dict[str, torch.Tensor]:
+             overrides=None, lr=None) -> Dict[str, torch.Tensor]:
         if overrides is None and generator is not None:
             overrides = draw_overrides(generator, rays_o.shape[0], rs)
         viewdirs = None
@@ -209,9 +240,7 @@ def make_train_step(
         if rs.ndc:
             H, W, focal = hwf
             rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
-        lr = schedule(state.step)
-        for param_group in state.optimizer.param_groups:
-            param_group["lr"] = lr
+        set_lr(state.optimizer, schedule(state.step) if lr is None else lr)
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = loss_fn(
             state.nets, model, rs, rays_o, rays_d, viewdirs, near, far, target,
@@ -311,9 +340,7 @@ def make_stacked_train_step(
             per_ray = hwf.to(rays_o.dtype).repeat_interleave(R, 0)
             rays_o, rays_d = ndc_rays(per_ray[:, 0], per_ray[:, 1], per_ray[:, 2], 1.0,
                                       rays_o, rays_d)
-        lr = schedule(state.step)
-        for param_group in state.optimizer.param_groups:
-            param_group["lr"] = lr
+        set_lr(state.optimizer, schedule(state.step))
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = stacked_loss_fn(state.nets, model, rs, S, rays_o, rays_d, viewdirs, near,
                                     far, target, overrides=overrides)

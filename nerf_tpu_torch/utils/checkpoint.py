@@ -36,7 +36,8 @@ from nerf_tpu_torch.device import DeviceLike, resolve_device
 from nerf_tpu_torch.models.factory import init_nets
 from nerf_tpu_torch.parallel.distributed import barrier
 from nerf_tpu_torch.render.network import NeRFModel
-from nerf_tpu_torch.train.step import ADAM_BETAS, ADAM_EPS, TrainState, init_train_state
+from nerf_tpu_torch.train.step import (ADAM_BETAS, ADAM_EPS, TrainState, adam_step_count,
+                                       init_train_state)
 
 _NET_KEYS = (("coarse", "network_fn_state_dict"), ("fine", "network_fine_state_dict"))
 
@@ -131,7 +132,7 @@ def load_checkpoint(path: str, model: NeRFModel, lrate: float,
     state = init_train_state(nets, lrate, start_step=int(ckpt["global_step"]))
     for p, entry in moments:
         state.optimizer.state[p] = {
-            "step": torch.tensor(float(entry.get("step", 0)), dtype=torch.float32),
+            "step": adam_step_count(state.optimizer, float(entry.get("step", 0)), p),
             "exp_avg": entry["exp_avg"].to(dev, torch.float32).clone(),
             "exp_avg_sq": entry["exp_avg_sq"].to(dev, torch.float32).clone(),
         }

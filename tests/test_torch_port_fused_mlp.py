@@ -726,3 +726,173 @@ def test_wide_plain_versions_match_jax_kernels(config):
             assert a.shape == b.shape, name
             err = float(np.abs(a - b).max() / np.abs(b).max())
             assert err <= WIDE_GRAD_TOL, (S, name, err)
+
+
+# ROADMAP C.8: the backward sliced over points under a workspace budget
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Tiny ops: on torch's default thread pool beside other busy test
+    processes they wait on the pool far longer than they compute (as
+    tests/test_torch_port_cli.py's fixture says)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _meta_kp(W_, fp, fv, dtype=torch.bfloat16, scenes=()):
+    """The packed leaves the slice planner reads (W1, and W05e and Wve for
+    the octaves), of a configuration's shapes on the meta device."""
+    def leaf(*shape):
+        return torch.empty(*scenes, *shape, dtype=dtype, device="meta")
+
+    return {"W1": leaf(W_, W_), "W05e": leaf(3 + 6 * fp, 2 * W_), "Wve": leaf(3 + 6 * fv, W_ // 2)}
+
+
+@pytest.mark.parametrize("n,item,align,budget", [
+    (4096, 10, 256, 1 << 20), (1000, 7, 1, 700), (1000, 7, 64, 700), (300, 5, 256, 100),
+    (257, 3, 1, 3 * 257), (0, 9, 256, 1), (5, 1 << 20, 4, 1 << 21)])
+def test_bwd_slices_cover_every_item_once_under_the_budget(monkeypatch, n, item, align, budget):
+    """The slice planner: consecutive ranges that cover [0, n) once, cut at
+    multiples of ``align``, each within the budget where one aligned unit
+    fits in it, as even as alignment allows; one range where all fits."""
+    monkeypatch.setattr(fused_mlp, "WORKSPACE_BUDGET", budget)
+    slices = fused_mlp.bwd_slices(n, item, align)
+    assert slices[0][0] == 0 and slices[-1][1] == n
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(slices, slices[1:]))
+    assert all(a % align == 0 for a, _ in slices) and all(b > a for a, b in slices[:-1] or [])
+    if n * item <= budget:
+        assert slices == [(0, n)]
+    elif align * item <= budget:
+        assert all((b - a) * item <= budget for a, b in slices)
+        sizes = [b - a for a, b in slices[:-1]]
+        assert len(set(sizes)) <= 1 and len(slices) == -(-n // (budget // item // align * align))
+    else:
+        assert all(b - a <= align for a, b in slices)
+
+
+def test_bwd_budget_slices_only_the_shapes_that_do_not_fit():
+    """At the module's budget every path chip_smoke.py drives is one launch
+    (the largest, 8 stacked scenes of 1024 rays at W = 512), and mip-NeRF
+    360's NeRF shape (W = 1024, 2^14 rays, 192 fine samples), whose
+    workspace would be ~123 GB, is cut into whole 256-ray slices; the
+    per-point bytes are at least the workspace rows' (9.9 KB at W = 256,
+    19.7 at 512, 39.1 at 1024, ROADMAP C.8)."""
+    def n_slices(kp, rays, S, scenes=1):
+        item = scenes * S * fused_mlp.bwd_point_bytes(kp, S)
+        return fused_mlp.bwd_slices(rays, item, fused_mlp.SLICE_COLS)
+
+    for W_, kb in ((256, 9.9), (512, 19.7), (1024, 39.1)):
+        assert fused_mlp.bwd_point_bytes(_meta_kp(W_, 10, 4), 192) / 1000 >= kb
+    assert n_slices(_meta_kp(256, 10, 4), 4096, 192) == [(0, 4096)]
+    assert n_slices(_meta_kp(256, 16, 6), 4096, 192) == [(0, 4096)]
+    assert n_slices(_meta_kp(512, 10, 4), 4096, 192) == [(0, 4096)]
+    assert n_slices(_meta_kp(512, 10, 4, scenes=(8,)), 1024, 192, 8) == [(0, 1024)]
+    assert n_slices(_meta_kp(256, 10, 4, scenes=(8,)), 1024, 192, 8) == [(0, 1024)]
+    mip = n_slices(_meta_kp(1024, 10, 4), 16384, 192)
+    assert mip == [(a, a + 4096) for a in range(0, 16384, 4096)]
+
+
+def _leaf_grads(run, leaves, ins=()):
+    """Grads of the packed leaves (and of ``ins``) after ``run()``'s
+    backward, detached."""
+    for t in (*leaves, *ins):
+        t.grad = None
+    run()
+    return [t.grad.clone() for t in (*leaves, *ins)]
+
+
+def _sliced_cases(kp, kp_s, R, S):
+    """(name, run, inputs that take a grad) for each autograd Function whose
+    backward slices: K4, K3 (with input grads), the stacked K4 and K3, K6
+    and the stacked K6, all on CPU tensors (their plain versions)."""
+    rng = np.random.default_rng(5)
+    ro, rd, vd, z = (torch.from_numpy(a) for a in _rays(7, R, S))
+    x = fused_mlp._ray_points(ro, rd, z).requires_grad_(True)
+    v = vd.clone().requires_grad_(True)
+    sto, std, stv, stz = (torch.stack([t, t.flip(0)]) for t in (ro, rd, vd, z))
+    noise = torch.from_numpy(rng.standard_normal((R, S)).astype(np.float32))
+    cot = lambda *shape: torch.from_numpy((0.5 + rng.random(shape)).astype(np.float32) * 1e-2)  # noqa: E731
+    g4, gp = cot(4, R, S), cot(R * S, 4)
+    gs4, gsp = cot(4, 2, R, S), cot(2, R * S, 4)
+    gm = [cot(R, 3), cot(R), cot(R), cot(R, S)]
+    gms = [cot(2, R, 3), cot(2, R), cot(2, R), cot(2, R, S)]
+    lv = [kp[n] for n in fused_mlp.KP_NAMES]
+    ls = [kp_s[n] for n in fused_mlp.KP_NAMES]
+
+    def bwd(outs, gs):
+        torch.autograd.backward(outs, gs)
+
+    return [
+        ("K4", lambda: bwd(fused_mlp._FusedRaysPlanes.apply(ro, rd, vd, z, *lv), g4), ()),
+        ("K3", lambda: bwd(fused_mlp._FusedPoints.apply(x, v, S, True, *lv), gp), (x, v)),
+        ("K4s", lambda: bwd(fused_mlp._FusedRaysPlanesStacked.apply(sto, std, stv, stz, *ls),
+                            gs4), ()),
+        ("K3s", lambda: bwd(fused_mlp._FusedPointsStacked.apply(
+            fused_mlp._ray_points(sto.flatten(0, 1), std.flatten(0, 1), stz.flatten(0, 1))
+            .reshape(2, R * S, 3), stv, S, *ls), gsp), ()),
+        ("K6", lambda: bwd(tfr._FusedRender.apply(ro, rd, vd, z, noise, True, *lv), gm), ()),
+        ("K6s", lambda: bwd(tfr._FusedRenderStacked.apply(
+            sto, std, stv, stz, torch.stack([noise, noise]), False, *ls), gms), ()),
+    ]
+
+
+def test_sliced_backward_matches_unsliced(nets, monkeypatch, one_torch_thread):
+    """Each autograd Function's backward, cut by a budget monkeypatched
+    small into 3 slices of 16 rays (views) on the CPU's plain versions,
+    gives the one launch's grads: the leaves' f32 sums within rtol 1e-5
+    (relative L2; ROADMAP's f32 grad bound: the slices sum in another
+    order), K3's dx and dv per point within the same."""
+    _, mlp = nets
+    R, S = 48, 8
+    with torch.no_grad():
+        base = fused_mlp.pack_params(mlp, PE_P, PE_V, torch.float32)
+    kp = {k: t.detach().clone().requires_grad_(True) for k, t in base.items()}
+    kp_s = {k: torch.stack([t, t * 0.9]).detach().requires_grad_(True) for k, t in base.items()}
+    for name, run, ins in _sliced_cases(kp, kp_s, R, S):
+        leaves = [(kp_s if name.endswith("s") else kp)[n] for n in fused_mlp.KP_NAMES]
+        monkeypatch.setattr(fused_mlp, "WORKSPACE_BUDGET", fused_mlp.WORKSPACE_BUDGET)
+        one = _leaf_grads(run, leaves, ins)
+        scenes = 2 if name.endswith("s") else 1
+        monkeypatch.setattr(fused_mlp, "SLICE_COLS", 16)
+        monkeypatch.setattr(fused_mlp, "WORKSPACE_BUDGET",
+                            16 * scenes * S * fused_mlp.bwd_point_bytes(kp, S))
+        assert len(fused_mlp.bwd_slices(R, scenes * S * fused_mlp.bwd_point_bytes(kp, S),
+                                        fused_mlp.SLICE_COLS)) == 3
+        sliced = _leaf_grads(run, leaves, ins)
+        monkeypatch.undo()
+        for label, a, b in zip([*fused_mlp.KP_NAMES, "dx", "dv"], sliced, one):
+            err = float((a - b).norm() / b.norm())
+            assert a.shape == b.shape and err <= 1e-5, (name, label, err)
+
+
+def test_sliced_wide_backward_matches_unsliced(monkeypatch, one_torch_thread):
+    """K4w's launch plan on fused_mlp_wide.PlainOps under _FusedRaysPlanes'
+    slicing (3 slices of 16 rays, each padded to its own 256-column tiles)
+    against the one plan's grads, f32 within rtol 1e-5 a leaf."""
+    _, mlp, _, (cfg, pe_p, pe_v) = _wide_nets(*WIDE["W128-16-6"])
+    with torch.no_grad():
+        base = fused_mlp.pack_params(mlp, pe_p, pe_v, torch.float32)
+    kp = {k: t.detach().clone().requires_grad_(True) for k, t in base.items()}
+    leaves = [kp[n] for n in fused_mlp.KP_NAMES]
+    R, S = 48, 8
+    ro, rd, vd, z = (torch.from_numpy(a) for a in _rays(3, R, S))
+    g = (0.5 + torch.rand(4, R, S, generator=torch.Generator().manual_seed(2))) * 1e-2
+    calls = []
+
+    def plain_ops_bwd(kp_, *args):
+        calls.append(args[3].shape[0])
+        return fused_mlp_wide.rays_planes_bwd(fused_mlp_wide.PlainOps(), kp_, *args)
+
+    monkeypatch.setattr(fused_mlp, "fused_rays_planes_bwd", plain_ops_bwd)
+    run = lambda: fused_mlp._FusedRaysPlanes.apply(ro, rd, vd, z, *leaves).backward(g)  # noqa: E731
+    one = _leaf_grads(run, leaves)
+    monkeypatch.setattr(fused_mlp, "SLICE_COLS", 16)
+    monkeypatch.setattr(fused_mlp, "WORKSPACE_BUDGET", 16 * S * fused_mlp.bwd_point_bytes(kp, S))
+    sliced = _leaf_grads(run, leaves)
+    assert calls == [R, 16, 16, 16]
+    for name, a, b in zip(fused_mlp.KP_NAMES, sliced, one):
+        err = float((a - b).norm() / b.norm())
+        assert a.shape == b.shape and err <= 1e-5, (name, err)

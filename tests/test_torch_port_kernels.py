@@ -1371,3 +1371,116 @@ def test_stacked_wide_kernels_match_plain_and_single_scene(cuda_device, config):
                 single = fused_render.fused_render_bwd(one[s], *ins, o.raw,
                                                        *(t[s].contiguous() for t in cot), True)
                 assert all(torch.equal(grads6[k][s], t) for k, t in single.items()), s
+
+
+# the fused loop (ROADMAP A.3) and the sliced backward (ROADMAP C.8)
+
+
+def _chunk_setup(dev, k):
+    """A lego-recipe train state at W = 256 (8 layers, 64 + 128 samples,
+    bf16: K1 and K4 on both levels), its step, a ray bank and a window of
+    k steps of 512 rays into it."""
+    from nerf_tpu_torch import config
+    from nerf_tpu_torch.models.factory import init_nets, make_model
+    from nerf_tpu_torch.train.loop import render_settings_from_config
+    from nerf_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = config.load_config(["--dataset_type=blender", "--use_viewdirs", "--white_bkgd",
+                              "--N_samples=64", "--N_importance=128", "--N_rand=512"])
+    model, rs = make_model(cfg), render_settings_from_config(cfg)
+    state = init_train_state(init_nets(model, 5, dev), cfg.lrate)
+    step = make_train_step(model, rs, cfg.lrate, cfg.lrate_decay)
+    ro, rd, _, _ = _rays(11, 4096, 1, dev)
+    target = torch.rand(4096, 3, generator=torch.Generator(device=dev).manual_seed(3),
+                        device=dev)
+    perm = torch.randperm(4096, generator=torch.Generator(device=dev).manual_seed(4),
+                          device=dev)
+    return cfg, model, state, step, (ro, rd, target), perm[: 2 * k * 512].view(2, k, 512)
+
+
+@pytest.mark.cuda
+def test_graph_replay_of_a_chunk_equals_eager_steps(cuda_device):
+    """Two chunks of a two-step CUDA graph (train/graph.py's ChunkRunner:
+    captured at its first chunk after a warm-up step that is undone) against
+    four eager steps of the same state, draws and learning rates: losses,
+    parameters and Adam's state torch.equal; one replay a chunk; the
+    launch counts those of the eager steps; the serving packing kept on
+    a net before the chunks (fused_mlp.packed_params) rebuilt after them."""
+    from nerf_tpu_torch.train.graph import ChunkRunner
+    from nerf_tpu_torch.train.step import lr_schedule
+
+    k, dev = 2, cuda_device
+    runs = {}
+    for fused in (True, False):
+        cfg, model, state, step, (ro, rd, target), windows = _chunk_setup(dev, k)
+        fine = state.nets["fine"]
+        fused_mlp.packed_params(fine, model.pe_pts, model.pe_views, torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(6)
+        near = torch.full((512,), 2.0, device=dev)
+        far = torch.full((512,), 6.0, device=dev)
+        schedule = lr_schedule(cfg.lrate, cfg.lrate_decay)
+        table = torch.tensor([schedule(t) for t in range(2 * k)], dtype=torch.float32,
+                             device=dev)
+        before = (fused_mlp.fused_rays_planes.launches, fused_mlp.fused_rays_planes_bwd.launches)
+        losses = []
+        if fused:
+            runner = ChunkRunner(step, state, k, near, far, gen, [], table, 0)
+            for w in windows:
+                aux = runner.run("batch", lambda j, win: (ro[win[j]], rd[win[j]],
+                                                          target[win[j]]), w)
+                losses.append(aux["loss"])
+            assert runner.replays == 2 and state.step == 2 * k
+        else:
+            for w in windows:
+                for j in range(k):
+                    aux = step(state, ro[w[j]], rd[w[j]], near, far, target[w[j]], generator=gen)
+                    losses.append(aux["loss"][None])
+        torch.cuda.synchronize()
+        counts = (fused_mlp.fused_rays_planes.launches - before[0],
+                  fused_mlp.fused_rays_planes_bwd.launches - before[1])
+        kept, _ = fused_mlp.packed_params(fine, model.pe_pts, model.pe_views, torch.bfloat16)
+        with torch.no_grad():
+            fresh = fused_mlp.pack_params(fine, model.pe_pts, model.pe_views, torch.bfloat16)
+        assert all(torch.equal(kept[n], fresh[n]) for n in fresh)
+        runs[fused] = (torch.cat(losses), state, counts)
+    (lf, sf, cf), (le, se, ce) = runs[True], runs[False]
+    assert cf == ce == (4 * k, 4 * k)
+    assert torch.equal(lf, le) and bool(torch.isfinite(lf).all())
+    for level in ("coarse", "fine"):
+        for a, b in zip(sf.nets[level].parameters(), se.nets[level].parameters()):
+            assert torch.equal(a, b)
+            assert all(torch.equal(sf.optimizer.state[a][key], se.optimizer.state[b][key])
+                       for key in ("step", "exp_avg", "exp_avg_sq"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 5e-2)])
+def test_sliced_k4_backward_matches_one_launch(cuda_device, dtype, tol, monkeypatch):
+    """K4 through _FusedRaysPlanes with the workspace budget forced to 256
+    rays of 1024: four launches whose grads, summed in f32, are the one
+    launch's within ROADMAP's tolerances (f32 rtol 1e-5, bf16 relative L2
+    below 0.05; per leaf)."""
+    mlp = NeRFMLP(MLPConfig(width=256), seed=8, device=cuda_device)
+    with torch.no_grad():
+        kp = fused_mlp.pack_params(mlp, PE_P, PE_V, dtype)
+    leaves = [kp[n].detach().clone().requires_grad_(True) for n in fused_mlp.KP_NAMES]
+    R, S = 1024, 64
+    args = _rays(21, R, S, cuda_device)
+    g = (0.5 + torch.rand(4, R, S, device=cuda_device,
+                          generator=torch.Generator(device=cuda_device).manual_seed(9))) * 1e-4
+
+    def grads():
+        for t in leaves:
+            t.grad = None
+        before = fused_mlp.fused_rays_planes_bwd.launches
+        fused_mlp._FusedRaysPlanes.apply(*args, *leaves).backward(g)
+        torch.cuda.synchronize()
+        return [t.grad.float() for t in leaves], fused_mlp.fused_rays_planes_bwd.launches - before
+
+    one, n_one = grads()
+    item = S * fused_mlp.bwd_point_bytes(kp, S)
+    monkeypatch.setattr(fused_mlp, "WORKSPACE_BUDGET", 256 * item)
+    sliced, n_sliced = grads()
+    assert (n_one, n_sliced) == (1, 4)
+    for name, a, b in zip(fused_mlp.KP_NAMES, sliced, one):
+        assert _rel_l2(a, b) <= tol, (name, _rel_l2(a, b))

@@ -125,3 +125,22 @@ def test_compositing_matches_jax(white_bkgd):
         for o in (out, planes):
             for name in ("rgb", "disp", "acc", "weights", "depth"):
                 _close(getattr(o, name), getattr(ref, name))
+
+
+def test_exclusive_cumprod_backward_is_torchs():
+    """The compositor's cumprod (``compositing._Cumprod``, whose backward
+    reads no value on the host, so that a CUDA graph can capture it) gives
+    torch.cumprod's values and grads bit for bit on inputs with no zero,
+    the 1e-10 floor of an opaque sample's 1 - alpha among them, and with a
+    single sample."""
+    gen = torch.Generator().manual_seed(0)
+    for shape in ((7, 24), (3, 1), (2, 5, 192)):
+        x = torch.rand(shape, generator=gen) * 0.999
+        x[..., 0] = 1e-10
+        x.requires_grad_(True)
+        g = torch.randn(shape, generator=gen)
+        ones = torch.ones_like(x[..., :1])
+        want = torch.cumprod(torch.cat([ones, x], -1), -1)[..., :-1]
+        got = tcomp.exclusive_cumprod(x)
+        assert torch.equal(got, want)
+        assert torch.equal(torch.autograd.grad(got, x, g)[0], torch.autograd.grad(want, x, g)[0])

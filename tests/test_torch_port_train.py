@@ -289,8 +289,7 @@ def test_adam_and_lr_schedule_match_optax():
         sd = state_dict_from_jax_params(grads["coarse"], CFG)
         for n, p in nets["coarse"].named_parameters():
             p.grad = sd[n].clone()
-        for group in jstate.optimizer.param_groups:
-            group["lr"] = ours(t)
+        tstep.set_lr(jstate.optimizer, ours(t))  # the tensor the train step sets
         jstate.optimizer.step()
     got = {"coarse": jax_params_from_state_dict(nets["coarse"].state_dict(), CFG)}
     for name, g, want in _leaf_pairs(got, params):
@@ -559,3 +558,125 @@ def test_wide_render_rays_and_train_step_match_jax():
         assert np.abs(g - want).max() <= 4 * LRATE, name
         err = np.linalg.norm((g - p0) - (want - p0)) / np.linalg.norm(want - p0)
         assert err <= UPDATE_TOL, (name, err)
+
+
+# (i) the fused loop (fuse_steps, ROADMAP A.3): chunks of k steps, on the
+# CPU the graph's plain version (train/graph.py runs the k steps eagerly)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Tiny ops: on torch's default thread pool beside other busy test
+    processes they wait on the pool far longer than they compute (as
+    tests/test_torch_port_cli.py's fixture says)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _fuse_cfg(tmp_path, **kw):
+    base = dict(basedir=str(tmp_path), expname="fuse", dataset_type="blender", N_rand=64,
+                N_samples=8, N_importance=8, netdepth=2, netwidth=32, netdepth_fine=2,
+                netwidth_fine=32, use_viewdirs=True, white_bkgd=True, n_iters=36, i_print=12,
+                i_img=0, i_weights=0, i_testset=0, i_video=0, seed=3, data_axis=1,
+                compute_dtype="float32")
+    base.update(kw)
+    return tconfig.NeRFConfig(**base)
+
+
+@pytest.fixture(scope="module")
+def fuse_scene():
+    return make_scene(H=20, W=20, n_train=4, n_test=1, seed=2)
+
+
+@pytest.mark.parametrize("policy,chunks", [
+    # chunks 1-5, 7-11, 13-17, 18-22, 25-29, 30-34 (step 6 the crop's last)
+    (dict(no_batching=True, precrop_iters=7, precrop_frac=0.5), 6),
+    # the precrop boundary (step 10, the first full-frame step) falls as the
+    # last step of a would-be chunk [6..10]: 1-5, then 6..10 alone, 11-15,
+    # 16-20; an i_print of 5
+    (dict(no_batching=True, precrop_iters=10, precrop_frac=0.5, i_print=5, n_iters=20), 3),
+    # 1,600 rays, 64 a step: the chunks cross epoch wraps
+    (dict(no_batching=False), 6),
+], ids=["crop7", "crop10", "batching"])
+def test_fused_loop_matches_per_step_loop(tmp_path, fuse_scene, monkeypatch, policy, chunks,
+                                          one_torch_thread):
+    """train() with fuse_steps = 5 against fuse_steps = 1 (tests/test_train.py's
+    fused-scan test at its sizes): the same history and parameters bit for
+    bit, for both policies, across the precrop boundary and an i_print that
+    5 does not divide; chunks of 5 steps, never across an event."""
+    made = []
+    for cls in (tdata.BatchedRaySampler, tdata.ImageRaySampler):
+        real = cls.advance
+        monkeypatch.setattr(cls, "advance", lambda self, k, real=real: made.append(k) or real(self, k))
+    runs = {}
+    for fuse in (1, 5):
+        made.clear()
+        result = train(_fuse_cfg(tmp_path / f"f{fuse}", fuse_steps=fuse, **policy), fuse_scene,
+                       device="cpu")
+        runs[fuse] = (result, list(made))
+    (one, no_chunks), (five, five_chunks) = runs[1], runs[5]
+    assert no_chunks == [] and five_chunks == [5] * chunks
+    assert len(one.history) >= 3 and one.history == five.history
+    assert one.state.step == five.state.step
+    for level in ("coarse", "fine"):
+        for (name, a), b in zip(one.state.nets[level].named_parameters(),
+                                five.state.nets[level].parameters()):
+            assert torch.equal(a, b), (level, name)
+    opt1, opt5 = one.state.optimizer, five.state.optimizer
+    for p1, p5 in zip(opt1.param_groups[0]["params"], opt5.param_groups[0]["params"]):
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(opt1.state[p1][key], opt5.state[p5][key]), key
+
+
+def test_batched_window_matches_next_batch_across_an_epoch_wrap(scene):
+    """The window builder: k steps' indices [k, n_rand], gathered, are the
+    batches of k next_batch calls across two epoch wraps (the tail, then a
+    new permutation from the generator); advance(k) leaves the sampler as
+    those calls did, and building a window alone moves nothing."""
+    n_rand, k = 64, 25  # 960 rays an epoch: 15 steps, the 25 cross two wraps
+    ref = tdata.BatchedRaySampler(scene, n_rand, torch.Generator().manual_seed(4), device="cpu")
+    got = tdata.BatchedRaySampler(scene, n_rand, torch.Generator().manual_seed(4), device="cpu")
+    for _ in range(3):
+        ref.next_batch()
+        got.next_batch()
+    want = [torch.cat(ref.next_batch(), -1) for _ in range(k)]
+    state = (got.perm.clone(), got.i_batch, got.generator.get_state())
+    got.window(k)
+    assert torch.equal(got.perm, state[0]) and got.i_batch == state[1]
+    assert torch.equal(got.generator.get_state(), state[2])
+    window = got.window(k)
+    assert window.shape == (k, n_rand)
+    for j in range(k):
+        assert torch.equal(torch.cat(got.gather(window[j]), -1), want[j]), j
+    got.advance(k)
+    assert torch.equal(got.perm, ref.perm) and got.i_batch == ref.i_batch
+    assert torch.equal(got.generator.get_state(), ref.generator.get_state())
+    assert torch.equal(torch.cat(got.next_batch(), -1), torch.cat(ref.next_batch(), -1))
+
+
+def test_fused_chunks_and_cap_line_match_nerf_tpu(tmp_path, fuse_scene, monkeypatch, capsys,
+                                                  one_torch_thread):
+    """The same config through both packages' train(): the same chunk
+    sizes (each sampler's advance(k)) and the same [FUSE] cap line, here
+    with fuse_steps 50 capped to i_print 5 and the batching policy (two
+    chunks, steps 11 and 12 one by one; the port's test above holds its
+    precrop chunks)."""
+    from nerf_tpu.train.loop import train as jtrain
+
+    kw = dict(fuse_steps=50, i_print=5, n_iters=12, no_batching=False)
+    runs = {}
+    for name, pkg, run in (("port", tdata, lambda c: train(c, fuse_scene, device="cpu")),
+                           ("nerf_tpu", jdata, lambda c: jtrain(
+                               jconfig.NeRFConfig(**dataclasses.asdict(c)), scene=fuse_scene))):
+        chunks = []
+        real = pkg.BatchedRaySampler.advance
+        monkeypatch.setattr(pkg.BatchedRaySampler, "advance",
+                            lambda self, k, real=real: chunks.append(k) or real(self, k))
+        run(_fuse_cfg(tmp_path / name, **kw))
+        lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[FUSE]")]
+        runs[name] = (chunks, lines)
+    assert runs["port"] == runs["nerf_tpu"] == ([5, 5],
+                                                ["[FUSE] fuse_steps=50 capped to 5 "
+                                                 "(smallest cadence interval)"])
