@@ -166,10 +166,17 @@ Data parallelism (``parallel/mesh.py``, ``parallel/distributed.py``):
    loss, the two ranks' parameters and Adam moments ``torch.equal``, the
    loss at each i_print and the final parameters within the CPU test's
    bounds of the one-process run, one .tar equal to rank 0's state, the
-   test-set PNG; then with two or more cards the same run on NCCL, a card
-   a rank, and the bf16 step's ms/step and all-reduce device ms from rank
-   0's profile (``tools/dp_time.py``'s rank); with one card a one-rank
-   NCCL group's 2 steps and one all-reduce.
+   test-set PNG; the gloo ranks print the ``[FUSE]`` line of a group whose
+   collectives a CUDA graph cannot hold and step one by one. Then NCCL, a
+   card a rank (``tools/dp_time.py``'s ranks): with two or more cards the
+   same run step by step, ``train()`` at the lego recipe for 2 chunks of
+   ``fuse_steps`` 4 against ``fuse_steps`` 1 (``dp_time.check_rank``:
+   history, parameters and Adam's state ``torch.equal`` on every rank, one
+   CUDA graph replay a chunk, 2 K1 + 2 K4 a step either way), and the bf16
+   step's ms/step, device ms, all-reduce device ms, idle share and peak
+   memory from rank 0's profile, step by step and fused; with one card a
+   one-rank NCCL group (``train()`` over its mesh, the all-reduces over
+   itself) makes the same fused check, then 2 steps and one all-reduce.
 Multi-scene training (``parallel/multi_scene.py``, ``cli/train_multi.py``):
 25. multi: the port's ``tools/make_multi_scenes.py`` writes the 8 scenes of
    configs/multi (3 / 1 / 1 views of the tool's 15 / 3 / 3) and
@@ -2750,7 +2757,8 @@ def dp_state(state) -> dict:
 def dp_rank(device, argv):
     """24. ``cli.train.main(argv)`` on ``device``, in the rank's group (or
     alone), with the launch counters and the ray count of each K1 and K4
-    launch; returns them with the history and the final state."""
+    launch; returns them with the history, the final state and the
+    ``[FUSE]`` lines it printed."""
     from nerf_tpu_torch.cli import train as cli_train
     from nerf_tpu_torch.ops import fused_mlp
 
@@ -2770,14 +2778,17 @@ def dp_rank(device, argv):
 
     reset_counts()
     fused_mlp._launch, fused_mlp._launch_bwd = k1, k4
+    tee = Tee(sys.stdout)
     try:
-        result = cli_train.main(argv, device=device)
+        with contextlib.redirect_stdout(tee):
+            result = cli_train.main(argv, device=device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:
         fused_mlp._launch, fused_mlp._launch_bwd = fwd, bwd
     return {"counts": read_counts(), "rays": rays, "history": result.history,
-            "state": dp_state(result.state)}
+            "state": dp_state(result.state), "chunks": result.chunks,
+            "fuse_lines": [ln for ln in tee.text().splitlines() if ln.startswith("[FUSE]")]}
 
 
 def dp_argv(root: str, expname: str, data_axis: int, dtype: str = DP_PARITY_DTYPE):
@@ -2860,10 +2871,49 @@ def dp_check_run(ranks, one, root: str, expname: str, start, what: str) -> dict:
     return numbers
 
 
+def dp_nccl_rank(device, views, timed):
+    """24. A rank of the NCCL group: ``dp_time.check_rank`` (the fused loop
+    against step by step through ``train()`` on ``views``), then
+    ``dp_time.time_rank(device, *timed)``."""
+    from nerf_tpu_torch.tools import dp_time
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"check": dp_time.check_rank(device, views), "time": dp_time.time_rank(device, *timed)}
+
+
+def dp_fuse_check(ranks, what: str) -> dict:
+    """24. Every rank's ``dp_time.check_rank``: ``torch.equal``, CHECK_CHUNKS
+    chunks fused, each one graph replay, none step by step, the same
+    launches either way, 2 K1 + 2 K4 a step (the bf16 backward's recompute
+    and chain each too) and no other; the ranks' histories equal. Returns
+    rank 0's numbers."""
+    from nerf_tpu_torch.tools import dp_time
+
+    steps = dp_time.CHECK_K * dp_time.CHECK_CHUNKS
+    want = {name: 2 * steps for name in ("fused_rays_planes", "fused_rays_planes_bwd",
+                                         "bwd_recompute", "bwd_chain")}
+    for r, out in enumerate(c["check"] for c in ranks):
+        fused, per_step = out["fused"], out["per_step"]
+        ok = (out["equal"] and fused["chunks"] == fused["replays"] == dp_time.CHECK_CHUNKS
+              and per_step["chunks"] == per_step["replays"] == 0
+              and fused["launches"] == per_step["launches"] == want
+              and not any(ln.startswith("[FUSE]") and "not fused" in ln for ln in fused["lines"])
+              and out["history"] == ranks[0]["check"]["history"])
+        if not ok:
+            raise RuntimeError(f"{what}, rank {r}: the fused loop against step by step: {out}")
+    out = ranks[0]["check"]
+    return {"fuse_steps": dp_time.CHECK_K, "fused_steps": steps, "fused_equal": True,
+            "fused_chunks": out["fused"]["chunks"], "fused_replays": out["fused"]["replays"],
+            "fused_launches": out["fused"]["launches"], "fused_history": out["history"],
+            "mesh_line": next((ln for ln in out["fused"]["lines"] if ln.startswith("[MESH]")), None)}
+
+
 def dp_phase(views, dev):
     """24. Data parallelism through ``cli.train.main`` on phase 19's teacher
-    scene: one process, then 2 gloo ranks on this card, then NCCL with a
-    card a rank (or a one-rank NCCL group)."""
+    scene: one process, then 2 gloo ranks on this card (step by step: gloo
+    is no capturable group), then NCCL with a card a rank (or a one-rank
+    NCCL group): the fused loop against step by step, and the times."""
     from nerf_tpu_torch.config import load_config
     from nerf_tpu_torch.models.factory import init_nets, make_model
     from nerf_tpu_torch.parallel import distributed
@@ -2875,47 +2925,68 @@ def dp_phase(views, dev):
     start = {lvl: {n: p.detach().cpu() for n, p in net.named_parameters()}
              for lvl, net in init_nets(make_model(cfg), cfg.seed, dev).items()}
     t0 = time.perf_counter()
-    # step by step, as the ranks step (ROADMAP A.3b): dp_rank reads each
-    # launch's rays in Python, which a fused chunk runs only at its capture
+    # step by step: dp_rank reads each launch's rays in Python, which a
+    # fused chunk runs only at its capture (the fused loop is held to this
+    # below, and in phase 31)
     one = dp_rank(dev, dp_argv(root, "one", 1) + ["--fuse_steps=1"])
     one_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    # the config's fuse_steps: gloo ranks on a card step one by one, and
+    # rank 0 says so
     ranks = distributed.launch(dp_rank, DP_RANKS, "cuda:0", backend="gloo",
                                args=(dp_argv(root, "gloo", DP_RANKS),))
     gloo_s = time.perf_counter() - t0
     numbers = dp_check_run(ranks, one, root, "gloo", start, "dp gloo")
+    fuse_lines = ranks[0]["fuse_lines"]
+    if len(fuse_lines) != 1 or "gloo" not in fuse_lines[0] or \
+            not fuse_lines[0].endswith("step by step") or any(out["chunks"] for out in ranks):
+        raise RuntimeError(f"dp gloo: [FUSE] lines {fuse_lines}, chunks "
+                           f"{[out['chunks'] for out in ranks]}")
     # two processes time-slice one card here: their speed means nothing
     phase("dp", backend="gloo", ranks=DP_RANKS, devices="cuda:0 for both ranks (one card)",
           steps=DP_STEPS, n_rand=N_RAND, rays_per_rank=N_RAND // DP_RANKS, dtype=DP_PARITY_DTYPE,
           launches=[out["counts"] for out in ranks], one_process_launches=one["counts"],
           replicas_equal=True, one_process_s=f"{one_s:.2f}", launch_s=f"{gloo_s:.2f}",
-          **numbers)
+          fuse_line=repr(fuse_lines[0]), **numbers)
     cards = torch.cuda.device_count()
     if cards >= 2:
-        ranks = distributed.launch(dp_rank, DP_RANKS, "cuda", args=(dp_argv(root, "nccl", DP_RANKS),))
+        ranks = distributed.launch(dp_rank, DP_RANKS, "cuda",
+                                   args=(dp_argv(root, "nccl", DP_RANKS) + ["--fuse_steps=1"],))
         numbers = dp_check_run(ranks, one, root, "nccl", start, "dp nccl")
-        # the bf16 step's time, a card a rank (tools/dp_time.py's windows)
-        timed = distributed.launch(dp_time.time_rank, DP_RANKS, "cuda")
+        # the fused loop, then the bf16 step's time step by step and fused,
+        # a card a rank (tools/dp_time.py's ranks)
+        nccl = distributed.launch(dp_nccl_rank, DP_RANKS, "cuda", args=(views, ()))
+        fused = dp_fuse_check(nccl, "dp nccl")
+        timed = [o["time"] for o in nccl]
         devices = sorted({t["device"] for t in timed})
         if len(devices) != DP_RANKS or any(t["all_reduce_of_ones"] != [DP_RANKS] * 8 for t in timed):
             raise RuntimeError(f"dp nccl: devices {devices}, all-reduce {timed}")
+        t = timed[0]
         phase("dp", backend="nccl", ranks=DP_RANKS, devices=devices, cards=cards, steps=DP_STEPS,
-              launches=[out["counts"] for out in ranks], replicas_equal=True, **numbers,
-              timed_dtype="bfloat16", ms_per_step=f"{timed[0]['ms_per_step']:.3f}",
-              window_ms_per_step=[f"{t:.3f}" for t in timed[0]["window_ms_per_step"]],
-              device_ms_per_step=f"{timed[0]['device_ms_per_step']:.3f}",
-              allreduce_device_ms_per_step=f"{timed[0]['allreduce_ms_per_step']:.3f}",
-              allreduce_kernels=timed[0]["allreduce_kernels"])
+              launches=[out["counts"] for out in ranks], replicas_equal=True, **numbers, **fused,
+              timed_dtype="bfloat16", ms_per_step=f"{t['ms_per_step']:.3f}",
+              window_ms_per_step=[f"{x:.3f}" for x in t["window_ms_per_step"]],
+              device_ms_per_step=f"{t['device_ms_per_step']:.3f}",
+              allreduce_device_ms_per_step=f"{t['allreduce_ms_per_step']:.3f}",
+              idle_share=t["idle_share"], peak_gib=f"{t['peak_gib']:.2f}",
+              fused_ms_per_step=f"{t['fused_ms_per_step']:.3f}",
+              fused_device_ms_per_step=f"{t['fused_device_ms_per_step']:.3f}",
+              fused_allreduce_device_ms_per_step=f"{t['fused_allreduce_ms_per_step']:.3f}",
+              fused_idle_share=t["fused_idle_share"], fused_peak_gib=f"{t['fused_peak_gib']:.2f}",
+              allreduce_kernels=t["allreduce_kernels"])
     else:
-        (out,) = distributed.launch(dp_time.time_rank, 1, "cuda",
-                                    args=(0, 0, 0, DP_ONE_RANK_STEPS))
-        if out["all_reduce_of_ones"] != [1.0] * 8 or not np.isfinite(out["loss"]):
+        (out,) = distributed.launch(dp_nccl_rank, 1, "cuda",
+                                    args=(views, (0, 0, 0, DP_ONE_RANK_STEPS, 0)))
+        fused = dp_fuse_check([out], "dp nccl, one rank")
+        t = out["time"]
+        if t["all_reduce_of_ones"] != [1.0] * 8 or not np.isfinite(t["loss"]) or \
+                fused["mesh_line"] is None:
             raise RuntimeError(f"dp nccl, one rank: {out}")
-        phase("dp", backend="nccl", ranks=1, devices=[out["device"]],
-              note="a second card was not present: a one-rank NCCL group",
-              steps=DP_ONE_RANK_STEPS, loss=f"{out['loss']:.6f}",
-              allreduce_device_ms_per_step=f"{out['allreduce_ms_per_step']:.3f}",
-              allreduce_kernels=out["allreduce_kernels"], all_reduce_of_ones="ok")
+        phase("dp", backend="nccl", ranks=1, devices=[t["device"]],
+              note="a second card was not present: a one-rank NCCL group", **fused,
+              steps=DP_ONE_RANK_STEPS, loss=f"{t['loss']:.6f}",
+              allreduce_device_ms_per_step=f"{t['allreduce_ms_per_step']:.3f}",
+              allreduce_kernels=t["allreduce_kernels"], all_reduce_of_ones="ok")
     shutil.rmtree(root)
 
 

@@ -14,6 +14,9 @@ of its own, gloo on the CPU; another one only when the caller names it.
 - ``launch`` spawns n ranks on this host and returns their results.
 - ``host_shard_slice`` is the rank's rows of a global batch axis, and
   ``barrier`` waits for every rank (JAX's ``sync_global_devices``).
+- ``capturable`` says whether a backend's collectives can go into a CUDA
+  graph (the fused loop over ranks), and ``connect`` makes a group's
+  communicator before the first capture.
 
 nerf_tpu's ``global_batch_from_host_shards`` has no counterpart: it
 assembles one global array from every host's shard, and here each rank
@@ -45,13 +48,18 @@ def default_backend(device: DeviceLike) -> str:
     return "gloo" if torch.device(device).type == "cpu" else "nccl"
 
 
+def in_group() -> bool:
+    """Whether this process has joined a process group (of any size)."""
+    return dist.is_available() and dist.is_initialized()
+
+
 def world_size() -> int:
     """The ranks in the process group; 1 without one."""
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return dist.get_world_size() if in_group() else 1
 
 
 def rank() -> int:
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    return dist.get_rank() if in_group() else 0
 
 
 def local_rank() -> int:
@@ -120,6 +128,24 @@ def shard_slice(n_total: int, index: int, size: int) -> slice:
 def host_shard_slice(n_total: int) -> slice:
     """This rank's contiguous shard of a length-n_total global batch axis."""
     return shard_slice(n_total, rank(), world_size())
+
+
+def capturable(backend: str) -> bool:
+    """Whether a CUDA graph can hold the collectives of a ``backend`` group
+    (train/graph.py's chunks over ranks): NCCL's can, its kernels queued on
+    a stream that the capture joins; gloo's cannot, its all-reduce of a
+    card's tensor goes through the host."""
+    return backend == "nccl"
+
+
+def connect(group, device: torch.device) -> None:
+    """Make the group's communicator on ``device`` now, by one all-reduce
+    waited for: NCCL makes it at the group's first collective on the card,
+    and that must not be one inside a graph's capture."""
+    probe = torch.zeros(1, device=device)
+    dist.all_reduce(probe, group=group)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def barrier(group=None) -> None:

@@ -9,7 +9,10 @@ all-reduces the gradients one level at a time, and every rank runs the
 same Adam update. The random draws are made for the whole batch on every
 rank, from one seed, and sliced, as nerf_tpu draws them globally
 (mesh.py:90-92), so n ranks train as one process does, up to the order of
-f32 sums.
+f32 sums. The sharded step takes the same ``lr`` tensor as the one-process
+step, so ``train()``'s fused loop (train/graph.py) runs it as k steps of
+one CUDA graph on each rank, NCCL's all-reduces inside (nerf_tpu's scan of
+its shard_map step, ROADMAP A.3b).
 
 nerf_tpu's DP×TP path (``shard_model_axis=True``, parameters sharded over
 a ``'model'`` axis) is not ported (ROADMAP A.8b).
@@ -89,21 +92,23 @@ def place_state(mesh: Mesh, state: TrainState) -> TrainState:
 def make_sharded_train_step(mesh: Mesh, model, rs, lrate: float, lrate_decay: int, hwf=None):
     """The train step over the mesh, with the port's signature:
     ``step(state, rays_o, rays_d, near, far, target, generator=None,
-    overrides=None) -> aux``, where the rays are this rank's rows (the
-    samplers' ``mesh`` batches) and ``overrides``, when given, are the
+    overrides=None, lr=None) -> aux``, where the rays are this rank's rows
+    (the samplers' ``mesh`` batches) and ``overrides``, when given, are the
     whole batch's. The draws are made for the whole batch from
     ``generator`` (the same seed on every rank), then this rank's rows are
-    taken; the per-rank step all-reduces the gradients and the loss
-    terms, so ``aux`` is the whole batch's on every rank."""
+    taken; ``lr`` is ``make_train_step``'s (a 0-dim device tensor, else
+    the schedule's at ``state.step``); the per-rank step all-reduces the
+    gradients and the loss terms, so ``aux`` is the whole batch's on every
+    rank."""
     step = make_train_step(model, rs, lrate, lrate_decay, hwf=hwf, group=mesh.group)
 
     def sharded_step(state: TrainState, rays_o, rays_d, near, far, target, generator=None,
-                     overrides=None):
+                     overrides=None, lr=None):
         n_global = rays_o.shape[0] * mesh.size
         if overrides is None:
             overrides = draw_overrides(generator, n_global, rs)
         rows = mesh.shard_slice(n_global)
         overrides = {k: v[rows] for k, v in overrides.items()}
-        return step(state, rays_o, rays_d, near, far, target, overrides=overrides)
+        return step(state, rays_o, rays_d, near, far, target, overrides=overrides, lr=lr)
 
     return sharded_step

@@ -1,6 +1,8 @@
 """The fused training loop's chunks: k steps of sampler and step, on a card
 as one CUDA graph (nerf_tpu's ``fuse_steps``, its lax.scan of k steps,
-nerf_tpu/train/loop.py:420-511; ROADMAP A.3).
+nerf_tpu/train/loop.py:420-511; ROADMAP A.3), in one process or on each
+rank of an NCCL group (the sharded step, parallel/mesh.py: its gradient
+and loss all-reduces go into the graph; ROADMAP A.3b).
 
 ``ChunkRunner.run(phase, sample, window)`` makes the k steps that start at
 the train state's step. Step j takes its batch from ``sample(j, window)``
@@ -25,6 +27,13 @@ each wrapper's launch counts once, and every replay adds them
 (``launch_counters``), so the counts read what ran. A failed capture or
 replay raises: nothing falls back to eager steps on a card. A replay bumps
 the parameters' version counters, as the eager steps' in-place updates do.
+
+Over ranks every rank makes the same chunks (the loop's rule reads only
+the config), so each runs the warm-up step and its undo at the same chunk,
+its all-reduces paired with the other ranks', captures the same
+collectives in the same order, and replays each graph when the others do.
+The group's communicator exists before the first capture
+(``distributed.connect``).
 
 On the CPU the same k steps run eagerly, from the same inputs: the graph's
 plain version, which the tests hold to the per-step loop bit for bit.
@@ -177,7 +186,14 @@ class ChunkRunner:
         for g in gens:
             graph.register_generator_state(g)
         before = _read_counts(self._counters)
-        with torch.cuda.graph(graph, pool=self.pool):
+        # "thread_local": a call this thread may not make while capturing
+        # still raises, but another thread's CUDA call is no error of the
+        # capture's. Over NCCL ranks one such thread runs throughout, NCCL's
+        # watchdog, which queries its collectives' events, and a "global"
+        # capture forbids such queries to every thread of the process. On
+        # H100s, groups of 1, 2 and 4 NCCL ranks captured and replayed bit
+        # for bit in either mode (PERF.md §6).
+        with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
             outputs = self._steps(sample, self.window, self.k)
         self.pool = graph.pool()
         counts = [a - b for a, b in zip(_read_counts(self._counters), before)]

@@ -10,11 +10,14 @@ nerf_tpu's steps. On one device, or data-parallel over the ranks of a
 process group (parallel/mesh.py; ``cli.train`` launches them): each rank
 trains on its rows of every batch, renders its rows of the holdout frame
 and its share of the spiral and test frames, and rank 0 prints and writes
-the shared files. With ``fuse_steps`` > 1 in one process the loop runs
-chunks of that many steps, each one replay of a CUDA graph of the steps on
-a card (train/graph.py; nerf_tpu's lax.scan of steps, ROADMAP A.3), the
-same draws and updates as step by step; over ranks it stays step by step
-(ROADMAP A.3b).
+the shared files. With ``fuse_steps`` > 1 the loop runs chunks of that
+many steps, each one replay of a CUDA graph of the steps on a card
+(train/graph.py; nerf_tpu's lax.scan of steps, ROADMAP A.3), the same draws
+and updates as step by step: in one process, and over ranks whose group's
+collectives a graph can hold (NCCL: each rank replays its graph, the
+all-reduces inside, ROADMAP A.3b); on the CPU the chunks run their steps
+eagerly. Ranks on cards over gloo step one by one, and say so in a
+``[FUSE]`` line (``fuse_refusal``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nerf_tpu_torch.config import NeRFConfig, dump_config
 from nerf_tpu_torch.data.rays_dataset import make_sampler
@@ -224,6 +228,23 @@ def render_path_multiprocess(
 class TrainResult:
     state: TrainState
     history: list  # [(step, loss, psnr)] at each i_print
+    chunks: int = 0  # chunks of fuse_steps run fused (on a card, a graph replay each)
+
+
+def fuse_refusal(fuse: int, n_ranks: int, device: torch.device,
+                 backend: Optional[str]) -> Optional[str]:
+    """The ``[FUSE]`` line of a loop asked for chunks of ``fuse`` steps that
+    must step one by one on ``device`` over ``n_ranks`` ranks of a
+    ``backend`` group (None: one process), or None when it may fuse. One
+    process fuses; so do ranks on the CPU, whose chunks run their steps
+    eagerly, and ranks on cards whose collectives a CUDA graph can hold
+    (``distributed.capturable``: NCCL). Over gloo a card's all-reduce goes
+    through the host, so those ranks step one by one, and say so."""
+    if backend is None or device.type != "cuda" or distributed.capturable(backend):
+        return None
+    return (f"[FUSE] fuse_steps={fuse} not fused over {n_ranks} {backend} ranks on cards: "
+            f"{backend}'s all-reduce of a card's tensor goes through the host, which a CUDA "
+            "graph cannot hold; step by step")
 
 
 def _data_ranks(cfg: NeRFConfig) -> int:
@@ -265,7 +286,9 @@ def train(
     hooks = hooks or {}
     dev = resolve_device(device)
     n_data = _data_ranks(cfg)
-    mesh = make_mesh(n_data, dev) if n_data > 1 else None
+    # a group of any size trains over its mesh (a one-rank group all-reduces
+    # over itself: the same updates as one process)
+    mesh = make_mesh(n_data, dev) if distributed.in_group() else None
     if mesh is not None:
         dev = mesh.device
     is_main = mesh is None or mesh.is_main
@@ -378,15 +401,17 @@ def train(
     # 420-511) as a CUDA graph of k steps (train/graph.py), the same draws as
     # the per-step loop's. Chunks never cross a cadence event or the precrop
     # boundary, so every event fires at the same step; a chunk is exactly
-    # ``fuse`` steps, anything shorter runs step by step.
+    # ``fuse`` steps, anything shorter runs step by step. Over ranks the
+    # chunks are the same on every rank (the rule reads only the config),
+    # so each rank captures and replays the same all-reduces in one order.
     fuse = max(1, int(cfg.fuse_steps))
     can_fuse = (fuse > 1 and not cfg.trace and "on_step" not in hooks
                 and sampler.scan_supported())
-    if can_fuse and mesh is not None:
-        # one graph over ranks would hold NCCL's all-reduce (ROADMAP A.3b)
+    refusal = fuse_refusal(fuse, n_data, dev,
+                           None if mesh is None else dist.get_backend(mesh.group))
+    if can_fuse and refusal is not None:
         if is_main:
-            print(f"[FUSE] fuse_steps={fuse} not fused over {n_data} ranks: step by step "
-                  "(ROADMAP A.3b)")
+            print(refusal)
         can_fuse = False
     cadences = [c for c in (cfg.i_print, cfg.i_img, cfg.i_weights, cfg.i_video, cfg.i_testset)
                 if c > 0]
@@ -404,6 +429,8 @@ def train(
                                 dtype=torch.float32, device=dev)
         runner = ChunkRunner(step_fn, state, fuse, near_v, far_v, step_gen,
                              [sampler.generator] if cfg.no_batching else [], lr_table, state.step)
+        if mesh is not None and dev.type == "cuda":
+            distributed.connect(mesh.group, dev)  # before the first capture
 
     def chunk_for(i: int) -> int:
         """Steps a chunk may take from step i (at least 1): up to the next
@@ -454,12 +481,14 @@ def train(
         history.append((step_i, loss, psnr))
 
     i = start + 1
+    chunks = 0
     try:
         while i <= cfg.n_iters:
             k = chunk_for(i) if can_fuse else 1
             if can_fuse and k >= fuse:
                 k = fuse
                 chunk = run_chunk(i)
+                chunks += 1
                 aux = {name: v[-1] for name, v in chunk.items()}
                 losses = chunk["loss"]
             else:
@@ -544,4 +573,4 @@ def train(
     finally:
         if pbar is not None:
             pbar.close()
-    return TrainResult(state=state, history=history)
+    return TrainResult(state=state, history=history, chunks=chunks)

@@ -157,7 +157,11 @@ class _GradMean:
     Each level's gradients go through one flat buffer that lives for the
     run; a gradient that is None (a parameter the loss does not reach) goes
     in as zeros, and every parameter's ``.grad`` is then a view of the
-    reduced buffer."""
+    reduced buffer. A CUDA graph can hold it (train/graph.py's chunks over
+    NCCL ranks): the buffers are made at the first step, outside any
+    capture, and stay; nothing reads a value on the host; each
+    ``all_reduce`` is waited for on the current stream, so its ``div_``
+    and everything after it follow it there."""
 
     def __init__(self, group):
         self.group = group

@@ -1399,6 +1399,25 @@ def _chunk_setup(dev, k):
 
 
 @pytest.mark.cuda
+def test_fused_loop_over_nccl_ranks_equals_step_by_step(cuda_device):
+    """train() over an NCCL group, a card a rank (two ranks where the
+    machine has two cards, else a one-rank group over its mesh), with
+    fuse_steps 4 and with 1 (tools/dp_time.py's check_rank): history,
+    parameters and Adam's state torch.equal on every rank, one graph
+    replay a chunk with the all-reduces inside, the same launches."""
+    from nerf_tpu_torch.parallel import distributed
+    from nerf_tpu_torch.tools import dp_time
+
+    ranks = distributed.launch(dp_time.check_rank, min(2, torch.cuda.device_count()), "cuda")
+    for r in ranks:
+        assert r["equal"], r
+        assert r["fused"]["chunks"] == r["fused"]["replays"] == dp_time.CHECK_CHUNKS
+        assert r["per_step"]["replays"] == 0
+        assert r["fused"]["launches"] == r["per_step"]["launches"]
+        assert r["history"] == ranks[0]["history"]
+
+
+@pytest.mark.cuda
 def test_graph_replay_of_a_chunk_equals_eager_steps(cuda_device):
     """Two chunks of a two-step CUDA graph (train/graph.py's ChunkRunner:
     captured at its first chunk after a warm-up step that is undone) against

@@ -3,10 +3,13 @@
 One module-scoped fixture starts two gloo ranks once
 (``parallel.distributed.launch``); each runs
 tests/torch_port_parallel_worker.py: ``cli.train.main`` with
-``--data_axis 2`` for 6 steps with every cadence firing, then nerf_tpu's
-shard_map step as the port runs it, both samplers and the mesh-sharded
-frame renderer, then ``cli.train_multi.main`` on two scenes with
-``--data_axis 2`` (a scene a rank), and sends back its state and outputs.
+``--data_axis 2`` for 6 steps with every cadence firing (the fused loop,
+its chunks capped at 2 by i_print), the same ranks step by step, and a
+batching run fused and step by step, then nerf_tpu's shard_map step as the
+port runs it (with the schedule's float and with an ``lr`` tensor), both
+samplers and the mesh-sharded frame renderer, then
+``cli.train_multi.main`` on two scenes with ``--data_axis 2`` (a scene a
+rank), and sends back its state and outputs.
 The same ``cli.train.main`` and ``cli.train_multi.main`` run once more in
 this process with ``--data_axis 1``.
 At the smallest shapes that catch a wrong result: a 16x16 blender scene,
@@ -16,6 +19,7 @@ chip_smoke.py's phase 24.
 
 import contextlib
 import dataclasses
+import io
 import os
 import pickle
 import re
@@ -50,7 +54,7 @@ from nerf_tpu_torch.utils.io import read_png
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from synthetic_scene import write_blender_dataset  # noqa: E402
-from torch_port_parallel_worker import rank_run  # noqa: E402
+from torch_port_parallel_worker import rank_run, train_rank  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 STEPS = 6
@@ -68,14 +72,30 @@ FRAME_HW = (15, 15)  # an odd number of rays: the sharded renderer pads
 FRAME_TOL = 1e-6
 
 
-def _argv(tmp, datadir, expname, data_axis):
+def _argv(tmp, datadir, expname, data_axis, **override):
     flags = {"config": str(REPO / "configs" / "lego.txt"), "datadir": datadir,
              "basedir": str(tmp / "logs"), "expname": expname, "half_res": False,
              "testskip": 1, "netdepth": 4, "netwidth": 64, "netdepth_fine": 4,
              "netwidth_fine": 64, "N_samples": 8, "N_importance": 8, "N_rand": 64,
              "precrop_iters": 2, "compute_dtype": "float32", "n_iters": STEPS,
-             "data_axis": data_axis, **CADENCES}
+             "data_axis": data_axis, **CADENCES, **override}
     return [f"--{k}={v}" for k, v in flags.items()]
+
+
+NO_EVENTS = {"i_img": 0, "i_weights": 0, "i_testset": 0, "i_video": 0}
+# the batching policy's fused run: chunks of 4 (steps 1-4, ..., 17-20); its
+# 40-ray batches wrap the 768 rays' epoch at step 20, inside the last chunk
+BATCHING = {"no_batching": False, "N_rand": 40, "n_iters": 20, "i_print": 4, **NO_EVENTS}
+BATCHING_CHUNKS = 5
+
+
+def _fuse_argvs(tmp, datadir):
+    """(fused, per-step) argv of each policy's ranks; the image policy's
+    fused run is the ranks' main run (None). A per-step run drops the eval
+    cadences, which change no state, and keeps i_print's history."""
+    return {"image": (None, _argv(tmp, datadir, "dp1", 2, fuse_steps=1, **NO_EVENTS)),
+            "batching": (_argv(tmp, datadir, "dpb", 2, fuse_steps=4, **BATCHING),
+                         _argv(tmp, datadir, "dpb1", 2, fuse_steps=1, **BATCHING))}
 
 
 MULTI_STEPS = 4
@@ -145,7 +165,8 @@ def runs(tmp_path_factory):
     jparams, step_job = _step_job(cfg)
     job = {"argv": _argv(tmp, datadir, "dp", 2), "cfg": cfg, "step": step_job,
            "scene": (datadir, False, 1, True), "sampler": (SAMPLER_RAND, SAMPLER_BATCHES),
-           "frame_hw": FRAME_HW, "chunk": 50, "multi_argv": _multi_argv(tmp, datadir, 2)}
+           "frame_hw": FRAME_HW, "chunk": 50, "multi_argv": _multi_argv(tmp, datadir, 2),
+           "fuse_argvs": _fuse_argvs(tmp, datadir)}
     threads = torch.get_num_threads()
     omp = os.environ.get("OMP_NUM_THREADS")
     os.environ["OMP_NUM_THREADS"] = "1"  # the ranks' torch: one thread, as here
@@ -219,6 +240,86 @@ def test_two_ranks_match_one_process(runs):
     _assert_close_to(runs["ranks"][0]["state"]["params"], want, start)
     assert "[MESH] data-parallel over 2 ranks" in runs["dp_log"]
     assert runs["dp_log"].count("[TRAIN] Iter: 2 ") == 1  # rank 0 prints
+
+
+# (b2) the fused loop over ranks is the same ranks step by step
+
+
+def _assert_states_equal(a, b, what):
+    assert a["step"] == b["step"], what
+    for key in ("params", "moments"):
+        assert set(a[key]) == set(b[key]), what
+        for name, x, y in _pairs(a[key], b[key]):
+            if key == "params":
+                assert torch.equal(x, y), (what, name)
+            else:
+                assert all(torch.equal(u, v) for u, v in zip(x, y)), (what, key, name)
+
+
+@pytest.mark.parametrize("policy,chunks,prints", [("image", 1, [2, 4, 6]),
+                                                  ("batching", BATCHING_CHUNKS, [4, 8, 12, 16, 20])])
+def test_fused_ranks_equal_per_step_ranks(runs, policy, chunks, prints):
+    """``--fuse_steps=1`` on the same two ranks: history, parameters and
+    Adam's moments ``torch.equal`` the fused run's, on every rank. On the
+    CPU a chunk runs its k steps eagerly (the graph's plain version), with
+    the samplers' rank rows and the sharded step's lr from the device table."""
+    for r, rank in enumerate(runs["ranks"]):
+        fused, per_step = rank["fuse"][policy]
+        assert (fused["chunks"], per_step["chunks"]) == (chunks, 0), (policy, r)
+        assert [h[0] for h in fused["history"]] == prints, (policy, r)
+        assert fused["history"] == per_step["history"], (policy, r)
+        assert fused["state"]["step"] == prints[-1]
+        _assert_states_equal(fused["state"], per_step["state"], (policy, r))
+    assert "[FUSE] fuse_steps=50 capped to 2" in runs["dp_log"]
+
+
+def test_sharded_step_takes_an_lr_tensor(runs):
+    """The sharded step with a float32 tensor of the schedule's rate (the
+    fused loop's table) makes the updates the schedule's float makes."""
+    for rank in runs["ranks"]:
+        assert rank["step_lr_tensor"]["losses"] == rank["step"]["losses"]
+        _assert_states_equal(rank["step_lr_tensor"]["state"], rank["step"]["state"], "lr")
+        # and the tensor is the rate the step uses
+        doubled = rank["step_lr_double"]["state"]["params"]
+        assert not all(torch.equal(a, b) for _, a, b in _pairs(doubled,
+                                                               rank["step"]["state"]["params"]))
+
+
+def test_one_rank_group_trains_as_one_process(tmp_path):
+    """A group of one rank trains over its mesh (the all-reduces over
+    itself: chip_smoke.py's one-card check of the fused loop over ranks),
+    fused, and makes one process's updates bit for bit."""
+    datadir = str(tmp_path / "blender")
+    write_blender_dataset(datadir, n_train=3, n_val=1, n_test=1, H=16, W=16)
+    argv = _argv(tmp_path, datadir, "mesh1", 1, fuse_steps=4, **BATCHING)
+    (rank,) = distributed.launch(train_rank, 1, "cpu", args=(argv,))
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        one = cli_train.main(_argv(tmp_path, datadir, "one1", 1, fuse_steps=4, **BATCHING),
+                             device="cpu")
+    assert "[MESH] data-parallel over 1 ranks" in rank["log"] and "[MESH]" not in log.getvalue()
+    assert rank["chunks"] == one.chunks == BATCHING_CHUNKS
+    assert rank["history"] == one.history
+    one_state = {"step": one.state.step,
+                 "params": {lvl: dict(net.named_parameters()) for lvl, net in one.state.nets.items()},
+                 "moments": {lvl: {n: tuple(one.state.optimizer.state[p][k]
+                                            for k in ("exp_avg", "exp_avg_sq"))
+                                   for n, p in net.named_parameters()}
+                             for lvl, net in one.state.nets.items()}}
+    _assert_states_equal(rank["state"], one_state, "one rank")
+
+
+def test_fuse_refusal_names_the_groups_that_step_one_by_one():
+    """Which loops fuse: one process anywhere, ranks on the CPU and NCCL
+    ranks on cards; gloo ranks on a card print the line and step by step."""
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    assert tloop.fuse_refusal(50, 1, cuda, None) is None
+    assert tloop.fuse_refusal(50, 1, cpu, None) is None
+    assert tloop.fuse_refusal(50, 2, cpu, "gloo") is None
+    assert tloop.fuse_refusal(50, 4, cuda, "nccl") is None
+    assert tloop.fuse_refusal(4, 2, cuda, "gloo") == (
+        "[FUSE] fuse_steps=4 not fused over 2 gloo ranks on cards: gloo's all-reduce of a "
+        "card's tensor goes through the host, which a CUDA graph cannot hold; step by step")
+    assert distributed.capturable("nccl") and not distributed.capturable("gloo")
 
 
 # (c) the port's 2-rank step against nerf_tpu's shard_map step

@@ -1,13 +1,18 @@
 """One rank of tests/test_torch_port_parallel.py's process group.
 
 ``rank_run`` runs in each gloo rank that the test starts with
-``nerf_tpu_torch.parallel.distributed.launch``: data-parallel training,
-the sharded step, the samplers and the frame renderer, then multi-scene
-training with the scene axis over the ranks. It imports torch and the
+``nerf_tpu_torch.parallel.distributed.launch``: data-parallel training
+(fused, then the same runs step by step, on both sampler policies), the
+sharded step (with the schedule's float and with an ``lr`` tensor), the
+samplers and the frame renderer, then multi-scene training with the scene
+axis over the ranks. It imports torch and the
 port only (a spawned rank imports this module afresh) and returns CPU
 tensors and numbers for the test to hold against one process and
 nerf_tpu.
 """
+
+import contextlib
+import io
 
 import torch
 
@@ -20,7 +25,7 @@ from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
 from nerf_tpu_torch.parallel.mesh import make_mesh, make_sharded_train_step, shard_batch
 from nerf_tpu_torch.render.renderer import make_frame_renderer
 from nerf_tpu_torch.train.loop import render_settings_from_config
-from nerf_tpu_torch.train.step import init_train_state
+from nerf_tpu_torch.train.step import init_train_state, lr_schedule
 
 
 def state_tensors(state) -> dict:
@@ -40,6 +45,17 @@ def rank_run(device, job: dict) -> dict:
     result = cli_train.main(job["argv"], device=device)
     out["history"] = result.history
     out["state"] = state_tensors(result.state)
+    out["chunks"] = result.chunks
+    # the fused loop against the same ranks step by step: each policy's
+    # (fused, per-step) runs, their lines kept out of the test's log; the
+    # image policy's fused run is the one above
+    out["fuse"] = {}
+    for policy, (fused, per_step) in job["fuse_argvs"].items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs = [result if fused is None else cli_train.main(fused, device=device),
+                    cli_train.main(per_step, device=device)]
+        out["fuse"][policy] = [{"history": r.history, "state": state_tensors(r.state),
+                                "chunks": r.chunks} for r in runs]
     cfg, scene_args = job["cfg"], job["scene"]
     mesh = make_mesh(2, device)
     model = make_model(cfg)
@@ -47,18 +63,25 @@ def rank_run(device, job: dict) -> dict:
 
     # nerf_tpu's shard_map step, as the port runs it: given state, rays and
     # the whole batch's draws
-    nets = {}
-    for level, sd in job["step"]["params"].items():
-        nets[level] = NeRFMLP(getattr(model, level), device=device)
-        nets[level].load_state_dict(sd, strict=True)
-    state = init_train_state(nets, cfg.lrate)
     step = make_sharded_train_step(mesh, model, rs, cfg.lrate, cfg.lrate_decay)
-    losses = []
-    for batch, overrides in job["step"]["batches"]:
-        rows = shard_batch(mesh, *(torch.from_numpy(a) for a in batch))
-        aux = step(state, *rows, overrides={k: torch.from_numpy(v) for k, v in overrides.items()})
-        losses.append(float(aux["loss"]))
-    out["step"] = {"losses": losses, "state": state_tensors(state)}
+    schedule = lr_schedule(cfg.lrate, cfg.lrate_decay)
+    for key, lr_scale in (("step", None), ("step_lr_tensor", 1.0), ("step_lr_double", 2.0)):
+        # the same steps with the schedule's float and with a float32 tensor
+        # of it (the fused loop's learning-rate table), or of twice it
+        state = init_train_state({lvl: NeRFMLP(getattr(model, lvl), device=device)
+                                  for lvl in job["step"]["params"]}, cfg.lrate)
+        for level, sd in job["step"]["params"].items():
+            state.nets[level].load_state_dict(sd, strict=True)
+        losses = []
+        for batch, overrides in job["step"]["batches"]:
+            rows = shard_batch(mesh, *(torch.from_numpy(a) for a in batch))
+            lr = (None if lr_scale is None else
+                  torch.tensor(lr_scale * schedule(state.step), dtype=torch.float32,
+                               device=device))
+            aux = step(state, *rows, lr=lr,
+                       overrides={k: torch.from_numpy(v) for k, v in overrides.items()})
+            losses.append(float(aux["loss"]))
+        out[key] = {"losses": losses, "state": state_tensors(state)}
 
     # both samplers: this rank's rows of each batch, across an epoch wrap
     scene = load_blender_scene(*scene_args)
@@ -110,3 +133,12 @@ def sharded_step_rank(device, job: dict) -> dict:
     launches = (fused_mlp.fused_rays_planes.launches - before[0],
                 fused_mlp.fused_rays_planes_bwd.launches - before[1])
     return {"losses": losses, "launches": launches, "state": state_tensors(state)}
+
+
+def train_rank(device, argv) -> dict:
+    """``cli.train.main(argv)`` in this rank's group: its history, state,
+    fused chunks and printed lines."""
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        result = cli_train.main(argv, device=device)
+    return {"history": result.history, "state": state_tensors(result.state),
+            "chunks": result.chunks, "log": log.getvalue()}
