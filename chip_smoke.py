@@ -32,7 +32,9 @@ Phases, one line each (any failure exits non-zero):
    half-res recipe (400x400, 64+128 samples, bf16, white background)
    through ``render_path``; checks shapes, finiteness, 30 K1 launches and
    no other, and 4,096 rays strided over frame 0 against the plain
-   (unfused) path;
+   (unfused) path (where the kernel path composites K1's planes by the bf16
+   matmul scan, the plain path does too: ``plain_compositor``; phases 8,
+   22 and 27 likewise);
 5. times: K1 at the serving path's shapes (a 32,768-ray chunk, both
    levels), checked against its plain version there and timed beside its
    bound, its plain version and a bf16 ``torch.matmul`` chain, with the
@@ -60,6 +62,10 @@ Phases, one line each (any failure exits non-zero):
    warm-up and 30 timed steps with exactly 2 K1 and 2 K4 launches each and
    no K2/K3, finite and falling loss, ms/step, rays/s and MFU; then 3 steps
    under ``torch.profiler`` for the device time by kernel and the idle share;
+   then the step's compositing of K1's planes (ROADMAP A.7: both levels,
+   forward and backward) in both forms on the same inputs, nerf_tpu's
+   matmul scan (the bf16 path's) and the exact cumprod: device ms per step
+   from a profiled window of each, and the two within nerf_tpu's bound;
 8. grads: one fused step's weight grads against the plain (unfused) path
    on the same batch and draws;
 9. bwd times: K4 at the training shapes beside its bound, its plain
@@ -257,6 +263,19 @@ The backward's workspace bound and the fused loop:
    chunk and none step by step; then wall ms/step of both loops through
    ``train()`` at N_rand 4096 and 1024 and a profiled window of each (the
    idle share), beside the card's name and power limit.
+The DP×TP step (ROADMAP A.8b, ``parallel/mesh.py``,
+``parallel/tensor_parallel.py``):
+32. tp: ``make_sharded_train_step(shard_model_axis=True)`` at NeRF-W's
+   8×512 (viewdirs, posenc 10/4, 64+128, the plain MLP: no kernel runs on
+   this path, as none runs on nerf_tpu's) on batches of the teacher views:
+   one process, then data 1 × model 2 on 2 gloo ranks on cuda:0 (with two
+   or more cards the same on NCCL a card a rank, with four data 2 × model
+   2): each rank at its (data, model) place, 3 f32 steps at 512 rays
+   against the one process's (losses, the gathered weights and Adam's
+   moments within the CPU test's bounds, equal on every rank, the
+   model-parallel nets run and the whole ones not), then bf16 ms/step and
+   peak GiB per rank beside the one process's, at the N_rand the one
+   process's f32 peak leaves room for two ranks (printed).
 
 The last two lines are a JSON object of kernel numbers (K1-K7, the
 backward's recompute and chain launches, K6's compositing pass, K7's
@@ -328,6 +347,11 @@ COMPOSITE_F32_TOL = 1e-5
 # the embedding per input, the kernels merge layer 0 with the skip), and the
 # fine depths follow the coarse weights. nerf_tpu's bf16 grad bound.
 STEP_GRAD_TOL = 5e-2
+# the matmul scan against the exact cumprod (phase 7's scan line):
+# nerf_tpu's own bound on the two forms (tests/test_compositing.py::
+# test_planes_matmul_scan_close), on the weights and the grads of raw
+SCAN_ATOL, SCAN_RTOL = 1e-3, 2e-3
+SCAN_REPS = 10
 # the recompute's workspace rows against their plain version, each layer on
 # the kernel's own inputs (fused_mlp.recompute_layers_reference): both round
 # the same operands and differ only where an f32 sum in another order lands
@@ -449,6 +473,19 @@ NDC_BATCHES = 4
 MULTI_DP_STEPS, MULTI_RANKS = 8, 2
 MULTI_DP_CADENCES = {"i_print": 4, "i_weights": 0}
 MULTI_LRATE = 5e-4  # configs/multi's (the default)
+# phase 32, the DP×TP step: NeRF-W's width; f32 parity steps; bf16 timing
+# after a warm-up step of TP_WARMUP_RAYS rays (first calls, the ranks'
+# connections), at the largest power of two of rays up to N_RAND whose two
+# ranks fit TP_CARD_SHARE of the card with TP_ROOM over the one process's
+# peak each. Two gloo ranks on one card move every gathered activation
+# through the host (20-33 s a bf16 step at 2,048 rays, PERF.md §6): one
+# timed step. At 256 f32 rays Adam's updates on small grads drift further
+# apart (4.1e-2 of the 5e-2 bound at data 2 x model 2, PERF.md §6): 512
+TP_WIDTH = 512
+TP_PARITY_RAYS, TP_PARITY_STEPS = 512, 3
+TP_WARMUP_RAYS, TP_TIMED = 64, 1
+TP_ROOM, TP_CARD_SHARE = 1.5, 0.85
+TP_SEED = 23
 
 
 def counters():
@@ -804,6 +841,7 @@ def main() -> int:
     recompute_errs = check_recompute(coarse, pe_pts, pe_views, dev)
     chain_errs = check_chain(coarse, pe_pts, pe_views, dev)
     train_info = train_phase(scene, dev, N_SAMPLES, "K1", "K4")
+    scan_phase(dev)
     step_grads_phase(train_info, dev)
     k4, recompute, chain = k4_times(cfg, pe_pts, pe_views, dev)
 
@@ -854,6 +892,9 @@ def main() -> int:
 
     # 31. the fused loop: chunks of k steps, a CUDA graph replay each
     fuse_phase(train_info["views"], smi, dev)
+
+    # 32. ROADMAP A.8b: the DP×TP step over a model group
+    tp_phase(train_info["views"], smi, dev)
 
     def row(name, source, replaces, launches, err, t):
         return {
@@ -1038,6 +1079,7 @@ def render_phase(nets, model, scene, n_samples: int, kernel: str, dev):
     render_err, fused_rgb, rays = rgb_against_plain(nets, model, rs, rgbs[0], scene.K, poses[0],
                                                     (H, W, FOCAL), NEAR, FAR, dev)
     phase("render", S=n_samples, frames=N_FRAMES, shape=rgbs.shape, launches=counts,
+          compositor="matmul_scan" if kernel_scans(model, rs) else "cumprod",
           ms_per_frame=f"{1e3 * seconds / N_FRAMES:.2f}",
           rays_per_s=f"{N_FRAMES * H * W / seconds:.0f}",
           rgb_vs_plain_max_abs=f"{render_err:.3e}", tol=RENDER_RGB_TOL,
@@ -1047,11 +1089,44 @@ def render_phase(nets, model, scene, n_samples: int, kernel: str, dev):
     return {"counts": counts, "rays": rays}
 
 
+def kernel_scans(model, rs) -> bool:
+    """Whether ``render_rays`` composites the kernel path's levels with
+    nerf_tpu's matmul scan (ROADMAP A.7): the planes branch (K1 / K1w:
+    ``fused``, not ``fused_render``, both levels' sample counts multiples of
+    8) in bf16."""
+    return (model.fused and not model.fused_render and model.compute_dtype == "bfloat16"
+            and rs.n_samples % 8 == 0 and (rs.n_samples + rs.n_importance) % 8 == 0)
+
+
+@contextlib.contextmanager
+def plain_compositor(scan: bool):
+    """The plain (unfused) path's compositing as the kernel path's: with
+    ``scan``, ``render_rays``' points-in ``raw2outputs`` is replaced, for the
+    block, by ``raw2outputs_planes(matmul_scan=True)`` on the same raw as
+    planes, so that a gate holding the planes branch to the plain path
+    charges the kernels alone, not the two compositors' gap."""
+    from nerf_tpu_torch.render import renderer
+
+    real = renderer.raw2outputs
+
+    def scanned(raw, z_vals, rays_d, **kwargs):
+        return renderer.raw2outputs_planes(raw.movedim(-1, 0), z_vals, rays_d,
+                                           matmul_scan=True, **kwargs)
+
+    if scan:
+        renderer.raw2outputs = scanned
+    try:
+        yield
+    finally:
+        renderer.raw2outputs = real
+
+
 def rgb_against_plain(nets, model, rs, rgb, K, c2w, hwf, near: float, far: float, dev):
     """RENDER_CHECK_RAYS rays strided over a frame ``rgb`` [H, W, 3] that
     ``render_path`` rendered for the pose ``c2w``, through the plain
-    (unfused) path: the max abs difference of rgb_map, the checked rays'
-    rgb, and the frame's rays (ro, rd, vd) as ``render_rays`` takes them."""
+    (unfused) path with the kernel path's compositor (``plain_compositor``):
+    the max abs difference of rgb_map, the checked rays' rgb, and the
+    frame's rays (ro, rd, vd) as ``render_rays`` takes them."""
     from nerf_tpu_torch.geom.rays import get_rays
     from nerf_tpu_torch.render.renderer import prepare_rays, render_rays
 
@@ -1060,7 +1135,7 @@ def rgb_against_plain(nets, model, rs, rgb, K, c2w, hwf, near: float, far: float
     c2w = torch.as_tensor(np.asarray(c2w)[:3, :4], dtype=torch.float32, device=dev)
     ro, rd, vd, nv, fv = prepare_rays(*get_rays(h, w, K, c2w), rs, h, w, focal, near, far)
     idx = torch.arange(RENDER_CHECK_RAYS, device=dev) * (h * w // RENDER_CHECK_RAYS)
-    with torch.no_grad():
+    with torch.no_grad(), plain_compositor(kernel_scans(model, rs)):
         ref = render_rays(nets, plain, rs.eval_mode(), *(t[idx] for t in (ro, rd, vd, nv, fv)))
     fused_rgb = rgb.reshape(-1, 3)[idx.cpu().numpy()]
     err = float(np.abs(fused_rgb - ref["rgb_map"].cpu().numpy()).max())
@@ -1517,10 +1592,66 @@ def step_grads_phase(info, dev):
     grads_against_plain(nets, model, rs, ro, rd, vd, NEAR, FAR, target, dev)
 
 
+def scan_phase(dev) -> dict:
+    """7 (ROADMAP A.7). The lego bf16 step's compositing of K1's planes, both
+    levels (N_rand 4096 rays at S = 64 and 192, white background), forward
+    and backward, in both forms on the same inputs: nerf_tpu's matmul scan
+    (the bf16 planes branch's) and the exact cumprod (the f32 path's). Device
+    ms per step from a profiled window of SCAN_REPS steps each, the two
+    forms' weights and grads of raw within nerf_tpu's bound on them, and the
+    number of device kernels a form's step runs."""
+    from nerf_tpu_torch.ops.compositing import raw2outputs_planes
+    from nerf_tpu_torch.utils.profiler import device_rows
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for S in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE):
+        raw4 = (2 * torch.randn(4, N_RAND, S, generator=gen, device=dev)).requires_grad_(True)
+        u = torch.rand(N_RAND, S, generator=gen, device=dev)
+        z = torch.sort(u * (FAR - NEAR) + NEAR, -1).values
+        rd = torch.randn(N_RAND, 3, generator=gen, device=dev)
+        cot = torch.rand(N_RAND, 3, generator=gen, device=dev)
+        cases.append((raw4, z, rd, cot))
+
+    def step(scan: bool):
+        outs = []
+        for raw4, z, rd, cot in cases:
+            o = raw2outputs_planes(raw4, z, rd, white_bkgd=True, matmul_scan=scan)
+            loss = (o.rgb * cot).sum() + o.acc.sum() + o.disp.sum()
+            outs.append((o.weights.detach(), torch.autograd.grad(loss, raw4)[0]))
+        return outs
+
+    scan_out, exact_out = step(True), step(False)
+    w_err = max(float((a[0] - b[0]).abs().max()) for a, b in zip(scan_out, exact_out))
+    g_err = max(float((a[1] - b[1]).abs().max()) for a, b in zip(scan_out, exact_out))
+    close = all(torch.allclose(a[i], b[i], rtol=SCAN_RTOL, atol=SCAN_ATOL)
+                for a, b in zip(scan_out, exact_out) for i in (0, 1))
+    ms, kernels = {}, {}
+    for name, scan in (("matmul_scan", True), ("cumprod", False)):
+        step(scan)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(SCAN_REPS):
+                step(scan)
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        ms[name] = sum(r[0] for r in rows) / 1e3 / SCAN_REPS
+        kernels[name] = len(rows)
+    phase("scan", n_rand=N_RAND, S=f"{N_SAMPLES}+{N_SAMPLES + N_IMPORTANCE}",
+          matmul_scan_device_ms_per_step=f"{ms['matmul_scan']:.4f}",
+          cumprod_device_ms_per_step=f"{ms['cumprod']:.4f}",
+          device_kernels=kernels, weights_max_abs_diff=f"{w_err:.3e}",
+          grad_max_abs_diff=f"{g_err:.3e}", atol=SCAN_ATOL, rtol=SCAN_RTOL)
+    if not close:
+        raise RuntimeError(f"the matmul scan is {w_err} / {g_err} from the cumprod")
+    return ms
+
+
 def grads_against_plain(nets, model, rs, ro, rd, vd, near, far, target, dev, **fields):
     """One fused step's weight grads on the rays (ro, rd, as the step's
     ``loss_fn`` takes them: after NDC where the scene has it; viewdirs vd)
-    against the plain (unfused) path's, on the same draws."""
+    against the plain (unfused) path's, with the kernel path's compositor
+    (``plain_compositor``), on the same draws."""
     from nerf_tpu_torch.train.step import draw_overrides, loss_fn
 
     n_rays = ro.shape[0]
@@ -1532,7 +1663,8 @@ def grads_against_plain(nets, model, rs, ro, rd, vd, near, far, target, dev, **f
     grads = {}
     for fused in (True, False):
         m = model if fused else dataclasses.replace(model, fused=False, fused_render=False)
-        loss, _ = loss_fn(nets, m, rs, ro, rd, vd, near, far, target, overrides=ov)
+        with plain_compositor(not fused and kernel_scans(model, rs)):
+            loss, _ = loss_fn(nets, m, rs, ro, rd, vd, near, far, target, overrides=ov)
         grads[fused] = torch.autograd.grad(loss, params)
     worst, leaf = max((rel_l2(a, b), n) for n, a, b in zip(names, grads[True], grads[False]))
     phase("grads", **fields, S=rs.n_samples, rays=n_rays, worst_leaf_rel_l2=f"{worst:.3e}", leaf=leaf,
@@ -2988,6 +3120,203 @@ def dp_phase(views, dev):
               allreduce_device_ms_per_step=f"{t['allreduce_ms_per_step']:.3f}",
               allreduce_kernels=t["allreduce_kernels"], all_reduce_of_ones="ok")
     shutil.rmtree(root)
+
+
+def tp_rank(device, job: dict) -> dict:
+    """32. On a rank of the ``job["mesh"]`` (n_data, n_model) mesh, the
+    DP×TP step (``make_sharded_train_step(shard_model_axis=True)`` on
+    ``shard_state``'s state); with no mesh, one process's plain step. In
+    f32, TP_PARITY_STEPS steps on ``job["parity"]``'s batches from one draw
+    seed (the whole state back by ``gather_state``); then in bf16, a
+    warm-up step at TP_WARMUP_RAYS rays and TP_TIMED steps at ``n_rand``
+    rays (the one process picks it: the largest power of two up to N_RAND
+    whose two ranks fit the card with room, from its f32 peak) for ms/step
+    and the peak memory. Both runs count the plain MLPs' calls (whole and
+    model-parallel)."""
+    from nerf_tpu_torch.models.factory import init_nets
+    from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from nerf_tpu_torch.parallel import distributed
+    from nerf_tpu_torch.parallel import mesh as pmesh
+    from nerf_tpu_torch.parallel.tensor_parallel import ShardedNeRFMLP
+    from nerf_tpu_torch.train.step import init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = None if job["mesh"] is None else pmesh.make_mesh(*job["mesh"], device=device)
+    rs, lrate, decay = job["rs"], job["lrate"], job["lrate_decay"]
+
+    def run(dtype: str, batches, timed: int):
+        model = dataclasses.replace(job["model"], compute_dtype=dtype)
+        state = init_train_state(init_nets(model, job["seed"], device), lrate)
+        if mesh is None:
+            step = make_train_step(model, rs, lrate, decay)
+        else:
+            state = pmesh.shard_state(mesh, pmesh.place_state(mesh, state))
+            step = pmesh.make_sharded_train_step(mesh, model, rs, lrate, decay,
+                                                 shard_model_axis=True)
+        gen = torch.Generator(device).manual_seed(job["seed"])
+        NeRFMLP.plain_calls = ShardedNeRFMLP.plain_calls = 0
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        losses, t0 = [], None
+        for i, batch in enumerate(batches):
+            if i == len(batches) - timed:
+                torch.cuda.synchronize(device)
+                if mesh is not None:
+                    distributed.barrier(mesh.group)
+                t0 = time.perf_counter()
+            rows = tuple(torch.from_numpy(a).to(device) for a in batch)
+            if mesh is not None:
+                rows = pmesh.shard_batch(mesh, *rows)
+            losses.append(step(state, *rows, generator=gen)["loss"])
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0 if timed else 0.0
+        return state, {"losses": [float(x) for x in losses],
+                       "ms_per_step": 1e3 * seconds / timed if timed else None,
+                       "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30,
+                       "plain_calls": (NeRFMLP.plain_calls, ShardedNeRFMLP.plain_calls)}
+
+    state, f32 = run("float32", job["parity"], 0)
+    f32["state"] = on_cpu(pmesh.gather_state(mesh, state))  # whole nets: no collective
+    del state
+    n_rand = job["n_rand"]
+    if n_rand is None:  # the one process: two ranks, each with room, on the card
+        total = torch.cuda.get_device_properties(device).total_memory / 2 ** 30
+        n_rand = TP_PARITY_RAYS
+        while n_rand < N_RAND and 2 * TP_ROOM * f32["peak_gib"] * 2 * n_rand / \
+                TP_PARITY_RAYS <= TP_CARD_SHARE * total:
+            n_rand *= 2
+    first, *timed = job["timed"]
+    batches = [tuple(a[:TP_WARMUP_RAYS] for a in first)] + \
+        [tuple(a[:n_rand] for a in b) for b in timed]
+    _, bf16 = run("bfloat16", batches, TP_TIMED)
+    return {"device": str(device), "f32": f32, "bf16": bf16, "n_rand": n_rand,
+            "rank": None if mesh is None else (mesh.rank, mesh.data_index, mesh.model_index)}
+
+
+def on_cpu(tree):
+    """A nest of dicts, tuples and tensors with every tensor on the CPU."""
+    if isinstance(tree, dict):
+        return {k: on_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(on_cpu(v) for v in tree)
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def tp_batches(views, n_batches: int, n_rays: int, seed: int):
+    """``n_batches`` batches of ``n_rays`` rays drawn from the teacher views
+    (a view a batch, pixels at random): (rays_o, rays_d, near, far, target)
+    as numpy float32."""
+    from nerf_tpu_torch.geom.rays import get_rays_np
+
+    rng = np.random.default_rng(seed)
+    h, w = views.images.shape[1:3]
+    out = []
+    for b in range(n_batches):
+        v = b % len(views.images)
+        ro, rd = get_rays_np(h, w, views.K, views.poses[v])
+        idx = rng.choice(h * w, n_rays, replace=False)
+        out.append((np.ascontiguousarray(ro.reshape(-1, 3)[idx], np.float32),
+                    np.ascontiguousarray(rd.reshape(-1, 3)[idx], np.float32),
+                    np.full(n_rays, NEAR, np.float32), np.full(n_rays, FAR, np.float32),
+                    np.ascontiguousarray(views.images[v].reshape(-1, 3)[idx], np.float32)))
+    return out
+
+
+def tp_check(ranks, one, start, lrate: float, what: str) -> dict:
+    """32. Every rank's gathered f32 state against the one process's within
+    the CPU test's bounds (tests/test_torch_port_parallel.py: the losses
+    within DP_LOSS_RTOL, each weight within 4 lr, each leaf's update and
+    each Adam moment within DP_UPDATE_TOL relative L2), the ranks' gathered
+    states equal, the model-parallel nets run and the whole ones not.
+    Returns the worst numbers."""
+    ref = one["f32"]
+    worst = {"loss_rel": 0.0, "abs": 0.0, "update": 0.0, "moment": 0.0}
+    for r, out in enumerate(ranks):
+        got = out["f32"]
+        if got["plain_calls"] != (0, 2 * TP_PARITY_STEPS) or \
+                out["bf16"]["plain_calls"] != (0, 2 * (1 + TP_TIMED)):
+            raise RuntimeError(f"{what}, rank {r}: plain calls {got['plain_calls']} "
+                               f"{out['bf16']['plain_calls']}")
+        if not np.isfinite(out["bf16"]["losses"]).all():
+            raise RuntimeError(f"{what}, rank {r}: bf16 losses {out['bf16']['losses']}")
+        worst["loss_rel"] = max(worst["loss_rel"], max(
+            abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"])))
+        for lvl, ps in ref["state"]["params"].items():
+            for name, want in ps.items():
+                g, p0 = got["state"]["params"][lvl][name], start[lvl][name]
+                if r and not torch.equal(g, ranks[0]["f32"]["state"]["params"][lvl][name]):
+                    raise RuntimeError(f"{what}: ranks 0 and {r} gathered other {lvl}.{name}")
+                worst["abs"] = max(worst["abs"], float((g - want).abs().max()))
+                moved = float(torch.linalg.norm(want - p0))
+                if moved > 0:
+                    worst["update"] = max(worst["update"],
+                                          float(torch.linalg.norm(g - want)) / moved)
+                for a, b in zip(got["state"]["moments"][lvl][name],
+                                ref["state"]["moments"][lvl][name]):
+                    if float(torch.linalg.norm(b)) > 0:
+                        worst["moment"] = max(worst["moment"], rel_l2(a, b))
+    if not (worst["loss_rel"] <= DP_LOSS_RTOL and worst["abs"] <= 4 * lrate and
+            worst["update"] <= DP_UPDATE_TOL and worst["moment"] <= DP_UPDATE_TOL):
+        raise RuntimeError(f"{what}: against one process {worst}")
+    return {f"f32_{k}": f"{v:.3e}" for k, v in worst.items()}
+
+
+def tp_phase(views, smi: str, dev) -> None:
+    """32 (ROADMAP A.8b). The DP×TP step on the card at NeRF-W's 8×512
+    (viewdirs, posenc 10/4, 64+128, the plain MLP): one process first, then
+    data 1 × model 2 on 2 gloo ranks on cuda:0 (one card), with two or more
+    cards data 1 × model 2 on NCCL a card a rank, with four or more data 2 ×
+    model 2 on NCCL; each run's f32 steps against the one process's
+    (``tp_check``), then bf16 ms/step and peak GiB per rank beside the one
+    process's, with the card's name and power limit."""
+    from nerf_tpu_torch.models.factory import init_nets
+    from nerf_tpu_torch.models.nerf_mlp import MLPConfig
+    from nerf_tpu_torch.models.embedding import PosEncConfig
+    from nerf_tpu_torch.parallel import distributed
+    from nerf_tpu_torch.render.network import NeRFModel
+    from nerf_tpu_torch.render.renderer import RenderSettings
+
+    cfg = MLPConfig(width=TP_WIDTH)
+    model = NeRFModel(PosEncConfig(10), PosEncConfig(4), cfg, cfg, "float32")
+    rs = RenderSettings(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, perturb=True,
+                        use_viewdirs=True, white_bkgd=True)
+    job = {"mesh": None, "n_rand": None, "model": model, "rs": rs, "lrate": MULTI_LRATE,
+           "lrate_decay": 500, "seed": TP_SEED,
+           "parity": tp_batches(views, TP_PARITY_STEPS, TP_PARITY_RAYS, TP_SEED),
+           "timed": tp_batches(views, 1 + TP_TIMED, N_RAND, TP_SEED + 1)}
+    start = {lvl: {n: p.detach() for n, p in net.named_parameters()}
+             for lvl, net in init_nets(model, TP_SEED, "cpu").items()}
+    t0 = time.perf_counter()
+    (one,) = distributed.launch(tp_rank, 1, "cuda:0", backend="gloo", args=(job,))
+    job["n_rand"] = one["n_rand"]
+    runs = [("gloo", "cuda:0", (1, 2))]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        runs.append(("nccl", "cuda", (1, 2)))
+    if cards >= 4:
+        runs.append(("nccl", "cuda", (2, 2)))
+    for backend, device, shape in runs:
+        ranks = distributed.launch(tp_rank, shape[0] * shape[1], device, backend=backend,
+                                   args=({**job, "mesh": shape},))
+        if [out["rank"] for out in ranks] != [(r, r // shape[1], r % shape[1])
+                                              for r in range(len(ranks))]:
+            raise RuntimeError(f"tp {backend}: ranks {[out['rank'] for out in ranks]}")
+        numbers = tp_check(ranks, one, start, job["lrate"], f"tp {backend} {shape}")
+        phase("tp", backend=backend, mesh=f"data {shape[0]} x model {shape[1]}",
+              devices=sorted({out["device"] for out in ranks}), width=TP_WIDTH,
+              samples=f"{N_SAMPLES}+{N_IMPORTANCE}", f32_steps=TP_PARITY_STEPS,
+              f32_n_rand=TP_PARITY_RAYS, **numbers, bf16_n_rand=job["n_rand"],
+              bf16_ms_per_step=[f"{out['bf16']['ms_per_step']:.3f}" for out in ranks],
+              one_process_bf16_ms_per_step=f"{one['bf16']['ms_per_step']:.3f}",
+              peak_gib_per_rank=[f"{out['bf16']['peak_gib']:.2f}" for out in ranks],
+              one_process_peak_gib=f"{one['bf16']['peak_gib']:.2f}",
+              f32_peak_gib_per_rank=[f"{out['f32']['peak_gib']:.2f}" for out in ranks],
+              one_process_f32_peak_gib=f"{one['f32']['peak_gib']:.2f}",
+              bf16_loss_last=f"{ranks[0]['bf16']['losses'][-1]:.6f}",
+              one_process_bf16_loss_last=f"{one['bf16']['losses'][-1]:.6f}",
+              card=repr(smi))
+    phase("tp", seconds=f"{time.perf_counter() - t0:.1f}", runs=len(runs))
 
 
 def multi_rank(device, argv):

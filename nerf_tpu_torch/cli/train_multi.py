@@ -114,7 +114,7 @@ def train_multi(cfgs: Sequence[NeRFConfig], device: DeviceLike = None,
     c0, S = cfgs[0], len(cfgs)
     dev = resolve_device(device)
     world = distributed.world_size()
-    mesh = make_mesh(world, dev) if world > 1 else None
+    mesh = make_mesh(world, device=dev) if world > 1 else None
     if mesh is not None:
         if S % world:
             raise ValueError(f"{S} scenes do not divide over the group's {world} ranks")

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -123,22 +123,35 @@ class NeRFMLP(nn.Module):
         """Embedded points [..., input_ch] (+ embedded dirs) -> raw [..., 4]
         float32 (or [..., output_ch] without viewdirs)."""
         NeRFMLP.plain_calls += 1
-        cfg = self.cfg
-        h = x_emb
-        for i, layer in enumerate(self.pts_linears):
-            h = torch.relu(dense(layer, h, compute_dtype))
-            if i in cfg.skips:
-                h = torch.cat([x_emb, h], dim=-1)
-        if not cfg.use_viewdirs:
-            return dense(self.output_linear, h, compute_dtype)
-        if views_emb is None:
-            raise ValueError("use_viewdirs=True requires views_emb")
-        alpha = dense(self.alpha_linear, h, compute_dtype)
-        feature = dense(self.feature_linear, h, compute_dtype)
-        h = torch.relu(
-            dense(self.views_linears[0], torch.cat([feature, views_emb], -1), compute_dtype)
-        )
-        rgb = dense(self.rgb_linear, h, compute_dtype)
-        return torch.cat([rgb, alpha], dim=-1)
+        return run_layers(self, x_emb, views_emb,
+                          lambda lin, x: dense(lin, x, compute_dtype))
 
     forward = apply_mlp
+
+
+def run_layers(
+    net: nn.Module,
+    x_emb: torch.Tensor,
+    views_emb: Optional[torch.Tensor],
+    layer: Callable[[nn.Linear, torch.Tensor], torch.Tensor],
+) -> torch.Tensor:
+    """The reference MLP's forward over ``net``'s layers, found by their
+    reference names, each ``nn.Linear`` applied as ``layer(lin, x)``: the
+    trunk with its skip concat ``[x_emb, h]``, then the heads. ``NeRFMLP``
+    applies ``dense``; the model-parallel net (parallel/tensor_parallel.py)
+    gathers a sharded layer's columns after it."""
+    cfg = net.cfg
+    h = x_emb
+    for i, lin in enumerate(net.pts_linears):
+        h = torch.relu(layer(lin, h))
+        if i in cfg.skips:
+            h = torch.cat([x_emb, h], dim=-1)
+    if not cfg.use_viewdirs:
+        return layer(net.output_linear, h)
+    if views_emb is None:
+        raise ValueError("use_viewdirs=True requires views_emb")
+    alpha = layer(net.alpha_linear, h)
+    feature = layer(net.feature_linear, h)
+    h = torch.relu(layer(net.views_linears[0], torch.cat([feature, views_emb], -1)))
+    rgb = layer(net.rgb_linear, h)
+    return torch.cat([rgb, alpha], dim=-1)

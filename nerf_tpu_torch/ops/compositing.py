@@ -8,14 +8,20 @@ Semantics of the reference ``raw2outputs`` (run_nerf.py:262-305):
 - ``depth = Σ w·z``; ``disp = 1/max(1e-10, depth/Σw)``; ``acc = Σw``;
 - ``white_bkgd: rgb += (1 - acc)``.
 
-Only the exact cumprod is ported; ``nerf_tpu``'s ``matmul_scan`` variant of
-``raw2outputs_planes`` (a TPU lane-layout workaround) is not.
+``raw2outputs_planes(matmul_scan=True)`` is ``nerf_tpu``'s variant that its
+renderer takes on every bf16 run of the planes branch
+(nerf_tpu/render/renderer.py:159): the transmittance as
+``exp(log(1 - alpha + 1e-10) @ U)``, U the strictly upper triangle of ones,
+a product in IEEE f32 (``Precision.HIGHEST`` there). It differs from the
+exact cumprod by ~1e-6 relative on the weights; the f32 path keeps the
+cumprod.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -59,6 +65,56 @@ def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
     run_nerf.py:295); ``x`` holds no zero (``_Cumprod``)."""
     ones = torch.ones_like(x[..., :1])
     return _Cumprod.apply(torch.cat([ones, x], -1))[..., :-1]
+
+
+_UPPER: Dict[Tuple[int, str], torch.Tensor] = {}
+
+
+def strict_upper_ones(S: int, device) -> torch.Tensor:
+    """U [S, S] float32 with U[j, i] = 1 iff j < i, so (x @ U)_i = sum_{j<i}
+    x_j (nerf_tpu/ops/compositing.py::strict_upper_ones), made once per (S,
+    device) and kept: the first call, eager, makes it, and a CUDA graph's
+    capture (train/graph.py, after a warm-up step) only reads it."""
+    key = (S, str(device))
+    U = _UPPER.get(key)
+    if U is None:
+        U = _UPPER[key] = torch.ones(S, S, dtype=torch.float32, device=device).triu_(1)
+    return U
+
+
+@contextlib.contextmanager
+def _ieee_f32_matmul():
+    """cuBLAS's float32 products without TF32 inside: the process's setting
+    (``torch.set_float32_matmul_precision``) is "highest" for the block and
+    restored after it; nothing is read on the device."""
+    saved = torch.get_float32_matmul_precision()
+    if saved != "highest":
+        torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        if saved != "highest":
+            torch.set_float32_matmul_precision(saved)
+
+
+class _ExclusiveSum(torch.autograd.Function):
+    """``x @ U`` over the last axis (U = ``strict_upper_ones``), forward and
+    backward (``grad @ U.T``) each one product in IEEE f32, whatever the
+    process allows for float32 products: nerf_tpu runs it at
+    ``Precision.HIGHEST``, and a TF32 product would round log-transmittances
+    to 10 mantissa bits."""
+
+    @staticmethod
+    def forward(ctx, x):
+        U = strict_upper_ones(x.shape[-1], x.device)
+        ctx.U = U
+        with _ieee_f32_matmul():
+            return x @ U
+
+    @staticmethod
+    def backward(ctx, grad):
+        with _ieee_f32_matmul():
+            return grad @ ctx.U.T
 
 
 def sigma_noise(like: torch.Tensor, raw_noise_std: float,
@@ -131,13 +187,22 @@ def raw2outputs_planes(
     white_bkgd: bool = False,
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,
+    matmul_scan: bool = False,
 ) -> RayOutputs:
     """raw2outputs on channel-plane input raw4 [4, N_rays, N_samples], the
-    layout the fused kernel writes (ops/fused_mlp.py)."""
+    layout the fused kernel writes (ops/fused_mlp.py). With
+    ``matmul_scan`` the transmittance is nerf_tpu's
+    ``exp(log(1 - alpha + 1e-10) @ U)`` (``_ExclusiveSum``) instead of the
+    exact exclusive cumprod; the dists are the same either way (nerf_tpu's
+    shifted form has 0/±1 coefficients, so it is exact)."""
     dists = _dists(z_vals, rays_d)
     rgb = torch.sigmoid(raw4[:3])  # [3, N_rays, N_samples]
     sigma = _sigma_with_noise(raw4[3], noise, raw_noise_std, generator)
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
-    weights = alpha * exclusive_cumprod(_one_minus_alpha(alpha))
+    one_m_alpha = _one_minus_alpha(alpha)
+    if matmul_scan:
+        weights = alpha * torch.exp(_ExclusiveSum.apply(torch.log(one_m_alpha)))
+    else:
+        weights = alpha * exclusive_cumprod(one_m_alpha)
     rgb_map = torch.sum(weights[None] * rgb, -1).T  # [N_rays, 3]
     return _maps(weights, rgb_map, z_vals, white_bkgd)

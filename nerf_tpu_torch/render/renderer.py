@@ -9,8 +9,9 @@ run_nerf.py:308-418; render / batchify_rays run_nerf.py:54-134):
   through ``overrides`` (t_rand / noise0 / u / noise1);
 - each level takes nerf_tpu's first branch that applies: the fused render
   (``model.fused_render``, viewdirs, no retraw, S % 8 == 0: K5/K6 from rays
-  to maps), the raygen fused MLP (``model.fused``, S % 8 == 0: K1/K4), or the
-  points-in query (K2/K3 when fused, else plain PyTorch);
+  to maps), the raygen fused MLP (``model.fused``, S % 8 == 0: K1/K4; its
+  planes composited in bf16 by nerf_tpu's matmul scan, in f32 by the exact
+  cumprod), or the points-in query (K2/K3 when fused, else plain PyTorch);
 - stacked nets (``StackedNeRFMLP``, multi-scene training) take the rays of
   their S scenes one scene after another, [S*R]: sampling and compositing
   run once over all of them, and each level takes the branch one net would
@@ -158,10 +159,13 @@ def render_rays(
                     rays_o.detach(), rays_d.detach(), viewdirs.detach(), z.detach(),
                     compute_dtype=model.torch_compute_dtype,
                 )
+            # nerf_tpu's matmul scan in bf16 (renderer.py:159), the exact
+            # cumprod in f32
             out = raw2outputs_planes(
                 raw4, z, rays_d,
                 raw_noise_std=rs.raw_noise_std, white_bkgd=rs.white_bkgd,
                 generator=generator, noise=noise_override,
+                matmul_scan=model.torch_compute_dtype == torch.bfloat16,
             )
             raw = raw4.movedim(0, -1) if rs.retraw else None
             return raw, out
@@ -320,10 +324,12 @@ def make_frame_renderer(
     With a ``mesh`` (parallel/mesh.py; nerf_tpu's ``shard_body``,
     renderer.py:337-430) every rank of it must call the function: the
     frame's H*W rays are padded to a multiple of the ranks (the last ray
-    repeated), each rank renders its rows in chunks, and one ``all_gather``
-    gives every rank the whole frame. It is for the deterministic eval
-    settings (``rs.eval_mode()``): with jitter or noise the ranks' draws
-    would not be the one-process frame's, so those raise."""
+    repeated), each data index renders its rows in chunks (the ranks of a
+    model group the same rows, through their model-parallel nets), and one
+    ``all_gather`` over the data group gives every rank the whole frame. It
+    is for the deterministic eval settings (``rs.eval_mode()``): with jitter
+    or noise the ranks' draws would not be the one-process frame's, so
+    those raise."""
     dev = resolve_device(device)
     K = np.asarray(K, np.float32)
 
@@ -340,7 +346,7 @@ def make_frame_renderer(
                          "(rs.eval_mode()): got perturb or raw_noise_std > 0")
     n = H * W
     per = -(-n // mesh.size)
-    rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    rows = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
     focal = float(K[0, 0])
 
     @torch.no_grad()
@@ -357,7 +363,7 @@ def make_frame_renderer(
         keys = sorted(out)
         flat = torch.cat([out[k].reshape(per, -1) for k in keys], 1)
         parts = [torch.empty_like(flat) for _ in range(mesh.size)]
-        dist.all_gather(parts, flat, group=mesh.group)
+        dist.all_gather(parts, flat, group=mesh.data_group)
         full = torch.cat(parts)[:n]
         frame, col = {}, 0
         for k in keys:

@@ -116,7 +116,7 @@ def time_rank(device, warmup: int = WARMUP, windows: int = WINDOWS, steps: int =
     from nerf_tpu_torch.train.step import init_train_state, lr_schedule
 
     cfg = load_config([f"--config={LEGO}", f"--N_rand={N_RAND}"])
-    mesh = make_mesh(distributed.world_size(), device)
+    mesh = make_mesh(distributed.world_size(), device=device)
     dev = mesh.device
     scene = views(np.ones((VIEWS, H, W, 3), np.float32))
     model = make_model(cfg)

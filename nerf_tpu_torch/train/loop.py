@@ -288,7 +288,7 @@ def train(
     n_data = _data_ranks(cfg)
     # a group of any size trains over its mesh (a one-rank group all-reduces
     # over itself: the same updates as one process)
-    mesh = make_mesh(n_data, dev) if distributed.in_group() else None
+    mesh = make_mesh(n_data, device=dev) if distributed.in_group() else None
     if mesh is not None:
         dev = mesh.device
     is_main = mesh is None or mesh.is_main

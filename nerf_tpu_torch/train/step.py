@@ -12,7 +12,11 @@ multiples of 8, K2/K3 otherwise; K5/K6, compositing included, with
 sync; the loss comes back as a device tensor in ``aux``. With a process
 group (parallel/mesh.py) the step is nerf_tpu's shard_map body
 (``make_train_step_core(axis_name=...)``): the gradients and loss terms are
-averaged over the ranks before Adam. ``make_stacked_train_step`` is the
+averaged over the ranks of the group before Adam. That group is the mesh's
+data group: every rank when the mesh has one model index; in the DP×TP step
+(n_model > 1) the ranks of this rank's model index, whose nets hold the same
+rows of each sharded layer (parallel/tensor_parallel.py), while the model
+group's collectives run inside the nets' forward and backward. ``make_stacked_train_step`` is the
 step of S scenes at once (multi-scene training, parallel/multi_scene.py):
 nerf_tpu's step vmapped over a scene axis, with each scene's (H, W, focal)
 an operand for NDC scenes (its ``hwf_operand``).

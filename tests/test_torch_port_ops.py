@@ -1,13 +1,18 @@
 """The port's geometry, sampling and compositing against nerf_tpu on the CPU.
 
+The compositor in both of its forms: the exact cumprod and nerf_tpu's
+matmul scan, which the renderer takes for bf16 planes (ROADMAP A.7).
+
 Inputs (and the random draws, through the override hooks) come from numpy
 with a seed and go through both packages.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from nerf_tpu.geom import poses as jposes
 from nerf_tpu.geom import rays as jrays
@@ -15,9 +20,13 @@ from nerf_tpu.ops import compositing as jcomp
 from nerf_tpu.ops import sampling as jsamp
 from nerf_tpu_torch.geom import poses as tposes
 from nerf_tpu_torch.geom import rays as trays
+from nerf_tpu_torch.models.embedding import PosEncConfig
+from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
 from nerf_tpu_torch.ops import compositing as tcomp
 from nerf_tpu_torch.ops import sampling as tsamp
 from nerf_tpu_torch.ops.sampling import linspace01
+from nerf_tpu_torch.render import renderer
+from nerf_tpu_torch.render.network import NeRFModel
 
 F32_TOL = 1e-5
 
@@ -144,3 +153,135 @@ def test_exclusive_cumprod_backward_is_torchs():
         got = tcomp.exclusive_cumprod(x)
         assert torch.equal(got, want)
         assert torch.equal(torch.autograd.grad(got, x, g)[0], torch.autograd.grad(want, x, g)[0])
+
+
+def _planes(seed, R=32, S=48):
+    """tests/test_compositing.py's planes: raw [4, R, S], sorted z, rays_d and
+    the sigma noise."""
+    rng = np.random.default_rng(seed)
+    raw4 = rng.standard_normal((4, R, S)).astype(np.float32)
+    z = np.sort(rng.uniform(2, 6, (R, S)).astype(np.float32), -1)
+    rd = rng.standard_normal((R, 3)).astype(np.float32)
+    noise = rng.standard_normal((R, S)).astype(np.float32) * 0.4
+    return raw4, z, rd, noise
+
+
+def _port_planes(raw4, z, rd, noise, matmul_scan):
+    """The port's maps and the gradient of rgb + acc + disp sums w.r.t. raw4."""
+    r4 = _t(raw4).requires_grad_(True)
+    o = tcomp.raw2outputs_planes(r4, _t(z), _t(rd), white_bkgd=True, noise=_t(noise),
+                                 matmul_scan=matmul_scan)
+    (o.rgb.sum() + o.acc.sum() + o.disp.sum()).backward()
+    return o, r4.grad
+
+
+MAPS = ("rgb", "disp", "acc", "weights", "depth")
+
+
+@pytest.mark.parametrize("seed", [1, 3])
+def test_matmul_scan_matches_jax(seed):
+    """nerf_tpu's bf16-path compositor (``matmul_scan=True``), maps and the
+    gradient w.r.t. raw, in f32: the same product, summed in another order."""
+    raw4, z, rd, noise = _planes(seed)
+
+    def loss(r4):
+        o = jcomp.raw2outputs_planes(r4, jnp.asarray(z), jnp.asarray(rd), white_bkgd=True,
+                                     noise=jnp.asarray(noise), matmul_scan=True)
+        return o.rgb.sum() + o.acc.sum() + o.disp.sum(), o
+
+    (_, ref), gref = jax.value_and_grad(loss, has_aux=True)(jnp.asarray(raw4))
+    out, g = _port_planes(raw4, z, rd, noise, True)
+    for name in MAPS:
+        _close(getattr(out, name).detach(), getattr(ref, name))
+    _close(g, gref)
+
+
+def test_matmul_scan_close_to_cumprod():
+    """The port's two forms within nerf_tpu's own bound on them
+    (tests/test_compositing.py::test_planes_matmul_scan_close)."""
+    raw4, z, rd, noise = _planes(1)
+    (o1, g1), (o2, g2) = (_port_planes(raw4, z, rd, noise, ms) for ms in (False, True))
+    for name in MAPS:
+        np.testing.assert_allclose(getattr(o2, name).detach().numpy(),
+                                   getattr(o1, name).detach().numpy(), rtol=2e-3, atol=1e-3)
+    np.testing.assert_allclose(g2.numpy(), g1.numpy(), rtol=2e-3, atol=1e-3)
+
+
+def test_opaque_ray_finite_in_both_forms():
+    """alpha == 1 keeps the 1e-10 floor, so the log of the matmul scan stays
+    finite (tests/test_compositing.py::test_opaque_ray_planes_no_nan)."""
+    n = 16
+    raw4 = np.zeros((4, 1, n), np.float32)
+    raw4[3, 0, 4] = 1e4
+    raw4[:3] = 5.0
+    z = _t(np.linspace(2.0, 6.0, n, dtype=np.float32)[None])
+    rd = _t(np.array([[0.0, 0.0, -1.0]], np.float32))
+    for ms in (False, True):
+        r4 = _t(raw4).requires_grad_(True)
+        o = tcomp.raw2outputs_planes(r4, z, rd, matmul_scan=ms)
+        for name in ("rgb", "acc", "weights", "depth"):
+            assert bool(torch.isfinite(getattr(o, name)).all()), (ms, name)
+        w = o.weights.detach()[0]
+        assert w[4] > 0.99 and bool((w[5:] < 1e-6).all())
+        o.rgb.sum().backward()
+        assert bool(torch.isfinite(r4.grad).all()), ms
+
+
+def test_matmul_scan_keeps_ieee_f32_products():
+    """Both of the scan's products (forward and backward) run with float32
+    products at "highest" (no TF32 on a card) while the process allows
+    "high", which comes back after them; the triangle is made once."""
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket in (torch.ops.aten.mm, torch.ops.aten.bmm):
+                self.seen.append(torch.get_float32_matmul_precision())
+            return func(*args, **(kwargs or {}))
+
+    raw4, z, rd, noise = _planes(2, R=4, S=8)
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        r4 = _t(raw4).requires_grad_(True)
+        with Products() as mode:
+            o = tcomp.raw2outputs_planes(r4, _t(z), _t(rd), noise=_t(noise), matmul_scan=True)
+            o.rgb.sum().backward()
+        after = torch.get_float32_matmul_precision()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    assert mode.seen == ["highest", "highest"] and after == "high"
+    U = tcomp.strict_upper_ones(8, "cpu")
+    assert U is tcomp.strict_upper_ones(8, torch.device("cpu"))
+    assert torch.equal(U, torch.triu(torch.ones(8, 8), 1))
+
+
+@pytest.mark.parametrize("dtype,fused,want", [("bfloat16", True, [True, True]),
+                                              ("float32", True, [False, False]),
+                                              ("bfloat16", False, [])])
+def test_renderer_scans_by_matmul_in_bf16(monkeypatch, dtype, fused, want):
+    """``render_rays``' planes branch (K1/K4, here their plain versions on
+    the CPU) composites with the matmul scan in bf16 and the exact cumprod
+    in f32, on both levels (nerf_tpu/render/renderer.py:159); the points-in
+    branch has no planes call."""
+    seen = []
+    real = renderer.raw2outputs_planes
+
+    def spy(*args, matmul_scan=False, **kwargs):
+        seen.append(matmul_scan)
+        return real(*args, matmul_scan=matmul_scan, **kwargs)
+
+    monkeypatch.setattr(renderer, "raw2outputs_planes", spy)
+    cfg = MLPConfig(width=128)
+    model = NeRFModel(PosEncConfig(10), PosEncConfig(4), cfg, cfg, dtype, fused=fused)
+    nets = {lvl: NeRFMLP(cfg, seed=s, device="cpu") for s, lvl in enumerate(("coarse", "fine"))}
+    rs = renderer.RenderSettings(n_samples=8, n_importance=8, perturb=False)
+    rng = np.random.default_rng(4)
+    ro, rd = (_t(rng.standard_normal((3, 3)).astype(np.float32)) for _ in range(2))
+    out = renderer.render_rays(nets, model, rs, ro, rd, rd / rd.norm(dim=-1, keepdim=True),
+                               torch.full((3,), 2.0), torch.full((3,), 6.0))
+    assert seen == want
+    assert bool(torch.isfinite(out["rgb_map"]).all())

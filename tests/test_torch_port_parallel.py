@@ -11,7 +11,11 @@ samplers and the mesh-sharded frame renderer, then
 ``cli.train_multi.main`` on two scenes with ``--data_axis 2`` (a scene a
 rank), and sends back its state and outputs.
 The same ``cli.train.main`` and ``cli.train_multi.main`` run once more in
-this process with ``--data_axis 1``.
+this process with ``--data_axis 1``. A second module fixture starts four
+gloo ranks, a data 2 × model 2 mesh, for the DP×TP step (ROADMAP A.8b):
+held against nerf_tpu's ``shard_model_axis=True`` step without draws and
+against the port's one-process step with them, its mesh-sharded frame,
+and the model-parallel MLP's gradients against the whole MLP's.
 At the smallest shapes that catch a wrong result: a 16x16 blender scene,
 4x64 nets, N_rand 64, 8+8 samples. The card's run of the same path is
 chip_smoke.py's phase 24.
@@ -35,6 +39,9 @@ from jax.sharding import Mesh as JMesh
 from jax.sharding import PartitionSpec as P
 
 from nerf_tpu.models import factory as jfactory
+from nerf_tpu.models.nerf_mlp import MLPConfig as JMLPConfig
+from nerf_tpu.models.nerf_mlp import init_params as jinit_params
+from nerf_tpu.parallel import mesh as jmesh
 from nerf_tpu.train import loop as jloop
 from nerf_tpu.train import step as jstep
 from nerf_tpu_torch import config as tconfig
@@ -42,19 +49,26 @@ from nerf_tpu_torch.cli import train as cli_train
 from nerf_tpu_torch.cli import train_multi
 from nerf_tpu_torch.data import rays_dataset
 from nerf_tpu_torch.data.blender import load_blender_scene
+from nerf_tpu_torch.geom.poses import pose_spherical
 from nerf_tpu_torch.models import factory as tfactory
 from nerf_tpu_torch.models.convert import jax_params_from_state_dict, state_dict_from_jax_params
+from nerf_tpu_torch.models.embedding import PosEncConfig
+from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
 from nerf_tpu_torch.parallel import distributed
-from nerf_tpu_torch.parallel.mesh import Mesh
+from nerf_tpu_torch.parallel.mesh import (
+    Mesh, make_sharded_train_step, param_sharding, shard_state,
+)
 from nerf_tpu_torch.parallel.multi_scene import scene_seed
-from nerf_tpu_torch.render.renderer import make_frame_renderer
+from nerf_tpu_torch.render.network import NeRFModel
+from nerf_tpu_torch.render.renderer import RenderSettings, make_frame_renderer
 from nerf_tpu_torch.train import loop as tloop
+from nerf_tpu_torch.train.step import init_train_state, make_train_step
 from nerf_tpu_torch.utils import checkpoint
 from nerf_tpu_torch.utils.io import read_png
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from synthetic_scene import write_blender_dataset  # noqa: E402
-from torch_port_parallel_worker import rank_run, train_rank  # noqa: E402
+from torch_port_parallel_worker import rank_run, tp_rank, train_rank  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 STEPS = 6
@@ -118,9 +132,10 @@ def _multi_argv(tmp, datadir, data_axis):
             "--i_weights", str(MULTI_STEPS), "--data_axis", str(data_axis)]
 
 
-def _step_job(cfg):
-    """Two train steps' inputs for (c): initial weights (the port's, seeded,
-    and as nerf_tpu's pytree), rays, targets and the whole batch's draws."""
+def _step_job(cfg, n_steps=2):
+    """``n_steps`` train steps' inputs for (c): initial weights (the port's,
+    seeded, and as nerf_tpu's pytree), rays, targets and the whole batch's
+    draws."""
     tmodel = tfactory.make_model(cfg)
     nets = tfactory.init_nets(tmodel, 3, "cpu")
     sds = {lvl: {n: p.detach().clone() for n, p in net.state_dict().items()}
@@ -129,7 +144,7 @@ def _step_job(cfg):
     rng = np.random.default_rng(7)
     n = cfg.N_rand
     batches = []
-    for _ in range(2):
+    for _ in range(n_steps):
         ro = rng.normal(0, 0.3, (n, 3)).astype(np.float32) + np.float32([0, 0, 4])
         rd = rng.normal(0, 0.2, (n, 3)).astype(np.float32) + np.float32([0, 0, -1])
         batch = (ro, rd, np.full(n, 2.0, np.float32), np.full(n, 6.0, np.float32),
@@ -492,3 +507,260 @@ def test_cli_launches_the_ranks_data_axis_asks_for(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="2 ranks"):
         distributed.shard_slice(63, 0, 2)
     assert distributed.host_shard_slice(64) == slice(0, 64)  # no group: all rows
+
+
+# (i) the DP×TP step (ROADMAP A.8b): four gloo ranks, data 2 × model 2
+
+
+TP_STEPS = 3
+TP_SEED = 11  # the draws' generator, on every rank and in the one process
+TP_NOISE = 1.0
+GRAD_TOL = 1e-5  # the model-parallel MLP's gathered grads against the whole MLP's
+
+
+def _tp_model(cfg):
+    """The port's model of ``cfg`` with the kernels off: the DP×TP step runs
+    the plain MLP."""
+    return dataclasses.replace(tfactory.make_model(cfg), fused=False, fused_render=False)
+
+
+def _grad_check_job():
+    """Inputs of the model-parallel MLP's gradient check: 8×64 nets with and
+    without viewdirs (output_linear's 4 columns split at n_model 2), 50
+    embedded points, their embedded directions and a cotangent of raw."""
+    rng = np.random.default_rng(9)
+    job = {}
+    for name, views in (("viewdirs", True), ("no_viewdirs", False)):
+        cfg = MLPConfig(width=64, use_viewdirs=views)
+        x = rng.normal(0, 1, (50, cfg.input_ch)).astype(np.float32)
+        v = rng.normal(0, 1, (50, cfg.input_ch_views)).astype(np.float32) if views else None
+        cot = rng.normal(0, 1, (50, 4)).astype(np.float32)
+        job[name] = (cfg, x, v, cot)
+    return job
+
+
+@pytest.fixture(scope="module")
+def tp(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("tp")
+    cfg = tconfig.load_config(_argv(tmp, str(tmp / "blender"), "tp", 1))
+    jparams, step_job = _step_job(cfg, TP_STEPS)
+    rs = tloop.render_settings_from_config(cfg)
+    batches = [batch for batch, _ in step_job["batches"]]
+    job = {"model": _tp_model(cfg), "params": step_job["params"], "lrate": cfg.lrate,
+           "lrate_decay": cfg.lrate_decay,
+           "runs": {"det": (dataclasses.replace(rs, perturb=False, raw_noise_std=0.0), None,
+                            batches),
+                    "drawn": (dataclasses.replace(rs, perturb=True, raw_noise_std=TP_NOISE),
+                              TP_SEED, batches)},
+           "grad_check": _grad_check_job(), "frame": (*FRAME_HW, _frame_K(), _frame_pose())}
+    threads = torch.get_num_threads()
+    omp = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    torch.set_num_threads(1)
+    try:
+        ranks = distributed.launch(tp_rank, 4, "cpu", args=(job,))
+    finally:
+        torch.set_num_threads(threads)
+        if omp is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+        else:
+            os.environ["OMP_NUM_THREADS"] = omp
+    return {"cfg": cfg, "jparams": jparams, "job": job, "ranks": ranks,
+            "start": step_job["params"]}
+
+
+def _frame_K():
+    f = 14.0
+    return np.array([[f, 0, FRAME_HW[1] / 2], [0, f, FRAME_HW[0] / 2], [0, 0, 1]], np.float32)
+
+
+def _frame_pose():
+    return np.asarray(pose_spherical(30.0, -30.0, 4.0), np.float32)
+
+
+def _assert_moments_close(got, want):
+    """Each Adam moment within UPDATE_TOL relative L2 of the reference's:
+    ``_assert_close_to``'s bound on an update, from zeros."""
+    for level in want:
+        for name, pair in want[level].items():
+            for g, w in zip(got[level][name], pair):
+                moved = torch.linalg.norm(w)
+                if moved > 0:
+                    assert float(torch.linalg.norm(g - w) / moved) <= UPDATE_TOL, (level, name)
+
+
+def _assert_ranks_agree(tp, key):
+    """Every rank's gathered state is the same whole state, and its losses
+    the same."""
+    r0 = tp["ranks"][0][key]
+    for rank in tp["ranks"][1:]:
+        assert rank[key]["losses"] == r0["losses"]
+        _assert_states_equal(rank[key]["state"], r0["state"], key)
+    return r0
+
+
+def test_tp_mesh_places_ranks_and_rows(tp):
+    """Rank r sits at (r // 2, r % 2), and holds half the rows of each
+    sharded layer: the trunk, feature_linear, views_linears.0; alpha_linear
+    and rgb_linear whole."""
+    for r, rank in enumerate(tp["ranks"]):
+        assert (rank["rank"], rank["data_index"], rank["model_index"]) == (r, r // 2, r % 2)
+        rows = rank["det"]["rows"]["fine"]
+        assert rows["pts_linears.0.weight"] == (32, 63)
+        assert rows["pts_linears.3.weight"] == (32, 64)
+        assert rows["feature_linear.bias"] == (32,)
+        assert rows["views_linears.0.weight"] == (16, 64 + 27)
+        assert rows["alpha_linear.weight"] == (1, 64)
+        assert rows["rgb_linear.weight"] == (3, 32)
+
+
+def test_tp_step_matches_nerf_tpu(tp):
+    """Three steps without draws against nerf_tpu's DP×TP step
+    (``make_sharded_train_step(make_mesh(2, 2), shard_model_axis=True)``)
+    on the same weights and batches: losses, parameters and Adam's moments."""
+    cfg = tp["cfg"]
+    jmodel = dataclasses.replace(jfactory.make_model(cfg), fused=False, fused_render=False)
+    rs = dataclasses.replace(jloop.render_settings_from_config(cfg), perturb=False,
+                             raw_noise_std=0.0)
+    mesh = jmesh.make_mesh(2, 2, jax.devices()[:4])
+    state = jstep.init_train_state(tp["jparams"], cfg.lrate, cfg.lrate_decay)
+    step = jmesh.make_sharded_train_step(mesh, jmodel, rs, cfg.lrate, cfg.lrate_decay,
+                                         donate=False, shard_model_axis=True)(state)
+    losses = []
+    for batch in tp["job"]["runs"]["det"][2]:
+        state, aux = step(state, *jmesh.shard_batch(mesh, *(jnp.asarray(a) for a in batch)),
+                          jax.random.key(0))
+        losses.append(float(aux["loss"]))
+    got = _assert_ranks_agree(tp, "det")
+    assert got["state"]["step"] == TP_STEPS
+    np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
+    tmodel = tp["job"]["model"]
+
+    def named(tree):
+        return {lvl: {n: torch.from_numpy(np.asarray(v)) for n, v in state_dict_from_jax_params(
+            jax.tree.map(np.asarray, tree[lvl]), getattr(tmodel, lvl)).items()}
+            for lvl in ("coarse", "fine")}
+
+    _assert_close_to(got["state"]["params"], named(state.params), tp["start"])
+    mu, nu = named(state.opt_state[0].mu), named(state.opt_state[0].nu)
+    _assert_moments_close(got["state"]["moments"],
+                          {lvl: {n: (mu[lvl][n], nu[lvl][n]) for n in mu[lvl]} for lvl in mu})
+
+
+def test_tp_step_matches_one_process(tp):
+    """Three steps with jitter, sigma noise and importance draws from one
+    generator seed, against the port's one-process step on the same draws:
+    losses, parameters and Adam's moments, through ``gather_state``."""
+    cfg, job = tp["cfg"], tp["job"]
+    rs, seed, batches = job["runs"]["drawn"]
+    nets = {}
+    for level, sd in job["params"].items():
+        nets[level] = NeRFMLP(getattr(job["model"], level), device="cpu")
+        nets[level].load_state_dict(sd, strict=True)
+    state = init_train_state(nets, cfg.lrate)
+    step = make_train_step(job["model"], rs, cfg.lrate, cfg.lrate_decay)
+    gen = torch.Generator().manual_seed(seed)
+    losses = [float(step(state, *(torch.from_numpy(a) for a in batch), generator=gen)["loss"])
+              for batch in batches]
+    got = _assert_ranks_agree(tp, "drawn")
+    np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
+    want = {lvl: dict(net.named_parameters()) for lvl, net in nets.items()}
+    _assert_close_to(got["state"]["params"], {lvl: {n: p.detach() for n, p in ps.items()}
+                                              for lvl, ps in want.items()}, tp["start"])
+    _assert_moments_close(got["state"]["moments"], {
+        lvl: {n: tuple(state.optimizer.state[p][k] for k in ("exp_avg", "exp_avg_sq"))
+              for n, p in ps.items()} for lvl, ps in want.items()})
+
+
+def test_tp_sharded_frame_matches_whole_nets(tp):
+    """The mesh-sharded frame renderer on the DP×TP ranks (each data index
+    its rows, through the model-parallel nets) is the unsharded frame of
+    the gathered whole nets, on every rank."""
+    model = tp["job"]["model"]
+    nets = {}
+    for lvl, sd in tp["ranks"][0]["det"]["state"]["params"].items():
+        nets[lvl] = NeRFMLP(getattr(model, lvl), device="cpu")
+        nets[lvl].load_state_dict(sd, strict=True)
+    H, W, K, pose = tp["job"]["frame"]
+    rs = tp["job"]["runs"]["det"][0].eval_mode()
+    want = make_frame_renderer(model, rs, H, W, K, 2.0, 6.0, device="cpu")(nets, pose)
+    for rank in tp["ranks"]:
+        assert set(rank["frame"]) == set(want)
+        for k in want:
+            torch.testing.assert_close(rank["frame"][k], want[k], rtol=0, atol=FRAME_TOL,
+                                       equal_nan=True)
+
+
+@pytest.mark.parametrize("net", ["viewdirs", "no_viewdirs"])
+def test_tp_mlp_grads_equal_whole_mlp(tp, net):
+    """On each 2-rank model group, the model-parallel MLP's raw and its
+    gathered weight grads equal the whole MLP's within GRAD_TOL (a gather
+    whose backward summed over the ranks would double every sharded leaf)."""
+    for rank in tp["ranks"]:
+        errs = rank["grad_check"][net]
+        assert len(errs) == 1 + 2 * (8 + (4 if net == "viewdirs" else 2))  # raw and every leaf
+        bad = {k: e for k, e in errs.items() if not e <= GRAD_TOL}
+        assert not bad, (rank["rank"], bad)
+
+
+def _jax_sharding(cfg, n_model):
+    """nerf_tpu's ``param_sharding(make_mesh(1, n_model), params, True)`` by
+    the port's parameter names: whether 'model' splits the leaf (each leaf
+    of the shardings' tree as an array of its flag, carried over by
+    ``state_dict_from_jax_params``)."""
+    jcfg = JMLPConfig(width=cfg.width, use_viewdirs=cfg.use_viewdirs)
+    params = jax.eval_shape(lambda: jinit_params(jax.random.key(0), jcfg))
+    specs = jmesh.param_sharding(jmesh.make_mesh(1, n_model, jax.devices()[:n_model]), params,
+                                 True)
+    flags = jax.tree.map(lambda leaf, sh: np.full(leaf.shape, "model" in tuple(sh.spec)),
+                         params, specs)
+    sd = state_dict_from_jax_params(flags, cfg)
+    if not cfg.use_viewdirs:  # filled in by the carry-over, no leaf of nerf_tpu's
+        del sd["views_linears.0.weight"], sd["views_linears.0.bias"]
+    return {name: bool(t.flatten()[0]) for name, t in sd.items()}
+
+
+@pytest.mark.parametrize("n_model", [2, 3, 4])
+@pytest.mark.parametrize("views", [True, False])
+@pytest.mark.parametrize("width", [64, 96])
+def test_param_sharding_matches_nerf_tpu(width, views, n_model):
+    """``param_sharding`` is nerf_tpu's leaf for leaf (the unused
+    views_linears.0 without viewdirs has no leaf there); unsharded with the
+    flag off or one model index."""
+    cfg = MLPConfig(width=width, use_viewdirs=views)
+    net = NeRFMLP(cfg, device="cpu")
+    mesh = Mesh(group=None, size=1, rank=0, device=torch.device("cpu"), n_model=n_model)
+    got = param_sharding(mesh, net, True)
+    want = _jax_sharding(cfg, n_model)
+    assert {k: got[k] for k in want} == want
+    assert set(got) - set(want) == (set() if views else {"views_linears.0.weight",
+                                                         "views_linears.0.bias"})
+    assert not any(param_sharding(mesh, net, False).values())
+    one = Mesh(group=None, size=2, rank=1, device=torch.device("cpu"))
+    assert not any(param_sharding(one, net, True).values())
+
+
+def test_tp_step_refuses_kernels_and_whole_nets():
+    """With n_model > 1 the DP×TP step runs the plain MLP: a model with its
+    kernels on raises, as does a state that ``shard_state`` did not make;
+    with n_model 1 (or the flag off) the flag changes nothing."""
+    cfg = MLPConfig(width=64)
+    plain = NeRFModel(PosEncConfig(10), PosEncConfig(4), cfg, cfg)
+    rs = RenderSettings(n_samples=8, n_importance=8, perturb=False)
+    cpu = torch.device("cpu")
+    mesh = Mesh(group=None, size=1, rank=0, device=cpu, n_model=2)
+    for flags in ({"fused": True}, {"fused_render": True}):
+        with pytest.raises(ValueError, match="runs the plain MLP"):
+            make_sharded_train_step(mesh, dataclasses.replace(plain, **flags), rs, 5e-4, 250,
+                                    shard_model_axis=True)
+        make_sharded_train_step(mesh, dataclasses.replace(plain, **flags), rs, 5e-4, 250)
+    one = Mesh(group=None, size=1, rank=0, device=cpu)
+    assert (one.data_index, one.model_index, one.data_group) == (0, 0, None)
+    make_sharded_train_step(one, dataclasses.replace(plain, fused=True), rs, 5e-4, 250,
+                            shard_model_axis=True)
+    state = init_train_state({"coarse": NeRFMLP(cfg, device=cpu)}, 5e-4)
+    assert shard_state(one, state) is state
+    step = make_sharded_train_step(mesh, plain, rs, 5e-4, 250, shard_model_axis=True)
+    rays = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="shard_state"):
+        step(state, rays, rays, torch.full((4,), 2.0), torch.full((4,), 6.0), rays)

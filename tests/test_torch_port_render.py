@@ -197,7 +197,8 @@ def test_port_imports_neither_jax_nor_nerf_tpu():
     parallel = REPO / "nerf_tpu_torch" / "parallel"
     port = REPO / "nerf_tpu_torch"
     assert {parallel / "mesh.py", parallel / "distributed.py", parallel / "multi_scene.py",
-            port / "cli" / "train_multi.py", port / "tools" / "make_multi_scenes.py"} <= set(files)
+            parallel / "tensor_parallel.py", port / "cli" / "train_multi.py",
+            port / "tools" / "make_multi_scenes.py"} <= set(files)
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -5,10 +5,13 @@
 (fused, then the same runs step by step, on both sampler policies), the
 sharded step (with the schedule's float and with an ``lr`` tensor), the
 samplers and the frame renderer, then multi-scene training with the scene
-axis over the ranks. It imports torch and the
-port only (a spawned rank imports this module afresh) and returns CPU
-tensors and numbers for the test to hold against one process and
-nerf_tpu.
+axis over the ranks. ``tp_rank`` runs in each of the four ranks of the
+DP×TP fixture (data 2 × model 2): the sharded step without draws and with
+them, the mesh-sharded frame through the model-parallel nets, and the
+model-parallel MLP's gradients against the whole MLP's. It
+imports torch and the port only (a spawned rank imports this module afresh)
+and returns CPU tensors and numbers for the test to hold against one
+process and nerf_tpu.
 """
 
 import contextlib
@@ -22,7 +25,10 @@ from nerf_tpu_torch.data import rays_dataset
 from nerf_tpu_torch.data.blender import load_blender_scene
 from nerf_tpu_torch.models.factory import make_model
 from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
-from nerf_tpu_torch.parallel.mesh import make_mesh, make_sharded_train_step, shard_batch
+from nerf_tpu_torch.parallel.mesh import (
+    gather_state, make_mesh, make_sharded_train_step, place_state, shard_batch, shard_state,
+)
+from nerf_tpu_torch.parallel.tensor_parallel import ShardedNeRFMLP, gather_rows
 from nerf_tpu_torch.render.renderer import make_frame_renderer
 from nerf_tpu_torch.train.loop import render_settings_from_config
 from nerf_tpu_torch.train.step import init_train_state, lr_schedule
@@ -57,7 +63,7 @@ def rank_run(device, job: dict) -> dict:
         out["fuse"][policy] = [{"history": r.history, "state": state_tensors(r.state),
                                 "chunks": r.chunks} for r in runs]
     cfg, scene_args = job["cfg"], job["scene"]
-    mesh = make_mesh(2, device)
+    mesh = make_mesh(2, device=device)
     model = make_model(cfg)
     rs = render_settings_from_config(cfg)
 
@@ -115,7 +121,7 @@ def sharded_step_rank(device, job: dict) -> dict:
     this rank's rows of ``job``'s batches, with K1's and K4's launches."""
     from nerf_tpu_torch.ops import fused_mlp
 
-    mesh = make_mesh(2, device)
+    mesh = make_mesh(2, device=device)
     model = job["model"]
     nets = {}
     for level, sd in job["params"].items():
@@ -142,3 +148,67 @@ def train_rank(device, argv) -> dict:
         result = cli_train.main(argv, device=device)
     return {"history": result.history, "state": state_tensors(result.state),
             "chunks": result.chunks, "log": log.getvalue()}
+
+
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_cpu(v) for v in tree)
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def tp_rank(device, job: dict) -> dict:
+    """The DP×TP step on a data 2 × model 2 mesh: ``job["runs"]`` names each
+    run's render settings, seed (None: no draws) and batches; every run
+    starts from ``job["params"]`` through ``place_state`` and
+    ``shard_state`` and returns its losses and ``gather_state``; the run
+    without draws then renders ``job["frame"]`` on the mesh. Then the
+    model-parallel MLP against the whole one on ``job["grad_check"]``'s
+    inputs: the largest difference of the outputs and, per parameter, of
+    the gathered gradients."""
+    mesh = make_mesh(2, 2, device=device)
+    model = job["model"]
+    out = {"rank": mesh.rank, "data_index": mesh.data_index, "model_index": mesh.model_index}
+    for key, (rs, seed, batches) in job["runs"].items():
+        nets = {}
+        for level, sd in job["params"].items():
+            nets[level] = NeRFMLP(getattr(model, level), device=device)
+            nets[level].load_state_dict(sd, strict=True)
+        state = shard_state(mesh, place_state(mesh, init_train_state(nets, job["lrate"])))
+        step = make_sharded_train_step(mesh, model, rs, job["lrate"], job["lrate_decay"],
+                                       shard_model_axis=True)
+        gen = None if seed is None else torch.Generator(device).manual_seed(seed)
+        losses = []
+        for batch in batches:
+            rows = shard_batch(mesh, *(torch.from_numpy(a).to(device) for a in batch))
+            losses.append(float(step(state, *rows, generator=gen)["loss"]))
+        out[key] = {"losses": losses, "state": _cpu(gather_state(mesh, state)),
+                    "rows": {lvl: {n: tuple(p.shape) for n, p in net.named_parameters()}
+                             for lvl, net in state.nets.items()}}
+        if key == "det":  # the mesh-sharded frame through the model-parallel nets
+            H, W, K, pose = job["frame"]
+            frame = make_frame_renderer(model, rs.eval_mode(), H, W, K, 2.0, 6.0, chunk=40,
+                                        device=device, mesh=mesh)
+            out["frame"] = _cpu(frame(state.nets, pose))
+
+    out["grad_check"] = {}
+    for name, (cfg, x, v, cot) in job["grad_check"].items():
+        whole = NeRFMLP(cfg, seed=5, device=device)
+        sharded = ShardedNeRFMLP(whole, mesh)
+        x, cot = torch.from_numpy(x).to(device), torch.from_numpy(cot).to(device)
+        v = None if v is None else torch.from_numpy(v).to(device)
+        y_whole, y_sharded = whole.apply_mlp(x, v), sharded.apply_mlp(x, v)
+        (y_whole * cot).sum().backward()
+        (y_sharded * cot).sum().backward()
+        errs = {"out": float((y_whole - y_sharded).detach().abs().max())}
+        grads = dict(whole.named_parameters())
+        for pname, p in sharded.named_parameters():
+            ref = grads[pname].grad
+            if p.grad is None or ref is None:  # the unused view layer without viewdirs
+                errs[pname] = 0.0 if p.grad is None and ref is None else float("inf")
+                continue
+            g = gather_rows(p.grad, mesh) if sharded.sharded[pname] else p.grad
+            errs[pname] = float((g - ref).abs().max())
+        out["grad_check"][name] = errs
+    return out
