@@ -276,12 +276,30 @@ The DP×TP step (ROADMAP A.8b, ``parallel/mesh.py``,
    model-parallel nets run and the whole ones not), then bf16 ms/step and
    peak GiB per rank beside the one process's, at the N_rand the one
    process's f32 peak leaves room for two ranks (printed).
+The multi-scene sweep (``tools/multiscene_sweep.py``, nerf_tpu's
+tools/multiscene_sweep.py):
+33. sweep, on phase 25's 8 scenes: (a) after the chunk that captures, one
+   chunk of the S = 8 graph (the sweep's ``Pack``: 50 stacked steps with
+   their ``StackedImageSampler`` draws) is one ``CUDAGraph.replay()`` and
+   ``torch.equal`` to the same 50 steps run eagerly from the same state
+   and generators (weights, Adam's moments and counts, losses, the
+   generators' states), with the same launches, 2 K1s + 2 K4s a step; a
+   profiled chunk and 10 profiled eager steps (device ms/step, idle
+   share); (b) the tool's ``main`` at --n_iters 100 (S = 1, 2, 4, 8, then
+   sequential x8 through the S = 1 graph): its rows (ms/step, rays/s,
+   holdout PSNRs), 2 K1s + 2 K4s a step and 4 K1 a holdout frame, one
+   capture an S and one replay a chunk; (c) each scene's per-step losses
+   in the S = 8 pack against its sequential run within 0.1 dB (2.3%), its
+   weights' max abs difference, whether the pack is bit-equal, and the
+   step's parts and plain ops that differ between a pack and a scene
+   alone (``sweep_pack_split``).
 
 The last two lines are a JSON object of kernel numbers (K1-K7, the
 backward's recompute and chain launches, K6's compositing pass, K7's
 ``matmul_only`` beside its library chain, the stacked K1-K6, the wide
 K1w-K6w and their stacked plans K1ws-K6ws) and the
-``{"ok": true, "device": ...}`` result. Weights are random, from seeds.
+``{"ok": true, "device": ...}`` result (K7's ``full`` beside its 10
+products as bf16 ``torch.matmul``). Weights are random, from seeds.
 The script imports nothing of JAX or of ``nerf_tpu``.
 """
 
@@ -289,6 +307,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -877,7 +896,8 @@ def main() -> int:
     dp_phase(train_info["views"], dev)
 
     # 25. multi-scene training: cli.train_multi, the stacked K1 and K4
-    multi = multi_phase(one_scene, dev)
+    multi_root = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    multi = multi_phase(one_scene, multi_root, dev)
 
     # 26.-28. the wide family: its kernels against their plain versions and
     # timed, then the W = 512 and 16-octave lego paths
@@ -895,6 +915,11 @@ def main() -> int:
 
     # 32. ROADMAP A.8b: the DP×TP step over a model group
     tp_phase(train_info["views"], smi, dev)
+
+    # 33. the multi-scene sweep on phase 25's scenes: S scenes as one CUDA
+    # graph a chunk against the same scenes one after another
+    sweep_phase(multi_root, smi, dev)
+    shutil.rmtree(multi_root)
 
     def row(name, source, replaces, launches, err, t):
         return {
@@ -966,7 +991,7 @@ def main() -> int:
          "bound_ms": composite["bytes_ms"], "bound_by": "bytes", "library_ms": None},
         # the probe tool's 9 x (1 + 30) launches; the full body (K1's whole
         # tile) at 786,432 points: its max abs error, ms, plain ms and bound;
-        # no one PyTorch call computes it
+        # its 10 large products as bf16 torch.matmul as the library's
         probe_row("probe_overlap", k7["launches"], k7["full"]),
         # its matmul_only body's 1 + 30, beside the 8 bf16 torch.matmul
         probe_row("probe_overlap_matmul_only", k7["by_body"]["matmul_only"],
@@ -2219,8 +2244,9 @@ def k56_times(cfg, pe_pts, pe_views, rays, dev):
 def probe_phase(dev):
     """18. K7's bodies against their plain versions (one launch each), and
     ``full`` (K1's tile) against K2 on the same blob, bit for bit; then the
-    probe tool at the script's size. Returns the tool's rows by body and its
-    launch counts, in all and by body."""
+    probe tool at the script's size, and full's products as bf16
+    torch.matmul. Returns the tool's rows by body and its launch counts, in
+    all and by body."""
     from nerf_tpu_torch.tools import probe_overlap as P
 
     inp = P.make_inputs(npts=PROBE_CHECK_POINTS, seed=1).to(dev)
@@ -2274,9 +2300,15 @@ def probe_phase(dev):
     big = P.make_inputs().to(dev)
     P.k2_raw(big)
     k2_ms = cuda_ms(lambda: P.k2_raw(big), reps=P.REPS)
+    # full's library time: its 10 large products (the embedding's, the
+    # trunk's, the feature's and the view layer's) as bf16 torch.matmul at
+    # the tool's points, phase 5's chain for K1
+    chain = matmul_chain(big.kernel_params, P.NPTS)
+    by_body["full"]["library_ms"] = cuda_ms(chain, reps=P.REPS)
     phase("probe_full_vs_k2_time", points=P.NPTS, full_ms=f"{by_body['full']['ms']:.3f}",
-          k2_ms=f"{k2_ms:.3f}", rows_ms=f"{by_body['full']['ms'] - k2_ms:.3f}")
-    del big
+          k2_ms=f"{k2_ms:.3f}", rows_ms=f"{by_body['full']['ms'] - k2_ms:.3f}",
+          full_library_ms=f"{by_body['full']['library_ms']:.3f}")
+    del big, chain
     torch.cuda.empty_cache()
     return {"launches": counts["K7"], "by_body": dict(P.probe.by_body), **by_body}
 
@@ -3740,10 +3772,11 @@ def multi_kernels_points_render(nets, dev):
             "k3_err": max(errs["k3"]), "k5_err": max(errs["k5"]), "k6_err": max(errs["k6"])}
 
 
-def multi_phase(one_scene: dict, dev) -> dict:
+def multi_phase(one_scene: dict, root: str, dev) -> dict:
     """25. Multi-scene training: the port's tool writes the 8 scenes (fewer
-    views), then ``cli.train_multi.main`` with configs/multi/scene_0..7.txt
-    for MULTI_STEPS steps with i_print and i_weights firing: exactly 2
+    views) under ``root`` (phase 33 trains them again), then
+    ``cli.train_multi.main`` with configs/multi/scene_0..7.txt for
+    MULTI_STEPS steps with i_print and i_weights firing: exactly 2
     stacked K1 and 2 stacked K4 launches a step for all 8 scenes and
     nothing else of K1-K6, a finite loss a scene, 8 .tar files each loading
     into the one-scene model with the scene's trained weights; the same at
@@ -3762,7 +3795,6 @@ def multi_phase(one_scene: dict, dev) -> dict:
     from nerf_tpu_torch.parallel.multi_scene import scene_seed
     from nerf_tpu_torch.tools import make_multi_scenes
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_multi_")
     here = os.getcwd()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3869,7 +3901,6 @@ def multi_phase(one_scene: dict, dev) -> dict:
                   launch_s=f"{launch_s:.2f}")
     finally:
         os.chdir(here)
-        shutil.rmtree(root)
     return {"counts": counts, "path_counts": path_counts, **kernels}
 
 
@@ -5049,7 +5080,8 @@ def fuse_times(views, smi: str, dev) -> None:
         schedule = lr_schedule(cfg.lrate, cfg.lrate_decay)
         table = torch.tensor([schedule(t) for t in range(cfg.n_iters)], dtype=torch.float32,
                              device=dev)
-        runner = ChunkRunner(step_fn, state, k, near, far, gen, [sampler.generator], table, 0)
+        runner = ChunkRunner(functools.partial(step_fn, generator=gen), state, k, near, far,
+                             [gen, sampler.generator], table, 0)
 
         def chunk(i):
             if fused:
@@ -5072,6 +5104,277 @@ def fuse_times(views, smi: str, dev) -> None:
         profile_report(prof, seconds, "K1", "K4", steps=steps, card=repr(smi),
                        loop="fused" if fused else "per_step", fuse_steps=k if fused else 1,
                        replays=runner.replays)
+
+
+# phase 33, the multi-scene sweep (tools/multiscene_sweep.py) on phase 25's
+# scenes, at SWEEP_ITERS steps a run: one warm-up chunk of the sweep's FUSE
+# steps and one timed. A scene's per-step losses in the S = 8 pack are held
+# to its sequential run within SWEEP_LOSS_RTOL: 0.1 dB of PSNR (an mse
+# 10^0.01 = 1.023 times another), the smallest pack-against-alone drift
+# nerf_tpu's own sweep records between its S = 1 and S >= 2 columns
+# (MULTISCENE.md: 0.1-1 dB after 2000 bf16 steps), since a sum that the
+# pack runs over [S*R] rays where the scene alone runs over [R] may add in
+# another order (tests/test_torch_port_multi.py's STEP_LOSS_RTOL on the
+# CPU). The eager steps of the profiled window beside the S = 8 chunk's
+SWEEP_ITERS, SWEEP_EAGER_PROFILED = 100, 10
+SWEEP_LOSS_RTOL = 10 ** 0.01 - 1
+# draws of [8, 3072] squared errors whose mean a scene is held to the
+# scene's alone, value by value (one draw gives one value a scene)
+SWEEP_MEAN_DRAWS = 64
+
+
+def sweep_snapshot(pack):
+    """Copies of what a chunk changes in the sweep's ``Pack``: parameters,
+    Adam's state, the generators' states and the step."""
+    opt = pack.state.optimizer
+    params = [p for group in opt.param_groups for p in group["params"]]
+    return {"params": [p.detach().clone() for p in params],
+            "moments": [{k: v.clone() for k, v in opt.state[p].items()} for p in params],
+            "gens": [g.get_state() for g in pack.runner.generators], "step": pack.state.step}
+
+
+def sweep_restore(pack, snap) -> None:
+    opt = pack.state.optimizer
+    params = [p for group in opt.param_groups for p in group["params"]]
+    with torch.no_grad():
+        for p, v, held in zip(params, snap["params"], snap["moments"]):
+            p.copy_(v)
+            for k, m in held.items():
+                opt.state[p][k].copy_(m)
+    for g, st in zip(pack.runner.generators, snap["gens"]):
+        g.set_state(st)
+    pack.state.step = snap["step"]
+
+
+def sweep_same(a, b) -> bool:
+    return (all(torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+            and all(torch.equal(x[k], y[k]) for x, y in zip(a["moments"], b["moments"])
+                    for k in x)
+            and all(torch.equal(x, y) for x, y in zip(a["gens"], b["gens"]))
+            and a["step"] == b["step"])
+
+
+def sweep_graph_vs_eager(cfgs, scenes, smi: str, dev) -> None:
+    """33 (a). The S = 8 pack of the sweep (its ``Pack``: one
+    ``ChunkRunner`` over the stacked step and ``StackedImageSampler``):
+    after the chunk that captures, one chunk is one ``CUDAGraph.replay()``
+    and ``torch.equal`` to the same FUSE stacked steps run eagerly from the
+    same state and generators (weights, Adam's moments and counts, losses,
+    the generators' states), with the same launches, 2 K1s + 2 K4s a step
+    and nothing else. Then a profiled chunk and SWEEP_EAGER_PROFILED
+    profiled eager steps: device ms/step and idle share of each."""
+    from nerf_tpu_torch.parallel.multi_scene import scene_seed
+    from nerf_tpu_torch.tools import multiscene_sweep as sweep
+    from nerf_tpu_torch.train.step import lr_schedule
+
+    k, S = sweep.FUSE, len(scenes)
+    c0 = cfgs[0]
+    schedule = lr_schedule(c0.lrate, c0.lrate_decay)
+    table = torch.tensor([schedule(t) for t in range(4 * k)], dtype=torch.float32, device=dev)
+    pack = sweep.Pack(c0, scenes, [scene_seed(c0.seed, s) for s in range(S)], k, table, dev)
+    with graph_calls() as graphs:
+        pack.chunk()  # captures, then replays
+        torch.cuda.synchronize()
+        start = sweep_snapshot(pack)
+        reset_counts()
+        graph_loss = pack.chunk()["loss"]
+        torch.cuda.synchronize()
+        graph_counts = read_counts()
+    graph_end = sweep_snapshot(pack)
+    sweep_restore(pack, start)
+    reset_counts()
+    eager_loss = []
+    for j in range(k):
+        ro, rd, tgt = pack.sampler.next_batch(pack.state.step + 1)
+        eager_loss.append(pack.runner.step_fn(pack.state, ro, rd, pack.runner.near,
+                                              pack.runner.far, tgt)["loss"])
+    torch.cuda.synchronize()
+    eager_counts = read_counts()
+    eager_end = sweep_snapshot(pack)
+    same = sweep_same(graph_end, eager_end) and torch.equal(graph_loss, torch.stack(eager_loss))
+    phase("sweep_graph_vs_eager", scenes=S, fuse=k, captures=graphs["captures"],
+          replays=graphs["replays"], equal=same, launches_graph=graph_counts,
+          launches_eager=eager_counts)
+    n = 2 * k
+    check_counts(graph_counts, {"K1s": n, "K4s": n, "recompute": n, "chain": n},
+                 f"one replay of the {S}-scene chunk of {k} steps")
+    if not same or graphs != {"captures": 1, "replays": 2} or graph_counts != eager_counts:
+        raise RuntimeError(f"the {S}-scene chunk's replay is not its {k} eager steps: equal "
+                           f"{same}, graphs {graphs}, launches {graph_counts} / {eager_counts}")
+
+    # the idle share: a profiled chunk, then profiled eager steps
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    idle = {}
+    for name, steps in (("fused", k), ("per_step", SWEEP_EAGER_PROFILED)):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            if name == "fused":
+                pack.chunk()
+            else:
+                for _ in range(steps):
+                    ro, rd, tgt = pack.sampler.next_batch(pack.state.step + 1)
+                    pack.runner.step_fn(pack.state, ro, rd, pack.runner.near, pack.runner.far,
+                                        tgt)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        idle[name] = profile_report(prof, seconds, "K1s", "K4s", steps=steps, card=repr(smi),
+                                    path=f"sweep S={S}", loop=name)
+    phase("sweep_idle", card=repr(smi), scenes=S,
+          **{f"{n}_{key}": "not measured" if v[key] is None else f"{v[key]:.3f}"
+             for n, v in idle.items()
+             for key in ("wall_ms_per_step", "device_ms_per_step", "idle_share")})
+
+
+def sweep_pack_split(cfgs, scenes, dev) -> dict:
+    """33 (c). Where a scene in a pack of 8 and the scene alone part, on
+    one step's inputs (scene 0's fresh nets, batch and draws in both): the
+    coarse and fine maps of ``render_rays``, the per-scene losses, scene 0's
+    grads, each bit for bit; and the plain ops the stacked step runs over
+    [8 R] rows where the scene alone runs over [R], on the step's own
+    shapes: the matmul scan's product and its backward's (compositing,
+    ``_ExclusiveSum``), the row sums of the maps, sample_pdf's cumsum, and
+    the mse's mean a scene over SWEEP_MEAN_DRAWS draws."""
+    from nerf_tpu_torch.models.factory import make_model
+    from nerf_tpu_torch.ops.compositing import _ExclusiveSum
+    from nerf_tpu_torch.parallel.multi_scene import (
+        StackedImageSampler, init_multi_scene_state, scene_seed)
+    from nerf_tpu_torch.render.renderer import render_rays
+    from nerf_tpu_torch.train.loop import render_settings_from_config
+    from nerf_tpu_torch.train.step import draw_overrides, stacked_loss_fn
+
+    c0 = cfgs[0]
+    S, R = len(scenes), c0.N_rand
+    model, rs = make_model(c0), render_settings_from_config(c0)
+    seeds = [scene_seed(c0.seed, s) for s in range(S)]
+    gens = [torch.Generator(device=dev).manual_seed(s + 1) for s in seeds]
+    ro, rd, tgt = StackedImageSampler(scenes, R, gens, device=dev).next_batch(1)
+    per = [draw_overrides(torch.Generator(device=dev).manual_seed(s + 2), R, rs) for s in seeds]
+    ov = {key: torch.stack([d[key] for d in per]) for key in per[0]}
+    near = torch.full((S, R), scenes[0].near, device=dev)
+    far = torch.full((S, R), scenes[0].far, device=dev)
+    got = {}
+    for n in (S, 1):
+        state = init_multi_scene_state(model, seeds[:n], c0.lrate, dev)
+        rays = [t[:n].flatten(0, 1) for t in (ro, rd, near, far, tgt)]
+        vd = rays[1] / torch.linalg.norm(rays[1], dim=-1, keepdim=True)
+        out = render_rays(state.nets, model, rs, rays[0], rays[1], vd, rays[2], rays[3],
+                          overrides={key: v[:n].flatten(0, 1) for key, v in ov.items()})
+        loss, aux = stacked_loss_fn(state.nets, model, rs, n, rays[0], rays[1], vd, rays[2],
+                                    rays[3], rays[4],
+                                    overrides={key: v[:n].flatten(0, 1) for key, v in ov.items()})
+        loss.backward()
+        got[n] = {"coarse_map": out["rgb0"][:R], "fine_map": out["rgb_map"][:R],
+                  "loss": aux["loss"][:1],
+                  "grads": [p.grad[0] for net in state.nets.values() for p in net.parameters()]}
+    stages = {key: (all(map(torch.equal, got[S][key], got[1][key])) if key == "grads"
+                    else torch.equal(got[S][key], got[1][key])) for key in got[S]}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ops = {}
+    for N in (c0.N_samples, c0.N_samples + c0.N_importance):
+        x = torch.log(torch.rand(S * R, N, device=dev, generator=gen) + 1e-3)
+        g = torch.randn(S * R, N, device=dev, generator=gen)
+        scan = {}
+        for rows in (S * R, R):
+            xr = x[:rows].clone().requires_grad_()
+            y = _ExclusiveSum.apply(xr)
+            y.backward(g[:rows])
+            scan[rows] = (y.detach()[:R], xr.grad[:R])
+        ops[f"scan_fwd_{N}"] = torch.equal(scan[S * R][0], scan[R][0])
+        ops[f"scan_bwd_{N}"] = torch.equal(scan[S * R][1], scan[R][1])
+        w = torch.rand(3, S * R, N, device=dev, generator=gen)
+        ops[f"row_sums_{N}"] = torch.equal(w.sum(-1)[:, :R], w[:, :R].sum(-1))
+        ops[f"cumsum_{N}"] = torch.equal(torch.cumsum(w[0], -1)[:R], torch.cumsum(w[0, :R], -1))
+    # the mse's mean is one value a scene: many draws of it
+    d = torch.rand(SWEEP_MEAN_DRAWS, S, R * 3, device=dev, generator=gen)
+    apart = sum(not torch.equal(d[t].mean(-1)[s], d[t, s : s + 1].mean(-1)[0])
+                for t in range(SWEEP_MEAN_DRAWS) for s in range(S))
+    ops["mse_mean"] = apart == 0
+    phase("sweep_pack_split", scenes=S, rays=R, **{f"{k}_equal": v for k, v in stages.items()},
+          **{f"{k}_equal": v for k, v in ops.items()},
+          mse_mean_apart=f"{apart}/{SWEEP_MEAN_DRAWS * S}")
+    return {**stages, **ops}
+
+
+def sweep_phase(root: str, smi: str, dev) -> None:
+    """33. The multi-scene sweep (``nerf_tpu_torch.tools.multiscene_sweep``)
+    on phase 25's 8 scenes in ``root``, configs/multi copied beside them:
+    (a) ``sweep_graph_vs_eager``; (b) the tool's ``main`` at --n_iters
+    SWEEP_ITERS (S = 1, 2, 4, 8 and sequential x8): its rows, 2 K1s + 2 K4s
+    a step of every run and 4 K1 a holdout frame, one capture an S and one
+    replay a chunk; (c) each scene's per-step losses in the S = 8 run
+    against its sequential run within SWEEP_LOSS_RTOL, its weights' max
+    abs difference, whether the pack is bit-equal, and
+    ``sweep_pack_split``."""
+    from nerf_tpu_torch.config import load_config
+    from nerf_tpu_torch.tools import multiscene_sweep as sweep
+    from nerf_tpu_torch.train.loop import load_scene
+
+    here = os.getcwd()
+    t_start = time.perf_counter()
+    shutil.copytree(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "multi"),
+                    os.path.join(root, "configs", "multi"))
+    os.chdir(root)
+    try:
+        cfgs = [load_config(["--config", f"configs/multi/scene_{k}.txt", "--precrop_iters", "0"])
+                for k in range(MULTI_SCENES)]
+        scenes = [load_scene(c) for c in cfgs]
+        sweep_graph_vs_eager(cfgs, scenes, smi, dev)
+        torch.cuda.empty_cache()
+        t_a = time.perf_counter()
+
+        # (b) the tool itself
+        reset_counts()
+        out = io.StringIO()
+        with graph_calls() as graphs, contextlib.redirect_stdout(out):
+            result = sweep.main(["--n_iters", str(SWEEP_ITERS), "--scenes", str(MULTI_SCENES),
+                                 "--out", os.path.join(root, "multiscene_sweep.json")])
+        counts = read_counts()
+        t_b = time.perf_counter()
+        print("\n".join(line for line in out.getvalue().splitlines()
+                        if line.startswith("[SWEEP]")), flush=True)
+        rec = result.record
+        for row in rec["runs"]:
+            phase("sweep_row", card=repr(rec["card"]), **row)
+        runs = result.runs
+        steps = sum(r.losses.shape[0] for r in runs)
+        frames = sum(len(r.scenes) for r in runs)
+        per_frame = 2 * -(-(scenes[0].H * scenes[0].W) // cfgs[0].chunk)
+        phase("sweep_launches", steps=steps, frames=frames, launches=counts, **graphs)
+        check_counts(counts, {"K1s": 2 * steps, "K4s": 2 * steps, "recompute": 2 * steps,
+                              "chain": 2 * steps, "K1": per_frame * frames},
+                     f"the sweep: {steps} stacked steps, {frames} holdout frames")
+        concurrent = [s for s in sweep.CONCURRENT if s <= MULTI_SCENES]
+        want = {"captures": len(concurrent), "replays": len(runs) * rec["n_iters"] // sweep.FUSE}
+        if graphs != want:
+            raise RuntimeError(f"the sweep's graphs {graphs}, expected {want}")
+
+        # (c) a pack against its scenes alone
+        pack = next(r for r in runs if r.label == f"concurrent_S{MULTI_SCENES}")
+        alone = [r for r in runs if r.label.startswith("sequential_")]
+        worst_loss, worst_w, losses_apart = 0.0, [], 0
+        for k, one in enumerate(alone):
+            a, b = pack.losses[:, k], one.losses[:, 0]
+            worst_loss = max(worst_loss, float(np.max(np.abs(a - b) / np.abs(b))))
+            losses_apart += int(np.sum(a != b))
+            worst_w.append(max(float((pack.params[k][lvl][n] - p).abs().max())
+                               for lvl, named in one.params[0].items()
+                               for n, p in named.items()))
+        split = sweep_pack_split(cfgs, scenes, dev)
+        phase("sweep_pack_vs_alone", scenes=MULTI_SCENES, steps=rec["n_iters"],
+              loss_max_rel=f"{worst_loss:.3e}", bound=f"{SWEEP_LOSS_RTOL:.3e}",
+              losses_apart=f"{losses_apart}/{pack.losses.size}",
+              weights_max_abs=[f"{w:.3e}" for w in worst_w],
+              weights_bit_equal=not any(worst_w),
+              psnr_equal=pack.psnrs == [p for r in alone for p in r.psnrs],
+              parts_that_differ=[k for k, v in split.items() if not v] or "none",
+              seconds_a=f"{t_a - t_start:.1f}", seconds_b=f"{t_b - t_a:.1f}",
+              seconds=f"{time.perf_counter() - t_start:.1f}")
+        if not worst_loss <= SWEEP_LOSS_RTOL:
+            raise RuntimeError(f"a scene in the pack of {MULTI_SCENES} against alone: losses "
+                               f"{worst_loss} apart, bound {SWEEP_LOSS_RTOL}")
+    finally:
+        os.chdir(here)
 
 
 if __name__ == "__main__":

@@ -149,7 +149,11 @@ class StackedImageSampler:
     first config's. Raises ValueError unless every scene has the same H, W
     and number of train views (nerf_tpu's homogeneity check). Holds the
     train views' images and ray directions on the device: 24 bytes a
-    pixel."""
+    pixel. A fused chunk (train/graph.py's ChunkRunner; nerf_tpu's sweep
+    scans its stacked sample, tools/multiscene_sweep.py:112-126) calls
+    ``next_batch`` for its k steps, which draw on the generators (on the
+    device) as k calls would; its crop is fixed, so a chunk never crosses
+    ``precrop_iters``."""
 
     def __init__(self, scenes: Sequence[Scene], n_rand: int,
                  generators: Sequence[torch.Generator], precrop_iters: int = 0,
@@ -191,3 +195,14 @@ class StackedImageSampler:
         rays_d = self.rays_d[scene, view, r, c]
         rays_o = self.origins[scene, view].expand(rays_d.shape)
         return rays_o, rays_d, self.images[scene, view, r, c]
+
+    # --- the fused chunk (ImageRaySampler's interface, data/rays_dataset.py) ---
+
+    def scan_supported(self) -> bool:
+        return True
+
+    def max_chunk(self) -> int:
+        return 1 << 30  # no epoch state; the caller keeps a chunk's crop fixed
+
+    def advance(self, k: int) -> None:
+        """Nothing to commit: the chunk's draws moved the generators."""

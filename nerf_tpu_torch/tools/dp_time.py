@@ -37,6 +37,7 @@ ranks fails at the fused part).
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import shutil
@@ -178,8 +179,8 @@ def time_rank(device, warmup: int = WARMUP, windows: int = WINDOWS, steps: int =
         n = fuse * (1 + windows + profiled_chunks)
         table = torch.tensor([schedule(state.step + t) for t in range(n)], dtype=torch.float32,
                              device=dev)
-        runner = ChunkRunner(step, state, fuse, near, far, gen, [sampler.generator], table,
-                             state.step)
+        runner = ChunkRunner(functools.partial(step, generator=gen), state, fuse, near, far,
+                             [gen, sampler.generator], table, state.step)
         if dev.type == "cuda":
             distributed.connect(mesh.group, dev)
 

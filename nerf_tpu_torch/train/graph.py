@@ -2,7 +2,12 @@
 as one CUDA graph (nerf_tpu's ``fuse_steps``, its lax.scan of k steps,
 nerf_tpu/train/loop.py:420-511; ROADMAP A.3), in one process or on each
 rank of an NCCL group (the sharded step, parallel/mesh.py: its gradient
-and loss all-reduces go into the graph; ROADMAP A.3b).
+and loss all-reduces go into the graph; ROADMAP A.3b), and for S scenes
+at once (the stacked step with its ``StackedImageSampler``,
+parallel/multi_scene.py; nerf_tpu's sweep scans its vmapped step,
+tools/multiscene_sweep.py:112-126). The caller binds the step's draws
+(``generator=`` of the one-scene step, ``generators=`` of the stacked
+one, one a scene) and hands the runner every generator a chunk draws on.
 
 ``ChunkRunner.run(phase, sample, window)`` makes the k steps that start at
 the train state's step. Step j takes its batch from ``sample(j, window)``
@@ -114,17 +119,18 @@ class _Snapshot:
 
 class ChunkRunner:
     """Chunks of ``k`` steps of ``step_fn`` on ``state`` (see the module
-    docstring). ``generators``: the step's and the sampler's (registered
-    with each graph; the sampler's only where its draws are in the chunk);
+    docstring). ``step_fn(state, rays_o, rays_d, near, far, target, lr=)``
+    is the step with its draws bound (``functools.partial``);
+    ``generators``: every generator a chunk draws on, the step's and the
+    sampler's (registered with each graph and restored after the warm-up
+    step; the sampler's only where its draws are in the chunk);
     ``lr_table[t]``: the learning rate of update ``base + t``, float32 on
     the device; ``near`` / ``far``: the batch's bounds."""
 
     def __init__(self, step_fn, state: TrainState, k: int, near: torch.Tensor, far: torch.Tensor,
-                 step_generator: torch.Generator, generators: Sequence[torch.Generator],
-                 lr_table: torch.Tensor, base: int):
+                 generators: Sequence[torch.Generator], lr_table: torch.Tensor, base: int):
         self.step_fn, self.state, self.k = step_fn, state, k
         self.near, self.far = near, far
-        self.step_generator = step_generator
         self.generators = list(generators)
         self.lr_table, self.base = lr_table, base
         self.device = lr_table.device
@@ -139,7 +145,7 @@ class ChunkRunner:
         for j in range(n):
             ro, rd, target = sample(j, window)
             auxes.append(self.step_fn(self.state, ro, rd, self.near, self.far, target,
-                                      generator=self.step_generator, lr=self.lrs[j]))
+                                      lr=self.lrs[j]))
         return {name: torch.stack([a[name] for a in auxes]) for name in auxes[0]}
 
     def _inputs(self, window) -> None:
@@ -173,8 +179,7 @@ class ChunkRunner:
 
     def _capture(self, sample: Sample):
         self._counters = launch_counters()
-        gens = [self.step_generator, *self.generators]
-        snap = _Snapshot(self.state, gens, self._counters)
+        snap = _Snapshot(self.state, self.generators, self._counters)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
@@ -183,7 +188,7 @@ class ChunkRunner:
         torch.cuda.synchronize(self.device)
         snap.restore()
         graph = torch.cuda.CUDAGraph()
-        for g in gens:
+        for g in self.generators:
             graph.register_generator_state(g)
         before = _read_counts(self._counters)
         # "thread_local": a call this thread may not make while capturing

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import shutil
 import time
@@ -427,8 +428,9 @@ def train(
         schedule = lr_schedule(cfg.lrate, cfg.lrate_decay)
         lr_table = torch.tensor([schedule(state.step + t) for t in range(cfg.n_iters - start)],
                                 dtype=torch.float32, device=dev)
-        runner = ChunkRunner(step_fn, state, fuse, near_v, far_v, step_gen,
-                             [sampler.generator] if cfg.no_batching else [], lr_table, state.step)
+        runner = ChunkRunner(functools.partial(step_fn, generator=step_gen), state, fuse, near_v,
+                             far_v, [step_gen] + ([sampler.generator] if cfg.no_batching else []),
+                             lr_table, state.step)
         if mesh is not None and dev.type == "cuda":
             distributed.connect(mesh.group, dev)  # before the first capture
 

@@ -312,12 +312,14 @@ def make_stacked_train_step(
     """The train step of S scenes as one stacked step (nerf_tpu's
     ``jax.vmap(make_train_step_fn(...))``, parallel/multi_scene.py:44-64):
     ``step(state, rays_o, rays_d, near, far, target, generators=None,
-    overrides=None, hwf=None) -> aux`` with the state's nets stacked
+    overrides=None, hwf=None, lr=None) -> aux`` with the state's nets stacked
     (StackedNeRFMLP), every input [S, R, ...] and ``aux`` of [S] values
     (detached). The draws come from ``overrides`` ([S, R, ...] each) when
     given, else from ``generators``, one a scene, each drawing its scene's
     streams as ``make_train_step`` would alone (``draw_overrides``): one
-    small draw a scene, since a scene's generator is its own. The rays of
+    small draw a scene, since a scene's generator is its own. The learning
+    rate is ``lr`` (a 0-dim device tensor: train/graph.py's input) when
+    given, else the schedule's at ``state.step``. The rays of
     every scene then go through one render (render_rays on [S*R] rays, the
     stacked K1/K4 on each level), one loss and one backward. With rs.ndc,
     ``hwf`` [S, 3] holds each scene's (H, W, focal), applied per ray in f32
@@ -329,7 +331,7 @@ def make_stacked_train_step(
     schedule = lr_schedule(lrate, lrate_decay)
 
     def step(state: TrainState, rays_o, rays_d, near, far, target, generators=None,
-             overrides=None, hwf=None) -> Dict[str, torch.Tensor]:
+             overrides=None, hwf=None, lr=None) -> Dict[str, torch.Tensor]:
         S, R = rays_o.shape[:2]
         if S != n_scenes:
             raise ValueError(f"expected {n_scenes} scenes, got rays of {S}")
@@ -348,7 +350,7 @@ def make_stacked_train_step(
             per_ray = hwf.to(rays_o.dtype).repeat_interleave(R, 0)
             rays_o, rays_d = ndc_rays(per_ray[:, 0], per_ray[:, 1], per_ray[:, 2], 1.0,
                                       rays_o, rays_d)
-        set_lr(state.optimizer, schedule(state.step))
+        set_lr(state.optimizer, schedule(state.step) if lr is None else lr)
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = stacked_loss_fn(state.nets, model, rs, S, rays_o, rays_d, viewdirs, near,
                                     far, target, overrides=overrides)

@@ -8,6 +8,8 @@ K3, K5 and K6 tests measure):
     python -m pytest tests/test_torch_port_kernels.py --noconftest -m cuda -q
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1443,7 +1445,8 @@ def test_graph_replay_of_a_chunk_equals_eager_steps(cuda_device):
         before = (fused_mlp.fused_rays_planes.launches, fused_mlp.fused_rays_planes_bwd.launches)
         losses = []
         if fused:
-            runner = ChunkRunner(step, state, k, near, far, gen, [], table, 0)
+            runner = ChunkRunner(functools.partial(step, generator=gen), state, k, near, far,
+                                 [gen], table, 0)
             for w in windows:
                 aux = runner.run("batch", lambda j, win: (ro[win[j]], rd[win[j]],
                                                           target[win[j]]), w)

@@ -16,6 +16,7 @@ branch), 15 + 8 (the points-in branch, K2/K3), 16 + 8 with fused_render
 
 import contextlib
 import dataclasses
+import json
 import sys
 import types
 from pathlib import Path
@@ -56,7 +57,7 @@ from nerf_tpu_torch.render import renderer as tr
 from nerf_tpu_torch.render.network import NeRFModel, StackedNeRFMLP, query_raw, query_raw_stacked
 from nerf_tpu_torch.tools import make_multi_scenes
 from nerf_tpu_torch.train import step as tstep
-from nerf_tpu_torch.train.loop import load_scene, train
+from nerf_tpu_torch.train.loop import load_scene, render_settings_from_config, train
 from nerf_tpu_torch.utils import checkpoint
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -998,3 +999,236 @@ def test_multi_scene_writer_reads_back(tmp_path):
                                     poses["test"][0], device="cpu")
         want = (np.clip(img, 0, 1) * 255).astype(np.uint8) / 255.0
         np.testing.assert_array_equal(scene.images[3], want.astype(np.float32))
+
+
+# (e) the sweep's fused chunk (tools/multiscene_sweep.py): k stacked steps
+# with their StackedImageSampler draws as one ChunkRunner chunk, eager on
+# the CPU (the CUDA graph's plain version)
+
+CHUNK_K, CHUNK_RAYS = 3, 32
+
+
+def _chunk_cfg(dtype="float32", **over):
+    """configs/multi's recipe at the file's shapes: 8x128 nets, 16 + 8
+    samples (the stacked K1/K4 branch), CHUNK_RAYS rays a scene."""
+    return tconfig.NeRFConfig(**{
+        "dataset_type": "blender", "no_batching": True, "use_viewdirs": True, "white_bkgd": True,
+        "N_rand": CHUNK_RAYS, "N_samples": N_SAMPLES, "N_importance": N_IMPORTANCE,
+        "netwidth": 128, "netwidth_fine": 128, "lrate": LRATE, "lrate_decay": LRATE_DECAY,
+        "compute_dtype": dtype, **over})
+
+
+def _chunk_pack(cfg, scene_ids, k=CHUNK_K):
+    """The sweep's Pack of the scenes ``scene_ids`` (16x16, 3 train views),
+    scene k seeded scene_seed(0, k)."""
+    from nerf_tpu_torch.tools import multiscene_sweep
+
+    scenes = [make_scene(n_train=3, n_test=1, H=16, W=16, seed=s) for s in scene_ids]
+    schedule = tstep.lr_schedule(cfg.lrate, cfg.lrate_decay)
+    table = torch.tensor([schedule(t) for t in range(4 * k)], dtype=torch.float32)
+    seeds = [ms.scene_seed(0, s) for s in scene_ids]
+    return multiscene_sweep.Pack(cfg, scenes, seeds, k, table, torch.device("cpu")), scenes, seeds
+
+
+def _pack_leaves(pack):
+    """Every parameter and Adam entry of a pack's stacked state, by name."""
+    out = {}
+    for level, net in pack.state.nets.items():
+        for name, p in net.named_parameters():
+            out[f"{level}.{name}"] = p.detach()
+            for key, v in pack.state.optimizer.state.get(p, {}).items():
+                out[f"{level}.{name}.{key}"] = v
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stacked_chunk_equals_stacked_steps(dtype):
+    """Two chunks of CHUNK_K steps of the sweep's runner (ChunkRunner's
+    eager path over make_stacked_train_step, the learning rate a float32
+    tensor from the table) against the same stacked steps one by one on
+    the same generators (lr from the schedule): losses, weights, Adam's
+    moments and counts, and every generator's state torch.equal."""
+    cfg = _chunk_cfg(dtype)
+    fused, _, _ = _chunk_pack(cfg, [0, 1])
+    eager, _, _ = _chunk_pack(cfg, [0, 1])
+    step = ms.make_multi_scene_step(eager.model, render_settings_from_config(cfg), cfg.lrate,
+                                    cfg.lrate_decay, 2)
+    got, want = [], []
+    for _ in range(2):
+        aux = fused.chunk()
+        assert aux["loss"].shape == (CHUNK_K, 2)
+        got.append(aux["loss"])
+        for _ in range(CHUNK_K):
+            ro, rd, tgt = eager.sampler.next_batch(eager.state.step + 1)
+            a = step(eager.state, ro, rd, eager.runner.near, eager.runner.far, tgt,
+                     generators=eager.step_gens)
+            want.append(a["loss"])
+    assert fused.state.step == eager.state.step == 2 * CHUNK_K
+    assert torch.equal(torch.cat(got), torch.stack(want))
+    a, b = _pack_leaves(fused), _pack_leaves(eager)
+    assert a.keys() == b.keys() and len(a) > 0
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+    for g, h in zip(fused.runner.generators, eager.runner.generators):
+        assert torch.equal(g.get_state(), h.get_state())
+
+
+def test_scene_in_a_pack_trains_as_alone():
+    """Scene k in a pack of 3 trains as scene k alone (S = 1) over two
+    chunks: the same draws (its own generators), so each step's loss within
+    STEP_LOSS_RTOL and its weights trained alike (_assert_trained_alike);
+    the alone runs go through one S = 1 pack, each scene ``load``-ed into
+    its buffers (the sweep's sequential runs), and scene 2 loaded after the
+    others trains bit for bit as in a pack made for it."""
+    cfg = _chunk_cfg()
+    pack, scenes, seeds = _chunk_pack(cfg, [0, 1, 2])
+    packed = torch.cat([pack.chunk()["loss"] for _ in range(2)])
+    mine = [ms.unstack_states(pack.state, 3)[k] for k in range(3)]
+    alone, _, _ = _chunk_pack(cfg, [0])
+    for k in range(3):
+        if k:
+            alone.load([scenes[k]], [seeds[k]])
+        losses = torch.cat([alone.chunk()["loss"] for _ in range(2)])
+        np.testing.assert_allclose(packed[:, k].numpy(), losses[:, 0].numpy(),
+                                   rtol=STEP_LOSS_RTOL)
+        start = tfactory.init_nets(alone.model, seeds[k], "cpu")
+        for level, net in mine[k].nets.items():
+            _assert_trained_alike(dict(net.named_parameters()),
+                                  alone.state.nets[level].scene_state_dict(0),
+                                  dict(start[level].named_parameters()))
+    fresh, _, _ = _chunk_pack(cfg, [2])
+    fresh_losses = torch.cat([fresh.chunk()["loss"] for _ in range(2)])
+    assert torch.equal(fresh_losses, losses)
+    a, b = _pack_leaves(alone), _pack_leaves(fresh)
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+
+
+def test_stacked_chunks_match_jax_sweep_body():
+    """Two chunks of the port's runner (S = 2, CHUNK_K steps each, f32)
+    against nerf_tpu's sweep body on the same batches and draws: jax.lax.scan
+    over CHUNK_K steps of jax.vmap(make_train_step_core), as
+    tools/multiscene_sweep.py:112-126 runs it (there with keys; here the
+    batches the port's sampler drew and the streams its step generators
+    drew, replayed from their states before each chunk), JAX's kernels in
+    interpret mode: each step's losses within rtol 1e-5 and the weights
+    within test_multi_scene_steps_match_jax's bounds (4 lr, each scene's
+    leaf's update within UPDATE_TOL relative L2)."""
+    cfg = _chunk_cfg()
+    pack, scenes, seeds = _chunk_pack(cfg, [0, 1])
+    rs = render_settings_from_config(cfg)
+    jmodel = JNeRFModel(JPE_P, JPE_V, JCFG, JCFG, "float32", fused=True)
+    jrs = jr.RenderSettings(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, white_bkgd=True)
+    start = [{lvl: jax_params_from_state_dict(net.state_dict(), CFG)
+              for lvl, net in tfactory.init_nets(pack.model, s, "cpu").items()} for s in seeds]
+    jstate = jms.stack_states([jstep.init_train_state(p, LRATE, LRATE_DECAY) for p in start])
+    core = jstep.make_train_step_core(jmodel, jrs, LRATE, LRATE_DECAY)
+    near = jnp.full((2, CHUNK_RAYS), 2.0, jnp.float32)
+    far = jnp.full((2, CHUNK_RAYS), 6.0, jnp.float32)
+
+    @jax.jit
+    def run(st, xs):
+        def body(st, x):
+            ro, rd, tgt, ov = x
+            st, aux = jax.vmap(core)(st, ro, rd, near, far, tgt, ov)
+            return st, aux["loss"]
+
+        return jax.lax.scan(body, st, xs)
+
+    def copies(gens):
+        out = []
+        for g in gens:
+            c = torch.Generator()
+            c.set_state(g.get_state())
+            out.append(c)
+        return out
+
+    for _ in range(2):
+        first = pack.state.step + 1
+        sampler = ms.StackedImageSampler(scenes, CHUNK_RAYS, copies(pack.sample_gens),
+                                         device="cpu")
+        step_gens = copies(pack.step_gens)
+        batches, draws = [], []
+        for j in range(CHUNK_K):
+            batches.append([t.numpy() for t in sampler.next_batch(first + j)])
+            per = [tstep.draw_overrides(g, CHUNK_RAYS, rs) for g in step_gens]
+            draws.append({k: np.stack([d[k].numpy() for d in per]) for k in per[0]})
+        losses = pack.chunk()["loss"].numpy()
+        xs = (*(jnp.asarray(np.stack([b[i] for b in batches])) for i in range(3)),
+              {k: jnp.asarray(np.stack([d[k] for d in draws])) for k in draws[0]})
+        jstate, jlosses = run(jstate, xs)
+        np.testing.assert_allclose(losses, np.asarray(jlosses), rtol=1e-5)
+    got = jax_arrays_from_stacked_train_state(pack.state, pack.model)["params"]
+    p0 = jax.tree.map(lambda *xs: np.stack(xs), *start)
+    for (path, g), want, s0 in zip(jax.tree_util.tree_leaves_with_path(got),
+                                   jax.tree.leaves(jstate.params), jax.tree.leaves(p0)):
+        want = np.asarray(want)
+        assert np.abs(g - want).max() <= 4 * LRATE, jax.tree_util.keystr(path)
+        for s in range(2):
+            err = np.linalg.norm(g[s] - want[s]) / np.linalg.norm(want[s] - s0[s])
+            assert err <= UPDATE_TOL, (s, jax.tree_util.keystr(path), err)
+
+
+def _dict_keys(tree):
+    """The string keys of every dict literal in a parsed module."""
+    import ast
+
+    return [{k.value for k in node.keys if isinstance(k, ast.Constant)}
+            for node in ast.walk(tree) if isinstance(node, ast.Dict)]
+
+
+def test_multiscene_sweep_tool_end_to_end(tmp_path, monkeypatch, capsys):
+    """nerf_tpu_torch.tools.multiscene_sweep.main on the CPU, from a
+    directory holding configs/multi/scene_{0,1}.txt and their relative
+    datadirs (16x16 scenes), with a net shrunk by config overrides: the
+    concurrent runs S = 1, 2 and the sequential x2, nerf_tpu's JSON record
+    (its keys, read from tools/multiscene_sweep.py's source, never imported)
+    with the device and no card, finite holdout PSNRs, and each run's
+    per-step losses [n_iters, S] and weights; with no device it raises
+    where there is no card."""
+    import ast
+
+    from nerf_tpu_torch.tools import multiscene_sweep
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "configs" / "multi").mkdir(parents=True)
+    for k in range(2):
+        write_blender_dataset(str(tmp_path / "data" / f"multi_{k}"), n_train=3, n_val=1,
+                              n_test=1, H=16, W=16)
+        flags = {"expname": f"multi_{k}", "datadir": f"./data/multi_{k}",
+                 "dataset_type": "blender", "no_batching": True, "use_viewdirs": True,
+                 "white_bkgd": True, "N_rand": 16, "N_samples": 4, "N_importance": 4,
+                 "half_res": False, "testskip": 1, "precrop_iters": 500}
+        (tmp_path / "configs" / "multi" / f"scene_{k}.txt").write_text(
+            "".join(f"{a} = {b}\n" for a, b in flags.items()))
+    shrink = ["--netdepth", "2", "--netdepth_fine", "2", "--netwidth", "32",
+              "--netwidth_fine", "32", "--multires", "2", "--multires_views", "1",
+              "--fused_kernels", "False", "--compute_dtype", "float32"]
+    if not torch.cuda.is_available():  # no device given: the card, or an error
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            multiscene_sweep.main(["--scenes", "2", *shrink])
+    result = multiscene_sweep.main(["--n_iters", "120", "--scenes", "2", "--out",
+                                    "out/sweep.json", *shrink], device="cpu")
+    out = capsys.readouterr().out
+    assert out.count("[SWEEP]") == 3
+    record = json.loads((tmp_path / "out" / "sweep.json").read_text())
+    assert record == result.record
+    source = ast.parse((Path(__file__).resolve().parents[1] / "tools"
+                        / "multiscene_sweep.py").read_text())
+    keys = _dict_keys(source)
+    top = next(k for k in keys if "runs" in k)
+    concurrent = next(k for k in keys if "per_scene_rays_per_sec" in k)
+    sequential = next(k for k in keys if "total_wall_s" in k)
+    assert set(record) == top | {"device", "card"}
+    assert record["device"] == "cpu" and record["card"] is None
+    assert record["n_iters"] == 100 and record["fuse"] == multiscene_sweep.FUSE == 50
+    assert [r["label"] for r in record["runs"]] == ["concurrent_S1", "concurrent_S2",
+                                                    "sequential_2x"]
+    assert set(record["runs"][0]) == set(record["runs"][1]) == concurrent
+    assert set(record["runs"][2]) == sequential
+    assert all(np.isfinite(p) for r in record["runs"] for p in r["holdout_psnr"])
+    assert [len(r["holdout_psnr"]) for r in record["runs"]] == [1, 2, 2]
+    assert [(r.label, r.losses.shape, r.steps) for r in result.runs] == [
+        ("concurrent_S1", (100, 1), 50), ("concurrent_S2", (100, 2), 50),
+        ("sequential_0", (100, 1), 50), ("sequential_1", (100, 1), 50)]
+    assert all(np.isfinite(r.losses).all() for r in result.runs)
