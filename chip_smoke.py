@@ -11,8 +11,10 @@ Phases, one line each (any failure exits non-zero):
    (K4, K3), csrc/fused_render.cu (K5, K6's compositing backward),
    csrc/probe_overlap.cu (K7) and csrc/fused_mlp_wide.cu (K1w-K6w) with
    nvcc (sm_90a), one process each, at once;
-   counts the wgmma (HGMMA) and TMA-load (UTMALDG) instructions in the SASS
-   of the backward's weight-grad kernel (cuobjdump) and fails without both;
+   prints the backward's weight-grad kernel (``wgrad_bf16``, in both
+   libraries that build it) with its registers and spills and its wgmma
+   (HGMMA), TMA-load (UTMALDG) and multicast TMA-load counts (cuobjdump),
+   and fails on a spill, on HMMA, or without wgmma and multicast loads;
    prints each instantiation of K1's and K2's bf16 forward
    (``fwd_bf16_sm90``), of K5's (``render_bf16_sm90``), of the backward's
    recompute (``bwd_recompute_sm90``, with and without raw), all on one
@@ -74,7 +76,16 @@ Phases, one line each (any failure exits non-zero):
    recompute (``bwd_recompute_sm90``) and chain (``bwd_chain_sm90``) each
    beside its own bound and its own products as bf16 ``torch.matmul`` (10
    and 9), and the weight-grad phase (``wgrad_bf16``) beside its own bound
-   and its 10 weight-grad products as bf16 ``torch.matmul``.
+   and its 10 weight-grad products as bf16 ``torch.matmul`` (each product's
+   two operands distinct tensors), with each launch's cluster size and
+   grid (fails without a cluster);
+9b. wgrad: the weight-grad launch alone (``tools/wgrad_check.py``) against
+   its plain version within 4e-5 relative L2 (``wgrad_check.REL_L2``: twice
+   the kernel's measured distance from f64 sums) and twice, bit for bit, at
+   the main path's 1,048,576 points (W = 256), W = 512 and 1024 dense and
+   a direction per ray, and 8 stacked scenes at W = 256 and 512; with
+   NERF_WGRAD_PARENT set to another checkout's root, whether that
+   checkout's kernel gives the same bits.
 The points-in path (K2 forward, K3 backward), at the 63+128 recipe: 63
 coarse samples and 191 fine are not multiples of 8, so both levels query
 points (``query_raw`` -> ``fused_query``) with a view direction per point:
@@ -222,9 +233,11 @@ K1-K6 at the widths and octave counts the W <= 256 tile is not built for):
    step, one scene and three, and one tile whose four swizzle atoms differ;
    then each timed at W = 512 beside its bound, its plain version and the
    same products as bf16 torch.matmul; then K1w's chunk and K4w's step
-   split by kernel (tools/wide_split.py) (phase 2 also checks the wide
-   GEMM for wgmma, TMA loads and TMA stores, and its ``wgrad_bf16`` for
-   wgmma and TMA loads, no HMMA and no spill);
+   split by kernel (tools/wide_split.py), with K4w's weight grads one
+   cluster launch of 14 whole products a call, each launch's cluster size
+   and grid printed (phase 2 also checks the wide GEMM for wgmma, TMA loads
+   and TMA stores, and its ``wgrad_bf16`` for wgmma and multicast TMA
+   loads, no HMMA and no spill);
 27. wide path: the lego recipe at --netwidth 512 --netwidth_fine 512:
    train() for 24 steps (phase 7's timed window and profile, 2 K1w + 2 K4w
    a step), one 400x400 frame through render_path (2 K1w a chunk; against
@@ -454,6 +467,9 @@ FORMAT_CADENCES = {"i_print": 2, "i_img": 8, "i_weights": 0, "i_testset": 0, "i_
 # Scene.K differs from it and its use in get_rays shows
 LINEMOD_PP_SHIFT = (3.5, -2.5)
 # K1's and K4's symbols
+# the SASS of a TMA load multicast to several CTAs of a cluster
+# (cp.async.bulk.tensor.2d ... .multicast::cluster)
+MULTICAST_TMA = "UTMALDG.2D.MULTICAST"
 TRACE_KERNELS = ("fwd_bf16_sm90", "bwd_recompute_sm90", "bwd_chain_sm90", "wgrad_bf16")
 # bytes of stack frame that sincosf's slow-path range reduction (embed_row in
 # csrc/fused_mlp_common.cuh) gives every kernel that embeds points; a
@@ -739,11 +755,15 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"  ptxas {name}:", line.strip(), flush=True)
-    bwd_lib = _build._lib_path("fused_mlp_bwd")
-    (sass,) = sass_counts(bwd_lib, "wgrad_bf16", ("HGMMA", "UTMALDG")).values()
-    phase("sass", kernel="wgrad_bf16", **sass)
-    if not all(sass.values()):
-        raise RuntimeError(f"wgrad_bf16 issues no wgmma or no TMA load: {sass}")
+    # the weight grads (wgrad_sm90.cuh, in both libraries that build it):
+    # wgmma, TMA loads multicast to the cluster's CTAs, no mma.sync, no spill
+    for source in ("fused_mlp_bwd", "fused_mlp_wide"):
+        for inst, ops in instantiations(source, "wgrad_bf16",
+                                        ("HGMMA", "UTMALDG", MULTICAST_TMA, "HMMA"), 1,
+                                        lambda name: "bf16").items():
+            if not (ops["HGMMA"] and ops[MULTICAST_TMA]) or ops["HMMA"]:
+                raise RuntimeError(f"{source}'s wgrad_bf16 issues no wgmma or no multicast TMA "
+                                   f"load, or an HMMA: {ops}")
     # the bf16 forward of K1 and K2, K5's and the backward's recompute, all
     # on one tile, and the backward's chain on that tile's ring and
     # warpgroups, each also as the stacked launch of multi-scene training
@@ -765,16 +785,13 @@ def main() -> int:
     # K6's compositing pass, staged (<1>) and in device memory (<0>)
     instantiations("fused_render", "composite_bwd", ("HMMA",), 2, first_arg_label)
     # the wide family's GEMM (one bf16 instantiation: TMA loads, wgmma with
-    # B transposed, its epilogue's TMA stores, no spill) and its weight
-    # grads (wgrad_sm90.cuh's)
-    for function, stores in (("gemm_bf16_sm90", True), ("wgrad_bf16", False)):
-        for inst, ops in instantiations("fused_mlp_wide", function,
-                                        ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "STG.E.128"), 1,
-                                        lambda name: "bf16").items():
-            if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"] or (
-                    stores and not ops["UTMASTG"]):
-                raise RuntimeError(f"{function}<{inst}> issues no wgmma, TMA load or TMA "
-                                   f"store: {ops}")
+    # B transposed, its epilogue's TMA stores, no spill)
+    for inst, ops in instantiations("fused_mlp_wide", "gemm_bf16_sm90",
+                                    ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "STG.E.128"), 1,
+                                    lambda name: "bf16").items():
+        if not (ops["HGMMA"] and ops["UTMALDG"] and ops["UTMASTG"]) or ops["HMMA"]:
+            raise RuntimeError(f"gemm_bf16_sm90<{inst}> issues no wgmma, TMA load or TMA "
+                               f"store: {ops}")
     # no warp-level MMA left in any kernel of the port's libraries
     hmma = {name: ops["HMMA"] for source in sources
             for name, ops in sass_counts(_build._lib_path(source), "", ("HMMA",)).items()
@@ -863,6 +880,7 @@ def main() -> int:
     scan_phase(dev)
     step_grads_phase(train_info, dev)
     k4, recompute, chain = k4_times(cfg, pe_pts, pe_views, dev)
+    wgrad_phase()
 
     # 10.-13. the points-in slice at 63+128
     k2_errs, k3_errs = check_k23(coarse, pe_pts, pe_views, rng, dev)
@@ -1712,6 +1730,10 @@ def backward_matmul_chain(kp, n_pts: int, part: str = "all"):
     bf = torch.bfloat16
     e = torch.randn(n_pts, ke, dtype=bf, device=dev)
     a = torch.randn(n_pts, Wd, dtype=bf, device=dev)
+    # the weight grads' second operand apart from the first, as the kernel's
+    # d rows are apart from its h rows: aᵀ·a reads one tensor for both and
+    # moves half the bytes
+    d = torch.randn(n_pts, Wd, dtype=bf, device=dev) if part in ("all", "weight_grads") else a
     ah = torch.randn(n_pts, Wd // 2, dtype=bf, device=dev)
     d05 = torch.randn(n_pts, 2 * Wd, dtype=bf, device=dev)
     w05 = torch.nn.functional.pad(kp["W05e"], (0, 0, 0, ke - kp["W05e"].shape[0]))
@@ -1729,7 +1751,7 @@ def backward_matmul_chain(kp, n_pts: int, part: str = "all"):
         if part in ("all", "weight_grads"):
             torch.matmul(e.T, d05)
             for _ in trunk:
-                torch.matmul(a.T, a)
+                torch.matmul(a.T, d)
             torch.matmul(a.T, ah)
 
     return run
@@ -1747,8 +1769,9 @@ def k4_times(cfg, pe_pts, pe_views, dev):
     versions' times: the plain recompute and the plain chain at both
     shapes)."""
     from nerf_tpu_torch.models.nerf_mlp import NeRFMLP
-    from nerf_tpu_torch.ops import fused_mlp
+    from nerf_tpu_torch.ops import _build, fused_mlp
     from nerf_tpu_torch.tools.bwd_phase1 import k4_split
+    from nerf_tpu_torch.tools.wgrad_check import last_launch
 
     mlp = NeRFMLP(cfg, seed=2, device=dev)
     with torch.no_grad():
@@ -1760,13 +1783,14 @@ def k4_times(cfg, pe_pts, pe_views, dev):
     rng = np.random.default_rng(5)
     zero = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
     out, wgrad, recompute, chain = dict(zero), dict(zero), dict(zero), dict(zero)
-    step = []
+    step, launches = [], {}
     for S in (N_SAMPLES, N_SAMPLES + N_IMPORTANCE):
         rays = make_rays(rng, N_RAND, S, dev)
         g = torch.rand(4, N_RAND, S, device=dev) * 1e-4
         step.append((*rays, g))
         n_pts = N_RAND * S
         ms = cuda_ms(lambda: fused_mlp.fused_rays_planes_bwd(kp, *rays, g, blobs), reps=10, warmup=2)
+        launches[f"S={S}"] = last_launch(_build.load("fused_mlp_bwd"))  # phase 3's clusters
         plain_ms = cuda_ms(lambda: fused_mlp.fused_rays_planes_bwd_reference(kp, *rays, g), reps=2)
         torch.cuda.empty_cache()
         products = backward_matmul_chain(kp, n_pts)
@@ -1817,6 +1841,11 @@ def k4_times(cfg, pe_pts, pe_views, dev):
     chain["ms"] = split["bwd_chain_sm90"]
     phase("k4_split", per="step (S=64 + S=192)", **{f"{k}_ms": f"{v:.3f}" for k, v in split.items()},
           device_ms=f"{sum(split.values()):.3f}")
+    phase("wgrad_launch", kernel="wgrad_bf16 (thread-block clusters, TMA multicast)",
+          **{s: f"cluster {v['cluster']}x1x1, grid {v['grid_x']}x{v['grid_y']}, "
+                f"{v['problems']} problems" for s, v in launches.items()})
+    if any(v["cluster"] < 2 for v in launches.values()):
+        raise RuntimeError(f"K4's weight grads launched without a cluster: {launches}")
     for tag, t in (("recompute_times", recompute), ("chain_times", chain), ("wgrad_times", wgrad)):
         bound = max(t["ops_ms"], t["bytes_ms"])
         phase(tag, per="step (S=64 + S=192)", ms=f"{t['ms']:.3f}", bound_ms=f"{bound:.3f}",
@@ -1825,6 +1854,51 @@ def k4_times(cfg, pe_pts, pe_views, dev):
               library_ms=f"{t['library_ms']:.3f}", x_bound=f"{t['ms'] / bound:.3f}",
               x_library=f"{t['ms'] / t['library_ms']:.3f}")
     return out, recompute, chain
+
+
+def wgrad_phase() -> None:
+    """9b. The weight-grad launch alone (``tools/wgrad_check.py``):
+    ``wgrad_bf16`` in thread-block clusters against its plain version (each
+    product in f32) within ``wgrad_check.REL_L2`` relative L2 in every
+    weight grad (each case's distance from f64 sums beside it), and two
+    launches bit for bit, at the main path's 1,048,576 points at W = 256, W
+    = 512 and 1024 dense and with a direction per ray, and 8 stacked scenes
+    at W = 256 and 512, each with its launch's cluster size and grid. With
+    NERF_WGRAD_PARENT naming another checkout's root (the parent, unpacked
+    from a git archive), the same cases through that checkout's kernel in
+    a process of its own, reported bit-equal or not."""
+    from nerf_tpu_torch.tools import wgrad_check
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_wgrad_")
+    mine = os.path.join(tmp, "change.pt")
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        bad = wgrad_check.check(mine)
+    rows = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    for r in rows:
+        phase("wgrad", **r)
+    if bad or len(rows) != len(wgrad_check.CASES):
+        raise RuntimeError(f"wgrad_bf16 disagrees with its plain version or with itself in "
+                           f"{bad} of {len(wgrad_check.CASES)} cases")
+    if any(r["cluster"] < 2 for r in rows):
+        raise RuntimeError("a weight-grad case launched without a cluster")
+    parent = os.environ.get("NERF_WGRAD_PARENT")
+    if parent:
+        theirs = os.path.join(tmp, "parent.pt")
+        tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "nerf_tpu_torch", "tools",
+                            "wgrad_check.py")
+        run = subprocess.run([sys.executable, tool, "check", theirs], capture_output=True,
+                             text=True, env={**os.environ, "PYTHONPATH": os.path.abspath(parent)})
+        for line in run.stdout.splitlines():
+            if line.startswith("{"):
+                phase("wgrad_parent_case", **json.loads(line))
+        if not os.path.exists(theirs):
+            raise RuntimeError(f"the parent's weight-grad check failed: {run.stderr[-2000:]}")
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            wgrad_check.compare(mine, theirs)
+        phase("wgrad_parent", root=parent, **json.loads(out.getvalue().strip().splitlines()[-1]))
+    else:
+        phase("wgrad_parent", compared="no parent checkout given (NERF_WGRAD_PARENT)")
+    shutil.rmtree(tmp)
 
 
 def ray_points(rng, R: int, S: int, spr: int, dev):
@@ -4376,6 +4450,13 @@ def wide_split_phase() -> dict:
     res = json.loads(out.getvalue().strip().splitlines()[-1])
     for key in ("K1w_per_chunk", "K4w_per_step"):
         phase("wide_split", per=key, **{k: f"{v}" for k, v in res[key].items() if v})
+    launches = res["wgrad_launches"]
+    phase("wide_split", kernel="wgrad_bf16 (thread-block clusters, TMA multicast)",
+          **{f"S={S}": f"cluster {v['cluster']}x1x1, grid {v['grid_x']}x{v['grid_y']}, "
+                       f"{v['problems']} problems" for S, v in zip((64, 192), launches)})
+    if len(launches) != 2 or any(v["cluster"] < 2 or v["problems"] != 14 for v in launches):
+        raise RuntimeError(f"K4w's weight grads: not one cluster launch of 14 problems a call: "
+                           f"{launches}")
     torch.cuda.empty_cache()
     return res
 

@@ -1118,6 +1118,7 @@ struct Plan {
   int scenes, n_pad_s, rpad_s;
   bool dense;
   size_t ws, masks, rws, dhv, bpart, wpart, total;  // byte offsets / sizes
+  cudaError_t err;  // the card's answer on the weight-grad launch's clusters
 };
 
 template <typename T, int W>
@@ -1126,7 +1127,6 @@ Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int sp
 constexpr int BIAS_PART = 64;  // points a bias-grad partial sums
 static_assert(TP32 == BIAS_PART && TP == 2 * FWD_ROWS && FWD_ROWS == BIAS_PART,
               "a partial per f32 tile and per bf16 consumer warpgroup");
-constexpr int SMS = 132;  // the H100 SXM's SMs: the split count fills whole waves of them
 // Points a split sums in one f32 accumulator chain, in 64-point chunks. The
 // chain's rounding grows with its length: 11 splits of 71,552 points at the
 // fine level of a training step put K4's worst bf16 leaf 8x further from
@@ -1134,19 +1134,21 @@ constexpr int SMS = 132;  // the H100 SXM's SMs: the split count fills whole wav
 constexpr int MAX_SPLIT_CHUNKS = 256;
 
 // Splits of the bf16 weight-grad launch for `tiles` CTAs a split over
-// nchunks 64-point chunks: at most 64 (the partials' memory), at least
-// enough for MAX_SPLIT_CHUNKS a split where 64 allow it, and at least 8
-// chunks a split; within that the least s whose grid fills its waves over
-// the SMs to 95%, else the fullest. The shapes alone fix it, so two
-// launches sum in the same order.
-int hopper_splits(int tiles, int nchunks) {
+// nchunks 64-point chunks, in clusters of cl CTAs of which the card holds
+// `slots` CTAs at once (wgrad_slots): at most 64 (the partials' memory), at
+// least enough for MAX_SPLIT_CHUNKS a split where 64 allow it, and at least
+// 8 chunks a split; within that the least s whose grid (whole clusters)
+// fills its waves over the slots to 95%, else the fullest. The shapes and
+// the card fix it, so two launches sum in the same order.
+// ops/fused_mlp_wide.py's hopper_splits is the same.
+int hopper_splits(int tiles, int nchunks, int cl, int slots) {
   const int smin = min(64, (nchunks + MAX_SPLIT_CHUNKS - 1) / MAX_SPLIT_CHUNKS);
   const int smax = max(smin, min(64, nchunks / 8));
   int best = smin;
   double best_fill = 0.0;
   for (int s = smin; s <= smax; ++s) {
-    const int ctas = tiles * s;
-    const double fill = double(ctas) / (double((ctas + SMS - 1) / SMS) * SMS);
+    const int ctas = (tiles * s + cl - 1) / cl * cl;
+    const double fill = double(ctas) / (double((ctas + slots - 1) / slots) * slots);
     if (fill >= 0.95) return s;
     if (fill > best_fill) {
       best_fill = fill;
@@ -1175,10 +1177,14 @@ Plan make_plan(int n_pts, int spr, int scenes = 1) {
   int target;
   if (sizeof(T) == 2) {  // the CTAs a split over the points (the per-ray problem aside)
     const Probs one = make_probs<T, W>(p, nullptr, nullptr, nullptr, p.n_pad);
-    int tiles = 0;
-    for (int i = 0; i < one.count; ++i)
+    int tiles = 0, cl = 1, slots = 0;
+    for (int i = 0; i < one.count; ++i) {
       if (one.p[i].src == 0) tiles += one.p[i].mtiles * one.p[i].ntiles;
-    target = hopper_splits(tiles, nchunks);
+      cl = max(cl, one.p[i].mc * one.p[i].nc);
+    }
+    p.err = wgrad_slots(cl, &slots);
+    if (p.err != cudaSuccess) return p;
+    target = hopper_splits(tiles, nchunks, cl, slots);
   } else {
     target = max(1, min(64, p.n_pad / 8192));
   }
@@ -1208,8 +1214,9 @@ Plan make_plan(int n_pts, int spr, int scenes = 1) {
   return p;
 }
 
-// The 14 weight-grad products. bf16: 128-row tiles of C at its full width
-// (bn = 8, 128 or 256 columns); f32: 64 x 64 tiles.
+// The 14 weight-grad products. bf16: 128 x 256 tiles of C (at most one
+// N-tile at the tile's widths) in clusters (cluster_shape); f32: 64 x 64
+// tiles.
 template <typename T, int W>
 Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int split_len) {
   using R = WsRows<W>;
@@ -1236,9 +1243,10 @@ Probs make_probs(const Plan& pl, const T* ws, const T* rws, float* wpart, int sp
     q.ra = ra;
     q.rb = rb;
     q.src = src;
-    q.bn = hop ? (N <= 8 ? 8 : N <= 128 ? 128 : 256) : FM;
     q.mtiles = (M + (hop ? GM : FM) - 1) / (hop ? GM : FM);
-    q.ntiles = hop ? 1 : (N + FM - 1) / FM;
+    q.ntiles = (N + (hop ? GN : FM) - 1) / (hop ? GN : FM);
+    q.mc = q.nc = 1;
+    if (hop) cluster_shape(M, N, &q.mc, &q.nc);
     q.nsplit = (k_len + split_len - 1) / split_len;
     q.cta0 = cta;
     cta += q.mtiles * q.ntiles * q.nsplit;
@@ -1350,6 +1358,7 @@ cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts,
                 long long ws_bytes, float* out, float* dx, float* dv, cudaStream_t s,
                 int scenes) {
   const Plan pl = make_plan<T, W>(n_pts, in.spr, scenes);
+  NERF_CHECK(pl.err);
   if (scenes > 1 && (pl.n_pad_s != n_pts || (!pl.dense && pl.rpad_s * in.spr != n_pts) ||
                      dx != nullptr || dv != nullptr))
     return cudaErrorInvalidValue;  // a scene's points: whole tiles and 64-ray columns
@@ -1389,8 +1398,7 @@ cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts,
                                             size_t(pl.rpad), wt + TLayout<W>::wve, dv);
     NERF_CHECK(cudaGetLastError());
   }
-  const Probs P = make_probs<T, W>(pl, ws, rws, wpart, pl.split_len);
-  const int ctas = P.p[P.count].cta0;
+  Probs P = make_probs<T, W>(pl, ws, rws, wpart, pl.split_len);
   if (sizeof(T) == 2) {
     // the workspace rows and ray_prep's per-ray rows as TMA tensor maps:
     // boxes of 64 points x 64 rows (8 rows for dWout's gc), 128-byte swizzle
@@ -1402,17 +1410,9 @@ cudaError_t run(const In& in, const float* g, size_t gsc, size_t gsp, int n_pts,
       rws_map = ws_map;  // no per-ray rows: no problem reads this map
     else
       NERF_CHECK(hopper::encode_rows_sw128(&rws_map, rws, KV + W / 2, pl.rpad, 64));
-    NERF_CHECK(cudaFuncSetAttribute(wgrad_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    int(WGRAD_SMEM)));
-    // setmaxnreg moves registers within the pool the CTA got at launch: a
-    // smaller pool than the two roles ask for would stall the consumers
-    cudaFuncAttributes fa;
-    NERF_CHECK(cudaFuncGetAttributes(&fa, wgrad_bf16));
-    if (fa.numRegs * WG_THREADS < 128 * PRODUCER_REGS + 256 * CONSUMER_REGS)
-      return cudaErrorInvalidConfiguration;
-    wgrad_bf16<<<dim3(ctas, scenes), WG_THREADS, WGRAD_SMEM, s>>>(ws_map, ws8_map, rws_map, P);
+    NERF_CHECK(launch_wgrad_bf16(ws_map, ws8_map, rws_map, P, scenes, s));
   } else {
-    wgrad_f32<<<dim3(ctas, scenes), THREADS, 0, s>>>(P);
+    wgrad_f32<<<dim3(P.p[P.count].cta0, scenes), THREADS, 0, s>>>(P);
   }
   NERF_CHECK(cudaGetLastError());
   const size_t gw = GLayout<W>::size;
@@ -1503,6 +1503,7 @@ int workspace_bytes(int use_bf16, int width, int n_pts, int spr, long long* byte
   else if (!use_bf16 && width == 256) p = make_plan<float, 256>(n_pts, spr, scenes);
   else if (!use_bf16 && width == 128) p = make_plan<float, 128>(n_pts, spr, scenes);
   else return cudaErrorInvalidValue;
+  if (p.err != cudaSuccess) return p.err;
   *bytes = static_cast<long long>(p.total);
   return cudaSuccess;
 }
@@ -1715,6 +1716,13 @@ extern "C" int nerf_fused_mlp_bwd_chain_points(int width, const float* x, const 
   const PointsIn in{x, v, spr};
   return chain_only(width, in, g, 1, 4, n_pts, n_freq_pts, n_freq_views, wblob, wtblob, bblob, ws,
                     masks, dhv32, bpart, dx, dv, stream);
+}
+
+// The last bf16 weight-grad launch of this library (K4's, K3's or K6's
+// phase 3): its cluster size, grid x and y, and problem count, into
+// out[0..3].
+extern "C" void nerf_wgrad_last_launch(int* out) {
+  for (int i = 0; i < 4; ++i) out[i] = last_wgrad_launch()[i];
 }
 
 extern "C" const char* nerf_cuda_error_string(int err) {

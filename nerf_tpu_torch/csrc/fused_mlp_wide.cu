@@ -931,19 +931,20 @@ extern "C" int nerf_wide_embed_bwd(const float* y, int n, int F, const float* de
   return cudaGetLastError();
 }
 
-// The weight grads (wgrad_sm90.cuh) of n_probs products, each 7 ints in
-// probs (host memory): (src, ra, M, rb, N, coff, ldc): C[M][N] at
-// wpart + coff, rows ldc apart, = the sum over a scene's columns of rows
-// ra.. and rb.. of the workspace ws [ws_rows][ldp] (src 0) or of the per-ray
-// rows rws [rws_rows][rpad] (src 1); N <= 256 in bf16. The columns are
-// `scenes` scenes' (ldp / scenes and rpad / scenes each, multiples of 64),
-// scene s's into its own set of grads (wgrad_sm90.cuh's grid axis y). A
-// scene's columns split in split_len pieces (a multiple of 64), nsplit of
-// them at most, each into its own partial of grad_size floats in wpart
-// (zeroed here first); then out[s][:grad_size] = scene s's partials' sum and
-// out[s][grad_size:] = the sum of its nbpart / scenes bias partials (bpart
-// [nbpart][nbias], a scene's after the one before), out's scenes
-// grad_size + nbias floats apart.
+// The weight grads (wgrad_sm90.cuh) of n_probs products (at most MAXP - 1:
+// one launch), each 9 ints in probs (host memory): (src, ra, M, rb, N, coff,
+// ldc, mc, nc): C[M][N] at wpart + coff, rows ldc apart, = the sum over a
+// scene's columns of rows ra.. and rb.. of the workspace ws [ws_rows][ldp]
+// (src 0) or of the per-ray rows rws [rws_rows][rpad] (src 1); in bf16 its
+// 128 x 256 tiles in clusters of mc x nc (cluster_shape; f32 ignores them).
+// The columns are `scenes` scenes' (ldp / scenes and rpad / scenes each,
+// multiples of 64), scene s's into its own set of grads (wgrad_sm90.cuh's
+// grid axis y). A scene's columns split in split_len pieces (a multiple of
+// 64), nsplit of them at most, each into its own partial of grad_size
+// floats in wpart (zeroed here first); then out[s][:grad_size] = scene s's
+// partials' sum and out[s][grad_size:] = the sum of its nbpart / scenes bias
+// partials (bpart [nbpart][nbias], a scene's after the one before), out's
+// scenes grad_size + nbias floats apart.
 extern "C" int nerf_wide_wgrad(int use_bf16, const void* ws, int ws_rows, long long ldp,
                                const void* rws, int rws_rows, long long rpad, int scenes,
                                int n_probs, const int* probs, int split_len, int nsplit,
@@ -952,67 +953,59 @@ extern "C" int nerf_wide_wgrad(int use_bf16, const void* ws, int ws_rows, long l
   if (scenes < 1 || ldp % scenes != 0 || rpad % scenes != 0 || nbpart % scenes != 0)
     return cudaErrorInvalidValue;
   const long long kp = ldp / scenes, kr = rpad / scenes;  // a scene's columns
-  if (kp < 64 || kp % 64 != 0 || kr < 0 || kr % 64 != 0 || n_probs < 1 || split_len < 64 ||
-      split_len % 64 != 0 || nsplit < 1 || static_cast<long long>(nsplit) * split_len < kp ||
-      nbpart < 1 || nbias < 1)
+  if (kp < 64 || kp % 64 != 0 || kr < 0 || kr % 64 != 0 || n_probs < 1 || n_probs >= MAXP ||
+      split_len < 64 || split_len % 64 != 0 || nsplit < 1 ||
+      static_cast<long long>(nsplit) * split_len < kp || nbpart < 1 || nbias < 1)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t esz = use_bf16 ? 2 : 4;
+  Probs P;
+  P.count = 0;
+  P.split_len = split_len;
+  P.split_stride = size_t(grad_size);
+  P.scene_stride = size_t(nsplit) * size_t(grad_size);
+  int cta = 0;
+  for (int i = 0; i < n_probs; ++i) {
+    const int* q = probs + 9 * i;
+    const int src = q[0], ra = q[1], M = q[2], rb = q[3], N = q[4], coff = q[5], ldc = q[6];
+    const long long ld = src ? rpad : ldp, k_len = src ? kr : kp;
+    if (M < 1 || N < 1 || (src && rpad == 0) || ra < 0 || rb < 0 ||
+        ra + M > (src ? rws_rows : ws_rows))
+      return cudaErrorInvalidValue;
+    const unsigned char* base = static_cast<const unsigned char*>(src ? rws : ws);
+    Prob& pr = P.p[P.count++];
+    pr.A = base + size_t(ra) * size_t(ld) * esz;
+    pr.B = base + size_t(rb) * size_t(ld) * esz;
+    pr.C = wpart + coff;
+    pr.M = M;
+    pr.N = N;
+    pr.lda = int(ld);
+    pr.ldc = ldc;
+    pr.k_len = int(k_len);
+    pr.ra = ra;
+    pr.rb = rb;
+    pr.src = src;
+    pr.mtiles = (M + (use_bf16 ? GM : FM) - 1) / (use_bf16 ? GM : FM);
+    pr.ntiles = (N + (use_bf16 ? GN : FM) - 1) / (use_bf16 ? GN : FM);
+    pr.mc = use_bf16 ? q[7] : 1;
+    pr.nc = use_bf16 ? q[8] : 1;
+    pr.nsplit = int((k_len + split_len - 1) / split_len);
+    pr.cta0 = cta;  // the f32 grid's; the bf16 launch lays its clusters out
+    cta += pr.mtiles * pr.ntiles * pr.nsplit;
+  }
+  P.p[P.count].cta0 = cta;
   NERF_CHECK(cudaMemsetAsync(wpart, 0, size_t(scenes) * nsplit * size_t(grad_size) * 4, s));
-  CUtensorMap ws_map, ws8_map, rws_map;
   if (use_bf16) {
+    CUtensorMap ws_map, ws8_map, rws_map;
     NERF_CHECK(hopper::encode_rows_sw128(&ws_map, ws, ws_rows, ldp, 64));
     NERF_CHECK(hopper::encode_rows_sw128(&ws8_map, ws, ws_rows, ldp, 8));
     if (rpad > 0)
       NERF_CHECK(hopper::encode_rows_sw128(&rws_map, rws, rws_rows, rpad, 64));
     else
       rws_map = ws_map;  // no per-ray rows: no problem reads this map
-    NERF_CHECK(cudaFuncSetAttribute(wgrad_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    int(WGRAD_SMEM)));
-    cudaFuncAttributes fa;
-    NERF_CHECK(cudaFuncGetAttributes(&fa, wgrad_bf16));
-    if (fa.numRegs * WG_THREADS < 128 * PRODUCER_REGS + 256 * CONSUMER_REGS)
-      return cudaErrorInvalidConfiguration;
-  }
-  const size_t esz = use_bf16 ? 2 : 4;
-  for (int p0 = 0; p0 < n_probs; p0 += MAXP - 1) {  // one past the last: the grid size
-    Probs P;
-    P.count = 0;
-    P.split_len = split_len;
-    P.split_stride = size_t(grad_size);
-    P.scene_stride = size_t(nsplit) * size_t(grad_size);
-    int cta = 0;
-    for (int i = p0; i < n_probs && i < p0 + MAXP - 1; ++i) {
-      const int* q = probs + 7 * i;
-      const int src = q[0], ra = q[1], M = q[2], rb = q[3], N = q[4], coff = q[5], ldc = q[6];
-      const long long ld = src ? rpad : ldp, k_len = src ? kr : kp;
-      if (M < 1 || N < 1 || (use_bf16 && N > 256) || (src && rpad == 0) ||
-          ra < 0 || rb < 0 || ra + M > (src ? rws_rows : ws_rows))
-        return cudaErrorInvalidValue;
-      const unsigned char* base = static_cast<const unsigned char*>(src ? rws : ws);
-      Prob& pr = P.p[P.count++];
-      pr.A = base + size_t(ra) * size_t(ld) * esz;
-      pr.B = base + size_t(rb) * size_t(ld) * esz;
-      pr.C = wpart + coff;
-      pr.M = M;
-      pr.N = N;
-      pr.lda = int(ld);
-      pr.ldc = ldc;
-      pr.k_len = int(k_len);
-      pr.ra = ra;
-      pr.rb = rb;
-      pr.src = src;
-      pr.bn = use_bf16 ? (N <= 8 ? 8 : N <= 128 ? 128 : 256) : FM;
-      pr.mtiles = (M + (use_bf16 ? GM : FM) - 1) / (use_bf16 ? GM : FM);
-      pr.ntiles = use_bf16 ? 1 : (N + FM - 1) / FM;
-      pr.nsplit = int((k_len + split_len - 1) / split_len);
-      pr.cta0 = cta;
-      cta += pr.mtiles * pr.ntiles * pr.nsplit;
-    }
-    P.p[P.count].cta0 = cta;
-    if (use_bf16)
-      wgrad_bf16<<<dim3(cta, scenes), WG_THREADS, WGRAD_SMEM, s>>>(ws_map, ws8_map, rws_map, P);
-    else
-      wgrad_f32<<<dim3(cta, scenes), THREADS, 0, s>>>(P);
+    NERF_CHECK(launch_wgrad_bf16(ws_map, ws8_map, rws_map, P, scenes, s));
+  } else {
+    wgrad_f32<<<dim3(cta, scenes), THREADS, 0, s>>>(P);
     NERF_CHECK(cudaGetLastError());
   }
   const size_t out_stride = size_t(grad_size) + nbias;
@@ -1022,6 +1015,17 @@ extern "C" int nerf_wide_wgrad(int use_bf16, const void* ws, int ws_rows, long l
   reduce_tiles<<<dim3(unsigned((nbias + 31) / 32), scenes), 256, 0, s>>>(
       bpart, nbpart / scenes, nbias, out + grad_size, out_stride);
   return cudaGetLastError();
+}
+
+// The CTAs of the bf16 weight-grad launch the card holds at once in
+// clusters of cl (wgrad_sm90.cuh's wgrad_slots), into *slots: what
+// ops/fused_mlp_wide.py's hopper_splits fills.
+extern "C" int nerf_wide_wgrad_slots(int cl, int* slots) { return wgrad_slots(cl, slots); }
+
+// The last bf16 weight-grad launch of this library: its cluster size, grid
+// x and y, and problem count, into out[0..3].
+extern "C" void nerf_wgrad_last_launch(int* out) {
+  for (int i = 0; i < 4; ++i) out[i] = last_wgrad_launch()[i];
 }
 
 extern "C" const char* nerf_cuda_error_string(int err) {

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks, as thin inline-PTX wrappers: mbarriers
-// with phase parity, TMA tile loads (cp.async.bulk.tensor.2d and .3d), TMA
-// stores and their bulk groups, tensor maps, the wgmma shared-memory
+// with phase parity, TMA tile loads (cp.async.bulk.tensor.2d and .3d, the
+// 2-D one also multicast to several CTAs of a thread-block cluster), TMA
+// stores and their bulk groups, tensor maps, the cluster's rank, barrier
+// and remote mbarrier arrivals, the wgmma shared-memory
 // descriptor of a 128-byte-swizzled K-major tile, the wgmma fence / commit /
 // wait, wgmma.mma_async m64nNk16 (bf16 in, f32 accumulators) for N = 8, 64,
 // 128 and 256 (256 also with B MN-major), setmaxnreg, the generic-to-async
@@ -65,6 +67,34 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// ------------------------------------------------------------------- cluster
+
+// This CTA's rank in its thread-block cluster (0 without a cluster launch).
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// One arrival on the mbarrier at bar's offset in the shared memory of the
+// cluster's CTA `rank` (this CTA's own rank included): a consumer freeing a
+// stage that another CTA's producer fills.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// Every non-exited thread of the cluster arrives, then waits for the rest
+// (release / acquire): after barrier init, before a peer may write into
+// this CTA's shared memory, and before a CTA exits while a peer may still.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
 // ----------------------------------------------------------------------- TMA
 
 // Box (x = the inner coordinate, y = the row) of `map` into shared memory at
@@ -76,6 +106,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// The same box written at dst's offset into the shared memory of every CTA
+// of the cluster whose rank is a bit of `mask`, each completing the bytes
+// it receives on the mbarrier at bar's offset in its own shared memory.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int x, int y, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "h"(mask), "r"(x), "r"(y)
       : "memory");
 }
 

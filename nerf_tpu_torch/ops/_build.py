@@ -72,6 +72,7 @@ SIGNATURES = {
         "nerf_fused_mlp_bwd_points_stacked": (
             _I, [_I, _I] + [_P] * 3 + [_I] * 5 + [_P] * 4 + [_L, _P, _P],
         ),
+        "nerf_wgrad_last_launch": (None, [_P]),
         "nerf_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "fused_render": {
@@ -98,6 +99,8 @@ SIGNATURES = {
         "nerf_wide_wgrad": (
             _I, [_I, _P, _I, _L, _P, _I, _L, _I, _I, _P, _I, _I, _L, _P, _P, _P, _I, _I, _P],
         ),
+        "nerf_wide_wgrad_slots": (_I, [_I, ctypes.POINTER(_I)]),
+        "nerf_wgrad_last_launch": (None, [_P]),
         "nerf_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "probe_overlap": {

@@ -57,7 +57,7 @@ from nerf_tpu_torch.ops import _build, fused_mlp
 
 TILE = 256  # columns of a GEMM tile and of a bias partial (WIDE_TILE in the source)
 SLICE_POINTS = 1 << 20  # the forwards' points a slice: bounds their scratch rows
-BOX_N = 256  # the widest product the weight-grad launch takes in bf16
+WG_M, WG_N = 128, 256  # a bf16 weight-grad CTA's tile of C (GM, GN in csrc/wgrad_sm90.cuh)
 SMS, MAX_SPLIT_CHUNKS = 132, 256  # as csrc/fused_mlp_bwd.cu's hopper_splits
 
 
@@ -143,11 +143,17 @@ class PlainOps:
     def composite_bwd(self, *args):
         return _render().composite_bwd_reference(*args)
 
+    def cluster_slots(self, cl: int) -> int:
+        """The H100 SXM's 132 SMs in whole clusters of cl: the split count's
+        stand-in for the card's answer (``Ops.cluster_slots``); the plain
+        weight grads sum each product whole, whatever the splits."""
+        return default_slots(cl)
+
     def wgrad(self, ws, rws, probs, split_len, nsplit, grad_size, out, bpart, scenes=1):
         C, T = ws.shape[1] // scenes, bpart.shape[0] // scenes
         Cr = 0 if rws is None else rws.shape[1] // scenes
         for s in range(scenes):
-            for src, ra, M, rb, N, coff, ldc in probs:
+            for src, ra, M, rb, N, coff, ldc, _, _ in probs:
                 base, k = (rws, Cr) if src else (ws, C)
                 cs = slice(s * k, (s + 1) * k)
                 c = base[ra : ra + M, cs].float() @ base[rb : rb + N, cs].float().T
@@ -182,8 +188,8 @@ def _sc(t: Optional[torch.Tensor], dims: int) -> int:
 class Ops:
     """The primitives of csrc/fused_mlp_wide.cu (and K5w's and K6w's
     compositing passes, csrc/fused_render.cu) on CUDA tensors of one
-    device, each one launch (the weight grads a few) on its current stream;
-    a launch that fails raises."""
+    device, each one launch (the weight grads one, with its reductions) on
+    its current stream; a launch that fails raises."""
 
     def __init__(self, dtype: torch.dtype, device: torch.device):
         self.lib = _build.load("fused_mlp_wide")
@@ -241,8 +247,15 @@ class Ops:
     def composite_bwd(self, *args):
         return _render()._launch_composite_bwd(*args)
 
+    def cluster_slots(self, cl: int) -> int:
+        """CTAs of the bf16 weight-grad launch the card holds at once in
+        clusters of cl (``nerf_wide_wgrad_slots``)."""
+        n = ctypes.c_int(0)
+        self._run("nerf_wide_wgrad_slots", cl, ctypes.byref(n))
+        return n.value
+
     def wgrad(self, ws, rws, probs, split_len, nsplit, grad_size, out, bpart, scenes=1):
-        flat = (ctypes.c_int * (7 * len(probs)))(*[v for q in probs for v in q])
+        flat = (ctypes.c_int * (9 * len(probs)))(*[v for q in probs for v in q])
         wpart = torch.empty(scenes * nsplit * grad_size, dtype=torch.float32, device=ws.device)
         self._run("nerf_wide_wgrad", self.bf16, ws.data_ptr(), ws.shape[0], ws.shape[1],
                   _p(rws), 0 if rws is None else rws.shape[0], 0 if rws is None else rws.shape[1],
@@ -391,10 +404,23 @@ def _grad_offsets(W: int, ke: int, kv: int) -> Tuple[Dict[str, int], int]:
     return off, o
 
 
+def cluster_shape(M: int, N: int) -> Tuple[int, int]:
+    """(mc, nc): the bf16 weight-grad cluster of a product C[M][N], mc of its
+    128-row tiles by nc of its 256-column ones whose CTAs share each K
+    chunk's boxes by TMA multicast: the largest mc in (4, 2, 1) and nc in
+    (2, 1) that divide C's tiles (at most 8 CTAs, the portable cluster);
+    (1, 1) for dWout's 4 columns. csrc/wgrad_sm90.cuh's cluster_shape."""
+    if N <= 8:
+        return 1, 1
+    mt, nt = -(-M // WG_M), -(-N // WG_N)
+    return (4 if mt % 4 == 0 else 2 if mt % 2 == 0 else 1), (2 if nt % 2 == 0 else 1)
+
+
 def _problems(W: int, ke: int, kv: int, dense: bool) -> List[Tuple[int, ...]]:
-    """The weight grads as (src, ra, M, rb, N, coff, ldc) products over the
-    workspace rows (src 0) or the per-ray rows (src 1: ev at row 0, the
-    rounded d_hv sums at row kv), each N <= BOX_N."""
+    """The weight grads as (src, ra, M, rb, N, coff, ldc, mc, nc) products
+    over the workspace rows (src 0) or the per-ray rows (src 1: ev at row
+    0, the rounded d_hv sums at row kv), each whole, with its cluster
+    (``cluster_shape``): 14 products, one launch at every width."""
     blocks, _ = fused_mlp.ws_rows(W, ke, kv)
     chain = fused_mlp.chain_ws_rows(W, ke)
     row = {**{k: r for k, (r, _) in blocks.items()}, **{k: r for k, (r, _) in chain.items()}}
@@ -402,8 +428,7 @@ def _problems(W: int, ke: int, kv: int, dense: bool) -> List[Tuple[int, ...]]:
     probs = []
 
     def add(src, ra, M, rb, N, coff, ldc):
-        for j in range(0, N, BOX_N):
-            probs.append((src, ra, M, rb + j, min(BOX_N, N - j), coff + j, ldc))
+        probs.append((src, ra, M, rb, N, coff, ldc, *cluster_shape(M, N)))
 
     add(0, row["e"], ke, row["d0"], W, off["W05e"], 2 * W)
     add(0, row["e"], ke, row["d5"], W, off["W05e"] + W, 2 * W)
@@ -420,15 +445,21 @@ def _problems(W: int, ke: int, kv: int, dense: bool) -> List[Tuple[int, ...]]:
     return probs
 
 
-def hopper_splits(tiles: int, nchunks: int) -> int:
+def default_slots(cl: int) -> int:
+    """The H100 SXM's SMS in whole clusters of cl CTAs."""
+    return SMS // cl * cl
+
+
+def hopper_splits(tiles: int, nchunks: int, cl: int, slots: int) -> int:
     """csrc/fused_mlp_bwd.cu's hopper_splits: the bf16 weight-grad launch's
-    split count for ``tiles`` CTAs a split over nchunks 64-point chunks."""
+    split count for ``tiles`` CTAs a split over nchunks 64-point chunks, in
+    clusters of cl CTAs of which the card holds ``slots`` at once."""
     smin = min(64, -(-nchunks // MAX_SPLIT_CHUNKS))
     smax = max(smin, min(64, nchunks // 8))
     best, best_fill = smin, 0.0
     for s in range(smin, smax + 1):
-        ctas = tiles * s
-        fill = ctas / (-(-ctas // SMS) * SMS)
+        ctas = -(-tiles * s // cl) * cl
+        fill = ctas / (-(-ctas // slots) * slots)
         if fill >= 0.95:
             return s
         if fill > best_fill:
@@ -436,13 +467,15 @@ def hopper_splits(tiles: int, nchunks: int) -> int:
     return best
 
 
-def _splits(bf16: bool, probs, n_pad: int) -> Tuple[int, int]:
+def _splits(bf16: bool, probs, n_pad: int, slots=default_slots) -> Tuple[int, int]:
     """(split_len, nsplit) of the weight grads over n_pad columns, as the
-    tile's backward picks them (make_plan)."""
+    tile's backward picks them (make_plan); ``slots(cl)``: the CTAs the card
+    holds at once in clusters of cl (``Ops.cluster_slots``)."""
     nchunks = n_pad // 64
     if bf16:
-        tiles = sum(-(-q[2] // 128) for q in probs if q[0] == 0)
-        target = hopper_splits(tiles, nchunks)
+        tiles = sum(-(-q[2] // WG_M) * -(-q[4] // WG_N) for q in probs if q[0] == 0)
+        cl = max(q[7] * q[8] for q in probs)
+        target = hopper_splits(tiles, nchunks, cl, slots(cl))
     else:
         target = max(1, min(64, n_pad // 8192))
     split_len = -(-nchunks // target) * 64
@@ -527,7 +560,7 @@ def _backward(ops, kp, blobs, src, x, v, n: int, spr: int, g4, input_grads: bool
     # the weight grads over the rows (phase 3), then the bias partials' sums,
     # a set a scene, each scene's split as one scene's alone
     probs = _problems(W, ke, kv, dense)
-    split_len, nsplit = _splits(dtype == torch.bfloat16, probs, C)
+    split_len, nsplit = _splits(dtype == torch.bfloat16, probs, C, ops.cluster_slots)
     _, grad_size = _grad_offsets(W, ke, kv)
     out = torch.empty(scenes, grad_size + nbias, **f32)
     ops.wgrad(ws, rws, probs, split_len, nsplit, grad_size, out, bpart, scenes)

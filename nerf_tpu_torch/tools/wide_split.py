@@ -7,11 +7,12 @@ seed-7 weights, each profiled over REPS calls after a warm-up.
 
 prints one JSON line: the card (name, power limit), and for K1w and K4w
 the device ms a call of each of the family's kernels (``KERNELS``, matched
-by name in the profile), of any other kernel, their sum, and the GEMM's
-share of it. The tool imports only ``nerf_tpu_torch``; run as a file with
-another checkout's root on ``PYTHONPATH`` it profiles that checkout's
-kernels, so two builds compare in one call (tools/fwd_time.py does the
-same).
+by name in the profile), of any other kernel, their sum and the GEMM's
+share of it; and each of K4w's two weight-grad launches' cluster size,
+grid and problem count (``wgrad_launches``, ``wgrad_check.last_launch``).
+The tool imports only ``nerf_tpu_torch``; run as a file with another
+checkout's root on ``PYTHONPATH`` it profiles that checkout's kernels, so
+two builds compare in one call (tools/fwd_time.py does the same).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch
 
 from nerf_tpu_torch.models.embedding import PosEncConfig
 from nerf_tpu_torch.models.nerf_mlp import MLPConfig, NeRFMLP
-from nerf_tpu_torch.ops import fused_mlp
+from nerf_tpu_torch.ops import _build, fused_mlp
+from nerf_tpu_torch.tools.wgrad_check import last_launch
 
 CHUNK, N_RAND, WIDTH = 32 * 1024, 4096, 512
 LEVELS = (64, 192)
@@ -99,6 +101,10 @@ def main() -> int:
     bwd = [lambda r=r, g=g: fused_mlp.fused_rays_planes_bwd(kp, *r, g, blobs)
            for r, g in zip(step, gs)]
     res["K4w_per_step"] = split(bwd)
+    res["wgrad_launches"] = []
+    for fn in bwd:
+        fn()
+        res["wgrad_launches"].append(last_launch(_build.load("fused_mlp_wide")))
     print(json.dumps(res), flush=True)
     return 0
 

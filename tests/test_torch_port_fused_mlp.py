@@ -627,9 +627,128 @@ def test_wide_blobs_and_params_round_trip(config):
     for name, t in got.items():
         assert t.shape == kp[name].shape and torch.equal(t, leaves[name]), name
     probs = fused_mlp_wide._problems(W_, ke, kv, dense=False)
-    assert all(q[4] <= fused_mlp_wide.BOX_N for q in probs)
+    # each weight grad one whole product, with its cluster
+    assert sum(q[2] * q[4] for q in probs) == fused_mlp_wide._grad_offsets(W_, ke, kv)[1]
+    assert all(q[7:] == fused_mlp_wide.cluster_shape(q[2], q[4]) for q in probs)
     rows = fused_mlp.ws_rows(W_, ke, kv)[1]
     assert all(q[1] + q[2] <= rows for q in probs if q[0] == 0)
+
+
+def _wgrad_launch(probs, split_len, k_lens, scenes):
+    """A model of csrc/wgrad_sm90.cuh's bf16 launch (``launch_wgrad_bf16``'s
+    layout and ``wgrad_bf16``'s place, boxes and arrivals): the launch's
+    cluster size and, for each CTA (x, scene), None past the last problem
+    or its (problem, split, mi, ni, rank, A and B boxes it issues with their
+    receivers' ranks, the ranks its consumer warps free, its full barrier's
+    bytes, its empty barrier's arrivals)."""
+    wm, wn = fused_mlp_wide.WG_M, fused_mlp_wide.WG_N
+    tiles = lambda q: (-(-q[2] // wm), -(-q[4] // wn))  # noqa: E731
+    wgs = lambda M, mi: 2 if M - mi * wm > 64 else 1  # noqa: E731
+    order = sorted(range(len(probs)), key=lambda i: -probs[i][7] * probs[i][8])  # stable
+    starts, cta, cl = [], 0, 1
+    for i in order:
+        mt, nt = tiles(probs[i])
+        starts.append(cta)
+        cta += mt * nt * -(-k_lens[i] // split_len)
+        cl = max(cl, probs[i][7] * probs[i][8])
+    grid = -(-cta // cl) * cl
+    ctas = {}
+    for x in range(grid):
+        j = max(k for k in range(len(order)) if starts[k] <= x)
+        pi, local = order[j], x - starts[j]
+        q = probs[pi]
+        M, N, mc, nc = q[2], q[4], q[7], q[8]
+        mt, nt = tiles(q)
+        nsplit = -(-k_lens[pi] // split_len)
+        for scene in range(scenes):
+            if local >= nsplit * mt * nt:
+                ctas[x, scene] = None
+                continue
+            ci, r = divmod(local, mc * nc)
+            cm, cn = r % mc, r // mc
+            cpm, per = mt // mc, (mt // mc) * (nt // nc)
+            split, m0, n0 = ci // per, ci % per % cpm * mc, ci % per // cpm * nc
+            mi, ni = m0 + cm, n0 + cn
+            first = x % cl - r
+            cols = min(wn, N - ni * wn)
+            bn = 8 if cols <= 8 else 128 if cols <= 128 else 256
+            bboxes = 1 if bn == 8 else bn // 64
+            nwg = wgs(M, mi)
+            row = [first + cm + mc * n for n in range(nc)]
+            col = [first + m + mc * cn for m in range(mc)]
+            frees = nc * nwg + sum(wgs(M, m0 + m) for m in range(mc) if m != cm)
+            ctas[x, scene] = dict(
+                key=(pi, split, mi, ni), rank=x % cl, launch_cluster=x // cl, cluster=(pi, ci),
+                a=[(i, row) for i in range(cn, nwg, nc)], b=[(j, col) for j in range(cm, bboxes, mc)],
+                frees=row + [c for c in col if c != first + cm + mc * cn], warps=4 * nwg,
+                bytes=nwg * 8192 + (1024 if bn == 8 else bboxes * 8192), empty=4 * frees,
+                want=(nwg, bboxes, 1024 if bn == 8 else 8192))
+    return cl, ctas
+
+
+@pytest.mark.parametrize("scenes", [1, 3])
+@pytest.mark.parametrize("dense", [True, False])
+@pytest.mark.parametrize("width", [128, 256, 384, 512, 1024])
+def test_wgrad_clusters_cover_each_tile_once(width, dense, scenes):
+    """The bf16 weight grads' whole products, their splits and the cluster
+    grid (``_wgrad_launch``, the launcher's model) give every (scene,
+    problem, split, M-tile, N-tile) of C one CTA; each cluster lies in one
+    of the launch's clusters and sums one split; every CTA receives each of
+    its A and B boxes once, as many bytes as its full barrier expects; and
+    every stage's empty barrier counts the consumer warps that free it,
+    among them those of every CTA whose producer writes into it."""
+    ke, kv = fused_mlp.embed_pad(10, 4)
+    spr = 1 if dense else 4
+    n_pad = 256 * 179  # a scene's columns: 716 chunks in splits, the last short
+    probs = fused_mlp_wide._problems(width, ke, kv, dense)
+    split_len, nsplit = fused_mlp_wide._splits(True, probs, n_pad)
+    assert nsplit > 1 and n_pad % split_len
+    k_lens = [n_pad // spr if q[0] else n_pad for q in probs]
+    cl, ctas = _wgrad_launch(probs, split_len, k_lens, scenes)
+    assert cl == {128: 1, 256: 2, 384: 2, 512: 8, 1024: 8}[width]
+    live = {k: c for k, c in ctas.items() if c is not None}
+    want = {(s, pi, sp, mi, ni) for s in range(scenes) for pi, q in enumerate(probs)
+            for sp in range(-(-k_lens[pi] // split_len)) for mi in range(-(-q[2] // 128))
+            for ni in range(-(-q[4] // 256))}
+    got = [(s,) + c["key"] for (x, s), c in live.items()]
+    assert len(got) == len(set(got)) and set(got) == want
+    assert len(ctas) - len(live) < cl * scenes  # padding only in the last launch cluster
+    by_rank = {}
+    for (x, s), c in live.items():
+        by_rank[c["launch_cluster"], s, c["rank"]] = c
+    members = {}
+    for (x, s), c in live.items():
+        members.setdefault((s, c["cluster"]), []).append(c)
+    for group in members.values():
+        assert len({c["launch_cluster"] for c in group}) == 1
+        assert len({c["key"][:2] for c in group}) == 1  # one problem, one split
+    for s in range(scenes):
+        got_a, got_b, frees, writers = {}, {}, {}, {}
+        for (x, sc), c in live.items():
+            if sc != s:
+                continue
+            lc = c["launch_cluster"]
+            for i, dst in c["a"]:
+                for r in dst:
+                    got_a.setdefault((lc, r), []).append((c["key"][2], i))
+                    writers.setdefault((lc, r), set()).add(c["rank"])
+            for j, dst in c["b"]:
+                for r in dst:
+                    got_b.setdefault((lc, r), []).append((c["key"][3], j))
+                    writers.setdefault((lc, r), set()).add(c["rank"])
+            for r in c["frees"]:
+                frees.setdefault((lc, r), []).append((c["rank"], c["warps"]))
+        for (x, sc), c in live.items():
+            if sc != s:
+                continue
+            at = (c["launch_cluster"], c["rank"])
+            nwg, bboxes, bbox = c["want"]
+            _, _, mi, ni = c["key"]
+            assert sorted(got_a.get(at, [])) == [(mi, i) for i in range(nwg)]
+            assert sorted(got_b.get(at, [])) == [(ni, j) for j in range(bboxes)]
+            assert nwg * 8192 + bboxes * bbox == c["bytes"]
+            assert sum(w for _, w in frees.get(at, [])) == c["empty"]
+            assert writers[at] <= {r for r, _ in frees[at]}
 
 
 @pytest.mark.parametrize("config", list(WIDE))

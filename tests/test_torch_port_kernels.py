@@ -1185,6 +1185,7 @@ def test_wide_primitives_match_plain_versions(cuda_device, dtype):
     bpart = rnd(5, 40)
     probs = [(0, 0, 64, 100, 256, 0, 256), (0, 64, 192, 300, 192, 20_000, 192),
              (0, 400, 300, 696, 4, 60_000, 4), (1, 0, 32, 32, 64, 70_000, 64)]
+    probs = [q + wide.cluster_shape(q[2], q[4]) for q in probs]
     grad_size = 80_000
     outs = [torch.full((1, grad_size + 40), float("nan"), device=dev) for _ in range(2)]
     for o, impl in zip(outs, (ops, plain)):
@@ -1202,6 +1203,59 @@ def test_wide_primitives_match_plain_versions(cuda_device, dtype):
         impl.wgrad(ws2, rws2, probs, split_len, nsplit, grad_size, o, bpart2, 2)
     torch.cuda.synchronize()
     assert _rel_l2(outs[0], outs[1]) <= 1e-5
+
+
+# The bf16 weight grads in thread-block clusters (csrc/wgrad_sm90.cuh:
+# each product whole, its 128 x 256 tiles in clusters of mc x nc CTAs that
+# share each K chunk by TMA multicast) against PlainOps.wgrad (each product
+# in f32): whole products of N = 512 and 1024 (4 x 2 clusters, tiling C at
+# 1024), an M <= 64 product (one consumer warpgroup) beside M = 512 ones in
+# one launch, the per-ray problem, two scenes, and M and N at the clusters'
+# edges (M = 192: a 2 x 1 cluster whose second CTA has 64 rows; M = 320:
+# three M-tiles, 1 x 2; N = 384: a 256- and a 128-column tile in one
+# cluster). Each case also launched twice, bit for bit.
+WGRAD_CASES = {
+    # name: ([(src, ra, M, rb, N)], columns a scene, per-ray columns, scenes)
+    "whole_512": ([(0, 0, 512, 512, 512), (0, 1024, 512, 1536, 256)], 4096, 0, 1),
+    "whole_1024": ([(0, 0, 1024, 1024, 1024)], 2048, 0, 1),
+    "mixed_m64": ([(0, 0, 63, 64, 512), (0, 576, 512, 1088, 512), (0, 64, 512, 1600, 4)],
+                  4096, 0, 1),
+    "per_ray_two_scenes": ([(0, 0, 512, 512, 512), (1, 0, 32, 32, 256)], 2560, 640, 2),
+    "edges": ([(0, 0, 192, 200, 384), (0, 400, 320, 720, 384), (0, 1100, 64, 1200, 256)],
+              1984, 0, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WGRAD_CASES))
+def test_wgrad_clusters_match_plain_version(cuda_device, case):
+    from nerf_tpu_torch.ops import fused_mlp_wide as wide
+
+    dev = cuda_device
+    spec, C, Cr, scenes = WGRAD_CASES[case]
+    ops, plain = wide.Ops(torch.bfloat16, dev), wide.PlainOps()
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    ws = torch.randn(2100, scenes * C, device=dev, generator=gen).to(torch.bfloat16)
+    rws = torch.randn(300, scenes * Cr, device=dev, generator=gen).to(torch.bfloat16) if Cr \
+        else None
+    probs, off = [], 0
+    for src, ra, M, rb, N in spec:
+        probs.append((src, ra, M, rb, N, off, N) + wide.cluster_shape(M, N))
+        off += M * N
+    assert max(q[7] * q[8] for q in probs) > 1  # a cluster launch
+    bpart = torch.randn(scenes * C // wide.TILE, 40, device=dev, generator=gen)
+    split_len, nsplit = wide._splits(True, probs, C, ops.cluster_slots)
+    outs = [torch.full((scenes, off + 40), float("nan"), device=dev) for _ in range(3)]
+    for o, impl in zip(outs, (ops, ops, plain)):
+        impl.wgrad(ws, rws, probs, split_len, nsplit, off, o, bpart, scenes)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])  # two launches bit-identical
+    for q in probs:
+        block = slice(q[5], q[5] + q[2] * q[4])
+        err = _rel_l2(outs[0][:, block], outs[2][:, block])
+        print(f"wgrad {case} M={q[2]} N={q[4]} cluster {q[7]}x{q[8]}: rel L2 {err:.2e}")  # -s
+        assert err <= 1e-5, (q, err)
+    assert _rel_l2(outs[0], outs[2]) <= 1e-5
 
 
 # The wide GEMM alone (gemm_bf16_sm90: persistent, 128 x 256 tiles on
