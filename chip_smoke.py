@@ -777,11 +777,15 @@ def main() -> int:
             ("fused_mlp_bwd", "bwd_recompute_sm90", 12, in_w_label),
             ("fused_mlp_bwd", "bwd_chain_sm90", 8, in_w_label),
             ("probe_overlap", "probe_sm90", 9, first_arg_label)):
-        for inst, ops in instantiations(source, function,
-                                        ("HGMMA", "UTMALDG", "HMMA", "STG.E.128"),
-                                        expected, label).items():
+        found = instantiations(source, function, ("HGMMA", "UTMALDG", "HMMA", "STG.E.128"),
+                               expected, label)
+        for inst, ops in found.items():
             if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"]:
                 raise RuntimeError(f"{function}<{inst}> is not the wgmma + TMA tile: {ops}")
+        # the recompute at both widths (each checked above: no spill, HGMMA)
+        widths = {w for inst in found for w in ("W=128", "W=256") if w in inst}
+        if function == "bwd_recompute_sm90" and widths != {"W=128", "W=256"}:
+            raise RuntimeError(f"bwd_recompute_sm90 lacks a width: {sorted(found)}")
     # K6's compositing pass, staged (<1>) and in device memory (<0>)
     instantiations("fused_render", "composite_bwd", ("HMMA",), 2, first_arg_label)
     # the wide family's GEMM (one bf16 instantiation: TMA loads, wgmma with

@@ -51,7 +51,16 @@
 //     128-byte-swizzled act / emb / embv blocks to the workspace rows, 8
 //     points of one feature a 16-byte store (store_rows_sw), and the masks
 //     as one 32-bit word per point and 32 features, from warp ballots over
-//     the same loads. hv, which K1 keeps in registers, goes to act first
+//     the same loads; each warp its own 16 points, which its epilogue
+//     rewrites next. The stores allocate no L1 line (st_global_na): lines
+//     they allocated in L1, in the 29 KB a tile's 227 KB of shared memory
+//     leaves of it, stalled the consumers and even their epilogues' shared
+//     stores (0.97 ms of 4.68 a lego step on an H100). Measured there too:
+//     the producer warpgroup's three idle warps cannot carry these stores
+//     (a unit of 32 features x 16 points with its ballots costs any warp
+//     ~900 cycles, and the consumers' eight run them under the products),
+//     and no staging box for TMA stores fits beside the ring at W = 256
+//     (PERF.md). hv, which K1 keeps in registers, goes to act first
 //     (kHvToAct). Its head does no work unless raw is asked for (a check of
 //     the tile against K1's, the sink then GlobalSink). Bound by bytes: the
 //     rows and masks it writes once (e, h0..h7, feat, hv: 4,992 B a point at
@@ -214,6 +223,15 @@ __device__ __forceinline__ uint32_t ld_shared_b32(uint32_t addr) {
   return v;
 }
 
+// Global stores that allocate no line in L1 (st.global.L1::no_allocate).
+__device__ __forceinline__ void st_global_na(void* p, uint4 v) {
+  asm volatile("st.global.L1::no_allocate.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(v.x),
+               "r"(v.y), "r"(v.z), "r"(v.w));
+}
+__device__ __forceinline__ void st_global_na(uint32_t* p, uint32_t v) {
+  asm volatile("st.global.L1::no_allocate.b32 [%0], %1;\n" ::"l"(p), "r"(v));
+}
+
 // The recompute's stores, by one consumer warpgroup of fwd_tile_sm90.cuh:
 // ws[c][p0 + i] = A[i][c] for its 64 points i and the features c < ncols
 // (a multiple of 32) of A, ncols / 64 blocks of 64 x 64 bf16 at a in the
@@ -231,7 +249,12 @@ __device__ __forceinline__ uint32_t ld_shared_b32(uint32_t addr) {
 // banks, one wavefront a load. The masks come from two ballots a row over
 // the same words, before the stores (fewer registers live at once: the
 // hook runs beside a layer's 128 accumulators); lanes 0-15 write their
-// points' words, 64 bytes a warp.
+// points' words, 64 bytes a warp. With kStream (the recompute's) the rows
+// and words allocate no line in L1 (st_global_na): nothing in the launch
+// reads them back, and lines they allocated in L1, in the 29 KB a tile's
+// 227 KB of shared memory leaves of it, cost the recompute 0.97 of its
+// 4.68 ms a lego step on an H100 (PERF.md; st.global.cg, .cs: less).
+template <bool kStream = false>
 __device__ __forceinline__ void store_rows_sw(const unsigned char* a, int ncols, bf16* ws,
                                               size_t ldp, uint32_t* m, int p0) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
@@ -266,7 +289,12 @@ __device__ __forceinline__ void store_rows_sw(const unsigned char* a, int ncols,
         if (lane == k) word = (b0 & 0x55555555u) | ((b1 & 0x55555555u) << 1);
         if (lane == k + 8) word = ((b0 >> 1) & 0x55555555u) | (b1 & 0xaaaaaaaau);
       }
-      if (lane < 16) m[size_t(c0 >> 5) * ldp + p0 + 16 * warp + lane] = word;
+      if (lane < 16) {
+        if constexpr (kStream)
+          st_global_na(m + (size_t(c0 >> 5) * ldp + p0 + 16 * warp + lane), word);
+        else
+          m[size_t(c0 >> 5) * ldp + p0 + 16 * warp + lane] = word;
+      }
     }
     uint32_t f0[4], f1[4];
 #pragma unroll
@@ -275,8 +303,13 @@ __device__ __forceinline__ void store_rows_sw(const unsigned char* a, int ncols,
       f1[k] = __byte_perm(w[2 * k], w[2 * k + 1], 0x7632);  // feature c + 1
     }
     bf16* g = ws + size_t(c) * ldp + p0 + i;
-    *reinterpret_cast<uint4*>(g) = make_uint4(f0[0], f0[1], f0[2], f0[3]);
-    *reinterpret_cast<uint4*>(g + ldp) = make_uint4(f1[0], f1[1], f1[2], f1[3]);
+    if constexpr (kStream) {
+      st_global_na(g, make_uint4(f0[0], f0[1], f0[2], f0[3]));
+      st_global_na(g + ldp, make_uint4(f1[0], f1[1], f1[2], f1[3]));
+    } else {
+      *reinterpret_cast<uint4*>(g) = make_uint4(f0[0], f0[1], f0[2], f0[3]);
+      *reinterpret_cast<uint4*>(g + ldp) = make_uint4(f1[0], f1[1], f1[2], f1[3]);
+    }
   }
 }
 
@@ -343,8 +376,11 @@ __device__ void input_grad(const In& in, bool pts, int F, const float* d_e, int 
 // The recompute's hook (fwd_tile_sm90.cuh): each layer's output, complete in
 // a consumer warpgroup's swizzled blocks, to the workspace rows while the
 // next layer's products run, and the relu masks of h0..h7 and hv to the
-// mask words. ws and masks are the rows' bases, ldp points a row.
-template <int W>
+// mask words. ws and masks are the rows' bases, ldp points a row. kStream:
+// store_rows_sw's; the launch that also writes raw (a check of the tile)
+// keeps plain stores, for at W = 256 the head's sums beside the stream
+// stores' addresses made ptxas spill 68 bytes.
+template <int W, bool kStream>
 struct RecomputeHook : NoHook {
   static constexpr bool kHvToAct = true;
   bf16* ws;
@@ -353,8 +389,9 @@ struct RecomputeHook : NoHook {
   bool dense;  // a view direction per point: the view embedding's rows too
   __device__ __forceinline__ void after_embed(const unsigned char* emb, const unsigned char* embv,
                                               int p0) const {
-    store_rows_sw(emb, KE, ws + size_t(WsRows<W>::e) * ldp, ldp, nullptr, p0);
-    if (dense) store_rows_sw(embv, KV, ws + size_t(WsRows<W>::ev) * ldp, ldp, nullptr, p0);
+    store_rows_sw<kStream>(emb, KE, ws + size_t(WsRows<W>::e) * ldp, ldp, nullptr, p0);
+    if (dense)
+      store_rows_sw<kStream>(embv, KV, ws + size_t(WsRows<W>::ev) * ldp, ldp, nullptr, p0);
   }
   // l: h0..h7 (0..7), feat (8) or hv (9)
   __device__ __forceinline__ void after_layer(int l, const unsigned char* act, int p0) const {
@@ -362,7 +399,7 @@ struct RecomputeHook : NoHook {
     using M = MaskRows<W>;
     const int r0 = l < 8 ? R::h(l) : l == 8 ? R::feat : R::hv;
     uint32_t* m = l == 8 ? nullptr : masks + size_t(l < 8 ? M::h(l) : M::hv) * ldp;
-    store_rows_sw(act, l == 9 ? W / 2 : W, ws + size_t(r0) * ldp, ldp, m, p0);
+    store_rows_sw<kStream>(act, l == 9 ? W / 2 : W, ws + size_t(r0) * ldp, ldp, m, p0);
   }
 };
 
@@ -383,7 +420,7 @@ bwd_recompute_sm90(const __grid_constant__ FwdMaps maps, const In in, int n_pts,
                    uint32_t* masks, size_t ldp, float* raw, size_t sc, size_t sp,
                    const Walk walk) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const RecomputeHook<W> hook{{}, ws, masks, ldp, in.spr == 1};
+  const RecomputeHook<W, !kRaw> hook{{}, ws, masks, ldp, in.spr == 1};
   if constexpr (kRaw)
     fwd_tiles_sm90<In, W>(maps, in, n_pts, Fp, Fv, wb, bb, smem, GlobalSink{raw, sc, sp}, walk,
                           hook);
@@ -1451,11 +1488,12 @@ bool valid_shape(long long n_pts, int spr) {
 }
 
 // The recompute launch alone into ws and masks at ldp = n_pts rounded up
-// to whole tiles (nerf_fused_mlp_bwd_recompute*).
+// to whole tiles (nerf_fused_mlp_bwd_recompute*); with scenes > 1 a net per
+// scene (SceneWalk), n_pts the launch's points.
 template <typename In>
 int recompute_only(int width, const In& in, int n_pts, int Fp, int Fv, const void* wblob,
                    const float* bblob, void* ws, void* masks, float* raw, size_t sc, size_t sp,
-                   void* stream) {
+                   void* stream, int scenes = 1) {
   if (Fp < 1 || Fp > MAX_FP || Fv < 1 || Fv > MAX_FV) return cudaErrorInvalidValue;
   const size_t ldp = (size_t(n_pts) + TP - 1) / TP * TP;
   const bf16* wb = static_cast<const bf16*>(wblob);
@@ -1463,9 +1501,11 @@ int recompute_only(int width, const In& in, int n_pts, int Fp, int Fv, const voi
   uint32_t* m = static_cast<uint32_t*>(masks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (width == 256)
-    return launch_recompute<In, 256>(in, n_pts, Fp, Fv, wb, bblob, w, m, ldp, raw, sc, sp, s);
+    return launch_recompute<In, 256>(in, n_pts, Fp, Fv, wb, bblob, w, m, ldp, raw, sc, sp, s,
+                                     scenes);
   if (width == 128)
-    return launch_recompute<In, 128>(in, n_pts, Fp, Fv, wb, bblob, w, m, ldp, raw, sc, sp, s);
+    return launch_recompute<In, 128>(in, n_pts, Fp, Fv, wb, bblob, w, m, ldp, raw, sc, sp, s,
+                                     scenes);
   return cudaErrorInvalidValue;
 }
 
@@ -1682,6 +1722,24 @@ extern "C" int nerf_fused_mlp_bwd_recompute_points(int width, const float* x, co
   const PointsIn in{x, v, spr};
   return recompute_only(width, in, n_pts, n_freq_pts, n_freq_views, wblob, bblob, ws, masks, raw,
                         1, 4, stream);
+}
+
+// The stacked K3's recompute alone (multi-scene training's points mode):
+// x [S*P,3], v [S*P/spr,3] and the nets as nerf_fused_mlp_fwd_points_stacked
+// takes them (P a scene's points, whole tiles); ws and masks as
+// nerf_fused_mlp_bwd_recompute's over all S*P points, scene s's columns
+// [s*P, (s+1)*P). raw must be null: the stacked launch writes none.
+extern "C" int nerf_fused_mlp_bwd_recompute_points_stacked(int width, const float* x,
+                                                           const float* v, int n_scenes,
+                                                           int pts_per_scene, int spr,
+                                                           int n_freq_pts, int n_freq_views,
+                                                           const void* wblob, const float* bblob,
+                                                           void* ws, void* masks, float* raw,
+                                                           void* stream) {
+  if (!valid_stacked_points(n_scenes, pts_per_scene, spr)) return cudaErrorInvalidValue;
+  const PointsIn in{x, v, spr};
+  return recompute_only(width, in, pts_per_scene * n_scenes, n_freq_pts, n_freq_views, wblob,
+                        bblob, ws, masks, raw, 1, 4, stream, n_scenes);
 }
 
 // The bf16 recompute and cotangent chain alone, K4's and K3's first two

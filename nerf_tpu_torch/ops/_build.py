@@ -62,6 +62,9 @@ SIGNATURES = {
         "nerf_fused_mlp_bwd_recompute_points": (
             _I, [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
         ),
+        "nerf_fused_mlp_bwd_recompute_points_stacked": (
+            _I, [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        ),
         "nerf_fused_mlp_bwd_chain": (_I, [_I] + [_P] * 5 + [_I] * 4 + [_P] * 8),
         "nerf_fused_mlp_bwd_stacked_workspace": (_I, [_I] * 5 + [ctypes.POINTER(_L)]),
         "nerf_fused_mlp_bwd_stacked": (

@@ -1186,6 +1186,32 @@ def bwd_recompute_rays(kp: Dict[str, torch.Tensor], rays_o: torch.Tensor, rays_d
                              R * S, S, raw, z_vals, blobs)
 
 
+def bwd_recompute_stacked(kp: Dict[str, torch.Tensor], x: torch.Tensor, v: torch.Tensor,
+                          spr: int, blobs=None) -> Recompute:
+    """The stacked K3's recompute launch alone (``SceneWalk``: a net per
+    scene), on S scenes' points x [S, P, 3] and directions v [S, P/spr, 3]
+    through stacked packed params ([S, ...] leaves), for a check of what it
+    writes: each scene's points zero-padded to ``_pad_points`` (P_pad), the
+    workspace rows and mask words over all S * P_pad columns, scene s's at
+    [s * P_pad, (s + 1) * P_pad); no raw. On a CPU tensor
+    ``bwd_recompute_reference`` scene by scene on the padded points, side by
+    side (the view embedding's rows, as the kernel's, only at spr = 1).
+    ``bwd_recompute.launches`` counts it."""
+    _check_stacked_points(kp, x, v, spr)
+    S, P, _ = x.shape
+    P_pad = _pad_points(P, spr)
+    (xp,), (vp,) = _padded((x,), P_pad), _padded((v,), P_pad // spr)
+    if x.device.type == "cpu":
+        per = [bwd_recompute_reference(_scene(kp, s), xp[s], vp[s], spr) for s in range(S)]
+        return Recompute({k: torch.cat([r.rows[k] for r in per], 1) for k in per[0].rows
+                          if k != "ev" or spr == 1}, torch.cat([r.masks for r in per], 1), None)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {x.device}")
+    return _launch_recompute(kp, "nerf_fused_mlp_bwd_recompute_points_stacked",
+                             (xp.data_ptr(), vp.data_ptr(), S, P_pad, spr), S * P_pad, spr, False,
+                             x, blobs)
+
+
 def _launch_chain(kp, entry: str, args, n: int, spr: int, like: torch.Tensor, input_grads: bool,
                   blobs) -> Tuple[Recompute, Chain]:
     dtype, W, Fp, Fv = _kernel_config(kp, like)

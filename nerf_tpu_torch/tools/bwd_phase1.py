@@ -22,7 +22,11 @@ with no fault in the backward; the summary lists them apart from the other
 cases. ``time`` profiles ``REPS`` K4 training
 steps (a coarse launch at S=64 and a fine one at S=192, N_rand=4096) after
 ``WARMUP`` with ``k4_split``, the split that chip_smoke.py's phase 9 prints,
-and prints the device ms a step of each of K4's launches as one JSON line.
+and times a training step of K4, K3 (63 + 191 samples, a direction per
+ray) and K6 (64 + 192, from K5's raw) and of their stacked forms (8 scenes
+of 1,024 rays) by CUDA events, the mean of ``REPS`` steps after
+``WARMUP``; it prints the device ms a step of each of K4's launches and
+the steps' ms as one JSON line.
 
 The tool imports only ``nerf_tpu_torch``. Run as a file with another
 checkout's root on ``PYTHONPATH`` it drives that checkout's kernels:
@@ -174,16 +178,94 @@ def k4_split(kp, blobs, step: Sequence, reps: int, warmup: int = 1) -> Dict[str,
     return launch_split(k4_step, K4_LAUNCHES, reps=reps, warmup=warmup)
 
 
+def _event_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> float:
+    """ms a call of fn by CUDA events: the mean of reps calls after warmup."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+STACKED_SCENES, STACKED_RAYS = 8, 1024
+
+
+def step_times(dev) -> Dict[str, float]:
+    """ms a training step of K4, K3 and K6 (N_rand 4096, both levels) and of
+    the stacked K4s, K3s and K6s (STACKED_SCENES x STACKED_RAYS rays)."""
+    kp = _packed(256, dev)
+    blobs = fused_mlp.kernel_blobs(kp)
+    kps = [_packed(256, dev) for _ in range(STACKED_SCENES)]
+    skp = {k: torch.stack([q[k] for q in kps]) for k in kp}
+    sblobs = fused_mlp.kernel_blobs(skp)
+
+    def levels(samples, R, scenes=None):
+        out = []
+        for S in samples:
+            ro, rd, vd, z, g = _rays(S, R * (scenes or 1), S, dev)
+            if scenes:
+                ro, rd, vd = (t.reshape(scenes, R, 3) for t in (ro, rd, vd))
+                z, g = z.reshape(scenes, R, S), g.reshape(4, scenes, R, S)
+            out.append((ro, rd, vd, z, g))
+        return out
+
+    def points(ro, rd, z, lead):
+        return (ro[..., None, :] + rd[..., None, :] * z[..., None]).reshape(*lead, 3)
+
+    def render_inputs(lv, stacked):
+        fwd = fused_render.fused_render_stacked_fwd if stacked else fused_render.fused_render_fwd
+        out = []
+        for ro, rd, vd, z, g in lv:
+            noise = torch.zeros_like(z)
+            raw = fwd(kp if not stacked else skp, ro, rd, vd, z, noise, True,
+                      blobs if not stacked else sblobs, keep_raw=True).raw
+            maps = (g[:3, ..., 0].movedim(0, -1).contiguous(), g[3, ..., 0].contiguous(),
+                    g[3, ..., 1].contiguous(), g[0].contiguous())
+            out.append((ro, rd, vd, z, noise, raw, maps))
+        return out
+
+    train, stacked = levels(TRAIN_S, N_RAND), levels(TRAIN_S, STACKED_RAYS, STACKED_SCENES)
+    train63, stacked63 = levels((63, 191), N_RAND), levels((63, 191), STACKED_RAYS, STACKED_SCENES)
+    k3 = [(points(ro, rd, z, (-1,)), vd, g.reshape(4, -1).T.contiguous(), z.shape[-1])
+          for ro, rd, vd, z, g in train63]
+    k3s = [(points(ro, rd, z, (STACKED_SCENES, -1)), vd,
+            g.reshape(4, STACKED_SCENES, -1).permute(1, 2, 0).contiguous(), z.shape[-1])
+           for ro, rd, vd, z, g in stacked63]
+    k6, k6s = render_inputs(train, False), render_inputs(stacked, True)
+    return {
+        "K4": _event_ms(lambda: [fused_mlp.fused_rays_planes_bwd(kp, *lv, blobs) for lv in train]),
+        "K3": _event_ms(lambda: [fused_mlp.fused_points_bwd(kp, x, v, g, s, False, blobs)
+                                 for x, v, g, s in k3]),
+        "K6": _event_ms(lambda: [fused_render.fused_render_bwd(kp, *a[:6], *a[6], True, blobs)
+                                 for a in k6]),
+        "K4s": _event_ms(lambda: [fused_mlp.fused_rays_planes_stacked_bwd(skp, *lv, sblobs)
+                                  for lv in stacked]),
+        "K3s": _event_ms(lambda: [fused_mlp.fused_points_stacked_bwd(skp, x, v, g, s, sblobs)
+                                  for x, v, g, s in k3s]),
+        "K6s": _event_ms(lambda: [fused_render.fused_render_stacked_bwd(skp, *a[:6], *a[6], True,
+                                                                        sblobs) for a in k6s]),
+    }
+
+
 def time_step() -> None:
-    """Device ms a K4 training step (S=64 + S=192) by launch."""
+    """Device ms a K4 training step (S=64 + S=192) by launch, and the step
+    times of ``step_times``."""
     dev = torch.device("cuda")
     kp = _packed(256, dev)
     step = [_rays(S, N_RAND, S, dev) for S in TRAIN_S]
     split = k4_split(kp, fused_mlp.kernel_blobs(kp), step, REPS, WARMUP)
+    del step
+    steps = step_times(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"card": smi, "steps": REPS, **{f"{k}_ms": round(v, 3) for k, v in split.items()},
-                      "device_ms": round(sum(split.values()), 3)}))
+                      "device_ms": round(sum(split.values()), 3),
+                      **{f"{k}_step_ms": round(v, 3) for k, v in steps.items()}}))
 
 
 def main(argv) -> int:

@@ -1015,3 +1015,225 @@ def test_sliced_wide_backward_matches_unsliced(monkeypatch, one_torch_thread):
     for name, a, b in zip(fused_mlp.KP_NAMES, sliced, one):
         err = float((a - b).norm() / b.norm())
         assert a.shape == b.shape and err <= 1e-5, (name, err)
+
+
+# A model of the bf16 recompute's stores (csrc/fused_mlp_bwd.cu:
+# RecomputeHook.store_rows_sw at csrc/fwd_tile_sm90.cuh's hook points), one
+# agent a consumer warp: each warpgroup's 4 warps embed (warps 0-1 a point
+# each thread, 2-3 a view; staging rows in act's first blocks, then emb /
+# embv rows), meet at the warpgroup's named barrier, and run each layer:
+# products issued (wgmma reads all of act, or emb), the hook on the
+# previous output (warp w reads its 16-point quarter of the buffer and
+# writes those points' workspace rows and mask words), the barrier that
+# retires the products (finish_layer), the epilogue (warp w writes its own
+# 16 rows of act). hv's epilogue and hook sit between two barriers. Any
+# interleaving of the 8 warps must read each buffer as the output it
+# stores, rewrite no buffer before its readers are done, and write every
+# row and mask word of every tile once. Barrier phases as the card's
+# bar.sync: a warp goes on once all 4 of its warpgroup have arrived.
+TILE, HALF, QUARTER = 128, 64, 16
+
+
+class _NamedBarrier:
+    def __init__(self, count):
+        self.count, self.arrived, self.phase = count, 0, 0
+
+    def arrive(self):
+        """The phase to wait for (bar.sync: arrive, then wait)."""
+        self.arrived += 1
+        if self.arrived == self.count:
+            self.arrived, self.phase = 0, self.phase + 1
+            return self.phase - 1
+        return self.phase
+
+
+def _cta_tiles(walk, ntiles, sms, scenes):
+    """Each CTA's tiles in its walk's order: TileWalk over a grid of
+    min(tiles, sms); SceneWalk over scene_grid's (fwd_tile_sm90.cuh)."""
+    if walk == "tile":
+        return [list(range(x, ntiles, sms)) for x in range(min(ntiles, sms))]
+    tps = ntiles // scenes
+    gx = min(tps, max(1, sms // scenes))
+    return [list(range(y * tps + x, (y + 1) * tps, gx)) for y in range(scenes) for x in range(gx)]
+
+
+def _recompute_stores(W, dense, tiles, n_pad, rng, out):
+    """Runs one CTA's 8 consumer warps over ``tiles`` in a random
+    interleaving, adding each write of a workspace row / mask word element
+    to ``out`` (rows and masks: (count, warp, layer in flight) arrays);
+    raises AssertionError on a hazard or a deadlock."""
+    blocks = fused_mlp.ws_rows(W)[0]
+    nb = W // 64
+    ke, kv = fused_mlp.KE, fused_mlp.KV
+    spt, svw = 2 * (ke + 2), 2 * (kv + 2)  # staging row bytes (FWD_SPT, FWD_SVW)
+    lines = lambda lo, n: {(lo + k) // 128 for k in range(n)}  # noqa: E731 (128-byte lines)
+    cells = {}  # (wg, buffer, block, row) -> (what, readers still to read it)
+    bars = [_NamedBarrier(4) for _ in range(2)]
+    done = {}  # (wg, layer, tile) -> warps whose products retired
+
+    def write(wg, buf, blk, rows, what, warp):
+        for r in rows:
+            old = cells.get((wg, buf, blk, r))
+            assert old is None or not old[1], \
+                f"warp {warp} of {wg} rewrote {buf} {blk}/{r} before {sorted(old[1])} read {old[0]}"
+            cells[(wg, buf, blk, r)] = (what, set())
+
+    def expect(wg, buf, blk, rows, readers):
+        for r in rows:
+            cells[(wg, buf, blk, r)][1].update(readers)
+
+    def read(wg, buf, blk, rows, what, warp):
+        for r in rows:
+            got, left = cells.get((wg, buf, blk, r), (None, set()))
+            assert got == what, f"warp {warp} of {wg} read {buf} {blk}/{r}: {got}, not {what}"
+            left.discard(warp)
+
+    def hook(wg, warp, buf, blk0, ncols, what, row0, mrow, p0, layer):
+        """store_rows_sw on warp's quarter: read, then the rows and words."""
+        q = range(QUARTER * warp, QUARTER * (warp + 1))
+        for blk in range(blk0, blk0 + -(-ncols // 64)):
+            read(wg, buf, blk, q, what, warp)
+        p = p0 + QUARTER * warp
+        for arr, lo, n in ((out[0], row0, ncols), (out[1], mrow, ncols // 32)):
+            if lo is not None:
+                arr[0][lo:lo + n, p:p + QUARTER] += 1
+                arr[1][lo:lo + n, p:p + QUARTER] = warp
+                arr[2][lo:lo + n, p:p + QUARTER] = layer
+
+    def bar_sync(wg):
+        return ("bar", wg, bars[wg].arrive())
+
+    def epilogue(wg, warp, blks, what, layer, tile):
+        # finish_layer's barrier retired every warp's products of the layer
+        assert done.get((wg, layer, tile), 0) == 4, f"epilogue {layer} before the products retired"
+        for blk in blks:
+            write(wg, "act", blk, range(QUARTER * warp, QUARTER * (warp + 1)), what, warp)
+            expect(wg, "act", blk, range(QUARTER * warp, QUARTER * (warp + 1)), {warp})
+
+    def warp_program(wg, warp):
+        outs = [(f"h{i}", i * (W // 32)) for i in range(8)] + [("feat", None)]
+        for tile in tiles:
+            p0 = tile * TILE + wg * HALF
+            # embed_sw: each thread its staging row, then its emb / embv row
+            for t in range(32 * warp, 32 * warp + 32):
+                i, pts = t % HALF, t < HALF
+                lo = i * spt if pts else HALF * spt + i * svw
+                for ln in lines(lo, spt if pts else svw):
+                    write(wg, "act", ln // 64, [ln % 64], ("staging", tile), warp)
+                buf = "emb" if pts else "embv"
+                write(wg, buf, 0, [i], ("e", tile), warp)
+                quarter = i // QUARTER
+                expect(wg, buf, 0, [i], {quarter} if pts or dense else set())
+            yield bar_sync(wg)
+            for layer in range(10):  # products of layer; hook on the previous output
+                yield None
+                if layer == 0:
+                    hook(wg, warp, "emb", 0, ke, ("e", tile), blocks["e"][0], None, p0, 0)
+                    if dense:
+                        hook(wg, warp, "embv", 0, kv, ("e", tile), blocks["ev"][0], None, p0, 0)
+                else:
+                    name, mrow = outs[layer - 1]
+                    hook(wg, warp, "act", 0, W, (layer - 1, tile), blocks[name][0], mrow, p0,
+                         layer)
+                done[(wg, layer, tile)] = done.get((wg, layer, tile), 0) + 1
+                yield bar_sync(wg)  # finish_layer
+                if layer < 9:
+                    epilogue(wg, warp, range(nb), (layer, tile), layer, tile)
+                    yield bar_sync(wg)  # before the next layer's products
+                else:  # hv to act's first W/2 columns, between two barriers
+                    epilogue(wg, warp, range(W // 128), (9, tile), 9, tile)
+                    yield bar_sync(wg)
+                    hook(wg, warp, "act", 0, W // 2, (9, tile), blocks["hv"][0],
+                         8 * (W // 32), p0, 10)
+                    yield bar_sync(wg)
+
+    agents = [warp_program(wg, w) for wg in range(2) for w in range(4)]
+    waiting = [None] * len(agents)
+    live = list(range(len(agents)))
+    while live:
+        ready = [i for i in live
+                 if waiting[i] is None or bars[waiting[i][1]].phase > waiting[i][2]]
+        assert ready, "deadlock: every warp waits"
+        i = ready[rng.integers(len(ready))]
+        try:
+            waiting[i] = next(agents[i])
+        except StopIteration:
+            live.remove(i)
+
+
+# (mode, points, points a view direction covers): a direction per point
+# (the view embedding's rows too) and per ray; rays and points modes differ
+# in nothing else the stores see
+RECOMPUTE_MODEL_CASES = [("rays", 7 * 43, 43), ("rays", 300, 1), ("points", 301, 1),
+                         ("points", 768, 3)]
+
+
+@pytest.mark.parametrize("walk", ["tile", "scene"])
+@pytest.mark.parametrize("case", RECOMPUTE_MODEL_CASES, ids=lambda c: f"{c[0]}-{c[1]}-spr{c[2]}")
+@pytest.mark.parametrize("width", [128, 256])
+def test_recompute_stores_write_each_row_once(width, case, walk):
+    """The recompute's stores (the model above), in random interleavings of
+    a CTA's 8 consumer warps over 2 SMs' persistent grid (several tiles a
+    CTA) or 2 scenes' rows of it: no warp reads a buffer that holds another
+    output than the one it stores, no buffer is rewritten before its
+    readers have read it (the hook's quarter, the embedding's warps, the
+    products before the epilogue), nothing deadlocks, and every (feature,
+    point) of the workspace rows (e, h0..h7, feat, hv; ev with a direction
+    per point) and every mask word of h0..h7 and hv, padded points
+    included, is written once, by the warp of its point's quarter, while
+    the next layer's products run (hv's after the view layer)."""
+    mode, n, spr = case
+    scenes = 2 if walk == "scene" else 1
+    ntiles = scenes * -(-n // TILE)
+    n_pad = ntiles * TILE
+    blocks, rows_total = fused_mlp.ws_rows(width)
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        out = [[np.zeros((k, n_pad), np.int64) for _ in range(3)]
+               for k in (rows_total, fused_mlp.mask_rows(width))]
+        for tiles in _cta_tiles(walk, ntiles, 2, scenes):
+            _recompute_stores(width, spr == 1, tiles, n_pad, rng, out)
+        (rows, rwarp, rlayer), (masks, mwarp, mlayer) = out
+        want = np.zeros_like(rows)
+        layer = np.zeros_like(rows)
+        names = ["e"] + [f"h{j}" for j in range(8)] + ["feat", "hv", "ev"]
+        for name, at in zip(names, [0, *range(1, 10), 10, 0]):
+            r0, k = blocks[name]
+            if name != "ev" or spr == 1:
+                want[r0:r0 + k], layer[r0:r0 + k] = 1, at
+        quarter = (np.arange(n_pad) % HALF) // QUARTER
+        assert np.array_equal(rows, want)
+        assert np.array_equal(rlayer[want > 0], layer[want > 0])
+        assert np.array_equal(rwarp[want > 0], np.broadcast_to(quarter, want.shape)[want > 0])
+        assert np.array_equal(masks, np.ones_like(masks))
+        mask_layer = np.repeat(np.r_[np.arange(1, 9), 10], [width // 32] * 8 + [width // 64])
+        assert np.array_equal(mlayer, np.broadcast_to(mask_layer[:, None], masks.shape))
+        assert np.array_equal(mwarp, np.broadcast_to(quarter, masks.shape))
+
+
+@pytest.mark.parametrize("spr", [1, 2])
+def test_stacked_recompute_columns_are_each_scenes(spr):
+    """``bwd_recompute_stacked``'s layout, which the card test holds the
+    stacked launch to: scene s's padded points (``_pad_points``) in columns
+    [s * P_pad, (s + 1) * P_pad) of every workspace row and mask word, each
+    scene through its own net; on the CPU its plain version."""
+    S, P = 2, 100
+    kps = [fused_mlp.pack_params(NeRFMLP(CFG, seed=s, device="cpu"), PE_P, PE_V, torch.bfloat16)
+           for s in range(S)]
+    kp = {k: torch.stack([q[k] for q in kps]) for k in kps[0]}
+    rng = np.random.default_rng(spr)
+    x = torch.from_numpy(rng.uniform(-1, 1, (S, P, 3)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((S, P // spr, 3)).astype(np.float32))
+    got = fused_mlp.bwd_recompute_stacked(kp, x, v, spr)
+    P_pad = fused_mlp._pad_points(P, spr)
+    assert P_pad % 128 == 0 and got.raw is None
+    assert got.masks.shape == (fused_mlp.mask_rows(W), S * P_pad)
+    for s in range(S):
+        xp = torch.nn.functional.pad(x[s], (0, 0, 0, P_pad - P))
+        vp = torch.nn.functional.pad(v[s], (0, 0, 0, (P_pad - P) // spr))
+        one = fused_mlp.bwd_recompute(kps[s], xp, vp, spr)
+        cols = slice(s * P_pad, (s + 1) * P_pad)
+        assert sorted(got.rows) == sorted(k for k in one.rows if k != "ev" or spr == 1)
+        for name, rows in got.rows.items():
+            assert torch.equal(rows[:, cols], one.rows[name]), (s, name)
+        assert torch.equal(got.masks[:, cols], one.masks), s

@@ -133,10 +133,16 @@ def _same_bits(a, b):
                                               b.contiguous().view(torch.int32))
 
 
+# (R, S) of the recompute's card test: 1, 127, 129 and 33,984 points (the
+# tile's edges and the persistent grid's wrap) and 301 (a ragged third tile)
+RECOMPUTE_SHAPES = ((1, 1), (127, 1), (3, 43), (7, 43), (531, 64))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [128, 256])
 @pytest.mark.parametrize("mode", ["rays", "points, a direction per point"])
-def test_bwd_recompute_is_the_forward_tile(cuda_device, width, mode):
+@pytest.mark.parametrize("shape", RECOMPUTE_SHAPES, ids=lambda s: f"{s[0] * s[1]}pts")
+def test_bwd_recompute_is_the_forward_tile(cuda_device, width, mode, shape):
     """ROADMAP C.4's gate: the bf16 backward's recompute launch (K4's and
     K3's first), with raw, gives K1's (K2's) raw bit for bit; its mask words
     are its own rows' signs; each layer's rows lie within a bf16 ulp of that
@@ -145,7 +151,7 @@ def test_bwd_recompute_is_the_forward_tile(cuda_device, width, mode):
     point; without raw it writes the same."""
     mlp = NeRFMLP(MLPConfig(width=width), seed=width, device=cuda_device)
     kp = fused_mlp.pack_params(mlp, PE_P, PE_V, torch.bfloat16)
-    R, S = 7, 43  # 301 points: a ragged third tile
+    R, S = shape
     ro, rd, vd, z = _rays(width + 1, R, S, cuda_device)
     x = fused_mlp._ray_points(ro, rd, z)
     if mode == "rays":
@@ -160,7 +166,7 @@ def test_bwd_recompute_is_the_forward_tile(cuda_device, width, mode):
         fwd = fused_mlp.fused_points(kp, x, v, spr)
     torch.cuda.synchronize()
     assert _same_bits(got.raw, fwd)
-    assert got.masks.shape == (fused_mlp.mask_rows(width), 384)
+    assert got.masks.shape == (fused_mlp.mask_rows(width), -(-R * S // 128) * 128)
     for i, name in enumerate([f"h{j}" for j in range(8)] + ["hv"]):
         rows = got.rows[name]
         bits = fused_mlp.unpack_mask_bits(got.masks[i * (width // 32) :], rows.shape[0])
@@ -190,6 +196,39 @@ def test_bwd_recompute_is_the_forward_tile(cuda_device, width, mode):
     mask_share = sum(int(((flips >> b) & 1).sum()) for b in range(32)) / (32 * flips.numel())
     print(f"recompute W={width} {mode}: mask bits differing from the plain chain {mask_share:.2e}")
     assert mask_share <= RECOMPUTE_MASK_SHARE, mask_share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("P,spr", [(301, 1), (256, 2)])
+def test_stacked_recompute_is_each_scenes_own(cuda_device, width, P, spr):
+    """The stacked recompute (SceneWalk: each scene a row of the grid, on its
+    own net) writes every scene's workspace rows and mask words bit for bit
+    as that scene's own launch does on its padded points, the padded tiles
+    included, and the mask words are the rows' signs."""
+    S = 3
+    kps = [fused_mlp.pack_params(NeRFMLP(MLPConfig(width=width), seed=width + s,
+                                         device=cuda_device), PE_P, PE_V, torch.bfloat16)
+           for s in range(S)]
+    kp = {k: torch.stack([q[k] for q in kps]) for k in kps[0]}
+    rng = np.random.default_rng(width + P)
+    x = torch.from_numpy(rng.uniform(-1.5, 1.5, (S, P, 3)).astype(np.float32)).to(cuda_device)
+    v = rng.standard_normal((S, P // spr, 3)).astype(np.float32)
+    v = torch.from_numpy(v / np.linalg.norm(v, axis=-1, keepdims=True)).to(cuda_device)
+    got = fused_mlp.bwd_recompute_stacked(kp, x, v, spr)
+    P_pad = fused_mlp._pad_points(P, spr)
+    assert got.masks.shape == (fused_mlp.mask_rows(width), S * P_pad)
+    (xp,), (vp,) = fused_mlp._padded((x,), P_pad), fused_mlp._padded((v,), P_pad // spr)
+    for s in range(S):
+        one = fused_mlp.bwd_recompute(kps[s], xp[s], vp[s], spr)
+        cols = slice(s * P_pad, (s + 1) * P_pad)
+        assert sorted(one.rows) == sorted(got.rows)
+        for name, rows in one.rows.items():
+            assert _same_bits(got.rows[name][:, cols].contiguous(), rows), (s, name)
+        assert torch.equal(got.masks[:, cols], one.masks), s
+    for i, name in enumerate([f"h{j}" for j in range(8)] + ["hv"]):
+        bits = fused_mlp.unpack_mask_bits(got.masks[i * (width // 32) :], got.rows[name].shape[0])
+        assert torch.equal(bits, (got.rows[name] > 0).T), name
 
 
 # the chain's blocks against each block's one product on the kernel's own
